@@ -47,8 +47,13 @@ setup(
         "TPU-native single-cluster ETL -> training framework "
         "(distributed Arrow DataFrames + JAX estimators with XLA collectives)"
     ),
-    packages=find_packages(include=["raydp_tpu", "raydp_tpu.*"]),
-    package_data={"raydp_tpu.store": ["native/*.cpp", "native/build.sh"]},
+    packages=find_packages(
+        include=["raydp_tpu", "raydp_tpu.*", "raydp_tpu_torch", "raydp_tpu_torch.*"]
+    ),
+    package_data={
+        "raydp_tpu.store": ["native/*.cpp", "native/build.sh"],
+        "raydp_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "numpy",
