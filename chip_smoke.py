@@ -312,7 +312,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
                 require(not res["error"], f"stream {sid}: {res['error']}")
                 if res["done"]:
                     done.add(sid)
-            time.sleep(0.001)
+            time.sleep(0.005)  # a client's poll period; the engine stamps TTFT/TPOT itself
         wall = time.perf_counter() - t0
         records = [eng.explain(sid) for sid in sids]
         stats = eng.stats()
@@ -360,7 +360,38 @@ def phase_serve(device) -> dict:
     require(int8_run["launches"]["flash_decode_int8"] > 0,
             "int8 decode kernel never launched")
     return {"prompt_lens": [len(p) for p in prompts], "logits": logits,
-            "runs": runs}
+            "runs": runs, "profile": profile_serve(model, prompts, device)}
+
+
+def profile_serve(model, prompts, device) -> dict:
+    """One more f32-cache serving run under torch.profiler (after the
+    counted runs): the device's busy share of the wall and its time by
+    kernel. Reports None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run = serve(model, prompts, False, device)
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host ops; their kernels are events of their own
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {
+        "wall_ms": 1e3 * run["wall_s"],
+        "device_busy_ms": busy_ms if by_name else None,
+        "device_busy_share": busy_ms / (1e3 * run["wall_s"]) if by_name else None,
+        "top_device_ms": top,
+    }
+    log(f"profile (f32 cache, profiler on): wall {out['wall_ms']:.1f} ms, "
+        f"device busy {busy_ms:.1f} ms; top: "
+        + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top))
+    return out
 
 
 # ---------------------------------------------------------------------------

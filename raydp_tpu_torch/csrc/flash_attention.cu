@@ -19,7 +19,9 @@
 // What this design does about it: this first version is exact and simple,
 // not fast. It computes in f32 on the CUDA cores (no tensor cores, no TMA):
 // one warp per query row, one key per lane, K/V tiles of kBlockK keys staged
-// in shared memory and shared by every row of the block. A loop over k-tiles
+// in shared memory and shared by every row of the block; the next tile's
+// loads are in flight, in registers, while the current one is computed.
+// A loop over k-tiles
 // inside the block replaces the TPU's sequential k-block grid axis, so the
 // running (m, l, o) of a row stay in registers. Causal rows skip the k-tiles
 // that lie entirely in their future; decode reads only the rows below each
@@ -93,27 +95,48 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage one k-tile of K (transposed, kT[d][j], row stride kBlockK + 1 so
-// that both the staging writes and the per-lane reads are free of bank
-// conflicts) and V (vt[j][d]) as f32. Rows at or past n_valid are written as
-// zeros: they are masked anyway, and zero V keeps p * v exact (0 * 0) where
-// the cache holds stale or uninitialised values.
-template <int D, class LK, class LV>
-__device__ __forceinline__ void stage_kv(const LK& lk, const LV& lv,
-                                         size_t row0, int n_valid, float* kT,
+// One k-tile of K and V as f32, spread over the block's NT threads' registers.
+// Loading the next tile into registers before the current one is computed,
+// and storing it to shared memory after, keeps every thread's loads in
+// flight together and overlaps them with the compute.
+template <int D, int NT>
+struct KVTile {
+  static constexpr int kPer = kBlockK * D / NT;  // elements per thread
+  float k[kPer];
+  float v[kPer];
+};
+
+// Rows at or past n_valid are loaded as zeros: they are masked anyway, and
+// zero V keeps p * v exact (0 * 0) where the cache holds stale or
+// uninitialised values.
+template <int D, int NT, class LK, class LV>
+__device__ __forceinline__ void load_kv(const LK& lk, const LV& lv,
+                                        size_t row0, int n_valid,
+                                        KVTile<D, NT>& tile) {
+#pragma unroll
+  for (int u = 0; u < KVTile<D, NT>::kPer; ++u) {
+    const int i = threadIdx.x + u * NT;
+    const int j = i / D;
+    const size_t row = row0 + j;
+    const bool ok = j < n_valid;
+    tile.k[u] = ok ? lk(row * D + i % D, row) : 0.f;
+    tile.v[u] = ok ? lv(row * D + i % D, row) : 0.f;
+  }
+}
+
+// Stage the tile: K transposed (kT[d][j], row stride kBlockK + 1 so that both
+// these writes and the per-lane reads are free of bank conflicts), V as
+// vt[j][d].
+template <int D, int NT>
+__device__ __forceinline__ void store_kv(const KVTile<D, NT>& tile, float* kT,
                                          float* vt) {
-  for (int i = threadIdx.x; i < kBlockK * D; i += blockDim.x) {
+#pragma unroll
+  for (int u = 0; u < KVTile<D, NT>::kPer; ++u) {
+    const int i = threadIdx.x + u * NT;
     const int j = i / D;
     const int d = i % D;
-    float kx = 0.f;
-    float vx = 0.f;
-    if (j < n_valid) {
-      const size_t row = row0 + j;
-      kx = lk(row * D + d, row);
-      vx = lv(row * D + d, row);
-    }
-    kT[d * (kBlockK + 1) + j] = kx;
-    vt[j * D + d] = vx;
+    kT[d * (kBlockK + 1) + j] = tile.k[u];
+    vt[j * D + d] = tile.v[u];
   }
 }
 
@@ -209,12 +232,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
 
+  const LoadPlain<T> lk{k};
+  const LoadPlain<T> lv{v};
+  KVTile<D, kFwdWarps * 32> tile;
+  if (n_tiles > 0) load_kv(lk, lv, kbase, min(kBlockK, tk), tile);
   for (int ti = 0; ti < n_tiles; ++ti) {
     const int kt0 = ti * kBlockK;
     __syncthreads();  // the previous tile is consumed; q is staged
-    stage_kv<D>(LoadPlain<T>{k}, LoadPlain<T>{v}, kbase + kt0,
-                min(kBlockK, tk - kt0), kT, vt);
+    store_kv(tile, kT, vt);
     __syncthreads();
+    if (ti + 1 < n_tiles) {  // in flight while this tile is computed
+      load_kv(lk, lv, kbase + kt0 + kBlockK, min(kBlockK, tk - kt0 - kBlockK),
+              tile);
+    }
     const int k_first = k_off + kt0;
     if (has_row && (!causal || q_pos >= k_first)) {
       const bool live =
@@ -277,11 +307,17 @@ flash_decode_kernel(const TQ* __restrict__ q, LK lk, LV lv,
 #pragma unroll
   for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
 
+  KVTile<D, kDecWarps * 32> tile;
+  if (n_tiles > 0) load_kv(lk, lv, kbase, min(kBlockK, valid), tile);
   for (int ti = 0; ti < n_tiles; ++ti) {
     const int kt0 = ti * kBlockK;
     __syncthreads();
-    stage_kv<D>(lk, lv, kbase + kt0, min(kBlockK, valid - kt0), kT, vt);
+    store_kv(tile, kT, vt);
     __syncthreads();
+    if (ti + 1 < n_tiles) {
+      load_kv(lk, lv, kbase + kt0 + kBlockK,
+              min(kBlockK, valid - kt0 - kBlockK), tile);
+    }
     if (has_row && q_pos >= kt0) {
       const bool live = kt0 + lane < valid && q_pos >= kt0 + lane;
       row_update<D>(qs + warp * D, kT, vt, live, scale, m, l, acc, lane);

@@ -45,20 +45,13 @@ def _attend(q, k, v, *, impl: str, causal: bool):
 
 
 def _scatter_rows(cache, new, starts):
-    """Write ``new`` [B, H, t, D] into ``cache`` [B, H, T, D] at per-batch
-    positions ``starts`` [B] along the sequence dim, IN PLACE (the JAX
-    version returns a new array; the engine hands in freshly gathered
-    caches, so writing into them saves a copy). Returns ``cache``."""
-    b, _, t, _ = new.shape
-    pos = starts.to(torch.int64)[:, None] + torch.arange(t, device=cache.device)
-    bi = torch.arange(b, device=cache.device)[:, None].expand(b, t)
-    cache[bi, :, pos] = new.transpose(1, 2).to(cache.dtype)
-    return cache
-
-
-def _scatter_scales(cache, new, starts):
-    """``_scatter_rows`` for [B, H, T] per-row scale planes (in place)."""
-    b, _, t = new.shape
+    """Write ``new`` [B, H, t, ...] into ``cache`` [B, H, T, ...] at
+    per-batch positions ``starts`` [B] along the sequence dim, IN PLACE:
+    K/V rows [.., D] and per-row scale planes alike (the JAX package's
+    ``_scatter_rows`` and ``_scatter_scales``). The JAX version returns a
+    new array; the engine hands in freshly gathered caches, so writing into
+    them saves a copy. Returns ``cache``."""
+    b, t = new.shape[0], new.shape[2]
     pos = starts.to(torch.int64)[:, None] + torch.arange(t, device=cache.device)
     bi = torch.arange(b, device=cache.device)[:, None].expand(b, t)
     cache[bi, :, pos] = new.transpose(1, 2).to(cache.dtype)
@@ -94,8 +87,8 @@ def _decode_attend(q, k_new, v_new, decode_kv, kv_len):
         _scatter_rows(k8, kq, starts),
         _scatter_rows(v8, vq, starts),
         kv_len,
-        k_scale=_scatter_scales(k_sc, kqs, starts),
-        v_scale=_scatter_scales(v_sc, vqs, starts),
+        k_scale=_scatter_rows(k_sc, kqs, starts),
+        v_scale=_scatter_rows(v_sc, vqs, starts),
     )
 
 
