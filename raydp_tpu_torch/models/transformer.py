@@ -181,7 +181,8 @@ class TransformerLM(nn.Module):
             )
         if quantized_mlp:
             raise NotImplementedError(
-                "quantized_mlp (int8 MLP products) is ported in a later slice"
+                "quantized_mlp (int8 MLP products) is ported with the "
+                "TransformerLM training slice"
             )
         device = resolve_device(device)
         self.vocab_size = vocab_size
