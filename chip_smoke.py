@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``raydp_tpu_torch``) on one NVIDIA
-card: the quickest proof that the port builds, is right and serves.
+card: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -10,11 +10,13 @@ Phases; any failure exits non-zero and prints no result line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them, build the kernels from ``raydp_tpu_torch/csrc`` and print the
    build seconds.
-2. Kernels vs their plain PyTorch versions on the card, at the slice's
-   shapes: ``flash_fwd`` (causal and not, offsets 0 and nonzero, f32 and
-   bf16), ``flash_decode`` (mixed kv_len), ``flash_decode_int8`` (against
-   ``flash_decode`` on the dequantized cache), and decode vs the prefill
-   row (f32, bitwise expected).
+2. Kernels vs their plain PyTorch versions on the card, at the slices'
+   shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
+   0 and nonzero, f32 and bf16; the two-term body bitwise equal to the
+   one-pass one), ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the same cases;
+   two launches bitwise equal), ``flash_decode`` (mixed kv_len),
+   ``flash_decode_int8`` (against ``flash_decode`` on the dequantized
+   cache), and decode vs the prefill row (f32, bitwise expected).
 3. Decode serving of ``TransformerLM`` at full width (vocab 2048, d_model
    1024, 8 heads of 128, 4 layers, bf16, seeded random weights) through
    ``DecodeEngine`` (capacity 2048, pages of 128, 4 slots, 32 new tokens)
@@ -23,10 +25,21 @@ Phases; any failure exits non-zero and prints no result line:
    run and read just after; every kernel of the path must have launched.
    One stream's prefill and first-step logits are held against the same
    weights on the plain attention path (``attn_impl="full"``).
-4. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
-   events, warm, median), its plain version's time, the time of
-   ``F.scaled_dot_product_attention`` on the same inputs as a yardstick
-   (the port never calls it), and the least time the card could take.
+4. Training of ``TransformerLM`` at full width (bench.py's
+   ``bench_transformer_lm``: batch 2, T 8192, Adam 3e-4, tokens from
+   ``np.random.default_rng(17)``, seeded random weights): one warm step and
+   8 timed steps, the loss falling, 4 launches of ``flash_fwd``,
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` per step; tokens/s, step ms, MFU,
+   the device's busy share of one profiled step, attention's share (the
+   same step with ``attn_impl="skip"``), and peak memory with and without
+   ``remat``. At T 2048: gradients against the plain attention path
+   (``attn_impl="full"``), and the step with ``RAYDP_TPU_FLASH_ONEPASS=0``
+   bitwise equal to the one-pass step through ``flash_fwd_twoterm``.
+5. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
+   events, warm, median), its plain version's time, the time of one
+   PyTorch call computing the same function as a yardstick (the port never
+   calls it: ``F.scaled_dot_product_attention``, its backward for the
+   backward pair), and the least time the card could take.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -36,6 +49,8 @@ The last two lines are a ``{"kernels": [...]}`` object and
 from __future__ import annotations
 
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -48,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from raydp_tpu_torch.models.transformer import TransformerLM
+from raydp_tpu_torch.obs.costmodel import lm_train_flops_per_step
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops import flash_attention as fa
 from raydp_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
@@ -63,17 +79,26 @@ N_STREAMS = 8
 PROMPT_LENS = (64, 1500)
 DECODE_LENS = [17, 500, 1300, 2048]
 SEED = 0
+# bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
+# tokens from default_rng(17); 1 warm step, 8 timed
+TRAIN = dict(batch=2, seq=8192, steps=8, lr=3e-4, token_seed=17)
+GRAD_CHECK_T = 2048
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32
 # CUDA-core peaks
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
 
-SOURCE = "raydp_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {
-    "flash_fwd": "raydp_tpu/ops/flash_attention.py:305",
-    "flash_decode": "raydp_tpu/ops/flash_attention.py:833",
-    "flash_decode_int8": "raydp_tpu/ops/flash_attention.py:833",
+FWD_SOURCE = "raydp_tpu_torch/csrc/flash_attention.cu"
+BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward.cu"
+# kernel -> (source, the pallas_call of the TPU kernel it replaces)
+KERNELS = {
+    "flash_fwd": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
+    "flash_fwd_twoterm": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
+    "flash_bwd_dq": (BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
+    "flash_bwd_dkv": (BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
+    "flash_decode": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
+    "flash_decode_int8": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
 }
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -158,28 +183,39 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED)
     out = {}
 
-    # flash_fwd: normalized (offsets 0) and the stats surface (offsets)
+    # flash_fwd (one-pass) and flash_fwd_twoterm: normalized (offsets 0)
+    # and the stats surface (offsets); the two bodies bitwise equal
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
         q, k, v = (_randn(gen, (1, bh_heads, t, d), dtype, device)
                    for _ in range(3))
         for causal in (False, True):
             for q_off, k_off, normalize in ((0, 0, True), (t // 4, t // 8, False)):
-                o, m, l = fa.flash_attention_call(  # noqa: E741
-                    q, k, v, q_off, k_off, causal, normalize)
-                po, pm, pl = fa.flash_attention_call_plain(
-                    q, k, v, q_off, k_off, causal, normalize)
-                if not normalize:  # compare the attention, o / l
-                    o = o / torch.clamp(l, min=1e-30)[..., None]
-                    po = po / torch.clamp(pl, min=1e-30)[..., None]
-                name = (f"flash_fwd {str(dtype)[6:]} causal={causal} "
+                case = (f"{str(dtype)[6:]} causal={causal} "
                         f"offsets=({q_off},{k_off}) normalize={normalize}")
-                err = max_abs(o, po)
-                m_ok = torch.allclose(m, pm, rtol=1e-5, atol=1e-6)
-                l_ok = torch.allclose(l, pl, rtol=1e-5, atol=1e-6)
-                log(f"{name}: max|o-plain| {err:.3e} (atol {atol}) "
-                    f"m ok {m_ok} l ok {l_ok}")
-                require(err <= atol and m_ok and l_ok, f"{name} disagrees")
-                out[name] = err
+                got = {}
+                for onepass in (True, False):
+                    name = ("flash_fwd " if onepass else "flash_fwd_twoterm ") + case
+                    o, m, l = fa.flash_attention_call(  # noqa: E741
+                        q, k, v, q_off, k_off, causal, normalize, onepass)
+                    got[onepass] = (o, m, l)
+                    po, pm, pl = fa.flash_attention_call_plain(
+                        q, k, v, q_off, k_off, causal, normalize, onepass)
+                    if not normalize:  # compare the attention, o / l
+                        o = o / torch.clamp(l, min=1e-30)[..., None]
+                        po = po / torch.clamp(pl, min=1e-30)[..., None]
+                    err = max_abs(o, po)
+                    m_ok = torch.allclose(m, pm, rtol=1e-5, atol=1e-6)
+                    l_ok = torch.allclose(l, pl, rtol=1e-5, atol=1e-6)
+                    log(f"{name}: max|o-plain| {err:.3e} (atol {atol}) "
+                        f"m ok {m_ok} l ok {l_ok}")
+                    require(err <= atol and m_ok and l_ok, f"{name} disagrees")
+                    out[name] = err
+                bitwise = all(torch.equal(a, b)
+                              for a, b in zip(got[True], got[False]))
+                log(f"flash_fwd_twoterm == flash_fwd bitwise ({case}): {bitwise}")
+                require(bitwise, f"two-term body differs from one-pass ({case})")
+
+    out.update(check_backward(gen, device, bh_heads, t, d))
 
     # flash_decode at the main path's shapes: B = slots, mixed kv_len
     b = len(lens)
@@ -234,6 +270,46 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
         f"bitwise {bitwise}")
     require(worst <= 1e-5, "decode disagrees with the prefill row")
     out["decode_vs_prefill"] = {"max_abs": worst, "bitwise": bitwise}
+    return out
+
+
+def bwd_inputs(gen, shape, dtype, device, q_off=0, k_off=0, causal=True):
+    """q, k, v, g and the forward's lse and dsum = rowsum(g * o)."""
+    q, k, v, g = (_randn(gen, shape, dtype, device) for _ in range(4))
+    o, m, l = fa.flash_attention_call(q, k, v, q_off, k_off, causal, True)  # noqa: E741
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    dsum = (g.float() * o.float()).sum(dim=-1)
+    return q, k, v, lse, dsum, g
+
+
+def check_backward(gen, device, bh_heads, t, d) -> dict:
+    """flash_bwd_dq / flash_bwd_dkv against flash_backward_blocks_plain:
+    f32 max|d| <= 1e-4; bf16 <= 2e-2 * max|plain| per output, compared in
+    f32. Two launches must give the same bits (no atomics)."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for q_off, k_off in ((0, 0), (t // 4, t // 8)):
+                args = bwd_inputs(gen, (1, bh_heads, t, d), dtype, device,
+                                  q_off, k_off, causal)
+                got = fa.flash_backward_blocks(*args, q_off, k_off, causal)
+                again = fa.flash_backward_blocks(*args, q_off, k_off, causal)
+                ref = fa.flash_backward_blocks_plain(*args, q_off, k_off, causal)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                errs = [max_abs(a, b) for a, b in zip(got, ref)]
+                limits = [1e-4 if dtype == torch.float32
+                          else 2e-2 * float(r.float().abs().max()) for r in ref]
+                case = (f"{str(dtype)[6:]} causal={causal} "
+                        f"offsets=({q_off},{k_off})")
+                log(f"flash_bwd {case}: max|d-plain| dq {errs[0]:.3e} dk "
+                    f"{errs[1]:.3e} dv {errs[2]:.3e} (limits "
+                    f"{', '.join(f'{x:.3e}' for x in limits)}); two launches "
+                    f"bitwise {same}")
+                require(all(e <= lim for e, lim in zip(errs, limits)),
+                        f"flash_bwd {case} disagrees")
+                require(same, f"flash_bwd {case} differs between launches")
+                out[f"flash_bwd_dq {case}"] = errs[0]
+                out[f"flash_bwd_dkv {case}"] = max(errs[1:])
     return out
 
 
@@ -371,6 +447,16 @@ def profile_serve(model, prompts, device) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = serve(model, prompts, False, device)
+    out = device_share(prof, 1e3 * run["wall_s"])
+    log(f"profile (f32 cache, profiler on): wall {out['wall_ms']:.1f} ms, "
+        f"device busy {out['device_busy_ms']} ms; top: "
+        + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in out["top_device_ms"]))
+    return out
+
+
+def device_share(prof, wall_ms: float) -> dict:
+    """The device's busy time over a profiled window of ``wall_ms`` and its
+    time by kernel; None where the profiler saw no device time."""
     by_name = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -381,21 +467,196 @@ def profile_serve(model, prompts, device) -> dict:
         if dev_us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = {
-        "wall_ms": 1e3 * run["wall_s"],
+    return {
+        "wall_ms": wall_ms,
         "device_busy_ms": busy_ms if by_name else None,
-        "device_busy_share": busy_ms / (1e3 * run["wall_s"]) if by_name else None,
-        "top_device_ms": top,
+        "device_busy_share": busy_ms / wall_ms if by_name else None,
+        "top_device_ms": sorted(by_name.items(), key=lambda kv: -kv[1])[:8],
     }
-    log(f"profile (f32 cache, profiler on): wall {out['wall_ms']:.1f} ms, "
-        f"device busy {busy_ms:.1f} ms; top: "
-        + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in top))
-    return out
 
 
 # ---------------------------------------------------------------------------
-# phase 4: kernel times beside their bounds
+# phase 4: training at full width
+# ---------------------------------------------------------------------------
+
+
+def train_tokens(batch, t, vocab, device):
+    """bench.py's tokens: default_rng(17) draws [batch, t + 1]; inputs are
+    the first t, targets the last t."""
+    rng = np.random.default_rng(TRAIN["token_seed"])
+    tok = rng.integers(0, vocab, (batch, t + 1), dtype=np.int32)
+    tok = torch.from_numpy(tok).to(device=device, dtype=torch.int64)
+    return tok[:, :-1].contiguous(), tok[:, 1:].contiguous()
+
+
+def lm(attn_impl, device, max_len, **kw):
+    return TransformerLM(**MODEL, max_len=max_len, attn_impl=attn_impl,
+                         device=device, seed=SEED, **kw)
+
+
+def lm_loss(model, tokens, targets):
+    logits = model(tokens)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def train_step(model, opt, tokens, targets):
+    """bench.py's step: forward, mean cross-entropy, backward, Adam."""
+    opt.zero_grad(set_to_none=True)
+    loss = lm_loss(model, tokens, targets)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def loss_and_grads(model, tokens, targets):
+    model.zero_grad(set_to_none=True)
+    loss = lm_loss(model, tokens, targets)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+
+def grad_gap(grads, ref) -> tuple:
+    """(worst per-tensor ||g - ref|| / ||ref||, whether all are bitwise)."""
+    worst = max(float((grads[n].float() - g.float()).norm()
+                      / g.float().norm().clamp_min(1e-30)) for n, g in ref.items())
+    return worst, all(torch.equal(grads[n], g) for n, g in ref.items())
+
+
+def timed_steps(model, opt, tokens, targets, steps):
+    """One warm step, then ``steps`` timed steps fenced by loss.item(), as
+    bench.py fences them. Returns (first loss, losses, seconds)."""
+    first = train_step(model, opt, tokens, targets).item()
+    t0 = time.perf_counter()
+    losses = [train_step(model, opt, tokens, targets) for _ in range(steps)]
+    losses[-1].item()
+    return first, [float(x) for x in losses], time.perf_counter() - t0
+
+
+def phase_train(device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    vocab = MODEL["vocab_size"]
+    tokens, targets = train_tokens(b, t, vocab, device)
+    model = lm("flash", device, t + 1)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN["lr"])
+    fa.reset_launches()
+    first, losses, dt = timed_steps(model, opt, tokens, targets, steps)
+    launches = dict(fa.LAUNCHES)
+    per_step = {n: launches[n] / (steps + 1) for n in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"train: loss {first:.4f} (warm step) -> {losses[-1]:.4f} after "
+        f"{steps} more; launches per step {per_step}")
+    require(all(math.isfinite(x) for x in [first, *losses]), "loss not finite")
+    require(losses[-1] < first, "loss did not fall")
+    require(all(n == MODEL["num_layers"] for n in per_step.values()),
+            f"launches per step {per_step}, expected {MODEL['num_layers']} each")
+    flops = lm_train_flops_per_step(b, t, MODEL["d_model"], MODEL["num_layers"],
+                                    vocab)
+    tok_s = steps * b * t / dt
+    out = {
+        "shape": f"batch {b}, T {t}, bf16, {MODEL}",
+        "first_loss": first, "losses": losses, "launches": launches,
+        "tokens_s": tok_s, "step_ms": 1e3 * dt / steps,
+        "flops_per_step": flops,
+        "mfu": tok_s * flops / (b * t) / PEAK_OPS_S["bf16"],
+    }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, tokens, targets).item()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_share(prof, wall_ms)
+    del model, opt
+
+    skip = lm("skip", device, t + 1)
+    _, _, skip_dt = timed_steps(
+        skip, torch.optim.Adam(skip.parameters(), lr=TRAIN["lr"]), tokens,
+        targets, 3)
+    del skip
+    out["skip_step_ms"] = 1e3 * skip_dt / 3
+    out["attention_share"] = 1 - out["skip_step_ms"] / out["step_ms"]
+    prof_out = out["profile"]
+    log(f"train: {tok_s:.1f} tokens/s, step {out['step_ms']:.2f} ms, MFU "
+        f"{out['mfu']:.4f} (bf16 peak 989 TFLOP/s); without attention "
+        f"{out['skip_step_ms']:.2f} ms (attention {out['attention_share']:.3f} "
+        f"of the step); profiled step: wall {prof_out['wall_ms']:.1f} ms, "
+        f"device busy {prof_out['device_busy_ms']} ms; top: "
+        + "; ".join(f"{n[:50]} {ms:.2f}" for n, ms in prof_out["top_device_ms"]))
+    out["remat"] = remat_memory(device, tokens, targets, t + 1)
+    out["grad_check"] = grad_check(device, t + 1)
+    return out
+
+
+def remat_memory(device, tokens, targets, max_len) -> dict:
+    """Peak device memory of one forward+backward with remat off and on,
+    from the same weights; the same loss and gradients within 1e-3."""
+    peaks, runs = {}, {}
+    for remat in (False, True):
+        model = lm("flash", device, max_len, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs[remat] = loss_and_grads(model, tokens, targets)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated()
+        del model
+    (loss, grads), (r_loss, r_grads) = runs[False], runs[True]
+    worst, bitwise = grad_gap(r_grads, grads)
+    loss_rel = abs(float(r_loss) - float(loss)) / abs(float(loss))
+    bitwise = bitwise and torch.equal(r_loss, loss)
+    log(f"remat: peak {peaks[False] / 2**30:.3f} GiB -> {peaks[True] / 2**30:.3f} "
+        f"GiB; loss rel {loss_rel:.2e}, worst grad rel {worst:.2e} (limit "
+        f"1e-3), bitwise {bitwise}")
+    require(peaks[True] < peaks[False], "remat did not lower peak memory")
+    require(loss_rel <= 1e-3 and worst <= 1e-3, "remat changed loss or gradients")
+    return {"peak_bytes": peaks[False], "remat_peak_bytes": peaks[True],
+            "loss_rel": loss_rel, "worst_grad_rel": worst, "bitwise": bitwise}
+
+
+def grad_check(device, max_len) -> dict:
+    """At T = GRAD_CHECK_T, one step's loss and gradients through the
+    kernels against the plain attention path from the same weights
+    (|dloss| <= 5e-2, per tensor ||g - g_full|| / ||g_full|| <= 5e-2); then
+    the same step with RAYDP_TPU_FLASH_ONEPASS=0 through flash_fwd_twoterm,
+    bitwise equal to the one-pass step."""
+    tokens, targets = train_tokens(TRAIN["batch"], GRAD_CHECK_T,
+                                   MODEL["vocab_size"], device)
+    full = lm("full", device, max_len)
+    ref_loss, ref_grads = loss_and_grads(full, tokens, targets)
+    del full
+    flash = lm("flash", device, max_len)
+    loss, grads = loss_and_grads(flash, tokens, targets)
+    dloss = abs(float(loss) - float(ref_loss))
+    worst, _ = grad_gap(grads, ref_grads)
+    log(f"grad check (T {GRAD_CHECK_T}) vs plain attention path: |dloss| "
+        f"{dloss:.3e}, worst grad rel {worst:.3e} (limits 5e-2)")
+    require(dloss <= 5e-2 and worst <= 5e-2, "gradients disagree with the plain path")
+
+    saved = os.environ.get("RAYDP_TPU_FLASH_ONEPASS")
+    os.environ["RAYDP_TPU_FLASH_ONEPASS"] = "0"
+    fa.reset_launches()
+    try:
+        two_loss, two_grads = loss_and_grads(flash, tokens, targets)
+        torch.cuda.synchronize()
+    finally:
+        if saved is None:
+            del os.environ["RAYDP_TPU_FLASH_ONEPASS"]
+        else:
+            os.environ["RAYDP_TPU_FLASH_ONEPASS"] = saved
+    launches = dict(fa.LAUNCHES)
+    _, bitwise = grad_gap(two_grads, grads)
+    bitwise = bitwise and torch.equal(two_loss, loss)
+    log(f"two-term step (RAYDP_TPU_FLASH_ONEPASS=0): launches {launches}; "
+        f"loss and gradients bitwise equal to the one-pass step: {bitwise}")
+    require(launches["flash_fwd_twoterm"] == MODEL["num_layers"]
+            and launches["flash_fwd"] == 0, "the two-term body did not run")
+    require(bitwise, "the two-term step differs from the one-pass step")
+    return {"dloss": dloss, "worst_grad_rel": worst,
+            "twoterm_launches": launches, "twoterm_bitwise": bitwise}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel times beside their bounds
 # ---------------------------------------------------------------------------
 
 
@@ -460,6 +721,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "library_ms": None,
         "bound_ms": bound, "bound_by": by,
     }
+    out.update(train_times(device, heads, d))
     for name, row in out.items():
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         log(f"time {name} [{row['shape']}]: {row['ms']:.4f} ms, plain "
@@ -468,25 +730,100 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
     return out
 
 
-def kernels_line(checks: dict, served: dict, times: dict) -> dict:
+def train_times(device, heads, d) -> dict:
+    """The training path's kernels at its shapes, q/k/v [2, H, 8192, D] bf16
+    causal; plain versions at [1, H, 2048, D] (their Python tile loops take
+    seconds at the training shape). Library yardstick for the backward
+    pair: the backward of F.scaled_dot_product_attention (forward+backward
+    less forward), the same figure on both rows."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    shape = (b, heads, t, d)
+    q, k, v, lse, dsum, g = bwd_inputs(gen, shape, torch.bfloat16, device)
+    small = bwd_inputs(gen, (1, heads, GRAD_CHECK_T, d), torch.bfloat16, device)
+    pairs = b * heads * t * (t + 1) // 2  # live (query, key) pairs
+    elems = q.numel()
+    rows_bytes = 2 * b * heads * t * 4  # two f32 row statistics
+    name = f"q/k/v [{b},{heads},{t},{d}] bf16 causal"
+    plain_name = f"[1,{heads},{GRAD_CHECK_T},{d}] bf16 causal"
+
+    def fwd(onepass):
+        return lambda: fa.flash_attention_call(q, k, v, 0, 0, True, True, onepass)
+
+    def plain_fwd(onepass):
+        return lambda: fa.flash_attention_call_plain(
+            *small[:3], 0, 0, True, True, onepass)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
+
+    pair_ms = time_ms(sdpa_fwd_bwd, iters=5, reps=5) - time_ms(sdpa_fwd, iters=5, reps=5)
+    fwd_bound = _bound(4 * elems * 2 + rows_bytes, 4 * d * pairs, "bf16")
+    out = {}
+    for key, onepass in (("flash_fwd_train", True), ("flash_fwd_twoterm", False)):
+        out[key] = {
+            "shape": name, "plain_shape": plain_name,
+            "ms": time_ms(fwd(onepass), iters=2, reps=3),
+            "plain_ms": time_ms(plain_fwd(onepass), iters=2, reps=3),
+            "library_ms": time_ms(sdpa, iters=5, reps=5),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        }
+    args = (q, k, v, lse, dsum, g, 0, 0, True)
+    for key, fn, plain, n_out, ops in (
+        ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+        ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+    ):
+        bound = _bound((4 + n_out) * elems * 2 + rows_bytes, ops * d * pairs, "bf16")
+        out[key] = {
+            "shape": name, "plain_shape": plain_name,
+            "ms": time_ms(lambda fn=fn: fn(*args), iters=2, reps=3),
+            "plain_ms": time_ms(lambda plain=plain: plain(*small, 0, 0, True),
+                                iters=2, reps=3),
+            "library_ms": pair_ms, "library": "pair",
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+    return out
+
+
+def kernels_line(checks: dict, served: dict, trained: dict, times: dict) -> dict:
+    """One entry per kernel. Launches: each kernel's count from the run of
+    the path it serves (serving for flash_fwd and the decode kernels, plus
+    training for flash_fwd; training for the backward pair; the
+    RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm)."""
     launches = {}
-    for run in served["runs"]:
-        for name, n in run["launches"].items():
-            launches[name] = launches.get(name, 0) + n
+    for counts in ([run["launches"] for run in served["runs"]]
+                   + [trained["launches"]]):
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "flash_decode", "flash_decode_int8"):
+            launches[name] = launches.get(name, 0) + counts[name]
+    launches["flash_fwd_twoterm"] = \
+        trained["grad_check"]["twoterm_launches"]["flash_fwd_twoterm"]
+    case = "bfloat16 causal=True offsets=(0,0)"
     errors = {
-        "flash_fwd": checks["flash_fwd bfloat16 causal=True offsets=(0,0) normalize=True"],
+        "flash_fwd": checks[f"flash_fwd {case} normalize=True"],
+        "flash_fwd_twoterm": checks[f"flash_fwd_twoterm {case} normalize=True"],
+        "flash_bwd_dq": checks[f"flash_bwd_dq {case}"],
+        "flash_bwd_dkv": checks[f"flash_bwd_dkv {case}"],
         "flash_decode": checks[f"flash_decode q bfloat16 kv_len={DECODE_LENS}"],
         "flash_decode_int8": checks["flash_decode_int8 q bfloat16"],
     }
     return {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name]["ms"],
          "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
          "library_ms": times[name]["library_ms"]}
-        for name in REPLACES
+        for name, (source, replaces) in KERNELS.items()
     ]}
 
 
@@ -502,8 +839,10 @@ def main() -> int:
     record = {"device": phase_device()}
     record["checks"] = phase_kernels(device)
     record["serve"] = phase_serve(device)
+    record["train"] = phase_train(device)
     record["times"] = phase_times(device)
-    kernels = kernels_line(record["checks"], record["serve"], record["times"])
+    kernels = kernels_line(record["checks"], record["serve"], record["train"],
+                           record["times"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -511,6 +850,8 @@ def main() -> int:
         {k: run[k] for k in ("cache", "decode_tok_s", "ttft_ms_p50",
                              "tpot_ms_p50", "prefill_ms_p50")}
         for run in record["serve"]["runs"]]}))
+    log(json.dumps({"training": {k: record["train"][k] for k in (
+        "tokens_s", "step_ms", "mfu", "attention_share")}}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,9 @@
 // Replaces, in raydp_tpu/ops/flash_attention.py:
 //   flash_fwd          <- _flash_kernel_onepass, launched by pallas_call in
 //                         _flash_call (flash_attention / flash_attention_stats)
+//   flash_fwd_twoterm  <- _flash_kernel, the same call with onepass=False
+//                         (RAYDP_TPU_FLASH_ONEPASS=0): the same kernel with
+//                         the two-term update, which always rescales
 //   flash_decode       <- _decode_kernel via _decode_body, launched by
 //                         pallas_call in flash_decode
 //   flash_decode_int8  <- _decode_kernel_int8, the same call with int8 K/V and
@@ -31,34 +34,19 @@
 // failover contract of docs/serving.md ("Determinism and failover").
 // Every rounding step is an explicit _rn intrinsic so that the compiler
 // cannot contract the two kernels' arithmetic differently.
+//
+// The two-term body (kTwoTerm) computes alpha = exp(m - m_new) and
+// fma(alpha, acc, pv) on every tile. Where the max did not move, alpha is
+// exp(0) == 1 exactly and fma(1, a, b) rounds like a + b, so it equals the
+// one-pass body bit for bit; it costs one exp and D/32 + 1 multiplies more
+// per row and tile. Decode keeps the one-pass body.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockK = 32;    // keys per k-tile: one per lane of a warp
 constexpr int kFwdWarps = 16;  // prefill: query rows per block, one warp each
 constexpr int kDecWarps = 4;   // decode: warps per block (rows, and K/V loads)
-constexpr float kNegInf = -1e30f;  // masked score; -inf would make 0*inf NaNs
-constexpr unsigned kFull = 0xffffffffu;
-
-enum DType { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
 
 // Cache readers: element idx of row `row` as f32. Plain f32/bf16 values, or
 // int8 values times the row's f32 scale (the inverse of quantize_int8).
@@ -77,23 +65,6 @@ struct LoadInt8 {
     return __fmul_rn(static_cast<float>(p[idx]), scale[row]);
   }
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  }
-  return x;
-}
-
-// Butterfly sum: a + b == b + a, so every lane ends with the same bits.
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    x = __fadd_rn(x, __shfl_xor_sync(kFull, x, off));
-  }
-  return x;
-}
 
 // One k-tile of K and V as f32, spread over the block's NT threads' registers.
 // Loading the next tile into registers before the current one is computed,
@@ -144,8 +115,9 @@ __device__ __forceinline__ void store_kv(const KVTile<D, NT>& tile, float* kT,
 // prefill and decode kernels. Lane j scores key j; lane i holds output
 // elements i, i + 32, ... The rescale of (l, o) runs only when the row max
 // moved (the one-pass body of _flash_kernel_onepass); otherwise alpha would
-// be exp(0) == 1 and the multiply is skipped as an exact identity.
-template <int D>
+// be exp(0) == 1 and the multiply is skipped as an exact identity. With
+// kTwoTerm it always runs (the two-term body of _flash_kernel).
+template <int D, bool kTwoTerm = false>
 __device__ __forceinline__ void row_update(const float* qrow, const float* kT,
                                            const float* vt, bool key_live,
                                            float scale, float& m, float& l,
@@ -175,7 +147,7 @@ __device__ __forceinline__ void row_update(const float* qrow, const float* kT,
     }
   }
 
-  if (block_max > m) {  // warp-uniform
+  if (kTwoTerm || block_max > m) {  // warp-uniform
     const float alpha = expf(__fsub_rn(m, m_new));
     l = __fmaf_rn(alpha, l, p_sum);
 #pragma unroll
@@ -188,18 +160,9 @@ __device__ __forceinline__ void row_update(const float* qrow, const float* kT,
   m = m_new;
 }
 
-template <int D, typename T>
-__device__ __forceinline__ void stage_q(const T* q, size_t row0, int rows,
-                                        int max_rows, float* qs) {
-  for (int i = threadIdx.x; i < max_rows * D; i += blockDim.x) {
-    const int r = i / D;
-    qs[i] = r < rows ? to_f32(q[(row0 + r) * D + i % D]) : 0.f;
-  }
-}
-
 // Prefill: q [BH, T, D], k/v [BH, Tk, D] -> o [BH, T, D] (T, or f32 when
 // out_f32), m/l [BH, T] f32. grid (ceil(T / kFwdWarps), BH).
-template <int D, typename T>
+template <int D, typename T, bool kTwoTerm>
 __global__ void __launch_bounds__(kFwdWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, void* __restrict__ o,
@@ -218,7 +181,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int rows = min(kFwdWarps, t - row0);
   const size_t qbase = bh * t;
   const size_t kbase = bh * tk;
-  stage_q<D>(q, qbase + row0, rows, kFwdWarps, qs);
+  stage_rows<D>(q, qbase + row0, rows, kFwdWarps, qs);
 
   const bool has_row = warp < rows;
   const int q_pos = q_off + row0 + warp;
@@ -249,7 +212,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (has_row && (!causal || q_pos >= k_first)) {
       const bool live =
           kt0 + lane < tk && (!causal || q_pos >= k_first + lane);
-      row_update<D>(qs + warp * D, kT, vt, live, scale, m, l, acc, lane);
+      row_update<D, kTwoTerm>(qs + warp * D, kT, vt, live, scale, m, l, acc,
+                              lane);
     }
   }
 
@@ -294,7 +258,7 @@ flash_decode_kernel(const TQ* __restrict__ q, LK lk, LV lv,
   const int rows = min(kDecWarps, tq - row0);
   const size_t qbase = bh * tq;
   const size_t kbase = bh * tk;
-  stage_q<D>(q, qbase + row0, rows, kDecWarps, qs);
+  stage_rows<D>(q, qbase + row0, rows, kDecWarps, qs);
 
   const bool has_row = warp < rows;
   const int q_pos = len - tq + row0 + warp;
@@ -338,20 +302,14 @@ constexpr size_t smem_bytes(int q_rows) {
   return sizeof(float) * (D * (kBlockK + 1) + kBlockK * D + q_rows * D);
 }
 
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
 template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                float* l, int bh, int t, int tk, int q_off, int k_off,
-               int causal, int normalize, int out_f32, float scale,
-               cudaStream_t stream) {
+               int causal, int normalize, int out_f32, int onepass,
+               float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(kFwdWarps);
-  auto kernel = flash_fwd_kernel<D, T>;
+  auto kernel = onepass ? flash_fwd_kernel<D, T, false>
+                        : flash_fwd_kernel<D, T, true>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t + kFwdWarps - 1) / kFwdWarps, bh);
@@ -430,14 +388,15 @@ const char* rtt_error_string(int code) {
 
 // Returns cudaGetLastError() after the launch (0 on success); an unsupported
 // head dim or dtype returns cudaErrorInvalidValue without launching.
+// onepass = 0 launches the two-term body (flash_fwd_twoterm).
 int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* m, float* l, int bh, int t, int tk, int d, int dtype,
                   int q_off, int k_off, int causal, int normalize, int out_f32,
-                  float scale, void* stream) {
+                  int onepass, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RTT_FWD(D, T)                                                         \
   return launch_fwd<D, T>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
-                          normalize, out_f32, scale, s)
+                          normalize, out_f32, onepass, scale, s)
   if (d == 64 && dtype == kF32) RTT_FWD(64, float);
   if (d == 64 && dtype == kBF16) RTT_FWD(64, __nv_bfloat16);
   if (d == 128 && dtype == kF32) RTT_FWD(128, float);

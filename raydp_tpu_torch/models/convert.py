@@ -2,8 +2,10 @@
 state_dict.
 
 The flax tree is ``Embed_0/embedding``, ``pos_embed``,
-``Block_i/{LayerNorm_0, qkv, proj, LayerNorm_1, Dense_0, Dense_1}``,
-``LayerNorm_0`` and ``lm_head``. Flax ``Dense`` kernels are [in, out];
+``Block_i/{LayerNorm_0, qkv, proj, LayerNorm_1, Dense_0, Dense_1}``
+(``CheckpointBlock_i`` when the flax model was built with ``remat``),
+``LayerNorm_0`` and ``lm_head``. A gradient tree has the same structure
+and converts the same way. Flax ``Dense`` kernels are [in, out];
 ``nn.Linear`` weights are [out, in], so every kernel is transposed.
 """
 
@@ -41,8 +43,9 @@ def params_from_flax(params: dict) -> dict:
         "pos_embed": _t(tree["pos_embed"]),
     }
     layer = 0
-    while f"Block_{layer}" in tree:
-        block = tree[f"Block_{layer}"]
+    prefix = "CheckpointBlock" if "CheckpointBlock_0" in tree else "Block"
+    while f"{prefix}_{layer}" in tree:
+        block = tree[f"{prefix}_{layer}"]
         for name, ours in _BLOCK_DENSE.items():
             _dense(out, f"blocks.{layer}.{ours}", block[name])
         for name, ours in _BLOCK_NORM.items():

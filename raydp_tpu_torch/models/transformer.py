@@ -1,20 +1,24 @@
 """Causal transformer LM: the counterpart of
-``raydp_tpu/models/transformer.py`` for the decode-serving slice.
+``raydp_tpu/models/transformer.py`` for decode serving and training.
 
 ``TransformerLM`` and ``Block`` compute what the flax modules compute, with
 the flax defaults that PyTorch does not share written out: LayerNorm with
 eps 1e-6 and f32 statistics, tanh-approximate GELU, ``qkv`` split into
 contiguous thirds before the head reshape, ``lm_head`` in f32 on the model
 dtype's activations, and an f32 ``pos_embed`` cast to the model dtype after
-slicing. The dense layers hold their weights in the model dtype (bf16 by
-default), as flax casts its f32 params before every product.
+slicing. Every parameter is f32 (flax's ``param_dtype``); the dense layers
+and the embedding cast theirs to the model dtype (bf16 by default) at each
+use, as flax does, so an optimizer updates f32 weights.
 
-Attention is ``"full"`` (plain PyTorch) or ``"flash"`` (the hand-written
-kernels on CUDA). Incremental decode (``kv_caches``/``kv_len``) scatters the
-new rows' K/V into each sequence's cache at its own length and attends with
+Attention is ``"full"`` (plain PyTorch), ``"flash"`` (the hand-written
+kernels on CUDA, differentiable through the flash backward) or ``"skip"``
+(identity: the step without attention, for a roofline split). ``remat``
+recomputes each block's activations in the backward
+(``torch.utils.checkpoint``), the counterpart of ``nn.remat(Block)``.
+Incremental decode (``kv_caches``/``kv_len``) scatters the new rows' K/V
+into each sequence's cache at its own length and attends with
 ``ops.flash_decode``, from f32 caches or int8 caches with per-row scales.
-Ring and Ulysses attention, activation checkpointing and the int8 MLP
-belong to later slices.
+Ring and Ulysses attention and the int8 MLP belong to later slices.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.ops.flash_attention import flash_attention, flash_decode
@@ -37,6 +42,9 @@ _LATER = {
 
 
 def _attend(q, k, v, *, impl: str, causal: bool):
+    if impl == "skip":
+        # diagnostic: attention as identity isolates the rest of the step
+        return v
     if impl == "full":
         return full_attention(q, k, v, causal=causal)
     if impl == "flash":
@@ -115,17 +123,22 @@ class Block(nn.Module):
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.dtype = dtype
         self.ln1 = LayerNorm(d_model, dtype)
-        self.qkv = nn.Linear(d_model, 3 * d_model, dtype=dtype)
-        self.proj = nn.Linear(d_model, d_model, dtype=dtype)
+        self.qkv = nn.Linear(d_model, 3 * d_model)
+        self.proj = nn.Linear(d_model, d_model)
         self.ln2 = LayerNorm(d_model, dtype)
-        self.fc1 = nn.Linear(d_model, 4 * d_model, dtype=dtype)
-        self.fc2 = nn.Linear(4 * d_model, d_model, dtype=dtype)
+        self.fc1 = nn.Linear(d_model, 4 * d_model)
+        self.fc2 = nn.Linear(4 * d_model, d_model)
+
+    def _dense(self, layer: nn.Linear, x):
+        """flax ``nn.Dense(dtype=...)``: f32 params cast at use."""
+        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
     def forward(self, x, *, decode_kv=None, kv_len=None, return_kv=False):
         b, t, d_model = x.shape
         head_dim = d_model // self.num_heads
-        q, k, v = self.qkv(self.ln1(x)).split(d_model, dim=-1)
+        q, k, v = self._dense(self.qkv, self.ln1(x)).split(d_model, dim=-1)
 
         def heads(z):  # [B, T, D] -> [B, H, T, Dh]
             return z.reshape(b, t, self.num_heads, head_dim).transpose(1, 2)
@@ -135,8 +148,9 @@ class Block(nn.Module):
             o = _decode_attend(q_h, k_h, v_h, decode_kv, kv_len)
         else:
             o = _attend(q_h, k_h, v_h, impl=self.attn_impl, causal=True)
-        x = x + self.proj(o.transpose(1, 2).reshape(b, t, d_model))
-        y = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
+        x = x + self._dense(self.proj, o.transpose(1, 2).reshape(b, t, d_model))
+        h = F.gelu(self._dense(self.fc1, self.ln2(x)), approximate="tanh")
+        y = self._dense(self.fc2, h)
         out = x + y
         if decode_kv is not None or return_kv:
             # the new rows' K/V in head layout for the caller's paged cache
@@ -172,17 +186,12 @@ class TransformerLM(nn.Module):
             raise NotImplementedError(
                 f"attn_impl={attn_impl!r} is ported in {_LATER[attn_impl]}"
             )
-        if attn_impl not in ("full", "flash"):
+        if attn_impl not in ("full", "flash", "skip"):
             raise ValueError(f"unknown attention impl {attn_impl!r}")
-        if remat:
-            raise NotImplementedError(
-                "remat (activation checkpointing) is ported with the "
-                "TransformerLM training slice"
-            )
         if quantized_mlp:
             raise NotImplementedError(
-                "quantized_mlp (int8 MLP products) is ported with the "
-                "TransformerLM training slice"
+                "quantized_mlp (the int8 MLP product) is ported in a later "
+                "slice of TransformerLM training"
             )
         device = resolve_device(device)
         self.vocab_size = vocab_size
@@ -192,8 +201,9 @@ class TransformerLM(nn.Module):
         self.max_len = max_len
         self.attn_impl = attn_impl
         self.dtype = dtype
+        self.remat = remat
 
-        self.embed = nn.Embedding(vocab_size, d_model, dtype=dtype)
+        self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, attn_impl, dtype) for _ in range(num_layers)
@@ -232,7 +242,8 @@ class TransformerLM(nn.Module):
         decode = kv_caches is not None
         tokens = torch.as_tensor(tokens, device=self.device).long()
         b, t = tokens.shape
-        x = self.embed(tokens)
+        # flax Embed promotes its table to the model dtype, then takes rows
+        x = F.embedding(tokens, self.embed.weight.to(self.dtype))
         steps = torch.arange(t, device=self.device)
         if decode:
             kv_len = torch.as_tensor(kv_len, device=self.device).to(torch.int64)
@@ -248,6 +259,8 @@ class TransformerLM(nn.Module):
             elif return_kv:
                 x, kv = block(x, return_kv=True)
                 new_kv.append(kv)
+            elif self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
             else:
                 x = block(x)
         logits = self.lm_head(self.ln_f(x).float())

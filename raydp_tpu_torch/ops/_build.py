@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per
-source, all started together) and links them into one shared library with a
+source, all started together; ``csrc/*.cuh`` are their shared headers and
+count in the hash) and links them into one shared library with a
 plain C interface, which ``ctypes`` loads. The library is built at first use
 into ``build/raydp_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, under a file lock so that concurrent processes build it
@@ -40,9 +41,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "rtt_error_string": ([_I], ctypes.c_char_p),
     # q, k, v, o, m, l, bh, t, tk, d, dtype, q_off, k_off, causal,
-    # normalize, out_f32, scale, stream
+    # normalize, out_f32, onepass, scale, stream
     "rtt_flash_fwd": (
-        [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P], _I,
+        [_P] * 6 + [_I] * 11 + [ctypes.c_float, _P], _I,
+    ),
+    # q, k, v, do, lse, dsum, dq, bh, t, tk, d, dtype, q_off, k_off,
+    # causal, scale, stream
+    "rtt_flash_bwd_dq": (
+        [_P] * 7 + [_I] * 8 + [ctypes.c_float, _P], _I,
+    ),
+    # q, k, v, do, lse, dsum, dk, dv, bh, t, tk, d, dtype, q_off, k_off,
+    # causal, scale, stream
+    "rtt_flash_bwd_dkv": (
+        [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I,
     ),
     # q, k, v, k_scale, v_scale, kv_len, o, b, h, tq, tk, d, q_dtype,
     # kv_dtype, scale, stream

@@ -210,6 +210,10 @@ def test_launch_counters_ignore_plain_versions():
     q, k, v = _t(*_qkv(1, 1, 32, 32))
     fa.flash_attention(q, k, v, causal=True)
     fa.flash_decode(q[:, :, :1], k, v, torch.tensor([5]))
+    q.requires_grad_()
+    fa.flash_attention(q, k, v, causal=True).sum().backward()
+    fa.flash_attention_call(q.detach(), k, v, onepass=False)
     assert fa.LAUNCHES == {
-        "flash_fwd": 0, "flash_decode": 0, "flash_decode_int8": 0
+        "flash_fwd": 0, "flash_fwd_twoterm": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkv": 0, "flash_decode": 0, "flash_decode_int8": 0,
     }

@@ -137,8 +137,8 @@ def test_decode_step_matches_flax(int8):
 
 @pytest.mark.parametrize(
     "kwargs",
-    [{"attn_impl": "ring"}, {"attn_impl": "ulysses_flash"}, {"remat": True},
-     {"quantized_mlp": True}],
+    [{"attn_impl": "ring"}, {"attn_impl": "ulysses_flash"},
+     {"attn_impl": "ring_flash"}, {"quantized_mlp": True}],
 )
 def test_later_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
@@ -146,10 +146,15 @@ def test_later_slice_options_raise(kwargs):
 
 
 def test_construction_is_seeded_and_bf16_by_default():
+    """bf16 is the default model dtype: the forward runs in bf16 while every
+    parameter stays f32, as flax's param_dtype."""
     a = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", seed=3)
     b = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", seed=3)
-    assert a.blocks[0].qkv.weight.dtype == torch.bfloat16
-    assert a.pos_embed.dtype == torch.float32
+    assert a.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in a.parameters())
+    with torch.inference_mode():
+        _, kv = a(torch.zeros((1, 8), dtype=torch.int64), return_kv=True)
+    assert kv[0][0].dtype == torch.bfloat16
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     c = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", seed=4)
