@@ -17,8 +17,12 @@ Phases; any failure exits non-zero and prints no result line:
    two launches bitwise equal), all four again at the training path's own
    shape (q/k/v/do [2,8,8192,128] bf16 causal), ``flash_decode`` (mixed
    kv_len), ``flash_decode_int8`` (against ``flash_decode`` on the
-   dequantized cache), and decode vs the prefill row (f32, bitwise
-   expected).
+   dequantized cache), decode vs the prefill row (f32, bitwise
+   expected), and ``interaction_fwd`` against ``dot_interaction_plain`` at
+   the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
+   shape [2048,27,16] and at batch 2047 (f32 atol 1e-5 * max|plain|, bf16
+   2e-2 * max|plain|; two launches bitwise equal), with its input gradient
+   against the plain version's autograd (f32, 1e-5 relative).
 3. Decode serving of ``TransformerLM`` at full width (vocab 2048, d_model
    1024, 8 heads of 128, 4 layers, bf16, seeded random weights) through
    ``DecodeEngine`` (capacity 2048, pages of 128, 4 slots, 32 new tokens)
@@ -38,11 +42,23 @@ Phases; any failure exits non-zero and prints no result line:
    ``flash_fwd_twoterm``, bitwise equal to the one-pass step; peak memory
    with and without ``remat``. At T 2048: gradients against the plain
    attention path (``attn_impl="full"``), and the two-term step again.
+   Then DLRM training through the estimator at full width (bench.py's
+   ``bench_dlrm``: 6 tables of width 16 with vocabularies 100000 to 100,
+   8 dense features, MLPs (128, 64), f32, seeded random weights; 100,000
+   rows of bench.py's input form from ``np.random.default_rng(11)``, the
+   label the parity of the vocab-100 id ``c5``, batch 2048): 3 epochs of
+   Adam 1e-3 on BCE and ``evaluate``, the loss falling by 10%; one launch of
+   ``interaction_fwd`` per forward pass (48 steps an epoch, 49 evaluation
+   batches); training samples/s and step ms from epochs 2-3, the device's
+   busy share of one profiled epoch, peak memory and MFU; one epoch with
+   ``dlrm_optimizer()``; one step's loss and every gradient through the
+   kernel against the einsum path (1e-5 relative).
 5. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
    events, warm, median), its plain version's time, the time of one
    PyTorch call computing the same function as a yardstick (the port never
    calls it: ``F.scaled_dot_product_attention``, its backward for the
-   backward pair), and the least time the card could take.
+   backward pair, ``torch.bmm`` and the triangle gather, a pair of calls,
+   for ``interaction_fwd``), and the least time the card could take.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -52,6 +68,7 @@ The last two lines are a ``{"kernels": [...]}`` object and
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -66,11 +83,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raydp_tpu_torch.estimator import Estimator
+from raydp_tpu_torch.exchange.dataset import ArrayDataset
+from raydp_tpu_torch.models.dlrm import DLRM, dlrm_optimizer
 from raydp_tpu_torch.models.transformer import TransformerLM
 from raydp_tpu_torch.obs.costmodel import (lm_nonattn_flops_per_step,
-                                            lm_train_flops_per_step)
+                                            lm_train_flops_per_step,
+                                            mlp_train_flops_per_step)
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops import flash_attention as fa
+from raydp_tpu_torch.ops import interaction as ia
 from raydp_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
 from raydp_tpu_torch.serve.decode import DecodeEngine
 
@@ -88,6 +110,17 @@ SEED = 0
 # tokens from default_rng(17); 1 warm step, 8 timed
 TRAIN = dict(batch=2, seq=8192, steps=8, lr=3e-4, token_seed=17)
 GRAD_CHECK_T = 2048
+# bench.py bench_dlrm (the BASELINE.json headline workload), uncut: its model,
+# BENCH_DLRM_ROWS' default of 100,000 rows, batch 2048, Adam 1e-3, inputs
+# from default_rng(11)
+DLRM_MODEL = dict(vocab_sizes=[100_000, 10_000, 1_000, 1_000, 100, 100],
+                  num_dense=8, embed_dim=16, bottom_mlp=(128, 64),
+                  top_mlp=(128, 64))
+DLRM_RUN = dict(rows=100_000, batch=2048, epochs=3, lr=1e-3, data_seed=11)
+# the DLRM path's interaction input, [batch, 1 + tables, width], and the
+# Criteo Kaggle setting of facebookresearch/dlrm: 13 dense features through
+# the bottom MLP and 26 tables of width 16 (--arch-sparse-feature-size=16)
+INTERACTION_SHAPES = {"path": (2048, 7, 16), "kaggle": (2048, 27, 16)}
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32
 # CUDA-core peaks
@@ -104,6 +137,8 @@ KERNELS = {
     "flash_bwd_dkv": (BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
     "flash_decode": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
     "flash_decode_int8": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
+    "interaction_fwd": ("raydp_tpu_torch/csrc/interaction.cu",
+                        "raydp_tpu/ops/interaction.py:159"),
 }
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -290,6 +325,52 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
         f"bitwise {bitwise}")
     require(worst <= 1e-5, "decode disagrees with the prefill row")
     out["decode_vs_prefill"] = {"max_abs": worst, "bitwise": bitwise}
+    out.update(check_interaction(gen, device))
+    return out
+
+
+def interaction_case(b, f, d, dtype) -> str:
+    return f"interaction_fwd [{b},{f},{d}] {str(dtype)[6:]}"
+
+
+def check_interaction(gen, device) -> dict:
+    """interaction_fwd against dot_interaction_plain on the same inputs: at
+    the DLRM path's shape in f32 and bf16, at the Criteo Kaggle shape, and
+    at a batch that is not a tile multiple; f32 atol 1e-5 * max|plain|, bf16
+    2e-2 * max|plain|; two launches bitwise equal. Then the wrapper's input
+    gradient against autograd through the plain version (f32, 1e-5
+    relative)."""
+    (pb, pf, pd), (kb, kf, kd) = (INTERACTION_SHAPES["path"],
+                                  INTERACTION_SHAPES["kaggle"])
+    out = {}
+    for b, f, d, dtype in ((pb, pf, pd, torch.float32),
+                           (pb, pf, pd, torch.bfloat16),
+                           (kb, kf, kd, torch.float32),
+                           (kb, kf, kd, torch.bfloat16),
+                           (pb - 1, pf, pd, torch.float32)):
+        t = _randn(gen, (b, f, d), dtype, device)
+        got, again = ia.interaction_fwd(t), ia.interaction_fwd(t)
+        ref = ia.dot_interaction_plain(t)
+        err = max_abs(got, ref)
+        limit = (1e-5 if dtype == torch.float32 else 2e-2) * float(
+            ref.float().abs().max())
+        same = torch.equal(got, again)
+        name = interaction_case(b, f, d, dtype)
+        log(f"{name}: max|out-plain| {err:.3e} (limit {limit:.3e}); two "
+            f"launches bitwise {same}")
+        require(got.dtype == dtype and err <= limit, f"{name} disagrees")
+        require(same, f"{name} differs between launches")
+        out[name] = err
+
+    t = _randn(gen, (pb, pf, pd), torch.float32, device).requires_grad_()
+    g = _randn(gen, (pb, pf * (pf - 1) // 2), torch.float32, device)
+    (grad,) = torch.autograd.grad((ia.dot_interaction_kernel(t) * g).sum(), t)
+    (ref,) = torch.autograd.grad((ia.dot_interaction_plain(t) * g).sum(), t)
+    rel = float((grad - ref).norm() / ref.norm())
+    log(f"interaction input gradient [{pb},{pf},{pd}] f32 vs the plain "
+        f"version's autograd: {rel:.3e} relative (limit 1e-5)")
+    require(rel <= 1e-5, "interaction gradient disagrees with the plain path")
+    out["interaction_grad_rel"] = rel
     return out
 
 
@@ -523,18 +604,28 @@ def profile_serve(model, prompts, device) -> dict:
     return out
 
 
-def device_share(prof, wall_ms: float) -> dict:
-    """The device's busy time over a profiled window of ``wall_ms`` and its
-    time by kernel; None where the profiler saw no device time."""
+def device_ms_by_name(prof) -> dict:
+    """Device milliseconds of a profiled window by kernel name. A user
+    annotation (``Optimizer.step#Adam.step``) is also reported on the
+    device's timeline, as a range over the kernels it launched: it is
+    skipped, or those kernels would count twice."""
     by_name = {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host ops; their kernels are events of their own
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue  # host ops and annotations; kernels are events of their own
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(evt, "self_cuda_time_total", 0)
         if dev_us > 0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + dev_us / 1e3
+    return by_name
+
+
+def device_share(prof, wall_ms: float) -> dict:
+    """The device's busy time over a profiled window of ``wall_ms`` and its
+    time by kernel; None where the profiler saw no device time."""
+    by_name = device_ms_by_name(prof)
     busy_ms = sum(by_name.values())
     return {
         "wall_ms": wall_ms,
@@ -756,6 +847,154 @@ def grad_check(device, max_len) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: DLRM training through the estimator at full width
+# ---------------------------------------------------------------------------
+
+
+def dlrm_data():
+    """bench.py's input form for 100,000 rows: dense from rng.random, ids
+    from rng.integers per table, default_rng(11); the label is the parity
+    of the vocab-100 id c5, a signal the embedding can learn (random labels
+    would leave the loss flat)."""
+    rng = np.random.default_rng(DLRM_RUN["data_seed"])
+    n = DLRM_RUN["rows"]
+    dense = rng.random((n, DLRM_MODEL["num_dense"])).astype(np.float32)
+    ids = np.stack([rng.integers(0, v, n) for v in DLRM_MODEL["vocab_sizes"]],
+                   axis=1).astype(np.int32)
+    dense_cols = [f"i{i}" for i in range(dense.shape[1])]
+    cat_cols = [f"c{j}" for j in range(ids.shape[1])]
+    columns = {c: dense[:, i] for i, c in enumerate(dense_cols)}
+    columns.update({c: ids[:, j] for j, c in enumerate(cat_cols)})
+    columns["label"] = (ids[:, 5] % 2).astype(np.float32)
+    return ArrayDataset(columns), dense_cols, cat_cols
+
+
+def dlrm_estimator(device, dense_cols, cat_cols, optimizer, epochs):
+    return Estimator(
+        model=functools.partial(DLRM, **DLRM_MODEL), optimizer=optimizer,
+        loss="bce", feature_columns=dense_cols + cat_cols,
+        categorical_columns=cat_cols, label_column="label",
+        batch_size=DLRM_RUN["batch"], num_epochs=epochs,
+        learning_rate=DLRM_RUN["lr"], seed=SEED, device=device)
+
+
+def dlrm_flops_per_step(batch: int) -> int:
+    """Matmul FLOPs of one DLRM step: the bottom MLP with bottom_proj and
+    the top MLP with the head (mlp_train_flops_per_step), and the
+    interaction's triangle, 2 * D per pair, the backward twice the
+    forward."""
+    m = DLRM_MODEL
+    features = 1 + len(m["vocab_sizes"])
+    pairs = features * (features - 1) // 2
+    bottom = [m["num_dense"], *m["bottom_mlp"], m["embed_dim"]]
+    top = [m["embed_dim"] + pairs, *m["top_mlp"], 1]
+    return (mlp_train_flops_per_step(batch, bottom)
+            + mlp_train_flops_per_step(batch, top)
+            + 3 * 2 * batch * pairs * m["embed_dim"])
+
+
+def phase_dlrm(device) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    ds, dense_cols, cat_cols = dlrm_data()
+    rows, batch = DLRM_RUN["rows"], DLRM_RUN["batch"]
+    steps = rows // batch
+    eval_batches = -(-rows // batch)
+    epochs = DLRM_RUN["epochs"]
+
+    est = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # earlier phases leave allocations (cuBLAS workspaces): count the fit's
+    base = torch.cuda.memory_allocated()
+    ia.reset_launches()
+    history = est.fit(ds)
+    evaluation = est.evaluate(ds)
+    torch.cuda.synchronize()
+    launches = ia.LAUNCHES["interaction_fwd"]
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [r["train_loss"] for r in history]
+    forwards = epochs * steps + eval_batches
+    log(f"dlrm fit: train_loss {losses}, evaluate {evaluation}; "
+        f"interaction_fwd launches {launches} for {forwards} forward passes")
+    require(all(math.isfinite(x) for x in losses + [evaluation["eval_loss"]]),
+            "DLRM loss not finite")
+    require(losses[-1] < 0.9 * losses[0], "DLRM loss did not fall by 10%")
+    require(launches == forwards,
+            f"interaction_fwd launched {launches} times, expected {forwards}")
+    timed = history[1:]
+    seconds = sum(r["epoch_seconds"] for r in timed)
+    sps = len(timed) * steps * batch / seconds
+    step_ms = 1e3 * seconds / (len(timed) * steps)
+    flops = dlrm_flops_per_step(batch)
+    out = {
+        "shape": f"{DLRM_MODEL}, {rows} rows, batch {batch}, f32",
+        "train_loss": losses, "evaluate": evaluation, "launches": launches,
+        "forward_passes": forwards, "epoch_seconds":
+            [r["epoch_seconds"] for r in history],
+        "samples_s": sps, "step_ms": step_ms, "peak_bytes": peak,
+        "flops_per_step": flops,
+        "mfu": flops / (step_ms / 1e3) / PEAK_OPS_S["f32"],
+    }
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dlrm_estimator(device, dense_cols, cat_cols, "adam", 1).fit(ds)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_share(prof, wall_ms)
+
+    ia.reset_launches()
+    opt_history = dlrm_estimator(device, dense_cols, cat_cols,
+                                 dlrm_optimizer(), 1).fit(ds)
+    torch.cuda.synchronize()
+    out["dlrm_optimizer"] = {"train_loss": opt_history[0]["train_loss"],
+                             "launches": ia.LAUNCHES["interaction_fwd"]}
+    require(math.isfinite(opt_history[0]["train_loss"]),
+            "dlrm_optimizer loss not finite")
+    require(out["dlrm_optimizer"]["launches"] == steps,
+            "interaction_fwd did not run once per dlrm_optimizer step")
+    out["grad_check"] = dlrm_grad_check(device, ds, dense_cols, cat_cols)
+    prof_out = out["profile"]
+    log(f"dlrm: {sps:.1f} samples/s, step {step_ms:.3f} ms, MFU "
+        f"{out['mfu']:.2e} (f32 peak 67 TFLOP/s, {flops:.3e} FLOP/step), "
+        f"peak memory of the fit {peak / 2**20:.1f} MiB; profiled epoch (fit of one "
+        f"epoch, staging included): wall {prof_out['wall_ms']:.1f} ms, device "
+        f"busy {prof_out['device_busy_ms']} ms; top: "
+        + "; ".join(f"{n[:50]} {ms:.2f}" for n, ms in prof_out["top_device_ms"])
+        + f"; dlrm_optimizer epoch {out['dlrm_optimizer']}")
+    return out
+
+
+def dlrm_grad_check(device, ds, dense_cols, cat_cols) -> dict:
+    """One step's loss and every gradient through the kernel against the
+    einsum path (use_pallas_interaction=False), from the same weights, on
+    the first batch: f32, 1e-5 relative."""
+    dense, ids = (torch.from_numpy(a[:DLRM_RUN["batch"]]).to(device)
+                  for a in ds.to_numpy_grouped(
+                      [(dense_cols, np.float32), (cat_cols, np.int32)])[0])
+    labels = torch.from_numpy(
+        ds.columns["label"][:DLRM_RUN["batch"]]).to(device)
+    runs = {}
+    for use_kernel in (None, False):
+        model = DLRM(**DLRM_MODEL, use_pallas_interaction=use_kernel,
+                     device=device, seed=SEED)
+        loss = F.binary_cross_entropy_with_logits(
+            model((dense, ids)).reshape(-1), labels)
+        loss.backward()
+        runs[use_kernel] = (loss.detach(), {n: p.grad for n, p in
+                                            model.named_parameters()})
+    (loss, grads), (ref_loss, ref_grads) = runs[None], runs[False]
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst, _ = grad_gap(grads, ref_grads)
+    log(f"dlrm step through the kernel vs the einsum path: loss rel "
+        f"{loss_rel:.2e}, worst grad rel {worst:.2e} (limits 1e-5)")
+    require(loss_rel <= 1e-5 and worst <= 1e-5,
+            "DLRM gradients through the kernel disagree with the einsum path")
+    return {"loss_rel": loss_rel, "worst_grad_rel": worst}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: kernel times beside their bounds
 # ---------------------------------------------------------------------------
 
@@ -822,11 +1061,15 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "bound_ms": bound, "bound_by": by,
     }
     out.update(train_times(device, heads, d))
+    out.update(interaction_times(device))
     for name, row in out.items():
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        dev = (f"; device {row['device_ms']}, plain {row['plain_device_ms']}, "
+               f"library {row['library_device_ms']} ms"
+               if "device_ms" in row else "")
         log(f"time {name} [{row['shape']}]: {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}){dev}")
     return out
 
 
@@ -897,13 +1140,63 @@ def train_times(device, heads, d) -> dict:
     return out
 
 
-def kernels_line(checks: dict, served: dict, trained: dict, times: dict) -> dict:
+def device_ms(fn, calls: int = 100) -> float | None:
+    """Device time per call of ``fn`` (all its kernels), from the profiler
+    over ``calls`` calls: what the card spends, without the host's time to
+    issue the calls. None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_ms_by_name(prof).values())
+    return total / calls if total else None
+
+
+def interaction_times(device) -> dict:
+    """interaction_fwd at the DLRM path's shape and the Kaggle shape (f32),
+    its plain version, and the library pair torch.bmm(T, T^T) plus the
+    triangle gather (two calls: no one PyTorch call computes this). ``ms``
+    and the others by CUDA events over back-to-back calls, as for every
+    kernel; a call this short may be bound by the host's time to issue it,
+    so each also gets its device time from the profiler (``*device_ms``).
+    Bound: T read once and the triangle written once, over the HBM rate
+    (2 * D operations per pair are far below the f32 peak)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    out = {}
+    for key, (b, f, d) in INTERACTION_SHAPES.items():
+        t = _randn(gen, (b, f, d), torch.float32, device)
+        rows, cols = (torch.from_numpy(x).to(device)
+                      for x in np.tril_indices(f, k=-1))
+        pairs = f * (f - 1) // 2
+        bound = _bound(4 * (t.numel() + b * pairs), 2 * d * b * pairs, "f32")
+        calls = {
+            "": lambda t=t: ia.interaction_fwd(t),
+            "plain_": lambda t=t: ia.dot_interaction_plain(t),
+            "library_": lambda t=t, rows=rows, cols=cols:
+                torch.bmm(t, t.transpose(1, 2))[:, rows, cols],
+        }
+        row = {"shape": f"T [{b},{f},{d}] f32", "library": "pair",
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        for prefix, fn in calls.items():
+            row[f"{prefix}ms"] = time_ms(fn, iters=50)
+            row[f"{prefix}device_ms"] = device_ms(fn)
+        out["interaction_fwd" if key == "path" else f"interaction_fwd {key}"] = row
+    return out
+
+
+def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
+                 dlrm: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the full-width
-    RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm). Errors: at the
-    shapes of the kernel's path (flash_fwd: the larger of serving's and
-    training's)."""
+    RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
+    its evaluation and the dlrm_optimizer epoch for interaction_fwd). Errors:
+    at the shapes of the kernel's path (flash_fwd: the larger of serving's
+    and training's)."""
     launches = {}
     for counts in ([run["launches"] for run in served["runs"]]
                    + [trained["launches"]]):
@@ -912,6 +1205,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict) -> dict
             launches[name] = launches.get(name, 0) + counts[name]
     launches["flash_fwd_twoterm"] = \
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
+    launches["interaction_fwd"] = (dlrm["launches"]
+                                   + dlrm["dlrm_optimizer"]["launches"])
     case = "bfloat16 causal=True offsets=(0,0)"
     train = "train [{batch},{heads},{seq},{d}] bfloat16 causal=True".format(
         heads=MODEL["num_heads"], d=MODEL["d_model"] // MODEL["num_heads"],
@@ -924,15 +1219,23 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict) -> dict
         "flash_bwd_dkv": checks[f"flash_bwd_dkv {train}"],
         "flash_decode": checks[f"flash_decode q bfloat16 kv_len={DECODE_LENS}"],
         "flash_decode_int8": checks["flash_decode_int8 q bfloat16"],
+        "interaction_fwd": checks[interaction_case(
+            *INTERACTION_SHAPES["path"], torch.float32)],
     }
+    def row_ms(name, key):
+        # a call shorter than the host's time to issue it (interaction_fwd)
+        # is timed on the card by the profiler: CUDA events over
+        # back-to-back calls would time the host
+        return times[name].get(f"{key}device_ms") or times[name][f"{key}ms"]
+
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": errors[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"],
+         "max_abs_err": errors[name], "ms": row_ms(name, ""),
+         "plain_ms": row_ms(name, "plain_"),
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
-         "library_ms": times[name]["library_ms"]}
+         "library_ms": row_ms(name, "library_")}
         for name, (source, replaces) in KERNELS.items()
     ]}
 
@@ -950,9 +1253,10 @@ def main() -> int:
     record["checks"] = phase_kernels(device)
     record["serve"] = phase_serve(device)
     record["train"] = phase_train(device)
+    record["dlrm"] = phase_dlrm(device)
     record["times"] = phase_times(device)
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
-                           record["times"])
+                           record["times"], record["dlrm"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -962,6 +1266,9 @@ def main() -> int:
         for run in record["serve"]["runs"]]}))
     log(json.dumps({"training": {k: record["train"][k] for k in (
         "tokens_s", "step_ms", "mfu", "attention_share", "skip_mfu")}}))
+    log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (
+        "samples_s", "step_ms", "mfu", "peak_bytes", "train_loss")}
+        | {"device_busy_share": record["dlrm"]["profile"]["device_busy_share"]}}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // Pieces shared by the port's attention kernels (flash_attention.cu and
 // flash_backward.cu): the k-tile width, the masking constant, element-type
-// conversions, warp reductions and the dynamic shared-memory opt-in.
+// conversions, warp reductions and the dynamic shared-memory opt-in. The
+// dot-interaction kernel (interaction.cu) uses the type codes, the
+// conversions and the opt-in.
 //
 // Every definition sits in an anonymous namespace, so each translation unit
 // that includes this header gets its own copy and nothing clashes at link

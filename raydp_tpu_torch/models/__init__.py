@@ -1,1 +1,4 @@
-"""Models of the port: ``TransformerLM`` and its flax weight converter."""
+"""Models of the port and their flax weight converters (``convert``):
+``TransformerLM`` (decode serving, slice 1; training, slice 2), and
+``DLRM`` with ``MLPRegressor`` and ``MLPClassifier`` (DLRM training
+through the estimator, slice 3)."""

@@ -1,11 +1,15 @@
-"""Carry ``TransformerLM`` weights from the flax tree to a PyTorch
-state_dict.
+"""Carry flax weights to PyTorch state_dicts: ``TransformerLM``
+(``params_from_flax``), ``MLPRegressor``/``MLPClassifier``
+(``mlp_params_from_flax``) and ``DLRM`` (``dlrm_params_from_flax``).
 
 The flax tree is ``Embed_0/embedding``, ``pos_embed``,
 ``Block_i/{LayerNorm_0, qkv, proj, LayerNorm_1, Dense_0, Dense_1}``
 (``CheckpointBlock_i`` when the flax model was built with ``remat``),
-``LayerNorm_0`` and ``lm_head``. A gradient tree has the same structure
-and converts the same way. Flax ``Dense`` kernels are [in, out];
+``LayerNorm_0`` and ``lm_head``. The MLPs' tree is ``Dense_0`` ...
+``Dense_n``. DLRM's is ``Dense_0`` ... for the bottom MLP, then on for the
+top MLP (flax numbers unnamed layers across both), ``bottom_proj``,
+``embedding_i`` (bare [vocab, D] arrays) and ``head``. A gradient tree has
+the same structure and converts the same way. Flax ``Dense`` kernels are [in, out];
 ``nn.Linear`` weights are [out, in], so every kernel is transposed.
 """
 
@@ -53,4 +57,32 @@ def params_from_flax(params: dict) -> dict:
         layer += 1
     _norm(out, "ln_f", tree["LayerNorm_0"])
     _dense(out, "lm_head", tree["lm_head"])
+    return out
+
+
+def mlp_params_from_flax(params: dict) -> dict:
+    """flax ``MLPRegressor``/``MLPClassifier`` params -> an f32 CPU
+    state_dict for ``raydp_tpu_torch.models.mlp``: ``Dense_i`` ->
+    ``dense.i``."""
+    tree = params.get("params", params)
+    out = {}
+    layer = 0
+    while f"Dense_{layer}" in tree:
+        _dense(out, f"dense.{layer}", tree[f"Dense_{layer}"])
+        layer += 1
+    return out
+
+
+def dlrm_params_from_flax(params: dict) -> dict:
+    """flax ``DLRM`` params -> an f32 CPU state_dict for
+    ``raydp_tpu_torch.models.dlrm.DLRM``: ``Dense_i`` -> ``dense.i`` (bottom
+    then top), ``bottom_proj``, ``embedding_i`` and ``head`` by name."""
+    tree = params.get("params", params)
+    out = mlp_params_from_flax(tree)
+    _dense(out, "bottom_proj", tree["bottom_proj"])
+    _dense(out, "head", tree["head"])
+    table = 0
+    while f"embedding_{table}" in tree:
+        out[f"embedding_{table}"] = _t(tree[f"embedding_{table}"])
+        table += 1
     return out

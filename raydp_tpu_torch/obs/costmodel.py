@@ -1,10 +1,12 @@
-"""Analytic FLOPs of a ``TransformerLM`` training step: the port's own copy
-of the two functions of ``raydp_tpu/obs/costmodel.py`` that an MFU figure
-needs. Matmul-only accounting, the backward as twice the forward, the
-convention every MFU number of the repo uses.
+"""Analytic FLOPs of a training step: the port's own copy of the functions
+of ``raydp_tpu/obs/costmodel.py`` that its MFU figures need
+(``TransformerLM`` and dense MLPs). Matmul-only accounting, the backward as
+twice the forward, the convention every MFU number of the repo uses.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 
 def lm_train_flops_per_step(batch: int, seq: int, d_model: int,
@@ -25,3 +27,12 @@ def lm_nonattn_flops_per_step(batch: int, seq: int, d_model: int,
     return 3 * batch * seq * (
         num_layers * 24 * d_model**2 + 2 * d_model * vocab
     )
+
+
+def mlp_train_flops_per_step(batch: int, layer_dims: Sequence[int]) -> int:
+    """Matmul FLOPs of one dense-MLP training step: forward 2*B*d_in*d_out
+    per layer, backward twice the forward (gradients of inputs and
+    weights); bias adds, activations and the optimizer are excluded."""
+    dims = list(layer_dims)
+    fwd = sum(2 * batch * a * b for a, b in zip(dims[:-1], dims[1:]))
+    return 3 * fwd

@@ -60,6 +60,8 @@ _SIGNATURES = {
     "rtt_flash_decode": (
         [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I,
     ),
+    # t, out, b, f, d, dtype, stream
+    "rtt_interaction_fwd": ([_P] * 2 + [_I] * 4 + [_P], _I),
 }
 
 _lib = None
