@@ -59,6 +59,9 @@ Phases; any failure exits non-zero and prints no result line:
    calls it: ``F.scaled_dot_product_attention``, its backward for the
    backward pair, ``torch.bmm`` and the triangle gather, a pair of calls,
    for ``interaction_fwd``), and the least time the card could take.
+   ``interaction_fwd``'s three times are also taken by the profiler, as
+   device time per call (``device_ms``, ``plain_device_ms``,
+   ``library_device_ms`` in the ``kernels`` line, null for the others).
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -1222,20 +1225,18 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         "interaction_fwd": checks[interaction_case(
             *INTERACTION_SHAPES["path"], torch.float32)],
     }
-    def row_ms(name, key):
-        # a call shorter than the host's time to issue it (interaction_fwd)
-        # is timed on the card by the profiler: CUDA events over
-        # back-to-back calls would time the host
-        return times[name].get(f"{key}device_ms") or times[name][f"{key}ms"]
-
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "max_abs_err": errors[name], "ms": row_ms(name, ""),
-         "plain_ms": row_ms(name, "plain_"),
+         "max_abs_err": errors[name], "ms": times[name]["ms"],
+         "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"],
-         "library_ms": row_ms(name, "library_")}
+         "library_ms": times[name]["library_ms"],
+         # the profiler's device time, beside the CUDA-event times above;
+         # null where it was not measured or the profiler saw none
+         **{f"{key}device_ms": times[name].get(f"{key}device_ms")
+            for key in ("", "plain_", "library_")}}
         for name, (source, replaces) in KERNELS.items()
     ]}
 

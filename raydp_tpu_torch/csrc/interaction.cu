@@ -36,6 +36,8 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kOutsPerBlock = 256;  // outputs a tile aims at: 2 per thread
 constexpr size_t kStaticSmem = 48 * 1024;
+// one batch row, F x (D | 1) f32, must fit the shared memory of a block;
+// a larger row is refused with cudaErrorInvalidValue
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // Packed index p -> (i, j), p = i(i-1)/2 + j with 0 <= j < i.

@@ -26,12 +26,6 @@ import torch
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops.flash_attention import _on_cpu
 
-# the TPU kernel's batch tile; the plain version computes tile by tile
-BLOCK_BATCH = 128
-# the kernel stages one batch row, F x (D | 1) f32, in at most 227 KB of
-# shared memory (csrc/interaction.cu)
-MAX_ROW_BYTES = 227 * 1024
-
 LAUNCHES = {"interaction_fwd": 0}
 
 _DTYPE_CODES = {torch.float32: _build.DTYPE_F32, torch.bfloat16: _build.DTYPE_BF16}
@@ -55,18 +49,10 @@ def dot_interaction(stacked: torch.Tensor) -> torch.Tensor:
 
 
 def dot_interaction_plain(stacked: torch.Tensor) -> torch.Tensor:
-    """The kernel's function in torch ops: per batch tile the Gram matrix in
-    f32, its strict lower triangle packed row by row, cast to the input
-    dtype. Used for CPU tensors and by the checks."""
-    b, f, _ = stacked.shape
-    rows, cols = _tril_indices(f, stacked.device)
-    tiles = []
-    for start in range(0, b, BLOCK_BATCH):
-        t = stacked[start:start + BLOCK_BATCH].float()
-        tiles.append(torch.bmm(t, t.transpose(1, 2))[:, rows, cols])
-    if not tiles:
-        return stacked.new_zeros((0, len(rows)))
-    return torch.cat(tiles).to(stacked.dtype)
+    """The kernel's function in torch ops: the Gram matrix in f32, its strict
+    lower triangle packed row by row, cast to the input dtype. Used for CPU
+    tensors and by the checks."""
+    return dot_interaction(stacked.float()).to(stacked.dtype)
 
 
 def interaction_fwd(stacked: torch.Tensor) -> torch.Tensor:
@@ -79,11 +65,6 @@ def interaction_fwd(stacked: torch.Tensor) -> torch.Tensor:
     b, f, d = stacked.shape
     if stacked.dtype not in _DTYPE_CODES:
         raise TypeError(f"interaction_fwd takes f32 or bf16, got {stacked.dtype}")
-    if f * (d | 1) * 4 > MAX_ROW_BYTES:
-        raise ValueError(
-            f"interaction_fwd: a row of F={f} features of D={d} does not fit "
-            f"the kernel's {MAX_ROW_BYTES} bytes of shared memory"
-        )
     out = torch.empty((b, f * (f - 1) // 2), dtype=stacked.dtype,
                       device=stacked.device)
     if out.numel() == 0:

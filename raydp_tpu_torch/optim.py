@@ -26,6 +26,13 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
+# optax's defaults, which no caller changes
+ADAMW_WEIGHT_DECAY = 1e-4
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIPPING_THRESHOLD = 1.0
+ADAFACTOR_MIN_SCALE = 1e-3
+
 
 def _params(named_params):
     return [p for _, p in named_params]
@@ -39,9 +46,9 @@ def sgd(learning_rate: float):
     return lambda named: torch.optim.SGD(_params(named), lr=learning_rate)
 
 
-def adamw(learning_rate: float, weight_decay: float = 1e-4):
+def adamw(learning_rate: float):
     return lambda named: torch.optim.AdamW(_params(named), lr=learning_rate,
-                                           weight_decay=weight_decay)
+                                           weight_decay=ADAMW_WEIGHT_DECAY)
 
 
 def adafactor(learning_rate: float | None = None,
@@ -82,13 +89,8 @@ class Adafactor(torch.optim.Optimizer):
     the factored update is symmetric in the two axes."""
 
     def __init__(self, params, lr: float | None = None,
-                 min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
-                 eps: float = 1e-30, clipping_threshold: float = 1.0,
-                 min_scale: float = 1e-3):
-        defaults = dict(lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
-                        decay_rate=decay_rate, eps=eps,
-                        clipping_threshold=clipping_threshold,
-                        min_scale=min_scale)
+                 min_dim_size_to_factor: int = 128):
+        defaults = dict(lr=lr, min_dim_size_to_factor=min_dim_size_to_factor)
         super().__init__(params, defaults)
 
     @torch.no_grad()
@@ -112,8 +114,8 @@ class Adafactor(torch.optim.Optimizer):
                 state["v_row"] = p.new_zeros(tuple(np.delete(p.shape, d0)))
                 state["v_col"] = p.new_zeros(tuple(np.delete(p.shape, d1)))
         t = torch.tensor(state["step"] + 1, dtype=torch.float32)
-        decay = float(1.0 - t ** (-group["decay_rate"]))
-        grad_sqr = g * g + group["eps"]
+        decay = float(1.0 - t ** (-ADAFACTOR_DECAY_RATE))
+        grad_sqr = g * g + ADAFACTOR_EPS
         if dims is None:
             v = state["v"].mul_(decay).add_((1.0 - decay) * grad_sqr)
             u = g * v.pow(-0.5)
@@ -130,12 +132,12 @@ class Adafactor(torch.optim.Optimizer):
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         state["step"] += 1
         rms = torch.sqrt(torch.mean(u * u))
-        u = u / torch.clamp(rms / group["clipping_threshold"], min=1.0)
+        u = u / torch.clamp(rms / ADAFACTOR_CLIPPING_THRESHOLD, min=1.0)
         if group["lr"] is not None:
             u = u * group["lr"]
         p_rms = torch.sqrt(torch.mean(p * p))
-        min_scale = group["min_scale"]
-        u = u * torch.where(p_rms <= min_scale, min_scale, p_rms)
+        u = u * torch.where(p_rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE,
+                            p_rms)
         p.add_(-u)
 
 
