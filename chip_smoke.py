@@ -22,7 +22,19 @@ Phases; any failure exits non-zero and prints no result line:
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at batch 2047 (f32 atol 1e-5 * max|plain|, bf16
    2e-2 * max|plain|; two launches bitwise equal), with its input gradient
-   against the plain version's autograd (f32, 1e-5 relative).
+   against the plain version's autograd (f32, 1e-5 relative);
+   ``quantize_int8(stochastic=True)`` (K5) against
+   ``quantize_int8_stochastic_plain`` at the training step's MLP
+   activations [16384,1024] and [16384,4096] and a row tail [300,96]
+   (values and scales bitwise; one seed the same bits over two launches,
+   another seed other values; |values - x/s| <= 1, equal to 1 only where
+   x/s is an integer and the f32 sum with u rounds up;
+   |mean(dequant - x)| < quantum / 10); ``int8_gemm`` against
+   ``int8_gemm_plain`` at the step's
+   two products [16384,1024]x[4096,1024] and [16384,4096]x[1024,4096],
+   decode's N = 4 and a prefill's N = 1500 (f32 and bf16 out, bitwise,
+   and over two launches), and ``int8_matmul``'s two gradients against the
+   same Function with the plain product (bitwise).
 3. Decode serving of ``TransformerLM`` at full width (vocab 2048, d_model
    1024, 8 heads of 128, 4 layers, bf16, seeded random weights) through
    ``DecodeEngine`` (capacity 2048, pages of 128, 4 slots, 32 new tokens)
@@ -30,7 +42,10 @@ Phases; any failure exits non-zero and prints no result line:
    and again with an int8 cache. Launch counts are zeroed just before each
    run and read just after; every kernel of the path must have launched.
    One stream's prefill and first-step logits are held against the same
-   weights on the plain attention path (``attn_impl="full"``).
+   weights on the plain attention path (``attn_impl="full"``). Then the
+   same weights with ``quantized_mlp=True`` serve the same streams (f32
+   cache), ``int8_gemm`` launching in prefill and decode, and once more
+   under the profiler.
 4. Training of ``TransformerLM`` at full width (bench.py's
    ``bench_transformer_lm``: batch 2, T 8192, Adam 3e-4, tokens from
    ``np.random.default_rng(17)``, seeded random weights): one warm step and
@@ -42,6 +57,14 @@ Phases; any failure exits non-zero and prints no result line:
    ``flash_fwd_twoterm``, bitwise equal to the one-pass step; peak memory
    with and without ``remat``. At T 2048: gradients against the plain
    attention path (``attn_impl="full"``), and the two-term step again.
+   The same training with ``quantized_mlp=True`` (bench.py's
+   ``make_runner("flash", quantized_mlp=True)``): the loss falling, 8
+   ``int8_gemm`` launches a step (two per block, forward only) and no K5,
+   the first loss within 1e-2 relative of the bf16 model's, tokens/s, step
+   ms, ``mfu_int8_mlp`` (bench.py's: the same FLOPs over the bf16 peak)
+   and one profiled step. K5's own path: ``quantize_int8(x, seed=step,
+   stochastic=True)`` for 8 steps on both activation shapes, every call
+   held to the contract above.
    Then DLRM training through the estimator at full width (bench.py's
    ``bench_dlrm``: 6 tables of width 16 with vocabularies 100000 to 100,
    8 dense features, MLPs (128, 64), f32, seeded random weights; 100,000
@@ -58,7 +81,9 @@ Phases; any failure exits non-zero and prints no result line:
    PyTorch call computing the same function as a yardstick (the port never
    calls it: ``F.scaled_dot_product_attention``, its backward for the
    backward pair, ``torch.bmm`` and the triangle gather, a pair of calls,
-   for ``interaction_fwd``), and the least time the card could take.
+   for ``interaction_fwd``, ``torch._int_mm`` -- the int32 product alone,
+   without scales or cast -- for ``int8_gemm``, none for K5), and the
+   least time the card could take (int8 operations over 1979 TOP/s).
    ``interaction_fwd``'s three times are also taken by the profiler, as
    device time per call (``device_ms``, ``plain_device_ms``,
    ``library_device_ms`` in the ``kernels`` line, null for the others).
@@ -96,6 +121,7 @@ from raydp_tpu_torch.obs.costmodel import (lm_nonattn_flops_per_step,
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops import flash_attention as fa
 from raydp_tpu_torch.ops import interaction as ia
+from raydp_tpu_torch.ops import quantization as qz
 from raydp_tpu_torch.ops.quantization import dequantize_int8, quantize_int8
 from raydp_tpu_torch.serve.decode import DecodeEngine
 
@@ -124,14 +150,23 @@ DLRM_RUN = dict(rows=100_000, batch=2048, epochs=3, lr=1e-3, data_seed=11)
 # Criteo Kaggle setting of facebookresearch/dlrm: 13 dense features through
 # the bottom MLP and 26 tables of width 16 (--arch-sparse-feature-size=16)
 INTERACTION_SHAPES = {"path": (2048, 7, 16), "kaggle": (2048, 27, 16)}
+# the int8 path: the MLP activations of the training step, [batch * T,
+# d_model] into fc1 and [batch * T, 4 * d_model] into fc2, and a row tail;
+# the step's two int8 products (x [N, K] against the Linear weight [M, K]),
+# decode's N = 4 (the engine's slots) and a prefill-sized N = 1500
+QUANT_SHAPES = {"fc1": (16384, 1024), "fc2": (16384, 4096), "tail": (300, 96)}
+GEMM_SHAPES = {"fc1": (16384, 1024, 4096), "fc2": (16384, 4096, 1024),
+               "decode": (4, 1024, 4096), "prefill": (1500, 1024, 4096)}
+STOCHASTIC_SEEDS = 8  # the entry point's run: one seed per step, as advised
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32
-# CUDA-core peaks
+# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 and int8 tensor-core
+# and f32 CUDA-core peaks
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 
 FWD_SOURCE = "raydp_tpu_torch/csrc/flash_attention.cu"
 BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward.cu"
+QUANT_SOURCE = "raydp_tpu_torch/csrc/quantization.cu"
 # kernel -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
@@ -142,6 +177,11 @@ KERNELS = {
     "flash_decode_int8": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
     "interaction_fwd": ("raydp_tpu_torch/csrc/interaction.cu",
                         "raydp_tpu/ops/interaction.py:159"),
+    "quantize_int8_stochastic": (QUANT_SOURCE,
+                                 "raydp_tpu/ops/quantization.py:140"),
+    # not a TPU kernel: the JAX package's int8 product is XLA's
+    "int8_gemm": (QUANT_SOURCE, "raydp_tpu/ops/quantization.py:62 "
+                  "(jax.lax.dot_general, no pallas_call)"),
 }
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -329,6 +369,8 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     require(worst <= 1e-5, "decode disagrees with the prefill row")
     out["decode_vs_prefill"] = {"max_abs": worst, "bitwise": bitwise}
     out.update(check_interaction(gen, device))
+    out.update(check_stochastic(gen, device))
+    out.update(check_int8_gemm(gen, device))
     return out
 
 
@@ -374,6 +416,109 @@ def check_interaction(gen, device) -> dict:
         f"version's autograd: {rel:.3e} relative (limit 1e-5)")
     require(rel <= 1e-5, "interaction gradient disagrees with the plain path")
     out["interaction_grad_rel"] = rel
+    return out
+
+
+def stochastic_case(n, d) -> str:
+    return f"quantize_int8_stochastic [{n},{d}] f32"
+
+
+def check_quantized(x, values, scales, name) -> dict:
+    """The stochastic contract on one call: int8 values and f32 scales of
+    the right shapes; |values - x/s| <= 1 (floor(x/s + u) with u in [0,
+    1), clipped to 127 >= |x/s|; the step equals 1 where x/s is an integer
+    and u lies within half an ulp of x/s below 1, as the f32 sum then
+    rounds up to the next integer; it cannot round past that); and
+    the JAX package's own unbiasedness check, |mean(dequant - x)| <
+    quantum / 10."""
+    n, d = x.shape
+    require(values.dtype == torch.int8 and values.shape == (n, d)
+            and scales.dtype == torch.float32 and scales.shape == (n, 1),
+            f"{name}: wrong output types or shapes")
+    step = float((values.float() - x / scales).abs().max())
+    bias = float((dequantize_int8(values, scales) - x).mean())
+    quantum = float(scales.max())
+    require(step <= 1.0, f"{name}: |values - x/s| = {step} > 1")
+    require(abs(bias) < quantum / 10, f"{name}: biased ({bias} vs {quantum})")
+    return {"max_step": step, "bias": bias, "quantum": quantum}
+
+
+def check_stochastic(gen, device) -> dict:
+    """quantize_int8(stochastic=True), K5, against
+    quantize_int8_stochastic_plain on the same inputs at the training step's
+    MLP activations and a row tail: values and scales bitwise equal; two
+    launches with one seed bitwise equal, another seed different in most
+    elements of a row's fractional draws; the contract of check_quantized."""
+    out = {}
+    for n, d in QUANT_SHAPES.values():
+        x = _randn(gen, (n, d), torch.float32, device) * 3.0
+        vals, scales = quantize_int8(x, seed=1234, stochastic=True)
+        again = quantize_int8(x, seed=1234, stochastic=True)
+        other, _ = quantize_int8(x, seed=1235, stochastic=True)
+        ref_vals, ref_scales = qz.quantize_int8_stochastic_plain(x, 1234)
+        name = stochastic_case(n, d)
+        bitwise = torch.equal(vals, ref_vals) and torch.equal(scales, ref_scales)
+        same = torch.equal(vals, again[0]) and torch.equal(scales, again[1])
+        differ = float((vals != other).float().mean())
+        err = max(max_abs(vals, ref_vals), max_abs(scales, ref_scales))
+        contract = check_quantized(x, vals, scales, name)
+        log(f"{name}: bitwise equal to the plain version {bitwise} (max|d| "
+            f"{err:.3e}); two launches bitwise {same}; another seed changes "
+            f"{differ:.3f} of the values; {contract}")
+        require(bitwise, f"{name} disagrees with its plain version")
+        require(same, f"{name} differs between launches with one seed")
+        require(differ > 0.1, f"{name}: another seed gives the same values")
+        out[name] = err
+    return out
+
+
+def gemm_case(n, k, m, dtype) -> str:
+    return f"int8_gemm [{n},{k}]x[{m},{k}] {str(dtype)[6:]}"
+
+
+def quantized_operands(gen, device, n, k, m):
+    """x [N, K] bf16 activations and w [M, K] bf16 weights (scaled as the
+    model's lecun-normal ones), and their int8 forms as int8_matmul takes
+    them (deterministic quantize_int8 of the f32 values)."""
+    x = _randn(gen, (n, k), torch.bfloat16, device)
+    w = (_randn(gen, (m, k), torch.float32, device) * k**-0.5).to(torch.bfloat16)
+    return x, w, (*quantize_int8(x.float()), *quantize_int8(w.float()))
+
+
+def check_int8_gemm(gen, device) -> dict:
+    """int8_gemm against int8_gemm_plain on the same int8 operands at the
+    training step's two products, decode's N = 4 and a prefill's N = 1500:
+    f32 and bf16 outputs bitwise equal, two launches bitwise equal. At the
+    two training shapes, int8_matmul's gradients (straight through) against
+    the same Function with the plain product, bitwise."""
+    out = {}
+    for key, (n, k, m) in GEMM_SHAPES.items():
+        x, w, (xq, xs, wq, ws) = quantized_operands(gen, device, n, k, m)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = qz.int8_gemm(xq, xs, wq, ws, dtype)
+            again = qz.int8_gemm(xq, xs, wq, ws, dtype)
+            ref = qz.int8_gemm_plain(xq, xs, wq, ws, dtype)
+            name = gemm_case(n, k, m, dtype)
+            err = max_abs(got, ref)
+            bitwise, same = torch.equal(got, ref), torch.equal(got, again)
+            log(f"{name}: bitwise equal to the plain version {bitwise} "
+                f"(max|d| {err:.3e}, max|plain| {float(ref.float().abs().max()):.3e}); "
+                f"two launches bitwise {same}")
+            require(got.dtype == dtype and bitwise, f"{name} disagrees")
+            require(same, f"{name} differs between launches")
+            out[name] = err
+        if key not in ("fc1", "fc2"):
+            continue
+        g = _randn(gen, (n, m), torch.float32, device)
+        grads = {}
+        for fn in (qz.int8_matmul, qz.int8_matmul_plain):
+            xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+            grads[fn] = torch.autograd.grad((fn(xr, wr) * g).sum(), (xr, wr))
+        same = all(torch.equal(a, b) for a, b in
+                   zip(grads[qz.int8_matmul], grads[qz.int8_matmul_plain]))
+        log(f"int8_matmul gradients [{n},{k}]x[{m},{k}] bf16 vs the plain "
+            f"product's autograd: bitwise {same}")
+        require(same, "int8_matmul gradients disagree with the plain version's")
     return out
 
 
@@ -525,6 +670,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
     and read just after."""
     new_tokens = ENGINE["max_new_tokens"]
     fa.reset_launches()
+    qz.reset_launches()
     with DecodeEngine(model, int8_kv=int8, device=device, **ENGINE) as eng:
         t0 = time.perf_counter()
         sids = [eng.submit(p, new_tokens) for p in prompts]
@@ -545,7 +691,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
         wall = time.perf_counter() - t0
         records = [eng.explain(sid) for sid in sids]
         stats = eng.stats()
-    launches = dict(fa.LAUNCHES)
+    launches = dict(fa.LAUNCHES) | qz.LAUNCHES
     counts = [len(tokens[sid]) for sid in sids]
     require(counts == [new_tokens] * len(sids),
             f"streams did not finish with their token counts: {counts}")
@@ -555,6 +701,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
     tpot = [r["steady_s"] / (r["tokens"] - 1) for r in records]
     result = {
         "cache": "int8" if int8 else "f32",
+        "int8_mlp": model.quantized_mlp,
         "streams": len(sids),
         "tokens": sum(counts),
         "wall_s": wall,
@@ -565,7 +712,8 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
         "steps": stats["steps"],
         "launches": launches,
     }
-    log(f"serve ({result['cache']} cache): {result['tokens']} tokens in "
+    log(f"serve ({result['cache']} cache, int8 MLP {model.quantized_mlp}): "
+        f"{result['tokens']} tokens in "
         f"{wall:.3f} s = {result['decode_tok_s']:.1f} tok/s, TTFT p50 "
         f"{result['ttft_ms_p50']:.2f} ms, TPOT p50 {result['tpot_ms_p50']:.2f} ms, "
         f"{stats['steps']} steps, launches {launches}")
@@ -588,8 +736,18 @@ def phase_serve(device) -> dict:
     require(int8_run["launches"]["flash_fwd"] > 0, "prefill kernel never launched (int8)")
     require(int8_run["launches"]["flash_decode_int8"] > 0,
             "int8 decode kernel never launched")
+    profile = profile_serve(model, prompts, device)
+    # the same weights with the int8 MLP, served through the same Block
+    quantized = TransformerLM(**MODEL, attn_impl="flash", quantized_mlp=True,
+                              device=device, seed=SEED)
+    quantized.load_state_dict(model.state_dict())
+    del model
+    quantized_run = serve(quantized.eval(), prompts, False, device)
+    require(quantized_run["launches"]["int8_gemm"] > 0,
+            "the int8 MLP product never launched in serving")
     return {"prompt_lens": [len(p) for p in prompts], "logits": logits,
-            "runs": runs, "profile": profile_serve(model, prompts, device)}
+            "runs": runs, "profile": profile, "int8_mlp_run": quantized_run,
+            "int8_mlp_profile": profile_serve(quantized, prompts, device)}
 
 
 def profile_serve(model, prompts, device) -> dict:
@@ -601,7 +759,8 @@ def profile_serve(model, prompts, device) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = serve(model, prompts, False, device)
     out = device_share(prof, 1e3 * run["wall_s"])
-    log(f"profile (f32 cache, profiler on): wall {out['wall_ms']:.1f} ms, "
+    log(f"profile (f32 cache, int8 MLP {model.quantized_mlp}, profiler on): "
+        f"wall {out['wall_ms']:.1f} ms, "
         f"device busy {out['device_busy_ms']} ms; top: "
         + "; ".join(f"{name[:60]} {ms:.2f}" for name, ms in out["top_device_ms"]))
     return out
@@ -849,6 +1008,84 @@ def grad_check(device, max_len) -> dict:
             "twoterm_launches": launches, "twoterm_bitwise": bitwise}
 
 
+def phase_train_int8(device, bf16_first_loss: float) -> dict:
+    """bench.py's make_runner("flash", quantized_mlp=True): the training
+    phase's model, tokens and Adam with both MLP products of every block
+    through the int8 product (int8 forward, straight-through backward). One
+    warm step and 8 timed steps, counts zeroed just before and read just
+    after: int8_gemm launches twice per block per step (forward only), K5
+    never; the loss falls; the first step's loss within 1e-2 relative of the
+    bf16 model's from the same seeded weights. mfu_int8_mlp as bench.py
+    reports it: the same lm_train_flops_per_step over the bf16 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    vocab = MODEL["vocab_size"]
+    tokens, targets = train_tokens(b, t, vocab, device)
+    model = lm("flash", device, t + 1, quantized_mlp=True)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN["lr"])
+    qz.reset_launches()
+    first, losses, dt = timed_steps(model, opt, tokens, targets, steps)
+    launches = dict(qz.LAUNCHES)
+    per_step = launches["int8_gemm"] / (steps + 1)
+    rel = abs(first - bf16_first_loss) / abs(bf16_first_loss)
+    log(f"train int8 MLP: loss {first:.4f} (warm step; bf16 model {bf16_first_loss:.4f}, "
+        f"rel {rel:.2e}, limit 1e-2) -> {losses[-1]:.4f} after {steps} more; "
+        f"launches {launches}, int8_gemm per step {per_step}")
+    require(all(math.isfinite(x) for x in [first, *losses]), "int8 loss not finite")
+    require(losses[-1] < first, "int8 loss did not fall")
+    require(per_step == 2 * MODEL["num_layers"],
+            f"int8_gemm per step {per_step}, expected {2 * MODEL['num_layers']}")
+    require(launches["quantize_int8_stochastic"] == 0,
+            "stochastic rounding ran on the int8 MLP path")
+    require(rel <= 1e-2, "the int8 model's first loss is off the bf16 model's")
+    flops = lm_train_flops_per_step(b, t, MODEL["d_model"], MODEL["num_layers"],
+                                    vocab)
+    tok_s = steps * b * t / dt
+    out = {
+        "shape": f"batch {b}, T {t}, bf16, int8 MLP, {MODEL}",
+        "first_loss": first, "bf16_first_loss": bf16_first_loss,
+        "first_loss_rel": rel, "losses": losses, "launches": launches,
+        "tokens_s": tok_s, "step_ms": 1e3 * dt / steps,
+        "mfu_int8_mlp": tok_s * flops / (b * t) / PEAK_OPS_S["bf16"],
+    }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, tokens, targets).item()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_share(prof, wall_ms)
+    prof_out = out["profile"]
+    log(f"train int8 MLP: {tok_s:.1f} tokens/s, step {out['step_ms']:.2f} ms, "
+        f"mfu_int8_mlp {out['mfu_int8_mlp']:.4f} (bf16 peak 989 TFLOP/s); "
+        f"profiled step: wall {prof_out['wall_ms']:.1f} ms, device busy "
+        f"{prof_out['device_busy_ms']} ms; top: "
+        + "; ".join(f"{n[:50]} {ms:.2f}" for n, ms in prof_out["top_device_ms"]))
+    return out
+
+
+def phase_stochastic(device) -> dict:
+    """K5's path, its own entry point as a user calls it: quantize_int8(x,
+    seed=step, stochastic=True) for STOCHASTIC_SEEDS steps on the training
+    step's two MLP activation shapes, counts zeroed just before and read
+    just after, every call held to check_quantized."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    xs = [_randn(gen, shape, torch.float32, device)
+          for shape in (QUANT_SHAPES["fc1"], QUANT_SHAPES["fc2"])]
+    qz.reset_launches()
+    calls = [check_quantized(x, *quantize_int8(x, seed=step, stochastic=True),
+                             f"step {step}")
+             for step in range(STOCHASTIC_SEEDS) for x in xs]
+    torch.cuda.synchronize()
+    launches = dict(qz.LAUNCHES)
+    worst = max(abs(c["bias"]) / c["quantum"] for c in calls)
+    log(f"stochastic rounding through quantize_int8: {STOCHASTIC_SEEDS} seeds x "
+        f"{[tuple(x.shape) for x in xs]}, launches {launches}; worst "
+        f"|mean(dequant - x)| / quantum {worst:.2e} (limit 0.1)")
+    require(launches["quantize_int8_stochastic"] == STOCHASTIC_SEEDS * len(xs),
+            f"K5 launched {launches['quantize_int8_stochastic']} times")
+    return {"launches": launches, "worst_bias_of_quantum": worst}
+
+
 # ---------------------------------------------------------------------------
 # phase 4, continued: DLRM training through the estimator at full width
 # ---------------------------------------------------------------------------
@@ -1065,6 +1302,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
     }
     out.update(train_times(device, heads, d))
     out.update(interaction_times(device))
+    out.update(quant_times(device))
     for name, row in out.items():
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
         dev = (f"; device {row['device_ms']}, plain {row['plain_device_ms']}, "
@@ -1191,15 +1429,65 @@ def interaction_times(device) -> dict:
     return out
 
 
+def quant_times(device) -> dict:
+    """K5 at the training step's two MLP activation shapes and int8_gemm
+    at its two products, bf16 out, as the model calls it. K5's bound: x
+    read once, values and scales written once, over the HBM rate (its ~6
+    f32 operations per element are far below the f32 peak; Philox's integer
+    operations have no tensor-core rate); no single PyTorch call rounds
+    stochastically, so no library time. int8_gemm's bound: 2 N M K int8
+    operations over the int8 peak, or xq, wq, the scales and the bf16
+    output over the HBM rate, the larger; library: torch._int_mm, the int32
+    product alone, without the scales or the cast (the port never calls
+    it)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    out = {}
+    for key in ("fc2", "fc1"):
+        n, d = QUANT_SHAPES[key]
+        x = _randn(gen, (n, d), torch.float32, device)
+        bound = _bound(4 * n * d + n * d + 4 * n, 6 * n * d, "f32")
+        name = ("quantize_int8_stochastic" if key == "fc2"
+                else f"quantize_int8_stochastic {key}")
+        out[name] = {
+            "shape": f"x [{n},{d}] f32",
+            "ms": time_ms(lambda x=x: quantize_int8(x, seed=7, stochastic=True)),
+            "plain_ms": time_ms(lambda x=x: qz.quantize_int8_stochastic_plain(x, 7),
+                                iters=3, reps=3),
+            "library_ms": None,
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+    for key in ("fc1", "fc2"):
+        n, k, m = GEMM_SHAPES[key]
+        _, _, (xq, xs, wq, ws) = quantized_operands(gen, device, n, k, m)
+        bound = _bound(n * k + m * k + 4 * (n + m) + 2 * n * m, 2 * n * m * k,
+                       "int8")
+        name = "int8_gemm" if key == "fc1" else f"int8_gemm {key}"
+        out[name] = {
+            "shape": f"xq [{n},{k}] x wq [{m},{k}] int8 -> bf16",
+            "ms": time_ms(lambda xq=xq, xs=xs, wq=wq, ws=ws: qz.int8_gemm(
+                xq, xs, wq, ws, torch.bfloat16)),
+            "plain_ms": time_ms(lambda xq=xq, xs=xs, wq=wq, ws=ws: qz.int8_gemm_plain(
+                xq, xs, wq, ws, torch.bfloat16), iters=3, reps=3),
+            "library_ms": time_ms(lambda xq=xq, wq=wq: torch._int_mm(xq, wq.t())),
+            "library": "torch._int_mm: the int32 product, no scales or cast",
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+    return out
+
+
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
-                 dlrm: dict) -> dict:
+                 dlrm: dict, trained_int8: dict, stochastic: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
-    its evaluation and the dlrm_optimizer epoch for interaction_fwd). Errors:
-    at the shapes of the kernel's path (flash_fwd: the larger of serving's
-    and training's)."""
+    its evaluation and the dlrm_optimizer epoch for interaction_fwd; the
+    int8-MLP training steps and serving run for int8_gemm; the entry point's
+    run for quantize_int8_stochastic). Errors: at the shapes of the kernel's
+    path (flash_fwd: the larger of serving's and training's; K5 at
+    [16384,4096], int8_gemm at the step's first product in bf16). Times:
+    K5 at [16384,4096], int8_gemm at [16384,1024]x[4096,1024]; the other
+    shapes are in the record's times."""
     launches = {}
     for counts in ([run["launches"] for run in served["runs"]]
                    + [trained["launches"]]):
@@ -1210,6 +1498,10 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
     launches["interaction_fwd"] = (dlrm["launches"]
                                    + dlrm["dlrm_optimizer"]["launches"])
+    launches["int8_gemm"] = (trained_int8["launches"]["int8_gemm"]
+                             + served["int8_mlp_run"]["launches"]["int8_gemm"])
+    launches["quantize_int8_stochastic"] = \
+        stochastic["launches"]["quantize_int8_stochastic"]
     case = "bfloat16 causal=True offsets=(0,0)"
     train = "train [{batch},{heads},{seq},{d}] bfloat16 causal=True".format(
         heads=MODEL["num_heads"], d=MODEL["d_model"] // MODEL["num_heads"],
@@ -1224,6 +1516,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         "flash_decode_int8": checks["flash_decode_int8 q bfloat16"],
         "interaction_fwd": checks[interaction_case(
             *INTERACTION_SHAPES["path"], torch.float32)],
+        "quantize_int8_stochastic": checks[stochastic_case(*QUANT_SHAPES["fc2"])],
+        "int8_gemm": checks[gemm_case(*GEMM_SHAPES["fc1"], torch.bfloat16)],
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -1254,10 +1548,13 @@ def main() -> int:
     record["checks"] = phase_kernels(device)
     record["serve"] = phase_serve(device)
     record["train"] = phase_train(device)
+    record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
+    record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
     record["times"] = phase_times(device)
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
-                           record["times"], record["dlrm"])
+                           record["times"], record["dlrm"],
+                           record["train_int8"], record["stochastic"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -1267,6 +1564,8 @@ def main() -> int:
         for run in record["serve"]["runs"]]}))
     log(json.dumps({"training": {k: record["train"][k] for k in (
         "tokens_s", "step_ms", "mfu", "attention_share", "skip_mfu")}}))
+    log(json.dumps({"training_int8_mlp": {k: record["train_int8"][k] for k in (
+        "tokens_s", "step_ms", "mfu_int8_mlp", "first_loss_rel")}}))
     log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (
         "samples_s", "step_ms", "mfu", "peak_bytes", "train_loss")}
         | {"device_busy_share": record["dlrm"]["profile"]["device_busy_share"]}}))

@@ -18,7 +18,11 @@ recomputes each block's activations in the backward
 Incremental decode (``kv_caches``/``kv_len``) scatters the new rows' K/V
 into each sequence's cache at its own length and attends with
 ``ops.flash_decode``, from f32 caches or int8 caches with per-row scales.
-Ring and Ulysses attention and the int8 MLP belong to later slices.
+``quantized_mlp`` sends both MLP products of every block through
+``ops.quantization.int8_linear`` (int8 forward, straight-through backward),
+in prefill, decode and training alike, with the same parameters, so one
+``state_dict`` loads into either model. Ring and Ulysses attention belong
+to a later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.ops.flash_attention import flash_attention, flash_decode
-from raydp_tpu_torch.ops.quantization import quantize_int8
+from raydp_tpu_torch.ops.quantization import int8_linear, quantize_int8
 from raydp_tpu_torch.parallel.ring_attention import full_attention
 
 _LATER = {
@@ -117,13 +121,14 @@ class LayerNorm(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, attn_impl: str,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, quantized_mlp: bool = False):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.dtype = dtype
+        self.quantized_mlp = quantized_mlp
         self.ln1 = LayerNorm(d_model, dtype)
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.proj = nn.Linear(d_model, d_model)
@@ -134,6 +139,13 @@ class Block(nn.Module):
     def _dense(self, layer: nn.Linear, x):
         """flax ``nn.Dense(dtype=...)``: f32 params cast at use."""
         return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+
+    def _mlp_dense(self, layer: nn.Linear, x):
+        """``fc1``/``fc2``: the int8 product with ``quantized_mlp`` (flax's
+        ``dot_general=int8_dot_general``), else ``_dense``."""
+        if self.quantized_mlp:
+            return int8_linear(x, layer.weight, layer.bias, self.dtype)
+        return self._dense(layer, x)
 
     def forward(self, x, *, decode_kv=None, kv_len=None, return_kv=False):
         b, t, d_model = x.shape
@@ -149,8 +161,8 @@ class Block(nn.Module):
         else:
             o = _attend(q_h, k_h, v_h, impl=self.attn_impl, causal=True)
         x = x + self._dense(self.proj, o.transpose(1, 2).reshape(b, t, d_model))
-        h = F.gelu(self._dense(self.fc1, self.ln2(x)), approximate="tanh")
-        y = self._dense(self.fc2, h)
+        h = F.gelu(self._mlp_dense(self.fc1, self.ln2(x)), approximate="tanh")
+        y = self._mlp_dense(self.fc2, h)
         out = x + y
         if decode_kv is not None or return_kv:
             # the new rows' K/V in head layout for the caller's paged cache
@@ -188,11 +200,6 @@ class TransformerLM(nn.Module):
             )
         if attn_impl not in ("full", "flash", "skip"):
             raise ValueError(f"unknown attention impl {attn_impl!r}")
-        if quantized_mlp:
-            raise NotImplementedError(
-                "quantized_mlp (the int8 MLP product) is ported in a later "
-                "slice of TransformerLM training"
-            )
         device = resolve_device(device)
         self.vocab_size = vocab_size
         self.d_model = d_model
@@ -202,11 +209,13 @@ class TransformerLM(nn.Module):
         self.attn_impl = attn_impl
         self.dtype = dtype
         self.remat = remat
+        self.quantized_mlp = quantized_mlp
 
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, d_model))
         self.blocks = nn.ModuleList(
-            Block(d_model, num_heads, attn_impl, dtype) for _ in range(num_layers)
+            Block(d_model, num_heads, attn_impl, dtype, quantized_mlp)
+            for _ in range(num_layers)
         )
         self.ln_f = LayerNorm(d_model, dtype)
         self.lm_head = nn.Linear(d_model, vocab_size)

@@ -62,6 +62,12 @@ _SIGNATURES = {
     ),
     # t, out, b, f, d, dtype, stream
     "rtt_interaction_fwd": ([_P] * 2 + [_I] * 4 + [_P], _I),
+    # x, values, scales, n, d, key0, key1, stream
+    "rtt_quantize_stochastic": (
+        [_P] * 3 + [_I] * 2 + [ctypes.c_uint32] * 2 + [_P], _I,
+    ),
+    # xq, xs, wq, ws, out, n, m, k, out_dtype, stream
+    "rtt_int8_gemm": ([_P] * 5 + [_I] * 4 + [_P], _I),
 }
 
 _lib = None

@@ -199,8 +199,15 @@ def test_quantize_int8_matches_jax_exactly():
         quant.dequantize_int8(vals, scales).numpy(),
         np.asarray(jax_dequantize_int8(ref_vals, ref_scales)),
     )
-    with pytest.raises(NotImplementedError):
-        quant.quantize_int8(torch.from_numpy(x), seed=1, stochastic=True)
+    # the stochastic branch (K5) returns int8 values and the same f32 scales,
+    # and needs a seed
+    svals, sscales = quant.quantize_int8(torch.from_numpy(x), seed=1,
+                                         stochastic=True)
+    assert svals.dtype == torch.int8 and sscales.dtype == torch.float32
+    assert svals.shape == (96, 32)
+    np.testing.assert_array_equal(sscales.numpy(), np.asarray(ref_scales))
+    with pytest.raises(ValueError, match="seed"):
+        quant.quantize_int8(torch.from_numpy(x), stochastic=True)
 
 
 def test_launch_counters_ignore_plain_versions():

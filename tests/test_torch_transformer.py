@@ -138,11 +138,25 @@ def test_decode_step_matches_flax(int8):
 @pytest.mark.parametrize(
     "kwargs",
     [{"attn_impl": "ring"}, {"attn_impl": "ulysses_flash"},
-     {"attn_impl": "ring_flash"}, {"quantized_mlp": True}],
+     {"attn_impl": "ring_flash"}],
 )
 def test_later_slice_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="slice"):
         TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", **kwargs)
+
+
+def test_quantized_mlp_builds_and_runs():
+    """quantized_mlp, once a later slice, builds: the same parameters as
+    the plain model, its MLP through the int8 product (tests of its numbers
+    in tests/test_torch_quantized_mlp.py)."""
+    lm = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu",
+                       quantized_mlp=True, seed=3)
+    plain = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", seed=3)
+    assert lm.quantized_mlp and all(b.quantized_mlp for b in lm.blocks)
+    assert lm.state_dict().keys() == plain.state_dict().keys()
+    with torch.inference_mode():
+        logits = lm(torch.zeros((1, 8), dtype=torch.int64))
+    assert logits.shape == (1, 8, VOCAB) and torch.isfinite(logits).all()
 
 
 def test_construction_is_seeded_and_bf16_by_default():
