@@ -2,11 +2,13 @@
 // ctypes: the gradient of the training path's attention, from the saved
 // normalized output's row statistics (FlashAttention-2).
 //
-// Replaces, in raydp_tpu/ops/flash_attention.py (flash_backward_blocks):
+// Replaces, in raydp_tpu/ops/flash_attention.py (flash_backward_blocks),
+// for f32 q/k/v (rtt_flash_bwd_dq / rtt_flash_bwd_dkv below send bf16 to
+// the tensor-core kernels of flash_backward_sm90.cu):
 //   flash_bwd_dq   <- _bwd_dq_kernel, launched by the pallas_call for dq
 //   flash_bwd_dkv  <- _bwd_dkv_kernel, launched by the pallas_call for dk/dv
 //
-// Both take q/do [BH, T, D], k/v [BH, Tk, D] (f32 or bf16), the row
+// Both take q/do [BH, T, D], k/v [BH, Tk, D] (f32 here), the row
 // logsumexp lse and dsum = rowsum(do * o) [BH, T] f32, and the blocks'
 // global offsets for the causal mask. With s = scale * q.k, p = exp(s - lse)
 // (exactly 0 where masked: k_pos > q_pos or past the ragged edge),
@@ -324,24 +326,37 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// The bf16 backward on tensor cores (flash_backward_sm90.cu).
+int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* dsum,
+                      void* dq, int bh, int t, int tk, int d, int q_off,
+                      int k_off, int causal, float scale, cudaStream_t stream);
+int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dsum,
+                       void* dk, void* dv, int bh, int t, int tk, int d,
+                       int q_off, int k_off, int causal, float scale,
+                       cudaStream_t stream);
+
 extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 on success); an
 // unsupported head dim or dtype returns cudaErrorInvalidValue without
-// launching.
+// launching. bf16 goes to the tensor-core kernels, f32 to the kernels here.
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* dsum,
                      void* dq, int bh, int t, int tk, int d, int dtype,
                      int q_off, int k_off, int causal, float scale,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    return flash_bwd_dq_sm90(q, k, v, dout, lse, dsum, dq, bh, t, tk, d,
+                             q_off, k_off, causal, scale, s);
+  }
 #define RTT_DQ(D, T)                                                      \
   return launch_dq<D, T>(q, k, v, dout, lse, dsum, dq, bh, t, tk, q_off, \
                          k_off, causal, scale, s)
   if (d == 64 && dtype == kF32) RTT_DQ(64, float);
-  if (d == 64 && dtype == kBF16) RTT_DQ(64, __nv_bfloat16);
   if (d == 128 && dtype == kF32) RTT_DQ(128, float);
-  if (d == 128 && dtype == kBF16) RTT_DQ(128, __nv_bfloat16);
 #undef RTT_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -352,13 +367,15 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                       int dtype, int q_off, int k_off, int causal, float scale,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16) {
+    return flash_bwd_dkv_sm90(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, d,
+                              q_off, k_off, causal, scale, s);
+  }
 #define RTT_DKV(D, T)                                                          \
   return launch_dkv<D, T>(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, q_off, \
                           k_off, causal, scale, s)
   if (d == 64 && dtype == kF32) RTT_DKV(64, float);
-  if (d == 64 && dtype == kBF16) RTT_DKV(64, __nv_bfloat16);
   if (d == 128 && dtype == kF32) RTT_DKV(128, float);
-  if (d == 128 && dtype == kBF16) RTT_DKV(128, __nv_bfloat16);
 #undef RTT_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,7 +11,8 @@
 // against 2 bytes per element of q, k, v and o, about 500 operations per
 // byte at T 2048: the bf16 tensor cores (989 TFLOP/s), not HBM.
 //
-// The design.
+// The design (its mbarrier, TMA and wgmma helpers are sm90_common.cuh's,
+// shared with the backward in flash_backward_sm90.cu).
 // - One block per (bh, 128-query tile), 384 threads: two consumer
 //   warpgroups of 64 query rows each and one producer warpgroup, whose
 //   first thread issues every load. setmaxnreg moves registers from the
@@ -52,11 +53,7 @@
 // within bf16 rounding, not bit for bit; for f32 q/k/v both use the shared
 // f32 row update and match bit for bit.
 
-#include <cuda.h>
-
-#include <algorithm>
-
-#include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -80,170 +77,6 @@ struct Layout {
   static constexpr int kBar = kV + kStages * kTile;  // q, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` has completed. (A watchdog on
-// %globaltimer here cost the consumers spills at 168 registers.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// One box of 64 columns x 128 rows x 1 head at (col, row, bh).
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row,
-                                         int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
-      "r"(bh)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes, so that the
-// compiler neither moves their uses across the wait nor reuses them early.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define RTT_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define RTT_F16(i) RTT_F4(i), RTT_F4(i + 4), RTT_F4(i + 8), RTT_F4(i + 12)
-
-// d[64] (+)= A[64 x 16] * B[16 x 128]: A and B from shared memory, both
-// K-major; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : RTT_F16(0), RTT_F16(16), RTT_F16(32), RTT_F16(48)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d[64] += A[64 x 16] (registers) * B[16 x 128] (shared memory, MN-major:
-// the transpose bit is set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : RTT_F16(0), RTT_F16(16), RTT_F16(32), RTT_F16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// The same with N = 64 (D 64): d[32].
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : RTT_F16(0), RTT_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-#undef RTT_F16
-#undef RTT_F4
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
-                                         uint64_t b) {
-  if constexpr (D == 128) {
-    wgmma_rs_n128(o, a, b);
-  } else {
-    wgmma_rs_n64(o, a, b);
-  }
-}
-
-// Register i of a thread's m64nN f32 accumulator holds row
-// 16 * warp + lane / 4 + 8 * half(i) and column col(i) of the 64-row tile.
-__device__ __forceinline__ constexpr int half_of(int i) { return (i >> 1) & 1; }
-__device__ __forceinline__ int col_of(int i, int lane) {
-  return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x = __fadd_rn(x, __shfl_xor_sync(kFull, x, 1));
-  return __fadd_rn(x, __shfl_xor_sync(kFull, x, 2));
-}
 
 // q [BH, T, D], k/v [BH, Tk, D] bf16 (through the tensor maps) -> o
 // [BH, T, D] (bf16, or f32 when out_f32), m/l [BH, T] f32.
@@ -395,13 +228,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       m[0] = m_new[0];
       m[1] = m_new[1];
 
-      // P to bf16 A fragments: fragment k16 step kk, register j is the pair
-      // (sc[8 kk + 2 j], sc[8 kk + 2 j + 1]), low half first
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const __nv_bfloat162 pair = __floats2bfloat162_rn(sc[2 * j], sc[2 * j + 1]);
-        pa[j] = *reinterpret_cast<const uint32_t*>(&pair);
-      }
+      to_a_fragments(sc, pa);  // P to bf16 A fragments
 
       // O += P V over the tile's keys in steps of 16 (16 rows of 128 bytes)
       fence_regs(acc);
@@ -452,53 +279,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime, so
-// that the library needs no link against libcuda (CUDA 12.5 or later).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
-// A 3-D map [bh, rows, d] over a contiguous bf16 tensor, boxes of
-// 64 x kN x 1 with the 128-byte swizzle; rows past `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int bh, int rows, int d) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(std::max(rows, 1)),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(d) * 2 * std::max(rows, 1)};
-  const cuuint32_t box[3] = {64, kN, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D, bool kTwoTerm>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
            float* l, int bh, int t, int tk, int q_off, int k_off, int causal,
            int normalize, int out_f32, float scale, cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
-  if (!make_map(&map_q, q, bh, t, D) || !make_map(&map_k, k, bh, tk, D) ||
-      !make_map(&map_v, v, bh, tk, D)) {
+  if (!make_map(&map_q, q, bh, t, D, kM) ||
+      !make_map(&map_k, k, bh, tk, D, kN) ||
+      !make_map(&map_v, v, bh, tk, D, kN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_sm90_kernel<D, kTwoTerm>;

@@ -22,13 +22,16 @@ kernel family serves the surfaces of decode serving and training:
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/flash_attention.cu``, ``csrc/flash_forward_sm90.cu``,
-``csrc/flash_backward.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch version beside it (``*_plain``), which does the same blockwise
-update. The forward has two bodies: f32 q/k/v take the CUDA-core body over
-the plain version's 32-key tiles; bf16 q/k/v take the tensor-core kernel
-(``wgmma``, K/V through TMA, 128 queries x 128 keys a tile), which rounds p
-to bf16 before p @ v, as the TPU's matrix unit does, and so agrees with the
-plain version to bf16 rounding, not bit for bit.
+``csrc/flash_backward.cu``, ``csrc/flash_backward_sm90.cu``) or raises; on
+a CPU tensor it runs the plain PyTorch version beside it (``*_plain``),
+which does the same blockwise update. The forward and the backward each
+have two bodies: f32 q/k/v take the CUDA-core kernels over the plain
+versions' 32-key tiles; bf16 q/k/v take the tensor-core kernels
+(``wgmma``, tiles through TMA). The bf16 forward rounds p to bf16 before
+p @ v, as the TPU's matrix unit does; the bf16 backward rounds p before
+dv's product and ds before dk's and dq's (the reference feeds both in
+f32). So bf16 agrees with the plain versions to bf16 rounding, not bit for
+bit.
 
 Decode == prefill: for f32 q/k/v the decode kernel and the forward share
 one per-row update over the same 32-key tiles, so a decode row equals the
@@ -436,8 +439,8 @@ def flash_backward_blocks(q, k, v, lse, dsum, g, q_offset: int = 0,
     logsumexp ``lse`` and ``dsum = rowsum(g * o)`` [B, H, Tq] f32, the
     cotangent ``g`` of o (q's shape and type) and the blocks' global
     positions for the causal mask. Two kernels, ``flash_bwd_dq`` and
-    ``flash_bwd_dkv``, each output owned by one warp: no atomics, the same
-    bits on every run.
+    ``flash_bwd_dkv``, each output row owned by one warp (f32) or one
+    warpgroup (bf16): no atomics, the same bits on every run.
 
     A pair is masked where k_pos > q_pos, and its p is exactly 0. Where a row
     has no live key in the ``lse`` it was given (lse = NEG_INF), its

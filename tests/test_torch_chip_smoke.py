@@ -7,8 +7,10 @@ time counts those kernels twice (on the H100 it doubled the device time of
 a DLRM epoch's optimizer step). The window here is made of stand-in events.
 """
 
+from pathlib import Path
 from types import SimpleNamespace
 
+import pytest
 import torch
 
 import chip_smoke
@@ -101,7 +103,8 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
                 .split(")")[0].split("|"))
     assert names == {
         "flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_decode_kernel",
-        "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "interaction_fwd_kernel",
+        "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_sm90_kernel",
+        "flash_bwd_dkv_sm90_kernel", "interaction_fwd_kernel",
         "quantize_stochastic_kernel", "int8_gemm_kernel"}
 
 
@@ -130,3 +133,114 @@ def test_bf16_limit_bounds_p_rounding_and_catches_a_wrong_v():
     assert ((rounded.float() - po.float()).abs() <= limit).all()
     wrong = _forward_p_in_bf16(q, k, torch.roll(v, 16, dims=2), True)
     assert not ((wrong.float() - po.float()).abs() <= limit).all()
+
+
+def _bwd_case(t, d, causal, seed):
+    """bf16 q, k, v, g and the plain forward's lse and dsum = rowsum(g * o)."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v, g = (torch.randn((1, 2, t, d), generator=gen).bfloat16()
+                  for _ in range(4))
+    o, m, l = chip_smoke.fa.flash_attention_call_plain(q, k, v, 0, 0, causal)  # noqa: E741
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    dsum = (g.float() * o.float()).sum(dim=-1)
+    return q, k, v, lse, dsum, g
+
+
+def _backward_p_ds_in_bf16(q, k, v, lse, dsum, g, causal, k_dq=None):
+    """(dq, dk, dv) with p and ds rounded to bf16 before their products and
+    the outputs rounded to bf16, as the tensor-core backward rounds them,
+    and dp = do.v summed in another order than the plain version's (in
+    f64, then rounded), as the tensor cores sum it. ``k_dq`` replaces K in
+    dQ += dS K alone."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[..., None])
+    if causal:
+        t, tk = p.shape[-2:]
+        keep = torch.arange(t)[:, None] >= torch.arange(tk)[None, :]
+        p = torch.where(keep, p, torch.zeros_like(p))
+    dp = (g.double() @ v.double().transpose(-1, -2)).float()
+    ds = p * (dp - dsum[..., None]) * scale
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    kd = kf if k_dq is None else k_dq.float()
+    return ((dsb @ kd).bfloat16(), (dsb.transpose(-1, -2) @ qf).bfloat16(),
+            (pb.transpose(-1, -2) @ gf).bfloat16())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_bwd_limit_bounds_p_ds_rounding_and_catches_a_wrong_k(causal):
+    """bf16_bwd_limit holds the rounding of p, ds and the outputs to bf16,
+    and dp summed in another order, against the plain backward element by
+    element, for each of dq, dk and dv, row 0 included (one live key when
+    causal: dp - dsum cancels); K off by 16 rows in dQ's product breaks
+    dq's limit."""
+    args = _bwd_case(300, 64, causal, seed=1)
+    plain = chip_smoke.fa.flash_backward_blocks_plain(*args, 0, 0, causal)
+    limits = chip_smoke.bf16_bwd_limit(*args, 0, 0, causal, plain)
+    rounded = _backward_p_ds_in_bf16(*args, causal)
+    for name, got, ref, lim in zip(("dq", "dk", "dv"), rounded, plain, limits):
+        assert chip_smoke.limit_ratio(got, ref, lim) <= 1.0, name
+    q, k = args[0], args[1]
+    wrong = _backward_p_ds_in_bf16(*args, causal,
+                                   k_dq=torch.roll(k, 16, dims=2))
+    assert chip_smoke.limit_ratio(wrong[0], plain[0], limits[0]) > 1.0
+    assert q.shape == wrong[0].shape
+
+
+def test_abs_bwd_products_tile_the_whole_product():
+    """The tiled magnitudes equal one untiled product of magnitudes."""
+    q, k, v, lse, dsum, g = _bwd_case(200, 64, True, seed=2)
+    adq, adk, adv, edq, edk = chip_smoke.abs_bwd_products(
+        q, k, v, lse, dsum, g, 0, 0, True, block_q=64)
+    scale = 64 ** -0.5
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[..., None])
+    p = torch.tril(p)
+    ds = (p * (gf @ vf.transpose(-1, -2) - dsum[..., None]) * scale).abs()
+    torch.testing.assert_close(adq, ds @ kf.abs(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(adk, ds.transpose(-1, -2) @ qf.abs(),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(adv, p.transpose(-1, -2) @ gf.abs(),
+                               rtol=1e-5, atol=1e-6)
+    e = p * (gf.abs() @ vf.abs().transpose(-1, -2)) * scale
+    torch.testing.assert_close(edq, e @ kf.abs(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(edk, e.transpose(-1, -2) @ qf.abs(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _decode_untiled(q, k, v, n):
+    """The newest row against n keys in one f32 softmax, o rounded to q's
+    type: the decode kernel's arithmetic without its 32-key tiles."""
+    s = (q.float() @ k[:, :, :n].float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    p = torch.softmax(s, dim=-1)
+    return (p @ v[:, :, :n].float()).to(q.dtype)
+
+
+def test_bf16_decode_limit_bounds_rounding_and_catches_a_wrong_v():
+    """bf16_decode_limit holds a decode row that rounds only its output to
+    bf16 against the plain version element by element, at a short and a
+    long row; V off by 16 rows past key 1024 breaks it on the long row."""
+    gen = torch.Generator().manual_seed(3)
+    k, v = (torch.randn((1, 2, 2048, 64), generator=gen) for _ in range(2))
+    q = torch.randn((1, 2, 1, 64), generator=gen).bfloat16()
+    for n in (17, 1300):
+        lens = torch.tensor([n])
+        plain = chip_smoke.fa.flash_decode_plain(q, k, v, lens)
+        limit = chip_smoke.bf16_decode_limit(q, k, v, lens, plain)
+        assert chip_smoke.limit_ratio(_decode_untiled(q, k, v, n), plain,
+                                      limit) <= 1.0
+    wrong_v = v.clone()
+    wrong_v[:, :, 1024:] = torch.roll(v, 16, dims=2)[:, :, 1024:]
+    assert chip_smoke.limit_ratio(_decode_untiled(q, k, wrong_v, 1300), plain,
+                                  limit) > 1.0
+
+
+def test_every_planted_fault_site_occurs_once_in_its_source():
+    """A site that drifted away from its code (edited, duplicated) would
+    make --planted-faults refuse to plant it on the card."""
+    root = Path(chip_smoke.__file__).resolve().parent
+    assert len(chip_smoke.PLANTED_FAULTS) >= 5
+    for name, (source, site, fault) in chip_smoke.PLANTED_FAULTS.items():
+        text = (root / source).read_text()
+        assert text.count(site) == 1, name
+        assert fault != site and fault not in text, name
