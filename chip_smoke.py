@@ -10,12 +10,13 @@ Phases; any failure exits non-zero and prints no result line:
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them, build the kernels from ``raydp_tpu_torch/csrc`` and print the
    build seconds; for the tensor-core kernels (the bf16 forward
-   ``flash_fwd_sm90_kernel`` and the bf16 backward
-   ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``, eight
-   instantiations) the registers and spills ``ptxas`` reports and the
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions ``cuobjdump
-   -sass`` finds in the built library (no spill, and both present, or it
-   fails).
+   ``flash_fwd_sm90_kernel``, the bf16 backward
+   ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel`` and the
+   int8 product ``int8_gemm_sm90_kernel``, thirteen instantiations) the
+   registers and spills ``ptxas`` reports and the wgmma (``HGMMA`` for
+   bf16, ``IGMMA`` for s8) and ``UTMALDG`` (TMA load) instructions
+   ``cuobjdump -sass`` finds in the built library (no spill, and both
+   present, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
    0 and nonzero, f32 and bf16, and for the bf16 tensor-core kernel D 64,
@@ -31,10 +32,13 @@ Phases; any failure exits non-zero and prints no result line:
    2^-7 |plain| plus 1.05 * 2^-8 times the product of magnitudes whose p
    or ds the kernel rounds to bf16; two launches bitwise equal), all four
    again at the training path's own shape (q/k/v/do [2,8,8192,128] bf16
-   causal), ``flash_decode`` (mixed kv_len), ``flash_decode_int8``
-   (against ``flash_decode`` on the dequantized cache; both against their
-   plain versions, f32 q within 1e-5, bf16 q element by element within
-   ``bf16_decode_limit``, 2^-7 |plain| + 1e-6 * (the attention of |v|)),
+   causal), ``flash_decode`` (mixed kv_len), ``flash_decode_int8`` (the
+   split kernel: against ``flash_decode`` on the dequantized cache and
+   both against their plain versions, f32 q within 1e-5, bf16 q element by
+   element within ``bf16_decode_limit``, 2^-7 |plain| + 1e-6 * (the
+   attention of |v|); two launches bitwise; its edge cases: kv_len 1, the
+   128-key chunk boundaries, capacity and past it, tq 3, a sequence of no
+   live key giving exactly 0),
    decode vs the prefill row (f32, bitwise expected; bf16 q/k/v, within
    ``bf16_limit``, the gap printed), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
@@ -48,12 +52,18 @@ Phases; any failure exits non-zero and prints no result line:
    (values and scales bitwise; one seed the same bits over two launches,
    another seed other values; |values - x/s| <= 1, equal to 1 only where
    x/s is an integer and the f32 sum with u rounds up;
-   |mean(dequant - x)| < quantum / 10); ``int8_gemm`` against
-   ``int8_gemm_plain`` at the step's
-   two products [16384,1024]x[4096,1024] and [16384,4096]x[1024,4096],
-   decode's N = 4 and a prefill's N = 1500 (f32 and bf16 out, bitwise,
-   and over two launches), and ``int8_matmul``'s two gradients against the
-   same Function with the plain product (bitwise).
+   |mean(dequant - x)| < quantum / 10); ``quantize_int8`` (deterministic,
+   ``quantize_rows_kernel``) against the torch chain
+   ``quantize_int8_plain``, bitwise and over two launches, on the int8
+   product's bf16 operands, an int8 cache's K/V rows and ragged rows, each
+   with rows at the rounding's edges, and as the product calls it (x and w
+   in one launch, rows padded to a 16-byte pitch); ``int8_gemm`` against
+   ``int8_gemm_plain`` at N 1, 4, 15, 16 (the swapped, split-K mode), 17,
+   1500, 16384 (the tiled mode) with (K, M) (1024, 4096), (4096, 1024) and
+   (1000, 1024), f32 and bf16 out, bitwise and over two launches; and at
+   the step's two products ``int8_matmul`` (one quantize and one GEMM
+   launch, bitwise equal to ``int8_matmul_plain``) and its two gradients
+   against ``int8_matmul_plain``'s (bitwise).
 3. Decode serving of ``TransformerLM`` at full width (vocab 2048, d_model
    1024, 8 heads of 128, 4 layers, bf16, seeded random weights) through
    ``DecodeEngine`` (capacity 2048, pages of 128, 4 slots, 32 new tokens)
@@ -62,9 +72,12 @@ Phases; any failure exits non-zero and prints no result line:
    run and read just after; every kernel of the path must have launched.
    One stream's prefill and first-step logits are held against the same
    weights on the plain attention path (``attn_impl="full"``). Then the
-   same weights with ``quantized_mlp=True`` serve the same streams (f32
-   cache), ``int8_gemm`` launching in prefill and decode, and once more
-   under the profiler.
+   same weights with ``quantized_mlp=True``: one stream's prefill and
+   first-step logits bitwise equal to the same model with its products
+   through ``int8_matmul_plain``; then they serve the same streams (f32
+   cache), ``int8_gemm`` launching in prefill and decode with one
+   ``quantize_int8`` launch per product, and once more under the
+   profiler.
 4. Training of ``TransformerLM`` at full width (bench.py's
    ``bench_transformer_lm``: batch 2, T 8192, Adam 3e-4, tokens from
    ``np.random.default_rng(17)``, seeded random weights): one warm step and
@@ -78,7 +91,8 @@ Phases; any failure exits non-zero and prints no result line:
    attention path (``attn_impl="full"``), and the two-term step again.
    The same training with ``quantized_mlp=True`` (bench.py's
    ``make_runner("flash", quantized_mlp=True)``): the loss falling, 8
-   ``int8_gemm`` launches a step (two per block, forward only) and no K5,
+   ``int8_gemm`` launches a step (two per block, forward only), as many
+   ``quantize_int8`` launches and no K5,
    the first loss within 1e-2 relative of the bf16 model's, tokens/s, step
    ms, ``mfu_int8_mlp`` (bench.py's: the same FLOPs over the bf16 peak)
    and one profiled step. K5's own path: ``quantize_int8(x, seed=step,
@@ -101,7 +115,8 @@ Phases; any failure exits non-zero and prints no result line:
    calls it: ``F.scaled_dot_product_attention``, its backward for the
    backward pair, ``torch.bmm`` and the triangle gather, a pair of calls,
    for ``interaction_fwd``, ``torch._int_mm`` -- the int32 product alone,
-   without scales or cast -- for ``int8_gemm``, none for K5), and the
+   without scales or cast, its rows padded to 32 at decode's N 4 -- for
+   ``int8_gemm``, none for K5 and ``quantize_int8``), and the
    least time the card could take (int8 operations over 1979 TOP/s), with
    each time's ratio to it and, for the attention kernels, their TFLOP/s
    (4 * D, 6 * D and 8 * D operations per live pair for the forward, dq
@@ -123,12 +138,12 @@ The last two lines are a ``{"kernels": [...]}`` object and
     python3 chip_smoke.py --planted-faults
 
 plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
-names (the bf16 forward, the bf16 backward, the decode kernel) under
-``build/planted/``, builds the copy and runs there ``chip_smoke.py
---bf16-checks`` (phase 2's bf16 forward, backward and decode checks at
-the serving and training shapes alone); it exits 0 only if every copy
-fails them with a disagreement, and prints one JSON line with each
-fault's failing check.
+names (the bf16 forward, the bf16 backward, the two decode kernels, the
+int8 product) under ``build/planted/``, builds the copy and runs there
+``chip_smoke.py --bf16-checks`` (phase 2's bf16 forward, backward and
+decode checks and the int8 product's, at the serving and training shapes
+alone); it exits 0 only if every copy fails them with a disagreement, and
+prints one JSON line with each fault's failing check.
 """
 
 from __future__ import annotations
@@ -195,7 +210,28 @@ INTERACTION_SHAPES = {"path": (2048, 7, 16), "kaggle": (2048, 27, 16)}
 # decode's N = 4 (the engine's slots) and a prefill-sized N = 1500
 QUANT_SHAPES = {"fc1": (16384, 1024), "fc2": (16384, 4096), "tail": (300, 96)}
 GEMM_SHAPES = {"fc1": (16384, 1024, 4096), "fc2": (16384, 4096, 1024),
-               "decode": (4, 1024, 4096), "prefill": (1500, 1024, 4096)}
+               "decode": (4, 1024, 4096), "decode fc2": (4, 4096, 1024),
+               "prefill": (1500, 1024, 4096)}
+# int8_gemm held bitwise at every N of its two modes and across the
+# threshold (qz.SMALL_N = 16: N 15 and 16 swapped and split, 17 tiled), with
+# K a multiple of 128, and 1000 (padded to a 1008-byte pitch); M 1003 takes
+# the large mode's bf16 out through registers (rows TMA cannot address)
+GEMM_CHECK_N = (1, 4, 15, 16, 17, 1500, 16384)
+GEMM_CHECK_KM = ((1024, 4096), (4096, 1024), (1000, 1024), (200, 1003))
+# the deterministic quantize kernel: the int8 product's operands as the
+# model hands them (bf16 activations of training, prefill and decode, the
+# bf16 weights), an int8 cache's new K/V rows (f32, [slots * heads, D]) and
+# ragged rows
+QUANT_ROWS_SHAPES = {
+    "train x fc1": ((16384, 1024), torch.bfloat16),
+    "train x fc2": ((16384, 4096), torch.bfloat16),
+    "w fc1": ((4096, 1024), torch.bfloat16),
+    "w fc2": ((1024, 4096), torch.bfloat16),
+    "decode x": ((4, 1024), torch.bfloat16),
+    "kv rows": ((32, 128), torch.float32),
+    "tail": ((300, 96), torch.float32),
+    "ragged": ((7, 1000), torch.bfloat16),
+}
 STOCHASTIC_SEEDS = 8  # the entry point's run: one seed per step, as advised
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 and int8 tensor-core
@@ -209,6 +245,8 @@ SM90_SOURCE = "raydp_tpu_torch/csrc/flash_forward_sm90.cu"
 # the bf16 backward, which the training path runs (f32: flash_backward.cu)
 SM90_BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward_sm90.cu"
 QUANT_SOURCE = "raydp_tpu_torch/csrc/quantization.cu"
+# the int8-cache decode, split over the cache (K4a stays in FWD_SOURCE)
+DECODE_INT8_SOURCE = "raydp_tpu_torch/csrc/flash_decode_int8.cu"
 # kernel -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
@@ -216,12 +254,16 @@ KERNELS = {
     "flash_bwd_dq": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
     "flash_bwd_dkv": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
     "flash_decode": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
-    "flash_decode_int8": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
+    "flash_decode_int8": (DECODE_INT8_SOURCE,
+                          "raydp_tpu/ops/flash_attention.py:833"),
     "interaction_fwd": ("raydp_tpu_torch/csrc/interaction.cu",
                         "raydp_tpu/ops/interaction.py:159"),
     "quantize_int8_stochastic": (QUANT_SOURCE,
                                  "raydp_tpu/ops/quantization.py:140"),
-    # not a TPU kernel: the JAX package's int8 product is XLA's
+    # not TPU kernels: the JAX package's deterministic rounding is jnp code
+    # and its int8 product is XLA's
+    "quantize_int8": (QUANT_SOURCE, "raydp_tpu/ops/quantization.py:27 "
+                      "(jnp, no pallas_call)"),
     "int8_gemm": (QUANT_SOURCE, "raydp_tpu/ops/quantization.py:62 "
                   "(jax.lax.dot_general, no pallas_call)"),
 }
@@ -233,13 +275,16 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 def port_kernel_pattern() -> re.Pattern:
     """The port's kernels in a profile: the ``__global__`` functions of
     csrc/*.cu, which sit in an anonymous namespace (PyTorch, too, has
-    kernels in anonymous namespaces, under ``at::native::``)."""
+    kernels in anonymous namespaces, under ``at::native::``). The profiler
+    names a template kernel with its return type ("void ...") and a plain
+    one without it."""
     names = sorted({
         found for src in _build.CSRC_DIR.glob("*.cu")
         for found in re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
             src.read_text())})
-    return re.compile(rf"void \(anonymous namespace\)::({'|'.join(names)})\b")
+    return re.compile(
+        rf"(?:void )?\(anonymous namespace\)::({'|'.join(names)})\b")
 
 
 class SmokeFailure(RuntimeError):
@@ -338,9 +383,13 @@ def ptxas_entries(text: str) -> dict:
     return out
 
 
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+
+
 def sass_counts(lib: Path) -> dict:
-    """HGMMA (wgmma) and UTMALDG (TMA load) instructions per function of
-    the built library's SASS, by ``cuobjdump -sass``."""
+    """HGMMA (bf16 wgmma), IGMMA (integer wgmma) and UTMALDG (TMA load)
+    instructions per function of the built library's SASS, by ``cuobjdump
+    -sass``."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
@@ -348,41 +397,58 @@ def sass_counts(lib: Path) -> dict:
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
         name = chunk.split("\n", 1)[0].strip()
         out[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
-                     for op in ("HGMMA", "UTMALDG")}
+                     for op in SASS_OPS}
     return out
 
 
+def _sm90_key(family: str, found: re.Match) -> str:
+    if family == "int8_gemm_sm90":
+        mode = "small-N" if found.group(1) == "1" else "large-N"
+        out = "f32" if found.group(2) == "f" else "bf16"
+        staged = " TMA store" if found.group(3) == "1" else ""
+        return f"{family} {mode} {out}{staged}"
+    two = found.groups()[1:] == ("1",)
+    return f"{family} D{found.group(1)}{' two-term' if two else ''}"
+
+
 # the tensor-core kernels' instantiations in ptxas's and cuobjdump's mangled
-# names: the bf16 forward <D, two-term>, the bf16 backward <D>
+# names: the bf16 forward <D, two-term>, the bf16 backward <D>, and the int8
+# product <swapped, out type, staged epilogue>, with the wgmma op each must
+# run
 SM90_KERNELS = {
-    "flash_fwd_sm90": r"flash_fwd_sm90_kernelILi(\d+)ELb(\d)E",
-    "flash_bwd_dq_sm90": r"flash_bwd_dq_sm90_kernelILi(\d+)EE",
-    "flash_bwd_dkv_sm90": r"flash_bwd_dkv_sm90_kernelILi(\d+)EE",
+    "flash_fwd_sm90": (r"flash_fwd_sm90_kernelILi(\d+)ELb(\d)E", "HGMMA"),
+    "flash_bwd_dq_sm90": (r"flash_bwd_dq_sm90_kernelILi(\d+)EE", "HGMMA"),
+    "flash_bwd_dkv_sm90": (r"flash_bwd_dkv_sm90_kernelILi(\d+)EE", "HGMMA"),
+    "int8_gemm_sm90": (
+        r"int8_gemm_sm90_kernelILb(\d)E(f|13__nv_bfloat16)Lb(\d)E", "IGMMA"),
 }
+SM90_INSTANTIATIONS = 13
 
 
 def sm90_report(entries: dict) -> dict:
     """The tensor-core kernels' instantiations among ptxas's ``entries``
     (the forward at D 64 and 128, one-pass and two-term; dq and dk/dv at D
-    64 and 128): registers and spills, and the SASS counts that show each
-    runs on tensor cores through TMA. Fails on a spill, a missing
-    instantiation or a missing HGMMA or UTMALDG."""
+    64 and 128; the int8 product in its two modes, f32 and bf16 out, and
+    the large mode's bf16 epilogue through TMA stores):
+    registers and spills, and the SASS counts that show each runs on tensor
+    cores (HGMMA for bf16, IGMMA for s8) through TMA. Fails on a spill, a
+    missing instantiation or a missing wgmma op or UTMALDG."""
     sass = sass_counts(_build.library_path())
     out = {}
     for name, row in entries.items():
-        for family, pattern in SM90_KERNELS.items():
+        for family, (pattern, op) in SM90_KERNELS.items():
             found = re.search(pattern, name)
             if not found:
                 continue
-            two = found.groups()[1:] == ("1",)
-            key = f"{family} D{found.group(1)}{' two-term' if two else ''}"
-            out[key] = row | sass.get(name, {"HGMMA": 0, "UTMALDG": 0})
+            counts = sass.get(name, dict.fromkeys(SASS_OPS, 0))
+            out[_sm90_key(family, found)] = row | counts | {"wgmma_op": op}
     log(f"sm90 kernels (ptxas, SASS): {out}")
-    require(len(out) == 8, f"expected 8 sm90 kernels, found {sorted(out)}")
+    require(len(out) == SM90_INSTANTIATIONS,
+            f"expected {SM90_INSTANTIATIONS} sm90 kernels, found {sorted(out)}")
     for key, row in out.items():
         require(row["spill_bytes"] == 0, f"{key} spills")
-        require(row["HGMMA"] > 0 and row["UTMALDG"] > 0,
-                f"{key}: no HGMMA or UTMALDG in its SASS")
+        require(row[row["wgmma_op"]] > 0 and row["UTMALDG"] > 0,
+                f"{key}: no {row['wgmma_op']} or UTMALDG in its SASS")
     return out
 
 
@@ -435,8 +501,10 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     require(worst <= 1e-5, "decode disagrees with the prefill row")
     out["decode_vs_prefill"] = {"max_abs": worst, "bitwise": bitwise}
     out["decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf, lens)
+    out.update(check_decode_int8_edges(gen, device, bh_heads, t, d))
     out.update(check_interaction(gen, device))
     out.update(check_stochastic(gen, device))
+    out.update(check_quantize(gen, device))
     out.update(check_int8_gemm(gen, device))
     return out
 
@@ -504,12 +572,66 @@ def check_decode(gen, device, heads, t, d, lens,
         qd = _randn(gen, (b, heads, 1, d), dtype, device)
         got = finish_within(lambda: fa.flash_decode(
             qd, k8, v8, kv_len, k_scale=ks, v_scale=vs), "flash_decode_int8")
-        err_dq = max_abs(got, fa.flash_decode(qd, k_dq, v_dq, kv_len))
+        again = fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks, v_scale=vs)
         name = f"flash_decode_int8 q {str(dtype)[6:]}"
+        # K4a on the dequantized cache: the same function, its sums over
+        # 32-key tiles in order where K4b's are split over 128-key chunks
+        on_dq = fa.flash_decode(qd, k_dq, v_dq, kv_len)
+        err_dq = max_abs(got, on_dq)
+        if dtype == torch.float32:
+            ok, detail = err_dq <= 1e-5, "atol 1e-5"
+        else:
+            ratio = limit_ratio(got, on_dq, bf16_decode_limit(
+                qd, k_dq, v_dq, kv_len, on_dq))
+            ok, detail = ratio <= 1.0, f"worst |d| / bf16_decode_limit {ratio:.3f}"
         log(f"{name}: max|o-f32 kernel on dequantized| {err_dq:.3e} "
-            f"(atol 1e-6)")
-        require(err_dq <= 1e-6, f"{name} disagrees with the dequantized cache")
+            f"({detail}); two launches bitwise {torch.equal(got, again)}")
+        require(ok, f"{name} disagrees with the dequantized cache")
+        require(torch.equal(got, again), f"{name} differs between launches")
         held(name, got, qd, k8, v8, (ks, vs))
+    return out
+
+
+def check_decode_int8_edges(gen, device, heads, t, d) -> dict:
+    """K4b's edge cases against flash_decode_plain (f32 q within 1e-5, bf16
+    q within bf16_decode_limit), each bitwise over two launches: kv_len 1,
+    at the chunk boundaries (DECODE_CHUNK - 1, DECODE_CHUNK, + 1), at
+    capacity and past it (clipped), tq 3 (causal inside the new rows,
+    kv_len 2 leaving row 0 without a key), and a sequence of no live key,
+    whose output must be exactly 0."""
+    out = {}
+    c = fa.DECODE_CHUNK
+    cases = (([1, c - 1, c, c + 1], 1), ([t, t + 100, 2 * c - 1, 0], 1),
+             ([2, c, 3 * c + 1, t], 3))
+    kc = _randn(gen, (4, heads, t, d), torch.float32, device)
+    vc = _randn(gen, (4, heads, t, d), torch.float32, device)
+    k8, ks = quantize_int8(kc)
+    v8, vs = quantize_int8(vc)
+    ks, vs = ks[..., 0], vs[..., 0]
+    for lens, tq in cases:
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = _randn(gen, (4, heads, tq, d), dtype, device)
+            got = finish_within(lambda: fa.flash_decode(
+                q, k8, v8, kv_len, k_scale=ks, v_scale=vs), "flash_decode_int8")
+            again = fa.flash_decode(q, k8, v8, kv_len, k_scale=ks, v_scale=vs)
+            ref = fa.flash_decode_plain(q, k8, v8, kv_len, ks, vs)
+            err = max_abs(got, ref)
+            name = f"flash_decode_int8 edges kv_len={lens} tq={tq} q {str(dtype)[6:]}"
+            if dtype == torch.float32:
+                ok, detail = err <= 1e-5, "limit 1e-5"
+            else:
+                ratio = limit_ratio(got, ref, bf16_decode_limit(
+                    q, k8, v8, kv_len, ref, ks, vs))
+                ok, detail = ratio <= 1.0, f"worst |o-plain| / limit {ratio:.3f}"
+            empty = [i for i, n in enumerate(lens) if n == 0]
+            zeros = all(bool((got[i] == 0).all()) for i in empty)
+            same = torch.equal(got, again)
+            log(f"{name}: max|o-plain| {err:.3e} ({detail}); no-key rows 0: "
+                f"{zeros}; two launches bitwise {same}")
+            require(ok and zeros, f"{name} disagrees with its plain version")
+            require(same, f"{name} differs between launches")
+            out[name] = err
     return out
 
 
@@ -757,20 +879,82 @@ def quantized_operands(gen, device, n, k, m):
     them (deterministic quantize_int8 of the f32 values)."""
     x = _randn(gen, (n, k), torch.bfloat16, device)
     w = (_randn(gen, (m, k), torch.float32, device) * k**-0.5).to(torch.bfloat16)
-    return x, w, (*quantize_int8(x.float()), *quantize_int8(w.float()))
+    return x, w, (*quantize_int8(x), *quantize_int8(w))
 
 
-def check_int8_gemm(gen, device) -> dict:
-    """int8_gemm against int8_gemm_plain on the same int8 operands at the
-    training step's two products, decode's N = 4 and a prefill's N = 1500:
-    f32 and bf16 outputs bitwise equal, two launches bitwise equal. At the
-    two training shapes, int8_matmul's gradients (straight through) against
-    the same Function with the plain product, bitwise."""
+def edge_rows(gen, shape, dtype, device):
+    """Random rows at several scales, with rows built to hit the rounding's
+    edges: x / s exactly k + 0.5 (half to even), an all-zero row (the
+    1e-12 floor) and values at +-127 quanta."""
+    n, d = shape
+    x = _randn(gen, shape, torch.float32, device) * 3.0
+    if n >= 3 and d >= 4:
+        k = torch.arange(d, device=device, dtype=torch.float32) % 254 - 126
+        x[0] = (k + 0.5) * 0.125  # |x / s| <= 126.5 with s = 0.125
+        x[0, 0] = 127 * 0.125
+        x[1] = 0.0
+        x[2, : d // 2] = 127 * 0.25
+        x[2, d // 2:] = -127 * 0.25
+    return x.to(dtype)
+
+
+def check_quantize(gen, device) -> dict:
+    """quantize_int8(stochastic=False), quantize_rows_kernel, against the
+    torch chain quantize_int8_plain on the same card: values and scales
+    bitwise equal, and over two launches, at QUANT_ROWS_SHAPES; and the
+    int8 product's one launch for x and w together, into rows padded to a
+    16-byte pitch, against the chain on each with zeros past K."""
     out = {}
-    for key, (n, k, m) in GEMM_SHAPES.items():
+    for key, (shape, dtype) in QUANT_ROWS_SHAPES.items():
+        x = edge_rows(gen, shape, dtype, device)
+        got = finish_within(lambda: quantize_int8(x), "quantize_int8")
+        again = quantize_int8(x)
+        ref = qz.quantize_int8_plain(x)
+        name = quantize_case(key, shape, dtype)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = max(max_abs(a, b) for a, b in zip(got, ref))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, ref))
+        log(f"{name}: bitwise equal to the torch chain {bitwise} (max|d| "
+            f"{err:.3e}); two launches bitwise {same}")
+        require(bitwise, f"{name} disagrees with the torch chain")
+        require(same, f"{name} differs between launches")
+        out[name] = err
+    for n, k, m in ((16384, 1024, 4096), (4, 4096, 1024), (5, 1000, 24)):
+        x = edge_rows(gen, (n, k), torch.bfloat16, device)
+        w = edge_rows(gen, (m, k), torch.float32, device)
+        pitch = qz._pitch(k)
+        values, scales = qz._quantize_rows_kernel([x, w], pitch)
+        ref = [qz.quantize_int8_plain(t) for t in (x, w)]
+        ref_vals = torch.nn.functional.pad(torch.cat([ref[0][0], ref[1][0]]),
+                                           (0, pitch - k))
+        ok = (torch.equal(values, ref_vals)
+              and torch.equal(scales, torch.cat([ref[0][1], ref[1][1]])))
+        name = f"quantize_int8 x [{n},{k}] bf16 + w [{m},{k}] f32, pitch {pitch}"
+        log(f"{name}: bitwise equal to the torch chain, zeros past K: {ok}")
+        require(ok, f"{name} disagrees with the torch chain")
+    return out
+
+
+def quantize_case(key, shape, dtype) -> str:
+    return f"quantize_int8 {key} [{shape[0]},{shape[1]}] {str(dtype)[6:]}"
+
+
+def check_int8_gemm(gen, device, cases=None, grads=True) -> dict:
+    """int8_gemm against int8_gemm_plain on the same int8 operands, f32 and
+    bf16 out, bitwise and over two launches: at every N of GEMM_CHECK_N
+    with each (K, M) of GEMM_CHECK_KM (``cases``: (n, k, m) triples in their
+    place). At the two training shapes (with ``grads``), int8_matmul's
+    gradients (straight through) against the same Function through the
+    plain versions, bitwise, and its forward: one quantize launch and one
+    GEMM launch, bitwise equal to the plain path."""
+    out = {}
+    if cases is None:
+        cases = [(n, k, m) for n in GEMM_CHECK_N for k, m in GEMM_CHECK_KM]
+    for n, k, m in cases:
         x, w, (xq, xs, wq, ws) = quantized_operands(gen, device, n, k, m)
         for dtype in (torch.float32, torch.bfloat16):
-            got = qz.int8_gemm(xq, xs, wq, ws, dtype)
+            got = finish_within(lambda: qz.int8_gemm(xq, xs, wq, ws, dtype),
+                                "int8_gemm")
             again = qz.int8_gemm(xq, xs, wq, ws, dtype)
             ref = qz.int8_gemm_plain(xq, xs, wq, ws, dtype)
             name = gemm_case(n, k, m, dtype)
@@ -782,15 +966,24 @@ def check_int8_gemm(gen, device) -> dict:
             require(got.dtype == dtype and bitwise, f"{name} disagrees")
             require(same, f"{name} differs between launches")
             out[name] = err
-        if key not in ("fc1", "fc2"):
+        if not grads or (n, k, m) not in (GEMM_SHAPES["fc1"], GEMM_SHAPES["fc2"]):
             continue
+        qz.reset_launches()
+        y = qz.int8_matmul(x, w)
+        launches = dict(qz.LAUNCHES)
+        same = torch.equal(y, qz.int8_matmul_plain(x, w))
+        log(f"int8_matmul [{n},{k}]x[{m},{k}] bf16: launches {launches}; "
+            f"bitwise equal to the plain path {same}")
+        require(launches["quantize_int8"] == 1 and launches["int8_gemm"] == 1,
+                f"int8_matmul launched {launches}, not one quantize and one GEMM")
+        require(same, "int8_matmul disagrees with the plain path")
         g = _randn(gen, (n, m), torch.float32, device)
-        grads = {}
+        grads_of = {}
         for fn in (qz.int8_matmul, qz.int8_matmul_plain):
             xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-            grads[fn] = torch.autograd.grad((fn(xr, wr) * g).sum(), (xr, wr))
+            grads_of[fn] = torch.autograd.grad((fn(xr, wr) * g).sum(), (xr, wr))
         same = all(torch.equal(a, b) for a, b in
-                   zip(grads[qz.int8_matmul], grads[qz.int8_matmul_plain]))
+                   zip(grads_of[qz.int8_matmul], grads_of[qz.int8_matmul_plain]))
         log(f"int8_matmul gradients [{n},{k}]x[{m},{k}] bf16 vs the plain "
             f"product's autograd: bitwise {same}")
         require(same, "int8_matmul gradients disagree with the plain version's")
@@ -1024,6 +1217,65 @@ def check_model_logits(model, ref, prompt, capacity) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def plain_int8_product():
+    """Inside, ``int8_linear`` (so ``TransformerLM(quantized_mlp=True)``)
+    runs its product through ``int8_matmul_plain``: the torch chain and
+    ``int8_gemm_plain``, on the card."""
+    saved = qz.int8_matmul
+    qz.int8_matmul = qz.int8_matmul_plain
+    try:
+        yield
+    finally:
+        qz.int8_matmul = saved
+
+
+def check_int8_mlp_logits(model, prompt, capacity) -> dict:
+    """The int8-MLP model's prefill logits and its first decode step's
+    (from an f32 cache of the prefill's K/V), through the kernels, equal
+    bit for bit the same model with its products through the plain
+    versions: the quantize and GEMM kernels reproduce the plain bits, and
+    every other kernel is the same on both sides."""
+    dev = model.device
+    n = len(prompt)
+    toks = torch.zeros((1, capacity), dtype=torch.int64, device=dev)
+    toks[0, :n] = torch.tensor(prompt, device=dev)
+
+    def run():
+        logits, kv = model(toks, return_kv=True)
+        first = int(torch.argmax(logits[0, n - 1]))
+        caches = []
+        for k_h, v_h in kv:
+            planes = []
+            for x in (k_h, v_h):
+                cache = torch.zeros(x.shape, dtype=torch.float32, device=dev)
+                cache[:, :, :n] = x[:, :, :n].float()
+                planes.append(cache)
+            caches.append(tuple(planes))
+        step, _ = model(torch.tensor([[first]], device=dev), kv_caches=caches,
+                        kv_len=torch.tensor([n + 1], device=dev))
+        return logits[0, :n], step[0, 0]
+
+    with torch.inference_mode():
+        qz.reset_launches()
+        got = run()
+        launches = dict(qz.LAUNCHES)
+        with plain_int8_product():
+            ref = run()
+    same = [torch.equal(a, b) for a, b in zip(got, ref)]
+    err = [max_abs(a, b) for a, b in zip(got, ref)]
+    log(f"int8-MLP model logits through the kernels vs the plain products "
+        f"(prompt {n}): prefill bitwise {same[0]} (max|d| {err[0]:.3e}), "
+        f"first decode step bitwise {same[1]} (max|d| {err[1]:.3e}); "
+        f"launches {launches}")
+    require(all(same), "int8-MLP logits disagree with the plain products")
+    per_pass = 2 * MODEL["num_layers"]
+    require(launches["int8_gemm"] == 2 * per_pass
+            and launches["quantize_int8"] == launches["int8_gemm"],
+            f"int8-MLP forward passes launched {launches}")
+    return {"prefill_max_abs": err[0], "decode_max_abs": err[1]}
+
+
 def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
     """Drive the engine over every prompt; counts are zeroed just before
     and read just after."""
@@ -1095,15 +1347,24 @@ def phase_serve(device) -> dict:
     require(int8_run["launches"]["flash_fwd"] > 0, "prefill kernel never launched (int8)")
     require(int8_run["launches"]["flash_decode_int8"] > 0,
             "int8 decode kernel never launched")
+    require(int8_run["launches"]["quantize_int8"] > 0,
+            "the int8 cache's rows were never quantized by the kernel")
     profile = profile_serve(model, prompts, device)
     # the same weights with the int8 MLP, served through the same Block
     quantized = TransformerLM(**MODEL, attn_impl="flash", quantized_mlp=True,
                               device=device, seed=SEED)
     quantized.load_state_dict(model.state_dict())
     del model
-    quantized_run = serve(quantized.eval(), prompts, False, device)
-    require(quantized_run["launches"]["int8_gemm"] > 0,
+    quantized.eval()
+    logits["int8_mlp_vs_plain"] = check_int8_mlp_logits(
+        quantized, prompts[0], ENGINE["capacity_tokens"])
+    quantized_run = serve(quantized, prompts, False, device)
+    launches = quantized_run["launches"]
+    require(launches["int8_gemm"] > 0,
             "the int8 MLP product never launched in serving")
+    require(launches["quantize_int8"] == launches["int8_gemm"],
+            f"int8 MLP serving: {launches['quantize_int8']} quantize launches "
+            f"for {launches['int8_gemm']} products")
     return {"prompt_lens": [len(p) for p in prompts], "logits": logits,
             "runs": runs, "profile": profile, "int8_mlp_run": quantized_run,
             "int8_mlp_profile": profile_serve(quantized, prompts, device)}
@@ -1405,6 +1666,9 @@ def phase_train_int8(device, bf16_first_loss: float) -> dict:
             f"int8_gemm per step {per_step}, expected {2 * MODEL['num_layers']}")
     require(launches["quantize_int8_stochastic"] == 0,
             "stochastic rounding ran on the int8 MLP path")
+    require(launches["quantize_int8"] == launches["int8_gemm"],
+            f"int8 MLP training: {launches['quantize_int8']} quantize launches "
+            f"for {launches['int8_gemm']} products")
     require(rel <= 1e-2, "the int8 model's first loss is off the bf16 model's")
     flops = lm_train_flops_per_step(b, t, MODEL["d_model"], MODEL["num_layers"],
                                     vocab)
@@ -1669,10 +1933,13 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
     k8, v8 = k8.reshape(kc.shape), v8.reshape(vc.shape)
     ks, vs = ks.reshape(kc.shape[:3]), vs.reshape(vc.shape[:3])
     bound, by = _bound(rows * (d + 4) * 2 + io_bytes, 4 * d * rows, "f32")
+    def decode_int8():
+        return fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks, v_scale=vs)
+
     out["flash_decode_int8"] = {
         "shape": f"q [{b},{heads},1,{d}] bf16, int8 cache + f32 row scales, kv_len {lens}",
-        "ms": time_ms(lambda: fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks,
-                                              v_scale=vs)),
+        "ms": time_ms(decode_int8), "device_ms": device_ms(decode_int8),
+        "library_device_ms": None,
         "plain_ms": time_ms(lambda: fa.flash_decode_plain(
             qd, k8, v8, kv_len, k_scale=ks, v_scale=vs), iters=3, reps=3),
         "library_ms": None,
@@ -1835,16 +2102,24 @@ def interaction_times(device) -> dict:
 
 
 def quant_times(device) -> dict:
-    """K5 at the training step's two MLP activation shapes and int8_gemm
-    at its two products, bf16 out, as the model calls it. K5's bound: x
-    read once, values and scales written once, over the HBM rate (its ~6
-    f32 operations per element are far below the f32 peak; Philox's integer
-    operations have no tensor-core rate); no single PyTorch call rounds
-    stochastically, so no library time. int8_gemm's bound: 2 N M K int8
-    operations over the int8 peak, or xq, wq, the scales and the bf16
-    output over the HBM rate, the larger; library: torch._int_mm, the int32
-    product alone, without the scales or the cast (the port never calls
-    it)."""
+    """K5 at the training step's two MLP activation shapes, the
+    deterministic quantize and int8_gemm as the int8 product calls them
+    (bf16 out), at the training step's two products and at decode's N 4.
+
+    K5's bound: x read once, values and scales written once, over the HBM
+    rate (its ~6 f32 operations per element are far below the f32 peak;
+    Philox's integer operations have no tensor-core rate); no single
+    PyTorch call rounds stochastically, so no library time.
+    quantize_int8: one launch for x and w together, as int8_matmul makes
+    it; bound by bytes (bf16 read, int8 and f32 scales written); plain_ms
+    the torch chain on both (the path before this kernel); no library call.
+    int8_gemm's bound: 2 N M K int8 operations over the int8 peak, or xq,
+    wq, the scales and the bf16 output over the HBM rate, the larger;
+    library: torch._int_mm, the int32 product alone, without the scales or
+    the cast (the port never calls it), which takes more than 16 rows: at
+    N 4 it multiplies xq padded with zero rows to 32. The short rows (N 4,
+    the quantize launches) are also timed by the profiler's device time,
+    since a call that short can be bound by the host's time to issue it."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     out = {}
     for key in ("fc2", "fc1"):
@@ -1861,22 +2136,56 @@ def quant_times(device) -> dict:
             "library_ms": None,
             "bound_ms": bound[0], "bound_by": bound[1],
         }
-    for key in ("fc1", "fc2"):
+    for key in ("fc1", "decode"):
+        n, k, m = GEMM_SHAPES[key]
+        x = _randn(gen, (n, k), torch.bfloat16, device)
+        w = _randn(gen, (m, k), torch.bfloat16, device)
+        rows = n + m
+        bound = _bound(2 * rows * k + rows * qz._pitch(k) + 4 * rows,
+                       3 * rows * k, "f32")
+
+        def kernel(x=x, w=w, k=k):
+            return qz._quantize_rows_kernel([x, w], qz._pitch(k))
+
+        def plain(x=x, w=w):
+            return qz.quantize_int8_plain(x), qz.quantize_int8_plain(w)
+
+        name = "quantize_int8" if key == "fc1" else f"quantize_int8 {key}"
+        out[name] = {
+            "shape": f"x [{n},{k}] + w [{m},{k}] bf16, one launch",
+            "ms": time_ms(kernel), "device_ms": device_ms(kernel),
+            "plain_ms": time_ms(plain), "plain_device_ms": device_ms(plain),
+            "library_ms": None, "library_device_ms": None,
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+    for key in ("fc1", "fc2", "decode", "decode fc2"):
         n, k, m = GEMM_SHAPES[key]
         _, _, (xq, xs, wq, ws) = quantized_operands(gen, device, n, k, m)
         bound = _bound(n * k + m * k + 4 * (n + m) + 2 * n * m, 2 * n * m * k,
                        "int8")
         name = "int8_gemm" if key == "fc1" else f"int8_gemm {key}"
-        out[name] = {
+        lib_x = xq if n > 16 else torch.nn.functional.pad(xq, (0, 0, 0, 32 - n))
+
+        def call(xq=xq, xs=xs, wq=wq, ws=ws):
+            return qz.int8_gemm(xq, xs, wq, ws, torch.bfloat16)
+
+        def library(lib_x=lib_x, wq=wq):
+            return torch._int_mm(lib_x, wq.t())
+
+        row = {
             "shape": f"xq [{n},{k}] x wq [{m},{k}] int8 -> bf16",
-            "ms": time_ms(lambda xq=xq, xs=xs, wq=wq, ws=ws: qz.int8_gemm(
-                xq, xs, wq, ws, torch.bfloat16)),
+            "ms": time_ms(call),
             "plain_ms": time_ms(lambda xq=xq, xs=xs, wq=wq, ws=ws: qz.int8_gemm_plain(
                 xq, xs, wq, ws, torch.bfloat16), iters=3, reps=3),
-            "library_ms": time_ms(lambda xq=xq, wq=wq: torch._int_mm(xq, wq.t())),
-            "library": "torch._int_mm: the int32 product, no scales or cast",
+            "library_ms": time_ms(library),
+            "library": ("torch._int_mm: the int32 product, no scales or cast"
+                        + ("" if n > 16 else f"; xq padded to 32 rows")),
             "bound_ms": bound[0], "bound_by": bound[1],
         }
+        if n <= 16:
+            row |= {"device_ms": device_ms(call),
+                    "library_device_ms": device_ms(library)}
+        out[name] = row
     return out
 
 
@@ -1887,12 +2196,14 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     training for flash_fwd; training for the backward pair; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation and the dlrm_optimizer epoch for interaction_fwd; the
-    int8-MLP training steps and serving run for int8_gemm; the entry point's
-    run for quantize_int8_stochastic). Errors: at the shapes of the kernel's
-    path (flash_fwd: the larger of serving's and training's; K5 at
-    [16384,4096], int8_gemm at the step's first product in bf16). Times:
-    K5 at [16384,4096], int8_gemm at [16384,1024]x[4096,1024]; the other
-    shapes are in the record's times."""
+    int8-MLP training steps and serving run for int8_gemm, and with the
+    int8-cache serving run for quantize_int8; the entry point's run for
+    quantize_int8_stochastic). Errors: at the shapes of the kernel's path
+    (flash_fwd: the larger of serving's and training's; K5 at
+    [16384,4096], int8_gemm at the step's first product in bf16,
+    quantize_int8 at its activations). Times: K5 at [16384,4096],
+    int8_gemm at [16384,1024]x[4096,1024], quantize_int8 on that product's
+    x and w; the other shapes are in the record's times."""
     launches = {}
     for counts in ([run["launches"] for run in served["runs"]]
                    + [trained["launches"]]):
@@ -1903,8 +2214,9 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
     launches["interaction_fwd"] = (dlrm["launches"]
                                    + dlrm["dlrm_optimizer"]["launches"])
-    launches["int8_gemm"] = (trained_int8["launches"]["int8_gemm"]
-                             + served["int8_mlp_run"]["launches"]["int8_gemm"])
+    int8_runs = [trained_int8, served["int8_mlp_run"], served["runs"][1]]
+    for name in ("int8_gemm", "quantize_int8"):
+        launches[name] = sum(run["launches"][name] for run in int8_runs)
     launches["quantize_int8_stochastic"] = \
         stochastic["launches"]["quantize_int8_stochastic"]
     case = "bfloat16 causal=True offsets=(0,0)"
@@ -1923,6 +2235,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
             *INTERACTION_SHAPES["path"], torch.float32)],
         "quantize_int8_stochastic": checks[stochastic_case(*QUANT_SHAPES["fc2"])],
         "int8_gemm": checks[gemm_case(*GEMM_SHAPES["fc1"], torch.bfloat16)],
+        "quantize_int8": checks[quantize_case(
+            "train x fc1", *QUANT_ROWS_SHAPES["train x fc1"])],
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
@@ -1945,7 +2259,8 @@ def bf16_checks(device) -> None:
     at the serving prefill [1,8,2048,128] (normalized, and the stats
     surface with offsets) and at the training shape [2,8,8192,128], causal;
     the backward at the training shape; decode at the serving shape (f32
-    and int8 caches)."""
+    and int8 caches); and the int8 product, bitwise, at the training
+    step's first product and decode's two."""
     _build.load()
     gen = torch.Generator(device=device).manual_seed(SEED)
     heads, d = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
@@ -1959,6 +2274,8 @@ def bf16_checks(device) -> None:
     check_train_shape(gen, device, heads, d)
     check_decode(gen, device, heads, ENGINE["capacity_tokens"], d, DECODE_LENS,
                  (torch.bfloat16,))
+    check_int8_gemm(gen, device, grads=False, cases=[
+        GEMM_SHAPES[key] for key in ("fc1", "decode", "decode fc2")])
 
 
 # Faults planted one at a time by ``--planted-faults``, each in a copy of
@@ -1999,6 +2316,16 @@ PLANTED_FAULTS = {
         "        for (int u = 0; u < int(sizeof(kept) / sizeof(float)); ++u) "
         "tile.v[u] = kept[u];\n"
         "      }\n"),
+    # the s8 GEMM's consumers read their A tile from the next ring stage
+    "gemm_other_stage": (QUANT_SOURCE,
+                         "sw128_desc(s_a + s * C::kAStage",
+                         "sw128_desc(s_a + ((s + 1) % kGemmStages) * C::kAStage"),
+    # K4b's combine drops the last chunk where the cache runs past key 1024
+    "decode_int8_drop_last_chunk": (
+        DECODE_INT8_SOURCE,
+        "for (int c = 0; c < live_chunks; ++c) {",
+        "for (int c = 0; c < live_chunks - (live_chunks * kChunk > 1024); "
+        "++c) {"),
 }
 
 

@@ -11,9 +11,9 @@
 //                         (RAYDP_TPU_FLASH_ONEPASS=0): the same kernel with
 //                         the two-term update, which always rescales
 //   flash_decode       <- _decode_kernel via _decode_body, launched by
-//                         pallas_call in flash_decode
-//   flash_decode_int8  <- _decode_kernel_int8, the same call with int8 K/V and
-//                         per-row f32 scales
+//                         pallas_call in flash_decode, for f32 and bf16
+//                         caches (the int8 cache, K4b, has its own kernel,
+//                         split over the cache: flash_decode_int8.cu)
 //
 // What bounds them on an H100. Prefill over T positions does 2*B*H*T^2*D
 // operations (causal) on 4*B*H*T*D elements: at T = 2048, D = 128 that is
@@ -54,21 +54,12 @@ namespace {
 constexpr int kFwdWarps = 16;  // prefill: query rows per block, one warp each
 constexpr int kDecWarps = 4;   // decode: warps per block (rows, and K/V loads)
 
-// Cache readers: element idx of row `row` as f32. Plain f32/bf16 values, or
-// int8 values times the row's f32 scale (the inverse of quantize_int8).
+// Cache reader: element idx of row `row` as f32.
 template <typename T>
 struct LoadPlain {
   const T* p;
   __device__ __forceinline__ float operator()(size_t idx, size_t) const {
     return to_f32(p[idx]);
-  }
-};
-
-struct LoadInt8 {
-  const int8_t* p;
-  const float* scale;
-  __device__ __forceinline__ float operator()(size_t idx, size_t row) const {
-    return __fmul_rn(static_cast<float>(p[idx]), scale[row]);
   }
 };
 
@@ -343,7 +334,6 @@ int launch_decode(const void* q, LK lk, LV lv, const int* kv_len, void* o,
 
 template <int D, typename TQ>
 int decode_by_cache(const void* q, const void* k, const void* v,
-                    const float* k_scale, const float* v_scale,
                     const int* kv_len, void* o, int b, int h, int tq, int tk,
                     int kv_dtype, float scale, cudaStream_t stream) {
   switch (kv_dtype) {
@@ -357,28 +347,21 @@ int decode_by_cache(const void* q, const void* k, const void* v,
           q, LoadPlain<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k)},
           LoadPlain<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(v)},
           kv_len, o, b, h, tq, tk, scale, stream);
-    case kI8:
-      return launch_decode<D, TQ>(
-          q, LoadInt8{static_cast<const int8_t*>(k), k_scale},
-          LoadInt8{static_cast<const int8_t*>(v), v_scale}, kv_len, o, b, h,
-          tq, tk, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int D>
-int decode_by_q(const void* q, const void* k, const void* v,
-                const float* k_scale, const float* v_scale, const int* kv_len,
+int decode_by_q(const void* q, const void* k, const void* v, const int* kv_len,
                 void* o, int b, int h, int tq, int tk, int q_dtype,
                 int kv_dtype, float scale, cudaStream_t stream) {
   if (q_dtype == kF32) {
-    return decode_by_cache<D, float>(q, k, v, k_scale, v_scale, kv_len, o, b,
-                                     h, tq, tk, kv_dtype, scale, stream);
+    return decode_by_cache<D, float>(q, k, v, kv_len, o, b, h, tq, tk,
+                                     kv_dtype, scale, stream);
   }
   if (q_dtype == kBF16) {
-    return decode_by_cache<D, __nv_bfloat16>(q, k, v, k_scale, v_scale,
-                                             kv_len, o, b, h, tq, tk,
+    return decode_by_cache<D, __nv_bfloat16>(q, k, v, kv_len, o, b, h, tq, tk,
                                              kv_dtype, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -420,19 +403,19 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// kv_dtype: kF32 or kBF16 (the int8 cache: rtt_flash_decode_int8).
 int rtt_flash_decode(const void* q, const void* k, const void* v,
-                     const float* k_scale, const float* v_scale,
                      const int* kv_len, void* o, int b, int h, int tq, int tk,
                      int d, int q_dtype, int kv_dtype, float scale,
                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) {
-    return decode_by_q<64>(q, k, v, k_scale, v_scale, kv_len, o, b, h, tq, tk,
-                           q_dtype, kv_dtype, scale, s);
+    return decode_by_q<64>(q, k, v, kv_len, o, b, h, tq, tk, q_dtype, kv_dtype,
+                           scale, s);
   }
   if (d == 128) {
-    return decode_by_q<128>(q, k, v, k_scale, v_scale, kv_len, o, b, h, tq,
-                            tk, q_dtype, kv_dtype, scale, s);
+    return decode_by_q<128>(q, k, v, kv_len, o, b, h, tq, tk, q_dtype,
+                            kv_dtype, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

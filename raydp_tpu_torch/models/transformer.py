@@ -89,7 +89,7 @@ def _decode_attend(q, k_new, v_new, decode_kv, kv_len):
     b, h, tn, d = k_new.shape
 
     def quant(x):
-        vals, scales = quantize_int8(x.float().reshape(b * h * tn, d))
+        vals, scales = quantize_int8(x.reshape(b * h * tn, d))
         return vals.reshape(b, h, tn, d), scales.reshape(b, h, tn)
 
     kq, kqs = quant(k_new)

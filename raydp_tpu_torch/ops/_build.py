@@ -10,7 +10,10 @@ once. Nothing is fetched: the CUDA toolkit's own headers are all it needs.
 
 Pointers and the CUDA stream pass as ``c_void_p``. Each C entry point
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on
-anything but 0.
+anything but 0. Kernels whose blocks merge their partial results (the int8
+product's split K, the int8 decode's split cache) elect the last block by
+an atomic ticket; ``tickets`` hands them zeroed counters, which those
+blocks reset to 0 before they exit.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -55,10 +60,14 @@ _SIGNATURES = {
     "rtt_flash_bwd_dkv": (
         [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I,
     ),
-    # q, k, v, k_scale, v_scale, kv_len, o, b, h, tq, tk, d, q_dtype,
-    # kv_dtype, scale, stream
+    # q, k, v, kv_len, o, b, h, tq, tk, d, q_dtype, kv_dtype, scale, stream
     "rtt_flash_decode": (
-        [_P] * 7 + [_I] * 7 + [ctypes.c_float, _P], _I,
+        [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P], _I,
+    ),
+    # q, k, v, k_scale, v_scale, kv_len, o, part, tickets, b, h, tq, tk, d,
+    # q_dtype, chunk, scale, stream
+    "rtt_flash_decode_int8": (
+        [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I,
     ),
     # t, out, b, f, d, dtype, stream
     "rtt_interaction_fwd": ([_P] * 2 + [_I] * 4 + [_P], _I),
@@ -66,12 +75,19 @@ _SIGNATURES = {
     "rtt_quantize_stochastic": (
         [_P] * 3 + [_I] * 2 + [ctypes.c_uint32] * 2 + [_P], _I,
     ),
-    # xq, xs, wq, ws, out, n, m, k, out_dtype, stream
-    "rtt_int8_gemm": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    # x0, rows0, dtype0, x1, rows1, dtype1, values, scales, d, ld, stream
+    "rtt_quantize_rows": (
+        [_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P], _I,
+    ),
+    # n, m, pitch -> K splits
+    "rtt_int8_gemm_splits": ([_I] * 3, _I),
+    # xq, xs, wq, ws, out, partial, tickets, n, m, k, pitch, out_dtype, stream
+    "rtt_int8_gemm": ([_P] * 7 + [_I] * 5 + [_P], _I),
 }
 
 _lib = None
 _lib_lock = threading.Lock()
+_tickets = {}
 
 
 def _nvcc() -> str:
@@ -182,3 +198,16 @@ def check(code: int, what: str) -> None:
     if code:
         msg = load().rtt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters on ``device``, one set per
+    stream: kernels on one stream run in order, and each leaves the counters
+    it used at 0 for the next."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf

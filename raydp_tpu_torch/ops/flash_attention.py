@@ -18,11 +18,16 @@ kernel family serves the surfaces of decode serving and training:
   causal mask -- the per-step backward a ring schedule sums.
 - ``flash_decode``: the newest ``Tq`` query rows of each sequence against a
   KV cache with per-sequence valid lengths, from an f32/bf16 cache or an
-  int8 cache with per-row scales dequantized in the kernel.
+  int8 cache with per-row scales dequantized in the kernel. The int8 cache
+  has its own kernel, split over the cache (``csrc/flash_decode_int8.cu``:
+  blocks of ``DECODE_CHUNK`` keys, their partial (m, l, o) merged in chunk
+  order by the last block of each sequence and head), so its sums run in
+  another order than the plain version's 32-key tiles: within 1e-5 in f32.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/flash_attention.cu``, ``csrc/flash_forward_sm90.cu``,
-``csrc/flash_backward.cu``, ``csrc/flash_backward_sm90.cu``) or raises; on
+``csrc/flash_backward.cu``, ``csrc/flash_backward_sm90.cu``,
+``csrc/flash_decode_int8.cu``) or raises; on
 a CPU tensor it runs the plain PyTorch version beside it (``*_plain``),
 which does the same blockwise update. The forward and the backward each
 have two bodies: f32 q/k/v take the CUDA-core kernels over the plain
@@ -70,6 +75,10 @@ NEG_INF = -1e30
 BLOCK_K = 32
 BLOCK_Q = 16
 KERNEL_HEAD_DIMS = (64, 128)
+# keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
+# kChunk; the C entry refuses any other value): its workspace holds one
+# partial (m, l, o) per chunk
+DECODE_CHUNK = 128
 
 LAUNCHES = {
     "flash_fwd": 0, "flash_fwd_twoterm": 0, "flash_bwd_dq": 0,
@@ -538,21 +547,46 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
     lib = _build.load()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = kv_len.to(torch.int32).contiguous()
-    if int8_kv:
-        k_scale = k_scale.to(torch.float32).contiguous()
-        v_scale = v_scale.to(torch.float32).contiguous()
-        ks_ptr, vs_ptr = k_scale.data_ptr(), v_scale.data_ptr()
-    else:
-        ks_ptr = vs_ptr = None
     o = torch.empty_like(q)
+    if int8_kv:
+        return _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.rtt_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), ks_ptr, vs_ptr,
-            lens.data_ptr(), o.data_ptr(), b, h, tq, tk, d,
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype], d**-0.5, stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            o.data_ptr(), b, h, tq, tk, d, _DTYPE_CODES[q.dtype],
+            _DTYPE_CODES[k.dtype], d**-0.5, stream,
         )
-    name = "flash_decode_int8" if int8_kv else "flash_decode"
-    _build.check(code, name)
-    LAUNCHES[name] += 1
+    _build.check(code, "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return o
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor whose base the kernel can read 16 bytes at a
+    time: t itself, or a fresh copy where t's base is not so aligned."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o):
+    """One launch of the split int8-cache decode kernel (K4b) into o."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    k, v = _aligned16(k), _aligned16(v)
+    k_scale = k_scale.to(torch.float32).contiguous()
+    v_scale = v_scale.to(torch.float32).contiguous()
+    chunks = -(-tk // DECODE_CHUNK)
+    part = torch.empty((b * h, chunks, tq, 2 + d), dtype=torch.float32,
+                       device=q.device)
+    tickets = _build.tickets(q.device, b * h)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.rtt_flash_decode_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), b, h, tq, tk, d, _DTYPE_CODES[q.dtype],
+            DECODE_CHUNK, d**-0.5, stream,
+        )
+    _build.check(code, "flash_decode_int8")
+    LAUNCHES["flash_decode_int8"] += 1
     return o

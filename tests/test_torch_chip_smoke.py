@@ -90,10 +90,15 @@ def test_device_share_names_the_port_kernels():
                "kernel<float, float, false>(int)", CUDA, 100.0),
         _event("void (anonymous namespace)::elementwise_kernel_with_index<int>"
                "(int)", CUDA, 150.0),
+        # a kernel that is not a template is named without "void"
+        _event("(anonymous namespace)::quantize_rows_kernel(void const*, int, "
+               "int, void const*, int, signed char*, float*, int, int, bool)",
+               CUDA, 40.0),
     ])
     share = chip_smoke.device_share(window, 4.0)
-    assert share["port_kernel_ms"] == {"flash_fwd_sm90_kernel": 0.75}
-    assert abs(share["device_busy_ms"] - 1.0) < 1e-12
+    assert share["port_kernel_ms"] == {"flash_fwd_sm90_kernel": 0.75,
+                                       "quantize_rows_kernel": 0.04}
+    assert abs(share["device_busy_ms"] - 1.04) < 1e-12
 
 
 def test_port_kernel_pattern_names_every_csrc_kernel():
@@ -105,7 +110,8 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
         "flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_decode_kernel",
         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_sm90_kernel",
         "flash_bwd_dkv_sm90_kernel", "interaction_fwd_kernel",
-        "quantize_stochastic_kernel", "int8_gemm_kernel"}
+        "quantize_stochastic_kernel", "quantize_rows_kernel",
+        "int8_gemm_sm90_kernel", "flash_decode_int8_kernel"}
 
 
 def _forward_p_in_bf16(q, k, v, causal):
@@ -244,3 +250,28 @@ def test_every_planted_fault_site_occurs_once_in_its_source():
         text = (root / source).read_text()
         assert text.count(site) == 1, name
         assert fault != site and fault not in text, name
+
+
+def test_sm90_patterns_name_every_tensor_core_instantiation():
+    """ptxas's mangled names of the tensor-core kernels, as the H100 build
+    prints them, each match one family and get a key of their own: the
+    forward and backward by head dim, the int8 product by mode, out type
+    and epilogue."""
+    names = [
+        "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv",
+        "_ZN41_GLOBAL__N__1_flash_backward_sm9024flash_bwd_dq_sm90_kernelILi64EEEv",
+        "_ZN41_GLOBAL__N__1_flash_backward_sm9025flash_bwd_dkv_sm90_kernelILi128EEEv",
+        "_ZN48_GLOBAL__N__1_quantization_cu21int8_gemm_sm90_kernelILb1EfLb0EEEv14CUtensorMap_st",
+        "_ZN48_GLOBAL__N__1_quantization_cu21int8_gemm_sm90_kernelILb0E13__nv_bfloat16Lb1EEEv14CUtensorMap_st",
+        "_ZN48_GLOBAL__N__1_quantization_cu21int8_gemm_sm90_kernelILb0E13__nv_bfloat16Lb0EEEv14CUtensorMap_st",
+    ]
+    keys = []
+    for name in names:
+        found = [(family, m) for family, (pattern, _) in chip_smoke.SM90_KERNELS.items()
+                 if (m := chip_smoke.re.search(pattern, name))]
+        assert len(found) == 1, name
+        keys.append(chip_smoke._sm90_key(*found[0]))
+    assert keys == [
+        "flash_fwd_sm90 D128 two-term", "flash_bwd_dq_sm90 D64",
+        "flash_bwd_dkv_sm90 D128", "int8_gemm_sm90 small-N f32",
+        "int8_gemm_sm90 large-N bf16 TMA store", "int8_gemm_sm90 large-N bf16"]

@@ -224,3 +224,74 @@ def test_launch_counters_ignore_plain_versions():
         "flash_fwd": 0, "flash_fwd_twoterm": 0, "flash_bwd_dq": 0,
         "flash_bwd_dkv": 0, "flash_decode": 0, "flash_decode_int8": 0,
     }
+
+
+def _split_decode(q, k8, ks, v8, vs, lens, chunk):
+    """K4b's order of work in torch ops (csrc/flash_decode_int8.cu): per
+    (sequence, head) and chunk of ``chunk`` keys, the chunk's max m_c, l_c
+    = sum p and o_c = sum p * v, with p = exp(s - m_c) and 0 where masked
+    (K/V dequantized as float(int8) * scale); then m = max_c m_c and l, o
+    summed with weights exp(m_c - m) in chunk order, o / max(l, 1e-30)."""
+    b, h, tq, d = q.shape
+    tk = k8.shape[2]
+    out = torch.zeros((b, h, tq, d))
+    for bi in range(b):
+        n = min(int(lens[bi]), tk)
+        q_pos = int(lens[bi]) - tq + torch.arange(tq)
+        parts = []
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            kt = k8[bi, :, c0:c1].float() * ks[bi, :, c0:c1, None]
+            vt = v8[bi, :, c0:c1].float() * vs[bi, :, c0:c1, None]
+            s = (q[bi] @ kt.transpose(-1, -2)) * d**-0.5  # [h, tq, keys]
+            live = q_pos[:, None] >= torch.arange(c0, c1)[None, :]
+            s = torch.where(live, s, torch.full_like(s, fa.NEG_INF))
+            m_c = s.amax(dim=-1, keepdim=True)
+            p = torch.where(live, torch.exp(s - m_c), torch.zeros_like(s))
+            parts.append((m_c, p.sum(dim=-1, keepdim=True), p @ vt))
+        if not parts:
+            continue
+        m = torch.stack([m_c for m_c, _, _ in parts]).amax(dim=0)
+        l, o = torch.zeros_like(m), torch.zeros((h, tq, d))  # noqa: E741
+        for m_c, l_c, o_c in parts:  # chunk order
+            w = torch.exp(m_c - m)
+            l, o = l + w * l_c, o + w * o_c  # noqa: E741
+        out[bi] = o / torch.clamp(l, min=1e-30)
+    return out
+
+
+@pytest.mark.parametrize("lengths, tq", [
+    ([1, 127, 128, 129], 1),   # one key, and the chunk boundary -1, 0, +1
+    ([384, 255, 256, 257], 1),  # capacity, the next boundary -1, 0, +1
+    ([3, 129, 384, 200], 3),    # causal inside the three new rows
+])
+def test_split_decode_order_matches_jax(lengths, tq):
+    """The int8-cache decode kernel's split-and-combine order (chunks of
+    ``DECODE_CHUNK`` keys, partials merged in chunk order), emulated in
+    torch ops, against the JAX package's ``flash_decode(k_scale=...)`` in
+    interpret mode and against the port's plain version: within 1e-5 in
+    f32 (different summation orders over the same f32 terms)."""
+    b, h, tcap, d = 4, 2, 3 * fa.DECODE_CHUNK, 64
+    rng = np.random.default_rng(21)
+    q = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    k = rng.standard_normal((b, h, tcap, d)).astype(np.float32)
+    v = rng.standard_normal((b, h, tcap, d)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+
+    def q8(x):
+        vals, scales = jax_quantize_int8(jnp.asarray(x.reshape(-1, d)))
+        return (np.asarray(vals).reshape(b, h, tcap, d),
+                np.asarray(scales).reshape(b, h, tcap))
+
+    k8, ks = q8(k)
+    v8, vs = q8(v)
+    ref = jax_flash_decode(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(lens),
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs), interpret=True,
+    )
+    tq_, tk8, tks, tv8, tvs = _t(q, k8, ks, v8, vs)
+    got = _split_decode(tq_, tk8, tks, tv8, tvs, lens, fa.DECODE_CHUNK)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    plain = fa.flash_decode(tq_, tk8, tv8, torch.from_numpy(lens),
+                            k_scale=tks, v_scale=tvs)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0, atol=1e-5)

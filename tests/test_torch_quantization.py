@@ -276,4 +276,70 @@ def test_launch_counters_ignore_plain_versions():
     quant.quantize_int8(x, seed=1, stochastic=True)
     w = torch.randn(16, 96, requires_grad=True)
     quant.int8_matmul(x, w).sum().backward()
-    assert quant.LAUNCHES == {"quantize_int8_stochastic": 0, "int8_gemm": 0}
+    quant.quantize_int8(x)
+    quant.int8_matmul_plain(x, w)
+    assert quant.LAUNCHES == {"quantize_int8": 0, "quantize_int8_stochastic": 0,
+                              "int8_gemm": 0}
+
+
+def _edge_rows(dtype=np.float32):
+    """Rows built to hit the deterministic rounding's edges, exact in bf16:
+    x / s exactly k + 0.5 for every k in [-126, 126) (half to even; one
+    element at 127 quanta fixes s = 2**-3), an all-zero row (the 1e-12
+    floor), a row at +-127 quanta, and normal rows at several scales."""
+    rng = np.random.default_rng(12)
+    x = (rng.standard_normal((8, 256)) * rng.uniform(0.01, 30, (8, 1))).astype(np.float32)
+    k = np.arange(256) % 252 - 126
+    x[0] = (k + 0.5) * 0.125
+    x[0, 0] = 127 * 0.125
+    x[1] = 0.0
+    x[2, :128] = 127 * 0.25
+    x[2, 128:] = -127 * 0.25
+    return np.array(jnp.asarray(x).astype(dtype).astype(jnp.float32))
+
+
+def test_deterministic_rounding_on_bf16_is_its_f32_cast_and_jax():
+    """quantize_int8 on bf16 input computes in f32 (bf16 is read exactly, as
+    the kernel reads it): its values and scales equal those of the f32 cast
+    and of the JAX function on that cast, bitwise, at the rounding's edges:
+    every k + 0.5 rounds to the even neighbour, the zero row takes the
+    1e-12 scale, and +-127 quanta stay +-127."""
+    x = _edge_rows(jnp.bfloat16)
+    bf = torch.from_numpy(x).to(torch.bfloat16)
+    got = quant.quantize_int8(bf)
+    f32 = quant.quantize_int8(torch.from_numpy(x))
+    ref = jq.quantize_int8(jnp.asarray(x))
+    for a, b, want in zip(got, f32, ref):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(want))
+    vals, scales = (t.numpy() for t in got)
+    half = x[0, 1:] / 0.125
+    assert scales[0, 0] == np.float32(0.125) and np.all(half % 1 == 0.5)
+    np.testing.assert_array_equal(vals[0, 1:], np.round(half))  # half to even
+    assert np.all(vals[0, 1:] % 2 == 0)
+    assert scales[1, 0] == np.float32(1e-12) and not vals[1].any()
+    assert np.all(np.abs(vals[2]) == 127)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        quant.quantize_int8(bf.double())
+
+
+def test_int8_product_scales_rows_first_then_columns():
+    """The product's epilogue is ``(float(y) * xs[n]) * ws[m]``, JAX's
+    ``y.astype(f32) * xs * ws.T``; the swapped kernel mode, whose
+    accumulator holds out^T, must keep that order. On these inputs the
+    other order, ``(y * ws[m]) * xs[n]``, is an ulp off on many elements,
+    so the bitwise checks catch a kernel that swaps it."""
+    rng = np.random.default_rng(13)
+    xq = rng.integers(-127, 128, (4, 1024)).astype(np.int8)
+    wq = rng.integers(-127, 128, (96, 1024)).astype(np.int8)
+    xs = rng.uniform(1e-3, 1, (4, 1)).astype(np.float32)
+    ws = rng.uniform(1e-3, 1, (96, 1)).astype(np.float32)
+    y = jax.lax.dot_general(jnp.asarray(xq), jnp.asarray(wq).T,
+                            (((1,), (0,)), ((), ())),
+                            preferred_element_type=jnp.int32)
+    ref = np.asarray(y.astype(jnp.float32) * jnp.asarray(xs) * jnp.asarray(ws).T)
+    got = quant.int8_gemm(*(torch.from_numpy(a) for a in (xq, xs, wq, ws)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    yf = np.asarray(y).astype(np.float32)
+    swapped = (yf * ws.T) * xs
+    assert np.mean(swapped != ref) > 0.05
