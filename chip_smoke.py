@@ -16,7 +16,10 @@ Phases; any failure exits non-zero and prints no result line:
    registers and spills ``ptxas`` reports and the wgmma (``HGMMA`` for
    bf16, ``IGMMA`` for s8) and ``UTMALDG`` (TMA load) instructions
    ``cuobjdump -sass`` finds in the built library (no spill, and both
-   present, or it fails).
+   present, or it fails); for the split f32/bf16-cache decode
+   (``flash_decode_scores_kernel`` and ``flash_decode_pv_kernel``, sixteen
+   instantiations) its registers, spills and static shared memory (no
+   spill, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
    0 and nonzero, f32 and bf16, and for the bf16 tensor-core kernel D 64,
@@ -32,14 +35,19 @@ Phases; any failure exits non-zero and prints no result line:
    2^-7 |plain| plus 1.05 * 2^-8 times the product of magnitudes whose p
    or ds the kernel rounds to bf16; two launches bitwise equal), all four
    again at the training path's own shape (q/k/v/do [2,8,8192,128] bf16
-   causal), ``flash_decode`` (mixed kv_len), ``flash_decode_int8`` (the
-   split kernel: against ``flash_decode`` on the dequantized cache and
-   both against their plain versions, f32 q within 1e-5, bf16 q element by
-   element within ``bf16_decode_limit``, 2^-7 |plain| + 1e-6 * (the
-   attention of |v|); two launches bitwise; its edge cases: kv_len 1, the
-   128-key chunk boundaries, capacity and past it, tq 3, a sequence of no
-   live key giving exactly 0),
-   decode vs the prefill row (f32, bitwise expected; bf16 q/k/v, within
+   causal), ``flash_decode`` (the split f32/bf16-cache kernel, two
+   launches a call; mixed kv_len) and ``flash_decode_int8`` (against
+   ``flash_decode`` on the dequantized cache), both against their plain
+   versions, f32 q within 1e-5, bf16 q element by element within
+   ``bf16_decode_limit``, 2^-7 |plain| + 1e-6 * (the attention of |v|);
+   two launches bitwise; ``flash_decode`` bit for bit equal to the f32
+   prefill row at kv_len 1, 31, 32, 33, 127, 128, 129, 2047, 2048 and the
+   serving lengths, D 128 and 64, tq 1 and 3 (the failover contract), its
+   bf16 q equal to f32 q with o rounded after and a bf16 cache equal to
+   the same cache widened to f32, bit for bit; both kernels' edge cases
+   (f32, bf16 and int8 caches): kv_len 1, the 32-key tile and 128-key
+   block boundaries, capacity and past it, tq 3, a sequence of no live key
+   giving exactly 0; decode vs the prefill row for bf16 q/k/v (within
    ``bf16_limit``, the gap printed), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
@@ -141,9 +149,10 @@ plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
 names (the bf16 forward, the bf16 backward, the two decode kernels, the
 int8 product) under ``build/planted/``, builds the copy and runs there
 ``chip_smoke.py --bf16-checks`` (phase 2's bf16 forward, backward and
-decode checks and the int8 product's, at the serving and training shapes
-alone); it exits 0 only if every copy fails them with a disagreement, and
-prints one JSON line with each fault's failing check.
+decode checks, the f32/bf16-cache decode's bitwise checks and the int8
+product's, at the serving and training shapes alone); it exits 0 only if
+every copy fails them with a disagreement, and prints one JSON line with
+each fault's failing check.
 """
 
 from __future__ import annotations
@@ -188,6 +197,9 @@ ENGINE = dict(capacity_tokens=2048, page_tokens=128, max_seqs=4,
 N_STREAMS = 8
 PROMPT_LENS = (64, 1500)
 DECODE_LENS = [17, 500, 1300, 2048]
+# kv_len at every boundary of the split decode (its 32-key tiles and
+# 128-key blocks, capacity) where decode must equal the f32 prefill row
+DECODE_BITS_LENS = (1, 31, 32, 33, 127, 128, 129, 2047, 2048)
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -245,7 +257,8 @@ SM90_SOURCE = "raydp_tpu_torch/csrc/flash_forward_sm90.cu"
 # the bf16 backward, which the training path runs (f32: flash_backward.cu)
 SM90_BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward_sm90.cu"
 QUANT_SOURCE = "raydp_tpu_torch/csrc/quantization.cu"
-# the int8-cache decode, split over the cache (K4a stays in FWD_SOURCE)
+# the decodes, split over the cache: f32/bf16 cache (K4a), int8 cache (K4b)
+DECODE_SOURCE = "raydp_tpu_torch/csrc/flash_decode.cu"
 DECODE_INT8_SOURCE = "raydp_tpu_torch/csrc/flash_decode_int8.cu"
 # kernel -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
@@ -253,7 +266,7 @@ KERNELS = {
     "flash_fwd_twoterm": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
     "flash_bwd_dq": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
     "flash_bwd_dkv": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
-    "flash_decode": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
+    "flash_decode": (DECODE_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
     "flash_decode_int8": (DECODE_INT8_SOURCE,
                           "raydp_tpu/ops/flash_attention.py:833"),
     "interaction_fwd": ("raydp_tpu_torch/csrc/interaction.cu",
@@ -362,8 +375,9 @@ def phase_device() -> dict:
     }
     log(f"ptxas: {ptxas}")
     sm90 = sm90_report(entries)
+    decode = decode_report(entries)
     return {"nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
-            "sm90": sm90}
+            "sm90": sm90, "decode": decode}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -452,6 +466,33 @@ def sm90_report(entries: dict) -> dict:
     return out
 
 
+# the split f32/bf16-cache decode's two kernels <D, q type, cache type> in
+# ptxas's mangled names (a repeated bf16 is a substitution, S..._)
+DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)EEv")
+DECODE_TYPES = re.compile(r"f|13__nv_bfloat16|S\d*_")
+DECODE_INSTANTIATIONS = 16
+
+
+def _decode_key(found: re.Match) -> str:
+    types = ["f32" if tok == "f" else "bf16"
+             for tok in DECODE_TYPES.findall(found.group(3))]
+    return f"{found.group(1)} D{found.group(2)} q {types[0]} cache {types[1]}"
+
+
+def decode_report(entries: dict) -> dict:
+    """The split decode's instantiations among ptxas's ``entries`` (scores
+    and p.v kernels at D 64 and 128, f32 and bf16 q and cache): registers,
+    spills and static shared memory. Fails on a spill or a missing one."""
+    out = {_decode_key(found): row for name, row in entries.items()
+           if (found := DECODE_KERNEL.search(name))}
+    log(f"decode kernels (ptxas): {out}")
+    require(len(out) == DECODE_INSTANTIATIONS,
+            f"expected {DECODE_INSTANTIATIONS} decode kernels, found {sorted(out)}")
+    for key, row in out.items():
+        require(row["spill_bytes"] == 0, f"{key} spills")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels vs plain versions
 # ---------------------------------------------------------------------------
@@ -483,25 +524,12 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     out.update(check_backward_bf16(gen, device, bh_heads))
     out.update(check_train_shape(gen, device, bh_heads, d))
     out.update(check_decode(gen, device, bh_heads, t, d, lens))
-
-    # decode == prefill row (f32): the failover contract inside the port
-    qf = _randn(gen, (1, bh_heads, t, d), torch.float32, device)
-    kf = _randn(gen, (1, bh_heads, t, d), torch.float32, device)
-    vf = _randn(gen, (1, bh_heads, t, d), torch.float32, device)
-    prefill = fa.flash_attention(qf, kf, vf, causal=True)
-    worst = 0.0
-    bitwise = True
-    for n in lens:
-        row = fa.flash_decode(qf[:, :, n - 1:n], kf, vf,
-                              torch.tensor([n], device=device))
-        worst = max(worst, max_abs(row, prefill[:, :, n - 1:n]))
-        bitwise = bitwise and torch.equal(row, prefill[:, :, n - 1:n])
-    log(f"decode vs prefill row (f32, kv_len {lens}): max|d| {worst:.3e} "
-        f"bitwise {bitwise}")
-    require(worst <= 1e-5, "decode disagrees with the prefill row")
-    out["decode_vs_prefill"] = {"max_abs": worst, "bitwise": bitwise}
+    out.update(check_decode_bits(gen, device, bh_heads, t, lens))
+    qf, kf, vf = (_randn(gen, (1, bh_heads, t, d), torch.float32, device)
+                  for _ in range(3))
     out["decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf, lens)
-    out.update(check_decode_int8_edges(gen, device, bh_heads, t, d))
+    for cache in ("f32", "bf16", "int8"):
+        out.update(check_decode_edges(gen, device, bh_heads, t, d, cache))
     out.update(check_interaction(gen, device))
     out.update(check_stochastic(gen, device))
     out.update(check_quantize(gen, device))
@@ -592,41 +620,121 @@ def check_decode(gen, device, heads, t, d, lens,
     return out
 
 
-def check_decode_int8_edges(gen, device, heads, t, d) -> dict:
-    """K4b's edge cases against flash_decode_plain (f32 q within 1e-5, bf16
-    q within bf16_decode_limit), each bitwise over two launches: kv_len 1,
-    at the chunk boundaries (DECODE_CHUNK - 1, DECODE_CHUNK, + 1), at
-    capacity and past it (clipped), tq 3 (causal inside the new rows,
-    kv_len 2 leaving row 0 without a key), and a sequence of no live key,
-    whose output must be exactly 0."""
+def check_decode_bits(gen, device, heads, t, lens) -> dict:
+    """The f32/bf16-cache decode's bitwise contracts, at D 128 and 64 over a
+    cache of capacity t, one sequence per kv_len of ``DECODE_BITS_LENS`` and
+    ``lens`` in one batch:
+
+    - decode == the f32 prefill row at its position (the CUDA-core forward
+      over the whole cache, causal), bit for bit, for tq 1 and for tq 3
+      against the prefill's last 3 rows: the failover contract;
+    - two launches give the same bits;
+    - bf16 q: the same bits as f32 q rounded to bf16 after (q and the cache
+      are staged as f32, o rounded once); a bf16 cache: the same bits as
+      that cache widened to f32;
+    - each against ``flash_decode_plain``: 1e-5 for f32 q, element by
+      element within ``bf16_decode_limit`` for bf16 q."""
+    out = {}
+    ns_all = sorted(set(DECODE_BITS_LENS) | set(lens))
+    for d in (128, 64):
+        q, k, v = (_randn(gen, (1, heads, t, d), torch.float32, device)
+                   for _ in range(3))
+        prefill = fa.flash_attention(q, k, v, causal=True)
+        for tq in (1, 3):
+            ns = [n for n in ns_all if tq <= n <= t]
+            kv_len = torch.tensor(ns, dtype=torch.int32, device=device)
+            kc, vc = (x.expand(len(ns), -1, -1, -1).contiguous() for x in (k, v))
+            qd = torch.cat([q[:, :, n - tq:n] for n in ns])
+            ref = torch.cat([prefill[:, :, n - tq:n] for n in ns])
+            name = f"flash_decode bits D{d} tq={tq}"
+            got = finish_within(lambda: fa.flash_decode(qd, kc, vc, kv_len),
+                                "flash_decode")
+            off = [n for i, n in enumerate(ns) if not torch.equal(got[i], ref[i])]
+            again = torch.equal(got, fa.flash_decode(qd, kc, vc, kv_len))
+            plain = max_abs(got, fa.flash_decode_plain(qd, kc, vc, kv_len))
+            log(f"{name} kv_len={ns}: decode == f32 prefill row bit for bit "
+                f"except at {off} (max|d| {max_abs(got, ref):.3e}); two launches "
+                f"bitwise {again}; max|o-plain| {plain:.3e} (limit 1e-5)")
+            require(not off, f"{name} disagrees with the f32 prefill row at "
+                    f"kv_len {off}")
+            require(again, f"{name} differs between launches")
+            require(plain <= 1e-5, f"{name} disagrees with its plain version")
+            out[name] = plain
+            if tq != 1:
+                continue
+            # the two identities of staging q and the cache as f32
+            qb = qd.bfloat16()
+            got_b = fa.flash_decode(qb, kc, vc, kv_len)
+            same_q = torch.equal(got_b, fa.flash_decode(qb.float(), kc, vc,
+                                                        kv_len).bfloat16())
+            kb, vb = kc.bfloat16(), vc.bfloat16()
+            got_kb = fa.flash_decode(qd, kb, vb, kv_len)
+            same_kv = torch.equal(got_kb, fa.flash_decode(qd, kb.float(),
+                                                          vb.float(), kv_len))
+            plain_b = fa.flash_decode_plain(qb, kc, vc, kv_len)
+            ratio = limit_ratio(got_b, plain_b, bf16_decode_limit(
+                qb, kc, vc, kv_len, plain_b))
+            plain_kb = max_abs(got_kb, fa.flash_decode_plain(qd, kb, vb, kv_len))
+            log(f"flash_decode D{d}: bf16 q == f32 q rounded after, bitwise "
+                f"{same_q}; bf16 cache == that cache as f32, bitwise {same_kv}; "
+                f"bf16 q |o-plain| / bf16_decode_limit {ratio:.3f}; bf16 cache "
+                f"max|o-plain| {plain_kb:.3e} (limit 1e-5)")
+            require(same_q, f"flash_decode D{d} bf16 q disagrees with f32 q "
+                    "rounded after")
+            require(same_kv, f"flash_decode D{d} bf16 cache disagrees with the "
+                    "same cache as f32")
+            require(ratio <= 1.0 and plain_kb <= 1e-5,
+                    f"flash_decode D{d} bf16 disagrees with its plain version")
+            out[f"flash_decode bits D{d} bf16 q limit_ratio"] = ratio
+    return out
+
+
+def check_decode_edges(gen, device, heads, t, d, cache: str) -> dict:
+    """A decode kernel's edge cases against flash_decode_plain (f32 q within
+    1e-5, bf16 q within bf16_decode_limit), each bitwise over two launches,
+    from an f32, bf16 or int8 cache (``cache``): kv_len 1, at the 32-key
+    tile and 128-key block boundaries, at capacity and past it (clipped),
+    tq 3 (causal inside the new rows, kv_len 2 leaving row 0 without a
+    key), and a sequence of no live key, whose output must be exactly 0."""
     out = {}
     c = fa.DECODE_CHUNK
     cases = (([1, c - 1, c, c + 1], 1), ([t, t + 100, 2 * c - 1, 0], 1),
-             ([2, c, 3 * c + 1, t], 3))
+             ([2, c, 3 * c + 1, t], 3), ([31, 32, 33, 2 * c + 1], 1))
     kc = _randn(gen, (4, heads, t, d), torch.float32, device)
     vc = _randn(gen, (4, heads, t, d), torch.float32, device)
-    k8, ks = quantize_int8(kc)
-    v8, vs = quantize_int8(vc)
-    ks, vs = ks[..., 0], vs[..., 0]
+    if cache == "int8":
+        kc, ks = quantize_int8(kc)
+        vc, vs = quantize_int8(vc)
+        scales = (ks[..., 0], vs[..., 0])
+        kernel = "flash_decode_int8"
+    else:
+        dtype = torch.float32 if cache == "f32" else torch.bfloat16
+        kc, vc = kc.to(dtype), vc.to(dtype)
+        scales = (None, None)
+        kernel = "flash_decode"
     for lens, tq in cases:
         kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
         for dtype in (torch.float32, torch.bfloat16):
             q = _randn(gen, (4, heads, tq, d), dtype, device)
-            got = finish_within(lambda: fa.flash_decode(
-                q, k8, v8, kv_len, k_scale=ks, v_scale=vs), "flash_decode_int8")
-            again = fa.flash_decode(q, k8, v8, kv_len, k_scale=ks, v_scale=vs)
-            ref = fa.flash_decode_plain(q, k8, v8, kv_len, ks, vs)
+
+            def call():
+                return fa.flash_decode(q, kc, vc, kv_len, k_scale=scales[0],
+                                       v_scale=scales[1])
+
+            got = finish_within(call, kernel)
+            same = torch.equal(got, call())
+            ref = fa.flash_decode_plain(q, kc, vc, kv_len, *scales)
             err = max_abs(got, ref)
-            name = f"flash_decode_int8 edges kv_len={lens} tq={tq} q {str(dtype)[6:]}"
+            name = (f"{kernel} edges kv_len={lens} tq={tq} q {str(dtype)[6:]}"
+                    + ("" if cache == "int8" else f" cache {cache}"))
             if dtype == torch.float32:
                 ok, detail = err <= 1e-5, "limit 1e-5"
             else:
                 ratio = limit_ratio(got, ref, bf16_decode_limit(
-                    q, k8, v8, kv_len, ref, ks, vs))
+                    q, kc, vc, kv_len, ref, *scales))
                 ok, detail = ratio <= 1.0, f"worst |o-plain| / limit {ratio:.3f}"
             empty = [i for i, n in enumerate(lens) if n == 0]
             zeros = all(bool((got[i] == 0).all()) for i in empty)
-            same = torch.equal(got, again)
             log(f"{name}: max|o-plain| {err:.3e} ({detail}); no-key rows 0: "
                 f"{zeros}; two launches bitwise {same}")
             require(ok and zeros, f"{name} disagrees with its plain version")
@@ -1918,13 +2026,21 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
     mask = (torch.arange(t, device=device)[None, :] < kv_len[:, None])[:, None, None, :]
     io_bytes = 2 * qd.numel() * 2 + b * 4  # q, o (bf16); kv_len
     bound, by = _bound(rows * d * 2 * 4 + io_bytes, 4 * d * rows, "f32")
+
+    def decode():
+        return fa.flash_decode(qd, kc, vc, kv_len)
+
+    def decode_sdpa():
+        return F.scaled_dot_product_attention(qd.float(), kc, vc, attn_mask=mask)
+
     out["flash_decode"] = {
         "shape": f"q [{b},{heads},1,{d}] bf16, f32 cache [{b},{heads},{t},{d}], kv_len {lens}",
-        "ms": time_ms(lambda: fa.flash_decode(qd, kc, vc, kv_len)),
+        # one call: the scores kernel, then the p.v kernel with the merge
+        "ms": time_ms(decode), "device_ms": device_ms(decode),
         "plain_ms": time_ms(lambda: fa.flash_decode_plain(qd, kc, vc, kv_len),
                             iters=3, reps=3),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            qd.float(), kc, vc, attn_mask=mask)),
+        "library_ms": time_ms(decode_sdpa),
+        "library_device_ms": device_ms(decode_sdpa),
         "bound_ms": bound, "bound_by": by,
     }
 
@@ -2051,7 +2167,8 @@ def device_ms(fn, calls: int = 100) -> float | None:
     over ``calls`` calls: what the card spends, without the host's time to
     issue the calls. None where the profiler saw no device time. Logs how
     many launches of the port's kernels the profiler recorded where that
-    is not ``calls`` (a window that lost events reads low)."""
+    is not ``calls`` (a window that lost events reads low), and each port
+    kernel's time a call where a call launches more than one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2065,7 +2182,14 @@ def device_ms(fn, calls: int = 100) -> float | None:
             and (found := port_kernel_pattern().match(evt.key))}
     if any(n != calls for n in seen.values()):
         log(f"device_ms: the profiler recorded {seen} launches of {calls} calls")
-    total = sum(device_ms_by_name(prof).values())
+    by_name = device_ms_by_name(prof)
+    if len(seen) > 1:
+        split = {}
+        for name, ms in by_name.items():
+            if found := port_kernel_pattern().match(name):
+                split[found.group(1)] = split.get(found.group(1), 0.0) + ms / calls
+        log(f"device_ms: per call by kernel {split}")
+    total = sum(by_name.values())
     return total / calls if total else None
 
 
@@ -2198,7 +2322,9 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     its evaluation and the dlrm_optimizer epoch for interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
-    quantize_int8_stochastic). Errors: at the shapes of the kernel's path
+    quantize_int8_stochastic). A count is of wrapper calls that launched
+    the kernel: each flash_decode call is two launches (its scores kernel,
+    then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
     (flash_fwd: the larger of serving's and training's; K5 at
     [16384,4096], int8_gemm at the step's first product in bf16,
     quantize_int8 at its activations). Times: K5 at [16384,4096],
@@ -2259,7 +2385,8 @@ def bf16_checks(device) -> None:
     at the serving prefill [1,8,2048,128] (normalized, and the stats
     surface with offsets) and at the training shape [2,8,8192,128], causal;
     the backward at the training shape; decode at the serving shape (f32
-    and int8 caches); and the int8 product, bitwise, at the training
+    and int8 caches) and the f32/bf16-cache decode's bitwise contracts
+    (``check_decode_bits``); and the int8 product, bitwise, at the training
     step's first product and decode's two."""
     _build.load()
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -2272,6 +2399,7 @@ def bf16_checks(device) -> None:
                       f"bfloat16 [1,{heads},{t},{d}] causal=True "
                       f"offsets=({q_off},{k_off}) normalize={normalize}")
     check_train_shape(gen, device, heads, d)
+    check_decode_bits(gen, device, heads, ENGINE["capacity_tokens"], DECODE_LENS)
     check_decode(gen, device, heads, ENGINE["capacity_tokens"], d, DECODE_LENS,
                  (torch.bfloat16,))
     check_int8_gemm(gen, device, grads=False, cases=[
@@ -2304,18 +2432,23 @@ PLANTED_FAULTS = {
                       "* 16 * 128"),
     # decode, past key 1024: a tile keeps the previous tile's V
     "decode_long_row_v": (
-        FWD_SOURCE,
-        "      load_kv(lk, lv, kbase + kt0 + kBlockK,\n"
-        "              min(kBlockK, valid - kt0 - kBlockK), tile);\n",
-        "      float kept[sizeof(tile.v) / sizeof(float)];\n"
-        "      for (int u = 0; u < int(sizeof(kept) / sizeof(float)); ++u) "
-        "kept[u] = tile.v[u];\n"
-        "      load_kv(lk, lv, kbase + kt0 + kBlockK,\n"
-        "              min(kBlockK, valid - kt0 - kBlockK), tile);\n"
-        "      if (kt0 + kBlockK >= 1024) {\n"
-        "        for (int u = 0; u < int(sizeof(kept) / sizeof(float)); ++u) "
-        "tile.v[u] = kept[u];\n"
-        "      }\n"),
+        DECODE_SOURCE,
+        "stage_tile<D>(v + (bh * tk + kt0) * D,",
+        "stage_tile<D>(v + (bh * tk + kt0 - (kt0 >= 1024 ? kBlockK : 0)) * D,"),
+    # decode: a tile's p and merge against the max of its own block's
+    # tiles, not of every earlier tile of the row
+    "decode_block_max": (
+        DECODE_SOURCE,
+        "for (int u = lane; u < tile; u += 32)",
+        "for (int u = chunk * kWarps + lane; u < tile; u += 32)"),
+    # decode: the last block's tiles merged ahead of the first block's
+    # (their partials swap places in the workspace)
+    "decode_last_block_first": (
+        DECODE_SOURCE,
+        "float* pt = part + (row * n_tiles + tile) * (2 + D);",
+        "float* pt = part + (row * n_tiles + (chunk == 0 ? tile + "
+        "(live_chunks - 1) * kWarps : chunk == live_chunks - 1 ? warp : tile))"
+        " * (2 + D);"),
     # the s8 GEMM's consumers read their A tile from the next ring stage
     "gemm_other_stage": (QUANT_SOURCE,
                          "sw128_desc(s_a + s * C::kAStage",

@@ -1,7 +1,8 @@
-// Flash attention for Hopper (sm_90a): the f32 prefill forward and the
-// decode kernels of the decode-serving path, with a plain C interface for
-// ctypes. rtt_flash_fwd sends bf16 q/k/v to the tensor-core forward in
-// flash_forward_sm90.cu and f32 to flash_fwd_kernel here.
+// Flash attention for Hopper (sm_90a): the f32 prefill forward, with a
+// plain C interface for ctypes. rtt_flash_fwd sends bf16 q/k/v to the
+// tensor-core forward in flash_forward_sm90.cu and f32 to flash_fwd_kernel
+// here. The f32/bf16-cache decode is flash_decode.cu, the int8-cache decode
+// flash_decode_int8.cu.
 //
 // Replaces, in raydp_tpu/ops/flash_attention.py:
 //   flash_fwd          <- _flash_kernel_onepass, launched by pallas_call in
@@ -10,17 +11,11 @@
 //   flash_fwd_twoterm  <- _flash_kernel, the same call with onepass=False
 //                         (RAYDP_TPU_FLASH_ONEPASS=0): the same kernel with
 //                         the two-term update, which always rescales
-//   flash_decode       <- _decode_kernel via _decode_body, launched by
-//                         pallas_call in flash_decode, for f32 and bf16
-//                         caches (the int8 cache, K4b, has its own kernel,
-//                         split over the cache: flash_decode_int8.cu)
 //
-// What bounds them on an H100. Prefill over T positions does 2*B*H*T^2*D
+// What bounds it on an H100. Prefill over T positions does 2*B*H*T^2*D
 // operations (causal) on 4*B*H*T*D elements: at T = 2048, D = 128 that is
 // about 500 operations per byte, above the card's ridge, so it is bound by
-// operations. Decode reads every valid cached K/V row once and does two
-// operations per element read: it is bound by bytes
-// (sum(kv_len) * H * D * 2 * element size over 3.35 TB/s).
+// operations.
 //
 // What this design does about it: it is exact and simple, not fast. It
 // computes in f32 on the CUDA cores (no tensor cores, no TMA):
@@ -30,31 +25,29 @@
 // A loop over k-tiles
 // inside the block replaces the TPU's sequential k-block grid axis, so the
 // running (m, l, o) of a row stay in registers. Causal rows skip the k-tiles
-// that lie entirely in their future; decode reads only the rows below each
-// sequence's kv_len. Both kernels call the same per-row tile update
-// (row_update) over the same k-tile partition, so a decode row equals the
+// that lie entirely in their future. Each row runs the steps of the k-tile
+// update (flash_common.cuh: tile_score, tile_prob, tile_pv, tile_alpha,
+// merge_term) tile after tile; the split decode (flash_decode.cu) runs the
+// same steps over the same k-tile partition, so a decode row equals the
 // prefill row at the same position bit for bit for f32 q/k/v on an f32
 // cache -- the failover contract of docs/serving.md ("Determinism and
-// failover"). Every rounding step is an explicit _rn intrinsic so that the
-// compiler cannot contract the two kernels' arithmetic differently. For
-// bf16 q/k/v the prefill runs on the tensor cores over 128-key tiles with p
-// rounded to bf16, so the decode row is within bf16 rounding of the prefill
-// row, not bitwise.
+// failover"). For bf16 q/k/v the prefill runs on the tensor cores over
+// 128-key tiles with p rounded to bf16, so the decode row is within bf16
+// rounding of the prefill row, not bitwise.
 //
 // The two-term body (kTwoTerm) computes alpha = exp(m - m_new) and
 // fma(alpha, acc, pv) on every tile. Where the max did not move, alpha is
 // exp(0) == 1 exactly and fma(1, a, b) rounds like a + b, so it equals the
 // one-pass body bit for bit; it costs one exp and D/32 + 1 multiplies more
-// per row and tile. Decode keeps the one-pass body.
+// per row and tile.
 
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int kFwdWarps = 16;  // prefill: query rows per block, one warp each
-constexpr int kDecWarps = 4;   // decode: warps per block (rows, and K/V loads)
+constexpr int kFwdWarps = 16;  // query rows per block, one warp each
 
-// Cache reader: element idx of row `row` as f32.
+// K/V reader: element idx of row `row` as f32.
 template <typename T>
 struct LoadPlain {
   const T* p;
@@ -75,8 +68,7 @@ struct KVTile {
 };
 
 // Rows at or past n_valid are loaded as zeros: they are masked anyway, and
-// zero V keeps p * v exact (0 * 0) where the cache holds stale or
-// uninitialised values.
+// zero V keeps p * v exact (0 * 0).
 template <int D, int NT, class LK, class LV>
 __device__ __forceinline__ void load_kv(const LK& lk, const LV& lv,
                                         size_t row0, int n_valid,
@@ -108,52 +100,30 @@ __device__ __forceinline__ void store_kv(const KVTile<D, NT>& tile, float* kT,
   }
 }
 
-// The per-row online-softmax update over one staged k-tile, shared by the
-// prefill and decode kernels. Lane j scores key j; lane i holds output
-// elements i, i + 32, ... The rescale of (l, o) runs only when the row max
-// moved (the one-pass body of _flash_kernel_onepass); otherwise alpha would
-// be exp(0) == 1 and the multiply is skipped as an exact identity. With
-// kTwoTerm it always runs (the two-term body of _flash_kernel).
+// The per-row online-softmax update over one staged k-tile: the steps of
+// flash_common.cuh in order. The rescale of (l, o) runs only when the row
+// max moved (the one-pass body of _flash_kernel_onepass); with kTwoTerm it
+// always runs (the two-term body of _flash_kernel).
 template <int D, bool kTwoTerm = false>
 __device__ __forceinline__ void row_update(const float* qrow, const float* kT,
                                            const float* vt, bool key_live,
                                            float scale, float& m, float& l,
                                            float (&acc)[D / 32], int lane) {
-  float s = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) {
-    s = __fmaf_rn(qrow[d], kT[d * (kBlockK + 1) + lane], s);
-  }
-  s = key_live ? __fmul_rn(s, scale) : kNegInf;
-
+  const float s = tile_score<D, 1>(
+      qrow, [&](int d, float (&k)[1]) { k[0] = kT[d * (kBlockK + 1) + lane]; },
+      key_live, scale);
   const float block_max = warp_max(s);
   const float m_new = fmaxf(m, block_max);
-  float p = expf(__fsub_rn(s, m_new));
-  p = (s > kNegInf * 0.5f) ? p : 0.f;
+  const float p = tile_prob(s, m_new);
   const float p_sum = warp_sum(p);
-
   float pv[D / 32];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) pv[i] = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < kBlockK; ++j) {
-    const float pj = __shfl_sync(kFull, p, j);
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      pv[i] = __fmaf_rn(pj, vt[j * D + lane + 32 * i], pv[i]);
-    }
-  }
+  tile_pv<D>(p, [&](int j, int e) { return vt[j * D + e]; }, lane, pv);
 
-  if (kTwoTerm || block_max > m) {  // warp-uniform
-    const float alpha = expf(__fsub_rn(m, m_new));
-    l = __fmaf_rn(alpha, l, p_sum);
+  const bool moved = kTwoTerm || block_max > m;  // warp-uniform
+  const float alpha = moved ? tile_alpha(m, m_new) : 1.f;
+  l = merge_term(moved, alpha, l, p_sum);
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] = __fmaf_rn(alpha, acc[i], pv[i]);
-  } else {
-    l = __fadd_rn(l, p_sum);
-#pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] = __fadd_rn(acc[i], pv[i]);
-  }
+  for (int i = 0; i < D / 32; ++i) acc[i] = merge_term(moved, alpha, acc[i], pv[i]);
   m = m_new;
 }
 
@@ -233,67 +203,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Decode: the newest tq query rows of each sequence against a cache of
-// capacity tk with per-sequence valid lengths kv_len [B] (including the tq
-// new rows). q [B*H, tq, D], K/V read through the loaders, o [B*H, tq, D] in
-// q's type. grid (ceil(tq / kDecWarps), B*H).
-template <int D, typename TQ, class LK, class LV>
-__global__ void __launch_bounds__(kDecWarps * 32)
-flash_decode_kernel(const TQ* __restrict__ q, LK lk, LV lv,
-                    const int* __restrict__ kv_len, TQ* __restrict__ o,
-                    int heads, int tq, int tk, float scale) {
-  extern __shared__ float smem[];
-  float* kT = smem;
-  float* vt = kT + D * (kBlockK + 1);
-  float* qs = vt + kBlockK * D;  // kDecWarps x D
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = blockIdx.y;
-  const int len = kv_len[bh / heads];
-  const int row0 = blockIdx.x * kDecWarps;
-  const int rows = min(kDecWarps, tq - row0);
-  const size_t qbase = bh * tq;
-  const size_t kbase = bh * tk;
-  stage_rows<D>(q, qbase + row0, rows, kDecWarps, qs);
-
-  const bool has_row = warp < rows;
-  const int q_pos = len - tq + row0 + warp;
-  const int valid = min(len, tk);
-  const int n_tiles = valid > 0 ? (valid + kBlockK - 1) / kBlockK : 0;
-
-  float m = kNegInf;
-  float l = 0.f;
-  float acc[D / 32];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-
-  KVTile<D, kDecWarps * 32> tile;
-  if (n_tiles > 0) load_kv(lk, lv, kbase, min(kBlockK, valid), tile);
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    const int kt0 = ti * kBlockK;
-    __syncthreads();
-    store_kv(tile, kT, vt);
-    __syncthreads();
-    if (ti + 1 < n_tiles) {
-      load_kv(lk, lv, kbase + kt0 + kBlockK,
-              min(kBlockK, valid - kt0 - kBlockK), tile);
-    }
-    if (has_row && q_pos >= kt0) {
-      const bool live = kt0 + lane < valid && q_pos >= kt0 + lane;
-      row_update<D>(qs + warp * D, kT, vt, live, scale, m, l, acc, lane);
-    }
-  }
-
-  if (!has_row) return;
-  const size_t row = qbase + row0 + warp;
-  const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    o[row * D + lane + 32 * i] = from_f32<TQ>(__fdiv_rn(acc[i], denom));
-  }
-}
-
 template <int D>
 constexpr size_t smem_bytes(int q_rows) {
   return sizeof(float) * (D * (kBlockK + 1) + kBlockK * D + q_rows * D);
@@ -315,56 +224,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
       static_cast<const T*>(v), o, m, l, t, tk, q_off, k_off, causal,
       normalize, out_f32, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, typename TQ, class LK, class LV>
-int launch_decode(const void* q, LK lk, LV lv, const int* kv_len, void* o,
-                  int b, int h, int tq, int tk, float scale,
-                  cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(kDecWarps);
-  auto kernel = flash_decode_kernel<D, TQ, LK, LV>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((tq + kDecWarps - 1) / kDecWarps, b * h);
-  kernel<<<grid, kDecWarps * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), lk, lv, kv_len, static_cast<TQ*>(o), h, tq,
-      tk, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, typename TQ>
-int decode_by_cache(const void* q, const void* k, const void* v,
-                    const int* kv_len, void* o, int b, int h, int tq, int tk,
-                    int kv_dtype, float scale, cudaStream_t stream) {
-  switch (kv_dtype) {
-    case kF32:
-      return launch_decode<D, TQ>(
-          q, LoadPlain<float>{static_cast<const float*>(k)},
-          LoadPlain<float>{static_cast<const float*>(v)}, kv_len, o, b, h, tq,
-          tk, scale, stream);
-    case kBF16:
-      return launch_decode<D, TQ>(
-          q, LoadPlain<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(k)},
-          LoadPlain<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(v)},
-          kv_len, o, b, h, tq, tk, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <int D>
-int decode_by_q(const void* q, const void* k, const void* v, const int* kv_len,
-                void* o, int b, int h, int tq, int tk, int q_dtype,
-                int kv_dtype, float scale, cudaStream_t stream) {
-  if (q_dtype == kF32) {
-    return decode_by_cache<D, float>(q, k, v, kv_len, o, b, h, tq, tk,
-                                     kv_dtype, scale, stream);
-  }
-  if (q_dtype == kBF16) {
-    return decode_by_cache<D, __nv_bfloat16>(q, k, v, kv_len, o, b, h, tq, tk,
-                                             kv_dtype, scale, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -400,23 +259,6 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (d == 64 && dtype == kF32) RTT_FWD(64, float);
   if (d == 128 && dtype == kF32) RTT_FWD(128, float);
 #undef RTT_FWD
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// kv_dtype: kF32 or kBF16 (the int8 cache: rtt_flash_decode_int8).
-int rtt_flash_decode(const void* q, const void* k, const void* v,
-                     const int* kv_len, void* o, int b, int h, int tq, int tk,
-                     int d, int q_dtype, int kv_dtype, float scale,
-                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) {
-    return decode_by_q<64>(q, k, v, kv_len, o, b, h, tq, tk, q_dtype, kv_dtype,
-                           scale, s);
-  }
-  if (d == 128) {
-    return decode_by_q<128>(q, k, v, kv_len, o, b, h, tq, tk, q_dtype,
-                            kv_dtype, scale, s);
-  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

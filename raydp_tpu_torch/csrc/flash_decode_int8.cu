@@ -15,9 +15,9 @@
 // What bounds it on an H100: bytes. Every valid K/V row is read once, 128
 // bytes plus a 4-byte scale each at D 128, and each element costs two
 // operations: at the serving shape (4 sequences of 17-2048 rows, 8 heads)
-// 8.2 MB, 0.0024 ms at 3.35 TB/s. The TPU kernel (and the CUDA-core decode
-// kernel, which K4a keeps) walks a sequence's cache in order in one block:
-// 32 blocks at the serving shape, one query row each, on a card of 132 SMs.
+// 8.2 MB, 0.0024 ms at 3.35 TB/s. The TPU kernel walks a sequence's cache
+// in order in one grid row: ported as such, 32 blocks at the serving shape,
+// one query row each, on a card of 132 SMs.
 //
 // The design:
 // - One block per (b * h, chunk of kChunk keys): a few hundred blocks at the
@@ -39,7 +39,7 @@
 //   weights exp(m_c - m), chunk 0 first. The order is fixed, so two launches
 //   give the same bits whichever block arrives last.
 // An int8 cache row never equals a prefill row, so K4b carries no bitwise
-// contract with the prefill; the f32 cache keeps K4a's.
+// contract with the prefill; the f32 cache keeps it (flash_decode.cu).
 
 #include "flash_common.cuh"
 

@@ -48,10 +48,11 @@
 // own products), persistent blocks, a TMA store of o, and clusters that
 // multicast K/V to neighbouring query tiles.
 //
-// The decode kernel (flash_attention.cu) keeps its CUDA-core row update in
-// f32, so for bf16 q/k/v a decode row matches this kernel's prefill row to
-// within bf16 rounding, not bit for bit; for f32 q/k/v both use the shared
-// f32 row update and match bit for bit.
+// The decode kernel (flash_decode.cu) keeps the CUDA-core row update's
+// steps in f32, so for bf16 q/k/v a decode row matches this kernel's
+// prefill row to within bf16 rounding, not bit for bit; for f32 q/k/v the
+// decode and the CUDA-core prefill (flash_attention.cu) run the same steps
+// and match bit for bit.
 
 #include "sm90_common.cuh"
 

@@ -11,7 +11,7 @@ once. Nothing is fetched: the CUDA toolkit's own headers are all it needs.
 Pointers and the CUDA stream pass as ``c_void_p``. Each C entry point
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on
 anything but 0. Kernels whose blocks merge their partial results (the int8
-product's split K, the int8 decode's split cache) elect the last block by
+product's split K, the decodes' split cache) elect the last block by
 an atomic ticket; ``tickets`` hands them zeroed counters, which those
 blocks reset to 0 before they exit.
 """
@@ -60,9 +60,12 @@ _SIGNATURES = {
     "rtt_flash_bwd_dkv": (
         [_P] * 8 + [_I] * 8 + [ctypes.c_float, _P], _I,
     ),
-    # q, k, v, kv_len, o, b, h, tq, tk, d, q_dtype, kv_dtype, scale, stream
+    # b, h, tq, tk, d -> workspace floats of rtt_flash_decode
+    "rtt_flash_decode_work": ([_I] * 5, ctypes.c_longlong),
+    # q, k, v, kv_len, o, work, tickets, work_floats, b, h, tq, tk, d,
+    # q_dtype, kv_dtype, scale, stream
     "rtt_flash_decode": (
-        [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P], _I,
+        [_P] * 7 + [ctypes.c_longlong] + [_I] * 7 + [ctypes.c_float, _P], _I,
     ),
     # q, k, v, k_scale, v_scale, kv_len, o, part, tickets, b, h, tq, tk, d,
     # q_dtype, chunk, scale, stream

@@ -18,16 +18,20 @@ kernel family serves the surfaces of decode serving and training:
   causal mask -- the per-step backward a ring schedule sums.
 - ``flash_decode``: the newest ``Tq`` query rows of each sequence against a
   KV cache with per-sequence valid lengths, from an f32/bf16 cache or an
-  int8 cache with per-row scales dequantized in the kernel. The int8 cache
-  has its own kernel, split over the cache (``csrc/flash_decode_int8.cu``:
+  int8 cache with per-row scales dequantized in the kernel. Both kernels
+  are split over the cache. The f32/bf16 cache's (``csrc/flash_decode.cu``,
+  two launches a call) keeps the sequential update's bits: each 32-key
+  tile's scores and max, then its p and p.v against the row max so far,
+  in parallel, then the tiles merged in order by the last block of each
+  sequence and head. The int8 cache's (``csrc/flash_decode_int8.cu``:
   blocks of ``DECODE_CHUNK`` keys, their partial (m, l, o) merged in chunk
-  order by the last block of each sequence and head), so its sums run in
-  another order than the plain version's 32-key tiles: within 1e-5 in f32.
+  order) sums in another order than the plain version's 32-key tiles:
+  within 1e-5 in f32.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/flash_attention.cu``, ``csrc/flash_forward_sm90.cu``,
 ``csrc/flash_backward.cu``, ``csrc/flash_backward_sm90.cu``,
-``csrc/flash_decode_int8.cu``) or raises; on
+``csrc/flash_decode.cu``, ``csrc/flash_decode_int8.cu``) or raises; on
 a CPU tensor it runs the plain PyTorch version beside it (``*_plain``),
 which does the same blockwise update. The forward and the backward each
 have two bodies: f32 q/k/v take the CUDA-core kernels over the plain
@@ -38,9 +42,10 @@ dv's product and ds before dk's and dq's (the reference feeds both in
 f32). So bf16 agrees with the plain versions to bf16 rounding, not bit for
 bit.
 
-Decode == prefill: for f32 q/k/v the decode kernel and the forward share
-one per-row update over the same 32-key tiles, so a decode row equals the
-prefill row at its position bit for bit. For bf16 q/k/v the prefill row
+Decode == prefill: for f32 q/k/v the decode kernel and the forward run the
+same steps of the per-row update over the same 32-key tiles, merged in
+tile order, so a decode row equals the prefill row at its position bit for
+bit. For bf16 q/k/v the prefill row
 comes from the tensor-core kernel and is within bf16 rounding of the
 decode row, not bitwise. Masking uses
 ``NEG_INF = -1e30``, never -inf; the forward zeroes ``p`` where the score is
@@ -52,8 +57,9 @@ every masked pair.
 have no backward, as in the JAX package: they raise when grad mode is on
 and an input requires a gradient.
 
-``LAUNCHES`` counts kernel launches per kernel name; the plain versions do
-not count.
+``LAUNCHES`` counts kernel launches per kernel name (``flash_decode``
+counts calls: two launches each, scores then p.v and the merge); the plain
+versions do not count.
 """
 
 from __future__ import annotations
@@ -67,9 +73,10 @@ from raydp_tpu_torch.ops import _build
 NEG_INF = -1e30
 
 # The plain versions' tiling, which is also the CUDA-core kernels'
-# (csrc/flash_attention.cu kBlockK / kFwdWarps): 32 keys per k-tile, one per
-# lane of a warp; 16 query rows per f32 prefill block. The f32 decode ==
-# prefill bit contract rests on both kernels sharing the k-tile. The bf16
+# (csrc/flash_common.cuh kBlockK, csrc/flash_attention.cu kFwdWarps): 32
+# keys per k-tile, one per lane of a warp; 16 query rows per f32 prefill
+# block. The f32 decode == prefill bit contract rests on both kernels
+# sharing the k-tile. The bf16
 # forward's tile (128 queries x 128 keys) lives in
 # csrc/flash_forward_sm90.cu (kM, kN).
 BLOCK_K = 32
@@ -550,12 +557,17 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
     o = torch.empty_like(q)
     if int8_kv:
         return _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o)
+    k, v = _aligned16(k), _aligned16(v)
+    work = torch.empty(lib.rtt_flash_decode_work(b, h, tq, tk, d),
+                       dtype=torch.float32, device=q.device)
+    tickets = _build.tickets(q.device, b * h)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.rtt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            o.data_ptr(), b, h, tq, tk, d, _DTYPE_CODES[q.dtype],
-            _DTYPE_CODES[k.dtype], d**-0.5, stream,
+            o.data_ptr(), work.data_ptr(), tickets.data_ptr(), work.numel(),
+            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+            d**-0.5, stream,
         )
     _build.check(code, "flash_decode")
     LAUNCHES["flash_decode"] += 1

@@ -107,7 +107,8 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
     names = set(chip_smoke.port_kernel_pattern().pattern.split("::(")[1]
                 .split(")")[0].split("|"))
     assert names == {
-        "flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_decode_kernel",
+        "flash_fwd_kernel", "flash_fwd_sm90_kernel",
+        "flash_decode_scores_kernel", "flash_decode_pv_kernel",
         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_sm90_kernel",
         "flash_bwd_dkv_sm90_kernel", "interaction_fwd_kernel",
         "quantize_stochastic_kernel", "quantize_rows_kernel",
@@ -275,3 +276,27 @@ def test_sm90_patterns_name_every_tensor_core_instantiation():
         "flash_fwd_sm90 D128 two-term", "flash_bwd_dq_sm90 D64",
         "flash_bwd_dkv_sm90 D128", "int8_gemm_sm90 small-N f32",
         "int8_gemm_sm90 large-N bf16 TMA store", "int8_gemm_sm90 large-N bf16"]
+
+
+def test_decode_pattern_names_every_instantiation():
+    """ptxas's mangled names of the split decode's two kernels <D, q type,
+    cache type> each get a key of their own; a repeated bf16 is a
+    substitution (S..._) in the mangling."""
+    names = [
+        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi128EffEEvPKT0_PKT1_PKiPfSA_iiiif",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi64Ef13__nv_bfloat16EEvPKT1_PKiPKfSB_PfPiPT0_iiii",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi128E13__nv_bfloat16fEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi64E13__nv_bfloat16S1_EEvPKT0_PKT1_PKiPfSA_iiiif",
+        "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv",
+    ]
+    entries = {name: {"registers": 40, "spill_bytes": 0, "static_smem_bytes": 0}
+               for name in names}
+    keys = [chip_smoke._decode_key(found) for name in names
+            if (found := chip_smoke.DECODE_KERNEL.search(name))]
+    assert keys == [
+        "flash_decode_scores_kernel D128 q f32 cache f32",
+        "flash_decode_pv_kernel D64 q f32 cache bf16",
+        "flash_decode_pv_kernel D128 q bf16 cache f32",
+        "flash_decode_scores_kernel D64 q bf16 cache bf16"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 16 decode kernels"):
+        chip_smoke.decode_report(entries)
