@@ -19,6 +19,10 @@ Phases; any failure exits non-zero and prints no result line:
    present, or it fails); for the split f32/bf16-cache decode
    (``flash_decode_scores_kernel`` and ``flash_decode_pv_kernel``, sixteen
    instantiations) its registers, spills and static shared memory (no
+   spill, or it fails); for K5 (``quantize_stochastic_rows_kernel``'s two
+   register bodies and ``quantize_stochastic_kernel``) and K1
+   (``interaction_fwd_kernel``, f32 and bf16) registers, spills, SASS
+   instruction counts and K5's instructions per group of 4 elements (no
    spill, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
@@ -51,12 +55,19 @@ Phases; any failure exits non-zero and prints no result line:
    ``bf16_limit``, the gap printed), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
-   shape [2048,27,16] and at batch 2047 (f32 atol 1e-5 * max|plain|, bf16
-   2e-2 * max|plain|; two launches bitwise equal), with its input gradient
-   against the plain version's autograd (f32, 1e-5 relative);
+   shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
+   F 2, F 9, F 12, batches 2047, 1001 and 4099, D 13, T off its alignment, the
+   widest row a block holds, F 64 x D 900, with F 65 refused as an invalid
+   argument (CUDA error 1, no other error); f32 atol 1e-5
+   * max|plain|, bf16 2e-2 * max|plain|; two launches bitwise equal), with
+   its input gradient against the plain version's autograd (f32, 1e-5
+   relative);
    ``quantize_int8(stochastic=True)`` (K5) against
    ``quantize_int8_stochastic_plain`` at the training step's MLP
-   activations [16384,1024] and [16384,4096] and a row tail [300,96]
+   activations [16384,1024] and [16384,4096], a row tail [300,96] and the
+   edges of its layout (``STOCHASTIC_EDGES``: D 1024, 1028, 4096, 4100,
+   4097, 97 and 96, N not a multiple of a block's rows, x off its 16-byte
+   alignment, each with an all-zero row and rows at +-127 and half quanta)
    (values and scales bitwise; one seed the same bits over two launches,
    another seed other values; |values - x/s| <= 1, equal to 1 only where
    x/s is an integer and the f32 sum with u rounds up;
@@ -134,10 +145,12 @@ Phases; any failure exits non-zero and prints no result line:
    through ``flash_attention``, the surface the model calls, with
    ``flash_attention_call`` (``call_ms``) and the profiler's device time
    beside it.
-   ``interaction_fwd``'s three times, and the attention kernels' own and
-   library times, are also taken by the profiler, as device time per call
-   (``device_ms``, ``plain_device_ms``, ``library_device_ms`` in the
-   ``kernels`` line, null where not measured).
+   ``interaction_fwd``'s three times, K5's, and the attention kernels' own
+   and library times, are also taken by the profiler, as device time per
+   call (``device_ms``, ``plain_device_ms``, ``library_device_ms`` in the
+   ``kernels`` line, null where not measured). Beside K1's times, the
+   launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
+   events and by the profiler.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``. The full record also goes to
@@ -147,12 +160,20 @@ The last two lines are a ``{"kernels": [...]}`` object and
 
 plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
 names (the bf16 forward, the bf16 backward, the two decode kernels, the
-int8 product) under ``build/planted/``, builds the copy and runs there
-``chip_smoke.py --bf16-checks`` (phase 2's bf16 forward, backward and
+int8 product, K5, K1) under ``build/planted/``, builds the copy and runs
+there ``chip_smoke.py --bf16-checks`` (phase 2's bf16 forward, backward and
 decode checks, the f32/bf16-cache decode's bitwise checks and the int8
-product's, at the serving and training shapes alone); it exits 0 only if
-every copy fails them with a disagreement, and prints one JSON line with
-each fault's failing check.
+product's, at the serving and training shapes alone, then the K1 and K5
+checks); it exits 0 only if every copy fails them with a disagreement, and
+prints one JSON line with each fault's failing check.
+
+    python3 chip_smoke.py --k1-k5
+
+runs K1 and K5 alone: phase 1, their checks, K5's entry-point run, their
+times and the launch floor, and the host's time a call of each step of the
+K1 and K5 wrappers and of the other short wrappers (``launch_times``:
+``time.perf_counter`` over 1000 calls); it writes
+``chiprun_out/k1_k5.json``.
 """
 
 from __future__ import annotations
@@ -216,6 +237,21 @@ DLRM_RUN = dict(rows=100_000, batch=2048, epochs=3, lr=1e-3, data_seed=11)
 # Criteo Kaggle setting of facebookresearch/dlrm: 13 dense features through
 # the bottom MLP and 26 tables of width 16 (--arch-sparse-feature-size=16)
 INTERACTION_SHAPES = {"path": (2048, 7, 16), "kaggle": (2048, 27, 16)}
+# K1 at the edges of its layout, (B, F, D, dtype, T's offset in elements):
+# F 2 (one pair, 32 rows a task, B 4099 leaving a last task of 3 rows); F 9
+# (a task is one row of 36 pairs, which leaves 4 lanes a second output); F
+# 12 (66 pairs: a lane's third output exists for two lanes only); B 2047
+# (not a multiple of the 3 rows of an F 7 task) and B 1001 at F 27; D 13
+# (scalar staging); T one element off (scalar staging of an aligned shape);
+# the widest row a block holds, F 64 x D 900 f32 (230,400 bytes of shared
+# memory; F 65 is refused)
+INTERACTION_EDGES = [
+    (4099, 2, 16, torch.float32, 0), (2048, 9, 16, torch.bfloat16, 0),
+    (1000, 12, 16, torch.float32, 0),
+    (2047, 7, 16, torch.float32, 0), (1001, 27, 16, torch.bfloat16, 0),
+    (512, 27, 13, torch.float32, 0), (2048, 7, 16, torch.float32, 1),
+    (3, 64, 900, torch.float32, 0),
+]
 # the int8 path: the MLP activations of the training step, [batch * T,
 # d_model] into fc1 and [batch * T, 4 * d_model] into fc2, and a row tail;
 # the step's two int8 products (x [N, K] against the Linear weight [M, K]),
@@ -245,6 +281,16 @@ QUANT_ROWS_SHAPES = {
     "ragged": ((7, 1000), torch.bfloat16),
 }
 STOCHASTIC_SEEDS = 8  # the entry point's run: one seed per step, as advised
+# K5 at the edges of its layout, (N, D, x's offset in elements): the warp
+# body's widest row (D 1024) with N 1001, not a multiple of its 8 rows a
+# block; D 1028, just past it (the block body); the block body's widest row
+# (D 4096) and D 4100, just past it (the general body); D 4097 and D 97, not
+# multiples of 4 (the general body, groups of 4 across rows); D 96, the
+# warp body with most lanes idle; and rows one element off their 16-byte
+# alignment (the general body)
+STOCHASTIC_EDGES = [(1001, 1024, 0), (300, 1028, 0), (67, 4096, 0),
+                    (64, 4100, 0), (37, 4097, 0), (300, 97, 0), (301, 96, 0),
+                    (300, 1024, 1)]
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 and int8 tensor-core
 # and f32 CUDA-core peaks
@@ -260,6 +306,7 @@ QUANT_SOURCE = "raydp_tpu_torch/csrc/quantization.cu"
 # the decodes, split over the cache: f32/bf16 cache (K4a), int8 cache (K4b)
 DECODE_SOURCE = "raydp_tpu_torch/csrc/flash_decode.cu"
 DECODE_INT8_SOURCE = "raydp_tpu_torch/csrc/flash_decode_int8.cu"
+INTERACTION_SOURCE = "raydp_tpu_torch/csrc/interaction.cu"
 # kernel -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
@@ -269,7 +316,7 @@ KERNELS = {
     "flash_decode": (DECODE_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
     "flash_decode_int8": (DECODE_INT8_SOURCE,
                           "raydp_tpu/ops/flash_attention.py:833"),
-    "interaction_fwd": ("raydp_tpu_torch/csrc/interaction.cu",
+    "interaction_fwd": (INTERACTION_SOURCE,
                         "raydp_tpu/ops/interaction.py:159"),
     "quantize_int8_stochastic": (QUANT_SOURCE,
                                  "raydp_tpu/ops/quantization.py:140"),
@@ -377,7 +424,7 @@ def phase_device() -> dict:
     sm90 = sm90_report(entries)
     decode = decode_report(entries)
     return {"nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
-            "sm90": sm90, "decode": decode}
+            "sm90": sm90, "decode": decode, "k1_k5": k1_k5_report(entries)}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -398,21 +445,38 @@ def ptxas_entries(text: str) -> dict:
 
 
 SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+# an instruction line of cuobjdump -sass: /*0a30*/ [@P0] OPCODE operands ;
+SASS_INSTRUCTION = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def parse_sass(text: str) -> dict:
+    """Each function of ``cuobjdump -sass`` output as its list of opcodes,
+    NOPs left out."""
+    return {chunk.split("\n", 1)[0].strip(): [
+                op for op in SASS_INSTRUCTION.findall(chunk) if op != "NOP"]
+            for chunk in re.split(r"\n\s*Function : ", text)[1:]}
+
+
+@functools.lru_cache(maxsize=None)
+def sass_text(lib: Path) -> str:
+    """The built library's SASS (``cuobjdump -sass``)."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def sass_functions(lib: Path) -> dict:
+    """The built library's SASS, by ``parse_sass``."""
+    return parse_sass(sass_text(lib))
 
 
 def sass_counts(lib: Path) -> dict:
     """HGMMA (bf16 wgmma), IGMMA (integer wgmma) and UTMALDG (TMA load)
-    instructions per function of the built library's SASS, by ``cuobjdump
-    -sass``."""
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    out = {}
-    for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
-        name = chunk.split("\n", 1)[0].strip()
-        out[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
-                     for op in SASS_OPS}
-    return out
+    instructions per function of the built library's SASS."""
+    return {name: {op: sum(o.split(".")[0] == op for o in ops)
+                   for op in SASS_OPS}
+            for name, ops in sass_functions(lib).items()}
 
 
 def _sm90_key(family: str, found: re.Match) -> str:
@@ -488,6 +552,57 @@ def decode_report(entries: dict) -> dict:
     log(f"decode kernels (ptxas): {out}")
     require(len(out) == DECODE_INSTANTIATIONS,
             f"expected {DECODE_INSTANTIATIONS} decode kernels, found {sorted(out)}")
+    for key, row in out.items():
+        require(row["spill_bytes"] == 0, f"{key} spills")
+    return out
+
+
+# K5's and K1's instantiations in ptxas's mangled names: the stochastic
+# rounding's register bodies <threads a row, 16-byte groups a thread> and its
+# general body, and the interaction <element type>
+K1_K5_KERNELS = {
+    "quantize_stochastic_rows": r"quantize_stochastic_rows_kernelILi(\d+)ELi(\d+)E",
+    "quantize_stochastic": r"quantize_stochastic_kernelE",
+    "interaction_fwd": r"interaction_fwd_kernelI(f|13__nv_bfloat16)E",
+}
+K1_K5_INSTANTIATIONS = 5
+# what a group of 4 elements costs K5 in issue slots: the integer multiplies
+# and xors of Philox, the division's reciprocal and conversions, the byte
+# permutes of the packing, and memory
+K5_SASS_OPS = ("IMAD", "LOP3", "MUFU", "FRND", "F2I", "I2F", "PRMT", "LDG",
+               "STG", "FFMA", "FADD", "FMNMX")
+
+
+def _k1_k5_key(family: str, found: re.Match) -> str:
+    if family == "quantize_stochastic_rows":
+        return f"{family} {found.group(1)} threads a row x {found.group(2)} groups"
+    if family == "interaction_fwd":
+        return f"{family} {'f32' if found.group(1) == 'f' else 'bf16'}"
+    return family
+
+
+def k1_k5_report(entries: dict) -> dict:
+    """K5's and K1's instantiations among ptxas's ``entries``: registers and
+    spills (fails on a spill or a missing one), each one's SASS instruction
+    count and the opcodes of K5_SASS_OPS; for K5's register bodies the
+    instructions a group of 4 elements (the function's count over the
+    groups a thread takes: the prologue and the row's reduction included)."""
+    sass = sass_functions(_build.library_path())
+    out = {}
+    for name, row in entries.items():
+        for family, pattern in K1_K5_KERNELS.items():
+            if not (found := re.search(pattern, name)):
+                continue
+            ops = sass.get(name, [])
+            key = _k1_k5_key(family, found)
+            out[key] = row | {"sass_instructions": len(ops)} | {
+                op: sum(o.split(".")[0] == op for o in ops)
+                for op in K5_SASS_OPS}
+            if family == "quantize_stochastic_rows":
+                out[key]["instructions_per_group"] = len(ops) / int(found.group(2))
+    log(f"K5 and K1 kernels (ptxas, SASS): {out}")
+    require(len(out) == K1_K5_INSTANTIATIONS,
+            f"expected {K1_K5_INSTANTIATIONS} K5/K1 kernels, found {sorted(out)}")
     for key, row in out.items():
         require(row["spill_bytes"] == 0, f"{key} spills")
     return out
@@ -883,34 +998,58 @@ def interaction_case(b, f, d, dtype) -> str:
     return f"interaction_fwd [{b},{f},{d}] {str(dtype)[6:]}"
 
 
+def refused_as_invalid(fn) -> bool:
+    """Whether ``fn`` was refused as the kernels refuse a shape they do not
+    take: ``_build.check``'s error for cudaErrorInvalidValue (1). Any other
+    error (a failed launch, a sticky error of an earlier kernel) is raised
+    again."""
+    try:
+        fn()
+    except RuntimeError as err:
+        if re.search(r": CUDA error 1 \(", str(err)):
+            return True
+        raise
+    return False
+
+
 def check_interaction(gen, device) -> dict:
     """interaction_fwd against dot_interaction_plain on the same inputs: at
     the DLRM path's shape in f32 and bf16, at the Criteo Kaggle shape, and
-    at a batch that is not a tile multiple; f32 atol 1e-5 * max|plain|, bf16
-    2e-2 * max|plain|; two launches bitwise equal. Then the wrapper's input
-    gradient against autograd through the plain version (f32, 1e-5
-    relative)."""
+    at the edges of the kernel's layout (INTERACTION_EDGES: one pair, a
+    triangle that fills no whole warp of stores, batches that are not a
+    multiple of a task's rows, a D off the 16-byte staging, an unaligned T
+    and the widest row one block holds); f32 atol 1e-5 * max|plain|, bf16
+    2e-2 * max|plain|; two launches bitwise equal. A row one feature wider
+    than the widest is refused. Then the wrapper's input gradient against
+    autograd through the plain version (f32, 1e-5 relative)."""
     (pb, pf, pd), (kb, kf, kd) = (INTERACTION_SHAPES["path"],
                                   INTERACTION_SHAPES["kaggle"])
     out = {}
-    for b, f, d, dtype in ((pb, pf, pd, torch.float32),
-                           (pb, pf, pd, torch.bfloat16),
-                           (kb, kf, kd, torch.float32),
-                           (kb, kf, kd, torch.bfloat16),
-                           (pb - 1, pf, pd, torch.float32)):
-        t = _randn(gen, (b, f, d), dtype, device)
+    cases = [(pb, pf, pd, torch.float32, 0), (pb, pf, pd, torch.bfloat16, 0),
+             (kb, kf, kd, torch.float32, 0), (kb, kf, kd, torch.bfloat16, 0),
+             *INTERACTION_EDGES]
+    for b, f, d, dtype, offset in cases:
+        flat = _randn(gen, (b * f * d + offset,), dtype, device)
+        t = flat[offset:].view(b, f, d)  # offset 1: T off its alignment
         got, again = ia.interaction_fwd(t), ia.interaction_fwd(t)
         ref = ia.dot_interaction_plain(t)
         err = max_abs(got, ref)
         limit = (1e-5 if dtype == torch.float32 else 2e-2) * float(
             ref.float().abs().max())
         same = torch.equal(got, again)
-        name = interaction_case(b, f, d, dtype)
+        name = interaction_case(b, f, d, dtype) + (
+            f" offset {offset}" if offset else "")
         log(f"{name}: max|out-plain| {err:.3e} (limit {limit:.3e}); two "
             f"launches bitwise {same}")
         require(got.dtype == dtype and err <= limit, f"{name} disagrees")
         require(same, f"{name} differs between launches")
         out[name] = err
+
+    b, f, d, dtype, _ = INTERACTION_EDGES[-1]
+    wide = torch.zeros((b, f + 1, d), dtype=dtype, device=device)
+    refused = refused_as_invalid(lambda: ia.interaction_fwd(wide))
+    log(f"{interaction_case(b, f + 1, d, dtype)}: refused {refused}")
+    require(refused, "interaction_fwd took a row wider than shared memory")
 
     t = _randn(gen, (pb, pf, pd), torch.float32, device).requires_grad_()
     g = _randn(gen, (pb, pf * (pf - 1) // 2), torch.float32, device)
@@ -951,17 +1090,26 @@ def check_quantized(x, values, scales, name) -> dict:
 def check_stochastic(gen, device) -> dict:
     """quantize_int8(stochastic=True), K5, against
     quantize_int8_stochastic_plain on the same inputs at the training step's
-    MLP activations and a row tail: values and scales bitwise equal; two
+    MLP activations and a row tail, and at the edges of the kernel's layout
+    (STOCHASTIC_EDGES, rows built by ``edge_rows``: an all-zero row, rows at
+    +-127 quanta and at half quanta): values and scales bitwise equal; two
     launches with one seed bitwise equal, another seed different in most
     elements of a row's fractional draws; the contract of check_quantized."""
     out = {}
-    for n, d in QUANT_SHAPES.values():
-        x = _randn(gen, (n, d), torch.float32, device) * 3.0
+    cases = [(n, d, 0, False) for n, d in QUANT_SHAPES.values()]
+    cases += [(n, d, offset, True) for n, d, offset in STOCHASTIC_EDGES]
+    for n, d, offset, edges in cases:
+        if edges:
+            rows = edge_rows(gen, (n, d), torch.float32, device)
+            x = torch.cat([rows.new_zeros(offset), rows.reshape(-1)])[offset:]
+            x = x.view(n, d)  # offset 1: x off its 16-byte alignment
+        else:
+            x = _randn(gen, (n, d), torch.float32, device) * 3.0
         vals, scales = quantize_int8(x, seed=1234, stochastic=True)
         again = quantize_int8(x, seed=1234, stochastic=True)
         other, _ = quantize_int8(x, seed=1235, stochastic=True)
         ref_vals, ref_scales = qz.quantize_int8_stochastic_plain(x, 1234)
-        name = stochastic_case(n, d)
+        name = stochastic_case(n, d) + (f" offset {offset}" if offset else "")
         bitwise = torch.equal(vals, ref_vals) and torch.equal(scales, ref_scales)
         same = torch.equal(vals, again[0]) and torch.equal(scales, again[1])
         differ = float((vals != other).float().mean())
@@ -2201,8 +2349,14 @@ def interaction_times(device) -> dict:
     kernel; a call this short may be bound by the host's time to issue it,
     so each also gets its device time from the profiler (``*device_ms``).
     Bound: T read once and the triangle written once, over the HBM rate
-    (2 * D operations per pair are far below the f32 peak)."""
+    (2 * D operations per pair are far below the f32 peak). Beside them the
+    launch floor, a launch that does no work (``torch.cuda._sleep(0)``),
+    by events and by the profiler."""
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    floor = {"launch_floor_ms": time_ms(lambda: torch.cuda._sleep(0), iters=50),
+             "launch_floor_device_ms": device_ms(lambda: torch.cuda._sleep(0))}
+    log(f"launch floor (torch.cuda._sleep(0)): events {floor['launch_floor_ms']:.5f}"
+        f" ms, device {floor['launch_floor_device_ms']} ms a launch")
     out = {}
     for key, (b, f, d) in INTERACTION_SHAPES.items():
         t = _randn(gen, (b, f, d), torch.float32, device)
@@ -2217,11 +2371,107 @@ def interaction_times(device) -> dict:
                 torch.bmm(t, t.transpose(1, 2))[:, rows, cols],
         }
         row = {"shape": f"T [{b},{f},{d}] f32", "library": "pair",
-               "bound_ms": bound[0], "bound_by": bound[1]}
+               "bound_ms": bound[0], "bound_by": bound[1]} | floor
         for prefix, fn in calls.items():
             row[f"{prefix}ms"] = time_ms(fn, iters=50)
             row[f"{prefix}device_ms"] = device_ms(fn)
         out["interaction_fwd" if key == "path" else f"interaction_fwd {key}"] = row
+    return out
+
+
+HOST_CALLS = 1000
+
+
+def host_ms(fn, calls: int = HOST_CALLS) -> float:
+    """The host's time to issue one call of ``fn``: time.perf_counter over
+    ``calls`` back-to-back calls after 50 warm ones, with no synchronise
+    inside (the calls here are far shorter on the card than on the host, so
+    the launch queue never fills)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return 1e3 * elapsed / calls
+
+
+def launch_times(device) -> dict:
+    """Where a short kernel's call spends the host's time: each step of the
+    K1 and K5 wrappers (the library's lookup, a device context, the current
+    stream, what the wrappers now take in place of those two
+    (``launch_context``, ``raw_stream``), ``contiguous``, the output's
+    ``torch.empty``, K1's pair table, the pointers, the ctypes call alone,
+    the error check, K5's key) and a launch that does no work
+    (``torch.cuda._sleep(0)``) timed alone by ``host_ms``, beside the whole
+    wrappers (K1 at the DLRM path's shape, and through its autograd node as
+    the model calls it; K5 at [64, 1024], where the card is not the limit)
+    and, for the ROADMAP's later work, the host's time of the other short
+    wrappers at the serving shape: the int8 product at decode's N 4 with
+    its quantize launch, and the f32-cache decode."""
+    lib = _build.load()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+
+    out = {}
+    b, f, d = INTERACTION_SHAPES["path"]
+    t = _randn(gen, (b, f, d), torch.float32, device)
+    t_grad = t.clone().requires_grad_()
+    res = torch.empty((b, f * (f - 1) // 2), device=device)
+    table = ia._pair_table(f, device)
+    ptrs = (t.data_ptr(), table.data_ptr(), res.data_ptr())
+    x = _randn(gen, (64, 1024), torch.float32, device)
+    vals = torch.empty(x.shape, dtype=torch.int8, device=device)
+    scales = torch.empty((64, 1), device=device)
+
+    def context():
+        with torch.cuda.device(device):
+            pass
+
+    steps = {
+        "_build.load": _build.load,
+        "torch.cuda._sleep(0)": lambda: torch.cuda._sleep(0),
+        "torch.cuda.device context": context,
+        "current_stream": lambda: torch.cuda.current_stream(device).cuda_stream,
+        "_build.launch_context": lambda: _build.launch_context(device),
+        "_build.raw_stream": lambda: _build.raw_stream(device),
+        "contiguous": t.contiguous,
+        "torch.empty": lambda: torch.empty(res.shape, device=device),
+        "pair table": lambda: ia._pair_table(f, device),
+        "data_ptr x3": lambda: (t.data_ptr(), table.data_ptr(), res.data_ptr()),
+        "ctypes call (K1)": lambda: lib.rtt_interaction_fwd(
+            *ptrs, b, f, d, _build.DTYPE_F32, stream),
+        "_build.check": lambda: _build.check(0, "interaction_fwd"),
+        "K5 key": lambda: qz._key(7),
+        "ctypes call (K5)": lambda: lib.rtt_quantize_stochastic(
+            x.data_ptr(), vals.data_ptr(), scales.data_ptr(), 64, 1024, 7, 0,
+            stream),
+        "interaction_fwd": lambda: ia.interaction_fwd(t),
+        "dot_interaction_fused (autograd)": lambda: ia.dot_interaction_fused(t_grad),
+        "quantize_int8_stochastic [64,1024]": lambda: quantize_int8(
+            x, seed=7, stochastic=True),
+    }
+    xd = _randn(gen, (4, 1024), torch.bfloat16, device)
+    wd = _randn(gen, (4096, 1024), torch.bfloat16, device)
+    _, _, (xq, xs, wq, ws) = quantized_operands(gen, device, 4, 1024, 4096)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    heads, hd = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
+    qd = _randn(gen, (len(DECODE_LENS), heads, 1, hd), torch.bfloat16, device)
+    kc, vc = (_randn(gen, (len(DECODE_LENS), heads, ENGINE["capacity_tokens"], hd),
+                     torch.float32, device) for _ in range(2))
+    steps |= {
+        "quantize_int8 decode x + w (other wrapper)": lambda: qz._quantize_rows_kernel(
+            [xd, wd], qz._pitch(1024)),
+        "int8_gemm N 4 (other wrapper)": lambda: qz.int8_gemm(
+            xq, xs, wq, ws, torch.bfloat16),
+        "flash_decode f32 cache (other wrapper)": lambda: fa.flash_decode(
+            qd, kc, vc, lens),
+    }
+    out["host_ms"] = {name: host_ms(fn) for name, fn in steps.items()}
+    log("host ms a call (perf_counter over "
+        f"{HOST_CALLS} calls): {json.dumps(out['host_ms'])}")
     return out
 
 
@@ -2233,7 +2483,8 @@ def quant_times(device) -> dict:
     K5's bound: x read once, values and scales written once, over the HBM
     rate (its ~6 f32 operations per element are far below the f32 peak;
     Philox's integer operations have no tensor-core rate); no single
-    PyTorch call rounds stochastically, so no library time.
+    PyTorch call rounds stochastically, so no library time; beside it
+    ``same_bytes_ms``, ``x.to(torch.int8)``, which moves the same bytes.
     quantize_int8: one launch for x and w together, as int8_matmul makes
     it; bound by bytes (bf16 read, int8 and f32 scales written); plain_ms
     the torch chain on both (the path before this kernel); no library call.
@@ -2255,6 +2506,13 @@ def quant_times(device) -> dict:
         out[name] = {
             "shape": f"x [{n},{d}] f32",
             "ms": time_ms(lambda x=x: quantize_int8(x, seed=7, stochastic=True)),
+            "device_ms": device_ms(
+                lambda x=x: quantize_int8(x, seed=7, stochastic=True)),
+            "library_device_ms": None,
+            # a PyTorch call that moves the same bytes (x read, an int8 per
+            # element written) and computes nothing: what the card's memory
+            # gives such a pass, beside the bound's 3.35 TB/s
+            "same_bytes_ms": time_ms(lambda x=x: x.to(torch.int8)),
             "plain_ms": time_ms(lambda x=x: qz.quantize_int8_stochastic_plain(x, 7),
                                 iters=3, reps=3),
             "library_ms": None,
@@ -2386,8 +2644,10 @@ def bf16_checks(device) -> None:
     surface with offsets) and at the training shape [2,8,8192,128], causal;
     the backward at the training shape; decode at the serving shape (f32
     and int8 caches) and the f32/bf16-cache decode's bitwise contracts
-    (``check_decode_bits``); and the int8 product, bitwise, at the training
-    step's first product and decode's two."""
+    (``check_decode_bits``); the int8 product, bitwise, at the training
+    step's first product and decode's two; and K1's and K5's own checks
+    (``check_interaction``, ``check_stochastic``), the path's shapes and
+    their layouts' edges."""
     _build.load()
     gen = torch.Generator(device=device).manual_seed(SEED)
     heads, d = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
@@ -2404,6 +2664,34 @@ def bf16_checks(device) -> None:
                  (torch.bfloat16,))
     check_int8_gemm(gen, device, grads=False, cases=[
         GEMM_SHAPES[key] for key in ("fc1", "decode", "decode fc2")])
+    check_interaction(gen, device)
+    check_stochastic(gen, device)
+
+
+def k1_k5(device) -> dict:
+    """K1 and K5 alone: phase 1's build and report, both kernels' checks
+    (``check_interaction``, ``check_stochastic``) and K5's entry-point run,
+    their times beside their bounds, the launch floor and the host's split.
+    Prints one JSON line and writes ``chiprun_out/k1_k5.json``."""
+    record = {"device": phase_device()}
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "k1_k5.sass").write_text("".join(
+        f"Function : {chunk}" for chunk in
+        re.split(r"\n\s*Function : ", sass_text(_build.library_path()))[1:]
+        if any(re.search(p, chunk.split("\n", 1)[0])
+               for p in K1_K5_KERNELS.values())))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    record["checks"] = check_interaction(gen, device) | check_stochastic(gen, device)
+    record["stochastic"] = phase_stochastic(device)
+    times = interaction_times(device) | quant_times(device)
+    record["times"] = {name: row | {"bound_ratio": row["ms"] / row["bound_ms"]}
+                       for name, row in times.items()
+                       if name.startswith(("interaction", "quantize_int8_stochastic"))}
+    record["launch"] = launch_times(device)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "k1_k5.json").write_text(json.dumps(record, indent=1))
+    log(json.dumps({"times": record["times"], "launch": record["launch"]}))
+    return record
 
 
 # Faults planted one at a time by ``--planted-faults``, each in a copy of
@@ -2453,6 +2741,18 @@ PLANTED_FAULTS = {
     "gemm_other_stage": (QUANT_SOURCE,
                          "sw128_desc(s_a + s * C::kAStage",
                          "sw128_desc(s_a + ((s + 1) % kGemmStages) * C::kAStage"),
+    # K5's register body: a group past column 2048 draws its right
+    # neighbour's Philox block
+    "stochastic_neighbour_block": (
+        QUANT_SOURCE,
+        "philox_block(block0 + g, keys)",
+        "philox_block(block0 + g + (g >= 512), keys)"),
+    # K1: the last pair of each row reads feature 0 for its j
+    "interaction_last_pair_j": (
+        INTERACTION_SOURCE,
+        "const int j = static_cast<int>(ij & 0xffff);",
+        "const int j = static_cast<int>(o - r * pairs == pairs - 1 ? 0 : "
+        "ij & 0xffff);"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,
@@ -2507,6 +2807,9 @@ def main(argv: list) -> int:
     torch.cuda.set_device(device)
     if argv == ["--bf16-checks"]:
         bf16_checks(device)
+        return 0
+    if argv == ["--k1-k5"]:
+        k1_k5(device)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)

@@ -1,8 +1,9 @@
 // Int8 quantization kernels for Hopper (sm_90a), with a plain C interface
 // for ctypes.
 //
-// quantize_stochastic_kernel replaces, in raydp_tpu/ops/quantization.py,
-//   _quant_kernel, launched by the pallas_call of _quantize_pallas (K5):
+// quantize_stochastic_rows_kernel and quantize_stochastic_kernel replace, in
+// raydp_tpu/ops/quantization.py, _quant_kernel, launched by the pallas_call
+// of _quantize_pallas (K5):
 // x [N, D] f32 -> values [N, D] int8, scales [N] f32, where per row
 //   s = max(absmax(x) / 127, 1e-12),  values = clip(floor(x / s + u), +-127)
 // and u in [0, 1) comes from Philox4x32-10 (Random123), written out here:
@@ -13,15 +14,26 @@
 // which is what lets ops/quantization.py's plain version reproduce it bit
 // for bit. Division, the add and floor are IEEE f32 (no fast math).
 //
-// What bounds it on an H100: bytes. It reads 4 bytes and writes 1 per
-// element; Philox is ~40 integer operations per 4 elements, far below the
-// card's integer rate. At [16384, 4096] the bytes take 0.100 ms at
-// 3.35 TB/s. Design: one block per row, no padding of N or D. Pass 1 takes
-// the row's absmax (a max is exact in any order, so the scale equals
-// torch.amax's); pass 2 reads the row again (from L1/L2: a row is at most
-// a few tens of KB) and writes the values, one Philox call per thread per
-// 4 consecutive elements; 16-byte loads and 4-byte stores where D % 4 == 0,
-// single elements otherwise (a group of 4 then may straddle two rows).
+// What bounds it on an H100: bytes, 4 read and 1 written per element (at
+// [16384, 4096] 0.100 ms at 3.35 TB/s). Philox's ten rounds (two 32x32 ->
+// 64-bit multiplies and two three-way xors each) per 4 elements and the
+// division per element come near the bytes' time in issue slots, so they
+// have to run while loads are in flight. Design:
+// - The register body (quantize_stochastic_rows_kernel) reads each element
+//   from memory once: a row lives in registers between its absmax and its
+//   rounding. Up to D 1024 a warp takes a row (8 x 16 bytes a lane, 8 rows
+//   a block, reduced by shuffles alone); up to D 4096 a block of 256 takes
+//   it (4 x 16 bytes a thread, shuffles and one exchange through shared
+//   memory). A thread issues its loads, then draws its Philox blocks while
+//   they are in flight; the rounds' keys are computed once a thread. (A
+//   persistent grid that loads the next row before rounding the current
+//   one, into registers or through a cp.async ring in shared memory, was
+//   measured slower on the H100.)
+// - The general body (quantize_stochastic_kernel), for D % 4 != 0, an
+//   unaligned x or D > 4096: one block per row; pass 1 takes the absmax,
+//   pass 2 reads the row again and writes the values, single elements (a
+//   group of 4 then may straddle two rows).
+// A max is exact in any order, so the scale equals torch.amax's.
 //
 // quantize_rows_kernel is its deterministic twin, the counterpart of the
 // JAX package's quantize_int8(stochastic=False) (jnp code in
@@ -86,6 +98,7 @@
 
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "sm90_common.cuh"
@@ -103,27 +116,34 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 constexpr int kQuantThreads = 256;
 constexpr uint32_t kPhiloxM0 = 0xD2511F53u, kPhiloxM1 = 0xCD9E8D57u;
 constexpr uint32_t kPhiloxW0 = 0x9E3779B9u, kPhiloxW1 = 0xBB67AE85u;
+constexpr int kPhiloxRounds = 10;
 
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
+// The key of each of Philox's ten rounds, (k0, k1) bumped by the Weyl
+// increments: computed once a thread, not once a block of 4 words.
+struct PhiloxKeys {
+  uint32_t k0[kPhiloxRounds], k1[kPhiloxRounds];
+
+  __device__ __forceinline__ PhiloxKeys(uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += kPhiloxW0;
-      k1 += kPhiloxW1;
+    for (int r = 0; r < kPhiloxRounds; ++r) {
+      k0[r] = a + r * kPhiloxW0;
+      k1[r] = b + r * kPhiloxW1;
     }
+  }
+};
+
+// Philox4x32-10 of the counter (lo32(block), hi32(block), 0, 0).
+__device__ __forceinline__ uint4 philox_block(uint64_t block,
+                                              const PhiloxKeys& keys) {
+  uint4 c = make_uint4(static_cast<uint32_t>(block),
+                       static_cast<uint32_t>(block >> 32), 0u, 0u);
+#pragma unroll
+  for (int r = 0; r < kPhiloxRounds; ++r) {
     const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
     const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    c = make_uint4(hi1 ^ c.y ^ keys.k0[r], lo1, hi0 ^ c.w ^ keys.k1[r], lo0);
   }
   return c;
-}
-
-__device__ __forceinline__ uint4 philox_block(uint64_t block, uint32_t k0,
-                                              uint32_t k1) {
-  return philox4x32_10(make_uint4(static_cast<uint32_t>(block),
-                                  static_cast<uint32_t>(block >> 32), 0u, 0u),
-                       k0, k1);
 }
 
 __device__ __forceinline__ int8_t round_stochastic(float x, float scale,
@@ -146,11 +166,89 @@ __device__ __forceinline__ float block_scale(float amax, float* warp_maxes) {
   return fmaxf(__fdiv_rn(amax, 127.f), 1e-12f);
 }
 
+// The register body: kLanes threads take a row (a warp, kQuantThreads / 32
+// rows a block; or the whole block, one row), kVec groups of 4 elements a
+// thread, so each element is read from memory once and stays in registers
+// between its row's absmax and its rounding. Group g of a row (16 bytes of
+// x, 4 of values) belongs to thread g % kLanes: a warp's loads and stores
+// are contiguous. A thread issues all its loads first and draws its Philox
+// blocks (the counter depends only on the element's index) while they are
+// in flight. Rows need d % 4 == 0, d <= 4 * kLanes * kVec and a 16-byte
+// aligned x.
+template <int kLanes, int kVec>
+__global__ void __launch_bounds__(kQuantThreads)
+    quantize_stochastic_rows_kernel(const float* __restrict__ x,
+                                    int8_t* __restrict__ values,
+                                    float* __restrict__ scales, int n, int d,
+                                    uint32_t k0, uint32_t k1) {
+  static_assert(kLanes == 32 || kLanes == kQuantThreads, "a warp or a block");
+  constexpr int kRows = kQuantThreads / kLanes;
+  __shared__ float warp_maxes[kQuantThreads / 32];
+  const int lane = threadIdx.x % kLanes;
+  const size_t row =
+      static_cast<size_t>(blockIdx.x) * kRows + threadIdx.x / kLanes;
+  if (kRows > 1 && row >= static_cast<size_t>(n)) return;  // a whole warp
+  const int groups = d >> 2;
+  const size_t e0 = row * static_cast<size_t>(d);
+  const float4* x4 = reinterpret_cast<const float4*>(x + e0);
+
+  float4 xv[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const int g = lane + v * kLanes;
+    xv[v] = g < groups ? __ldcs(x4 + g) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const PhiloxKeys keys(k0, k1);
+  const uint64_t block0 = e0 >> 2;
+  uint4 bits[kVec];
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const int g = lane + v * kLanes;
+    if (g < groups) bits[v] = philox_block(block0 + g, keys);
+  }
+
+  float amax = 0.f;
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(xv[v].x), fabsf(xv[v].y)),
+                             fmaxf(fabsf(xv[v].z), fabsf(xv[v].w))));
+  }
+  float scale;
+  if constexpr (kRows > 1) {
+    scale = fmaxf(__fdiv_rn(warp_max(amax), 127.f), 1e-12f);
+  } else {
+    scale = block_scale<kQuantThreads>(amax, warp_maxes);
+  }
+  if (lane == 0) scales[row] = scale;
+
+  char4* v4 = reinterpret_cast<char4*>(values + e0);
+#pragma unroll
+  for (int v = 0; v < kVec; ++v) {
+    const int g = lane + v * kLanes;
+    if (g < groups) {
+      v4[g] = make_char4(round_stochastic(xv[v].x, scale, bits[v].x),
+                         round_stochastic(xv[v].y, scale, bits[v].y),
+                         round_stochastic(xv[v].z, scale, bits[v].z),
+                         round_stochastic(xv[v].w, scale, bits[v].w));
+    }
+  }
+}
+
+// The register bodies' reach: a warp a row up to 1024 elements, a block a
+// row up to 4096.
+constexpr int kWarpRowVec = 8, kBlockRowVec = 4;
+constexpr int kWarpRowMax = 4 * 32 * kWarpRowVec;
+constexpr int kBlockRowMax = 4 * kQuantThreads * kBlockRowVec;
+
+// The general body, for rows the register bodies do not take (d % 4 != 0,
+// an unaligned x, d > kBlockRowMax): one block a row, pass 1 the absmax,
+// pass 2 reads the row again and writes the values, one Philox block a
+// thread per group of 4 elements (a group then may straddle two rows).
 __global__ void __launch_bounds__(kQuantThreads)
     quantize_stochastic_kernel(const float* __restrict__ x,
                                int8_t* __restrict__ values,
-                               float* __restrict__ scales, int d, bool vec,
-                               uint32_t k0, uint32_t k1) {
+                               float* __restrict__ scales, int d, uint32_t k0,
+                               uint32_t k1) {
   __shared__ float warp_maxes[kQuantThreads / 32];
   const size_t row = blockIdx.x;
   const size_t e0 = row * static_cast<size_t>(d);
@@ -161,24 +259,11 @@ __global__ void __launch_bounds__(kQuantThreads)
   const float scale = block_scale<kQuantThreads>(amax, warp_maxes);
   if (threadIdx.x == 0) scales[row] = scale;
 
-  if (vec) {  // d % 4 == 0: groups of 4 lie inside the row, 16-byte aligned
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    char4* v4 = reinterpret_cast<char4*>(values + e0);
-    const uint64_t b0 = e0 >> 2;
-    for (int g = threadIdx.x; g < (d >> 2); g += blockDim.x) {
-      const uint4 r = philox_block(b0 + g, k0, k1);
-      const float4 xv = x4[g];
-      v4[g] = make_char4(round_stochastic(xv.x, scale, r.x),
-                         round_stochastic(xv.y, scale, r.y),
-                         round_stochastic(xv.z, scale, r.z),
-                         round_stochastic(xv.w, scale, r.w));
-    }
-    return;
-  }
+  const PhiloxKeys keys(k0, k1);
   const uint64_t e1 = e0 + d;
   const uint64_t g0 = e0 >> 2, g1 = (e1 + 3) >> 2;
   for (uint64_t g = g0 + threadIdx.x; g < g1; g += blockDim.x) {
-    const uint4 r = philox_block(g, k0, k1);
+    const uint4 r = philox_block(g, keys);
     const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
@@ -186,6 +271,17 @@ __global__ void __launch_bounds__(kQuantThreads)
       if (e >= e0 && e < e1) values[e] = round_stochastic(x[e], scale, bits[w]);
     }
   }
+}
+
+// A register body's launch: a block for each kQuantThreads / kLanes rows.
+template <int kLanes, int kVec>
+int launch_stochastic_rows(const float* x, int8_t* values, float* scales, int n,
+                           int d, uint32_t k0, uint32_t k1, cudaStream_t s) {
+  constexpr int kRows = kQuantThreads / kLanes;
+  quantize_stochastic_rows_kernel<kLanes, kVec>
+      <<<(n + kRows - 1) / kRows, kQuantThreads, 0, s>>>(x, values, scales, n,
+                                                         d, k0, k1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -667,10 +763,19 @@ extern "C" {
 int rtt_quantize_stochastic(const void* x, void* values, void* scales, int n,
                             int d, uint32_t k0, uint32_t k1, void* stream) {
   if (n <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  quantize_stochastic_kernel<<<n, kQuantThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(values),
-      static_cast<float*>(scales), d, d % 4 == 0 && aligned16(x), k0, k1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  int8_t* vals = static_cast<int8_t*>(values);
+  float* sc = static_cast<float*>(scales);
+  const bool vec = d % 4 == 0 && aligned16(x);
+  if (vec && d <= kWarpRowMax) {
+    return launch_stochastic_rows<32, kWarpRowVec>(xf, vals, sc, n, d, k0, k1, s);
+  }
+  if (vec && d <= kBlockRowMax) {
+    return launch_stochastic_rows<kQuantThreads, kBlockRowVec>(xf, vals, sc, n,
+                                                               d, k0, k1, s);
+  }
+  quantize_stochastic_kernel<<<n, kQuantThreads, 0, s>>>(xf, vals, sc, d, k0, k1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,6 +18,7 @@ blocks reset to 0 before they exit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -72,8 +73,8 @@ _SIGNATURES = {
     "rtt_flash_decode_int8": (
         [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P], _I,
     ),
-    # t, out, b, f, d, dtype, stream
-    "rtt_interaction_fwd": ([_P] * 2 + [_I] * 4 + [_P], _I),
+    # t, pair_ij, out, b, f, d, dtype, stream
+    "rtt_interaction_fwd": ([_P] * 3 + [_I] * 4 + [_P], _I),
     # x, values, scales, n, d, key0, key1, stream
     "rtt_quantize_stochastic": (
         [_P] * 3 + [_I] * 2 + [ctypes.c_uint32] * 2 + [_P], _I,
@@ -185,6 +186,9 @@ def load() -> ctypes.CDLL:
     """The kernels' library, built at first use and loaded once per
     process."""
     global _lib
+    lib = _lib
+    if lib is not None:  # loaded: no lock on the launch path
+        return lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -201,6 +205,28 @@ def check(code: int, what: str) -> None:
     if code:
         msg = load().rtt_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch_context(device: torch.device):
+    """What a launch through the C interface needs around it for a tensor
+    on ``device``: nothing where ``device`` is the current device already
+    (the launch goes to the current device), else ``torch.cuda.device``."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as the C interface takes it
+    (the ``cudaStream_t``), without building a ``torch.cuda.Stream``.
+
+    ``torch._C._cuda_getCurrentRawStream`` is private, and taken on purpose:
+    the K1 and K5 wrappers, whose calls are short enough for the host's
+    time to issue them to set their pace, read the stream through it and
+    ``launch_context``. The other wrappers still use ``torch.cuda.device``
+    and ``current_stream``; moving every wrapper to one launch helper is
+    later work."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def tickets(device: torch.device, n: int) -> torch.Tensor:

@@ -36,6 +36,26 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def pair_table(f: int) -> np.ndarray:
+    """The kernel's (i, j) of each packed output p, in ``np.tril_indices(f,
+    -1)`` order: uint32 ``i << 16 | j`` (the kernel takes F < 2**16)."""
+    rows, cols = np.tril_indices(f, k=-1)
+    return (rows.astype(np.uint32) << 16) | cols.astype(np.uint32)
+
+
+_PAIR_TABLES = {}
+
+
+def _pair_table(f: int, device: torch.device) -> torch.Tensor:
+    """``pair_table(f)`` on ``device``, built once per (F, device)."""
+    key = (f, device)
+    table = _PAIR_TABLES.get(key)
+    if table is None:
+        table = torch.from_numpy(pair_table(f).view(np.int32)).to(device)
+        _PAIR_TABLES[key] = table
+    return table
+
+
 def _tril_indices(f: int, device):
     rows, cols = np.tril_indices(f, k=-1)
     return (torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device))
@@ -71,10 +91,12 @@ def interaction_fwd(stacked: torch.Tensor) -> torch.Tensor:
         return out
     lib = _build.load()
     t = stacked.contiguous()
-    with torch.cuda.device(t.device):
-        stream = torch.cuda.current_stream(t.device).cuda_stream
-        code = lib.rtt_interaction_fwd(t.data_ptr(), out.data_ptr(), b, f, d,
-                                       _DTYPE_CODES[t.dtype], stream)
+    table = _pair_table(f, t.device)
+    with _build.launch_context(t.device):
+        code = lib.rtt_interaction_fwd(t.data_ptr(), table.data_ptr(),
+                                       out.data_ptr(), b, f, d,
+                                       _DTYPE_CODES[t.dtype],
+                                       _build.raw_stream(t.device))
     _build.check(code, "interaction_fwd")
     LAUNCHES["interaction_fwd"] += 1
     return out

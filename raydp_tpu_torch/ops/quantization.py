@@ -208,11 +208,10 @@ def _quantize_stochastic_kernel(x: torch.Tensor, seed: int):
     x = x.contiguous()
     lib = _build.load()
     k0, k1 = _key(seed)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    with _build.launch_context(x.device):
         code = lib.rtt_quantize_stochastic(
             x.data_ptr(), values.data_ptr(), scales.data_ptr(), n, d, k0, k1,
-            stream)
+            _build.raw_stream(x.device))
     _build.check(code, "quantize_int8_stochastic")
     LAUNCHES["quantize_int8_stochastic"] += 1
     return values, scales

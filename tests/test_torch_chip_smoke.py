@@ -111,7 +111,8 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
         "flash_decode_scores_kernel", "flash_decode_pv_kernel",
         "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_sm90_kernel",
         "flash_bwd_dkv_sm90_kernel", "interaction_fwd_kernel",
-        "quantize_stochastic_kernel", "quantize_rows_kernel",
+        "quantize_stochastic_kernel",
+        "quantize_stochastic_rows_kernel", "quantize_rows_kernel",
         "int8_gemm_sm90_kernel", "flash_decode_int8_kernel"}
 
 
@@ -300,3 +301,50 @@ def test_decode_pattern_names_every_instantiation():
         "flash_decode_scores_kernel D64 q bf16 cache bf16"]
     with pytest.raises(chip_smoke.SmokeFailure, match="expected 16 decode kernels"):
         chip_smoke.decode_report(entries)
+
+
+SASS_DUMP = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_122interaction_fwd_kernelIfEEvPKT_PKjPS1_iiiiiib
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                       /* 0x00000a00ff017b82 */
+        /*0010*/              @!P0 BRA `(.L_x_1) ;                              /* 0x000fe20003800000 */
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0030*/              @UP0 UTMALDG.2D [UR8], [UR4] ;
+        /*0040*/                   NOP;
+        /*0050*/                   EXIT ;                                       /* 0x000fea0003800000 */
+		Function : second
+        /*0000*/                   IMAD.WIDE.U32 R2, R3, R4, RZ ;
+"""
+
+
+def test_parse_sass_reads_each_functions_opcodes():
+    """cuobjdump's SASS per function as opcodes, predicates and NOPs left
+    out; sass_counts reads HGMMA / IGMMA / UTMALDG from them."""
+    funcs = chip_smoke.parse_sass(SASS_DUMP)
+    assert funcs == {
+        "_ZN12_GLOBAL__N_122interaction_fwd_kernelIfEEvPKT_PKjPS1_iiiiiib":
+            ["LDC", "BRA", "HGMMA.64", "UTMALDG.2D", "EXIT"],
+        "second": ["IMAD.WIDE.U32"],
+    }
+
+
+def test_refusal_is_the_invalid_argument_error_alone(monkeypatch):
+    """The F 65 check passes only on _build.check's error for
+    cudaErrorInvalidValue; another CUDA error is raised again, and a call
+    that returns is not a refusal."""
+    from raydp_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "load", lambda: SimpleNamespace(
+        rtt_error_string=lambda code: f"error string {code}".encode()))
+
+    def fails(code):
+        def call():
+            _build.check(code, "interaction_fwd")
+        return call
+
+    assert chip_smoke.refused_as_invalid(fails(1))
+    assert not chip_smoke.refused_as_invalid(lambda: None)
+    for code in (700, 11, 719):  # an illegal address, and 1 as a prefix
+        with pytest.raises(RuntimeError, match=f"CUDA error {code} "):
+            chip_smoke.refused_as_invalid(fails(code))

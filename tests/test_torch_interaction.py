@@ -28,6 +28,10 @@ from raydp_tpu_torch.ops import interaction
 # (shape, the JAX kernel's batch tile): test_models_parallel.py's case, and a
 # batch that is not a multiple of the tile
 CASES = [((36, 9, 16), 16), ((130, 7, 16), 128)]
+# the CUDA kernel's edges: F 2 (one pair, many batch rows a warp's task) and
+# the Criteo Kaggle F 27 (351 pairs, a task of one row), batches that are
+# not multiples of the tile
+EDGE_CASES = [((67, 2, 16), 16), ((20, 27, 16), 8)]
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
@@ -118,6 +122,40 @@ def test_packing_order_is_row_by_row():
         for j in range(i):
             torch.testing.assert_close(out[:, i * (i - 1) // 2 + j],
                                        (x[:, i] * x[:, j]).sum(-1))
+
+
+@pytest.mark.parametrize("dtype_name", list(DTYPES))
+@pytest.mark.parametrize("shape,block", EDGE_CASES)
+def test_plain_matches_pallas_interpret_at_kernel_edges(shape, block, dtype_name):
+    tdtype, jdtype = DTYPES[dtype_name]
+    x = _inputs(shape, seed=7)
+    got = interaction.dot_interaction_plain(torch.from_numpy(x).to(tdtype))
+    assert got.dtype == tdtype
+    _check(got, _pallas(x, block, jdtype), dtype_name)
+
+
+@pytest.mark.parametrize("f", range(2, 65))
+def test_pair_table_is_tril_indices_order(f):
+    """The kernel's table: entry p holds (i << 16 | j) of packed output p, in
+    np.tril_indices(f, -1) order, so p == i(i-1)/2 + j; one entry a pair."""
+    table = interaction.pair_table(f)
+    rows, cols = np.tril_indices(f, k=-1)
+    assert table.dtype == np.uint32 and table.shape == (f * (f - 1) // 2,)
+    np.testing.assert_array_equal(table >> 16, rows)
+    np.testing.assert_array_equal(table & 0xFFFF, cols)
+    p = np.arange(table.size)
+    np.testing.assert_array_equal(rows * (rows - 1) // 2 + cols, p)
+
+
+def test_pair_table_on_a_device_is_cached_and_bitwise():
+    """The wrapper's copy on a device: built once per (F, device), the
+    table's bits viewed as int32."""
+    dev = torch.device("cpu")
+    first = interaction._pair_table(27, dev)
+    assert interaction._pair_table(27, dev) is first
+    assert first.dtype == torch.int32
+    np.testing.assert_array_equal(first.numpy().view(np.uint32),
+                                  interaction.pair_table(27))
 
 
 def test_empty_batch():

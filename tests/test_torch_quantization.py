@@ -165,6 +165,39 @@ def test_stochastic_rounds_up_a_quarter_at_fraction_quarter(side):
     assert abs(float(np.mean(up)) - 0.25) <= 0.03
 
 
+@pytest.mark.parametrize("d", [96, 97, 1028])
+def test_stochastic_scales_are_jax_bitwise_at_kernel_edges(d):
+    """At D 96 (the warp body, most lanes idle), D 97 (not a multiple of 4:
+    the general body, groups of 4 across rows) and D 1028 (past the warp
+    body's 1024): the port's scales bitwise equal to the JAX branch's, and
+    its values within the contract of
+    test_stochastic_values_keep_the_contract."""
+    x = _inputs(n=13, d=d, seed=6)
+    vals, scales = _port_stochastic(x, 21)
+    _, ref_scales = _jax_stochastic(x, 21)
+    np.testing.assert_array_equal(scales, ref_scales)
+    scaled = x / scales
+    down = np.clip(np.floor(scaled), -127, 127)
+    top = np.clip(np.floor(scaled + np.float32(1 - 2**-23)), -127, 127)
+    assert np.all((vals >= down) & (vals <= top))
+    integral = scaled == np.floor(scaled)
+    np.testing.assert_array_equal(vals[integral], scaled[integral])
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_stochastic_is_unbiased_over_seeds_off_groups_of_four(side):
+    """As test_stochastic_is_unbiased_over_seeds, at D 97: the port's groups
+    of 4 Philox words straddle rows."""
+    x = _inputs(n=9, d=97, seed=8)
+    total = np.zeros(x.shape, np.float64)
+    for seed in range(SEEDS):
+        vals, scales = SIDES[side](x, seed)
+        total += vals.astype(np.float64) * scales - x
+    _, scales = _jax_stochastic(x, 0)
+    bound = 5 * scales / (2 * np.sqrt(SEEDS))
+    assert np.all(np.abs(total / SEEDS) <= bound)
+
+
 def test_stochastic_argument_checks():
     x = torch.from_numpy(_inputs())
     with pytest.raises(ValueError, match="seed"):
