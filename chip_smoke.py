@@ -120,14 +120,36 @@ Phases; any failure exits non-zero and prints no result line:
    Then DLRM training through the estimator at full width (bench.py's
    ``bench_dlrm``: 6 tables of width 16 with vocabularies 100000 to 100,
    8 dense features, MLPs (128, 64), f32, seeded random weights; 100,000
-   rows of bench.py's input form from ``np.random.default_rng(11)``, the
-   label the parity of the vocab-100 id ``c5``, batch 2048): 3 epochs of
+   rows of bench.py's input form from ``np.random.default_rng(11)`` in 4
+   blocks, the label the parity of the vocab-100 id ``c5``, batch 2048): 3
+   epochs of
    Adam 1e-3 on BCE and ``evaluate``, the loss falling by 10%; one launch of
    ``interaction_fwd`` per forward pass (48 steps an epoch, 49 evaluation
    batches); training samples/s and step ms from epochs 2-3, the device's
    busy share of one profiled epoch, peak memory and MFU; one epoch with
    ``dlrm_optimizer()``; one step's loss and every gradient through the
    kernel against the einsum path (1e-5 relative).
+   Then the estimator's streamed, checkpointed and retried fit at the same
+   width (``phase_fit``), a line for each step: (1) fits of 3 epochs with
+   ``streaming=True``, ``"hybrid"`` and ``stream_wire_quant="int8"``: the
+   loss falling by 10%, one ``interaction_fwd`` launch per forward pass,
+   the bytes each epoch uploads (60 a row; the hybrid's epochs 2-3 none;
+   the int8 wire 12 dense bytes a row in place of 32), samples/s and step
+   ms beside the staged fit's; each segmented fit bit for bit, in its
+   losses and final parameters, a fit fed one batch at a time on the
+   compute stream (``stream_scan_steps=0``; for the int8 wire on the
+   data's wire round trip, for the hybrid its uploaded epoch and, without
+   shuffle, all three); (2) ``widen_wire`` on the card equal to
+   ``dequantize_rows`` on the host bit for bit at [2048, 8] and [32, 2048,
+   8]; (3) 2-epoch fits with a step checkpoint every 16 steps and a crash
+   planted after epoch 1's step-32 checkpoint, run with ``max_retries=1``,
+   staged and streamed: resumed at (1, 32), the planted crash the only
+   error absorbed, the parameters bit for bit those of the uninterrupted
+   fit (itself run twice, and bitwise), only epoch checkpoints left (one with
+   ``keep_checkpoints=1``), ms and bytes a checkpoint; (4) the streamed
+   fit's ``explain_last_fit()`` and how much of its wall time the step
+   phases cover, a ``profile_dir`` trace, and the card's busy share of one
+   profiled streamed epoch.
 5. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
    events, warm, median), its plain version's time, the time of one
    PyTorch call computing the same function as a yardstick (the port never
@@ -160,12 +182,16 @@ The last two lines are a ``{"kernels": [...]}`` object and
 
 plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
 names (the bf16 forward, the bf16 backward, the two decode kernels, the
-int8 product, K5, K1) under ``build/planted/``, builds the copy and runs
-there ``chip_smoke.py --bf16-checks`` (phase 2's bf16 forward, backward and
-decode checks, the f32/bf16-cache decode's bitwise checks and the int8
-product's, at the serving and training shapes alone, then the K1 and K5
-checks); it exits 0 only if every copy fails them with a disagreement, and
-prints one JSON line with each fault's failing check.
+int8 product, K5, K1; the estimator's resume, the wire's widen and the
+streamed fit's segments) under ``build/planted/``, builds the copy and
+runs there ``chip_smoke.py --bf16-checks`` for a fault in a CUDA source
+(phase 2's bf16 forward, backward and decode checks, the f32/bf16-cache
+decode's bitwise checks and the int8 product's, at the serving and
+training shapes alone, then the K1 and K5 checks) or ``chip_smoke.py
+--fit-checks`` for one in a Python module (``phase_fit``'s steps 1-3: the
+streamed fits and their per-step parity, the widen and the
+crash-and-retry fits); it exits 0 only if every copy fails them with a
+disagreement, and prints one JSON line with each fault's failing check.
 
     python3 chip_smoke.py --k1-k5
 
@@ -196,10 +222,12 @@ import torch
 import torch.nn.functional as F
 
 from raydp_tpu_torch.estimator import Estimator
+from raydp_tpu_torch.exchange import torch_io
 from raydp_tpu_torch.exchange.dataset import ArrayDataset
 from raydp_tpu_torch.models.dlrm import DLRM, dlrm_optimizer
 from raydp_tpu_torch.models.transformer import TransformerLM
-from raydp_tpu_torch.obs.costmodel import (lm_nonattn_flops_per_step,
+from raydp_tpu_torch.obs.costmodel import (H100_SXM_PEAKS,
+                                            lm_nonattn_flops_per_step,
                                             lm_train_flops_per_step,
                                             mlp_train_flops_per_step)
 from raydp_tpu_torch.ops import _build
@@ -232,7 +260,12 @@ GRAD_CHECK_T = 2048
 DLRM_MODEL = dict(vocab_sizes=[100_000, 10_000, 1_000, 1_000, 100, 100],
                   num_dense=8, embed_dim=16, bottom_mlp=(128, 64),
                   top_mlp=(128, 64))
-DLRM_RUN = dict(rows=100_000, batch=2048, epochs=3, lr=1e-3, data_seed=11)
+DLRM_RUN = dict(rows=100_000, batch=2048, epochs=3, lr=1e-3, data_seed=11,
+                blocks=4)
+# the fits of the estimator's streamed, checkpointed and retried path: step
+# checkpoints every 16 of the epoch's 48 steps, a planted crash after epoch
+# 1's step-32 checkpoint
+FIT_RUN = dict(save_every_steps=16, crash_at=(1, 32), retry_epochs=2)
 # the DLRM path's interaction input, [batch, 1 + tables, width], and the
 # Criteo Kaggle setting of facebookresearch/dlrm: 13 dense features through
 # the bottom MLP and 26 tables of width 16 (--arch-sparse-feature-size=16)
@@ -292,10 +325,10 @@ STOCHASTIC_EDGES = [(1001, 1024, 0), (300, 1028, 0), (67, 4096, 0),
                     (64, 4100, 0), (37, 4097, 0), (300, 97, 0), (301, 96, 0),
                     (300, 1024, 1)]
 
-# NVIDIA H100 SXM data sheet (dense): HBM rate, bf16 and int8 tensor-core
-# and f32 CUDA-core peaks
+# NVIDIA H100 SXM data sheet (dense): HBM rate, and the bf16 and int8
+# tensor-core and f32 CUDA-core peaks of the port's cost model
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = H100_SXM_PEAKS
 
 FWD_SOURCE = "raydp_tpu_torch/csrc/flash_attention.cu"
 # the bf16 forward, which the serving and training paths run
@@ -329,6 +362,8 @@ KERNELS = {
 }
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+# what a run writes and does not keep (checkpoints, a fit's trace)
+BUILD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1979,10 +2014,11 @@ def phase_stochastic(device) -> dict:
 
 
 def dlrm_data():
-    """bench.py's input form for 100,000 rows: dense from rng.random, ids
-    from rng.integers per table, default_rng(11); the label is the parity
-    of the vocab-100 id c5, a signal the embedding can learn (random labels
-    would leave the loss flat)."""
+    """bench.py's input form for 100,000 rows in 4 blocks (its
+    ``make_criteo_frame(parts=4)``): dense from rng.random, ids from
+    rng.integers per table, default_rng(11); the label is the parity of the
+    vocab-100 id c5, a signal the embedding can learn (random labels would
+    leave the loss flat)."""
     rng = np.random.default_rng(DLRM_RUN["data_seed"])
     n = DLRM_RUN["rows"]
     dense = rng.random((n, DLRM_MODEL["num_dense"])).astype(np.float32)
@@ -1993,16 +2029,18 @@ def dlrm_data():
     columns = {c: dense[:, i] for i, c in enumerate(dense_cols)}
     columns.update({c: ids[:, j] for j, c in enumerate(cat_cols)})
     columns["label"] = (ids[:, 5] % 2).astype(np.float32)
-    return ArrayDataset(columns), dense_cols, cat_cols
+    blocks = DLRM_RUN["blocks"]
+    return (ArrayDataset(columns, [n // blocks] * blocks), dense_cols,
+            cat_cols)
 
 
-def dlrm_estimator(device, dense_cols, cat_cols, optimizer, epochs):
+def dlrm_estimator(device, dense_cols, cat_cols, optimizer, epochs, **kw):
     return Estimator(
         model=functools.partial(DLRM, **DLRM_MODEL), optimizer=optimizer,
         loss="bce", feature_columns=dense_cols + cat_cols,
         categorical_columns=cat_cols, label_column="label",
         batch_size=DLRM_RUN["batch"], num_epochs=epochs,
-        learning_rate=DLRM_RUN["lr"], seed=SEED, device=device)
+        learning_rate=DLRM_RUN["lr"], seed=SEED, device=device, **kw)
 
 
 def dlrm_flops_per_step(batch: int) -> int:
@@ -2119,6 +2157,350 @@ def dlrm_grad_check(device, ds, dense_cols, cat_cols) -> dict:
     require(loss_rel <= 1e-5 and worst <= 1e-5,
             "DLRM gradients through the kernel disagree with the einsum path")
     return {"loss_rel": loss_rel, "worst_grad_rel": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: the estimator's streamed, checkpointed and retried fit
+# ---------------------------------------------------------------------------
+
+# per row on the wire: 8 dense f32 (32 bytes; int8 wire: 8 int8 and one f32
+# scale, 12), 6 int32 ids (24), an f32 label (4)
+DENSE_ROW_BYTES = 4 * DLRM_MODEL["num_dense"]
+WIRE_DENSE_ROW_BYTES = DLRM_MODEL["num_dense"] + 4
+OTHER_ROW_BYTES = 4 * len(DLRM_MODEL["vocab_sizes"]) + 4
+STREAM_MODES = {"streamed": dict(streaming=True),
+                "hybrid": dict(streaming="hybrid"),
+                "int8 wire": dict(streaming=True, stream_wire_quant="int8")}
+
+
+def epoch_timing(history, steps: int) -> dict:
+    """Samples/s and step ms of epochs 2 on (the first holds set-up)."""
+    timed = history[1:]
+    seconds = sum(r["epoch_seconds"] for r in timed)
+    return {"samples_s": len(timed) * steps * DLRM_RUN["batch"] / seconds,
+            "step_ms": 1e3 * seconds / (len(timed) * steps)}
+
+
+def streamed_fits(device, ds, dense_cols, cat_cols, staged=None) -> dict:
+    """Step 1: the three streamed fits at full width, 3 epochs each: losses
+    finite and falling 10%, one K1 launch per forward pass, the bytes each
+    epoch uploads (hybrid epochs 2-3 none; the int8 wire 12 of the 32 dense
+    bytes a row); their times beside the staged fit's (``staged``,
+    phase_dlrm's record) where given."""
+    steps = DLRM_RUN["rows"] // DLRM_RUN["batch"]
+    rows = steps * DLRM_RUN["batch"]
+    epochs = DLRM_RUN["epochs"]
+    out = {}
+    for name, kw in STREAM_MODES.items():
+        est = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs, **kw)
+        ia.reset_launches()
+        history = est.fit(ds)
+        torch.cuda.synchronize()
+        launches = ia.LAUNCHES["interaction_fwd"]
+        losses = [r["train_loss"] for r in history]
+        stats = est.stream_stats_
+        dense = WIRE_DENSE_ROW_BYTES if "wire" in name else DENSE_ROW_BYTES
+        expect = {e: rows * (dense + OTHER_ROW_BYTES) for e in range(epochs)}
+        if name == "hybrid":
+            expect = {0: expect[0]}
+        got_dense = (stats["bytes_by_epoch"][0] / rows) - OTHER_ROW_BYTES
+        row = {"train_loss": losses, "launches": launches,
+               "forward_passes": epochs * steps,
+               "bytes_by_epoch": stats["bytes_by_epoch"],
+               "dense_bytes_a_row": got_dense,
+               "cached_epochs": stats["cached_epochs"],
+               "producer_idle_s": stats["producer_idle_s"],
+               "consumer_idle_s": stats["consumer_idle_s"],
+               **epoch_timing(history, steps),
+               "fit_stats": est.fit_stats_}
+        log(f"fit step 1, {name}: train_loss {losses}; interaction_fwd "
+            f"launches {launches} for {epochs * steps} forward passes; bytes "
+            f"by epoch {stats['bytes_by_epoch']} ({got_dense:g} dense bytes "
+            f"a row), cached epochs {stats['cached_epochs']}; "
+            f"{row['samples_s']:.1f} samples/s, step {row['step_ms']:.3f} ms"
+            + (f" (staged {staged['samples_s']:.1f} samples/s, step "
+               f"{staged['step_ms']:.3f} ms)" if staged else "")
+            + f"; idle: producer "
+            f"{stats['producer_idle_s']:.3f} s, consumer "
+            f"{stats['consumer_idle_s']:.3f} s")
+        require(all(math.isfinite(x) for x in losses), f"{name} loss not finite")
+        require(losses[-1] < 0.9 * losses[0], f"{name} loss did not fall by 10%")
+        require(launches == epochs * steps,
+                f"{name}: interaction_fwd launched {launches} times, "
+                f"expected {epochs * steps}")
+        require(stats["bytes_by_epoch"] == expect,
+                f"{name}: bytes by epoch {stats['bytes_by_epoch']}, "
+                f"expected {expect}")
+        require(stats["cached_epochs"] == (epochs - 1 if name == "hybrid" else 0),
+                f"{name}: {stats['cached_epochs']} cached epochs")
+        out[name] = row
+        out[name]["estimator"] = est
+    return out
+
+
+def wire_round_trip(ds, dense_cols):
+    """``ds`` with its dense features replaced by their int8 wire round trip
+    on the host, ``dequantize_rows(quantize_rows(.))`` per row: the values a
+    wire-quant fit trains on."""
+    dense = np.stack([ds.columns[c] for c in dense_cols], axis=1)
+    back = torch_io.dequantize_rows(*torch_io.quantize_rows(dense))
+    columns = dict(ds.columns) | {c: back[:, i] for i, c in enumerate(dense_cols)}
+    return ArrayDataset(columns, ds.counts)
+
+
+def segment_parity(device, ds, dense_cols, cat_cols, streamed) -> dict:
+    """Step 1, continued: segment memory reuse across streams. The segmented
+    fits (pinned slots, copies on side streams, events, ``record_stream``,
+    the hybrid cache on the card) against fits fed one batch at a time on
+    the compute stream (``stream_scan_steps=0``), bit for bit in their
+    train_loss histories and final parameters:
+
+    - the streamed fit against the per-step fit on the same data;
+    - the int8-wire fit against the per-step fit on the data's wire round
+      trip (``widen_wire`` equals ``dequantize_rows``, step 2);
+    - the hybrid fit's first epoch, the one it uploads, against the
+      per-step fit's; and a hybrid fit without shuffle, whose cached epochs
+      replay the first in order, against a per-step fit without shuffle,
+      every epoch and the parameters.
+
+    Each new fit launches K1 once a forward pass."""
+    epochs = DLRM_RUN["epochs"]
+    forwards = epochs * (DLRM_RUN["rows"] // DLRM_RUN["batch"])
+    launches = []
+
+    def fit(data, **kw):
+        est = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs,
+                             **kw)
+        ia.reset_launches()
+        history = est.fit(data)
+        torch.cuda.synchronize()
+        launches.append(ia.LAUNCHES["interaction_fwd"])
+        require(launches[-1] == forwards,
+                f"{kw}: interaction_fwd launched {launches[-1]} times, "
+                f"expected {forwards}")
+        return [r["train_loss"] for r in history], params_of(est)
+
+    def per_step(data, **kw):
+        return fit(data, streaming=True, stream_scan_steps=0, **kw)
+
+    def of(name):
+        est = streamed[name]["estimator"]
+        return streamed[name]["train_loss"], params_of(est)
+
+    ref = per_step(ds)
+    ref_still = per_step(ds, shuffle=False)
+    hybrid = of("hybrid")
+    pairs = {
+        "streamed": (of("streamed"), ref),
+        "int8 wire": (of("int8 wire"), per_step(wire_round_trip(ds, dense_cols))),
+        "hybrid, epoch 0": ((hybrid[0][:1], []), (ref[0][:1], [])),
+        "hybrid, no shuffle": (fit(ds, streaming="hybrid", shuffle=False),
+                               ref_still),
+    }
+    out = {"launches": sum(launches), "forward_passes": len(launches) * forwards}
+    for name, ((losses, params), (ref_losses, ref_params)) in pairs.items():
+        same = losses == ref_losses and bits_equal(params, ref_params)
+        out[name] = same
+        log(f"fit step 1, {name} vs one batch at a time: train_loss {losses} "
+            f"vs {ref_losses}; histories and parameters bitwise equal: {same}")
+        require(same, f"{name}: the segmented fit disagrees with the per-step "
+                "fit in its bits")
+    return out
+
+
+def check_widen(device, ds, dense_cols) -> dict:
+    """Step 2: ``widen_wire`` on the card equals ``dequantize_rows`` on the
+    host bit for bit, on one batch's dense features [2048, 8] and on a
+    segment of 32 batches [32, 2048, 8] (the streamed fit's shape)."""
+    dense = ds.to_numpy(dense_cols)[0]
+    batch = DLRM_RUN["batch"]
+    out = {}
+    for shape in ((batch, len(dense_cols)), (32, batch, len(dense_cols))):
+        x = dense[:math.prod(shape[:-1])].reshape(shape)
+        q, s = torch_io.quantize_rows(x)
+        ref = torch_io.dequantize_rows(q, s)
+        got = torch_io.widen_wire(torch.from_numpy(q).to(device),
+                                  torch.from_numpy(s).to(device))
+        got = got.cpu().numpy()
+        bad = int((got.view(np.uint32) != ref.view(np.uint32)).sum())
+        out[str(list(shape))] = bad
+        log(f"fit step 2: widen_wire {list(shape)} on the card vs "
+            f"dequantize_rows on the host: {bad} elements differ in their bits")
+        require(bad == 0, f"widen_wire {list(shape)} disagrees with "
+                f"dequantize_rows in {bad} elements")
+    return out
+
+
+def params_of(est) -> list:
+    return [p.detach().clone() for p in est.get_model().parameters()]
+
+
+def bits_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def crash_and_retry(device, ds, dense_cols, cat_cols, ckpt_dir: Path,
+                    **kw) -> dict:
+    """A 2-epoch fit with step checkpoints every 16 steps and a crash planted
+    after epoch 1's step-32 checkpoint, run with ``max_retries=1``."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    at = FIT_RUN["crash_at"]
+    est = dlrm_estimator(device, dense_cols, cat_cols, "adam",
+                         FIT_RUN["retry_epochs"], checkpoint_dir=str(ckpt_dir),
+                         save_every_steps=FIT_RUN["save_every_steps"], **kw)
+    save = est._save_checkpoint
+    planted = {"left": 1}
+
+    def crashing(model, opt, epoch, step=None):
+        save(model, opt, epoch, step)
+        if (epoch, step) == at and planted["left"]:
+            planted["left"] -= 1
+            raise RuntimeError(f"planted crash after {at}")
+
+    est._save_checkpoint = crashing
+    resumes = []
+    fit_once = est._fit_once
+
+    def spying(train_ds, evaluate_ds):
+        resumes.append(est.resume_from_epoch)
+        return fit_once(train_ds, evaluate_ds)
+
+    est._fit_once = spying
+    ia.reset_launches()
+    history = est.fit(ds, max_retries=1)
+    torch.cuda.synchronize()
+    stats = est.checkpoint_stats_  # of the attempt that finished
+    return {"estimator": est, "history": history, "resumes": resumes,
+            "retried_errors": est.retried_errors_,
+            "launches": ia.LAUNCHES["interaction_fwd"],
+            "dirs": sorted(os.listdir(ckpt_dir)),
+            "checkpoint_ms": 1e3 * stats["seconds"] / max(stats["saves"], 1),
+            "checkpoint_bytes": stats["bytes"] // max(stats["saves"], 1),
+            "checkpoints": stats["saves"]}
+
+
+def check_retries(device, ds, dense_cols, cat_cols) -> dict:
+    """Step 3: the crash-and-retry fit, staged and streamed, resumes at (1,
+    32) with the planted crash its only absorbed error, and ends on the
+    uninterrupted fit's parameters bit for bit; only epoch checkpoints are
+    left after it, and with ``keep_checkpoints=1`` (the streamed run) one."""
+    steps = DLRM_RUN["rows"] // DLRM_RUN["batch"]
+    epochs = FIT_RUN["retry_epochs"]
+    at = FIT_RUN["crash_at"]
+    # the 80 steps before the crash and the 16 the retry runs
+    forwards = epochs * steps
+    root = BUILD_DIR / "checkpoints"
+    out = {}
+    for name, kw, keep in (("staged", {}, None),
+                           ("streamed", dict(streaming=True), 1)):
+        ref_a = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs, **kw)
+        ref_a.fit(ds)
+        ref_b = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs, **kw)
+        ref_b.fit(ds)
+        torch.cuda.synchronize()
+        repeat = bits_equal(params_of(ref_a), params_of(ref_b))
+        run = crash_and_retry(device, ds, dense_cols, cat_cols, root / name,
+                              keep_checkpoints=keep, **kw)
+        same = bits_equal(params_of(run.pop("estimator")), params_of(ref_a))
+        expect_dirs = ([f"epoch_{epochs - 1}"] if keep == 1
+                       else [f"epoch_{e}" for e in range(epochs)])
+        row = {k: v for k, v in run.items() if k != "history"}
+        row |= {"repeat_bitwise": repeat, "resumed_bitwise": same,
+                "forward_passes": forwards}
+        log(f"fit step 3, {name}: resumes {run['resumes']}, absorbed "
+            f"{run['retried_errors']}; two uninterrupted fits bitwise equal: "
+            f"{repeat}; the retried fit's parameters bitwise equal to the "
+            f"uninterrupted fit's: {same}; interaction_fwd launches "
+            f"{run['launches']} for {row['forward_passes']} forward passes; "
+            f"left {run['dirs']}; {run['checkpoints']} checkpoints of the "
+            f"retried attempt, {run['checkpoint_ms']:.2f} ms and "
+            f"{run['checkpoint_bytes']} bytes each")
+        require(run["resumes"] == [None, at],
+                f"{name}: the retry resumed at {run['resumes']}, expected {at}")
+        require(run["retried_errors"] == [f"RuntimeError: planted crash after {at}"],
+                f"{name}: the retry absorbed {run['retried_errors']}")
+        require(repeat, f"{name}: two uninterrupted fits disagree in their "
+                "parameters' bits")
+        require(same, f"{name}: the retried fit disagrees with the "
+                "uninterrupted fit in its parameters' bits")
+        require(run["launches"] == row["forward_passes"],
+                f"{name}: interaction_fwd launched {run['launches']} times, "
+                f"expected {row['forward_passes']}")
+        require(run["dirs"] == expect_dirs,
+                f"{name}: {run['dirs']} left, expected {expect_dirs}")
+        out[name] = row
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def fit_attribution(device, ds, dense_cols, cat_cols, streamed) -> dict:
+    """Step 4: ``explain_last_fit()`` of the streamed fit (its phase split
+    and the share of the fit's wall time the split covers), a trace written
+    by ``profile_dir``, and the card's busy share of one streamed epoch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est = streamed["estimator"]
+    report = est.explain_last_fit()
+    phases = est.fit_stats_["step_phase_seconds"]
+    covered = sum(phases.values()) / report["total_s"]
+    log("fit step 4, explain_last_fit() of the streamed fit:\n" + report["text"])
+    log(f"fit step 4: step phases {phases} cover {covered:.1%} of the fit's "
+        f"{report['total_s']:.3f} s; flops/step {est.fit_stats_['flops_per_step']},"
+        f" MFU {est.fit_stats_['mfu']} ({est.fit_stats_['peak_op_type']} peak)")
+    trace_dir = BUILD_DIR / "fit_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    dlrm_estimator(device, dense_cols, cat_cols, "adam", 1, streaming=True,
+                   profile_dir=str(trace_dir)).fit(ds)
+    trace = trace_dir / "trace.json"
+    require(trace.is_file() and trace.stat().st_size > 0,
+            "profile_dir wrote no trace")
+    trace_bytes = trace.stat().st_size
+    shutil.rmtree(trace_dir)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dlrm_estimator(device, dense_cols, cat_cols, "adam", 1,
+                       streaming=True).fit(ds)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    share = device_share(prof, wall_ms)
+    log(f"fit step 4: profile_dir trace {trace_bytes} bytes; "
+        f"profiled streamed epoch (a fit of one epoch): wall {wall_ms:.1f} ms, "
+        f"device busy {share['device_busy_ms']} ms, share "
+        f"{share['device_busy_share']}")
+    return {"by_category": report["by_category"],
+            "attributed_frac": report["attributed_frac"],
+            "total_s": report["total_s"], "step_phase_seconds": phases,
+            "phase_coverage": covered, "stalls": report["stalls"],
+            "trace_bytes": trace_bytes, "profile": share}
+
+
+def fit_checks(device, staged=None) -> dict:
+    """Steps 1-3 (alone: ``--fit-checks``): the streamed fits and their
+    per-step parity, the widen on the card and the crash-and-retry fits."""
+    _build.load()
+    ds, dense_cols, cat_cols = dlrm_data()
+    streamed = streamed_fits(device, ds, dense_cols, cat_cols, staged)
+    return {"streamed": streamed,
+            "segment_parity": segment_parity(device, ds, dense_cols, cat_cols,
+                                             streamed),
+            "widen": check_widen(device, ds, dense_cols),
+            "retries": check_retries(device, ds, dense_cols, cat_cols)}
+
+
+def phase_fit(device, staged: dict) -> dict:
+    """The estimator's streamed, checkpointed and retried fit at bench.py's
+    full DLRM width (steps 1-4; ``staged`` is phase_dlrm's record)."""
+    out = fit_checks(device, staged)
+    streamed = out["streamed"]
+    ds, dense_cols, cat_cols = dlrm_data()
+    out["attribution"] = fit_attribution(device, ds, dense_cols, cat_cols,
+                                         streamed["streamed"])
+    for row in streamed.values():
+        row.pop("estimator")
+    out["launches"] = (sum(row["launches"] for row in streamed.values())
+                       + out["segment_parity"]["launches"]
+                       + sum(row["launches"] for row in out["retries"].values()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2572,12 +2954,14 @@ def quant_times(device) -> dict:
 
 
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
-                 dlrm: dict, trained_int8: dict, stochastic: dict) -> dict:
+                 dlrm: dict, trained_int8: dict, stochastic: dict,
+                 fit: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
-    its evaluation and the dlrm_optimizer epoch for interaction_fwd; the
+    its evaluation, the dlrm_optimizer epoch and the streamed and retried
+    fits of phase_fit for interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
     quantize_int8_stochastic). A count is of wrapper calls that launched
@@ -2597,7 +2981,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     launches["flash_fwd_twoterm"] = \
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
     launches["interaction_fwd"] = (dlrm["launches"]
-                                   + dlrm["dlrm_optimizer"]["launches"])
+                                   + dlrm["dlrm_optimizer"]["launches"]
+                                   + fit["launches"])
     int8_runs = [trained_int8, served["int8_mlp_run"], served["runs"][1]]
     for name in ("int8_gemm", "quantize_int8"):
         launches[name] = sum(run["launches"][name] for run in int8_runs)
@@ -2759,12 +3144,29 @@ PLANTED_FAULTS = {
         "for (int c = 0; c < live_chunks; ++c) {",
         "for (int c = 0; c < live_chunks - (live_chunks * kChunk > 1024); "
         "++c) {"),
+    # the estimator: a resume at (epoch, step) replays from step + 1
+    "resume_skips_a_step": (
+        "raydp_tpu_torch/estimator/estimator.py",
+        "else (epoch, step))",
+        "else (epoch, step + 1))"),
+    # the wire's widen takes the scale of the next row
+    "widen_next_row_scale": (
+        "raydp_tpu_torch/exchange/torch_io.py",
+        "return (q.to(dtype) * scale).to(dtype)",
+        "return (q.to(dtype) * torch.roll(scale, -1, dims=-2)).to(dtype)"),
+    # a segment's last step reads its first step's batch again, as a step
+    # would read memory that another upload's data took over
+    "segment_last_step_rereads": (
+        "raydp_tpu_torch/estimator/stream.py",
+        "segment.y[i]) for i in range(n)),",
+        "segment.y[i]) for i in [*range(n - 1), 0]),"),
 }
 
 
 def planted_faults() -> int:
     """Each fault of PLANTED_FAULTS in its own copy of the port under
-    build/planted/<fault>/, built there and held to ``--bf16-checks``: 0 if
+    build/planted/<fault>/, built there and held to ``--bf16-checks`` (a
+    fault in a CUDA source) or ``--fit-checks`` (in a Python module): 0 if
     every copy fails them with a disagreement, else 1."""
     root = Path(__file__).resolve().parent
     caught = {}
@@ -2778,8 +3180,9 @@ def planted_faults() -> int:
         text = src.read_text()
         require(text.count(site) == 1, f"{name}: its site is not in {source}")
         src.write_text(text.replace(site, fault))
+        mode = "--fit-checks" if source.endswith(".py") else "--bf16-checks"
         run = subprocess.run(
-            [sys.executable, "chip_smoke.py", "--bf16-checks"], cwd=copy,
+            [sys.executable, "chip_smoke.py", mode], cwd=copy,
             capture_output=True, text=True, timeout=600)
         found = run.returncode != 0 and "disagrees" in run.stderr
         lines = run.stdout.strip().splitlines()
@@ -2811,6 +3214,9 @@ def main(argv: list) -> int:
     if argv == ["--k1-k5"]:
         k1_k5(device)
         return 0
+    if argv == ["--fit-checks"]:
+        fit_checks(device)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2821,10 +3227,12 @@ def main(argv: list) -> int:
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
+    record["fit"] = phase_fit(device, record["dlrm"])
     record["times"] = phase_times(device)
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
-                           record["train_int8"], record["stochastic"])
+                           record["train_int8"], record["stochastic"],
+                           record["fit"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -2839,6 +3247,16 @@ def main(argv: list) -> int:
     log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (
         "samples_s", "step_ms", "mfu", "peak_bytes", "train_loss")}
         | {"device_busy_share": record["dlrm"]["profile"]["device_busy_share"]}}))
+    fit = record["fit"]
+    log(json.dumps({"dlrm_fit": {
+        name: {k: row[k] for k in ("samples_s", "step_ms", "bytes_by_epoch")}
+        for name, row in fit["streamed"].items()}
+        | {"retries": {name: {k: row[k] for k in (
+            "resumes", "resumed_bitwise", "checkpoint_ms", "checkpoint_bytes")}
+            for name, row in fit["retries"].items()},
+           "phase_coverage": fit["attribution"]["phase_coverage"],
+           "streamed_device_busy_share":
+               fit["attribution"]["profile"]["device_busy_share"]}}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ returned as the strict lower triangle packed row by row, [B, F(F-1)/2]:
 - ``dot_interaction_fused``: the name the model calls. On one device it is
   ``dot_interaction_kernel``.
 
-``LAUNCHES`` counts kernel launches; the plain version does not count.
+``LAUNCHES`` counts kernel launches; the plain version does not count. A
+launch also reports its FLOPs to ``obs.costmodel.note_kernel_flops``, since
+a step's FLOPs count cannot see a ctypes call.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raydp_tpu_torch.obs.costmodel import note_kernel_flops
 from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops.flash_attention import _on_cpu
 
@@ -99,6 +102,7 @@ def interaction_fwd(stacked: torch.Tensor) -> torch.Tensor:
                                        _build.raw_stream(t.device))
     _build.check(code, "interaction_fwd")
     LAUNCHES["interaction_fwd"] += 1
+    note_kernel_flops(2 * out.numel() * d)
     return out
 
 

@@ -165,6 +165,17 @@ class MultiTransform:
         for opt in self.optimizers.values():
             opt.step()
 
+    def state_dict(self) -> dict:
+        """Each label's optimizer state, for checkpoints."""
+        return {label: opt.state_dict() for label, opt in self.optimizers.items()}
+
+    def load_state_dict(self, state: Mapping[str, dict]) -> None:
+        if set(state) != set(self.optimizers):
+            raise ValueError(f"state has labels {sorted(state)}, the "
+                             f"optimizer {sorted(self.optimizers)}")
+        for label, opt in self.optimizers.items():
+            opt.load_state_dict(state[label])
+
 
 def multi_transform(transforms: Mapping[str, Callable],
                     label_fn: Callable[[str], str]):

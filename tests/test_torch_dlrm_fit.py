@@ -237,15 +237,13 @@ def test_staging_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# what this slice does not port, and the device rule
+# what the port does not have yet, and the device rule
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("option,value", [
-    ("streaming", True), ("stream_wire_quant", "int8"),
-    ("checkpoint_dir", "ckpt"), ("resume_from_epoch", 0),
-    ("mesh", object()), ("param_sharding_rules", lambda mesh, p: p),
-    ("profile_dir", "prof"),
+    pytest.param("mesh", object(), id="mesh-value4"),
+    ("param_sharding_rules", lambda mesh, p: p),
 ])
 def test_later_options_raise(option, value):
     with pytest.raises(NotImplementedError, match="ported in"):
@@ -256,12 +254,8 @@ def test_later_options_raise(option, value):
 def test_later_methods_raise():
     est = Estimator(model=functools.partial(DLRM, VOCABS, 2), device="cpu",
                     **_settings())
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        est.fit(criteo_like(64, 0), max_retries=1)
     with pytest.raises(NotImplementedError, match="ETL"):
         est.fit_on_etl(None)
-    with pytest.raises(NotImplementedError, match="obs slice"):
-        est.explain_last_fit()
 
 
 def test_argument_checks_as_in_jax():
