@@ -8,7 +8,9 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. Device: require CUDA, print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-   them, build the kernels from ``raydp_tpu_torch/csrc`` and print the
+   them and, on the next line, the build: ``torch.__version__``,
+   ``torch.version.cuda`` and the release line of ``nvcc --version`` (no
+   nvcc is an error); build the kernels from ``raydp_tpu_torch/csrc`` and print the
    build seconds; for the tensor-core kernels (the bf16 forward
    ``flash_fwd_sm90_kernel``, the bf16 backward
    ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel`` and the
@@ -96,7 +98,22 @@ Phases; any failure exits non-zero and prints no result line:
    through ``int8_matmul_plain``; then they serve the same streams (f32
    cache), ``int8_gemm`` launching in prefill and decode with one
    ``quantize_int8`` launch per product, and once more under the
-   profiler.
+   profiler. Before the int8 MLP, the f32-cache run again with the
+   engine's obs in use (``serve_obs``): tracing on, a minted trace context
+   per stream; tokens and launch counts bitwise those of obs off; the
+   metric deltas (``serve.decode.{tokens,prefills,steps}``, the
+   ``serve.ttft_ms`` and ``serve.tpot_ms`` counts); a
+   ``serve.decode.prefill`` span per stream and a ``serve.decode.step``
+   span per round in the trace ``export_trace`` writes
+   (``chiprun_out/serve_trace.json``); a ``serve.decode.state`` note taken
+   mid-decode and the crash dossier's decode section assembled then (the
+   in-flight streams, the pool's pages); ``explain_stream`` of each record
+   within 1% of its wall; then the memory-pressure veto on the card
+   (``max_mem_pressure`` -1 holds a stream in the queue with no prefill
+   launched; 0.95 releases it, its tokens those of obs off); and the
+   decode obs probe (bench.py's ``decode_obs_overhead_probe``: ms a token
+   with tracing on and off, 4 rounds, the lead alternating; reported, not
+   gated).
 4. Training of ``TransformerLM`` at full width (bench.py's
    ``bench_transformer_lm``: batch 2, T 8192, Adam 3e-4, tokens from
    ``np.random.default_rng(17)``, seeded random weights): one warm step and
@@ -150,6 +167,16 @@ Phases; any failure exits non-zero and prints no result line:
    fit's ``explain_last_fit()`` and how much of its wall time the step
    phases cover, a ``profile_dir`` trace, and the card's busy share of one
    profiled streamed epoch.
+   Then what obs counts and costs (``phase_obs``): ``count_flops`` of one
+   ``TransformerLM`` training step at the training shape, the mode's part
+   equal to ``lm_nonattn_flops_per_step`` and the attention kernels'
+   reports to 18 * D a live pair (``lm_counted_flops``: 1.195 of
+   ``lm_train_flops_per_step``), the staged DLRM step's count equal to
+   ``dlrm_counted_flops`` (K1 reported); the step recorder on against off
+   over one-epoch staged DLRM fits (bench.py's ``fit_profile_probe``: 4
+   rounds, the lead alternating; reported, not gated); and one
+   ``torch.library.custom_op`` around K1's wrapper against the raw
+   wrapper, 1000 calls by events and by the host's clock.
 5. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
    events, warm, median), its plain version's time, the time of one
    PyTorch call computing the same function as a yardstick (the port never
@@ -174,8 +201,10 @@ Phases; any failure exits non-zero and prints no result line:
    launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
    events and by the profiler.
 
-The last two lines are a ``{"kernels": [...]}`` object and
-``{"ok": true, "device": {...}}``. The full record also goes to
+The last three lines are an ``{"obs": {...}}`` object (the two overhead
+quotients, the custom op's hop and the LM count's ratio, beside the card
+and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
+"device": {...}}``. The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --planted-faults
@@ -437,13 +466,35 @@ def onepass_env(value: str):
 # ---------------------------------------------------------------------------
 
 
-def phase_device() -> dict:
+def toolchain() -> dict:
+    """The build this run uses: ``torch.__version__``, ``torch.version.cuda``
+    and the line of ``nvcc --version`` that names the release (the compiler
+    that builds the kernels: a missing nvcc is an error)."""
+    text = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
+    release = [line.strip() for line in text.splitlines() if "release" in line]
+    require(bool(release), f"nvcc --version names no release: {text!r}")
+    return {"torch": torch.__version__, "cuda": torch.version.cuda,
+            "nvcc": release[0]}
+
+
+def device_lines() -> dict:
+    """Print the card's name and power limit as nvidia-smi gives them, and
+    on the next line the build; returns both."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    build = toolchain()
     log(smi)
+    log(f"build: torch {build['torch']}, CUDA {build['cuda']}, "
+        f"nvcc {build['nvcc']}")
+    return {"nvidia_smi": smi, "toolchain": build}
+
+
+def phase_device() -> dict:
+    lines = device_lines()
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
@@ -458,8 +509,8 @@ def phase_device() -> dict:
     log(f"ptxas: {ptxas}")
     sm90 = sm90_report(entries)
     decode = decode_report(entries)
-    return {"nvidia_smi": smi, "build_s": build_s, "ptxas": ptxas,
-            "sm90": sm90, "decode": decode, "k1_k5": k1_k5_report(entries)}
+    return lines | {"build_s": build_s, "ptxas": ptxas, "sm90": sm90,
+                    "decode": decode, "k1_k5": k1_k5_report(entries)}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -1567,6 +1618,28 @@ def check_int8_mlp_logits(model, prompt, capacity) -> dict:
     return {"prefill_max_abs": err[0], "decode_max_abs": err[1]}
 
 
+def drain_streams(eng, sids, timeout_s: float, on_poll=None) -> dict:
+    """Poll every stream to its end, as a client would; ``on_poll()`` runs
+    after each round of polls. Returns each stream's tokens."""
+    tokens = {sid: [] for sid in sids}
+    done = set()
+    deadline = time.monotonic() + timeout_s
+    while len(done) < len(sids):
+        require(time.monotonic() < deadline, "serving timed out")
+        for sid in sids:
+            if sid in done:
+                continue
+            res = eng.poll(sid, len(tokens[sid]))
+            tokens[sid].extend(res["tokens"])
+            require(not res["error"], f"stream {sid}: {res['error']}")
+            if res["done"]:
+                done.add(sid)
+        if on_poll is not None:
+            on_poll()
+        time.sleep(0.005)  # a client's poll period; the engine stamps TTFT/TPOT itself
+    return tokens
+
+
 def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
     """Drive the engine over every prompt; counts are zeroed just before
     and read just after."""
@@ -1576,20 +1649,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
     with DecodeEngine(model, int8_kv=int8, device=device, **ENGINE) as eng:
         t0 = time.perf_counter()
         sids = [eng.submit(p, new_tokens) for p in prompts]
-        tokens = {sid: [] for sid in sids}
-        done = set()
-        deadline = time.monotonic() + timeout_s
-        while len(done) < len(sids):
-            require(time.monotonic() < deadline, "serving timed out")
-            for sid in sids:
-                if sid in done:
-                    continue
-                res = eng.poll(sid, len(tokens[sid]))
-                tokens[sid].extend(res["tokens"])
-                require(not res["error"], f"stream {sid}: {res['error']}")
-                if res["done"]:
-                    done.add(sid)
-            time.sleep(0.005)  # a client's poll period; the engine stamps TTFT/TPOT itself
+        tokens = drain_streams(eng, sids, timeout_s)
         wall = time.perf_counter() - t0
         records = [eng.explain(sid) for sid in sids]
         stats = eng.stats()
@@ -1613,6 +1673,7 @@ def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
         "prefill_ms_p50": 1e3 * statistics.median(r["prefill_s"] for r in records),
         "steps": stats["steps"],
         "launches": launches,
+        "tokens_by_stream": [tokens[sid] for sid in sids],
     }
     log(f"serve ({result['cache']} cache, int8 MLP {model.quantized_mlp}): "
         f"{result['tokens']} tokens in "
@@ -1641,6 +1702,8 @@ def phase_serve(device) -> dict:
     require(int8_run["launches"]["quantize_int8"] > 0,
             "the int8 cache's rows were never quantized by the kernel")
     profile = profile_serve(model, prompts, device)
+    served_obs = serve_obs(model, prompts, device, f32_run)
+    obs_probe = decode_obs_probe(model, device)
     # the same weights with the int8 MLP, served through the same Block
     quantized = TransformerLM(**MODEL, attn_impl="flash", quantized_mlp=True,
                               device=device, seed=SEED)
@@ -1657,8 +1720,256 @@ def phase_serve(device) -> dict:
             f"int8 MLP serving: {launches['quantize_int8']} quantize launches "
             f"for {launches['int8_gemm']} products")
     return {"prompt_lens": [len(p) for p in prompts], "logits": logits,
-            "runs": runs, "profile": profile, "int8_mlp_run": quantized_run,
+            "runs": runs, "profile": profile, "obs": served_obs,
+            "decode_obs_probe": obs_probe, "int8_mlp_run": quantized_run,
             "int8_mlp_profile": profile_serve(quantized, prompts, device)}
+
+
+SERVE_COUNTERS = ("serve.decode.tokens", "serve.decode.prefills",
+                  "serve.decode.steps")
+SERVE_HISTOGRAMS = ("serve.ttft_ms", "serve.tpot_ms")
+
+
+def serve_readings() -> dict:
+    """The decode engine's counters, and its latency histograms' counts,
+    from the process's metrics registry."""
+    from raydp_tpu_torch.obs.metrics import metrics
+
+    snap = metrics.snapshot()
+    return ({name: snap.get(name, {}).get("value", 0.0)
+             for name in SERVE_COUNTERS}
+            | {name: snap.get(name, {}).get("count", 0)
+               for name in SERVE_HISTOGRAMS})
+
+
+def state_notes() -> list:
+    """The decode engine's ``serve.decode.state`` notes in the flight
+    recorder's log ring, oldest first."""
+    from raydp_tpu_torch.obs import recorder
+
+    return [r for r in recorder.recent_logs()
+            if r["message"] == "serve.decode.state"]
+
+
+def await_state_note_phase(lead_s: float = 0.9, slack_s: float = 0.05) -> None:
+    """The engine notes its state at its first loop pass, then at most once
+    a second: return between ``lead_s`` and ``lead_s + slack_s`` after a
+    note, so the next one falls a tenth of a second or less into what is
+    submitted now (a sleep that overran waits for the next note)."""
+    deadline = time.monotonic() + 30.0
+    seen = 0
+    while True:
+        require(time.monotonic() < deadline, "the engine wrote no state note")
+        notes = state_notes()
+        if len(notes) > seen:
+            seen, ts = len(notes), notes[-1]["ts"]
+            time.sleep(max(0.0, ts + lead_s - time.time()))
+            if time.time() <= ts + lead_s + slack_s:
+                return
+        time.sleep(0.005)
+
+
+def mid_decode_dossier() -> dict:
+    """A crash dossier assembled from this process's rings as they stand
+    (its log ring and a metrics snapshot), as the recorder would for a
+    process that died now."""
+    from raydp_tpu_torch.obs import recorder, tracing
+    from raydp_tpu_torch.obs.metrics import metrics
+
+    role = tracing.process_role()
+    key = f"{role}:{os.getpid()}"
+    flight = recorder.FlightRecorder()
+    flight.note_ingest(key, role, spans=[], snapshot=metrics.snapshot(),
+                       logs=recorder.recent_logs())
+    return flight.assemble("chip_smoke: serving, mid-decode", victim_keys=[key])
+
+
+def serve_obs(model, prompts, device, plain: dict) -> dict:
+    """The f32-cache serving run again with the engine's obs in use:
+    tracing on, one ``mint_context()`` per stream as its ``trace_ctx``.
+    Requires the tokens and the launch counts of the same prompts served
+    with obs off (``plain``, the f32 run of this phase) bitwise; the metric
+    deltas (tokens 8 x 32, prefills 8, steps as ``stats()``, 8 TTFT and
+    8 x 31 TPOT observations); one ``serve.decode.prefill`` span per stream
+    under its root and one ``serve.decode.step`` span per round, in the
+    trace ``export_trace`` writes to ``chiprun_out/serve_trace.json``; a
+    ``serve.decode.state`` note taken while streams were in flight, and a
+    dossier assembled then whose decode section names them and the pool's
+    pages; ``explain_stream`` of each record summing to its wall within
+    1%. Then the memory-pressure veto on the same engine: with
+    ``max_mem_pressure`` -1 one more stream is held in the queue (vetoes
+    counted, no prefill launched); set back to 0.95 it is served, its
+    tokens those of the same prompt served with obs off."""
+    from raydp_tpu_torch import obs
+    from raydp_tpu_torch.obs import analysis, recorder, tracing
+
+    new_tokens = ENGINE["max_new_tokens"]
+    ctxs = [obs.mint_context() for _ in prompts]
+    tracing.set_enabled(True)
+    tracing.drain_local()
+    recorder.drain_logs()
+    dossier = {}
+
+    def on_poll():
+        if not dossier and any(note["fields"]["inflight"] != "{}"
+                               for note in state_notes()):
+            dossier.update(mid_decode_dossier())
+
+    before = serve_readings()
+    fa.reset_launches()
+    qz.reset_launches()
+    try:
+        with DecodeEngine(model, device=device, **ENGINE) as eng:
+            await_state_note_phase()
+            t0 = time.perf_counter()
+            sids = [eng.submit(p, new_tokens, trace_ctx=ctx)
+                    for p, ctx in zip(prompts, ctxs)]
+            tokens = drain_streams(eng, sids, 600.0, on_poll)
+            wall = time.perf_counter() - t0
+            stats = eng.stats()
+            launches = dict(fa.LAUNCHES) | qz.LAUNCHES
+            deltas = {k: v - before[k] for k, v in serve_readings().items()}
+            records = [eng.explain(sid) for sid in sids]
+            veto = check_veto(eng, prompts[0], plain["tokens_by_stream"][0])
+        OUT_DIR.mkdir(exist_ok=True)
+        trace_path = obs.export_trace(str(OUT_DIR / "serve_trace.json"))
+    finally:
+        tracing.set_enabled(False)
+    require([tokens[sid] for sid in sids] == plain["tokens_by_stream"],
+            "tokens served with obs on differ from obs off")
+    require(launches == plain["launches"],
+            f"launches with obs on {launches}, off {plain['launches']}")
+    steps = stats["steps"]
+    want = {"serve.decode.tokens": len(prompts) * new_tokens,
+            "serve.decode.prefills": len(prompts),
+            "serve.decode.steps": steps, "serve.ttft_ms": len(prompts),
+            "serve.tpot_ms": len(prompts) * (new_tokens - 1)}
+    require(deltas == want, f"metric deltas {deltas}, expected {want}")
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    roots = {ctx[1]: sid for ctx, sid in zip(ctxs, sids)}
+    prefills = [e for e in events if e["name"] == "serve.decode.prefill"]
+    step_spans = [e for e in events if e["name"] == "serve.decode.step"]
+    require(sorted(e["args"]["stream"] for e in prefills) == sorted(sids)
+            and all(roots.get(e["args"].get("parent_id")) == e["args"]["stream"]
+                    for e in prefills),
+            f"prefill spans {len(prefills)} do not pair with the streams")
+    require(len(step_spans) == steps
+            and all(e["args"].get("parent_id") in roots
+                    and set(e["args"]["stream_spans"]) <= set(roots)
+                    for e in step_spans),
+            f"{len(step_spans)} step spans for {steps} rounds")
+
+    require(bool(dossier), "no state note was taken while streams were in flight")
+    (section,) = dossier.get("decode") or [None]
+    require(section is not None, "the dossier has no decode section")
+    fields = section["state"]["fields"]
+    named = [sid for sid in sids if repr(sid) in fields["inflight"]]
+    require(bool(named) and f"'total': {stats['kv_pages_total']}" in fields["pages"]
+            and "serve.decode.inflight" in section["metrics"],
+            f"the dossier's decode section {section}")
+
+    gaps = []
+    for rec in records:
+        report = analysis.explain_stream(rec, rec)
+        gaps.append(abs(sum(report["phases"].values()) - rec["wall_s"])
+                    / rec["wall_s"])
+    require(max(gaps) <= 0.01,
+            f"explain_stream phases off their wall by {max(gaps):.2%}")
+    tpot = [r["steady_s"] / (r["tokens"] - 1) for r in records]
+    out = {"wall_s": wall, "steps": steps, "launches": launches,
+           "metric_deltas": deltas, "prefill_spans": len(prefills),
+           "step_spans": len(step_spans), "trace_events": len(events),
+           "state_note_inflight": named, "explain_gap_max": max(gaps),
+           "ttft_ms_p50": 1e3 * statistics.median(r["ttft_s"] for r in records),
+           "tpot_ms_p50": 1e3 * statistics.median(tpot), "veto": veto}
+    log(f"serve with obs on (f32 cache, tracing on, {len(sids)} sampled "
+        f"streams): tokens and launches equal to obs off; {steps} steps, "
+        f"metric deltas {deltas}; {len(prefills)} prefill and "
+        f"{len(step_spans)} step spans in {trace_path}; a mid-decode "
+        f"dossier names {named} in flight; explain_stream within "
+        f"{max(gaps):.2e} of each wall; TTFT p50 {out['ttft_ms_p50']:.2f} ms, "
+        f"TPOT p50 {out['tpot_ms_p50']:.2f} ms; veto {veto}")
+    return out
+
+
+def check_veto(eng, prompt, plain_tokens) -> dict:
+    """The memory-pressure veto on the card: with ``max_mem_pressure`` -1
+    a stream waits in the queue, counted, with no prefill launched; set
+    back to 0.95, it is served with the tokens of the same prompt served
+    before."""
+    new_tokens = ENGINE["max_new_tokens"]
+    prefill_launches = fa.LAUNCHES["flash_fwd"]
+    eng.max_mem_pressure = -1.0
+    sid = eng.submit(prompt, new_tokens)
+    deadline = time.monotonic() + 30.0
+    while eng.stats()["vetoes"]["mem_pressure"] < 1:
+        require(time.monotonic() < deadline, "the veto never held the stream")
+        time.sleep(0.005)
+    held = eng.stats()
+    require(held["queued"] == 1 and held["inflight"] == 0
+            and fa.LAUNCHES["flash_fwd"] == prefill_launches,
+            f"a vetoed stream was admitted: {held}")
+    eng.max_mem_pressure = 0.95
+    tokens = drain_streams(eng, [sid], 120.0)[sid]
+    require(tokens == plain_tokens,
+            "the stream released by the veto gave other tokens")
+    return {"vetoes": held["vetoes"], "queued_while_held": held["queued"],
+            "tokens": len(tokens)}
+
+
+OBS_PROBE = dict(rounds=4, streams_per_arm=6, max_new_tokens=16,
+                 prompt_tokens=8, prompt_seed=23)
+
+
+def decode_obs_probe(model, device) -> dict:
+    """bench.py's ``decode_obs_overhead_probe`` at full width: one engine
+    (SLO judging on in both arms), streams submitted and drained one at a
+    time, ms a token of each; 4 rounds, the arm that leads alternating,
+    each arm 6 streams of 16 new tokens with tracing on (a minted context
+    per stream) or off; the median of the rounds' medians. Reported, not
+    gated: one machine's noise would make a gate flaky."""
+    from raydp_tpu_torch.obs import tracing
+
+    cfg = OBS_PROBE
+    rng = np.random.default_rng(cfg["prompt_seed"])
+    prompts = [rng.integers(0, MODEL["vocab_size"], cfg["prompt_tokens"]).tolist()
+               for _ in range(8)]
+    with DecodeEngine(model, device=device, ttft_slo_ms=1000.0,
+                      tpot_slo_ms=1000.0, **ENGINE) as eng:
+
+        def one_stream(idx, ctx) -> float:
+            t0 = time.perf_counter()
+            sid = eng.submit(prompts[idx % len(prompts)], cfg["max_new_tokens"],
+                             trace_ctx=ctx)
+            tokens = drain_streams(eng, [sid], 120.0)[sid]
+            return 1e3 * (time.perf_counter() - t0) / len(tokens)
+
+        def one_arm(on: bool, base: int) -> float:
+            tracing.set_enabled(on)
+            return statistics.median(
+                one_stream(base + k, tracing.mint_context() if on else None)
+                for k in range(cfg["streams_per_arm"]))
+
+        try:
+            for k in range(2):
+                one_stream(k, None)  # warm
+            ms = {True: [], False: []}
+            for i in range(cfg["rounds"]):
+                for on in ((True, False), (False, True))[i % 2]:
+                    ms[on].append(one_arm(on, i * cfg["streams_per_arm"]))
+        finally:
+            tracing.set_enabled(False)
+            tracing.drain_local()
+    on_ms, off_ms = statistics.median(ms[True]), statistics.median(ms[False])
+    out = {"token_ms_on": on_ms, "token_ms_off": off_ms,
+           "token_ms_on_samples": ms[True], "token_ms_off_samples": ms[False],
+           "overhead_frac": on_ms / off_ms - 1.0} | cfg
+    log(f"decode obs probe: {on_ms:.4f} ms a token with tracing on, "
+        f"{off_ms:.4f} off (rounds {ms[True]} / {ms[False]}), overhead "
+        f"{out['overhead_frac']:+.4f}")
+    return out
 
 
 def profile_serve(model, prompts, device) -> dict:
@@ -2058,6 +2369,22 @@ def dlrm_flops_per_step(batch: int) -> int:
             + 3 * 2 * batch * pairs * m["embed_dim"])
 
 
+def dlrm_counted_flops(batch: int) -> int:
+    """``count_flops`` of one staged DLRM step on the card: what
+    ``FlopCounterMode`` counts (the MLPs forward and backward, but not the
+    input gradient of the bottom MLP's first layer, whose input is data;
+    the interaction's backward, one bmm of [B, F, F] by [B, F, D]) plus
+    K1's report, 2 * D a pair computed. ``dlrm_flops_per_step`` takes the
+    interaction as three times its forward instead, and that first layer's
+    input gradient."""
+    m = DLRM_MODEL
+    features = 1 + len(m["vocab_sizes"])
+    k1 = 2 * m["embed_dim"] * batch * features * (features - 1) // 2
+    return (dlrm_flops_per_step(batch) - 2 * k1
+            + 2 * batch * features * features * m["embed_dim"]
+            - 2 * batch * m["num_dense"] * m["bottom_mlp"][0])
+
+
 def phase_dlrm(device) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
@@ -2099,6 +2426,7 @@ def phase_dlrm(device) -> dict:
             [r["epoch_seconds"] for r in history],
         "samples_s": sps, "step_ms": step_ms, "peak_bytes": peak,
         "flops_per_step": flops,
+        "counted_flops_per_step": est.fit_stats_["flops_per_step"],
         "mfu": flops / (step_ms / 1e3) / PEAK_OPS_S["f32"],
     }
 
@@ -2506,6 +2834,153 @@ def phase_fit(device, staged: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: kernel times beside their bounds
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: what the obs layer counts and costs
+# ---------------------------------------------------------------------------
+
+
+def lm_counted_flops(batch: int, seq: int) -> dict:
+    """``count_flops`` of one ``TransformerLM`` training step on the card,
+    by its two parts: ``FlopCounterMode``'s (every matmul but attention:
+    ``lm_nonattn_flops_per_step``) and the attention kernels' reports, 4 *
+    D, 6 * D and 8 * D a live pair for the forward, dq and dk/dv: 18 * D a
+    pair, where ``lm_train_flops_per_step`` takes three times the
+    forward's 4 * D. So the count is (nonattn + 18 D P) / (nonattn + 12 D
+    P) of ``lm_train_flops_per_step``, P the step's live pairs."""
+    d, layers, vocab = MODEL["d_model"], MODEL["num_layers"], MODEL["vocab_size"]
+    pairs = batch * MODEL["num_heads"] * layers * seq * (seq + 1) // 2
+    head_dim = d // MODEL["num_heads"]
+    return {"mode": lm_nonattn_flops_per_step(batch, seq, d, layers, vocab),
+            "kernels": 18 * head_dim * pairs}
+
+
+def flop_counts(device, dlrm: dict) -> dict:
+    """``count_flops`` on the card: one ``TransformerLM`` training step at
+    the training shape, split into the mode's part and the kernels'
+    reports, each required equal to ``lm_counted_flops``; and the staged
+    DLRM fit's count of its first step (``phase_dlrm``) equal to
+    ``dlrm_counted_flops``, K1's report in it."""
+    from raydp_tpu_torch.obs.costmodel import count_flops
+    from raydp_tpu_torch.ops import _flops
+
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    tokens, targets = train_tokens(b, t, MODEL["vocab_size"], device)
+    model = lm("flash", device, t + 1)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN["lr"])
+    kernels = {}
+
+    def step():
+        with _flops.counting() as reported:
+            loss = train_step(model, opt, tokens, targets)
+        kernels["flops"] = reported.total
+        return loss
+
+    loss, total = count_flops(step)
+    require(math.isfinite(loss.item()), "the counted step's loss is not finite")
+    del model, opt
+    want = lm_counted_flops(b, t)
+    got = {"mode": total - kernels["flops"], "kernels": kernels["flops"]}
+    require(got == want, f"the LM step counted {got}, expected {want}")
+    analytic = lm_train_flops_per_step(b, t, MODEL["d_model"],
+                                       MODEL["num_layers"], MODEL["vocab_size"])
+    dlrm_want = dlrm_counted_flops(DLRM_RUN["batch"])
+    require(dlrm["counted_flops_per_step"] == dlrm_want,
+            f"the DLRM step counted {dlrm['counted_flops_per_step']}, "
+            f"expected {dlrm_want}")
+    out = {"lm_step": total, "lm_parts": got, "lm_analytic": analytic,
+           "lm_ratio": total / analytic,
+           "lm_ratio_without_kernels": got["mode"] / analytic,
+           "dlrm_step": dlrm["counted_flops_per_step"]}
+    log(f"count_flops: the LM training step [{b}, {t}] {total:.6e} FLOPs "
+        f"(mode {got['mode']:.6e} + attention kernels {got['kernels']:.6e}) = "
+        f"{out['lm_ratio']:.4f} of lm_train_flops_per_step {analytic:.6e} "
+        f"(the mode alone: {out['lm_ratio_without_kernels']:.4f}); the staged "
+        f"DLRM step {out['dlrm_step']} (K1 reported)")
+    return out
+
+
+RECORDER_PROBE_ROUNDS = 4
+
+
+def step_recorder_probe(device) -> dict:
+    """bench.py's ``fit_profile_probe`` at full width: one-epoch staged
+    DLRM fits with the step recorder on (``set_step_profiler(True)``) and
+    off, 4 rounds with the lead alternating, after one warm fit of each;
+    a fit's ms a step is its epoch's seconds less its first step (the
+    count of its FLOPs, ``estimator.compile``) over the other 47 steps;
+    the median of each arm's. Reported, not gated."""
+    from raydp_tpu_torch.obs import profiler
+
+    ds, dense_cols, cat_cols = dlrm_data()
+    steps = DLRM_RUN["rows"] // DLRM_RUN["batch"]
+
+    def one_fit(on: bool) -> float:
+        profiler.set_step_profiler(on)
+        est = dlrm_estimator(device, dense_cols, cat_cols, "adam", 1)
+        (record,) = est.fit(ds)
+        first = sum(r["dur"] for r in est.last_fit_records_
+                    if r["name"] == "estimator.compile"
+                    and r["args"].get("what") == "first_step") / 1e6
+        return 1e3 * (record["epoch_seconds"] - first) / (steps - 1)
+
+    was_on = profiler.step_profiler_enabled()
+    try:
+        one_fit(True)
+        one_fit(False)
+        ms = {True: [], False: []}
+        for i in range(RECORDER_PROBE_ROUNDS):
+            for on in ((True, False), (False, True))[i % 2]:
+                ms[on].append(one_fit(on))
+    finally:
+        profiler.set_step_profiler(was_on)
+    on_ms, off_ms = statistics.median(ms[True]), statistics.median(ms[False])
+    out = {"step_ms_on": on_ms, "step_ms_off": off_ms,
+           "step_ms_on_samples": ms[True], "step_ms_off_samples": ms[False],
+           "overhead_frac": on_ms / off_ms - 1.0,
+           "rounds": RECORDER_PROBE_ROUNDS}
+    log(f"step recorder probe: {on_ms:.4f} ms a step on, {off_ms:.4f} off "
+        f"(fits {ms[True]} / {ms[False]}), overhead {out['overhead_frac']:+.4f}")
+    return out
+
+
+def custom_op_hop(device) -> dict:
+    """What a ``torch.library.custom_op`` around a ctypes wrapper would
+    cost a call: K1's wrapper at the DLRM path's shape, raw and through a
+    custom op, by CUDA events over 1000 back-to-back calls (median of 5)
+    and by the host's clock (``host_ms``). The port does not route its
+    kernels through custom ops; this is the number for that decision."""
+    from torch.library import custom_op
+
+    @custom_op("raydp_tpu_torch_probe::interaction_fwd", mutates_args=())
+    def wrapped(stacked: torch.Tensor) -> torch.Tensor:
+        return ia.interaction_fwd(stacked)
+
+    @wrapped.register_fake
+    def _(stacked):
+        b, f, _ = stacked.shape
+        return stacked.new_empty((b, f * (f - 1) // 2))
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    t = _randn(gen, INTERACTION_SHAPES["path"], torch.float32, device)
+    require(torch.equal(wrapped(t), ia.interaction_fwd(t)),
+            "the custom op gave other values")
+    calls = {"raw": lambda: ia.interaction_fwd(t), "custom_op": lambda: wrapped(t)}
+    out = {name: {"events_ms": time_ms(fn, iters=HOST_CALLS, reps=5),
+                  "host_ms": host_ms(fn)} for name, fn in calls.items()}
+    out["hop_us"] = {key: 1e3 * (out["custom_op"][key] - out["raw"][key])
+                     for key in ("events_ms", "host_ms")}
+    log(f"custom_op hop on K1's wrapper [2048,7,16]: {json.dumps(out)}")
+    return out
+
+
+def phase_obs(device, dlrm: dict) -> dict:
+    out = {"flops": flop_counts(device, dlrm),
+           "step_recorder_probe": step_recorder_probe(device),
+           "custom_op": custom_op_hop(device)}
+    torch.cuda.synchronize()
+    return out
 
 
 def _bound(n_bytes: float, ops: float, op_type: str):
@@ -3228,6 +3703,7 @@ def main(argv: list) -> int:
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
     record["fit"] = phase_fit(device, record["dlrm"])
+    record["obs"] = phase_obs(device, record["dlrm"])
     record["times"] = phase_times(device)
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
@@ -3257,6 +3733,13 @@ def main(argv: list) -> int:
            "phase_coverage": fit["attribution"]["phase_coverage"],
            "streamed_device_busy_share":
                fit["attribution"]["profile"]["device_busy_share"]}}))
+    dev, probe = record["device"], record["obs"]
+    log(json.dumps({"obs": {
+        "decode_obs_overhead": record["serve"]["decode_obs_probe"]["overhead_frac"],
+        "step_recorder_overhead": probe["step_recorder_probe"]["overhead_frac"],
+        "custom_op_hop_us": probe["custom_op"]["hop_us"],
+        "lm_count_over_analytic": probe["flops"]["lm_ratio"],
+        "nvidia_smi": dev["nvidia_smi"], "toolchain": dev["toolchain"]}}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ Imports ``raydp_tpu_torch`` and ``chip_smoke.py`` from DIR (default: the
 directory of this file) and fits DIR's ``phase_dlrm`` model and data (its
 ``dlrm_data`` and ``dlrm_estimator``: bench.py's full-width DLRM, 100,000
 rows, batch 2048, Adam, f32) through the ``Estimator``'s staged path: one
-warm fit, then N fits of E epochs. Prints the card's name and power limit,
-one JSON line a fit (the tag, the run, the step ms and samples/s of epochs
+warm fit, then N fits of E epochs. Prints the card's name and power limit
+and, on the next line, the build (torch, its CUDA, nvcc's release), one
+JSON line a fit (the tag, the run, the step ms and samples/s of epochs
 2 on, as ``phase_dlrm`` reads them), and last one profiled fit of one
 epoch (wall, device busy ms and share). Run it for two trees in one call,
 in turns (A B B A), to compare them on one card.
@@ -20,12 +21,19 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+
+
+def _load(path: Path):
+    """A chip_smoke.py as a module; its package imports resolve in DIR."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def main(argv: list) -> int:
@@ -43,14 +51,9 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("dlrm_steps: no CUDA device", file=sys.stderr)
         return 1
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  root / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
-        flush=True)
+    smoke = _load(root / "chip_smoke.py")
+    # the device lines from this file's neighbour: DIR's may predate them
+    (smoke if root == HERE else _load(HERE / "chip_smoke.py")).device_lines()
     device = torch.device("cuda", 0)
     ds, dense_cols, cat_cols = smoke.dlrm_data()
     batch = smoke.DLRM_RUN["batch"]

@@ -13,8 +13,14 @@ epoch span carrying the step recorder's ``ingest_s``/``h2d_s``/
 
 Every interval of the root lands in exactly one segment, so the category
 totals sum to the root's wall time; ``attributed_frac`` is the share that
-landed in named segments. ``explain_last_query`` (over an ETL query's
-spans) waits for the port's ETL slice.
+landed in named segments.
+
+The decode arm, ``explain_stream`` / ``format_stream_report``, decomposes
+one streamed generation's wall time from the decode engine's stream record
+(``DecodeEngine.explain``) without any span: TTFT into queue, KV alloc,
+prefill and dispatch; the steady state into step compute, admission churn,
+drain and stall. ``explain_last_query`` (over an ETL query's spans) waits
+for the port's ETL slice.
 """
 
 from __future__ import annotations
@@ -355,4 +361,169 @@ def format_report(report: dict) -> str:
                 f"  {stall['dur_s'] * 1e3:9.2f} ms in {stall['owner']} "
                 f"after {stall['after']} [{stall['proc']}]"
             )
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the decode arm: stream TTFT / time-per-token decomposition
+# ---------------------------------------------------------------------------
+
+# phase -> category, for the by_category rollup (mirrors _CATEGORY_RULES'
+# vocabulary, so attribute() and explain_stream speak the same names)
+_STREAM_PHASE_CATEGORY = {
+    "queue": "queue",
+    "kv_alloc": "compute",
+    "prefill": "compute",
+    "dispatch": "dispatch",
+    "step_compute": "compute",
+    "admission_churn": "queue",
+    "drain": "dispatch",
+    "stall": "other",
+}
+
+
+def explain_stream(client_record: dict,
+                   engine_record: Optional[dict] = None,
+                   top_k: int = 5) -> dict:
+    """Decompose one streamed generation's wall time from the engine-kept
+    stream record — no spans required, so this works with tracing OFF
+    (the ``explain_last_query``/``explain_last_fit`` contract).
+
+    TTFT splits into queue wait -> KV alloc -> prefill compute -> dispatch
+    (driver-side RPC/poll remainder — a NAMED category, exactly as in
+    ``attribute()``); steady-state splits into step compute -> admission
+    churn (other streams' prefills stalling the loop) -> drain (the
+    client's steady window minus the ENGINE's: RPC/poll wire time after
+    the engine emitted, measurable because both sides stamp durations) ->
+    stall (the engine-side residual no phase explains). ``attributed_frac``
+    mirrors
+    ``attribute()``'s convention: 1 - the "other" share, where only the
+    stall residual is "other"; ``work_frac`` is the stricter share covered
+    by ENGINE-MEASURED phases (queue + kv_alloc + prefill + step_compute +
+    churn) — remainders excluded, honest about what was not measured."""
+    client = dict(client_record or {})
+    engine = dict(engine_record or {})
+    total_s = float(client.get("wall_s") or engine.get("wall_s") or 0.0)
+    ttft_s = client.get("ttft_s")
+    if ttft_s is None:
+        ttft_s = engine.get("ttft_s")
+    ttft_s = float(ttft_s or 0.0)
+    ttft_s = min(ttft_s, total_s) if total_s else ttft_s
+
+    queue_s = float(engine.get("queue_s") or 0.0)
+    kv_alloc_s = float(engine.get("kv_alloc_s") or 0.0)
+    prefill_s = float(engine.get("prefill_s") or 0.0)
+    step_s = float(engine.get("step_compute_s") or 0.0)
+    churn_s = float(engine.get("churn_s") or 0.0)
+
+    dispatch_s = max(0.0, ttft_s - queue_s - kv_alloc_s - prefill_s)
+    steady_s = max(0.0, total_s - ttft_s)
+    engine_steady_s = engine.get("steady_s")
+    if engine_steady_s is not None:
+        # both sides stamp their own steady window as durations: the
+        # client's window minus the engine's is the poll/RPC drain after
+        # the engine emitted — wire time, charged to dispatch, not stall
+        engine_steady_s = min(float(engine_steady_s), steady_s)
+        drain_s = max(0.0, steady_s - engine_steady_s)
+        # round-to-round charging can overshoot the emit-to-emit steady
+        # window by fractions of a round — clamp so parts never exceed
+        # the whole
+        step_s = min(step_s, max(0.0, engine_steady_s - churn_s))
+        stall_s = max(0.0, engine_steady_s - step_s - churn_s)
+    else:
+        drain_s = 0.0
+        stall_s = max(0.0, steady_s - step_s - churn_s)
+
+    phases = {
+        "queue": queue_s,
+        "kv_alloc": kv_alloc_s,
+        "prefill": prefill_s,
+        "dispatch": dispatch_s,
+        "step_compute": step_s,
+        "admission_churn": churn_s,
+        "drain": drain_s,
+        "stall": stall_s,
+    }
+    by_category: Dict[str, float] = {}
+    for phase, seconds in phases.items():
+        category = _STREAM_PHASE_CATEGORY[phase]
+        by_category[category] = by_category.get(category, 0.0) + seconds
+
+    measured_s = queue_s + kv_alloc_s + prefill_s + step_s + churn_s
+    attributed = (
+        max(0.0, 1.0 - stall_s / total_s) if total_s > 0 else 0.0
+    )
+    work_frac = min(1.0, measured_s / total_s) if total_s > 0 else 0.0
+
+    tokens = int(client.get("tokens") or engine.get("tokens") or 0)
+    tpot_ms = (steady_s * 1e3 / (tokens - 1)) if tokens > 1 else None
+    report = {
+        "root": "serve.stream",
+        "stream_id": client.get("stream_id") or engine.get("stream_id"),
+        "deployment": client.get("deployment"),
+        "trace": client.get("trace") or engine.get("trace"),
+        "total_s": total_s,
+        "ttft_s": ttft_s,
+        "ttft_ms": ttft_s * 1e3,
+        "tpot_ms": tpot_ms,
+        "tokens": tokens,
+        "prompt_tokens": engine.get("prompt_tokens"),
+        "steps": engine.get("steps"),
+        "failovers": int(client.get("failovers") or 0),
+        "error": client.get("error") or engine.get("error"),
+        "good_tokens": engine.get("good_tokens"),
+        "late_tokens": engine.get("late_tokens"),
+        "phases": phases,
+        "by_category": dict(
+            sorted(by_category.items(), key=lambda kv: kv[1], reverse=True)
+        ),
+        "attributed_frac": attributed,
+        "work_frac": work_frac,
+        "engine_record": bool(engine_record),
+    }
+    report["text"] = format_stream_report(report)
+    return report
+
+
+def format_stream_report(report: dict) -> str:
+    """Human rendering of an ``explain_stream`` report."""
+    phases = report["phases"]
+    tokens = report.get("tokens") or 0
+    header = (
+        f"decode stream {report.get('stream_id')} on "
+        f"{report.get('deployment') or '?'}: "
+        f"{report['total_s'] * 1e3:.2f} ms wall, {tokens} tokens, "
+        f"{report.get('failovers', 0)} failovers"
+    )
+    ttft_line = (
+        f"ttft {report['ttft_ms']:.2f} ms = "
+        f"queue {phases['queue'] * 1e3:.2f}"
+        f" + kv_alloc {phases['kv_alloc'] * 1e3:.2f}"
+        f" + prefill {phases['prefill'] * 1e3:.2f}"
+        f" + dispatch {phases['dispatch'] * 1e3:.2f}"
+    )
+    steady_ms = max(0.0, report["total_s"] - report["ttft_s"]) * 1e3
+    steady_line = (
+        f"steady {steady_ms:.2f} ms = "
+        f"step_compute {phases['step_compute'] * 1e3:.2f}"
+        f" + admission_churn {phases['admission_churn'] * 1e3:.2f}"
+        f" + drain {phases['drain'] * 1e3:.2f}"
+        f" + stall {phases['stall'] * 1e3:.2f}"
+    )
+    if report.get("tpot_ms") is not None:
+        steady_line += f"  ({report['tpot_ms']:.2f} ms/token)"
+    lines = [
+        header,
+        ttft_line,
+        steady_line,
+        f"attributed to named phases: {report['attributed_frac']:.1%} "
+        f"(engine-measured {report.get('work_frac', 0.0):.1%})",
+    ]
+    if not report.get("engine_record"):
+        lines.append(
+            "NOTE: no engine-side stream record (replica restarted or "
+            "record evicted) — only client-side timings above"
+        )
+    if report.get("error"):
+        lines.append(f"error: {report['error']}")
     return "\n".join(lines)

@@ -10,14 +10,18 @@
   ``torch.utils.flop_counter.FlopCounterMode``, which counts the matmuls,
   convolutions and attention it dispatches. A kernel of the port launched
   through ``ctypes`` is not a dispatched op, so the mode cannot see it: its
-  wrapper reports its own FLOPs through :func:`note_kernel_flops`, and the
-  count adds what was reported while it ran. K1 (``interaction_fwd``) is
-  such a kernel: it reports 2 * D FLOPs per pair it computes, the strict
-  lower triangle (its backward is torch ops, which the mode counts). On a
-  CPU tensor the same forward is the plain version, an einsum over the
-  whole F x F Gram matrix, which the mode counts as such, so a step's count
-  on the CPU is larger than on the card by the upper triangle and the
-  diagonal.
+  wrapper reports its own FLOPs to ``ops._flops`` (the kernel layer's
+  tally, which this module arms and reads), and the count adds what was
+  reported while it ran. K1 reports 2 * D FLOPs per pair it computes, the
+  strict lower triangle (its backward is torch ops, which the mode
+  counts); the flash kernels 4 * D a live pair forward, 6 * D for dq and
+  8 * D for dk/dv (each backward kernel recomputes the scores and dp, so a
+  step counts 18 * D a pair where ``lm_train_flops_per_step`` takes 12 *
+  D); decode 4 * D a live pair; the int8 product 2 * K an output. On a CPU
+  tensor each wrapper runs its plain version, whose torch ops the mode
+  counts as they are (K1's einsum over the whole F x F Gram matrix, the
+  plain attention's whole score tiles), so a step's count on the CPU
+  differs from the card's.
 - **peak FLOP/s** per device (:func:`device_peak_flops`): NVIDIA's data
   sheet peaks for the Hopper cards, read from
   ``torch.cuda.get_device_name``, and a nominal CPU figure, labelled
@@ -27,8 +31,9 @@
 from __future__ import annotations
 
 import os
-import threading
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+from raydp_tpu_torch.ops import _flops
 
 # NVIDIA's data sheets, dense rates (no sparsity), per op type: bf16 and
 # int8 on the tensor cores, f32 on the CUDA cores; matched by substring of
@@ -131,31 +136,17 @@ def mlp_train_flops_per_step(batch: int, layer_dims: Sequence[int]) -> int:
 # counted FLOPs of one step
 # ---------------------------------------------------------------------------
 
-_kernel_flops = threading.local()
-
-
-def note_kernel_flops(flops: int) -> None:
-    """Called by a wrapper that launches a kernel through ``ctypes`` with
-    the FLOPs of the launch; counted only inside :func:`count_flops`."""
-    tally = getattr(_kernel_flops, "tally", None)
-    if tally is not None:
-        tally[0] += int(flops)
-
-
 def count_flops(fn: Callable[[], Any]) -> Tuple[Any, int]:
     """Run ``fn`` once under ``FlopCounterMode``; returns ``(fn's result,
     FLOPs)``: the mode's total plus the FLOPs the port's own kernels
-    reported meanwhile (:func:`note_kernel_flops`). The mode changes no
-    arithmetic, so the step it counts is a real one."""
+    reported meanwhile (``ops._flops``). The mode changes no arithmetic,
+    so the step it counts is a real one."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    _kernel_flops.tally = [0]
-    try:
+    with _flops.counting() as kernels:
         with FlopCounterMode(display=False) as mode:
             result = fn()
-        return result, int(mode.get_total_flops()) + _kernel_flops.tally[0]
-    finally:
-        _kernel_flops.tally = None
+    return result, int(mode.get_total_flops()) + kernels.total
 
 
 def mfu(model_flops_per_sec: Optional[float],

@@ -2,9 +2,9 @@
 
 Every line carries a wall timestamp, the process role and the actor id
 (``RAYDP_TPU_ACTOR_ID``, when a runtime sets it), so output interleaved
-from several processes is attributable. The JAX package also notes each
-line in its flight recorder, which the port does not have yet (ROADMAP
-Queue 1, obs).
+from several processes is attributable. Each line is also noted in the
+process's flight-recorder ring (``obs.recorder.note_log``), so a crash
+dossier carries the last log lines.
 
 Usage::
 
@@ -19,6 +19,8 @@ import sys
 import time
 import traceback
 
+from raydp_tpu_torch.obs.recorder import note_log
+
 
 class StructuredLogger:
     """Writes ``ts level [role actor] message key=value...`` lines to
@@ -32,6 +34,7 @@ class StructuredLogger:
 
         role = self._role or process_role()
         actor = os.environ.get("RAYDP_TPU_ACTOR_ID", "")
+        note_log(level, role, message, fields)
         ts = time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime())
         parts = [ts, level, f"[{role}" + (f" {actor}" if actor else "") + "]", message]
         if fields:

@@ -15,6 +15,13 @@
   bytes (``torch.cuda.memory_allocated``, where the JAX package reads its
   device's live arrays) and host pressure, as high-watermark gauges. The
   JAX package's /dev/shm namespace bytes wait for the port's store.
+  :func:`current_mem_pressure` is what the decode engine's admission veto
+  reads: the live ``mem.pressure`` gauge, floored by the windowed max of
+  the process-local time series. As in the JAX package it is *host* memory
+  pressure (1 - MemAvailable / MemTotal). The port's KV page pool is one
+  device tensor, which this gauge does not see: the pool's own page
+  arithmetic guards it, and there is no device-memory veto, because the
+  JAX package has none.
 """
 
 from __future__ import annotations
@@ -35,6 +42,17 @@ STEP_PHASES = ("ingest", "h2d", "compute", "sync")
 _step_profiler_on = os.environ.get(STEP_PROFILER_ENV, "1") not in (
     "0", "false", "False"
 )
+
+
+def step_profiler_enabled() -> bool:
+    return _step_profiler_on
+
+
+def set_step_profiler(on: bool) -> None:
+    """Bench/test hook (the step recorder's on/off probe); prefer the env
+    var so spawned processes agree."""
+    global _step_profiler_on
+    _step_profiler_on = bool(on)
 
 
 def artifacts_dir(*sub: str) -> str:
@@ -385,3 +403,17 @@ def sample_memory(force: bool = False) -> Optional[dict]:
             sample[key] = float(value)
             metrics.gauge(f"mem.{key}").set_watermark(value)
     return sample
+
+
+def current_mem_pressure(window_s: float = 10.0) -> float:
+    """Host memory pressure as the admission veto reads it: the max over
+    this process's recent windowed ``mem.pressure`` series, with the live
+    gauge as the freshness floor."""
+    from raydp_tpu_torch.obs import timeseries
+
+    sample_memory()
+    live = metrics.gauge("mem.pressure").value
+    windowed = timeseries.windowed_local("mem.pressure", window_s=window_s)
+    if windowed["series"] and windowed["max"] is not None:
+        return max(live, windowed["max"])
+    return live

@@ -9,17 +9,23 @@ parent, args}`` with ``ts``/``dur`` in microseconds of wall time
   got:`` captures every span finished on this thread. The estimator reads
   its epoch and compile times, and ``explain_last_fit`` its attribution,
   from these records.
-- **the local buffer** (process-global, gated on ``RAYDP_TPU_TRACE``):
-  finished spans are kept in a ring of ``RAYDP_TPU_TRACE_BUFFER`` records.
-  Shipping them to a cluster head waits for the port's cluster runtime;
-  until then they stay local, as they do in the JAX package when no head
-  is set (``flush`` keeps them and returns False).
+- **the local buffer** (process-global, gated on ``RAYDP_TPU_TRACE`` or
+  :func:`set_enabled`): finished spans are kept in a ring of
+  ``RAYDP_TPU_TRACE_BUFFER`` records; a full ring drops its oldest record
+  and counts it (:func:`dropped_count`, ``trace.spans_dropped`` in
+  ``dump_metrics``). Shipping them to a cluster head waits for the port's
+  cluster runtime; until then they stay local, as they do in the JAX
+  package when no head is set (``flush`` keeps them and returns False),
+  and ``obs.export_trace`` writes them.
 
 With tracing off and no collector installed, ``span()`` returns a shared
 no-op after one branch.
 
 Context: ``(trace_id, span_id)`` pairs travel thread-locally; ``span()``
 parents under the current context and installs itself for its body.
+:func:`mint_context` makes a root out of band (a serving stream's, passed
+to ``DecodeEngine.submit`` as ``trace_ctx``), :func:`with_context` runs a
+function under one on another thread.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ _buffer_cap = int(os.environ.get(BUFFER_ENV, "8192") or "8192")
 _tls = threading.local()
 _buf_lock = threading.Lock()
 _buffer: "collections.deque" = collections.deque(maxlen=_buffer_cap)
+_dropped = 0  # spans evicted from the full ring
 
 
 def process_role() -> str:
@@ -51,6 +58,13 @@ def process_role() -> str:
 def enabled() -> bool:
     """Is the local span buffer on? (Collectors work either way.)"""
     return _enabled
+
+
+def set_enabled(value: bool) -> None:
+    """Test/bench hook; prefer setting RAYDP_TPU_TRACE before the process
+    starts."""
+    global _enabled
+    _enabled = bool(value)
 
 
 def _collectors() -> List[list]:
@@ -85,6 +99,13 @@ class use_context:
 
     def __exit__(self, *exc):
         _set_context(self._saved)
+
+
+def with_context(ctx, fn, *args, **kwargs):
+    """Run ``fn`` under ``ctx``: how the caller's trace context reaches a
+    worker-pool thread (thread-locals do not cross threads)."""
+    with use_context(ctx):
+        return fn(*args, **kwargs)
 
 
 class _NoopSpan:
@@ -204,6 +225,13 @@ def record_span(
     return record
 
 
+def mint_context() -> Tuple[str, str]:
+    """A fresh (trace_id, span_id) pair for a root minted out of band: a
+    sampled serving stream's, whose engine-side spans are emitted later by
+    ``record_span`` under it."""
+    return uuid.uuid4().hex[:16], uuid.uuid4().hex[:16]
+
+
 def current_sinks() -> List[list]:
     """This thread's active collector sinks: capture them before handing
     work to a helper thread, and re-install there with ``use_sinks``."""
@@ -252,8 +280,11 @@ class collect:
 
 
 def _buffer_append(record: dict) -> None:
+    global _dropped
     with _buf_lock:
-        _buffer.append(record)  # a full ring drops its oldest record
+        if len(_buffer) == _buffer.maxlen:
+            _dropped += 1  # the append below evicts the oldest record
+        _buffer.append(record)
 
 
 def drain_local() -> List[dict]:
@@ -264,14 +295,25 @@ def drain_local() -> List[dict]:
     return out
 
 
+def dropped_count() -> int:
+    """Spans the full ring evicted since the process started."""
+    return _dropped
+
+
 def flush() -> bool:
-    """Sample the memory plane into the registry and keep the buffered
-    spans local: the port has no cluster head to ship them to yet, which
-    is the JAX package's own outcome when no head is set. Returns whether
-    anything was shipped (never, until the cluster slice)."""
+    """Sample the memory plane into the registry and fold the registry's
+    snapshot into the process-local time-series mirror
+    (``obs.timeseries.ingest_local``, which ``current_mem_pressure``
+    reads); keep the buffered spans and log records local: the port has no
+    cluster head to ship them to yet, which is the JAX package's own
+    outcome when no head is set. Returns whether anything was shipped
+    (never, until the cluster slice)."""
+    from raydp_tpu_torch.obs import timeseries
+    from raydp_tpu_torch.obs.metrics import metrics
     from raydp_tpu_torch.obs.profiler import sample_memory
 
     sample_memory()
+    timeseries.ingest_local(metrics.snapshot())
     return False
 
 

@@ -59,7 +59,8 @@ and an input requires a gradient.
 
 ``LAUNCHES`` counts kernel launches per kernel name (``flash_decode``
 counts calls: two launches each, scores then p.v and the merge); the plain
-versions do not count.
+versions do not count. Each launch also reports its FLOPs to
+``ops._flops`` while a count is armed (``obs.costmodel.count_flops``).
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ import os
 
 import torch
 
-from raydp_tpu_torch.ops import _build
+from raydp_tpu_torch.ops import _build, _flops
 
 NEG_INF = -1e30
 
@@ -386,6 +387,9 @@ def flash_attention_call(
         )
     _build.check(code, name)
     LAUNCHES[name] += 1
+    if _flops.armed():
+        _flops.note_flops(_flops.attention_fwd_flops(
+            b * h, t, tk, d, q_offset, k_offset, causal))
     return o, m, l
 
 
@@ -418,6 +422,10 @@ def _bwd_launch(entry, name, q, k, v, lse, dsum, g, q_offset, k_offset,
         )
     _build.check(code, name)
     LAUNCHES[name] += 1
+    if _flops.armed():
+        _flops.note_flops(_flops.attention_bwd_flops(
+            name, b * h, t, k.shape[2], d, int(q_offset), int(k_offset),
+            causal))
 
 
 def flash_bwd_dq(q, k, v, lse, dsum, g, q_offset: int = 0, k_offset: int = 0,
@@ -477,6 +485,9 @@ class _FlashAttention(torch.autograd.Function):
         o, m, l = flash_attention_call(q, k, v, 0, 0, causal, normalize=True)  # noqa: E741
         lse = m + torch.log(torch.clamp(l, min=1e-30))
         ctx.causal = causal
+        # the backward runs on autograd's thread: it reports its launches'
+        # FLOPs to the count (if any) that this forward ran under
+        ctx.flops_tally = _flops.current_tally()
         ctx.save_for_backward(q, k, v, o, lse)
         return o
 
@@ -485,8 +496,9 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         g = g.to(q.dtype)
         dsum = (g.float() * o.float()).sum(dim=-1)
-        dq, dk, dv = flash_backward_blocks(q, k, v, lse, dsum, g, 0, 0,
-                                           ctx.causal)
+        with _flops.reporting_to(ctx.flops_tally):
+            dq, dk, dv = flash_backward_blocks(q, k, v, lse, dsum, g, 0, 0,
+                                               ctx.causal)
         return dq, dk, dv, None
 
 
@@ -571,6 +583,8 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
         )
     _build.check(code, "flash_decode")
     LAUNCHES["flash_decode"] += 1
+    if _flops.armed():
+        _flops.note_flops(_flops.decode_flops(h, tq, d, lens.tolist()))
     return o
 
 
@@ -601,4 +615,6 @@ def _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o):
         )
     _build.check(code, "flash_decode_int8")
     LAUNCHES["flash_decode_int8"] += 1
+    if _flops.armed():
+        _flops.note_flops(_flops.decode_flops(h, tq, d, lens.tolist()))
     return o

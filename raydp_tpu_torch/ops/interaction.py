@@ -16,8 +16,8 @@ returned as the strict lower triangle packed row by row, [B, F(F-1)/2]:
   ``dot_interaction_kernel``.
 
 ``LAUNCHES`` counts kernel launches; the plain version does not count. A
-launch also reports its FLOPs to ``obs.costmodel.note_kernel_flops``, since
-a step's FLOPs count cannot see a ctypes call.
+launch also reports its FLOPs (2 * D a pair) to ``ops._flops``, since a
+step's FLOPs count cannot see a ctypes call.
 """
 
 from __future__ import annotations
@@ -25,8 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raydp_tpu_torch.obs.costmodel import note_kernel_flops
-from raydp_tpu_torch.ops import _build
+from raydp_tpu_torch.ops import _build, _flops
 from raydp_tpu_torch.ops.flash_attention import _on_cpu
 
 LAUNCHES = {"interaction_fwd": 0}
@@ -102,7 +101,7 @@ def interaction_fwd(stacked: torch.Tensor) -> torch.Tensor:
                                        _build.raw_stream(t.device))
     _build.check(code, "interaction_fwd")
     LAUNCHES["interaction_fwd"] += 1
-    note_kernel_flops(2 * out.numel() * d)
+    _flops.note_flops(2 * out.numel() * d)
     return out
 
 

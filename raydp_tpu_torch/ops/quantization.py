@@ -42,9 +42,11 @@ product: the counterpart of ``raydp_tpu/ops/quantization.py``.
 
 On a CUDA tensor each kernel wrapper launches its kernel or raises; there is
 no fallback. ``LAUNCHES`` counts kernel launches; the plain versions do not
-count. Scales divide by a tensor 127 rather than the Python number: on CUDA
-torch divides by a Python scalar as a multiply by its reciprocal, which can
-be an ulp off the IEEE quotient that the JAX package and the kernel take.
+count. ``int8_gemm``'s launches report their FLOPs (2 * K an output) to
+``ops._flops``. Scales divide by a tensor 127 rather than the Python
+number: on CUDA torch divides by a Python scalar as a multiply by its
+reciprocal, which can be an ulp off the IEEE quotient that the JAX package
+and the kernel take.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from raydp_tpu_torch.ops import _build
+from raydp_tpu_torch.ops import _build, _flops
 from raydp_tpu_torch.ops.flash_attention import _on_cpu
 
 LAUNCHES = {"quantize_int8": 0, "quantize_int8_stochastic": 0, "int8_gemm": 0}
@@ -296,6 +298,7 @@ def _int8_gemm_kernel(xq, xs, wq, ws, out_dtype, k: int) -> torch.Tensor:
             tickets.data_ptr(), n, m, k, pitch, _DTYPE_CODES[out_dtype], stream)
     _build.check(code, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1
+    _flops.note_flops(_flops.int8_gemm_flops(n, m, k))
     return out
 
 

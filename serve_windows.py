@@ -12,7 +12,8 @@ engine's default: prefill on the bf16 forward, every decode step on the
 f32/bf16-cache decode kernel), the int8 MLP with an f32 cache
 (``int8_mlp``), and the plain MLP with an int8 cache (``int8_cache``).
 
-Prints the card's name and power limit; one JSON line with the f32/bf16-
+Prints the card's name and power limit and, on the next line, the build
+(torch, its CUDA, and nvcc's release); one JSON line with the f32/bf16-
 cache decode's time at the serving shape (q [4,8,1,128] bf16, f32 cache
 [4,8,2048,128], kv_len [17,500,1300,2048]) by CUDA events and by the
 profiler's device time; then, after one warm run of each configuration, N
@@ -28,7 +29,6 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -87,10 +87,7 @@ def main(argv: list) -> int:
                                                   HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)  # its package imports resolve in --root
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip(),
-        flush=True)
+    smoke.device_lines()
     device = torch.device("cuda", 0)
     print(json.dumps({"tag": args.tag, "flash_decode": decode_times(
         smoke, torch, device)}), flush=True)

@@ -348,3 +348,162 @@ def test_refusal_is_the_invalid_argument_error_alone(monkeypatch):
     for code in (700, 11, 719):  # an illegal address, and 1 as a prefix
         with pytest.raises(RuntimeError, match=f"CUDA error {code} "):
             chip_smoke.refused_as_invalid(fails(code))
+
+
+# ---------------------------------------------------------------------------
+# the build line, the serving-obs phase and the FLOP expectations
+# ---------------------------------------------------------------------------
+
+
+NVCC_OUT = ("nvcc: NVIDIA (R) Cuda compiler driver\n"
+            "Copyright (c) 2005-2025 NVIDIA Corporation\n"
+            "Built on Fri_Feb_21_20:23:50_PST_2025\n"
+            "Cuda compilation tools, release 12.8, V12.8.93\n"
+            "Build cuda_12.8.r12.8/compiler.35583870_0\n")
+
+
+def _fake_run(outputs):
+    def run(cmd, **kw):
+        key = "nvcc" if cmd[0].endswith("nvcc") else cmd[0]
+        return SimpleNamespace(stdout=outputs[key], returncode=0)
+    return run
+
+
+def test_build_line_names_torch_cuda_and_nvcc_release(monkeypatch, capsys):
+    monkeypatch.setattr(chip_smoke._build, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run", _fake_run({
+        "nvcc": NVCC_OUT,
+        "nvidia-smi": "NVIDIA H100 80GB HBM3, 700.00 W\n"}))
+    got = chip_smoke.device_lines()
+    assert got["toolchain"] == {
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "nvcc": "Cuda compilation tools, release 12.8, V12.8.93"}
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "NVIDIA H100 80GB HBM3, 700.00 W"
+    assert lines[1] == (f"build: torch {torch.__version__}, CUDA "
+                        f"{torch.version.cuda}, nvcc Cuda compilation tools, "
+                        "release 12.8, V12.8.93")
+
+
+def test_build_line_without_nvcc_or_its_release_is_an_error(monkeypatch):
+    def missing():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(chip_smoke._build, "_nvcc", missing)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        chip_smoke.toolchain()
+    monkeypatch.setattr(chip_smoke._build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        _fake_run({"nvcc": "nvcc: no version here\n"}))
+    with pytest.raises(chip_smoke.SmokeFailure, match="no release"):
+        chip_smoke.toolchain()
+
+
+def test_lm_counted_flops_parts(monkeypatch):
+    """The mode's part is the step without attention, as FlopCounterMode
+    counts it (a tiny model, ``attn_impl="skip"``, on the CPU); the
+    kernels' part is the three attention wrappers' formulas summed over the
+    step's launches."""
+    from raydp_tpu_torch.obs.costmodel import count_flops
+    from raydp_tpu_torch.ops import _flops
+
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(vocab_size=64, d_model=32,
+                                                  num_heads=2, num_layers=2))
+    b, t = 2, 24
+    want = chip_smoke.lm_counted_flops(b, t)
+    model = chip_smoke.TransformerLM(**chip_smoke.MODEL, max_len=t + 1,
+                                     attn_impl="skip", device="cpu",
+                                     dtype=torch.float32)
+    opt = torch.optim.Adam(model.parameters())
+    tokens = torch.randint(0, 64, (b, t))
+    _, mode = count_flops(lambda: chip_smoke.train_step(model, opt, tokens, tokens))
+    assert mode == want["mode"]
+    args = (b * 2, t, t, 16, 0, 0, True)
+    per_layer = (_flops.attention_fwd_flops(*args)
+                 + _flops.attention_bwd_flops("flash_bwd_dq", *args)
+                 + _flops.attention_bwd_flops("flash_bwd_dkv", *args))
+    assert want["kernels"] == 2 * per_layer
+
+
+def test_dlrm_counted_flops_is_the_count_of_a_step(monkeypatch):
+    """``dlrm_counted_flops`` against the estimator's count of its first
+    staged step on the CPU, with K1's forward replaced by a stand-in that
+    reports 2 * D a pair and uses no op the mode counts, as the ctypes
+    launch on the card does."""
+    import numpy as np
+
+    from raydp_tpu_torch.ops import _flops
+    from raydp_tpu_torch.ops import interaction as ia
+
+    def k1_stand_in(stacked):
+        rows, cols = np.tril_indices(stacked.shape[1], -1)
+        out = (stacked[:, rows] * stacked[:, cols]).sum(-1)
+        _flops.note_flops(2 * out.numel() * stacked.shape[2])
+        return out
+
+    monkeypatch.setattr(ia, "interaction_fwd", k1_stand_in)
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN",
+                        dict(chip_smoke.DLRM_RUN, rows=1024, batch=256))
+    ds, dense_cols, cat_cols = chip_smoke.dlrm_data()
+    est = chip_smoke.dlrm_estimator(torch.device("cpu"), dense_cols, cat_cols,
+                                    "adam", 1)
+    est.fit(ds)
+    assert est.fit_stats_["flops_per_step"] == chip_smoke.dlrm_counted_flops(256)
+
+
+@pytest.fixture
+def tiny_serving(monkeypatch):
+    """chip_smoke's serving phase at a tiny width on the CPU."""
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(vocab_size=64, d_model=32,
+                                                  num_heads=2, num_layers=2))
+    monkeypatch.setattr(chip_smoke, "ENGINE", dict(
+        capacity_tokens=128, page_tokens=32, max_seqs=4, max_new_tokens=32))
+    monkeypatch.setattr(chip_smoke, "OBS_PROBE", dict(
+        chip_smoke.OBS_PROBE, rounds=2, streams_per_arm=2, max_new_tokens=4))
+    model = chip_smoke.TransformerLM(**chip_smoke.MODEL, max_len=128,
+                                     attn_impl="flash", device="cpu",
+                                     dtype=torch.float32, seed=0).eval()
+    prompts = chip_smoke.make_prompts(8, 4, 60, 64)
+    return model, prompts
+
+
+def test_serving_obs_phase_on_the_cpu(tiny_serving, tmp_path, monkeypatch):
+    """The phase's structure, run with the plain versions: tokens and
+    launches equal to the obs-off run, metric deltas, spans in the exported
+    trace, a mid-decode dossier naming streams in flight, explain_stream
+    within 1%, and the veto holding and releasing a stream."""
+    from raydp_tpu_torch.obs import tracing
+
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    model, prompts = tiny_serving
+    cpu = torch.device("cpu")
+    plain = chip_smoke.serve(model, prompts, False, cpu)
+    got = chip_smoke.serve_obs(model, prompts, cpu, plain)
+    assert not tracing.enabled()
+    assert got["prefill_spans"] == 8 and got["step_spans"] == got["steps"]
+    assert got["metric_deltas"]["serve.decode.tokens"] == 8 * 32
+    assert got["state_note_inflight"] and got["explain_gap_max"] <= 0.01
+    assert got["veto"]["queued_while_held"] == 1
+    assert got["veto"]["vetoes"]["mem_pressure"] >= 1
+    assert (tmp_path / "serve_trace.json").is_file()
+
+
+def test_serving_obs_phase_fails_on_other_tokens(tiny_serving, tmp_path,
+                                                 monkeypatch):
+    monkeypatch.setattr(chip_smoke, "OUT_DIR", tmp_path)
+    model, prompts = tiny_serving
+    cpu = torch.device("cpu")
+    plain = chip_smoke.serve(model, prompts, False, cpu)
+    plain["tokens_by_stream"][3] = plain["tokens_by_stream"][3][::-1]
+    with pytest.raises(chip_smoke.SmokeFailure, match="obs on differ"):
+        chip_smoke.serve_obs(model, prompts, cpu, plain)
+
+
+def test_decode_obs_probe_reports_both_arms(tiny_serving):
+    from raydp_tpu_torch.obs import tracing
+
+    model, _ = tiny_serving
+    got = chip_smoke.decode_obs_probe(model, torch.device("cpu"))
+    assert len(got["token_ms_on_samples"]) == len(got["token_ms_off_samples"]) == 2
+    assert got["overhead_frac"] == got["token_ms_on"] / got["token_ms_off"] - 1
+    assert not tracing.enabled() and tracing.drain_local() == []

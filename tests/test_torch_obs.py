@@ -27,6 +27,7 @@ from raydp_tpu_torch.estimator import Estimator
 from raydp_tpu_torch.exchange.dataset import ArrayDataset
 from raydp_tpu_torch.models.dlrm import DLRM
 from raydp_tpu_torch.obs import analysis, costmodel, profiler, tracing
+from raydp_tpu_torch.ops import _flops
 
 # both packages' ``obs.metrics`` is the registry; these are the modules
 jax_metrics = importlib.import_module("raydp_tpu.obs.metrics")
@@ -223,14 +224,14 @@ def test_count_flops_sees_matmuls_and_reported_kernels():
     x = torch.randn(32, 16, requires_grad=True)
 
     def step():
-        costmodel.note_kernel_flops(1000)
+        _flops.note_flops(1000)
         layer(x).sum().backward()
         return "done"
 
     result, flops = costmodel.count_flops(step)
     # forward 2*B*in*out, backward twice that (input and weight gradients)
     assert result == "done" and flops == 3 * 2 * 32 * 16 * 8 + 1000
-    costmodel.note_kernel_flops(5)  # outside a count: ignored
+    _flops.note_flops(5)  # outside a count: ignored
     assert costmodel.count_flops(lambda: None)[1] == 0
 
 
