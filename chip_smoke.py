@@ -235,11 +235,13 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2031,6 +2033,418 @@ def device_share(prof, wall_ms: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase_cluster: a card actor of the port's cluster runtime
+# ---------------------------------------------------------------------------
+
+# the cluster of phase_cluster: 4 CPUs and the card as the custom resource
+# "GPU"; the card actor may be restarted once, so its second SIGKILL is a
+# terminal death
+CLUSTER = dict(num_cpus=4, resources={"GPU": 1.0})
+CLUSTER_LIMIT_S = 60.0  # the whole phase
+CLUSTER_DEADLINE_S = 10.0  # dossier, memory back, no process after shutdown
+CARD_MEMORY_SLACK = 256 << 20
+SHIP_EVERY_S = 0.05  # the card actor ships its telemetry while it serves
+
+
+# what phase_cluster's summary line prints (the record holds more)
+CLUSTER_KEYS = ("init_s", "zygote_warm_s", "spawn_to_ready_s", "actor_init_s",
+                "ttft_ms_first", "ttft_ms_p50", "killed_at_tokens",
+                "recover_s", "restart_init_s", "dossier_s", "memory_back_s",
+                "head_tokens", "probe_exit_leaks", "driver_exit_leaks",
+                "shutdown_s", "gone_after_shutdown_s", "phase_s")
+
+
+class CardServer:
+    """The card actor of ``phase_cluster``: a user class that serves the
+    full-width ``TransformerLM`` through ``DecodeEngine``, spawned through
+    ``cluster.spawn`` and forked from the zygote. ``__init__`` runs on the
+    worker's main thread and the methods on its pool's threads, so each
+    names the device itself and holds no stream object; every method
+    returns host data only. The weights come from ``seed`` through the
+    model's CPU generator, so they equal those of the driver's
+    ``phase_serve`` with nothing shipped."""
+
+    def __init__(self, model_cfg: dict, engine_cfg: dict, device: str, seed: int):
+        from raydp_tpu_torch import obs
+
+        t0 = time.perf_counter()
+        # the flush every process makes (its memory sampler included),
+        # before the card is touched: it must leave the CUDA driver alone
+        obs.flush()
+        self.cuda_untouched_after_flush = not torch.cuda.is_initialized()
+        t1 = time.perf_counter()
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False  # as main() sets them
+            torch.backends.cudnn.allow_tf32 = False
+            torch.zeros(1, device=self.device)  # the CUDA context
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self.model = TransformerLM(**model_cfg, attn_impl="flash",
+                                   device=self.device, seed=seed).eval()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.engine_cfg = dict(engine_cfg)
+        self.init_s = {"flush": t1 - t0, "cuda_context": t2 - t1,
+                       "model": time.perf_counter() - t2}
+
+    def info(self) -> dict:
+        return {"pid": os.getpid(), "init_s": self.init_s,
+                "cuda_untouched_after_flush": self.cuda_untouched_after_flush}
+
+    def serve(self, prompts: list) -> dict:
+        """Serve ``prompts`` as ``serve()`` does in the driver, each stream
+        with a minted trace context; launch counts zeroed just before and
+        read just after. Ships telemetry every ``SHIP_EVERY_S`` while it
+        polls, and once more at the end."""
+        from raydp_tpu_torch import obs
+
+        new_tokens = self.engine_cfg["max_new_tokens"]
+        fa.reset_launches()
+        qz.reset_launches()
+        with DecodeEngine(self.model, device=self.device, **self.engine_cfg) as eng:
+            submit_unix = time.time()
+            sids = [eng.submit(p, new_tokens, trace_ctx=obs.mint_context())
+                    for p in prompts]
+            tokens = drain_streams(
+                eng, sids, 600.0,
+                on_poll=lambda: obs.flush_throttled(SHIP_EVERY_S))
+            records = [eng.explain(sid) for sid in sids]
+        launches = dict(fa.LAUNCHES) | qz.LAUNCHES
+        obs.flush()
+        return {"pid": os.getpid(), "tokens": [tokens[sid] for sid in sids],
+                "launches": launches, "submit_unix": submit_unix,
+                "ttft_s": [r["ttft_s"] for r in records]}
+
+
+class CardProbe:
+    """A card actor that exits gracefully: its exit audits its resources
+    against the baseline the worker took before ``__init__`` and ships the
+    ``sanitize.leaked_*`` gauges to the head."""
+
+    def __init__(self, device: str):
+        self.block = torch.ones(1 << 20, device=torch.device(device))
+
+    def touch(self) -> dict:
+        return {"pid": os.getpid(), "sum": float(self.block.sum())}
+
+
+def _wait_for(predicate, timeout_s: float, what: str):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = predicate()
+        if value:
+            return value
+        require(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _session_procs(session: str) -> list:
+    """Processes other than this one whose command line names ``session``:
+    the head, the session-local zygote and every child it forked (a forked
+    child keeps the zygote's command line)."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                if session.encode() in f.read():
+                    found.append(int(entry))
+        except OSError:
+            continue
+    return found
+
+
+def _series_last(query_metrics, proc_key: str) -> float:
+    """The newest shipped value of ``serve.decode.tokens`` of one process on
+    the head (0 before its first ship)."""
+    for entry in query_metrics("serve.decode.tokens", window_s=600.0):
+        if entry["labels"].get("proc") == proc_key:
+            return float(entry["last"])
+    return 0.0
+
+
+def _find_dossier(session: str, actor_id: str):
+    for path in sorted(Path(session, "dossiers").glob("dossier-*.json")):
+        dossier = json.loads(path.read_text())
+        if (dossier["victim"].get("actor_id") == actor_id
+                and dossier["reason"] == "actor_crashed"):
+            return dossier
+    return None
+
+
+def _prefill_spans_by_track(trace: dict, actor_id: str) -> dict:
+    """``{"worker:<actor_id> (pid N)": count}`` of ``serve.decode.prefill``
+    spans in an exported trace."""
+    tracks = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+              if e["ph"] == "M"}
+    counts: dict = {}
+    for event in trace["traceEvents"]:
+        name = tracks.get(event["pid"], "")
+        if (event["name"] == "serve.decode.prefill"
+                and name.startswith(f"worker:{actor_id} ")):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def phase_cluster(device, served: dict, model_cfg: dict = MODEL,
+                  engine_cfg: dict = ENGINE, prompts=None,
+                  out_dir: Path = OUT_DIR) -> dict:
+    """Serve the full-width model from a card actor of the port's cluster
+    and hold it to ``served`` (phase_serve's f32-cache run: its tokens and
+    its launch counts) through a SIGKILL, a restart and a terminal death:
+
+    1. the free device memory before the cluster;
+    2. ``cluster.init`` (4 CPUs, the card as ``GPU``) with the zygote's
+       torch warm set on and a session-local zygote, and lockdep and the
+       leak audit armed in every process; the zygote's warm-up;
+    3. ``CardServer`` spawned with ``resources={"GPU": 1}``,
+       ``max_restarts=1``, ``light=True`` (forked from the zygote) and
+       tracing on: its tokens equal ``served``'s bit for bit and its
+       ``flash_fwd`` (K2a) and ``flash_decode`` (K4a) launches, counted in
+       the actor, equal the in-process run's (every count of the run, in
+       fact);
+    4. a second ``serve.remote``, SIGKILLed once the head's series of the
+       actor's ``serve.decode.tokens`` shows the serve under way (above its
+       value before the serve, below that plus the serve's tokens): the call
+       raises, the actor comes back ALIVE at incarnation 1 with
+       ``restarts_used`` 1 and serves the same tokens bit for bit;
+    5. a second SIGKILL, past ``max_restarts``: within 10 s a dossier with
+       reason ``actor_crashed`` names the actor, with a decode section from
+       the victim's shipped ``serve.decode.state`` notes and the lock-order
+       graph;
+    6. the head's view: ``dump_metrics`` holds the actor's
+       ``serve.decode.tokens`` of both incarnations, ``export_trace``
+       (``cluster_trace.json``) its ``serve.decode.prefill`` spans under
+       ``worker:<actor_id>``, a scrape the ``serve_decode_tokens`` series;
+    7. within 10 s of the terminal death the free device memory is back
+       within 256 MiB of step 1;
+    8. a ``CardProbe`` actor that touches the card and exits gracefully
+       (``mark_intentional_exit``, then ``__shutdown__``): its leak gauges;
+    9. ``cluster.shutdown()``: within 10 s no process of the session is
+       alive (head, zygote, workers), and the driver's own leak gauges.
+
+    The whole phase takes at most 60 s. Returns the record, with init to
+    head ready, the zygote's warm-up, spawn to ready (the fork, the CUDA
+    context, the model), TTFT of the first serve and the kill to the
+    restarted actor's first token (time to recover)."""
+    from raydp_tpu_torch import cluster
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import ClusterError, _probe_pid, rpc
+    from raydp_tpu_torch.cluster.zygote import (WARM_TORCH_ENV,
+                                                zygote_marker_path,
+                                                zygote_sock_path)
+    from raydp_tpu_torch.obs import timeseries
+    from raydp_tpu_torch.obs.metrics import metrics
+
+    # the actor classes by reference: the worker imports this file as the
+    # module chip_smoke (its directory is on the actors' PYTHONPATH). Run as
+    # a script, this file is __main__, whose classes cloudpickle would carry
+    # by value, and with them torch.backends' module objects, which it
+    # cannot pickle
+    here = importlib.import_module("chip_smoke")
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    if prompts is None:
+        prompts = make_prompts(N_STREAMS, *PROMPT_LENS, model_cfg["vocab_size"])
+    per_serve = len(prompts) * engine_cfg["max_new_tokens"]
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", WARM_TORCH_ENV: "1",
+             "RAYDP_TPU_SANITIZE": "lockdep,leaks"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    rec: dict = {"streams": len(prompts), "tokens_per_serve": per_serve}
+
+    def same_as_served(run: dict, what: str) -> None:
+        require(run["tokens"] == served["tokens_by_stream"],
+                f"{what}: the card actor's tokens differ from phase_serve's")
+        require(run["launches"] == served["launches"],
+                f"{what}: launches {run['launches']} in the actor, "
+                f"{served['launches']} in the driver")
+        if cuda:
+            require(run["launches"]["flash_fwd"] > 0
+                    and run["launches"]["flash_decode"] > 0,
+                    f"{what}: K2a or K4a never launched in the actor")
+
+    try:
+        mem_base = torch.cuda.mem_get_info(device)[0] if cuda else None
+        t0 = time.perf_counter()
+        session = cluster.init(**CLUSTER)
+        rec["init_s"] = time.perf_counter() - t0
+
+        def zygote_serves() -> bool:
+            import socket
+
+            probe = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            try:
+                probe.connect(zygote_sock_path(session))
+                return True
+            except OSError:
+                return False
+            finally:
+                probe.close()
+
+        _wait_for(zygote_serves, 30.0, "the zygote's warm-up")
+        rec["zygote_warm_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        actor = cluster.spawn(
+            here.CardServer, model_cfg, engine_cfg, str(device), SEED,
+            name="card-server", resources={"GPU": 1}, max_restarts=1,
+            light=True, env={"RAYDP_TPU_TRACE": "1"})
+        rec["spawn_to_ready_s"] = time.perf_counter() - t1
+        info0 = actor.info()
+        rec["actor_init_s"] = info0["init_s"]
+        require(info0["cuda_untouched_after_flush"],
+                "the zygote-forked actor's flush initialised CUDA")
+        first = actor.serve(prompts)
+        same_as_served(first, "first serve")
+        rec["launches"] = first["launches"]
+        rec["ttft_ms_first"] = 1e3 * min(first["ttft_s"])
+        rec["ttft_ms_p50"] = 1e3 * statistics.median(first["ttft_s"])
+        log(f"cluster: init {rec['init_s']:.3f} s, zygote warm "
+            f"{rec['zygote_warm_s']:.3f} s, spawn to ready "
+            f"{rec['spawn_to_ready_s']:.3f} s ({info0['init_s']}), TTFT "
+            f"first {rec['ttft_ms_first']:.2f} ms, p50 {rec['ttft_ms_p50']:.2f} "
+            f"ms, launches {first['launches']}")
+
+        # 4. SIGKILL mid-serve, restart, the same tokens again
+        key0 = f"worker:{actor.actor_id}:{info0['pid']}"
+        base = _series_last(capi.query_metrics, key0)
+        require(base == per_serve, f"{key0} shipped {base} tokens, not {per_serve}")
+        future = actor.serve.remote(prompts)
+        # the first half of the serve: the kill lands well before its end
+        seen = _wait_for(
+            lambda: (lambda v: v if base < v <= base + per_serve // 2 else 0.0)(
+                _series_last(capi.query_metrics, key0)),
+            60.0, "the head to see the second serve under way")
+        t_kill = time.time()
+        os.kill(info0["pid"], signal.SIGKILL)
+        try:
+            future.result(timeout=60)
+        except (ConnectionError, OSError, ClusterError) as exc:
+            rec["in_flight_error"] = type(exc).__name__
+        else:
+            raise SmokeFailure("the call in flight returned from a SIGKILLed actor")
+        rec["killed_at_tokens"] = seen - base
+        second = actor.serve(prompts)
+        rec["recover_s"] = second["submit_unix"] + min(second["ttft_s"]) - t_kill
+        same_as_served(second, "after the restart")
+        record1 = actor._record()
+        require(record1.state == cluster.ActorState.ALIVE
+                and record1.incarnation == 1 and record1.restarts_used == 1,
+                f"the restarted actor's record: {record1}")
+        info1 = actor.info()
+        rec["restart_init_s"] = info1["init_s"]
+        key1 = f"worker:{actor.actor_id}:{info1['pid']}"
+        log(f"cluster: killed at {rec['killed_at_tokens']:.0f} of {per_serve} "
+            f"tokens ({rec['in_flight_error']}), back at incarnation 1, "
+            f"kill to first token {rec['recover_s']:.3f} s")
+
+        # 5. the terminal death and its dossier
+        t_death = time.time()
+        os.kill(info1["pid"], signal.SIGKILL)
+        dossier = _wait_for(lambda: _find_dossier(session, actor.actor_id),
+                            CLUSTER_DEADLINE_S, "the crash dossier")
+        rec["dossier_s"] = time.time() - t_death
+        require(actor.state() == cluster.ActorState.DEAD, "the actor is not DEAD")
+        decode = [s for s in dossier.get("decode", []) if s["proc"] == key1]
+        require(bool(decode) and decode[0]["state"] is not None,
+                f"the dossier has no decode section of {key1}")
+        require(isinstance(dossier.get("lock_order_graph"), list),
+                "the dossier has no lock-order graph")
+        rec["dossier"] = {
+            "keys": sorted(dossier), "rings": [r["proc"] for r in dossier["victim_rings"]],
+            "decode_state": decode[0]["state"]["fields"],
+            "lock_order_edges": len(dossier["lock_order_graph"])}
+
+        # 7. the card's memory back (read before the head's view: it bounds
+        # the time since the death)
+        if cuda:
+            rec["memory_back_s"] = _wait_for(
+                lambda: (time.time() - t_death) if torch.cuda.mem_get_info(
+                    device)[0] >= mem_base - CARD_MEMORY_SLACK else 0.0,
+                CLUSTER_DEADLINE_S, "the dead actor's device memory")
+            rec["memory_free_delta_bytes"] = (
+                torch.cuda.mem_get_info(device)[0] - mem_base)
+        else:  # no card: nothing to give back
+            rec["memory_back_s"] = rec["memory_free_delta_bytes"] = None
+        require(time.time() - t_death <= CLUSTER_DEADLINE_S + 1.0,
+                "the dossier and the memory took past the deadline")
+
+        # 6. the head's view
+        merged = cluster.dump_metrics()
+        by_incarnation = {key: merged[key]["serve.decode.tokens"]["value"]
+                          for key in (key0, key1)}
+        require(by_incarnation[key1] == per_serve
+                and base < by_incarnation[key0] < base + per_serve,
+                f"serve.decode.tokens on the head: {by_incarnation}")
+        rec["head_tokens"] = by_incarnation | {"sum": sum(by_incarnation.values())}
+        out_dir.mkdir(exist_ok=True)
+        trace = json.loads(Path(cluster.export_trace(
+            str(out_dir / "cluster_trace.json"))).read_text())
+        prefills = _prefill_spans_by_track(trace, actor.actor_id)
+        require(prefills.get(f"worker:{actor.actor_id} (pid {info1['pid']})")
+                == len(prompts) and sum(prefills.values()) >= 2 * len(prompts),
+                f"prefill spans under the actor's tracks: {prefills}")
+        rec["prefill_spans"] = prefills
+        cluster.head_rpc("obs_configure", scrape_port=0)
+        parsed = timeseries.parse_prometheus_text(
+            timeseries.scrape(*capi.scrape_addr()))
+        scraped = parsed.get("raydp_serve_decode_tokens_total", {})
+        require(any(("proc", key1) in labels for labels in scraped),
+                f"the scrape has no serve_decode_tokens series of {key1}")
+        rec["scrape_series"] = len(scraped)
+
+        # 8. a graceful exit of a card actor
+        probe = cluster.spawn(here.CardProbe, str(device), name="card-probe",
+                              resources={"GPU": 1}, light=True)
+        probe_pid = probe.touch()["pid"]
+        cluster.head_rpc("mark_intentional_exit", actor_id=probe.actor_id)
+        rpc(probe._record().sock_path, ("__shutdown__", (), {}, False),
+            timeout=10)
+        _wait_for(lambda: _probe_pid(probe_pid) != "alive", CLUSTER_DEADLINE_S,
+                  "the probe's graceful exit")
+        probe_key = f"worker:{probe.actor_id}:{probe_pid}"
+        rec["probe_exit_leaks"] = {
+            name: snap["value"]
+            for name, snap in cluster.dump_metrics()[probe_key].items()
+            if name.startswith("sanitize.")}
+
+        # 9. shutdown: no process of the session outlives it
+        pids = {"head": capi._head_proc.pid,
+                "zygote": int(Path(zygote_marker_path(session)).read_text()),
+                "incarnation0": info0["pid"], "incarnation1": info1["pid"],
+                "probe": probe_pid}
+        t2 = time.perf_counter()
+        cluster.shutdown()
+        rec["shutdown_s"] = time.perf_counter() - t2
+        _wait_for(lambda: not any(_probe_pid(p) == "alive" for p in pids.values())
+                  and not _session_procs(session), CLUSTER_DEADLINE_S,
+                  f"the session's processes {pids} to exit")
+        rec["gone_after_shutdown_s"] = time.perf_counter() - t2
+        rec["driver_exit_leaks"] = {
+            name: snap["value"] for name, snap in metrics.snapshot().items()
+            if name.startswith("sanitize.")}
+    finally:
+        if capi.is_initialized():
+            cluster.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["phase_s"] = time.perf_counter() - t_phase
+    require(rec["phase_s"] <= CLUSTER_LIMIT_S,
+            f"phase_cluster took {rec['phase_s']:.1f} s")
+    log(f"cluster: dossier after {rec['dossier_s']:.3f} s, memory back after "
+        f"{rec['memory_back_s']} s, head tokens {rec['head_tokens']}, "
+        f"probe exit leaks {rec['probe_exit_leaks']}, driver exit leaks "
+        f"{rec['driver_exit_leaks']}, shutdown {rec['shutdown_s']:.3f} s, "
+        f"phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 def train_tokens(batch, t, vocab, device):
     """bench.py's tokens: default_rng(17) draws [batch, t + 1]; inputs are
     the first t, targets the last t."""
@@ -3698,6 +4112,7 @@ def main(argv: list) -> int:
     record = {"device": phase_device()}
     record["checks"] = phase_kernels(device)
     record["serve"] = phase_serve(device)
+    record["cluster"] = phase_cluster(device, record["serve"]["runs"][0])
     record["train"] = phase_train(device)
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
@@ -3734,6 +4149,9 @@ def main(argv: list) -> int:
            "streamed_device_busy_share":
                fit["attribution"]["profile"]["device_busy_share"]}}))
     dev, probe = record["device"], record["obs"]
+    log(json.dumps({"cluster": {k: record["cluster"][k] for k in CLUSTER_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"],
+                       "toolchain": dev["toolchain"]}}))
     log(json.dumps({"obs": {
         "decode_obs_overhead": record["serve"]["decode_obs_probe"]["overhead_frac"],
         "step_recorder_overhead": probe["step_recorder_probe"]["overhead_frac"],

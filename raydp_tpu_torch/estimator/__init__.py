@@ -1,5 +1,5 @@
 """The port's estimator: ``Estimator``, the one-card counterpart of
-``raydp_tpu.estimator.JaxEstimator``, its checkpoints and its metric
+the JAX package's ``JaxEstimator``, its checkpoints and its metric
 registry."""
 
 from raydp_tpu_torch.estimator.checkpoint import (

@@ -1,5 +1,5 @@
 """``Estimator``: the one-card counterpart of
-``raydp_tpu.estimator.JaxEstimator``.
+the JAX package's ``JaxEstimator`` (``raydp_tpu/estimator``).
 
 It trains a torch module on a dataset that stages to numpy
 (``exchange.dataset.ArrayDataset`` until the port has its store), in one of

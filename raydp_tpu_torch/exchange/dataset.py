@@ -1,9 +1,10 @@
 """``ArrayDataset``: the port's training data source until it has its store.
 
-The JAX package trains from ``raydp_tpu.exchange.dataset.Dataset``, Arrow
-blocks in the cluster's object store. The port has no store, cluster or ETL
-engine yet, so it stages from numpy through this stand-in, which keeps what
-the estimator calls of ``Dataset``:
+The JAX package trains from the ``Dataset`` of
+``raydp_tpu/exchange/dataset.py``, Arrow blocks in the cluster's object
+store. The port has no store or ETL engine yet, so it stages from numpy
+through this stand-in, which keeps what the estimator calls of
+``Dataset``:
 
 - the two staging methods (``to_numpy`` and ``to_numpy_grouped``, with the
   same signatures) and the staging rules of ``_table_to_numpy_grouped``: an

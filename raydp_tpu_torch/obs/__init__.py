@@ -1,22 +1,26 @@
-"""Observability of the port: its own copies of the process-local parts
-of ``raydp_tpu/obs``, which the estimator's fit and the decode engine
-report through.
+"""Observability of the port: its own copy of ``raydp_tpu/obs``, which the
+estimator's fit, the decode engine and the cluster runtime report through.
 
 - **Tracing** (``obs.span`` / ``obs.instant`` / ``obs.collect``): spans as
   plain dicts, caught by thread-local collectors (the fit's epoch and
   compile times and ``explain_last_fit`` read these) and, with
-  ``RAYDP_TPU_TRACE=1`` (or ``tracing.set_enabled``), kept in a local
-  ring; ``obs.mint_context`` makes a sampled stream's root.
+  ``RAYDP_TPU_TRACE=1`` (or ``tracing.set_enabled``), kept in a ring that
+  ships to the cluster head on ``obs.flush`` with the metrics snapshot and
+  the log ring, trace and span ids riding the cluster's RPC frames;
+  ``obs.mint_context`` makes a sampled stream's root, and
+  ``obs.set_process_role`` names this process's track.
 - **Metrics** (``obs.metrics``): the always-on process-local registry of
   counters, gauges and histograms (``estimator.*``, ``serve.decode.*``,
-  ``serve.{ttft,tpot}_ms``, ``mem.*``); ``obs.dump_metrics()`` reads it.
-- **Time series** (``obs/timeseries.py``): every flush folds the registry
-  into a windowed process-local mirror (``obs.query_local_series``) with
-  Prometheus text exposition.
-- **Export** (``obs.export_trace``): the local ring as Perfetto JSON.
+  ``serve.{ttft,tpot}_ms``, ``mem.*``, ``cluster.*``);
+  ``obs.dump_metrics()`` merges every process's from the head.
+- **Time series** (``obs/timeseries.py``): the head's store behind its
+  Prometheus scrape endpoint and ``cluster.query_metrics``, and a windowed
+  process-local mirror fed by every flush (``obs.query_local_series``).
+- **Export** (``obs.export_trace``): the cluster's trace as Perfetto JSON.
 - **Flight recorder** (``obs/recorder.py``): the recent-log ring (the
-  decode engine's ``serve.decode.state`` notes among its lines) and the
-  crash dossier assembled from it.
+  decode engine's ``serve.decode.state`` notes among its lines), the
+  head's per-process rings and the crash dossier it writes on a terminal
+  actor death.
 - **Profiler** (``obs.profile_fit``, ``obs.sample_memory``): the step
   recorder, capture windows through ``torch.profiler``, fit attribution
   and the memory plane, with ``current_mem_pressure`` behind the decode
@@ -25,9 +29,11 @@ report through.
   fit, and ``explain_stream`` of a decode stream's record.
 - **Cost model** (``obs/costmodel.py``): FLOPs, device peaks, MFU.
 
-Still to port (ROADMAP Queue 1): shipping to a cluster head and what the
-head does with it (its time-series store and scrape endpoint, dossiers on
-a death event, process roles), and ``explain_last_query``.
+Stdlib only at import (torch is imported where a function needs it): the
+head, the agents and the zygote import this package.
+
+Still to port (ROADMAP Queue 1): ``explain_last_query``, with the ETL
+engine.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from raydp_tpu_torch.obs.tracing import (
     instant,
     mint_context,
     record_span,
+    set_process_role,
     span,
     use_context,
     use_sinks,
@@ -68,6 +75,7 @@ __all__ = [
     "query_local_series",
     "record_span",
     "sample_memory",
+    "set_process_role",
     "span",
     "use_context",
     "use_sinks",

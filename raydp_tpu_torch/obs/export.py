@@ -1,18 +1,17 @@
-"""Trace and metrics export: the port's copy of ``raydp_tpu/obs/export.py``
-over this process's own records.
+"""Trace and metrics export: the port's copy of ``raydp_tpu/obs/export.py``.
 
-``export_trace(path)`` flushes this process, takes the spans of its local
-ring and writes the Chrome trace-event format that Perfetto loads
-directly (https://ui.perfetto.dev, open file): complete events (``ph:
-"X"`` with ``ts``/``dur`` in microseconds), instant events (``ph: "i"``)
-and process-name metadata events, one labelled track per process.
-``dump_metrics()`` is ``{"<role>:<pid>": {metric: snapshot}}`` for this
-process, with ``trace.spans_dropped`` where the full ring dropped spans,
-the counter the JAX package's head adds to a process's snapshot.
+``export_trace(path)`` flushes this process, pulls everything the cluster
+head has collected (every process ships its ring buffer there), merges this
+process's local leftovers, and writes the Chrome trace-event format that
+Perfetto loads directly (https://ui.perfetto.dev, open file): complete
+events (``ph: "X"`` with ``ts``/``dur`` in microseconds), instant events
+(``ph: "i"``) and process-name metadata events, one labelled track per
+process. ``dump_metrics()`` is ``{"<role>:<pid>": {metric: snapshot}}`` for
+every process that has flushed, merged with this process's live registry.
 
-The JAX package also merges what the cluster head collected from every
-process; the port has no head yet, so both read the local records alone,
-the JAX package's own outcome with no cluster running.
+With no cluster running both read the local records alone, and the local
+snapshot carries ``trace.spans_dropped`` where the full ring dropped spans
+(the counter the head adds to a shipped snapshot).
 """
 
 from __future__ import annotations
@@ -23,22 +22,35 @@ from typing import Any, Dict, List
 
 
 def _gather(drain: bool = True) -> Dict[str, Any]:
-    """Everything observable in this process now. ``drain=False`` (the
-    metrics read) leaves the spans in the local ring: a metrics read must
-    never destroy trace data a later export would have written."""
+    """Everything observable right now: head-aggregated spans/metrics merged
+    with this process's local leftovers. ``drain=False`` (the metrics read)
+    leaves unshipped spans in the local ring: a metrics read must never
+    destroy trace data a later export would have written."""
     from raydp_tpu_torch.obs.metrics import metrics
     from raydp_tpu_torch.obs.tracing import (drain_local, dropped_count,
                                              flush, process_role)
 
-    flush()
-    spans: List[dict] = drain_local() if drain else []
+    flush()  # best-effort: puts the local buffer on the head when possible
+    spans: List[dict] = []
+    proc_metrics: Dict[str, dict] = {}
+    try:
+        from raydp_tpu_torch.cluster import api as cluster_api
+        from raydp_tpu_torch.cluster.common import SESSION_ENV
+
+        if cluster_api.is_initialized() or os.environ.get(SESSION_ENV):
+            dump = cluster_api.head_rpc("obs_dump", timeout=30.0)
+            spans.extend(dump.get("spans", []))
+            proc_metrics.update(dump.get("metrics", {}))
+    except Exception:  # no cluster (or a dead head): local-only export below
+        pass
+    if drain:
+        spans.extend(drain_local())  # anything the flush could not ship
     snapshot = metrics.snapshot()
     if dropped_count():
         snapshot["trace.spans_dropped"] = {"type": "counter",
                                            "value": dropped_count()}
-    proc_metrics: Dict[str, dict] = {}
     if snapshot:
-        proc_metrics[f"{process_role()}:{os.getpid()}"] = snapshot
+        proc_metrics.setdefault(f"{process_role()}:{os.getpid()}", snapshot)
     return {"spans": spans, "metrics": proc_metrics}
 
 
@@ -47,8 +59,10 @@ def export_trace(path: str) -> str:
     carries ``ph/ts/pid/tid/name``."""
     gathered = _gather()
     events: List[dict] = []
-    # display pids are synthesized per (role, os-pid) pair, one labelled
-    # Perfetto track per process
+    # display pids are synthesized per (role, os-pid) pair: two processes on
+    # different hosts can share an OS pid, and worker/agent roles carry a
+    # unique discriminator (actor id / node ip), so keying on the pair keeps
+    # each process on its own labelled Perfetto track
     proc_track: Dict[tuple, int] = {}
     for record in gathered["spans"]:
         os_pid = int(record.get("pid", 0))
@@ -99,6 +113,6 @@ def export_trace(path: str) -> str:
 
 
 def dump_metrics() -> Dict[str, dict]:
-    """``{"<role>:<pid>": {metric: snapshot}}`` of this process's live
-    registry."""
+    """Merged ``{"<role>:<pid>": {metric: snapshot}}`` across every process
+    that has flushed, plus this process's live registry."""
     return _gather(drain=False)["metrics"]

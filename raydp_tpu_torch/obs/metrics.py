@@ -2,8 +2,9 @@
 port's copy of ``raydp_tpu/obs/metrics.py``.
 
 Always on (the instruments are dict updates, far cheaper than any call site
-they sit in). Each process accumulates locally; the port has no cluster
-head yet, so a snapshot is read in the process (``metrics.snapshot()``).
+they sit in). Each process accumulates locally; snapshots ride to the
+cluster head with every trace flush, and ``cluster.dump_metrics()`` merges
+them.
 
 Metric names are dotted strings; docs/observability.md has the table of
 the names the runtime emits (the estimator's ``estimator.*`` names are the
@@ -13,7 +14,6 @@ same in the port).
 from __future__ import annotations
 
 import random
-import threading
 from typing import Any, Dict
 
 
@@ -135,7 +135,9 @@ class Registry:
     float-add races whose worst case is a lost increment)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        from raydp_tpu_torch.sanitize import named_lock
+
+        self._lock = named_lock("obs.metrics_registry")
         self._instruments: Dict[str, Any] = {}
 
     def _get(self, name: str, cls):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -262,7 +263,9 @@ def start_trace():
             return None
         _trace_active = True
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    # is_initialized first: is_available asks the driver for a device
+    # count, which initialises it in this process
+    if torch.cuda.is_initialized() and torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
     try:
@@ -355,11 +358,15 @@ def _read_rss_bytes() -> Optional[int]:
 
 def _device_live_bytes() -> Optional[int]:
     """Bytes the caching allocator has handed out on the current card, only
-    where CUDA is already initialised (the sampler must not be the thing
-    that creates a CUDA context)."""
-    import torch
-
-    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+    where CUDA is already initialised: the sampler must not be the thing
+    that initialises the CUDA driver (a zygote that did could no longer
+    fork actors that use the card), nor import torch into a process that
+    has not (the head, the agents). ``is_initialized`` comes first, since
+    ``is_available`` asks the driver for a device count."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return None
+    if not torch.cuda.is_available():
         return None
     return int(torch.cuda.memory_allocated())
 

@@ -6,21 +6,24 @@
   ``serve.decode.state`` note there about once a second. ``recent_logs``
   reads the ring, ``drain_logs`` / ``requeue_logs`` take records out and put
   them back, as a flush that ships them would.
-- **Recorder half** (:class:`FlightRecorder`): per-process rings of the
-  last N spans, the last N log records and a ~10 s tail of metrics
-  snapshots, fed by :meth:`FlightRecorder.note_ingest`, and the **crash
-  dossier** :meth:`~FlightRecorder.assemble` builds from them: the victims'
-  rings, the caller's state, and a ``decode`` section lifted from each
-  ring's newest ``serve.decode.state`` note and ``serve.decode.*`` /
-  ``serve.kv.*`` gauges (``_decode_sections``). :meth:`~FlightRecorder.write`
-  serializes one, :func:`list_dossiers` lists them. In the JAX package the
-  head feeds the recorder from every process's flush and assembles a
-  dossier on a death event; the port has no head yet, so a caller feeds it
-  from this process's own rings (``recent_logs()``, ``metrics.snapshot()``).
-  Wiring a death event to a dossier, and the lock-order graph of the JAX
-  package's sanitizer, wait for the cluster runtime.
+- **Head half** (:class:`FlightRecorder`): per-process rings of the last
+  N spans, the last N log records and a ~10 s tail of metrics snapshots,
+  fed by :meth:`FlightRecorder.note_ingest` from every process's flush (the
+  cluster head's ``obs_ingest``) and kept apart from the head's trace ring,
+  so a chatty process evicting the trace never evicts a victim's final
+  moments. On a terminal actor death (and on demand) the head assembles a
+  **crash dossier** (:meth:`~FlightRecorder.assemble`): the victim's rings
+  (:meth:`~FlightRecorder.find_victim_keys`), the head's actor table, a
+  ``decode`` section lifted from each ring's newest ``serve.decode.state``
+  note and ``serve.decode.*`` / ``serve.kv.*`` gauges
+  (``_decode_sections``), and the lockdep order graph when armed.
+  :meth:`~FlightRecorder.write` serializes one to the dossier dir
+  (``RAYDP_TPU_DOSSIER_DIR``, default ``<session_dir>/dossiers``),
+  :func:`list_dossiers` lists them. A caller without a head can feed it
+  from this process's own rings (``recent_logs()``,
+  ``metrics.snapshot()``).
 
-Stdlib only.
+Stdlib only; the head and ``python -S`` workers both import this.
 """
 
 from __future__ import annotations
@@ -130,7 +133,9 @@ class FlightRecorder:
     never around I/O or another lock."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        from raydp_tpu_torch.sanitize import named_lock
+
+        self._lock = named_lock("obs.flight", threading.Lock())
         self._procs: Dict[str, _ProcFlight] = {}  # guarded-by: self._lock
         self._dossiers_written = 0  # guarded-by: self._lock
         self._ingests = 0  # guarded-by: self._lock
@@ -184,14 +189,26 @@ class FlightRecorder:
                 ],
             }
 
+    def find_victim_keys(self, needle: str) -> List[str]:
+        """Process keys whose role or key mention ``needle`` (an actor id,
+        a pid string) — how a death event maps onto the rings."""
+        needle = str(needle)
+        with self._lock:
+            return [
+                key for key, flight in self._procs.items()
+                if needle in key or needle in flight.role
+            ]
+
     # -- dossiers --------------------------------------------------------
 
     def assemble(self, reason: str, victim_keys: Optional[List[str]] = None,
                  victim: Optional[dict] = None,
                  head_state: Optional[dict] = None) -> dict:
         """Build the dossier dict. ``head_state`` (actor table, tenant
-        accounting, ...) is collected by the caller; this method only reads
-        the flight rings."""
+        accounting, ...) is collected by the caller (the head snapshots it
+        under ITS lock); this method only reads the flight rings."""
+        from raydp_tpu_torch import sanitize
+
         rings = []
         for key in victim_keys or []:
             snap = self._snapshot_proc(key)
@@ -209,6 +226,10 @@ class FlightRecorder:
         decode = _decode_sections(rings)
         if decode:
             dossier["decode"] = decode
+        if sanitize.lockdep_enabled():
+            dossier["lock_order_graph"] = [
+                list(edge) for edge in sanitize.lock_order_edges()
+            ]
         return dossier
 
     def write(self, dossier: dict, out_dir: str) -> Optional[str]:

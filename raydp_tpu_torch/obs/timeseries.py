@@ -1,5 +1,5 @@
 """Windowed time-series over the metrics registry: the port's copy of
-the process-local half of ``raydp_tpu/obs/timeseries.py``.
+``raydp_tpu/obs/timeseries.py``.
 
 A :class:`SeriesStore` turns successive cumulative registry snapshots into
 bounded per-``(metric, labels)`` point rings:
@@ -18,12 +18,16 @@ series normalize to name ``tenant.<metric>`` with a ``tenant="<ns>"`` label
 (``role:pid``). ``prometheus_text`` renders the newest points in the text
 exposition format and :func:`parse_prometheus_text` reads it back.
 
-The **process-local mirror** (``local_store``) is fed by this process's own
-``tracing.flush()``; ``query_local`` / ``windowed_local`` read it. The head's
-store and its scrape endpoint (``ScrapeServer``, ``scrape``) wait for the
-port's cluster runtime.
+Two deployments of the same store:
 
-Stdlib only.
+- the **head TSDB** (one per cluster, fed by every process's flushes) backs
+  the Prometheus scrape endpoint (:class:`ScrapeServer`, stdlib TCP, one
+  exposition-format response per connection; :func:`scrape` reads it) and
+  the ``obs_query_series`` head op behind ``cluster.query_metrics``;
+- the **process-local mirror** (``local_store``), fed by this process's own
+  ``tracing.flush()``; ``query_local`` / ``windowed_local`` read it.
+
+Stdlib only; importable by ``python -S`` workers and the head.
 """
 
 from __future__ import annotations
@@ -97,7 +101,9 @@ class SeriesStore:
     """Bounded ring TSDB keyed ``(metric, labels)``; see module docstring."""
 
     def __init__(self, points_cap: int = DEFAULT_POINTS_CAP):
-        self._lock = threading.Lock()
+        from raydp_tpu_torch.sanitize import named_lock
+
+        self._lock = named_lock("obs.timeseries", threading.Lock())
         self._cap = int(points_cap)
         self._series: Dict[Tuple[str, tuple], _Series] = {}  # guarded-by: self._lock
         self._ingests = 0
@@ -290,6 +296,110 @@ def _split_labels_text(label_str: str) -> List[str]:
             cur.append(ch)
     parts.append("".join(cur))
     return parts
+
+
+# ---------------------------------------------------------------------------
+# scrape endpoint: one stdlib TCP socket serving the exposition text
+# ---------------------------------------------------------------------------
+
+
+class ScrapeServer:
+    """A minimal HTTP/1.0 responder over a plain TCP socket: every
+    connection gets one ``200 text/plain`` response holding
+    ``store.prometheus_text()`` and is closed — exactly the contract a
+    Prometheus scraper (or ``curl``) needs, with no http.server import in
+    the head's hot path. Default bind is loopback; conf ``obs.scrape_port``
+    picks the port (0 = ephemeral, reported back to the session)."""
+
+    def __init__(self, store: SeriesStore, port: int = 0,
+                 host: str = "127.0.0.1",
+                 extra_text_fn=None):
+        import socket as _socket
+
+        self._store = store
+        self._extra_text_fn = extra_text_fn
+        self._sock = _socket.socket(_socket.AF_INET, _socket.SOCK_STREAM)
+        self._sock.setsockopt(_socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1)
+        self._sock.bind((host, int(port)))
+        self._sock.listen(8)
+        self.host, self.port = self._sock.getsockname()[:2]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._serve, name="obs-scrape", daemon=True
+        )
+        self._thread.start()
+
+    def _serve(self) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except OSError:
+                return  # socket closed by close()
+            # one short-lived thread per connection: a silent client (port
+            # scanner, half-open probe) blocking in recv for its 5s timeout
+            # must not head-of-line-block a real scraper on its interval
+            threading.Thread(
+                target=self._respond, args=(conn,),
+                name="obs-scrape-conn", daemon=True,
+            ).start()
+
+    def _respond(self, conn) -> None:
+        try:
+            conn.settimeout(5.0)
+            # drain the request head (we serve one document regardless
+            # of the path, so the contents only need to be consumed)
+            try:
+                conn.recv(4096)
+            except OSError:  # a scraper that connects and says nothing still gets the document
+                pass
+            body = self._store.prometheus_text()
+            if self._extra_text_fn is not None:
+                try:
+                    body += self._extra_text_fn()
+                except Exception:  # extra text is best-effort; the core exposition must still serve
+                    pass
+            payload = body.encode("utf-8")
+            head = (
+                "HTTP/1.0 200 OK\r\n"
+                "Content-Type: text/plain; version=0.0.4\r\n"
+                f"Content-Length: {len(payload)}\r\n"
+                "Connection: close\r\n\r\n"
+            )
+            conn.sendall(head.encode("ascii") + payload)
+        except OSError:  # a scraper hanging up mid-response is its problem, not the head's
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:  # double-close race on a reset connection
+                pass
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:  # already closed
+            pass
+        self._thread.join(timeout=2.0)
+
+
+def scrape(host: str, port: int, timeout: float = 5.0) -> str:
+    """Fetch one exposition document from a scrape endpoint (test/tool
+    helper; any HTTP client works too)."""
+    import socket as _socket
+
+    with _socket.create_connection((host, int(port)), timeout=timeout) as sock:
+        sock.sendall(b"GET /metrics HTTP/1.0\r\n\r\n")
+        chunks = []
+        while True:
+            got = sock.recv(65536)
+            if not got:
+                break
+            chunks.append(got)
+    raw = b"".join(chunks).decode("utf-8", "replace")
+    if "\r\n\r\n" in raw:
+        return raw.split("\r\n\r\n", 1)[1]
+    return raw
 
 
 # ---------------------------------------------------------------------------

@@ -9,27 +9,29 @@ parent, args}`` with ``ts``/``dur`` in microseconds of wall time
   got:`` captures every span finished on this thread. The estimator reads
   its epoch and compile times, and ``explain_last_fit`` its attribution,
   from these records.
-- **the local buffer** (process-global, gated on ``RAYDP_TPU_TRACE`` or
+- **the ring buffer** (process-global, gated on ``RAYDP_TPU_TRACE`` or
   :func:`set_enabled`): finished spans are kept in a ring of
-  ``RAYDP_TPU_TRACE_BUFFER`` records; a full ring drops its oldest record
-  and counts it (:func:`dropped_count`, ``trace.spans_dropped`` in
-  ``dump_metrics``). Shipping them to a cluster head waits for the port's
-  cluster runtime; until then they stay local, as they do in the JAX
-  package when no head is set (``flush`` keeps them and returns False),
-  and ``obs.export_trace`` writes them.
+  ``RAYDP_TPU_TRACE_BUFFER`` records and ship to the cluster head on
+  :func:`flush` / at exit, with the metrics snapshot and the flight
+  recorder's log ring; with no cluster (or a dead head) they stay local and
+  are re-buffered. A full ring drops its oldest record and counts it
+  (:func:`dropped_count`, ``trace.spans_dropped`` in ``dump_metrics``).
 
 With tracing off and no collector installed, ``span()`` returns a shared
 no-op after one branch.
 
 Context: ``(trace_id, span_id)`` pairs travel thread-locally; ``span()``
-parents under the current context and installs itself for its body.
-:func:`mint_context` makes a root out of band (a serving stream's, passed
+parents under the current context and installs itself for its body. RPC
+clients attach the current context to outgoing frames (cluster.common.rpc,
+ActorHandle) and servers adopt it around the handled call, so causality
+crosses process boundaries. :func:`mint_context` makes a root out of band (a serving stream's, passed
 to ``DecodeEngine.submit`` as ``trace_ctx``), :func:`with_context` runs a
 function under one on another thread.
 """
 
 from __future__ import annotations
 
+import atexit
 import collections
 import os
 import threading
@@ -43,16 +45,34 @@ BUFFER_ENV = "RAYDP_TPU_TRACE_BUFFER"
 _enabled = os.environ.get(TRACE_ENV, "0") not in ("", "0", "false", "False")
 _buffer_cap = int(os.environ.get(BUFFER_ENV, "8192") or "8192")
 
+from raydp_tpu_torch.sanitize import named_lock as _named_lock
+
 _tls = threading.local()
-_buf_lock = threading.Lock()
+_buf_lock = _named_lock("obs._buf_lock")
 _buffer: "collections.deque" = collections.deque(maxlen=_buffer_cap)
-_dropped = 0  # spans evicted from the full ring
+_dropped = 0  # spans evicted from the ring before a flush shipped them
+
+# what this process calls itself in the trace (one Perfetto track per proc)
+_role: str = "driver"
+
+
+def set_process_role(role: str) -> None:
+    """Label this process's track ("head" / "agent:<ip>" /
+    "worker:<actor-id>" / "zygote"); the driver default stands when nothing
+    claims otherwise."""
+    global _role
+    _role = role
 
 
 def process_role() -> str:
-    """What this process calls itself in a record (the JAX package's
-    runtime roles arrive with the cluster slice)."""
-    return "driver"
+    # a worker process that never called set_process_role still labels
+    # itself from its spawn environment
+    global _role
+    if _role == "driver":
+        actor_id = os.environ.get("RAYDP_TPU_TORCH_ACTOR_ID")
+        if actor_id:
+            _role = f"worker:{actor_id}"
+    return _role
 
 
 def enabled() -> bool:
@@ -65,6 +85,19 @@ def set_enabled(value: bool) -> None:
     starts."""
     global _enabled
     _enabled = bool(value)
+
+
+def reinit_for_process(role: str) -> None:
+    """Reset per-process tracing state after fork/exec into a new runtime
+    role. Zygote-forked workers inherit the ZYGOTE's enablement and buffer;
+    the session that requested the fork decides tracing (its env rode in
+    with the fork request), so re-read the environment and start clean."""
+    global _enabled, _dropped
+    set_process_role(role)
+    _enabled = os.environ.get(TRACE_ENV, "0") not in ("", "0", "false", "False")
+    with _buf_lock:
+        _buffer.clear()
+    _dropped = 0
 
 
 def _collectors() -> List[list]:
@@ -301,20 +334,77 @@ def dropped_count() -> int:
 
 
 def flush() -> bool:
-    """Sample the memory plane into the registry and fold the registry's
-    snapshot into the process-local time-series mirror
-    (``obs.timeseries.ingest_local``, which ``current_mem_pressure``
-    reads); keep the buffered spans and log records local: the port has no
-    cluster head to ship them to yet, which is the JAX package's own
-    outcome when no head is set. Returns whether anything was shipped
-    (never, until the cluster slice)."""
-    from raydp_tpu_torch.obs import timeseries
+    """Ship buffered spans, the metrics snapshot and the log ring to the
+    head. Safe to call anywhere: no cluster, no session, or a dead head all
+    degrade to keeping the spans local (they are re-buffered for the next
+    attempt, and what does not fit is counted as dropped). The head
+    process itself ingests directly, no RPC to self. Returns whether the
+    records reached a head."""
+    global _dropped
     from raydp_tpu_torch.obs.metrics import metrics
-    from raydp_tpu_torch.obs.profiler import sample_memory
 
-    sample_memory()
-    timeseries.ingest_local(metrics.snapshot())
-    return False
+    # memory watermark plane: every flush tick samples this process's
+    # rss / device bytes + pressure into the registry FIRST, so the
+    # snapshot shipped below carries fresh mem.* gauges (self-throttled to
+    # ~1s inside sample_memory)
+    try:
+        from raydp_tpu_torch.obs.profiler import sample_memory
+
+        sample_memory()
+    except Exception:  # the memory sampler must never block a telemetry flush
+        pass
+
+    spans = drain_local()
+    snapshot = metrics.snapshot()
+    if not spans and not snapshot:
+        return True
+    # the process-local time-series mirror rides the same tick: in-process
+    # readers (the decode engine's memory-pressure veto) get the windowed
+    # signal a head scrape would show
+    try:
+        from raydp_tpu_torch.obs import timeseries as _ts
+
+        _ts.ingest_local(snapshot)
+    except Exception:  # the local mirror must never block shipping to the head
+        pass
+    # flight-recorder log ring: shipped alongside spans/metrics so the head
+    # holds every process's recent log lines for crash dossiers
+    from raydp_tpu_torch.obs import recorder as _recorder
+
+    logs = _recorder.drain_logs()
+    proc = {"pid": os.getpid(), "role": process_role(), "dropped": _dropped}
+    try:
+        # the head's direct-ingest hook comes FIRST: the head process has
+        # neither an initialized cluster API nor a session in its env, so
+        # the cluster guard below would otherwise fail every head flush
+        ingest = _local_ingest
+        if ingest is not None:
+            ingest(proc=proc, spans=spans, metrics_snapshot=snapshot,
+                   logs=logs)
+            return True
+        from raydp_tpu_torch.cluster import api as cluster_api
+        from raydp_tpu_torch.cluster.common import SESSION_ENV
+
+        if not cluster_api.is_initialized() and not os.environ.get(SESSION_ENV):
+            raise RuntimeError("no cluster")
+        cluster_api.head_rpc(
+            "obs_ingest", proc=proc, spans=spans,
+            metrics_snapshot=snapshot, logs=logs, timeout=10.0,
+        )
+        return True
+    except Exception:
+        with _buf_lock:
+            # re-buffer into the space left, preferring the NEWEST of the
+            # failed batch (appendleft on a full deque would silently evict
+            # from the right, i.e. drop spans recorded DURING the failed
+            # flush); anything that doesn't fit is counted as dropped
+            space = (_buffer.maxlen or 0) - len(_buffer)
+            kept = spans[-space:] if space > 0 else []
+            _dropped += len(spans) - len(kept)
+            for record in reversed(kept):
+                _buffer.appendleft(record)
+        _recorder.requeue_logs(logs)
+        return False
 
 
 _last_flush = 0.0
@@ -322,7 +412,10 @@ _flush_lock = threading.Lock()
 
 
 def flush_throttled(min_interval: float = 0.5) -> None:
-    """flush() at most every ``min_interval`` seconds."""
+    """flush() at most every ``min_interval`` seconds: the ship point of
+    processes that may be SIGKILLed. Runs with tracing OFF too: the metrics
+    registry is always on, and its snapshots reach ``dump_metrics()`` this
+    way."""
     global _last_flush
     now = time.monotonic()
     with _flush_lock:
@@ -330,3 +423,21 @@ def flush_throttled(min_interval: float = 0.5) -> None:
             return
         _last_flush = now
     flush()
+
+
+# set by the head process so its own spans skip the RPC loopback
+_local_ingest = None
+
+
+def set_local_ingest(fn) -> None:
+    global _local_ingest
+    _local_ingest = fn
+
+
+@atexit.register
+def _flush_at_exit() -> None:  # pragma: no cover - exit path
+    if _enabled:
+        try:
+            flush()
+        except Exception:  # the logging plane may already be gone at exit
+            pass

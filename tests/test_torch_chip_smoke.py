@@ -507,3 +507,58 @@ def test_decode_obs_probe_reports_both_arms(tiny_serving):
     assert len(got["token_ms_on_samples"]) == len(got["token_ms_off_samples"]) == 2
     assert got["overhead_frac"] == got["token_ms_on"] / got["token_ms_off"] - 1
     assert not tracing.enabled() and tracing.drain_local() == []
+
+
+# phase_cluster at a tiny width on the CPU: the cluster, the card actor's
+# kill and restart, the dossier, the head's view and the teardown are the
+# same code on the card; the memory check and the launch counts (no
+# kernel runs on the CPU) are the card's alone
+TINY_MODEL = dict(vocab_size=64, d_model=32, num_heads=2, num_layers=2)
+TINY_ENGINE = dict(capacity_tokens=256, page_tokens=16, max_seqs=4,
+                   max_new_tokens=64)
+
+
+@pytest.fixture
+def alarm_guard():
+    import signal
+
+    def on_alarm(signum, frame):
+        raise TimeoutError("test ran past its 60 s guard")
+
+    old = signal.signal(signal.SIGALRM, on_alarm)
+    signal.alarm(60)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def test_phase_cluster_on_the_cpu(alarm_guard, tmp_path):
+    prompts = chip_smoke.make_prompts(8, 8, 40, TINY_MODEL["vocab_size"])
+    ref = chip_smoke.CardServer(TINY_MODEL, TINY_ENGINE, "cpu",
+                                chip_smoke.SEED).serve(prompts)
+    rec = chip_smoke.phase_cluster(
+        torch.device("cpu"),
+        {"tokens_by_stream": ref["tokens"], "launches": ref["launches"]},
+        model_cfg=TINY_MODEL, engine_cfg=TINY_ENGINE, prompts=prompts,
+        out_dir=tmp_path)
+    assert set(chip_smoke.CLUSTER_KEYS) <= set(rec)
+    per_serve = 8 * TINY_ENGINE["max_new_tokens"]
+    assert rec["tokens_per_serve"] == per_serve
+    assert 0 < rec["killed_at_tokens"] <= per_serve // 2
+    assert rec["in_flight_error"] in ("ConnectionError", "OSError",
+                                      "ClusterError", "EOFError")
+    assert rec["head_tokens"]["sum"] > 2 * per_serve
+    assert {"decode", "lock_order_graph", "victim_rings"} <= set(
+        rec["dossier"]["keys"])
+    assert len(rec["dossier"]["rings"]) == 2  # both incarnations' rings
+    assert sorted(rec["prefill_spans"].values())[0] >= 8
+    assert set(rec["probe_exit_leaks"]) == {
+        "sanitize.leaked_shm_segments", "sanitize.leaked_spill_files",
+        "sanitize.leaked_fds", "sanitize.leaked_threads",
+        "sanitize.pending_spans"}
+    assert rec["probe_exit_leaks"]["sanitize.leaked_shm_segments"] == 0
+    assert rec["memory_back_s"] is None  # no card
+    assert rec["phase_s"] <= chip_smoke.CLUSTER_LIMIT_S
+    assert (tmp_path / "cluster_trace.json").exists()
