@@ -146,6 +146,19 @@ Phases; any failure exits non-zero and prints no result line:
    busy share of one profiled epoch, peak memory and MFU; one epoch with
    ``dlrm_optimizer()``; one step's loss and every gradient through the
    kernel against the einsum path (1e-5 relative).
+   Then the port's object store on the same cell (``phase_store``): a CPU
+   producer actor of the port's cluster writes the 4 blocks into the
+   store as Arrow IPC streams and hands their ownership to the driver,
+   which maps them, builds the columns (views of the mapping) and runs the
+   same fit on the card, bit for bit the fit from numpy in its losses,
+   evaluation and final parameters, with as many K1 launches; a second
+   producer SIGKILLed before any transfer leaves blocks that read as lost
+   and segments the head unlinks (kill to unlink timed); a third hands its
+   blocks to a ``BlockService`` and is SIGKILLed, and the fit from them is
+   bitwise again; put and get GB/s of 4 blocks of 256 MiB and
+   ``mem.shm_bytes`` at its peak; after ``shutdown()`` no segment left and
+   the driver's leak audit at 0 (``--store`` runs phase_dlrm and this
+   phase alone).
    Then the estimator's streamed, checkpointed and retried fit at the same
    width (``phase_fit``), a line for each step: (1) fits of 3 epochs with
    ``streaming=True``, ``"hybrid"`` and ``stream_wire_quant="int8"``: the
@@ -2209,8 +2222,8 @@ def phase_cluster(device, served: dict, model_cfg: dict = MODEL,
     4. a second ``serve.remote``, SIGKILLed once the head's series of the
        actor's ``serve.decode.tokens`` shows the serve under way (above its
        value before the serve, below that plus the serve's tokens): the call
-       raises, the actor comes back ALIVE at incarnation 1 with
-       ``restarts_used`` 1 and serves the same tokens bit for bit;
+       raises, the head's record turns ALIVE at incarnation 1, and then the
+       actor, with ``restarts_used`` 1, serves the same tokens bit for bit;
     5. a second SIGKILL, past ``max_restarts``: within 10 s a dossier with
        reason ``actor_crashed`` names the actor, with a decode section from
        the victim's shipped ``serve.decode.state`` notes and the lock-order
@@ -2327,6 +2340,14 @@ def phase_cluster(device, served: dict, model_cfg: dict = MODEL,
         else:
             raise SmokeFailure("the call in flight returned from a SIGKILLed actor")
         rec["killed_at_tokens"] = seen - base
+        # the next call waits for the head's record of the restarted
+        # incarnation: a call made while the killed process is still closing
+        # its sockets can land in its listener's backlog and be reset, by the
+        # JAX package's handle as by the port's. The wait counts in recover_s
+        _wait_for(lambda: (lambda r: r is not None and r.incarnation == 1
+                           and r.state == cluster.ActorState.ALIVE)(
+                               actor._record()),
+                  60.0, "the restarted incarnation's record")
         second = actor.serve(prompts)
         rec["recover_s"] = second["submit_unix"] + min(second["ttft_s"]) - t_kill
         same_as_served(second, "after the restart")
@@ -2738,25 +2759,40 @@ def phase_stochastic(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def dlrm_data():
-    """bench.py's input form for 100,000 rows in 4 blocks (its
-    ``make_criteo_frame(parts=4)``): dense from rng.random, ids from
-    rng.integers per table, default_rng(11); the label is the parity of the
-    vocab-100 id c5, a signal the embedding can learn (random labels would
-    leave the loss flat)."""
-    rng = np.random.default_rng(DLRM_RUN["data_seed"])
-    n = DLRM_RUN["rows"]
-    dense = rng.random((n, DLRM_MODEL["num_dense"])).astype(np.float32)
-    ids = np.stack([rng.integers(0, v, n) for v in DLRM_MODEL["vocab_sizes"]],
+def dlrm_columns(run: dict = None, model: dict = None):
+    """bench.py's input form (its ``make_criteo_frame``): dense from
+    rng.random, ids from rng.integers per table, default_rng(11); the label
+    is the parity of the vocab-100 id c5, a signal the embedding can learn
+    (random labels would leave the loss flat). Returns the columns by name
+    and the dense and categorical names."""
+    run = DLRM_RUN if run is None else run
+    model = DLRM_MODEL if model is None else model
+    rng = np.random.default_rng(run["data_seed"])
+    n = run["rows"]
+    dense = rng.random((n, model["num_dense"])).astype(np.float32)
+    ids = np.stack([rng.integers(0, v, n) for v in model["vocab_sizes"]],
                    axis=1).astype(np.int32)
     dense_cols = [f"i{i}" for i in range(dense.shape[1])]
     cat_cols = [f"c{j}" for j in range(ids.shape[1])]
     columns = {c: dense[:, i] for i, c in enumerate(dense_cols)}
     columns.update({c: ids[:, j] for j, c in enumerate(cat_cols)})
     columns["label"] = (ids[:, 5] % 2).astype(np.float32)
-    blocks = DLRM_RUN["blocks"]
+    return columns, dense_cols, cat_cols
+
+
+def dlrm_data():
+    """``dlrm_columns`` for 100,000 rows in 4 blocks (bench.py's
+    ``make_criteo_frame(parts=4)``)."""
+    columns, dense_cols, cat_cols = dlrm_columns()
+    n, blocks = DLRM_RUN["rows"], DLRM_RUN["blocks"]
     return (ArrayDataset(columns, [n // blocks] * blocks), dense_cols,
             cat_cols)
+
+
+def final_state(est) -> dict:
+    """A fitted estimator's parameters, copied to the host."""
+    return {name: t.detach().cpu().clone()
+            for name, t in est.get_model().state_dict().items()}
 
 
 def dlrm_estimator(device, dense_cols, cat_cols, optimizer, epochs, **kw):
@@ -2842,6 +2878,9 @@ def phase_dlrm(device) -> dict:
         "flops_per_step": flops,
         "counted_flops_per_step": est.fit_stats_["flops_per_step"],
         "mfu": flops / (step_ms / 1e3) / PEAK_OPS_S["f32"],
+        # phase_store's fit from store blocks is held to these bit for bit
+        # (main takes the tensors out before the record is written)
+        "final_state": final_state(est),
     }
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2899,6 +2938,318 @@ def dlrm_grad_check(device, ds, dense_cols, cat_cols) -> dict:
     require(loss_rel <= 1e-5 and worst <= 1e-5,
             "DLRM gradients through the kernel disagree with the einsum path")
     return {"loss_rel": loss_rel, "worst_grad_rel": worst}
+
+
+# ---------------------------------------------------------------------------
+# phase 4, continued: the object store and block service, and the DLRM fit
+# fed from store blocks
+# ---------------------------------------------------------------------------
+
+STORE_CLUSTER = dict(num_cpus=4)
+STORE_LIMIT_S = 120.0  # the whole phase
+STORE_DEADLINE_S = 10.0  # kill to unlink, a producer's death, shutdown
+# put and get through the store's host memory: 4 blocks of 256 MiB
+STORE_BENCH = dict(blocks=4, block_bytes=256 << 20, seed=13)
+# what phase_store's summary line prints (the record holds more)
+STORE_KEYS = ("blocks", "block_bytes", "write_s", "columns_ms",
+              "columns_split_ms", "zero_copy", "fit_bitwise", "launches",
+              "kill_to_unlink_s", "lost_reads", "handoff_fit_bitwise",
+              "put_gb_s", "get_gb_s", "copy_gb_s", "bench_tier",
+              "shm_bytes_peak", "driver_exit_leaks", "phase_s")
+
+
+class StoreProducer:
+    """A producer actor of ``phase_store``: writes ``dlrm_columns(run)``
+    into the port's store as Arrow IPC streams, one block per block of the
+    run, through ``create_block(...).arrow_sink()`` and ``seal`` (the JAX
+    package's ETL writes its blocks so, ``raydp_tpu/etl/tasks.py:62``).
+    With ``handoff`` its blocks go to the namespace's block service."""
+
+    def __init__(self, handoff: bool = False):
+        from raydp_tpu_torch.store import object_store
+
+        object_store.set_block_service(handoff)
+
+    def write_blocks(self, run: dict, model: dict) -> list:
+        import pyarrow as pa
+
+        from raydp_tpu_torch import store
+
+        columns, _, _ = dlrm_columns(run, model)
+        table = pa.table(columns)
+        rows = run["rows"] // run["blocks"]
+        refs = []
+        for i in range(run["blocks"]):
+            piece = table.slice(i * rows, rows)
+            block = store.create_block(piece.nbytes + (64 << 10))
+            sink = block.arrow_sink()
+            with pa.ipc.new_stream(sink, piece.schema) as writer:
+                writer.write_table(piece)
+            refs.append(block.seal(sink.tell()))
+        return refs
+
+    def pid(self) -> int:
+        return os.getpid()
+
+
+def store_columns(store, refs) -> tuple:
+    """The fit's dataset from store blocks: their locations in one head
+    round trip (``lookup_many``), each block mapped and decoded
+    (``read_arrow_batches``), its columns numpy views of the mapping where
+    Arrow allows it (one batch a block, no nulls), then
+    ``ArrayDataset.from_blocks`` (the one copy). Returns the dataset, the
+    ms of each of the three steps and whether every column was a view."""
+    t0 = time.perf_counter()
+    metas = store.object_store.lookup_many(refs)
+    t1 = time.perf_counter()
+    blocks, views = [], True
+    for ref in refs:
+        schema, batches = store.read_arrow_batches(ref, meta=metas[ref.object_id])
+        if len(batches) == 1:
+            cols = {name: batches[0].column(i).to_numpy(zero_copy_only=True)
+                    for i, name in enumerate(schema.names)}
+            views &= all(not c.flags.owndata and not c.flags.writeable
+                         for c in cols.values())
+        else:
+            views = False
+            cols = {name: np.concatenate(
+                [b.column(i).to_numpy() for b in batches])
+                for i, name in enumerate(schema.names)}
+        blocks.append(cols)
+    t2 = time.perf_counter()
+    ds = ArrayDataset.from_blocks(blocks)
+    t3 = time.perf_counter()
+    return ds, {"lookup_ms": 1e3 * (t1 - t0), "decode_ms": 1e3 * (t2 - t1),
+                "from_blocks_ms": 1e3 * (t3 - t2)}, views
+
+
+def store_fit(device, store, refs, dense_cols, cat_cols, reference) -> dict:
+    """phase_dlrm's fit (3 epochs, then ``evaluate``) from store blocks,
+    held bit for bit to ``reference``: the losses, the evaluation, the final
+    parameters and K1's launches."""
+    ds, split, views = store_columns(store, refs)
+    est = dlrm_estimator(device, dense_cols, cat_cols, "adam",
+                         DLRM_RUN["epochs"])
+    ia.reset_launches()
+    history = est.fit(ds)
+    evaluation = est.evaluate(ds)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = ia.LAUNCHES["interaction_fwd"]
+    state = final_state(est)
+    require(all(p.device == device for p in est.get_model().parameters()),
+            f"the fit from store blocks did not run on {device}")
+    losses = [r["train_loss"] for r in history]
+    bitwise = (losses == reference["train_loss"]
+               and evaluation == reference["evaluate"]
+               and state.keys() == reference["final_state"].keys()
+               and all(torch.equal(state[k], reference["final_state"][k])
+                       for k in state))
+    require(bitwise, f"the fit from store blocks differs from the fit from "
+            f"numpy: losses {losses} vs {reference['train_loss']}, evaluate "
+            f"{evaluation} vs {reference['evaluate']}")
+    require(launches == reference["launches"],
+            f"interaction_fwd launched {launches} times from store blocks, "
+            f"{reference['launches']} from numpy")
+    if device.type == "cuda":
+        require(launches > 0, "K1 never launched in the fit from store blocks")
+    return {"columns_ms": sum(split.values()), "columns_split_ms": split,
+            "zero_copy": views, "train_loss": losses,
+            "evaluate": evaluation, "launches": launches, "bitwise": bitwise}
+
+
+def store_bench(store, profiler) -> dict:
+    """put and get of ``STORE_BENCH``'s blocks of host memory: GB/s of
+    each, the tier each block landed in, and the namespace's live shm
+    bytes with all of them stored; beside them the GB/s of a plain copy of
+    the block into fresh host memory (``bytearray``), the yardstick of a
+    get, which copies the mapped segment into a new ``bytes``."""
+    n = STORE_BENCH["block_bytes"]
+    payload = np.random.default_rng(STORE_BENCH["seed"]).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+    copy_s = []
+    for _ in range(STORE_BENCH["blocks"]):
+        t0 = time.perf_counter()
+        copied = bytearray(payload)
+        copy_s.append(time.perf_counter() - t0)
+        del copied
+    refs, put_s, get_s, tiers = [], [], [], []
+    try:
+        for _ in range(STORE_BENCH["blocks"]):
+            t0 = time.perf_counter()
+            refs.append(store.put(payload))
+            put_s.append(time.perf_counter() - t0)
+            tiers.append("disk" if store.object_store._lookup(refs[-1])[
+                "shm_name"].startswith("file://") else "shm")
+        live = profiler.sample_memory(force=True).get("shm_bytes")
+        for ref in refs:
+            t0 = time.perf_counter()
+            data = store.get_bytes(ref)
+            get_s.append(time.perf_counter() - t0)
+            require(data == payload, "a block read back other bytes")
+            del data
+    finally:
+        store.delete(refs)
+    return {"put_gb_s": [n / t / 1e9 for t in put_s],
+            "get_gb_s": [n / t / 1e9 for t in get_s],
+            "copy_gb_s": [n / t / 1e9 for t in copy_s],
+            "bench_tier": tiers, "bench_shm_bytes": live}
+
+
+def _segments_gone(refs) -> bool:
+    return not any(os.path.exists("/dev/shm" + r.shm_name) for r in refs)
+
+
+def phase_store(device, reference: dict) -> dict:
+    """The port's object store and block service on the DLRM cell uncut
+    (``DLRM_RUN``'s 100,000 rows in 4 blocks, batch 2048), in a cluster of
+    the port with lockdep and the leak audit armed:
+
+    1. a light CPU ``StoreProducer`` actor writes the 4 blocks as Arrow IPC
+       streams and their ownership is transferred to the driver;
+    2. the driver maps them (``read_arrow_batches``), builds the columns
+       (views of the mapping where Arrow allows) and ``from_blocks``, and
+       runs phase_dlrm's fit on ``device``: losses, evaluation and final
+       parameters bit for bit ``reference``'s (phase_dlrm's fit from numpy),
+       and as many K1 launches;
+    3. a second producer is SIGKILLed before any transfer: its blocks read
+       as lost (``OwnerDiedError``) and the head's owner GC unlinks their
+       segments (the time from the kill to the last unlink);
+    4. a third producer hands its blocks to a ``BlockService`` and is
+       SIGKILLed: the blocks stay readable and the fit from them is bitwise
+       step 2's;
+    5. put and get GB/s of ``STORE_BENCH``'s blocks, and ``mem.shm_bytes``
+       at its peak (reported, not gated);
+    6. ``cluster.shutdown()``: no segment of the session left, and the
+       driver's leak audit reads 0 shm segments.
+
+    The whole phase takes at most ``STORE_LIMIT_S``."""
+    from raydp_tpu_torch import cluster, store
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import DRIVER_OWNER, OwnerDiedError
+    from raydp_tpu_torch.cluster.zygote import WARM_TORCH_ENV
+    from raydp_tpu_torch.obs import metrics, profiler
+    from raydp_tpu_torch.store import block_service
+
+    import pyarrow as pa
+
+    # pyarrow imports pandas at its first conversion: here, not in the
+    # timed reads
+    pa.array(np.zeros(1))
+
+    here = importlib.import_module("chip_smoke")  # actor classes by reference
+    t_phase = time.perf_counter()
+    _, dense_cols, cat_cols = dlrm_columns()
+    run = {k: DLRM_RUN[k] for k in ("rows", "blocks", "data_seed")}
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", WARM_TORCH_ENV: "1",
+             "RAYDP_TPU_SANITIZE": "lockdep,leaks"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    rec: dict = {"blocks": run["blocks"], "rows": run["rows"]}
+    try:
+        cluster.init(**STORE_CLUSTER)
+
+        # 1. the blocks, written by a producer, owned by the driver
+        producer = cluster.spawn(here.StoreProducer, name="store-producer",
+                                 light=True)
+        t0 = time.perf_counter()
+        refs = producer.write_blocks(run, DLRM_MODEL)
+        rec["write_s"] = time.perf_counter() - t0
+        rec["block_bytes"] = [r.size for r in refs]
+        store.transfer(refs, DRIVER_OWNER)
+        require({store.owner_of(r) for r in refs} == {DRIVER_OWNER},
+                "the blocks' ownership did not move to the driver")
+        producer.kill()
+        profiler.sample_memory(force=True)
+
+        # 2. the fit from store blocks
+        fit = store_fit(device, store, refs, dense_cols, cat_cols, reference)
+        rec.update(columns_ms=fit["columns_ms"],
+                   columns_split_ms=fit["columns_split_ms"],
+                   zero_copy=fit["zero_copy"],
+                   fit_bitwise=fit["bitwise"], launches=fit["launches"],
+                   train_loss=fit["train_loss"])
+        log(f"store: {run['blocks']} blocks of {rec['block_bytes']} bytes "
+            f"written in {rec['write_s']:.3f} s, columns from the mapped "
+            f"blocks in {fit['columns_ms']:.2f} ms ({fit['columns_split_ms']}; "
+            f"views: {fit['zero_copy']}), "
+            f"fit bitwise phase_dlrm's, K1 launches {fit['launches']}")
+
+        # 3. the owner's death before any transfer
+        doomed = cluster.spawn(here.StoreProducer, name="store-doomed",
+                               light=True)
+        lost = doomed.write_blocks(run, DLRM_MODEL)
+        require(store.get_bytes(lost[0]) == store.get_bytes(refs[0]),
+                "a second producer wrote other bytes for the same rows")
+        t_kill = time.perf_counter()
+        os.kill(doomed.pid(), signal.SIGKILL)
+        _wait_for(lambda: _segments_gone(lost), STORE_DEADLINE_S,
+                  "the dead owner's segments to be unlinked")
+        rec["kill_to_unlink_s"] = time.perf_counter() - t_kill
+        errors = []
+        for ref in lost:
+            try:
+                store.get_bytes(ref)
+            except OwnerDiedError as exc:
+                errors.append(type(exc).__name__)
+        require(len(errors) == len(lost),
+                f"{len(lost) - len(errors)} of the dead owner's blocks still read")
+        rec["lost_reads"] = errors
+
+        # 4. the handoff to a block service, then the producer's death
+        service = cluster.spawn(block_service.BlockService, "chip-smoke",
+                                name="store-block-service", max_restarts=3,
+                                max_concurrency=4, light=True)
+        block_service.register_service(service.actor_id)
+        handing = cluster.spawn(here.StoreProducer, True, name="store-handoff",
+                                light=True)
+        kept = handing.write_blocks(run, DLRM_MODEL)
+        require({store.owner_of(r) for r in kept} == {service.actor_id},
+                "the handoff did not make the block service the owner")
+        os.kill(handing.pid(), signal.SIGKILL)
+        _wait_for(lambda: handing.state() == cluster.ActorState.DEAD,
+                  STORE_DEADLINE_S, "the handing producer's death")
+        # bitwise the numpy fit, so bitwise step 2's
+        handoff = store_fit(device, store, kept, dense_cols, cat_cols, reference)
+        rec["handoff_fit_bitwise"] = handoff["bitwise"]
+        rec["handoff_columns_ms"] = handoff["columns_ms"]
+        log(f"store: the dead owner's blocks read {set(errors)}, unlinked "
+            f"{rec['kill_to_unlink_s']:.3f} s after the kill; the handed-off "
+            f"blocks outlived their producer, fit bitwise")
+
+        # 5. put and get through host memory
+        bench = store_bench(store, profiler)
+        rec.update(bench)
+        rec["shm_bytes_peak"] = metrics.gauge("mem.shm_bytes").snapshot()["max"]
+
+        # 6. shutdown: no segment left, the driver's leak audit at 0
+        store.delete(refs + kept)
+        session_refs = refs + lost + kept
+        cluster.shutdown()
+        rec["driver_exit_leaks"] = {
+            name: snap["value"] for name, snap in metrics.snapshot().items()
+            if name.startswith("sanitize.leaked")}
+        require(_segments_gone(session_refs),
+                "a segment of the session outlived shutdown")
+        require(rec["driver_exit_leaks"].get("sanitize.leaked_shm_segments") == 0,
+                f"the driver's leak audit: {rec['driver_exit_leaks']}")
+    finally:
+        if capi.is_initialized():
+            cluster.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["phase_s"] = time.perf_counter() - t_phase
+    require(rec["phase_s"] <= STORE_LIMIT_S,
+            f"phase_store took {rec['phase_s']:.1f} s")
+    log(f"store: put {[f'{x:.2f}' for x in rec['put_gb_s']]} GB/s, get "
+        f"{[f'{x:.2f}' for x in rec['get_gb_s']]} GB/s ({rec['bench_tier']}; "
+        f"a plain copy into fresh memory {[f'{x:.2f}' for x in rec['copy_gb_s']]}), "
+        f"mem.shm_bytes peak {rec['shm_bytes_peak']:.0f}, driver exit leaks "
+        f"{rec['driver_exit_leaks']}, phase {rec['phase_s']:.1f} s")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4106,6 +4457,11 @@ def main(argv: list) -> int:
     if argv == ["--fit-checks"]:
         fit_checks(device)
         return 0
+    if argv == ["--store"]:
+        phase_device()
+        dlrm = phase_dlrm(device)
+        phase_store(device, dlrm)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4117,6 +4473,8 @@ def main(argv: list) -> int:
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
+    dlrm_state = record["dlrm"].pop("final_state")  # tensors, kept out of the record
+    record["store"] = phase_store(device, dict(record["dlrm"], final_state=dlrm_state))
     record["fit"] = phase_fit(device, record["dlrm"])
     record["obs"] = phase_obs(device, record["dlrm"])
     record["times"] = phase_times(device)
@@ -4152,6 +4510,8 @@ def main(argv: list) -> int:
     log(json.dumps({"cluster": {k: record["cluster"][k] for k in CLUSTER_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"],
                        "toolchain": dev["toolchain"]}}))
+    log(json.dumps({"store": {k: record["store"][k] for k in STORE_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"obs": {
         "decode_obs_overhead": record["serve"]["decode_obs_probe"]["overhead_frac"],
         "step_recorder_overhead": probe["step_recorder_probe"]["overhead_frac"],

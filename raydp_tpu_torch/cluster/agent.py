@@ -6,15 +6,15 @@ An agent process:
 - registers its node (resources, IP, shm namespace) with the head over TCP;
 - forks/kills actor worker processes on ITS host when the head schedules
   actors there (the spec ships in the RPC -- no shared filesystem assumed);
+- serves its node's /dev/shm blocks to remote readers (the data-plane pull
+  path) and unlinks them for the head's owner-death GC;
 - watches its children and reports deaths so the head can restart actors
   with the same identity.
 
-The JAX agent also serves its node's shared-memory blocks to remote readers
-and unlinks them for the head (``block_fetch``, ``unlink_shm``); those come
-with the port's store.
-
 On one machine an agent with its own shm NAMESPACE stands in for a separate
-host.
+host: namespaced objects are never mapped directly by other nodes' processes
+— every cross-node read exercises the same network pull path a real
+multi-host deployment uses.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import subprocess
 import sys
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import cloudpickle
 
@@ -89,7 +89,7 @@ class NodeAgent:
         self.stopping = False
         self.addr: Optional[str] = None
         self.node_id: Optional[str] = None
-        self.stats = {"spawned": 0}
+        self.stats = {"spawned": 0, "blocks_served": 0, "bytes_served": 0}
 
     # ---------- handlers (same frame protocol as head/actors) ----------
 
@@ -187,6 +187,22 @@ class NodeAgent:
                 os.killpg(child.proc.pid, signal.SIGKILL)
             except (ProcessLookupError, PermissionError):  # kill of an already-dead process is idempotent
                 pass
+        return True
+
+    def handle_block_fetch(self, shm_name: str, offset: int = 0, length: int = -1):
+        from raydp_tpu_torch.cluster.common import serve_block_bytes
+
+        data = serve_block_bytes(shm_name, offset, length)
+        with self.lock:
+            self.stats["blocks_served"] += 1
+            self.stats["bytes_served"] += len(data)
+        return data
+
+    def handle_unlink_shm(self, shm_names: List[str]):
+        from raydp_tpu_torch.cluster.common import unlink_block
+
+        for name in shm_names:
+            unlink_block(name)
         return True
 
     def handle_stop(self):

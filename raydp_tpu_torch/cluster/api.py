@@ -336,6 +336,12 @@ def shutdown() -> None:
 
     close_pooled_connections()
     close_actor_connections()  # doorbell sockets join the fd audit too
+    try:
+        from raydp_tpu_torch.store.block_service import close_service_pool
+
+        close_service_pool()  # pooled block-fetch sockets too
+    except Exception:  # store layer may not be loaded
+        pass
     _sanitize.audit_leaks("cluster.shutdown")
 
 

@@ -38,6 +38,10 @@ TOKEN_FILE = "cluster.token"
 SESSION_ENV = "RAYDP_TPU_TORCH_SESSION"
 HEAD_ADDR_ENV = "RAYDP_TPU_TORCH_HEAD_ADDR"
 SHM_NS_ENV = "RAYDP_TPU_TORCH_SHM_NS"
+# the first part of every store segment's name in /dev/shm and of every
+# spill file's name (``rtpt-<ns>-<id>``); the JAX package's are ``rtpu-``,
+# so neither runtime counts, serves or unlinks the other's blocks
+SHM_PREFIX = "rtpt-"
 HOST_ID_ENV = "RAYDP_TPU_TORCH_HOST_ID"
 TOKEN_ENV = "RAYDP_TPU_TORCH_TOKEN"
 DRIVER_OWNER = "__driver__"
@@ -189,7 +193,7 @@ def safe_shm_name(shm_name: str) -> str:
     """Reject anything but a flat segment name (a client-supplied name is
     joined under /dev/shm — path traversal must be impossible)."""
     name = shm_name.lstrip("/")
-    if not name or "/" in name or ".." in name or not name.startswith("rtpu-"):
+    if not name or "/" in name or ".." in name or not name.startswith(SHM_PREFIX):
         raise ClusterError(f"invalid shm segment name {shm_name!r}")
     return name
 
@@ -457,13 +461,13 @@ def head_sock_path(session_dir: str) -> str:
 
 def safe_spill_path(name: str) -> str:
     """Validate a ``file://`` block location before serving/unlinking it: the
-    resolved path must be a framework spill file (rtpu- prefixed) DIRECTLY
+    resolved path must be a framework spill file (``SHM_PREFIX``) DIRECTLY
     inside this process's own spill root (``$RAYDP_TPU_TORCH_SESSION/spill`` —
     head_main/agent anchor it at boot) — a client-supplied path must not be
     able to read or remove arbitrary files, nor another session's spill."""
     path = os.path.realpath(name[len("file://"):])
     base = os.path.basename(path)
-    if not base.startswith("rtpu-"):
+    if not base.startswith(SHM_PREFIX):
         raise ClusterError(f"invalid spill block path {name!r}")
     session = os.environ.get(SESSION_ENV)
     if not session:

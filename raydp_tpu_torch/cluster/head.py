@@ -8,9 +8,12 @@ every process ships its spans, metrics and log ring to (the time-series
 store behind the scrape endpoint and ``query_metrics``, and the flight
 recorder behind a crash dossier on each terminal actor death).
 
-The JAX head's object-ownership table, block-service registry and tenant
-table come with the port's store and tenancy; until then an RPC to one of
-their methods gets the unknown-method error, as any unknown method does.
+It also holds the object-ownership table of the port's store
+(``raydp_tpu_torch.store``: every block's owner, location and size, the
+owner-death GC and its tombstones), the per-host block-service registry
+and the tenant table, as the JAX head does. The head imports neither torch
+nor pyarrow: the one store helper it calls (hosting a proxied put) is
+imported where it is used and loads neither.
 
 Runs as its own OS process (see head_main) so the driver's work on the card
 can never starve the control plane.
@@ -38,11 +41,14 @@ from raydp_tpu_torch.cluster.common import (
     ActorState,
     ClusterError,
     NodeRecord,
+    OwnerDiedError,
+    TenantQuotaError,
     head_sock_path,
     host_id as common_host_id,
     recv_frame,
     rpc,
     send_frame,
+    tenant_of_object,
     unwrap_traced,
 )
 from raydp_tpu_torch import sanitize
@@ -100,6 +106,23 @@ class _Actor:
         )
 
 
+class _ObjectMeta:
+    """Ownership record for one object-store entry (the payload lives in
+    /dev/shm or a spill file, managed by ``raydp_tpu_torch.store``)."""
+
+    def __init__(
+        self, object_id: str, owner: str, shm_name: str, size: int,
+        node_id: str, shm_ns: str = "",
+    ):
+        self.object_id = object_id
+        self.owner = owner
+        self.shm_name = shm_name
+        self.size = size
+        self.node_id = node_id
+        self.shm_ns = shm_ns
+        self.owner_died = False
+
+
 class Head:
     def __init__(self, session_dir: str, driver_pid: int, default_resources: Dict[str, float]):
         self.session_dir = session_dir
@@ -119,6 +142,40 @@ class Head:
         self.actors: Dict[str, _Actor] = {}  # guarded-by: self.lock|self.actor_state_cond
         self.named: Dict[str, str] = {}  # name -> actor_id; guarded-by: self.lock|self.actor_state_cond
         self.pgs: Dict[str, _PlacementGroup] = {}  # guarded-by: self.lock|self.actor_state_cond
+        self.objects: Dict[str, _ObjectMeta] = {}  # guarded-by: self.lock|self.actor_state_cond
+        # owner-kind metadata: (shm namespace, tenant) -> block-service
+        # actor id (one per host per TENANT — every virtual node on a
+        # machine shares /dev/shm, so the namespace is the host key; the
+        # tenant key is what keeps one session's stop from tombstoning
+        # blocks another session's handoffs adopted, the multi-tenant
+        # isolation contract). Registrations flagged ``handoff`` are
+        # recorded under the writing tenant's LIVE service instead of the
+        # writing executor, which is what makes executor death lose zero
+        # blocks (store/block_service.py). A
+        # tenant-less registration (key ("", "") — the pre-tenancy shape)
+        # serves as the fallback for any tenant in its namespace.
+        self.block_services: Dict[tuple, str] = {}  # guarded-by: self.lock|self.actor_state_cond
+        # tenant table: one record
+        # per named tenant — active flag, fair-share weight, block-bytes
+        # quota, and live bytes/blocks accounting charged from the object
+        # table by id prefix. Passive records (active=False) accumulate for
+        # unregistered tenants so accounting never silently drops bytes.
+        self.tenants: Dict[str, dict] = {}  # guarded-by: self.lock|self.actor_state_cond
+        # owner-death tombstones: object_id -> dead owner. When an owner
+        # dies, its metas are POPPED (proactive unregister — they used to
+        # linger as owner_died records until a reader tripped over them)
+        # and tombstoned so reads still raise OwnerDiedError (the parity
+        # semantics) instead of a clean not-found. Bounded FIFO; a lineage
+        # rebind or a delete clears the tombstone.
+        import collections as _tomb_collections
+
+        self.owner_tombstones: "_tomb_collections.OrderedDict" = (
+            _tomb_collections.OrderedDict()
+        )  # guarded-by: self.lock|self.actor_state_cond
+        # staged chunks of in-flight proxied puts + per-object last-activity
+        # stamps (the TTL sweep in monitor_loop GCs abandoned uploads)
+        self._proxy_staging: Dict[str, Dict[int, bytes]] = {}  # guarded-by: self.lock|self.actor_state_cond
+        self._proxy_staging_ts: Dict[str, float] = {}  # guarded-by: self.lock|self.actor_state_cond
         self.shutting_down = False
         self._next_ip = 2
         self.tcp_addr: Optional[str] = None  # set by run_head once bound
@@ -711,7 +768,8 @@ class Head:
                 # noticed by the 50ms monitor cadence — session stop drains
                 # on DEAD state, so observe the SIGKILL promptly off-lock
                 threading.Thread(
-                    target=self._reap_after_kill, args=(actor,), daemon=True
+                    target=self._reap_after_kill, args=(actor, actor.proc),
+                    daemon=True,
                 ).start()
             else:
                 node = self.nodes.get(actor.node_id) if actor.node_id else None
@@ -724,24 +782,24 @@ class Head:
                         self._on_actor_death(actor)
             return True
 
-    def _reap_after_kill(self, actor: "_Actor") -> None:
-        """Wait (bounded) for a just-SIGKILLed local actor to exit, then run
-        the death bookkeeping immediately instead of on the next monitor
-        poll. Racing the monitor is safe: both transition under the lock and
-        skip actors already DEAD."""
+    def _reap_after_kill(self, actor: "_Actor", killed) -> None:
+        """Wait (bounded) for the just-SIGKILLed process ``killed`` of a
+        local actor to exit, then run the death bookkeeping immediately
+        instead of on the next monitor poll. Racing the monitor is safe:
+        both transition under the lock, and this reaper acts only while
+        ``killed`` is still the actor's process. Once the monitor has seen
+        the death and started a respawn, ``actor.proc`` is None (the fork
+        not landed yet) or the next incarnation's, and a second death
+        would burn a restart and kill the respawn (the JAX head's reaper
+        takes a None ``proc`` for a death)."""
         deadline = time.monotonic() + 5.0
         while time.monotonic() < deadline:
-            # snapshot once per iteration: a concurrent respawn can set
-            # actor.proc = None between a check and a .poll() on the bare
-            # attribute, AttributeError-ing this reaper thread
-            proc = actor.proc
-            if proc is None or proc.poll() is not None:
+            if killed.poll() is not None:
                 with self.lock:
-                    proc = actor.proc
                     if (
-                        actor.state != ActorState.DEAD
+                        actor.proc is killed
+                        and actor.state != ActorState.DEAD
                         and not actor.pending_respawn
-                        and (proc is None or proc.poll() is not None)
                     ):
                         self._on_actor_death(actor)
                 return
@@ -807,6 +865,16 @@ class Head:
                     needle=actor.spec.actor_id,
                 )
             self.actor_state_cond.notify_all()
+            self._on_owner_dead(actor.spec.actor_id)
+            # a DEAD block service must not keep adopting registrations —
+            # drop its owner-kind entries so handoffs fall back to the
+            # writer's own ownership
+            for key in [
+                key
+                for key, a in self.block_services.items()
+                if a == actor.spec.actor_id
+            ]:
+                del self.block_services[key]
             # the name -> id mapping stays, so get_actor(name) reports DEAD
             return
         actor.restarts_used += 1
@@ -836,6 +904,660 @@ class Head:
         except OSError:
             self._release_actor_resources(actor)
             actor.pending_respawn = True
+
+    # ---------- block services (per-host owner-of-record actors) ----------
+
+    def handle_block_service_register(self, actor_id: str, tenant: str = ""):
+        """Adopt a spawned BlockService actor as the owner of record for its
+        node's shared-memory namespace (scoped to ``tenant`` when given —
+        the multi-tenant shape; a tenant-less registration is the namespace
+        fallback any tenant's handoffs may adopt, the pre-tenancy behavior).
+        Returns the namespace it serves."""
+        with self.lock:
+            actor = self.actors.get(actor_id)
+            if actor is None:
+                raise ClusterError(f"unknown block-service actor {actor_id}")
+            node = self.nodes.get(actor.node_id) if actor.node_id else None
+            ns = node.shm_ns if node is not None else ""
+            self.block_services[(ns, tenant or "")] = actor_id
+        obs_instant(
+            "block_service.registered", actor_id=actor_id, shm_ns=ns,
+            tenant=tenant or "",
+        )
+        return ns
+
+    def handle_block_service_unregister(self, actor_id: str):
+        """Drop a service from the owner-kind table (A/B toggle; its already-
+        owned blocks keep their owner — only FUTURE handoffs fall back)."""
+        with self.lock:
+            for key in [
+                key for key, a in self.block_services.items() if a == actor_id
+            ]:
+                del self.block_services[key]
+        return True
+
+    def handle_block_service_lookup(self, shm_ns: str = "", tenant: str = ""):
+        with self.lock:
+            return self._service_for(shm_ns, tenant)
+
+    def handle_block_service_peers(self):
+        """Every LIVE, tcp-reachable block service with its host-axis row —
+        the spill-to-remote tier's target list (store._remote_spill_peer).
+        Only ALIVE services with a tcp socket qualify: a remote writer must
+        be able to dial the address it gets back right now."""
+        with self.lock:
+            rows = []
+            for (ns, tenant), actor_id in self.block_services.items():
+                actor = self.actors.get(actor_id)
+                if (
+                    actor is None
+                    or actor.state != ActorState.ALIVE
+                    or not actor.sock_path
+                    or not actor.sock_path.startswith("tcp://")
+                ):
+                    continue
+                node = self.nodes.get(actor.node_id) if actor.node_id else None
+                rows.append({
+                    "actor_id": actor_id,
+                    "shm_ns": ns,
+                    "tenant": tenant,
+                    "host": node.host if node is not None else ns,
+                    "service_addr": actor.sock_path,
+                })
+            return rows
+
+    def _service_for(self, shm_ns: str, tenant: str) -> Optional[str]:  # guarded-by: self.lock|self.actor_state_cond held
+        """The block service serving (namespace, tenant): the tenant-scoped
+        entry first, then the namespace's tenant-less fallback. A tenant-
+        scoped service NEVER serves another tenant — that is what keeps
+        tenant A's session stop (which kills A's service and tombstones its
+        blocks) from ever owning B's blocks."""
+        service = self.block_services.get((shm_ns, tenant or ""))
+        if service is None and tenant:
+            service = self.block_services.get((shm_ns, ""))
+        return service
+
+    def _effective_owner(  # guarded-by: self.lock|self.actor_state_cond held
+        self, owner: str, shm_ns: str, handoff: bool, tenant: str = ""
+    ) -> str:
+        """The owner of record for a new registration: the (namespace,
+        tenant)'s LIVE block service when the writer flagged the entry for
+        handoff, else the writer itself. Deciding HERE (the head knows actor
+        liveness authoritatively) means a dead/bouncing service degrades
+        registrations to executor ownership instead of parking blocks on a
+        corpse owner that no death event will ever GC."""
+        if not handoff:
+            return owner
+        service = self._service_for(shm_ns, tenant)
+        if service is None or service == owner:
+            return owner
+        actor = self.actors.get(service)
+        if (
+            actor is None
+            or actor.state == ActorState.DEAD
+            or actor.intentional_exit
+        ):
+            return owner
+        obs_metrics.counter("block_service.adopted_blocks").inc()
+        return service
+
+    # ---------- tenant table ----------
+
+    def handle_tenant_register(
+        self, name: str, weight: float = 1.0, max_block_bytes: int = 0,
+    ):
+        """Admit a named tenant (one ``init_etl(app_name=...)`` attach).
+        Rejects a duplicate ACTIVE registration — the cross-driver half of
+        the session-singleton guard; re-registering a stopped tenant keeps
+        its accumulated byte accounting (blocks can outlive a session via
+        ownership transfer)."""
+        with self.lock:
+            record = self.tenants.get(name)
+            if record is not None and record.get("active"):
+                raise ClusterError(
+                    f"tenant {name!r} is already running on this cluster; "
+                    "stop it (or pick another app_name) first"
+                )
+            if record is None:
+                record = {"name": name, "bytes_stored": 0, "blocks": 0}
+                self.tenants[name] = record
+            record.update(
+                active=True,
+                weight=float(weight),
+                max_block_bytes=int(max_block_bytes),
+            )
+            # the gauge exists from registration on, so dump_metrics carries
+            # the per-tenant key even before the first block lands (pinned-
+            # schema tests and dashboards rely on the keys existing)
+            self._tenant_gauge(record).set(record["bytes_stored"])
+        obs_instant("tenant.registered", tenant=name)
+        obs_metrics.counter("tenant.registrations").inc()
+        return name
+
+    def handle_tenant_unregister(self, name: str):
+        """Mark a tenant inactive (its session stopped). The record — and
+        its byte accounting — survives: transferred blocks may outlive the
+        session, and a later re-attach under the same name resumes it."""
+        with self.lock:
+            record = self.tenants.get(name)
+            if record is not None:
+                record["active"] = False
+        obs_instant("tenant.unregistered", tenant=name)
+        return record is not None
+
+    def handle_tenant_list(self):
+        with self.lock:
+            return {
+                name: {k: v for k, v in r.items() if not k.startswith("_")}
+                for name, r in self.tenants.items()
+            }
+
+    @staticmethod
+    def _tenant_gauge(record: dict):  # guarded-by: self.lock|self.actor_state_cond held
+        """The tenant's bytes_stored gauge, cached ON the record: the
+        charge/credit paths run per block under the head lock (a wide
+        shuffle batch registers thousands of entries in one hold) and must
+        not pay an f-string build + registry-locked lookup each time."""
+        gauge = record.get("_gauge")
+        if gauge is None:
+            gauge = record["_gauge"] = obs_metrics.gauge(
+                f"tenant.{record['name']}.bytes_stored"
+            )
+        return gauge
+
+    def _tenant_record(self, tenant: str) -> Optional[dict]:  # guarded-by: self.lock|self.actor_state_cond held
+        if not tenant:
+            return None
+        record = self.tenants.get(tenant)
+        if record is None:
+            # unregistered writer (transferred survivors, out-of-band
+            # tools): account passively, enforce nothing
+            record = {
+                "name": tenant, "bytes_stored": 0, "blocks": 0,
+                "active": False, "weight": 1.0, "max_block_bytes": 0,
+            }
+            self.tenants[tenant] = record
+        return record
+
+    def _tenant_charge(  # guarded-by: self.lock|self.actor_state_cond held
+        self, object_id: str, size: int, enforce: bool = True
+    ) -> None:
+        """Charge a registration against its tenant's block-bytes quota
+        BEFORE inserting the meta; raises the typed quota error instead of
+        admitting the block (the writer's registration fails cleanly and
+        its segment is unlinked by the seal/batch failure paths).
+        ``enforce=False`` moves accounting without the quota check — the
+        rebind path, which re-registers bytes that were ALREADY admitted
+        (a quota raise there would drop the popped meta mid-recovery)."""
+        record = self._tenant_record(tenant_of_object(object_id))
+        if record is None:
+            return
+        limit = int(record.get("max_block_bytes") or 0) if enforce else 0
+        if limit and record["bytes_stored"] + size > limit:
+            obs_metrics.counter(
+                f"tenant.{record['name']}.quota_rejections"
+            ).inc()
+            err = TenantQuotaError(
+                f"tenant {record['name']!r} block-bytes quota exceeded: "
+                f"{record['bytes_stored']} stored + {size} new > {limit}"
+            )
+            err.tenant = record["name"]
+            raise err
+        record["bytes_stored"] += size
+        record["blocks"] += 1
+        self._tenant_gauge(record).set(record["bytes_stored"])
+
+    def _tenant_credit(self, meta: "_ObjectMeta") -> None:  # guarded-by: self.lock|self.actor_state_cond held
+        record = self.tenants.get(tenant_of_object(meta.object_id))
+        if record is None:
+            return
+        record["bytes_stored"] = max(0, record["bytes_stored"] - meta.size)
+        record["blocks"] = max(0, record["blocks"] - 1)
+        self._tenant_gauge(record).set(record["bytes_stored"])
+
+    # ---------- object ownership table ----------
+
+    def handle_object_put(
+        self, object_id: str, owner: str, shm_name: str, size: int,
+        node_id: str, shm_ns: str = "", handoff: bool = False,
+    ):
+        """Register one block. Returns the EFFECTIVE owner (the writing
+        tenant's block service for handoff entries) so the writer can
+        correct its location cache and the metas it pushes to peers."""
+        with self.lock:
+            self._tenant_charge(object_id, size)
+            owner = self._effective_owner(
+                owner, shm_ns, handoff, tenant_of_object(object_id)
+            )
+            self.objects[object_id] = _ObjectMeta(
+                object_id, owner, shm_name, size, node_id, shm_ns
+            )
+            return owner
+
+    # a proxied put whose client died between chunk RPCs and commit would
+    # otherwise pin up to the full object size in head memory forever; the
+    # monitor GCs staging entries idle longer than this (each arriving chunk
+    # refreshes the stamp, so slow-but-live uploads are never collected)
+    PROXY_STAGING_TTL_S = 300.0
+
+    def handle_object_put_proxy_chunk(self, object_id: str, seq: int, payload: bytes):
+        """One chunk of a large proxied put (the client chunks to stay under
+        the frame cap); staged until commit."""
+        with self.lock:
+            self._proxy_staging.setdefault(object_id, {})[seq] = payload
+            self._proxy_staging_ts[object_id] = time.monotonic()
+        return True
+
+    def _gc_proxy_staging(self, now: float) -> None:  # guarded-by: self.lock|self.actor_state_cond held
+        """Drop staged proxied-put chunks whose client went silent (lock held)."""
+        for object_id in [
+            o
+            for o, t in self._proxy_staging_ts.items()
+            if now - t > self.PROXY_STAGING_TTL_S
+        ]:
+            self._proxy_staging_ts.pop(object_id, None)
+            self._proxy_staging.pop(object_id, None)
+
+    def handle_object_put_proxy_abort(self, object_id: str):
+        """Client-initiated cleanup of a partially staged proxied put."""
+        with self.lock:
+            self._proxy_staging.pop(object_id, None)
+            self._proxy_staging_ts.pop(object_id, None)
+        return True
+
+    def handle_object_put_proxy_commit(
+        self, object_id: str, owner: str, total_chunks: int,
+        storage: str = "auto",
+    ):
+        with self.lock:
+            chunks = self._proxy_staging.pop(object_id, {})
+            self._proxy_staging_ts.pop(object_id, None)
+        if len(chunks) != total_chunks:
+            raise ClusterError(
+                f"proxied put {object_id}: {len(chunks)}/{total_chunks} "
+                "chunks arrived"
+            )
+        payload = b"".join(chunks[i] for i in range(total_chunks))
+        return self.handle_object_put_proxy(object_id, payload, owner, storage)
+
+    def handle_object_put_proxy(
+        self, object_id: str, payload: bytes, owner: str, storage: str = "auto"
+    ):
+        """Host a tcp:// client's block on the HEAD node. The client has no
+        block server, so the head writes the
+        bytes into its own shm (or disk tier) and serves every read; the
+        metadata registers under the head's node for locality."""
+        from raydp_tpu_torch.store.object_store import host_block_locally
+
+        shm_name = host_block_locally(
+            object_id, payload,
+            spill_dir=os.path.join(self.session_dir, "spill"),
+            storage=storage,
+        )
+        try:
+            with self.lock:
+                self._tenant_charge(object_id, len(payload))
+                # registered as a DRIVER block, exactly like a put from a
+                # local driver: readable everywhere (object_lookup's
+                # fetch_addr falls back to the head, which holds the bytes),
+                # and invisible to locality-aware dispatch — proxied source
+                # blocks must not pin every consumer task onto the head node
+                self.objects[object_id] = _ObjectMeta(
+                    object_id, owner, shm_name, len(payload), "driver", ""
+                )
+        except TenantQuotaError:
+            # the bytes were already hosted: an over-quota rejection must
+            # not leak the just-written segment on the head node
+            self._unlink_shm(shm_name)
+            raise
+        return True
+
+    def _meta_view(self, object_id: str, meta: "_ObjectMeta") -> dict:  # guarded-by: self.lock|self.actor_state_cond held
+        """Client-facing lookup record for one object (lock held). Where a
+        non-local reader can pull the bytes: the owning node's agent, or the
+        head itself for head-node objects. The WRITER-recorded
+        namespace is authoritative — a tcp client's blocks carry its
+        namespace even though its "node" is the driver."""
+        if meta.owner_died:
+            self._raise_owner_died(object_id, meta.owner)
+        node = self.nodes.get(meta.node_id)
+        if node is not None and node.agent_addr is not None:
+            fetch_addr = node.agent_addr
+        else:
+            fetch_addr = self.tcp_addr
+        view = {
+            "shm_name": meta.shm_name,
+            "size": meta.size,
+            "owner": meta.owner,
+            "node_id": meta.node_id,
+            "shm_ns": meta.shm_ns,
+            # host axis: readers attribute bytes-over-wire per host edge
+            # and the planner scores placement against it
+            "host": node.host if node is not None else meta.shm_ns,
+            "fetch_addr": fetch_addr,
+        }
+        # service-owned block: advertise the owner's own socket so remote
+        # readers can pull from the first-class owner (TCP only — same-host
+        # readers map shm directly and never fetch). fetch_addr stays the
+        # agent/head fallback for the service's restart window.
+        if meta.owner == self._service_for(
+            meta.shm_ns, tenant_of_object(meta.object_id)
+        ):
+            actor = self.actors.get(meta.owner)
+            if (
+                actor is not None
+                and actor.state == ActorState.ALIVE
+                and actor.sock_path
+                and actor.sock_path.startswith("tcp://")
+            ):
+                view["service_addr"] = actor.sock_path
+        return view
+
+    def handle_object_lookup(self, object_id: str):
+        with self.lock:
+            meta = self.objects.get(object_id)
+            if meta is None:
+                owner = self.owner_tombstones.get(object_id)
+                if owner is not None:
+                    self._raise_owner_died(object_id, owner)
+                return None
+            return self._meta_view(object_id, meta)
+
+    def handle_object_put_batch(self, entries: List[dict]):
+        """Vectorized registration: one RPC frame registers every block a
+        task batch produced (the per-block object_put is the hot metadata
+        call of the shuffle map side — M×R frames collapse to one per
+        task). Returns ``{object_id: effective_owner}`` for the entries the
+        block-service handoff reassigned (empty on the non-handoff path),
+        so the writer's cache stays truthful in the same round trip."""
+        reassigned: Dict[str, str] = {}
+        with self.lock:
+            for e in entries:
+                # quota check first: a mid-batch rejection leaves earlier
+                # entries registered — the writer's batched_registration
+                # failure path deletes the whole batch through the head,
+                # which credits them back
+                self._tenant_charge(e["object_id"], e["size"])
+                owner = self._effective_owner(
+                    e["owner"], e.get("shm_ns", ""), bool(e.get("handoff")),
+                    tenant_of_object(e["object_id"]),
+                )
+                if owner != e["owner"]:
+                    reassigned[e["object_id"]] = owner
+                self.objects[e["object_id"]] = _ObjectMeta(
+                    e["object_id"], owner, e["shm_name"], e["size"],
+                    e["node_id"], e.get("shm_ns", ""),
+                )
+        return reassigned
+
+    def _batch_meta(self, oid: str, lease: bool):  # guarded-by: self.lock|self.actor_state_cond held
+        """One batch entry. Tombstones were already handled: both callers
+        pre-raise via _raise_tombstoned_batch (which names EVERY tombstoned
+        id of the batch), so an absent id here is a plain None."""
+        meta = self.objects.get(oid)
+        if meta is None:
+            return None
+        view = self._meta_view(oid, meta)
+        if lease:
+            view["lease_s"] = self.LOCATION_LEASE_S
+        return view
+
+    def handle_object_lookup_batch(self, object_ids: List[str]):
+        """Vectorized lookup: {object_id: meta-or-None} in one frame (the
+        reduce side resolves every input slice's block with a single RPC).
+        An owner-died object raises, exactly like the single lookup — with
+        EVERY tombstoned id of the batch named in the error."""
+        with self.lock:
+            self._raise_tombstoned_batch(object_ids)
+            return {
+                oid: self._batch_meta(oid, lease=False) for oid in object_ids
+            }
+
+    # how long a client may act on a served location without re-asking: the
+    # head-bypass contract (store.cached_location honors it; expired entries
+    # take the miss path back here)
+    LOCATION_LEASE_S = 120.0
+
+    def handle_object_lookup_lease(self, object_ids: List[str]):
+        """Vectorized lookup returning lease-stamped location records:
+        ``{object_id: meta-or-None}`` where each meta carries ``lease_s`` —
+        the head's promise that acting on the location for that long without
+        re-asking is safe (blocks never move; deletion/owner-death makes a
+        stale read FAIL, and the reader's fallback re-asks the head, which
+        is authoritative). The miss path of the executors' peer-to-peer
+        block resolution (store.lookup_many)."""
+        with self.lock:
+            self._raise_tombstoned_batch(object_ids)
+            return {
+                oid: self._batch_meta(oid, lease=True) for oid in object_ids
+            }
+
+    def handle_object_locations(self, object_ids: List[str]):
+        """Batch block→node lookup for locality-aware task dispatch."""
+        with self.lock:
+            return {
+                oid: self.objects[oid].node_id
+                for oid in object_ids
+                if oid in self.objects and not self.objects[oid].owner_died
+            }
+
+    def handle_object_hosts(self, object_ids: List[str]):
+        """Batch block→(host, size) lookup — the host-axis twin of
+        ``object_locations`` the planner's reduce/exchange placement scorer
+        consumes (obs/costmodel.exchange_placement): it needs BYTES per
+        host, not just node ids, to put a reducer where its input lives."""
+        with self.lock:
+            out: Dict[str, tuple] = {}
+            for oid in object_ids:
+                meta = self.objects.get(oid)
+                if meta is None or meta.owner_died:
+                    continue
+                node = self.nodes.get(meta.node_id)
+                host = node.host if node is not None else meta.shm_ns
+                out[oid] = (host, meta.size)
+            return out
+
+    def handle_block_fetch(self, shm_name: str, offset: int = 0, length: int = -1):
+        """Serve a head-node block's bytes to a remote reader (the head plays
+        block server for namespace-'' objects; agents serve their own).
+        ``offset``/``length`` let readers pull huge blocks in chunks under
+        the frame-size cap."""
+        from raydp_tpu_torch.cluster.common import serve_block_bytes
+
+        return serve_block_bytes(shm_name, offset, length)
+
+    def handle_object_transfer_owner(self, object_ids: List[str], new_owner: str):
+        """Ownership transfer: data outlives the engine that produced it."""
+        with self.lock:
+            for object_id in object_ids:
+                meta = self.objects.get(object_id)
+                if meta is not None and not meta.owner_died:
+                    meta.owner = new_owner
+            return True
+
+    def handle_object_delete(self, object_ids: List[str]):
+        with self.lock:
+            metas = [
+                meta
+                for object_id in object_ids
+                if (meta := self.objects.pop(object_id, None)) is not None
+            ]
+            for meta in metas:
+                self._tenant_credit(meta)
+            for object_id in object_ids:
+                # deleting a tombstoned id makes later reads a clean
+                # not-found (deliberate deletion), not OwnerDiedError
+                self.owner_tombstones.pop(object_id, None)
+        self._unlink_objects(metas)
+        return True
+
+    def handle_object_rebind(self, mapping: Dict[str, str]):
+        """Lineage-recovery rebind: re-register each freshly regenerated
+        block (``new_id``, just written + registered by a surviving
+        executor) under its ORIGINAL object id, clearing the owner-death
+        tombstone — in-flight readers holding the old refs re-resolve and
+        find live bytes. Returns how many ids were rebound; a missing
+        new-id entry (racing deletion) is skipped and reflected in the
+        count so the recovery driver can fail loudly instead of serving a
+        half-rebound exchange."""
+        rebound = 0
+        duplicates: List[_ObjectMeta] = []
+        with self.lock:
+            for old_id, new_id in mapping.items():
+                meta = self.objects.pop(new_id, None)
+                if meta is None:
+                    continue
+                # accounting moves with the id: credit the regenerated id,
+                # charge the original UNENFORCED (these bytes were already
+                # admitted at registration; a re-attach that shrank the
+                # quota below live bytes must not make recovery drop the
+                # popped meta mid-loop)
+                self._tenant_credit(meta)
+                live = self.objects.get(old_id)
+                if live is not None and not live.owner_died:
+                    # duplicate recovery: another recoverer already rebound
+                    # this id — the old ref is LIVE. Keep the winner's meta
+                    # and unlink THIS duplicate's freshly written segment
+                    # (overwriting would orphan one segment either way);
+                    # counted as rebound because the caller's goal — the
+                    # old id resolves to live bytes — holds.
+                    duplicates.append(meta)
+                    rebound += 1
+                    continue
+                self._tenant_charge(old_id, meta.size, enforce=False)
+                meta.object_id = old_id
+                self.objects[old_id] = meta
+                self.owner_tombstones.pop(old_id, None)
+                rebound += 1
+        if duplicates:
+            # off-lock like every unlink path (agent RPCs can be slow)
+            self._unlink_objects(duplicates)
+        if rebound:
+            obs_metrics.counter("head.objects_rebound").inc(rebound)
+            obs_instant("lineage.rebound", blocks=rebound)
+        return rebound
+
+    def _unlink_objects(self, metas: List["_ObjectMeta"], wait: bool = False) -> None:
+        """Release segments, routing remote-node objects through their agent.
+        Never called under the lock (agent RPCs can be slow). ``wait=True``
+        (shutdown path) performs the agent RPCs synchronously — fire-and-
+        forget threads would race the agents' own teardown and leak
+        /dev/shm segments."""
+        by_agent: Dict[str, List[str]] = {}
+        with self.lock:  # snapshot: the routing loop itself stays off-lock
+            nodes = dict(self.nodes)
+        for meta in metas:
+            node = nodes.get(meta.node_id)
+            if node is not None and node.agent_addr is not None:
+                by_agent.setdefault(node.agent_addr, []).append(meta.shm_name)
+            else:
+                self._unlink_shm(meta.shm_name)
+        for agent_addr, names in by_agent.items():
+            def _fire(addr=agent_addr, shm_names=names):
+                try:
+                    rpc(addr, ("unlink_shm", {"shm_names": shm_names}), timeout=10)
+                except Exception:
+                    # agent gone: its /dev/shm died with the node — but a
+                    # LIVE node failing unlinks would leak segments, so
+                    # count it (the store.delete_failures lesson)
+                    obs_metrics.counter("head.unlink_shm_failures").inc(
+                        len(shm_names)
+                    )
+
+            if wait:
+                _fire()
+            else:
+                threading.Thread(target=_fire, daemon=True).start()
+
+    def handle_object_reown_all(self, old_owner: str, new_owner: str) -> int:
+        """Transfer EVERY live object owned by ``old_owner`` to ``new_owner``
+        — the graceful-scale-down primitive: executors killed by dynamic
+        allocation (or kill_executors) must not take still-referenced blocks
+        with them (their shm segments/spill files survive the process; only
+        owner-death GC would destroy them)."""
+        moved = 0
+        with self.lock:
+            for meta in self.objects.values():
+                if meta.owner == old_owner and not meta.owner_died:
+                    meta.owner = new_owner
+                    moved += 1
+        return moved
+
+    def handle_object_owner_of(self, object_id: str):
+        with self.lock:
+            meta = self.objects.get(object_id)
+            return None if meta is None else meta.owner
+
+    @staticmethod
+    def _unlink_shm(shm_name: str) -> None:
+        from raydp_tpu_torch.cluster.common import unlink_block
+
+        unlink_block(shm_name)
+
+    TOMBSTONE_CAP = 16384
+
+    def _tombstone(self, object_id: str, owner: str) -> None:  # guarded-by: self.lock|self.actor_state_cond held
+        self.owner_tombstones[object_id] = owner
+        self.owner_tombstones.move_to_end(object_id)
+        while len(self.owner_tombstones) > self.TOMBSTONE_CAP:
+            self.owner_tombstones.popitem(last=False)
+
+    def _raise_owner_died(self, object_id: str, owner: str) -> None:
+        """OwnerDiedError carrying structured fields: the client's lineage
+        recovery reads ``object_ids`` and its dead-owner fast path reads
+        ``owner`` (BaseException pickling preserves the instance dict)."""
+        err = OwnerDiedError(
+            f"object {object_id}: owner {owner!r} died and the object was "
+            "not transferred before the owner exited"
+        )
+        err.object_ids = [object_id]
+        err.owner = owner
+        raise err
+
+    def _raise_tombstoned_batch(self, object_ids: List[str]) -> None:  # guarded-by: self.lock|self.actor_state_cond held
+        """Raise for a batch naming EVERY tombstoned id in it, not just the
+        first: the client's lineage recovery re-executes the whole named set
+        in one round — one-id-at-a-time errors would burn one retry attempt
+        per lost block and exhaust the task ladder on wide losses."""
+        dead = {
+            oid: owner
+            for oid in object_ids
+            if oid not in self.objects
+            and (owner := self.owner_tombstones.get(oid)) is not None
+        }
+        if not dead:
+            return
+        err = OwnerDiedError(
+            f"object(s) {list(dead)[:3]}{'…' if len(dead) > 3 else ''}: "
+            f"owner(s) died and the objects were not transferred "
+            f"({len(dead)} of {len(object_ids)} requested)"
+        )
+        err.object_ids = list(dead)
+        err.owner = next(iter(dead.values()))
+        raise err
+
+    def _on_owner_dead(self, owner: str) -> None:  # guarded-by: self.lock|self.actor_state_cond held
+        dead = []
+        for meta in list(self.objects.values()):
+            if meta.owner == owner and not meta.owner_died:
+                meta.owner_died = True
+                dead.append(meta)
+                # proactive unregister: pop the record NOW (an intentional
+                # kill_executors/stop used to leave owner-died metas in the
+                # table forever) and tombstone the id so reads keep raising
+                # OwnerDiedError until a lineage rebind revives it
+                del self.objects[meta.object_id]
+                self._tenant_credit(meta)
+                self._tombstone(meta.object_id, owner)
+        if dead:
+            obs_metrics.counter("head.objects_unregistered").inc(len(dead))
+            # called under the lock (monitor/death paths): release segments
+            # from a thread so a slow/dead agent can't stall the head
+            threading.Thread(
+                target=self._unlink_objects, args=(dead,), daemon=True
+            ).start()
+
+    # ---------- observability (obs layer aggregation) ----------
 
     # ---------- observability (obs layer aggregation) ----------
 
@@ -1018,6 +1740,13 @@ class Head:
                 }
                 for a in self.actors.values()
             ]
+            tenants = {
+                name: {
+                    k: v for k, v in record.items()
+                    if isinstance(v, (int, float, str, bool))
+                }
+                for name, record in self.tenants.items()
+            }
             # memory watermark plane (obs/profiler.py): every process's
             # newest mem.* gauges (live value + high watermark) from its
             # shipped registry snapshot — the dossier's memory section
@@ -1035,13 +1764,13 @@ class Head:
                     memory[proc_key] = mem
             return {
                 "actors": actors,
-                # the tenant table, the object table and the block-service
-                # registry come with the port's tenancy and store: empty
-                # until then, under the JAX head's keys
-                "tenants": {},
+                "tenants": tenants,
                 "memory": memory,
-                "objects": 0,
-                "block_services": {},
+                "objects": len(self.objects),
+                "block_services": {
+                    f"{ns or '-'}::{tenant or '-'}": actor_id
+                    for (ns, tenant), actor_id in self.block_services.items()
+                },
                 "nodes": len(self.nodes),
                 "obs_ring": {
                     "spans": len(self.obs_spans),
@@ -1108,9 +1837,12 @@ class Head:
             for actor in self.actors.values():
                 actor.intentional_exit = True
                 self._kill_proc(actor)
+            metas = list(self.objects.values())
+            self.objects.clear()
             agents = [
                 n.agent_addr for n in self.nodes.values() if n.agent_addr
             ]
+        self._unlink_objects(metas, wait=True)
         for agent_addr in agents:
             try:
                 rpc(agent_addr, ("stop", {}), timeout=5)
@@ -1151,6 +1883,8 @@ class Head:
             if now - last_zygote_check > 2.0:
                 last_zygote_check = now
                 self._ensure_zygote()
+                with self.lock:
+                    self._gc_proxy_staging(now)
             # driver liveness: tear everything down if the driver is gone
             if self.driver_pid and not _pid_alive(self.driver_pid):
                 self.handle_shutdown()

@@ -11,10 +11,10 @@
   the obs span records of the wrapped region too (``spans.json``).
 - **Fit attribution** (:func:`explain_fit`): the critical-path analyzer
   over a fit's span tree.
-- **Memory plane** (:func:`sample_memory`): RSS, the card's allocated
-  bytes (``torch.cuda.memory_allocated``, where the JAX package reads its
-  device's live arrays) and host pressure, as high-watermark gauges. The
-  JAX package's /dev/shm namespace bytes wait for the port's store.
+- **Memory plane** (:func:`sample_memory`): RSS, the live bytes of this
+  node's store segments in /dev/shm, the card's allocated bytes
+  (``torch.cuda.memory_allocated``, where the JAX package reads its
+  device's live arrays) and host pressure, as high-watermark gauges.
   :func:`current_mem_pressure` is what the decode engine's admission veto
   reads: the live ``mem.pressure`` gauge, floored by the windowed max of
   the process-local time series. As in the JAX package it is *host* memory
@@ -356,6 +356,29 @@ def _read_rss_bytes() -> Optional[int]:
             return None
 
 
+def _shm_live_bytes() -> Optional[int]:
+    """Live bytes of this node's /dev/shm namespace (the store's segments
+    are named ``rtpt-<ns>-<id>``; an empty namespace owns the un-prefixed
+    pool)."""
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV, SHM_PREFIX
+
+    ns = os.environ.get(SHM_NS_ENV, "")
+    prefix = f"{SHM_PREFIX}{ns}-" if ns else SHM_PREFIX
+    total = 0
+    try:
+        with os.scandir("/dev/shm") as entries:
+            for entry in entries:
+                if not entry.name.startswith(prefix):
+                    continue
+                try:
+                    total += entry.stat().st_size
+                except OSError:  # segment unlinked mid-scan
+                    continue
+    except OSError:
+        return None
+    return total
+
+
 def _device_live_bytes() -> Optional[int]:
     """Bytes the caching allocator has handed out on the current card, only
     where CUDA is already initialised: the sampler must not be the thing
@@ -392,7 +415,7 @@ def _mem_pressure() -> Optional[float]:
 
 def sample_memory(force: bool = False) -> Optional[dict]:
     """Sample this process's memory plane into the registry
-    (high-watermark gauges ``mem.{rss,device}_bytes`` and
+    (high-watermark gauges ``mem.{rss,shm,device}_bytes`` and
     ``mem.pressure``), at most once every
     :data:`MEM_SAMPLE_MIN_INTERVAL_S` unless ``force``; returns the sample
     dict, or None when throttled."""
@@ -404,6 +427,7 @@ def sample_memory(force: bool = False) -> Optional[dict]:
         _last_mem_sample = now
     sample: Dict[str, float] = {}
     for key, value in (("rss_bytes", _read_rss_bytes()),
+                       ("shm_bytes", _shm_live_bytes()),
                        ("device_bytes", _device_live_bytes()),
                        ("pressure", _mem_pressure())):
         if value is not None:

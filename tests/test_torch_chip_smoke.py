@@ -562,3 +562,95 @@ def test_phase_cluster_on_the_cpu(alarm_guard, tmp_path):
     assert rec["memory_back_s"] is None  # no card
     assert rec["phase_s"] <= chip_smoke.CLUSTER_LIMIT_S
     assert (tmp_path / "cluster_trace.json").exists()
+
+
+# phase_store at a small size on the CPU: 4,096 rows in 2 blocks, batch 256,
+# tables of 1,000 rows at most, and 2 blocks of 1 MiB for put and get. The
+# producers, the transfer, the owner deaths, the handoff, the fits from
+# store blocks and the teardown are the same code on the card; K1's launch
+# count is the card's alone (the plain version launches nothing)
+TINY_DLRM_RUN = dict(rows=4096, batch=256, blocks=2)
+TINY_VOCABS = [1000, 100, 100, 10, 10, 10]
+
+
+def _numpy_fit_reference():
+    cpu = torch.device("cpu")
+    ds, dense_cols, cat_cols = chip_smoke.dlrm_data()
+    est = chip_smoke.dlrm_estimator(cpu, dense_cols, cat_cols, "adam",
+                                    chip_smoke.DLRM_RUN["epochs"])
+    history = est.fit(ds)
+    return {"train_loss": [r["train_loss"] for r in history],
+            "evaluate": est.evaluate(ds), "launches": 0,
+            "final_state": chip_smoke.final_state(est)}
+
+
+@pytest.fixture
+def store_alarm_guard():
+    """120 s: the phase starts a cluster whose zygote imports torch, three
+    producer actors and three fits, under the test run's other workers."""
+    import signal
+
+    def on_alarm(signum, frame):
+        raise TimeoutError("test ran past its 120 s guard")
+
+    old = signal.signal(signal.SIGALRM, on_alarm)
+    signal.alarm(120)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+@pytest.fixture
+def tiny_store(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN",
+                        dict(chip_smoke.DLRM_RUN, **TINY_DLRM_RUN))
+    monkeypatch.setattr(chip_smoke, "DLRM_MODEL",
+                        dict(chip_smoke.DLRM_MODEL, vocab_sizes=TINY_VOCABS))
+    monkeypatch.setattr(chip_smoke, "STORE_BENCH",
+                        dict(chip_smoke.STORE_BENCH, blocks=2, block_bytes=1 << 20))
+    return _numpy_fit_reference()
+
+
+def test_phase_store_on_the_cpu(store_alarm_guard, tiny_store):
+    rec = chip_smoke.phase_store(torch.device("cpu"), tiny_store)
+    assert set(chip_smoke.STORE_KEYS) <= set(rec)
+    assert rec["blocks"] == 2 and rec["rows"] == 4096
+    assert rec["fit_bitwise"] and rec["handoff_fit_bitwise"]
+    assert rec["train_loss"] == tiny_store["train_loss"]
+    assert rec["zero_copy"] is True
+    assert rec["lost_reads"] == ["OwnerDiedError"] * 2
+    assert 0 < rec["kill_to_unlink_s"] <= chip_smoke.STORE_DEADLINE_S
+    assert rec["bench_tier"] == ["shm", "shm"]
+    assert len(rec["put_gb_s"]) == len(rec["get_gb_s"]) == 2
+    assert rec["shm_bytes_peak"] >= 2 << 20
+    assert rec["driver_exit_leaks"]["sanitize.leaked_shm_segments"] == 0
+    assert rec["phase_s"] <= chip_smoke.STORE_LIMIT_S
+
+
+def test_store_fit_fails_on_other_parameters(store_alarm_guard, tiny_store):
+    """A fit from store blocks that ends one parameter away from the numpy
+    fit's fails the phase."""
+    from raydp_tpu_torch import cluster, store
+
+    reference = dict(tiny_store)
+    state = dict(reference["final_state"])
+    name = next(iter(state))
+    state[name] = state[name].clone()
+    state[name].view(-1)[0] += 1e-6
+    reference["final_state"] = state
+    _, dense_cols, cat_cols = chip_smoke.dlrm_columns()
+    run = {k: chip_smoke.DLRM_RUN[k] for k in ("rows", "blocks", "data_seed")}
+    cluster.init(num_cpus=1)
+    try:
+        refs = chip_smoke.StoreProducer().write_blocks(run, chip_smoke.DLRM_MODEL)
+        with pytest.raises(chip_smoke.SmokeFailure, match="differs from the fit"):
+            chip_smoke.store_fit(torch.device("cpu"), store, refs, dense_cols,
+                                 cat_cols, reference)
+        good = chip_smoke.store_fit(torch.device("cpu"), store, refs, dense_cols,
+                                    cat_cols, tiny_store)
+        assert good["bitwise"] and good["zero_copy"]
+        store.delete(refs)
+    finally:
+        cluster.shutdown()

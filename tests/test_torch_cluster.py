@@ -185,6 +185,22 @@ def test_crash_restarts_with_same_identity(runtime):
     c.kill()
 
 
+def test_kill_with_restart_restarts_once(runtime):
+    """``kill(no_restart=False)`` costs exactly one restart each time: the
+    head's reaper of the killed process and its monitor both see the death,
+    and only one of them may count it (a second count burnt a restart and
+    killed the respawn in flight)."""
+    c = cluster.spawn(Counter, name="once", max_restarts=30, light=True)
+    for kill in range(1, 16):
+        c.kill(no_restart=False)
+        wait_until(lambda: (lambda r: r.state == ActorState.ALIVE
+                            and r.incarnation >= kill)(c._record()),
+                   10, f"restart {kill}")
+        record = c._record()
+        assert (record.incarnation, record.restarts_used) == (kill, kill)
+    c.kill()
+
+
 def test_intentional_exit_is_not_restarted(runtime):
     c = cluster.spawn(Counter, name="quitter", max_restarts=5, light=True)
     try:
@@ -619,8 +635,9 @@ def test_actor_runs_on_agent_node_with_own_namespace(agent_node):
 
 def test_tcp_requires_token(agent_node):
     """An unauthenticated TCP peer is dropped before any unpickling; an
-    authenticated one reaches the agent, whose block handlers come with the
-    store."""
+    authenticated one reaches the agent's handlers, whose block server
+    refuses a segment name that is not the port's (the JAX package's
+    ``rtpu-``)."""
     import socket as socketlib
 
     from raydp_tpu_torch.cluster.common import recv_frame, send_frame
@@ -635,19 +652,23 @@ def test_tcp_requires_token(agent_node):
         recv_frame(raw)
     raw.close()
     assert rpc(addr, ("ping", {}), timeout=5) == "pong"
-    with pytest.raises(ClusterError, match="unknown agent method 'block_fetch'"):
+    with pytest.raises(ClusterError, match="invalid shm segment name 'rtpu-x'"):
         rpc(addr, ("block_fetch", {"shm_name": "rtpu-x"}), timeout=5)
 
 
 def test_head_refuses_store_methods_by_name(runtime):
-    """The head's object, block-service and tenant handlers come with the
-    store and tenancy: until then they are unknown methods, answered as
-    the JAX head answers any unknown method."""
-    with pytest.raises(ClusterError, match="unknown head method 'object_put'"):
-        cluster.head_rpc("object_put", object_id="x", owner="o",
-                         shm_name="rtpu-x", size=1, node_id="n")
-    with pytest.raises(ClusterError, match="unknown head method 'tenant_list'"):
-        cluster.head_rpc("tenant_list")
+    """The head answers the store's object, block-service and tenant
+    methods as the JAX head does, and refuses a method it does not have by
+    name, as any unknown method."""
+    assert cluster.head_rpc("object_put", object_id="x", owner="o",
+                            shm_name="/rtpt-x", size=1, node_id="n") == "o"
+    assert cluster.head_rpc("object_owner_of", object_id="x") == "o"
+    assert cluster.head_rpc("object_delete", object_ids=["x"]) is True
+    assert cluster.head_rpc("object_lookup", object_id="x") is None
+    assert cluster.head_rpc("tenant_list") == {}
+    assert cluster.head_rpc("block_service_lookup") is None
+    with pytest.raises(ClusterError, match="unknown head method 'object_teleport'"):
+        cluster.head_rpc("object_teleport", object_id="x")
 
 
 # ---------------------------------------------------------------------------

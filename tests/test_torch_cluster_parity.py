@@ -226,6 +226,37 @@ def test_placement_strategies_assign_the_same_nodes(case, tmp_path):
     assert got == want
 
 
+@pytest.mark.parametrize("package", ["raydp_tpu_torch", "raydp_tpu"])
+def test_handles_meet_a_closed_backlog_with_the_same_reset(package):
+    """A call that lands in the backlog of an actor's listener which then
+    closes without accepting it (a SIGKILLed actor still closing its
+    sockets) is reset: the JAX package's handle raises ConnectionResetError
+    as the port's does. So a caller that kills an actor waits for the head's
+    record of the restarted incarnation before its next call
+    (``chip_smoke.phase_cluster``)."""
+    import importlib
+    import tempfile
+
+    api = importlib.import_module(package + ".cluster.api")
+    run_dir = tempfile.mkdtemp(prefix="rst-")
+    sock_path = os.path.join(run_dir, "a.sock")
+    listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    try:
+        listener.bind(sock_path)
+        listener.listen(1)
+        handle = api.ActorHandle(run_dir, "actor-000000000000")
+        handle._cached_sock = sock_path
+        future = handle._call("serve", (), {}, no_reply=False, timeout=5,
+                              retries=0)
+        listener.close()
+        with pytest.raises(ConnectionResetError):
+            future.result()
+    finally:
+        listener.close()
+        os.unlink(sock_path)
+        os.rmdir(run_dir)
+
+
 # ---------------------------------------------------------------------------
 # one scenario, two runtimes
 # ---------------------------------------------------------------------------
@@ -391,3 +422,97 @@ def test_scenario_covers_the_lifecycle(transcripts):
     assert rows["call dead"][0] == "ActorDiedError"
     assert rows["user error"] == ["ValueError", "boom from actor"]
     assert re.match(r"no node can host actor", rows["oversubscribed"][1])
+
+
+def test_head_answers_every_method_the_jax_head_answers():
+    """The object, block-service and tenant planes included: the port's head
+    has a handler for every method the JAX head has, and no other."""
+    def methods(head_mod):
+        return sorted(name for name in dir(head_mod.Head)
+                      if name.startswith("handle_"))
+
+    assert methods(port_head) == methods(jax_head)
+    for name in ("handle_object_put", "handle_object_put_batch",
+                 "handle_object_put_proxy", "handle_object_lookup_lease",
+                 "handle_block_fetch", "handle_object_reown_all",
+                 "handle_block_service_register", "handle_tenant_list"):
+        assert name in methods(port_head)
+
+
+STORE_DOSSIER_SCENARIO = """
+import glob, json, os, re, signal, sys, time
+PKG = sys.argv[1]
+os.environ["RAYDP_TPU_NO_GLOBAL_ZYGOTE"] = "1"
+os.environ["RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE"] = "1"
+import importlib
+import numpy as np
+cluster = importlib.import_module(PKG + ".cluster")
+store = importlib.import_module(PKG + ".store")
+object_store = importlib.import_module(PKG + ".store.object_store")
+bs = importlib.import_module(PKG + ".store.block_service")
+
+class Victim:
+    def pid(self):
+        return os.getpid()
+
+cluster.init(num_cpus=4)
+cluster.head_rpc("tenant_register", name="etl-a", weight=1.5, max_block_bytes=1 << 20)
+cluster.head_rpc("tenant_register", name="etl-b")
+svc = cluster.spawn(bs.BlockService, "etl-a", name="etl-a_BLOCK_SERVICE",
+                    light=True)
+bs.register_service(svc.actor_id, tenant="etl-a")
+rng = np.random.default_rng(0)
+with object_store.tenant_scope("etl-a"):
+    refs = [store.put(rng.integers(0, 256, 1000 * (i + 1), dtype=np.uint8).tobytes())
+            for i in range(3)]
+refs.append(store.put(b"untenanted"))
+v = cluster.spawn(Victim, name="victim", light=True)
+os.kill(v.pid(), signal.SIGKILL)
+pattern = os.path.join(cluster.session_dir(), "dossiers", "dossier-*.json")
+deadline = time.monotonic() + 10
+found = None
+while found is None:
+    assert time.monotonic() < deadline, "no dossier"
+    for path in glob.glob(pattern):
+        with open(path) as f:
+            d = json.load(f)
+        if d["victim"].get("actor_id") == v.actor_id:
+            found = d
+    time.sleep(0.05)
+head = found["head"]
+text = json.dumps({"objects": head["objects"],
+                   "block_services": head["block_services"],
+                   "tenants": head["tenants"]}, sort_keys=True)
+print(re.sub(r"actor-[0-9a-f]{12}", "actor-X", text))
+store.delete(refs)
+cluster.shutdown()
+"""
+
+
+def test_dossier_carries_the_object_plane_as_the_jax_head(tmp_path):
+    """After the same sequence (two tenants, a tenant's block service, four
+    blocks, a SIGKILLed actor), both heads' dossiers carry the same object
+    count, block-service registry and tenant table, none of them empty."""
+    got = {}
+    for package in ("raydp_tpu_torch", "raydp_tpu"):
+        script = tmp_path / f"store_dossier_{package}.py"
+        script.write_text(textwrap.dedent(STORE_DOSSIER_SCENARIO))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join([ROOT] + sys.path)
+        env["JAX_PLATFORMS"] = "cpu"
+        for var in ("RAYDP_TPU_SESSION", "RAYDP_TPU_HEAD_ADDR", "RAYDP_TPU_TOKEN",
+                    "RAYDP_TPU_TORCH_SESSION", "RAYDP_TPU_TORCH_HEAD_ADDR",
+                    "RAYDP_TPU_TORCH_TOKEN", "RAYDP_TPU_DOSSIER_DIR"):
+            env.pop(var, None)
+        run = subprocess.run([sys.executable, str(script), package],
+                             capture_output=True, text=True, timeout=50,
+                             env=env, cwd=str(tmp_path))
+        assert run.returncode == 0, f"{package}:\n{run.stdout}\n{run.stderr}"
+        got[package] = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["raydp_tpu_torch"] == got["raydp_tpu"]
+    head = got["raydp_tpu_torch"]
+    assert head["objects"] == 4
+    assert head["block_services"] == {"-::etl-a": "actor-X"}
+    assert head["tenants"]["etl-a"]["bytes_stored"] == 6000
+    assert head["tenants"]["etl-a"]["blocks"] == 3
+    assert head["tenants"]["etl-b"]["active"] is True

@@ -280,13 +280,27 @@ def test_entry_points_without_device_raise(monkeypatch):
             build()
 
 
+# the modules that stay clear of Arrow and pandas: the port's store imports
+# pyarrow (as the JAX package's does), these never do; the list only grows
+ARROW_FREE = ("estimator", "ops", "models", "optim.py", "serve", "obs",
+              "exchange/torch_io.py")
+
+
 def test_port_imports_no_optax_or_arrow():
-    """The AST scan of test_torch_isolation.py, for the modules the
-    estimator slice must also stay clear of."""
+    """The AST scan of test_torch_isolation.py: no port module nor
+    ``chip_smoke.py`` imports optax, and the modules of ``ARROW_FREE``
+    import neither pyarrow nor pandas."""
     files = sorted((ROOT / "raydp_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    arrow_free = set()
+    for entry in ARROW_FREE:
+        path = ROOT / "raydp_tpu_torch" / entry
+        assert path.exists(), entry
+        arrow_free |= {path} if path.is_file() else set(path.rglob("*.py"))
+    assert len(arrow_free) >= 25
     bad = []
     for path in files:
+        banned = ("optax", "pyarrow", "pandas") if path in arrow_free else ("optax",)
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
@@ -294,5 +308,5 @@ def test_port_imports_no_optax_or_arrow():
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 names = [node.module]
             bad += [f"{path.name}: {n}" for n in names
-                    if n.split(".")[0] in ("optax", "pyarrow", "pandas")]
+                    if n.split(".")[0] in banned]
     assert not bad, bad

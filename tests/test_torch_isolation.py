@@ -11,8 +11,10 @@
 - No string constant of those files names a ``raydp_tpu.`` module: an
   ``-m raydp_tpu.cluster.worker`` left in a copy would launch the JAX
   package's worker, and the import scan cannot see strings.
-- The cluster's head imports no torch: ``python -S -c "import
-  raydp_tpu_torch.cluster.head"`` leaves ``torch`` out of ``sys.modules``.
+- The cluster's head, agent, zygote and worker, and the store's modules,
+  import neither torch nor pyarrow: ``python -S -c "import
+  raydp_tpu_torch.cluster.head"`` leaves both out of ``sys.modules`` (the
+  store imports pyarrow where it reads or writes Arrow, not at import).
 - Entry points with no device on a machine without CUDA raise instead of
   falling back to the CPU.
 """
@@ -55,6 +57,9 @@ def _imported_roots(path: Path):
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 10 and all(f.exists() for f in files)
+    store = ROOT / "raydp_tpu_torch" / "store"
+    assert {store / "object_store.py", store / "block_service.py",
+            store / "__init__.py"} <= set(files)
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files
@@ -95,20 +100,35 @@ def test_string_scan_sees_launch_targets(tmp_path):
     assert [line for line, _ in _strings_naming_jax_modules(probe)] == [2, 4]
 
 
-def test_cluster_head_imports_no_torch():
-    """``python -S`` skips site, as the head's own start does; its imports
-    resolve through PYTHONPATH, as the cluster's launcher sets it."""
+def _imports_neither_torch_nor_pyarrow(module: str) -> None:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT)] + [p for p in sys.path if p])
+    run = subprocess.run(
+        [sys.executable, "-S", "-c",
+         f"import sys, {module}; "
+         "print([m in sys.modules for m in ('torch', 'pyarrow')])"],
+        capture_output=True, text=True, timeout=60, env=env)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "[False, False]", module
+
+
+def test_cluster_head_imports_no_torch():
+    """``python -S`` skips site, as the head's own start does; its imports
+    resolve through PYTHONPATH, as the cluster's launcher sets it. Neither
+    torch nor pyarrow."""
     for module in ("raydp_tpu_torch.cluster.head",
                    "raydp_tpu_torch.cluster.agent",
                    "raydp_tpu_torch.cluster.zygote"):
-        run = subprocess.run(
-            [sys.executable, "-S", "-c",
-             f"import sys, {module}; print('torch' in sys.modules)"],
-            capture_output=True, text=True, timeout=60, env=env)
-        assert run.returncode == 0, run.stderr
-        assert run.stdout.strip() == "False", module
+        _imports_neither_torch_nor_pyarrow(module)
+
+
+@pytest.mark.parametrize("module", [
+    "raydp_tpu_torch.cluster.worker", "raydp_tpu_torch.store",
+    "raydp_tpu_torch.store.block_service"])
+def test_light_actor_and_store_import_neither_torch_nor_pyarrow(module):
+    """A light actor's worker, and the store until it reads or writes
+    Arrow."""
+    _imports_neither_torch_nor_pyarrow(module)
 
 
 def _imported_modules(path: Path, package: str):

@@ -25,7 +25,7 @@ import pytest
 from raydp_tpu import sanitize as jax_sanitize
 from raydp_tpu_torch import cluster
 from raydp_tpu_torch import sanitize
-from raydp_tpu_torch.cluster.common import unlink_block
+from raydp_tpu_torch.cluster.common import SHM_PREFIX, unlink_block
 
 BOTH = {"port": sanitize, "jax": jax_sanitize}
 ARMED = "donation,lockdep,leaks"
@@ -273,7 +273,7 @@ def test_leak_audit_detects_and_clears_a_tracked_segment(monkeypatch):
     """A segment tracked by this process is named until the cluster's
     ``unlink_block`` removes it; ``leaks-strict`` escalates meanwhile."""
     monkeypatch.setenv("RAYDP_TPU_SANITIZE", ARMED)
-    name = f"rtpu-test-{uuid.uuid4().hex[:12]}"
+    name = f"{SHM_PREFIX}test-{uuid.uuid4().hex[:12]}"
     path = os.path.join("/dev/shm", name)
     with open(path, "wb") as f:
         f.write(b"leakme" * 1024)
