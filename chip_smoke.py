@@ -159,6 +159,28 @@ Phases; any failure exits non-zero and prints no result line:
    ``mem.shm_bytes`` at its peak; after ``shutdown()`` no segment left and
    the driver's leak audit at 0 (``--store`` runs phase_dlrm and this
    phase alone).
+   Then the serving plane (``phase_deploy``): ``serve.deploy`` of 2 light
+   replicas a deployment on the card, in a cluster of the port. The DLRM
+   cell with phase_dlrm's weights as epoch 0: 4 closed-loop clients for 3
+   s of 1-32 rows (each response within 1e-5 relative of the driver's
+   ``Estimator.predict``; requests/s, p50/p99, batch fill, the stage
+   split), a replica's ``profile`` listing ``interaction_fwd_kernel``;
+   at the one bucket of 256, 160 fixed requests clean, then with replica
+   0 SIGKILLed 50 ms in (none dropped, each bitwise the clean run's and
+   the driver's predict of the rows padded to 256, the pool healed within
+   15 s), then under a rolling reload to a perturbed epoch 1 (each
+   response bitwise the old weights' or the new's, all new after it).
+   The full-width LM in f32 at max_len 2048 through ``stream`` (8
+   prompts, a client thread each): tokens bitwise the driver's
+   ``DecodeEngine``, clean and through a SIGKILL once every stream has two
+   tokens (at least one failover); the int8 cache bitwise the driver's;
+   the bf16 model through a SIGKILL (tokens before it equal, the streams
+   that differ after it counted). K2a's f32 body, K4a and K4b launch in
+   the replicas (the ``ops.launches.*`` gauges each ships to the head).
+   After ``shutdown()`` no replica process, no ``rtpt-`` segment of the
+   session's shm namespace, the card's memory back and the
+   driver's leak audit at 0; at most 150 s (``--deploy`` runs
+   phase_dlrm and this phase alone).
    Then the estimator's streamed, checkpointed and retried fit at the same
    width (``phase_fit``), a line for each step: (1) fits of 3 epochs with
    ``streaming=True``, ``"hybrid"`` and ``stream_wire_quant="int8"``: the
@@ -214,7 +236,8 @@ Phases; any failure exits non-zero and prints no result line:
    launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
    events and by the profiler.
 
-The last three lines are an ``{"obs": {...}}`` object (the two overhead
+Before them a ``{"deploy": {...}}`` line sums up ``phase_deploy``. The
+last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
 and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
 "device": {...}}``. The full record also goes to
@@ -387,6 +410,8 @@ INTERACTION_SOURCE = "raydp_tpu_torch/csrc/interaction.cu"
 # kernel -> (source, the pallas_call of the TPU kernel it replaces)
 KERNELS = {
     "flash_fwd": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
+    # the f32 body, which the f32 model's replicas run (phase_deploy)
+    "flash_fwd_f32": (FWD_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
     "flash_fwd_twoterm": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
     "flash_bwd_dq": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
     "flash_bwd_dkv": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
@@ -2153,6 +2178,22 @@ def _wait_for(predicate, timeout_s: float, what: str):
         time.sleep(0.01)
 
 
+def _zygote_serves(session: str) -> bool:
+    """Whether the session-local zygote accepts forks (its warm-up done)."""
+    import socket
+
+    from raydp_tpu_torch.cluster.zygote import zygote_sock_path
+
+    probe = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    try:
+        probe.connect(zygote_sock_path(session))
+        return True
+    except OSError:
+        return False
+    finally:
+        probe.close()
+
+
 def _session_procs(session: str) -> list:
     """Processes other than this one whose command line names ``session``:
     the head, the session-local zygote and every child it forked (a forked
@@ -2247,8 +2288,7 @@ def phase_cluster(device, served: dict, model_cfg: dict = MODEL,
     from raydp_tpu_torch.cluster import api as capi
     from raydp_tpu_torch.cluster.common import ClusterError, _probe_pid, rpc
     from raydp_tpu_torch.cluster.zygote import (WARM_TORCH_ENV,
-                                                zygote_marker_path,
-                                                zygote_sock_path)
+                                                zygote_marker_path)
     from raydp_tpu_torch.obs import timeseries
     from raydp_tpu_torch.obs.metrics import metrics
 
@@ -2286,19 +2326,7 @@ def phase_cluster(device, served: dict, model_cfg: dict = MODEL,
         session = cluster.init(**CLUSTER)
         rec["init_s"] = time.perf_counter() - t0
 
-        def zygote_serves() -> bool:
-            import socket
-
-            probe = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-            try:
-                probe.connect(zygote_sock_path(session))
-                return True
-            except OSError:
-                return False
-            finally:
-                probe.close()
-
-        _wait_for(zygote_serves, 30.0, "the zygote's warm-up")
+        _wait_for(lambda: _zygote_serves(session), 30.0, "the zygote's warm-up")
         rec["zygote_warm_s"] = time.perf_counter() - t0
         t1 = time.perf_counter()
         actor = cluster.spawn(
@@ -3253,6 +3281,750 @@ def phase_store(device, reference: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the serving plane, replicas on the card
+# ---------------------------------------------------------------------------
+
+DEPLOY_CLUSTER = dict(num_cpus=4, resources={"GPU": 1.0})
+DEPLOY_LIMIT_S = 150.0  # the whole phase
+DEPLOY_DEADLINE_S = 15.0  # a pool healed, the card's memory back
+# the DLRM cell's deployment: 2 replicas; 4 closed-loop clients for 3 s of
+# requests of 1-32 seeded rows on the default bucket ladder; then, on the
+# one bucket of 256, 160 fixed requests from 4 clients, once clean, once
+# with replica 0 SIGKILLed 50 ms in, and under a rolling reload to epoch 1
+# (the top MLP perturbed by a seeded draw of scale 0.05); the profiled
+# call's rows
+DEPLOY_DLRM = dict(replicas=2, max_batch=256, clients=4, load_s=3.0,
+                   max_rows=32, requests=160, kill_after_s=0.05, seed=21,
+                   noise=0.05, profile_rows=64)
+# the LM deployments: 2 replicas of the full-width model at max_len 2048,
+# one client thread a stream
+DEPLOY_LM = dict(replicas=2, max_len=2048)
+# what phase_deploy's summary line prints (the record holds more)
+DEPLOY_KEYS = ("dlrm_requests_s", "dlrm_p50_ms", "dlrm_p99_ms",
+               "dlrm_batch_fill", "dlrm_stage_ms", "dlrm_kill_dropped",
+               "dlrm_heal_s", "lm_heal_s", "dlrm_replica_load_s",
+               "dlrm_replacement_load_s", "warm_split", "dlrm_reload",
+               "k1_profile_us",
+               "lm_kill_to_first_token_s", "lm_failovers", "lm_ttft_ms_p50",
+               "lm_tpot_ms_p50", "lm_head_latency", "lm_int8_bitwise",
+               "bf16_streams_differing", "deploy_s", "launches",
+               "driver_exit_leaks", "phase_s")
+
+
+def publish_checkpoint(directory: Path, epoch: int, model) -> None:
+    """Write ``model``'s weights as the serving checkpoint of ``epoch``
+    (the replicas' weight channel), through the estimator's checkpoint
+    module."""
+    from raydp_tpu_torch.estimator import checkpoint as ckpt
+
+    ckpt.save_checkpoint(str(directory), epoch, None, model,
+                         torch.optim.Adam(model.parameters()))
+
+
+def reference_estimator(model, directory: Path) -> Estimator:
+    """The driver's ``Estimator`` holding ``model``'s weights, loaded from
+    a checkpoint of its own in ``directory`` (never the replicas')."""
+    from raydp_tpu_torch.estimator import checkpoint as ckpt
+
+    ckpt.save_checkpoint(str(directory), 0, None, model,
+                         torch.optim.Adam(model.parameters()))
+    est = Estimator(model=model, checkpoint_dir=str(directory),
+                    device=model.device)
+    est.load_latest_checkpoint()
+    return est
+
+
+def _dlrm_payload(dense, ids, rng, max_rows):
+    n = int(rng.integers(1, max_rows + 1))
+    start = int(rng.integers(0, len(dense) - n + 1))
+    return dense[start:start + n], ids[start:start + n]
+
+
+def _client_threads(clients: int, body) -> list:
+    """``clients`` started threads running ``body(i)``; an exception is
+    kept on the thread's ``error`` attribute."""
+    import threading
+
+    def run(i, thread):
+        try:
+            body(i)
+        except BaseException as exc:  # noqa: BLE001 - surfaced by _join_clients
+            thread.error = exc
+
+    pool = []
+    for i in range(clients):
+        thread = threading.Thread(target=lambda i=i: run(i, pool[i]),
+                                  daemon=True)
+        thread.error = None
+        pool.append(thread)
+    for thread in pool:
+        thread.start()
+    return pool
+
+
+def _join_clients(pool, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    for thread in pool:
+        thread.join(max(0.0, deadline - time.monotonic()))
+        require(not thread.is_alive(), f"{what}: a client did not finish")
+        require(thread.error is None, f"{what}: a client raised {thread.error!r}")
+
+
+def _fixed_requests(dep, payloads, clients, during=None) -> list:
+    """Every payload predicted once, payload i by client i % clients in
+    order; ``during()`` runs on this thread meanwhile."""
+    outs = [None] * len(payloads)
+
+    def client(c):
+        for i in range(c, len(payloads), clients):
+            outs[i] = dep.predict(payloads[i], timeout=120.0)
+
+    pool = _client_threads(clients, client)
+    if during is not None:
+        during()
+    _join_clients(pool, 180.0, "the fixed requests")
+    return outs
+
+
+def _replica_launches(dep) -> dict:
+    """Each live replica's kernel launches so far, by pid, as the head
+    holds them: ``dep.infos()`` has every replica ship its telemetry, whose
+    ``ops.launches.<kernel>`` gauges carry its wrappers' counts
+    (``obs.profiler.sample_launches``)."""
+    from raydp_tpu_torch import cluster
+
+    live = {info["pid"] for info in dep.infos()}
+    out = {}
+    for proc, snap in cluster.dump_metrics().items():
+        pid = int(proc.rsplit(":", 1)[-1])
+        if proc.startswith("worker:") and pid in live:
+            out[pid] = {name[len("ops.launches."):]: int(value["value"])
+                        for name, value in snap.items()
+                        if name.startswith("ops.launches.")}
+    require(set(out) == live, f"the head holds no launch counts of the "
+            f"replicas {sorted(live - set(out))}")
+    return out
+
+
+def _launch_delta(before: dict, after: dict) -> dict:
+    """Launches made between two ``_replica_launches`` reads, summed over
+    the replicas alive at the second (a replica spawned between the reads
+    counts from its start)."""
+    out: dict = {}
+    for pid, counts in after.items():
+        for name, n in counts.items():
+            out[name] = out.get(name, 0) + n - before.get(pid, {}).get(name, 0)
+    return out
+
+
+def _add_launches(total: dict, delta: dict) -> None:
+    for name, n in delta.items():
+        total[name] = total.get(name, 0) + n
+
+
+def trace_kernel_us(path: str, pattern: str) -> list:
+    """The device time (us) of each kernel event in a Chrome trace whose
+    name contains ``pattern``."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return [e["dur"] for e in events
+            if e.get("cat") == "kernel" and pattern in e.get("name", "")]
+
+
+def _wait_healed(dep, replicas: int, replaced_before: float, metrics) -> float:
+    t0 = time.perf_counter()
+    _wait_for(lambda: dep.replica_count() == replicas
+              and metrics.counter("serve.replica_replacements").value
+              > replaced_before, DEPLOY_DEADLINE_S, "the pool to heal")
+    return time.perf_counter() - t0
+
+
+def deploy_references(device, state: dict, workdir: Path, prompts) -> dict:
+    """Everything the driver computes on the card for ``phase_deploy``,
+    before the phase's memory baseline: the DLRM reference estimators
+    (epoch 0 and the perturbed epoch 1) and the kill probe's payloads with
+    their padded answers; the LM checkpoints and the driver's
+    ``DecodeEngine`` tokens (f32 model with f32 and int8 caches, bf16 model
+    with an f32 cache). Epoch 0 of each model is published for the
+    replicas; the DLRM's epoch 1 only at the reload."""
+    from raydp_tpu_torch.exchange.features import pad_rows
+
+    cfg = DEPLOY_DLRM
+    columns, dense_cols, cat_cols = dlrm_columns()
+    dense = np.stack([columns[c] for c in dense_cols], axis=1)
+    ids = np.stack([columns[c] for c in cat_cols], axis=1)
+    make = functools.partial(DLRM, **DLRM_MODEL)
+    model = make(device=device, seed=SEED)
+    model.load_state_dict(state)
+    model.eval()
+    publish_checkpoint(workdir / "dlrm", 0, model)
+    est = reference_estimator(model, workdir / "dlrm_ref")
+    # epoch 1: the top MLP perturbed by a seeded draw
+    noise = torch.Generator().manual_seed(cfg["seed"])
+    bumped = {k: v.clone() for k, v in state.items()}
+    top = len(DLRM_MODEL["bottom_mlp"])
+    for i in range(top, top + len(DLRM_MODEL["top_mlp"])):
+        w = bumped[f"dense.{i}.weight"]
+        w += cfg["noise"] * torch.randn(w.shape, generator=noise)
+    new_model = make(device=device, seed=SEED)
+    new_model.load_state_dict(bumped)
+    new_model.eval()
+    rng = np.random.default_rng(cfg["seed"])
+    payloads = [_dlrm_payload(dense, ids, rng, cfg["max_rows"])
+                for _ in range(cfg["requests"])]
+
+    def padded(predictor):
+        return [predictor.predict(pad_rows(p, cfg["max_batch"]))[:len(p[0])]
+                for p in payloads]
+
+    refs = {"dense": dense, "ids": ids, "dlrm": make, "dlrm_est": est,
+            "dlrm_new": new_model, "payloads": payloads,
+            "old_ref": padded(est),
+            "new_ref": padded(reference_estimator(new_model,
+                                                  workdir / "dlrm_ref1"))}
+    require(not any(np.array_equal(a, b) for a, b in
+                    zip(refs["old_ref"], refs["new_ref"])),
+            "the perturbed weights answer as the old ones")
+
+    f32 = functools.partial(TransformerLM, **MODEL,
+                            max_len=DEPLOY_LM["max_len"], attn_impl="flash",
+                            dtype=torch.float32)
+    lm = f32(device=device, seed=SEED).eval()
+    publish_checkpoint(workdir / "lm_f32", 0, lm)
+    refs.update(lm_f32=f32,
+                lm_ref=serve(lm, prompts, False, device)["tokens_by_stream"],
+                lm_ref_int8=serve(lm, prompts, True, device)["tokens_by_stream"])
+    bf16 = functools.partial(TransformerLM, **MODEL, attn_impl="flash")
+    lm = bf16(device=device, seed=SEED).eval()
+    publish_checkpoint(workdir / "lm_bf16", 0, lm)
+    refs.update(lm_bf16=bf16,
+                lm_ref_bf16=serve(lm, prompts, False, device)["tokens_by_stream"])
+    return refs
+
+
+def deploy_dlrm(device, refs: dict, workdir: Path, rec: dict, pids: set,
+                launches: dict) -> None:
+    """Step A of ``phase_deploy``: the DLRM cell's predictions."""
+    from raydp_tpu_torch import serve as serving
+    from raydp_tpu_torch.exchange.features import f_concat
+    from raydp_tpu_torch.obs.metrics import metrics
+
+    cfg = DEPLOY_DLRM
+    dense, ids, make, est = refs["dense"], refs["ids"], refs["dlrm"], refs["dlrm_est"]
+    payloads, old_ref, new_ref = refs["payloads"], refs["old_ref"], refs["new_ref"]
+    served = workdir / "dlrm"
+    conf = {"serve.max_batch_size": cfg["max_batch"]}
+    example = (dense[:1], ids[:1])
+
+    # 1. the load window on the default ladder, then K1 in a replica's
+    # capture
+    t0 = time.perf_counter()
+    with serving.deploy(model=make, checkpoint_dir=str(served),
+                        replicas=cfg["replicas"], device=str(device),
+                        example=example, conf=conf) as dep:
+        rec["deploy_s"] = {"dlrm": time.perf_counter() - t0}
+        rec["dlrm_replica_load_s"] = [info["load_s"] for info in dep.infos()]
+        before = _replica_launches(dep)
+        pids.update(before)
+        fill = metrics.histogram("serve.batch_fill")
+        fill0 = (fill.count, fill.sum)
+        records = [[] for _ in range(cfg["clients"])]
+        t_end = time.monotonic() + cfg["load_s"]
+
+        def client(i):
+            rng = np.random.default_rng([cfg["seed"], i])
+            while time.monotonic() < t_end:
+                payload = _dlrm_payload(dense, ids, rng, cfg["max_rows"])
+                t1 = time.perf_counter()
+                out = dep.predict(payload, timeout=120.0)
+                records[i].append((payload, out, time.perf_counter() - t1))
+
+        t1 = time.perf_counter()
+        _join_clients(_client_threads(cfg["clients"], client),
+                      cfg["load_s"] + 120.0, "the load window")
+        wall = time.perf_counter() - t1
+        done = [r for rs in records for r in rs]
+        got = np.concatenate([out for _, out, _ in done])
+        ref = est.predict(f_concat([p for p, _, _ in done]))
+        rel = float(np.max(np.abs(got - ref)) / np.max(np.abs(ref)))
+        require(rel <= 1e-5, f"DLRM responses differ from the driver's "
+                f"predict by {rel:.3e} relative (limit 1e-5)")
+        lat = sorted(1e3 * s for _, _, s in done)
+        rec.update(
+            dlrm_requests=len(done), dlrm_requests_s=len(done) / wall,
+            dlrm_p50_ms=lat[len(lat) // 2],
+            dlrm_p99_ms=lat[min(len(lat) - 1, int(0.99 * len(lat)))],
+            dlrm_rel_err=rel,
+            dlrm_batch_fill=(fill.sum - fill0[1]) / max(1, fill.count - fill0[0]),
+            dlrm_stage_ms={k: v["mean_ms"] for k, v in
+                           dep.stats()["stage_latency"].items()})
+        cap = dep.profile((dense[:cfg["profile_rows"]],
+                           ids[:cfg["profile_rows"]]))
+        rec["k1_profile_us"] = (trace_kernel_us(cap["trace_path"],
+                                                "interaction_fwd_kernel")
+                                if cap["trace_path"] else [])
+        if device.type == "cuda":
+            require(rec["k1_profile_us"] and min(rec["k1_profile_us"]) > 0,
+                    "a replica's capture shows no interaction_fwd_kernel")
+        after = _replica_launches(dep)
+        _add_launches(launches, _launch_delta(before, after))
+    log(f"deploy dlrm: 2 replicas up in {rec['deploy_s']['dlrm']:.3f} s "
+        f"(their loads {rec['dlrm_replica_load_s']}); {len(done)} requests in {wall:.2f} s = "
+        f"{rec['dlrm_requests_s']:.1f}/s, p50 {rec['dlrm_p50_ms']:.2f} ms, p99 "
+        f"{rec['dlrm_p99_ms']:.2f} ms, batch fill {rec['dlrm_batch_fill']:.3f}, "
+        f"stages (mean ms) {rec['dlrm_stage_ms']}, max rel err {rel:.2e}; "
+        f"K1 in a replica's capture {rec['k1_profile_us']} us")
+
+    # 2-3. one bucket: the kill probe and the rolling reload
+    bucket = cfg["max_batch"]
+    with serving.deploy(model=make, checkpoint_dir=str(served),
+                        replicas=cfg["replicas"], device=str(device),
+                        example=example,
+                        conf=conf | {"serve.batch_buckets": [bucket]}) as dep:
+        before = _replica_launches(dep)
+        pids.update(before)
+        clean = _fixed_requests(dep, payloads, cfg["clients"])
+        require(all(np.array_equal(a, b) for a, b in zip(clean, old_ref)),
+                "DLRM responses at the one bucket differ from the driver's "
+                "predict of the rows padded to it")
+        dropped = metrics.counter("serve.dropped_requests")
+        replaced = metrics.counter("serve.replica_replacements")
+        dropped0, replaced0 = dropped.value, replaced.value
+        victim = dep.infos()[0]["pid"]
+        mid = _replica_launches(dep)
+        _add_launches(launches, _launch_delta(before, mid))
+
+        def kill():
+            time.sleep(cfg["kill_after_s"])
+            os.kill(victim, signal.SIGKILL)
+
+        killed = _fixed_requests(dep, payloads, cfg["clients"], during=kill)
+        require(dropped.value == dropped0, "the kill dropped requests")
+        require(all(np.array_equal(a, b) for a, b in zip(killed, clean)),
+                "a response through the kill differs from the clean run's")
+        rec["dlrm_kill_dropped"] = dropped.value - dropped0
+        rec["dlrm_heal_s"] = _wait_healed(dep, cfg["replicas"], replaced0,
+                                          metrics)
+        rec["dlrm_replacement_load_s"] = [
+            info["load_s"] for info in dep.infos() if info["pid"] not in pids]
+        rec["dlrm_replacements"] = replaced.value - replaced0
+        before = _replica_launches(dep)
+        pids.update(before)
+
+        publish_checkpoint(served, 1, refs["dlrm_new"])
+        import threading
+
+        stop = threading.Event()
+        seen = [[] for _ in range(cfg["clients"])]
+
+        def client(c):
+            while not stop.is_set():
+                for i in range(c, len(payloads), cfg["clients"]):
+                    seen[c].append((i, dep.predict(payloads[i], timeout=120.0)))
+
+        pool = _client_threads(cfg["clients"], client)
+        _wait_for(lambda: sum(map(len, seen)) >= cfg["requests"] // 2, 60.0,
+                  "traffic before the reload")
+        t1 = time.perf_counter()
+        infos = dep.reload()
+        reload_s = time.perf_counter() - t1
+        stop.set()
+        _join_clients(pool, 120.0, "the reload's traffic")
+        kinds = {"old": 0, "new": 0, "other": 0}
+        for i, out in (r for rs in seen for r in rs):
+            kinds["old" if np.array_equal(out, old_ref[i]) else
+                  "new" if np.array_equal(out, new_ref[i]) else "other"] += 1
+        require(kinds["other"] == 0,
+                f"responses during the reload were neither weights': {kinds}")
+        require([i["epoch"] for i in infos] == [1] * cfg["replicas"],
+                f"the reload left epochs {[i['epoch'] for i in infos]}")
+        after = _fixed_requests(dep, payloads, cfg["clients"])
+        require(all(np.array_equal(a, b) for a, b in zip(after, new_ref)),
+                "a response after the reload is not the new weights'")
+        rec["dlrm_reload"] = kinds | {"reload_s": reload_s}
+        _add_launches(launches, _launch_delta(before, _replica_launches(dep)))
+    log(f"deploy dlrm kill probe: {cfg['requests']} requests bitwise the clean "
+        f"run through replica {victim}'s SIGKILL, {rec['dlrm_kill_dropped']} "
+        f"dropped, healed in {rec['dlrm_heal_s']:.3f} s; reload in "
+        f"{reload_s:.3f} s, responses meanwhile {kinds}, after it all new; "
+        f"the replacement's load {rec['dlrm_replacement_load_s']}")
+
+
+def _stream_clients(dep, prompts, max_new, kill_pid=None) -> dict:
+    """One client thread a prompt through ``dep.stream``; with
+    ``kill_pid``, SIGKILL that replica once every stream has emitted two
+    tokens. Returns each stream's tokens and their arrival times, the
+    tokens each stream had at the kill, and the kill's time."""
+    tokens = [[] for _ in prompts]
+    stamps = [[] for _ in prompts]
+
+    def client(i):
+        for tok in dep.stream(prompts[i], max_new, timeout=300.0):
+            tokens[i].append(tok)
+            stamps[i].append(time.monotonic())
+
+    t_start = time.monotonic()
+    pool = _client_threads(len(prompts), client)
+    out = {"t_start": t_start, "t_kill": None, "at_kill": None}
+    if kill_pid is not None:
+        _wait_for(lambda: all(len(t) >= 2 for t in tokens)
+                  or any(th.error for th in pool), 120.0,
+                  "every stream's second token")
+        out["at_kill"] = [len(t) for t in tokens]
+        out["t_kill"] = time.monotonic()
+        os.kill(kill_pid, signal.SIGKILL)
+    _join_clients(pool, 300.0, "the streams")
+    out.update(tokens=tokens, stamps=stamps)
+    return out
+
+
+def _client_latency(run: dict) -> dict:
+    ttft = [1e3 * (s[0] - run["t_start"]) for s in run["stamps"]]
+    tpot = [1e3 * (s[-1] - s[0]) / (len(s) - 1) for s in run["stamps"]
+            if len(s) > 1]
+    return {"ttft_ms_p50": statistics.median(ttft),
+            "tpot_ms_p50": statistics.median(tpot)}
+
+
+def _kill_to_first_token(run: dict) -> float:
+    """The longest wait, over the streams, from the kill to the stream's
+    first token after it: a stream that failed over waits for the heal and
+    its re-prefill on a survivor."""
+    t_kill = run["t_kill"]
+    return max(min((s for s in stamps if s > t_kill), default=t_kill) - t_kill
+               for stamps in run["stamps"])
+
+
+def _head_latency(cluster) -> dict:
+    """``serve.ttft_ms`` / ``serve.tpot_ms`` of each replica process as the
+    head last received them: p50 and count."""
+    out = {}
+    for proc, snap in cluster.dump_metrics().items():
+        if not proc.startswith("worker:"):
+            continue
+        for name in ("serve.ttft_ms", "serve.tpot_ms"):
+            hist = snap.get(name) or {}
+            if hist.get("count"):
+                out.setdefault(proc, {})[name] = {"p50": hist["p50"],
+                                                  "count": hist["count"]}
+    return out
+
+
+def deploy_lm(device, refs: dict, workdir: Path, rec: dict, pids: set,
+              launches: dict, prompts) -> None:
+    """Step B of ``phase_deploy``: full-width ``TransformerLM`` streams."""
+    from raydp_tpu_torch import cluster
+    from raydp_tpu_torch import serve as serving
+    from raydp_tpu_torch.obs.metrics import metrics
+
+    new_tokens = ENGINE["max_new_tokens"]
+    conf = {"serve.decode.enabled": True,
+            "serve.decode.capacity_tokens": ENGINE["capacity_tokens"],
+            "serve.decode.page_tokens": ENGINE["page_tokens"],
+            "serve.decode.max_seqs": ENGINE["max_seqs"],
+            "serve.decode.max_new_tokens": new_tokens}
+    f32, ref, ref_int8 = refs["lm_f32"], refs["lm_ref"], refs["lm_ref_int8"]
+    failovers = metrics.counter("serve.decode.failovers")
+    replaced = metrics.counter("serve.replica_replacements")
+    cuda = device.type == "cuda"
+
+    # 1-2. f32 model, f32 cache: clean, then through a SIGKILL
+    t0 = time.perf_counter()
+    with serving.deploy(model=f32, checkpoint_dir=str(workdir / "lm_f32"),
+                      replicas=DEPLOY_LM["replicas"], device=str(device),
+                      conf=conf) as dep:
+        rec["deploy_s"]["lm_f32"] = time.perf_counter() - t0
+        rec["lm_replica_load_s"] = [info["load_s"] for info in dep.infos()]
+        before = _replica_launches(dep)
+        pids.update(before)
+        clean = _stream_clients(dep, prompts, new_tokens)
+        require(clean["tokens"] == ref, "the replicas' f32 streams differ "
+                "from the driver's DecodeEngine")
+        if not cuda:  # there the KV pools are arenas of the store
+            require(_rtpt_segments(), "no KV arena in the session's namespace")
+        mid = _replica_launches(dep)
+        delta = _launch_delta(before, mid)
+        if cuda:
+            require(delta["flash_fwd_f32"] > 0 and delta["flash_decode"] > 0,
+                    f"K2a's f32 body or K4a never launched in a replica: "
+                    f"{delta}")
+        _add_launches(launches, delta)
+        rec.update({f"lm_{k}": v for k, v in _client_latency(clean).items()})
+        failovers0, replaced0 = failovers.value, replaced.value
+        victim = dep.infos()[0]["pid"]
+        killed = _stream_clients(dep, prompts, new_tokens, kill_pid=victim)
+        require(killed["tokens"] == ref, "an f32 stream through the kill "
+                "differs from the clean run")
+        rec["lm_failovers"] = failovers.value - failovers0
+        require(rec["lm_failovers"] >= 1, "no stream failed over")
+        rec["lm_kill_to_first_token_s"] = _kill_to_first_token(killed)
+        rec["lm_heal_s"] = _wait_healed(dep, DEPLOY_LM["replicas"], replaced0,
+                                        metrics)
+        after = _replica_launches(dep)
+        pids.update(after)
+        delta = _launch_delta(mid, after)
+        if cuda:
+            require(delta["flash_fwd_f32"] > 0 and delta["flash_decode"] > 0,
+                    f"K2a's f32 body or K4a never launched in a replica "
+                    f"through the kill: {delta}")
+        _add_launches(launches, delta)
+        rec["lm_head_latency"] = _head_latency(cluster)
+    log(f"deploy lm f32: streams bitwise the driver's engine, clean and "
+        f"through replica {victim}'s SIGKILL ({rec['lm_failovers']:.0f} "
+        f"failovers, kill to first token {rec['lm_kill_to_first_token_s']:.3f}"
+        f" s, healed in {rec['lm_heal_s']:.3f} s); client TTFT p50 "
+        f"{rec['lm_ttft_ms_p50']:.2f} ms, TPOT p50 {rec['lm_tpot_ms_p50']:.2f} "
+        f"ms; head {rec['lm_head_latency']}")
+
+    # 3. the int8 cache, clean
+    t0 = time.perf_counter()
+    with serving.deploy(model=f32, checkpoint_dir=str(workdir / "lm_f32"),
+                      replicas=DEPLOY_LM["replicas"], device=str(device),
+                      conf=conf | {"serve.decode.int8_kv": True}) as dep:
+        rec["deploy_s"]["lm_int8_cache"] = time.perf_counter() - t0
+        before = _replica_launches(dep)
+        pids.update(before)
+        run = _stream_clients(dep, prompts, new_tokens)
+        rec["lm_int8_bitwise"] = run["tokens"] == ref_int8
+        require(rec["lm_int8_bitwise"], "the replicas' int8-cache streams "
+                "differ from the driver's int8-cache engine")
+        delta = _launch_delta(before, _replica_launches(dep))
+        if cuda:
+            require(delta["flash_decode_int8"] > 0 and delta["quantize_int8"] > 0,
+                    f"K4b or quantize_rows_kernel never launched in a "
+                    f"replica: {delta}")
+        _add_launches(launches, delta)
+
+    # 4. the bf16 model (phase_serve's weights), f32 cache, through a kill
+    bf16, ref_bf16 = refs["lm_bf16"], refs["lm_ref_bf16"]
+    t0 = time.perf_counter()
+    with serving.deploy(model=bf16, checkpoint_dir=str(workdir / "lm_bf16"),
+                      replicas=DEPLOY_LM["replicas"], device=str(device),
+                      conf=conf) as dep:
+        rec["deploy_s"]["lm_bf16"] = time.perf_counter() - t0
+        before = _replica_launches(dep)
+        pids.update(before)
+        victim = dep.infos()[0]["pid"]
+        replaced0 = replaced.value
+        run = _stream_clients(dep, prompts, new_tokens, kill_pid=victim)
+        prefix_equal = all(t[:n] == r[:n] for t, r, n in
+                           zip(run["tokens"], ref_bf16, run["at_kill"]))
+        require(prefix_equal, "a bf16 stream's tokens before the kill differ "
+                "from the driver's engine")
+        rec["bf16_streams_differing"] = sum(t != r for t, r in
+                                            zip(run["tokens"], ref_bf16))
+        _wait_healed(dep, DEPLOY_LM["replicas"], replaced0, metrics)
+        after = _replica_launches(dep)
+        pids.update(after)
+        delta = _launch_delta(before, after)
+        if cuda:
+            require(delta["flash_fwd"] > 0,
+                    f"K2a's bf16 body never launched in a replica: {delta}")
+        _add_launches(launches, delta)
+    log(f"deploy lm int8 cache: bitwise the driver's int8-cache engine; bf16 "
+        f"model through a SIGKILL: tokens before the kill equal, "
+        f"{rec['bf16_streams_differing']} of {len(prompts)} streams differ "
+        f"after it (reported, not gated)")
+
+
+class WarmProbe:
+    """An actor forked from the zygote as a replica is, which splits what a
+    DLRM replica's first warm pays, in the replica's order: the lazy
+    imports of a first ``FlopCounterMode`` dispatch (``count_flops``), the
+    CUDA context, the model built on the device, its first forward (the
+    kernel libraries loaded: the port's, cuBLAS), then one forward counted
+    by ``count_flops`` and one plain, as a warm in a warmed process."""
+
+    def __init__(self, device: str):
+        self.device = torch.device(device)
+
+    def split(self, rows: int) -> dict:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from raydp_tpu_torch.obs.costmodel import count_flops
+
+        cuda = self.device.type == "cuda"
+        out = {"pid": os.getpid(),
+               "dynamo_in_fork": "torch._dynamo" in sys.modules,
+               "cuda_in_fork": torch.cuda.is_initialized()}
+
+        def timed(key, fn):
+            t0 = time.perf_counter()
+            result = fn()
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            out[key] = time.perf_counter() - t0
+            return result
+
+        def first_dispatch():
+            with FlopCounterMode(display=False):
+                return torch.ones(2) + 1  # on the host: no CUDA here
+
+        timed("import_s", first_dispatch)
+        if cuda:
+            timed("context_s", lambda: torch.zeros(1, device=self.device))
+        model = timed("model_s", lambda: DLRM(
+            **DLRM_MODEL, device=self.device, seed=SEED).eval())
+        rng = np.random.default_rng(SEED)
+        x = (rng.standard_normal((rows, DLRM_MODEL["num_dense"]),
+                                 dtype=np.float32),
+             np.stack([rng.integers(0, v, rows, dtype=np.int32)
+                       for v in DLRM_MODEL["vocab_sizes"]], axis=1))
+        with torch.no_grad():
+            timed("first_forward_s", lambda: model(x))
+            timed("counted_forward_s", lambda: count_flops(lambda: model(x)))
+            timed("forward_s", lambda: model(x))
+        return out
+
+
+def warm_split(device) -> dict:
+    """``WarmProbe.split`` at the one bucket of ``DEPLOY_DLRM``, in a light
+    actor forked from the running session's zygote; the actor is killed
+    after it."""
+    from raydp_tpu_torch import cluster
+
+    here = importlib.import_module("chip_smoke")  # actor classes by reference
+    probe = cluster.spawn(here.WarmProbe, str(device), name="warm-probe",
+                          light=True)
+    try:
+        return probe.split(DEPLOY_DLRM["max_batch"])
+    finally:
+        probe.kill()
+
+
+def _rtpt_segments() -> set:
+    """The store segments of this process's shm namespace, which
+    ``phase_deploy`` gives its session alone: another session's segments
+    on the same host are never counted."""
+    import glob
+
+    from raydp_tpu_torch.cluster.common import SHM_PREFIX, shm_namespace
+
+    ns = shm_namespace()
+    require(ns, "no shm namespace: the segment check would see the host's")
+    return set(glob.glob(f"/dev/shm/{SHM_PREFIX}{ns}-*"))
+
+
+def phase_deploy(device, dlrm_state: dict, prompts=None) -> dict:
+    """The port's serving plane (``serve.deploy``) on the card, in a
+    cluster of the port (4 CPUs, the card as ``GPU``; the session-local
+    zygote with the torch warm set; lockdep and the leak audit armed), 2
+    light replicas a deployment:
+
+    A. the uncut DLRM cell (``DLRM_MODEL``, ``phase_dlrm``'s final state
+       as epoch 0): (1) 4 closed-loop clients for 3 s, each response within
+       1e-5 relative of the driver's ``Estimator.predict``, with requests/s,
+       p50/p99, the mean batch fill and the stage split; ``dep.profile``
+       lists ``interaction_fwd_kernel`` with its device time; (2) at the one
+       bucket of 256, 160 fixed requests clean, then with replica 0
+       SIGKILLed 50 ms in: none dropped, each bitwise the clean run's and the
+       driver's predict of the rows padded to 256, the pool back to 2
+       within 15 s; (3) a rolling reload to epoch 1 (the top MLP perturbed)
+       under the same load: each response bitwise the old weights' or the
+       new's, and all new after ``reload`` returns;
+    B. the full-width ``TransformerLM`` in f32 (``MODEL`` at max_len 2048)
+       through ``Deployment.stream`` (``ENGINE``'s conf, 8 prompts, a client
+       thread each): (1) tokens bitwise the driver's ``DecodeEngine``'s;
+       (2) again with replica 0 SIGKILLed once every stream has two tokens:
+       the same tokens, at least one failover, the pool healed, the longest
+       wait from the kill to a stream's next token; (3) the int8 cache,
+       bitwise the driver's int8-cache engine; (4) the bf16 model
+       (``phase_serve``'s weights, f32 cache) through a kill: the tokens
+       before the kill equal, the streams that differ after it counted.
+       ``flash_fwd_f32`` and ``flash_decode`` launch in the replicas in (1)
+       and (2), ``flash_decode_int8`` and ``quantize_int8`` in (3),
+       ``flash_fwd`` in (4) (each replica's ``ops.launches.*`` gauges on the
+       head, read before and after);
+    C. every deployment closed, ``shutdown()``: no replica process alive,
+       no ``rtpt-`` segment left in the session's own shm namespace (its
+       CPU KV arenas' home), the card's free memory back within
+       ``CARD_MEMORY_SLACK`` of before the cluster, the driver's leak audit
+       at 0.
+
+    The whole phase takes at most ``DEPLOY_LIMIT_S``."""
+    from raydp_tpu_torch import cluster
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV, _probe_pid
+    from raydp_tpu_torch.cluster.zygote import WARM_TORCH_ENV
+    from raydp_tpu_torch.obs.metrics import metrics
+    from raydp_tpu_torch.obs.profiler import ARTIFACTS_DIR_ENV
+
+    t_phase = time.perf_counter()
+    cuda = device.type == "cuda"
+    workdir = BUILD_DIR / "deploy"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    if prompts is None:
+        prompts = make_prompts(N_STREAMS, *PROMPT_LENS, MODEL["vocab_size"])
+    # the session's own shm namespace: its segments are rtpt-<ns>-*, so
+    # the teardown's check never counts another session's on this host
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", WARM_TORCH_ENV: "1",
+             SHM_NS_ENV: f"deploy{os.getpid()}",
+             "RAYDP_TPU_SANITIZE": "lockdep,leaks",
+             ARTIFACTS_DIR_ENV: str(workdir / "artifacts")}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    rec: dict = {"replicas": DEPLOY_LM["replicas"]}
+    launches: dict = {}
+    pids: set = set()
+    try:
+        refs = deploy_references(device, dlrm_state, workdir, prompts)
+
+        def free_bytes():
+            torch.cuda.synchronize(device)
+            torch.cuda.empty_cache()
+            return torch.cuda.mem_get_info(device)[0]
+
+        mem_base = free_bytes() if cuda else None
+        session = cluster.init(**DEPLOY_CLUSTER)
+        _wait_for(lambda: _zygote_serves(session), 30.0, "the zygote's warm-up")
+        rec["warm_split"] = warm_split(device)
+        pids.add(rec["warm_split"]["pid"])
+        log(f"deploy: a forked replica's first warm, split (s): "
+            f"{rec['warm_split']}")
+        deploy_dlrm(device, refs, workdir, rec, pids, launches)
+        deploy_lm(device, refs, workdir, rec, pids, launches, prompts)
+        rec["launches"] = launches
+        t0 = time.perf_counter()
+        cluster.shutdown()
+        _wait_for(lambda: not any(_probe_pid(p) == "alive" for p in pids),
+                  DEPLOY_DEADLINE_S, f"the replica processes {sorted(pids)} to exit")
+        rec["gone_after_shutdown_s"] = time.perf_counter() - t0
+        left = _rtpt_segments()
+        require(not left, f"segments left after shutdown: {sorted(left)}")
+        rec["driver_exit_leaks"] = {
+            name: snap["value"] for name, snap in metrics.snapshot().items()
+            if name.startswith("sanitize.leaked")}
+        require(rec["driver_exit_leaks"].get("sanitize.leaked_shm_segments") == 0,
+                f"the driver's leak audit: {rec['driver_exit_leaks']}")
+        if cuda:
+            rec["memory_back_s"] = _wait_for(
+                lambda: (time.perf_counter() - t0)
+                if free_bytes() >= mem_base - CARD_MEMORY_SLACK else 0.0,
+                DEPLOY_DEADLINE_S, "the replicas' device memory")
+            rec["memory_free_delta_bytes"] = free_bytes() - mem_base
+        else:  # no card: nothing to give back
+            rec["memory_back_s"] = None
+    finally:
+        if capi.is_initialized():
+            cluster.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["replica_pids"] = sorted(pids)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    require(rec["phase_s"] <= DEPLOY_LIMIT_S,
+            f"phase_deploy took {rec['phase_s']:.1f} s")
+    log(f"deploy: {len(pids)} replica processes, none left "
+        f"{rec['gone_after_shutdown_s']:.3f} s after shutdown, card memory back "
+        f"after {rec['memory_back_s']} s, driver exit leaks "
+        f"{rec['driver_exit_leaks']}, launches in replicas {launches}, deploy "
+        f"walls {rec['deploy_s']}, phase {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 4, continued: the estimator's streamed, checkpointed and retried fit
 # ---------------------------------------------------------------------------
 
@@ -3786,6 +4558,31 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "device_ms": device_ms(call), "library_device_ms": device_ms(sdpa),
     }
 
+    # the f32 model's prefill in phase_deploy's replicas: the CUDA-core
+    # body, [1, H, capacity, Dh] f32, causal
+    qf, kf, vf = (_randn(gen, (1, heads, t, d), torch.float32, device)
+                  for _ in range(3))
+    bound, by = _bound(4 * qf.numel() * 4 + 2 * heads * t * 4, 4 * d * pairs,
+                       "f32")
+
+    def call_f32():
+        return fa.flash_attention_call(qf, kf, vf, 0, 0, True, True)
+
+    def sdpa_f32():
+        return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
+
+    out["flash_fwd_f32"] = {
+        "shape": f"q/k/v [1,{heads},{t},{d}] f32 causal",
+        "ms": time_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_call_plain(
+            qf, kf, vf, 0, 0, True, True), iters=3, reps=3),
+        "library_ms": time_ms(sdpa_f32),
+        "bound_ms": bound, "bound_by": by, "ops": 4 * d * pairs,
+        "call_ms": time_ms(call_f32),
+        "device_ms": device_ms(call_f32),
+        "library_device_ms": device_ms(sdpa_f32),
+    }
+
     # decode as the engine runs it: q [slots, H, 1, Dh] bf16, f32 cache
     b = len(lens)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
@@ -4195,7 +4992,7 @@ def quant_times(device) -> dict:
 
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
-                 fit: dict) -> dict:
+                 fit: dict, deployed: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the full-width
@@ -4204,10 +5001,14 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     fits of phase_fit for interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
-    quantize_int8_stochastic). A count is of wrapper calls that launched
+    quantize_int8_stochastic), plus the launches phase_deploy's replicas
+    made (K1, flash_fwd_f32 for the f32 model and flash_fwd for the bf16
+    one, the decode kernels and quantize_int8, counted in the replica
+    processes alive at each read). A count is of wrapper calls that launched
     the kernel: each flash_decode call is two launches (its scores kernel,
     then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
-    (flash_fwd: the larger of serving's and training's; K5 at
+    (flash_fwd: the larger of serving's and training's; flash_fwd_f32 at
+    the f32 prefill [1,8,2048,128], causal; K5 at
     [16384,4096], int8_gemm at the step's first product in bf16,
     quantize_int8 at its activations). Times: K5 at [16384,4096],
     int8_gemm at [16384,1024]x[4096,1024], quantize_int8 on that product's
@@ -4228,6 +5029,10 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         launches[name] = sum(run["launches"][name] for run in int8_runs)
     launches["quantize_int8_stochastic"] = \
         stochastic["launches"]["quantize_int8_stochastic"]
+    launches["flash_fwd_f32"] = 0  # the f32 model's replicas alone
+    for name, n in deployed["launches"].items():
+        if name in launches:
+            launches[name] += n
     case = "bfloat16 causal=True offsets=(0,0)"
     train = "train [{batch},{heads},{seq},{d}] bfloat16 causal=True".format(
         heads=MODEL["num_heads"], d=MODEL["d_model"] // MODEL["num_heads"],
@@ -4235,6 +5040,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     errors = {
         "flash_fwd": max(checks[f"flash_fwd {case} normalize=True"],
                          checks[f"flash_fwd {train}"]),
+        "flash_fwd_f32": checks["flash_fwd float32 causal=True offsets=(0,0) "
+                                "normalize=True"],
         "flash_fwd_twoterm": checks[f"flash_fwd_twoterm {train}"],
         "flash_bwd_dq": checks[f"flash_bwd_dq {train}"],
         "flash_bwd_dkv": checks[f"flash_bwd_dkv {train}"],
@@ -4462,6 +5269,12 @@ def main(argv: list) -> int:
         dlrm = phase_dlrm(device)
         phase_store(device, dlrm)
         return 0
+    if argv == ["--deploy"]:
+        dev = phase_device()
+        deployed = phase_deploy(device, phase_dlrm(device)["final_state"])
+        log(json.dumps({"deploy": {k: deployed[k] for k in DEPLOY_KEYS}
+                        | {"nvidia_smi": dev["nvidia_smi"]}}))
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4475,13 +5288,15 @@ def main(argv: list) -> int:
     record["dlrm"] = phase_dlrm(device)
     dlrm_state = record["dlrm"].pop("final_state")  # tensors, kept out of the record
     record["store"] = phase_store(device, dict(record["dlrm"], final_state=dlrm_state))
+    record["deploy"] = phase_deploy(device, dlrm_state)
+    del dlrm_state
     record["fit"] = phase_fit(device, record["dlrm"])
     record["obs"] = phase_obs(device, record["dlrm"])
     record["times"] = phase_times(device)
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],
-                           record["fit"])
+                           record["fit"], record["deploy"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -4511,6 +5326,8 @@ def main(argv: list) -> int:
                     | {"nvidia_smi": dev["nvidia_smi"],
                        "toolchain": dev["toolchain"]}}))
     log(json.dumps({"store": {k: record["store"][k] for k in STORE_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"]}}))
+    log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"obs": {
         "decode_obs_overhead": record["serve"]["decode_obs_probe"]["overhead_frac"],

@@ -98,8 +98,19 @@ def _warm_imports() -> None:
         # use the card), and importing these modules does not.
         try:
             import torch  # noqa: F401
+            import raydp_tpu_torch.estimator  # noqa: F401
+            import raydp_tpu_torch.models.dlrm  # noqa: F401
+            import raydp_tpu_torch.models.mlp  # noqa: F401
             import raydp_tpu_torch.models.transformer  # noqa: F401
             import raydp_tpu_torch.serve.decode  # noqa: F401
+            import raydp_tpu_torch.serve.replica  # noqa: F401
+            from torch.utils.flop_counter import FlopCounterMode
+
+            # a replica counts each bucket's FLOPs at its first warm; the
+            # mode's first dispatch imports torch._dynamo and
+            # torch._inductor (seconds), so take it here, on the host
+            with FlopCounterMode(display=False):
+                torch.ones(1) + 1
         except Exception:  # pragma: no cover - partial environments: actors import lazily
             pass
 

@@ -22,6 +22,9 @@
   device tensor, which this gauge does not see: the pool's own page
   arithmetic guards it, and there is no device-memory veto, because the
   JAX package has none.
+- **Kernel launches** (:func:`sample_launches`): the kernel layer's launch
+  counts, mirrored into gauges on every flush, so the head holds each
+  process's counts (the port's own; the JAX package has no such layer).
 """
 
 from __future__ import annotations
@@ -434,6 +437,24 @@ def sample_memory(force: bool = False) -> Optional[dict]:
             sample[key] = float(value)
             metrics.gauge(f"mem.{key}").set_watermark(value)
     return sample
+
+
+# the kernel layer's modules that count their launches (``LAUNCHES``)
+KERNEL_MODULES = ("raydp_tpu_torch.ops.flash_attention",
+                  "raydp_tpu_torch.ops.interaction",
+                  "raydp_tpu_torch.ops.quantization")
+
+
+def sample_launches() -> None:
+    """Mirror the kernel layer's launch counts into gauges
+    ``ops.launches.<kernel>``: each wrapper's count of the launches it made
+    in this process. Only modules this process already imported are read,
+    so the sampler imports neither a kernel module nor torch into the head
+    or an agent; the kernel layer imports nothing of obs (obs -> ops)."""
+    for name in KERNEL_MODULES:
+        counts = getattr(sys.modules.get(name), "LAUNCHES", None) or {}
+        for kernel, n in list(counts.items()):
+            metrics.gauge(f"ops.launches.{kernel}").set(n)
 
 
 def current_mem_pressure(window_s: float = 10.0) -> float:

@@ -346,12 +346,13 @@ def flush() -> bool:
     # memory watermark plane: every flush tick samples this process's
     # rss / device bytes + pressure into the registry FIRST, so the
     # snapshot shipped below carries fresh mem.* gauges (self-throttled to
-    # ~1s inside sample_memory)
+    # ~1s inside sample_memory), and the kernel layer's launch counts
     try:
-        from raydp_tpu_torch.obs.profiler import sample_memory
+        from raydp_tpu_torch.obs.profiler import sample_launches, sample_memory
 
         sample_memory()
-    except Exception:  # the memory sampler must never block a telemetry flush
+        sample_launches()
+    except Exception:  # the samplers must never block a telemetry flush
         pass
 
     spans = drain_local()

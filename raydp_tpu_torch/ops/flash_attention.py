@@ -57,8 +57,10 @@ every masked pair.
 have no backward, as in the JAX package: they raise when grad mode is on
 and an input requires a gradient.
 
-``LAUNCHES`` counts kernel launches per kernel name (``flash_decode``
-counts calls: two launches each, scores then p.v and the merge); the plain
+``LAUNCHES`` counts kernel launches per kernel name (``flash_fwd`` the
+one-pass body on the tensor cores, ``flash_fwd_f32`` the one on the CUDA
+cores; ``flash_decode`` counts calls: two launches each, scores then p.v
+and the merge); the plain
 versions do not count. Each launch also reports its FLOPs to
 ``ops._flops`` while a count is armed (``obs.costmodel.count_flops``).
 """
@@ -89,8 +91,9 @@ KERNEL_HEAD_DIMS = (64, 128)
 DECODE_CHUNK = 128
 
 LAUNCHES = {
-    "flash_fwd": 0, "flash_fwd_twoterm": 0, "flash_bwd_dq": 0,
-    "flash_bwd_dkv": 0, "flash_decode": 0, "flash_decode_int8": 0,
+    "flash_fwd": 0, "flash_fwd_f32": 0, "flash_fwd_twoterm": 0,
+    "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0,
+    "flash_decode_int8": 0,
 }
 
 _DTYPE_CODES = {
@@ -369,6 +372,8 @@ def flash_attention_call(
     tk = k.shape[2]
     name = "flash_fwd" if onepass else "flash_fwd_twoterm"
     _check_head_dim(d, name)
+    if onepass and q.dtype == torch.float32:
+        name = "flash_fwd_f32"  # the CUDA-core body, a kernel of its own
     lib = _build.load()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty(

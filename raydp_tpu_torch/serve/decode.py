@@ -21,9 +21,10 @@ Admission is vetoed by exact page arithmetic (a sequence is admitted only
 when the pool holds its worst case, prompt + max_new, so a step never dies
 on a full pool), by a full batch, and by host memory pressure above
 ``max_mem_pressure`` (``obs.profiler.current_mem_pressure``: host memory,
-as in the JAX package; the page pool is a device tensor that gauge does not
-see). A vetoed stream waits at the front of the queue; each veto is counted
-by cause in ``stats()["vetoes"]`` and in ``serve.decode.veto.*``.
+as in the JAX package; on the card the page pool is a device tensor that
+gauge does not see, on the CPU a shm arena that it does). A vetoed stream
+waits at the front of the queue; each veto is counted by cause in
+``stats()["vetoes"]`` and in ``serve.decode.veto.*``.
 
 Observability, as the JAX engine's (``raydp_tpu/serve/decode.py``): the
 ``serve.decode.*`` counters, gauges and histograms, ``serve.ttft_ms`` /
@@ -50,8 +51,8 @@ sync, and the launch of its appends. TTFT and the TPOT gaps are stamped at
 emits, each after a sync, so they are what a client sees. The engine adds
 no sync for the sake of obs.
 
-Tenant labels on the cache, the ``serve.kv.*`` gauges and the shm arena go
-with the serving plane (ROADMAP Queue 1 item 4).
+The engine's ``tenant`` also labels its cache's
+``tenant.<ns>.serve.kv.bytes`` gauge (``serve/kvcache.py``).
 
 Everything runs eagerly on the engine's device under
 ``torch.inference_mode()``, in the engine's own loop thread.
@@ -173,6 +174,7 @@ class DecodeEngine:
             max_seqs=self.max_seqs + 1,  # + the pad sequence's page
             int8=self.int8_kv,
             device=self.device,
+            tenant=self.tenant,
         )
         self._cache.alloc(_PAD_SEQ)
         zero = torch.zeros((model.num_layers, model.num_heads, 1, head_dim))

@@ -654,3 +654,94 @@ def test_store_fit_fails_on_other_parameters(store_alarm_guard, tiny_store):
         store.delete(refs)
     finally:
         cluster.shutdown()
+
+
+# phase_deploy at a tiny width on the CPU: the deployments, the batcher, the
+# kills and heals, the reload, the streams' failover and the teardown are
+# the same code on the card; the kernels' launch counts, K1 in a replica's
+# capture and the card's memory are the card's alone
+DEPLOY_DLRM_VOCABS = [1000, 100, 100, 10, 10, 10]
+
+
+@pytest.fixture
+def tiny_deploy(monkeypatch):
+    """The phase's models and traffic cut to the CPU: the tiny LM and
+    engine of phase_cluster's test at max_len 256 and 64 new tokens, the
+    DLRM tables of phase_store's test over 4,096 rows, a 1 s load window
+    and 64 fixed requests; the phase limit of the card doubled for a
+    loaded CPU. Returns the DLRM state and the prompts."""
+    import signal
+
+    monkeypatch.setattr(chip_smoke, "MODEL", TINY_MODEL)
+    monkeypatch.setattr(chip_smoke, "ENGINE", TINY_ENGINE)
+    monkeypatch.setattr(chip_smoke, "DEPLOY_LM",
+                        dict(chip_smoke.DEPLOY_LM, max_len=256))
+    monkeypatch.setattr(chip_smoke, "DLRM_MODEL",
+                        dict(chip_smoke.DLRM_MODEL, vocab_sizes=DEPLOY_DLRM_VOCABS))
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN",
+                        dict(chip_smoke.DLRM_RUN, rows=4096))
+    monkeypatch.setattr(chip_smoke, "DEPLOY_DLRM",
+                        dict(chip_smoke.DEPLOY_DLRM, load_s=1.0, requests=64))
+    monkeypatch.setattr(chip_smoke, "DEPLOY_LIMIT_S",
+                        2 * chip_smoke.DEPLOY_LIMIT_S)
+    # one intra-op thread in each replica (the zygote's environment): the
+    # tiny models gain nothing from more, a loaded machine loses a lot
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    state = chip_smoke.DLRM(**chip_smoke.DLRM_MODEL, device="cpu",
+                            seed=chip_smoke.SEED).state_dict()
+    prompts = chip_smoke.make_prompts(8, 8, 40, TINY_MODEL["vocab_size"])
+
+    def on_alarm(signum, frame):
+        raise TimeoutError("test ran past its 400 s guard")
+
+    old = signal.signal(signal.SIGALRM, on_alarm)
+    signal.alarm(400)
+    try:
+        yield state, prompts
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def test_phase_deploy_on_the_cpu(tiny_deploy):
+    state, prompts = tiny_deploy
+    rec = chip_smoke.phase_deploy(torch.device("cpu"), state, prompts=prompts)
+    assert set(chip_smoke.DEPLOY_KEYS) <= set(rec)
+    assert rec["dlrm_requests"] > 0 and rec["dlrm_rel_err"] <= 1e-5
+    assert rec["dlrm_kill_dropped"] == 0 and rec["dlrm_replacements"] >= 1
+    assert rec["dlrm_reload"]["other"] == 0 and rec["dlrm_reload"]["old"] > 0
+    assert set(rec["dlrm_stage_ms"]) == {"queue_wait", "batch_form",
+                                         "dispatch", "compute", "respond"}
+    assert rec["lm_failovers"] >= 1 and rec["lm_kill_to_first_token_s"] > 0
+    assert rec["lm_int8_bitwise"] is True
+    assert 0 <= rec["bf16_streams_differing"] <= len(prompts)
+    assert set(rec["deploy_s"]) == {"dlrm", "lm_f32", "lm_int8_cache", "lm_bf16"}
+    assert rec["lm_head_latency"]  # the replicas shipped TTFT/TPOT
+    assert rec["k1_profile_us"] == [] and rec["memory_back_s"] is None
+    assert rec["driver_exit_leaks"]["sanitize.leaked_shm_segments"] == 0
+    assert len(rec["replica_pids"]) >= 12  # 6 deployments of 2, and the heals
+    # every replica's counts reached the head; on the CPU nothing launches
+    assert {"flash_fwd_f32", "flash_decode", "interaction_fwd"} <= set(rec["launches"])
+    assert not any(rec["launches"].values())
+    # the forked probe found the zygote's torch warm set, FlopCounterMode's
+    # lazy imports included
+    assert rec["warm_split"]["dynamo_in_fork"] is True
+
+
+def test_phase_deploy_fails_on_other_weights(tiny_deploy, monkeypatch):
+    """Replicas that serve weights other than the driver's fail the phase:
+    the serving checkpoint is published with one weight moved."""
+    state, prompts = tiny_deploy
+    publish = chip_smoke.publish_checkpoint
+
+    def planted(directory, epoch, model):
+        weight = next(model.parameters())
+        with torch.no_grad():
+            weight.view(-1)[0] += 1.0
+        publish(directory, epoch, model)
+        with torch.no_grad():
+            weight.view(-1)[0] -= 1.0
+
+    monkeypatch.setattr(chip_smoke, "publish_checkpoint", planted)
+    with pytest.raises(chip_smoke.SmokeFailure, match="differ"):
+        chip_smoke.phase_deploy(torch.device("cpu"), state, prompts=prompts)

@@ -283,7 +283,7 @@ def test_entry_points_without_device_raise(monkeypatch):
 # the modules that stay clear of Arrow and pandas: the port's store imports
 # pyarrow (as the JAX package's does), these never do; the list only grows
 ARROW_FREE = ("estimator", "ops", "models", "optim.py", "serve", "obs",
-              "exchange/torch_io.py")
+              "exchange/torch_io.py", "exchange/features.py", "tenancy")
 
 
 def test_port_imports_no_optax_or_arrow():

@@ -221,8 +221,9 @@ def test_launch_counters_ignore_plain_versions():
     fa.flash_attention(q, k, v, causal=True).sum().backward()
     fa.flash_attention_call(q.detach(), k, v, onepass=False)
     assert fa.LAUNCHES == {
-        "flash_fwd": 0, "flash_fwd_twoterm": 0, "flash_bwd_dq": 0,
-        "flash_bwd_dkv": 0, "flash_decode": 0, "flash_decode_int8": 0,
+        "flash_fwd": 0, "flash_fwd_f32": 0, "flash_fwd_twoterm": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0,
+        "flash_decode_int8": 0,
     }
 
 

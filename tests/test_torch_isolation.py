@@ -60,6 +60,13 @@ def test_port_imports_nothing_of_jax():
     store = ROOT / "raydp_tpu_torch" / "store"
     assert {store / "object_store.py", store / "block_service.py",
             store / "__init__.py"} <= set(files)
+    serve = ROOT / "raydp_tpu_torch" / "serve"
+    tenancy = ROOT / "raydp_tpu_torch" / "tenancy"
+    assert {serve / f"{name}.py" for name in (
+        "config", "replica", "batcher", "autoscaler", "deployment",
+        "__init__")} <= set(files)
+    assert {tenancy / f"{name}.py" for name in (
+        "scheduler", "registry", "__init__")} <= set(files)
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files
@@ -201,6 +208,7 @@ def test_entry_points_without_device_raise(no_cuda):
     from raydp_tpu_torch.models.transformer import TransformerLM
     from raydp_tpu_torch.serve.decode import DecodeEngine
     from raydp_tpu_torch.serve.kvcache import PagedKVCache
+    from raydp_tpu_torch.serve.replica import ModelReplica, ReplicaSpec
 
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device()
@@ -214,6 +222,9 @@ def test_entry_points_without_device_raise(no_cuda):
     lm = TransformerLM(16, 32, 2, 1, max_len=64, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         DecodeEngine(lm, capacity_tokens=32, page_tokens=16)
+    # a replica that finds no card raises before it loads anything
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelReplica(ReplicaSpec(model=TransformerLM, checkpoint_dir="/nowhere"))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -169,6 +169,43 @@ def test_local_mirror_is_fed_by_flush():
     assert timeseries.windowed_local("test.obs_local.ticks")["series"] >= 1
 
 
+def test_flush_ships_the_kernel_layers_launch_counts(monkeypatch):
+    """Every flush mirrors each loaded kernel module's ``LAUNCHES`` into an
+    ``ops.launches.<kernel>`` gauge (the port's own: the JAX package has no
+    such layer), the counts' value as the wrapper keeps it."""
+    from raydp_tpu_torch.ops import flash_attention, interaction
+
+    monkeypatch.setitem(interaction.LAUNCHES, "interaction_fwd", 7)
+    monkeypatch.setitem(flash_attention.LAUNCHES, "flash_fwd_f32", 3)
+    tracing.flush()
+    snap = port_metrics.metrics.snapshot()
+    assert snap["ops.launches.interaction_fwd"]["value"] == 7
+    assert snap["ops.launches.flash_fwd_f32"]["value"] == 3
+    assert {f"ops.launches.{name}" for name in flash_attention.LAUNCHES} <= set(snap)
+
+
+def test_launch_sampler_imports_no_kernel_module_or_torch():
+    """The sampler reads only modules a process already imported: in a
+    process without torch (the head, an agent) it imports neither torch
+    nor a kernel module, and sets no gauge."""
+    import os
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "from raydp_tpu_torch.obs import profiler\n"
+            "from raydp_tpu_torch.obs.metrics import metrics\n"
+            "profiler.sample_launches()\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "assert not any(m in sys.modules for m in profiler.KERNEL_MODULES)\n"
+            "assert not any(n.startswith('ops.launches.') for n in metrics.snapshot())\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60, env=env)
+    assert out.returncode == 0, out.stderr
+
+
 # ---------------------------------------------------------------------------
 # explain_stream
 # ---------------------------------------------------------------------------
