@@ -316,6 +316,9 @@ DECODE_LENS = [17, 500, 1300, 2048]
 # kv_len at every boundary of the split decode (its 32-key tiles and
 # 128-key blocks, capacity) where decode must equal the f32 prefill row
 DECODE_BITS_LENS = (1, 31, 32, 33, 127, 128, 129, 2047, 2048)
+# and over a cache whose capacity is a multiple of neither the f32 prefill's
+# 64-row block nor the 32-key tile, with lengths at the block's edges
+DECODE_BITS_ODD = (1000, [63, 64, 65, 999, 1000])
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -550,7 +553,8 @@ def phase_device() -> dict:
     sm90 = sm90_report(entries)
     decode = decode_report(entries)
     return lines | {"build_s": build_s, "ptxas": ptxas, "sm90": sm90,
-                    "decode": decode, "k1_k5": k1_k5_report(entries)}
+                    "decode": decode, "f32_fwd": f32_fwd_report(entries),
+                    "k1_k5": k1_k5_report(entries)}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -683,6 +687,44 @@ def decode_report(entries: dict) -> dict:
     return out
 
 
+# the f32 prefill body's instantiations <D, two-term> in ptxas's mangled
+# names, and the SASS opcodes that show what feeds its FP32 pipes: FFMA (the
+# products), LDS (shared-memory loads), LDGSTS (cp.async), BAR, SHFL, MUFU
+# (expf's exp2)
+F32_FWD_KERNEL = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E")
+F32_FWD_SASS_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "MUFU")
+F32_FWD_INSTANTIATIONS = 4
+
+
+def f32_fwd_report(entries: dict) -> dict:
+    """The f32 prefill body's instantiations among ptxas's ``entries`` (D
+    64 and 128, one-pass and two-term): registers and spills, each one's
+    SASS instruction count, the opcodes of F32_FWD_SASS_OPS and the static
+    ratio of LDS to FFMA. Fails on a spill, a missing instantiation or a
+    zero FFMA, LDS or LDGSTS count."""
+    sass = sass_functions(_build.library_path())
+    out = {}
+    for name, row in entries.items():
+        if not (found := F32_FWD_KERNEL.search(name)):
+            continue
+        ops = sass.get(name, [])
+        counts = {op: sum(o.split(".")[0] == op for o in ops)
+                  for op in F32_FWD_SASS_OPS}
+        key = (f"flash_fwd_kernel D{found.group(1)}"
+               f"{' two-term' if found.group(2) == '1' else ''}")
+        out[key] = row | {"sass_instructions": len(ops)} | counts | {
+            "lds_per_ffma": counts["LDS"] / max(counts["FFMA"], 1)}
+    log(f"f32 forward kernels (ptxas, SASS): {out}")
+    require(len(out) == F32_FWD_INSTANTIATIONS,
+            f"expected {F32_FWD_INSTANTIATIONS} f32 forward kernels, found "
+            f"{sorted(out)}")
+    for key, row in out.items():
+        require(row["spill_bytes"] == 0, f"{key} spills")
+        require(all(row[op] > 0 for op in ("FFMA", "LDS", "LDGSTS")),
+                f"{key}: no FFMA, LDS or LDGSTS in its SASS")
+    return out
+
+
 # K5's and K1's instantiations in ptxas's mangled names: the stochastic
 # rounding's register bodies <threads a row, 16-byte groups a thread> and its
 # general body, and the interaction <element type>
@@ -761,11 +803,13 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
                 out.update(check_forward(q, k, v, q_off, k_off, causal,
                                          normalize, case))
     out.update(check_forward_bf16(gen, device, bh_heads))
+    out.update(check_forward_f32(gen, device, bh_heads))
     out.update(check_backward(gen, device, bh_heads, t, d))
     out.update(check_backward_bf16(gen, device, bh_heads))
     out.update(check_train_shape(gen, device, bh_heads, d))
     out.update(check_decode(gen, device, bh_heads, t, d, lens))
     out.update(check_decode_bits(gen, device, bh_heads, t, lens))
+    out.update(check_decode_bits(gen, device, bh_heads, *DECODE_BITS_ODD))
     qf, kf, vf = (_randn(gen, (1, bh_heads, t, d), torch.float32, device)
                   for _ in range(3))
     out["decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf, lens)
@@ -887,7 +931,7 @@ def check_decode_bits(gen, device, heads, t, lens) -> dict:
             kc, vc = (x.expand(len(ns), -1, -1, -1).contiguous() for x in (k, v))
             qd = torch.cat([q[:, :, n - tq:n] for n in ns])
             ref = torch.cat([prefill[:, :, n - tq:n] for n in ns])
-            name = f"flash_decode bits D{d} tq={tq}"
+            name = f"flash_decode bits D{d} tq={tq} T={t}"
             got = finish_within(lambda: fa.flash_decode(qd, kc, vc, kv_len),
                                 "flash_decode")
             off = [n for i, n in enumerate(ns) if not torch.equal(got[i], ref[i])]
@@ -926,7 +970,7 @@ def check_decode_bits(gen, device, heads, t, lens) -> dict:
                     "same cache as f32")
             require(ratio <= 1.0 and plain_kb <= 1e-5,
                     f"flash_decode D{d} bf16 disagrees with its plain version")
-            out[f"flash_decode bits D{d} bf16 q limit_ratio"] = ratio
+            out[f"flash_decode bits D{d} T={t} bf16 q limit_ratio"] = ratio
     return out
 
 
@@ -1092,20 +1136,49 @@ def check_forward_bf16(gen, device, heads) -> dict:
     D 64; T and Tk off the 128-row tile (T 1500; T 200 against Tk 136,
     causal and not); q_off < k_off, where the first rows see no key (o 0,
     m NEG_INF, l 0, no NaN), normalized and not."""
+    return forward_cases(gen, device, torch.bfloat16, (
+        ((1, heads, 2048, 64), 2048, 0, 0, False, True),
+        ((1, heads, 2048, 64), 2048, 0, 0, True, True),
+        ((1, heads, 1500, 128), 1500, 0, 0, True, True),
+        ((1, heads, 200, 128), 136, 0, 0, False, True),
+        ((1, heads, 200, 128), 136, 0, 0, True, True),
+        ((1, heads, 512, 128), 512, 0, 300, True, True),
+        ((1, heads, 512, 64), 512, 0, 300, True, False)))
+
+
+def check_forward_f32(gen, device, heads) -> dict:
+    """The CUDA-core f32 body's edges through check_forward (o within 1e-5
+    of the plain version, m and l allclose, two launches and the two bodies
+    bitwise): T one row either side of its 64-row block; Tk off the 32-key
+    tile (T 200 against Tk 136), causal and not; causal with q_off > 0 (512
+    rows at position 300 against 812 keys) and with k_off > 0 (the first
+    300 rows see no key: o 0, m NEG_INF, l 0); D 64; T past 1024, where
+    the staged group of four K/V tiles is refilled many times."""
+    rows = fa.BLOCK_Q
+    return forward_cases(gen, device, torch.float32, (
+        ((1, heads, rows - 1, 128), rows - 1, 0, 0, True, True),
+        ((1, heads, rows + 1, 128), rows + 1, 0, 0, True, False),
+        ((1, heads, rows + 1, 64), rows + 1, 0, 0, False, True),
+        ((1, heads, 200, 128), 136, 0, 0, False, True),
+        ((1, heads, 200, 128), 136, 0, 0, True, False),
+        ((1, heads, 512, 128), 812, 300, 0, True, True),
+        ((1, heads, 512, 128), 512, 0, 300, True, True),
+        ((1, heads, 512, 64), 512, 0, 300, True, False),
+        ((1, heads, 2048, 64), 2048, 0, 0, True, True),
+        ((1, heads, 1500, 128), 1500, 0, 0, True, True),
+        ((1, heads, 1500, 64), 1100, 0, 0, False, False)))
+
+
+def forward_cases(gen, device, dtype, cases) -> dict:
+    """check_forward over ``cases`` of (q shape, Tk, q_off, k_off, causal,
+    normalize) in ``dtype``; where q_off < k_off, the rows before the first
+    key must give o 0, m NEG_INF and l 0."""
     out = {}
-    cases = (((1, heads, 2048, 64), 2048, 0, 0, False, True),
-             ((1, heads, 2048, 64), 2048, 0, 0, True, True),
-             ((1, heads, 1500, 128), 1500, 0, 0, True, True),
-             ((1, heads, 200, 128), 136, 0, 0, False, True),
-             ((1, heads, 200, 128), 136, 0, 0, True, True),
-             ((1, heads, 512, 128), 512, 0, 300, True, True),
-             ((1, heads, 512, 64), 512, 0, 300, True, False))
     for shape, tk, q_off, k_off, causal, normalize in cases:
         b, h, t, d = shape
-        q = _randn(gen, shape, torch.bfloat16, device)
-        k, v = (_randn(gen, (b, h, tk, d), torch.bfloat16, device)
-                for _ in range(2))
-        case = (f"bfloat16 [{b},{h},{t},{d}] tk={tk} causal={causal} "
+        q = _randn(gen, shape, dtype, device)
+        k, v = (_randn(gen, (b, h, tk, d), dtype, device) for _ in range(2))
+        case = (f"{str(dtype)[6:]} [{b},{h},{t},{d}] tk={tk} causal={causal} "
                 f"offsets=({q_off},{k_off}) normalize={normalize}")
         out.update(check_forward(q, k, v, q_off, k_off, causal, normalize, case))
         if k_off > q_off:  # rows before the first key see none
@@ -3695,13 +3768,14 @@ def _kill_to_first_token(run: dict) -> float:
 
 
 def _head_latency(cluster) -> dict:
-    """``serve.ttft_ms`` / ``serve.tpot_ms`` of each replica process as the
-    head last received them: p50 and count."""
+    """``serve.ttft_ms`` / ``serve.tpot_ms`` and the engine's
+    ``serve.decode.prefill_s`` of each replica process as the head last
+    received them: p50 and count."""
     out = {}
     for proc, snap in cluster.dump_metrics().items():
         if not proc.startswith("worker:"):
             continue
-        for name in ("serve.ttft_ms", "serve.tpot_ms"):
+        for name in ("serve.ttft_ms", "serve.tpot_ms", "serve.decode.prefill_s"):
             hist = snap.get(name) or {}
             if hist.get("count"):
                 out.setdefault(proc, {})[name] = {"p50": hist["p50"],
@@ -4558,30 +4632,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "device_ms": device_ms(call), "library_device_ms": device_ms(sdpa),
     }
 
-    # the f32 model's prefill in phase_deploy's replicas: the CUDA-core
-    # body, [1, H, capacity, Dh] f32, causal
-    qf, kf, vf = (_randn(gen, (1, heads, t, d), torch.float32, device)
-                  for _ in range(3))
-    bound, by = _bound(4 * qf.numel() * 4 + 2 * heads * t * 4, 4 * d * pairs,
-                       "f32")
-
-    def call_f32():
-        return fa.flash_attention_call(qf, kf, vf, 0, 0, True, True)
-
-    def sdpa_f32():
-        return F.scaled_dot_product_attention(qf, kf, vf, is_causal=True)
-
-    out["flash_fwd_f32"] = {
-        "shape": f"q/k/v [1,{heads},{t},{d}] f32 causal",
-        "ms": time_ms(lambda: fa.flash_attention(qf, kf, vf, causal=True)),
-        "plain_ms": time_ms(lambda: fa.flash_attention_call_plain(
-            qf, kf, vf, 0, 0, True, True), iters=3, reps=3),
-        "library_ms": time_ms(sdpa_f32),
-        "bound_ms": bound, "bound_by": by, "ops": 4 * d * pairs,
-        "call_ms": time_ms(call_f32),
-        "device_ms": device_ms(call_f32),
-        "library_device_ms": device_ms(sdpa_f32),
-    }
+    out.update(f32_times(device, heads, t, d))
 
     # decode as the engine runs it: q [slots, H, 1, Dh] bf16, f32 cache
     b = len(lens)
@@ -4646,6 +4697,79 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
             f"{row['bound_ratio']:.2f}x its bound, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){dev}")
+    return out
+
+
+def f32_times(device, heads=8, t=2048, d=128) -> dict:
+    """The CUDA-core f32 bodies at the f32 model's prefill shape, q/k/v [1,
+    H, capacity, Dh] f32 causal: the forward as phase_deploy's replicas run
+    it (``flash_fwd_f32``, through ``flash_attention``, the wrapper below it
+    beside), its two-term body, and the backward pair (one warm call, 20
+    calls a sample, median of seven; plain versions median of three), each
+    also by the profiler's device time. Bounds at the f32 peak (67 TFLOP/s):
+    4, 6 and 8 * D operations a live pair. Library yardsticks: SDPA in f32,
+    and for the backward pair its backward (forward+backward less forward),
+    the same figure on both rows. ``prefill_f32_turns.py`` times these rows
+    for two trees in turns."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    pairs = heads * t * (t + 1) // 2  # live (query, key) pairs
+    q, k, v, lse, dsum, g = bwd_inputs(gen, (1, heads, t, d), torch.float32,
+                                       device)
+    elems, rows_bytes = q.numel(), 2 * heads * t * 4
+    shape = f"q/k/v [1,{heads},{t},{d}] f32 causal"
+
+    def call(onepass):
+        return lambda: fa.flash_attention_call(q, k, v, 0, 0, True, True,
+                                               onepass)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
+
+    library = {"library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa)}
+    both, fwd_only = device_ms(sdpa_fwd_bwd, calls=20), device_ms(sdpa_fwd, calls=20)
+    pair = {"library_ms": time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd),
+            "library_device_ms": (None if None in (both, fwd_only)
+                                  else both - fwd_only), "library": "pair"}
+    fwd_bound = _bound(4 * elems * 4 + rows_bytes, 4 * d * pairs, "f32")
+    out = {
+        "flash_fwd_f32": {
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+            "call_ms": time_ms(call(True)), "device_ms": device_ms(call(True)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_call_plain(
+                q, k, v, 0, 0, True, True), iters=3, reps=3),
+        },
+        "flash_fwd_twoterm_f32": {
+            "ms": time_ms(call(False)), "device_ms": device_ms(call(False)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_call_plain(
+                q, k, v, 0, 0, True, True, False), iters=3, reps=3),
+        },
+    }
+    for row in out.values():
+        row.update(library, shape=shape, bound_ms=fwd_bound[0],
+                   bound_by=fwd_bound[1], ops=4 * d * pairs)
+    args = (q, k, v, lse, dsum, g, 0, 0, True)
+    for key, fn, plain, n_out, ops in (
+        ("flash_bwd_dq_f32", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+        ("flash_bwd_dkv_f32", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+    ):
+        bound = _bound((4 + n_out) * elems * 4 + rows_bytes, ops * d * pairs,
+                       "f32")
+        out[key] = pair | {
+            "shape": shape,
+            "ms": time_ms(lambda fn=fn: fn(*args)),
+            "device_ms": device_ms(lambda fn=fn: fn(*args), calls=20),
+            "plain_ms": time_ms(lambda plain=plain: plain(*args), iters=1,
+                                reps=3, warm=1),
+            "bound_ms": bound[0], "bound_by": bound[1], "ops": ops * d * pairs,
+        }
     return out
 
 
@@ -5071,27 +5195,31 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
 
 
 def bf16_checks(device) -> None:
-    """Phase 2's bf16 checks at the main path's shapes alone: the forward
-    at the serving prefill [1,8,2048,128] (normalized, and the stats
-    surface with offsets) and at the training shape [2,8,8192,128], causal;
-    the backward at the training shape; decode at the serving shape (f32
-    and int8 caches) and the f32/bf16-cache decode's bitwise contracts
-    (``check_decode_bits``); the int8 product, bitwise, at the training
-    step's first product and decode's two; and K1's and K5's own checks
-    (``check_interaction``, ``check_stochastic``), the path's shapes and
-    their layouts' edges."""
+    """Phase 2's bf16 checks at the main path's shapes alone, with the f32
+    forward's: the forward at the serving prefill [1,8,2048,128] in bf16
+    and f32 (normalized, and the stats surface with offsets) and at the
+    training shape [2,8,8192,128], causal; the f32 body's edges
+    (``check_forward_f32``); the backward at the training shape; decode at
+    the serving shape (f32 and int8 caches) and the f32/bf16-cache decode's
+    bitwise contracts (``check_decode_bits``, also at an odd capacity); the
+    int8 product, bitwise, at the training step's first product and
+    decode's two; and K1's and K5's own checks (``check_interaction``,
+    ``check_stochastic``), the path's shapes and their layouts' edges."""
     _build.load()
     gen = torch.Generator(device=device).manual_seed(SEED)
     heads, d = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
-    for q_off, k_off, normalize in ((0, 0, True), (512, 256, False)):
-        t = ENGINE["capacity_tokens"]
-        q, k, v = (_randn(gen, (1, heads, t, d), torch.bfloat16, device)
-                   for _ in range(3))
-        check_forward(q, k, v, q_off, k_off, True, normalize,
-                      f"bfloat16 [1,{heads},{t},{d}] causal=True "
-                      f"offsets=({q_off},{k_off}) normalize={normalize}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for q_off, k_off, normalize in ((0, 0, True), (512, 256, False)):
+            t = ENGINE["capacity_tokens"]
+            q, k, v = (_randn(gen, (1, heads, t, d), dtype, device)
+                       for _ in range(3))
+            check_forward(q, k, v, q_off, k_off, True, normalize,
+                          f"{str(dtype)[6:]} [1,{heads},{t},{d}] causal=True "
+                          f"offsets=({q_off},{k_off}) normalize={normalize}")
+    check_forward_f32(gen, device, heads)
     check_train_shape(gen, device, heads, d)
     check_decode_bits(gen, device, heads, ENGINE["capacity_tokens"], DECODE_LENS)
+    check_decode_bits(gen, device, heads, *DECODE_BITS_ODD)
     check_decode(gen, device, heads, ENGINE["capacity_tokens"], d, DECODE_LENS,
                  (torch.bfloat16,))
     check_int8_gemm(gen, device, grads=False, cases=[
@@ -5185,6 +5313,19 @@ PLANTED_FAULTS = {
         "const int j = static_cast<int>(ij & 0xffff);",
         "const int j = static_cast<int>(o - r * pairs == pairs - 1 ? 0 : "
         "ij & 0xffff);"),
+    # the f32 prefill: p_sum of a row's keys in another tree order (j^4
+    # first, then j^8, j^16): within 1e-5, but off decode's bits
+    "f32_psum_tree_order": (
+        FWD_SOURCE,
+        "x[i] = __fadd_rn(x[i], x[i + w]);",
+        "x[i] = __fadd_rn(x[2 * i], x[2 * i + 1]);"),
+    # the f32 prefill, past key 1024: a tile's scores read the K of the
+    # neighbouring slot of the staged group
+    "f32_group_neighbour_tile": (
+        FWD_SOURCE,
+        "const float* kr = ks + (tile * kBlockK + g) * L::kPitch;",
+        "const float* kr = ks + (((tile + (kt0 >= 1024)) % kGroup) * kBlockK "
+        "+ g) * L::kPitch;"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,

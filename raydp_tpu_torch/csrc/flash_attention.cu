@@ -4,225 +4,461 @@
 // here. The f32/bf16-cache decode is flash_decode.cu, the int8-cache decode
 // flash_decode_int8.cu.
 //
-// Replaces, in raydp_tpu/ops/flash_attention.py:
-//   flash_fwd          <- _flash_kernel_onepass, launched by pallas_call in
-//                         _flash_call (flash_attention / flash_attention_stats),
-//                         for f32 q/k/v
-//   flash_fwd_twoterm  <- _flash_kernel, the same call with onepass=False
-//                         (RAYDP_TPU_FLASH_ONEPASS=0): the same kernel with
-//                         the two-term update, which always rescales
+// Replaces, in raydp_tpu/ops/flash_attention.py (pallas_call at :305, in
+// _flash_call: flash_attention / flash_attention_stats), for f32 q/k/v:
+//   flash_fwd          <- _flash_kernel_onepass (:146)
+//   flash_fwd_twoterm  <- _flash_kernel (:83), the same call with
+//                         onepass=False (RAYDP_TPU_FLASH_ONEPASS=0): the
+//                         two-term update, which always rescales
 //
 // What bounds it on an H100. Prefill over T positions does 2*B*H*T^2*D
-// operations (causal) on 4*B*H*T*D elements: at T = 2048, D = 128 that is
-// about 500 operations per byte, above the card's ridge, so it is bound by
-// operations.
+// operations (causal) on 4*B*H*T*D f32 elements: at T = 2048, D = 128 about
+// 500 operations a byte, far above the card's ridge, so it is bound by
+// operations: the FP32 pipes of the CUDA cores (67 TFLOP/s). Tensor cores
+// stay out: TF32 wgmma rounds the operands and would break the bits below.
 //
-// What this design does about it: it is exact and simple, not fast. It
-// computes in f32 on the CUDA cores (no tensor cores, no TMA):
-// one warp per query row, one key per lane, K/V tiles of kBlockK keys staged
-// in shared memory and shared by every row of the block; the next tile's
-// loads are in flight, in registers, while the current one is computed.
-// A loop over k-tiles
-// inside the block replaces the TPU's sequential k-block grid axis, so the
-// running (m, l, o) of a row stay in registers. Causal rows skip the k-tiles
-// that lie entirely in their future. Each row runs the steps of the k-tile
-// update (flash_common.cuh: tile_score, tile_prob, tile_pv, tile_alpha,
-// merge_term) tile after tile; the split decode (flash_decode.cu) runs the
-// same steps over the same k-tile partition, so a decode row equals the
-// prefill row at the same position bit for bit for f32 q/k/v on an f32
-// cache -- the failover contract of docs/serving.md ("Determinism and
-// failover"). For bf16 q/k/v the prefill runs on the tensor cores over
-// 128-key tiles with p rounded to bf16, so the decode row is within bf16
-// rounding of the prefill row, not bitwise.
+// What holds it back, and what the design does about it. The FP32 pipes
+// take 128 FMAs a clock on an SM; shared memory gives 128 bytes a clock, and
+// a warp's 16-byte load (LDS.128) takes four of those clocks whatever
+// addresses its lanes share. A thread therefore needs about 4 FMAs for
+// every float it loads from shared memory before the FP32 pipes, not shared
+// memory, are the limit: a register tile of 8 x 8 outputs. The previous
+// body (one warp a row, one key a lane) loaded one or two floats a FMA.
+// This one stages a group of kGroup = 4 k-tiles (128 keys) at a time, so
+// that a phase has enough outputs for register tiles of 8 x 4:
+// - scores: threads 64t .. 64t + 63 take tile t, a thread 8 rows x 4 keys,
+//   walking d ascending; per 4 d it loads 8 q and 4 k float4s for 128 FMAs;
+// - softmax: four threads a row, each 8 of a tile's keys, the group's tiles
+//   in order, in place in a [64][128] tile (scores in, p out); the row's m
+//   and l stay in these threads' registers;
+// - p.v: a thread holds 8 rows x 4 columns (4 x 4 at D 64) and walks each
+//   tile's keys ascending; per 4 keys it loads 8 p and 4 V float4s for 128
+//   FMAs; its running o stays in registers.
+// That is 128 FMAs for 48 floats, 2.7 a float, short of 4: the scores and
+// p.v still wait on shared memory (phase 1 of chip_smoke.py reports the
+// SASS LDS:FFMA ratio), and 8 x 8 score tiles would need 256 keys of K
+// staged, more shared memory than a block has.
+// Row pitches of Q, K and the scores are padded by 16 bytes, so that the
+// 8 keys (or rows) a quarter-warp reads at once fall in distinct banks.
+// K and V arrive by 16-byte cp.async copies from every thread (zero-filled
+// past Tk): the next group's K while this group's softmax and p.v run, a
+// group's V while its scores run. cp.async fits this layout where TMA does
+// not: TMA writes dense or 128-byte-swizzled boxes, not a padded pitch, and
+// it would need a producer warp and mbarriers for tiles each thread copies
+// in a few moves. A block's 197 KB (D 128) hold an SM alone; the grid runs
+// the longest row blocks (the last ones, under a causal mask) first, so the
+// card, which starts each next block on the SM that frees first, spreads
+// the row blocks' unequal work evenly. A block stops at its last live tile
+// and masks element by element only on tiles that some row of it does not
+// see whole.
 //
-// The two-term body (kTwoTerm) computes alpha = exp(m - m_new) and
-// fma(alpha, acc, pv) on every tile. Where the max did not move, alpha is
-// exp(0) == 1 exactly and fma(1, a, b) rounds like a + b, so it equals the
-// one-pass body bit for bit; it costs one exp and D/32 + 1 multiplies more
-// per row and tile.
+// Why the bits are kept. The split decode (flash_decode.cu) runs the steps
+// of flash_common.cuh over the same 32-key tiles, merged in tile order, and
+// an f32 decode row must equal the prefill row at its position bit for bit
+// (the failover contract of docs/serving.md, "Determinism and failover").
+// Which thread computes what is free; for every (row, tile) the rounding
+// chain is the one of those steps:
+// - each score one __fmaf_rn chain over d ascending, then __fmul_rn(s,
+//   scale), or kNegInf where masked (tile_score);
+// - the tile max by fmaxf (exact in any order);
+// - p = expf(s - m_new) (tile_prob, the same expf);
+// - p_sum in warp_sum's butterfly: keys j and j^16, then ^8, ^4 (inside a
+//   thread: its keys of a tile are c + 4i), then ^2, ^1 (across the row's
+//   four threads);
+// - each p.v element one __fmaf_rn chain over keys 0..31 ascending
+//   (tile_pv);
+// - the merges by merge_term (rescale where the max moved, always in the
+//   two-term body, else add; rows whose tile lies wholly in their future
+//   skip it); tiles from key 0 in steps of kBlockK;
+// - o = __fdiv_rn(acc, max(l, 1e-30)).
+// The two-term body computes alpha = exp(m - m_new) and fma(alpha, acc, pv)
+// on every tile; where the max did not move alpha is exp(0) == 1 exactly
+// and fma(1, a, b) rounds like a + b, so it equals the one-pass body bit for
+// bit. For bf16 q/k/v the prefill runs on the tensor cores with p rounded
+// to bf16, so the decode row is within bf16 rounding of it, not bitwise.
 
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int kFwdWarps = 16;  // query rows per block, one warp each
+constexpr int kRows = 64;      // query rows per block
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kGroup = 4;      // k-tiles staged together
+constexpr int kGroupKeys = kGroup * kBlockK;
+// A row's entry in row_a for each tile of a group: alpha (>= 0) where the
+// row max moved, kAdd where it did not, kSkip where the tile lies wholly in
+// the row's future or the row is past T (no update).
+constexpr float kAdd = -1.f;
+constexpr float kSkip = -2.f;
 
-// K/V reader: element idx of row `row` as f32.
-template <typename T>
-struct LoadPlain {
-  const T* p;
-  __device__ __forceinline__ float operator()(size_t idx, size_t) const {
-    return to_f32(p[idx]);
-  }
+// Shared memory of one block, in floats: Q, a group of K tiles, a group of
+// V tiles, the group's scores (then p), row_a of each tile, and the final l
+// of each row. Row pitches of Q, K and the scores are padded by 16 bytes.
+template <int D>
+struct Layout {
+  static constexpr int kPitch = D + 4;            // Q and K rows
+  static constexpr int kSPitch = kGroupKeys + 4;  // score / p rows
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kRows * kPitch;
+  static constexpr int kV = kK + kGroupKeys * kPitch;
+  static constexpr int kS = kV + kGroupKeys * D;
+  static constexpr int kA = kS + kRows * kSPitch;
+  static constexpr int kL = kA + kGroup * kRows;
+  static constexpr size_t kBytes = sizeof(float) * (kL + kRows);
+  // p.v: a thread holds kPvRows rows (kPvGroups apart) x 4 columns
+  static constexpr int kColQuads = D / 4;
+  static constexpr int kPvGroups = kThreads / kColQuads;
+  static constexpr int kPvRows = kRows / kPvGroups;
 };
 
-// One k-tile of K and V as f32, spread over the block's NT threads' registers.
-// Loading the next tile into registers before the current one is computed,
-// and storing it to shared memory after, keeps every thread's loads in
-// flight together and overlaps them with the compute.
-template <int D, int NT>
-struct KVTile {
-  static constexpr int kPer = kBlockK * D / NT;  // elements per thread
-  float k[kPer];
-  float v[kPer];
+// 16 bytes from global to shared memory, bypassing L1; !ok writes zeros
+// and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// N rows of D floats from `src` into `dst` (row pitch `pitch` floats), 16
+// bytes a copy spread over the block; rows at or past `valid` are zeros.
+template <int D, int N>
+__device__ __forceinline__ void copy_rows(const float* src, int valid,
+                                          float* dst, int pitch) {
+  constexpr int kPieces = D / 4;
+#pragma unroll
+  for (int u = 0; u < N * kPieces / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * pitch + c, src + (ok ? r : 0) * D + c, ok);
+  }
+}
+
+// Starts copying `n` tiles of rows from key kt0 of `src` (K or V) into a
+// group buffer at `dst` (row pitch `pitch`), as one cp.async group.
+template <int D>
+__device__ __forceinline__ void load_group(const float* src, size_t kbase,
+                                           int kt0, int n, int tk, float* dst,
+                                           int pitch) {
+  for (int t = 0; t < n; ++t) {
+    const int key = kt0 + t * kBlockK;
+    copy_rows<D, kBlockK>(src + (kbase + key) * D, tk - key,
+                          dst + t * kBlockK * pitch, pitch);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// The kernel's arguments, as rtt_flash_fwd gives them.
+struct FwdArgs {
+  const float* q;  // [BH, T, D]
+  const float* k;  // [BH, Tk, D]
+  const float* v;
+  float* o;        // [BH, T, D]
+  float* m;        // [BH, T]
+  float* l;
+  int n_bh, t, tk, q_off, k_off, causal, normalize;
+  float scale;
 };
 
-// Rows at or past n_valid are loaded as zeros: they are masked anyway, and
-// zero V keeps p * v exact (0 * 0).
-template <int D, int NT, class LK, class LV>
-__device__ __forceinline__ void load_kv(const LK& lk, const LV& lv,
-                                        size_t row0, int n_valid,
-                                        KVTile<D, NT>& tile) {
+// Whether every key of the tile at kt0 is live for every row of the block.
+__device__ __forceinline__ bool tile_full(const FwdArgs& a, int row0, int kt0) {
+  return kt0 + kBlockK <= a.tk &&
+         (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kBlockK - 1);
+}
+
+// Scores of the group's live tiles: threads 64t .. 64t + 63 take tile t,
+// thread (rg, g) rows rg + 8r (r < 8) x keys g + 8i (i < 4) of it. Each is
+// one __fmaf_rn chain over d ascending, then the scale, or kNegInf where
+// masked. Per 4 d a thread loads 8 q and 4 k float4s for 128 FMAs.
+template <int D>
+__device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
+                                             const float* ks, float* ss,
+                                             int row0, int kt0, int n_live) {
+  using L = Layout<D>;
+  const int tile = threadIdx.x / 64;
+  if (tile >= n_live) return;
+  const int rg = (threadIdx.x / 8) % 8;
+  const int g = threadIdx.x % 8;
+  const float* qr = qs + rg * L::kPitch;
+  const float* kr = ks + (tile * kBlockK + g) * L::kPitch;
+  float s[8][4];
 #pragma unroll
-  for (int u = 0; u < KVTile<D, NT>::kPer; ++u) {
-    const int i = threadIdx.x + u * NT;
-    const int j = i / D;
-    const size_t row = row0 + j;
-    const bool ok = j < n_valid;
-    tile.k[u] = ok ? lk(row * D + i % D, row) : 0.f;
-    tile.v[u] = ok ? lv(row * D + i % D, row) : 0.f;
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    float4 qa[8], kb[4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      qa[r] = *reinterpret_cast<const float4*>(qr + 8 * r * L::kPitch + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      kb[i] = *reinterpret_cast<const float4*>(kr + 8 * i * L::kPitch + c);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[r][i] = __fmaf_rn(part(qa[r], e), part(kb[i], e), s[r][i]);
+        }
+      }
+    }
+  }
+  const int tk0 = kt0 + tile * kBlockK;
+  const bool full = tile_full(a, row0, tk0);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = rg + 8 * r;
+    const int q_pos = a.q_off + row0 + row;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = g + 8 * i;
+      const bool live = full || (tk0 + j < a.tk &&
+                                 (!a.causal || q_pos >= a.k_off + tk0 + j));
+      ss[row * L::kSPitch + tile * kBlockK + j] =
+          live ? __fmul_rn(s[r][i], a.scale) : kNegInf;
+    }
   }
 }
 
-// Stage the tile: K transposed (kT[d][j], row stride kBlockK + 1 so that both
-// these writes and the per-lane reads are free of bank conflicts), V as
-// vt[j][d].
-template <int D, int NT>
-__device__ __forceinline__ void store_kv(const KVTile<D, NT>& tile, float* kT,
-                                         float* vt) {
+// The softmax of the group's live tiles, in order, for row threadIdx.x / 4,
+// whose four threads hold keys c + 4i (c = threadIdx.x % 4, i < 8) of each
+// tile: the tile max, p in place of the scores, p_sum in warp_sum's order,
+// and the row's (m, l) merged; row_a tells the p.v threads how to merge o.
+template <int D, bool kTwoTerm>
+__device__ __forceinline__ void group_softmax(const FwdArgs& a, float* ss,
+                                              float* row_a, int row0, int rows,
+                                              int kt0, int n_live, float& m,
+                                              float& l) {
+  using L = Layout<D>;
+  const int r = threadIdx.x / 4;
+  for (int tile = 0; tile < n_live; ++tile) {
+    const bool skip = r >= rows ||
+        (a.causal && a.q_off + row0 + r < a.k_off + kt0 + tile * kBlockK);
+    float* sr = ss + r * L::kSPitch + tile * kBlockK + threadIdx.x % 4;
+    float x[8];
 #pragma unroll
-  for (int u = 0; u < KVTile<D, NT>::kPer; ++u) {
-    const int i = threadIdx.x + u * NT;
-    const int j = i / D;
-    const int d = i % D;
-    kT[d * (kBlockK + 1) + j] = tile.k[u];
-    vt[j * D + d] = tile.v[u];
+    for (int i = 0; i < 8; ++i) x[i] = sr[4 * i];
+    float tile_max = x[0];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) tile_max = fmaxf(tile_max, x[i]);
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 1));
+    tile_max = fmaxf(tile_max, __shfl_xor_sync(kFull, tile_max, 2));
+    const float m_new = fmaxf(m, tile_max);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      x[i] = tile_prob(x[i], m_new);
+      sr[4 * i] = x[i];
+    }
+    // keys j and j^16 (x[i], x[i + 4]), then j^8, then j^4 in the thread
+#pragma unroll
+    for (int w = 4; w > 0; w >>= 1) {
+#pragma unroll
+      for (int i = 0; i < w; ++i) x[i] = __fadd_rn(x[i], x[i + w]);
+    }
+    // then j^2 and j^1: the row's threads are lanes 4 * (r % 8) + c
+    x[0] = __fadd_rn(x[0], __shfl_xor_sync(kFull, x[0], 2));
+    x[0] = __fadd_rn(x[0], __shfl_xor_sync(kFull, x[0], 1));
+    const bool moved = kTwoTerm || tile_max > m;
+    const float alpha = moved ? tile_alpha(m, m_new) : 1.f;
+    if (!skip) {
+      l = merge_term(moved, alpha, l, x[0]);
+      m = m_new;
+    }
+    if (threadIdx.x % 4 == 0) {
+      row_a[tile * kRows + r] = skip ? kSkip : moved ? alpha : kAdd;
+    }
   }
 }
 
-// The per-row online-softmax update over one staged k-tile: the steps of
-// flash_common.cuh in order. The rescale of (l, o) runs only when the row
-// max moved (the one-pass body of _flash_kernel_onepass); with kTwoTerm it
-// always runs (the two-term body of _flash_kernel).
-template <int D, bool kTwoTerm = false>
-__device__ __forceinline__ void row_update(const float* qrow, const float* kT,
-                                           const float* vt, bool key_live,
-                                           float scale, float& m, float& l,
-                                           float (&acc)[D / 32], int lane) {
-  const float s = tile_score<D, 1>(
-      qrow, [&](int d, float (&k)[1]) { k[0] = kT[d * (kBlockK + 1) + lane]; },
-      key_live, scale);
-  const float block_max = warp_max(s);
-  const float m_new = fmaxf(m, block_max);
-  const float p = tile_prob(s, m_new);
-  const float p_sum = warp_sum(p);
-  float pv[D / 32];
-  tile_pv<D>(p, [&](int j, int e) { return vt[j * D + e]; }, lane, pv);
-
-  const bool moved = kTwoTerm || block_max > m;  // warp-uniform
-  const float alpha = moved ? tile_alpha(m, m_new) : 1.f;
-  l = merge_term(moved, alpha, l, p_sum);
+// p.v of the group's live tiles, in order, merged into the thread's running
+// o: thread (rg, cq) holds rows rg + kPvGroups * r (r < kPvRows) x columns
+// 4cq .. 4cq + 3. Each element is one __fmaf_rn chain over a tile's keys
+// ascending, then merge_term. Per 4 keys a thread loads kPvRows p and 4 V
+// float4s for 16 * kPvRows FMAs.
+template <int D>
+__device__ __forceinline__ void group_pv(const float* ps, const float* vs,
+                                         const float* row_a, int n_live,
+                                         float (&acc)[Layout<D>::kPvRows][4]) {
+  using L = Layout<D>;
+  constexpr int kR = L::kPvRows;
+  const int rg = threadIdx.x / L::kColQuads;
+  const int cq = threadIdx.x % L::kColQuads;
+  for (int tile = 0; tile < n_live; ++tile) {
+    const float* pt = ps + rg * L::kSPitch + tile * kBlockK;
+    const float* vt = vs + tile * kBlockK * D + 4 * cq;
+    float pv[kR][4];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = merge_term(moved, alpha, acc[i], pv[i]);
-  m = m_new;
+    for (int r = 0; r < kR; ++r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[r][e] = 0.f;
+    }
+#pragma unroll
+    for (int jb = 0; jb < kBlockK; jb += 4) {
+      float4 p4[kR];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        p4[r] = *reinterpret_cast<const float4*>(
+            pt + L::kPvGroups * r * L::kSPitch + jb);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv = *reinterpret_cast<const float4*>(vt + (jb + jj) * D);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          const float p = part(p4[r], jj);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pv[r][e] = __fmaf_rn(p, part(vv, e), pv[r][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const float alpha = row_a[tile * kRows + rg + L::kPvGroups * r];
+      if (alpha == kSkip) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[r][e] = merge_term(alpha >= 0.f, alpha, acc[r][e], pv[r][e]);
+      }
+    }
+  }
 }
 
-// Prefill: q [BH, T, D], k/v [BH, Tk, D] -> o [BH, T, D] (T, or f32 when
-// out_f32), m/l [BH, T] f32. grid (ceil(T / kFwdWarps), BH).
-template <int D, typename T, bool kTwoTerm>
-__global__ void __launch_bounds__(kFwdWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, void* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out, int t,
-                 int tk, int q_off, int k_off, int causal, int normalize,
-                 int out_f32, float scale) {
-  extern __shared__ float smem[];
-  float* kT = smem;                     // D x (kBlockK + 1)
-  float* vt = kT + D * (kBlockK + 1);   // kBlockK x D
-  float* qs = vt + kBlockK * D;         // kFwdWarps x D
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * kFwdWarps;
-  const int rows = min(kFwdWarps, t - row0);
-  const size_t qbase = bh * t;
-  const size_t kbase = bh * tk;
-  stage_rows<D>(q, qbase + row0, rows, kFwdWarps, qs);
-
-  const bool has_row = warp < rows;
-  const int q_pos = q_off + row0 + warp;
-  int k_end = tk;  // keys [0, k_end) can be live for some row of the block
-  if (causal) k_end = max(0, min(tk, q_off + row0 + rows - k_off));
+// Rows [row0, row0 + 64) of bh: Q staged once, then the K/V tiles that any
+// of its rows sees, kGroup at a time: scores, softmax tile after tile, p.v
+// tile after tile; then m, l and o. K of the next group loads while this
+// group's softmax and p.v run, V of a group while its scores run.
+template <int D, bool kTwoTerm>
+__device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
+                                          int row0, float* smem) {
+  using L = Layout<D>;
+  const int rows = min(kRows, a.t - row0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
+  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
   const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int n_groups = (n_tiles + kGroup - 1) / kGroup;
 
-  float m = kNegInf;
+  float m = kNegInf;  // the softmax threads' row
   float l = 0.f;
-  float acc[D / 32];
+  float acc[L::kPvRows][4];  // the p.v threads' rows and columns
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-
-  const LoadPlain<T> lk{k};
-  const LoadPlain<T> lv{v};
-  KVTile<D, kFwdWarps * 32> tile;
-  if (n_tiles > 0) load_kv(lk, lv, kbase, min(kBlockK, tk), tile);
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    const int kt0 = ti * kBlockK;
-    __syncthreads();  // the previous tile is consumed; q is staged
-    store_kv(tile, kT, vt);
-    __syncthreads();
-    if (ti + 1 < n_tiles) {  // in flight while this tile is computed
-      load_kv(lk, lv, kbase + kt0 + kBlockK, min(kBlockK, tk - kt0 - kBlockK),
-              tile);
-    }
-    const int k_first = k_off + kt0;
-    if (has_row && (!causal || q_pos >= k_first)) {
-      const bool live =
-          kt0 + lane < tk && (!causal || q_pos >= k_first + lane);
-      row_update<D, kTwoTerm>(qs + warp * D, kT, vt, live, scale, m, l, acc,
-                              lane);
-    }
+  for (int r = 0; r < L::kPvRows; ++r) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
   }
 
-  if (!has_row) return;
-  const size_t row = qbase + row0 + warp;
-  const float denom = fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    const float x = normalize ? __fdiv_rn(acc[i], denom) : acc[i];
-    const size_t idx = row * D + lane + 32 * i;
-    if (out_f32) {
-      static_cast<float*>(o)[idx] = x;
+  if (n_tiles > 0) {  // Q joins group 0's K
+    copy_rows<D, kRows>(a.q + (qbase + row0) * D, rows, smem + L::kQ,
+                        L::kPitch);
+    load_group<D>(a.k, kbase, 0, min(kGroup, n_tiles), a.tk, smem + L::kK,
+                  L::kPitch);
+  }
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int kt0 = gi * kGroupKeys;
+    const int n_live = min(kGroup, n_tiles - gi * kGroup);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // this group's K is in; the last group's p.v is done
+    load_group<D>(a.v, kbase, kt0, n_live, a.tk, smem + L::kV, D);
+    group_scores<D>(a, smem + L::kQ, smem + L::kK, smem + L::kS, row0, kt0,
+                    n_live);
+    __syncthreads();  // the scores are in; K is free
+    const bool more = gi + 1 < n_groups;
+    if (more) {
+      load_group<D>(a.k, kbase, kt0 + kGroupKeys,
+                    min(kGroup, n_tiles - (gi + 1) * kGroup), a.tk,
+                    smem + L::kK, L::kPitch);
+    }
+    group_softmax<D, kTwoTerm>(a, smem + L::kS, smem + L::kA, row0, rows, kt0,
+                               n_live, m, l);
+    if (more) {  // the next K may stay in flight
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     } else {
-      static_cast<T*>(o)[idx] = from_f32<T>(x);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // p, row_a and this group's V are in
+    group_pv<D>(smem + L::kS, smem + L::kV, smem + L::kA, n_live, acc);
+  }
+
+  if (threadIdx.x % 4 == 0) {
+    const int r = threadIdx.x / 4;
+    smem[L::kL + r] = l;
+    if (r < rows) {
+      a.m[qbase + row0 + r] = m;
+      a.l[qbase + row0 + r] = l;
     }
   }
-  if (lane == 0) {
-    m_out[row] = m;
-    l_out[row] = l;
+  __syncthreads();
+  const int rg = threadIdx.x / L::kColQuads;
+  const int cq = threadIdx.x % L::kColQuads;
+#pragma unroll
+  for (int r = 0; r < L::kPvRows; ++r) {
+    const int row = rg + L::kPvGroups * r;
+    if (row >= rows) continue;
+    const float denom = fmaxf(smem[L::kL + row], 1e-30f);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = a.normalize ? __fdiv_rn(acc[r][e], denom) : acc[r][e];
+    }
+    *reinterpret_cast<float4*>(a.o + (qbase + row0 + row) * D + 4 * cq) =
+        make_float4(x[0], x[1], x[2], x[3]);
   }
+}
+
+// Prefill: one block per (bh, 64 query rows), the longest row blocks first:
+// block b takes row block n_row_blocks - 1 - b / n_bh of bh b % n_bh. One
+// block holds an SM, so the card starts each next block on the SM that
+// frees first: the longest-first order then spreads the causal row blocks'
+// unequal work evenly.
+template <int D, bool kTwoTerm>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_row_blocks = (a.t + kRows - 1) / kRows;
+  const int row_block_index =
+      n_row_blocks - 1 - static_cast<int>(blockIdx.x / a.n_bh);
+  row_block<D, kTwoTerm>(a, blockIdx.x % a.n_bh, row_block_index * kRows,
+                         smem);
 }
 
 template <int D>
-constexpr size_t smem_bytes(int q_rows) {
-  return sizeof(float) * (D * (kBlockK + 1) + kBlockK * D + q_rows * D);
-}
-
-template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                float* l, int bh, int t, int tk, int q_off, int k_off,
-               int causal, int normalize, int out_f32, int onepass,
-               float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(kFwdWarps);
-  auto kernel = onepass ? flash_fwd_kernel<D, T, false>
-                        : flash_fwd_kernel<D, T, true>;
-  cudaError_t err = prepare(kernel, smem);
+               int causal, int normalize, int onepass, float scale,
+               cudaStream_t stream) {
+  using L = Layout<D>;
+  // one block an SM: more than half of an H100 SM's 228 KB
+  static_assert(L::kBytes > 116 * 1024, "a second block would fit an SM");
+  auto kernel =
+      onepass ? flash_fwd_kernel<D, false> : flash_fwd_kernel<D, true>;
+  cudaError_t err = prepare(kernel, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + kFwdWarps - 1) / kFwdWarps, bh);
-  kernel<<<grid, kFwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), o, m, l, t, tk, q_off, k_off, causal,
-      normalize, out_f32, scale);
+  const long long blocks =
+      static_cast<long long>((t + kRows - 1) / kRows) * bh;
+  if (blocks <= 0 || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FwdArgs args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     m, l, bh, t, tk, q_off, k_off, causal, normalize, scale};
+  kernel<<<static_cast<unsigned>(blocks), kThreads, L::kBytes, stream>>>(
+      args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,7 +479,8 @@ const char* rtt_error_string(int code) {
 // Returns cudaGetLastError() after the launch (0 on success); an unsupported
 // head dim or dtype returns cudaErrorInvalidValue without launching.
 // onepass = 0 launches the two-term body (flash_fwd_twoterm). bf16 goes to
-// the tensor-core forward, f32 to flash_fwd_kernel.
+// the tensor-core forward, f32 to flash_fwd_kernel (o is f32 either way, so
+// out_f32 changes nothing there). q, k and v must be 16-byte aligned.
 int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                   float* m, float* l, int bh, int t, int tk, int d, int dtype,
                   int q_off, int k_off, int causal, int normalize, int out_f32,
@@ -253,11 +490,11 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return flash_fwd_sm90(q, k, v, o, m, l, bh, t, tk, d, q_off, k_off, causal,
                           normalize, out_f32, onepass, scale, s);
   }
-#define RTT_FWD(D, T)                                                         \
-  return launch_fwd<D, T>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
-                          normalize, out_f32, onepass, scale, s)
-  if (d == 64 && dtype == kF32) RTT_FWD(64, float);
-  if (d == 128 && dtype == kF32) RTT_FWD(128, float);
+#define RTT_FWD(D)                                                         \
+  return launch_fwd<D>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
+                       normalize, onepass, scale, s)
+  if (d == 64 && dtype == kF32) RTT_FWD(64);
+  if (d == 128 && dtype == kF32) RTT_FWD(128);
 #undef RTT_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

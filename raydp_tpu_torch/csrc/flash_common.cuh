@@ -55,13 +55,15 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // The steps of the per-row online-softmax update over one k-tile of kBlockK
-// keys. The f32 prefill (row_update in flash_attention.cu) runs them in
-// order, tile after tile; the split decode (flash_decode.cu) runs the score,
-// the probabilities and p.v of every tile in parallel and the merges in tile
+// keys. The split decode (flash_decode.cu) runs the score, the
+// probabilities and p.v of every tile in parallel and the merges in tile
 // order. Lane j holds key j of the tile; lane i holds output elements i,
-// i + 32, ... Every rounding step is an explicit _rn intrinsic (the
-// compiler may not contract them), so a step gives the same bits in
-// either kernel.
+// i + 32, ... The f32 prefill (flash_attention.cu) spreads a tile over
+// register tiles of its block, tile after tile, with the same rounding
+// chain for every (row, tile): tile_prob, tile_alpha and merge_term
+// themselves, and the score, sum and p.v chains written out in the same
+// order. Every rounding step is an explicit _rn intrinsic (the compiler may
+// not contract them), so a step gives the same bits in either kernel.
 
 // The lane's score: one __fmaf_rn chain over d ascending, then the scale,
 // or kNegInf where the key is masked. krow(c, k) fills k[0, G) with

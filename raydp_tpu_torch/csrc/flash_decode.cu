@@ -21,7 +21,7 @@
 // as such it ran 32 blocks at the serving shape on a card of 132 SMs.
 //
 // The contract it keeps: for every row the output equals the prefill's
-// (flash_attention.cu row_update): the steps of flash_common.cuh over the
+// (flash_attention.cu's f32 body): the steps of flash_common.cuh over the
 // row's 32-key tiles in order, then __fdiv_rn(o, max(l, 1e-30)) rounded to
 // q's type. So an f32 decode row equals the f32 prefill row at its position
 // bit for bit (docs/serving.md, "Determinism and failover"). Those steps

@@ -76,14 +76,14 @@ from raydp_tpu_torch.ops import _build, _flops
 NEG_INF = -1e30
 
 # The plain versions' tiling, which is also the CUDA-core kernels'
-# (csrc/flash_common.cuh kBlockK, csrc/flash_attention.cu kFwdWarps): 32
-# keys per k-tile, one per lane of a warp; 16 query rows per f32 prefill
+# (csrc/flash_common.cuh kBlockK, csrc/flash_attention.cu kRows): 32
+# keys per k-tile, the width of a warp; 64 query rows per f32 prefill
 # block. The f32 decode == prefill bit contract rests on both kernels
 # sharing the k-tile. The bf16
 # forward's tile (128 queries x 128 keys) lives in
 # csrc/flash_forward_sm90.cu (kM, kN).
 BLOCK_K = 32
-BLOCK_Q = 16
+BLOCK_Q = 64
 KERNEL_HEAD_DIMS = (64, 128)
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
@@ -124,9 +124,9 @@ def pick_blocks(t_q: int, t_k: int, head_dim: int | None = None) -> tuple:
 
     The counterpart of the JAX package's ``pick_blocks``, whose sizes are
     set by the TPU's vector memory. On Hopper's CUDA cores they are set by
-    the warp: the k-tile is one key per lane (32), whatever the lengths (a
-    ragged last tile is masked), and an f32 prefill block holds 16 query
-    rows, one warp each. ``head_dim`` does not change them on this card.
+    the warp: the k-tile is 32 keys, whatever the lengths (a ragged last
+    tile is masked), and an f32 prefill block holds 64 query rows, register
+    tiles of 256 threads. ``head_dim`` does not change them on this card.
     The bf16 forward on tensor cores tiles 128 x 128 in its CUDA source."""
     del t_k, head_dim
     return min(BLOCK_Q, t_q), BLOCK_K
@@ -376,6 +376,8 @@ def flash_attention_call(
         name = "flash_fwd_f32"  # the CUDA-core body, a kernel of its own
     lib = _build.load()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.float32:  # the CUDA-core body copies 16 bytes a move
+        q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     o = torch.empty(
         (b, h, t, d), dtype=q.dtype if normalize else torch.float32,
         device=q.device,

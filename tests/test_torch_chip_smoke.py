@@ -303,6 +303,38 @@ def test_decode_pattern_names_every_instantiation():
         chip_smoke.decode_report(entries)
 
 
+def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
+    """The f32 prefill body's four instantiations <D, two-term> get a key
+    each with their SASS counts and LDS per FFMA; the bf16 forward's name
+    is not theirs; a spill, a missing instantiation or no LDGSTS fails."""
+    names = {
+        f"_ZN41_GLOBAL__N__1_flash_attention_cu16flash_fwd_kernelILi{d}ELb{two}"
+        f"EEEvPKfS2_S2_PfS3_S3_iiiiiiif": (d, two)
+        for d in (64, 128) for two in (0, 1)}
+    sm90 = "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv"
+    ops = ["FFMA"] * 8 + ["LDS.128"] * 2 + ["LDGSTS.E.BYPASS.128"] + ["BAR.SYNC"]
+    monkeypatch.setattr(chip_smoke, "sass_functions",
+                        lambda lib: {name: ops for name in [*names, sm90]})
+    monkeypatch.setattr(chip_smoke._build, "library_path", lambda: None)
+    entries = {name: {"registers": 128, "spill_bytes": 0, "static_smem_bytes": 0}
+               for name in [*names, sm90]}
+    out = chip_smoke.f32_fwd_report(entries)
+    assert sorted(out) == ["flash_fwd_kernel D128", "flash_fwd_kernel D128 two-term",
+                           "flash_fwd_kernel D64", "flash_fwd_kernel D64 two-term"]
+    row = out["flash_fwd_kernel D64"]
+    assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (8, 2, 1, 1)
+    assert row["lds_per_ffma"] == 0.25 and row["sass_instructions"] == 12
+    first = next(iter(names))
+    with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
+        chip_smoke.f32_fwd_report(entries | {first: entries[first] | {"spill_bytes": 8}})
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 4"):
+        chip_smoke.f32_fwd_report({k: v for k, v in entries.items() if k != first})
+    monkeypatch.setattr(chip_smoke, "sass_functions",
+                        lambda lib: {name: ops[:-2] for name in names})
+    with pytest.raises(chip_smoke.SmokeFailure, match="no FFMA, LDS or LDGSTS"):
+        chip_smoke.f32_fwd_report(entries)
+
+
 SASS_DUMP = """
 	code for sm_90a
 		Function : _ZN12_GLOBAL__N_122interaction_fwd_kernelIfEEvPKT_PKjPS1_iiiiiib

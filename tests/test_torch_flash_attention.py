@@ -62,6 +62,43 @@ def test_flash_forward_matches_jax(shape, causal, offsets, normalize):
     np.testing.assert_allclose(l.numpy(), np.asarray(ref_l), rtol=1e-5, atol=0)
 
 
+# (B, H, T, Tk, D): the edges of the CUDA-core f32 body
+# (csrc/flash_attention.cu): T one row either side of its 64-row block, Tk
+# off the 32-key tile, D 64 and 128, and T past 1024, where its K/V ring
+# wraps many times. The JAX side takes blocks that divide T and Tk.
+@pytest.mark.parametrize("shape", [
+    (1, 2, 63, 64, 64), (1, 2, 65, 96, 128), (1, 1, 100, 72, 64),
+    (1, 1, 200, 136, 128), (1, 1, 1088, 1088, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("offsets", [(0, 0), (64, 32), (16, 48)])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_flash_forward_edges_match_jax(shape, causal, offsets, normalize):
+    """The plain f32 forward at the f32 body's edges against the JAX
+    ``_flash_call`` in interpret mode, held as chip_smoke.check_forward
+    holds the kernel against it: the attention (o, or o / l where not
+    normalized) within 1e-5, m and l allclose(rtol 1e-5, atol 1e-6). An
+    absolute 1e-5 on the raw unnormalized o (|o| up to ~10 at 96 keys) and
+    rtol 1e-5 alone on m (a one-key row's score near 0) would hold the two
+    sides' f32 rounding, not their agreement."""
+    b, h, t, tk, d = shape
+    q, k, v = _qkv(b, h, t, d, tk=tk)
+    q_off, k_off = offsets
+    ref_o, ref_m, ref_l = (np.asarray(x) for x in jax_flash_call(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_off, k_off, causal,
+        None, None, True, normalize=normalize,
+    ))
+    o, m, l = (x.numpy() for x in fa.flash_attention_call(  # noqa: E741
+        *_t(q, k, v), q_off, k_off, causal, normalize
+    ))
+    ref_m, ref_l = ref_m.reshape(m.shape), ref_l.reshape(l.shape)
+    if not normalize:  # the attention, o / l
+        o = o / np.maximum(l, 1e-30)[..., None]
+        ref_o = ref_o.reshape(o.shape) / np.maximum(ref_l, 1e-30)[..., None]
+    np.testing.assert_allclose(o, ref_o.reshape(o.shape), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(m, ref_m, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(l, ref_l, rtol=1e-5, atol=1e-6)
+
+
 def test_flash_surfaces_and_full_attention_agree():
     """flash_attention (normalized) and flash_attention_stats (o / l) give
     the exact attention of full_attention; bf16 keeps its type."""
