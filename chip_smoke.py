@@ -25,7 +25,10 @@ Phases; any failure exits non-zero and prints no result line:
    register bodies and ``quantize_stochastic_kernel``) and K1
    (``interaction_fwd_kernel``, f32 and bf16) registers, spills, SASS
    instruction counts and K5's instructions per group of 4 elements (no
-   spill, or it fails).
+   spill, or it fails); for the CUDA-core f32 bodies (the forward's four
+   ``flash_fwd_kernel`` and the backward's four ``flash_bwd_dq_kernel`` /
+   ``flash_bwd_dkv_kernel`` instantiations) registers, spills and the SASS
+   ``FFMA``/``LDS``/``LDGSTS`` counts (no spill, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
    0 and nonzero, f32 and bf16, and for the bf16 tensor-core kernel D 64,
@@ -36,8 +39,9 @@ Phases; any failure exits non-zero and prints no result line:
    each case finished within a minute, two launches bitwise equal and the
    two-term body bitwise equal to the one-pass one), ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` (the same cases and, for the bf16 tensor-core
-   backward, its own hard cases with rows of no live key getting exactly
-   0; f32 within 1e-4, bf16 element by element within ``bf16_bwd_limit``,
+   backward and the CUDA-core f32 one, the hard cases of
+   ``backward_cases`` with rows of no live key getting exactly 0; f32
+   within 1e-4, bf16 element by element within ``bf16_bwd_limit``,
    2^-7 |plain| plus 1.05 * 2^-8 times the product of magnitudes whose p
    or ds the kernel rounds to bf16; two launches bitwise equal), all four
    again at the training path's own shape (q/k/v/do [2,8,8192,128] bf16
@@ -125,6 +129,13 @@ Phases; any failure exits non-zero and prints no result line:
    ``flash_fwd_twoterm``, bitwise equal to the one-pass step; peak memory
    with and without ``remat``. At T 2048: gradients against the plain
    attention path (``attn_impl="full"``), and the two-term step again.
+   The same model in f32 at batch 1, T 2048 (``phase_train_f32``): the
+   first step's loss and gradients against ``attn_impl="full"`` at
+   tests/test_torch_training.py's f32 tolerances (loss rtol 1e-6,
+   gradients 1e-4 relative), then one warm and 4 timed Adam steps, the
+   loss falling, 4 launches a step of ``flash_fwd_f32`` and of the f32
+   ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_backward.cu``);
+   step ms and one profiled step.
    The same training with ``quantized_mlp=True`` (bench.py's
    ``make_runner("flash", quantized_mlp=True)``): the loss falling, 8
    ``int8_gemm`` launches a step (two per block, forward only), as many
@@ -232,7 +243,11 @@ Phases; any failure exits non-zero and prints no result line:
    ``interaction_fwd``'s three times, K5's, and the attention kernels' own
    and library times, are also taken by the profiler, as device time per
    call (``device_ms``, ``plain_device_ms``, ``library_device_ms`` in the
-   ``kernels`` line, null where not measured). Beside K1's times, the
+   ``kernels`` line, null where not measured; a port kernel counts by the
+   launches the profiler recorded of it, ``per_call_device_ms``). The
+   f32 bodies (``f32_times``) at the f32 prefill [1,8,2048,128]: the
+   forward, its two-term body and the f32 backward pair, against SDPA in
+   f32 and its backward. Beside K1's times, the
    launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
    events and by the profiler.
 
@@ -246,11 +261,12 @@ and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
     python3 chip_smoke.py --planted-faults
 
 plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
-names (the bf16 forward, the bf16 backward, the two decode kernels, the
-int8 product, K5, K1; the estimator's resume, the wire's widen and the
-streamed fit's segments) under ``build/planted/``, builds the copy and
-runs there ``chip_smoke.py --bf16-checks`` for a fault in a CUDA source
-(phase 2's bf16 forward, backward and decode checks, the f32/bf16-cache
+names (the bf16 forward, the bf16 backward, the f32 forward, the f32
+backward, the two decode kernels, the int8 product, K5, K1; the
+estimator's resume, the wire's widen and the streamed fit's segments)
+under ``build/planted/``, builds the copy and runs there ``chip_smoke.py
+--bf16-checks`` for a fault in a CUDA source (phase 2's bf16 forward,
+backward and decode checks, the f32 bodies' edges, the f32/bf16-cache
 decode's bitwise checks and the int8 product's, at the serving and
 training shapes alone, then the K1 and K5 checks) or ``chip_smoke.py
 --fit-checks`` for one in a Python module (``phase_fit``'s steps 1-3: the
@@ -324,6 +340,9 @@ SEED = 0
 # tokens from default_rng(17); 1 warm step, 8 timed
 TRAIN = dict(batch=2, seq=8192, steps=8, lr=3e-4, token_seed=17)
 GRAD_CHECK_T = 2048
+# f32 training of the same model at the f32 model's serving shape: batch 1,
+# T 2048 (the prefill of phase_deploy's f32 replicas), 1 warm + 4 timed steps
+TRAIN_F32 = dict(batch=1, seq=2048, steps=4)
 # bench.py bench_dlrm (the BASELINE.json headline workload), uncut: its model,
 # BENCH_DLRM_ROWS' default of 100,000 rows, batch 2048, Adam 1e-3, inputs
 # from default_rng(11)
@@ -405,6 +424,8 @@ FWD_SOURCE = "raydp_tpu_torch/csrc/flash_attention.cu"
 SM90_SOURCE = "raydp_tpu_torch/csrc/flash_forward_sm90.cu"
 # the bf16 backward, which the training path runs (f32: flash_backward.cu)
 SM90_BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward_sm90.cu"
+# the f32 backward, which the f32 training step runs
+BWD_SOURCE = "raydp_tpu_torch/csrc/flash_backward.cu"
 QUANT_SOURCE = "raydp_tpu_torch/csrc/quantization.cu"
 # the decodes, split over the cache: f32/bf16 cache (K4a), int8 cache (K4b)
 DECODE_SOURCE = "raydp_tpu_torch/csrc/flash_decode.cu"
@@ -418,6 +439,9 @@ KERNELS = {
     "flash_fwd_twoterm": (SM90_SOURCE, "raydp_tpu/ops/flash_attention.py:305"),
     "flash_bwd_dq": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
     "flash_bwd_dkv": (SM90_BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
+    # the f32 bodies, which the f32 training step runs (phase_train_f32)
+    "flash_bwd_dq_f32": (BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:540"),
+    "flash_bwd_dkv_f32": (BWD_SOURCE, "raydp_tpu/ops/flash_attention.py:561"),
     "flash_decode": (DECODE_SOURCE, "raydp_tpu/ops/flash_attention.py:833"),
     "flash_decode_int8": (DECODE_INT8_SOURCE,
                           "raydp_tpu/ops/flash_attention.py:833"),
@@ -554,6 +578,7 @@ def phase_device() -> dict:
     decode = decode_report(entries)
     return lines | {"build_s": build_s, "ptxas": ptxas, "sm90": sm90,
                     "decode": decode, "f32_fwd": f32_fwd_report(entries),
+                    "f32_bwd": f32_bwd_report(entries),
                     "k1_k5": k1_k5_report(entries)}
 
 
@@ -696,33 +721,56 @@ F32_FWD_SASS_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "MUFU")
 F32_FWD_INSTANTIATIONS = 4
 
 
-def f32_fwd_report(entries: dict) -> dict:
-    """The f32 prefill body's instantiations among ptxas's ``entries`` (D
-    64 and 128, one-pass and two-term): registers and spills, each one's
-    SASS instruction count, the opcodes of F32_FWD_SASS_OPS and the static
-    ratio of LDS to FFMA. Fails on a spill, a missing instantiation or a
-    zero FFMA, LDS or LDGSTS count."""
+def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
+                     what: str) -> dict:
+    """The instantiations among ptxas's ``entries`` whose names match
+    ``pattern`` (``key(match)`` names each): registers and spills, each
+    one's SASS instruction count, the opcodes of F32_FWD_SASS_OPS and the
+    static ratio of LDS to FFMA. Fails on a spill, a count other than
+    ``expected`` or a zero FFMA, LDS or LDGSTS count."""
     sass = sass_functions(_build.library_path())
     out = {}
     for name, row in entries.items():
-        if not (found := F32_FWD_KERNEL.search(name)):
+        if not (found := pattern.search(name)):
             continue
         ops = sass.get(name, [])
         counts = {op: sum(o.split(".")[0] == op for o in ops)
                   for op in F32_FWD_SASS_OPS}
-        key = (f"flash_fwd_kernel D{found.group(1)}"
-               f"{' two-term' if found.group(2) == '1' else ''}")
-        out[key] = row | {"sass_instructions": len(ops)} | counts | {
+        out[key(found)] = row | {"sass_instructions": len(ops)} | counts | {
             "lds_per_ffma": counts["LDS"] / max(counts["FFMA"], 1)}
-    log(f"f32 forward kernels (ptxas, SASS): {out}")
-    require(len(out) == F32_FWD_INSTANTIATIONS,
-            f"expected {F32_FWD_INSTANTIATIONS} f32 forward kernels, found "
-            f"{sorted(out)}")
-    for key, row in out.items():
-        require(row["spill_bytes"] == 0, f"{key} spills")
+    log(f"{what} kernels (ptxas, SASS): {out}")
+    require(len(out) == expected,
+            f"expected {expected} {what} kernels, found {sorted(out)}")
+    for name, row in out.items():
+        require(row["spill_bytes"] == 0, f"{name} spills")
         require(all(row[op] > 0 for op in ("FFMA", "LDS", "LDGSTS")),
-                f"{key}: no FFMA, LDS or LDGSTS in its SASS")
+                f"{name}: no FFMA, LDS or LDGSTS in its SASS")
     return out
+
+
+def f32_fwd_report(entries: dict) -> dict:
+    """The f32 prefill body's instantiations (D 64 and 128, one-pass and
+    two-term) through ``cuda_core_report``."""
+    return cuda_core_report(
+        entries, F32_FWD_KERNEL,
+        lambda found: (f"flash_fwd_kernel D{found.group(1)}"
+                       f"{' two-term' if found.group(2) == '1' else ''}"),
+        F32_FWD_INSTANTIATIONS, "f32 forward")
+
+
+# the f32 backward's instantiations <D> in ptxas's mangled names (dq and
+# dk/dv, D 64 and 128); the bf16 bodies are flash_bwd_*_sm90_kernel
+F32_BWD_KERNEL = re.compile(r"flash_bwd_(dq|dkv)_kernelILi(\d+)EE")
+F32_BWD_INSTANTIATIONS = 4
+
+
+def f32_bwd_report(entries: dict) -> dict:
+    """The f32 backward's instantiations (dq and dk/dv, D 64 and 128)
+    through ``cuda_core_report``."""
+    return cuda_core_report(
+        entries, F32_BWD_KERNEL,
+        lambda found: f"flash_bwd_{found.group(1)}_kernel D{found.group(2)}",
+        F32_BWD_INSTANTIATIONS, "f32 backward")
 
 
 # K5's and K1's instantiations in ptxas's mangled names: the stochastic
@@ -806,6 +854,7 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     out.update(check_forward_f32(gen, device, bh_heads))
     out.update(check_backward(gen, device, bh_heads, t, d))
     out.update(check_backward_bf16(gen, device, bh_heads))
+    out.update(check_backward_f32(gen, device, bh_heads))
     out.update(check_train_shape(gen, device, bh_heads, d))
     out.update(check_decode(gen, device, bh_heads, t, d, lens))
     out.update(check_decode_bits(gen, device, bh_heads, t, lens))
@@ -1576,24 +1625,29 @@ def check_backward(gen, device, bh_heads, t, d) -> dict:
     return out
 
 
-def check_backward_bf16(gen, device, heads) -> dict:
-    """The bf16 backward's hard cases through check_bwd: D 64; T 1500, off
-    the tiles; T 200 against Tk 136, causal and not; q_off < k_off, where
-    the rows before the first key (lse = NEG_INF) must get gradients of
+def backward_cases(heads) -> tuple:
+    """The backward's hard cases, (q shape, Tk, q_off, k_off, causal): D
+    64, causal and not; T 1500, off the tiles; T 200 against Tk 136, causal
+    and not; q_off < k_off, where the rows before the first key (lse =
+    NEG_INF) see no key, at D 128 and 64."""
+    return (((1, heads, 2048, 64), 2048, 0, 0, True),
+            ((1, heads, 2048, 64), 2048, 0, 0, False),
+            ((1, heads, 1500, 128), 1500, 0, 0, True),
+            ((1, heads, 200, 128), 136, 0, 0, False),
+            ((1, heads, 200, 128), 136, 0, 0, True),
+            ((1, heads, 512, 128), 512, 0, 300, True),
+            ((1, heads, 512, 64), 512, 0, 300, True))
+
+
+def check_backward_cases(gen, device, heads, dtype) -> dict:
+    """``backward_cases`` in ``dtype`` through check_bwd (its limit for the
+    dtype, two launches bitwise); the rows with no live key must get dq of
     exactly 0."""
     out = {}
-    cases = (((1, heads, 2048, 64), 2048, 0, 0, True),
-             ((1, heads, 2048, 64), 2048, 0, 0, False),
-             ((1, heads, 1500, 128), 1500, 0, 0, True),
-             ((1, heads, 200, 128), 136, 0, 0, False),
-             ((1, heads, 200, 128), 136, 0, 0, True),
-             ((1, heads, 512, 128), 512, 0, 300, True),
-             ((1, heads, 512, 64), 512, 0, 300, True))
-    for shape, tk, q_off, k_off, causal in cases:
+    for shape, tk, q_off, k_off, causal in backward_cases(heads):
         b, h, t, d = shape
-        args = bwd_inputs(gen, shape, torch.bfloat16, device, q_off, k_off,
-                          causal, tk)
-        case = (f"bfloat16 [{b},{h},{t},{d}] tk={tk} causal={causal} "
+        args = bwd_inputs(gen, shape, dtype, device, q_off, k_off, causal, tk)
+        case = (f"{str(dtype)[6:]} [{b},{h},{t},{d}] tk={tk} causal={causal} "
                 f"offsets=({q_off},{k_off})")
         out.update(check_bwd(*args, q_off, k_off, causal, case))
         if k_off > q_off:  # rows before the first key see none
@@ -1602,6 +1656,18 @@ def check_backward_bf16(gen, device, heads) -> dict:
             require(not bool(dq[:, :, :dead].float().abs().max()),
                     f"rows with no live key have nonzero dq ({case})")
     return out
+
+
+def check_backward_bf16(gen, device, heads) -> dict:
+    """The tensor-core backward's hard cases (``backward_cases``), bf16."""
+    return check_backward_cases(gen, device, heads, torch.bfloat16)
+
+
+def check_backward_f32(gen, device, heads) -> dict:
+    """The CUDA-core f32 backward's hard cases (``backward_cases``): within
+    1e-4 of the plain version; besides the 64-row blocks' and 64-key tiles'
+    ragged edges, T 1500 and 2048 refill the staged tiles many times."""
+    return check_backward_cases(gen, device, heads, torch.float32)
 
 
 def check_train_shape(gen, device, heads, d) -> dict:
@@ -2678,6 +2744,67 @@ def phase_train(device) -> dict:
     out["twoterm_step"] = twoterm_step(device, tokens, targets, t + 1)
     out["remat"] = remat_memory(device, tokens, targets, t + 1)
     out["grad_check"] = grad_check(device, t + 1)
+    return out
+
+
+def phase_train_f32(device) -> dict:
+    """The full-width LM in f32, ``TransformerLM(**MODEL, dtype=float32,
+    attn_impl="flash")``, at TRAIN_F32's batch 1 and T 2048. First, from
+    the same seeded weights, one step's loss and gradients against
+    ``attn_impl="full"`` at tests/test_torch_training.py's f32 tolerances:
+    loss rtol 1e-6, per tensor ||g - g_full|| / ||g_full|| <= 1e-4. Then a
+    warm step and TRAIN_F32["steps"] timed steps with Adam, as phase_train
+    runs them, the counts zeroed just before and read just after: the f32
+    bodies (``flash_fwd_f32``; ``flash_bwd_dq`` and ``flash_bwd_dkv``, which
+    run ``csrc/flash_backward.cu`` for f32) launch once a layer a step; the
+    loss is finite and falls. Step ms, and one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, t, steps = TRAIN_F32["batch"], TRAIN_F32["seq"], TRAIN_F32["steps"]
+    vocab = MODEL["vocab_size"]
+    tokens, targets = train_tokens(b, t, vocab, device)
+    full = lm("full", device, t + 1, dtype=torch.float32)
+    ref_loss, ref_grads = loss_and_grads(full, tokens, targets)
+    del full
+    model = lm("flash", device, t + 1, dtype=torch.float32)
+    loss, grads = loss_and_grads(model, tokens, targets)
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst, _ = grad_gap(grads, ref_grads)
+    log(f"train f32 (batch {b}, T {t}) vs attn_impl='full': loss rel "
+        f"{loss_rel:.3e} (limit 1e-6), worst grad rel {worst:.3e} (limit 1e-4)")
+    require(loss_rel <= 1e-6 and worst <= 1e-4,
+            "the f32 step's loss or gradients disagree with the plain path")
+    del grads, ref_grads
+    model.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN["lr"])
+    fa.reset_launches()
+    first, losses, dt = timed_steps(model, opt, tokens, targets, steps)
+    launches = dict(fa.LAUNCHES)
+    per_step = {n: launches[n] / (steps + 1) for n in
+                ("flash_fwd_f32", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"train f32: loss {first:.4f} (warm step) -> {losses[-1]:.4f} after "
+        f"{steps} more; launches per step {per_step}")
+    require(all(math.isfinite(x) for x in [first, *losses]), "f32 loss not finite")
+    require(losses[-1] < first, "the f32 loss did not fall")
+    require(all(n == MODEL["num_layers"] for n in per_step.values()),
+            f"f32 launches per step {per_step}, expected {MODEL['num_layers']} each")
+    out = {
+        "shape": f"batch {b}, T {t}, f32, {MODEL}",
+        "loss_rel": loss_rel, "worst_grad_rel": worst,
+        "first_loss": first, "losses": losses, "launches": launches,
+        "step_ms": 1e3 * dt / steps, "tokens_s": steps * b * t / dt,
+    }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, tokens, targets).item()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    out["profile"] = device_share(prof, wall_ms)
+    prof_out = out["profile"]
+    log(f"train f32: step {out['step_ms']:.2f} ms, {out['tokens_s']:.1f} "
+        f"tokens/s; profiled step: wall {prof_out['wall_ms']:.1f} ms, device "
+        f"busy {prof_out['device_busy_ms']} ms; port kernels "
+        f"{prof_out['port_kernel_ms']} ms")
+    del model, opt
     return out
 
 
@@ -4855,11 +4982,8 @@ def train_times(device, heads, d) -> dict:
 
 def device_ms(fn, calls: int = 100) -> float | None:
     """Device time per call of ``fn`` (all its kernels), from the profiler
-    over ``calls`` calls: what the card spends, without the host's time to
-    issue the calls. None where the profiler saw no device time. Logs how
-    many launches of the port's kernels the profiler recorded where that
-    is not ``calls`` (a window that lost events reads low), and each port
-    kernel's time a call where a call launches more than one."""
+    over ``calls`` calls (``per_call_device_ms``): what the card spends,
+    without the host's time to issue the calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -4868,20 +4992,37 @@ def device_ms(fn, calls: int = 100) -> float | None:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    seen = {found.group(1): evt.count for evt in prof.key_averages()
-            if evt.device_type == torch.autograd.DeviceType.CUDA
-            and (found := port_kernel_pattern().match(evt.key))}
+    return per_call_device_ms(prof, calls)
+
+
+def per_call_device_ms(prof, calls: int) -> float | None:
+    """A profiled window of ``calls`` calls as device ms a call. The
+    profiler can lose launches (it recorded 5 of 20 in one window), so each
+    port kernel counts by the launches it recorded: its mean time a
+    recorded launch, once a call, as each wrapper launches each of its
+    kernels once a call. A port kernel recorded more often than ``calls``
+    fails the row (None): several launches a call, where lost ones cannot
+    be told apart. Other kernels (the library's) count their total over the
+    calls made. None where the profiler saw no device time. Logs the
+    recorded launches where they are not ``calls``, and each port kernel's
+    time a call where a call launches more than one."""
+    seen = {}
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and port_kernel_pattern().match(evt.key)):
+            seen[evt.key] = seen.get(evt.key, 0) + evt.count
     if any(n != calls for n in seen.values()):
         log(f"device_ms: the profiler recorded {seen} launches of {calls} calls")
+    if any(n > calls for n in seen.values()):
+        return None
     by_name = device_ms_by_name(prof)
-    if len(seen) > 1:
-        split = {}
-        for name, ms in by_name.items():
-            if found := port_kernel_pattern().match(name):
-                split[found.group(1)] = split.get(found.group(1), 0.0) + ms / calls
+    split = {name: ms / seen[name] for name, ms in by_name.items()
+             if seen.get(name)}
+    if len(split) > 1:
         log(f"device_ms: per call by kernel {split}")
-    total = sum(by_name.values())
-    return total / calls if total else None
+    total = sum(split.values()) + sum(
+        ms / calls for name, ms in by_name.items() if name not in split)
+    return total if by_name else None
 
 
 def interaction_times(device) -> dict:
@@ -5116,10 +5257,13 @@ def quant_times(device) -> dict:
 
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
-                 fit: dict, deployed: dict) -> dict:
+                 fit: dict, deployed: dict, trained_f32: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
-    training for flash_fwd; training for the backward pair; the full-width
+    training for flash_fwd; training for the backward pair; the f32
+    training steps for the f32 backward pair (its wrappers' counts there,
+    where every launch is of the f32 bodies) and, with phase_deploy's f32
+    replicas, for flash_fwd_f32; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation, the dlrm_optimizer epoch and the streamed and retried
     fits of phase_fit for interaction_fwd; the
@@ -5153,7 +5297,9 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         launches[name] = sum(run["launches"][name] for run in int8_runs)
     launches["quantize_int8_stochastic"] = \
         stochastic["launches"]["quantize_int8_stochastic"]
-    launches["flash_fwd_f32"] = 0  # the f32 model's replicas alone
+    launches["flash_fwd_f32"] = trained_f32["launches"]["flash_fwd_f32"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        launches[f"{name}_f32"] = trained_f32["launches"][name]
     for name, n in deployed["launches"].items():
         if name in launches:
             launches[name] += n
@@ -5169,6 +5315,11 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         "flash_fwd_twoterm": checks[f"flash_fwd_twoterm {train}"],
         "flash_bwd_dq": checks[f"flash_bwd_dq {train}"],
         "flash_bwd_dkv": checks[f"flash_bwd_dkv {train}"],
+        # at the f32 training step's shape, [1,8,2048,128] causal
+        "flash_bwd_dq_f32": checks["flash_bwd_dq float32 causal=True "
+                                   "offsets=(0,0)"],
+        "flash_bwd_dkv_f32": checks["flash_bwd_dkv float32 causal=True "
+                                    "offsets=(0,0)"],
         "flash_decode": checks[f"flash_decode q bfloat16 kv_len={DECODE_LENS}"],
         "flash_decode_int8": checks["flash_decode_int8 q bfloat16"],
         "interaction_fwd": checks[interaction_case(
@@ -5196,10 +5347,11 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
 
 def bf16_checks(device) -> None:
     """Phase 2's bf16 checks at the main path's shapes alone, with the f32
-    forward's: the forward at the serving prefill [1,8,2048,128] in bf16
+    bodies': the forward at the serving prefill [1,8,2048,128] in bf16
     and f32 (normalized, and the stats surface with offsets) and at the
-    training shape [2,8,8192,128], causal; the f32 body's edges
-    (``check_forward_f32``); the backward at the training shape; decode at
+    training shape [2,8,8192,128], causal; the f32 forward's edges
+    (``check_forward_f32``); the f32 backward's hard cases
+    (``check_backward_f32``); the backward at the training shape; decode at
     the serving shape (f32 and int8 caches) and the f32/bf16-cache decode's
     bitwise contracts (``check_decode_bits``, also at an odd capacity); the
     int8 product, bitwise, at the training step's first product and
@@ -5217,6 +5369,7 @@ def bf16_checks(device) -> None:
                           f"{str(dtype)[6:]} [1,{heads},{t},{d}] causal=True "
                           f"offsets=({q_off},{k_off}) normalize={normalize}")
     check_forward_f32(gen, device, heads)
+    check_backward_f32(gen, device, heads)
     check_train_shape(gen, device, heads, d)
     check_decode_bits(gen, device, heads, ENGINE["capacity_tokens"], DECODE_LENS)
     check_decode_bits(gen, device, heads, *DECODE_BITS_ODD)
@@ -5326,6 +5479,18 @@ PLANTED_FAULTS = {
         "const float* kr = ks + (tile * kBlockK + g) * L::kPitch;",
         "const float* kr = ks + (((tile + (kt0 >= 1024)) % kGroup) * kBlockK "
         "+ g) * L::kPitch;"),
+    # the f32 dq, past key 1024: ds K reads the K of the other ring stage
+    "f32_dq_neighbour_stage_k": (
+        BWD_SOURCE,
+        "kt + group * kHalfTile * P + 4 * lo",
+        "(kt0 >= 1024 ? smem + L::kDqK + (stage ^ 1) * L::kArray : kt) + "
+        "group * kHalfTile * P + 4 * lo"),
+    # the f32 dk/dv under a causal mask: a key block starts one query tile
+    # late, past its first live one
+    "f32_dkv_first_tile_late": (
+        BWD_SOURCE,
+        "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);",
+        "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile + 1);"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,
@@ -5424,6 +5589,7 @@ def main(argv: list) -> int:
     record["serve"] = phase_serve(device)
     record["cluster"] = phase_cluster(device, record["serve"]["runs"][0])
     record["train"] = phase_train(device)
+    record["train_f32"] = phase_train_f32(device)
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
@@ -5437,7 +5603,8 @@ def main(argv: list) -> int:
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],
-                           record["fit"], record["deploy"])
+                           record["fit"], record["deploy"],
+                           record["train_f32"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -5447,6 +5614,9 @@ def main(argv: list) -> int:
         for run in record["serve"]["runs"]]}))
     log(json.dumps({"training": {k: record["train"][k] for k in (
         "tokens_s", "step_ms", "mfu", "attention_share", "skip_mfu")}}))
+    log(json.dumps({"training_f32": {k: record["train_f32"][k] for k in (
+        "step_ms", "tokens_s", "loss_rel", "worst_grad_rel")}
+        | {"nvidia_smi": record["device"]["nvidia_smi"]}}))
     log(json.dumps({"training_int8_mlp": {k: record["train_int8"][k] for k in (
         "tokens_s", "step_ms", "mfu_int8_mlp", "first_loss_rel")}}))
     log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (

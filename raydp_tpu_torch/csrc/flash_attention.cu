@@ -111,16 +111,6 @@ struct Layout {
   static constexpr int kPvRows = kRows / kPvGroups;
 };
 
-// 16 bytes from global to shared memory, bypassing L1; !ok writes zeros
-// and reads nothing.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 // N rows of D floats from `src` into `dst` (row pitch `pitch` floats), 16
 // bytes a copy spread over the block; rows at or past `valid` are zeros.
 template <int D, int N>
@@ -149,10 +139,6 @@ __device__ __forceinline__ void load_group(const float* src, size_t kbase,
                           dst + t * kBlockK * pitch, pitch);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float part(const float4& x, int e) {
-  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
 // The kernel's arguments, as rtt_flash_fwd gives them.

@@ -5,99 +5,232 @@
 // Replaces, in raydp_tpu/ops/flash_attention.py (flash_backward_blocks),
 // for f32 q/k/v (rtt_flash_bwd_dq / rtt_flash_bwd_dkv below send bf16 to
 // the tensor-core kernels of flash_backward_sm90.cu):
-//   flash_bwd_dq   <- _bwd_dq_kernel, launched by the pallas_call for dq
-//   flash_bwd_dkv  <- _bwd_dkv_kernel, launched by the pallas_call for dk/dv
+//   flash_bwd_dq_kernel   <- _bwd_dq_kernel (:375), the pallas_call at :540
+//   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel (:421), the pallas_call at :561
 //
-// Both take q/do [BH, T, D], k/v [BH, Tk, D] (f32 here), the row
-// logsumexp lse and dsum = rowsum(do * o) [BH, T] f32, and the blocks'
-// global offsets for the causal mask. With s = scale * q.k, p = exp(s - lse)
-// (exactly 0 where masked: k_pos > q_pos or past the ragged edge),
-// dp = do.v and ds = p * (dp - dsum) * scale:
+// Both take q/do [BH, T, D], k/v [BH, Tk, D] f32, the row logsumexp lse
+// and dsum = rowsum(do * o) [BH, T] f32, and the blocks' global offsets for
+// the causal mask. With s = scale * q.k, p = exp(s - lse) (exactly 0 where
+// masked: k_pos > q_pos or past the ragged edge), dp = do.v and
+// ds = p * (dp - dsum) * scale:
 //   dq = sum_k ds * k,   dk = sum_q ds * q,   dv = sum_q p * do.
 //
-// What bounds them on an H100. For each live (query, key) pair dq recomputes
-// s and dp and accumulates ds * k: 6 * D operations; dk/dv recompute s and
-// dp and accumulate two products: 8 * D. At T = 8192, D = 128 that is
-// thousands of operations per byte of q, k, v, do: bound by operations.
+// What bounds them on an H100. For each live (query, key) pair dq
+// recomputes s and dp and accumulates ds * k: 6 * D operations; dk/dv
+// recompute s and dp and accumulate two products: 8 * D. At T = 2048, D =
+// 128 that is hundreds of operations a byte of q, k, v, do: bound by
+// operations, the FP32 pipes of the CUDA cores (67 TFLOP/s). Tensor cores
+// stay out: TF32 would round the operands, and the gradients are held to
+// 1e-4 of the plain version.
 //
-// What this design does about it: this first version is exact and simple,
-// not fast, in the pattern of flash_attention.cu. It computes in f32 on the
-// CUDA cores (no tensor cores). dq: one warp per query row, one key per lane
-// over k-tiles of 32 (the forward's partition); K and V are staged
-// transposed (row stride 33: lane j reading kT[d][j] and the lane that owns
-// element d reading kT[d][j] are both free of bank conflicts), the row's q
-// and do sit in shared memory, lse and dsum in registers, and dq[D/32] is
-// accumulated in registers and written once. dk/dv: one warp per key row,
-// one query per lane over q-tiles of 32; Q and dO are staged transposed with
-// the tile's lse and dsum, and lane i computes p and ds for its query, which
-// are shuffled across the warp into dv and dk. Causal rows skip the tiles
-// wholly masked for them. The next tile's loads are in flight, in registers,
-// while the current tile is computed. Splitting the work into two kernels
-// (each output owned by one warp) needs no atomics, so dq, dk and dv are the
-// same bits from run to run.
+// What holds it back, and what the design does about it. The FP32 pipes
+// take 128 FMAs a clock on an SM; shared memory gives 128 bytes a clock, and
+// a warp's 16-byte load (LDS.128) takes four of those clocks. A thread needs
+// about 4 FMAs for every float it loads from shared memory before the FP32
+// pipes, not shared memory, are the limit. The first version (one warp a
+// row, one key or query a lane) loaded about one float a FMA. Here a block
+// owns 64 rows (query rows for dq, key rows for dk/dv) with 256 threads in
+// two groups of 128, and walks 64-key (dq) or 64-query (dk/dv) tiles:
+// - s and dp: one group computes s, the other dp, each as register tiles of
+//   8 rows x 4 columns a thread, one __fmaf_rn chain over d ascending; per
+//   4 d a thread loads 8 + 4 float4s for 128 FMAs (2.7 a float);
+// - p and ds: each group hands the other half of its tile through the
+//   [64][64] ds tile (dk/dv: ds^T), then each turns its half into p and ds
+//   from registers and that tile, loading all its operands before its
+//   first store; dk/dv writes p^T to a second tile;
+// - the products as register tiles of 8 rows x 8 columns (8 x 4 at D 64):
+//   per 4 of the summed index a thread loads 8 + 8 float4s for 256 FMAs (4
+//   a float). dk/dv: one group accumulates dk += ds^T Q, the other dv +=
+//   p^T dO, 64 accumulators a thread across the whole loop. dq: the groups
+//   split the tile's keys, 32 each, and dq is their two sums added once at
+//   the end, so each element is summed in a fixed order.
+// Row pitches of Q, dO, K, V and the tiles are padded by 16 bytes, so that
+// the 8 rows a quarter-warp reads at once fall in distinct banks. The tiles
+// arrive by 16-byte cp.async copies from every thread, zero-filled past T
+// or Tk. dq stages Q and dO once and double-buffers K and V: the next tile
+// is in flight while this one is computed (220 KB at D 128). dk/dv stages K
+// and V once and double-buffers Q; a second dO stage would not fit (K, V,
+// two Q, two dO and the two [64][64] tiles are 236 KB against 227), so the
+// tile's dO is copied after the previous tile is done and its latency is
+// paid once a tile (204 KB at D 128). A block holds an SM alone. Under a
+// causal mask dq runs the last row blocks first and dk/dv the first key
+// blocks first (the ones with the most live tiles), so the card, which
+// starts each next block on the SM that frees first, spreads the unequal
+// work evenly; a block visits only the tiles live for some row of it and
+// masks element by element only on tiles that some row does not see whole.
+// Each output element is owned by one thread and summed in a fixed order,
+// with no atomics, so two launches give the same bits.
+//
+// What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
+// prefill_f32_turns.py). At [1,8,2048,128] f32 causal dq takes ~0.39 ms and
+// dk/dv ~0.49 (the first version 1.57 and 1.86), about 2x their bounds, the
+// pair under SDPA's f32 backward. A diagnostic build that read the clock
+// around each phase (not kept) found the s and dp phase well above its
+// FMAs' share, and the p/ds step, then done by the s group alone while the
+// dp group waited, a large share of a tile; sharing that step between the
+// groups took 12% (dq) and 10% (dk/dv) off. Register tiles of 8 x 8 for s
+// and dp (d split between lane pairs, 4 FMAs a float) measured no faster:
+// at 8 warps an SM the phases are bound by latency as much as by shared
+// memory.
 
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBwdWarps = 16;  // rows per block: query rows (dq), key rows (dk/dv)
-constexpr int kStride = kBlockK + 1;  // transposed tile row stride
+constexpr int kRows = 64;       // rows a block owns: queries (dq), keys (dk/dv)
+constexpr int kTile = 64;       // keys (dq) or queries (dk/dv) a staged tile
+constexpr int kThreads = 256;   // two groups
+constexpr int kGroupThreads = 128;
 
-// One tile of kBlockK rows of two [*, D] arrays as f32, spread over the
-// block's NT threads' registers.
-template <int D, int NT>
-struct PairTile {
-  static constexpr int kPer = kBlockK * D / NT;  // elements per thread
-  float a[kPer];
-  float b[kPer];
+// Shared memory of a block, in floats. Rows of Q, dO, K and V at a pitch
+// padded by 16 bytes; the [64][64] tiles likewise.
+template <int D>
+struct BwdLayout {
+  static constexpr int kPitch = D + 4;
+  static constexpr int kTPitch = kTile + 4;
+  static constexpr int kArray = kRows * kPitch;    // 64 rows of Q, dO, K or V
+  static constexpr int kSquare = kRows * kTPitch;  // a [64][64] tile
+  // dq: Q, dO, two stages of K and of V, ds, the rows' lse and dsum
+  static constexpr int kDqQ = 0;
+  static constexpr int kDqDO = kDqQ + kArray;
+  static constexpr int kDqK = kDqDO + kArray;
+  static constexpr int kDqV = kDqK + 2 * kArray;
+  static constexpr int kDqS = kDqV + 2 * kArray;
+  static constexpr int kDqLse = kDqS + kSquare;
+  static constexpr int kDqDsum = kDqLse + kRows;
+  static constexpr size_t kDqBytes = sizeof(float) * (kDqDsum + kRows);
+  // dk/dv: K, V, two stages of Q, dO, p^T, ds^T, the tile's lse and dsum
+  static constexpr int kKvK = 0;
+  static constexpr int kKvV = kKvK + kArray;
+  static constexpr int kKvQ = kKvV + kArray;
+  static constexpr int kKvDO = kKvQ + 2 * kArray;
+  static constexpr int kKvP = kKvDO + kArray;
+  static constexpr int kKvDS = kKvP + kSquare;
+  static constexpr int kKvLse = kKvDS + kSquare;
+  static constexpr int kKvDsum = kKvLse + kTile;
+  static constexpr size_t kKvBytes = sizeof(float) * (kKvDsum + kTile);
 };
 
-// Rows at or past n_valid are zeros: they are masked, and zero operands keep
-// every product with a masked p exact.
-template <int D, int NT, typename T>
-__device__ __forceinline__ void load_pair(const T* a, const T* b, size_t row0,
-                                          int n_valid, PairTile<D, NT>& tile) {
-#pragma unroll
-  for (int u = 0; u < PairTile<D, NT>::kPer; ++u) {
-    const int i = threadIdx.x + u * NT;
-    const int j = i / D;
-    const size_t idx = (row0 + j) * D + i % D;
-    const bool ok = j < n_valid;
-    tile.a[u] = ok ? to_f32(a[idx]) : 0.f;
-    tile.b[u] = ok ? to_f32(b[idx]) : 0.f;
-  }
+// The kernels' arguments, as rtt_flash_bwd_dq / rtt_flash_bwd_dkv give them.
+struct BwdArgs {
+  const float* q;     // [BH, T, D]
+  const float* k;     // [BH, Tk, D]
+  const float* v;
+  const float* dout;  // [BH, T, D]
+  const float* lse;   // [BH, T]
+  const float* dsum;
+  float* dq;          // [BH, T, D]
+  float* dk;          // [BH, Tk, D]
+  float* dv;
+  int n_bh, t, tk, q_off, k_off, causal;
+  float scale;
+};
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Both arrays transposed: aT[d][j] at d * kStride + j.
-template <int D, int NT>
-__device__ __forceinline__ void store_pair_t(const PairTile<D, NT>& tile,
-                                             float* aT, float* bT) {
-#pragma unroll
-  for (int u = 0; u < PairTile<D, NT>::kPer; ++u) {
-    const int i = threadIdx.x + u * NT;
-    const int j = i / D;
-    const int d = i % D;
-    aT[d * kStride + j] = tile.a[u];
-    bT[d * kStride + j] = tile.b[u];
-  }
+// Waits until at most N of the thread's copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// x.yT[:, lane] and z.wT[:, lane] for a row x, z in shared memory (read as
-// broadcasts) against one staged transposed tile.
+// 64 rows of D floats from `src` into `dst` at the padded pitch, 16 bytes a
+// copy spread over the block; rows at or past `valid` are zeros.
 template <int D>
-__device__ __forceinline__ void two_dots(const float* x, const float* yT,
-                                         const float* z, const float* wT,
-                                         int lane, float& xy, float& zw) {
-  xy = 0.f;
-  zw = 0.f;
-#pragma unroll 16
-  for (int d = 0; d < D; ++d) {
-    xy = __fmaf_rn(x[d], yT[d * kStride + lane], xy);
-    zw = __fmaf_rn(z[d], wT[d * kStride + lane], zw);
+__device__ __forceinline__ void copy_rows(const float* src, int valid,
+                                          float* dst) {
+  constexpr int kPieces = D / 4;
+#pragma unroll
+  for (int u = 0; u < kRows * kPieces / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * BwdLayout<D>::kPitch + c, src + (ok ? r : 0) * D + c,
+               ok);
   }
 }
 
-// p and ds of one (query, key) pair, exactly 0 where masked.
+// acc[r][i] = a[8r] . b[16i], rows of D floats at the padded pitch (a and
+// b point at the thread's first rows): 8 x 4 dot products a thread, each
+// one __fmaf_rn chain over d ascending. Per 4 d it loads 8 a and 4 b
+// float4s for 128 FMAs.
+template <int D>
+__device__ __forceinline__ void dots_8x4(const float* a, const float* b,
+                                         float (&acc)[8][4]) {
+  constexpr int P = BwdLayout<D>::kPitch;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < D; c += 4) {
+    float4 x[8], y[4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(a + 8 * r * P + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      y[i] = *reinterpret_cast<const float4*>(b + 16 * i * P + c);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[r][i] = __fmaf_rn(part(x[r], e), part(y[i], e), acc[r][i]);
+        }
+      }
+    }
+  }
+}
+
+// acc[r][4c + e] += sum over j < N ascending of w[8r][j] * m[j][64c + e]:
+// w a [64][64] tile (pointing at the thread's first row), m rows of D
+// floats at the padded pitch (pointing at the thread's first column).
+// 8 rows x D / 16 columns a thread; per 4 j it loads 8 w and 4 * D / 64 m
+// float4s for 2 * D FMAs.
+template <int D, int N>
+__device__ __forceinline__ void accumulate(const float* w, const float* m,
+                                           float (&acc)[8][D / 16]) {
+  constexpr int P = BwdLayout<D>::kPitch;
+  constexpr int TP = BwdLayout<D>::kTPitch;
+  constexpr int kChunks = D / 64;
+#pragma unroll
+  for (int jb = 0; jb < N; jb += 4) {
+    float4 x[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(w + 8 * r * TP + jb);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      float4 y[kChunks];
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        y[c] = *reinterpret_cast<const float4*>(m + (jb + jj) * P + 64 * c);
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[r][4 * c + e] = __fmaf_rn(part(x[r], jj), part(y[c], e),
+                                          acc[r][4 * c + e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// p and ds of one pair from its s (unscaled) and dp; exactly 0 where masked.
 __device__ __forceinline__ void pair_grads(float s, float dp, float lse,
                                            float dsum, bool live, float scale,
                                            float& p, float& ds) {
@@ -105,222 +238,324 @@ __device__ __forceinline__ void pair_grads(float s, float dp, float lse,
   ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dsum)), scale);
 }
 
-// dq: q/do [BH, T, D], k/v [BH, Tk, D], lse/dsum [BH, T] -> dq [BH, T, D] in
-// q's type. grid (ceil(T / kBwdWarps), BH).
-template <int D, typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dsum, T* __restrict__ dq, int t,
-                    int tk, int q_off, int k_off, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* kT = smem;                  // D x kStride
-  float* vT = kT + D * kStride;      // D x kStride
-  float* qs = vT + D * kStride;      // kBwdWarps x D
-  float* dos = qs + kBwdWarps * D;   // kBwdWarps x D
+// dq of rows [row0, row0 + 64) of one bh: Q and dO staged once, then every
+// 64-key tile live for some row of the block, the next one in flight.
+// Threads: group 0 computes s and then the first 32 keys of each tile's
+// ds K, group 1 dp and then the last 32; thread (hi, lo) of a group holds
+// rows hi + 8r and keys lo + 16i of s or dp, then rows hi + 8r and columns
+// 4 lo + 64c of dq.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  using L = BwdLayout<D>;
+  constexpr int P = L::kPitch;
+  constexpr int TP = L::kTPitch;
+  extern __shared__ __align__(16) float smem[];
+  const int n_row_blocks = (a.t + kRows - 1) / kRows;
+  const size_t bh = blockIdx.x % a.n_bh;
+  const int row0 =
+      (n_row_blocks - 1 - static_cast<int>(blockIdx.x / a.n_bh)) * kRows;
+  const int rows = min(kRows, a.t - row0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
+  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
+  const int n_tiles = (k_end + kTile - 1) / kTile;
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBwdWarps;
-  const int rows = min(kBwdWarps, t - row0);
-  const size_t qbase = bh * t;
-  const size_t kbase = bh * tk;
-  stage_rows<D>(q, qbase + row0, rows, kBwdWarps, qs);
-  stage_rows<D>(dout, qbase + row0, rows, kBwdWarps, dos);
+  const int group = threadIdx.x / kGroupThreads;
+  const int lo = threadIdx.x % 16;
+  const int hi = (threadIdx.x % kGroupThreads) / 16;
+  float* qs = smem + L::kDqQ;
+  float* dos = smem + L::kDqDO;
+  float* ds = smem + L::kDqS;
+  const float* lse_s = smem + L::kDqLse;
+  const float* dsum_s = smem + L::kDqDsum;
+  if (threadIdx.x < kRows) {
+    const bool ok = static_cast<int>(threadIdx.x) < rows;
+    smem[L::kDqLse + threadIdx.x] = ok ? a.lse[qbase + row0 + threadIdx.x] : 0.f;
+    smem[L::kDqDsum + threadIdx.x] =
+        ok ? a.dsum[qbase + row0 + threadIdx.x] : 0.f;
+  }
 
-  const bool has_row = warp < rows;
-  const size_t row = qbase + row0 + warp;
-  const int q_pos = q_off + row0 + warp;
-  const float row_lse = has_row ? lse[row] : 0.f;
-  const float row_dsum = has_row ? dsum[row] : 0.f;
-  int k_end = tk;  // keys [0, k_end) can be live for some row of the block
-  if (causal) k_end = max(0, min(tk, q_off + row0 + rows - k_off));
-  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
-
-  float acc[D / 32];
+  float acc[8][D / 16];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
-
-  PairTile<D, kBwdWarps * 32> tile;
-  if (n_tiles > 0) load_pair(k, v, kbase, min(kBlockK, tk), tile);
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+  }
+  if (n_tiles > 0) {
+    copy_rows<D>(a.q + (qbase + row0) * D, rows, qs);
+    copy_rows<D>(a.dout + (qbase + row0) * D, rows, dos);
+    copy_rows<D>(a.k + kbase * D, a.tk, smem + L::kDqK);
+    copy_rows<D>(a.v + kbase * D, a.tk, smem + L::kDqV);
+    commit_copies();
+  }
   for (int ti = 0; ti < n_tiles; ++ti) {
-    const int kt0 = ti * kBlockK;
-    __syncthreads();  // the previous tile is consumed; q and do are staged
-    store_pair_t(tile, kT, vT);
-    __syncthreads();
-    if (ti + 1 < n_tiles) {  // in flight while this tile is computed
-      load_pair(k, v, kbase + kt0 + kBlockK,
-                min(kBlockK, tk - kt0 - kBlockK), tile);
+    const int kt0 = ti * kTile;
+    const int stage = ti & 1;
+    const float* kt = smem + L::kDqK + stage * L::kArray;
+    const float* vt = smem + L::kDqV + stage * L::kArray;
+    if (ti + 1 < n_tiles) {  // into the stage the last tile freed
+      const int next = kt0 + kTile;
+      copy_rows<D>(a.k + (kbase + next) * D, a.tk - next,
+                   smem + L::kDqK + (stage ^ 1) * L::kArray);
+      copy_rows<D>(a.v + (kbase + next) * D, a.tk - next,
+                   smem + L::kDqV + (stage ^ 1) * L::kArray);
+      commit_copies();
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
     }
-    const int k_first = k_off + kt0;
-    if (has_row && (!causal || q_pos >= k_first)) {  // warp-uniform
-      const bool live =
-          kt0 + lane < tk && (!causal || q_pos >= k_first + lane);
-      float s, dp, p, ds;
-      two_dots<D>(qs + warp * D, kT, dos + warp * D, vT, lane, s, dp);
-      pair_grads(s, dp, row_lse, row_dsum, live, scale, p, ds);
-#pragma unroll 4
-      for (int j = 0; j < kBlockK; ++j) {
-        const float dsj = __shfl_sync(kFull, ds, j);
+    __syncthreads();  // this tile's K and V are in (and Q, dO, lse, dsum)
+
+    float sd[8][4];  // s (group 0) or dp (group 1)
+    dots_8x4<D>((group ? dos : qs) + hi * P, (group ? vt : kt) + lo * P, sd);
+    // p and ds: group 0 takes the thread's columns i < 2, group 1 those of
+    // i >= 2; each first hands the other its half through the ds tile
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          acc[i] = __fmaf_rn(dsj, kT[(lane + 32 * i) * kStride + j], acc[i]);
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = j + 2 * (1 - group);
+        ds[(hi + 8 * r) * TP + lo + 16 * i] = group ? sd[r][j] : sd[r][j + 2];
+      }
+    }
+    __syncthreads();  // the halves are in
+    {
+      const bool full = rows == kRows && kt0 + kTile <= a.tk &&
+          (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kTile - 1);
+      float other[8][2];  // dp (group 0) or s (group 1), loaded before any store
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          other[r][j] = ds[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = hi + 8 * r;
+        const int q_pos = a.q_off + row0 + row;
+        const float lse = lse_s[row];
+        const float dsum = dsum_s[row];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = lo + 16 * (j + 2 * group);
+          const int key = kt0 + col;
+          const bool live = full || (row < rows && key < a.tk &&
+                                     (!a.causal || q_pos >= a.k_off + key));
+          const float mine = group ? sd[r][j + 2] : sd[r][j];
+          float p;
+          pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
+                     lse, dsum, live, a.scale, p, ds[row * TP + col]);
         }
       }
     }
+    __syncthreads();  // ds is in
+    constexpr int kHalfTile = kTile / 2;
+    accumulate<D, kHalfTile>(ds + hi * TP + group * kHalfTile,
+                             kt + group * kHalfTile * P + 4 * lo, acc);
+    __syncthreads();  // this tile's K, V and ds are free
   }
 
-  if (!has_row) return;
+  // dq = group 0's sum over the first 32 keys of each tile + group 1's
+  // over the last 32; group 1's sums pass through the free K stage.
+  float* other = smem + L::kDqK;
+  if (group == 1) {
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    dq[row * D + lane + 32 * i] = from_f32<T>(acc[i]);
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        *reinterpret_cast<float4*>(other + (hi + 8 * r) * D + 4 * lo + 64 * c) =
+            make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                        acc[r][4 * c + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = hi + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      const int col = 4 * lo + 64 * c;
+      const float4 o = *reinterpret_cast<const float4*>(other + row * D + col);
+      *reinterpret_cast<float4*>(a.dq + (qbase + row0 + row) * D + col) =
+          make_float4(__fadd_rn(acc[r][4 * c], o.x),
+                      __fadd_rn(acc[r][4 * c + 1], o.y),
+                      __fadd_rn(acc[r][4 * c + 2], o.z),
+                      __fadd_rn(acc[r][4 * c + 3], o.w));
+    }
   }
 }
 
-// dk/dv: the same inputs -> dk, dv [BH, Tk, D] in k's type. grid
-// (ceil(Tk / kBwdWarps), BH).
-template <int D, typename T>
-__global__ void __launch_bounds__(kBwdWarps * 32)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dsum, T* __restrict__ dk,
-                     T* __restrict__ dv, int t, int tk, int q_off, int k_off,
-                     int causal, float scale) {
-  extern __shared__ float smem[];
-  float* qT = smem;                    // D x kStride
-  float* doT = qT + D * kStride;       // D x kStride
-  float* ks = doT + D * kStride;       // kBwdWarps x D
-  float* vs = ks + kBwdWarps * D;      // kBwdWarps x D
-  float* lse_s = vs + kBwdWarps * D;   // kBlockK
-  float* dsum_s = lse_s + kBlockK;     // kBlockK
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t bh = blockIdx.y;
-  const int key0 = blockIdx.x * kBwdWarps;
-  const int rows = min(kBwdWarps, tk - key0);
-  const size_t qbase = bh * t;
-  const size_t kbase = bh * tk;
-  stage_rows<D>(k, kbase + key0, rows, kBwdWarps, ks);
-  stage_rows<D>(v, kbase + key0, rows, kBwdWarps, vs);
-
-  const bool has_row = warp < rows;
-  const int k_pos = k_off + key0 + warp;
-  const int n_qtiles = (t + kBlockK - 1) / kBlockK;
+// dk and dv of key rows [key0, key0 + 64) of one bh: K and V staged once,
+// then every 64-query tile live for some key of the block, the next tile's
+// Q in flight. Threads: group 0 computes s^T, p^T and ds^T and then dk +=
+// ds^T Q, group 1 dp^T and then dv += p^T dO; thread (hi, lo) of a group
+// holds keys hi + 8r and queries lo + 16i of s^T or dp^T, then keys hi + 8r
+// and columns 4 lo + 64c of dk or dv.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const BwdArgs a) {
+  using L = BwdLayout<D>;
+  constexpr int P = L::kPitch;
+  constexpr int TP = L::kTPitch;
+  extern __shared__ __align__(16) float smem[];
+  const size_t bh = blockIdx.x % a.n_bh;
+  const int key0 = static_cast<int>(blockIdx.x / a.n_bh) * kRows;
+  const int keys = min(kRows, a.tk - key0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  const int n_qtiles = (a.t + kTile - 1) / kTile;
   int first = 0;  // causal: the first q-tile with a query at or after key0
-  if (causal) {
-    const int q_start = k_off + key0 - q_off;
-    first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kBlockK);
+  if (a.causal) {
+    const int q_start = a.k_off + key0 - a.q_off;
+    first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);
   }
 
-  float acc_k[D / 32];
-  float acc_v[D / 32];
-#pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    acc_k[i] = 0.f;
-    acc_v[i] = 0.f;
-  }
+  const int group = threadIdx.x / kGroupThreads;
+  const int lo = threadIdx.x % 16;
+  const int hi = (threadIdx.x % kGroupThreads) / 16;
+  const float* ks = smem + L::kKvK;
+  const float* vs = smem + L::kKvV;
+  float* dos = smem + L::kKvDO;
+  float* pt = smem + L::kKvP;
+  float* dst = smem + L::kKvDS;
+  float* lse_s = smem + L::kKvLse;
+  float* dsum_s = smem + L::kKvDsum;
 
-  // the first warp carries the tile's lse and dsum, one query per lane
-  const bool stats_lane = threadIdx.x < kBlockK;
-  PairTile<D, kBwdWarps * 32> tile;
+  // threads < 64 carry the next tile's lse and dsum, one query each, until
+  // the tile before it is done with its own
   float lse_r = 0.f;
   float dsum_r = 0.f;
-  auto load_tile = [&](int qt0) {
-    const int n = min(kBlockK, t - qt0);
-    load_pair(q, dout, qbase + qt0, n, tile);
-    if (stats_lane) {
-      const bool ok = static_cast<int>(threadIdx.x) < n;
-      lse_r = ok ? lse[qbase + qt0 + threadIdx.x] : 0.f;
-      dsum_r = ok ? dsum[qbase + qt0 + threadIdx.x] : 0.f;
+  auto load_stats = [&](int qt0) {
+    if (threadIdx.x < kTile) {
+      const int qi = qt0 + static_cast<int>(threadIdx.x);
+      lse_r = qi < a.t ? a.lse[qbase + qi] : 0.f;
+      dsum_r = qi < a.t ? a.dsum[qbase + qi] : 0.f;
     }
   };
-  if (first < n_qtiles) load_tile(first * kBlockK);
+
+  float acc[8][D / 16];  // dk (group 0) or dv (group 1)
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+  }
+  if (first < n_qtiles) {
+    const int qt0 = first * kTile;
+    copy_rows<D>(a.k + (kbase + key0) * D, keys, smem + L::kKvK);
+    copy_rows<D>(a.v + (kbase + key0) * D, keys, smem + L::kKvV);
+    copy_rows<D>(a.q + (qbase + qt0) * D, a.t - qt0, smem + L::kKvQ);
+    commit_copies();
+    load_stats(qt0);
+  }
   for (int qi = first; qi < n_qtiles; ++qi) {
-    const int qt0 = qi * kBlockK;
-    __syncthreads();  // the previous tile is consumed; k and v are staged
-    store_pair_t(tile, qT, doT);
-    if (stats_lane) {
+    const int qt0 = qi * kTile;
+    const int stage = (qi - first) & 1;
+    const float* qt = smem + L::kKvQ + stage * L::kArray;
+    copy_rows<D>(a.dout + (qbase + qt0) * D, a.t - qt0, dos);
+    commit_copies();
+    if (threadIdx.x < kTile) {
       lse_s[threadIdx.x] = lse_r;
       dsum_s[threadIdx.x] = dsum_r;
     }
-    __syncthreads();
-    if (qi + 1 < n_qtiles) load_tile(qt0 + kBlockK);  // in flight
-    const int q_first = q_off + qt0;
-    const int q_last = q_off + min(qt0 + kBlockK, t) - 1;
-    if (has_row && (!causal || q_last >= k_pos)) {  // warp-uniform
-      const bool live = qt0 + lane < t && (!causal || q_first + lane >= k_pos);
-      float s, dp, p, ds;
-      two_dots<D>(ks + warp * D, qT, vs + warp * D, doT, lane, s, dp);
-      pair_grads(s, dp, lse_s[lane], dsum_s[lane], live, scale, p, ds);
-#pragma unroll 4
-      for (int j = 0; j < kBlockK; ++j) {
-        const float pj = __shfl_sync(kFull, p, j);
-        const float dsj = __shfl_sync(kFull, ds, j);
+    if (qi + 1 < n_qtiles) {  // into the stage the last tile freed
+      const int next = qt0 + kTile;
+      copy_rows<D>(a.q + (qbase + next) * D, a.t - next,
+                   smem + L::kKvQ + (stage ^ 1) * L::kArray);
+      commit_copies();
+      load_stats(next);
+      wait_copies<1>();
+    } else {
+      wait_copies<0>();
+    }
+    __syncthreads();  // this tile's Q, dO, lse and dsum are in (and K, V)
+
+    float sd[8][4];  // s^T (group 0) or dp^T (group 1)
+    dots_8x4<D>((group ? vs : ks) + hi * P, (group ? dos : qt) + lo * P, sd);
+    // p and ds: group 0 takes the thread's queries i < 2, group 1 those of
+    // i >= 2; each first hands the other its half through the ds^T tile
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          const int e = (lane + 32 * i) * kStride + j;
-          acc_v[i] = __fmaf_rn(pj, doT[e], acc_v[i]);
-          acc_k[i] = __fmaf_rn(dsj, qT[e], acc_k[i]);
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = j + 2 * (1 - group);
+        dst[(hi + 8 * r) * TP + lo + 16 * i] = group ? sd[r][j] : sd[r][j + 2];
+      }
+    }
+    __syncthreads();  // the halves are in
+    {
+      const bool full = keys == kRows && qt0 + kTile <= a.t &&
+          (!a.causal || a.q_off + qt0 >= a.k_off + key0 + kRows - 1);
+      float other[8][2];  // dp (group 0) or s (group 1), loaded before any store
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          other[r][j] = dst[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qq = lo + 16 * (j + 2 * group);
+        const int q_pos = a.q_off + qt0 + qq;
+        const float lse = lse_s[qq];
+        const float dsum = dsum_s[qq];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int key = hi + 8 * r;
+          const bool live = full || (qt0 + qq < a.t && key < keys &&
+                                     (!a.causal || q_pos >= a.k_off + key0 + key));
+          const float mine = group ? sd[r][j + 2] : sd[r][j];
+          const int e = key * TP + qq;
+          pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
+                     lse, dsum, live, a.scale, pt[e], dst[e]);
         }
       }
     }
+    __syncthreads();  // p^T and ds^T are in
+    accumulate<D, kTile>((group ? pt : dst) + hi * TP,
+                         (group ? dos : qt) + 4 * lo, acc);
+    __syncthreads();  // this tile's Q, dO, p^T and ds^T are free
   }
 
-  if (!has_row) return;
-  const size_t row = kbase + key0 + warp;
+  float* out = group ? a.dv : a.dk;
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) {
-    dk[row * D + lane + 32 * i] = from_f32<T>(acc_k[i]);
-    dv[row * D + lane + 32 * i] = from_f32<T>(acc_v[i]);
+  for (int r = 0; r < 8; ++r) {
+    const int key = hi + 8 * r;
+    if (key >= keys) continue;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+      *reinterpret_cast<float4*>(out + (kbase + key0 + key) * D + 4 * lo +
+                                 64 * c) =
+          make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                      acc[r][4 * c + 3]);
+    }
   }
 }
 
+// One launch of either kernel: a block per (bh, 64 rows), an SM each.
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (2 * D * kStride + 2 * kBwdWarps * D);
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (2 * D * kStride + 2 * kBwdWarps * D + 2 * kBlockK);
-}
-
-template <int D, typename T>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* dsum, void* dq, int bh, int t,
-              int tk, int q_off, int k_off, int causal, float scale,
-              cudaStream_t stream) {
-  const size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<D, T>;
+int launch_bwd(bool dkv, const BwdArgs& args, cudaStream_t stream) {
+  using L = BwdLayout<D>;
+  // one block an SM: more than half of an H100 SM's 228 KB
+  static_assert(L::kDqBytes > 116 * 1024 && L::kKvBytes > 116 * 1024,
+                "a second block would fit an SM");
+  const size_t smem = dkv ? L::kKvBytes : L::kDqBytes;
+  auto kernel = dkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + kBwdWarps - 1) / kBwdWarps, bh);
-  kernel<<<grid, kBwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dq), t, tk, q_off, k_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D, typename T>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* dsum, void* dk, void* dv, int bh,
-               int t, int tk, int q_off, int k_off, int causal, float scale,
-               cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<D, T>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((tk + kBwdWarps - 1) / kBwdWarps, bh);
-  kernel<<<grid, kBwdWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), t, tk, q_off, k_off, causal,
-      scale);
+  const long long blocks =
+      static_cast<long long>(((dkv ? args.tk : args.t) + kRows - 1) / kRows) *
+      args.n_bh;
+  if (blocks <= 0 || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,7 +576,9 @@ extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 on success); an
 // unsupported head dim or dtype returns cudaErrorInvalidValue without
-// launching. bf16 goes to the tensor-core kernels, f32 to the kernels here.
+// launching. bf16 goes to the tensor-core kernels, f32 to the kernels here,
+// which copy q, k, v and do 16 bytes at a time: their bases must be 16-byte
+// aligned.
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* dsum,
                      void* dq, int bh, int t, int tk, int d, int dtype,
@@ -352,12 +589,13 @@ int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
     return flash_bwd_dq_sm90(q, k, v, dout, lse, dsum, dq, bh, t, tk, d,
                              q_off, k_off, causal, scale, s);
   }
-#define RTT_DQ(D, T)                                                      \
-  return launch_dq<D, T>(q, k, v, dout, lse, dsum, dq, bh, t, tk, q_off, \
-                         k_off, causal, scale, s)
-  if (d == 64 && dtype == kF32) RTT_DQ(64, float);
-  if (d == 128 && dtype == kF32) RTT_DQ(128, float);
-#undef RTT_DQ
+  const BwdArgs args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout), lse, dsum,
+                     static_cast<float*>(dq), nullptr, nullptr, bh, t, tk,
+                     q_off, k_off, causal, scale};
+  if (d == 64 && dtype == kF32) return launch_bwd<64>(false, args, s);
+  if (d == 128 && dtype == kF32) return launch_bwd<128>(false, args, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -371,12 +609,13 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     return flash_bwd_dkv_sm90(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, d,
                               q_off, k_off, causal, scale, s);
   }
-#define RTT_DKV(D, T)                                                          \
-  return launch_dkv<D, T>(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, q_off, \
-                          k_off, causal, scale, s)
-  if (d == 64 && dtype == kF32) RTT_DKV(64, float);
-  if (d == 128 && dtype == kF32) RTT_DKV(128, float);
-#undef RTT_DKV
+  const BwdArgs args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v),
+                     static_cast<const float*>(dout), lse, dsum, nullptr,
+                     static_cast<float*>(dk), static_cast<float*>(dv), bh, t,
+                     tk, q_off, k_off, causal, scale};
+  if (d == 64 && dtype == kF32) return launch_bwd<64>(true, args, s);
+  if (d == 128 && dtype == kF32) return launch_bwd<128>(true, args, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

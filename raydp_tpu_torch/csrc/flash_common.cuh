@@ -1,8 +1,9 @@
 // Pieces shared by the port's attention kernels (flash_attention.cu,
 // flash_decode.cu, flash_forward_sm90.cu and flash_backward.cu): the k-tile
 // width of the CUDA-core kernels, the masking constant, element-type
-// conversions, warp reductions, the steps of the per-row k-tile update and
-// the dynamic shared-memory opt-in. The dot-interaction kernel
+// conversions, warp reductions, the steps of the per-row k-tile update,
+// the f32 bodies' 16-byte copy and float4 element, and the dynamic
+// shared-memory opt-in. The dot-interaction kernel
 // (interaction.cu) uses the type codes, the conversions and the opt-in.
 //
 // Every definition sits in an anonymous namespace, so each translation unit
@@ -129,6 +130,21 @@ __device__ __forceinline__ void stage_rows(const T* src, size_t row0, int rows,
     const int r = i / D;
     dst[i] = r < rows ? to_f32(src[(row0 + r) * D + i % D]) : 0.f;
   }
+}
+
+// The f32 prefill's and the f32 backward's 16-byte copies: from global to
+// shared memory, bypassing L1; !ok writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Element e of a float4 (e a constant once unrolled).
+__device__ __forceinline__ float part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
 // Above 48 KB a kernel's dynamic shared memory needs an explicit opt-in.

@@ -312,12 +312,31 @@ class collect:
                 break
 
 
+_flush_inflight = threading.Event()
+
+
 def _buffer_append(record: dict) -> None:
     global _dropped
+    start_flush = False
     with _buf_lock:
         if len(_buffer) == _buffer.maxlen:
             _dropped += 1  # the append below evicts the oldest record
         _buffer.append(record)
+        if len(_buffer) >= (_buffer.maxlen or 1) // 2:
+            # a ring half full ships itself on a background thread, so the
+            # call site neither stalls nor loses spans; one flusher at a time
+            start_flush = not _flush_inflight.is_set()
+            if start_flush:
+                _flush_inflight.set()
+    if start_flush:
+        threading.Thread(target=_pressure_flush, daemon=True).start()
+
+
+def _pressure_flush() -> None:
+    try:
+        flush()
+    finally:
+        _flush_inflight.clear()
 
 
 def drain_local() -> List[dict]:

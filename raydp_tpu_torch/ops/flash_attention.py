@@ -417,6 +417,8 @@ def _bwd_launch(entry, name, q, k, v, lse, dsum, g, q_offset, k_offset,
     _check_head_dim(d, name)
     lib = _build.load()
     q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    if q.dtype == torch.float32:  # the CUDA-core bodies copy 16 bytes a move
+        q, k, v, g = (_aligned16(x) for x in (q, k, v, g))
     lse = lse.float().contiguous()
     dsum = dsum.float().contiguous()
     with torch.cuda.device(q.device):

@@ -19,10 +19,10 @@ CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
 
 
-def _event(key, device_type, us, annotation=False):
+def _event(key, device_type, us, annotation=False, count=1):
     return SimpleNamespace(key=key, device_type=device_type,
                            self_device_time_total=us,
-                           is_user_annotation=annotation)
+                           is_user_annotation=annotation, count=count)
 
 
 class _Window:
@@ -99,6 +99,34 @@ def test_device_share_names_the_port_kernels():
     assert share["port_kernel_ms"] == {"flash_fwd_sm90_kernel": 0.75,
                                        "quantize_rows_kernel": 0.04}
     assert abs(share["device_busy_ms"] - 1.04) < 1e-12
+
+
+DQ_F32 = "void (anonymous namespace)::flash_bwd_dq_kernel<128>(BwdArgs)"
+
+
+def test_device_ms_counts_a_port_kernel_by_its_recorded_launches(capsys):
+    """The profiler recorded 5 of 20 launches of a port kernel: its time a
+    call is its mean over those 5, not its total over the 20 calls (which
+    read 4x low); a library kernel recorded in every call counts its total
+    over the calls."""
+    window = _Window([
+        _event(DQ_F32, CUDA, 5 * 440.0, count=5),
+        _event("void at::native::vectorized_elementwise_kernel<4>(int)", CUDA,
+               20 * 10.0, count=20),
+        _event("aten::empty", CPU, 30.0, count=20),
+    ])
+    assert abs(chip_smoke.per_call_device_ms(window, 20) - 0.45) < 1e-12
+    assert "recorded" in capsys.readouterr().out
+
+
+def test_device_ms_fails_a_port_kernel_recorded_more_than_once_a_call():
+    """More recorded launches than calls: several launches a call, where
+    a lost one cannot be told apart, so the row reads None."""
+    window = _Window([_event(DQ_F32, CUDA, 40 * 440.0, count=40)])
+    assert chip_smoke.per_call_device_ms(window, 20) is None
+    whole = _Window([_event(DQ_F32, CUDA, 20 * 440.0, count=20)])
+    assert abs(chip_smoke.per_call_device_ms(whole, 20) - 0.44) < 1e-12
+    assert chip_smoke.per_call_device_ms(_Window([]), 20) is None
 
 
 def test_port_kernel_pattern_names_every_csrc_kernel():
@@ -333,6 +361,58 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
                         lambda lib: {name: ops[:-2] for name in names})
     with pytest.raises(chip_smoke.SmokeFailure, match="no FFMA, LDS or LDGSTS"):
         chip_smoke.f32_fwd_report(entries)
+
+
+def test_f32_bwd_report_counts_each_instantiation(monkeypatch):
+    """The f32 backward's four instantiations (dq and dk/dv, D 64 and 128)
+    get a key each with their SASS counts; the bf16 backward's names are not
+    theirs; a spill, a missing instantiation or no LDS fails."""
+    names = {
+        f"_ZN40_GLOBAL__N__1_flash_backward_cu{len(k) + 11}flash_bwd_{k}_kernelILi{d}"
+        "EEEvNS_7BwdArgsE": (k, d)
+        for k in ("dq", "dkv") for d in (64, 128)}
+    sm90 = ["_ZN45_GLOBAL__N__1_flash_backward_sm90_cu24flash_bwd_dq_sm90_kernelILi128EEEv",
+            "_ZN45_GLOBAL__N__1_flash_backward_sm90_cu25flash_bwd_dkv_sm90_kernelILi64EEEv"]
+    ops = ["FFMA"] * 16 + ["LDS.128"] * 4 + ["LDGSTS.E.BYPASS.128"] * 2 + ["BAR.SYNC"]
+    monkeypatch.setattr(chip_smoke, "sass_functions",
+                        lambda lib: {name: ops for name in [*names, *sm90]})
+    monkeypatch.setattr(chip_smoke._build, "library_path", lambda: None)
+    entries = {name: {"registers": 227, "spill_bytes": 0, "static_smem_bytes": 0}
+               for name in [*names, *sm90]}
+    out = chip_smoke.f32_bwd_report(entries)
+    assert sorted(out) == ["flash_bwd_dkv_kernel D128", "flash_bwd_dkv_kernel D64",
+                           "flash_bwd_dq_kernel D128", "flash_bwd_dq_kernel D64"]
+    row = out["flash_bwd_dkv_kernel D64"]
+    assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (16, 4, 2, 1)
+    assert row["lds_per_ffma"] == 0.25 and row["sass_instructions"] == 23
+    first = next(iter(names))
+    with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
+        chip_smoke.f32_bwd_report(entries | {first: entries[first] | {"spill_bytes": 4}})
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 4"):
+        chip_smoke.f32_bwd_report({k: v for k, v in entries.items() if k != first})
+    monkeypatch.setattr(chip_smoke, "sass_functions",
+                        lambda lib: {name: ["FFMA", "LDGSTS"] for name in names})
+    with pytest.raises(chip_smoke.SmokeFailure, match="no FFMA, LDS or LDGSTS"):
+        chip_smoke.f32_bwd_report(entries)
+
+
+def test_backward_cases_cover_the_f32_edges():
+    """The case list check_backward_f32 shares with check_backward_bf16: D
+    64, causal and not; T off the 64-row blocks and tiles (1500); T 200
+    against Tk 136, causal and not; q_off < k_off (rows with no live key)
+    at D 128 and 64."""
+    cases = chip_smoke.backward_cases(8)
+    by_d = {d for (_, _, _, d), *_ in cases}
+    assert by_d == {64, 128}
+    assert {causal for (*_, d), _, _, _, causal in cases if d == 64} == {True, False}
+    assert any(t % 64 and tk == t for (_, _, t, _), tk, *_ in cases)
+    ragged = {causal for (_, _, t, _), tk, _, _, causal in cases
+              if (t, tk) == (200, 136)}
+    assert ragged == {True, False}
+    dead = {d for (_, _, _, d), _, q_off, k_off, causal in cases
+            if causal and q_off < k_off}
+    assert dead == {64, 128}
+    assert all(h == 8 for (_, h, _, _), *_ in cases)
 
 
 SASS_DUMP = """

@@ -13,7 +13,8 @@ places of the JAX package's ETL executors (``tests/test_observability.py``):
   dossier has the keys and sections the JAX head writes for the same
   scenario (each package run in its own subprocess);
 - a flush in a process that never initialised CUDA does not ask the driver
-  for a device count (``torch.cuda.is_available`` is never called).
+  for a device count (``torch.cuda.is_available`` is never called);
+- a ring half full ships itself to the head, as the JAX package's does.
 """
 
 import json
@@ -271,6 +272,65 @@ def test_crash_dossier_on_sigkill_matches_the_jax_head(tmp_path):
         "inflight": repr([{"stream": "s0", "tokens": 7}]), "queued": "1"}
     assert "serve.decode.tokens" in got["decode"][0]["metrics"]
     assert got["lock_graph_is_list"] and "lock_order_graph" in got["keys"]
+
+
+PRESSURE_SCENARIO = """
+import json, os, sys, tempfile, time
+PKG = sys.argv[1]
+os.environ["RAYDP_TPU_NO_GLOBAL_ZYGOTE"] = "1"
+os.environ["RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE"] = "1"
+os.environ["RAYDP_TPU_TRACE_BUFFER"] = "16"
+import importlib
+cluster = importlib.import_module(PKG + ".cluster")
+obs = importlib.import_module(PKG + ".obs")
+tracing = importlib.import_module(PKG + ".obs.tracing")
+cluster.init(num_cpus=2)
+tracing.set_enabled(True)
+tracing.drain_local()
+for i in range(40):
+    with obs.span("pressure.span", i=i):
+        pass
+    # one span at a time: the flush a half-full ring starts ends first
+    deadline = time.monotonic() + 10
+    while tracing._flush_inflight.is_set():
+        assert time.monotonic() < deadline, "the pressure flush did not end"
+        time.sleep(0.001)
+obs.flush()
+path = os.path.join(tempfile.mkdtemp(), "trace.json")
+cluster.export_trace(path)
+with open(path) as f:
+    trace = json.load(f)
+events = trace["traceEvents"] if isinstance(trace, dict) else trace
+print(json.dumps({
+    "spans": [e["args"]["i"] for e in events if e.get("name") == "pressure.span"],
+    "dropped": tracing.dropped_count()}))
+cluster.shutdown()
+"""
+
+
+def test_half_full_ring_flushes_like_the_jax_package(tmp_path):
+    """A ring of 16 (``RAYDP_TPU_TRACE_BUFFER``) given 40 spans under a
+    cluster: once it is half full it ships itself on a background thread,
+    so the head holds every span, in order, and nothing is dropped; the
+    same in both packages (each in its own subprocess)."""
+    script = tmp_path / "pressure.py"
+    script.write_text(textwrap.dedent(PRESSURE_SCENARIO))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([ROOT] + sys.path)
+    env["JAX_PLATFORMS"] = "cpu"
+    for var in ("RAYDP_TPU_SESSION", "RAYDP_TPU_HEAD_ADDR", "RAYDP_TPU_TOKEN",
+                "RAYDP_TPU_TORCH_SESSION", "RAYDP_TPU_TORCH_HEAD_ADDR",
+                "RAYDP_TPU_TORCH_TOKEN"):
+        env.pop(var, None)
+    got = {}
+    for package in ("raydp_tpu_torch", "raydp_tpu"):
+        run = subprocess.run([sys.executable, str(script), package],
+                             capture_output=True, text=True, timeout=25,
+                             env=env, cwd=str(tmp_path))
+        assert run.returncode == 0, f"{package}:\n{run.stdout}\n{run.stderr}"
+        got[package] = json.loads(run.stdout.strip().splitlines()[-1])
+    assert got["raydp_tpu_torch"] == got["raydp_tpu"]
+    assert got["raydp_tpu_torch"] == {"spans": list(range(40)), "dropped": 0}
 
 
 def test_flush_never_asks_the_driver_for_a_device_count(monkeypatch):

@@ -49,18 +49,41 @@ def _stats(q, k, v, g, q_off, k_off, causal):
     return np.array(lse), np.array(dsum)
 
 
-# explicit JAX blocks per length: both divide the length
-_JAX_BLOCKS = {256: (128, 64), 96: (32, 32)}
+# explicit JAX blocks per length (query, key): each divides its length
+_JAX_BLOCKS = {256: (128, 64), 96: (32, 32), 63: (63, 63), 65: (65, 65),
+               200: (40, 136)}
+# key lengths other than the query length
+_TK = {200: 136}
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 256, 32), (1, 2, 96, 64)])
+@pytest.mark.parametrize("shape", [(2, 3, 256, 32), (1, 2, 96, 64),
+                                   (1, 2, 63, 64), (1, 2, 65, 128),
+                                   (1, 2, 200, 128)])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("offsets", [(0, 0), (64, 32)])
+@pytest.mark.parametrize("offsets", [(0, 0), (64, 32), (16, 48)])
 def test_backward_blocks_match_jax(shape, causal, offsets):
-    q, k, v, g = _arrays(shape, 4, seed=13)
+    """The edges of the f32 kernels too: T 63 and 65 (one row either side
+    of a 64-row block), T 200 against Tk 136 (off the 64-key tiles), D 64
+    and 128, and q_off < k_off, where under the causal mask the first rows
+    see no key. On those rows the JAX kernel takes p = exp(0) = 1 on every
+    masked pair and the port 0 (by design: ROADMAP.md Queue 3); their
+    cotangent rows are zeroed, so that neither side's dead rows feed any
+    gradient and the comparison is of what both compute, and the port's dq
+    there is held to exactly 0 with the drawn cotangent as well."""
+    b, h, t, d = shape
+    tk = _TK.get(t, t)
+    if tk == t:
+        q, k, v, g = _arrays(shape, 4, seed=13)
+    else:
+        q, g = _arrays(shape, 2, seed=13)
+        k, v = _arrays((b, h, tk, d), 2, seed=14)
     q_off, k_off = offsets
+    dead = min(t, max(0, k_off - q_off)) if causal else 0
+    if dead:
+        drawn = torch.from_numpy(g.copy())
+        g[:, :, :dead] = 0.0
     lse, dsum = _stats(q, k, v, g, q_off, k_off, causal)
-    block_q, block_k = _JAX_BLOCKS[shape[2]]
+    block_q, block_k = _JAX_BLOCKS[t]
     ref = jax_flash_backward_blocks(
         *(jnp.asarray(x) for x in (q, k, v, lse, dsum, g)), q_off, k_off,
         causal, block_q, block_k, True,
@@ -69,10 +92,16 @@ def test_backward_blocks_match_jax(shape, causal, offsets):
         *(torch.from_numpy(x) for x in (q, k, v, lse, dsum, g)), q_off, k_off,
         causal,
     )
-    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-        assert a.dtype == torch.float32 and a.shape == shape, name
+    for name, a, b, want in zip(("dq", "dk", "dv"), got, ref,
+                                (shape, k.shape, v.shape)):
+        assert a.dtype == torch.float32 and a.shape == want, name
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-4, err_msg=name)
+    if dead:
+        dq, _, _ = fa.flash_backward_blocks(
+            *(torch.from_numpy(x) for x in (q, k, v, lse, dsum)), drawn,
+            q_off, k_off, causal)
+        assert not dq[:, :, :dead].abs().max()
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -441,6 +441,11 @@ def test_disabled_ring_keeps_nothing():
 
 
 def test_full_ring_counts_drops_and_dump_metrics_reports_them(monkeypatch):
+    # a flush in flight holds off the pressure flush, so the ring stays full
+    # (tests/test_torch_cluster_obs.py drives the pressure flush)
+    busy = threading.Event()
+    busy.set()
+    monkeypatch.setattr(tracing, "_flush_inflight", busy)
     monkeypatch.setattr(tracing, "_buffer", collections.deque(maxlen=4))
     monkeypatch.setattr(tracing, "_dropped", 0)
     monkeypatch.setattr(tracing, "_enabled", True)

@@ -58,6 +58,11 @@ def sides():
     try:
         for package in PACKAGES:
             side = Side(package)
+            # init joins a session that an earlier module of this process
+            # left up (tests/test_etl.py stops its ETL session, not its
+            # cluster), and its head would carry that module's tenants and
+            # blocks into the tables compared here
+            side.cluster.shutdown()
             side.cluster.init(num_cpus=8, memory=2 << 30)
             out[package] = side
         yield out
