@@ -170,6 +170,17 @@ Phases; any failure exits non-zero and prints no result line:
    ``mem.shm_bytes`` at its peak; after ``shutdown()`` no segment left and
    the driver's leak audit at 0 (``--store`` runs phase_dlrm and this
    phase alone).
+   Then bench.py's DLRM cell end to end (``phase_etl``): ``init_etl`` of
+   2 executors, bench's ``make_criteo_frame`` query over the same 100,000
+   rows in 4 partitions (its label the parity of the hashed c5),
+   ``dataframe_to_dataset(_use_owner=True)``, ``stop_etl``; the ids and
+   label bit for bit numpy's and pandas', the dense ``log1p`` within 1 ulp;
+   the staged fit from the ETL ``Dataset`` and, on a live second session,
+   ``fit_on_etl(streaming=True)`` with its spans decoded on the executors,
+   each bit for bit the same fit from an ``ArrayDataset`` of the blocks'
+   columns, one K1 launch a forward pass; no process of the session with a
+   CUDA context; after ``shutdown()`` no process or ``rtpt-`` segment of
+   the session (``--etl`` runs phase_dlrm and this phase alone).
    Then the serving plane (``phase_deploy``): ``serve.deploy`` of 2 light
    replicas a deployment on the card, in a cluster of the port. The DLRM
    cell with phase_dlrm's weights as epoch 0: 4 closed-loop clients for 3
@@ -251,7 +262,8 @@ Phases; any failure exits non-zero and prints no result line:
    launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
    events and by the profiler.
 
-Before them a ``{"deploy": {...}}`` line sums up ``phase_deploy``. The
+Before them an ``{"etl": {...}}`` line sums up ``phase_etl`` and a
+``{"deploy": {...}}`` line ``phase_deploy``. The
 last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
 and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
@@ -3481,6 +3493,382 @@ def phase_store(device, reference: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: bench.py's DLRM cell end to end, ETL query -> store
+# blocks -> fit on the card
+# ---------------------------------------------------------------------------
+
+# bench.py's bench_dlrm: its session (2 executors of 2 cores and 1G), its
+# frame in 4 partitions; the source is DLRM_RUN's rows from default_rng(11)
+ETL_SESSION = dict(num_executors=2, executor_cores=2, executor_memory="1G")
+ETL_PARTS = 4
+ETL_LIMIT_S = 240.0  # the whole phase
+ETL_DEADLINE_S = 15.0  # no process or segment of the session after shutdown
+# what phase_etl's summary line prints (the record holds more)
+ETL_KEYS = ("rows", "blocks", "block_bytes", "init_s", "query_s",
+            "query_stats", "ids_bitwise", "label_bitwise", "dense_max_ulp",
+            "staged_bitwise", "streamed_bitwise", "executor_decode",
+            "launches", "staged_samples_s", "streamed_samples_s",
+            "dlrm_samples_s", "executor_pids", "cuda_context_pids",
+            "host_cpus", "phase_s")
+
+
+def make_criteo_source(n_rows: int, model: dict = None):
+    """bench.py's ``make_criteo_source`` (the script keeps its own copy):
+    default_rng(11); a random label (which ``make_criteo_frame`` replaces),
+    the dense columns ``i*`` integers below 1000 as f32, the ids ``c*``
+    below each table's vocab as int64."""
+    import pandas as pd
+
+    model = DLRM_MODEL if model is None else model
+    rng = np.random.default_rng(11)
+    data = {"label": rng.integers(0, 2, n_rows).astype(np.float32)}
+    for i in range(model["num_dense"]):
+        data[f"i{i}"] = rng.integers(0, 1000, n_rows).astype(np.float32)
+    for j, vocab in enumerate(model["vocab_sizes"]):
+        data[f"c{j}"] = rng.integers(0, vocab, n_rows).astype(np.int64)
+    return pd.DataFrame(data)
+
+
+def make_criteo_frame(session, source, parts: int, model: dict = None):
+    """bench.py's ``make_criteo_frame``, with one change: ``label`` becomes
+    the parity of the hashed ``c5`` id, computed in the query, so the loss
+    can fall (bench's random label leaves it flat; ``dlrm_columns`` uses
+    the parity of c5 for the same reason)."""
+    from raydp_tpu_torch.etl import functions as Fn
+
+    model = DLRM_MODEL if model is None else model
+    df = session.from_pandas(source, num_partitions=parts)
+    for i in range(model["num_dense"]):
+        df = df.with_column(f"i{i}", Fn.log1p(Fn.col(f"i{i}")).cast("float32"))
+    for j, vocab in enumerate(model["vocab_sizes"]):
+        df = df.with_column(f"c{j}", Fn.hash(f"c{j}", vocab).cast("int32"))
+    return df.with_column("label", (Fn.col("c5") % 2).cast("float32"))
+
+
+def criteo_expected(source, model: dict = None) -> dict:
+    """The query's columns computed here with numpy and pandas: each id
+    ``pd.util.hash_array(c) % vocab`` as int32, the label the parity of
+    the c5 id as f32, each dense column ``np.log1p`` of the f32 source."""
+    import pandas as pd
+
+    model = DLRM_MODEL if model is None else model
+    out = {}
+    for i in range(model["num_dense"]):
+        out[f"i{i}"] = np.log1p(source[f"i{i}"].to_numpy(np.float32))
+    for j, vocab in enumerate(model["vocab_sizes"]):
+        hashed = pd.util.hash_array(source[f"c{j}"].to_numpy())
+        out[f"c{j}"] = (hashed % np.uint64(vocab)).astype(np.int32)
+    out["label"] = (out["c5"] % 2).astype(np.float32)
+    return out
+
+
+def f32_ulps(a, b) -> int:
+    """The largest distance in f32 units in the last place between two f32
+    arrays of finite values (their ordered integer images)."""
+    def ordered(x):
+        bits = np.ascontiguousarray(x, dtype=np.float32).view(np.int32)
+        return np.where(bits < 0, np.int64(-2**31) - bits, bits).astype(np.int64)
+
+    if not len(a):
+        return 0
+    return int(np.abs(ordered(a) - ordered(b)).max())
+
+
+def check_etl_columns(ds, expected: dict, rows: int, parts: int) -> dict:
+    """The Dataset of the query against ``expected``: ``parts`` blocks and
+    ``rows`` rows in the source's order; ids and label bit for bit, each
+    dense column within 1 f32 ulp of numpy's ``log1p`` (the largest
+    distance is reported)."""
+    require(ds.num_blocks == parts,
+            f"the query gave {ds.num_blocks} blocks, expected {parts}")
+    require(ds.count() == rows, f"the query gave {ds.count()} rows, "
+            f"expected {rows}")
+    table = ds.to_arrow()
+    got = {c: table.column(c).to_numpy() for c in table.column_names}
+    ids = [c for c in expected if c.startswith("c")]
+    dense = [c for c in expected if c.startswith("i")]
+    ids_bitwise = all(got[c].dtype == np.int32
+                      and np.array_equal(got[c], expected[c]) for c in ids)
+    label_bitwise = (got["label"].dtype == np.float32
+                     and np.array_equal(got["label"], expected["label"]))
+    require(all(got[c].dtype == np.float32 for c in dense),
+            "a dense column is not f32")
+    ulps = {c: f32_ulps(got[c], expected[c]) for c in dense}
+    require(ids_bitwise, "an id column differs from pd.util.hash_array % vocab")
+    require(label_bitwise, "the label differs from the parity of the c5 id")
+    require(max(ulps.values()) <= 1,
+            f"log1p differs from numpy's by more than 1 ulp: {ulps}")
+    return {"ids_bitwise": ids_bitwise, "label_bitwise": label_bitwise,
+            "dense_max_ulp": max(ulps.values()), "dense_ulps": ulps}
+
+
+def blocks_as_arrays(ds):
+    """An ``ArrayDataset`` of the Dataset's columns in its blocks (each
+    block read and decoded to numpy)."""
+    blocks = []
+    for i in range(ds.num_blocks):
+        table = ds.get_block(i)
+        blocks.append({c: table.column(c).to_numpy() for c in table.column_names})
+    return ArrayDataset.from_blocks(blocks)
+
+
+def etl_fit(device, fit, epochs: int, **kw) -> dict:
+    """One DLRM fit of ``epochs`` (``fit(est)`` runs it), K1's launches
+    counted from 0 around it: its losses, evaluation (None when
+    ``fit`` evaluates nothing), final parameters, launches and samples/s
+    over the epochs after the first."""
+    dense_cols = [f"i{i}" for i in range(DLRM_MODEL["num_dense"])]
+    cat_cols = [f"c{j}" for j in range(len(DLRM_MODEL["vocab_sizes"]))]
+    est = dlrm_estimator(device, dense_cols, cat_cols, "adam", epochs, **kw)
+    ia.reset_launches()
+    history, evaluation = fit(est)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = ia.LAUNCHES["interaction_fwd"]
+    require(all(p.device == device for p in est.get_model().parameters()),
+            f"the fit did not run on {device}")
+    steps = DLRM_RUN["rows"] // DLRM_RUN["batch"]
+    timed = history[1:] or history
+    seconds = sum(r["epoch_seconds"] for r in timed)
+    return {"train_loss": [r["train_loss"] for r in history],
+            "evaluate": evaluation, "final_state": final_state(est),
+            "launches": launches,
+            "samples_s": len(timed) * steps * DLRM_RUN["batch"] / seconds,
+            "stream_stats": dict(est.stream_stats_)}
+
+
+def require_same_fit(got: dict, ref: dict, what: str) -> bool:
+    """Every loss, the evaluation and every parameter equal, bit for bit,
+    and as many K1 launches."""
+    same = (got["train_loss"] == ref["train_loss"]
+            and got["evaluate"] == ref["evaluate"]
+            and got["final_state"].keys() == ref["final_state"].keys()
+            and all(torch.equal(got["final_state"][k], ref["final_state"][k])
+                    for k in got["final_state"]))
+    require(same, f"{what}: losses {got['train_loss']} vs {ref['train_loss']}, "
+            f"evaluate {got['evaluate']} vs {ref['evaluate']}, or a parameter "
+            "differs")
+    require(got["launches"] == ref["launches"],
+            f"{what}: interaction_fwd launched {got['launches']} times, "
+            f"{ref['launches']} in the fit it is held to")
+    return same
+
+
+def executor_cuda_report(session) -> dict:
+    """The executors' pids and CUDA state, from a ``map_batches`` probe in
+    4 partitions per executor slot (one row each: the process's pid, and
+    whether torch is imported there with ``torch.cuda.is_initialized()``),
+    and the pids with a CUDA context on the card
+    (``nvidia-smi --query-compute-apps=pid``) among the session's
+    processes; this driver's own pid is left out."""
+    from raydp_tpu_torch.cluster import api as capi
+
+    def probe(table):  # pickled by value: the executors import nothing here
+        import os
+        import sys
+
+        import pyarrow as pa
+
+        torch_mod = sys.modules.get("torch")
+        held = bool(torch_mod is not None and torch_mod.cuda.is_initialized())
+        return pa.table({"pid": [os.getpid()], "cuda": [held]})
+
+    slots = ETL_SESSION["num_executors"] * ETL_SESSION["executor_cores"]
+    seen = session.range(4 * slots, num_partitions=4 * slots).map_batches(
+        probe).to_pandas()
+    pids = sorted(set(int(p) for p in seen["pid"]))
+    require(os.getpid() not in pids, "the probe ran in the driver")
+    require(not seen["cuda"].any(),
+            f"an ETL executor holds a CUDA context: {seen.to_dict('list')}")
+    session_pids = set(_session_procs(capi.session_dir())) | set(pids)
+    holders = sorted(session_pids & set(cuda_context_pids()))
+    require(not holders, f"processes of the ETL session hold a CUDA context "
+            f"on the card: {holders}")
+    return {"executor_pids": pids, "session_pids": sorted(session_pids),
+            "cuda_context_pids": holders}
+
+
+def cuda_context_pids() -> list:
+    """The pids ``nvidia-smi --query-compute-apps=pid`` lists (no card:
+    none)."""
+    if not torch.cuda.is_available():
+        return []
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [int(line) for line in out.split() if line.strip().isdigit()]
+
+
+def etl_teardown(session_dirs: list, pids: list) -> dict:
+    """After ``cluster.shutdown()``: within ``ETL_DEADLINE_S`` no process
+    of the sessions and none of ``pids`` alive, and no ``rtpt-`` segment
+    of this process's shm namespace (the phase's alone)."""
+    from raydp_tpu_torch.cluster.common import _probe_pid
+
+    t0 = time.perf_counter()
+    _wait_for(lambda: not any(_session_procs(d) for d in session_dirs)
+              and not any(_probe_pid(p) == "alive" for p in pids),
+              ETL_DEADLINE_S, f"the ETL session's processes {pids} to exit")
+    gone_s = time.perf_counter() - t0
+    _wait_for(lambda: not _rtpt_segments(), ETL_DEADLINE_S,
+              "the ETL session's segments to be unlinked")
+    return {"gone_after_shutdown_s": gone_s,
+            "segments_left": sorted(_rtpt_segments())}
+
+
+def phase_etl(device, dlrm: dict = None) -> dict:
+    """bench.py's DLRM cell end to end on the port (``bench_dlrm``): the ETL
+    query, its blocks in the store, the fit on ``device`` (K1 on the card).
+    In a cluster of the port with the session-local zygote and its own shm
+    namespace:
+
+    1. ``init_etl("smoke-etl", 2 executors, 2 cores, 1G)``; the source
+       (``make_criteo_source``, ``DLRM_RUN``'s rows), ``make_criteo_frame``
+       in 4 partitions (the label the parity of the hashed c5),
+       ``dataframe_to_dataset(df, _use_owner=True)``, then
+       ``stop_etl(cleanup_data=False, del_obj_holder=False)``;
+    2. 4 blocks and every row; ids and label bit for bit those numpy and
+       pandas give, dense within 1 ulp of ``np.log1p`` (reported);
+    3. phase_dlrm's staged fit (3 epochs, then ``evaluate``) from the
+       ``Dataset``, bit for bit (losses, evaluation, parameters) the same fit
+       from an ``ArrayDataset`` of its blocks' columns, with one
+       ``interaction_fwd`` launch a forward pass;
+    4. on a second session, alive through the fit, ``fit_on_etl`` of the
+       same query with ``streaming=True``: the spans decoded on the
+       executors (``stream_stats_["executor_decode"]``), bit for bit the
+       streamed fit from the ``ArrayDataset``; no process of the session
+       holds a CUDA context (each executor's own report, and
+       ``nvidia-smi``'s compute apps); ``stop_etl``;
+    5. the master actor killed, ``cluster.shutdown()``: no process of the
+       sessions left, no ``rtpt-`` segment of the namespace.
+
+    Host numbers (seconds, bytes, samples/s) are printed beside the card's
+    name, its power limit and the host's CPU count. The whole phase takes
+    at most ``ETL_LIMIT_S``."""
+    import raydp_tpu_torch as rt
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV
+    from raydp_tpu_torch.etl import session as etl_session
+    from raydp_tpu_torch.etl.session import MASTER_ACTOR_SUFFIX
+
+    t_phase = time.perf_counter()
+    rows, parts = DLRM_RUN["rows"], ETL_PARTS
+    steps = rows // DLRM_RUN["batch"]
+    epochs = DLRM_RUN["epochs"]
+    forwards = epochs * steps + -(-rows // DLRM_RUN["batch"])
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1",
+             SHM_NS_ENV: f"etl{os.getpid()}"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    rec: dict = {"rows": rows, "host_cpus": os.cpu_count(),
+                 "label": "parity of the hashed c5 (bench.py: random)"}
+    sessions, pids = [], []
+    try:
+        source = make_criteo_source(rows)
+        expected = criteo_expected(source)
+
+        # 1. the query, its blocks transferred to the master actor
+        t0 = time.perf_counter()
+        session = rt.init_etl("smoke-etl", **ETL_SESSION)
+        rec["init_s"] = time.perf_counter() - t0
+        sessions.append(capi.session_dir())
+        t0 = time.perf_counter()
+        ds = rt.dataframe_to_dataset(
+            make_criteo_frame(session, source, parts), _use_owner=True)
+        stats = session.last_query_stats
+        rt.stop_etl(cleanup_data=False, del_obj_holder=False)
+        rec["query_s"] = time.perf_counter() - t0
+        rec["query_stats"] = {k: stats.get(k) for k in (
+            "seconds", "stages", "output_partitions", "fusion", "plan_cache")}
+        rec["blocks"] = ds.num_blocks
+        rec["block_bytes"] = [b.size for b in ds.blocks]
+        log(f"etl: init_etl {rec['init_s']:.3f} s, query and conversion "
+            f"{rec['query_s']:.3f} s ({rec['query_stats']}), blocks "
+            f"{rec['block_bytes']} bytes")
+
+        # 2. the columns against numpy and pandas
+        rec.update(check_etl_columns(ds, expected, rows, parts))
+
+        # 3. the staged fit from the Dataset and from its blocks as numpy
+        arrays = blocks_as_arrays(ds)
+
+        def staged(data):
+            def fit(est):
+                return est.fit(data), est.evaluate(data)
+            return fit
+
+        from_ds = etl_fit(device, staged(ds), epochs)
+        from_arrays = etl_fit(device, staged(arrays), epochs)
+        rec["staged_bitwise"] = require_same_fit(
+            from_ds, from_arrays, "the staged fit from the ETL Dataset")
+        rec["launches"] = from_ds["launches"]
+        if device.type == "cuda":
+            require(from_ds["launches"] == forwards,
+                    f"interaction_fwd launched {from_ds['launches']} times, "
+                    f"expected {forwards}")
+        require(from_ds["train_loss"][-1] < 0.9 * from_ds["train_loss"][0],
+                "the loss of the fit from the ETL Dataset did not fall by 10%")
+        rec["staged_samples_s"] = from_ds["samples_s"]
+        rec["train_loss"] = from_ds["train_loss"]
+
+        # 4. fit_on_etl, streamed, with the session alive
+        streamed = rt.init_etl("smoke-etl-stream", **ETL_SESSION)
+        frame = make_criteo_frame(streamed, source, parts)
+        on_etl = etl_fit(device, lambda est: (est.fit_on_etl(frame), None),
+                         epochs, streaming=True)
+        rec["executor_decode"] = on_etl["stream_stats"]["executor_decode"]
+        require(rec["executor_decode"] is True,
+                "the streamed fit_on_etl did not decode on the executors")
+        rec.update(executor_cuda_report(streamed))
+        pids = rec["executor_pids"] + rec["session_pids"]
+        rt.stop_etl()
+        from_arrays_streamed = etl_fit(
+            device, lambda est: (est.fit(arrays), None), epochs,
+            streaming=True)
+        rec["streamed_bitwise"] = require_same_fit(
+            on_etl, from_arrays_streamed, "the streamed fit_on_etl")
+        rec["launches"] += on_etl["launches"]
+        if device.type == "cuda":
+            require(on_etl["launches"] == epochs * steps,
+                    f"interaction_fwd launched {on_etl['launches']} times in "
+                    f"the streamed fit, expected {epochs * steps}")
+        rec["streamed_samples_s"] = on_etl["samples_s"]
+        rec["dlrm_samples_s"] = dlrm["samples_s"] if dlrm else None
+        log(f"etl: columns {rec['ids_bitwise']}/{rec['label_bitwise']} "
+            f"bitwise, dense within {rec['dense_max_ulp']} ulp; fits from "
+            f"the Dataset bitwise the ArrayDataset's (staged "
+            f"{rec['staged_bitwise']}, streamed {rec['streamed_bitwise']}, "
+            f"executor decode {rec['executor_decode']}); K1 launches "
+            f"{rec['launches']}; samples/s staged {rec['staged_samples_s']:.1f}, "
+            f"streamed {rec['streamed_samples_s']:.1f}, phase_dlrm's "
+            f"{rec['dlrm_samples_s']}; executors {rec['executor_pids']}, "
+            f"CUDA contexts among the session's processes "
+            f"{rec['cuda_context_pids']}")
+
+        # 5. teardown
+        capi.get_actor(f"smoke-etl{MASTER_ACTOR_SUFFIX}").kill()
+        capi.shutdown()
+        rec.update(etl_teardown(sessions, pids))
+    finally:
+        while etl_session.active_session() is not None:
+            etl_session.stop_etl()
+        if capi.is_initialized():
+            capi.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["phase_s"] = time.perf_counter() - t_phase
+    require(rec["phase_s"] <= ETL_LIMIT_S,
+            f"phase_etl took {rec['phase_s']:.1f} s")
+    log(f"etl: no process or segment of the sessions left "
+        f"{rec['gone_after_shutdown_s']:.3f} s after shutdown; host CPUs "
+        f"{rec['host_cpus']}; phase {rec['phase_s']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 4, continued: the serving plane, replicas on the card
 # ---------------------------------------------------------------------------
 
@@ -5257,7 +5645,8 @@ def quant_times(device) -> dict:
 
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
-                 fit: dict, deployed: dict, trained_f32: dict) -> dict:
+                 fit: dict, deployed: dict, trained_f32: dict,
+                 etl: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -5265,8 +5654,9 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     where every launch is of the f32 bodies) and, with phase_deploy's f32
     replicas, for flash_fwd_f32; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
-    its evaluation, the dlrm_optimizer epoch and the streamed and retried
-    fits of phase_fit for interaction_fwd; the
+    its evaluation, the dlrm_optimizer epoch, the streamed and retried
+    fits of phase_fit and phase_etl's fits from the ETL Dataset for
+    interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
     quantize_int8_stochastic), plus the launches phase_deploy's replicas
@@ -5291,7 +5681,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
     launches["interaction_fwd"] = (dlrm["launches"]
                                    + dlrm["dlrm_optimizer"]["launches"]
-                                   + fit["launches"])
+                                   + fit["launches"] + etl["launches"])
     int8_runs = [trained_int8, served["int8_mlp_run"], served["runs"][1]]
     for name in ("int8_gemm", "quantize_int8"):
         launches[name] = sum(run["launches"][name] for run in int8_runs)
@@ -5575,6 +5965,12 @@ def main(argv: list) -> int:
         dlrm = phase_dlrm(device)
         phase_store(device, dlrm)
         return 0
+    if argv == ["--etl"]:
+        dev = phase_device()
+        etl = phase_etl(device, phase_dlrm(device))
+        log(json.dumps({"etl": {k: etl[k] for k in ETL_KEYS}
+                        | {"nvidia_smi": dev["nvidia_smi"]}}))
+        return 0
     if argv == ["--deploy"]:
         dev = phase_device()
         deployed = phase_deploy(device, phase_dlrm(device)["final_state"])
@@ -5595,6 +5991,7 @@ def main(argv: list) -> int:
     record["dlrm"] = phase_dlrm(device)
     dlrm_state = record["dlrm"].pop("final_state")  # tensors, kept out of the record
     record["store"] = phase_store(device, dict(record["dlrm"], final_state=dlrm_state))
+    record["etl"] = phase_etl(device, record["dlrm"])
     record["deploy"] = phase_deploy(device, dlrm_state)
     del dlrm_state
     record["fit"] = phase_fit(device, record["dlrm"])
@@ -5604,7 +6001,7 @@ def main(argv: list) -> int:
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],
                            record["fit"], record["deploy"],
-                           record["train_f32"])
+                           record["train_f32"], record["etl"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -5637,6 +6034,8 @@ def main(argv: list) -> int:
                     | {"nvidia_smi": dev["nvidia_smi"],
                        "toolchain": dev["toolchain"]}}))
     log(json.dumps({"store": {k: record["store"][k] for k in STORE_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"]}}))
+    log(json.dumps({"etl": {k: record["etl"][k] for k in ETL_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))

@@ -382,6 +382,30 @@ def rpc_pooled(sock_path: str, request: Tuple, timeout: Optional[float] = 60.0) 
     raise value
 
 
+# A Unix socket's file appears at ``bind``, before ``listen``: a client that
+# waits for the path (``wait_for_path``) and connects inside that window is
+# refused. So a listener whose path others wait on binds to this temporary
+# name beside it, listens, and only then renames the file into place: the
+# path exists only once it accepts connections.
+BIND_SUFFIX = ".b"
+
+
+def bind_listening(sock: socket.socket, path: str, backlog: int,
+                   before_listen=None) -> None:
+    """Bind ``sock`` at ``path + BIND_SUFFIX``, call ``before_listen`` (a
+    test's stall), listen, and rename the socket file to ``path``."""
+    tmp = path + BIND_SUFFIX
+    try:
+        os.unlink(tmp)
+    except FileNotFoundError:  # no stale temporary socket
+        pass
+    sock.bind(tmp)
+    if before_listen is not None:
+        before_listen()
+    sock.listen(backlog)
+    os.rename(tmp, path)
+
+
 def wait_for_path(path: str, timeout: float, what: str) -> None:
     deadline = time.monotonic() + timeout
     while not os.path.exists(path):

@@ -43,6 +43,7 @@ from raydp_tpu_torch.cluster.common import (
     NodeRecord,
     OwnerDiedError,
     TenantQuotaError,
+    bind_listening,
     head_sock_path,
     host_id as common_host_id,
     recv_frame,
@@ -2039,9 +2040,29 @@ class _Handler(socketserver.BaseRequestHandler):
                     return
 
 
+# fault injection: seconds the head sleeps between its socket's bind and
+# its listen (tests show that ``init`` waits it out)
+HEAD_LISTEN_DELAY_ENV = "RAYDP_TPU_TORCH_HEAD_LISTEN_DELAY_S"
+
+
 class _Server(socketserver.ThreadingUnixStreamServer):
+    """The head's Unix listener. Its socket file appears only once it
+    listens (``common.bind_listening``): ``cluster.init`` waits for the path
+    and then calls, so a head descheduled between bind and listen must not
+    show the path yet."""
+
     daemon_threads = True
     allow_reuse_address = True
+
+    def server_bind(self):
+        pass  # bound in server_activate, beside the path, then renamed
+
+    def server_activate(self):
+        delay = float(os.environ.get(HEAD_LISTEN_DELAY_ENV) or 0.0)
+        bind_listening(self.socket, self.server_address,
+                       self.request_queue_size,
+                       before_listen=(lambda: time.sleep(delay)) if delay > 0
+                       else None)
 
 
 class _TcpServer(socketserver.ThreadingTCPServer):

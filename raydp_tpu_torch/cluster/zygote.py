@@ -244,8 +244,11 @@ def main() -> None:
     except OSError:  # stale socket may not exist
         pass
     _listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-    _listener.bind(path)
-    _listener.listen(64)
+    # the path appears only once the socket listens: zygote_fork_main takes
+    # an existing path for a ready template
+    from raydp_tpu_torch.cluster.common import bind_listening
+
+    bind_listening(_listener, path, 64)
     parent = os.getppid()
     children: dict = {}  # pid -> log_base, for exit markers at reap time
     import time as _time

@@ -1,9 +1,10 @@
 """``Estimator``: the one-card counterpart of
 the JAX package's ``JaxEstimator`` (``raydp_tpu/estimator``).
 
-It trains a torch module on a dataset that stages to numpy
-(``exchange.dataset.ArrayDataset`` until the port has its store), in one of
-two ways:
+It trains a torch module on a dataset that stages to numpy: the object
+store's ``exchange.dataset.Dataset`` (``fit_on_etl`` converts ETL
+DataFrames to one) or ``exchange.dataset.ArrayDataset`` (numpy columns in
+blocks), in one of two ways:
 
 - **staged** (the default): the training set is staged once, put on the
   card once, and each epoch gathers its batches there by index, in the JAX
@@ -18,7 +19,11 @@ two ways:
   ``stream_prefetch_segments`` in flight, ``stream_wire_quant="int8"`` for
   float features on the wire, ``stream_cache_memory_limit`` for the hybrid
   cache: 1 GiB by default, capped at half the card's memory).
-  ``stream_scan_steps=0`` feeds one batch at a time instead.
+  ``stream_scan_steps=0`` feeds one batch at a time instead. With
+  ``stream_executor_decode`` (the default) a ``Dataset`` whose ETL session
+  is alive decodes its blocks to numpy on the session's executors
+  (``StreamingBatchIterator``); ``stream_stats_["executor_decode"]`` says
+  whether any span of the fit was decoded there.
 
 History records are ``{"epoch", "train_loss", "epoch_seconds"}``, plus
 ``"eval_loss"`` and ``"eval_<metric>"`` when an evaluation set is given;
@@ -65,10 +70,8 @@ donation; torch updates parameters in place), ``scan_epochs`` and
 its steps from Python, and its hybrid cache's default budget is
 ``scan_memory_limit``'s 1 GiB), ``shard_direct`` (per-process placement on
 a mesh), ``sync_every_steps`` (a bound on XLA's dispatch queue on tunneled
-transports; CUDA bounds its own launch queue) and
-``stream_executor_decode`` (decode on the ETL engine's executors, with the
-ETL slice). A mesh and sharding rules wait for the multi-GPU slice and
-raise ``NotImplementedError``, as does ``fit_on_etl`` until the ETL slice.
+transports; CUDA bounds its own launch queue). A mesh and sharding rules
+wait for the multi-GPU slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -190,6 +193,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         stream_prefetch_segments: int = 3,
         keep_checkpoints: Optional[int] = None,
         stream_wire_quant: Union[bool, str] = False,
+        stream_executor_decode: bool = True,
         *,
         device=None,
     ):
@@ -244,6 +248,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         self.stream_prefetch_segments = max(1, int(stream_prefetch_segments))
         self.keep_checkpoints = keep_checkpoints
         self.stream_wire_quant = stream_wire_quant
+        self.stream_executor_decode = bool(stream_executor_decode)
         self._model: Optional[nn.Module] = None
         self._history: List[Dict[str, float]] = []
         self.compile_seconds_: float = 0.0
@@ -335,7 +340,8 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             shuffle=self.shuffle if shuffle is None else shuffle, seed=seed,
             drop_last=not segment_rows, feature_dtype=self.feature_dtype,
             label_dtype=self.label_dtype,
-            feature_groups=self._feature_groups(),
+            feature_groups=self._feature_groups(), streaming=True,
+            executor_decode=self.stream_executor_decode,
         )
 
     def _to_device(self, x):
@@ -527,6 +533,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             stack.callback(runner.close)
             return lambda epoch, start, save_cb: runner.run(
                 epoch, start, save_cb, self._zero())
+        self.stream_stats_ = {"executor_decode": False}
         return lambda epoch, start, save_cb: self._run_stream_steps(
             source, epoch, start, save_cb)
 
@@ -653,8 +660,8 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         """``stream_scan_steps=0``: one batch at a time from the block
         stream, uploaded a batch ahead."""
         recorder = self._step_recorder
-        host_iter = self._block_batches(source, self.batch_size,
-                                        self._epoch_seed(epoch))
+        host_iter = block_iter = self._block_batches(
+            source, self.batch_size, self._epoch_seed(epoch))
         if start_step:
             host_iter = itertools.islice(host_iter, start_step, None)
         train_iter = PrefetchingDeviceIterator(host_iter, self.device)
@@ -680,6 +687,9 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             steps += 1
             if save_cb is not None and steps % self.save_every_steps == 0:
                 pending_save = steps
+        self.stream_stats_["executor_decode"] = (
+            self.stream_stats_.get("executor_decode", False)
+            or bool(getattr(block_iter, "executor_decode_active", False)))
         return loss_sum, steps - start_step
 
     # -- fit statistics ------------------------------------------------------

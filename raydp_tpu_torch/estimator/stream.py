@@ -2,7 +2,8 @@
 ``JaxEstimator._build_stream_runner``.
 
 One producer thread lives for the whole fit. For each epoch it reads the
-dataset block by block in the streaming order (``ArrayDataset.iter_batches``),
+dataset block by block in the streaming order (``iter_batches(streaming=True)``
+of a ``Dataset`` or an ``ArrayDataset``),
 shapes ``seg`` batches into one segment ([S, B, ...]; ``coalesce_segment``
 reshapes a segment-sized slice, a mid-segment resume stacks batches), puts
 float leaves on the int8 wire format when asked, and starts the segment's
@@ -119,6 +120,7 @@ class StreamRunner:
             "upload_streams": self._uploader.upload_streams,
             "wire_dtype": wire_dtype if self._wire_on else None,
             "wire_bytes_saved": 0,
+            "executor_decode": False,
         }
         hybrid = est.streaming == "hybrid"
         self._cache: Optional[List[Any]] = [] if hybrid else None
@@ -216,7 +218,7 @@ class StreamRunner:
                     return  # every later epoch replays the device cache
                 start = self._start_step if epoch == self._start_epoch else 0
                 coalesced = start % self.seg == 0
-                host_iter = self._plan(
+                host_iter = block_iter = self._plan(
                     epoch, self._batch * self.seg if coalesced else None)
                 if start:
                     # the order is fixed by (seed, epoch): skipping the
@@ -241,6 +243,10 @@ class StreamRunner:
                             xs, ys = [], []
                     if xs and not emit(upload(f_stack(xs), np.stack(ys), epoch)):
                         return
+                # a Dataset's StreamingBatchIterator says whether its spans
+                # were decoded on the ETL session's executors
+                stats["executor_decode"] = stats["executor_decode"] or bool(
+                    getattr(block_iter, "executor_decode_active", False))
                 if not emit(None):
                     return
         except BaseException as exc:  # noqa: BLE001 - raised consumer-side

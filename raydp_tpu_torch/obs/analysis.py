@@ -20,7 +20,7 @@ one streamed generation's wall time from the decode engine's stream record
 (``DecodeEngine.explain``) without any span: TTFT into queue, KV alloc,
 prefill and dispatch; the steady state into step compute, admission churn,
 drain and stall. ``explain_last_query`` (over an ETL query's spans) waits
-for the port's ETL slice.
+for the ETL session's surfaces (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations

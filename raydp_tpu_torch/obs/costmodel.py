@@ -155,3 +155,42 @@ def mfu(model_flops_per_sec: Optional[float],
     if not model_flops_per_sec or not peak_flops:
         return None
     return model_flops_per_sec / peak_flops
+
+
+# ---------------------------------------------------------------------------
+# cross-host placement
+# ---------------------------------------------------------------------------
+
+WIRE_GBPS_ENV = "RAYDP_TPU_WIRE_GBPS"
+# nominal host-to-host wire bandwidth: 10 Gb/s ~ 1.25 GB/s. Deliberately a
+# planning constant, not a measurement: placement scoring only needs the
+# RELATIVE cost of moving each host's bytes, and the env override exists
+# for clusters whose fabric is genuinely different.
+_WIRE_BYTES_PER_S_DEFAULT = 1.25e9
+
+
+def wire_bytes_per_s() -> float:
+    try:
+        gbps = float(os.environ.get(WIRE_GBPS_ENV, "") or 10.0)
+    except ValueError:
+        gbps = 10.0
+    return gbps * 1e9 / 8.0
+
+
+def exchange_placement(bytes_by_host: dict) -> Tuple[Optional[str], dict]:
+    """Score reduce/exchange placement per candidate host: the estimated
+    seconds of wire transfer if the task runs THERE (every byte not already
+    on that host crosses the wire at the nominal bandwidth). Returns
+    ``(best_host, {host: est_transfer_s})``: best is the host holding the
+    most input bytes, with deterministic (host-name) tie-breaking so two
+    planners given the same map score the same placement. Empty input
+    scores to ``(None, {})``."""
+    if not bytes_by_host:
+        return None, {}
+    bw = wire_bytes_per_s()
+    total = sum(bytes_by_host.values())
+    scores = {
+        host: (total - local) / bw for host, local in bytes_by_host.items()
+    }
+    best = min(scores, key=lambda h: (scores[h], str(h)))
+    return best, scores

@@ -4,7 +4,8 @@ conf keys (docs/serving.md has the full table).
 
 ``ServeConf.resolve`` merges the defaults with the ``conf`` argument. The
 JAX package also merges in an active ETL session's ``serve.*`` and
-``obs.*`` configs; that merge comes with the port's ETL session."""
+``obs.*`` configs; that merge waits for the ETL session's surfaces
+(ROADMAP Queue 1 item 2)."""
 
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""``raydp_tpu_torch.tenancy``: the port's fair-share admission, the part
-of ``raydp_tpu/tenancy`` that the serving plane rides on.
+"""``raydp_tpu_torch.tenancy``: the port's multi-tenant control plane, its
+copy of ``raydp_tpu/tenancy``.
 
 - **fair-share dispatch** (:mod:`raydp_tpu_torch.tenancy.scheduler`): a
   weighted deficit-round-robin admission queue with per-tenant in-flight
@@ -7,17 +7,26 @@ of ``raydp_tpu/tenancy`` that the serving plane rides on.
   deployment with ``serve.tenant`` acquires one ticket per batch dispatch;
 - **per-tenant accounting**: ``tenant.<ns>.*`` metrics (tasks dispatched,
   queue wait, queue depth, quota rejections), which the time-series mirror
-  labels by tenant.
+  labels by tenant;
+- **session registry** (:mod:`raydp_tpu_torch.tenancy.registry`):
+  ``init_etl(app_name=...)`` attaches to a running cluster as a named
+  tenant; ``active_session()`` is per-thread with the explicit
+  multi-session API (:func:`sessions`, :func:`use_session`,
+  :func:`current_session`, :func:`list_tenants`).
 
-The session registry (many ETL sessions on one cluster, ``use_session``,
-``list_tenants``) and ``fair_share_series`` come with the ETL session.
+``fair_share_series`` (the tenant's signals as windowed time-series) waits
+for the ETL session's surfaces (ROADMAP Queue 1 item 2).
 """
 
 from raydp_tpu_torch.cluster.common import TenantQuotaError
 from raydp_tpu_torch.tenancy.registry import (
+    current_session,
+    list_tenants,
     reset_scheduler,
     scheduler,
+    sessions,
     tenant_namespace,
+    use_session,
 )
 from raydp_tpu_torch.tenancy.scheduler import (
     AdmissionHandle,
@@ -30,7 +39,11 @@ __all__ = [
     "AdmissionHandle",
     "FairShareScheduler",
     "Ticket",
+    "current_session",
+    "list_tenants",
     "scheduler",
     "reset_scheduler",
+    "sessions",
     "tenant_namespace",
+    "use_session",
 ]

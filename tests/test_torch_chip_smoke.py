@@ -7,9 +7,11 @@ time counts those kernels twice (on the H100 it doubled the device time of
 a DLRM epoch's optimizer step). The window here is made of stand-in events.
 """
 
+import os
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +19,19 @@ import chip_smoke
 
 CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the phases' CPU fits: they are small, and
+    under the suite's parallel workers a pool of threads a process took
+    tens of seconds where one thread takes one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _event(key, device_type, us, annotation=False, count=1):
@@ -857,3 +872,171 @@ def test_phase_deploy_fails_on_other_weights(tiny_deploy, monkeypatch):
     monkeypatch.setattr(chip_smoke, "publish_checkpoint", planted)
     with pytest.raises(chip_smoke.SmokeFailure, match="differ"):
         chip_smoke.phase_deploy(torch.device("cpu"), state, prompts=prompts)
+
+
+# phase_etl's pieces at 2,000 rows on the CPU: the source recipe and the
+# columns it must give, the bitwise fit comparison with a planted
+# difference, the teardown and CUDA-context checks, and the phase itself
+# (2 executors of 1 core, batch 128, tables of 1,000 rows at most). The
+# query, the conversion, the fits from the Dataset and the teardown are the
+# same code on the card; K1's launch count and nvidia-smi's compute apps
+# are the card's alone
+TINY_ETL_RUN = dict(rows=2000, batch=128, lr=1e-2)
+
+
+@pytest.fixture
+def tiny_etl(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN",
+                        dict(chip_smoke.DLRM_RUN, **TINY_ETL_RUN))
+    monkeypatch.setattr(chip_smoke, "DLRM_MODEL",
+                        dict(chip_smoke.DLRM_MODEL, vocab_sizes=TINY_VOCABS))
+    monkeypatch.setattr(chip_smoke, "ETL_SESSION",
+                        dict(num_executors=2, executor_cores=1,
+                             executor_memory="300M"))
+
+
+def _stop_etl_sessions():
+    """No ETL session or cluster of either package left up."""
+    import importlib
+
+    for package in ("raydp_tpu_torch", "raydp_tpu"):
+        etl = importlib.import_module(package + ".etl.session")
+        while etl.active_session() is not None:
+            etl.stop_etl()
+        importlib.import_module(package + ".cluster.api").shutdown()
+
+
+@pytest.fixture
+def etl_clean():
+    _stop_etl_sessions()
+    yield
+    _stop_etl_sessions()
+
+
+def test_criteo_source_and_expected_columns(store_alarm_guard, etl_clean):
+    """The script's copy of bench.py's source equals bench's; the port's
+    query gives the columns ``criteo_expected`` computes (ids and label
+    bit for bit, dense within 1 ulp), its ids and dense columns equal
+    bench.py's own ``make_criteo_frame`` run in the JAX package, and a
+    planted id, label or 2-ulp dense difference fails the check."""
+    import bench
+    import raydp_tpu
+    import raydp_tpu_torch as rt
+
+    source = chip_smoke.make_criteo_source(2000)
+    assert source.equals(bench.make_criteo_source(2000))
+    expected = chip_smoke.criteo_expected(source)
+    assert expected["label"].tolist() == (expected["c5"] % 2).tolist()
+
+    session = rt.init_etl("smoke-etl-columns", num_executors=1,
+                          executor_cores=1, executor_memory="300M")
+    ds = rt.dataframe_to_dataset(
+        chip_smoke.make_criteo_frame(session, source, 4))
+    rec = chip_smoke.check_etl_columns(ds, expected, 2000, 4)
+    assert rec["ids_bitwise"] and rec["label_bitwise"]
+    assert rec["dense_max_ulp"] <= 1
+    port = ds.to_arrow()
+    for column, change in (("c3", lambda a: a + 1),
+                           ("label", lambda a: 1 - a),
+                           ("i2", lambda a: np.nextafter(np.nextafter(
+                               a, np.float32(np.inf)), np.float32(np.inf)))):
+        planted = dict(expected)
+        planted[column] = change(planted[column]).astype(planted[column].dtype)
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.check_etl_columns(ds, planted, 2000, 4)
+    with pytest.raises(chip_smoke.SmokeFailure, match="blocks"):
+        chip_smoke.check_etl_columns(ds, expected, 2000, 3)
+    rt.stop_etl()
+
+    jax_session = raydp_tpu.init_etl("smoke-etl-bench", num_executors=1,
+                                     executor_cores=1, executor_memory="300M")
+    ref = bench.make_criteo_frame(jax_session, source, 4).to_arrow()
+    raydp_tpu.stop_etl()
+    for c in [f"i{i}" for i in range(8)] + [f"c{j}" for j in range(6)]:
+        assert port.column(c).equals(ref.column(c)), c
+
+
+def test_f32_ulps_counts_units_in_the_last_place():
+    a = np.array([1.0, -2.0, 0.0, 3.5], np.float32)
+    b = np.nextafter(a, np.float32(np.inf)).astype(np.float32)
+    assert chip_smoke.f32_ulps(a, a) == 0
+    assert chip_smoke.f32_ulps(a, b) == 1
+    assert chip_smoke.f32_ulps(np.float32([-0.0]), np.float32([0.0])) == 0
+    assert chip_smoke.f32_ulps(np.float32([-1e-45]), np.float32([1e-45])) == 2
+
+
+def test_etl_fit_comparison_fails_on_a_planted_difference():
+    state = {"w": torch.arange(6, dtype=torch.float32),
+             "b": torch.zeros(2)}
+    fit = {"train_loss": [0.7, 0.5, 0.3], "evaluate": {"eval_loss": 0.3},
+           "final_state": state, "launches": 48}
+    assert chip_smoke.require_same_fit(fit, dict(fit), "same")
+    off = dict(state, w=state["w"].clone())
+    off["w"][3] = torch.nextafter(off["w"][3], torch.tensor(10.0))
+    for planted, match in (
+            (dict(fit, final_state=off), "a parameter differs"),
+            (dict(fit, train_loss=[0.7, 0.5, 0.30000001]), "losses"),
+            (dict(fit, evaluate={"eval_loss": 0.31}), "evaluate"),
+            (dict(fit, launches=47), "launched 47 times")):
+        with pytest.raises(chip_smoke.SmokeFailure, match=match):
+            chip_smoke.require_same_fit(planted, fit, "planted")
+
+
+def test_etl_teardown_and_cuda_checks_fail_on_what_is_left(
+        store_alarm_guard, etl_clean, monkeypatch):
+    """The teardown fails on a segment of the phase's namespace left in
+    /dev/shm and on a process left alive; the CUDA check fails when
+    nvidia-smi lists a process of the session."""
+    import subprocess
+    import sys
+
+    import raydp_tpu_torch as rt
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV, SHM_PREFIX
+
+    monkeypatch.setattr(chip_smoke, "ETL_DEADLINE_S", 0.5)
+    monkeypatch.setenv(SHM_NS_ENV, f"etltest{os.getpid()}")
+    assert chip_smoke.etl_teardown([], [])["segments_left"] == []
+    left = Path(f"/dev/shm/{SHM_PREFIX}etltest{os.getpid()}-planted")
+    left.write_bytes(b"x")
+    try:
+        with pytest.raises(chip_smoke.SmokeFailure, match="segments"):
+            chip_smoke.etl_teardown([], [])
+    finally:
+        left.unlink()
+    sleeper = subprocess.Popen([sys.executable, "-c",
+                                "import time; time.sleep(30)"])
+    try:
+        with pytest.raises(chip_smoke.SmokeFailure, match="to exit"):
+            chip_smoke.etl_teardown([], [sleeper.pid])
+    finally:
+        sleeper.kill()
+        sleeper.wait()
+
+    monkeypatch.setattr(chip_smoke, "ETL_SESSION",
+                        dict(num_executors=1, executor_cores=1,
+                             executor_memory="300M"))
+    session = rt.init_etl("smoke-etl-cuda", **chip_smoke.ETL_SESSION)
+    clean = chip_smoke.executor_cuda_report(session)
+    assert clean["cuda_context_pids"] == [] and clean["executor_pids"]
+    assert set(clean["executor_pids"]) <= set(clean["session_pids"])
+    monkeypatch.setattr(chip_smoke, "cuda_context_pids",
+                        lambda: clean["executor_pids"])
+    with pytest.raises(chip_smoke.SmokeFailure, match="CUDA context"):
+        chip_smoke.executor_cuda_report(session)
+    rt.stop_etl()
+
+
+def test_phase_etl_on_the_cpu(store_alarm_guard, etl_clean, tiny_etl):
+    rec = chip_smoke.phase_etl(torch.device("cpu"), {"samples_s": 1.0})
+    assert set(chip_smoke.ETL_KEYS) <= set(rec)
+    assert rec["rows"] == 2000 and rec["blocks"] == 4
+    assert len(rec["block_bytes"]) == 4
+    assert rec["ids_bitwise"] and rec["label_bitwise"]
+    assert rec["dense_max_ulp"] <= 1
+    assert rec["staged_bitwise"] and rec["streamed_bitwise"]
+    assert rec["executor_decode"] is True
+    assert len(rec["executor_pids"]) == 2
+    assert rec["cuda_context_pids"] == [] and rec["segments_left"] == []
+    assert rec["launches"] == 0  # the plain version launches nothing
+    assert rec["train_loss"][-1] < 0.9 * rec["train_loss"][0]
+    assert rec["phase_s"] <= chip_smoke.ETL_LIMIT_S

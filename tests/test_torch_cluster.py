@@ -723,3 +723,51 @@ def test_no_process_of_a_session_outlives_shutdown():
     record = json.loads(out.strip().splitlines()[-1])
     assert len(set(record["pids"].values())) == 3
     assert _session_pids(record["session"]) == []
+
+
+def test_init_outlasts_a_head_stalled_between_bind_and_listen(tmp_path):
+    """A Unix socket's file appears at bind, before listen: a client that
+    waits for the path and connects in between is refused (shown first on
+    a plain socket). The port's head binds beside its path and renames the
+    file into place after listen, so a head that sleeps 1.5 s between the
+    two (``HEAD_LISTEN_DELAY_ENV``) keeps ``init`` waiting, and the first
+    RPC after ``init`` is served."""
+    import socket
+
+    from raydp_tpu_torch.cluster.common import bind_listening
+    from raydp_tpu_torch.cluster.head import HEAD_LISTEN_DELAY_ENV
+
+    plain = tmp_path / "plain.sock"
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as server:
+        server.bind(str(plain))
+        assert plain.exists()
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as client:
+            with pytest.raises(ConnectionRefusedError):
+                client.connect(str(plain))
+
+    published = tmp_path / "published.sock"
+    seen = []
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as server:
+        bind_listening(server, str(published), 4,
+                       before_listen=lambda: seen.append(published.exists()))
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as client:
+            client.connect(str(published))
+    assert seen == [False]
+
+    out = _run_client(f"""
+    import json, os, time
+    os.environ[{NO_GLOBAL_ZYGOTE!r}] = "1"
+    os.environ[{HEAD_LISTEN_DELAY_ENV!r}] = "1.5"
+    from raydp_tpu_torch.cluster import api as cluster
+
+    t0 = time.monotonic()
+    cluster.init(num_cpus=1)
+    waited = time.monotonic() - t0
+    pong = cluster.head_rpc("ping", timeout=10)
+    cluster.shutdown()
+    print(json.dumps({{"waited": waited, "pong": repr(pong)}}))
+    """)
+    import json
+
+    record = json.loads(out.strip().splitlines()[-1])
+    assert record["waited"] >= 1.5, record

@@ -252,9 +252,12 @@ def test_later_options_raise(option, value):
 
 
 def test_later_methods_raise():
+    """``fit_on_etl`` is ported (``tests/test_torch_etl_fit.py``); what it
+    cannot adopt as an ETL DataFrame it refuses, as the JAX estimator
+    does."""
     est = Estimator(model=functools.partial(DLRM, VOCABS, 2), device="cpu",
                     **_settings())
-    with pytest.raises(NotImplementedError, match="ETL"):
+    with pytest.raises(TypeError, match="etl.DataFrame or pandas.DataFrame"):
         est.fit_on_etl(None)
 
 
