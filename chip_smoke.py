@@ -136,6 +136,20 @@ Phases; any failure exits non-zero and prints no result line:
    loss falling, 4 launches a step of ``flash_fwd_f32`` and of the f32
    ``flash_bwd_dq`` and ``flash_bwd_dkv`` (``csrc/flash_backward.cu``);
    step ms and one profiled step.
+   Sequence parallelism (``phase_seqpar``): the same model in f32 at batch
+   1, T 8192, ``attn_impl="ring_flash"`` and ``"ulysses_flash"`` under
+   ``sequence_parallel_apply`` at world 1 over NCCL in this process: the
+   global loss within 1e-5 and every gradient within 1e-4 relative of
+   ``attn_impl="flash"`` on the whole sequence from the same weights, two
+   runs bitwise, a warm and 4 timed Adam steps with the loss falling and
+   the launches a step ``seqpar_expected`` reckons (W stats forwards, W dq
+   and W dk/dv launches a layer for the ring, one each for Ulysses); step
+   ms, tokens/s and peak memory beside the ``flash`` step's, and one layer
+   alone with its share of time outside the port's kernels. Then whether
+   gloo takes CUDA tensors for P2P, all-to-all and all-reduce, each op in
+   a pair of spawned ranks; each impl whose collectives it takes again at
+   world 2 over gloo in two processes on the one card, held the same way
+   (``--seqpar`` runs this phase alone).
    The same training with ``quantized_mlp=True`` (bench.py's
    ``make_runner("flash", quantized_mlp=True)``): the loss falling, 8
    ``int8_gemm`` launches a step (two per block, forward only), as many
@@ -355,6 +369,15 @@ GRAD_CHECK_T = 2048
 # f32 training of the same model at the f32 model's serving shape: batch 1,
 # T 2048 (the prefill of phase_deploy's f32 replicas), 1 warm + 4 timed steps
 TRAIN_F32 = dict(batch=1, seq=2048, steps=4)
+# phase_seqpar: the widest LM in f32 at batch 1 and T 8192 (the dtype of the
+# JAX package's ring tests and of examples/long_context_lm.py), ring_flash
+# and ulysses_flash under sequence_parallel_apply, a warm step and 4 timed
+# Adam steps each, beside attn_impl="flash" on the whole sequence; worlds 1
+# (NCCL, in this process) and 2 (gloo, two processes on the one card,
+# where gloo takes CUDA tensors)
+SEQPAR = dict(batch=1, seq=8192, steps=4, impls=("ring_flash", "ulysses_flash"))
+SEQPAR_LOSS_RTOL, SEQPAR_GRAD_RTOL = 1e-5, 1e-4
+SEQPAR_RANK_LIMIT_S = 300.0  # a spawned world's whole run
 # bench.py bench_dlrm (the BASELINE.json headline workload), uncut: its model,
 # BENCH_DLRM_ROWS' default of 100,000 rows, batch 2048, Adam 1e-3, inputs
 # from default_rng(11)
@@ -1213,10 +1236,13 @@ def check_forward_f32(gen, device, heads) -> dict:
     bitwise): T one row either side of its 64-row block; Tk off the 32-key
     tile (T 200 against Tk 136), causal and not; causal with q_off > 0 (512
     rows at position 300 against 812 keys) and with k_off > 0 (the first
-    300 rows see no key: o 0, m NEG_INF, l 0); D 64; T past 1024, where
-    the staged group of four K/V tiles is refilled many times."""
+    300 rows see no key: o 0, m NEG_INF, l 0); a causal block wholly in
+    the future of every row (k_off = q_off + T, a later rank's block in
+    the ring); D 64; T past 1024, where the staged group of four K/V tiles
+    is refilled many times."""
     rows = fa.BLOCK_Q
     return forward_cases(gen, device, torch.float32, (
+        ((1, heads, 512, 128), 512, 0, 512, True, False),
         ((1, heads, rows - 1, 128), rows - 1, 0, 0, True, True),
         ((1, heads, rows + 1, 128), rows + 1, 0, 0, True, False),
         ((1, heads, rows + 1, 64), rows + 1, 0, 0, False, True),
@@ -1641,8 +1667,10 @@ def backward_cases(heads) -> tuple:
     """The backward's hard cases, (q shape, Tk, q_off, k_off, causal): D
     64, causal and not; T 1500, off the tiles; T 200 against Tk 136, causal
     and not; q_off < k_off, where the rows before the first key (lse =
-    NEG_INF) see no key, at D 128 and 64."""
+    NEG_INF) see no key, at D 128 and 64, and a causal block wholly in the
+    future of every row (a later rank's block in the ring)."""
     return (((1, heads, 2048, 64), 2048, 0, 0, True),
+            ((1, heads, 512, 128), 512, 0, 512, True),
             ((1, heads, 2048, 64), 2048, 0, 0, False),
             ((1, heads, 1500, 128), 1500, 0, 0, True),
             ((1, heads, 200, 128), 136, 0, 0, False),
@@ -2818,6 +2846,433 @@ def phase_train_f32(device) -> dict:
         f"{prof_out['port_kernel_ms']} ms")
     del model, opt
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase_seqpar: sequence parallelism on the card
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def seqpar_expected(impl: str, world: int, device) -> dict:
+    """Launches a step of each rank: the ring runs W block products a
+    layer (the stats forward, then dq and dk/dv in the backward); Ulysses
+    one flash forward and backward a layer on the gathered sequence. None
+    on the CPU, where the plain versions run."""
+    n = MODEL["num_layers"] * (world if impl.startswith("ring") else 1)
+    n = n if device.type == "cuda" else 0
+    return {"flash_fwd_f32": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def seqpar_loss(model, tokens, targets, mesh):
+    """This rank's share of the global mean cross-entropy (its shard's
+    sum over B*T), from its logits shard."""
+    from raydp_tpu_torch.models.transformer import sequence_parallel_apply
+
+    world = mesh.shape["sp"]
+    rank = mesh.axis_index("sp")
+    t_local = targets.shape[1] // world
+    logits = sequence_parallel_apply(model, tokens, mesh)
+    local = targets[:, rank * t_local:(rank + 1) * t_local]
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           local.reshape(-1), reduction="sum") / targets.numel()
+
+
+def seqpar_global(loss, mesh):
+    import torch.distributed as dist
+
+    total = loss.detach().clone()
+    dist.all_reduce(total, group=mesh.group("sp"))
+    return total
+
+
+def seqpar_step(model, opt, tokens, targets, mesh):
+    opt.zero_grad(set_to_none=True)
+    loss = seqpar_loss(model, tokens, targets, mesh)
+    loss.backward()
+    opt.step()
+    return seqpar_global(loss, mesh)
+
+
+def seqpar_grads(model, tokens, targets, mesh):
+    model.zero_grad(set_to_none=True)
+    loss = seqpar_loss(model, tokens, targets, mesh)
+    loss.backward()
+    return seqpar_global(loss, mesh), {n: p.grad for n, p in
+                                       model.named_parameters()}
+
+
+def seqpar_overhead(impl, device, mesh) -> dict:
+    """One attention layer of ``impl`` alone at the path's shape on this
+    rank, q/k/v [B, H, T/W, D] f32 causal, forward and backward: its wall
+    time by CUDA events (mean of 3 calls after a warm one) and the
+    profiler's device time over 2 calls, split into the port's kernels and
+    the rest (the merge, copies, the communication's kernels); the share
+    of the wall outside the port's kernels. Not measured on the CPU."""
+    from raydp_tpu_torch.parallel import bound_axes, ring_attention, ulysses_attention
+
+    if device.type != "cuda":
+        return {"wall_ms": None, "port_kernel_ms": None, "other_device_ms": None,
+                "outside_kernels_share": None}
+    from torch.profiler import ProfilerActivity, profile
+
+    world = mesh.shape["sp"]
+    heads, d = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
+    shape = (SEQPAR["batch"], heads, SEQPAR["seq"] // world, d)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v, g = (_randn(gen, shape, torch.float32, device) for _ in range(4))
+    layer = ring_attention if impl.startswith("ring") else ulysses_attention
+
+    def call():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        with bound_axes(mesh):
+            out = layer(*leaves, "sp", causal=True, use_flash=True)
+        out.backward(g)
+
+    call()
+    torch.cuda.synchronize(device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        call()
+    end.record()
+    end.synchronize()
+    wall_ms = start.elapsed_time(end) / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            call()
+        torch.cuda.synchronize(device)
+    by_name = device_ms_by_name(prof)
+    port = sum(ms for name, ms in by_name.items()
+               if port_kernel_pattern().match(name)) / 2
+    other = sum(by_name.values()) / 2 - port
+    return {"wall_ms": wall_ms, "port_kernel_ms": port if by_name else None,
+            "other_device_ms": other if by_name else None,
+            "outside_kernels_share": 1 - port / wall_ms if by_name else None}
+
+
+def seqpar_impl(impl, device, mesh, tokens, targets, ref, backend) -> dict:
+    """``impl`` at the mesh's world from the seeded weights: the global
+    loss and every gradient against the flash run's (``ref``), twice
+    (bitwise), then a warm step and SEQPAR["steps"] timed Adam steps with
+    the launch counts zeroed just before and read just after, and the
+    peak memory allocated over them."""
+    world = mesh.shape["sp"]
+    b, t, steps = SEQPAR["batch"], SEQPAR["seq"], SEQPAR["steps"]
+    model = lm(impl, device, t + 1, dtype=torch.float32)
+    loss, grads = seqpar_grads(model, tokens, targets, mesh)
+    again, grads_again = seqpar_grads(model, tokens, targets, mesh)
+    bitwise = bool(torch.equal(loss, again)) and all(
+        torch.equal(grads[n], grads_again[n]) for n in grads)
+    loss_rel = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+    worst, _ = grad_gap(grads, ref["grads"])
+    del grads, grads_again
+    model.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(model.parameters(), lr=TRAIN["lr"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    fa.reset_launches()
+    first = seqpar_step(model, opt, tokens, targets, mesh).item()
+    t0 = time.perf_counter()
+    losses = [seqpar_step(model, opt, tokens, targets, mesh) for _ in range(steps)]
+    losses = [float(x) for x in losses]  # the last one fences the steps
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    expected = seqpar_expected(impl, world, device)
+    rec = {
+        "impl": impl, "world": world, "backend": backend,
+        "rank": mesh.axis_index("sp"),
+        "loss_rel": loss_rel, "worst_grad_rel": worst, "bitwise": bitwise,
+        "first_loss": first, "losses": losses, "launches": launches,
+        "per_step": {n: launches[n] / (steps + 1) for n in expected},
+        "expected_per_step": expected,
+        "step_ms": 1e3 * dt / steps, "tokens_s": steps * b * t / dt,
+        "base_bytes": base if cuda else None,
+        "peak_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+    }
+    del model, opt
+    rec["overhead"] = seqpar_overhead(impl, device, mesh)
+    return rec
+
+
+def seqpar_verdict(rec: dict) -> None:
+    what = f"{rec['impl']} at world {rec['world']} ({rec['backend']}, rank {rec['rank']})"
+    log(f"seqpar {what}: loss rel {rec['loss_rel']:.3e} (limit "
+        f"{SEQPAR_LOSS_RTOL}), worst grad rel {rec['worst_grad_rel']:.3e} (limit "
+        f"{SEQPAR_GRAD_RTOL}), two runs bitwise {rec['bitwise']}; loss "
+        f"{rec['first_loss']:.4f} -> {rec['losses'][-1]:.4f}; launches per step "
+        f"{rec['per_step']} (expected {rec['expected_per_step']}); step "
+        f"{rec['step_ms']:.2f} ms, {rec['tokens_s']:.1f} tokens/s; peak "
+        f"{rec['peak_bytes']} bytes over {rec['base_bytes']}; one layer alone "
+        f"{rec['overhead']}")
+    require(rec["loss_rel"] <= SEQPAR_LOSS_RTOL
+            and rec["worst_grad_rel"] <= SEQPAR_GRAD_RTOL,
+            f"seqpar {what}: loss or gradients disagree with the flash run")
+    require(rec["bitwise"], f"seqpar {what}: two runs differ")
+    require(all(math.isfinite(x) for x in [rec["first_loss"], *rec["losses"]])
+            and rec["losses"][-1] < rec["first_loss"],
+            f"seqpar {what}: the loss is not finite or did not fall")
+    require(rec["per_step"] == {n: float(c) for n, c in
+                                rec["expected_per_step"].items()},
+            f"seqpar {what}: launches per step {rec['per_step']}")
+
+
+def seqpar_inputs(device):
+    b, t = SEQPAR["batch"], SEQPAR["seq"]
+    return train_tokens(b, t, MODEL["vocab_size"], device)
+
+
+def _seqpar_device(device_type: str):
+    if device_type == "cuda":
+        torch.cuda.set_device(0)
+        return torch.device("cuda", 0)
+    torch.set_num_threads(1)  # two ranks' thread pools on one host's cores
+    return torch.device("cpu")
+
+
+GLOO_PROBE_OPS = ("p2p", "all_to_all", "all_reduce")
+# the collectives each impl's training step runs: the ring's rotation or
+# Ulysses' swaps, and the parameters' gradient sum
+SEQPAR_OPS = {"ring_flash": ("p2p", "all_reduce"),
+              "ulysses_flash": ("all_to_all", "all_reduce")}
+
+
+def gloo_probe_rank(rank, world, port, out_path, device_type, op) -> None:
+    """One rank of one probe: does gloo take tensors on ``device_type`` for
+    ``op`` (the ring's rotation by ``batch_isend_irecv``, Ulysses'
+    ``all_to_all_single``, the gradients' ``all_reduce``) and give the
+    values it must? Writes "ok", "wrong values", or the error gloo raised
+    (a refusal) to ``out_path``."""
+    import torch.distributed as dist
+
+    device = _seqpar_device(device_type)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+
+    def p2p():
+        x = torch.full((1024,), float(rank), device=device)
+        buf = torch.empty_like(x)
+        ops = [dist.P2POp(dist.isend, x, (rank + 1) % world),
+               dist.P2POp(dist.irecv, buf, (rank - 1) % world)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return bool((buf == (rank - 1) % world).all())
+
+    def all_to_all():
+        send = (10.0 * rank + torch.arange(world, device=device))[:, None]
+        send = send.expand(world, 256).contiguous()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        want = (10.0 * torch.arange(world, device=device) + rank)[:, None]
+        return bool((recv == want).all())
+
+    def all_reduce():
+        x = torch.full((1024,), float(rank + 1), device=device)
+        dist.all_reduce(x)
+        return bool((x == world * (world + 1) / 2).all())
+
+    try:
+        run = {"p2p": p2p, "all_to_all": all_to_all, "all_reduce": all_reduce}[op]
+        outcome = "ok" if run() else "wrong values"
+    except RuntimeError as exc:  # gloo's refusal is the probe's answer
+        outcome = f"refused: {exc!r}"[:300]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(outcome))
+
+
+def seqpar_rank(rank, world, port, ref_path, out_path, device_type,
+                config) -> None:
+    """One rank of the world-``world`` run over gloo: every impl of
+    SEQPAR against the flash run's loss and gradients in ``ref_path``; the
+    records to ``out_path``."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    globals().update(config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _seqpar_device(device_type)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    ref = torch.load(ref_path, map_location=device)
+    tokens, targets = seqpar_inputs(device)
+    mesh = make_mesh({"sp": world})
+    records = [seqpar_impl(impl, device, mesh, tokens, targets, ref, "gloo")
+               for impl in SEQPAR["impls"]]
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(records))
+
+
+def spawn_world(target, world, args_of, limit_s) -> list:
+    """Run ``target(rank, *args_of(rank))`` in ``world`` spawned processes;
+    their exit codes (None for a process killed at ``limit_s``)."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, *args_of(rank)))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit_s
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    codes = []
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10.0)
+            codes.append(None)
+        else:
+            codes.append(p.exitcode)
+    return codes
+
+
+def gloo_takes(device) -> dict:
+    """Whether gloo takes ``device``'s tensors for each op the layers use,
+    one pair of spawned ranks an op (``gloo_probe_rank``): {"ops": {op:
+    "ok" | "refused" with the ranks' detail}}. Refused is an
+    error gloo raised or a rank killed by a signal inside gloo; wrong
+    values, or a rank that failed otherwise or ran past its limit, fail the
+    run."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ops = {}
+    for op in GLOO_PROBE_OPS:
+        outs = [BUILD_DIR / f"gloo_probe_{op}_{r}.json" for r in range(2)]
+        for out in outs:
+            out.unlink(missing_ok=True)
+        port = free_port()
+        codes = spawn_world(
+            gloo_probe_rank, 2,
+            lambda r: (2, port, str(outs[r]), device.type, op), 120.0)
+        ranks = [json.loads(out.read_text()) if out.exists() else None
+                 for out in outs]
+        detail = {"exit_codes": codes, "ranks": ranks}
+        for code, got in zip(codes, ranks):
+            require(got != "wrong values",
+                    f"gloo's {op} gave wrong values: {detail}")
+            require(code is not None and (code < 0 or (code == 0 and got)),
+                    f"the gloo probe of {op} failed: {detail}")
+        ok = codes == [0, 0] and ranks == ["ok", "ok"]
+        ops[op] = "ok" if ok else f"refused: {detail}"
+    return {"ops": ops}
+
+
+def phase_seqpar(device) -> dict:
+    """Sequence parallelism at full width in f32 (SEQPAR): the flash run
+    on the whole sequence first (the reference loss and gradients, then its
+    step time), then ring_flash and ulysses_flash under
+    sequence_parallel_apply at world 1 over NCCL in this process
+    (``seqpar_impl``: loss within SEQPAR_LOSS_RTOL and every gradient
+    within SEQPAR_GRAD_RTOL of the flash run's, two runs bitwise, the loss
+    falls, launches per step as ``seqpar_expected`` reckons them: W stats
+    forwards and W dq and W dk/dv launches a layer for the ring, one each
+    for Ulysses). Then whether gloo takes the card's tensors
+    for each op (``gloo_takes``); each impl whose ops it takes
+    (``SEQPAR_OPS``) again at world 2 over gloo in two processes on the
+    one card, held the same way, and for each other impl a line saying
+    which ops gloo refused. On the CPU the same runs go over gloo with the
+    plain versions."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    tokens, targets = seqpar_inputs(device)
+    steps = SEQPAR["steps"]
+    flash = lm("flash", device, SEQPAR["seq"] + 1, dtype=torch.float32)
+    ref_loss, ref_grads = loss_and_grads(flash, tokens, targets)
+    ref = {"loss": float(ref_loss),
+           "grads": {n: g.detach().clone() for n, g in ref_grads.items()}}
+    del ref_grads
+    flash.zero_grad(set_to_none=True)
+    _, flash_losses, flash_dt = timed_steps(
+        flash, torch.optim.Adam(flash.parameters(), lr=TRAIN["lr"]), tokens,
+        targets, steps)
+    del flash
+    rec = {"shape": f"batch {SEQPAR['batch']}, T {SEQPAR['seq']}, f32, {MODEL}",
+           "flash_step_ms": 1e3 * flash_dt / steps,
+           "flash_tokens_s": steps * SEQPAR["batch"] * SEQPAR["seq"] / flash_dt,
+           "runs": []}
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"sp": 1})
+        for impl in SEQPAR["impls"]:
+            rec["runs"].append(seqpar_impl(impl, device, mesh, tokens, targets,
+                                           ref, backend))
+            seqpar_verdict(rec["runs"][-1])
+    finally:
+        dist.destroy_process_group()
+
+    probe = gloo_takes(device)
+    rec["gloo_takes_device_tensors"] = probe
+    impls2 = [impl for impl in SEQPAR["impls"]
+              if all(probe["ops"][op] == "ok" for op in SEQPAR_OPS[impl])]
+    for impl in SEQPAR["impls"]:
+        if impl not in impls2:
+            log(f"seqpar {impl} at world 2: not run; gloo does not take "
+                f"{device.type} tensors for {SEQPAR_OPS[impl]}: {probe['ops']}")
+    if impls2:
+        ref_path = BUILD_DIR / "seqpar_ref.pt"
+        torch.save(ref, ref_path)
+        outs = [BUILD_DIR / f"seqpar_rank{r}.json" for r in range(2)]
+        for out in outs:
+            out.unlink(missing_ok=True)
+        config = {"MODEL": MODEL, "SEQPAR": dict(SEQPAR, impls=tuple(impls2)),
+                  "TRAIN": TRAIN, "SEED": SEED}
+        port = free_port()
+        codes = spawn_world(
+            seqpar_rank, 2,
+            lambda r: (2, port, str(ref_path), str(outs[r]), device.type, config),
+            SEQPAR_RANK_LIMIT_S)
+        require(codes == [0, 0], f"seqpar world 2 over gloo: exit codes {codes}")
+        for out in outs:
+            for run in json.loads(out.read_text()):
+                seqpar_verdict(run)
+                rec["runs"].append(run)
+        ref_path.unlink()
+    rec["launches"] = {name: sum(run["launches"][name] for run in rec["runs"])
+                       for name in ("flash_fwd_f32", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"seqpar: flash step {rec['flash_step_ms']:.2f} ms, "
+        f"{rec['flash_tokens_s']:.1f} tokens/s; worlds "
+        f"{sorted({run['world'] for run in rec['runs']})}; phase "
+        f"{rec['phase_s']:.1f} s")
+    require(all(math.isfinite(x) for x in flash_losses), "flash loss not finite")
+    return rec
+
+
+def seqpar_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The phase's line: each run's step ms and tokens/s beside the flash
+    step, the share of one layer's time outside the port's kernels, and
+    the peak memory."""
+    return {"seqpar": {
+        "shape": rec["shape"], "flash_step_ms": rec["flash_step_ms"],
+        "flash_tokens_s": rec["flash_tokens_s"],
+        "gloo_takes_device_tensors": {
+            op: verdict.split(":")[0]
+            for op, verdict in rec["gloo_takes_device_tensors"]["ops"].items()},
+        "runs": [{k: run[k] for k in ("impl", "world", "backend", "rank",
+                                      "step_ms", "tokens_s", "peak_bytes",
+                                      "loss_rel", "worst_grad_rel")}
+                 | {"vs_flash_step": run["step_ms"] / rec["flash_step_ms"],
+                    "outside_kernels_share":
+                        run["overhead"]["outside_kernels_share"]}
+                 for run in rec["runs"]]},
+        "nvidia_smi": nvidia_smi}
 
 
 def twoterm_step(device, tokens, targets, max_len) -> dict:
@@ -5646,13 +6101,14 @@ def quant_times(device) -> dict:
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
-                 etl: dict) -> dict:
+                 etl: dict, seqpar: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
     training steps for the f32 backward pair (its wrappers' counts there,
     where every launch is of the f32 bodies) and, with phase_deploy's f32
-    replicas, for flash_fwd_f32; the full-width
+    replicas, for flash_fwd_f32; phase_seqpar's ring_flash and
+    ulysses_flash steps (every rank's) for the three f32 kernels; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation, the dlrm_optimizer epoch, the streamed and retried
     fits of phase_fit and phase_etl's fits from the ETL Dataset for
@@ -5687,9 +6143,11 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         launches[name] = sum(run["launches"][name] for run in int8_runs)
     launches["quantize_int8_stochastic"] = \
         stochastic["launches"]["quantize_int8_stochastic"]
-    launches["flash_fwd_f32"] = trained_f32["launches"]["flash_fwd_f32"]
+    launches["flash_fwd_f32"] = (trained_f32["launches"]["flash_fwd_f32"]
+                                 + seqpar["launches"]["flash_fwd_f32"])
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        launches[f"{name}_f32"] = trained_f32["launches"][name]
+        launches[f"{name}_f32"] = (trained_f32["launches"][name]
+                                   + seqpar["launches"][name])
     for name, n in deployed["launches"].items():
         if name in launches:
             launches[name] += n
@@ -5971,6 +6429,10 @@ def main(argv: list) -> int:
         log(json.dumps({"etl": {k: etl[k] for k in ETL_KEYS}
                         | {"nvidia_smi": dev["nvidia_smi"]}}))
         return 0
+    if argv == ["--seqpar"]:
+        dev = phase_device()
+        log(json.dumps(seqpar_summary(phase_seqpar(device), dev["nvidia_smi"])))
+        return 0
     if argv == ["--deploy"]:
         dev = phase_device()
         deployed = phase_deploy(device, phase_dlrm(device)["final_state"])
@@ -5986,6 +6448,7 @@ def main(argv: list) -> int:
     record["cluster"] = phase_cluster(device, record["serve"]["runs"][0])
     record["train"] = phase_train(device)
     record["train_f32"] = phase_train_f32(device)
+    record["seqpar"] = phase_seqpar(device)
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
@@ -6001,7 +6464,8 @@ def main(argv: list) -> int:
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],
                            record["fit"], record["deploy"],
-                           record["train_f32"], record["etl"])
+                           record["train_f32"], record["etl"],
+                           record["seqpar"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -6014,6 +6478,8 @@ def main(argv: list) -> int:
     log(json.dumps({"training_f32": {k: record["train_f32"][k] for k in (
         "step_ms", "tokens_s", "loss_rel", "worst_grad_rel")}
         | {"nvidia_smi": record["device"]["nvidia_smi"]}}))
+    log(json.dumps(seqpar_summary(record["seqpar"],
+                                  record["device"]["nvidia_smi"])))
     log(json.dumps({"training_int8_mlp": {k: record["train_int8"][k] for k in (
         "tokens_s", "step_ms", "mfu_int8_mlp", "first_loss_rel")}}))
     log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (

@@ -37,7 +37,12 @@ Ported so far:
 9. the ETL engine (``etl``: sessions, DataFrames, the planner and its
    executors, lineage), the store's ``exchange.dataset.Dataset`` and
    ``MLDataset``, ``utils``, the tenancy registry's session half, and
-   ``Estimator.fit_on_etl``.
+   ``Estimator.fit_on_etl``;
+10. the ETL session's surfaces (``tenancy.fair_share_series``,
+    ``ServeConf``'s session merge, ``explain_last_query``, the serving
+    scenarios in ``chaos``) and sequence parallelism over
+    ``torch.distributed`` (``parallel``: meshes of ranks, ring and Ulysses
+    attention; ``models.sequence_parallel_apply``).
 """
 
 # name -> (module, attribute); None = the module itself. Resolved at first
@@ -59,6 +64,7 @@ _LAZY = {
     "Dataset": ("raydp_tpu_torch.exchange.dataset", "Dataset"),
     "MLDataset": ("raydp_tpu_torch.exchange.ml_dataset", "MLDataset"),
     "tenancy": ("raydp_tpu_torch.tenancy", None),
+    "explain_last_query": ("raydp_tpu_torch.obs", "explain_last_query"),
 }
 
 __all__ = sorted(_LAZY)

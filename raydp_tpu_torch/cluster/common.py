@@ -707,7 +707,14 @@ def _zygote_source_key() -> str:
 def _probe_pid(pid: int) -> str:
     """'alive' | 'gone' (no such pid) | 'dead' (zombie, or pid owned by
     another uid — our child can't be). The one pid-probe implementation
-    shared by ZygoteProc.poll and the zygote liveness checks."""
+    shared by ZygoteProc.poll and the zygote liveness checks.
+
+    A zombie thread-group leader is dead only once it is the group's last
+    thread: after a SIGKILL the leader can turn zombie while other threads
+    are still exiting, and the process's file table, listening socket
+    included, lives until the last of them is gone. Until then a connect
+    lands in the listener's backlog and is reset, so the process counts as
+    alive."""
     try:
         os.kill(pid, 0)
     except ProcessLookupError:
@@ -717,10 +724,22 @@ def _probe_pid(pid: int) -> str:
     try:
         with open(f"/proc/{pid}/stat") as f:
             if f.read().rsplit(") ", 1)[1][:1] == "Z":
-                return "dead"
+                return "dead" if _thread_count(pid) <= 1 else "alive"
     except (OSError, IndexError):  # proc entry vanished: next probe decides
         pass
     return "alive"
+
+
+def _thread_count(pid: int) -> int:
+    """``Threads:`` of /proc/<pid>/status; 0 where the entry is gone."""
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("Threads:"):
+                    return int(line.split()[1])
+    except (OSError, ValueError):  # the entry vanished: nothing holds the files
+        pass
+    return 0
 
 
 def _pid_alive_not_zombie(pid: int) -> bool:

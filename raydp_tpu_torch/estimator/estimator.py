@@ -71,7 +71,7 @@ its steps from Python, and its hybrid cache's default budget is
 ``scan_memory_limit``'s 1 GiB), ``shard_direct`` (per-process placement on
 a mesh), ``sync_every_steps`` (a bound on XLA's dispatch queue on tunneled
 transports; CUDA bounds its own launch queue). A mesh and sharding rules
-wait for the multi-GPU slice and raise ``NotImplementedError``.
+wait for ROADMAP Queue 1 item 3b and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -138,7 +138,8 @@ def _refuse_later(**options) -> None:
     for name, value in options.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name}={value!r} is ported in the multi-GPU slice")
+                f"{name}={value!r} is ported in ROADMAP Queue 1 item 3b "
+                "(the estimator's mesh and sharding rules)")
 
 
 class _HostArrays:

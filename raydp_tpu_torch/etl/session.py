@@ -609,13 +609,11 @@ class EtlSession:
         return cluster.query_metrics(name, window_s, labels, aggregate)
 
     def explain_last_query(self, top_k: int = 5) -> dict:
-        """Critical-path wall-time attribution of the last query: not
-        ported yet. It comes with ``obs.analysis.explain_last_query`` over
-        the planner's records (ROADMAP Queue 1 item 2)."""
-        raise NotImplementedError(
-            "explain_last_query is not ported yet (ROADMAP Queue 1 item 2: "
-            "the ETL session's surfaces); read last_query_stats"
-        )
+        """Critical-path wall-time attribution of the last query
+        (``obs.analysis.explain_last_query``)."""
+        from raydp_tpu_torch.obs.analysis import explain_last_query
+
+        return explain_last_query(session=self, top_k=top_k)
 
     def profile_fit(self, steps: int = 16, out_dir: Optional[str] = None,
                     torch_trace: bool = True):

@@ -19,8 +19,8 @@ half of ``raydp_tpu/exchange/jax_io.py``.
 - ``coalesce_segment`` shapes a segment-sized host slice into stacked
   batches.
 
-The mesh helpers of ``jax_io`` (sharded placement) wait for the multi-GPU
-slice.
+The mesh helpers of ``jax_io`` (sharded placement) wait for ROADMAP Queue
+1 item 3b.
 """
 
 from __future__ import annotations

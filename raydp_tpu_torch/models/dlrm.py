@@ -16,7 +16,7 @@ moves every row each step, as optax does. The dense layers sit in one
 ``ModuleList`` named ``dense``, bottom then top, numbered as flax numbers
 ``Dense_i`` across both; ``bottom_proj``, ``embedding_i`` and ``head`` keep
 flax's names (``models.convert.dlrm_params_from_flax``).
-``dlrm_sharding_rules`` belongs to the multi-GPU slice.
+``dlrm_sharding_rules`` belongs to ROADMAP Queue 1 item 3b.
 """
 
 from __future__ import annotations

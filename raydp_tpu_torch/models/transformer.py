@@ -11,8 +11,13 @@ and the embedding cast theirs to the model dtype (bf16 by default) at each
 use, as flax does, so an optimizer updates f32 weights.
 
 Attention is ``"full"`` (plain PyTorch), ``"flash"`` (the hand-written
-kernels on CUDA, differentiable through the flash backward) or ``"skip"``
-(identity: the step without attention, for a roofline split). ``remat``
+kernels on CUDA, differentiable through the flash backward), ``"skip"``
+(identity: the step without attention, for a roofline split), or one of
+the sequence-parallel layers of ``parallel/ring_attention.py`` over the
+model's ``seq_axis``: ``"ring"``, ``"ring_flash"``, ``"ulysses"`` and
+``"ulysses_flash"``. Those run under ``sequence_parallel_apply``, which
+binds the axis to a mesh's group; called without it they raise, as an
+unbound axis does in JAX. ``remat``
 recomputes each block's activations in the backward
 (``torch.utils.checkpoint``), the counterpart of ``nn.remat(Block)``.
 Incremental decode (``kv_caches``/``kv_len``) scatters the new rows' K/V
@@ -21,11 +26,12 @@ into each sequence's cache at its own length and attends with
 ``quantized_mlp`` sends both MLP products of every block through
 ``ops.quantization.int8_linear`` (int8 forward, straight-through backward),
 in prefill, decode and training alike, with the same parameters, so one
-``state_dict`` loads into either model. Ring and Ulysses attention belong
-to a later slice.
+``state_dict`` loads into either model.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -35,17 +41,21 @@ from torch.utils.checkpoint import checkpoint
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.ops.flash_attention import flash_attention, flash_decode
 from raydp_tpu_torch.ops.quantization import int8_linear, quantize_int8
-from raydp_tpu_torch.parallel.ring_attention import full_attention
+from raydp_tpu_torch.parallel import mesh as _mesh
+from raydp_tpu_torch.parallel.ring_attention import (
+    full_attention,
+    ring_attention,
+    ulysses_attention,
+)
 
-_LATER = {
-    "ring": "the multi-GPU slice (ring attention over NCCL)",
-    "ring_flash": "the multi-GPU slice (ring attention over NCCL)",
-    "ulysses": "the multi-GPU slice (Ulysses attention over NCCL)",
-    "ulysses_flash": "the multi-GPU slice (Ulysses attention over NCCL)",
-}
+ATTN_IMPLS = ("full", "flash", "skip", "ring", "ring_flash", "ulysses",
+              "ulysses_flash")
+# the mesh axis the sequence-parallel impls shard the sequence over (the
+# reference's ``seq_axis`` default, which no caller changes)
+SEQ_AXIS = "sp"
 
 
-def _attend(q, k, v, *, impl: str, causal: bool):
+def _attend(q, k, v, *, impl: str, axis: str, causal: bool):
     if impl == "skip":
         # diagnostic: attention as identity isolates the rest of the step
         return v
@@ -53,6 +63,14 @@ def _attend(q, k, v, *, impl: str, causal: bool):
         return full_attention(q, k, v, causal=causal)
     if impl == "flash":
         return flash_attention(q, k, v, causal)
+    if impl in ("ring", "ring_flash"):
+        # ring_flash: the ring schedule with the flash kernels computing
+        # each (Q-block, K/V-block) product, the long-context path
+        return ring_attention(q, k, v, axis_name=axis, causal=causal,
+                              use_flash=impl == "ring_flash")
+    if impl in ("ulysses", "ulysses_flash"):
+        return ulysses_attention(q, k, v, axis_name=axis, causal=causal,
+                                 use_flash=impl == "ulysses_flash")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -159,7 +177,8 @@ class Block(nn.Module):
         if decode_kv is not None:
             o = _decode_attend(q_h, k_h, v_h, decode_kv, kv_len)
         else:
-            o = _attend(q_h, k_h, v_h, impl=self.attn_impl, causal=True)
+            o = _attend(q_h, k_h, v_h, impl=self.attn_impl, axis=SEQ_AXIS,
+                        causal=True)
         x = x + self._dense(self.proj, o.transpose(1, 2).reshape(b, t, d_model))
         h = F.gelu(self._mlp_dense(self.fc1, self.ln2(x)), approximate="tanh")
         y = self._mlp_dense(self.fc2, h)
@@ -178,6 +197,8 @@ class TransformerLM(nn.Module):
     weights with ``load_state_dict(models.convert.params_from_flax(...))``.
     """
 
+    seq_axis = SEQ_AXIS
+
     def __init__(
         self,
         vocab_size: int,
@@ -194,11 +215,7 @@ class TransformerLM(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
-        if attn_impl in _LATER:
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is ported in {_LATER[attn_impl]}"
-            )
-        if attn_impl not in ("full", "flash", "skip"):
+        if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}")
         device = resolve_device(device)
         self.vocab_size = vocab_size
@@ -269,10 +286,70 @@ class TransformerLM(nn.Module):
                 x, kv = block(x, return_kv=True)
                 new_kv.append(kv)
             elif self.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                # the recompute may run on autograd's thread: it binds the
+                # meshes bound here again
+                x = checkpoint(_bound_call, _mesh.current_meshes(), block, x,
+                               use_reentrant=False)
             else:
                 x = block(x)
         logits = self.lm_head(self.ln_f(x).float())
         if decode or return_kv:
             return logits, new_kv
         return logits
+
+
+def _bound_call(meshes, block, x):
+    with contextlib.ExitStack() as stack:
+        for mesh in meshes:
+            stack.enter_context(_mesh.bound_axes(mesh))
+        return block(x)
+
+
+class _Replicated(torch.autograd.Function):
+    """A parameter replicated over an axis's group: the identity forward,
+    and the backward sums the gradient over the group (the transpose of a
+    replicated input to ``shard_map``)."""
+
+    @staticmethod
+    def forward(ctx, p, group):
+        ctx.group = group
+        return p.view_as(p)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sequence_parallel_apply(model: TransformerLM, tokens, mesh):
+    """Apply a ring or Ulysses ``TransformerLM`` with the sequence sharded
+    over ``model.seq_axis`` of ``mesh``: every rank passes the same tokens
+    [B, T] and the same parameters; rank r of the axis runs its shard, the
+    tokens ``r*T/W`` to ``(r+1)*T/W``, at ``seq_offset = r*T/W`` with the
+    mesh's axes bound, and returns its logits shard [B, T/W, vocab].
+
+    The parameters enter as replicated inputs, as in ``shard_map``: where a
+    gradient flows, each one's gradient is summed over the axis's group in
+    the backward. So each rank's loss is its share of the global loss (for
+    a mean over the sequence, its shard's sum divided by B*T), and after
+    ``backward`` every rank holds the global loss's gradients."""
+    axis = model.seq_axis
+    n = _mesh.mesh_axis_size(mesh, axis)
+    tokens = torch.as_tensor(tokens, device=model.device)
+    t = tokens.shape[1]
+    if t % n:
+        raise ValueError(f"sequence {t} not divisible by axis {axis!r} of size {n}")
+    t_local = t // n
+    r = mesh.axis_index(axis)
+    local = tokens[:, r * t_local:(r + 1) * t_local]
+    with _mesh.bound_axes(mesh):
+        if not torch.is_grad_enabled():
+            return model(local, seq_offset=r * t_local)
+        group = mesh.group(axis)
+        params = {name: _Replicated.apply(p, group) if p.requires_grad else p
+                  for name, p in model.named_parameters()}
+        return torch.func.functional_call(model, params, (local,),
+                                          {"seq_offset": r * t_local})

@@ -26,14 +26,12 @@ estimator's fit, the decode engine and the cluster runtime report through.
   and the memory plane, with ``current_mem_pressure`` behind the decode
   engine's admission veto (``obs/profiler.py``).
 - **Analysis** (``obs/analysis.py``): critical-path attribution of a
-  fit, and ``explain_stream`` of a decode stream's record.
+  fit and of an ETL session's last query (``obs.explain_last_query``),
+  and ``explain_stream`` of a decode stream's record.
 - **Cost model** (``obs/costmodel.py``): FLOPs, device peaks, MFU.
 
 Stdlib only at import (torch is imported where a function needs it): the
 head, the agents and the zygote import this package.
-
-Still to port (ROADMAP Queue 1): ``explain_last_query``, with the ETL
-engine.
 """
 
 from __future__ import annotations
@@ -63,6 +61,7 @@ __all__ = [
     "current_sinks",
     "dump_metrics",
     "enabled",
+    "explain_last_query",
     "export_trace",
     "flush",
     "flush_throttled",
@@ -89,6 +88,14 @@ def export_trace(path: str) -> str:
     from raydp_tpu_torch.obs.export import export_trace as _export
 
     return _export(path)
+
+
+def explain_last_query(session=None, top_k: int = 5) -> dict:
+    """Critical-path wall-time attribution of the active session's last
+    query (obs/analysis.py)."""
+    from raydp_tpu_torch.obs.analysis import explain_last_query as _explain
+
+    return _explain(session=session, top_k=top_k)
 
 
 def dump_metrics() -> dict:

@@ -19,8 +19,9 @@ The decode arm, ``explain_stream`` / ``format_stream_report``, decomposes
 one streamed generation's wall time from the decode engine's stream record
 (``DecodeEngine.explain``) without any span: TTFT into queue, KV alloc,
 prefill and dispatch; the steady state into step compute, admission churn,
-drain and stall. ``explain_last_query`` (over an ETL query's spans) waits
-for the ETL session's surfaces (ROADMAP Queue 1 item 2).
+drain and stall. ``explain_last_query`` attributes an ETL session's last
+query from the planner's records (the head's spans of its trace join them
+when tracing is on).
 """
 
 from __future__ import annotations
@@ -362,6 +363,53 @@ def format_report(report: dict) -> str:
                 f"after {stall['after']} [{stall['proc']}]"
             )
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# the session-facing entry point
+# ---------------------------------------------------------------------------
+
+
+def explain_last_query(session=None, top_k: int = 5) -> dict:
+    """Attribute the active session's LAST query's wall time along its
+    critical path. Works with tracing OFF (the planner's collector records
+    carry the driver-side spans plus per-stage phase args); with tracing ON
+    the head's shipped spans for the same trace id enrich the graph with
+    executor/task-level detail. Returns the ``attribute()`` report with a
+    rendered ``text`` field."""
+    if session is None:
+        from raydp_tpu_torch.etl.session import active_session
+
+        session = active_session()
+    if session is None:
+        raise RuntimeError("no active session (init_etl first)")
+    planner = getattr(session, "_planner", None) or getattr(
+        session, "planner", None
+    )
+    records = list(getattr(planner, "last_query_records", []) or [])
+    if not records:
+        raise RuntimeError("no query has run on this session yet")
+    root = pick_root(records, "etl.query")
+    if root is not None:
+        trace = root.get("trace")
+        from raydp_tpu_torch.obs.tracing import enabled
+
+        if enabled() and trace:
+            try:
+                from raydp_tpu_torch.cluster import api as cluster_api
+                from raydp_tpu_torch.obs.tracing import flush
+
+                flush()
+                dump = cluster_api.head_rpc("obs_dump", timeout=30.0)
+                known = {r.get("id") for r in records}
+                for record in dump.get("spans", []):
+                    if record.get("trace") == trace and record.get("id") not in known:
+                        records.append(record)
+            except Exception:  # enrichment is best-effort: the records alone attribute the query
+                pass
+    report = attribute(records, root_name="etl.query", top_k=top_k)
+    report["text"] = format_report(report)
+    return report
 
 
 # ---------------------------------------------------------------------------

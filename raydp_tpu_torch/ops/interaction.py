@@ -144,6 +144,6 @@ def dot_interaction_fused(stacked: torch.Tensor) -> torch.Tensor:
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         raise NotImplementedError(
             "dot_interaction_fused over more than one device (the kernel per "
-            "batch shard) is ported in the multi-GPU slice"
+            "batch shard) is ported in ROADMAP Queue 1 item 3b (multi-rank K1)"
         )
     return dot_interaction_kernel(stacked)

@@ -2,10 +2,9 @@
 ``raydp_tpu/serve/config.py``, the one place that parses the ``serve.*``
 conf keys (docs/serving.md has the full table).
 
-``ServeConf.resolve`` merges the defaults with the ``conf`` argument. The
-JAX package also merges in an active ETL session's ``serve.*`` and
-``obs.*`` configs; that merge waits for the ETL session's surfaces
-(ROADMAP Queue 1 item 2)."""
+``ServeConf.resolve`` merges the defaults, an active ETL session's
+``serve.*`` and ``obs.*`` configs and the ``conf`` argument, in that
+order of precedence."""
 
 from __future__ import annotations
 
@@ -108,9 +107,22 @@ class ServeConf:
 
     @classmethod
     def resolve(cls, conf: Optional[dict]) -> "ServeConf":
-        """Merge precedence: defaults < the ``conf`` argument passed to
-        ``deploy``."""
-        merged: dict = dict(conf or {})
+        """Merge precedence: defaults < the active ETL session's configs
+        (its ``serve.*`` and ``obs.*`` keys, so one conf dict can describe
+        a whole app) < the ``conf`` argument passed to ``deploy``."""
+        merged: dict = {}
+        try:
+            from raydp_tpu_torch.etl.session import active_session
+
+            session = active_session()
+            if session is not None:
+                merged.update(
+                    {k: v for k, v in session.configs.items()
+                     if k.startswith(("serve.", "obs."))}
+                )
+        except Exception:  # serving works without any ETL session
+            pass
+        merged.update(conf or {})
 
         def get(key, default=None):
             return merged.get(f"serve.{key}", default)

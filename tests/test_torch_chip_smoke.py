@@ -1040,3 +1040,47 @@ def test_phase_etl_on_the_cpu(store_alarm_guard, etl_clean, tiny_etl):
     assert rec["launches"] == 0  # the plain version launches nothing
     assert rec["train_loss"][-1] < 0.9 * rec["train_loss"][0]
     assert rec["phase_s"] <= chip_smoke.ETL_LIMIT_S
+
+
+@pytest.fixture
+def tiny_seqpar(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(vocab_size=64, d_model=64,
+                                                  num_heads=4, num_layers=2))
+    monkeypatch.setattr(chip_smoke, "SEQPAR", dict(
+        chip_smoke.SEQPAR, seq=128, steps=3))
+
+
+def test_phase_seqpar_on_the_cpu(store_alarm_guard, tiny_seqpar):
+    """phase_seqpar at a tiny width with the plain versions: world 1 over
+    gloo in this process, the probe (gloo takes CPU tensors), then world 2
+    in two spawned ranks; every run held to the flash run's loss and
+    gradients, bitwise over two runs, its loss falling; no launches."""
+    rec = chip_smoke.phase_seqpar(torch.device("cpu"))
+    assert set(rec["gloo_takes_device_tensors"]["ops"].values()) == {"ok"}
+    runs = {(run["impl"], run["world"], run["rank"]) for run in rec["runs"]}
+    assert runs == {(impl, world, rank) for impl in ("ring_flash", "ulysses_flash")
+                    for world, rank in ((1, 0), (2, 0), (2, 1))}
+    assert {run["backend"] for run in rec["runs"]} == {"gloo"}
+    assert all(run["bitwise"] for run in rec["runs"])
+    assert rec["launches"] == {"flash_fwd_f32": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    line = chip_smoke.seqpar_summary(rec, "cpu")["seqpar"]
+    assert len(line["runs"]) == 6
+
+
+def test_seqpar_verdict_fails_a_launch_count_off_the_reckoning():
+    rec = {"impl": "ring_flash", "world": 2, "backend": "gloo", "rank": 0,
+           "loss_rel": 0.0, "worst_grad_rel": 0.0, "bitwise": True,
+           "first_loss": 2.0, "losses": [1.5], "peak_bytes": None,
+           "base_bytes": None, "overhead": {}, "step_ms": 1.0, "tokens_s": 1.0,
+           "per_step": {"flash_fwd_f32": 8.0, "flash_bwd_dq": 8.0,
+                        "flash_bwd_dkv": 4.0},
+           "expected_per_step": chip_smoke.seqpar_expected(
+               "ring_flash", 2, torch.device("cuda"))}
+    with pytest.raises(chip_smoke.SmokeFailure, match="launches per step"):
+        chip_smoke.seqpar_verdict(rec)
+    rec["per_step"]["flash_bwd_dkv"] = 8.0
+    chip_smoke.seqpar_verdict(rec)
+    rec["worst_grad_rel"] = 2e-4
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagree"):
+        chip_smoke.seqpar_verdict(rec)

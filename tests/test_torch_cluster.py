@@ -223,6 +223,62 @@ def test_crash_past_max_restarts_dies(runtime):
         c.incr.remote().result()
 
 
+# SYS_exit (the calling thread alone, not the group) by machine
+SYS_EXIT = {"x86_64": 60, "aarch64": 93}[os.uname().machine]
+
+
+class LeaderLeaver:
+    """An actor whose thread-group leader can exit alone: ``leave_leader``
+    starts a holder thread that keeps the process, and with it the actor's
+    listening socket, for ``hold_s`` seconds and then ends it, and makes
+    the main thread exit by itself (``SYS_exit`` from a SIGUSR1 handler,
+    which runs on the main thread). The leader is a zombie all that time:
+    the window a SIGKILL opens while the killed process's other threads
+    are still exiting, held open."""
+
+    def __init__(self):
+        signal.signal(signal.SIGUSR1, self._exit_leader)
+
+    @staticmethod
+    def _exit_leader(signum, frame):
+        import ctypes
+
+        ctypes.CDLL(None).syscall(SYS_EXIT, 0)
+
+    def pid(self):
+        return os.getpid()
+
+    def leave_leader(self, hold_s):
+        import threading
+
+        def hold():
+            time.sleep(hold_s)
+            os._exit(0)
+
+        threading.Thread(target=hold, daemon=True).start()
+        signal.pthread_kill(threading.main_thread().ident, signal.SIGUSR1)
+        return "leaving"
+
+
+def _zombie(pid: int) -> bool:
+    with open(f"/proc/{pid}/stat") as f:
+        return f.read().rsplit(") ", 1)[1][:1] == "Z"
+
+
+def test_a_call_once_the_head_records_death_is_refused(runtime):
+    """While a killed actor's leader is a zombie and another of its threads
+    still holds the listener, the actor is not dead yet; once the head
+    records it DEAD, a call through the handle's cached socket is refused
+    with ``ActorDiedError``, never served or reset."""
+    a = cluster.spawn(LeaderLeaver, max_restarts=0, light=True)
+    pid = a.pid.remote().result()  # the handle now caches the socket
+    assert a.leave_leader.remote(3.0).result() == "leaving"
+    wait_until(lambda: _zombie(pid), 10, "the leader to exit alone")
+    wait_until(lambda: a.state() == ActorState.DEAD, 30, "the actor's death")
+    with pytest.raises(ActorDiedError):
+        a.pid.remote().result(timeout=10)
+
+
 def test_max_concurrency_allows_parallel_calls(runtime):
     s = cluster.spawn(Sleeper, max_concurrency=2, light=True)
     slow = s.nap.remote(1.5)

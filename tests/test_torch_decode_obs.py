@@ -343,11 +343,17 @@ def test_state_note_and_dossier_decode_section_match(tiny_lms):
             _engines(tiny_lms, **kw), (recorder, jax_recorder),
             (port_metrics.metrics, jax_metrics.metrics)):
         with eng:
+            # the loop notes its state by itself once a second; hold those
+            # notes off (the loop looks the method up on the instance each
+            # round) so a drain and a read more than a second apart under
+            # load see only the note forced here
+            note_state = eng._note_state_throttled
+            eng._note_state_throttled = lambda min_interval=1.0: None
             _hog_pages(eng)
             sid = eng.submit([5, 9, 2, 7], 16, stream_id="q1")
             _wait(lambda: eng.stats()["vetoes"]["kv_pages"] >= 1)
             rec_mod.drain_logs()
-            eng._note_state_throttled(min_interval=0.0)
+            note_state(min_interval=0.0)
             logs = rec_mod.recent_logs()
             eng._cache.free("h1")
             eng._cache.free("h2")

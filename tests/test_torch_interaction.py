@@ -171,5 +171,5 @@ def test_fused_is_the_kernel_on_one_device_and_refuses_more(monkeypatch):
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="item 3b"):
         interaction.dot_interaction_fused(x)

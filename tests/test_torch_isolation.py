@@ -67,6 +67,10 @@ def test_port_imports_nothing_of_jax():
         "__init__")} <= set(files)
     assert {tenancy / f"{name}.py" for name in (
         "scheduler", "registry", "__init__")} <= set(files)
+    port = ROOT / "raydp_tpu_torch"
+    assert {port / "chaos.py", port / "parallel" / "mesh.py",
+            port / "parallel" / "ring_attention.py",
+            port / "parallel" / "__init__.py"} <= set(files)
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files

@@ -141,8 +141,12 @@ def test_decode_step_matches_flax(int8):
      {"attn_impl": "ring_flash"}],
 )
 def test_later_slice_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", **kwargs)
+    """The sequence-parallel impls, once a later slice, construct; called
+    outside ``sequence_parallel_apply`` they raise, as an unbound axis does
+    in JAX (their numbers: ``tests/test_torch_seqpar.py``)."""
+    lm = TransformerLM(VOCAB, D_MODEL, HEADS, LAYERS, device="cpu", **kwargs)
+    with pytest.raises(NameError, match="unbound axis name: sp"):
+        lm(torch.zeros((1, 8), dtype=torch.int64))
 
 
 def test_quantized_mlp_builds_and_runs():
