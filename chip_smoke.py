@@ -195,6 +195,25 @@ Phases; any failure exits non-zero and prints no result line:
    columns, one K1 launch a forward pass; no process of the session with a
    CUDA context; after ``shutdown()`` no process or ``rtpt-`` segment of
    the session (``--etl`` runs phase_dlrm and this phase alone).
+   Then examples/dlrm_criteo.py's dp x tp fit at the same width
+   (``phase_sharded_dlrm``, after phase_store): ``dlrm_sharding_rules``
+   and a mesh of ranks; world 1 over NCCL in this process, mesh {"data":
+   1, "model": 1}, bit for bit phase_dlrm's fit (losses, evaluation,
+   parameters, K1 launches); then world 2, two ranks of the cluster
+   runtime on the one card over gloo, launched by ``create_spmd_job`` and
+   brought up by ``bootstrap_torch``: (a) {"data": 1, "model": 2} with
+   Adam, every table split in two (100,000 rows, 50,000 a rank), bit for
+   bit phase_dlrm's fit, the tables gathered whole; (b) {"data": 2,
+   "model": 1} with Adam, the batch split in two and fed in order, within
+   1e-4 (losses relative, parameters absolute) of a world-1 fit of the
+   same global batches; (c) {"data": 1, "model": 2} with
+   ``dlrm_optimizer()``, within the same limits of its world-1 fit (the
+   check that Adafactor reduces over the whole table). Every run: the
+   loss falls by 10%, K1 launched once a forward pass on each rank, no
+   parameter off the card, both ranks' losses equal; samples/s, step ms,
+   peak memory and the share of the epochs inside all-reduces, a
+   ``{"sharded_dlrm": {...}}`` line (``--sharded`` runs phase_dlrm and
+   this phase alone).
    Then the serving plane (``phase_deploy``): ``serve.deploy`` of 2 light
    replicas a deployment on the card, in a cluster of the port. The DLRM
    cell with phase_dlrm's weights as epoch 0: 4 closed-loop clients for 3
@@ -3491,12 +3510,14 @@ def final_state(est) -> dict:
 
 
 def dlrm_estimator(device, dense_cols, cat_cols, optimizer, epochs, **kw):
+    settings = dict(batch_size=DLRM_RUN["batch"], learning_rate=DLRM_RUN["lr"],
+                    seed=SEED)
+    settings.update(kw)
     return Estimator(
         model=functools.partial(DLRM, **DLRM_MODEL), optimizer=optimizer,
         loss="bce", feature_columns=dense_cols + cat_cols,
         categorical_columns=cat_cols, label_column="label",
-        batch_size=DLRM_RUN["batch"], num_epochs=epochs,
-        learning_rate=DLRM_RUN["lr"], seed=SEED, device=device, **kw)
+        num_epochs=epochs, device=device, **settings)
 
 
 def dlrm_flops_per_step(batch: int) -> int:
@@ -4326,6 +4347,492 @@ def phase_etl(device, dlrm: dict = None) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4, continued: the serving plane, replicas on the card
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase_sharded_dlrm: examples/dlrm_criteo.py's dp x tp fit at full width
+# ---------------------------------------------------------------------------
+
+SHARDED_CLUSTER = dict(num_cpus=4)
+SHARDED_LIMIT_S = 600.0  # the world-2 job's every run
+SHARDED_DEADLINE_S = 15.0  # no process of the session after shutdown
+# the runs at world 2, two ranks on the one card over gloo through
+# create_spmd_job: (a) the tables split in two, Adam: bitwise world 1;
+# (b) the batch split in two, Adam, in order: held to a world-1 fit of the
+# same global batches; (c) the tables split, dlrm_optimizer(): held to its
+# world-1 fit
+SHARDED_RUNS = {
+    "model2_adam": dict(mesh={"data": 1, "model": 2}, optimizer="adam"),
+    "data2_adam": dict(mesh={"data": 2, "model": 1}, optimizer="adam",
+                       shuffle=False),
+    "model2_dlrm_optimizer": dict(mesh={"data": 1, "model": 2},
+                                  optimizer="dlrm_optimizer"),
+}
+# (b) and (c) against world 1, step by step: one step from the same
+# weights on the same global batch, its loss and every gradient (after the
+# data axis's average) relative, per tensor in norm; the tables' first
+# Adafactor update relative in norm (the whole table's means against a
+# block's sums all-reduced: rounding only)
+SHARDED_STEP_RTOL, SHARDED_TABLE_UPDATE_RTOL = 1e-5, 1e-4
+# and fit by fit: each epoch's loss and the evaluation's, absolute. Adam
+# takes the sign of a gradient near rounding noise as a full step, so two
+# world-1 fits of the same batches summed in another order part by ~0.03
+# in parameters within two epochs and 1e-4 in a loss; the fits are held
+# by their losses, the steps by their bits' worth
+SHARDED_FIT_LOSS_ATOL = 1e-3
+SHARDED_KEYS = ("world1_bitwise", "world1_samples_s", "order_yardstick",
+                "runs", "phase_s")
+
+
+@contextlib.contextmanager
+def timed_collectives(device):
+    """The host's seconds inside ``torch.distributed.all_reduce`` (the
+    device's queue drained first, so the time is the collective's own) and
+    the calls, while the block runs: ``{"s", "calls"}``. gloo blocks the
+    host for a CUDA tensor's all-reduce anyway."""
+    import torch.distributed as dist
+
+    spent = {"s": 0.0, "calls": 0}
+    plain = dist.all_reduce
+
+    def timed(*args, **kwargs):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        try:
+            return plain(*args, **kwargs)
+        finally:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+
+    dist.all_reduce = timed
+    try:
+        yield spent
+    finally:
+        dist.all_reduce = plain
+
+
+def sharded_fit(device, run: dict, ds=None, order=None, ckpt=None) -> dict:
+    """One DLRM fit of DLRM_RUN's epochs on ``run["mesh"]`` (a mesh of this
+    process group's ranks) with ``dlrm_sharding_rules``, and its
+    evaluation; K1's launches counted from 0 around both. The batch is
+    DLRM_RUN's over the data axis, so the global batch is DLRM_RUN's.
+    ``order`` feeds the fit the rows so (a world-1 fit of (b)'s global
+    batches); the evaluation is of ``ds`` as it is. With ``ckpt`` every
+    epoch ends in a checkpoint there (whole tensors, rank 0 writes).
+    Returns the losses, the evaluation, the parameters gathered whole, the
+    launches and the forward passes they must equal, whether every
+    parameter is on ``device``, samples/s and step ms over the epochs after
+    the first, the peak memory, and the share of those epochs inside
+    all-reduces."""
+    from raydp_tpu_torch.models import dlrm_sharding_rules
+    from raydp_tpu_torch.parallel import make_mesh
+    from raydp_tpu_torch.parallel.sharding import gather_state
+
+    if ds is None:
+        ds, _, _ = dlrm_data()
+    dense_cols = [f"i{i}" for i in range(DLRM_MODEL["num_dense"])]
+    cat_cols = [f"c{j}" for j in range(len(DLRM_MODEL["vocab_sizes"]))]
+    train = ds if order is None else ArrayDataset(
+        {k: v[order] for k, v in ds.columns.items()})
+    mesh = make_mesh(run["mesh"])
+    data = mesh.shape["data"]
+    batch = DLRM_RUN["batch"] // data
+    optimizer = (dlrm_optimizer() if run["optimizer"] == "dlrm_optimizer"
+                 else run["optimizer"])
+    est = dlrm_estimator(device, dense_cols, cat_cols, optimizer,
+                         DLRM_RUN["epochs"], mesh=mesh, batch_size=batch,
+                         param_sharding_rules=dlrm_sharding_rules(),
+                         shuffle=run.get("shuffle", True),
+                         checkpoint_dir=None if ckpt is None else str(ckpt))
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    ia.reset_launches()
+    with timed_collectives(device) as spent:
+        history = est.fit(train)
+        fit_collective_s = spent["s"]
+        evaluation = est.evaluate(ds)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches = ia.LAUNCHES["interaction_fwd"]
+    model = est.get_model()
+    steps = -(-len(train.columns["label"]) // data) // batch
+    eval_per = -(-len(ds.columns["label"]) // data)
+    timed = history[1:]
+    seconds = sum(r["epoch_seconds"] for r in timed)
+    return {
+        "mesh": dict(mesh.shape), "batch": batch,
+        "train_loss": [r["train_loss"] for r in history],
+        "evaluate": evaluation,
+        "final_state": {k: v.detach().cpu().clone() for k, v in gather_state(
+            model.state_dict(), model.placements).items()},
+        "table_rows": model.embedding_0.shape[0],
+        "launches": launches,
+        "forward_passes": DLRM_RUN["epochs"] * steps + -(-eval_per // batch),
+        "on_device": all(p.device.type == device.type
+                         for p in model.parameters()),
+        "samples_s": len(timed) * steps * batch * data / seconds,
+        "step_ms": 1e3 * seconds / (len(timed) * steps),
+        "peak_bytes": (torch.cuda.max_memory_allocated(device) - base
+                       if device.type == "cuda" else None),
+        "collective_calls": spent["calls"],
+        "collective_share": fit_collective_s / sum(
+            r["epoch_seconds"] for r in history),
+    }
+
+
+def sharded_step(device, run: dict, split: int) -> dict:
+    """One step of ``run``'s mesh and optimizer from SEED's weights on the
+    first global batch of DLRM_RUN's rows fed in order to ``split`` data
+    coordinates (``interleaved_order``), each rank on its block of it (the
+    driver-staged partitioner cuts the global batch, the rows the fit's
+    staging gives the rank): the loss and every gradient after
+    ``partition_step``, and the parameters after one optimizer step, whole
+    (split ones gathered)."""
+    from raydp_tpu_torch.estimator.estimator import LOSSES
+    from raydp_tpu_torch.models import dlrm_sharding_rules
+    from raydp_tpu_torch.optim import OPTIMIZERS
+    from raydp_tpu_torch.parallel import DataParallelPartitioner, make_mesh
+    from raydp_tpu_torch.parallel.sharding import gather_full, shard_module
+
+    ds, dense_cols, cat_cols = dlrm_data()
+    mesh = make_mesh(run["mesh"])
+    data = mesh.shape["data"]
+    rows = interleaved_order(DLRM_RUN["rows"], DLRM_RUN["batch"] // split,
+                             split)[:DLRM_RUN["batch"]]
+    (dense, ids), labels = ds.to_numpy_grouped(
+        [(dense_cols, np.float32), (cat_cols, np.int32)], "label")
+    part = DataParallelPartitioner(mesh, shard_direct=False, device=device)
+    x, y = part.shard_inputs(((dense[rows], ids[rows]), labels[rows]))
+    model = DLRM(**DLRM_MODEL, device=device, seed=SEED)
+    shard_module(model, dlrm_sharding_rules()(mesh, model))
+    named = list(model.named_parameters())
+    opt = (dlrm_optimizer() if run["optimizer"] == "dlrm_optimizer"
+           else OPTIMIZERS[run["optimizer"]](DLRM_RUN["lr"]))(named)
+
+    def grads(x, y):
+        loss = LOSSES["bce"](model(x), y)
+        loss.backward()
+        return loss
+
+    loss = part.partition_step(grads, params=[p for _, p in named])(x, y)
+
+    def whole(t, p):
+        return gather_full(t.detach().clone(), getattr(p, "placement", None)).cpu()
+
+    out = {"loss": float(loss.detach()),
+           "grads": {n: whole(p.grad, p) for n, p in named},
+           "start": {n: whole(p, p) for n, p in named}}
+    opt.step()
+    out["params"] = {n: whole(p, p) for n, p in named}
+    return out
+
+
+def step_gaps(got: dict, ref: dict) -> dict:
+    """One step against its world-1 step: the loss's relative gap, the
+    worst gradient's (per tensor, in norm), and the worst table's first
+    update's (``params - start``, in norm)."""
+    worst_grad, _ = grad_gap(got["grads"], ref["grads"])
+    tables = [n for n in ref["params"] if n.startswith("embedding_")]
+    updates = {n: got["params"][n] - got["start"][n] for n in tables}
+    ref_updates = {n: ref["params"][n] - ref["start"][n] for n in tables}
+    worst_update, _ = grad_gap(updates, ref_updates)
+    return {"loss_rel": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "worst_grad_rel": worst_grad, "worst_table_update_rel": worst_update,
+            "start_bitwise": all(torch.equal(got["start"][n], ref["start"][n])
+                                 for n in ref["start"])}
+
+
+def sharded_dlrm_rank(device_type: str, config: dict, runs: dict,
+                      ckpt_root: str, ctx) -> dict:
+    """One rank of the world-2 job (``create_spmd_job``, its group brought
+    up by ``bootstrap_torch``): every run of ``runs`` in turn through
+    ``sharded_fit``, on the card (or the CPU), its epoch checkpoints under
+    ``ckpt_root/<run>``."""
+    globals().update(config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device_type, 0) if device_type == "cuda" else \
+        torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    steps = {name: sharded_step(device, run, run["mesh"]["data"])
+             for name, run in runs.items() if name != "model2_adam"}
+    return {"rank": ctx.rank, "pid": os.getpid(), "steps": steps,
+            "runs": {name: sharded_fit(device, run,
+                                       ckpt=Path(ckpt_root) / name)
+                     for name, run in runs.items()}}
+
+
+def sharded_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The phase's line: each run's samples/s, step ms, peak memory and
+    all-reduce share (rank 0's, then rank 1's) beside the world-1 fit's."""
+    return {"sharded_dlrm": {
+        "world1_bitwise": rec["world1_bitwise"],
+        "world1_samples_s": rec["world1_samples_s"],
+        "world1_step_ms": rec["world1_step_ms"],
+        "order_yardstick": rec["order_yardstick"],
+        "runs": {name: {k: run[k] for k in (
+            "mesh", "bitwise", "loss_gap", "step", "epoch_gaps", "samples_s",
+            "step_ms", "peak_bytes", "collective_share", "launches",
+            "reference_samples_s")} for name, run in rec["runs"].items()},
+        "phase_s": rec["phase_s"]}, "nvidia_smi": nvidia_smi}
+
+
+def interleaved_order(rows: int, batch: int, data: int) -> np.ndarray:
+    """The rows of the global batches a mesh of ``data`` coordinates feeds
+    in order (no shuffle), ``batch`` rows a coordinate: batch s is
+    coordinate 0's batch s, then coordinate 1's, and so on (coordinate d
+    holds rows [d * rows/data, (d + 1) * rows/data))."""
+    per = -(-rows // data)
+    steps = per // batch
+    return np.concatenate([(np.arange(s * batch, (s + 1) * batch) + d * per) % rows
+                           for s in range(steps) for d in range(data)])
+
+
+def params_gap(got: dict, ref: dict) -> float:
+    require(got.keys() == ref.keys(), "the parameters differ in names")
+    return max(float((got[k].float() - ref[k].float()).abs().max()) for k in got)
+
+
+def epoch_gaps(got_dir: Path, ref_dir: Path, epochs: int) -> list:
+    """The parameter gap at the end of each epoch, from the two fits'
+    epoch checkpoints."""
+    from raydp_tpu_torch.estimator import checkpoint as ckpt
+
+    return [params_gap(ckpt.load_state(str(got_dir), e)["params"],
+                       ckpt.load_state(str(ref_dir), e)["params"])
+            for e in range(epochs)]
+
+
+def sharded_verdict(name: str, run: dict, device) -> None:
+    losses = run["train_loss"]
+    require(all(math.isfinite(x) for x in losses + [run["evaluate"]["eval_loss"]]),
+            f"sharded {name}: a loss is not finite")
+    require(losses[-1] < 0.9 * losses[0],
+            f"sharded {name}: the loss did not fall by 10%: {losses}")
+    want = run["forward_passes"] if device.type == "cuda" else 0
+    require(run["launches"] == want,
+            f"sharded {name}: interaction_fwd launched {run['launches']} "
+            f"times, expected {want}")
+    require(run["on_device"], f"sharded {name}: a parameter left {device}")
+
+
+def phase_sharded_dlrm(device, dlrm: dict) -> dict:
+    """examples/dlrm_criteo.py's dp x tp fit on the port at full width
+    (DLRM_MODEL on DLRM_RUN's data, f32, ``dlrm_sharding_rules``), held to
+    ``phase_dlrm``'s fit (``dlrm``, its ``final_state`` included):
+
+    - world 1 over NCCL in this process, mesh {"data": 1, "model": 1},
+      Adam: the losses, the evaluation and every parameter bit for bit
+      phase_dlrm's, as many K1 launches;
+    - world 2, two ranks of the cluster runtime on the one card over gloo,
+      launched by ``create_spmd_job`` and brought up by
+      ``bootstrap_torch``: SHARDED_RUNS (a), (b) and (c). (a) splits every
+      table in two, and each row looked up is its block's value plus
+      zeros, so the losses, evaluation and the tables gathered whole must
+      be phase_dlrm's bit for bit; (b) splits the batch, fed in order, and
+      is held to a world-1 fit of the same global batches
+      (``interleaved_order``), (c) is held to a world-1
+      ``dlrm_optimizer()`` fit: one step (``sharded_step``) within
+      SHARDED_STEP_RTOL and SHARDED_TABLE_UPDATE_RTOL, the fit's losses
+      within SHARDED_FIT_LOSS_ATOL, the epochs' parameter gaps reported
+      beside two world-1 fits of (b)'s batches summed in another order
+      (``order_yardstick``); both ranks report the same losses.
+
+    Every run: the loss falls by 10%, K1 launched once a forward pass on
+    every rank (none on the CPU), no parameter off the device; samples/s,
+    step ms, peak memory and the share of the epochs inside all-reduces.
+    The job's session has its own zygote; within SHARDED_DEADLINE_S of
+    ``cluster.shutdown()`` no process of it is left. On the CPU the same
+    runs go over gloo with the plain versions."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.cluster import api as cluster
+    from raydp_tpu_torch.cluster.common import _probe_pid
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    t0 = time.perf_counter()
+    here = importlib.import_module("chip_smoke")  # the rank program by reference
+    ref_state = dlrm["final_state"]
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        world1 = sharded_fit(device, {"mesh": {"data": 1, "model": 1},
+                                      "optimizer": "adam"})
+    finally:
+        dist.destroy_process_group()
+    sharded_verdict("world 1", world1, device)
+    bitwise = (world1["train_loss"] == dlrm["train_loss"]
+               and world1["evaluate"] == dlrm["evaluate"]
+               and world1["final_state"].keys() == ref_state.keys()
+               and all(torch.equal(world1["final_state"][k], ref_state[k])
+                       for k in ref_state))
+    require(bitwise, f"sharded world 1: losses {world1['train_loss']} vs "
+            f"{dlrm['train_loss']}, or the evaluation or a parameter differs")
+    require(world1["launches"] == dlrm["launches"],
+            f"sharded world 1: {world1['launches']} K1 launches, "
+            f"phase_dlrm {dlrm['launches']}")
+
+    # the world-1 fits (b) and (c) are held to
+    ds, _, _ = dlrm_data()
+    rows = DLRM_RUN["rows"]
+    root = BUILD_DIR / "sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    step_refs = {name: sharded_step(device, dict(run, mesh={"data": 1,
+                                                           "model": 1}),
+                                    run["mesh"]["data"])
+                 for name, run in SHARDED_RUNS.items() if name != "model2_adam"}
+    order = interleaved_order(rows, DLRM_RUN["batch"] // 2, 2)
+    in_order = {"mesh": {"data": 1, "model": 1}, "optimizer": "adam",
+                "shuffle": False}
+    refs = {
+        "data2_adam": sharded_fit(device, in_order, ds, order,
+                                  ckpt=root / "world1" / "data2_adam"),
+        # the same global batches with their halves swapped: the fit's own
+        # sensitivity to the order of its sums, the yardstick of (b)'s gaps
+        "swapped": sharded_fit(
+            device, in_order, ds,
+            order.reshape(-1, 2, DLRM_RUN["batch"] // 2)[:, ::-1].reshape(-1),
+            ckpt=root / "world1" / "swapped"),
+        "model2_dlrm_optimizer": sharded_fit(
+            device, {"mesh": {"data": 1, "model": 1},
+                     "optimizer": "dlrm_optimizer"}, ds,
+            ckpt=root / "world1" / "model2_dlrm_optimizer"),
+    }
+    config = {"DLRM_MODEL": DLRM_MODEL, "DLRM_RUN": DLRM_RUN, "SEED": SEED}
+    # a session-local zygote, which ends with the session (the machine-wide
+    # one outlives the script)
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    try:
+        session = cluster.init(**SHARDED_CLUSTER)
+        job = create_spmd_job("sharded-dlrm", world_size=2,
+                              timeout=SHARDED_LIMIT_S).start()
+        try:
+            sizes = job.bootstrap_torch()
+            require(sizes == [2, 2], f"the job's group: {sizes}")
+            ranks = job.run(functools.partial(here.sharded_dlrm_rank,
+                                              device.type, config,
+                                              SHARDED_RUNS,
+                                              str(root / "world2")),
+                            timeout=SHARDED_LIMIT_S)
+        finally:
+            job.stop()
+        cluster.shutdown()
+        pids = [r["pid"] for r in ranks]
+        t_gone = time.perf_counter()
+        _wait_for(lambda: not _session_procs(session)
+                  and not any(_probe_pid(p) == "alive" for p in pids),
+                  SHARDED_DEADLINE_S,
+                  f"the job's processes (ranks {pids}) to exit after shutdown")
+        gone_s = time.perf_counter() - t_gone
+    finally:
+        if cluster.is_initialized():
+            cluster.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    require(len(set(pids) | {os.getpid()}) == 3,
+            "the ranks are not two processes of their own")
+
+    swapped = refs["swapped"]
+    out = {"world1_bitwise": bitwise, "world1_samples_s": world1["samples_s"],
+           "world1_step_ms": world1["step_ms"], "runs": {},
+           "gone_after_shutdown_s": gone_s,
+           "launches": world1["launches"],
+           "order_yardstick": {
+               "epoch_gaps": epoch_gaps(root / "world1" / "swapped",
+                                        root / "world1" / "data2_adam",
+                                        DLRM_RUN["epochs"]),
+               "loss_gap": max(abs(a - b) for a, b in zip(
+                   swapped["train_loss"] + [swapped["evaluate"]["eval_loss"]],
+                   refs["data2_adam"]["train_loss"]
+                   + [refs["data2_adam"]["evaluate"]["eval_loss"]]))}}
+    for name in SHARDED_RUNS:
+        per_rank = [r["runs"][name] for r in ranks]
+        out["launches"] += sum(run["launches"] for run in per_rank)
+        first = per_rank[0]
+        if name == "model2_adam":
+            ref = {"train_loss": dlrm["train_loss"], "evaluate": dlrm["evaluate"],
+                   "final_state": ref_state}
+            gaps = step = None
+        else:
+            ref = refs[name]
+            gaps = epoch_gaps(root / "world2" / name, root / "world1" / name,
+                              DLRM_RUN["epochs"])
+            step = step_gaps(ranks[0]["steps"][name], step_refs[name])
+        pairs = list(zip(first["train_loss"] + [first["evaluate"]["eval_loss"]],
+                         ref["train_loss"] + [ref["evaluate"]["eval_loss"]]))
+        loss_rels = [abs(a - b) / abs(b) for a, b in pairs]
+        gap = params_gap(first["final_state"], ref["final_state"])
+        same = (first["train_loss"] == ref["train_loss"]
+                and first["evaluate"] == ref["evaluate"] and gap == 0.0)
+        out["runs"][name] = {
+            "mesh": first["mesh"], "batch_per_rank": first["batch"],
+            "table_rows_per_rank": first["table_rows"],
+            "train_loss": first["train_loss"],
+            "ranks_agree": all(run["train_loss"] == first["train_loss"]
+                               for run in per_rank),
+            "bitwise": same, "loss_rel": max(loss_rels),
+            "loss_rels": loss_rels,
+            "loss_gap": max(abs(a - b) for a, b in pairs), "step": step,
+            "param_gap": gap, "epoch_gaps": gaps,
+            "launches": [run["launches"] for run in per_rank],
+            "forward_passes": first["forward_passes"],
+            "samples_s": [run["samples_s"] for run in per_rank],
+            "step_ms": [run["step_ms"] for run in per_rank],
+            "peak_bytes": [run["peak_bytes"] for run in per_rank],
+            "collective_share": [run["collective_share"] for run in per_rank],
+            "collective_calls": [run["collective_calls"] for run in per_rank],
+            "reference_samples_s": (world1["samples_s"] if name == "model2_adam"
+                                    else refs[name]["samples_s"]),
+        }
+    out["phase_s"] = time.perf_counter() - t0
+    log("sharded dlrm: world 1 bitwise phase_dlrm's, "
+        f"{world1['samples_s']:.1f} samples/s; "
+        + "; ".join(f"{name} {run['mesh']}: {run['samples_s'][0]:.1f} samples/s, "
+                    f"step {run['step_ms'][0]:.2f} ms, all-reduce share "
+                    f"{run['collective_share'][0]:.3f}, losses "
+                    f"{run['train_loss']}, loss rels {run['loss_rels']}, "
+                    f"epoch parameter gaps {run['epoch_gaps']}, one step "
+                    f"{run['step']}"
+                    for name, run in out["runs"].items())
+        + f"; two world-1 fits of (b)'s batches, each batch's halves "
+        f"swapped: {out['order_yardstick']}; phase {out['phase_s']:.1f} s")
+    for name, run in out["runs"].items():
+        for rank, got in enumerate(r["runs"][name] for r in ranks):
+            sharded_verdict(f"{name} rank {rank}", got, device)
+        require(run["ranks_agree"], f"sharded {name}: the ranks report other "
+                "losses")
+        if name == "model2_adam":
+            require(run["bitwise"], f"sharded {name}: not bit for bit "
+                    f"phase_dlrm's fit (loss rel {run['loss_rel']:.3e}, "
+                    f"parameter gap {run['param_gap']:.3e})")
+        else:
+            step = run["step"]
+            require(step["start_bitwise"]
+                    and step["loss_rel"] <= SHARDED_STEP_RTOL
+                    and step["worst_grad_rel"] <= SHARDED_STEP_RTOL
+                    and step["worst_table_update_rel"]
+                    <= SHARDED_TABLE_UPDATE_RTOL,
+                    f"sharded {name}: one step against world 1's {step} "
+                    f"(limits {SHARDED_STEP_RTOL}, tables' update "
+                    f"{SHARDED_TABLE_UPDATE_RTOL})")
+            require(run["loss_gap"] <= SHARDED_FIT_LOSS_ATOL,
+                    f"sharded {name}: losses {run['train_loss']} against the "
+                    f"world-1 fit's, gap {run['loss_gap']:.3e} (limit "
+                    f"{SHARDED_FIT_LOSS_ATOL})")
+    return out
+
 
 DEPLOY_CLUSTER = dict(num_cpus=4, resources={"GPU": 1.0})
 DEPLOY_LIMIT_S = 150.0  # the whole phase
@@ -6101,7 +6608,7 @@ def quant_times(device) -> dict:
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
-                 etl: dict, seqpar: dict) -> dict:
+                 etl: dict, seqpar: dict, sharded: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -6111,7 +6618,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     ulysses_flash steps (every rank's) for the three f32 kernels; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation, the dlrm_optimizer epoch, the streamed and retried
-    fits of phase_fit and phase_etl's fits from the ETL Dataset for
+    fits of phase_fit, phase_etl's fits from the ETL Dataset and
+    phase_sharded_dlrm's fits (world 1 and every rank of world 2) for
     interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
@@ -6137,7 +6645,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         trained["twoterm_step"]["launches"]["flash_fwd_twoterm"]
     launches["interaction_fwd"] = (dlrm["launches"]
                                    + dlrm["dlrm_optimizer"]["launches"]
-                                   + fit["launches"] + etl["launches"])
+                                   + fit["launches"] + etl["launches"]
+                                   + sharded["launches"])
     int8_runs = [trained_int8, served["int8_mlp_run"], served["runs"][1]]
     for name in ("int8_gemm", "quantize_int8"):
         launches[name] = sum(run["launches"][name] for run in int8_runs)
@@ -6398,6 +6907,82 @@ def planted_faults() -> int:
     return 0 if all(row["caught"] for row in caught.values()) else 1
 
 
+LEFTOVER_DEADLINE_S = 15.0  # the script's processes gone at its end
+
+
+def own_processes() -> list:
+    """The live processes, other than this one, that the script started:
+    its descendants, and every process of the port's cluster runtime (a
+    head or zygote is re-parented when the process that started it
+    exits; one started before the script is not its). Zombies are already
+    dead, and this process's ancestors (a shell that names the repo) did
+    not come from it; both are left out."""
+    parents, started, runtime = {}, {}, set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except (OSError, ValueError):
+            continue
+        if fields[0] == "Z":
+            continue
+        # the state, the parent, ..., the start time in clock ticks
+        parents[int(entry)], started[int(entry)] = int(fields[1]), int(fields[19])
+        if b"raydp_tpu_torch" in cmdline:
+            runtime.add(int(entry))
+    runtime = {pid for pid in runtime
+               if started[pid] >= started.get(os.getpid(), 0)}
+
+    def chain(pid):
+        seen = []
+        while pid in parents and pid not in seen:
+            seen.append(pid)
+            pid = parents[pid]
+        return seen
+
+    ancestors = set(chain(os.getpid()))
+    return sorted(pid for pid in parents if pid not in ancestors
+                  and (pid in runtime or os.getpid() in chain(pid)))
+
+
+def phase_leftovers() -> dict:
+    """At the script's end: within LEFTOVER_DEADLINE_S no process that it
+    started is alive. Any still alive after that are named, killed, and
+    fail the run. multiprocessing's resource tracker, which the spawned
+    ranks started, is stopped first: it would end with the script, and
+    stopped it leaves nothing alive to tell apart from a leftover."""
+    import threading
+    from multiprocessing import resource_tracker
+
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + LEFTOVER_DEADLINE_S
+    # closes its pipe and reaps it; in a thread, since a process still
+    # holding the pipe would keep it alive (and is then named below)
+    threading.Thread(target=resource_tracker._resource_tracker._stop,
+                     daemon=True).start()
+    left = own_processes()
+    while left and time.monotonic() < deadline:
+        time.sleep(0.1)
+        left = own_processes()
+    named = {}
+    for pid in left:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                named[pid] = f.read().replace(b"\0", b" ").decode(
+                    errors="replace")
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            continue
+    require(not named, f"processes the script started outlived it: {named}")
+    gone_s = time.perf_counter() - t0
+    log(f"leftovers: none ({gone_s:.3f} s)")
+    return {"gone_s": gone_s}
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -6433,6 +7018,11 @@ def main(argv: list) -> int:
         dev = phase_device()
         log(json.dumps(seqpar_summary(phase_seqpar(device), dev["nvidia_smi"])))
         return 0
+    if argv == ["--sharded"]:
+        dev = phase_device()
+        sharded = phase_sharded_dlrm(device, phase_dlrm(device))
+        log(json.dumps(sharded_summary(sharded, dev["nvidia_smi"])))
+        return 0
     if argv == ["--deploy"]:
         dev = phase_device()
         deployed = phase_deploy(device, phase_dlrm(device)["final_state"])
@@ -6454,18 +7044,21 @@ def main(argv: list) -> int:
     record["dlrm"] = phase_dlrm(device)
     dlrm_state = record["dlrm"].pop("final_state")  # tensors, kept out of the record
     record["store"] = phase_store(device, dict(record["dlrm"], final_state=dlrm_state))
+    record["sharded"] = phase_sharded_dlrm(
+        device, dict(record["dlrm"], final_state=dlrm_state))
     record["etl"] = phase_etl(device, record["dlrm"])
     record["deploy"] = phase_deploy(device, dlrm_state)
     del dlrm_state
     record["fit"] = phase_fit(device, record["dlrm"])
     record["obs"] = phase_obs(device, record["dlrm"])
     record["times"] = phase_times(device)
+    record["leftovers"] = phase_leftovers()
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],
                            record["fit"], record["deploy"],
                            record["train_f32"], record["etl"],
-                           record["seqpar"])
+                           record["seqpar"], record["sharded"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -6501,6 +7094,7 @@ def main(argv: list) -> int:
                        "toolchain": dev["toolchain"]}}))
     log(json.dumps({"store": {k: record["store"][k] for k in STORE_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
+    log(json.dumps(sharded_summary(record["sharded"], dev["nvidia_smi"])))
     log(json.dumps({"etl": {k: record["etl"][k] for k in ETL_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}

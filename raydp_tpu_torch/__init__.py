@@ -42,7 +42,11 @@ Ported so far:
     ``ServeConf``'s session merge, ``explain_last_query``, the serving
     scenarios in ``chaos``) and sequence parallelism over
     ``torch.distributed`` (``parallel``: meshes of ranks, ring and Ulysses
-    attention; ``models.sequence_parallel_apply``).
+    attention; ``models.sequence_parallel_apply``);
+11. data and model parallelism: the partitioners and the sharding rules
+    (``parallel``), the vocab-sharded embedding (``ops.embedding``), the
+    estimator's ``mesh`` and ``param_sharding_rules``, and the rank
+    launcher (``spmd``: ``create_spmd_job``, ``elastic_fit``).
 """
 
 # name -> (module, attribute); None = the module itself. Resolved at first
@@ -65,6 +69,8 @@ _LAZY = {
     "MLDataset": ("raydp_tpu_torch.exchange.ml_dataset", "MLDataset"),
     "tenancy": ("raydp_tpu_torch.tenancy", None),
     "explain_last_query": ("raydp_tpu_torch.obs", "explain_last_query"),
+    "create_spmd_job": ("raydp_tpu_torch.spmd.job", "create_spmd_job"),
+    "elastic_fit": ("raydp_tpu_torch.spmd.elastic", "elastic_fit"),
 }
 
 __all__ = sorted(_LAZY)

@@ -74,12 +74,19 @@ def save_checkpoint(checkpoint_dir: str, epoch: int, step: Optional[int],
     """Write the training state; returns the bytes written. ``step`` is the
     number of completed steps within ``epoch``, None when the epoch is
     complete. An existing checkpoint of the same name is replaced."""
+    return save_state(checkpoint_dir, epoch, step,
+                      {"params": model.state_dict(),
+                       "opt_state": optimizer.state_dict()})
+
+
+def save_state(checkpoint_dir: str, epoch: int, step: Optional[int],
+               state: dict) -> int:
+    """Write ``{"params", "opt_state"}`` as ``save_checkpoint`` does."""
     path = checkpoint_path(checkpoint_dir, epoch, step)
     tmp = os.path.join(os.path.dirname(path),
                        f".tmp-{os.path.basename(path)}-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    state = {"params": model.state_dict(), "opt_state": optimizer.state_dict()}
     with open(os.path.join(tmp, STATE_FILE), "wb") as f:
         torch.save(state, f)
         f.flush()

@@ -68,10 +68,32 @@ cluster machinery the port does not have: ``donate_state`` (XLA buffer
 donation; torch updates parameters in place), ``scan_epochs`` and
 ``scan_memory_limit`` (an epoch as one ``lax.scan``; the port dispatches
 its steps from Python, and its hybrid cache's default budget is
-``scan_memory_limit``'s 1 GiB), ``shard_direct`` (per-process placement on
-a mesh), ``sync_every_steps`` (a bound on XLA's dispatch queue on tunneled
-transports; CUDA bounds its own launch queue). A mesh and sharding rules
-wait for ROADMAP Queue 1 item 3b and raise ``NotImplementedError``.
+``scan_memory_limit``'s 1 GiB), ``shard_direct`` (the estimator feeds
+each process's own rows, the partitioner's default), ``sync_every_steps``
+(a bound on XLA's dispatch queue on tunneled transports; CUDA bounds its
+own launch queue).
+
+Meshes (``mesh=``, a ``parallel.Mesh`` of ranks; by default a 1-D
+``"data"`` mesh over every rank of the default process group) and
+``param_sharding_rules=`` (``fn(mesh, model) -> {name: Placement}``, as
+``models.dlrm_sharding_rules()`` returns):
+
+- each rank runs the fit on its own device, in step with the others; the
+  rules split the parameters they name (``parallel.sharding.shard_module``)
+  and the optimizer is built on this rank's blocks;
+- with D ranks on the data axis, ``batch_size`` (rounded up to a multiple
+  of D, ``_effective_batch``) is the rows of each data coordinate's step,
+  as it is each process's in the JAX package (the global batch is D
+  times it): the ranks at coordinate d stage the d-th equal share of the
+  dataset (``ceil(n / D)`` rows, wrapping around), or stream its blocks
+  (``streaming_shard_plan``), and shuffle it by the epoch's seed;
+- every batch goes through the mesh's ``DataParallelPartitioner``
+  (``exchange.torch_io.partitioner_for``), which averages the gradients
+  and the loss over the data axis, so every rank reports the global loss;
+  evaluation sums its rows, losses and metric states over the data axis;
+- checkpoints hold whole tensors: the split parameters and their
+  optimizer state are gathered, rank 0 writes, and a resume cuts them to
+  the mesh it runs on, of any axis size.
 """
 
 from __future__ import annotations
@@ -94,7 +116,7 @@ from raydp_tpu_torch.estimator.base import EstimatorInterface, EtlEstimatorInter
 from raydp_tpu_torch.estimator.metrics import Metrics
 from raydp_tpu_torch.estimator.stream import StreamRunner, wire_dtype_of
 from raydp_tpu_torch.exchange.features import f0, fmap
-from raydp_tpu_torch.exchange.torch_io import PrefetchingDeviceIterator
+from raydp_tpu_torch.exchange.torch_io import PrefetchingDeviceIterator, partitioner_for
 from raydp_tpu_torch.obs import costmodel
 from raydp_tpu_torch.obs import profiler
 from raydp_tpu_torch.optim import OPTIMIZERS
@@ -133,13 +155,13 @@ STREAM_CACHE_DEFAULT_BYTES = 1 << 30
 RETRY_DELAY_S = 1.0
 
 
-def _refuse_later(**options) -> None:
-    """Raise for a multi-GPU option set to anything but None."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}={value!r} is ported in ROADMAP Queue 1 item 3b "
-                "(the estimator's mesh and sharding rules)")
+def _world() -> tuple:
+    """(rank, size) of the default process group; (0, 1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class _HostArrays:
@@ -198,12 +220,18 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         *,
         device=None,
     ):
-        _refuse_later(mesh=mesh, param_sharding_rules=param_sharding_rules)
+        from raydp_tpu_torch.parallel.mesh import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a raydp_tpu_torch.parallel.Mesh, "
+                            f"got {type(mesh).__name__}")
         if streaming not in (False, True, "hybrid"):
             raise ValueError(f"streaming={streaming!r}: use False, True or "
                              "'hybrid'")
         wire_dtype_of(stream_wire_quant)  # refuse an unknown wire early
         self.device = resolve_device(device)
+        self._mesh_arg = mesh
+        self.param_sharding_rules = param_sharding_rules
         self._model_arg = model
         self._optimizer_arg = optimizer
         self._loss_arg = loss
@@ -273,7 +301,55 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             )
         if not isinstance(model, nn.Module):
             model = model(device=self.device, seed=self.seed)
+        elif self.param_sharding_rules is not None:
+            # the rules cut the parameters in place: the caller's module
+            # keeps its whole tensors
+            model = copy.deepcopy(model)
         return model.to(self.device)
+
+    def _shard_model(self, model: nn.Module, state=None) -> nn.Module:
+        """Load ``state`` (whole tensors) into the model, then keep only
+        this rank's blocks of what ``param_sharding_rules`` splits."""
+        if state is not None:
+            model.load_state_dict(state)
+        if self.param_sharding_rules is not None:
+            from raydp_tpu_torch.parallel.sharding import Placement, shard_module
+
+            placements = self.param_sharding_rules(self._mesh, model)
+            if not isinstance(placements, dict) or not all(
+                    isinstance(v, Placement) for v in placements.values()):
+                raise TypeError("param_sharding_rules must map parameter "
+                                "names to Placements, got "
+                                f"{type(placements).__name__}")
+            shard_module(model, placements)
+        return model
+
+    def _resolve_mesh(self):
+        """The mesh given, or a 1-D ``"data"`` mesh over every rank."""
+        if self._mesh_arg is not None:
+            return self._mesh_arg
+        from raydp_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh({"data": -1})
+
+    def _effective_batch(self, mesh) -> int:
+        """Round the batch up to a multiple of the data axis."""
+        data_size = int(mesh.shape.get("data", 1))
+        batch = self.batch_size
+        if batch % max(1, data_size):
+            batch = ((batch // data_size) + 1) * data_size
+        return batch
+
+    def _data_coordinate(self) -> tuple:
+        """(D, d): the data axis's size and this rank's coordinate on it."""
+        size = int(self._mesh.shape.get("data", 1))
+        return size, (self._mesh.axis_index("data") if size > 1 else 0)
+
+    def _set_mesh(self) -> None:
+        self._mesh = self._resolve_mesh()
+        self._batch = self._effective_batch(self._mesh)
+        self._partitioner = partitioner_for(self._mesh, "data", True,
+                                            self.device)
 
     def _resolve_optimizer(self, model: nn.Module):
         opt = self._optimizer_arg
@@ -314,6 +390,10 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         return groups
 
     def _stage_host(self, ds) -> _HostArrays:
+        """The dataset as host arrays; with D ranks on the data axis, the
+        share of this rank's coordinate d: ``ceil(n / D)`` rows from row
+        ``d * ceil(n / D)``, wrapping around, so every coordinate runs the
+        same number of steps (the JAX package's per-process staging)."""
         groups = self._feature_groups()
         if groups is not None:
             features, labels = ds.to_numpy_grouped(
@@ -326,6 +406,13 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
                 feature_dtype=self.feature_dtype,
                 label_dtype=self.label_dtype,
             )
+        size, coord = self._data_coordinate()
+        if size > 1:
+            n = len(f0(features))
+            per = -(-n // size)
+            idx = (np.arange(per) + coord * per) % n
+            features = fmap(lambda a: a[idx], features)
+            labels = labels[idx] if labels is not None else None
         return _HostArrays(features, labels)
 
     def _block_batches(self, ds, batch_size: int, seed: Optional[int],
@@ -334,7 +421,13 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         """One epoch of host batches streamed from ``ds``'s blocks. With
         ``segment_rows`` the items are segment-sized slices and the tail is
         kept (the consumer trims it to whole batches); else batches, the
-        last partial one dropped."""
+        last partial one dropped. With D ranks on the data axis, the blocks
+        of this rank's coordinate's share (``streaming_shard_plan``)."""
+        from raydp_tpu_torch.exchange.dataset import streaming_shard_plan
+
+        size, coord = self._data_coordinate()
+        plan = (streaming_shard_plan(ds.counts, size, coord) if size > 1
+                else None)
         return ds.iter_batches(
             segment_rows or batch_size, self.feature_columns,
             self.label_column,
@@ -342,7 +435,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             drop_last=not segment_rows, feature_dtype=self.feature_dtype,
             label_dtype=self.label_dtype,
             feature_groups=self._feature_groups(), streaming=True,
-            executor_decode=self.stream_executor_decode,
+            executor_decode=self.stream_executor_decode, block_plan=plan,
         )
 
     def _to_device(self, x):
@@ -370,8 +463,11 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         attempts = 0
         self.retried_errors_ = []
         # retries resume only from checkpoints THIS run wrote: the newest one
-        # already on disk (a stale fit's, in a reused dir) is the baseline
-        retry_resume = max_retries > 0 and bool(self.checkpoint_dir)
+        # already on disk (a stale fit's, in a reused dir) is the baseline.
+        # Not with more than one rank: only rank 0 writes, and ranks must
+        # agree on the resume point (spmd.elastic_fit restarts the gang)
+        retry_resume = (max_retries > 0 and bool(self.checkpoint_dir)
+                        and _world()[1] == 1)
         baseline = (ckpt.latest_checkpoint(self.checkpoint_dir)
                     if retry_resume else None)
         saved_resume = self.resume_from_epoch
@@ -437,7 +533,8 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
                 self.resume_from_epoch = resume
 
     def _fit_once(self, train_ds, evaluate_ds) -> List[Dict[str, float]]:
-        batch = self.batch_size
+        self._set_mesh()
+        batch = self._batch
         loss_fn = self._resolve_loss()
         # the step recorder and an armed capture window, once per fit
         recorder = self._step_recorder = profiler.step_recorder()
@@ -447,14 +544,15 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         self._fit_step_wall = 0.0
         self.checkpoint_stats_ = {"saves": 0, "bytes": 0, "seconds": 0.0}
         with obs.span("estimator.compile", what="init") as init_span:
-            model = self._resolve_model()
-            opt = self._resolve_optimizer(model)
             model_state, opt_state = self._start_states or (None, None)
-            if model_state is not None:
-                model.load_state_dict(model_state)
+            model = self._shard_model(self._resolve_model(), model_state)
+            opt = self._resolve_optimizer(model)
             if opt_state is not None:
                 opt.load_state_dict(opt_state)
         self._train = (model, opt, loss_fn)
+        self._placements = getattr(model, "placements", {})
+        self._partitioned_grads = self._partitioner.partition_step(
+            self._grads, params=list(model.parameters()))
         param_dtype = getattr(model, "dtype", None) or next(
             model.parameters()).dtype
         self._peak_info = costmodel.device_peak_flops(
@@ -484,8 +582,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             # parameters' device, and keeps its step counts where they were
             state = ckpt.load_state(self.checkpoint_dir, epoch, step,
                                     map_location="cpu")
-            model.load_state_dict(state["params"])
-            opt.load_state_dict(state["opt_state"])
+            self._load_state(model, opt, state)
             start_epoch, start_step = ((epoch + 1, 0) if step is None
                                        else (epoch, step))
 
@@ -510,8 +607,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
                 self._history.append(record)
                 if self.checkpoint_dir:
                     self._save_checkpoint(model, opt, epoch)
-                    ckpt.gc_checkpoints(self.checkpoint_dir, epoch,
-                                        self.keep_checkpoints)
+                    self._gc_checkpoints(epoch)
         self._model = model
         self._finish_fit_stats()
         return self._history
@@ -526,7 +622,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             runner = StreamRunner(
                 self, self._run_steps,
                 lambda epoch, rows: self._block_batches(
-                    source, self.batch_size, self._epoch_seed(epoch),
+                    source, self._batch, self._epoch_seed(epoch),
                     segment_rows=rows))
             self.stream_stats_ = runner.stats
             runner.start(range(start_epoch, self.num_epochs), start_epoch,
@@ -574,19 +670,26 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             # record; finalize the epoch
             if self.checkpoint_dir:
                 self._save_checkpoint(model, opt, epoch)
-                ckpt.gc_checkpoints(self.checkpoint_dir, epoch,
-                                    self.keep_checkpoints)
+                self._gc_checkpoints(epoch)
             return None
         return {"epoch": epoch, "train_loss": loss_total / steps,
                 "epoch_seconds": epoch_span.duration}
 
     # -- the steps ---------------------------------------------------------
 
-    def _step(self, x, y, loss_sum):
-        model, opt, loss_fn = self._train
-        opt.zero_grad(set_to_none=True)
+    def _grads(self, x, y):
+        """The forward and the backward of this rank's rows; the loss."""
+        model, _, loss_fn = self._train
         loss = loss_fn(model(x), y)
         loss.backward()
+        return loss
+
+    def _step(self, x, y, loss_sum):
+        _, opt, _ = self._train
+        opt.zero_grad(set_to_none=True)
+        # the partitioner averages the gradients and the loss over the
+        # data axis (nothing with one rank on it)
+        loss = self._partitioned_grads(x, y)
         opt.step()
         return loss_sum + loss.detach()
 
@@ -631,9 +734,9 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
     def _staged_runner(self, train: _HostArrays):
         """The device-resident path: the training set goes to the card once;
         each epoch gathers its batches there by index."""
-        batch = self.batch_size
+        batch = self._batch
         steps = len(train) // batch
-        xs, ys = self._to_device(train.features), self._to_device(train.labels)
+        xs, ys = self._partitioner.shard_inputs((train.features, train.labels))
         save_every = self.save_every_steps if self.checkpoint_dir else None
         chunk = min(save_every or steps, steps)
 
@@ -662,10 +765,11 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         stream, uploaded a batch ahead."""
         recorder = self._step_recorder
         host_iter = block_iter = self._block_batches(
-            source, self.batch_size, self._epoch_seed(epoch))
+            source, self._batch, self._epoch_seed(epoch))
         if start_step:
             host_iter = itertools.islice(host_iter, start_step, None)
-        train_iter = PrefetchingDeviceIterator(host_iter, self.device)
+        train_iter = PrefetchingDeviceIterator(host_iter, self.device,
+                                               mesh=self._mesh)
         loss_sum = self._zero()
         steps = start_step
         pending_save = None
@@ -762,14 +866,16 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         if isinstance(source, _HostArrays):
             if source.labels is None:
                 raise ValueError("evaluation needs a label_column")
-            xs, ys = self._to_device(source.features), self._to_device(source.labels)
-            n, batch = len(source), self.batch_size
+            xs, ys = self._partitioner.shard_inputs(
+                (source.features, source.labels))
+            n, batch = len(source), self._batch
             batches = ((fmap(lambda a, s=s: a[s:s + batch], xs),
                         ys[s:s + batch]) for s in range(0, n, batch))
         else:
             batches = PrefetchingDeviceIterator(
-                self._block_batches(source, self.batch_size, None,
-                                    shuffle=False), self.device)
+                self._block_batches(source, self._batch, None,
+                                    shuffle=False), self.device,
+                mesh=self._mesh)
         model.eval()
         mstate = self._metrics.init_state(self.device)
         loss_sum = self._zero()
@@ -779,14 +885,32 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
             mstate = self._metrics.update(mstate, pred, y)
             loss_sum = loss_sum + loss_fn(pred, y) * len(y)
             rows += len(y)
+        if self._data_coordinate()[0] > 1:
+            loss_sum, rows, mstate = self._sum_over_data(loss_sum, rows,
+                                                         mstate)
         out = {"eval_loss": loss_sum.item() / max(rows, 1)}
         out.update({f"eval_{k}": v for k, v in self._metrics.compute(mstate).items()})
         return out
+
+    def _sum_over_data(self, loss_sum, rows: int, mstate):
+        """An evaluation's sums over the data axis: every coordinate's
+        rows, loss and metric states."""
+        import torch.distributed as dist
+
+        names = self._metrics.names
+        flat = torch.stack([loss_sum.float(), torch.tensor(
+            float(rows), device=loss_sum.device)]
+            + [t.float() for n in names for t in mstate[n]])
+        dist.all_reduce(flat, group=self._mesh.group("data"))
+        mstate = {n: (flat[2 + 2 * i], flat[3 + 2 * i])
+                  for i, n in enumerate(names)}
+        return flat[0], int(flat[1].item()), mstate
 
     def evaluate(self, ds) -> Dict[str, float]:
         """Evaluation with the trained model."""
         if self._model is None:
             raise RuntimeError("call fit() first")
+        self._set_mesh()
         source = ds if self.streaming else self._stage_host(ds)
         return self._evaluate(self._model, self._resolve_loss(), source)
 
@@ -818,13 +942,45 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
 
     def _save_checkpoint(self, model, opt, epoch: int,
                          step: Optional[int] = None) -> None:
+        """Every rank gathers the split tensors whole; rank 0 writes, and
+        the ranks wait for it, so the checkpoint is committed for all of
+        them when this returns."""
+        from raydp_tpu_torch.parallel import sharding
+
         t0 = time.perf_counter()
-        nbytes = ckpt.save_checkpoint(self.checkpoint_dir, epoch, step,
-                                      model, opt)
+        placements = getattr(self, "_placements", {})
+        state = {"params": model.state_dict(), "opt_state": opt.state_dict()}
+        if placements:
+            state = {"params": sharding.gather_state(state["params"],
+                                                     placements),
+                     "opt_state": sharding.gather_optimizer_state(
+                         opt, state["opt_state"])}
+        rank, world = _world()
+        nbytes = (ckpt.save_state(self.checkpoint_dir, epoch, step, state)
+                  if rank == 0 else 0)
+        if world > 1:
+            torch.distributed.barrier()
         stats = self.checkpoint_stats_
         stats["saves"] += 1
         stats["bytes"] += nbytes
         stats["seconds"] += time.perf_counter() - t0
+
+    def _gc_checkpoints(self, epoch: int) -> None:
+        if _world()[0] == 0:  # the writer removes
+            ckpt.gc_checkpoints(self.checkpoint_dir, epoch,
+                                self.keep_checkpoints)
+
+    def _load_state(self, model, opt, state: dict) -> None:
+        """A checkpoint's whole tensors into this rank's model and
+        optimizer, cut to the blocks the mesh gives it."""
+        from raydp_tpu_torch.parallel import sharding
+
+        placements = getattr(model, "placements", {})
+        model.load_state_dict(sharding.scatter_state(state["params"],
+                                                     placements))
+        if opt is not None:
+            opt.load_state_dict(sharding.scatter_optimizer_state(
+                opt, state["opt_state"]) if placements else state["opt_state"])
 
     def _load_params(self, epoch: int, step: Optional[int]) -> dict:
         """Restore a checkpoint's parameters into the model (built when
@@ -832,8 +988,9 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         state = ckpt.load_state(self.checkpoint_dir, epoch, step,
                                 map_location="cpu")
         if self._model is None:
-            self._model = self._resolve_model()
-        self._model.load_state_dict(state["params"])
+            self._set_mesh()
+            self._model = self._shard_model(self._resolve_model())
+        self._load_state(self._model, None, state)
         return state["params"]
 
     def load_checkpoint(self, epoch: int) -> dict:

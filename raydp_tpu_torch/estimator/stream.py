@@ -84,7 +84,7 @@ class StreamRunner:
     def __init__(self, est, run_steps: Callable, plan: Callable):
         self._run_steps = run_steps
         self._plan = plan
-        self._batch = est.batch_size
+        self._batch = est._batch
         self._shuffle, self._seed = est.shuffle, est.seed
         self._recorder = est._step_recorder
         self.save_every = (int(est.save_every_steps)
@@ -105,7 +105,8 @@ class StreamRunner:
         self._single_leaf = groups is None
 
         self._uploader = SegmentUploader(
-            est.device, depth=max(2, est.stream_prefetch_segments))
+            est.device, depth=max(2, est.stream_prefetch_segments),
+            partitioner=est._partitioner)
         self._depth = est.stream_prefetch_segments
         self.stats: Dict[str, Any] = {
             "bytes_uploaded": 0,

@@ -19,8 +19,13 @@ half of ``raydp_tpu/exchange/jax_io.py``.
 - ``coalesce_segment`` shapes a segment-sized host slice into stacked
   batches.
 
-The mesh helpers of ``jax_io`` (sharded placement) wait for ROADMAP Queue
-1 item 3b.
+The mesh helpers of ``jax_io``: ``partitioner_for`` gives the one
+``parallel.partitioner.DataParallelPartitioner`` of a (mesh, axis, mode,
+device), from a bounded cache of 8, and every feed here goes through it:
+``device_put_batch`` / ``device_put_stacked``, and the ``mesh=`` of
+``PrefetchingDeviceIterator``, ``SegmentUploader`` and
+``dataset_batches_on_device``. ``data_sharding`` is the placement spec
+that splits the batch dim over an axis.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Iterator, List, Optional, Tuple
+from functools import partial
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +49,55 @@ def _leaves(x) -> list:
 
 def _like(x, leaves):
     return tuple(leaves) if isinstance(x, tuple) else leaves[0]
+
+
+def data_sharding(mesh=None, *, axis: str = "data", rank: int = 2) -> tuple:
+    """The spec that splits the leading (batch) dim over ``axis`` (the
+    stand-in for ``NamedSharding(mesh, P(axis, None, ...))``)."""
+    return (axis,) + (None,) * (rank - 1)
+
+
+# one partitioner per (mesh, axis, mode, device): its counters and resolved
+# flags live on it. Bounded: an estimator builds a mesh per fit, and an
+# unbounded dict keyed by id(mesh) would keep one per fit for the life of
+# the process
+_partitioner_cache: dict = {}
+_PARTITIONER_CACHE_MAX = 8
+
+
+def partitioner_for(mesh, axis: str = "data", shard_direct: bool = True,
+                    device=None):
+    """The shared ``DataParallelPartitioner`` for ``mesh``: every feed
+    helper of this module routes through it, so the placement rules have
+    one implementation (``parallel/partitioner.py``)."""
+    from raydp_tpu_torch._device import resolve_device
+    from raydp_tpu_torch.parallel.partitioner import DataParallelPartitioner
+
+    device = resolve_device(device)
+    key = (id(mesh), axis, bool(shard_direct), str(device))
+    part = _partitioner_cache.get(key)
+    if part is None or part.mesh is not mesh:
+        part = DataParallelPartitioner(mesh, axis, shard_direct=shard_direct,
+                                       device=device)
+        while len(_partitioner_cache) >= _PARTITIONER_CACHE_MAX:
+            _partitioner_cache.pop(next(iter(_partitioner_cache)))
+        _partitioner_cache[key] = part
+    return part
+
+
+def device_put_batch(batch, mesh, axis: str = "data",
+                     shard_direct: bool = True, device=None):
+    """A host batch (an array or a tuple of arrays) on this rank's device,
+    through ``Partitioner.shard_inputs``."""
+    return partitioner_for(mesh, axis, shard_direct, device).shard_inputs(batch)
+
+
+def device_put_stacked(arr, mesh, axis: str = "data",
+                       shard_direct: bool = True, device=None):
+    """A stacked [S, B, ...] host segment on this rank's device (the scan
+    dim whole, the batch dim split over ``axis``), through
+    ``Partitioner.shard_stacked``."""
+    return partitioner_for(mesh, axis, shard_direct, device).shard_stacked(arr)
 
 
 def put_batch(batch, device: torch.device):
@@ -59,9 +114,11 @@ class PrefetchingDeviceIterator:
     deltas)."""
 
     def __init__(self, host_iter: Iterator, device: torch.device,
-                 depth: int = 1):
+                 depth: int = 1, *, mesh=None, axis: str = "data"):
         self._host_iter = iter(host_iter)
         self._device = device
+        self._put = (partial(put_batch, device=device) if mesh is None else
+                     partitioner_for(mesh, axis, device=device).shard_inputs)
         self._depth = max(1, int(depth))
         self._pending: deque = deque()
         self._exhausted = False
@@ -80,7 +137,7 @@ class PrefetchingDeviceIterator:
                 return
             t1 = time.perf_counter()
             self.host_s += t1 - t0
-            self._pending.append(put_batch(batch, self._device))
+            self._pending.append(self._put(batch))
             self.h2d_s += time.perf_counter() - t1
 
     def __iter__(self):
@@ -165,8 +222,12 @@ class SegmentUploader:
     """``depth``-way rotating H2D staging (see the module docstring).
     ``upload(hx, hy)`` returns a :class:`Segment`."""
 
-    def __init__(self, device: torch.device, depth: int = 2):
+    def __init__(self, device: torch.device, depth: int = 2, *, mesh=None,
+                 axis: str = "data", partitioner=None):
         self._device = device
+        if partitioner is None and mesh is not None:
+            partitioner = partitioner_for(mesh, axis, device=device)
+        self._partitioner = partitioner
         self._depth = max(2, int(depth))
         self._cuda = device.type == "cuda"
         self._slots: List[Optional[list]] = [None] * self._depth
@@ -185,6 +246,8 @@ class SegmentUploader:
         return self._cuda
 
     def upload(self, hx, hy) -> Segment:
+        if self._partitioner is not None:
+            hx, hy = self._partitioner.local_inputs((hx, hy), stacked=True)
         hosts = [torch.from_numpy(np.ascontiguousarray(a))
                  for a in _leaves(hx) + [hy]]
         if not self._cuda:
@@ -264,3 +327,26 @@ def coalesce_segment(features, labels, batch_size: int):
 
     yb = None if labels is None else _r(labels)
     return fmap(_r, features), yb, k
+
+
+def dataset_batches_on_device(
+    dataset,
+    mesh,
+    batch_size: int,
+    feature_columns: Sequence[str],
+    label_column: Optional[str] = None,
+    shuffle: bool = False,
+    seed: Optional[int] = None,
+    axis: str = "data",
+    drop_last: bool = True,
+    device=None,
+) -> Iterator:
+    """(features, labels) batches of ``dataset`` on this rank's device,
+    through the mesh's partitioner, one batch ahead."""
+    from raydp_tpu_torch._device import resolve_device
+
+    host = dataset.iter_batches(
+        batch_size, feature_columns, label_column, shuffle=shuffle,
+        seed=seed, drop_last=drop_last)
+    return PrefetchingDeviceIterator(host, resolve_device(device), mesh=mesh,
+                                     axis=axis)

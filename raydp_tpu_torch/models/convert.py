@@ -11,6 +11,11 @@ top MLP (flax numbers unnamed layers across both), ``bottom_proj``,
 ``embedding_i`` (bare [vocab, D] arrays) and ``head``. A gradient tree has
 the same structure and converts the same way. Flax ``Dense`` kernels are [in, out];
 ``nn.Linear`` weights are [out, in], so every kernel is transposed.
+
+A DLRM whose tables are split over a mesh axis takes its weights through
+``table_shard``: the rows of a whole table that the rank at a coordinate
+holds (``parallel.sharding.scatter_state`` cuts a whole state dict so;
+``gather_full`` is the inverse, on the ranks).
 """
 
 from __future__ import annotations
@@ -86,3 +91,15 @@ def dlrm_params_from_flax(params: dict) -> dict:
         out[f"embedding_{table}"] = _t(tree[f"embedding_{table}"])
         table += 1
     return out
+
+
+def table_shard(table, axis_size: int, axis_index: int) -> np.ndarray:
+    """The rows of a whole [V, D] table held by the rank at coordinate
+    ``axis_index`` of an axis of ``axis_size`` ranks: ``[axis_index * V/N,
+    (axis_index + 1) * V/N)``."""
+    table = np.asarray(table)
+    if table.shape[0] % axis_size:
+        raise ValueError(f"{table.shape[0]} rows do not split over "
+                         f"{axis_size} ranks")
+    rows = table.shape[0] // axis_size
+    return table[axis_index * rows:(axis_index + 1) * rows]

@@ -16,7 +16,13 @@ moves every row each step, as optax does. The dense layers sit in one
 ``ModuleList`` named ``dense``, bottom then top, numbered as flax numbers
 ``Dense_i`` across both; ``bottom_proj``, ``embedding_i`` and ``head`` keep
 flax's names (``models.convert.dlrm_params_from_flax``).
-``dlrm_sharding_rules`` belongs to ROADMAP Queue 1 item 3b.
+
+``dlrm_sharding_rules`` splits the tables over the "model" axis of a mesh
+of ranks. ``parallel.sharding.shard_module`` (the estimator calls it) then
+keeps on each rank only its ``[V/N, D]`` rows, at global row ``axis_index
+* V/N``, and the forward looks the ids up through
+``ops.embedding.sharded_embedding_lookup``; a table the rules leave whole
+(a vocab the axis does not divide) keeps ``F.embedding``.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch import nn
 
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.models.mlp import init_dense, linear
+from raydp_tpu_torch.ops.embedding import sharded_embedding_lookup
 from raydp_tpu_torch.ops.interaction import dot_interaction, dot_interaction_fused
 from raydp_tpu_torch.optim import adafactor, adam, multi_transform
 
@@ -117,9 +124,17 @@ class DLRM(nn.Module):
         h = linear(self.bottom_proj, h, self.dtype)
 
         stacked = [h]
+        placements = getattr(self, "placements", {})
         for i, vocab in enumerate(self.vocab_sizes):
             table = getattr(self, f"embedding_{i}").to(self.dtype)
-            stacked.append(F.embedding(ids[:, i].clamp(0, vocab - 1).long(), table))
+            col = ids[:, i].clamp(0, vocab - 1).long()
+            placement = placements.get(f"embedding_{i}")
+            if placement is None:
+                stacked.append(F.embedding(col, table))
+            else:
+                (axis,) = placement.axes
+                stacked.append(sharded_embedding_lookup(
+                    table, col, placement.mesh, axis))
         t = torch.stack(stacked, dim=1)  # [B, 1+S, D]
 
         if self.use_pallas_interaction is False:
@@ -152,3 +167,12 @@ def dlrm_optimizer(embedding_lr: float = 1e-2, dense_lr: float = 1e-3):
         },
         label,
     )
+
+
+def dlrm_sharding_rules():
+    """``param_sharding_rules`` for the estimator: the embedding tables
+    split by rows over the "model" axis, everything else whole on every
+    rank."""
+    from raydp_tpu_torch.parallel.sharding import sharding_rules_fn
+
+    return sharding_rules_fn([(r"embedding_\d+", ("model", None))])

@@ -12,8 +12,9 @@ returned as the strict lower triangle packed row by row, [B, F(F-1)/2]:
   tensor and runs ``dot_interaction_plain`` on a CPU tensor. Its backward is
   the JAX package's custom-VJP backward in torch ops, the same on both
   devices (the JAX package too computes it in XLA, outside any kernel).
-- ``dot_interaction_fused``: the name the model calls. On one device it is
-  ``dot_interaction_kernel``.
+- ``dot_interaction_fused``: the name the model calls,
+  ``dot_interaction_kernel`` on this rank's batch shard, alone or under a
+  process group of any size.
 
 ``LAUNCHES`` counts kernel launches; the plain version does not count. A
 launch also reports its FLOPs (2 * D a pair) to ``ops._flops``, since a
@@ -137,13 +138,11 @@ def dot_interaction_kernel(stacked: torch.Tensor) -> torch.Tensor:
 
 
 def dot_interaction_fused(stacked: torch.Tensor) -> torch.Tensor:
-    """The interaction the model calls. On one device it is
-    ``dot_interaction_kernel``. Under a process group of more than one rank
-    (the JAX package runs the kernel per shard under a mesh) it raises."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "dot_interaction_fused over more than one device (the kernel per "
-            "batch shard) is ported in ROADMAP Queue 1 item 3b (multi-rank K1)"
-        )
+    """The interaction the model calls: ``dot_interaction_kernel`` on the
+    tensor this rank holds. The JAX package wraps its kernel in
+    ``shard_map`` over the batch axes under a mesh of devices, so that each
+    device runs it on its batch shard; a rank of the port holds only its
+    batch shard to begin with, so under a process group of any size the
+    kernel runs once a forward on this rank's rows (the plain version on a
+    CPU tensor, the kernel or an error on a CUDA tensor)."""
     return dot_interaction_kernel(stacked)

@@ -72,6 +72,26 @@ def _factored_dims(shape, min_dim_size_to_factor: int):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
+def _mean(x: torch.Tensor, dim: int, placement, param_dim: int) -> torch.Tensor:
+    """``x.mean(dim)``, where ``dim`` of ``x`` is dim ``param_dim`` of a
+    parameter placed by ``placement``: over the whole parameter when that
+    dim is split over ranks (the sum all-reduced, over the global size)."""
+    if placement is None or placement.split(param_dim) == 1:
+        return x.mean(dim=dim)
+    total = x.sum(dim=dim)
+    placement.all_reduce(total, dims=[param_dim])
+    return total / placement.global_shape[param_dim]
+
+
+def _mean_all(x: torch.Tensor, placement) -> torch.Tensor:
+    """``torch.mean(x)`` over the whole parameter ``x`` is a block of."""
+    if placement is None:
+        return torch.mean(x)
+    total = x.sum().reshape(1)
+    placement.all_reduce(total)
+    return total[0] / placement.numel()
+
+
 class Adafactor(torch.optim.Optimizer):
     """``optax.adafactor`` with its defaults (no momentum, no weight decay):
 
@@ -86,7 +106,15 @@ class Adafactor(torch.optim.Optimizer):
 
     The row/column statistics are optax's for either orientation of a
     matrix (a flax kernel is the transpose of an ``nn.Linear`` weight), as
-    the factored update is symmetric in the two axes."""
+    the factored update is symmetric in the two axes.
+
+    A parameter split over ranks (its ``placement``, from
+    ``parallel.sharding.shard_module``) is one block of a whole tensor, and
+    optax under GSPMD reduces over the whole tensor: the factored dims are
+    chosen on the global shape, and each mean over a split dim (a
+    statistic, the mean of the row statistic, the update's RMS, the
+    parameter's RMS) is a sum all-reduced over the ranks holding the other
+    blocks, divided by the global count."""
 
     def __init__(self, params, lr: float | None = None,
                  min_dim_size_to_factor: int = 128):
@@ -103,8 +131,28 @@ class Adafactor(torch.optim.Optimizer):
                     self._update(p, p.grad, self.state[p], group)
 
     @staticmethod
-    def _update(p, g, state, group) -> None:
-        dims = _factored_dims(tuple(p.shape), group["min_dim_size_to_factor"])
+    def _placement(p):
+        placement = getattr(p, "placement", None)
+        return None if placement is None or placement.replicated else placement
+
+    def state_dims(self, p, key: str):
+        """The dims of ``p`` that its state tensor ``key`` keeps (None:
+        all of them), for gathering and cutting a split parameter's
+        state."""
+        placement = self._placement(p)
+        dims = _factored_dims(placement.global_shape if placement else p.shape,
+                              self.defaults["min_dim_size_to_factor"])
+        if key == "v" or dims is None:
+            return None
+        d1, d0 = dims
+        drop = d0 if key == "v_row" else d1
+        return [d for d in range(p.dim()) if d != drop]
+
+    @classmethod
+    def _update(cls, p, g, state, group) -> None:
+        placement = cls._placement(p)
+        shape = placement.global_shape if placement else tuple(p.shape)
+        dims = _factored_dims(shape, group["min_dim_size_to_factor"])
         if not state:
             state["step"] = 0
             if dims is None:
@@ -122,20 +170,21 @@ class Adafactor(torch.optim.Optimizer):
         else:
             d1, d0 = dims
             v_row = state["v_row"].mul_(decay).add_(
-                (1.0 - decay) * grad_sqr.mean(dim=d0))
+                (1.0 - decay) * _mean(grad_sqr, d0, placement, d0))
             v_col = state["v_col"].mul_(decay).add_(
-                (1.0 - decay) * grad_sqr.mean(dim=d1))
+                (1.0 - decay) * _mean(grad_sqr, d1, placement, d1))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = _mean(v_row, reduced_d1, placement, d1).unsqueeze(
+                reduced_d1)
             row_factor = (v_row / row_col_mean).pow(-0.5)
             col_factor = v_col.pow(-0.5)
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         state["step"] += 1
-        rms = torch.sqrt(torch.mean(u * u))
+        rms = torch.sqrt(_mean_all(u * u, placement))
         u = u / torch.clamp(rms / ADAFACTOR_CLIPPING_THRESHOLD, min=1.0)
         if group["lr"] is not None:
             u = u * group["lr"]
-        p_rms = torch.sqrt(torch.mean(p * p))
+        p_rms = torch.sqrt(_mean_all(p * p, placement))
         u = u * torch.where(p_rms <= ADAFACTOR_MIN_SCALE, ADAFACTOR_MIN_SCALE,
                             p_rms)
         p.add_(-u)

@@ -1,11 +1,11 @@
 """Parallel layers of the port over ``torch.distributed``: meshes of ranks
-(``mesh.py``) and sequence parallelism, ring and Ulysses attention
-(``ring_attention.py``), under the names the JAX package's ``parallel``
-exports.
+(``mesh.py``), sequence parallelism, ring and Ulysses attention
+(``ring_attention.py``), the partitioners (``partitioner.py``) and the
+parameter-sharding rules (``sharding.py``), under the names the JAX
+package's ``parallel`` exports.
 
-The partitioners and sharding rules come with ROADMAP Queue 1 item 3b,
-mixture-of-experts and pipeline parallelism with item 3c; until then those
-names raise ``NotImplementedError``.
+Mixture-of-experts and pipeline parallelism come with ROADMAP Queue 1
+item 3c; until then those names raise ``NotImplementedError``.
 """
 
 from raydp_tpu_torch.parallel.mesh import (
@@ -17,14 +17,23 @@ from raydp_tpu_torch.parallel.mesh import (
     mesh_axis_size,
     multihost_mesh,
 )
+from raydp_tpu_torch.parallel.partitioner import (
+    DataParallelPartitioner,
+    NullPartitioner,
+    Partitioner,
+)
 from raydp_tpu_torch.parallel.ring_attention import (
     full_attention,
     ring_attention,
     ring_attention_sharded,
     ulysses_attention,
 )
+from raydp_tpu_torch.parallel.sharding import (
+    Placement,
+    shard_params_by_rules,
+    sharding_rules_fn,
+)
 
-_ITEM_3B = "ROADMAP Queue 1 item 3b (partitioner, sharding, embedding)"
 _ITEM_3C = "ROADMAP Queue 1 item 3c (moe and pipeline)"
 
 
@@ -36,18 +45,6 @@ def _later_function(name: str, where: str):
     return later
 
 
-def _later_class(name: str, where: str):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} is ported in {where}")
-
-    return type(name, (), {"__init__": __init__})
-
-
-Partitioner = _later_class("Partitioner", _ITEM_3B)
-NullPartitioner = _later_class("NullPartitioner", _ITEM_3B)
-DataParallelPartitioner = _later_class("DataParallelPartitioner", _ITEM_3B)
-shard_params_by_rules = _later_function("shard_params_by_rules", _ITEM_3B)
-sharding_rules_fn = _later_function("sharding_rules_fn", _ITEM_3B)
 moe_apply = _later_function("moe_apply", _ITEM_3C)
 moe_sharded = _later_function("moe_sharded", _ITEM_3C)
 pipeline_apply = _later_function("pipeline_apply", _ITEM_3C)
@@ -58,6 +55,7 @@ __all__ = [
     "Mesh",
     "NullPartitioner",
     "Partitioner",
+    "Placement",
     "axis_env_size",
     "bound_axes",
     "moe_apply",

@@ -137,11 +137,21 @@ def mesh_axis_size(mesh: Mesh, axis: str) -> int:
     return int(mesh.shape.get(axis, 1))
 
 
-def multihost_mesh(axes: Dict[str, int], process_axis: str = "data"):
-    """A mesh over hosts: it needs the rank launcher of ``spmd/``, which
-    comes with a later slice."""
-    raise NotImplementedError(
-        "multihost_mesh waits for spmd/bootstrap (ROADMAP Queue 1 item 3b)")
+def multihost_mesh(axes: Dict[str, int], process_axis: str = "data") -> Mesh:
+    """A mesh over the ranks of the default process group, brought up by
+    ``spmd.bootstrap.initialize_from_env`` (rank 0 alone without one),
+    with ``process_axis`` spanning the ranks slowest, as the JAX package
+    spans hosts: the ranks are laid out with ``process_axis`` outermost and
+    the array is transposed back to the caller's axis order."""
+    if process_axis not in axes:
+        raise ValueError(f"process_axis {process_axis!r} not in axes {list(axes)}")
+    names = list(axes.keys())
+    ordered = [process_axis] + [a for a in names if a != process_axis]
+    built = make_mesh({a: axes[a] for a in ordered})
+    if ordered == names:
+        return built
+    perm = [ordered.index(a) for a in names]
+    return Mesh(np.transpose(built.ranks, perm), names)
 
 
 # ---------------------------------------------------------------------------

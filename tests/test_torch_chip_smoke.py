@@ -8,6 +8,10 @@ a DLRM epoch's optimizer step). The window here is made of stand-in events.
 """
 
 import os
+import signal
+import subprocess
+import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -756,10 +760,14 @@ def test_phase_store_on_the_cpu(store_alarm_guard, tiny_store):
     assert rec["phase_s"] <= chip_smoke.STORE_LIMIT_S
 
 
-def test_store_fit_fails_on_other_parameters(store_alarm_guard, tiny_store):
+def test_store_fit_fails_on_other_parameters(store_alarm_guard, tiny_store,
+                                            monkeypatch):
     """A fit from store blocks that ends one parameter away from the numpy
     fit's fails the phase."""
     from raydp_tpu_torch import cluster, store
+
+    # a session-local zygote, gone with the session
+    monkeypatch.setenv("RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE", "1")
 
     reference = dict(tiny_store)
     state = dict(reference["final_state"])
@@ -907,7 +915,10 @@ def _stop_etl_sessions():
 
 
 @pytest.fixture
-def etl_clean():
+def etl_clean(monkeypatch):
+    # session-local zygotes, gone with their sessions
+    monkeypatch.setenv("RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE", "1")
+    monkeypatch.setenv("RAYDP_TPU_NO_GLOBAL_ZYGOTE", "1")
     _stop_etl_sessions()
     yield
     _stop_etl_sessions()
@@ -1084,3 +1095,114 @@ def test_seqpar_verdict_fails_a_launch_count_off_the_reckoning():
     rec["worst_grad_rel"] = 2e-4
     with pytest.raises(chip_smoke.SmokeFailure, match="disagree"):
         chip_smoke.seqpar_verdict(rec)
+
+
+@pytest.fixture
+def tiny_sharded(monkeypatch):
+    """The store's tiny DLRM at 2,048 rows (8 global steps an epoch) and a
+    learning rate of 1e-2, so 3 epochs drop the loss by 10%."""
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN", dict(
+        chip_smoke.DLRM_RUN, rows=2048, batch=256, blocks=2, lr=1e-2))
+    monkeypatch.setattr(chip_smoke, "DLRM_MODEL",
+                        dict(chip_smoke.DLRM_MODEL, vocab_sizes=TINY_VOCABS))
+    return _numpy_fit_reference()
+
+
+def test_phase_sharded_dlrm_on_the_cpu(store_alarm_guard, tiny_sharded):
+    """phase_sharded_dlrm at a tiny width with the plain versions: world 1
+    over gloo in this process bitwise the numpy fit phase_dlrm runs, then
+    the three world-2 runs on two ranks of the cluster runtime launched by
+    create_spmd_job; (a) bitwise, (b) and (c) within their limits; no
+    launches (the plain version launches nothing)."""
+    rec = chip_smoke.phase_sharded_dlrm(torch.device("cpu"), tiny_sharded)
+    assert set(chip_smoke.SHARDED_KEYS) <= set(rec)
+    assert rec["world1_bitwise"] and rec["launches"] == 0
+    assert len(rec["order_yardstick"]["epoch_gaps"]) == \
+        chip_smoke.DLRM_RUN["epochs"]
+    runs = rec["runs"]
+    assert set(runs) == set(chip_smoke.SHARDED_RUNS)
+    assert runs["model2_adam"]["bitwise"]
+    assert runs["model2_adam"]["table_rows_per_rank"] == \
+        chip_smoke.DLRM_MODEL["vocab_sizes"][0] // 2
+    assert runs["data2_adam"]["batch_per_rank"] == \
+        chip_smoke.DLRM_RUN["batch"] // 2
+    for name, run in runs.items():
+        if name != "model2_adam":
+            assert run["loss_gap"] <= chip_smoke.SHARDED_FIT_LOSS_ATOL
+            assert run["step"]["start_bitwise"]
+            assert run["step"]["worst_grad_rel"] <= chip_smoke.SHARDED_STEP_RTOL
+            assert len(run["epoch_gaps"]) == chip_smoke.DLRM_RUN["epochs"]
+        assert run["launches"] == [0, 0]
+        assert all(share > 0 for share in run["collective_share"])
+    assert rec["phase_s"] <= chip_smoke.SHARDED_LIMIT_S
+
+
+def test_sharded_verdict_fails_a_launch_off_the_forward_passes():
+    run = {"train_loss": [1.0, 0.5], "evaluate": {"eval_loss": 0.5},
+           "launches": 9, "forward_passes": 10, "on_device": True}
+    with pytest.raises(chip_smoke.SmokeFailure, match="launched 9 times"):
+        chip_smoke.sharded_verdict("probe", run, torch.device("cuda"))
+    chip_smoke.sharded_verdict("probe", dict(run, launches=10),
+                               torch.device("cuda"))
+    with pytest.raises(chip_smoke.SmokeFailure, match="left"):
+        chip_smoke.sharded_verdict("probe", dict(run, launches=0,
+                                                 on_device=False),
+                                   torch.device("cpu"))
+
+
+def test_interleaved_order_feeds_the_global_batches():
+    order = chip_smoke.interleaved_order(rows=12, batch=2, data=2)
+    # coordinate 0 holds rows 0-5, coordinate 1 rows 6-11; 3 steps each
+    assert order.tolist() == [0, 1, 6, 7, 2, 3, 8, 9, 4, 5, 10, 11]
+
+
+def _orphan_of(marker: str) -> int:
+    """The pid of a sleeping process whose parent exited at once, its
+    command line holding ``marker``."""
+    out = subprocess.run(
+        ["sh", "-c", f'"{sys.executable}" -c "import time; time.sleep(60)" '
+         f"{marker} >/dev/null 2>&1 & echo $!"],
+        capture_output=True, text=True, check=True, timeout=30).stdout
+    return int(out.strip())
+
+
+def test_own_processes_lists_children_and_the_runtime_orphaned():
+    """A child of this process, and a process of the port's runtime whose
+    parent is gone (as a zygote is after its starter exits), are both the
+    script's; a process of neither kind is not."""
+    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
+    runtime = _orphan_of("raydp_tpu_torch.cluster.zygote")
+    stranger = _orphan_of("another-program")
+    try:
+        found = chip_smoke.own_processes()
+        assert child.pid in found and runtime in found
+        assert stranger not in found and os.getpid() not in found
+        assert os.getppid() not in found
+    finally:
+        child.kill()
+        child.wait(timeout=30)
+        for pid in (runtime, stranger):
+            os.kill(pid, signal.SIGKILL)
+
+
+def test_phase_leftovers_kills_and_fails_on_a_survivor(monkeypatch):
+    """A process of the script alive past the deadline is killed and fails
+    the run; none left passes."""
+    monkeypatch.setattr(chip_smoke, "LEFTOVER_DEADLINE_S", 0.3)
+    survivor = _orphan_of("raydp_tpu_torch.cluster.zygote")
+    monkeypatch.setattr(chip_smoke, "own_processes", lambda: [survivor])
+    with pytest.raises(chip_smoke.SmokeFailure, match="outlived it"):
+        chip_smoke.phase_leftovers()
+    gone = False
+    for _ in range(300):
+        try:
+            with open(f"/proc/{survivor}/stat") as f:
+                gone = f.read().rsplit(")", 1)[1].split()[0] == "Z"
+        except OSError:
+            gone = True
+        if gone:
+            break
+        time.sleep(0.01)
+    assert gone
+    monkeypatch.setattr(chip_smoke, "own_processes", lambda: [])
+    assert chip_smoke.phase_leftovers()["gone_s"] < 0.3

@@ -43,15 +43,34 @@ HISTS = ("serve.ttft_ms", "serve.tpot_ms")
 
 @pytest.fixture(autouse=True)
 def jax_obs_stays_local(monkeypatch):
-    """The JAX package's flush ships spans and log records to a cluster
+    """Either package's flush ships spans and log records to a cluster
     head when one is up in this process (another test file's session may
     have left one): keep both packages' records local, as with no
     cluster, so the two are compared on the same records."""
     from raydp_tpu.cluster import api as cluster_api
+    from raydp_tpu_torch.cluster import api as port_cluster_api
 
     monkeypatch.delenv("RAYDP_TPU_SESSION", raising=False)
+    monkeypatch.delenv("RAYDP_TPU_TORCH_SESSION", raising=False)
     monkeypatch.setattr(cluster_api, "is_initialized", lambda: False)
+    monkeypatch.setattr(port_cluster_api, "is_initialized", lambda: False)
     monkeypatch.setattr(jax_tracing, "_local_ingest", None)
+    monkeypatch.setattr(tracing, "_local_ingest", None)
+
+
+def _fresh_registries(monkeypatch):
+    """Each package's metrics registry holds, for the test, only the
+    instruments registered during it. The registries live for the process,
+    and an earlier test file in the same worker may have registered
+    instruments in one package only (the port's deployment registers
+    ``serve.decode.failovers`` in tests/test_torch_serve_stream.py)."""
+    for registry in (port_metrics.metrics, jax_metrics.metrics):
+        monkeypatch.setattr(registry, "_instruments", {})
+
+
+@pytest.fixture
+def fresh_registries(monkeypatch):
+    _fresh_registries(monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -332,10 +351,28 @@ def test_trace_context_without_tracing_records_no_span(tiny_lms):
         tracing.set_enabled(saved)
 
 
-def test_state_note_and_dossier_decode_section_match(tiny_lms):
+def test_state_note_and_dossier_decode_section_match(tiny_lms,
+                                                     fresh_registries):
     """The same engine state gives the same ``serve.decode.state`` note in
     both packages, and the same decode section of a dossier fed from the
     process's rings."""
+    _state_note_sections_match(tiny_lms)
+
+
+def test_state_note_sections_match_after_a_one_package_instrument(
+        tiny_lms, monkeypatch):
+    """An instrument registered in the port's registry alone before the
+    test, as tests/test_torch_serve_stream.py leaves
+    ``serve.decode.failovers`` in a worker it shares with this file, does
+    not reach the decode sections compared."""
+    registry = port_metrics.metrics
+    monkeypatch.setattr(registry, "_instruments", dict(registry._instruments))
+    registry.counter("serve.decode.failovers").inc()
+    _fresh_registries(monkeypatch)
+    _state_note_sections_match(tiny_lms)
+
+
+def _state_note_sections_match(tiny_lms):
     kw = dict(capacity_tokens=32, page_tokens=16, max_seqs=2,
               max_new_tokens=16)
     sections = []

@@ -246,9 +246,16 @@ def test_staging_matches_jax():
     ("param_sharding_rules", lambda mesh, p: p),
 ])
 def test_later_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="ported in"):
-        Estimator(model=functools.partial(DLRM, VOCABS, 2), device="cpu",
-                  **{option: value})
+    """The mesh and the sharding rules are ported
+    (``tests/test_torch_sharding.py``); what they cannot use they refuse:
+    a mesh that is not a ``parallel.Mesh`` of ranks at construction, rules
+    that give no ``Placement`` per parameter at the fit."""
+    est = None
+    with pytest.raises(TypeError, match="Mesh|Placement"):
+        est = Estimator(model=functools.partial(DLRM, VOCABS, 2),
+                        device="cpu", **_settings(), **{option: value})
+        est.fit(criteo_like(64, 0))
+    assert (est is None) == (option == "mesh")
 
 
 def test_later_methods_raise():

@@ -16,7 +16,8 @@
   raydp_tpu_torch.cluster.head"`` leaves both out of ``sys.modules`` (the
   store imports pyarrow where it reads or writes Arrow, not at import).
 - Entry points with no device on a machine without CUDA raise instead of
-  falling back to the CPU.
+  falling back to the CPU (the models, the engine, the replica, the
+  partitioner and the mesh's feeds).
 """
 
 import ast
@@ -70,7 +71,12 @@ def test_port_imports_nothing_of_jax():
     port = ROOT / "raydp_tpu_torch"
     assert {port / "chaos.py", port / "parallel" / "mesh.py",
             port / "parallel" / "ring_attention.py",
-            port / "parallel" / "__init__.py"} <= set(files)
+            port / "parallel" / "partitioner.py",
+            port / "parallel" / "sharding.py",
+            port / "parallel" / "__init__.py",
+            port / "ops" / "embedding.py"} <= set(files)
+    assert {port / "spmd" / f"{name}.py" for name in (
+        "bootstrap", "job", "elastic", "__init__")} <= set(files)
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files
@@ -230,6 +236,25 @@ def test_entry_points_without_device_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelReplica(ReplicaSpec(model=TransformerLM, checkpoint_dir="/nowhere"))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mesh_feeds_without_device_raise(no_cuda):
+    """The partitioner and the feeds of a mesh place on the card unless the
+    CPU is asked for."""
+    from raydp_tpu_torch.estimator import Estimator
+    from raydp_tpu_torch.exchange.torch_io import device_put_batch, partitioner_for
+    from raydp_tpu_torch.parallel import DataParallelPartitioner, make_mesh
+
+    mesh = make_mesh({"data": 1})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DataParallelPartitioner(mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        partitioner_for(mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_put_batch(torch.zeros(2).numpy(), mesh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Estimator(mesh=mesh)
+    assert partitioner_for(mesh, device="cpu").device == torch.device("cpu")
 
 
 def test_cuda_only_paths_refuse_cpu_kernels():

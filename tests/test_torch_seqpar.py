@@ -208,8 +208,12 @@ def test_make_mesh_shapes_and_errors(cpu_mesh_devices):
     assert mesh.ranks.tolist() == [[0, 1, 2, 3], [4, 5, 6, 7]]
     assert (mesh.axis_index("sp", 6), mesh.axis_index("data", 6)) == (2, 1)
     assert make_mesh({"sp": -1}).shape == {"sp": 1}  # no process group: rank 0
-    with pytest.raises(NotImplementedError, match="spmd/bootstrap"):
-        multihost_mesh({"data": -1})
+    # no process group: rank 0 alone; the process axis spans the ranks
+    assert multihost_mesh({"data": -1}).shape == {"data": 1}
+    assert multihost_mesh({"model": 1, "data": -1}).axis_names == (
+        "model", "data")
+    with pytest.raises(ValueError, match="process_axis"):
+        multihost_mesh({"model": -1})
 
 
 def test_an_unbound_axis_raises():
