@@ -146,10 +146,36 @@ Phases; any failure exits non-zero and prints no result line:
    and W dk/dv launches a layer for the ring, one each for Ulysses); step
    ms, tokens/s and peak memory beside the ``flash`` step's, and one layer
    alone with its share of time outside the port's kernels. Then whether
-   gloo takes CUDA tensors for P2P, all-to-all and all-reduce, each op in
-   a pair of spawned ranks; each impl whose collectives it takes again at
-   world 2 over gloo in two processes on the one card, held the same way
+   gloo takes CUDA tensors for P2P, all-to-all, all-reduce and the
+   pipeline's shift (an all-to-all with split sizes), each op in a pair of
+   spawned ranks; each impl whose collectives it takes again at world 2
+   over gloo in two processes on the one card, held the same way
    (``--seqpar`` runs this phase alone).
+   Pipeline parallelism (``phase_pipeline``): the same model in f32 with
+   ``attn_impl="flash"`` at batch 4, T 2048, its 4 blocks the stages of
+   ``pipeline_sharded`` over 4 microbatches of [1, 2048, 1024] (the
+   embedding, positions, final LayerNorm and head on every rank); world 1
+   over NCCL in this process (one stage of 4 blocks), world 2 over gloo in
+   two processes on the one card (two stages of 2): the loss within 1e-5
+   and every gradient within 1e-4 relative of the non-pipelined ``flash``
+   step on the same batch, two runs bitwise, a warm and 4 timed Adam steps
+   with the loss falling and M x blocks a stage launches a step of
+   ``flash_fwd_f32``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` (the bubble
+   ticks skipped); step ms and tokens/s beside the ``flash`` step's, the
+   shares of a step in the shifts, in the bubble's waits and in
+   all-reduces, peak memory a rank (``--pipeline`` runs this phase alone).
+   Expert parallelism (``phase_moe``): top-2 ``moe_sharded`` over 4096
+   tokens a rank of the LM's input activations (its embedding and
+   positions of batch 2 x T 2048), each expert the block's MLP (1024 ->
+   4096 -> gelu -> 1024, f32), the loss ``mean(out²) + 0.01 · lb``; world 1
+   over NCCL (one expert: every token to it), world 2 over gloo on the one
+   card (2 experts): at capacity factor 8 the output within 1e-5 and the
+   experts' and router's gradients within 1e-4 relative of the same
+   routing computed densely (every expert on every token), no drop, two
+   runs bitwise; then a warm and 4 Adam steps at 1.25 with each step's
+   drop fraction and aux loss, the loss falling, no port kernel launched;
+   step ms, tokens/s, the share in the all-to-alls, peak memory a rank
+   (``--moe`` runs this phase alone).
    The same training with ``quantized_mlp=True`` (bench.py's
    ``make_runner("flash", quantized_mlp=True)``): the loss falling, 8
    ``int8_gemm`` launches a step (two per block, forward only), as many
@@ -295,8 +321,10 @@ Phases; any failure exits non-zero and prints no result line:
    launch floor: ``torch.cuda._sleep(0)``, a launch that does no work, by
    events and by the profiler.
 
-Before them an ``{"etl": {...}}`` line sums up ``phase_etl`` and a
-``{"deploy": {...}}`` line ``phase_deploy``. The
+Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
+``{"moe": {...}}`` line ``phase_moe``, an ``{"etl": {...}}`` line
+``phase_etl`` and a ``{"deploy": {...}}`` line ``phase_deploy``, each
+beside the card's name and power limit. The
 last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
 and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
@@ -2264,9 +2292,18 @@ def device_share(prof, wall_ms: float) -> dict:
     }
 
 
-# ---------------------------------------------------------------------------
-# phase 4: training at full width
-# ---------------------------------------------------------------------------
+def profiled(step, device) -> dict | None:
+    """``device_share`` of one call of ``step`` (which ends in a host
+    read); None off the card."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return device_share(prof, wall_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -3051,7 +3088,7 @@ def seqpar_inputs(device):
     return train_tokens(b, t, MODEL["vocab_size"], device)
 
 
-def _seqpar_device(device_type: str):
+def _rank_device(device_type: str):
     if device_type == "cuda":
         torch.cuda.set_device(0)
         return torch.device("cuda", 0)
@@ -3059,7 +3096,7 @@ def _seqpar_device(device_type: str):
     return torch.device("cpu")
 
 
-GLOO_PROBE_OPS = ("p2p", "all_to_all", "all_reduce")
+GLOO_PROBE_OPS = ("p2p", "all_to_all", "all_reduce", "shift")
 # the collectives each impl's training step runs: the ring's rotation or
 # Ulysses' swaps, and the parameters' gradient sum
 SEQPAR_OPS = {"ring_flash": ("p2p", "all_reduce"),
@@ -3068,13 +3105,17 @@ SEQPAR_OPS = {"ring_flash": ("p2p", "all_reduce"),
 
 def gloo_probe_rank(rank, world, port, out_path, device_type, op) -> None:
     """One rank of one probe: does gloo take tensors on ``device_type`` for
-    ``op`` (the ring's rotation by ``batch_isend_irecv``, Ulysses'
-    ``all_to_all_single``, the gradients' ``all_reduce``) and give the
-    values it must? Writes "ok", "wrong values", or the error gloo raised
-    (a refusal) to ``out_path``."""
+    ``op`` (the ring's rotation by ``batch_isend_irecv``, Ulysses' and the
+    experts' ``all_to_all_single``, the gradients' ``all_reduce``, the
+    pipeline's ``_shift``: ``all_to_all_single`` with split sizes) and give
+    the values it must? Writes "ok", "wrong values", or the error gloo
+    raised (a refusal) to ``out_path``."""
     import torch.distributed as dist
 
-    device = _seqpar_device(device_type)
+    from raydp_tpu_torch.parallel import pipeline
+    from raydp_tpu_torch.parallel.mesh import Axis
+
+    device = _rank_device(device_type)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
 
@@ -3100,8 +3141,14 @@ def gloo_probe_rank(rank, world, port, out_path, device_type, op) -> None:
         dist.all_reduce(x)
         return bool((x == world * (world + 1) / 2).all())
 
+    def shift():
+        x = torch.full((1024,), float(rank), device=device)
+        got = pipeline._shift(x, Axis(dist.group.WORLD, rank, world), 1)
+        return bool((got == (rank - 1) % world).all())
+
     try:
-        run = {"p2p": p2p, "all_to_all": all_to_all, "all_reduce": all_reduce}[op]
+        run = {"p2p": p2p, "all_to_all": all_to_all, "all_reduce": all_reduce,
+               "shift": shift}[op]
         outcome = "ok" if run() else "wrong values"
     except RuntimeError as exc:  # gloo's refusal is the probe's answer
         outcome = f"refused: {exc!r}"[:300]
@@ -3122,7 +3169,7 @@ def seqpar_rank(rank, world, port, ref_path, out_path, device_type,
 
     globals().update(config)
     torch.backends.cuda.matmul.allow_tf32 = False
-    device = _seqpar_device(device_type)
+    device = _rank_device(device_type)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
     ref = torch.load(ref_path, map_location=device)
@@ -3156,16 +3203,38 @@ def spawn_world(target, world, args_of, limit_s) -> list:
     return codes
 
 
-def gloo_takes(device) -> dict:
-    """Whether gloo takes ``device``'s tensors for each op the layers use,
-    one pair of spawned ranks an op (``gloo_probe_rank``): {"ops": {op:
-    "ok" | "refused" with the ranks' detail}}. Refused is an
-    error gloo raised or a rank killed by a signal inside gloo; wrong
+def run_world2(target, device, name: str, config: dict, limit_s: float,
+               extra=()) -> list:
+    """``target(rank, 2, port, *extra, out_path, device.type, config)`` in
+    two spawned processes; each rank's JSON record."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    outs = [BUILD_DIR / f"{name}_rank{r}.json" for r in range(2)]
+    for out in outs:
+        out.unlink(missing_ok=True)
+    port = free_port()
+    codes = spawn_world(
+        target, 2,
+        lambda r: (2, port, *extra, str(outs[r]), device.type, config), limit_s)
+    require(codes == [0, 0], f"{name} world 2 over gloo: exit codes {codes}")
+    return [json.loads(out.read_text()) for out in outs]
+
+
+_GLOO_TAKES: dict = {}  # (device type, op) -> the probe's verdict
+
+
+def gloo_takes(device, ops=GLOO_PROBE_OPS) -> dict:
+    """Whether gloo takes ``device``'s tensors for each of ``ops``, one
+    pair of spawned ranks an op (``gloo_probe_rank``), each op probed once
+    a run: {"ops": {op: "ok" | "refused" with the ranks' detail}}. Refused
+    is an error gloo raised or a rank killed by a signal inside gloo; wrong
     values, or a rank that failed otherwise or ran past its limit, fail the
     run."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ops = {}
-    for op in GLOO_PROBE_OPS:
+    done = {op: _GLOO_TAKES[(device.type, op)] for op in ops
+            if (device.type, op) in _GLOO_TAKES}
+    for op in ops:
+        if op in done:
+            continue
         outs = [BUILD_DIR / f"gloo_probe_{op}_{r}.json" for r in range(2)]
         for out in outs:
             out.unlink(missing_ok=True)
@@ -3182,8 +3251,19 @@ def gloo_takes(device) -> dict:
             require(code is not None and (code < 0 or (code == 0 and got)),
                     f"the gloo probe of {op} failed: {detail}")
         ok = codes == [0, 0] and ranks == ["ok", "ok"]
-        ops[op] = "ok" if ok else f"refused: {detail}"
-    return {"ops": ops}
+        done[op] = _GLOO_TAKES[(device.type, op)] = \
+            "ok" if ok else f"refused: {detail}"
+    return {"ops": {op: done[op] for op in ops}}
+
+
+def require_gloo_takes(device, ops, what: str) -> dict:
+    """``gloo_takes`` for the ops a world-2 run over gloo needs; a refusal
+    fails the phase (there is no other route on the one card)."""
+    probe = gloo_takes(device, ops)
+    refused = {op: v for op, v in probe["ops"].items() if v != "ok"}
+    require(not refused, f"{what} at world 2: gloo does not take "
+            f"{device.type} tensors for {refused}")
+    return probe
 
 
 def phase_seqpar(device) -> dict:
@@ -3246,22 +3326,17 @@ def phase_seqpar(device) -> dict:
     if impls2:
         ref_path = BUILD_DIR / "seqpar_ref.pt"
         torch.save(ref, ref_path)
-        outs = [BUILD_DIR / f"seqpar_rank{r}.json" for r in range(2)]
-        for out in outs:
-            out.unlink(missing_ok=True)
         config = {"MODEL": MODEL, "SEQPAR": dict(SEQPAR, impls=tuple(impls2)),
                   "TRAIN": TRAIN, "SEED": SEED}
-        port = free_port()
-        codes = spawn_world(
-            seqpar_rank, 2,
-            lambda r: (2, port, str(ref_path), str(outs[r]), device.type, config),
-            SEQPAR_RANK_LIMIT_S)
-        require(codes == [0, 0], f"seqpar world 2 over gloo: exit codes {codes}")
-        for out in outs:
-            for run in json.loads(out.read_text()):
+        try:
+            ranks = run_world2(seqpar_rank, device, "seqpar", config,
+                               SEQPAR_RANK_LIMIT_S, (str(ref_path),))
+        finally:
+            ref_path.unlink()
+        for records in ranks:
+            for run in records:
                 seqpar_verdict(run)
                 rec["runs"].append(run)
-        ref_path.unlink()
     rec["launches"] = {name: sum(run["launches"][name] for run in rec["runs"])
                        for name in ("flash_fwd_f32", "flash_bwd_dq",
                                     "flash_bwd_dkv")}
@@ -3292,6 +3367,628 @@ def seqpar_summary(rec: dict, nvidia_smi: str) -> dict:
                         run["overhead"]["outside_kernels_share"]}
                  for run in rec["runs"]]},
         "nvidia_smi": nvidia_smi}
+
+
+# ---------------------------------------------------------------------------
+# phase_pipeline: the LM's blocks as the stages of a pipeline on the card
+# ---------------------------------------------------------------------------
+
+# phase_pipeline: the widest LM in f32 with attn_impl="flash" at batch 4 x T
+# 2048, split into 4 microbatches of [1, 2048, 1024] (phase_train_f32's
+# shape); its 4 blocks are the stages: world 1 one stage of 4 (NCCL, in this
+# process), world 2 two stages of 2 (gloo, two processes on the one card); a
+# warm step and 4 timed Adam steps each, beside the non-pipelined flash step
+PIPELINE = dict(batch=4, seq=2048, microbatches=4, steps=4)
+PIPELINE_LOSS_RTOL, PIPELINE_GRAD_RTOL = 1e-5, 1e-4
+PIPELINE_RANK_LIMIT_S = 300.0  # the spawned world's whole run
+# the collectives of a world-2 step over gloo: the activations' and
+# gradients' shifts, the output's broadcast and the input gradient's sum
+PIPELINE_OPS = ("shift", "all_reduce")
+
+
+def pipeline_inputs(device):
+    return train_tokens(PIPELINE["batch"], PIPELINE["seq"], MODEL["vocab_size"],
+                        device)
+
+
+def pipeline_expected(world: int, device) -> dict:
+    """Launches a step of each rank under the schedule, which skips the
+    bubble ticks: each block of the rank's stage runs once a microbatch, M
+    x blocks a stage of the f32 forward, and as many of dq and of dk/dv
+    (the forward's graphs are kept, not recomputed). 0 on the CPU, where
+    the plain versions run."""
+    n = PIPELINE["microbatches"] * MODEL["num_layers"] // world
+    n = n if device.type == "cuda" else 0
+    return {"flash_fwd_f32": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def pipeline_model(device, world: int, rank: int):
+    """The seeded f32 flash LM keeping only this rank's stage of blocks:
+    (model, stage, named), ``stage`` the blocks' ``module_stage`` (the
+    function and its parameters), ``named`` this rank's parameters (the
+    outer ones and its stage's) under the whole model's names."""
+    from raydp_tpu_torch.parallel.pipeline import module_stage
+
+    model = lm("flash", device, PIPELINE["seq"] + 1, dtype=torch.float32)
+    per = MODEL["num_layers"] // world
+    lo = rank * per
+    stage = module_stage(torch.nn.Sequential(*model.blocks[lo:lo + per]))
+    model.blocks = torch.nn.ModuleList()  # the other stages' blocks go
+    named = dict(model.named_parameters())
+    for name, p in stage[1].items():
+        index, rest = name.split(".", 1)
+        named[f"blocks.{lo + int(index)}.{rest}"] = p
+    return model, stage, named
+
+
+def pipeline_loss(model, stage, tokens, targets, mesh):
+    """TransformerLM's loss with its blocks through ``pipeline_sharded``
+    over the "pp" axis: the embedding and positions, the final LayerNorm,
+    the head and the mean cross-entropy on every rank alike."""
+    from raydp_tpu_torch.parallel import pipeline_sharded
+
+    t = tokens.shape[1]
+    x = F.embedding(tokens, model.embed.weight.to(model.dtype))
+    x = x + model.pos_embed[:t].to(model.dtype)
+    h = pipeline_sharded(*stage, x, mesh, PIPELINE["microbatches"])
+    logits = model.lm_head(model.ln_f(h).float())
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def pipeline_grads(model, stage, named, tokens, targets, mesh):
+    for p in named.values():
+        p.grad = None
+    loss = pipeline_loss(model, stage, tokens, targets, mesh)
+    loss.backward()
+    return loss.detach(), {n: p.grad for n, p in named.items()}
+
+
+def pipeline_step(model, stage, opt, tokens, targets, mesh):
+    opt.zero_grad(set_to_none=True)
+    loss = pipeline_loss(model, stage, tokens, targets, mesh)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def pipeline_gaps(loss, grads: dict, ref: dict) -> dict:
+    """The loss's relative gap to the flash step's and the worst of this
+    rank's gradients' (per tensor, in norm)."""
+    worst, _ = grad_gap(grads, {n: ref["grads"][n] for n in grads})
+    return {"loss_rel": abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+            "worst_grad_rel": worst}
+
+
+def shift_split(shifts: list, world: int, rank: int, m: int) -> dict:
+    """The seconds in a step's shifts (``timed_calls`` of the pipeline's
+    ``_shift``), and those of the shifts that end a tick where this rank
+    computed nothing (a bubble tick: it waits for its neighbour). The
+    forward shifts after ticks 0 .. M+N-3, the backward after ticks
+    M+N-2 .. 1."""
+    ticks = m + world - 1
+    tick_of = list(range(ticks - 1)) + list(range(ticks - 1, 0, -1))
+    require(len(shifts) == (len(tick_of) if world > 1 else 0),
+            f"pipeline: {len(shifts)} shifts in a step of world {world}")
+    return {"shift_s": sum(s for _, s in shifts),
+            "bubble_wait_s": sum(s for t, (_, s) in zip(tick_of, shifts)
+                                 if not 0 <= t - rank < m)}
+
+
+def pipeline_run(device, mesh, tokens, targets, ref, backend) -> dict:
+    """This rank of the pipeline at the mesh's world from the seeded
+    weights: the loss and its gradients against the flash step's
+    (``ref``), twice (bitwise); then a warm step and PIPELINE["steps"]
+    timed Adam steps, the launch counts zeroed just before and read just
+    after, the peak memory over them; then one more step with the shifts
+    and all-reduces timed (``timed_calls``)."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import pipeline
+
+    world, rank = mesh.shape["pp"], mesh.axis_index("pp")
+    b, t, steps, m = (PIPELINE[k] for k in ("batch", "seq", "steps",
+                                            "microbatches"))
+    t_start = time.perf_counter()
+    model, stage, named = pipeline_model(device, world, rank)
+    sections = {"model_s": time.perf_counter() - t_start}
+    loss, grads = pipeline_grads(model, stage, named, tokens, targets, mesh)
+    again, grads_again = pipeline_grads(model, stage, named, tokens, targets,
+                                        mesh)
+    bitwise = bool(torch.equal(loss, again)) and all(
+        torch.equal(grads[n], grads_again[n]) for n in grads)
+    gaps = pipeline_gaps(loss, grads, ref)
+    del grads, grads_again
+    sections["check_s"] = time.perf_counter() - t_start - sections["model_s"]
+    opt = torch.optim.Adam(named.values(), lr=TRAIN["lr"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    fa.reset_launches()
+    first = pipeline_step(model, stage, opt, tokens, targets, mesh).item()
+    t0 = time.perf_counter()
+    losses = [pipeline_step(model, stage, opt, tokens, targets, mesh)
+              for _ in range(steps)]
+    losses = [float(x) for x in losses]  # the last one fences the steps
+    dt = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    with timed_calls(pipeline, "_shift", device) as shifts, \
+            timed_calls(dist, "all_reduce", device) as reduces:
+        t1 = time.perf_counter()
+        pipeline_step(model, stage, opt, tokens, targets, mesh).item()
+        split_s = time.perf_counter() - t1
+    split = shift_split(shifts, world, rank, m)
+    expected = pipeline_expected(world, device)
+    profile = profiled(lambda: pipeline_step(model, stage, opt, tokens, targets,
+                                             mesh).item(), device)
+    sections["run_s"] = time.perf_counter() - t_start
+    del model, stage, named, opt
+    return {
+        "world": world, "backend": backend, "rank": rank, **gaps,
+        "bitwise": bitwise, "first_loss": first, "losses": losses,
+        "launches": launches,
+        "per_step": {n: launches[n] / (steps + 1) for n in expected},
+        "expected_per_step": expected,
+        "step_ms": 1e3 * dt / steps, "tokens_s": steps * b * t / dt,
+        "base_bytes": base if cuda else None, "peak_bytes": peak,
+        "split_step_ms": 1e3 * split_s,
+        "shift_share": split["shift_s"] / split_s,
+        "bubble_wait_share": split["bubble_wait_s"] / split_s,
+        "all_reduce_share": sum(s for _, s in reduces) / split_s,
+        "bubble_ticks_share": (world - 1) / (m + world - 1),
+        "profile": profile, "sections_s": sections,
+    }
+
+
+def pipeline_verdict(rec: dict) -> None:
+    what = f"pipeline at world {rec['world']} ({rec['backend']}, rank {rec['rank']})"
+    log(f"{what}: loss rel {rec['loss_rel']:.3e} (limit {PIPELINE_LOSS_RTOL}), "
+        f"worst grad rel {rec['worst_grad_rel']:.3e} (limit "
+        f"{PIPELINE_GRAD_RTOL}), two runs bitwise {rec['bitwise']}; loss "
+        f"{rec['first_loss']:.4f} -> {rec['losses'][-1]:.4f}; launches per "
+        f"step {rec['per_step']} (expected {rec['expected_per_step']}); step "
+        f"{rec['step_ms']:.2f} ms, {rec['tokens_s']:.1f} tokens/s; of a step "
+        f"({rec['split_step_ms']:.2f} ms with the device drained at each "
+        f"shift) {rec['shift_share']:.3f} in the shifts, "
+        f"{rec['bubble_wait_share']:.3f} of it waiting in bubble ticks, "
+        f"{rec['all_reduce_share']:.3f} in all-reduces; bubble ticks "
+        f"{rec['bubble_ticks_share']:.3f} of the schedule; peak "
+        f"{rec['peak_bytes']} bytes over {rec['base_bytes']}")
+    require(rec["loss_rel"] <= PIPELINE_LOSS_RTOL
+            and rec["worst_grad_rel"] <= PIPELINE_GRAD_RTOL,
+            f"{what}: loss or gradients disagree with the flash step")
+    require(rec["bitwise"], f"{what}: two runs differ")
+    require(all(math.isfinite(x) for x in [rec["first_loss"], *rec["losses"]])
+            and rec["losses"][-1] < rec["first_loss"],
+            f"{what}: the loss is not finite or did not fall")
+    require(rec["per_step"] == {n: float(c) for n, c in
+                                rec["expected_per_step"].items()},
+            f"{what}: launches per step {rec['per_step']}")
+
+
+def pipeline_rank(rank, world, port, ref_path, out_path, device_type,
+                  config) -> None:
+    """One rank of the world-``world`` pipeline over gloo, held to the
+    flash step's loss and gradients in ``ref_path``; its record to
+    ``out_path``."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    globals().update(config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _rank_device(device_type)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    ref = torch.load(ref_path, map_location=device)
+    tokens, targets = pipeline_inputs(device)
+    rec = pipeline_run(device, make_mesh({"pp": world}), tokens, targets, ref,
+                       "gloo")
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(rec))
+
+
+def phase_pipeline(device) -> dict:
+    """Pipeline parallelism at full width in f32 (PIPELINE): the
+    non-pipelined flash step on the whole batch first (the reference loss
+    and gradients, then its step time), then the LM's blocks as the stages
+    of ``pipeline_sharded`` at world 1 over NCCL in this process and at
+    world 2 over gloo in two processes on the one card (``pipeline_run``:
+    loss within PIPELINE_LOSS_RTOL and every gradient of the rank within
+    PIPELINE_GRAD_RTOL, two runs bitwise, the loss falls, launches a step as
+    ``pipeline_expected`` reckons them). gloo must take the card's tensors
+    for the shift and the all-reduce, or the phase fails. On the CPU the
+    same runs go over gloo with the plain versions."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    tokens, targets = pipeline_inputs(device)
+    steps = PIPELINE["steps"]
+    flash = lm("flash", device, PIPELINE["seq"] + 1, dtype=torch.float32)
+    ref_loss, ref_grads = loss_and_grads(flash, tokens, targets)
+    ref = {"loss": float(ref_loss),
+           "grads": {n: g.detach().clone() for n, g in ref_grads.items()}}
+    del ref_grads
+    flash.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(flash.parameters(), lr=TRAIN["lr"])
+    _, flash_losses, flash_dt = timed_steps(flash, opt, tokens, targets, steps)
+    flash_profile = profiled(
+        lambda: train_step(flash, opt, tokens, targets).item(), device)
+    del flash, opt
+    require(all(math.isfinite(x) for x in flash_losses), "flash loss not finite")
+    tokens_step = PIPELINE["batch"] * PIPELINE["seq"]
+    rec = {"shape": f"batch {PIPELINE['batch']}, T {PIPELINE['seq']}, "
+                    f"{PIPELINE['microbatches']} microbatches, f32, {MODEL}",
+           "flash_step_ms": 1e3 * flash_dt / steps,
+           "flash_tokens_s": steps * tokens_step / flash_dt,
+           "flash_profile": flash_profile, "runs": []}
+    sections = {"reference_s": time.perf_counter() - t0}
+
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        run = pipeline_run(device, make_mesh({"pp": 1}), tokens, targets, ref,
+                           backend)
+    finally:
+        dist.destroy_process_group()
+    pipeline_verdict(run)
+    rec["runs"].append(run)
+    sections["world1_s"] = time.perf_counter() - t0 - sum(sections.values())
+
+    rec["gloo_takes_device_tensors"] = require_gloo_takes(
+        device, PIPELINE_OPS, "pipeline")
+    sections["probe_s"] = time.perf_counter() - t0 - sum(sections.values())
+    ref_path = BUILD_DIR / "pipeline_ref.pt"
+    torch.save(ref, ref_path)
+    config = {"MODEL": MODEL, "PIPELINE": PIPELINE, "TRAIN": TRAIN, "SEED": SEED}
+    try:
+        runs = run_world2(pipeline_rank, device, "pipeline", config,
+                          PIPELINE_RANK_LIMIT_S, (str(ref_path),))
+    finally:
+        ref_path.unlink()
+    for run in runs:
+        pipeline_verdict(run)
+        rec["runs"].append(run)
+    sections["world2_s"] = time.perf_counter() - t0 - sum(sections.values())
+    rec["launches"] = {name: sum(run["launches"][name] for run in rec["runs"])
+                       for name in ("flash_fwd_f32", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    rec["phase_s"] = time.perf_counter() - t0
+    rec["sections_s"] = sections
+    log(f"pipeline: flash step {rec['flash_step_ms']:.2f} ms, "
+        f"{rec['flash_tokens_s']:.1f} tokens/s, profiled {flash_profile}; "
+        f"world 1 profiled {rec['runs'][0]['profile']}; launches "
+        f"{rec['launches']}; phase {rec['phase_s']:.1f} s {sections}; the "
+        f"ranks' {[run['sections_s'] for run in rec['runs']]}")
+    return rec
+
+
+def pipeline_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The phase's line: each rank's step ms and tokens/s beside the flash
+    step, the shares of a step in the shifts, the bubble's waits and the
+    all-reduces, and the peak memory."""
+    return {"pipeline": {
+        "shape": rec["shape"], "flash_step_ms": rec["flash_step_ms"],
+        "flash_tokens_s": rec["flash_tokens_s"],
+        "runs": [{k: run[k] for k in (
+            "world", "backend", "rank", "step_ms", "tokens_s", "peak_bytes",
+            "loss_rel", "worst_grad_rel", "per_step", "shift_share",
+            "bubble_wait_share", "all_reduce_share", "bubble_ticks_share")}
+                 | {"vs_flash_step": run["step_ms"] / rec["flash_step_ms"]}
+                 for run in rec["runs"]],
+        "phase_s": rec["phase_s"]}, "nvidia_smi": nvidia_smi}
+
+
+# ---------------------------------------------------------------------------
+# phase_moe: top-2 mixture of experts across ranks on the card
+# ---------------------------------------------------------------------------
+
+# phase_moe: 4096 tokens a rank (batch 2 x T 2048 of the LM's input
+# activations, its embedding and positions of tokens from default_rng(17)),
+# each expert the block's MLP in f32, __graft_entry__.py's objective: top-2
+# routing and mean(out²) + 0.01 · load_balance_loss; the dense check at
+# capacity factor 8 (nothing drops), the trained steps at 1.25
+MOE = dict(batch=2, seq=2048, top_k=2, capacity_factor=1.25,
+           dense_capacity_factor=8.0, aux_weight=0.01, steps=4, lr=3e-4)
+MOE_OUT_RTOL, MOE_GRAD_RTOL = 1e-5, 1e-4
+MOE_RANK_LIMIT_S = 300.0
+# the collectives of a world-2 step over gloo: the dispatch and return
+# all-to-alls, the router's gradient sum and the aux scalars' means
+MOE_OPS = ("all_to_all", "all_reduce")
+
+
+def moe_expert_fn(params, t):
+    """The LM block's MLP as an expert: [R, D] -> [R, D], f32."""
+    w1, b1, w2, b2 = params
+    return F.gelu(t @ w1 + b1, approximate="tanh") @ w2 + b2
+
+
+def moe_experts(device, n: int) -> list:
+    """Every expert's parameters, expert e from seed SEED + 1 + e (lecun
+    normal kernels, zero biases), as leaves that take gradients."""
+    d = MODEL["d_model"]
+    experts = []
+    for e in range(n):
+        gen = torch.Generator().manual_seed(SEED + 1 + e)
+        params = [torch.randn(d, 4 * d, generator=gen) * d ** -0.5,
+                  torch.zeros(4 * d),
+                  torch.randn(4 * d, d, generator=gen) * (4 * d) ** -0.5,
+                  torch.zeros(d)]
+        experts.append([p.to(device).requires_grad_(True) for p in params])
+    return experts
+
+
+def moe_router(device, n: int) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(SEED + 100)
+    d = MODEL["d_model"]
+    return (torch.randn(d, n, generator=gen) * d ** -0.5).to(device).requires_grad_(True)
+
+
+def moe_tokens(device, world: int) -> torch.Tensor:
+    """[world * batch * seq, d_model] f32: the seeded LM's embedding and
+    positions of ``world`` x MOE["batch"] sequences, rank r's rows the
+    r-th block of them."""
+    b, t = MOE["batch"] * world, MOE["seq"]
+    tokens, _ = train_tokens(b, t, MODEL["vocab_size"], device)
+    model = lm("full", device, t + 1, dtype=torch.float32)
+    with torch.no_grad():
+        x = F.embedding(tokens, model.embed.weight) + model.pos_embed[:t]
+    return x.reshape(b * t, MODEL["d_model"]).contiguous()
+
+
+def moe_dense(experts, router, x_all, world: int):
+    """The same routing computed densely, every expert on every token:
+    the top-k gates (renormalized for k > 1) pick and weight the rows; the
+    load-balance loss is the mean over the ranks' shards of each one's, as
+    ``moe_apply``'s pmean takes it. Returns (out, loss) with the phase's
+    objective."""
+    from raydp_tpu_torch.parallel.moe import top_k_lowest_first
+
+    n = len(experts)
+    k = min(MOE["top_k"], n)
+    gates = torch.softmax(x_all @ router, dim=-1)
+    vals, idx = top_k_lowest_first(gates, k)
+    w = vals / vals.sum(-1, keepdim=True) if k > 1 else vals
+    dense = torch.stack([moe_expert_fn(e, x_all) for e in experts], 1)
+    rows = torch.arange(x_all.shape[0], device=x_all.device)
+    out = sum(dense[rows, idx[:, c]] * w[:, c:c + 1] for c in range(k))
+    shard = x_all.shape[0] // world
+    lb = sum(n * torch.sum(F.one_hot(idx[s:s + shard].T.reshape(-1), n)
+                           .float().mean(0) * gates[s:s + shard].mean(0))
+             for s in range(0, x_all.shape[0], shard)) / world
+    return out, out.pow(2).mean() + MOE["aux_weight"] * lb
+
+
+def moe_loss(mine, router, x, mesh, capacity_factor, total):
+    """This rank's loss: its tokens' share of mean(out²) over all ``total``
+    elements, plus the aux term whole (moe.py's convention); (loss, out,
+    aux)."""
+    from raydp_tpu_torch.parallel import moe_sharded
+
+    out, aux = moe_sharded(moe_expert_fn, mine, router, x, mesh, axis="ep",
+                           capacity_factor=capacity_factor,
+                           top_k=MOE["top_k"], return_aux=True)
+    loss = out.pow(2).sum() / total + MOE["aux_weight"] * aux["load_balance_loss"]
+    return loss, out, aux
+
+
+def moe_global(loss, out, total, mesh):
+    """The objective's value over every rank (the token term's shares
+    summed; the aux term is the same on every rank)."""
+    import torch.distributed as dist
+
+    tokens_part = out.detach().pow(2).sum() / total
+    aux_part = loss.detach() - tokens_part
+    dist.all_reduce(tokens_part, group=mesh.group("ep"))
+    return tokens_part + aux_part
+
+
+def moe_grads(mine, router, x, mesh, capacity_factor, total):
+    for p in [*mine, router]:
+        p.grad = None
+    loss, out, aux = moe_loss(mine, router, x, mesh, capacity_factor, total)
+    loss.backward()
+    return (moe_global(loss, out, total, mesh), out.detach(),
+            {k: float(v.detach()) for k, v in aux.items()},
+            [p.grad.clone() for p in mine] + [router.grad.clone()])
+
+
+def moe_run(device, mesh, backend) -> dict:
+    """This rank of the experts at the mesh's world: at
+    MOE["dense_capacity_factor"] the output and the gradients of its
+    expert and of the router against ``moe_dense`` on the whole batch,
+    twice (bitwise); then a warm step and MOE["steps"] Adam steps at
+    MOE["capacity_factor"] (each step's global loss, drop fraction and aux
+    loss), the port's launch counts zeroed just before and read just
+    after, the peak memory; then one more step with the all-to-alls
+    timed."""
+    from raydp_tpu_torch.parallel import moe
+
+    world, rank = mesh.shape["ep"], mesh.axis_index("ep")
+    t_start = time.perf_counter()
+    x_all = moe_tokens(device, world)
+    shard = x_all.shape[0] // world
+    x = x_all[rank * shard:(rank + 1) * shard]
+    total = x_all.numel()
+    experts, router = moe_experts(device, world), moe_router(device, world)
+    ref_out, ref_loss = moe_dense(experts, router, x_all, world)
+    ref_loss.backward()
+    ref_value = float(ref_loss.detach())
+    ref_grads = [p.grad.clone() for p in experts[rank]] + [router.grad.clone()]
+    mine = experts[rank]
+    del experts[:]
+    cf = MOE["dense_capacity_factor"]
+    loss, out, aux, grads = moe_grads(mine, router, x, mesh, cf, total)
+    again, out2, aux2, grads2 = moe_grads(mine, router, x, mesh, cf, total)
+    ref_mine = ref_out[rank * shard:(rank + 1) * shard].detach()
+    names = ["w1", "b1", "w2", "b2", "router"]
+    worst, _ = grad_gap(dict(zip(names, grads)), dict(zip(names, ref_grads)))
+    dense = {
+        "out_rel": float((out - ref_mine).abs().max() / ref_mine.abs().max()),
+        "loss_rel": abs(float(loss) - ref_value) / abs(ref_value),
+        "worst_grad_rel": worst, "drop_fraction": aux["drop_fraction"],
+        "bitwise": bool(torch.equal(loss, again) and torch.equal(out, out2)
+                        and aux == aux2 and all(torch.equal(a, b) for a, b
+                                                in zip(grads, grads2))),
+    }
+    del ref_out, ref_mine, grads, grads2, out, out2
+    check_s = time.perf_counter() - t_start
+    opt = torch.optim.Adam([*mine, router], lr=MOE["lr"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    cf = MOE["capacity_factor"]
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss, out, aux = moe_loss(mine, router, x, mesh, cf, total)
+        loss.backward()
+        opt.step()
+        return (moe_global(loss, out, total, mesh),
+                {k: v.detach() for k, v in aux.items()})
+
+    fa.reset_launches()
+    first, first_aux = step()
+    t0 = time.perf_counter()
+    trained = [step() for _ in range(MOE["steps"])]
+    losses = [float(l) for l, _ in trained]  # the reads fence the steps
+    dt = time.perf_counter() - t0
+    launches = {n: c for n, c in fa.LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    with timed_calls(moe, "_all_to_all", device) as exchanges:
+        t1 = time.perf_counter()
+        float(step()[0])
+        split_s = time.perf_counter() - t1
+    return {
+        "world": world, "backend": backend, "rank": rank,
+        "tokens_per_rank": shard, "dense": dense,
+        "first_loss": float(first), "losses": losses,
+        "drop_fraction": [float(first_aux["drop_fraction"])]
+        + [float(a["drop_fraction"]) for _, a in trained],
+        "load_balance_loss": [float(first_aux["load_balance_loss"])]
+        + [float(a["load_balance_loss"]) for _, a in trained],
+        "launches": launches,
+        "step_ms": 1e3 * dt / MOE["steps"],
+        "tokens_s": MOE["steps"] * shard * world / dt,
+        "base_bytes": base if cuda else None, "peak_bytes": peak,
+        "all_to_all_share": sum(s for _, s in exchanges) / split_s,
+        "all_to_all_calls": len(exchanges),
+        "sections_s": {"check_s": check_s,
+                       "run_s": time.perf_counter() - t_start},
+    }
+
+
+def moe_verdict(rec: dict) -> None:
+    what = f"moe at world {rec['world']} ({rec['backend']}, rank {rec['rank']})"
+    dense = rec["dense"]
+    log(f"{what}: against the dense routing at capacity factor "
+        f"{MOE['dense_capacity_factor']}: out rel {dense['out_rel']:.3e} "
+        f"(limit {MOE_OUT_RTOL}), loss rel {dense['loss_rel']:.3e}, worst "
+        f"grad rel {dense['worst_grad_rel']:.3e} (limit {MOE_GRAD_RTOL}), drop "
+        f"fraction {dense['drop_fraction']}, two runs bitwise "
+        f"{dense['bitwise']}; at {MOE['capacity_factor']}: loss "
+        f"{rec['first_loss']:.6f} -> {rec['losses'][-1]:.6f}, drop fractions "
+        f"{rec['drop_fraction']}, aux losses {rec['load_balance_loss']}; step "
+        f"{rec['step_ms']:.2f} ms, {rec['tokens_s']:.1f} tokens/s, "
+        f"{rec['all_to_all_share']:.3f} of a step in the all-to-alls; port "
+        f"kernels launched {rec['launches']}; peak {rec['peak_bytes']} bytes "
+        f"over {rec['base_bytes']}")
+    require(dense["out_rel"] <= MOE_OUT_RTOL
+            and dense["loss_rel"] <= MOE_OUT_RTOL
+            and dense["worst_grad_rel"] <= MOE_GRAD_RTOL,
+            f"{what}: output, loss or gradients disagree with the dense routing")
+    require(dense["drop_fraction"] == 0.0,
+            f"{what}: {dense['drop_fraction']} dropped at capacity factor "
+            f"{MOE['dense_capacity_factor']}")
+    require(dense["bitwise"], f"{what}: two runs differ")
+    require(all(math.isfinite(x) for x in [rec["first_loss"], *rec["losses"]])
+            and rec["losses"][-1] < rec["first_loss"],
+            f"{what}: the loss is not finite or did not fall")
+    # the experts' products are torch.matmul, as the JAX package's are
+    # plain dots: no port kernel is on this path
+    require(not rec["launches"], f"{what}: port kernels launched "
+            f"{rec['launches']}")
+
+
+def moe_rank(rank, world, port, out_path, device_type, config) -> None:
+    """One rank of the world-``world`` experts over gloo; its record to
+    ``out_path``."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    globals().update(config)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = _rank_device(device_type)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    rec = moe_run(device, make_mesh({"ep": world}), "gloo")
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(rec))
+
+
+def phase_moe(device) -> dict:
+    """Expert parallelism at full width in f32 (MOE): world 1 over NCCL in
+    this process (one expert, every token to it: the dense routing is the
+    plain MLP), then world 2 over gloo in two processes on the one card
+    (2 experts), each held by ``moe_verdict``. gloo must take the card's
+    tensors for the all-to-all and the all-reduce, or the phase fails. On
+    the CPU the same runs go over gloo."""
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    rec = {"shape": f"{MOE['batch'] * MOE['seq']} tokens a rank of width "
+                    f"{MODEL['d_model']}, experts {MODEL['d_model']} -> "
+                    f"{4 * MODEL['d_model']} -> {MODEL['d_model']}, f32, "
+                    f"top_k {MOE['top_k']}", "runs": []}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        run = moe_run(device, make_mesh({"ep": 1}), backend)
+    finally:
+        dist.destroy_process_group()
+    moe_verdict(run)
+    rec["runs"].append(run)
+    sections = {"world1_s": time.perf_counter() - t0}
+    rec["gloo_takes_device_tensors"] = require_gloo_takes(device, MOE_OPS, "moe")
+    sections["probe_s"] = time.perf_counter() - t0 - sum(sections.values())
+    config = {"MODEL": MODEL, "MOE": MOE, "TRAIN": TRAIN, "SEED": SEED}
+    for run in run_world2(moe_rank, device, "moe", config, MOE_RANK_LIMIT_S):
+        moe_verdict(run)
+        rec["runs"].append(run)
+    sections["world2_s"] = time.perf_counter() - t0 - sum(sections.values())
+    rec["phase_s"] = time.perf_counter() - t0
+    rec["sections_s"] = sections
+    log(f"moe: worlds {[run['world'] for run in rec['runs']]}; phase "
+        f"{rec['phase_s']:.1f} s {sections}; the ranks' "
+        f"{[run['sections_s'] for run in rec['runs']]}")
+    return rec
+
+
+def moe_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The phase's line: each rank's step ms, tokens/s, all-to-all share,
+    peak memory, drop fractions and aux losses, and its gaps to the dense
+    routing."""
+    return {"moe": {
+        "shape": rec["shape"],
+        "runs": [{k: run[k] for k in (
+            "world", "backend", "rank", "step_ms", "tokens_s",
+            "all_to_all_share", "peak_bytes", "drop_fraction",
+            "load_balance_loss")}
+                 | {k: run["dense"][k] for k in ("out_rel", "worst_grad_rel")}
+                 for run in rec["runs"]],
+        "phase_s": rec["phase_s"]}, "nvidia_smi": nvidia_smi}
 
 
 def twoterm_step(device, tokens, targets, max_len) -> dict:
@@ -4384,15 +5081,14 @@ SHARDED_KEYS = ("world1_bitwise", "world1_samples_s", "order_yardstick",
 
 
 @contextlib.contextmanager
-def timed_collectives(device):
-    """The host's seconds inside ``torch.distributed.all_reduce`` (the
-    device's queue drained first, so the time is the collective's own) and
-    the calls, while the block runs: ``{"s", "calls"}``. gloo blocks the
-    host for a CUDA tensor's all-reduce anyway."""
-    import torch.distributed as dist
-
-    spent = {"s": 0.0, "calls": 0}
-    plain = dist.all_reduce
+def timed_calls(owner, name: str, device):
+    """Each call of ``owner.<name>`` while the block runs (a collective of
+    ``torch.distributed``, the pipeline's shift, the experts' all-to-all),
+    timed on the host with the device's queue drained before and after,
+    so the time is the call's own: [(its arguments, seconds)] in call
+    order. gloo blocks the host for a CUDA tensor's collective anyway."""
+    calls = []
+    plain = getattr(owner, name)
 
     def timed(*args, **kwargs):
         if device.type == "cuda":
@@ -4403,14 +5099,13 @@ def timed_collectives(device):
         finally:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            spent["s"] += time.perf_counter() - t0
-            spent["calls"] += 1
+            calls.append((args, time.perf_counter() - t0))
 
-    dist.all_reduce = timed
+    setattr(owner, name, timed)
     try:
-        yield spent
+        yield calls
     finally:
-        dist.all_reduce = plain
+        setattr(owner, name, plain)
 
 
 def sharded_fit(device, run: dict, ds=None, order=None, ckpt=None) -> dict:
@@ -4426,6 +5121,8 @@ def sharded_fit(device, run: dict, ds=None, order=None, ckpt=None) -> dict:
     parameter is on ``device``, samples/s and step ms over the epochs after
     the first, the peak memory, and the share of those epochs inside
     all-reduces."""
+    import torch.distributed as dist
+
     from raydp_tpu_torch.models import dlrm_sharding_rules
     from raydp_tpu_torch.parallel import make_mesh
     from raydp_tpu_torch.parallel.sharding import gather_state
@@ -4452,9 +5149,9 @@ def sharded_fit(device, run: dict, ds=None, order=None, ckpt=None) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
     ia.reset_launches()
-    with timed_collectives(device) as spent:
+    with timed_calls(dist, "all_reduce", device) as reduces:
         history = est.fit(train)
-        fit_collective_s = spent["s"]
+        fit_collective_s = sum(s for _, s in reduces)
         evaluation = est.evaluate(ds)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -4479,7 +5176,7 @@ def sharded_fit(device, run: dict, ds=None, order=None, ckpt=None) -> dict:
         "step_ms": 1e3 * seconds / (len(timed) * steps),
         "peak_bytes": (torch.cuda.max_memory_allocated(device) - base
                        if device.type == "cuda" else None),
-        "collective_calls": spent["calls"],
+        "collective_calls": len(reduces),
         "collective_share": fit_collective_s / sum(
             r["epoch_seconds"] for r in history),
     }
@@ -4556,10 +5253,7 @@ def sharded_dlrm_rank(device_type: str, config: dict, runs: dict,
     globals().update(config)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(device_type, 0) if device_type == "cuda" else \
-        torch.device("cpu")
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
+    device = _rank_device(device_type)
     steps = {name: sharded_step(device, run, run["mesh"]["data"])
              for name, run in runs.items() if name != "model2_adam"}
     return {"rank": ctx.rank, "pid": os.getpid(), "steps": steps,
@@ -6608,14 +7302,16 @@ def quant_times(device) -> dict:
 def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
-                 etl: dict, seqpar: dict, sharded: dict) -> dict:
+                 etl: dict, seqpar: dict, sharded: dict,
+                 pipelined: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
     training steps for the f32 backward pair (its wrappers' counts there,
     where every launch is of the f32 bodies) and, with phase_deploy's f32
     replicas, for flash_fwd_f32; phase_seqpar's ring_flash and
-    ulysses_flash steps (every rank's) for the three f32 kernels; the full-width
+    ulysses_flash steps and phase_pipeline's steps (every rank's) for the
+    three f32 kernels; the full-width
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation, the dlrm_optimizer epoch, the streamed and retried
     fits of phase_fit, phase_etl's fits from the ETL Dataset and
@@ -6653,10 +7349,12 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     launches["quantize_int8_stochastic"] = \
         stochastic["launches"]["quantize_int8_stochastic"]
     launches["flash_fwd_f32"] = (trained_f32["launches"]["flash_fwd_f32"]
-                                 + seqpar["launches"]["flash_fwd_f32"])
+                                 + seqpar["launches"]["flash_fwd_f32"]
+                                 + pipelined["launches"]["flash_fwd_f32"])
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         launches[f"{name}_f32"] = (trained_f32["launches"][name]
-                                   + seqpar["launches"][name])
+                                   + seqpar["launches"][name]
+                                   + pipelined["launches"][name])
     for name, n in deployed["launches"].items():
         if name in launches:
             launches[name] += n
@@ -7018,6 +7716,15 @@ def main(argv: list) -> int:
         dev = phase_device()
         log(json.dumps(seqpar_summary(phase_seqpar(device), dev["nvidia_smi"])))
         return 0
+    if argv == ["--pipeline"]:
+        dev = phase_device()
+        log(json.dumps(pipeline_summary(phase_pipeline(device),
+                                        dev["nvidia_smi"])))
+        return 0
+    if argv == ["--moe"]:
+        dev = phase_device()
+        log(json.dumps(moe_summary(phase_moe(device), dev["nvidia_smi"])))
+        return 0
     if argv == ["--sharded"]:
         dev = phase_device()
         sharded = phase_sharded_dlrm(device, phase_dlrm(device))
@@ -7039,6 +7746,8 @@ def main(argv: list) -> int:
     record["train"] = phase_train(device)
     record["train_f32"] = phase_train_f32(device)
     record["seqpar"] = phase_seqpar(device)
+    record["pipeline"] = phase_pipeline(device)
+    record["moe"] = phase_moe(device)
     record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
     record["stochastic"] = phase_stochastic(device)
     record["dlrm"] = phase_dlrm(device)
@@ -7058,7 +7767,8 @@ def main(argv: list) -> int:
                            record["train_int8"], record["stochastic"],
                            record["fit"], record["deploy"],
                            record["train_f32"], record["etl"],
-                           record["seqpar"], record["sharded"])
+                           record["seqpar"], record["sharded"],
+                           record["pipeline"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -7073,6 +7783,9 @@ def main(argv: list) -> int:
         | {"nvidia_smi": record["device"]["nvidia_smi"]}}))
     log(json.dumps(seqpar_summary(record["seqpar"],
                                   record["device"]["nvidia_smi"])))
+    log(json.dumps(pipeline_summary(record["pipeline"],
+                                    record["device"]["nvidia_smi"])))
+    log(json.dumps(moe_summary(record["moe"], record["device"]["nvidia_smi"])))
     log(json.dumps({"training_int8_mlp": {k: record["train_int8"][k] for k in (
         "tokens_s", "step_ms", "mfu_int8_mlp", "first_loss_rel")}}))
     log(json.dumps({"dlrm_training": {k: record["dlrm"][k] for k in (

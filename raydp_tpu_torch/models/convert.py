@@ -16,6 +16,14 @@ A DLRM whose tables are split over a mesh axis takes its weights through
 ``table_shard``: the rows of a whole table that the rank at a coordinate
 holds (``parallel.sharding.scatter_state`` cuts a whole state dict so;
 ``gather_full`` is the inverse, on the ranks).
+
+The JAX package's pipeline and experts keep one stage's or expert's
+parameters a device as pytrees stacked on a leading dim; a rank of the
+port holds its own. ``stacked_slice`` takes rank r's slice of such a tree
+as tensors (an expert's ``t @ W`` takes its kernel as it is), and
+``stage_blocks_from_flax`` turns a stage of stacked flax ``Block`` trees
+(``Block_i`` for the stage's i-th block) into the state_dict of an
+``nn.Sequential`` of the port's ``Block``.
 """
 
 from __future__ import annotations
@@ -103,3 +111,41 @@ def table_shard(table, axis_size: int, axis_index: int) -> np.ndarray:
                          f"{axis_size} ranks")
     rows = table.shape[0] // axis_size
     return table[axis_index * rows:(axis_index + 1) * rows]
+
+
+def _slice_tree(tree, index: int):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, index) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_slice_tree(v, index) for v in tree)
+    return np.asarray(tree)[index]
+
+
+def stacked_slice(tree, index: int):
+    """Rank ``index``'s slice of a pytree (dicts, lists and tuples) whose
+    leaves carry a leading stage or expert dim: the same structure with
+    f32 CPU tensors of ``leaf[index]``."""
+    sliced = _slice_tree(tree, index)
+    if isinstance(sliced, np.ndarray):
+        return _t(sliced)
+    import torch.utils._pytree as pytree
+
+    return pytree.tree_map(_t, sliced)
+
+
+def stage_blocks_from_flax(stacked: dict, index: int) -> dict:
+    """Stage ``index`` of stacked flax ``Block`` params (``Block_0`` ...
+    each leaf [stages, ...]) -> the f32 CPU state_dict of an
+    ``nn.Sequential`` of the port's ``Block``: ``Block_i`` -> ``i.qkv``,
+    ``i.proj``, ``i.fc1``, ``i.fc2``, ``i.ln1``, ``i.ln2``."""
+    tree = _slice_tree(stacked.get("params", stacked), index)
+    out = {}
+    i = 0
+    while f"Block_{i}" in tree:
+        block = tree[f"Block_{i}"]
+        for name, ours in _BLOCK_DENSE.items():
+            _dense(out, f"{i}.{ours}", block[name])
+        for name, ours in _BLOCK_NORM.items():
+            _norm(out, f"{i}.{ours}", block[name])
+        i += 1
+    return out

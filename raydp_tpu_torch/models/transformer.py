@@ -305,25 +305,6 @@ def _bound_call(meshes, block, x):
         return block(x)
 
 
-class _Replicated(torch.autograd.Function):
-    """A parameter replicated over an axis's group: the identity forward,
-    and the backward sums the gradient over the group (the transpose of a
-    replicated input to ``shard_map``)."""
-
-    @staticmethod
-    def forward(ctx, p, group):
-        ctx.group = group
-        return p.view_as(p)
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def sequence_parallel_apply(model: TransformerLM, tokens, mesh):
     """Apply a ring or Ulysses ``TransformerLM`` with the sequence sharded
     over ``model.seq_axis`` of ``mesh``: every rank passes the same tokens
@@ -349,7 +330,7 @@ def sequence_parallel_apply(model: TransformerLM, tokens, mesh):
         if not torch.is_grad_enabled():
             return model(local, seq_offset=r * t_local)
         group = mesh.group(axis)
-        params = {name: _Replicated.apply(p, group) if p.requires_grad else p
+        params = {name: _mesh.replicated(p, group) if p.requires_grad else p
                   for name, p in model.named_parameters()}
         return torch.func.functional_call(model, params, (local,),
                                           {"seq_offset": r * t_local})

@@ -1,11 +1,9 @@
 """Parallel layers of the port over ``torch.distributed``: meshes of ranks
 (``mesh.py``), sequence parallelism, ring and Ulysses attention
-(``ring_attention.py``), the partitioners (``partitioner.py``) and the
-parameter-sharding rules (``sharding.py``), under the names the JAX
-package's ``parallel`` exports.
-
-Mixture-of-experts and pipeline parallelism come with ROADMAP Queue 1
-item 3c; until then those names raise ``NotImplementedError``.
+(``ring_attention.py``), the partitioners (``partitioner.py``), the
+parameter-sharding rules (``sharding.py``), pipeline parallelism
+(``pipeline.py``) and expert parallelism (``moe.py``), under the names the
+JAX package's ``parallel`` exports.
 """
 
 from raydp_tpu_torch.parallel.mesh import (
@@ -17,11 +15,13 @@ from raydp_tpu_torch.parallel.mesh import (
     mesh_axis_size,
     multihost_mesh,
 )
+from raydp_tpu_torch.parallel.moe import moe_apply, moe_sharded
 from raydp_tpu_torch.parallel.partitioner import (
     DataParallelPartitioner,
     NullPartitioner,
     Partitioner,
 )
+from raydp_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_sharded
 from raydp_tpu_torch.parallel.ring_attention import (
     full_attention,
     ring_attention,
@@ -33,22 +33,6 @@ from raydp_tpu_torch.parallel.sharding import (
     shard_params_by_rules,
     sharding_rules_fn,
 )
-
-_ITEM_3C = "ROADMAP Queue 1 item 3c (moe and pipeline)"
-
-
-def _later_function(name: str, where: str):
-    def later(*args, **kwargs):
-        raise NotImplementedError(f"{name} is ported in {where}")
-
-    later.__name__ = later.__qualname__ = name
-    return later
-
-
-moe_apply = _later_function("moe_apply", _ITEM_3C)
-moe_sharded = _later_function("moe_sharded", _ITEM_3C)
-pipeline_apply = _later_function("pipeline_apply", _ITEM_3C)
-pipeline_sharded = _later_function("pipeline_sharded", _ITEM_3C)
 
 __all__ = [
     "DataParallelPartitioner",

@@ -16,16 +16,24 @@ theirs), and ``bound_mesh`` / ``axis_env_size`` read the binding. An
 axis name with no binding raises ``NameError``, as an unbound axis does in
 JAX. A layer that needs its group again in the backward reads
 it in the forward and keeps it: autograd may run the backward on another
-thread, where the binding is not seen.
+thread, where the binding is not seen: ``Axis.of`` reads a bound axis's
+group, this rank's index and the size into one value.
+
+``replicated`` marks a tensor that every rank of an axis holds alike as an
+input of a sharded computation (shard_map's ``P()``): the identity forward,
+and the backward sums the gradient over the axis's group, which is the
+transpose of a replicated input.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 class Mesh:
@@ -188,3 +196,70 @@ def current_meshes() -> Tuple[Mesh, ...]:
 def axis_env_size(axis_name: str) -> int:
     """Size of a bound axis: the size of its group."""
     return mesh_axis_size(bound_mesh(axis_name), axis_name)
+
+
+@dataclass(frozen=True)
+class Axis:
+    """A bound axis as a layer keeps it: its group, this rank's index along
+    it, and its size."""
+
+    group: object
+    index: int
+    size: int
+
+    @classmethod
+    def of(cls, axis_name: str) -> "Axis":
+        bound = bound_mesh(axis_name)
+        return cls(bound.group(axis_name), bound.axis_index(axis_name),
+                   mesh_axis_size(bound, axis_name))
+
+    def peer(self, offset: int) -> int:
+        """The default group's rank of the rank ``offset`` steps along."""
+        import torch.distributed as dist
+
+        return dist.get_global_rank(self.group, (self.index + offset) % self.size)
+
+    def rotate(self, tensors):
+        """Each tensor to the next rank of the ring, the previous rank's
+        back: one ``batch_isend_irecv`` for all of them. A ring of one rank
+        is the identity and sends nothing."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return list(tensors)
+        nxt, prv = self.peer(1), self.peer(-1)
+        ops, received = [], []
+        for t in tensors:
+            t = t.contiguous()
+            buf = torch.empty_like(t)
+            ops.append(dist.P2POp(dist.isend, t, nxt, self.group))
+            ops.append(dist.P2POp(dist.irecv, buf, prv, self.group))
+            received.append(buf)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return received
+
+
+class _Replicated(torch.autograd.Function):
+    """The identity forward; the backward sums the gradient over the
+    group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as an input that every rank of ``group`` holds alike: each
+    rank's gradient of it comes back summed over the group (shard_map's
+    transpose of a ``P()`` input)."""
+    return _Replicated.apply(x, group)

@@ -35,8 +35,6 @@ called (from the axis bound by ``sequence_parallel_apply`` or
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import torch
 
 from raydp_tpu_torch.ops import _flops
@@ -47,48 +45,6 @@ from raydp_tpu_torch.ops.flash_attention import (
     flash_backward_blocks,
 )
 from raydp_tpu_torch.parallel import mesh as _mesh
-
-
-@dataclass(frozen=True)
-class _Axis:
-    """A bound axis as a layer keeps it: its group, this rank's index along
-    it, and its size."""
-
-    group: object
-    index: int
-    size: int
-
-    @classmethod
-    def of(cls, axis_name: str) -> "_Axis":
-        bound = _mesh.bound_mesh(axis_name)
-        return cls(bound.group(axis_name), bound.axis_index(axis_name),
-                   _mesh.mesh_axis_size(bound, axis_name))
-
-    def peer(self, offset: int) -> int:
-        """The default group's rank of the rank ``offset`` steps along."""
-        import torch.distributed as dist
-
-        return dist.get_global_rank(self.group, (self.index + offset) % self.size)
-
-    def rotate(self, tensors):
-        """Each tensor to the next rank of the ring, the previous rank's
-        back: one ``batch_isend_irecv`` for all of them. A ring of one rank
-        is the identity and sends nothing."""
-        import torch.distributed as dist
-
-        if self.size == 1:
-            return list(tensors)
-        nxt, prv = self.peer(1), self.peer(-1)
-        ops, received = [], []
-        for t in tensors:
-            t = t.contiguous()
-            buf = torch.empty_like(t)
-            ops.append(dist.P2POp(dist.isend, t, nxt, self.group))
-            ops.append(dist.P2POp(dist.irecv, buf, prv, self.group))
-            received.append(buf)
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return received
 
 
 def _block_attn(q, k, v, mask):
@@ -126,7 +82,7 @@ def _causal_mask(t, tk, q_off, k_off, causal, device):
     return gq[:, None] >= gk[None, :]
 
 
-def _ring_forward_stats(q, k, v, axis: _Axis, causal, use_flash):
+def _ring_forward_stats(q, k, v, axis: _mesh.Axis, causal, use_flash):
     """Ring forward returning (o unnormalized f32, m, l)."""
     n, me = axis.size, axis.index
     t, tk = q.shape[2], k.shape[2]
@@ -224,7 +180,7 @@ def ring_attention(q, k, v, axis_name: str, causal: bool = False,
     global sequence is ``T_local * W`` in rank order. Returns [B, H,
     T_local, D] in q's type, differentiable in q, k and v (the second ring
     pass). ``use_flash`` takes the flash kernels for each block product."""
-    axis = _Axis.of(axis_name)
+    axis = _mesh.Axis.of(axis_name)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _RingAttention.apply(q, k, v, axis, bool(causal), bool(use_flash))
     o, m, l = _ring_forward_stats(q, k, v, axis, causal, use_flash)  # noqa: E741
@@ -240,7 +196,7 @@ def ring_attention_sharded(q, k, v, mesh, axis: str = "sp", causal: bool = False
         return ring_attention(q, k, v, axis, causal, use_flash)
 
 
-def _seq_to_heads(x, axis: _Axis):
+def _seq_to_heads(x, axis: _mesh.Axis):
     """[B, H, T_local, D] -> [B, H/W, T_global, D]: head group j goes to
     rank j, and the sequence shards arrive in rank order."""
     import torch.distributed as dist
@@ -253,7 +209,7 @@ def _seq_to_heads(x, axis: _Axis):
     return recv.permute(1, 2, 0, 3, 4).reshape(b, h // n, n * t, d)
 
 
-def _heads_to_seq(x, axis: _Axis):
+def _heads_to_seq(x, axis: _mesh.Axis):
     """[B, H/W, T_global, D] -> [B, H, T_local, D]: the inverse swap."""
     import torch.distributed as dist
 
@@ -287,7 +243,7 @@ def ulysses_attention(q, k, v, axis_name: str, causal: bool = False,
     sequences for H/W heads, all-to-all back. Per-rank shapes [B, H,
     T_local, D]; H must divide by the axis size. ``use_flash`` attends
     with ``flash_attention`` (the flash forward and backward kernels)."""
-    axis = _Axis.of(axis_name)
+    axis = _mesh.Axis.of(axis_name)
     h = q.shape[1]
     if h % axis.size:
         raise ValueError(f"heads {h} not divisible by sequence axis {axis.size}")

@@ -1098,6 +1098,133 @@ def test_seqpar_verdict_fails_a_launch_count_off_the_reckoning():
 
 
 @pytest.fixture
+def tiny_pipeline(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(vocab_size=64, d_model=64,
+                                                  num_heads=4, num_layers=4))
+    monkeypatch.setattr(chip_smoke, "PIPELINE", dict(
+        chip_smoke.PIPELINE, seq=64, steps=3))
+
+
+def test_phase_pipeline_on_the_cpu(store_alarm_guard, tiny_pipeline):
+    """phase_pipeline at a tiny width with the plain versions: world 1 over
+    gloo in this process, then world 2 in two spawned ranks (gloo takes
+    CPU tensors for the shift); every rank held to the flash step's loss
+    and gradients, bitwise over two runs, its loss falling; no launches."""
+    rec = chip_smoke.phase_pipeline(torch.device("cpu"))
+    assert set(rec["gloo_takes_device_tensors"]["ops"].values()) == {"ok"}
+    assert [(run["world"], run["rank"]) for run in rec["runs"]] == [
+        (1, 0), (2, 0), (2, 1)]
+    assert {run["backend"] for run in rec["runs"]} == {"gloo"}
+    assert all(run["bitwise"] for run in rec["runs"])
+    # the loss is replicated: the same on both ranks of world 2
+    assert rec["runs"][1]["losses"] == rec["runs"][2]["losses"]
+    assert rec["launches"] == {"flash_fwd_f32": 0, "flash_bwd_dq": 0,
+                               "flash_bwd_dkv": 0}
+    assert rec["runs"][0]["shift_share"] == 0.0
+    assert all(run["shift_share"] > 0 for run in rec["runs"][1:])
+    line = chip_smoke.pipeline_summary(rec, "cpu")["pipeline"]
+    assert len(line["runs"]) == 3
+
+
+def _pipeline_record(world, per_step, gaps):
+    return {"world": world, "backend": "gloo", "rank": 0, **gaps,
+            "bitwise": True, "first_loss": 2.0, "losses": [1.5],
+            "per_step": per_step, "step_ms": 1.0, "tokens_s": 1.0,
+            "split_step_ms": 1.0, "shift_share": 0.1,
+            "bubble_wait_share": 0.0, "all_reduce_share": 0.1,
+            "bubble_ticks_share": 0.2, "peak_bytes": None, "base_bytes": None,
+            "expected_per_step": chip_smoke.pipeline_expected(
+                world, torch.device("cuda"))}
+
+
+def test_pipeline_verdict_fails_a_launch_count_off_the_schedule():
+    """On the card each rank launches M x blocks a stage of each f32
+    kernel a step (8 at world 2); a count the schedule does not give, such
+    as (M + N - 1) x blocks of a schedule that computes its bubble ticks,
+    fails the phase."""
+    gaps = {"loss_rel": 0.0, "worst_grad_rel": 0.0}
+    expected = chip_smoke.pipeline_expected(2, torch.device("cuda"))
+    assert expected == {"flash_fwd_f32": 8, "flash_bwd_dq": 8,
+                        "flash_bwd_dkv": 8}
+    chip_smoke.pipeline_verdict(_pipeline_record(
+        2, {n: float(c) for n, c in expected.items()}, gaps))
+    with pytest.raises(chip_smoke.SmokeFailure, match="launches per step"):
+        chip_smoke.pipeline_verdict(_pipeline_record(
+            2, {n: 10.0 for n in expected}, gaps))
+
+
+def test_pipeline_verdict_fails_gradients_summed_over_the_ranks():
+    """The replicated output's cotangent summed over the ranks leaves the
+    last stage's gradients (and all before it) n times too large: the
+    verdict's gradient gap catches the factor."""
+    ref = {"loss": 2.0, "grads": {"blocks.2.fc1.weight": torch.ones(4, 4),
+                                  "lm_head.weight": torch.full((4,), 0.5)}}
+    grads = {n: g.clone() for n, g in ref["grads"].items()}
+    expected = {n: float(c) for n, c in chip_smoke.pipeline_expected(
+        2, torch.device("cuda")).items()}
+    chip_smoke.pipeline_verdict(_pipeline_record(
+        2, expected, chip_smoke.pipeline_gaps(torch.tensor(2.0), grads, ref)))
+    grads["blocks.2.fc1.weight"] *= 2  # n = 2
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagree"):
+        chip_smoke.pipeline_verdict(_pipeline_record(
+            2, expected, chip_smoke.pipeline_gaps(torch.tensor(2.0), grads,
+                                                  ref)))
+
+
+@pytest.fixture
+def tiny_moe(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "MODEL", dict(vocab_size=64, d_model=64,
+                                                  num_heads=4, num_layers=4))
+    monkeypatch.setattr(chip_smoke, "MOE", dict(chip_smoke.MOE, seq=64, steps=3))
+
+
+def test_phase_moe_on_the_cpu(store_alarm_guard, tiny_moe):
+    """phase_moe at a tiny width: world 1 over gloo in this process (the
+    dense routing is the plain MLP), then world 2 in two spawned ranks;
+    each held to the dense routing at capacity factor 8, bitwise over two
+    runs, with no drop; the trained steps report drops and aux losses."""
+    rec = chip_smoke.phase_moe(torch.device("cpu"))
+    assert set(rec["gloo_takes_device_tensors"]["ops"].values()) == {"ok"}
+    assert [(run["world"], run["rank"]) for run in rec["runs"]] == [
+        (1, 0), (2, 0), (2, 1)]
+    for run in rec["runs"]:
+        assert run["dense"]["bitwise"] and run["dense"]["drop_fraction"] == 0.0
+        assert len(run["drop_fraction"]) == len(run["load_balance_loss"]) == 4
+        assert run["launches"] == {}
+    # top-2 of 2 experts: every token goes to both, at balance
+    assert rec["runs"][1]["load_balance_loss"] == [1.0] * 4
+    assert rec["runs"][1]["losses"] == rec["runs"][2]["losses"]
+    assert rec["runs"][0]["all_to_all_share"] == 0.0
+    line = chip_smoke.moe_summary(rec, "cpu")["moe"]
+    assert len(line["runs"]) == 3
+
+
+def _moe_record(dense, launches=None):
+    return {"world": 2, "backend": "gloo", "rank": 0,
+            "dense": {"out_rel": 0.0, "loss_rel": 0.0, "drop_fraction": 0.0,
+                      "bitwise": True, **dense},
+            "first_loss": 2.0, "losses": [1.5], "drop_fraction": [0.0],
+            "load_balance_loss": [1.0], "launches": launches or {},
+            "step_ms": 1.0, "tokens_s": 1.0, "all_to_all_share": 0.5,
+            "peak_bytes": None, "base_bytes": None}
+
+
+def test_moe_verdict_fails_a_launch_and_a_router_gradient_summed_twice():
+    """The path runs no port kernel: a launch counted there fails it. A
+    router gradient summed over the ranks once more is n times the dense
+    routing's: its gap fails it too."""
+    ref = torch.tensor([[0.5, -0.25], [1.0, 0.125]])
+    worst, _ = chip_smoke.grad_gap({"router": ref.clone()}, {"router": ref})
+    chip_smoke.moe_verdict(_moe_record({"worst_grad_rel": worst}))
+    with pytest.raises(chip_smoke.SmokeFailure, match="port kernels launched"):
+        chip_smoke.moe_verdict(_moe_record({"worst_grad_rel": worst},
+                                           {"flash_fwd_f32": 1}))
+    worst, _ = chip_smoke.grad_gap({"router": 2 * ref}, {"router": ref})
+    with pytest.raises(chip_smoke.SmokeFailure, match="disagree"):
+        chip_smoke.moe_verdict(_moe_record({"worst_grad_rel": worst}))
+
+
+@pytest.fixture
 def tiny_sharded(monkeypatch):
     """The store's tiny DLRM at 2,048 rows (8 global steps an epoch) and a
     learning rate of 1e-2, so 3 epochs drop the loss by 10%."""
@@ -1135,6 +1262,24 @@ def test_phase_sharded_dlrm_on_the_cpu(store_alarm_guard, tiny_sharded):
         assert run["launches"] == [0, 0]
         assert all(share > 0 for share in run["collective_share"])
     assert rec["phase_s"] <= chip_smoke.SHARDED_LIMIT_S
+
+
+def test_sharded_rank_takes_one_thread_on_the_cpu(tmp_path):
+    """A rank of the world-2 job is a worker of the cluster runtime, which
+    starts with torch's default pool (a thread a core). Two such ranks in
+    gloo's lockstep beside the suite's other workers took the CPU phase
+    past its 120 s guard; with one thread a rank it takes a third of its
+    CPU time. The rank program sets one thread on the CPU, as the spawned
+    ranks of phase_seqpar do."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        got = chip_smoke.sharded_dlrm_rank(
+            "cpu", {}, {}, str(tmp_path), SimpleNamespace(rank=0))
+        assert torch.get_num_threads() == 1
+    finally:
+        torch.set_num_threads(threads)
+    assert got == {"rank": 0, "pid": os.getpid(), "steps": {}, "runs": {}}
 
 
 def test_sharded_verdict_fails_a_launch_off_the_forward_passes():
