@@ -221,6 +221,21 @@ Phases; any failure exits non-zero and prints no result line:
    columns, one K1 launch a forward pass; no process of the session with a
    CUDA context; after ``shutdown()`` no process or ``rtpt-`` segment of
    the session (``--etl`` runs phase_dlrm and this phase alone).
+   Then the same cell through the other estimators (``phase_estimators``):
+   in an ETL session, the columns of ``dlrm_data`` in 4 blocks and 2,048
+   held-out rows; ``TorchEstimator.fit_on_etl`` (Adam, batch 2048 a rank,
+   3 epochs) at world 1, one rank over NCCL bit for bit a plain loop in
+   this process (losses, evaluation, parameters, K1 launches), and at
+   world 2, two ranks over gloo on the one card (gloo must take DDP's
+   all-gather, broadcast and all-reduce): both ranks' parameters equal,
+   ``get_model()`` rank 0's, the mean loss within 1e-3 of the world-1
+   loop on both ranks' batches and falling by 10%, one step of the
+   estimator's rank program within 1e-5 (loss, gradients) and 1e-4 (the
+   tables' update) of world 1's; K1 once a forward on every rank;
+   ``XGBoostEstimator``'s native GBDT at world 2, bit for bit an
+   in-process two-rank run; samples/s, step ms, DDP's all-reduce share,
+   peak memory and setup seconds a rank, an ``{"estimators": {...}}``
+   line (``--estimators`` runs phase_dlrm and this phase alone).
    Then examples/dlrm_criteo.py's dp x tp fit at the same width
    (``phase_sharded_dlrm``, after phase_store): ``dlrm_sharding_rules``
    and a mesh of ranks; world 1 over NCCL in this process, mesh {"data":
@@ -323,7 +338,8 @@ Phases; any failure exits non-zero and prints no result line:
 
 Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
 ``{"moe": {...}}`` line ``phase_moe``, an ``{"etl": {...}}`` line
-``phase_etl`` and a ``{"deploy": {...}}`` line ``phase_deploy``, each
+``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``
+and a ``{"deploy": {...}}`` line ``phase_deploy``, each
 beside the card's name and power limit. The
 last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
@@ -3096,7 +3112,8 @@ def _rank_device(device_type: str):
     return torch.device("cpu")
 
 
-GLOO_PROBE_OPS = ("p2p", "all_to_all", "all_reduce", "shift")
+GLOO_PROBE_OPS = ("p2p", "all_to_all", "all_reduce", "shift", "all_gather",
+                  "broadcast")
 # the collectives each impl's training step runs: the ring's rotation or
 # Ulysses' swaps, and the parameters' gradient sum
 SEQPAR_OPS = {"ring_flash": ("p2p", "all_reduce"),
@@ -3107,9 +3124,10 @@ def gloo_probe_rank(rank, world, port, out_path, device_type, op) -> None:
     """One rank of one probe: does gloo take tensors on ``device_type`` for
     ``op`` (the ring's rotation by ``batch_isend_irecv``, Ulysses' and the
     experts' ``all_to_all_single``, the gradients' ``all_reduce``, the
-    pipeline's ``_shift``: ``all_to_all_single`` with split sizes) and give
-    the values it must? Writes "ok", "wrong values", or the error gloo
-    raised (a refusal) to ``out_path``."""
+    pipeline's ``_shift``: ``all_to_all_single`` with split sizes; DDP's
+    ``all_gather`` and ``broadcast`` at construction) and give the values
+    it must? Writes "ok", "wrong values", or the error gloo raised (a
+    refusal) to ``out_path``."""
     import torch.distributed as dist
 
     from raydp_tpu_torch.parallel import pipeline
@@ -3146,9 +3164,21 @@ def gloo_probe_rank(rank, world, port, out_path, device_type, op) -> None:
         got = pipeline._shift(x, Axis(dist.group.WORLD, rank, world), 1)
         return bool((got == (rank - 1) % world).all())
 
+    def all_gather():
+        x = torch.full((1024,), float(rank), device=device)
+        got = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(got, x)
+        return all(bool((t == r).all()) for r, t in enumerate(got))
+
+    def broadcast():
+        x = torch.full((1024,), float(rank + 1), device=device)
+        dist.broadcast(x, src=0)
+        return bool((x == 1).all())
+
     try:
         run = {"p2p": p2p, "all_to_all": all_to_all, "all_reduce": all_reduce,
-               "shift": shift}[op]
+               "shift": shift, "all_gather": all_gather,
+               "broadcast": broadcast}[op]
         outcome = "ok" if run() else "wrong values"
     except RuntimeError as exc:  # gloo's refusal is the probe's answer
         outcome = f"refused: {exc!r}"[:300]
@@ -5039,6 +5069,631 @@ def phase_etl(device, dlrm: dict = None) -> dict:
         f"{rec['gone_after_shutdown_s']:.3f} s after shutdown; host CPUs "
         f"{rec['host_cpus']}; phase {rec['phase_s']:.1f} s")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase_estimators: bench.py's DLRM cell through TorchEstimator's DDP ranks
+# ---------------------------------------------------------------------------
+
+# the whole phase: three fits' fresh rank processes (each rank's imports,
+# then DDP's first construction, which imports torch's compiler stack)
+# took 86.8-140.8 s with the gloo probes on the card's host
+ESTIMATORS_LIMIT_S = 240.0
+ESTIMATORS_SESSION = dict(num_executors=2, executor_cores=2, executor_memory="1G")
+# the held-out rows both worlds evaluate on (dlrm_columns with another seed),
+# an equal block a rank at world 2
+ESTIMATORS_HELDOUT = dict(rows=2048, data_seed=12, blocks=2)
+# the native GBDT at world 2 on the dense columns
+GBDT_RUN = dict(rounds=10, params={"objective": "binary:logistic", "eta": 0.3,
+                                   "max_depth": 4})
+# what DDP issues over gloo at world 2: at construction the parameters'
+# shape check (an all-gather, then a broadcast) and the module state's
+# broadcast; in each backward the gradient buckets' all-reduce (and the
+# evaluation's sums)
+DDP_OPS = ("all_gather", "broadcast", "all_reduce")
+ESTIMATORS_KEYS = ("world1", "world2", "gbdt", "launches", "gloo_takes",
+                   "dlrm_samples_s", "dlrm_step_ms", "phase_s")
+
+
+class CommTimer:
+    """The state of ``ddp_comm_hook`` on one rank: what it does to each
+    gradient bucket (``mode``) and the file it reports to
+    (``<path>.<rank>``: its calls and their seconds, rewritten after each
+    call). "mean" is DDP's own reduce (divide by the world, all-reduce the
+    sum); "sum" and "local" are planted faults: the gradients summed over
+    the ranks, or each rank keeping its own."""
+
+    def __init__(self, path: str, mode: str = "mean"):
+        self.path, self.mode = path, mode
+        self.calls, self.seconds = 0, 0.0
+
+
+def ddp_comm_hook(state: CommTimer, bucket):
+    """DDP's gradient reduce for ``state.mode``, the all-reduce timed on the
+    host with the device drained before and after (gloo blocks the host for
+    a CUDA tensor's collective anyway)."""
+    import torch.distributed as dist
+
+    buf = bucket.buffer()
+    if state.mode == "mean":
+        buf.div_(dist.get_world_size())  # x / 2 is x * 0.5, DDP's scaling
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    t0 = time.perf_counter()
+    if state.mode != "local":
+        dist.all_reduce(buf)
+    if buf.is_cuda:
+        torch.cuda.synchronize(buf.device)
+    state.calls += 1
+    state.seconds += time.perf_counter() - t0
+    Path(f"{state.path}.{dist.get_rank()}").write_text(
+        json.dumps({"calls": state.calls, "seconds": state.seconds}))
+    done = torch.futures.Future()
+    done.set_result(buf)
+    return done
+
+
+def dlrm_creator(device):
+    """The model creator the estimator ships: the full DLRM (f32, K1 in
+    the forward), built on the rank's current card or on the CPU."""
+    return functools.partial(DLRM, **DLRM_MODEL,
+                             device=None if device.type == "cuda" else "cpu")
+
+
+def dlrm_column_names():
+    """``dlrm_columns``' dense and id column names."""
+    return ([f"i{i}" for i in range(DLRM_MODEL["num_dense"])],
+            [f"c{j}" for j in range(len(DLRM_MODEL["vocab_sizes"]))])
+
+
+def torch_estimator(device, world: int, comm_hook=None):
+    """``TorchEstimator`` on DLRM_RUN's fit: Adam, BCE with logits, the dense
+    and id columns as one f32 matrix, ``batch`` rows a rank a step."""
+    from raydp_tpu_torch.estimator import TorchEstimator
+
+    dense_cols, cat_cols = dlrm_column_names()
+    return TorchEstimator(
+        model=dlrm_creator(device), optimizer="Adam",
+        loss=torch.nn.BCEWithLogitsLoss, feature_columns=dense_cols + cat_cols,
+        label_column="label", batch_size=DLRM_RUN["batch"],
+        num_epochs=DLRM_RUN["epochs"], num_workers=world,
+        learning_rate=DLRM_RUN["lr"], seed=SEED, device=device.type,
+        comm_hook=comm_hook)
+
+
+def shard_arrays(ds, world: int, columns) -> list:
+    """Each rank's equal share of ``ds`` as (features, labels) numpy."""
+    return [shard.to_numpy(columns, "label") for shard in ds.split(world)]
+
+
+def shard_eval(model, shares, device) -> float:
+    """The estimator's evaluation of ``shares`` (each rank's batches of
+    DLRM_RUN's, the losses times their rows summed in f32, the ranks' sums
+    added) by ``model`` in this process."""
+    loss_fn, batch = torch.nn.BCEWithLogitsLoss(), DLRM_RUN["batch"]
+    total = torch.zeros(1, device=device)
+    count = torch.zeros(1, device=device)
+    model.eval()
+    with torch.no_grad():
+        for features, labels in shares:
+            x = torch.from_numpy(features).to(device)
+            y = torch.from_numpy(labels).to(device)
+            for s in range(0, len(x), batch):
+                xb, yb = x[s:s + batch], y[s:s + batch]
+                loss = loss_fn(model(xb).reshape(yb.shape), yb)
+                total += (loss.double() * len(xb)).float()
+                count += len(xb)
+    return float(total) / max(float(count), 1.0)
+
+
+def reference_loop(device, shares, heldout) -> dict:
+    """The plain loop the estimator's fits are held to, in this process
+    with no DDP: the creator after ``torch.manual_seed(SEED)``, Adam,
+    BCE with logits; each step the rows every rank takes at that step (its
+    own order, ``default_rng(SEED + epoch)``) concatenated rank after rank,
+    ``loss.backward()`` and ``Adam.step()``; an epoch's loss the f64 sum of
+    its steps' losses over their count; after each epoch ``shard_eval`` of
+    the held-out shares. With one share it is the world-1 rank's fit, so
+    the two must agree bit for bit. Its K1 launches are counted."""
+    torch.manual_seed(SEED)
+    model = dlrm_creator(device)().to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=DLRM_RUN["lr"])
+    loss_fn, batch = torch.nn.BCEWithLogitsLoss(), DLRM_RUN["batch"]
+    xs = [(torch.from_numpy(f).to(device), torch.from_numpy(l).to(device))
+          for f, l in shares]
+    n = len(xs[0][0])
+    steps = n // batch
+    history = []
+    ia.reset_launches()
+    for epoch in range(DLRM_RUN["epochs"]):
+        model.train()
+        order = np.arange(n)
+        np.random.default_rng(SEED + epoch).shuffle(order)
+        order = torch.from_numpy(order).to(device)
+        total = 0.0
+        for s in range(steps):
+            idx = order[s * batch:(s + 1) * batch]
+            xb = torch.cat([x.index_select(0, idx) for x, _ in xs])
+            yb = torch.cat([y.index_select(0, idx) for _, y in xs])
+            opt.zero_grad()
+            loss = loss_fn(model(xb).reshape(yb.shape), yb)
+            loss.backward()
+            opt.step()
+            total += float(loss.detach())
+        history.append({"train_loss": total / max(steps, 1),
+                        "eval_loss": shard_eval(model, heldout, device)})
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return {"history": history, "launches": ia.LAUNCHES["interaction_fwd"],
+            "state": {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+
+
+def reference_step(device, shares) -> dict:
+    """One step of the world-1 loop (``reference_loop``'s first step, every
+    rank's first batch concatenated): the loss, every gradient, the
+    parameters before and after."""
+    torch.manual_seed(SEED)
+    model = dlrm_creator(device)().to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=DLRM_RUN["lr"])
+    batch = DLRM_RUN["batch"]
+    rows = np.arange(len(shares[0][0]))
+    np.random.default_rng(SEED).shuffle(rows)
+    rows = rows[:batch]
+    xb = torch.from_numpy(np.concatenate([f[rows] for f, _ in shares])).to(device)
+    yb = torch.from_numpy(np.concatenate([l[rows] for _, l in shares])).to(device)
+    named = list(model.named_parameters())
+    start = {n: p.detach().cpu().clone() for n, p in named}
+    opt.zero_grad()
+    loss = torch.nn.BCEWithLogitsLoss()(model(xb).reshape(yb.shape), yb)
+    loss.backward()
+    opt.step()
+    return {"loss": float(loss.detach()), "start": start,
+            "grads": {n: p.grad.detach().cpu().clone() for n, p in named},
+            "params": {n: p.detach().cpu().clone() for n, p in named}}
+
+
+def estimator_step_rank(worker_fn, ctx) -> dict:
+    """One training step of the estimator's own rank program (its
+    ``start``, ``stage``, ``order`` and ``step``) on the first batch of
+    epoch 0: the loss, every gradient after DDP's reduce, the parameters
+    before and after, this rank's pid."""
+    import torch.distributed as dist
+
+    device, model, optimizer, loss_fn = worker_fn.start(ctx)
+    try:
+        x, y = worker_fn.stage(worker_fn.shards[ctx.rank], device)
+        batch = worker_fn.est_config["batch_size"]
+        idx = torch.from_numpy(worker_fn.order(len(x), 0)[:batch]).to(device)
+        named = list(model.module.named_parameters())
+        start = {n: p.detach().cpu().clone() for n, p in named}
+        loss = worker_fn.step(model, optimizer, loss_fn, x.index_select(0, idx),
+                              y.index_select(0, idx))
+        return {"rank": ctx.rank, "pid": os.getpid(),
+                "loss": float(loss.detach()), "start": start,
+                "grads": {n: p.grad.detach().cpu().clone() for n, p in named},
+                "params": {n: p.detach().cpu().clone() for n, p in named}}
+    finally:
+        dist.destroy_process_group()
+
+
+def estimator_rates(history: list, steps: int, rows: int) -> dict:
+    """A rank's samples/s and step ms over the epochs after the first
+    (``steps`` an epoch of ``rows`` each), from its history's
+    ``epoch_seconds``."""
+    seconds = [r["epoch_seconds"] for r in history]
+    timed_steps = (len(seconds) - 1) * steps
+    timed = sum(seconds[1:])
+    return {"samples_s": timed_steps * rows / timed,
+            "step_ms": 1e3 * timed / timed_steps, "epoch_seconds": seconds}
+
+
+def fit_record(est, history, world: int, steps: int, wall: float) -> dict:
+    """A fit's losses and its ranks' records (``steps`` a rank an epoch):
+    launches, device, backend, peak memory, parameters' digest, rates; the
+    fit's seconds from ``wall`` (the wall clock at its call), split into
+    before the ranks' program (the conversion, the job's start, the
+    program's unpickling), the ranks' program and after it (the results
+    back, the job's stop)."""
+    end = time.time()
+    stats = est.rank_stats_
+    ranks = [{
+        "pid": r["pid"], "device": r["device"], "setup_s": r["setup_s"],
+        "setup": r["setup"], "backend": r["backend"],
+        "peak_bytes": r["peak_bytes"],
+        "launches": r["launches"].get("interaction_fwd", 0),
+        "params_sha256": r["params_sha256"],
+        "train_loss": [h["train_loss"] for h in r["history"]],
+        **estimator_rates(r["history"], steps, DLRM_RUN["batch"])}
+        for r in stats]
+    return {"world": world, "train_loss": [r["train_loss"] for r in history],
+            "eval_loss": [r["eval_loss"] for r in history], "ranks": ranks,
+            "fit_s": end - wall,
+            "fit_split_s": {
+                "before_ranks": min(r["started_at"] for r in stats) - wall,
+                "ranks": max(r["ended_at"] - r["started_at"] for r in stats),
+                "after_ranks": end - max(r["ended_at"] for r in stats)}}
+
+
+def estimators_world1(device, frame, heldout_frame, ds, heldout_ds) -> dict:
+    """World 1: one rank over NCCL (gloo on the CPU) through
+    ``fit_on_etl``, against ``reference_loop`` on the same rows."""
+    columns = sum(dlrm_column_names(), [])
+    share = shard_arrays(ds, 1, columns)[0]
+    heldout = shard_arrays(heldout_ds, 1, columns)
+    rows, batch, epochs = len(share[0]), DLRM_RUN["batch"], DLRM_RUN["epochs"]
+    steps = rows // batch
+    est = torch_estimator(device, 1)
+    wall = time.time()
+    history = est.fit_on_etl(frame, heldout_frame)
+    rec = fit_record(est, history, 1, steps, wall)
+    rec["forwards"] = epochs * (steps + -(-len(heldout[0][0]) // batch))
+    t0 = time.perf_counter()
+    loop = reference_loop(device, [share], heldout)
+    rec["loop_s"] = time.perf_counter() - t0
+    model = est.get_model()
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rec["bitwise"] = (
+        rec["train_loss"] == [r["train_loss"] for r in loop["history"]]
+        and rec["eval_loss"] == [r["eval_loss"] for r in loop["history"]]
+        and state.keys() == loop["state"].keys()
+        and all(torch.equal(state[k], loop["state"][k]) for k in state))
+    rec["loop_launches"] = loop["launches"]
+    rec.update(driver_model(model, heldout, device, rec))
+    return rec
+
+
+def driver_model(model, heldout, device, rec: dict) -> dict:
+    """Whether ``get_model()``'s module is on ``device`` and reproduces the
+    ranks' last evaluation bit for bit (``shard_eval`` on each rank's
+    held-out share: its logits are the ranks')."""
+    return {"driver_on_device": all(p.device.type == device.type
+                                    for p in model.parameters()),
+            "driver_eval_bitwise": (shard_eval(model, heldout, device)
+                                    == rec["eval_loss"][-1])}
+
+
+def estimators_world2(device, frame, heldout_frame, ds, heldout_ds,
+                      comm_mode: str = "mean") -> dict:
+    """World 2: two ranks over gloo on the one card through ``fit_on_etl``
+    (DDP's reduce through ``ddp_comm_hook`` in ``comm_mode``, timed),
+    against ``reference_loop`` on both ranks' batches concatenated; then
+    one step of the estimator's rank program at world 2 against
+    ``reference_step``."""
+    from raydp_tpu_torch.estimator.torch_estimator import (_TorchWorkerFn,
+                                                           params_digest)
+    from raydp_tpu_torch.spmd import create_spmd_job
+
+    here = importlib.import_module("chip_smoke")  # the hook by reference
+    columns = sum(dlrm_column_names(), [])
+    shares = shard_arrays(ds, 2, columns)
+    heldout = shard_arrays(heldout_ds, 2, columns)
+    rows, batch, epochs = len(shares[0][0]), DLRM_RUN["batch"], DLRM_RUN["epochs"]
+    steps = rows // batch
+    root = BUILD_DIR / "estimators"
+    root.mkdir(parents=True, exist_ok=True)
+    timer = here.CommTimer(str(root / f"comm-{comm_mode}"), comm_mode)
+    hook = (timer, here.ddp_comm_hook)
+    est = torch_estimator(device, 2, comm_hook=hook)
+    wall = time.time()
+    history = est.fit_on_etl(frame, heldout_frame)
+    rec = fit_record(est, history, 2, steps, wall)
+    rec["forwards"] = epochs * (steps + -(-len(heldout[0][0]) // batch))
+    rec["comm_mode"] = comm_mode
+    comm = [json.loads(Path(f"{timer.path}.{r}").read_text()) for r in range(2)]
+    for rank, calls in zip(rec["ranks"], comm):
+        rank["comm_calls"] = calls["calls"]
+        rank["comm_share"] = calls["seconds"] / sum(rank["epoch_seconds"])
+    rec["ranks_bitwise"] = len({r["params_sha256"] for r in rec["ranks"]}) == 1
+
+    t0 = time.perf_counter()
+    loop = reference_loop(device, shares, heldout)
+    rec["loop_s"] = time.perf_counter() - t0
+    mean_losses = [(a + b) / 2 for a, b in zip(*(r["train_loss"]
+                                                 for r in rec["ranks"]))]
+    pairs = list(zip(mean_losses + rec["eval_loss"],
+                     [r["train_loss"] for r in loop["history"]]
+                     + [r["eval_loss"] for r in loop["history"]]))
+    rec["loss_gap"] = max(abs(a - b) for a, b in pairs)
+    rec["mean_train_loss"] = mean_losses
+    model = est.get_model()
+    rec["driver_params_bitwise"] = (params_digest(model)
+                                    == rec["ranks"][0]["params_sha256"])
+    rec.update(driver_model(model, heldout, device, rec))
+
+    t0 = time.perf_counter()
+    ref = reference_step(device, shares)
+    t_job = time.perf_counter()
+    job = create_spmd_job("estimator-step", world_size=2,
+                          timeout=SHARDED_LIMIT_S).start()
+    rec["step_job_start_s"] = time.perf_counter() - t_job
+    try:
+        fn = _TorchWorkerFn(est, [ArrayShard(*s) for s in shares], None,
+                            job.rendezvous_address())
+        got = job.run(functools.partial(here.estimator_step_rank, fn),
+                      timeout=SHARDED_LIMIT_S)
+    finally:
+        t_stop = time.perf_counter()
+        job.stop()
+        rec["step_job_stop_s"] = time.perf_counter() - t_stop
+    step = step_gaps(dict(got[0], loss=(got[0]["loss"] + got[1]["loss"]) / 2),
+                     ref)
+    step["ranks_agree"] = all(torch.equal(got[0]["params"][k], got[1]["params"][k])
+                              for k in got[0]["params"])
+    rec["step"] = step
+    rec["step_s"] = time.perf_counter() - t0
+    rec["pids"] = [r["pid"] for r in rec["ranks"]] + [g["pid"] for g in got]
+    return rec
+
+
+class ArrayShard:
+    """A rank's share as numpy (what a store shard's ``to_numpy`` gives)."""
+
+    def __init__(self, features, labels):
+        self.features, self.labels = features, labels
+
+    def to_numpy(self, feature_columns, label_column):
+        return self.features, self.labels
+
+
+class InProcessRanks:
+    """A job of ``world`` ranks run in this process one after another, each
+    with its own ``gbdt_native`` rank state (the module's ``_STATE`` is
+    swapped around each call)."""
+
+    job_name = "in-process"
+
+    def __init__(self, module, world: int):
+        self.module, self.world = module, world
+        self.states = [{} for _ in range(world)]
+
+    def run(self, fn, timeout=None):
+        from types import SimpleNamespace
+
+        saved, out = self.module._STATE, []
+        try:
+            for rank in range(self.world):
+                self.module._STATE = self.states[rank]
+                out.append(fn(SimpleNamespace(rank=rank, world_size=self.world)))
+        finally:
+            self.module._STATE = saved
+        return out
+
+
+def estimators_gbdt(frame, ds, heldout_ds) -> dict:
+    """``XGBoostEstimator`` at world 2 through ``fit_on_etl`` on the dense
+    columns (the native backend: no xgboost on the card's machine), its
+    predictions on the held-out rows against the two-rank in-process run
+    of ``gbdt_native`` on the same shares, bit for bit."""
+    from raydp_tpu_torch.estimator import XGBoostEstimator, gbdt_native
+
+    dense_cols = dlrm_column_names()[0]
+    est = XGBoostEstimator(params=GBDT_RUN["params"],
+                           num_boost_round=GBDT_RUN["rounds"],
+                           feature_columns=dense_cols, label_column="label",
+                           num_workers=2)
+    t0 = time.perf_counter()
+    est.fit_on_etl(frame)
+    fit_s = time.perf_counter() - t0
+    shares = [ArrayShard(*s) for s in shard_arrays(ds, 2, dense_cols)]
+    t0 = time.perf_counter()
+    ref, history = gbdt_native.train_distributed(
+        InProcessRanks(gbdt_native, 2), shares, GBDT_RUN["params"],
+        GBDT_RUN["rounds"], dense_cols, "label")
+    in_process_s = time.perf_counter() - t0
+    probe = heldout_ds.to_numpy(dense_cols, "label")[0]
+    model = est.get_model()
+    return {"backend": est.backend, "rounds": GBDT_RUN["rounds"],
+            "predictions_bitwise": bool(np.array_equal(model.predict(probe),
+                                                       ref.predict(probe))),
+            "history_equal": est.history == history,
+            "train_loss": [h["train_loss"] for h in est.history],
+            "fit_s": fit_s, "s_per_round": fit_s / GBDT_RUN["rounds"],
+            "in_process_s_per_round": in_process_s / GBDT_RUN["rounds"]}
+
+
+def estimators_verdict(rec: dict, device) -> None:
+    """The phase's checks of its record; each fails the phase."""
+    on_card = device.type == "cuda"
+    for name in ("world1", "world2"):
+        run = rec[name]
+        losses = run["train_loss"]
+        require(all(math.isfinite(x) for x in losses + run["eval_loss"]),
+                f"estimators {name}: a loss is not finite")
+        for rank, r in enumerate(run["ranks"]):
+            want = run["forwards"] if on_card else 0
+            require(r["launches"] == want,
+                    f"estimators {name} rank {rank}: interaction_fwd launched "
+                    f"{r['launches']} times, expected {want}")
+            require(r["device"].split(":")[0] == device.type,
+                    f"estimators {name} rank {rank} ran on {r['device']}")
+        require(run["driver_on_device"] and run["driver_eval_bitwise"],
+                f"estimators {name}: get_model() is off {device} or does not "
+                "reproduce the ranks' evaluation bit for bit")
+    w1, w2 = rec["world1"], rec["world2"]
+    require(w1["ranks"][0]["backend"] == ("nccl" if on_card else "gloo"),
+            f"estimators world 1 over {w1['ranks'][0]['backend']}")
+    require(w1["bitwise"], "estimators world 1: not bit for bit the plain "
+            f"loop (losses {w1['train_loss']}, evaluation {w1['eval_loss']})")
+    require(w1["loop_launches"] == w1["ranks"][0]["launches"],
+            f"estimators world 1: {w1['ranks'][0]['launches']} K1 launches, "
+            f"the plain loop {w1['loop_launches']}")
+    world2_verdict(w2)
+    gbdt = rec["gbdt"]
+    require(gbdt["backend"] == "native",
+            f"XGBoostEstimator took the {gbdt['backend']} backend")
+    require(gbdt["predictions_bitwise"] and gbdt["history_equal"],
+            "XGBoostEstimator's booster differs from the in-process two-rank "
+            "gbdt_native run's")
+
+
+def world2_verdict(w2: dict) -> None:
+    """The world-2 fit's own checks: gloo, both ranks' parameters equal and
+    rank 0's on the driver, one step against world 1's, the losses against
+    the world-1 loop's, falling by 10%."""
+    require(all(r["backend"] == "gloo" for r in w2["ranks"]),
+            "estimators world 2: not over gloo")
+    require(w2["ranks_bitwise"], "estimators world 2: the ranks' parameters "
+            "differ after the fit")
+    require(w2["driver_params_bitwise"], "estimators world 2: get_model()'s "
+            "parameters are not rank 0's")
+    step = w2["step"]
+    require(step["start_bitwise"] and step["ranks_agree"]
+            and step["loss_rel"] <= SHARDED_STEP_RTOL
+            and step["worst_grad_rel"] <= SHARDED_STEP_RTOL
+            and step["worst_table_update_rel"] <= SHARDED_TABLE_UPDATE_RTOL,
+            f"estimators world 2: one step against world 1's {step} (limits "
+            f"{SHARDED_STEP_RTOL}, tables' update {SHARDED_TABLE_UPDATE_RTOL})")
+    require(w2["loss_gap"] <= SHARDED_FIT_LOSS_ATOL,
+            f"estimators world 2: losses {w2['mean_train_loss']} against the "
+            f"world-1 loop's, gap {w2['loss_gap']:.3e} (limit "
+            f"{SHARDED_FIT_LOSS_ATOL})")
+    losses = w2["mean_train_loss"]
+    require(losses[-1] < 0.9 * losses[0],
+            f"estimators world 2: the loss did not fall by 10%: {losses}")
+
+
+@contextlib.contextmanager
+def estimators_session():
+    """An ETL session in a cluster of the port with the session-local
+    zygote and its own shm namespace: (the session, the train frame (the
+    columns of ``dlrm_data`` in DLRM_RUN's blocks), the held-out frame (in
+    ESTIMATORS_HELDOUT's), and the ``Dataset`` of each). Everything is
+    stopped on exit."""
+    import pandas as pd
+
+    import raydp_tpu_torch as rt
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV
+    from raydp_tpu_torch.etl import session as etl_session
+
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1",
+             SHM_NS_ENV: f"est{os.getpid()}"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    try:
+        session = rt.init_etl("smoke-estimators", **ESTIMATORS_SESSION)
+        frame = session.from_pandas(pd.DataFrame(dlrm_columns()[0]),
+                                    num_partitions=DLRM_RUN["blocks"])
+        held = dlrm_columns(dict(DLRM_RUN, **ESTIMATORS_HELDOUT))[0]
+        heldout_frame = session.from_pandas(
+            pd.DataFrame(held), num_partitions=ESTIMATORS_HELDOUT["blocks"])
+        yield (session, frame, heldout_frame, rt.dataframe_to_dataset(frame),
+               rt.dataframe_to_dataset(heldout_frame))
+    finally:
+        while etl_session.active_session() is not None:
+            etl_session.stop_etl()
+        if capi.is_initialized():
+            capi.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def phase_estimators(device, dlrm: dict = None) -> dict:
+    """bench.py's DLRM cell fitted through ``TorchEstimator`` (DDP ranks of
+    the SPMD launcher, K1 in every rank's forward), and the native GBDT
+    through ``XGBoostEstimator``, in an ETL session (``estimators_session``:
+    the columns of ``dlrm_data``, 100,000 rows in 4 blocks; 2,048 held-out
+    rows in 2):
+
+    - world 1: one rank over NCCL through ``fit_on_etl`` (Adam 1e-3, batch
+      2048, 3 epochs, the held-out rows evaluated each epoch), bit for bit
+      the plain loop in this process (``reference_loop``: losses,
+      evaluation, parameters, as many K1 launches);
+    - world 2: two ranks over gloo on the one card, 2048 rows a rank a
+      step, DDP's reduce timed by ``ddp_comm_hook``: both ranks'
+      parameters bit for bit equal, ``get_model()``'s parameters rank 0's;
+      the ranks' mean loss within SHARDED_FIT_LOSS_ATOL of the world-1 loop
+      on their batches concatenated, falling by 10%; one step of the
+      estimator's rank program (``estimator_step_rank``) within
+      SHARDED_STEP_RTOL and SHARDED_TABLE_UPDATE_RTOL of the world-1 step
+      on the 4096 rows; on the card gloo must take every op of DDP_OPS;
+    - both: K1 once a forward on every rank (none on the CPU), every rank on
+      ``device``, the driver's ``get_model()`` reproducing the ranks' last
+      evaluation bit for bit (``shard_eval``: its logits are theirs);
+    - ``XGBoostEstimator`` (native) at world 2 on the dense columns, its
+      predictions bit for bit the in-process two-rank ``gbdt_native`` run's.
+
+    Reported: samples/s and step ms a rank at each world beside
+    phase_dlrm's staged fit, the share of a world-2 rank's epochs in DDP's
+    all-reduces, peak memory and K1 launches a rank, the GBDT's seconds a
+    round. After ``cluster.shutdown()`` no process or ``rtpt-`` segment
+    of the session is left. On the CPU the same runs go over gloo with
+    the plain versions."""
+    from raydp_tpu_torch.cluster import api as capi
+
+    t_phase = time.perf_counter()
+    rec: dict = {"dlrm_samples_s": dlrm["samples_s"] if dlrm else None,
+                 "dlrm_step_ms": dlrm["step_ms"] if dlrm else None}
+    rec["gloo_takes"] = require_gloo_takes(device, DDP_OPS, "TorchEstimator")
+    seconds = {"probe": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    with estimators_session() as (session, frame, heldout_frame, ds,
+                                  heldout_ds):
+        session_dir = capi.session_dir()
+        seconds["session"] = time.perf_counter() - t0
+        rec["world1"] = estimators_world1(device, frame, heldout_frame, ds,
+                                          heldout_ds)
+        rec["world2"] = estimators_world2(device, frame, heldout_frame, ds,
+                                          heldout_ds)
+        rec["gbdt"] = estimators_gbdt(frame, ds, heldout_ds)
+        pids = ([r["pid"] for r in rec["world1"]["ranks"]]
+                + rec["world2"]["pids"])
+        t0 = time.perf_counter()
+        capi.shutdown()
+        rec.update(etl_teardown([session_dir], pids))
+        seconds["teardown"] = time.perf_counter() - t0
+    for name in ("world1", "world2"):
+        for key in ("fit_s", "loop_s", "step_s"):
+            if key in rec[name]:
+                seconds[f"{name}_{key[:-2]}"] = rec[name][key]
+    seconds["gbdt_fit"] = rec["gbdt"]["fit_s"]
+    seconds["gbdt_in_process"] = (rec["gbdt"]["in_process_s_per_round"]
+                                  * rec["gbdt"]["rounds"])
+    rec["seconds"] = seconds
+    rec["launches"] = sum(r["launches"] for name in ("world1", "world2")
+                          for r in rec[name]["ranks"])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("estimators: " + json.dumps(estimators_summary(rec, "")["estimators"])
+        + f"; seconds {seconds}")
+    estimators_verdict(rec, device)
+    require(rec["phase_s"] <= ESTIMATORS_LIMIT_S,
+            f"phase_estimators took {rec['phase_s']:.1f} s")
+    return rec
+
+
+def estimators_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The phase's line: each world's ranks (samples/s, step ms, peak
+    memory, K1 launches, at world 2 the share in DDP's all-reduces) beside
+    phase_dlrm's staged fit, the checks' gaps, the GBDT's seconds a
+    round."""
+    def ranks(run):
+        keys = ("samples_s", "step_ms", "peak_bytes", "launches",
+                "comm_share", "comm_calls", "setup_s", "setup")
+        return [{k: r[k] for k in keys if k in r} for r in run["ranks"]]
+
+    w1, w2 = rec["world1"], rec["world2"]
+    return {"estimators": {
+        "world1": {"bitwise": w1["bitwise"], "train_loss": w1["train_loss"],
+                   "fit_split_s": w1["fit_split_s"], "ranks": ranks(w1)},
+        "world2": {"ranks_bitwise": w2["ranks_bitwise"],
+                   "mean_train_loss": w2["mean_train_loss"],
+                   "loss_gap": w2["loss_gap"], "step": w2["step"],
+                   "step_job_start_s": w2["step_job_start_s"],
+                   "step_job_stop_s": w2["step_job_stop_s"],
+                   "fit_split_s": w2["fit_split_s"],
+                   "ranks": ranks(w2)},
+        "gbdt": {k: rec["gbdt"][k] for k in (
+            "backend", "predictions_bitwise", "s_per_round",
+            "in_process_s_per_round")},
+        "dlrm_samples_s": rec["dlrm_samples_s"],
+        "dlrm_step_ms": rec["dlrm_step_ms"], "launches": rec["launches"],
+        "gloo_takes": rec["gloo_takes"]["ops"], "seconds": rec["seconds"],
+        "phase_s": rec["phase_s"]},
+        "nvidia_smi": nvidia_smi}
 
 
 # ---------------------------------------------------------------------------
@@ -7303,7 +7958,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
                  etl: dict, seqpar: dict, sharded: dict,
-                 pipelined: dict) -> dict:
+                 pipelined: dict, estimators: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -7315,8 +7970,9 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     RAYDP_TPU_FLASH_ONEPASS=0 step for flash_fwd_twoterm; the DLRM fit with
     its evaluation, the dlrm_optimizer epoch, the streamed and retried
     fits of phase_fit, phase_etl's fits from the ETL Dataset and
-    phase_sharded_dlrm's fits (world 1 and every rank of world 2) for
-    interaction_fwd; the
+    phase_sharded_dlrm's fits (world 1 and every rank of world 2) and
+    phase_estimators' TorchEstimator fits (every rank of world 1 and 2)
+    for interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
     quantize_int8_stochastic), plus the launches phase_deploy's replicas
@@ -7342,7 +7998,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     launches["interaction_fwd"] = (dlrm["launches"]
                                    + dlrm["dlrm_optimizer"]["launches"]
                                    + fit["launches"] + etl["launches"]
-                                   + sharded["launches"])
+                                   + sharded["launches"]
+                                   + estimators["launches"])
     int8_runs = [trained_int8, served["int8_mlp_run"], served["runs"][1]]
     for name in ("int8_gemm", "quantize_int8"):
         launches[name] = sum(run["launches"][name] for run in int8_runs)
@@ -7725,6 +8382,11 @@ def main(argv: list) -> int:
         dev = phase_device()
         log(json.dumps(moe_summary(phase_moe(device), dev["nvidia_smi"])))
         return 0
+    if argv == ["--estimators"]:
+        dev = phase_device()
+        estimators = phase_estimators(device, phase_dlrm(device))
+        log(json.dumps(estimators_summary(estimators, dev["nvidia_smi"])))
+        return 0
     if argv == ["--sharded"]:
         dev = phase_device()
         sharded = phase_sharded_dlrm(device, phase_dlrm(device))
@@ -7756,6 +8418,7 @@ def main(argv: list) -> int:
     record["sharded"] = phase_sharded_dlrm(
         device, dict(record["dlrm"], final_state=dlrm_state))
     record["etl"] = phase_etl(device, record["dlrm"])
+    record["estimators"] = phase_estimators(device, record["dlrm"])
     record["deploy"] = phase_deploy(device, dlrm_state)
     del dlrm_state
     record["fit"] = phase_fit(device, record["dlrm"])
@@ -7768,7 +8431,7 @@ def main(argv: list) -> int:
                            record["fit"], record["deploy"],
                            record["train_f32"], record["etl"],
                            record["seqpar"], record["sharded"],
-                           record["pipeline"])
+                           record["pipeline"], record["estimators"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -7810,6 +8473,7 @@ def main(argv: list) -> int:
     log(json.dumps(sharded_summary(record["sharded"], dev["nvidia_smi"])))
     log(json.dumps({"etl": {k: record["etl"][k] for k in ETL_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
+    log(json.dumps(estimators_summary(record["estimators"], dev["nvidia_smi"])))
     log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"obs": {

@@ -46,7 +46,14 @@ Ported so far:
 11. data and model parallelism: the partitioners and the sharding rules
     (``parallel``), the vocab-sharded embedding (``ops.embedding``), the
     estimator's ``mesh`` and ``param_sharding_rules``, and the rank
-    launcher (``spmd``: ``create_spmd_job``, ``elastic_fit``).
+    launcher (``spmd``: ``create_spmd_job``, ``elastic_fit``);
+12. pipeline and expert parallelism over ``torch.distributed``
+    (``parallel.pipeline``, ``parallel.moe``);
+13. the other estimators (``estimator.TorchEstimator``, DDP ranks on the
+    card; ``estimator.XGBoostEstimator`` over the native GBDT and
+    ``estimator.TFEstimator``, both on the hosts' CPUs), the estimator
+    package's and this root's exports, and the submit CLI (``submit``,
+    ``raydp-tpu-torch-submit``).
 """
 
 # name -> (module, attribute); None = the module itself. Resolved at first
@@ -69,8 +76,18 @@ _LAZY = {
     "MLDataset": ("raydp_tpu_torch.exchange.ml_dataset", "MLDataset"),
     "tenancy": ("raydp_tpu_torch.tenancy", None),
     "explain_last_query": ("raydp_tpu_torch.obs", "explain_last_query"),
+    # the flagship estimator, where the JAX package has JaxEstimator
+    "Estimator": ("raydp_tpu_torch.estimator.estimator", "Estimator"),
     "create_spmd_job": ("raydp_tpu_torch.spmd.job", "create_spmd_job"),
     "elastic_fit": ("raydp_tpu_torch.spmd.elastic", "elastic_fit"),
+    # client mode: attach a second driver to a running cluster
+    "connect_cluster": ("raydp_tpu_torch.cluster.api", "connect_cluster"),
+    # the observability plane: trace export and the cluster's metrics
+    "export_trace": ("raydp_tpu_torch.obs", "export_trace"),
+    "dump_metrics": ("raydp_tpu_torch.cluster.api", "dump_metrics"),
+    "query_metrics": ("raydp_tpu_torch.cluster.api", "query_metrics"),
+    # the serving plane, as a subpackage
+    "serve": ("raydp_tpu_torch.serve", None),
 }
 
 __all__ = sorted(_LAZY)

@@ -21,7 +21,6 @@ No JVM anywhere: executors are Python actor processes running Arrow kernels.
 from __future__ import annotations
 
 import atexit
-import json
 import os
 import threading
 import time
@@ -39,17 +38,8 @@ from raydp_tpu_torch.etl.planner import Planner
 from raydp_tpu_torch.etl.tasks import write_table_block
 from raydp_tpu_torch.store.object_store import ObjectHolder
 from raydp_tpu_torch.sanitize import named_lock as _named_lock
+from raydp_tpu_torch.submit import submitted_overrides
 from raydp_tpu_torch.utils import parse_memory_size
-
-# the submit CLI's published configuration (``raydp_tpu/submit.py``'s
-# variable and reader; the port has no CLI yet, so this is its own copy)
-SUBMIT_ENV = "RAYDP_TPU_SUBMIT_CONF"
-
-
-def submitted_overrides() -> dict:
-    raw = os.environ.get(SUBMIT_ENV)
-    return json.loads(raw) if raw else {}
-
 
 _lock = _named_lock("etl.session", threading.RLock())
 _active_session: Optional["EtlSession"] = None

@@ -74,6 +74,7 @@ setup(
     entry_points={
         "console_scripts": [
             "raydp-tpu-submit=raydp_tpu.submit:main",
+            "raydp-tpu-torch-submit=raydp_tpu_torch.submit:main",
         ]
     },
     cmdclass={"build_native": BuildNative, "build_py": BuildPyWithNative},

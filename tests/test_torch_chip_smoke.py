@@ -1351,3 +1351,71 @@ def test_phase_leftovers_kills_and_fails_on_a_survivor(monkeypatch):
     assert gone
     monkeypatch.setattr(chip_smoke, "own_processes", lambda: [])
     assert chip_smoke.phase_leftovers()["gone_s"] < 0.3
+
+
+@pytest.fixture
+def tiny_estimators(monkeypatch):
+    """phase_estimators at a tiny width: 2,048 rows in 4 blocks, 128 rows a
+    rank a step, a learning rate of 1e-2 (3 epochs drop the world-2 loss
+    by 10%), 256 held-out rows, a session of 1-core executors."""
+    monkeypatch.setattr(chip_smoke, "DLRM_RUN", dict(
+        chip_smoke.DLRM_RUN, rows=2048, batch=128, blocks=4, lr=1e-2))
+    monkeypatch.setattr(chip_smoke, "DLRM_MODEL",
+                        dict(chip_smoke.DLRM_MODEL, vocab_sizes=TINY_VOCABS))
+    monkeypatch.setattr(chip_smoke, "ESTIMATORS_HELDOUT",
+                        dict(chip_smoke.ESTIMATORS_HELDOUT, rows=256))
+    monkeypatch.setattr(chip_smoke, "ESTIMATORS_SESSION",
+                        dict(num_executors=2, executor_cores=1,
+                             executor_memory="300M"))
+
+
+def test_gloo_probe_takes_ddps_ops_on_the_cpu(store_alarm_guard):
+    probe = chip_smoke.gloo_takes(torch.device("cpu"), chip_smoke.DDP_OPS)
+    assert probe == {"ops": {op: "ok" for op in chip_smoke.DDP_OPS}}
+    assert set(chip_smoke.DDP_OPS) <= set(chip_smoke.GLOO_PROBE_OPS)
+
+
+def test_phase_estimators_on_the_cpu(store_alarm_guard, etl_clean,
+                                     tiny_estimators):
+    """phase_estimators at a tiny width with the plain versions, over gloo:
+    world 1 bit for bit the plain loop, world 2 within its limits with both
+    ranks' parameters equal, the native GBDT bit for bit the in-process
+    two-rank run; no launches (the plain version launches nothing)."""
+    rec = chip_smoke.phase_estimators(torch.device("cpu"), {
+        "samples_s": 1.0, "step_ms": 1.0})
+    assert set(chip_smoke.ESTIMATORS_KEYS) <= set(rec)
+    w1, w2 = rec["world1"], rec["world2"]
+    assert w1["bitwise"] and w1["driver_eval_bitwise"]
+    assert w1["ranks"][0]["backend"] == "gloo" and w1["loop_launches"] == 0
+    assert w2["ranks_bitwise"] and w2["driver_params_bitwise"]
+    assert w2["loss_gap"] <= chip_smoke.SHARDED_FIT_LOSS_ATOL
+    assert w2["step"]["worst_grad_rel"] <= chip_smoke.SHARDED_STEP_RTOL
+    assert [r["comm_calls"] > 0 for r in w2["ranks"]] == [True, True]
+    assert all(0 < r["comm_share"] < 1 for r in w2["ranks"])
+    assert len({r["pid"] for r in w2["ranks"]}) == 2
+    assert rec["gbdt"]["backend"] == "native"
+    assert rec["gbdt"]["predictions_bitwise"]
+    assert rec["launches"] == 0
+    assert rec["segments_left"] == []
+    line = chip_smoke.estimators_summary(rec, "cpu")["estimators"]
+    assert len(line["world2"]["ranks"]) == 2
+
+
+@pytest.mark.parametrize("fault,message", [
+    ("sum", "one step against world 1's"),
+    ("local", "the ranks' parameters differ"),
+])
+def test_world2_verdict_fails_on_a_planted_fault(store_alarm_guard, etl_clean,
+                                                 tiny_estimators, fault,
+                                                 message):
+    """The world-2 fit with DDP's reduce planted wrong through the
+    estimator's comm hook: the gradients summed over the ranks instead of
+    averaged (the ranks agree, but the step's gradients are twice world
+    1's), or each rank keeping its own (the ranks' parameters part)."""
+    cpu = torch.device("cpu")
+    with chip_smoke.estimators_session() as (_, frame, heldout_frame, ds,
+                                             heldout_ds):
+        w2 = chip_smoke.estimators_world2(cpu, frame, heldout_frame, ds,
+                                          heldout_ds, comm_mode=fault)
+    with pytest.raises(chip_smoke.SmokeFailure, match=message):
+        chip_smoke.world2_verdict(w2)

@@ -77,6 +77,9 @@ def test_port_imports_nothing_of_jax():
             port / "ops" / "embedding.py"} <= set(files)
     assert {port / "spmd" / f"{name}.py" for name in (
         "bootstrap", "job", "elastic", "__init__")} <= set(files)
+    assert {port / "estimator" / f"{name}.py" for name in (
+        "torch_estimator", "xgboost_estimator", "gbdt_native",
+        "tf_estimator")} | {port / "submit.py"} <= set(files)
     bad = [
         f"{path.relative_to(ROOT)}:{line} imports {root}"
         for path in files
