@@ -308,6 +308,21 @@ Phases; any failure exits non-zero and prints no result line:
    rounds, the lead alternating; reported, not gated); and one
    ``torch.library.custom_op`` around K1's wrapper against the raw
    wrapper, 1000 calls by events and by the host's clock.
+   Then the chaos plane (``phase_chaos``, after the times, before the
+   leftovers): under ``RAYDP_TPU_SANITIZE=donation,lockdep,leaks-strict``
+   (the environment restored after), ``raydp_tpu_torch.chaos.run`` of
+   ``scenario_mid_fit`` on the card at the tool's size (2,048 rows,
+   ``MLPRegressor``'s widths 256/128/64/16, a streamed fit whose blocks'
+   owner is SIGKILLed before it reads them), then
+   ``executor_kill_with_service`` (120,000 rows) and ``host_death``
+   (60,000 rows) on the card's host. Required: the fits' parameters on
+   the card and bitwise the unkilled fit's, at least one re-executed
+   task, every scenario's gate, no stranded thread, a clean strict leak
+   audit at the cluster's shutdown, no ``rtpt-`` segment of the phase's
+   namespaces left. A ``{"chaos": {...}}`` line gives each scenario's
+   report and seconds and the donation guard's checks and registered
+   ranges beside the card's name and power limit (``--chaos`` runs this
+   phase alone).
 5. Numbers: serving tok/s, TTFT and TPOT p50; each kernel's time (CUDA
    events, warm, median), its plain version's time, the time of one
    PyTorch call computing the same function as a yardstick (the port never
@@ -338,8 +353,9 @@ Phases; any failure exits non-zero and prints no result line:
 
 Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
 ``{"moe": {...}}`` line ``phase_moe``, an ``{"etl": {...}}`` line
-``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``
-and a ``{"deploy": {...}}`` line ``phase_deploy``, each
+``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``,
+a ``{"deploy": {...}}`` line ``phase_deploy`` and a ``{"chaos": {...}}``
+line ``phase_chaos``, each
 beside the card's name and power limit. The
 last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
@@ -8262,6 +8278,117 @@ def planted_faults() -> int:
     return 0 if all(row["caught"] for row in caught.values()) else 1
 
 
+# ---------------------------------------------------------------------------
+# phase_chaos: tools/chaos.py's scenarios on the port, the fit on the card
+# ---------------------------------------------------------------------------
+
+CHAOS_MODES = "donation,lockdep,leaks-strict"  # the chaos runner's default
+CHAOS_FIT_ROWS = 2048  # scenario_mid_fit's size in tools/chaos.py
+# the scenarios run on the card's host, at the tool's sizes
+CHAOS_HOST_ROWS = {"executor_kill_with_service": 120_000, "host_death": 60_000}
+CHAOS_KEYS = ("seconds", "scenarios", "donation", "params_device")
+
+
+def chaos_scenarios(device, rows: int, host_rows: dict, fits: list) -> list:
+    """The runner's scenarios: ``scenario_mid_fit`` on ``device`` (its two
+    fits' ``state_dict()``s appended to ``fits``), then each scenario of
+    ``host_rows`` at its rows. Named as the runner names them."""
+    from raydp_tpu_torch import chaos
+
+    def scenario_mid_fit():
+        return chaos.scenario_mid_fit(rows=rows, device=device, fits=fits)
+
+    def on_host(name):
+        def scenario():
+            return getattr(chaos, "scenario_" + name)(rows=host_rows[name])
+
+        scenario.__name__ = "scenario_" + name
+        return scenario
+
+    return [scenario_mid_fit] + [on_host(name) for name in host_rows]
+
+
+def chaos_verdict(report: dict, fits: list, device, leftover: list) -> None:
+    """The phase's gates over the runner's report: every scenario ok (the
+    mid-fit bitwise with a re-executed task), the fits' parameters on
+    ``device``, no stranded thread, a clean strict leak audit, no segment
+    left."""
+    entries = {e["name"]: e for e in report["scenarios"]}
+    fit = entries.get("mid_streaming_fit_kill", {})
+    require(fit.get("ok") and fit.get("byte_identical")
+            and fit.get("reexecuted_tasks", 0) >= 1,
+            f"chaos: the killed fit is not the unkilled one's: {fit}")
+    want = torch.device(device).type
+    require(len(fits) == 2 and all(t.device.type == want
+                                   for state in fits for t in state.values()),
+            f"chaos: the fits' parameters are not on {want}")
+    require(all(e.get("sanitizer", {}).get("threads", 0) == 0
+                for e in report["scenarios"]),
+            f"chaos: a scenario stranded a thread: {report['scenarios']}")
+    require(report["sanitizer_findings"] == 0
+            and "cluster_shutdown" not in entries,
+            f"chaos: the strict leak audit at shutdown failed: {entries}")
+    require(report["ok"], f"chaos: a scenario failed: {report['scenarios']}")
+    require(not leftover, f"chaos: segments outlived the phase: {leftover}")
+
+
+def chaos_segments() -> set:
+    """The port's store segments on this host. The sessions of
+    ``phase_chaos`` keep the default namespace (a namespace of the
+    driver's own keeps the block service from owning the blocks, in both
+    packages), so the phase compares the host's set before and after it:
+    on the card's machine nothing else makes them."""
+    from raydp_tpu_torch.cluster.common import SHM_PREFIX
+
+    return {name for name in os.listdir("/dev/shm")
+            if name.startswith(SHM_PREFIX)}
+
+
+def phase_chaos(device, rows: int = CHAOS_FIT_ROWS,
+                host_rows: dict = None) -> dict:
+    """``raydp_tpu_torch.chaos.run`` of ``chaos_scenarios`` under
+    ``CHAOS_MODES`` (the environment restored after), then
+    ``chaos_verdict`` with the segments the phase left. Records the
+    runner's report, each scenario's seconds and the donation guard's
+    checks and registered ranges over the phase."""
+    from raydp_tpu_torch import chaos, sanitize
+
+    host_rows = CHAOS_HOST_ROWS if host_rows is None else host_rows
+    armed = {"RAYDP_TPU_SANITIZE": CHAOS_MODES,
+             "RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    fits: list = []
+    segments = chaos_segments()
+    before = sanitize.donation_stats()
+    t0 = time.perf_counter()
+    try:
+        report = chaos.run(chaos_scenarios(device, rows, host_rows, fits))
+    finally:
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    seconds = time.perf_counter() - t0
+    after = sanitize.donation_stats()
+    leftover = sorted(chaos_segments() - segments)
+    rec = {
+        "seconds": seconds,
+        "scenarios": report["scenarios"],
+        "donation": {"checks": after["checks"] - before["checks"],
+                     "registered": after["registered"] - before["registered"],
+                     "live": after["live"]},
+        "params_device": sorted({str(t.device) for state in fits
+                                 for t in state.values()}),
+    }
+    log(f"chaos: {seconds:.3f} s; " + "; ".join(
+        f"{e['name']} {'ok' if e.get('ok') else 'FAILED'} {e['seconds']} s"
+        for e in report["scenarios"]))
+    chaos_verdict(report, fits, device, leftover)
+    return rec
+
+
 LEFTOVER_DEADLINE_S = 15.0  # the script's processes gone at its end
 
 
@@ -8392,6 +8519,13 @@ def main(argv: list) -> int:
         sharded = phase_sharded_dlrm(device, phase_dlrm(device))
         log(json.dumps(sharded_summary(sharded, dev["nvidia_smi"])))
         return 0
+    if argv == ["--chaos"]:
+        dev = phase_device()
+        chaos_rec = phase_chaos(device)
+        log(json.dumps({"chaos": {k: chaos_rec[k] for k in CHAOS_KEYS}
+                        | {"nvidia_smi": dev["nvidia_smi"]}}))
+        phase_leftovers()
+        return 0
     if argv == ["--deploy"]:
         dev = phase_device()
         deployed = phase_deploy(device, phase_dlrm(device)["final_state"])
@@ -8424,6 +8558,7 @@ def main(argv: list) -> int:
     record["fit"] = phase_fit(device, record["dlrm"])
     record["obs"] = phase_obs(device, record["dlrm"])
     record["times"] = phase_times(device)
+    record["chaos"] = phase_chaos(device)
     record["leftovers"] = phase_leftovers()
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
@@ -8475,6 +8610,8 @@ def main(argv: list) -> int:
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps(estimators_summary(record["estimators"], dev["nvidia_smi"])))
     log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"]}}))
+    log(json.dumps({"chaos": {k: record["chaos"][k] for k in CHAOS_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"obs": {
         "decode_obs_overhead": record["serve"]["decode_obs_probe"]["overhead_frac"],

@@ -109,7 +109,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from raydp_tpu_torch import obs
+from raydp_tpu_torch import obs, sanitize
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.estimator import checkpoint as ckpt
 from raydp_tpu_torch.estimator.base import EstimatorInterface, EtlEstimatorInterface
@@ -439,7 +439,12 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         )
 
     def _to_device(self, x):
-        return fmap(lambda a: torch.as_tensor(a).to(self.device), x)
+        def stage(a):
+            # on the CPU the tensor shares the caller's array
+            sanitize.note_external_host_buffer(a, "Estimator input")
+            return torch.as_tensor(a).to(self.device)
+
+        return fmap(stage, x)
 
     def _stream_cache_budget(self) -> int:
         """The hybrid cache's byte budget: ``stream_cache_memory_limit`` (1
@@ -690,7 +695,7 @@ class Estimator(EstimatorInterface, EtlEstimatorInterface):
         # the partitioner averages the gradients and the loss over the
         # data axis (nothing with one rank on it)
         loss = self._partitioned_grads(x, y)
-        opt.step()
+        sanitize.checked_step(opt, "Estimator.step")
         return loss_sum + loss.detach()
 
     def _first_step(self, x, y, loss_sum):

@@ -61,6 +61,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from raydp_tpu_torch import sanitize
 from raydp_tpu_torch.estimator.base import EstimatorInterface, EtlEstimatorInterface
 
 RUN_TIMEOUT_S = 600.0  # the job's run, as the reference waits
@@ -179,6 +180,9 @@ class _TorchWorkerFn:
         cfg = self.est_config
         features, labels = shard.to_numpy(cfg["feature_columns"],
                                           cfg["label_column"])
+        # on the CPU the tensors share the shard's arrays
+        sanitize.note_external_host_buffer(features, "TorchEstimator shard")
+        sanitize.note_external_host_buffer(labels, "TorchEstimator shard")
         return (torch.from_numpy(features).to(device),
                 torch.from_numpy(labels).to(device))
 
@@ -194,7 +198,7 @@ class _TorchWorkerFn:
         pred = model(xb)
         loss = loss_fn(pred.reshape(yb.shape), yb)
         loss.backward()  # DDP all-reduces the gradients here
-        optimizer.step()
+        sanitize.checked_step(optimizer, "TorchEstimator.step")
         return loss
 
     def __call__(self, ctx):

@@ -38,6 +38,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
 import numpy as np
 import pyarrow as pa
 
+from raydp_tpu_torch import sanitize
 from raydp_tpu_torch.cluster.common import ClusterError
 from raydp_tpu_torch.etl import plan as lp
 from raydp_tpu_torch.etl import tasks as T
@@ -415,10 +416,13 @@ class Dataset:
                 for features, labels in outer.iter_batches(
                     batch_size, feature_columns, label_column, shuffle, seed
                 ):
+                    # the tensors share the batch's arrays
+                    sanitize.note_external_host_buffer(features, "Dataset.to_torch")
                     x = torch.from_numpy(features)
                     if labels is None:
                         yield x
                     else:
+                        sanitize.note_external_host_buffer(labels, "Dataset.to_torch")
                         yield x, torch.from_numpy(labels)
 
             def __len__(self):

@@ -40,6 +40,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from raydp_tpu_torch import sanitize
 from raydp_tpu_torch.exchange.features import f0, fmap
 
 
@@ -250,6 +251,8 @@ class SegmentUploader:
             hx, hy = self._partitioner.local_inputs((hx, hy), stacked=True)
         hosts = [torch.from_numpy(np.ascontiguousarray(a))
                  for a in _leaves(hx) + [hy]]
+        for h in hosts:  # the decoded segment's arrays, shared
+            sanitize.note_external_host_buffer(h, "SegmentUploader host")
         if not self._cuda:
             dev = [h.clone() for h in hosts]
             return Segment(_like(hx, dev[:-1]), dev[-1])

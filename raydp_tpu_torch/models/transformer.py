@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from raydp_tpu_torch import sanitize
 from raydp_tpu_torch._device import resolve_device
 from raydp_tpu_torch.ops.flash_attention import flash_attention, flash_decode
 from raydp_tpu_torch.ops.quantization import int8_linear, quantize_int8
@@ -81,6 +82,7 @@ def _scatter_rows(cache, new, starts):
     ``_scatter_rows`` and ``_scatter_scales``). The JAX version returns a
     new array; the engine hands in freshly gathered caches, so writing into
     them saves a copy. Returns ``cache``."""
+    sanitize.guard_donated_args((cache,), "_scatter_rows")
     b, t = new.shape[0], new.shape[2]
     pos = starts.to(torch.int64)[:, None] + torch.arange(t, device=cache.device)
     bi = torch.arange(b, device=cache.device)[:, None].expand(b, t)

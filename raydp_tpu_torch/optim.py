@@ -26,6 +26,8 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 import torch
 
+from raydp_tpu_torch import sanitize
+
 # optax's defaults, which no caller changes
 ADAMW_WEIGHT_DECAY = 1e-4
 ADAFACTOR_DECAY_RATE = 0.8
@@ -125,6 +127,8 @@ class Adafactor(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adafactor.step takes no closure")
+        # p.add_ and the moments' mul_/add_ below write in place
+        sanitize.guard_donated_args(sanitize.step_targets(self), "Adafactor.step")
         for group in self.param_groups:
             for p in group["params"]:
                 if p.grad is not None:

@@ -40,6 +40,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from raydp_tpu_torch import sanitize
 
 
 class Partitioner:
@@ -81,7 +82,10 @@ def _tree(fn, x):
 def _to_tensor(a, device):
     if torch.is_tensor(a):
         return a.to(device)
-    return torch.as_tensor(np.asarray(a)).to(device)
+    a = np.asarray(a)
+    # on the CPU the tensor shares the caller's array
+    sanitize.note_external_host_buffer(a, "partitioner input")
+    return torch.as_tensor(a).to(device)
 
 
 class DataParallelPartitioner(Partitioner):

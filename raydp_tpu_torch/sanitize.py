@@ -1,9 +1,12 @@
-"""Runtime sanitizers of the port: its own copy of the lockdep and leak
-halves of ``raydp_tpu/sanitize.py`` (``RAYDP_TPU_SANITIZE``).
+"""Runtime sanitizers of the port: its own copy of ``raydp_tpu/sanitize.py``
+(``RAYDP_TPU_SANITIZE``).
 
 The modes are comma-separated in ``RAYDP_TPU_SANITIZE``, all off by
 default and all on for the test suite (tests/conftest.py):
 
+- ``donation`` -- the aliasing sanitizer below: an in-place write into a
+  CPU tensor whose storage is host memory the port does not own raises
+  :class:`DonationAliasError` before it writes.
 - ``lockdep`` -- every named lock (:func:`named_lock`) is an
   :class:`InstrumentedLock` proxy that records the per-thread held set and
   a process-global lock-acquisition-order graph, and raises
@@ -20,25 +23,89 @@ default and all on for the test suite (tests/conftest.py):
   ``leaks-strict`` also raises :class:`LeakError` on a leaked segment or
   spill file.
 
-The JAX package's third mode, ``donation``, checks XLA's donated buffers;
-the port has no donated buffers, so the mode is accepted and arms nothing
-here.
+The donation plane
+------------------
 
-Stdlib only: the head, the zygote and ``python -S`` actors import it.
+The JAX package's hazard is XLA reusing a donated buffer that CPU jax
+zero-copied from a host numpy array. The port donates nothing; its
+counterpart is an in-place write (an optimizer's ``p.add_``, a cache's
+row scatter) into a CPU tensor that shares memory the port does not own:
+``torch.from_numpy`` and ``torch.as_tensor`` share a numpy array's memory,
+and ``.to("cpu")`` of a CPU tensor returns that tensor. Such memory is a
+caller's numpy array, an Arrow ``to_numpy`` view, or a store block's mapped
+segment, and a write into it corrupts the caller's data silently.
+
+- Staging sites register the host memory they stage from and do not own
+  (:func:`note_external_host_buffer`). A span is the owning buffer's: a
+  tensor's storage (``untyped_storage()``), not its view, and a numpy
+  array's ultimate base. A span drops when the registering object is
+  collected, since a freed span would indict whatever lands at its address
+  next.
+- In-place writers guard what they write before they write
+  (:func:`guard_donated_args`): it raises when a CPU tensor's storage
+  overlaps a registered span. A CUDA tensor never aliases host memory and
+  is skipped. :func:`checked_step` is the counterpart of the JAX package's
+  ``checked_jit``: an optimizer's step with its parameters and state
+  guarded first.
+- The guard returns after one comparison when nothing is registered, and
+  reads the environment at each call, so a step built before the mode was
+  set is still checked once it is.
+
+The audit of the port's staging sites (which stage from memory the port
+does not own, and whether what reaches a writer aliases it):
+
+- ``exchange/torch_io.py`` ``SegmentUploader.upload``: its host tensors
+  share the decoded segment's arrays (registered); the step gets a
+  ``clone()`` on the CPU or a pinned copy uploaded to the card: owned.
+- ``exchange/dataset.py`` ``Dataset.to_torch``: a batch's tensors share the
+  batch's arrays (registered); they go to the caller, no writer of the
+  port's touches them.
+- ``estimator/estimator.py`` ``Estimator._to_device`` (``predict``): on the
+  CPU the tensor shares the caller's array (registered); read only.
+- ``estimator/torch_estimator.py`` ``_TorchWorkerFn.stage``: on the CPU a
+  rank's features and labels share the shard's arrays (registered); the
+  steps gather batches from them by index (copies) and write only the
+  model's parameters and the optimizer's state: owned.
+- ``parallel/partitioner.py`` ``_to_tensor``: on the CPU an input shares
+  its array (registered); the staged training set is read by index only.
+- ``serve/kvcache.py`` ``PagedKVCache``'s CPU arena: a tensor over a store
+  segment that the cache created itself (``create_block``) and writes on
+  purpose: owned, not registered.
+- ``estimator/checkpoint.py`` ``load_state``: ``torch.load`` reads the file
+  into tensors of its own: owned, not registered (a load that maps the
+  file, ``mmap=True``, would have to register them).
+
+No site aliases a tensor that a writer writes today: the guarded writers
+are the optimizers' steps (:func:`checked_step` in ``Estimator._step`` and
+``TorchEstimator``'s step; ``optim.Adafactor.step`` guards itself) and
+``models/transformer.py`` ``_scatter_rows``.
+
+Stdlib only at import, numpy and torch inside the donation functions: the
+head, the zygote and ``python -S`` actors import this module.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+import weakref
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 __all__ = [
+    "DonationAliasError",
     "LockOrderError",
     "LeakError",
+    "donation_check_enabled",
     "lockdep_enabled",
     "leaks_enabled",
     "leaks_strict",
+    "note_external_host_buffer",
+    "external_range_count",
+    "donation_stats",
+    "guard_donated_args",
+    "step_targets",
+    "checked_step",
     "named_lock",
     "InstrumentedLock",
     "reset_lockdep",
@@ -49,6 +116,11 @@ __all__ = [
     "leak_report",
     "audit_leaks",
 ]
+
+
+class DonationAliasError(RuntimeError):
+    """An in-place write targets a CPU tensor whose storage aliases
+    externally-owned host memory."""
 
 
 class LockOrderError(RuntimeError):
@@ -69,6 +141,12 @@ def _modes() -> set:
     }
 
 
+def donation_check_enabled() -> bool:
+    """Read the env each call (tests toggle it): one getenv and a substring
+    test, as the JAX package's check."""
+    return "donation" in os.environ.get("RAYDP_TPU_SANITIZE", "")
+
+
 def lockdep_enabled() -> bool:
     return "lockdep" in _modes()
 
@@ -80,6 +158,184 @@ def leaks_enabled() -> bool:
 
 def leaks_strict() -> bool:
     return "leaks-strict" in _modes()
+
+
+# ---------------------------------------------------------------------------
+# donation: in-place writes into host memory the port does not own
+# ---------------------------------------------------------------------------
+
+# id(registering object) -> (start, end, tag); the weakref finalizer of that
+# object drops its entry
+_external: Dict[int, Tuple[int, int, str]] = {}
+_finalizers: Dict[int, Any] = {}
+_guard_checks = 0  # guarded writes held against registered spans
+_registered = 0  # spans registered in this process, ever
+
+
+def _ultimate_base(arr) -> Any:
+    """Walk the numpy view chain to the owning object: registering the base
+    covers every view sliced out of it."""
+    seen = 0
+    base = arr
+    while getattr(base, "base", None) is not None and seen < 64:
+        base = base.base
+        seen += 1
+    return base
+
+
+def _array_span(arr) -> Optional[Tuple[int, int]]:
+    iface = getattr(arr, "__array_interface__", None)
+    if not iface:
+        return None
+    start = iface.get("data", (None,))[0]
+    nbytes = getattr(arr, "nbytes", 0)
+    if start is None or not nbytes:
+        return None
+    return (start, start + nbytes)
+
+
+def _numpy_span(arr) -> Optional[Tuple[int, int]]:
+    """The ultimate base's bytes when it is an ndarray, else the view's own
+    (an Arrow view's owner is a buffer, not an array)."""
+    import numpy as np
+
+    base = _ultimate_base(arr)
+    return _array_span(base if isinstance(base, np.ndarray) else arr)
+
+
+def _tensor_span(t) -> Optional[Tuple[int, int]]:
+    """A CPU tensor's storage bytes (not its view's); None off the CPU."""
+    if t.device.type != "cpu":
+        return None
+    storage = t.untyped_storage()
+    start, nbytes = storage.data_ptr(), storage.nbytes()
+    if not start or not nbytes:
+        return None
+    return (start, start + nbytes)
+
+
+def _kind(obj) -> Optional[str]:
+    """"tensor", "ndarray" or None. Through sys.modules: a process that
+    never loaded torch (or numpy) holds none of its objects, and must not
+    import it here."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(obj, torch.Tensor):
+        return "tensor"
+    np = sys.modules.get("numpy")
+    if np is not None and isinstance(obj, np.ndarray):
+        return "ndarray"
+    return None
+
+
+def _span(obj) -> Optional[Tuple[int, int]]:
+    kind = _kind(obj)
+    if kind == "tensor":
+        return _tensor_span(obj)
+    if kind == "ndarray":
+        return _numpy_span(obj)
+    return None
+
+
+def note_external_host_buffer(arr, tag: str = "external") -> None:
+    """Register ``arr`` (a numpy array or view, or a CPU tensor) as host
+    memory the port does not own. No-op unless the donation sanitizer is
+    enabled. The span's lifetime is ``arr``'s: it drops when ``arr`` is
+    collected."""
+    if not donation_check_enabled():
+        return
+    if _kind(arr) is None:
+        arr = getattr(arr, "__array__", lambda: None)()
+    span = _span(arr)
+    if span is None:
+        return
+    key = id(arr)
+    if key in _external:
+        return
+    global _registered
+    _registered += 1
+    _external[key] = (span[0], span[1], tag)
+    _finalizers[key] = weakref.finalize(arr, _drop_external, key)
+
+
+def _drop_external(key: int) -> None:
+    _external.pop(key, None)
+    _finalizers.pop(key, None)
+
+
+def external_range_count() -> int:
+    return len(_external)
+
+
+def donation_stats() -> Dict[str, int]:
+    """This process's donation plane: ``registered`` spans ever, ``live``
+    spans now, and ``checks``, the guarded writes held against registered
+    spans (a guard that returned early, with nothing registered or the
+    mode off, is not counted)."""
+    return {"registered": _registered, "live": len(_external),
+            "checks": _guard_checks}
+
+
+def _overlapping_tag(start: int, end: int) -> Optional[str]:
+    # a snapshot: finalizers (_drop_external) fire at any bytecode boundary
+    for s, e, tag in list(_external.values()):
+        if start < e and s < end:
+            return tag
+    return None
+
+
+def guard_donated_args(targets: Iterable, label: str = "write") -> None:
+    """Raise :class:`DonationAliasError` if a tensor (or numpy array) that
+    ``label`` is about to write in place overlaps a registered
+    externally-owned host span. CUDA tensors are skipped: they never alias
+    host memory."""
+    if not _external:
+        return
+    if not donation_check_enabled():
+        return
+    global _guard_checks
+    _guard_checks += 1
+    for target in targets:
+        span = _span(target)
+        if span is None:
+            continue
+        tag = _overlapping_tag(*span)
+        if tag is not None:
+            raise DonationAliasError(
+                f"in-place write of {label} (shape="
+                f"{tuple(getattr(target, 'shape', ()))} dtype="
+                f"{getattr(target, 'dtype', '?')}) targets externally-owned "
+                f"host memory ({tag}, span 0x{span[0]:x}-0x{span[1]:x}): "
+                "torch.from_numpy and torch.as_tensor share a numpy array's "
+                "memory and .to('cpu') of a CPU tensor returns it, so the "
+                "write would scribble over memory the port does not own. "
+                "Stage through an owned copy first: torch.from_numpy(x)"
+                ".clone() or torch.tensor(x).")
+
+
+def step_targets(optimizer):
+    """The tensors an optimizer's step writes in place: its parameters and
+    its state's tensors (each label's optimizer of a ``MultiTransform``)."""
+    inner = getattr(optimizer, "optimizers", None)
+    if isinstance(inner, dict):
+        for opt in inner.values():
+            yield from step_targets(opt)
+        return
+    for group in getattr(optimizer, "param_groups", ()):
+        yield from group["params"]
+    for state in getattr(optimizer, "state", {}).values():
+        for value in state.values():
+            if hasattr(value, "untyped_storage"):
+                yield value
+
+
+def checked_step(optimizer, label: Optional[str] = None) -> None:
+    """``optimizer.step()`` with its parameters and state guarded first:
+    the port's ``checked_jit``. One comparison when nothing is
+    registered."""
+    if _external and donation_check_enabled():
+        guard_donated_args(step_targets(optimizer),
+                           label or f"{type(optimizer).__name__}.step")
+    optimizer.step()
 
 
 # ---------------------------------------------------------------------------

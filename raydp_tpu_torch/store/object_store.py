@@ -692,6 +692,7 @@ def new_object_id() -> str:
 
 SHM_CAPACITY_ENV = "RAYDP_TPU_TORCH_SHM_CAPACITY"
 _SHM_HEADROOM = 64 << 20  # never fill /dev/shm to the last byte
+_SHM_DIR = "/dev/shm"  # the tmpfs the capacity check scans and measures
 
 
 def _spill_dir() -> str:
@@ -719,14 +720,14 @@ def _should_spill(capacity: int) -> bool:
         try:
             used = sum(
                 e.stat().st_size
-                for e in os.scandir("/dev/shm")
+                for e in os.scandir(_SHM_DIR)
                 if e.name.startswith(SHM_PREFIX)
             )
         except OSError:
             used = 0
         return used + capacity > cap
     try:
-        st = os.statvfs("/dev/shm")
+        st = os.statvfs(_SHM_DIR)
         return capacity > st.f_bavail * st.f_frsize - _SHM_HEADROOM
     except OSError:
         return False

@@ -1419,3 +1419,67 @@ def test_world2_verdict_fails_on_a_planted_fault(store_alarm_guard, etl_clean,
                                           heldout_ds, comm_mode=fault)
     with pytest.raises(chip_smoke.SmokeFailure, match=message):
         chip_smoke.world2_verdict(w2)
+
+
+TINY_CHAOS = {"rows": 1536, "host_rows": {"executor_kill_with_service": 40_000}}
+
+
+def test_phase_chaos_on_the_cpu(store_alarm_guard, etl_clean, monkeypatch):
+    """``phase_chaos`` at the chaos tests' sizes on the CPU: the killed fit
+    bitwise the unkilled one with a re-executed task, the block service's
+    kill re-executing nothing, the parameters on the CPU, the record's
+    keys, and the environment as it was. The host's segments are not
+    compared here: the suite's other workers make and drop theirs."""
+    monkeypatch.setenv("RAYDP_TPU_SANITIZE", "donation,lockdep,leaks")
+    monkeypatch.setattr(chip_smoke, "chaos_segments", set)
+    rec = chip_smoke.phase_chaos("cpu", **TINY_CHAOS)
+    assert set(chip_smoke.CHAOS_KEYS) <= set(rec)
+    assert os.environ["RAYDP_TPU_SANITIZE"] == "donation,lockdep,leaks"
+    entries = {e["name"]: e for e in rec["scenarios"]}
+    assert list(entries) == ["mid_streaming_fit_kill",
+                             "executor_kill_with_service"]
+    fit = entries["mid_streaming_fit_kill"]
+    assert fit["ok"] and fit["byte_identical"] and fit["reexecuted_tasks"] >= 1
+    assert entries["executor_kill_with_service"]["reexecuted_tasks"] == 0
+    assert all(e["sanitizer"]["threads"] == 0 for e in rec["scenarios"])
+    assert rec["params_device"] == ["cpu"]
+    assert rec["donation"]["registered"] >= 1
+
+
+def test_phase_chaos_fails_a_kill_that_loses_nothing(store_alarm_guard,
+                                                     etl_clean, monkeypatch):
+    """A planted fault: the scenario's kill does not happen, so the fit
+    loses no block and re-executes nothing; the phase fails."""
+    from raydp_tpu_torch import chaos
+
+    monkeypatch.setattr(chaos, "kill_executor",
+                        lambda session, handle=None, index=0: handle)
+    monkeypatch.setattr(chip_smoke, "chaos_segments", set)
+    with pytest.raises(chip_smoke.SmokeFailure, match="the killed fit"):
+        chip_smoke.phase_chaos("cpu", rows=1536, host_rows={})
+
+
+def _chaos_report(**entry):
+    scenario = {"name": "mid_streaming_fit_kill", "ok": True,
+                "byte_identical": True, "reexecuted_tasks": 2,
+                "sanitizer": {"threads": 0}} | entry
+    return {"scenarios": [scenario], "sanitizer_findings": 0, "ok": True}
+
+
+@pytest.mark.parametrize("report,fits,leftover,message", [
+    (_chaos_report(), [{"w": torch.zeros(1)}] * 2, [], None),
+    (_chaos_report(), [{"w": torch.zeros(1, device="meta")}] * 2, [],
+     "not on cpu"),
+    (_chaos_report(sanitizer={"threads": 1}), [{"w": torch.zeros(1)}] * 2,
+     [], "stranded a thread"),
+    (_chaos_report() | {"sanitizer_findings": 1}, [{"w": torch.zeros(1)}] * 2,
+     [], "strict leak audit"),
+    (_chaos_report(), [{"w": torch.zeros(1)}] * 2, ["rtpt-chd-x"],
+     "outlived the phase"),
+])
+def test_chaos_verdict_fails_each_gate(report, fits, leftover, message):
+    if message is None:
+        chip_smoke.chaos_verdict(report, fits, "cpu", leftover)
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure, match=message):
+            chip_smoke.chaos_verdict(report, fits, "cpu", leftover)

@@ -12,15 +12,29 @@ packages' modules side by side:
 - leaks: a seeded fd leak is counted, a tracked shared-memory segment is
   named until it is unlinked, ``leaks-strict`` escalates, the report has the
   JAX package's keys, and a clean init -> spawn -> kill -> shutdown cycle
-  audits back to baseline in strict mode.
+  audits back to baseline in strict mode;
+- donation (the cases of ``tests/test_sanitize.py``): ``torch.from_numpy``
+  and ``.to("cpu")`` share a numpy array's memory; a registered alias
+  written by a guarded optimizer step (``checked_step``, ``Adafactor``, the
+  estimator's fit) or by ``_scatter_rows`` raises
+  :class:`DonationAliasError` before it writes, an owned copy runs clean, a
+  view registers its base, the mode off never raises, a step built before
+  the mode was set is still checked, collected buffers drop out, a tensor
+  on the card is skipped, and ``python -S`` imports the module without
+  torch or numpy.
 """
 
+import gc
 import os
 import signal
+import subprocess
+import sys
 import threading
 import uuid
 
+import numpy as np
 import pytest
+import torch
 
 from raydp_tpu import sanitize as jax_sanitize
 from raydp_tpu_torch import cluster
@@ -57,11 +71,13 @@ def san(request, monkeypatch):
 
 
 def test_modes_parse_as_the_jax_package(monkeypatch):
-    """The suite's ``donation,lockdep,leaks`` arms lockdep and leaks in the
-    port, whose sanitizer has no donation half, without an error."""
+    """Every mode string arms in the port what it arms in the JAX package:
+    the suite's ``donation,lockdep,leaks`` arms the donation guard, lockdep
+    and leaks in both."""
     for modes in ("", ARMED, "leaks-strict", " lockdep , leaks ", "donation"):
         monkeypatch.setenv("RAYDP_TPU_SANITIZE", modes)
-        for name in ("lockdep_enabled", "leaks_enabled", "leaks_strict"):
+        for name in ("donation_check_enabled", "lockdep_enabled",
+                     "leaks_enabled", "leaks_strict"):
             assert getattr(sanitize, name)() == getattr(jax_sanitize, name)()
     monkeypatch.setenv("RAYDP_TPU_SANITIZE", ARMED)
     assert sanitize.lockdep_enabled() and sanitize.leaks_enabled()
@@ -310,3 +326,202 @@ def test_clean_cycle_audits_back_to_baseline(monkeypatch):
     cluster.shutdown()  # audits; would raise LeakError on a leak
     report = sanitize.leak_report()
     assert report["shm"] == [] and report["spill"] == []
+
+
+# ---------------------------------------------------------------------------
+# donation: in-place writes into host memory the port does not own
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture
+def donation_on(monkeypatch):
+    monkeypatch.setenv("RAYDP_TPU_SANITIZE", "donation")
+    yield
+    sanitize._external.clear()
+    sanitize._finalizers.clear()
+
+
+def _ones(n=1024):
+    return np.ones(n, np.float32)
+
+
+def _aliased_param(a):
+    """A parameter whose storage IS ``a``'s memory, with a gradient."""
+    p = torch.nn.Parameter(torch.from_numpy(a).to("cpu"))
+    p.grad = torch.ones_like(p)
+    return p
+
+
+def test_from_numpy_shares_the_arrays_memory():
+    """The premise: ``torch.from_numpy``, ``torch.as_tensor`` and
+    ``.to("cpu")`` of a CPU tensor share the numpy array's memory, so an
+    in-place write through them writes the array."""
+    a = _ones()
+    ptr = a.__array_interface__["data"][0]
+    t = torch.from_numpy(a).to("cpu")
+    assert t.untyped_storage().data_ptr() == ptr
+    assert torch.as_tensor(a).untyped_storage().data_ptr() == ptr
+    t.add_(1.0)
+    assert float(a[0]) == 2.0
+
+
+def _adam_step(p):
+    sanitize.checked_step(torch.optim.Adam([p], lr=0.1))
+
+
+def _adafactor_step(p):
+    from raydp_tpu_torch.optim import Adafactor
+
+    Adafactor([p], lr=0.1).step()
+
+
+def _scatter_rows(p):
+    from raydp_tpu_torch.models.transformer import _scatter_rows
+
+    with torch.no_grad():
+        _scatter_rows(p.view(1, 1, -1, 1), torch.zeros(1, 1, 2, 1),
+                      torch.zeros(1, dtype=torch.int64))
+
+
+WRITERS = {"checked_step": _adam_step, "adafactor": _adafactor_step,
+           "scatter_rows": _scatter_rows}
+
+
+@pytest.mark.parametrize("writer", sorted(WRITERS))
+def test_guarded_write_of_a_registered_alias_raises(donation_on, writer):
+    a = _ones()
+    before = sanitize.donation_stats()
+    sanitize.note_external_host_buffer(a, tag="caller's array")
+    with pytest.raises(sanitize.DonationAliasError, match="externally-owned"):
+        WRITERS[writer](_aliased_param(a))
+    assert float(a[0]) == 1.0 and float(a[-1]) == 1.0  # raised before writing
+    after = sanitize.donation_stats()
+    assert after["checks"] == before["checks"] + 1
+    assert after["registered"] == before["registered"] + 1
+    assert after["live"] == before["live"] + 1
+
+
+@pytest.mark.parametrize("writer", sorted(WRITERS))
+def test_owned_copy_runs_clean(donation_on, writer):
+    a = _ones()
+    sanitize.note_external_host_buffer(a, tag="caller's array")
+    owned = _aliased_param(a.copy())
+    WRITERS[writer](owned)
+    assert float(a[0]) == 1.0
+    assert not torch.equal(owned.detach(), torch.ones_like(owned))
+
+
+def test_estimator_fit_on_a_registered_alias_raises(donation_on):
+    """End to end: a model whose weight shares a registered array; the
+    estimator's step refuses to write it, and the array stays as it was."""
+    from raydp_tpu_torch.estimator import Estimator
+    from raydp_tpu_torch.exchange.dataset import ArrayDataset
+    from raydp_tpu_torch.models.mlp import MLPRegressor
+
+    model = MLPRegressor(2, (4,), device="cpu")
+    weight = model.dense[0].weight.detach().numpy().copy()
+    with torch.no_grad():
+        model.dense[0].weight = torch.nn.Parameter(torch.from_numpy(weight))
+    sanitize.note_external_host_buffer(weight, tag="caller's weights")
+    rng = np.random.default_rng(0)
+    x = rng.random((64, 2)).astype(np.float32)
+    ds = ArrayDataset({"a": x[:, 0], "b": x[:, 1], "y": x.sum(1)}, [64])
+    before = weight.copy()
+    est = Estimator(model=model, optimizer="adam", loss="mse",
+                    feature_columns=["a", "b"], label_column="y",
+                    batch_size=16, num_epochs=1, device="cpu")
+    with pytest.raises(sanitize.DonationAliasError, match="Estimator.step"):
+        est.fit(ds)
+    np.testing.assert_array_equal(weight, before)
+
+
+def test_views_register_their_base(donation_on):
+    base = np.ones(4096, np.float32)
+    view = base[128:1152]  # registered for as long as it lives
+    sanitize.note_external_host_buffer(view, tag="arrow view")
+    view_param = _aliased_param(base[:1024])
+    with pytest.raises(sanitize.DonationAliasError):
+        _adam_step(view_param)
+
+
+def test_a_tensor_registers_its_storage(donation_on):
+    """A registered tensor covers its whole storage, not its view."""
+    a = _ones()
+    head = torch.from_numpy(a)[:8]
+    sanitize.note_external_host_buffer(head, tag="segment view")
+    with pytest.raises(sanitize.DonationAliasError):
+        _adam_step(_aliased_param(a[512:]))
+
+
+def test_disabled_sanitizer_never_raises(monkeypatch):
+    monkeypatch.delenv("RAYDP_TPU_SANITIZE", raising=False)
+    a = _ones()
+    sanitize.note_external_host_buffer(a, tag="ignored")  # no-op when off
+    assert sanitize.external_range_count() == 0
+    checks = sanitize.donation_stats()["checks"]
+    _adam_step(_aliased_param(a))
+    assert float(a[0]) != 1.0  # the write went through, unchecked
+    assert sanitize.donation_stats()["checks"] == checks
+
+
+def test_enable_after_the_step_was_built_is_still_checked(monkeypatch):
+    """The env is read at each step: an optimizer built before
+    RAYDP_TPU_SANITIZE was set is checked once it is."""
+    monkeypatch.delenv("RAYDP_TPU_SANITIZE", raising=False)
+    a = _ones()
+    p = _aliased_param(a)
+    opt = torch.optim.SGD([p], lr=0.1)
+    monkeypatch.setenv("RAYDP_TPU_SANITIZE", "donation")
+    try:
+        sanitize.note_external_host_buffer(a, tag="late enable")
+        with pytest.raises(sanitize.DonationAliasError):
+            sanitize.checked_step(opt)
+    finally:
+        sanitize._external.clear()
+        sanitize._finalizers.clear()
+
+
+def test_registry_drops_collected_buffers(donation_on):
+    a = _ones(256)
+    sanitize.note_external_host_buffer(a, tag="short-lived")
+    t = torch.from_numpy(_ones(256))
+    sanitize.note_external_host_buffer(t, tag="short-lived tensor")
+    before = sanitize.external_range_count()
+    assert before >= 2
+    del a, t
+    gc.collect()
+    assert sanitize.external_range_count() == before - 2
+
+
+class _CudaTagged(torch.Tensor):
+    """A host tensor that reports itself on the card (this machine has no
+    card): the guard must skip it without reading its storage."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_a_tensor_on_the_card_is_skipped(donation_on):
+    a = _ones()
+    sanitize.note_external_host_buffer(a, tag="caller's array")
+    alias = torch.from_numpy(a)
+    tagged = alias.as_subclass(_CudaTagged)
+    assert tagged.device.type == "cuda"
+    sanitize.guard_donated_args([tagged], "card write")
+    with pytest.raises(sanitize.DonationAliasError):
+        sanitize.guard_donated_args([alias], "host write")
+
+
+def test_python_dash_s_imports_it_without_torch_or_numpy():
+    code = ("import sys; import raydp_tpu_torch.sanitize as s; "
+            "s.guard_donated_args([object()]); "
+            "print(sorted(m for m in ('torch', 'numpy') if m in sys.modules))")
+    out = subprocess.run(
+        [sys.executable, "-S", "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=60,
+        env=dict(os.environ, PYTHONPATH=ROOT, RAYDP_TPU_SANITIZE="donation"))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

@@ -381,15 +381,23 @@ def test_segments_and_variables_carry_each_packages_prefix(sides):
             side.store.delete([refs[package]])
 
 
-def test_capacity_scan_counts_only_its_own_segments(sides, monkeypatch):
+def test_capacity_scan_counts_only_its_own_segments(sides, monkeypatch, tmp_path):
     """Under a cap, a package spills by the bytes of ITS segments: a JAX
-    segment past the port's cap leaves the port's writes in shm."""
+    segment past the port's cap leaves the port's writes in shm, and the
+    port's own segments past it do not. The port's scan runs over a
+    directory of this test's own (``_SHM_DIR``), so what other processes
+    keep in /dev/shm does not decide it."""
     port, jax_side = sides["raydp_tpu_torch"], sides["raydp_tpu"]
+    (tmp_path / "rtpu-jax-segment").write_bytes(b"\x02" * (1 << 20))
+    (tmp_path / "rtpt-port-segment").write_bytes(b"\x01" * 4096)
+    monkeypatch.setattr(port.object_store, "_SHM_DIR", str(tmp_path))
+    monkeypatch.setenv(port.object_store.SHM_CAPACITY_ENV, str(512 << 10))
+    assert not port.object_store._should_spill(1024)
+    (tmp_path / "rtpt-port-big").write_bytes(b"\x03" * (1 << 20))
+    assert port.object_store._should_spill(1024)
     big = jax_side.store.put(b"\x02" * (1 << 20))
     try:
-        monkeypatch.setenv(port.object_store.SHM_CAPACITY_ENV, str(512 << 10))
         monkeypatch.setenv(jax_side.object_store.SHM_CAPACITY_ENV, str(512 << 10))
-        assert not port.object_store._should_spill(1024)
         assert jax_side.object_store._should_spill(1024)
     finally:
         jax_side.store.delete([big])
