@@ -19,13 +19,13 @@ Phases; any failure exits non-zero and prints no result line:
    bf16, ``IGMMA`` for s8) and ``UTMALDG`` (TMA load) instructions
    ``cuobjdump -sass`` finds in the built library (no spill, and both
    present, or it fails); for the split f32/bf16-cache decode
-   (``flash_decode_scores_kernel`` and ``flash_decode_pv_kernel``, sixteen
+   (``flash_decode_scores_kernel`` and ``flash_decode_pv_kernel``, twenty
    instantiations) its registers, spills and static shared memory (no
    spill, or it fails); for K5 (``quantize_stochastic_rows_kernel``'s two
    register bodies and ``quantize_stochastic_kernel``) and K1
    (``interaction_fwd_kernel``, f32 and bf16) registers, spills, SASS
    instruction counts and K5's instructions per group of 4 elements (no
-   spill, or it fails); for the CUDA-core f32 bodies (the forward's four
+   spill, or it fails); for the CUDA-core f32 bodies (the forward's eight
    ``flash_fwd_kernel`` and the backward's four ``flash_bwd_dq_kernel`` /
    ``flash_bwd_dkv_kernel`` instantiations) registers, spills and the SASS
    ``FFMA``/``LDS``/``LDGSTS`` counts (no spill, or it fails).
@@ -58,7 +58,11 @@ Phases; any failure exits non-zero and prints no result line:
    (f32, bf16 and int8 caches): kv_len 1, the 32-key tile and 128-key
    block boundaries, capacity and past it, tq 3, a sequence of no live key
    giving exactly 0; decode vs the prefill row for bf16 q/k/v (within
-   ``bf16_limit``, the gap printed), and
+   ``bf16_limit``, the gap printed); the f32 forward (both bodies) and the
+   f32-cache decode at the small LMs' head dims 16 and 32
+   (``check_small_heads``: at tools/trace_smoke.py's engine shapes and at
+   [1,2,2048,D], against their plain versions, the decode's edges, and
+   decode == the f32 prefill row bit for bit), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
@@ -141,7 +145,7 @@ Phases; any failure exits non-zero and prints no result line:
    ``sequence_parallel_apply`` at world 1 over NCCL in this process: the
    global loss within 1e-5 and every gradient within 1e-4 relative of
    ``attn_impl="flash"`` on the whole sequence from the same weights, two
-   runs bitwise, a warm and 4 timed Adam steps with the loss falling and
+   runs bitwise, a warm and 2 timed Adam steps with the loss falling and
    the launches a step ``seqpar_expected`` reckons (W stats forwards, W dq
    and W dk/dv launches a layer for the ring, one each for Ulysses); step
    ms, tokens/s and peak memory beside the ``flash`` step's, and one layer
@@ -224,7 +228,7 @@ Phases; any failure exits non-zero and prints no result line:
    Then the same cell through the other estimators (``phase_estimators``):
    in an ETL session, the columns of ``dlrm_data`` in 4 blocks and 2,048
    held-out rows; ``TorchEstimator.fit_on_etl`` (Adam, batch 2048 a rank,
-   3 epochs) at world 1, one rank over NCCL bit for bit a plain loop in
+   2 epochs) at world 1, one rank over NCCL bit for bit a plain loop in
    this process (losses, evaluation, parameters, K1 launches), and at
    world 2, two ranks over gloo on the one card (gloo must take DDP's
    all-gather, broadcast and all-reduce): both ranks' parameters equal,
@@ -236,6 +240,21 @@ Phases; any failure exits non-zero and prints no result line:
    in-process two-rank run; samples/s, step ms, DDP's all-reduce share,
    peak memory and setup seconds a rank, an ``{"estimators": {...}}``
    line (``--estimators`` runs phase_dlrm and this phase alone).
+   Then the port's examples (``phase_examples``, after
+   phase_estimators): ``main([])`` (no ``--device``: the card is the
+   default) of ``raydp_tpu_torch.examples.nyctaxi`` (100,000 rows, 5
+   epochs), ``dlrm_criteo`` (50,000 rows, 3 epochs, W 1) and
+   ``long_context_lm`` (W 1, seq 128) at the JAX scripts' default sizes:
+   every fitted parameter on the card, the first loss above the last, the
+   lines tests/test_examples.py asserts, one K1 launch a DLRM forward pass
+   with every forward on the card; then ``raydp_tpu_torch.tools.
+   trace_smoke.main([])``: its ``trace ok`` line and its replica's
+   ``flash_fwd_f32`` and ``flash_decode`` launches above 0 at head dim
+   16, read from the head before the deployment closed; no ``rtpt-``
+   segment of the phase left; an ``{"examples": {...}}`` line with each
+   script's seconds (``--examples`` runs this phase alone, with
+   ``phase_leftovers``; ``--small-heads`` runs the f32 forward's and
+   K4a's checks and times at head dims 16 and 32 alone).
    Then examples/dlrm_criteo.py's dp x tp fit at the same width
    (``phase_sharded_dlrm``, after phase_store): ``dlrm_sharding_rules``
    and a mesh of ranks; world 1 over NCCL in this process, mesh {"data":
@@ -354,8 +373,10 @@ Phases; any failure exits non-zero and prints no result line:
 Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
 ``{"moe": {...}}`` line ``phase_moe``, an ``{"etl": {...}}`` line
 ``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``,
-a ``{"deploy": {...}}`` line ``phase_deploy`` and a ``{"chaos": {...}}``
-line ``phase_chaos``, each
+a ``{"small_heads": {...}}`` line the f32 forward and K4a at head dims 16
+and 32 (errors and times), an ``{"examples": {...}}`` line
+``phase_examples``, a ``{"deploy": {...}}`` line ``phase_deploy`` and a
+``{"chaos": {...}}`` line ``phase_chaos``, each
 beside the card's name and power limit. The
 last three lines are an ``{"obs": {...}}`` object (the two overhead
 quotients, the custom op's hop and the LM count's ratio, beside the card
@@ -440,6 +461,14 @@ DECODE_BITS_LENS = (1, 31, 32, 33, 127, 128, 129, 2047, 2048)
 # and over a cache whose capacity is a multiple of neither the f32 prefill's
 # 64-row block nor the 32-key tile, with lengths at the block's edges
 DECODE_BITS_ODD = (1000, [63, 64, 65, 999, 1000])
+# the head dims below 64 that the f32 forward and the f32-cache decode take:
+# the small LMs' heads (raydp_tpu_torch/tools/trace_smoke.py's and chaos.py's
+# LM, d_model 32 over 2 heads, is D 16); held at the trace LM's engine shapes
+# (its serve.decode.capacity_tokens 64, 2 heads, up to 4 slots of prompts of
+# 3 tokens and 8 new ones) and at [1, 2, 2048, D]
+SMALL_HEAD_DIMS = (16, 32)
+TRACE_LM = dict(heads=2, capacity=64, decode_lens=[1, 4, 11, 64])
+SMALL_HEADS_T = 2048
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -450,11 +479,11 @@ GRAD_CHECK_T = 2048
 TRAIN_F32 = dict(batch=1, seq=2048, steps=4)
 # phase_seqpar: the widest LM in f32 at batch 1 and T 8192 (the dtype of the
 # JAX package's ring tests and of examples/long_context_lm.py), ring_flash
-# and ulysses_flash under sequence_parallel_apply, a warm step and 4 timed
-# Adam steps each, beside attn_impl="flash" on the whole sequence; worlds 1
-# (NCCL, in this process) and 2 (gloo, two processes on the one card,
-# where gloo takes CUDA tensors)
-SEQPAR = dict(batch=1, seq=8192, steps=4, impls=("ring_flash", "ulysses_flash"))
+# and ulysses_flash under sequence_parallel_apply, a warm step and 2 timed
+# Adam steps each (4 until phase_examples came), beside attn_impl="flash"
+# on the whole sequence; worlds 1 (NCCL, in this process) and 2 (gloo, two
+# processes on the one card, where gloo takes CUDA tensors)
+SEQPAR = dict(batch=1, seq=8192, steps=2, impls=("ring_flash", "ulysses_flash"))
 SEQPAR_LOSS_RTOL, SEQPAR_GRAD_RTOL = 1e-5, 1e-4
 SEQPAR_RANK_LIMIT_S = 300.0  # a spawned world's whole run
 # bench.py bench_dlrm (the BASELINE.json headline workload), uncut: its model,
@@ -803,7 +832,7 @@ def sm90_report(entries: dict) -> dict:
 # ptxas's mangled names (a repeated bf16 is a substitution, S..._)
 DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)EEv")
 DECODE_TYPES = re.compile(r"f|13__nv_bfloat16|S\d*_")
-DECODE_INSTANTIATIONS = 16
+DECODE_INSTANTIATIONS = 20  # D 64/128 x 4 type pairs, D 16/32 f32 only
 
 
 def _decode_key(found: re.Match) -> str:
@@ -814,7 +843,8 @@ def _decode_key(found: re.Match) -> str:
 
 def decode_report(entries: dict) -> dict:
     """The split decode's instantiations among ptxas's ``entries`` (scores
-    and p.v kernels at D 64 and 128, f32 and bf16 q and cache): registers,
+    and p.v kernels at D 64 and 128, f32 and bf16 q and cache, and at D 16
+    and 32 for f32 q and cache): registers,
     spills and static shared memory. Fails on a spill or a missing one."""
     out = {_decode_key(found): row for name, row in entries.items()
            if (found := DECODE_KERNEL.search(name))}
@@ -832,7 +862,7 @@ def decode_report(entries: dict) -> dict:
 # (expf's exp2)
 F32_FWD_KERNEL = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E")
 F32_FWD_SASS_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "MUFU")
-F32_FWD_INSTANTIATIONS = 4
+F32_FWD_INSTANTIATIONS = 8  # D 16, 32, 64, 128 x one-pass, two-term
 
 
 def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
@@ -863,8 +893,8 @@ def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
 
 
 def f32_fwd_report(entries: dict) -> dict:
-    """The f32 prefill body's instantiations (D 64 and 128, one-pass and
-    two-term) through ``cuda_core_report``."""
+    """The f32 prefill body's instantiations (D 16, 32, 64 and 128,
+    one-pass and two-term) through ``cuda_core_report``."""
     return cuda_core_report(
         entries, F32_FWD_KERNEL,
         lambda found: (f"flash_fwd_kernel D{found.group(1)}"
@@ -978,6 +1008,7 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     out["decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf, lens)
     for cache in ("f32", "bf16", "int8"):
         out.update(check_decode_edges(gen, device, bh_heads, t, d, cache))
+    out["small_heads"] = check_small_heads(gen, device)
     out.update(check_interaction(gen, device))
     out.update(check_stochastic(gen, device))
     out.update(check_quantize(gen, device))
@@ -999,14 +1030,15 @@ def bf16_decode_limit(q, k, v, kv_len, plain_o, k_scale=None, v_scale=None):
 
 
 def check_decode(gen, device, heads, t, d, lens,
-                 dtypes=(torch.float32, torch.bfloat16)) -> dict:
+                 dtypes=(torch.float32, torch.bfloat16), int8=True) -> dict:
     """flash_decode at the serving path's shapes (q [slots, H, 1, D], an
     f32 cache of capacity t, mixed kv_len) against flash_decode_plain:
     f32 q within 1e-5, bf16 q within ``bf16_decode_limit`` element by
     element (the worst |o - plain| / limit logged beside whether the old
     limit, an absolute 2e-2, would have passed). flash_decode_int8 against
     flash_decode on the dequantized cache (1e-6) and against its plain
-    version, held the same way. ``dtypes``: the types of q."""
+    version, held the same way (where ``int8``). ``dtypes``: the types of
+    q. Each call also bitwise over two launches."""
     out = {}
     b = len(lens)
     kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
@@ -1031,9 +1063,16 @@ def check_decode(gen, device, heads, t, d, lens,
 
     for dtype in dtypes:
         qd = _randn(gen, (b, heads, 1, d), dtype, device)
-        held(f"flash_decode q {str(dtype)[6:]} kv_len={lens}",
-             finish_within(lambda: fa.flash_decode(qd, kc, vc, kv_len),
-                           "flash_decode"), qd, kc, vc)
+        name = f"flash_decode q {str(dtype)[6:]} kv_len={lens}"
+        if d != 128:  # the serving shape keeps its key
+            name += f" D{d} T={t}"
+        got = finish_within(lambda: fa.flash_decode(qd, kc, vc, kv_len),
+                            "flash_decode")
+        require(torch.equal(got, fa.flash_decode(qd, kc, vc, kv_len)),
+                f"{name} differs between launches")
+        held(name, got, qd, kc, vc)
+    if not int8:
+        return out
 
     # flash_decode_int8 vs flash_decode on the dequantized cache
     def q8(x):
@@ -1068,23 +1107,25 @@ def check_decode(gen, device, heads, t, d, lens,
     return out
 
 
-def check_decode_bits(gen, device, heads, t, lens) -> dict:
-    """The f32/bf16-cache decode's bitwise contracts, at D 128 and 64 over a
-    cache of capacity t, one sequence per kv_len of ``DECODE_BITS_LENS`` and
-    ``lens`` in one batch:
+def check_decode_bits(gen, device, heads, t, lens, dims=(128, 64),
+                      bf16=True) -> dict:
+    """The f32/bf16-cache decode's bitwise contracts, at head dims ``dims``
+    over a cache of capacity t, one sequence per kv_len of
+    ``DECODE_BITS_LENS`` (those within t) and ``lens`` in one batch:
 
     - decode == the f32 prefill row at its position (the CUDA-core forward
       over the whole cache, causal), bit for bit, for tq 1 and for tq 3
       against the prefill's last 3 rows: the failover contract;
     - two launches give the same bits;
-    - bf16 q: the same bits as f32 q rounded to bf16 after (q and the cache
-      are staged as f32, o rounded once); a bf16 cache: the same bits as
-      that cache widened to f32;
+    - where ``bf16`` (the head dims with bf16 kernels): bf16 q gives the
+      same bits as f32 q rounded to bf16 after (q and the cache are staged
+      as f32, o rounded once), and a bf16 cache the same bits as that cache
+      widened to f32;
     - each against ``flash_decode_plain``: 1e-5 for f32 q, element by
       element within ``bf16_decode_limit`` for bf16 q."""
     out = {}
     ns_all = sorted(set(DECODE_BITS_LENS) | set(lens))
-    for d in (128, 64):
+    for d in dims:
         q, k, v = (_randn(gen, (1, heads, t, d), torch.float32, device)
                    for _ in range(3))
         prefill = fa.flash_attention(q, k, v, causal=True)
@@ -1108,7 +1149,7 @@ def check_decode_bits(gen, device, heads, t, lens) -> dict:
             require(again, f"{name} differs between launches")
             require(plain <= 1e-5, f"{name} disagrees with its plain version")
             out[name] = plain
-            if tq != 1:
+            if tq != 1 or not bf16:
                 continue
             # the two identities of staging q and the cache as f32
             qb = qd.bfloat16()
@@ -1137,7 +1178,8 @@ def check_decode_bits(gen, device, heads, t, lens) -> dict:
     return out
 
 
-def check_decode_edges(gen, device, heads, t, d, cache: str) -> dict:
+def check_decode_edges(gen, device, heads, t, d, cache: str,
+                       q_dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """A decode kernel's edge cases against flash_decode_plain (f32 q within
     1e-5, bf16 q within bf16_decode_limit), each bitwise over two launches,
     from an f32, bf16 or int8 cache (``cache``): kv_len 1, at the 32-key
@@ -1162,7 +1204,7 @@ def check_decode_edges(gen, device, heads, t, d, cache: str) -> dict:
         kernel = "flash_decode"
     for lens, tq in cases:
         kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in q_dtypes:
             q = _randn(gen, (4, heads, tq, d), dtype, device)
 
             def call():
@@ -1188,6 +1230,46 @@ def check_decode_edges(gen, device, heads, t, d, cache: str) -> dict:
             require(ok and zeros, f"{name} disagrees with its plain version")
             require(same, f"{name} differs between launches")
             out[name] = err
+    return out
+
+
+def check_small_heads(gen, device) -> dict:
+    """K2a's f32 body (one-pass and two-term) and K4a from an f32 cache at
+    the small LMs' head dims (``SMALL_HEAD_DIMS``: tools/trace_smoke.py's
+    and chaos.py's LM, d_model 32 over 2 heads, is D 16), at the trace
+    LM's engine shapes (a causal prefill of [1, 2, capacity 64]; decode
+    rows of 4 slots against that capacity) and at [1, 2, 2048, D]:
+
+    - the forward through ``check_forward`` (o within 1e-5 of the plain
+      version, m and l allclose, two launches and the two bodies bitwise),
+      causal and not, a ragged Tk and the stats surface with offsets;
+    - the decode within 1e-5 of its plain version, two launches bitwise,
+      its edge cases (f32 q), and bit for bit the f32 prefill row at its
+      position at every tile boundary within the capacity, tq 1 and 3."""
+    out, worst = {}, {}
+    heads, cap = TRACE_LM["heads"], TRACE_LM["capacity"]
+    t = SMALL_HEADS_T
+    for d in SMALL_HEAD_DIMS:
+        fwd = forward_cases(gen, device, torch.float32, (
+            ((1, heads, cap, d), cap, 0, 0, True, True),
+            ((1, heads, t, d), t, 0, 0, True, True),
+            ((1, heads, t, d), t, 0, 0, False, True),
+            ((1, heads, 200, d), 136, 0, 0, True, True),
+            ((1, heads, 512, d), 812, 300, 0, True, False),
+            ((1, heads, 512, d), 512, 0, 300, True, True)))
+        dec = {}
+        for cap_t, lens in ((cap, TRACE_LM["decode_lens"]), (t, DECODE_LENS)):
+            dec.update(check_decode(gen, device, heads, cap_t, d, lens,
+                                    dtypes=(torch.float32,), int8=False))
+            dec.update(check_decode_bits(gen, device, heads, cap_t, lens,
+                                         dims=(d,), bf16=False))
+        dec.update(check_decode_edges(gen, device, heads, t, d, "f32",
+                                      q_dtypes=(torch.float32,)))
+        out.update({f"D{d} {k}": v for k, v in {**fwd, **dec}.items()})
+        worst[f"flash_fwd_f32 D{d}"] = max(fwd.values())
+        worst[f"flash_decode D{d}"] = max(dec.values())
+    out["worst"] = worst
+    log(f"small head dims {SMALL_HEAD_DIMS}: worst |kernel - plain| {worst}")
     return out
 
 
@@ -3227,15 +3309,20 @@ def seqpar_rank(rank, world, port, ref_path, out_path, device_type,
     Path(out_path).write_text(json.dumps(records))
 
 
-def spawn_world(target, world, args_of, limit_s) -> list:
-    """Run ``target(rank, *args_of(rank))`` in ``world`` spawned processes;
-    their exit codes (None for a process killed at ``limit_s``)."""
+def start_world(target, world, args_of) -> list:
+    """``target(rank, *args_of(rank))`` started in ``world`` spawned
+    processes."""
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=(rank, *args_of(rank)))
              for rank in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + limit_s
+    return procs
+
+
+def join_world(procs, deadline: float) -> list:
+    """The exit codes of ``procs`` (None for a process killed at the
+    ``time.monotonic()`` deadline)."""
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     codes = []
@@ -3247,6 +3334,13 @@ def spawn_world(target, world, args_of, limit_s) -> list:
         else:
             codes.append(p.exitcode)
     return codes
+
+
+def spawn_world(target, world, args_of, limit_s) -> list:
+    """Run ``target(rank, *args_of(rank))`` in ``world`` spawned processes;
+    their exit codes (None for a process killed at ``limit_s``)."""
+    return join_world(start_world(target, world, args_of),
+                      time.monotonic() + limit_s)
 
 
 def run_world2(target, device, name: str, config: dict, limit_s: float,
@@ -3270,24 +3364,34 @@ _GLOO_TAKES: dict = {}  # (device type, op) -> the probe's verdict
 
 def gloo_takes(device, ops=GLOO_PROBE_OPS) -> dict:
     """Whether gloo takes ``device``'s tensors for each of ``ops``, one
-    pair of spawned ranks an op (``gloo_probe_rank``), each op probed once
-    a run: {"ops": {op: "ok" | "refused" with the ranks' detail}}. Refused
-    is an error gloo raised or a rank killed by a signal inside gloo; wrong
+    pair of spawned ranks an op (``gloo_probe_rank``; the pairs run at the
+    same time, each on a port of its own), each op probed once a run:
+    {"ops": {op: "ok" | "refused" with the ranks' detail}}. Refused is an
+    error gloo raised or a rank killed by a signal inside gloo; wrong
     values, or a rank that failed otherwise or ran past its limit, fail the
     run."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done = {op: _GLOO_TAKES[(device.type, op)] for op in ops
             if (device.type, op) in _GLOO_TAKES}
-    for op in ops:
-        if op in done:
-            continue
+    todo = [op for op in ops if op not in done]
+    ports: list = []
+    while len(ports) < len(todo):
+        port = free_port()
+        if port not in ports:
+            ports.append(port)
+    pairs = {}
+    for op, port in zip(todo, ports):
         outs = [BUILD_DIR / f"gloo_probe_{op}_{r}.json" for r in range(2)]
         for out in outs:
             out.unlink(missing_ok=True)
-        port = free_port()
-        codes = spawn_world(
+        pairs[op] = (outs, start_world(
             gloo_probe_rank, 2,
-            lambda r: (2, port, str(outs[r]), device.type, op), 120.0)
+            lambda r, op=op, port=port, outs=outs: (
+                2, port, str(outs[r]), device.type, op)))
+    deadline = time.monotonic() + 120.0
+    codes_of = {op: join_world(pairs[op][1], deadline) for op in todo}
+    for op in todo:
+        outs, codes = pairs[op][0], codes_of[op]
         ranks = [json.loads(out.read_text()) if out.exists() else None
                  for out in outs]
         detail = {"exit_codes": codes, "ranks": ranks}
@@ -5095,6 +5199,9 @@ def phase_etl(device, dlrm: dict = None) -> dict:
 # then DDP's first construction, which imports torch's compiler stack)
 # took 86.8-140.8 s with the gloo probes on the card's host
 ESTIMATORS_LIMIT_S = 240.0
+# the TorchEstimator fits' epochs over DLRM_RUN's rows (DLRM_RUN's 3 until
+# phase_examples came: its time is the ranks' start, not their steps)
+ESTIMATORS_EPOCHS = 2
 ESTIMATORS_SESSION = dict(num_executors=2, executor_cores=2, executor_memory="1G")
 # the held-out rows both worlds evaluate on (dlrm_columns with another seed),
 # an equal block a rank at world 2
@@ -5172,7 +5279,7 @@ def torch_estimator(device, world: int, comm_hook=None):
         model=dlrm_creator(device), optimizer="Adam",
         loss=torch.nn.BCEWithLogitsLoss, feature_columns=dense_cols + cat_cols,
         label_column="label", batch_size=DLRM_RUN["batch"],
-        num_epochs=DLRM_RUN["epochs"], num_workers=world,
+        num_epochs=ESTIMATORS_EPOCHS, num_workers=world,
         learning_rate=DLRM_RUN["lr"], seed=SEED, device=device.type,
         comm_hook=comm_hook)
 
@@ -5221,7 +5328,7 @@ def reference_loop(device, shares, heldout) -> dict:
     steps = n // batch
     history = []
     ia.reset_launches()
-    for epoch in range(DLRM_RUN["epochs"]):
+    for epoch in range(ESTIMATORS_EPOCHS):
         model.train()
         order = np.arange(n)
         np.random.default_rng(SEED + epoch).shuffle(order)
@@ -5337,7 +5444,7 @@ def estimators_world1(device, frame, heldout_frame, ds, heldout_ds) -> dict:
     columns = sum(dlrm_column_names(), [])
     share = shard_arrays(ds, 1, columns)[0]
     heldout = shard_arrays(heldout_ds, 1, columns)
-    rows, batch, epochs = len(share[0]), DLRM_RUN["batch"], DLRM_RUN["epochs"]
+    rows, batch, epochs = len(share[0]), DLRM_RUN["batch"], ESTIMATORS_EPOCHS
     steps = rows // batch
     est = torch_estimator(device, 1)
     wall = time.time()
@@ -5384,7 +5491,7 @@ def estimators_world2(device, frame, heldout_frame, ds, heldout_ds,
     columns = sum(dlrm_column_names(), [])
     shares = shard_arrays(ds, 2, columns)
     heldout = shard_arrays(heldout_ds, 2, columns)
-    rows, batch, epochs = len(shares[0][0]), DLRM_RUN["batch"], DLRM_RUN["epochs"]
+    rows, batch, epochs = len(shares[0][0]), DLRM_RUN["batch"], ESTIMATORS_EPOCHS
     steps = rows // batch
     root = BUILD_DIR / "estimators"
     root.mkdir(parents=True, exist_ok=True)
@@ -5616,7 +5723,7 @@ def phase_estimators(device, dlrm: dict = None) -> dict:
     rows in 2):
 
     - world 1: one rank over NCCL through ``fit_on_etl`` (Adam 1e-3, batch
-      2048, 3 epochs, the held-out rows evaluated each epoch), bit for bit
+      2048, 2 epochs, the held-out rows evaluated each epoch), bit for bit
       the plain loop in this process (``reference_loop``: losses,
       evaluation, parameters, as many K1 launches);
     - world 2: two ranks over gloo on the one card, 2048 rows a rank a
@@ -7521,6 +7628,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "library_ms": None,
         "bound_ms": bound, "bound_by": by,
     }
+    out.update(small_head_times(device))
     out.update(train_times(device, heads, d))
     out.update(interaction_times(device))
     out.update(quant_times(device))
@@ -7539,6 +7647,70 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
             f"{row['bound_ratio']:.2f}x its bound, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){dev}")
+    return out
+
+
+def small_head_times(device) -> dict:
+    """K2a's f32 body and K4a (f32 q, f32 cache) at the small LMs' head
+    dims, ``flash_fwd_f32 D<d>`` and ``flash_decode D<d>``: the prefill
+    q/k/v [1, 2, 2048, D] causal through ``flash_attention``, and decode
+    rows q [4, 2, 1, D] against an f32 cache [4, 2, 2048, D] at the serving
+    lengths, each beside its plain version, SDPA in f32 (the decode's with
+    a length mask) and its bound (operations at the f32 peak, or bytes)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    heads, t = TRACE_LM["heads"], SMALL_HEADS_T
+    out = {}
+    for d in SMALL_HEAD_DIMS:
+        q, k, v = (_randn(gen, (1, heads, t, d), torch.float32, device)
+                   for _ in range(3))
+        pairs = heads * t * (t + 1) // 2
+        bound = _bound(4 * q.numel() * 4 + 2 * heads * t * 4, 4 * d * pairs,
+                       "f32")
+
+        def fwd(q=q, k=k, v=v):
+            return fa.flash_attention(q, k, v, causal=True)
+
+        def sdpa(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        out[f"flash_fwd_f32 D{d}"] = {
+            "shape": f"q/k/v [1,{heads},{t},{d}] f32 causal",
+            "ms": time_ms(fwd), "device_ms": device_ms(fwd),
+            "plain_ms": time_ms(lambda q=q, k=k, v=v:
+                                fa.flash_attention_call_plain(
+                                    q, k, v, 0, 0, True, True),
+                                iters=3, reps=3),
+            "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
+            "bound_ms": bound[0], "bound_by": bound[1], "ops": 4 * d * pairs,
+        }
+        b = len(DECODE_LENS)
+        kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+        qd = _randn(gen, (b, heads, 1, d), torch.float32, device)
+        kc, vc = (_randn(gen, (b, heads, t, d), torch.float32, device)
+                  for _ in range(2))
+        rows = sum(min(n, t) for n in DECODE_LENS) * heads
+        mask = (torch.arange(t, device=device)[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        bound = _bound(rows * d * 2 * 4 + 2 * qd.numel() * 4 + b * 4,
+                       4 * d * rows, "f32")
+
+        def decode(qd=qd, kc=kc, vc=vc):
+            return fa.flash_decode(qd, kc, vc, kv_len)
+
+        def decode_sdpa(qd=qd, kc=kc, vc=vc, mask=mask):
+            return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask)
+
+        out[f"flash_decode D{d}"] = {
+            "shape": (f"q [{b},{heads},1,{d}] f32, f32 cache "
+                      f"[{b},{heads},{t},{d}], kv_len {DECODE_LENS}"),
+            "ms": time_ms(decode), "device_ms": device_ms(decode),
+            "plain_ms": time_ms(lambda qd=qd, kc=kc, vc=vc:
+                                fa.flash_decode_plain(qd, kc, vc, kv_len),
+                                iters=3, reps=3),
+            "library_ms": time_ms(decode_sdpa),
+            "library_device_ms": device_ms(decode_sdpa),
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
     return out
 
 
@@ -7974,7 +8146,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
                  etl: dict, seqpar: dict, sharded: dict,
-                 pipelined: dict, estimators: dict) -> dict:
+                 pipelined: dict, estimators: dict, examples: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -7988,13 +8160,14 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     fits of phase_fit, phase_etl's fits from the ETL Dataset and
     phase_sharded_dlrm's fits (world 1 and every rank of world 2) and
     phase_estimators' TorchEstimator fits (every rank of world 1 and 2)
-    for interaction_fwd; the
+    and phase_examples' dlrm_criteo fit for interaction_fwd; the
     int8-MLP training steps and serving run for int8_gemm, and with the
     int8-cache serving run for quantize_int8; the entry point's run for
     quantize_int8_stochastic), plus the launches phase_deploy's replicas
     made (K1, flash_fwd_f32 for the f32 model and flash_fwd for the bf16
     one, the decode kernels and quantize_int8, counted in the replica
-    processes alive at each read). A count is of wrapper calls that launched
+    processes alive at each read), and those of phase_examples' trace_smoke
+    replica (flash_fwd_f32 and flash_decode at head dim 16). A count is of wrapper calls that launched
     the kernel: each flash_decode call is two launches (its scores kernel,
     then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
     (flash_fwd: the larger of serving's and training's; flash_fwd_f32 at
@@ -8031,6 +8204,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     for name, n in deployed["launches"].items():
         if name in launches:
             launches[name] += n
+    for name, n in examples["launches"].items():
+        launches[name] += n
     case = "bfloat16 causal=True offsets=(0,0)"
     train = "train [{batch},{heads},{seq},{d}] bfloat16 causal=True".format(
         heads=MODEL["num_heads"], d=MODEL["d_model"] // MODEL["num_heads"],
@@ -8071,6 +8246,19 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
             for key in ("", "plain_", "library_")}}
         for name, (source, replaces) in KERNELS.items()
     ]}
+
+
+def small_heads_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
+    """The ``{"small_heads": {...}}`` line: K2a's f32 body and K4a at head
+    dims 16 and 32, each one's worst error against its plain version over
+    ``check_small_heads`` and its times at [.., 2048, D], beside the card's
+    name and power limit."""
+    out = {}
+    for name, err in checks["worst"].items():
+        out[name] = {k: times[name].get(k) for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+            "bound_ms", "bound_by")} | {"max_abs_err": err}
+    return {"small_heads": out, "nvidia_smi": nvidia_smi}
 
 
 def bf16_checks(device) -> None:
@@ -8389,6 +8577,176 @@ def phase_chaos(device, rows: int = CHAOS_FIT_ROWS,
     return rec
 
 
+EXAMPLES_LIMIT_S = 180.0  # the whole phase
+EXAMPLES_KNOBS = ("EXAMPLE_ROWS", "EXAMPLE_EPOCHS", "EXAMPLE_ROUNDS")
+EXAMPLES_KEYS = ("seconds", "examples", "trace_smoke", "launches",
+                 "segments_left")
+
+
+@contextlib.contextmanager
+def counted_forwards(cls):
+    """Count the calls of ``cls.forward`` while inside, with the devices
+    of the module's parameters at each call."""
+    calls = {"n": 0, "devices": set()}
+    original = cls.forward
+
+    def forward(self, *args, **kw):
+        calls["n"] += 1
+        calls["devices"].add(str(next(self.parameters()).device))
+        return original(self, *args, **kw)
+
+    cls.forward = forward
+    try:
+        yield calls
+    finally:
+        cls.forward = original
+
+
+def captured_main(module: str, argv: list) -> tuple:
+    """``main(argv)`` of ``module`` with its standard output captured and
+    logged: (its return value, the output, seconds)."""
+    import io
+
+    main_fn = importlib.import_module(module).main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main_fn(argv)
+    seconds = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"  {module.rsplit('.', 1)[-1]}| {line}")
+    return result, out.getvalue(), seconds
+
+
+def example_record(name: str, history_losses: list, params, stdout: str,
+                   expected: tuple, seconds: float, device) -> dict:
+    """One example's verdict: every fitted parameter on ``device``, the
+    first loss above the last, the lines tests/test_examples.py asserts."""
+    devices = sorted({str(p.device) for p in params})
+    rec = {"seconds": seconds, "losses": history_losses,
+           "params_device": devices}
+    log(f"example {name}: {seconds:.2f} s, losses {history_losses}, "
+        f"parameters on {devices}")
+    require(devices == [str(device)], f"{name}: parameters on {devices}")
+    require(history_losses[0] > history_losses[-1],
+            f"{name}: the loss did not fall {history_losses}")
+    for text in expected:
+        require(text in stdout, f"{name} printed no {text!r}")
+    return rec
+
+
+def phase_examples(device, argv=(), knobs=None) -> dict:
+    """The port's examples that reach the card, each through ``main([])``
+    (no ``--device``: the card is the default) at the JAX scripts' default
+    sizes: ``nyctaxi`` (100,000 rows, 5 epochs), ``dlrm_criteo`` (50,000
+    rows, 3 epochs, W 1: no process group) and ``long_context_lm`` (W 1,
+    seq 128, a group of one of its own). Each: every fitted parameter on
+    the card, the first epoch's (step's) loss above the last, the lines
+    tests/test_examples.py asserts; for ``dlrm_criteo`` one K1 launch a
+    DLRM forward pass and every forward on the card. Then
+    ``raydp_tpu_torch.tools.trace_smoke.main([])``: its ``trace ok`` line
+    and its replica's ``flash_fwd_f32`` and ``flash_decode`` launches
+    above 0 at head dim 16, read from the head before the deployment
+    closed. No ``rtpt-`` segment of the phase is left; every session
+    runs with a zygote of its own (``phase_leftovers`` checks the
+    processes at the end of the run).
+
+    ``argv`` and ``knobs`` (``EXAMPLE_*`` values, None for the scripts'
+    defaults) are for a run on the CPU (``--device cpu``), where the plain
+    versions launch nothing: there every launch count must be 0."""
+    from raydp_tpu_torch.models.dlrm import DLRM
+
+    argv = list(argv)
+    on_card = device.type == "cuda"
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", **(knobs or {})}
+    saved = {k: os.environ.get(k) for k in (*armed, *EXAMPLES_KNOBS)}
+    for knob in EXAMPLES_KNOBS:  # the scripts' defaults
+        os.environ.pop(knob, None)
+    os.environ.update(armed)
+    segments = chaos_segments()
+    t0 = time.perf_counter()
+    rec: dict = {"examples": {}}
+    try:
+        result, stdout, sec = captured_main(
+            "raydp_tpu_torch.examples.nyctaxi", argv)
+        est = result["estimator"]
+        rec["examples"]["nyctaxi"] = example_record(
+            "nyctaxi", [r["train_loss"] for r in result["history"]],
+            est.get_model().parameters(), stdout, ("train_loss",), sec, device)
+
+        ia.reset_launches()
+        with counted_forwards(DLRM) as forwards:
+            result, stdout, sec = captured_main(
+                "raydp_tpu_torch.examples.dlrm_criteo", argv)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = ia.LAUNCHES["interaction_fwd"]
+        est = result["estimator"]
+        rec["examples"]["dlrm_criteo"] = example_record(
+            "dlrm_criteo", [r["train_loss"] for r in result["history"]],
+            est.get_model().parameters(), stdout, ("train_loss",), sec, device
+        ) | {"world": result["world"], "forwards": forwards["n"],
+             "forward_devices": sorted(forwards["devices"]),
+             "interaction_fwd": launches}
+        log(f"example dlrm_criteo: interaction_fwd {launches} launches for "
+            f"{forwards['n']} DLRM forward passes on {forwards['devices']}")
+        require(result["world"] == 1, "dlrm_criteo did not run at W 1")
+        require(forwards["n"] > 0
+                and launches == (forwards["n"] if on_card else 0),
+                f"interaction_fwd launched {launches} times for "
+                f"{forwards['n']} DLRM forward passes")
+        require(forwards["devices"] == {str(device)},
+                f"DLRM forward passes on {forwards['devices']}")
+
+        fa.reset_launches()
+        result, stdout, sec = captured_main(
+            "raydp_tpu_torch.examples.long_context_lm", argv)
+        rec["examples"]["long_context_lm"] = example_record(
+            "long_context_lm", result["losses"], result["model"].parameters(),
+            stdout, ("step 4",), sec, device) | {
+                "world": result["world"],
+                "flash_launches": sum(fa.LAUNCHES.values())}
+        # attn_impl="ring", as the JAX script: the ring's products in torch ops
+        require(sum(fa.LAUNCHES.values()) == 0,
+                f"long_context_lm launched attention kernels {fa.LAUNCHES}")
+
+        _, stdout, sec = captured_main("raydp_tpu_torch.tools.trace_smoke",
+                                       argv)
+        line = next((x for x in stdout.splitlines()
+                     if x.startswith("replica launches:")), None)
+        require(line is not None, "trace_smoke printed no replica launches")
+        smoke = json.loads(line.split(":", 1)[1])
+        rec["trace_smoke"] = {"seconds": sec, "replica_launches": smoke,
+                              "trace_ok": "trace ok:" in stdout}
+        log(f"trace_smoke: {sec:.2f} s, replica launches {smoke}")
+        require("trace ok:" in stdout, "trace_smoke printed no 'trace ok'")
+        require(smoke["head_dim"] == 16 and all(
+            (smoke[k] > 0) == on_card for k in ("flash_fwd_f32", "flash_decode")),
+            f"trace_smoke's replica launched {smoke}")
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["seconds"] = time.perf_counter() - t0
+    rec["launches"] = {
+        "interaction_fwd": rec["examples"]["dlrm_criteo"]["interaction_fwd"],
+        "flash_fwd_f32": rec["trace_smoke"]["replica_launches"]["flash_fwd_f32"],
+        "flash_decode": rec["trace_smoke"]["replica_launches"]["flash_decode"],
+    }
+    rec["segments_left"] = sorted(chaos_segments() - segments)
+    log(f"examples: {rec['seconds']:.1f} s; " + ", ".join(
+        f"{name} {r['seconds']:.1f} s" for name, r in rec["examples"].items())
+        + f", trace_smoke {rec['trace_smoke']['seconds']:.1f} s; launches "
+        f"{rec['launches']}; segments left {rec['segments_left']}")
+    require(not rec["segments_left"],
+            f"the examples left segments {rec['segments_left']}")
+    require(rec["seconds"] <= EXAMPLES_LIMIT_S,
+            f"phase_examples took {rec['seconds']:.1f} s")
+    return rec
+
+
 LEFTOVER_DEADLINE_S = 15.0  # the script's processes gone at its end
 
 
@@ -8519,6 +8877,20 @@ def main(argv: list) -> int:
         sharded = phase_sharded_dlrm(device, phase_dlrm(device))
         log(json.dumps(sharded_summary(sharded, dev["nvidia_smi"])))
         return 0
+    if argv == ["--examples"]:
+        dev = phase_device()
+        rec = phase_examples(device)
+        log(json.dumps({"examples": {k: rec[k] for k in EXAMPLES_KEYS}
+                        | {"nvidia_smi": dev["nvidia_smi"]}}))
+        phase_leftovers()
+        return 0
+    if argv == ["--small-heads"]:
+        dev = phase_device()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        checks = check_small_heads(gen, device)
+        log(json.dumps(small_heads_summary(checks, small_head_times(device),
+                                           dev["nvidia_smi"])))
+        return 0
     if argv == ["--chaos"]:
         dev = phase_device()
         chaos_rec = phase_chaos(device)
@@ -8553,6 +8925,7 @@ def main(argv: list) -> int:
         device, dict(record["dlrm"], final_state=dlrm_state))
     record["etl"] = phase_etl(device, record["dlrm"])
     record["estimators"] = phase_estimators(device, record["dlrm"])
+    record["examples"] = phase_examples(device)
     record["deploy"] = phase_deploy(device, dlrm_state)
     del dlrm_state
     record["fit"] = phase_fit(device, record["dlrm"])
@@ -8566,7 +8939,8 @@ def main(argv: list) -> int:
                            record["fit"], record["deploy"],
                            record["train_f32"], record["etl"],
                            record["seqpar"], record["sharded"],
-                           record["pipeline"], record["estimators"])
+                           record["pipeline"], record["estimators"],
+                           record["examples"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -8609,6 +8983,11 @@ def main(argv: list) -> int:
     log(json.dumps({"etl": {k: record["etl"][k] for k in ETL_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps(estimators_summary(record["estimators"], dev["nvidia_smi"])))
+    log(json.dumps(small_heads_summary(record["checks"]["small_heads"],
+                                       record["times"], dev["nvidia_smi"])))
+    log(json.dumps({"examples": {k: record["examples"][k]
+                                 for k in EXAMPLES_KEYS}
+                    | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"deploy": {k: record["deploy"][k] for k in DEPLOY_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))
     log(json.dumps({"chaos": {k: record["chaos"][k] for k in CHAOS_KEYS}

@@ -40,12 +40,14 @@ so the two verdicts compare key for key; a scenario that runs a model also
 takes ``device`` (None = the card, ``"cpu"`` in tests). Run it::
 
     python -m raydp_tpu_torch.chaos --quick --seed 7 --json chaos_report.json
+    python -m raydp_tpu_torch.chaos --quick --device cpu   # no card
 
 ``--quick`` runs the CI slice (mid-shuffle and mid-fit, both block-service
 tiers, the tenant kill, both replica kills and the host death); without it
 all ten run (adding the compiled-dispatch kill and the elasticity round
-trip). ``--device`` places the models (default: the card when there is
-one, else the CPU). The exit code is non-zero when any query went
+trip). ``--device`` places the models: the card by default, which raises
+before any session starts when there is none; ``--device cpu`` runs them
+on the CPU. The exit code is non-zero when any query went
 unrecovered or any sanitizer finding surfaced.
 """
 
@@ -189,6 +191,12 @@ def _fresh_session(name: str, executors: int = 2, configs: Optional[dict] = None
     return init_etl(name, num_executors=executors, executor_cores=1,
                     executor_memory="300M", configs=configs)
 
+
+
+# the stream scenarios' LM (tools/chaos.py's): f32, attn_impl="flash", so
+# its prefill and decode run the f32 kernels at head dim 32 / 2 = 16
+DECODE_LM = dict(vocab_size=64, d_model=32, num_heads=2, num_layers=2,
+                 max_len=256)
 
 
 # executor-OWNED blocks, so an executor's SIGKILL is real loss and lineage
@@ -892,10 +900,9 @@ def scenario_replica_kill_during_decode(n_streams: int = 4, max_new: int = 12,
     from raydp_tpu_torch.models.transformer import TransformerLM
     from raydp_tpu_torch.obs.metrics import metrics
 
-    vocab = 64
-    model = functools.partial(
-        TransformerLM, vocab_size=vocab, d_model=32, num_heads=2, num_layers=2,
-        max_len=256, attn_impl="flash", dtype=torch.float32)
+    vocab = DECODE_LM["vocab_size"]
+    model = functools.partial(TransformerLM, **DECODE_LM, attn_impl="flash",
+                              dtype=torch.float32)
     ckpt_dir = tempfile.mkdtemp(prefix="chaos-decode-ckpt-")
     weights = model(device="cpu")
     ckpt.save_checkpoint(ckpt_dir, 0, None, weights,
@@ -1101,15 +1108,16 @@ def main(argv=None) -> int:
     parser.add_argument("--json", default="chaos_report.json",
                         help="report artifact path")
     parser.add_argument("--device", default=None,
-                        help="where the models run (default: the card when "
-                             "there is one, else cpu)")
+                        help="where the models run: the card (the default; "
+                             "raises when there is none) or cpu")
     args = parser.parse_args(argv)
+    from raydp_tpu_torch._device import resolve_device
+
+    # the card unless the CPU is asked for: with no card and no --device
+    # this raises before any session or process starts
+    resolve_device(args.device)
     set_seed(args.seed)
     device = args.device
-    if device is None:
-        import torch
-
-        device = None if torch.cuda.is_available() else "cpu"
     os.environ.setdefault("RAYDP_TPU_SANITIZE", "donation,lockdep,leaks-strict")
     # sessions fork from a zygote of their own, which the shutdown stops (a
     # machine-wide one would outlive the run)

@@ -52,6 +52,14 @@
 // and masks element by element only on tiles that some row of it does not
 // see whole.
 //
+// Head dims. D 64 and 128 are the widths above. D 16 and 32 (the small
+// LMs' heads: d_model 32 or 64 over 2 heads) run the same body: a score
+// tile's 128 FMAs then load 8 q and 4 k float4s per 4 d as before, p.v
+// holds 1 (D 16) or 2 (D 32) rows x 4 columns a thread, and a K tile is
+// fewer 16-byte copies than the block has threads (copy_rows skips the
+// rest). A block's 57 KB (D 16) or 77 KB (D 32) let several share an SM.
+// The rounding chain below does not depend on D.
+//
 // Why the bits are kept. The split decode (flash_decode.cu) runs the steps
 // of flash_common.cuh over the same 32-key tiles, merged in tile order, and
 // an f32 decode row must equal the prefill row at its position bit for bit
@@ -117,9 +125,11 @@ template <int D, int N>
 __device__ __forceinline__ void copy_rows(const float* src, int valid,
                                           float* dst, int pitch) {
   constexpr int kPieces = D / 4;
+  constexpr int kCopies = N * kPieces;  // fewer than the threads at D 16
 #pragma unroll
-  for (int u = 0; u < N * kPieces / kThreads; ++u) {
+  for (int u = 0; u < (kCopies + kThreads - 1) / kThreads; ++u) {
     const int i = threadIdx.x + u * kThreads;
+    if (kCopies % kThreads != 0 && i >= kCopies) break;
     const int r = i / kPieces;
     const int c = (i % kPieces) * 4;
     const bool ok = r < valid;
@@ -429,8 +439,10 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                int causal, int normalize, int onepass, float scale,
                cudaStream_t stream) {
   using L = Layout<D>;
-  // one block an SM: more than half of an H100 SM's 228 KB
-  static_assert(L::kBytes > 116 * 1024, "a second block would fit an SM");
+  // one block an SM from D 64: more than half of an H100 SM's 228 KB (at D
+  // 16 and 32, 57 and 77 KB, several blocks share an SM)
+  static_assert(D < 64 || L::kBytes > 116 * 1024,
+                "a second block would fit an SM");
   auto kernel =
       onepass ? flash_fwd_kernel<D, false> : flash_fwd_kernel<D, true>;
   cudaError_t err = prepare(kernel, L::kBytes);
@@ -479,6 +491,8 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
 #define RTT_FWD(D)                                                         \
   return launch_fwd<D>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
                        normalize, onepass, scale, s)
+  if (d == 16 && dtype == kF32) RTT_FWD(16);
+  if (d == 32 && dtype == kF32) RTT_FWD(32);
   if (d == 64 && dtype == kF32) RTT_FWD(64);
   if (d == 128 && dtype == kF32) RTT_FWD(128);
 #undef RTT_FWD

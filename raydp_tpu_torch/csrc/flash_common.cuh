@@ -59,12 +59,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 // keys. The split decode (flash_decode.cu) runs the score, the
 // probabilities and p.v of every tile in parallel and the merges in tile
 // order. Lane j holds key j of the tile; lane i holds output elements i,
-// i + 32, ... The f32 prefill (flash_attention.cu) spreads a tile over
-// register tiles of its block, tile after tile, with the same rounding
-// chain for every (row, tile): tile_prob, tile_alpha and merge_term
-// themselves, and the score, sum and p.v chains written out in the same
-// order. Every rounding step is an explicit _rn intrinsic (the compiler may
-// not contract them), so a step gives the same bits in either kernel.
+// i + 32, ... (lane_elem). The f32 prefill (flash_attention.cu) spreads a
+// tile over register tiles of its block, tile after tile, with the same
+// rounding chain for every (row, tile): tile_prob, tile_alpha and
+// merge_term themselves, and the score, sum and p.v chains written out in
+// the same order. Every rounding step is an explicit _rn intrinsic (the
+// compiler may not contract them), so a step gives the same bits in either
+// kernel.
 
 // The lane's score: one __fmaf_rn chain over d ascending, then the scale,
 // or kNegInf where the key is masked. krow(c, k) fills k[0, G) with
@@ -90,20 +91,36 @@ __device__ __forceinline__ float tile_prob(float s, float m_new) {
   return (s > kNegInf * 0.5f) ? p : 0.f;
 }
 
-// pv[i] = sum over the tile's keys j, in order, of p_j * v_j[lane + 32 i]:
+// Output elements a lane holds: lane + 32 i for i < lane_elems<D>(). Below
+// D 32 a lane at or past D holds element lane % D again, whose result it
+// does not store (lane_owns).
+template <int D>
+__host__ __device__ constexpr int lane_elems() { return (D + 31) / 32; }
+
+template <int D>
+__device__ __forceinline__ int lane_elem(int lane, int i) {
+  return D >= 32 ? lane + 32 * i : lane % D;
+}
+
+template <int D>
+__device__ __forceinline__ bool lane_owns(int lane) {
+  return D >= 32 || lane < D;
+}
+
+// pv[i] = sum over the tile's keys j, in order, of p_j * v_j[lane_elem(i)]:
 // one __fmaf_rn chain per element. vat(j, e) is element e of key j's V row
 // as f32.
 template <int D, class VAt>
 __device__ __forceinline__ void tile_pv(float p, const VAt& vat, int lane,
-                                        float (&pv)[D / 32]) {
+                                        float (&pv)[lane_elems<D>()]) {
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) pv[i] = 0.f;
+  for (int i = 0; i < lane_elems<D>(); ++i) pv[i] = 0.f;
 #pragma unroll 4
   for (int j = 0; j < kBlockK; ++j) {
     const float pj = __shfl_sync(kFull, p, j);
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      pv[i] = __fmaf_rn(pj, vat(j, lane + 32 * i), pv[i]);
+    for (int i = 0; i < lane_elems<D>(); ++i) {
+      pv[i] = __fmaf_rn(pj, vat(j, lane_elem<D>(lane, i)), pv[i]);
     }
   }
 }

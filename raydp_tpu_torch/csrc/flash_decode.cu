@@ -12,7 +12,10 @@
 // [B*H, tq, D] in q's type. Query row r sits at position kv_len - tq + r
 // and attends the keys at positions <= its own and < min(kv_len, tk); a row
 // with no such key gets 0. Cache rows at or past kv_len are read as zeros,
-// so stale values (NaN, inf) never reach the sums.
+// so stale values (NaN, inf) never reach the sums. D is 64 or 128 for
+// every pair of types, and 16 or 32 (the heads of the small LMs) for f32 q
+// on an f32 cache; below D 32 the lanes past D repeat a lower lane's p.v
+// element and store nothing, so each element keeps its one chain.
 //
 // What bounds it on an H100: bytes. Every valid K/V row is read once and
 // each element costs two operations: at the serving shape (4 sequences of
@@ -239,7 +242,7 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
       const float p = tile_prob(s_in[row * n_tiles * kBlockK + kt0 + lane], m_new);
       const float p_sum = warp_sum(p);
       staged();  // V, in flight since before the loop
-      float pv[D / 32];
+      float pv[lane_elems<D>()];
       tile_pv<D>(p, [&](int j, int e) { return to_f32(vs[j * D + e]); }, lane, pv);
       const bool moved = tile_max > m_prev;
       float* pt = part + (row * n_tiles + tile) * (2 + D);
@@ -247,8 +250,10 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
         pt[0] = moved ? tile_alpha(m_prev, m_new) : -1.f;
         pt[1] = p_sum;
       }
+      if (lane_owns<D>(lane)) {
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) pt[2 + lane + 32 * i] = pv[i];
+        for (int i = 0; i < lane_elems<D>(); ++i) pt[2 + lane + 32 * i] = pv[i];
+      }
     }
   }
 
@@ -260,9 +265,10 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
   if (ticket != live_chunks - 1) return;
   __threadfence();
   const int row_tiles = (valid + kBlockK - 1) / kBlockK;
-  for (int item = warp; item < tq * (D / 32); item += kWarps) {
-    const int r = item / (D / 32);
-    const int e = (item % (D / 32)) * 32 + lane;
+  constexpr int kParts = lane_elems<D>();  // 32-element parts of a row
+  for (int item = warp; item < tq * kParts; item += kWarps) {
+    const int r = item / kParts;
+    const int e = lane_elem<D>(lane, item % kParts);
     const int q_pos = len - tq + r;
     // the row's tiles: those starting at or before its position
     const int n = q_pos < 0 ? 0 : min(row_tiles, q_pos / kBlockK + 1);
@@ -275,10 +281,16 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
       // element of each tile's p.v
       const float alpha_u = lane < count ? __ldcg(pb + lane * (2 + D)) : 0.f;
       const float p_sum_u = lane < count ? __ldcg(pb + lane * (2 + D) + 1) : 0.f;
-      float pv[32];
+      // from D 64 the 32 tiles' elements are loaded ahead of the merges;
+      // below it (a row of one part) each is loaded at its merge, which
+      // keeps ptxas from spilling the D 32 body
+      constexpr int kAhead = D >= 64 ? 32 : 1;
+      float pv[kAhead];
+      if constexpr (D >= 64) {
 #pragma unroll
-      for (int u = 0; u < 32; ++u) {
-        pv[u] = u < count ? __ldcg(pb + u * (2 + D) + 2 + e) : 0.f;
+        for (int u = 0; u < 32; ++u) {
+          pv[u] = u < count ? __ldcg(pb + u * (2 + D) + 2 + e) : 0.f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < 32; ++u) {
@@ -287,11 +299,18 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
         if (u < count) {  // warp-uniform
           const bool moved = alpha >= 0.f;
           l = merge_term(moved, alpha, l, p_sum);
-          acc = merge_term(moved, alpha, acc, pv[u]);
+          if constexpr (D >= 64) {
+            acc = merge_term(moved, alpha, acc, pv[u]);
+          } else {
+            acc = merge_term(moved, alpha, acc,
+                             __ldcg(pb + u * (2 + D) + 2 + e));
+          }
         }
       }
     }
-    ob[r * D + e] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+    if (lane_owns<D>(lane)) {
+      ob[r * D + e] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+    }
   }
   if (threadIdx.x == 0) tickets[bh] = 0;  // ready for the next launch
 }
@@ -387,6 +406,18 @@ int rtt_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wf = static_cast<float*>(work);
   int* ti = static_cast<int*>(tickets);
+  // D 16 and 32 (the small LMs' heads) for the f32 cache and f32 q only
+  if ((d == 16 || d == 32) && (q_dtype != kF32 || kv_dtype != kF32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (d == 16) {
+    return launch<16, float, float>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk,
+                                    scale, s);
+  }
+  if (d == 32) {
+    return launch<32, float, float>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk,
+                                    scale, s);
+  }
   if (d == 64) {
     return launch_by_q<64>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, q_dtype,
                            kv_dtype, scale, s);

@@ -84,7 +84,19 @@ NEG_INF = -1e30
 # csrc/flash_forward_sm90.cu (kM, kN).
 BLOCK_K = 32
 BLOCK_Q = 64
-KERNEL_HEAD_DIMS = (64, 128)
+# head dims with a CUDA kernel, by kernel family. The f32 forward
+# (csrc/flash_attention.cu) and the decode of f32 q from an f32 cache
+# (csrc/flash_decode.cu) also take the small LMs' heads, 16 and 32; the bf16
+# forward and backward (sm90), the f32 backward, the decode's other types
+# and the int8-cache decode are built for 64 and 128 only.
+KERNEL_HEAD_DIMS = {
+    "flash_fwd_f32": (16, 32, 64, 128),
+    "flash_fwd_bf16": (64, 128),
+    "flash_bwd": (64, 128),
+    "flash_decode_f32": (16, 32, 64, 128),
+    "flash_decode": (64, 128),
+    "flash_decode_int8": (64, 128),
+}
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
 # partial (m, l, o) per chunk
@@ -311,11 +323,14 @@ def _on_cpu(*tensors) -> bool:
     return dev.type == "cpu"
 
 
-def _check_head_dim(d: int, what: str) -> None:
-    if d not in KERNEL_HEAD_DIMS:
+def _check_head_dim(d: int, family: str, what: str = "") -> None:
+    """Refuse a head dim that ``family`` (a key of ``KERNEL_HEAD_DIMS``)
+    has no kernel for."""
+    dims = KERNEL_HEAD_DIMS[family]
+    if d not in dims:
         raise ValueError(
-            f"{what}: head_dim {d} has no CUDA kernel (built for "
-            f"{KERNEL_HEAD_DIMS})"
+            f"{what or family}: head_dim {d} has no CUDA kernel (built for "
+            f"{dims})"
         )
 
 
@@ -371,7 +386,8 @@ def flash_attention_call(
     b, h, t, d = q.shape
     tk = k.shape[2]
     name = "flash_fwd" if onepass else "flash_fwd_twoterm"
-    _check_head_dim(d, name)
+    _check_head_dim(d, "flash_fwd_f32" if q.dtype == torch.float32
+                    else "flash_fwd_bf16", name)
     if onepass and q.dtype == torch.float32:
         name = "flash_fwd_f32"  # the CUDA-core body, a kernel of its own
     lib = _build.load()
@@ -414,7 +430,7 @@ def _bwd_launch(entry, name, q, k, v, lse, dsum, g, q_offset, k_offset,
                 causal, outs):
     """Launch one backward kernel writing ``outs`` (fresh tensors)."""
     b, h, t, d = q.shape
-    _check_head_dim(d, name)
+    _check_head_dim(d, "flash_bwd", name)
     lib = _build.load()
     q, k, v, g = (x.contiguous() for x in (q, k, v, g))
     if q.dtype == torch.float32:  # the CUDA-core bodies copy 16 bytes a move
@@ -571,7 +587,13 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
         raise ValueError(f"kv_len must be [B] = [{b}], got {tuple(kv_len.shape)}")
     if _on_cpu(q, k, v, kv_len, *scales):
         return flash_decode_plain(q, k, v, kv_len, k_scale, v_scale)
-    _check_head_dim(d, "flash_decode")
+    if int8_kv:
+        family = "flash_decode_int8"
+    elif q.dtype == torch.float32 and k.dtype == torch.float32:
+        family = "flash_decode_f32"
+    else:
+        family = "flash_decode"
+    _check_head_dim(d, family)
     lib = _build.load()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = kv_len.to(torch.int32).contiguous()

@@ -335,6 +335,7 @@ def test_decode_pattern_names_every_instantiation():
         "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi64Ef13__nv_bfloat16EEvPKT1_PKiPKfSB_PfPiPT0_iiii",
         "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi128E13__nv_bfloat16fEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
         "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi64E13__nv_bfloat16S1_EEvPKT0_PKT1_PKiPfSA_iiiif",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi16EffEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
         "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv",
     ]
     entries = {name: {"registers": 40, "spill_bytes": 0, "static_smem_bytes": 0}
@@ -345,19 +346,20 @@ def test_decode_pattern_names_every_instantiation():
         "flash_decode_scores_kernel D128 q f32 cache f32",
         "flash_decode_pv_kernel D64 q f32 cache bf16",
         "flash_decode_pv_kernel D128 q bf16 cache f32",
-        "flash_decode_scores_kernel D64 q bf16 cache bf16"]
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 16 decode kernels"):
+        "flash_decode_scores_kernel D64 q bf16 cache bf16",
+        "flash_decode_pv_kernel D16 q f32 cache f32"]
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 20 decode kernels"):
         chip_smoke.decode_report(entries)
 
 
 def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
-    """The f32 prefill body's four instantiations <D, two-term> get a key
+    """The f32 prefill body's eight instantiations <D, two-term> get a key
     each with their SASS counts and LDS per FFMA; the bf16 forward's name
     is not theirs; a spill, a missing instantiation or no LDGSTS fails."""
     names = {
         f"_ZN41_GLOBAL__N__1_flash_attention_cu16flash_fwd_kernelILi{d}ELb{two}"
         f"EEEvPKfS2_S2_PfS3_S3_iiiiiiif": (d, two)
-        for d in (64, 128) for two in (0, 1)}
+        for d in (16, 32, 64, 128) for two in (0, 1)}
     sm90 = "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv"
     ops = ["FFMA"] * 8 + ["LDS.128"] * 2 + ["LDGSTS.E.BYPASS.128"] + ["BAR.SYNC"]
     monkeypatch.setattr(chip_smoke, "sass_functions",
@@ -366,15 +368,16 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
     entries = {name: {"registers": 128, "spill_bytes": 0, "static_smem_bytes": 0}
                for name in [*names, sm90]}
     out = chip_smoke.f32_fwd_report(entries)
-    assert sorted(out) == ["flash_fwd_kernel D128", "flash_fwd_kernel D128 two-term",
-                           "flash_fwd_kernel D64", "flash_fwd_kernel D64 two-term"]
+    assert sorted(out) == sorted(
+        f"flash_fwd_kernel D{d}{two}" for d in (16, 32, 64, 128)
+        for two in ("", " two-term"))
     row = out["flash_fwd_kernel D64"]
     assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (8, 2, 1, 1)
     assert row["lds_per_ffma"] == 0.25 and row["sass_instructions"] == 12
     first = next(iter(names))
     with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
         chip_smoke.f32_fwd_report(entries | {first: entries[first] | {"spill_bytes": 8}})
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 4"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 8"):
         chip_smoke.f32_fwd_report({k: v for k, v in entries.items() if k != first})
     monkeypatch.setattr(chip_smoke, "sass_functions",
                         lambda lib: {name: ops[:-2] for name in names})
@@ -1483,3 +1486,27 @@ def test_chaos_verdict_fails_each_gate(report, fits, leftover, message):
     else:
         with pytest.raises(chip_smoke.SmokeFailure, match=message):
             chip_smoke.chaos_verdict(report, fits, "cpu", leftover)
+
+
+def test_phase_examples_on_the_cpu(store_alarm_guard, etl_clean, monkeypatch):
+    """``phase_examples`` with ``--device cpu`` at the example tests' size:
+    nyctaxi, dlrm_criteo and long_context_lm fit on the CPU with the loss
+    falling and every parameter there, every DLRM forward pass on the CPU,
+    trace_smoke's ``trace ok``, and no launch (the plain versions launch
+    nothing); the environment as it was. The host's segments are not
+    compared here: the suite's other workers make and drop theirs."""
+    monkeypatch.setattr(chip_smoke, "chaos_segments", set)
+    monkeypatch.setenv("EXAMPLE_ROWS", "11")
+    rec = chip_smoke.phase_examples(
+        torch.device("cpu"), argv=["--device", "cpu"],
+        knobs={"EXAMPLE_ROWS": "3000", "EXAMPLE_EPOCHS": "2"})
+    assert set(chip_smoke.EXAMPLES_KEYS) <= set(rec)
+    assert os.environ["EXAMPLE_ROWS"] == "11"
+    assert "EXAMPLE_EPOCHS" not in os.environ
+    assert set(rec["examples"]) == {"nyctaxi", "dlrm_criteo", "long_context_lm"}
+    assert all(r["params_device"] == ["cpu"] for r in rec["examples"].values())
+    dlrm = rec["examples"]["dlrm_criteo"]
+    assert dlrm["forwards"] > 0 and dlrm["forward_devices"] == ["cpu"]
+    assert rec["trace_smoke"]["trace_ok"]
+    assert rec["launches"] == {"interaction_fwd": 0, "flash_fwd_f32": 0,
+                               "flash_decode": 0}

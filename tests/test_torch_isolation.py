@@ -17,7 +17,8 @@
   store imports pyarrow where it reads or writes Arrow, not at import).
 - Entry points with no device on a machine without CUDA raise instead of
   falling back to the CPU (the models, the engine, the replica, the
-  partitioner and the mesh's feeds).
+  partitioner and the mesh's feeds, the chaos runner, and the examples and
+  tools that reach the card), before any session or process starts.
 """
 
 import ast
@@ -77,6 +78,11 @@ def test_port_imports_nothing_of_jax():
             port / "ops" / "embedding.py"} <= set(files)
     assert {port / "spmd" / f"{name}.py" for name in (
         "bootstrap", "job", "elastic", "__init__")} <= set(files)
+    assert {port / "examples" / f"{name}.py" for name in (
+        "__init__", "nyctaxi", "data_process", "dlrm_criteo", "nyctaxi_torch",
+        "nyctaxi_xgboost", "nyctaxi_tf", "spmd_job_example",
+        "long_context_lm")} | {port / "tools" / f"{name}.py" for name in (
+            "__init__", "trace_smoke", "trace_analyze")} <= set(files)
     assert {port / "estimator" / f"{name}.py" for name in (
         "torch_estimator", "xgboost_estimator", "gbdt_native",
         "tf_estimator")} | {port / "submit.py"} <= set(files)
@@ -241,6 +247,70 @@ def test_entry_points_without_device_raise(no_cuda):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def _port_children() -> list:
+    """Children of this process running the port's modules (a head, a
+    zygote, an actor): other test workers' processes are not ours."""
+    mine = []
+    for entry in Path("/proc").iterdir():
+        if not entry.name.isdigit():
+            continue
+        try:
+            stat = (entry / "stat").read_text()
+            cmd = (entry / "cmdline").read_bytes().replace(b"\0", b" ")
+        except OSError:  # gone while we looked
+            continue
+        ppid = int(stat.rsplit(")", 1)[1].split()[1])
+        if ppid == os.getpid() and b"raydp_tpu_torch" in cmd:
+            mine.append(int(entry.name))
+    return mine
+
+
+def test_chaos_runner_without_device_raises_before_a_session(
+        no_cuda, tmp_path, monkeypatch):
+    """``python -m raydp_tpu_torch.chaos --quick`` with no card and no
+    ``--device`` raises before any session or process starts: no session,
+    no child process of the port, the runner's environment untouched and
+    no report written."""
+    from raydp_tpu_torch import chaos
+    from raydp_tpu_torch.cluster import api as cluster_api
+
+    monkeypatch.chdir(tmp_path)
+    for name in ("RAYDP_TPU_SANITIZE", "RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE",
+                 "RAYDP_TPU_DOSSIER_DIR"):
+        monkeypatch.delenv(name, raising=False)
+    assert cluster_api._session_dir is None
+    before = set(_port_children())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chaos.main(["--quick"])
+    assert cluster_api._session_dir is None
+    assert set(_port_children()) <= before
+    assert not {"RAYDP_TPU_SANITIZE", "RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE",
+                "RAYDP_TPU_DOSSIER_DIR"} & set(os.environ)
+    assert not (tmp_path / "chaos_report.json").exists()
+
+
+@pytest.mark.parametrize("module", [
+    "raydp_tpu_torch.examples.nyctaxi", "raydp_tpu_torch.examples.dlrm_criteo",
+    "raydp_tpu_torch.examples.nyctaxi_torch",
+    "raydp_tpu_torch.examples.long_context_lm",
+    "raydp_tpu_torch.tools.trace_smoke"])
+def test_card_scripts_without_device_raise_before_a_session(no_cuda, module):
+    """Each example and tool that reaches the card: ``main([])`` with no
+    card raises before any session, group or child process starts."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from raydp_tpu_torch.cluster import api as cluster_api
+
+    before = set(_port_children())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        importlib.import_module(module).main([])
+    assert cluster_api._session_dir is None
+    assert not dist.is_initialized()
+    assert set(_port_children()) <= before
+
+
 def test_mesh_feeds_without_device_raise(no_cuda):
     """The partitioner and the feeds of a mesh place on the card unless the
     CPU is asked for."""
@@ -268,7 +338,10 @@ def test_cuda_only_paths_refuse_cpu_kernels():
 
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(ValueError):
-        fa._check_head_dim(16, "flash_fwd")
+        fa._check_head_dim(16, "flash_fwd_bf16")
+    with pytest.raises(ValueError):
+        fa._check_head_dim(16, "flash_bwd")
+    fa._check_head_dim(16, "flash_fwd_f32")  # the small LMs' heads
     with pytest.raises(ValueError, match="different devices"):
         fa._on_cpu(q, torch.zeros(1, device="meta"))
     assert fa._on_cpu(q, q)
