@@ -18,16 +18,18 @@ Phases; any failure exits non-zero and prints no result line:
    registers and spills ``ptxas`` reports and the wgmma (``HGMMA`` for
    bf16, ``IGMMA`` for s8) and ``UTMALDG`` (TMA load) instructions
    ``cuobjdump -sass`` finds in the built library (no spill, and both
-   present, or it fails); for the split f32/bf16-cache decode
-   (``flash_decode_scores_kernel`` and ``flash_decode_pv_kernel``, twenty
-   instantiations) its registers, spills and static shared memory (no
+   present, or it fails; the bf16 forward and backward take head dims 8,
+   16 and 32 through their D 64 instantiations); for the split
+   f32/bf16-cache decode (``flash_decode_scores_kernel`` and
+   ``flash_decode_pv_kernel``, forty instantiations: D 8, 16, 32, 64 and
+   128 for each pair of types) its registers, spills and static shared memory (no
    spill, or it fails); for K5 (``quantize_stochastic_rows_kernel``'s two
    register bodies and ``quantize_stochastic_kernel``) and K1
    (``interaction_fwd_kernel``, f32 and bf16) registers, spills, SASS
    instruction counts and K5's instructions per group of 4 elements (no
-   spill, or it fails); for the CUDA-core f32 bodies (the forward's eight
-   ``flash_fwd_kernel`` and the backward's four ``flash_bwd_dq_kernel`` /
-   ``flash_bwd_dkv_kernel`` instantiations) registers, spills and the SASS
+   spill, or it fails); for the CUDA-core f32 bodies (the forward's ten
+   ``flash_fwd_kernel`` and the backward's ten ``flash_bwd_dq_kernel`` /
+   ``flash_bwd_dkv_kernel`` instantiations, D 8 to 128) registers, spills and the SASS
    ``FFMA``/``LDS``/``LDGSTS`` counts (no spill, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
@@ -58,11 +60,14 @@ Phases; any failure exits non-zero and prints no result line:
    (f32, bf16 and int8 caches): kv_len 1, the 32-key tile and 128-key
    block boundaries, capacity and past it, tq 3, a sequence of no live key
    giving exactly 0; decode vs the prefill row for bf16 q/k/v (within
-   ``bf16_limit``, the gap printed); the f32 forward (both bodies) and the
-   f32-cache decode at the small LMs' head dims 16 and 32
+   ``bf16_limit``, the gap printed); every attention family (the forward
+   and the backward in f32 and bf16, K4a over every pair of types, K4b) at
+   head dims 8, 16, 24 (zero-padded to 32) and 32
    (``check_small_heads``: at tools/trace_smoke.py's engine shapes and at
-   [1,2,2048,D], against their plain versions, the decode's edges, and
-   decode == the f32 prefill row bit for bit), and
+   [1,2,2048,D], against their plain versions at the limits above, two
+   launches bitwise, the decodes' edges, decode == the f32 prefill row bit
+   for bit, the bf16 decode row within ``bf16_limit`` of the bf16 prefill
+   row), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
@@ -253,8 +258,9 @@ Phases; any failure exits non-zero and prints no result line:
    16, read from the head before the deployment closed; no ``rtpt-``
    segment of the phase left; an ``{"examples": {...}}`` line with each
    script's seconds (``--examples`` runs this phase alone, with
-   ``phase_leftovers``; ``--small-heads`` runs the f32 forward's and
-   K4a's checks and times at head dims 16 and 32 alone).
+   ``phase_leftovers``; ``--small-heads`` runs phase 1 and every
+   attention family's checks and times at head dims 8, 16, 24 and 32
+   alone).
    Then examples/dlrm_criteo.py's dp x tp fit at the same width
    (``phase_sharded_dlrm``, after phase_store): ``dlrm_sharding_rules``
    and a mesh of ranks; world 1 over NCCL in this process, mesh {"data":
@@ -327,6 +333,19 @@ Phases; any failure exits non-zero and prints no result line:
    rounds, the lead alternating; reported, not gated); and one
    ``torch.library.custom_op`` around K1's wrapper against the raw
    wrapper, 1000 calls by events and by the host's clock.
+   Then the JAX package's small LMs at their own width
+   (``phase_small_lm``, after the f32 training; ``--small-lm`` runs it
+   alone): chaos.py's ``DECODE_LM`` (vocab 64, d_model 32, 2 heads of 16,
+   2 layers) and its 4-head variant (D 8), each trained with
+   ``attn_impl="flash"`` in f32 and in bf16 (batch 2, T 128, 3 Adam steps;
+   one step's loss and gradients against ``attn_impl="full"`` within
+   ``SMALL_LM_LIMITS``; the forward and both backward kernels launching
+   once a layer a step) and served through ``serve.deploy`` from an int8
+   cache and as a bf16 model (4 streams of 12 tokens, each whole; the
+   replicas' ``flash_decode_int8`` / ``flash_decode`` gauges above 0; the
+   int8 tokens that are an f32 engine's counted). A ``{"small_lm":
+   {...}}`` line gives the gaps, the serving seconds and the launches by
+   head dim.
    Then the chaos plane (``phase_chaos``, after the times, before the
    leftovers): under ``RAYDP_TPU_SANITIZE=donation,lockdep,leaks-strict``
    (the environment restored after), ``raydp_tpu_torch.chaos.run`` of
@@ -334,9 +353,12 @@ Phases; any failure exits non-zero and prints no result line:
    ``MLPRegressor``'s widths 256/128/64/16, a streamed fit whose blocks'
    owner is SIGKILLed before it reads them), then
    ``executor_kill_with_service`` (120,000 rows) and ``host_death``
-   (60,000 rows) on the card's host. Required: the fits' parameters on
-   the card and bitwise the unkilled fit's, at least one re-executed
-   task, every scenario's gate, no stranded thread, a clean strict leak
+   (60,000 rows) on the card's host, then ``replica_kill_during_load``
+   and ``replica_kill_during_decode`` with their replicas on the card.
+   Required: the fits' parameters on the card and bitwise the unkilled
+   fit's, at least one re-executed task, every scenario's gate (the model
+   scenarios: no request dropped, responses and tokens bitwise the clean
+   run's, at least one failover, the pool healed), no stranded thread, a clean strict leak
    audit at the cluster's shutdown, no ``rtpt-`` segment of the phase's
    namespaces left. A ``{"chaos": {...}}`` line gives each scenario's
    report and seconds and the donation guard's checks and registered
@@ -373,8 +395,9 @@ Phases; any failure exits non-zero and prints no result line:
 Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
 ``{"moe": {...}}`` line ``phase_moe``, an ``{"etl": {...}}`` line
 ``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``,
-a ``{"small_heads": {...}}`` line the f32 forward and K4a at head dims 16
-and 32 (errors and times), an ``{"examples": {...}}`` line
+a ``{"small_heads": {...}}`` line every attention family at head dims
+8, 16, 24 and 32 (errors and times), a ``{"small_lm": {...}}`` line
+``phase_small_lm``, an ``{"examples": {...}}`` line
 ``phase_examples``, a ``{"deploy": {...}}`` line ``phase_deploy`` and a
 ``{"chaos": {...}}`` line ``phase_chaos``, each
 beside the card's name and power limit. The
@@ -461,12 +484,14 @@ DECODE_BITS_LENS = (1, 31, 32, 33, 127, 128, 129, 2047, 2048)
 # and over a cache whose capacity is a multiple of neither the f32 prefill's
 # 64-row block nor the 32-key tile, with lengths at the block's edges
 DECODE_BITS_ODD = (1000, [63, 64, 65, 999, 1000])
-# the head dims below 64 that the f32 forward and the f32-cache decode take:
-# the small LMs' heads (raydp_tpu_torch/tools/trace_smoke.py's and chaos.py's
-# LM, d_model 32 over 2 heads, is D 16); held at the trace LM's engine shapes
-# (its serve.decode.capacity_tokens 64, 2 heads, up to 4 slots of prompts of
-# 3 tokens and 8 new ones) and at [1, 2, 2048, D]
-SMALL_HEAD_DIMS = (16, 32)
+# head dims below 64, which every attention family takes: the small LMs'
+# heads (raydp_tpu_torch/tools/trace_smoke.py's and chaos.py's LM, d_model
+# 32 over 2 heads, is D 16; over 4 heads, as the JAX package's
+# tests/test_models_parallel.py runs attn_impl="flash", D 8), D 32, and D 24,
+# for which no kernel is built: it runs zero-padded to 32. Held at the trace
+# LM's engine shapes (its serve.decode.capacity_tokens 64, 2 heads, up to 4
+# slots of prompts of 3 tokens and 8 new ones) and at [1, 2, 2048, D]
+SMALL_HEAD_DIMS = (8, 16, 24, 32)
 TRACE_LM = dict(heads=2, capacity=64, decode_lens=[1, 4, 11, 64])
 SMALL_HEADS_T = 2048
 SEED = 0
@@ -832,7 +857,7 @@ def sm90_report(entries: dict) -> dict:
 # ptxas's mangled names (a repeated bf16 is a substitution, S..._)
 DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)EEv")
 DECODE_TYPES = re.compile(r"f|13__nv_bfloat16|S\d*_")
-DECODE_INSTANTIATIONS = 20  # D 64/128 x 4 type pairs, D 16/32 f32 only
+DECODE_INSTANTIATIONS = 40  # D 8/16/32/64/128 x 4 type pairs x 2 kernels
 
 
 def _decode_key(found: re.Match) -> str:
@@ -843,9 +868,9 @@ def _decode_key(found: re.Match) -> str:
 
 def decode_report(entries: dict) -> dict:
     """The split decode's instantiations among ptxas's ``entries`` (scores
-    and p.v kernels at D 64 and 128, f32 and bf16 q and cache, and at D 16
-    and 32 for f32 q and cache): registers,
-    spills and static shared memory. Fails on a spill or a missing one."""
+    and p.v kernels at D 8, 16, 32, 64 and 128, f32 and bf16 q and cache):
+    registers, spills and static shared memory. Fails on a spill or a
+    missing one."""
     out = {_decode_key(found): row for name, row in entries.items()
            if (found := DECODE_KERNEL.search(name))}
     log(f"decode kernels (ptxas): {out}")
@@ -862,7 +887,7 @@ def decode_report(entries: dict) -> dict:
 # (expf's exp2)
 F32_FWD_KERNEL = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E")
 F32_FWD_SASS_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "MUFU")
-F32_FWD_INSTANTIATIONS = 8  # D 16, 32, 64, 128 x one-pass, two-term
+F32_FWD_INSTANTIATIONS = 10  # D 8, 16, 32, 64, 128 x one-pass, two-term
 
 
 def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
@@ -893,7 +918,7 @@ def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
 
 
 def f32_fwd_report(entries: dict) -> dict:
-    """The f32 prefill body's instantiations (D 16, 32, 64 and 128,
+    """The f32 prefill body's instantiations (D 8, 16, 32, 64 and 128,
     one-pass and two-term) through ``cuda_core_report``."""
     return cuda_core_report(
         entries, F32_FWD_KERNEL,
@@ -903,14 +928,15 @@ def f32_fwd_report(entries: dict) -> dict:
 
 
 # the f32 backward's instantiations <D> in ptxas's mangled names (dq and
-# dk/dv, D 64 and 128); the bf16 bodies are flash_bwd_*_sm90_kernel
+# dk/dv, D 8, 16, 32, 64 and 128); the bf16 bodies are
+# flash_bwd_*_sm90_kernel
 F32_BWD_KERNEL = re.compile(r"flash_bwd_(dq|dkv)_kernelILi(\d+)EE")
-F32_BWD_INSTANTIATIONS = 4
+F32_BWD_INSTANTIATIONS = 10
 
 
 def f32_bwd_report(entries: dict) -> dict:
-    """The f32 backward's instantiations (dq and dk/dv, D 64 and 128)
-    through ``cuda_core_report``."""
+    """The f32 backward's instantiations (dq and dk/dv, D 8, 16, 32, 64 and
+    128) through ``cuda_core_report``."""
     return cuda_core_report(
         entries, F32_BWD_KERNEL,
         lambda found: f"flash_bwd_{found.group(1)}_kernel D{found.group(2)}",
@@ -1233,43 +1259,95 @@ def check_decode_edges(gen, device, heads, t, d, cache: str,
     return out
 
 
-def check_small_heads(gen, device) -> dict:
-    """K2a's f32 body (one-pass and two-term) and K4a from an f32 cache at
-    the small LMs' head dims (``SMALL_HEAD_DIMS``: tools/trace_smoke.py's
-    and chaos.py's LM, d_model 32 over 2 heads, is D 16), at the trace
-    LM's engine shapes (a causal prefill of [1, 2, capacity 64]; decode
-    rows of 4 slots against that capacity) and at [1, 2, 2048, D]:
+def small_head_family(key: str) -> str:
+    """The kernel family a check of ``check_small_heads`` holds, from its
+    key: the forward (``flash_fwd_f32`` for f32, ``flash_fwd`` for bf16, both
+    bodies), dq and dk/dv (f32 ``_f32``, bf16 without), K4a
+    (``flash_decode``, every pair of types) and K4b
+    (``flash_decode_int8``)."""
+    f32 = "float32" in key
+    for name in ("flash_decode_int8", "flash_decode", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        if key.startswith(name):
+            return name + "_f32" if name.startswith("flash_bwd") and f32 else name
+    return "flash_fwd_f32" if f32 else "flash_fwd"
 
-    - the forward through ``check_forward`` (o within 1e-5 of the plain
-      version, m and l allclose, two launches and the two bodies bitwise),
-      causal and not, a ragged Tk and the stats surface with offsets;
-    - the decode within 1e-5 of its plain version, two launches bitwise,
-      its edge cases (f32 q), and bit for bit the f32 prefill row at its
-      position at every tile boundary within the capacity, tq 1 and 3."""
+
+def small_head_backward_cases(heads, t, cap) -> tuple:
+    """The backward's cases at the small heads, (q shape without D, Tk,
+    q_off, k_off, causal): the trace LM's prefill (capacity 64) and [1, 2,
+    2048] causal; T 200 against Tk 136, not causal (off the 64-key tiles);
+    q_off < k_off, rows with no live key."""
+    return (((1, heads, cap), cap, 0, 0, True),
+            ((1, heads, t), t, 0, 0, True),
+            ((1, heads, 200), 136, 0, 0, False),
+            ((1, heads, 512), 512, 0, 300, True))
+
+
+def check_small_heads(gen, device) -> dict:
+    """Every attention family at the small LMs' head dims
+    (``SMALL_HEAD_DIMS``: chaos.py's and tools/trace_smoke.py's LM, d_model
+    32 over 2 heads, is D 16, over 4 heads D 8; D 24 runs zero-padded to
+    32), at the trace LM's engine shapes (a causal prefill of [1, 2,
+    capacity 64]; decode rows of 4 slots against that capacity) and at [1,
+    2, 2048, D], each against its plain version and bitwise over two
+    launches:
+
+    - the forward, f32 (CUDA-core body) and bf16 (tensor-core body), both
+      bodies, through ``check_forward`` (f32 o within 1e-5, bf16 within
+      ``bf16_limit``; m and l allclose; the two bodies bitwise), causal and
+      not, a ragged Tk and the stats surface with offsets;
+    - the backward, f32 (within 1e-4) and bf16 (within ``bf16_bwd_limit``),
+      through ``check_bwd`` (``small_head_backward_cases``), rows with no
+      live key getting dq 0;
+    - K4a: f32 and bf16 q from an f32 cache within 1e-5 / ``bf16_decode_limit``;
+      bit for bit the f32 prefill row at its position at every tile
+      boundary within the capacity, tq 1 and 3; bf16 q equal to f32 q
+      rounded after and a bf16 cache to that cache as f32, bit for bit; its
+      edge cases from f32 and bf16 caches, f32 and bf16 q; a bf16 decode
+      row within ``bf16_limit`` of the bf16 prefill row (``decode_gap_bf16``);
+    - K4b: against K4a on the dequantized cache and its plain version, f32
+      and bf16 q, and its edge cases.
+
+    ``worst`` holds, per family and head dim, the largest |kernel - plain|
+    and (bf16) the largest |kernel - plain| / limit."""
     out, worst = {}, {}
     heads, cap = TRACE_LM["heads"], TRACE_LM["capacity"]
     t = SMALL_HEADS_T
+
+    def fold(d, checks):
+        for key, value in checks.items():
+            out[f"D{d} {key}"] = value
+            row = worst.setdefault(f"{small_head_family(key)} D{d}", {})
+            kind = "limit_ratio" if key.endswith("limit_ratio") else "max_abs_err"
+            row[kind] = max(row.get(kind, 0.0), value)
+
     for d in SMALL_HEAD_DIMS:
-        fwd = forward_cases(gen, device, torch.float32, (
-            ((1, heads, cap, d), cap, 0, 0, True, True),
-            ((1, heads, t, d), t, 0, 0, True, True),
-            ((1, heads, t, d), t, 0, 0, False, True),
-            ((1, heads, 200, d), 136, 0, 0, True, True),
-            ((1, heads, 512, d), 812, 300, 0, True, False),
-            ((1, heads, 512, d), 512, 0, 300, True, True)))
-        dec = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            fold(d, forward_cases(gen, device, dtype, (
+                ((1, heads, cap, d), cap, 0, 0, True, True),
+                ((1, heads, t, d), t, 0, 0, True, True),
+                ((1, heads, t, d), t, 0, 0, False, True),
+                ((1, heads, 200, d), 136, 0, 0, True, True),
+                ((1, heads, 512, d), 812, 300, 0, True, False),
+                ((1, heads, 512, d), 512, 0, 300, True, True))))
+            fold(d, check_backward_cases(gen, device, heads, dtype, [
+                ((*shape, d), tk, q_off, k_off, causal) for
+                shape, tk, q_off, k_off, causal in
+                small_head_backward_cases(heads, t, cap)]))
         for cap_t, lens in ((cap, TRACE_LM["decode_lens"]), (t, DECODE_LENS)):
-            dec.update(check_decode(gen, device, heads, cap_t, d, lens,
-                                    dtypes=(torch.float32,), int8=False))
-            dec.update(check_decode_bits(gen, device, heads, cap_t, lens,
-                                         dims=(d,), bf16=False))
-        dec.update(check_decode_edges(gen, device, heads, t, d, "f32",
-                                      q_dtypes=(torch.float32,)))
-        out.update({f"D{d} {k}": v for k, v in {**fwd, **dec}.items()})
-        worst[f"flash_fwd_f32 D{d}"] = max(fwd.values())
-        worst[f"flash_decode D{d}"] = max(dec.values())
+            fold(d, check_decode(gen, device, heads, cap_t, d, lens))
+            fold(d, check_decode_bits(gen, device, heads, cap_t, lens,
+                                      dims=(d,)))
+        for cache in ("f32", "bf16", "int8"):
+            fold(d, check_decode_edges(gen, device, heads, t, d, cache))
+        qf, kf, vf = (_randn(gen, (1, heads, t, d), torch.float32, device)
+                      for _ in range(3))
+        out[f"D{d} decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf,
+                                                              DECODE_LENS)
     out["worst"] = worst
-    log(f"small head dims {SMALL_HEAD_DIMS}: worst |kernel - plain| {worst}")
+    log(f"small head dims {SMALL_HEAD_DIMS}: worst |kernel - plain| (and "
+        f"bf16 |kernel - plain| / limit) {worst}")
     return out
 
 
@@ -1840,12 +1918,12 @@ def backward_cases(heads) -> tuple:
             ((1, heads, 512, 64), 512, 0, 300, True))
 
 
-def check_backward_cases(gen, device, heads, dtype) -> dict:
-    """``backward_cases`` in ``dtype`` through check_bwd (its limit for the
-    dtype, two launches bitwise); the rows with no live key must get dq of
-    exactly 0."""
+def check_backward_cases(gen, device, heads, dtype, cases=None) -> dict:
+    """``cases`` (default ``backward_cases``) in ``dtype`` through
+    check_bwd (its limit for the dtype, two launches bitwise); the rows
+    with no live key must get dq of exactly 0."""
     out = {}
-    for shape, tk, q_off, k_off, causal in backward_cases(heads):
+    for shape, tk, q_off, k_off, causal in cases or backward_cases(heads):
         b, h, t, d = shape
         args = bwd_inputs(gen, shape, dtype, device, q_off, k_off, causal, tk)
         case = (f"{str(dtype)[6:]} [{b},{h},{t},{d}] tk={tk} causal={causal} "
@@ -3016,6 +3094,237 @@ def phase_train_f32(device) -> dict:
         f"{prof_out['port_kernel_ms']} ms")
     del model, opt
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase_small_lm: the JAX package's small LMs at their own width on the card
+# ---------------------------------------------------------------------------
+
+# raydp_tpu_torch/chaos.py's DECODE_LM (tools/chaos.py's and
+# tools/trace_smoke.py's width: vocab 64, d_model 32, 2 heads of 16, 2 layers)
+# and its 4-head variant, D 8 (tests/test_models_parallel.py runs
+# attn_impl="flash" at d_model 32 over 4 heads); keyed by head count
+SMALL_LM_HEADS = (2, 4)
+# training: tests/test_torch_training.py's batch, T 128 (the JAX flash test's
+# length), 3 Adam steps at bench.py's 3e-4; serving: the chaos decode
+# scenario's engine (capacity 128, pages of 32, 4 slots) and streams (4
+# prompts of 3-9 tokens, 12 new tokens each)
+SMALL_LM = dict(batch=2, seq=128, steps=3, lr=3e-4, streams=4, max_new=12,
+                capacity=128, page=32, prompt_seed=29)
+# flash against attn_impl="full" from the same weights: f32 at
+# phase_train_f32's bounds; bf16 at grad_check's (each side rounds its
+# activations to bf16, the flash kernels p and ds too)
+SMALL_LM_LIMITS = {torch.float32: (1e-6, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+SMALL_LM_LIMIT_S = 240.0  # the whole phase
+
+
+def small_lm_config(heads: int) -> dict:
+    from raydp_tpu_torch import chaos
+
+    return dict(chaos.DECODE_LM, num_heads=heads)
+
+
+def small_lm_train(device, cfg: dict, dtype) -> dict:
+    """One step's loss and gradients with ``attn_impl="flash"`` against
+    ``attn_impl="full"`` from the same seeded weights (``SMALL_LM_LIMITS``:
+    loss relative, worst per-tensor gradient relative), then
+    ``SMALL_LM["steps"]`` Adam steps with flash, the counts zeroed just
+    before and read just after: the forward and both backward kernels
+    launch once a layer a step on the card, never on the CPU."""
+    b, t = SMALL_LM["batch"], SMALL_LM["seq"]
+    tokens, targets = train_tokens(b, t, cfg["vocab_size"], device)
+
+    def model(impl):
+        return TransformerLM(**cfg, attn_impl=impl, dtype=dtype, device=device,
+                             seed=SEED)
+
+    ref_loss, ref_grads = loss_and_grads(model("full"), tokens, targets)
+    flash = model("flash")
+    loss, grads = loss_and_grads(flash, tokens, targets)
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst, _ = grad_gap(grads, ref_grads)
+    loss_limit, grad_limit = SMALL_LM_LIMITS[dtype]
+    flash.zero_grad(set_to_none=True)
+    opt = torch.optim.Adam(flash.parameters(), lr=SMALL_LM["lr"])
+    fa.reset_launches()
+    losses = [train_step(flash, opt, tokens, targets)
+              for _ in range(SMALL_LM["steps"])]
+    losses = [float(x) for x in losses]
+    launches = dict(fa.LAUNCHES)
+    kind = str(dtype)[6:]
+    fwd = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd"
+    want = cfg["num_layers"] * SMALL_LM["steps"] if device.type == "cuda" else 0
+    per_run = {n: launches[n] for n in (fwd, "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"small LM D{cfg['d_model'] // cfg['num_heads']} {kind}: flash vs "
+        f"full loss rel {loss_rel:.3e} (limit {loss_limit}), worst grad rel "
+        f"{worst:.3e} (limit {grad_limit}); {SMALL_LM['steps']} Adam steps "
+        f"{losses}; launches {per_run}")
+    require(loss_rel <= loss_limit and worst <= grad_limit,
+            f"the small LM's {kind} flash step disagrees with attn_impl='full'")
+    require(all(math.isfinite(x) for x in losses), "small LM loss not finite")
+    require(all(n == want for n in per_run.values()),
+            f"small LM {kind} launches {per_run}, expected {want} each")
+    # by the kernels line's names: the f32 backward pair is its own entry
+    suffix = "_f32" if dtype == torch.float32 else ""
+    return {"loss_rel": loss_rel, "worst_grad_rel": worst, "losses": losses,
+            "launches": {n + (suffix if n.startswith("flash_bwd") else ""): k
+                         for n, k in launches.items() if k}}
+
+
+def small_lm_serve(device, cfg: dict, workdir: Path) -> dict:
+    """Decode serving of the LM through ``serve.deploy`` (one replica,
+    ``serve.decode.enabled``): the f32 model on an int8 cache
+    (``serve.decode.int8_kv``) and the bf16 model (on the engine's f32
+    cache, as in the JAX package), each stream to its whole token budget;
+    the replicas' ``ops.launches.*`` gauges, read from the head before the
+    deployment closes (K4b in the first, K4a in the second: > 0 on the
+    card, 0 on the CPU). The f32 model's tokens from a ``DecodeEngine`` in
+    this process are the reference the int8 tokens are counted against
+    (reported, not gated: an int8 cache changes the logits)."""
+    from raydp_tpu_torch import serve
+    from raydp_tpu_torch.estimator import checkpoint as ckpt
+
+    vocab, max_new = cfg["vocab_size"], SMALL_LM["max_new"]
+    rng = np.random.default_rng(SMALL_LM["prompt_seed"])
+    prompts = [[int(x) for x in rng.integers(0, vocab, rng.integers(3, 10))]
+               for _ in range(SMALL_LM["streams"])]
+    engine = dict(capacity_tokens=SMALL_LM["capacity"],
+                  page_tokens=SMALL_LM["page"], max_seqs=SMALL_LM["streams"],
+                  max_new_tokens=max_new)
+    conf = {"serve.decode.enabled": True,
+            "serve.decode.capacity_tokens": SMALL_LM["capacity"],
+            "serve.decode.page_tokens": SMALL_LM["page"],
+            "serve.decode.max_seqs": SMALL_LM["streams"],
+            "serve.decode.max_new_tokens": max_new}
+    head_dim = cfg["d_model"] // cfg["num_heads"]
+    on_card = device.type == "cuda"
+    with DecodeEngine(TransformerLM(**cfg, attn_impl="flash",
+                                    dtype=torch.float32, device=device,
+                                    seed=SEED),
+                      device=device, **engine) as eng:
+        sids = [eng.submit(p, max_new) for p in prompts]
+        reference = drain_streams(eng, sids, 120.0)
+        reference = [reference[sid] for sid in sids]
+    out = {"prompts": prompts, "f32_engine_tokens": reference}
+    for leg, dtype, int8, kernel in (("int8", torch.float32, True, "flash_decode_int8"),
+                                     ("bf16", torch.bfloat16, False, "flash_decode")):
+        model = functools.partial(TransformerLM, **cfg, attn_impl="flash",
+                                  dtype=dtype, seed=SEED)
+        directory = workdir / f"D{head_dim}-{leg}"
+        weights = model(device="cpu")
+        ckpt.save_checkpoint(str(directory), 0, None, weights,
+                             torch.optim.Adam(weights.parameters()))
+        t0 = time.perf_counter()
+        dep = serve.deploy(model=model, checkpoint_dir=str(directory),
+                           replicas=1, device=device,
+                           conf=conf | {"serve.decode.int8_kv": int8})
+        try:
+            tokens = [list(dep.stream(p, max_new, timeout=120)) for p in prompts]
+            launches = {}
+            for counts in _replica_launches(dep).values():
+                _add_launches(launches, counts)
+        finally:
+            dep.close()
+        counts = [len(x) for x in tokens]
+        row = {"seconds": time.perf_counter() - t0, "tokens": tokens,
+               "launches": {n: k for n, k in launches.items() if k}}
+        if int8:
+            row["tokens_as_f32"] = sum(a == b for got, ref in zip(tokens, reference)
+                                       for a, b in zip(got, ref))
+        log(f"small LM D{head_dim} serving, {leg}: {row['seconds']:.2f} s, "
+            f"tokens a stream {counts}, replica launches {row['launches']}"
+            + (f", {row['tokens_as_f32']} of {sum(counts)} tokens as the f32 "
+               "engine's" if int8 else ""))
+        require(counts == [max_new] * len(prompts),
+                f"small LM {leg} streams ended early: {counts}")
+        require(all(0 <= x < vocab for toks in tokens for x in toks),
+                f"small LM {leg}: token out of vocabulary")
+        require((launches.get(kernel, 0) > 0) == on_card,
+                f"small LM {leg}: the replica launched {launches}")
+        out[leg] = row
+    return out
+
+
+def phase_small_lm(device) -> dict:
+    """The JAX package's small LMs at their full width on the card
+    (``small_lm_config``: D 16 and D 8): each trained with
+    ``attn_impl="flash"`` in f32 and in bf16 (``small_lm_train``), then
+    served from an int8 cache and as a bf16 model (``small_lm_serve``) in
+    a cluster of the port (``DEPLOY_CLUSTER``, a
+    session-local zygote, the session's own shm namespace, shut down at the
+    end). ``launches_by_head_dim`` sums each head dim's launches over the
+    training steps and the replicas. The whole phase takes at most
+    ``SMALL_LM_LIMIT_S``."""
+    from raydp_tpu_torch import cluster
+    from raydp_tpu_torch.cluster import api as capi
+    from raydp_tpu_torch.cluster.common import SHM_NS_ENV
+    from raydp_tpu_torch.cluster.zygote import WARM_TORCH_ENV
+
+    t0 = time.perf_counter()
+    workdir = BUILD_DIR / "small_lm"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    configs = {f"D{cfg['d_model'] // cfg['num_heads']}": cfg
+               for cfg in map(small_lm_config, SMALL_LM_HEADS)}
+    rec: dict = {"lms": {name: {"config": cfg} | {
+        str(dtype)[6:]: small_lm_train(device, cfg, dtype)
+        for dtype in (torch.float32, torch.bfloat16)}
+        for name, cfg in configs.items()}}
+    armed = {"RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", WARM_TORCH_ENV: "1",
+             SHM_NS_ENV: f"smalllm{os.getpid()}"}
+    saved_env = {key: os.environ.get(key) for key in armed}
+    os.environ.update(armed)
+    try:
+        session = cluster.init(**DEPLOY_CLUSTER)
+        _wait_for(lambda: _zygote_serves(session), 30.0, "the zygote's warm-up")
+        for name, cfg in configs.items():
+            rec["lms"][name]["serving"] = small_lm_serve(device, cfg, workdir)
+        cluster.shutdown()
+        require(not _rtpt_segments(),
+                f"segments left after shutdown: {sorted(_rtpt_segments())}")
+    finally:
+        if capi.is_initialized():
+            cluster.shutdown()
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    rec["launches_by_head_dim"] = {}
+    for name, lm_rec in rec["lms"].items():
+        total: dict = {}
+        for counts in (lm_rec["float32"]["launches"],
+                       lm_rec["bfloat16"]["launches"],
+                       lm_rec["serving"]["int8"]["launches"],
+                       lm_rec["serving"]["bf16"]["launches"]):
+            _add_launches(total, counts)
+        rec["launches_by_head_dim"][name[1:]] = total
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"small LMs: {rec['seconds']:.1f} s; launches by head dim "
+        f"{rec['launches_by_head_dim']}")
+    require(rec["seconds"] <= SMALL_LM_LIMIT_S,
+            f"phase_small_lm took {rec['seconds']:.1f} s")
+    return rec
+
+
+def small_lm_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The ``{"small_lm": {...}}`` line: per LM, the flash step's gaps to
+    ``attn_impl="full"`` in f32 and bf16, the serving legs' seconds, the
+    int8 tokens that are the f32 engine's and the launches by head dim,
+    beside the card's name and power limit."""
+    out = {}
+    for name, lm_rec in rec["lms"].items():
+        row = {kind: {k: lm_rec[kind][k] for k in ("loss_rel", "worst_grad_rel")}
+               for kind in ("float32", "bfloat16")}
+        serving = lm_rec["serving"]
+        row["serving_s"] = {leg: serving[leg]["seconds"]
+                            for leg in ("int8", "bf16")}
+        row["int8_tokens_as_f32"] = serving["int8"]["tokens_as_f32"]
+        out[name] = row
+    return {"small_lm": out | {
+        "seconds": rec["seconds"],
+        "launches_by_head_dim": rec["launches_by_head_dim"]},
+        "nvidia_smi": nvidia_smi}
 
 
 # ---------------------------------------------------------------------------
@@ -7651,66 +7960,112 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
 
 
 def small_head_times(device) -> dict:
-    """K2a's f32 body and K4a (f32 q, f32 cache) at the small LMs' head
-    dims, ``flash_fwd_f32 D<d>`` and ``flash_decode D<d>``: the prefill
-    q/k/v [1, 2, 2048, D] causal through ``flash_attention``, and decode
-    rows q [4, 2, 1, D] against an f32 cache [4, 2, 2048, D] at the serving
-    lengths, each beside its plain version, SDPA in f32 (the decode's with
-    a length mask) and its bound (operations at the f32 peak, or bytes)."""
+    """Every attention family at the small LMs' head dims
+    (``SMALL_HEAD_DIMS``; D 24 zero-padded to 32, the padding's copies
+    counted in its times), each row named ``<kernel> D<d>``: the forward
+    (``flash_fwd_f32`` f32, ``flash_fwd`` bf16) on q/k/v [1, 2, 2048, D]
+    causal through ``flash_attention``, beside SDPA in the same type; the
+    backward pair (``flash_bwd_dq_f32`` / ``flash_bwd_dkv_f32`` f32,
+    ``flash_bwd_dq`` / ``flash_bwd_dkv`` bf16) on the same shape, beside
+    SDPA's backward (forward+backward less forward, the same figure on both
+    rows); K4a (``flash_decode``, f32 q and cache) and K4b
+    (``flash_decode_int8``, f32 q) on decode rows q [4, 2, 1, D] against a
+    cache [4, 2, 2048, D] at the serving lengths, beside SDPA with a length
+    mask (K4a; none for K4b). Each row: CUDA events (10 calls a sample,
+    median of five), the profiler's device time (20 calls), the plain
+    version once after a warm call, and the bound (operations at the
+    type's peak, or bytes)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     heads, t = TRACE_LM["heads"], SMALL_HEADS_T
+    pairs = heads * t * (t + 1) // 2
+    b = len(DECODE_LENS)
+    kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    mask = (torch.arange(t, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows = sum(min(n, t) for n in DECODE_LENS) * heads
     out = {}
+
+    def row(shape, fn, plain, library, library_device, n_bytes, ops, op_type):
+        bound = _bound(n_bytes, ops, op_type)
+        return {"shape": shape, "ms": time_ms(fn, iters=10, reps=5),
+                "device_ms": device_ms(fn, calls=20),
+                "plain_ms": time_ms(plain, iters=1, reps=1, warm=1),
+                "library_ms": None if library is None else time_ms(
+                    library, iters=10, reps=5),
+                "library_device_ms": library_device,
+                "bound_ms": bound[0], "bound_by": bound[1], "ops": ops}
+
     for d in SMALL_HEAD_DIMS:
-        q, k, v = (_randn(gen, (1, heads, t, d), torch.float32, device)
-                   for _ in range(3))
-        pairs = heads * t * (t + 1) // 2
-        bound = _bound(4 * q.numel() * 4 + 2 * heads * t * 4, 4 * d * pairs,
-                       "f32")
+        for dtype, fwd_name, bwd_suffix in ((torch.float32, "flash_fwd_f32", "_f32"),
+                                            (torch.bfloat16, "flash_fwd", "")):
+            size = 2 if dtype == torch.bfloat16 else 4
+            kind = "bf16" if dtype == torch.bfloat16 else "f32"
+            shape = f"q/k/v [1,{heads},{t},{d}] {kind} causal"
+            q, k, v, lse, dsum, g = bwd_inputs(gen, (1, heads, t, d), dtype,
+                                               device)
+            elems = q.numel()
 
-        def fwd(q=q, k=k, v=v):
-            return fa.flash_attention(q, k, v, causal=True)
+            def sdpa(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-        def sdpa(q=q, k=k, v=v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out[f"{fwd_name} D{d}"] = row(
+                shape, lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True),
+                lambda q=q, k=k, v=v: fa.flash_attention_call_plain(
+                    q, k, v, 0, 0, True, True),
+                sdpa, device_ms(sdpa, calls=20),
+                4 * elems * size + 2 * heads * t * 4, 4 * d * pairs, kind)
+            qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
 
-        out[f"flash_fwd_f32 D{d}"] = {
-            "shape": f"q/k/v [1,{heads},{t},{d}] f32 causal",
-            "ms": time_ms(fwd), "device_ms": device_ms(fwd),
-            "plain_ms": time_ms(lambda q=q, k=k, v=v:
-                                fa.flash_attention_call_plain(
-                                    q, k, v, 0, 0, True, True),
-                                iters=3, reps=3),
-            "library_ms": time_ms(sdpa), "library_device_ms": device_ms(sdpa),
-            "bound_ms": bound[0], "bound_by": bound[1], "ops": 4 * d * pairs,
-        }
-        b = len(DECODE_LENS)
-        kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+            def sdpa_fwd(qr=qr, kr=kr, vr=vr):
+                return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+            def sdpa_fwd_bwd(qr=qr, kr=kr, vr=vr, g=g, sdpa_fwd=sdpa_fwd):
+                torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
+
+            pair_ms = (time_ms(sdpa_fwd_bwd, iters=10, reps=5)
+                       - time_ms(sdpa_fwd, iters=10, reps=5))
+            both, fwd_only = (device_ms(sdpa_fwd_bwd, calls=20),
+                              device_ms(sdpa_fwd, calls=20))
+            args = (q, k, v, lse, dsum, g, 0, 0, True)
+            for key, fn, plain, n_out, ops in (
+                ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+                ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+            ):
+                name = f"{key}{bwd_suffix} D{d}"
+                out[name] = row(
+                    shape, lambda fn=fn, args=args: fn(*args),
+                    lambda plain=plain, args=args: plain(*args), None,
+                    None if None in (both, fwd_only) else both - fwd_only,
+                    (4 + n_out) * elems * size + 2 * heads * t * 4,
+                    ops * d * pairs, kind)
+                out[name]["library_ms"] = pair_ms
+                out[name]["library"] = "pair"
         qd = _randn(gen, (b, heads, 1, d), torch.float32, device)
         kc, vc = (_randn(gen, (b, heads, t, d), torch.float32, device)
                   for _ in range(2))
-        rows = sum(min(n, t) for n in DECODE_LENS) * heads
-        mask = (torch.arange(t, device=device)[None, :]
-                < kv_len[:, None])[:, None, None, :]
-        bound = _bound(rows * d * 2 * 4 + 2 * qd.numel() * 4 + b * 4,
-                       4 * d * rows, "f32")
+        io_bytes = 2 * qd.numel() * 4 + b * 4
 
-        def decode(qd=qd, kc=kc, vc=vc):
-            return fa.flash_decode(qd, kc, vc, kv_len)
-
-        def decode_sdpa(qd=qd, kc=kc, vc=vc, mask=mask):
+        def decode_sdpa(qd=qd, kc=kc, vc=vc):
             return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask)
 
-        out[f"flash_decode D{d}"] = {
-            "shape": (f"q [{b},{heads},1,{d}] f32, f32 cache "
-                      f"[{b},{heads},{t},{d}], kv_len {DECODE_LENS}"),
-            "ms": time_ms(decode), "device_ms": device_ms(decode),
-            "plain_ms": time_ms(lambda qd=qd, kc=kc, vc=vc:
-                                fa.flash_decode_plain(qd, kc, vc, kv_len),
-                                iters=3, reps=3),
-            "library_ms": time_ms(decode_sdpa),
-            "library_device_ms": device_ms(decode_sdpa),
-            "bound_ms": bound[0], "bound_by": bound[1],
-        }
+        out[f"flash_decode D{d}"] = row(
+            (f"q [{b},{heads},1,{d}] f32, f32 cache [{b},{heads},{t},{d}], "
+             f"kv_len {DECODE_LENS}"),
+            lambda qd=qd, kc=kc, vc=vc: fa.flash_decode(qd, kc, vc, kv_len),
+            lambda qd=qd, kc=kc, vc=vc: fa.flash_decode_plain(qd, kc, vc, kv_len),
+            decode_sdpa, device_ms(decode_sdpa, calls=20),
+            rows * d * 2 * 4 + io_bytes, 4 * d * rows, "f32")
+        k8, ks = quantize_int8(kc)
+        v8, vs = quantize_int8(vc)
+        ks, vs = ks[..., 0], vs[..., 0]
+        out[f"flash_decode_int8 D{d}"] = row(
+            (f"q [{b},{heads},1,{d}] f32, int8 cache + f32 row scales, "
+             f"kv_len {DECODE_LENS}"),
+            lambda qd=qd, k8=k8, v8=v8, ks=ks, vs=vs: fa.flash_decode(
+                qd, k8, v8, kv_len, k_scale=ks, v_scale=vs),
+            lambda qd=qd, k8=k8, v8=v8, ks=ks, vs=vs: fa.flash_decode_plain(
+                qd, k8, v8, kv_len, ks, vs),
+            None, None, rows * (d + 4) * 2 + io_bytes, 4 * d * rows, "f32")
     return out
 
 
@@ -8146,7 +8501,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  dlrm: dict, trained_int8: dict, stochastic: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
                  etl: dict, seqpar: dict, sharded: dict,
-                 pipelined: dict, estimators: dict, examples: dict) -> dict:
+                 pipelined: dict, estimators: dict, examples: dict,
+                 small_lm: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -8166,8 +8522,11 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     quantize_int8_stochastic), plus the launches phase_deploy's replicas
     made (K1, flash_fwd_f32 for the f32 model and flash_fwd for the bf16
     one, the decode kernels and quantize_int8, counted in the replica
-    processes alive at each read), and those of phase_examples' trace_smoke
-    replica (flash_fwd_f32 and flash_decode at head dim 16). A count is of wrapper calls that launched
+    processes alive at each read), those of phase_examples' trace_smoke
+    replica (flash_fwd_f32 and flash_decode at head dim 16) and those of
+    phase_small_lm (its training steps and its replicas, at head dims 16
+    and 8), which each attention kernel's ``launches_by_head_dim`` splits
+    out from the rest (head dim 128). A count is of wrapper calls that launched
     the kernel: each flash_decode call is two launches (its scores kernel,
     then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
     (flash_fwd: the larger of serving's and training's; flash_fwd_f32 at
@@ -8206,6 +8565,19 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
             launches[name] += n
     for name, n in examples["launches"].items():
         launches[name] += n
+    small = small_lm["launches_by_head_dim"]
+    for counts in small.values():
+        for name, n in counts.items():
+            if name in launches:
+                launches[name] += n
+    by_head_dim = {}
+    for name in launches:
+        if not name.startswith("flash_"):
+            continue
+        by = {d: counts.get(name, 0) for d, counts in small.items()}
+        by["16"] = by.get("16", 0) + examples["launches"].get(name, 0)
+        by["128"] = launches[name] - sum(by.values())
+        by_head_dim[name] = by
     case = "bfloat16 causal=True offsets=(0,0)"
     train = "train [{batch},{heads},{seq},{d}] bfloat16 causal=True".format(
         heads=MODEL["num_heads"], d=MODEL["d_model"] // MODEL["num_heads"],
@@ -8243,21 +8615,24 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
          # the profiler's device time, beside the CUDA-event times above;
          # null where it was not measured or the profiler saw none
          **{f"{key}device_ms": times[name].get(f"{key}device_ms")
-            for key in ("", "plain_", "library_")}}
+            for key in ("", "plain_", "library_")},
+         **({"launches_by_head_dim": by_head_dim[name]}
+            if name in by_head_dim else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}
 
 
 def small_heads_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
-    """The ``{"small_heads": {...}}`` line: K2a's f32 body and K4a at head
-    dims 16 and 32, each one's worst error against its plain version over
-    ``check_small_heads`` and its times at [.., 2048, D], beside the card's
-    name and power limit."""
+    """The ``{"small_heads": {...}}`` line: every attention family at the
+    head dims of ``SMALL_HEAD_DIMS``, each one's worst error against its
+    plain version over ``check_small_heads`` (and, bf16, its worst error
+    over its limit) and its times at [.., 2048, D] (``small_head_times``),
+    beside the card's name and power limit."""
     out = {}
-    for name, err in checks["worst"].items():
-        out[name] = {k: times[name].get(k) for k in (
+    for name, worst in checks["worst"].items():
+        out[name] = {k: times.get(name, {}).get(k) for k in (
             "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by")} | {"max_abs_err": err}
+            "bound_ms", "bound_by")} | worst
     return {"small_heads": out, "nvidia_smi": nvidia_smi}
 
 
@@ -8398,9 +8773,9 @@ PLANTED_FAULTS = {
     # the f32 dq, past key 1024: ds K reads the K of the other ring stage
     "f32_dq_neighbour_stage_k": (
         BWD_SOURCE,
-        "kt + group * kHalfTile * P + 4 * lo",
+        "kt + group * kHalfTile * P + first_col<D>(lo)",
         "(kt0 >= 1024 ? smem + L::kDqK + (stage ^ 1) * L::kArray : kt) + "
-        "group * kHalfTile * P + 4 * lo"),
+        "group * kHalfTile * P + first_col<D>(lo)"),
     # the f32 dk/dv under a causal mask: a key block starts one query tile
     # late, past its first live one
     "f32_dkv_first_tile_late": (
@@ -8474,14 +8849,22 @@ CHAOS_MODES = "donation,lockdep,leaks-strict"  # the chaos runner's default
 CHAOS_FIT_ROWS = 2048  # scenario_mid_fit's size in tools/chaos.py
 # the scenarios run on the card's host, at the tool's sizes
 CHAOS_HOST_ROWS = {"executor_kill_with_service": 120_000, "host_death": 60_000}
+# the model scenarios, their replicas on the card at the tool's sizes: the
+# MLP's 240 requests through a replica's SIGKILL, and chaos.DECODE_LM's four
+# streams of 12 tokens (f32, D 16) through another's
+CHAOS_MODEL_SCENARIOS = ("replica_kill_during_load", "replica_kill_during_decode")
 CHAOS_KEYS = ("seconds", "scenarios", "donation", "params_device")
 
 
-def chaos_scenarios(device, rows: int, host_rows: dict, fits: list) -> list:
+def chaos_scenarios(device, rows: int, host_rows: dict, fits: list,
+                    models=CHAOS_MODEL_SCENARIOS) -> list:
     """The runner's scenarios: ``scenario_mid_fit`` on ``device`` (its two
     fits' ``state_dict()``s appended to ``fits``), then each scenario of
-    ``host_rows`` at its rows. Named as the runner names them."""
+    ``host_rows`` at its rows, then each of ``models`` with its replicas on
+    ``device``, its report with the replicas the deployment replaced while
+    it ran (``replacements``). Named as the runner names them."""
     from raydp_tpu_torch import chaos
+    from raydp_tpu_torch.obs.metrics import metrics
 
     def scenario_mid_fit():
         return chaos.scenario_mid_fit(rows=rows, device=device, fits=fits)
@@ -8493,19 +8876,51 @@ def chaos_scenarios(device, rows: int, host_rows: dict, fits: list) -> list:
         scenario.__name__ = "scenario_" + name
         return scenario
 
-    return [scenario_mid_fit] + [on_host(name) for name in host_rows]
+    def with_replicas(name):
+        def scenario():
+            replaced = metrics.counter("serve.replica_replacements")
+            before = replaced.value
+            rep = getattr(chaos, "scenario_" + name)(device=device)
+            return rep | {"replacements": int(replaced.value - before)}
+
+        scenario.__name__ = "scenario_" + name
+        return scenario
+
+    return ([scenario_mid_fit] + [on_host(name) for name in host_rows]
+            + [with_replicas(name) for name in models])
+
+
+def chaos_model_verdict(entries: dict) -> None:
+    """The model scenarios' gates, where they ran: none of the load's
+    requests dropped and every response bitwise the unkilled run's; every
+    decode stream whole, its tokens the clean run's, with no error; at
+    least one failover (a replica replaced under load, a stream moved off
+    the killed replica); the pool healed."""
+    load = entries.get("replica_kill_during_load")
+    if load is not None:
+        require(load.get("ok") and load.get("dropped_requests") == 0
+                and load.get("byte_identical")
+                and load.get("replacements", 0) >= 1 and load.get("pool_healed"),
+                f"chaos: the replica killed under load: {load}")
+    decode = entries.get("replica_kill_during_decode")
+    if decode is not None:
+        require(decode.get("ok") and decode.get("token_identical")
+                and decode.get("streams_complete") and not decode.get("errors")
+                and decode.get("failovers", 0) >= 1 and decode.get("pool_healed"),
+                f"chaos: the replica killed mid-decode: {decode}")
 
 
 def chaos_verdict(report: dict, fits: list, device, leftover: list) -> None:
     """The phase's gates over the runner's report: every scenario ok (the
-    mid-fit bitwise with a re-executed task), the fits' parameters on
-    ``device``, no stranded thread, a clean strict leak audit, no segment
-    left."""
+    mid-fit bitwise with a re-executed task, the model scenarios by
+    ``chaos_model_verdict``), the fits' parameters on ``device``, no
+    stranded thread, a clean strict leak audit, no segment left."""
     entries = {e["name"]: e for e in report["scenarios"]}
     fit = entries.get("mid_streaming_fit_kill", {})
     require(fit.get("ok") and fit.get("byte_identical")
             and fit.get("reexecuted_tasks", 0) >= 1,
             f"chaos: the killed fit is not the unkilled one's: {fit}")
+    chaos_model_verdict(entries)
     want = torch.device(device).type
     require(len(fits) == 2 and all(t.device.type == want
                                    for state in fits for t in state.values()),
@@ -8533,17 +8948,22 @@ def chaos_segments() -> set:
 
 
 def phase_chaos(device, rows: int = CHAOS_FIT_ROWS,
-                host_rows: dict = None) -> dict:
+                host_rows: dict = None, models=CHAOS_MODEL_SCENARIOS) -> dict:
     """``raydp_tpu_torch.chaos.run`` of ``chaos_scenarios`` under
     ``CHAOS_MODES`` (the environment restored after), then
     ``chaos_verdict`` with the segments the phase left. Records the
     runner's report, each scenario's seconds and the donation guard's
-    checks and registered ranges over the phase."""
+    checks and registered ranges over the phase. The cluster comes up with
+    the first scenario and its fork template with it, armed with torch and
+    the serving modules (``WARM_TORCH_ENV``, as for a serving deployment):
+    a cold replica on the card imports them itself before it is up, which
+    can outlast the model scenarios' wait for the pool to heal."""
     from raydp_tpu_torch import chaos, sanitize
+    from raydp_tpu_torch.cluster.zygote import WARM_TORCH_ENV
 
     host_rows = CHAOS_HOST_ROWS if host_rows is None else host_rows
     armed = {"RAYDP_TPU_SANITIZE": CHAOS_MODES,
-             "RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1"}
+             "RAYDP_TPU_TORCH_NO_GLOBAL_ZYGOTE": "1", WARM_TORCH_ENV: "1"}
     saved_env = {key: os.environ.get(key) for key in armed}
     os.environ.update(armed)
     fits: list = []
@@ -8551,7 +8971,8 @@ def phase_chaos(device, rows: int = CHAOS_FIT_ROWS,
     before = sanitize.donation_stats()
     t0 = time.perf_counter()
     try:
-        report = chaos.run(chaos_scenarios(device, rows, host_rows, fits))
+        report = chaos.run(chaos_scenarios(device, rows, host_rows, fits,
+                                           models))
     finally:
         for key, value in saved_env.items():
             if value is None:
@@ -8891,6 +9312,12 @@ def main(argv: list) -> int:
         log(json.dumps(small_heads_summary(checks, small_head_times(device),
                                            dev["nvidia_smi"])))
         return 0
+    if argv == ["--small-lm"]:
+        dev = phase_device()
+        log(json.dumps(small_lm_summary(phase_small_lm(device),
+                                        dev["nvidia_smi"])))
+        phase_leftovers()
+        return 0
     if argv == ["--chaos"]:
         dev = phase_device()
         chaos_rec = phase_chaos(device)
@@ -8913,6 +9340,7 @@ def main(argv: list) -> int:
     record["cluster"] = phase_cluster(device, record["serve"]["runs"][0])
     record["train"] = phase_train(device)
     record["train_f32"] = phase_train_f32(device)
+    record["small_lm"] = phase_small_lm(device)
     record["seqpar"] = phase_seqpar(device)
     record["pipeline"] = phase_pipeline(device)
     record["moe"] = phase_moe(device)
@@ -8940,7 +9368,7 @@ def main(argv: list) -> int:
                            record["train_f32"], record["etl"],
                            record["seqpar"], record["sharded"],
                            record["pipeline"], record["estimators"],
-                           record["examples"])
+                           record["examples"], record["small_lm"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -8985,6 +9413,7 @@ def main(argv: list) -> int:
     log(json.dumps(estimators_summary(record["estimators"], dev["nvidia_smi"])))
     log(json.dumps(small_heads_summary(record["checks"]["small_heads"],
                                        record["times"], dev["nvidia_smi"])))
+    log(json.dumps(small_lm_summary(record["small_lm"], dev["nvidia_smi"])))
     log(json.dumps({"examples": {k: record["examples"][k]
                                  for k in EXAMPLES_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))

@@ -52,13 +52,17 @@
 // and masks element by element only on tiles that some row of it does not
 // see whole.
 //
-// Head dims. D 64 and 128 are the widths above. D 16 and 32 (the small
-// LMs' heads: d_model 32 or 64 over 2 heads) run the same body: a score
-// tile's 128 FMAs then load 8 q and 4 k float4s per 4 d as before, p.v
-// holds 1 (D 16) or 2 (D 32) rows x 4 columns a thread, and a K tile is
-// fewer 16-byte copies than the block has threads (copy_rows skips the
-// rest). A block's 57 KB (D 16) or 77 KB (D 32) let several share an SM.
-// The rounding chain below does not depend on D.
+// Head dims. D 64 and 128 are the widths above. D 8, 16 and 32 (the small
+// LMs' heads: d_model 32 over 4 or 2 heads, or 64 over 2) run the same
+// body: a score tile's 128 FMAs then load 8 q and 4 k float4s per 4 d as
+// before, p.v holds 1 (D 8, D 16) or 2 (D 32) rows x 4 columns a thread
+// (at D 8 only the first 128 threads: 64 rows of 2 column quads), and a K
+// tile is fewer 16-byte copies than the block has threads (copy_rows skips
+// the rest). A block's 47 KB (D 8), 57 KB (D 16) or 77 KB (D 32) let
+// several share an SM. Any other D up to 128 reaches this kernel
+// zero-padded by the wrapper to the next of these widths (a zero column
+// adds an exact 0 to each score's chain). The rounding chain below does
+// not depend on D.
 //
 // Why the bits are kept. The split decode (flash_decode.cu) runs the steps
 // of flash_common.cuh over the same 32-key tiles, merged in tile order, and
@@ -113,10 +117,13 @@ struct Layout {
   static constexpr int kA = kS + kRows * kSPitch;
   static constexpr int kL = kA + kGroup * kRows;
   static constexpr size_t kBytes = sizeof(float) * (kL + kRows);
-  // p.v: a thread holds kPvRows rows (kPvGroups apart) x 4 columns
+  // p.v: a thread holds kPvRows rows (kPvGroups apart) x 4 columns; the
+  // first kPvThreads threads take part (all of them from D 16)
   static constexpr int kColQuads = D / 4;
-  static constexpr int kPvGroups = kThreads / kColQuads;
+  static constexpr int kPvGroups =
+      kThreads / kColQuads < kRows ? kThreads / kColQuads : kRows;
   static constexpr int kPvRows = kRows / kPvGroups;
+  static constexpr int kPvThreads = kPvGroups * kColQuads;
 };
 
 // N rows of D floats from `src` into `dst` (row pitch `pitch` floats), 16
@@ -290,6 +297,7 @@ __device__ __forceinline__ void group_pv(const float* ps, const float* vs,
                                          float (&acc)[Layout<D>::kPvRows][4]) {
   using L = Layout<D>;
   constexpr int kR = L::kPvRows;
+  if (threadIdx.x >= L::kPvThreads) return;  // D 8: rows past the block's
   const int rg = threadIdx.x / L::kColQuads;
   const int cq = threadIdx.x % L::kColQuads;
   for (int tile = 0; tile < n_live; ++tile) {
@@ -440,7 +448,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                cudaStream_t stream) {
   using L = Layout<D>;
   // one block an SM from D 64: more than half of an H100 SM's 228 KB (at D
-  // 16 and 32, 57 and 77 KB, several blocks share an SM)
+  // 8, 16 and 32, 47, 57 and 77 KB, several blocks share an SM)
   static_assert(D < 64 || L::kBytes > 116 * 1024,
                 "a second block would fit an SM");
   auto kernel =
@@ -475,7 +483,9 @@ const char* rtt_error_string(int code) {
 }
 
 // Returns cudaGetLastError() after the launch (0 on success); an unsupported
-// head dim or dtype returns cudaErrorInvalidValue without launching.
+// head dim or dtype returns cudaErrorInvalidValue without launching. The
+// head dims built (each entry's `case`s, which
+// ops/flash_attention.py KERNEL_HEAD_DIMS lists): 8, 16, 32, 64 and 128.
 // onepass = 0 launches the two-term body (flash_fwd_twoterm). bf16 goes to
 // the tensor-core forward, f32 to flash_fwd_kernel (o is f32 either way, so
 // out_f32 changes nothing there). q, k and v must be 16-byte aligned.
@@ -488,13 +498,17 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
     return flash_fwd_sm90(q, k, v, o, m, l, bh, t, tk, d, q_off, k_off, causal,
                           normalize, out_f32, onepass, scale, s);
   }
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
 #define RTT_FWD(D)                                                         \
   return launch_fwd<D>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
                        normalize, onepass, scale, s)
-  if (d == 16 && dtype == kF32) RTT_FWD(16);
-  if (d == 32 && dtype == kF32) RTT_FWD(32);
-  if (d == 64 && dtype == kF32) RTT_FWD(64);
-  if (d == 128 && dtype == kF32) RTT_FWD(128);
+  switch (d) {
+    case 8: RTT_FWD(8);
+    case 16: RTT_FWD(16);
+    case 32: RTT_FWD(32);
+    case 64: RTT_FWD(64);
+    case 128: RTT_FWD(128);
+  }
 #undef RTT_FWD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,6 +61,15 @@
 // Each output element is owned by one thread and summed in a fixed order,
 // with no atomics, so two launches give the same bits.
 //
+// Head dims. D 64 and 128 are the widths above. D 8, 16 and 32 (the small
+// LMs' heads) run the same bodies, as the f32 forward does at those widths:
+// s and dp as before (8 x 4 register tiles over d, 2 to 8 steps of 4), and
+// in the products a thread's 4 columns are 4 lo mod D, so the 16 threads of
+// a row group hold D / 4 distinct column quads and the rest repeat a lower
+// thread's, storing nothing (owns_cols). A block's 36 KB (dq, D 8) to 81 KB
+// (dk/dv, D 32) let several share an SM. Any other D up to 128 arrives
+// zero-padded by the wrapper to the next of these widths.
+//
 // What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
 // prefill_f32_turns.py). At [1,8,2048,128] f32 causal dq takes ~0.39 ms and
 // dk/dv ~0.49 (the first version 1.57 and 1.86), about 2x their bounds, the
@@ -142,9 +151,11 @@ template <int D>
 __device__ __forceinline__ void copy_rows(const float* src, int valid,
                                           float* dst) {
   constexpr int kPieces = D / 4;
+  constexpr int kCopies = kRows * kPieces;  // fewer than the threads at D 8
 #pragma unroll
-  for (int u = 0; u < kRows * kPieces / kThreads; ++u) {
+  for (int u = 0; u < (kCopies + kThreads - 1) / kThreads; ++u) {
     const int i = threadIdx.x + u * kThreads;
+    if (kCopies % kThreads != 0 && i >= kCopies) break;
     const int r = i / kPieces;
     const int c = (i % kPieces) * 4;
     const bool ok = r < valid;
@@ -190,17 +201,33 @@ __device__ __forceinline__ void dots_8x4(const float* a, const float* b,
   }
 }
 
+// The product columns of thread lo of a row group: 4 lo + 64 c (c <
+// col_chunks), or from D 32 down 4 lo mod D, which the threads past the
+// row's D / 4 column quads repeat without storing (owns_cols).
+template <int D>
+__host__ __device__ constexpr int col_chunks() { return D >= 64 ? D / 64 : 1; }
+
+template <int D>
+__device__ __forceinline__ int first_col(int lo) {
+  return D >= 64 ? 4 * lo : (4 * lo) % D;
+}
+
+template <int D>
+__device__ __forceinline__ bool owns_cols(int lo) {
+  return D >= 64 || 4 * lo < D;
+}
+
 // acc[r][4c + e] += sum over j < N ascending of w[8r][j] * m[j][64c + e]:
 // w a [64][64] tile (pointing at the thread's first row), m rows of D
 // floats at the padded pitch (pointing at the thread's first column).
-// 8 rows x D / 16 columns a thread; per 4 j it loads 8 w and 4 * D / 64 m
-// float4s for 2 * D FMAs.
+// 8 rows x 4 col_chunks columns a thread; per 4 j it loads 8 w and 4
+// col_chunks m float4s for 32 col_chunks FMAs.
 template <int D, int N>
 __device__ __forceinline__ void accumulate(const float* w, const float* m,
-                                           float (&acc)[8][D / 16]) {
+                                           float (&acc)[8][4 * col_chunks<D>()]) {
   constexpr int P = BwdLayout<D>::kPitch;
   constexpr int TP = BwdLayout<D>::kTPitch;
-  constexpr int kChunks = D / 64;
+  constexpr int kChunks = col_chunks<D>();
 #pragma unroll
   for (int jb = 0; jb < N; jb += 4) {
     float4 x[8];
@@ -277,11 +304,12 @@ flash_bwd_dq_kernel(const BwdArgs a) {
         ok ? a.dsum[qbase + row0 + threadIdx.x] : 0.f;
   }
 
-  float acc[8][D / 16];
+  constexpr int kAcc = 4 * col_chunks<D>();
+  float acc[8][kAcc];
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
   }
   if (n_tiles > 0) {
     copy_rows<D>(a.q + (qbase + row0) * D, rows, qs);
@@ -354,18 +382,20 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     __syncthreads();  // ds is in
     constexpr int kHalfTile = kTile / 2;
     accumulate<D, kHalfTile>(ds + hi * TP + group * kHalfTile,
-                             kt + group * kHalfTile * P + 4 * lo, acc);
+                             kt + group * kHalfTile * P + first_col<D>(lo),
+                             acc);
     __syncthreads();  // this tile's K, V and ds are free
   }
 
   // dq = group 0's sum over the first 32 keys of each tile + group 1's
   // over the last 32; group 1's sums pass through the free K stage.
   float* other = smem + L::kDqK;
-  if (group == 1) {
+  const bool owns = owns_cols<D>(lo);
+  if (group == 1 && owns) {
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
 #pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
+      for (int c = 0; c < col_chunks<D>(); ++c) {
         *reinterpret_cast<float4*>(other + (hi + 8 * r) * D + 4 * lo + 64 * c) =
             make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
                         acc[r][4 * c + 3]);
@@ -373,13 +403,13 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     }
   }
   __syncthreads();
-  if (group == 1) return;
+  if (group == 1 || !owns) return;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int row = hi + 8 * r;
     if (row >= rows) continue;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < col_chunks<D>(); ++c) {
       const int col = 4 * lo + 64 * c;
       const float4 o = *reinterpret_cast<const float4*>(other + row * D + col);
       *reinterpret_cast<float4*>(a.dq + (qbase + row0 + row) * D + col) =
@@ -439,11 +469,12 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     }
   };
 
-  float acc[8][D / 16];  // dk (group 0) or dv (group 1)
+  constexpr int kAcc = 4 * col_chunks<D>();
+  float acc[8][kAcc];  // dk (group 0) or dv (group 1)
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
 #pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
   }
   if (first < n_qtiles) {
     const int qt0 = first * kTile;
@@ -519,17 +550,18 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     }
     __syncthreads();  // p^T and ds^T are in
     accumulate<D, kTile>((group ? pt : dst) + hi * TP,
-                         (group ? dos : qt) + 4 * lo, acc);
+                         (group ? dos : qt) + first_col<D>(lo), acc);
     __syncthreads();  // this tile's Q, dO, p^T and ds^T are free
   }
 
   float* out = group ? a.dv : a.dk;
+  if (!owns_cols<D>(lo)) return;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int key = hi + 8 * r;
     if (key >= keys) continue;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < col_chunks<D>(); ++c) {
       *reinterpret_cast<float4*>(out + (kbase + key0 + key) * D + 4 * lo +
                                  64 * c) =
           make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
@@ -542,8 +574,8 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
 template <int D>
 int launch_bwd(bool dkv, const BwdArgs& args, cudaStream_t stream) {
   using L = BwdLayout<D>;
-  // one block an SM: more than half of an H100 SM's 228 KB
-  static_assert(L::kDqBytes > 116 * 1024 && L::kKvBytes > 116 * 1024,
+  // one block an SM from D 64: more than half of an H100 SM's 228 KB
+  static_assert(D < 64 || (L::kDqBytes > 116 * 1024 && L::kKvBytes > 116 * 1024),
                 "a second block would fit an SM");
   const size_t smem = dkv ? L::kKvBytes : L::kDqBytes;
   auto kernel = dkv ? flash_bwd_dkv_kernel<D> : flash_bwd_dq_kernel<D>;
@@ -576,9 +608,10 @@ extern "C" {
 
 // Each returns cudaGetLastError() after its launch (0 on success); an
 // unsupported head dim or dtype returns cudaErrorInvalidValue without
-// launching. bf16 goes to the tensor-core kernels, f32 to the kernels here,
-// which copy q, k, v and do 16 bytes at a time: their bases must be 16-byte
-// aligned.
+// launching. The head dims built (the `case`s below,
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64 and 128. bf16
+// goes to the tensor-core kernels, f32 to the kernels here, which copy q,
+// k, v and do 16 bytes at a time: their bases must be 16-byte aligned.
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* dsum,
                      void* dq, int bh, int t, int tk, int d, int dtype,
@@ -594,8 +627,14 @@ int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      static_cast<const float*>(dout), lse, dsum,
                      static_cast<float*>(dq), nullptr, nullptr, bh, t, tk,
                      q_off, k_off, causal, scale};
-  if (d == 64 && dtype == kF32) return launch_bwd<64>(false, args, s);
-  if (d == 128 && dtype == kF32) return launch_bwd<128>(false, args, s);
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 8: return launch_bwd<8>(false, args, s);
+    case 16: return launch_bwd<16>(false, args, s);
+    case 32: return launch_bwd<32>(false, args, s);
+    case 64: return launch_bwd<64>(false, args, s);
+    case 128: return launch_bwd<128>(false, args, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -614,8 +653,14 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      static_cast<const float*>(dout), lse, dsum, nullptr,
                      static_cast<float*>(dk), static_cast<float*>(dv), bh, t,
                      tk, q_off, k_off, causal, scale};
-  if (d == 64 && dtype == kF32) return launch_bwd<64>(true, args, s);
-  if (d == 128 && dtype == kF32) return launch_bwd<128>(true, args, s);
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 8: return launch_bwd<8>(true, args, s);
+    case 16: return launch_bwd<16>(true, args, s);
+    case 32: return launch_bwd<32>(true, args, s);
+    case 64: return launch_bwd<64>(true, args, s);
+    case 128: return launch_bwd<128>(true, args, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -47,6 +47,11 @@
 // - Rounding p and ds to bf16 before their products is this port's
 //   declared difference from the reference, which feeds them in f32
 //   (chip_smoke.bf16_bwd_limit is the bound it is held to).
+// - Head dims below 64 (8, 16 and 32) run the D 64 bodies, as the forward
+//   does (flash_forward_sm90.cu): tensor maps over the true d columns, the
+//   TMA's zero fill past them, so s and dp are exact, and dq, dk and dv
+//   store only their first d columns, at pitch d. Any other D up to 128
+//   arrives zero-padded by the wrapper to the next width built.
 //
 // What it leaves for later: a single kernel with a fixed-order dq
 // reduction in place of recomputing s and dp twice, persistent blocks,
@@ -143,7 +148,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_dsum,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int t, int tk,
-                          int q_off, int k_off, int causal, float scale) {
+                          int d, int q_off, int k_off, int causal,
+                          float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -283,7 +289,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const size_t grow = static_cast<size_t>(bh) * tk + key;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
-      const size_t idx = grow * D + 8 * nb + 2 * (lane & 3);
+      if (8 * nb >= d) break;  // the zero-filled columns past d
+      const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
       const int i = 4 * nb + 2 * h;
       *reinterpret_cast<__nv_bfloat162*>(dk + idx) =
           __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
@@ -304,7 +311,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ lse,
                          const float* __restrict__ dsum,
                          __nv_bfloat16* __restrict__ dq, int t, int tk,
-                         int q_off, int k_off, int causal, float scale) {
+                         int d, int q_off, int k_off, int causal,
+                         float scale) {
   using L = BwdLayout<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -424,7 +432,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     const size_t grow = static_cast<size_t>(bh) * t + row;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
-      const size_t idx = grow * D + 8 * nb + 2 * (lane & 3);
+      if (8 * nb >= d) break;  // the zero-filled columns past d
+      const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
       const int i = 4 * nb + 2 * h;
       *reinterpret_cast<__nv_bfloat162*>(dq + idx) =
           __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
@@ -435,17 +444,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, void* dq, int bh, int t,
-              int tk, int q_off, int k_off, int causal, float scale,
+              int tk, int d, int q_off, int k_off, int causal, float scale,
               cudaStream_t stream) {
   if (tk == 0) {  // no key: dq is 0
     return static_cast<int>(cudaMemsetAsync(
-        dq, 0, sizeof(__nv_bfloat16) * bh * t * D, stream));
+        dq, 0, sizeof(__nv_bfloat16) * bh * t * d, stream));
   }
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!make_map(&map_q, q, bh, t, D, kOwnRows) ||
-      !make_map(&map_do, dout, bh, t, D, kOwnRows) ||
-      !make_map(&map_k, k, bh, tk, D, kStep) ||
-      !make_map(&map_v, v, bh, tk, D, kStep)) {
+  if (!make_map(&map_q, q, bh, t, d, kOwnRows) ||
+      !make_map(&map_do, dout, bh, t, d, kOwnRows) ||
+      !make_map(&map_k, k, bh, tk, d, kStep) ||
+      !make_map(&map_v, v, bh, tk, d, kStep)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_bwd_dq_sm90_kernel<D>;
@@ -455,26 +464,26 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   const dim3 grid(bh, (t + kOwnRows - 1) / kOwnRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, map_do, lse, dsum, static_cast<__nv_bfloat16*>(dq),
-      t, tk, q_off, k_off, causal, scale);
+      t, tk, d, q_off, k_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* dsum, void* dk, void* dv,
-               int bh, int t, int tk, int q_off, int k_off, int causal,
+               int bh, int t, int tk, int d, int q_off, int k_off, int causal,
                float scale, cudaStream_t stream) {
   if (t == 0) {  // no query: dk and dv are 0
-    const size_t bytes = sizeof(__nv_bfloat16) * bh * tk * D;
+    const size_t bytes = sizeof(__nv_bfloat16) * bh * tk * d;
     cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, stream);
     return static_cast<int>(err);
   }
   CUtensorMap map_q, map_k, map_v, map_do, map_lse, map_dsum;
-  if (!make_map(&map_q, q, bh, t, D, kStep) ||
-      !make_map(&map_do, dout, bh, t, D, kStep) ||
-      !make_map(&map_k, k, bh, tk, D, kOwnRows) ||
-      !make_map(&map_v, v, bh, tk, D, kOwnRows) ||
+  if (!make_map(&map_q, q, bh, t, d, kStep) ||
+      !make_map(&map_do, dout, bh, t, d, kStep) ||
+      !make_map(&map_k, k, bh, tk, d, kOwnRows) ||
+      !make_map(&map_v, v, bh, tk, d, kOwnRows) ||
       !make_rows_map(&map_lse, lse, bh * t, kStep) ||
       !make_rows_map(&map_dsum, dsum, bh * t, kStep)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -487,7 +496,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, map_do, map_lse, map_dsum,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, tk,
-      q_off, k_off, causal, scale);
+      d, q_off, k_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -495,21 +504,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // Called by rtt_flash_bwd_dq / rtt_flash_bwd_dkv for bf16 q/k/v; each
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
-// a head dim it does not take or tensors TMA cannot address (a base not
-// 16-byte aligned).
+// a head dim it does not take (the `case`s below: 8, 16 and 32 through the
+// D 64 bodies, 64, 128) or tensors TMA cannot address (a base not 16-byte
+// aligned).
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dsum,
                       void* dq, int bh, int t, int tk, int d, int q_off,
                       int k_off, int causal, float scale, cudaStream_t stream) {
   if (bh == 0 || t == 0) return static_cast<int>(cudaSuccess);
-  if (d == 64) {
-    return launch_dq<64>(q, k, v, dout, lse, dsum, dq, bh, t, tk, q_off, k_off,
-                         causal, scale, stream);
+#define RTT_DQ(D)                                                            \
+  return launch_dq<D>(q, k, v, dout, lse, dsum, dq, bh, t, tk, d, q_off,     \
+                      k_off, causal, scale, stream)
+  switch (d) {
+    case 8:
+    case 16:
+    case 32:
+    case 64: RTT_DQ(64);
+    case 128: RTT_DQ(128);
   }
-  if (d == 128) {
-    return launch_dq<128>(q, k, v, dout, lse, dsum, dq, bh, t, tk, q_off,
-                          k_off, causal, scale, stream);
-  }
+#undef RTT_DQ
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -519,13 +532,16 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
                        int q_off, int k_off, int causal, float scale,
                        cudaStream_t stream) {
   if (bh == 0 || tk == 0) return static_cast<int>(cudaSuccess);
-  if (d == 64) {
-    return launch_dkv<64>(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, q_off,
-                          k_off, causal, scale, stream);
+#define RTT_DKV(D)                                                           \
+  return launch_dkv<D>(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, d,       \
+                       q_off, k_off, causal, scale, stream)
+  switch (d) {
+    case 8:
+    case 16:
+    case 32:
+    case 64: RTT_DKV(64);
+    case 128: RTT_DKV(128);
   }
-  if (d == 128) {
-    return launch_dkv<128>(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, q_off,
-                           k_off, causal, scale, stream);
-  }
+#undef RTT_DKV
   return static_cast<int>(cudaErrorInvalidValue);
 }

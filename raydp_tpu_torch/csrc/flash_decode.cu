@@ -12,10 +12,11 @@
 // [B*H, tq, D] in q's type. Query row r sits at position kv_len - tq + r
 // and attends the keys at positions <= its own and < min(kv_len, tk); a row
 // with no such key gets 0. Cache rows at or past kv_len are read as zeros,
-// so stale values (NaN, inf) never reach the sums. D is 64 or 128 for
-// every pair of types, and 16 or 32 (the heads of the small LMs) for f32 q
-// on an f32 cache; below D 32 the lanes past D repeat a lower lane's p.v
-// element and store nothing, so each element keeps its one chain.
+// so stale values (NaN, inf) never reach the sums. D is 8, 16, 32, 64 or
+// 128 for every pair of types (any other D up to 128 arrives zero-padded
+// by the wrapper to the next of these); below D 32 the lanes past D repeat
+// a lower lane's p.v element and store nothing, so each element keeps its
+// one chain.
 //
 // What bounds it on an H100: bytes. Every valid K/V row is read once and
 // each element costs two operations: at the serving shape (4 sequences of
@@ -390,8 +391,10 @@ long long rtt_flash_decode_work(int b, int h, int tq, int tk, int d) {
 // kv_dtype: kF32 or kBF16 (the int8 cache: rtt_flash_decode_int8). `work`
 // holds at least `work_floats` f32 (rtt_flash_decode_work), `tickets` b * h
 // zeroed int32; k and v start on 16-byte boundaries. Two launches; returns
-// cudaGetLastError() after them (0 on success). An unsupported head dim or
-// dtype, or a workspace too small, returns cudaErrorInvalidValue without
+// cudaGetLastError() after them (0 on success). The head dims built (the
+// `case`s below, ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64
+// and 128, each for every pair of types. An unsupported head dim or dtype,
+// or a workspace too small, returns cudaErrorInvalidValue without
 // launching.
 int rtt_flash_decode(const void* q, const void* k, const void* v,
                      const int* kv_len, void* o, void* work, void* tickets,
@@ -406,26 +409,17 @@ int rtt_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wf = static_cast<float*>(work);
   int* ti = static_cast<int*>(tickets);
-  // D 16 and 32 (the small LMs' heads) for the f32 cache and f32 q only
-  if ((d == 16 || d == 32) && (q_dtype != kF32 || kv_dtype != kF32)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+#define RTT_DECODE(D)                                                     \
+  return launch_by_q<D>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, q_dtype, \
+                        kv_dtype, scale, s)
+  switch (d) {
+    case 8: RTT_DECODE(8);
+    case 16: RTT_DECODE(16);
+    case 32: RTT_DECODE(32);
+    case 64: RTT_DECODE(64);
+    case 128: RTT_DECODE(128);
   }
-  if (d == 16) {
-    return launch<16, float, float>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk,
-                                    scale, s);
-  }
-  if (d == 32) {
-    return launch<32, float, float>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk,
-                                    scale, s);
-  }
-  if (d == 64) {
-    return launch_by_q<64>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, q_dtype,
-                           kv_dtype, scale, s);
-  }
-  if (d == 128) {
-    return launch_by_q<128>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, q_dtype,
-                            kv_dtype, scale, s);
-  }
+#undef RTT_DECODE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -24,9 +24,13 @@
 //   serving shape. Blocks whose chunk starts at or past min(kv_len, tk)
 //   exit at once.
 // - The block stages its chunk's K and V rows in shared memory as int8 with
-//   16-byte loads (8 threads a 128-byte row; K rows padded to kKPitch bytes
-//   so that each thread's 16-byte reads of its own key row are free of bank
-//   conflicts) and their scales as f32.
+//   16-byte loads (8 threads a 128-byte row; 8-byte loads at D 8, whose row
+//   is 8 bytes; K rows padded to kKPitch bytes so that each thread's reads
+//   of its own key row are free of bank conflicts) and their scales as f32.
+// - D is 8, 16, 32, 64 or 128 (any other D up to 128 arrives zero-padded
+//   by the wrapper: a zero int8 value adds an exact 0 to the score's chain;
+//   the scales are per row and unchanged). Below D 128 the threads past D
+//   sit out the p.v stage and the merge, which keep their order.
 // - Per query row: thread j scores key j, dequantizing in registers as
 //   __fmul_rn(float(k), scale) exactly as the plain version's f32 cache
 //   does; the chunk's max and sum by warp shuffles and one pass over the
@@ -41,12 +45,22 @@
 // An int8 cache row never equals a prefill row, so K4b carries no bitwise
 // contract with the prefill; the f32 cache keeps it (flash_decode.cu).
 
+#include <type_traits>
+
 #include "flash_common.cuh"
 
 namespace {
 
 constexpr int kChunk = 128;    // keys per block
 constexpr int kThreads = 128;  // one per key (scores), one per element (p.v)
+
+// The int8 elements a thread moves at once: 16 (an int4), or the whole row
+// of 8 at D 8 (an int2).
+template <int D>
+struct Piece {
+  static constexpr int kBytes = D < 16 ? D : 16;
+  using T = typename std::conditional<(D < 16), int2, int4>::type;
+};
 
 template <int D>
 struct DecodeSmem {
@@ -118,18 +132,21 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
   const int n_keys = min(kChunk, valid - key0);
   const size_t row0 = static_cast<size_t>(bh) * tk + key0;
 
-  // stage the chunk: 16-byte pieces, D / 16 to a row; rows past the valid
-  // ones are zeros
-  for (int i = t; i < kChunk * (D / 16); i += kThreads) {
-    const int j = i / (D / 16);
-    const int c = (i % (D / 16)) * 16;
-    int4 kv = make_int4(0, 0, 0, 0), vv = make_int4(0, 0, 0, 0);
+  // stage the chunk: pieces of kPiece bytes, D / kPiece to a row; rows past
+  // the valid ones are zeros
+  using P = typename Piece<D>::T;
+  constexpr int kPiece = Piece<D>::kBytes;
+  constexpr int kPieces = D / kPiece;
+  for (int i = t; i < kChunk * kPieces; i += kThreads) {
+    const int j = i / kPieces;
+    const int c = (i % kPieces) * kPiece;
+    P kv = {}, vv = {};
     if (j < n_keys) {
-      kv = *reinterpret_cast<const int4*>(k + (row0 + j) * D + c);
-      vv = *reinterpret_cast<const int4*>(v + (row0 + j) * D + c);
+      kv = *reinterpret_cast<const P*>(k + (row0 + j) * D + c);
+      vv = *reinterpret_cast<const P*>(v + (row0 + j) * D + c);
     }
-    *reinterpret_cast<int4*>(sm.k + j * S::kKPitch + c) = kv;
-    *reinterpret_cast<int4*>(sm.v + j * D + c) = vv;
+    *reinterpret_cast<P*>(sm.k + j * S::kKPitch + c) = kv;
+    *reinterpret_cast<P*>(sm.v + j * D + c) = vv;
   }
   sm.k_scale[t] = t < n_keys ? k_scale[row0 + t] : 0.f;
   sm.v_scale[t] = t < n_keys ? v_scale[row0 + t] : 0.f;
@@ -148,11 +165,11 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
     const float ks = sm.k_scale[t];
     const int8_t* kr = sm.k + t * S::kKPitch;
 #pragma unroll 2
-    for (int c = 0; c < D; c += 16) {
-      const int4 raw = *reinterpret_cast<const int4*>(kr + c);
+    for (int c = 0; c < D; c += kPiece) {
+      const P raw = *reinterpret_cast<const P*>(kr + c);
       const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int e = 0; e < 16; ++e) {
+      for (int e = 0; e < kPiece; ++e) {
         s = __fmaf_rn(sm.q[c + e], __fmul_rn(static_cast<float>(b[e]), ks), s);
       }
     }
@@ -243,7 +260,8 @@ extern "C" {
 // as [b * h, ceil(tk / chunk), tq, 2 + d] f32 and `tickets` as b * h zeroed
 // int32 from it. Returns cudaGetLastError() after the launch (0 on success);
 // an unsupported head dim, dtype or chunk returns cudaErrorInvalidValue
-// without launching.
+// without launching. The head dims built (the `case`s below,
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64 and 128.
 int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
                           const float* k_scale, const float* v_scale,
                           const int* kv_len, void* o, void* part, void* tickets,
@@ -256,14 +274,17 @@ int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(part);
   int* ti = static_cast<int*>(tickets);
-  if (d == 64) {
-    return launch_by_q<64>(q, k, v, k_scale, v_scale, kv_len, o, pf, ti, b, h,
-                           tq, tk, q_dtype, scale, s);
+#define RTT_INT8(D)                                                          \
+  return launch_by_q<D>(q, k, v, k_scale, v_scale, kv_len, o, pf, ti, b, h, \
+                        tq, tk, q_dtype, scale, s)
+  switch (d) {
+    case 8: RTT_INT8(8);
+    case 16: RTT_INT8(16);
+    case 32: RTT_INT8(32);
+    case 64: RTT_INT8(64);
+    case 128: RTT_INT8(128);
   }
-  if (d == 128) {
-    return launch_by_q<128>(q, k, v, k_scale, v_scale, kv_len, o, pf, ti, b, h,
-                            tq, tk, q_dtype, scale, s);
-  }
+#undef RTT_INT8
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -42,6 +42,16 @@
 // - Epilogue: o = acc / max(l, 1e-30) (IEEE division) in bf16, or the
 //   unnormalised acc in f32; m and l per row; rows past T are not stored.
 //   No atomics: the same bits on every launch.
+// - Head dims below 64 (8, 16 and 32: the small LMs' heads) run the D 64
+//   body. Its tensor maps are [BH, T, d] over the true d columns, so the
+//   TMA fills each 64-column box past d with zeros: a zero column adds an
+//   exact 0 to every q.k product, the scale is the true d's (the caller's),
+//   and p.v's columns past d come out 0 and are not stored (the epilogue
+//   writes a row's first d columns at pitch d). Such a launch costs what D
+//   64 does (81 KB of shared memory, 64-column products). The TMA needs a
+//   row pitch that is a multiple of 16 bytes: d * 2 is one for every d the
+//   entry takes. Any other D up to 128 arrives zero-padded by the wrapper
+//   to the next width built.
 //
 // What this design leaves out, for a later PR: overlapping one warpgroup's
 // softmax with the next Q K^T inside the warpgroup (each tile waits for its
@@ -79,18 +89,18 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// q [BH, T, D], k/v [BH, Tk, D] bf16 (through the tensor maps) -> o
-// [BH, T, D] (bf16, or f32 when out_f32), m/l [BH, T] f32.
-// grid (BH, ceil(T / kM)), kThreads threads.
+// q [BH, T, d], k/v [BH, Tk, d] bf16 (through the tensor maps; d <= D, the
+// body's width) -> o [BH, T, d] (bf16, or f32 when out_f32), m/l [BH, T]
+// f32. grid (BH, ceil(T / kM)), kThreads threads.
 template <int D, bool kTwoTerm>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       void* __restrict__ o, float* __restrict__ m_out,
-                      float* __restrict__ l_out, int t, int tk, int q_off,
-                      int k_off, int causal, int normalize, int out_f32,
-                      float scale) {
+                      float* __restrict__ l_out, int t, int tk, int d,
+                      int q_off, int k_off, int causal, int normalize,
+                      int out_f32, float scale) {
   using L = Layout<D>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -257,13 +267,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const float denom = fmaxf(l[h], 1e-30f);
 #pragma unroll
       for (int nb = 0; nb < D / 8; ++nb) {
+        if (8 * nb >= d) break;  // the zero-filled columns past d
         float x0 = acc[4 * nb + 2 * h];
         float x1 = acc[4 * nb + 2 * h + 1];
         if (normalize) {
           x0 = __fdiv_rn(x0, denom);
           x1 = __fdiv_rn(x1, denom);
         }
-        const size_t idx = grow * D + 8 * nb + 2 * (lane & 3);
+        const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
         if (out_f32) {
           *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) =
               make_float2(x0, x1);
@@ -282,12 +293,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D, bool kTwoTerm>
 int launch(const void* q, const void* k, const void* v, void* o, float* m,
-           float* l, int bh, int t, int tk, int q_off, int k_off, int causal,
-           int normalize, int out_f32, float scale, cudaStream_t stream) {
+           float* l, int bh, int t, int tk, int d, int q_off, int k_off,
+           int causal, int normalize, int out_f32, float scale,
+           cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
-  if (!make_map(&map_q, q, bh, t, D, kM) ||
-      !make_map(&map_k, k, bh, tk, D, kN) ||
-      !make_map(&map_v, v, bh, tk, D, kN)) {
+  if (!make_map(&map_q, q, bh, t, d, kM) ||
+      !make_map(&map_k, k, bh, tk, d, kN) ||
+      !make_map(&map_v, v, bh, tk, d, kN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_sm90_kernel<D, kTwoTerm>;
@@ -296,28 +308,36 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (t + kM - 1) / kM);
   kernel<<<grid, kThreads, smem, stream>>>(map_q, map_k, map_v, o, m, l, t, tk,
-                                           q_off, k_off, causal, normalize,
-                                           out_f32, scale);
+                                           d, q_off, k_off, causal,
+                                           normalize, out_f32, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Called by rtt_flash_fwd for bf16 q/k/v; returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a head dim it does not take or
-// tensors TMA cannot address (a base not 16-byte aligned).
+// the launch, or cudaErrorInvalidValue for a head dim it does not take (the
+// `case`s below: 8, 16 and 32 through the D 64 body, 64, 128) or tensors
+// TMA cannot address (a base not 16-byte aligned).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    float* m, float* l, int bh, int t, int tk, int d, int q_off,
                    int k_off, int causal, int normalize, int out_f32,
                    int onepass, float scale, cudaStream_t stream) {
   if (bh == 0 || t == 0) return static_cast<int>(cudaSuccess);
-#define RTT_SM90(D, TWO)                                                    \
-  return launch<D, TWO>(q, k, v, o, m, l, bh, t, tk, q_off, k_off, causal, \
-                        normalize, out_f32, scale, stream)
-  if (d == 64 && onepass) RTT_SM90(64, false);
-  if (d == 64) RTT_SM90(64, true);
-  if (d == 128 && onepass) RTT_SM90(128, false);
-  if (d == 128) RTT_SM90(128, true);
+#define RTT_SM90(D)                                                          \
+  return onepass ? launch<D, false>(q, k, v, o, m, l, bh, t, tk, d, q_off,   \
+                                    k_off, causal, normalize, out_f32, scale, \
+                                    stream)                                   \
+                 : launch<D, true>(q, k, v, o, m, l, bh, t, tk, d, q_off,    \
+                                   k_off, causal, normalize, out_f32, scale,  \
+                                   stream)
+  switch (d) {
+    case 8:
+    case 16:
+    case 32:
+    case 64: RTT_SM90(64);
+    case 128: RTT_SM90(128);
+  }
 #undef RTT_SM90
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -42,6 +42,13 @@ dv's product and ds before dk's and dq's (the reference feeds both in
 f32). So bf16 agrees with the plain versions to bf16 rounding, not bit for
 bit.
 
+Head dims: every family takes D from 1 to 128 on the card. Kernels are
+built for 8, 16, 32, 64 and 128 (``KERNEL_HEAD_DIMS``); any other D runs
+at the next built width (``kernel_head_dim``), q, k, v (and the cotangent)
+zero-padded to it (``pad_head``), the scale that of the true D, the output
+cut back to D. A zero column adds an exact 0 to each score's sum and an
+output column of zeros, which is cut off. D past 128 is refused.
+
 Decode == prefill: for f32 q/k/v the decode kernel and the forward run the
 same steps of the per-row update over the same 32-key tiles, merged in
 tile order, so a decode row equals the prefill row at its position bit for
@@ -84,19 +91,14 @@ NEG_INF = -1e30
 # csrc/flash_forward_sm90.cu (kM, kN).
 BLOCK_K = 32
 BLOCK_Q = 64
-# head dims with a CUDA kernel, by kernel family. The f32 forward
-# (csrc/flash_attention.cu) and the decode of f32 q from an f32 cache
-# (csrc/flash_decode.cu) also take the small LMs' heads, 16 and 32; the bf16
-# forward and backward (sm90), the f32 backward, the decode's other types
-# and the int8-cache decode are built for 64 and 128 only.
-KERNEL_HEAD_DIMS = {
-    "flash_fwd_f32": (16, 32, 64, 128),
-    "flash_fwd_bf16": (64, 128),
-    "flash_bwd": (64, 128),
-    "flash_decode_f32": (16, 32, 64, 128),
-    "flash_decode": (64, 128),
-    "flash_decode_int8": (64, 128),
-}
+# The head dims every attention kernel family is built for (the `case`s of
+# each C entry in csrc/): 8, 16 and 32 (the small LMs' heads), 64 and 128.
+# The bf16 forward and backward run 8, 16 and 32 through their D 64 bodies,
+# their tensor maps reading the true columns and zero-filling the rest. Any
+# other head dim up to 128 runs at the next built width (``kernel_head_dim``),
+# q, k and v zero-padded to it by the wrapper (``pad_head``) and the output
+# cut back; a head dim past 128 is refused.
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
 # partial (m, l, o) per chunk
@@ -172,14 +174,15 @@ def _online_update(s, v, o, m, l, onepass: bool = True):  # noqa: E741
 
 def flash_attention_call_plain(
     q, k, v, q_offset: int = 0, k_offset: int = 0, causal: bool = False,
-    normalize: bool = True, onepass: bool = True,
+    normalize: bool = True, onepass: bool = True, scale: float | None = None,
 ):
     """Plain PyTorch version of ``flash_attention_call``; ``onepass=False``
-    is the two-term body."""
+    is the two-term body. ``scale`` multiplies the scores (default
+    ``D**-0.5`` of q's head dim)."""
     b, h, t, d = q.shape
     tk = k.shape[2]
     _, block_k = pick_blocks(t, tk, d)
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     qf, kf, vf = q.float(), k.float(), v.float()
     dev = q.device
     q_pos = q_offset + torch.arange(t, device=dev)[:, None]
@@ -202,12 +205,14 @@ def flash_attention_call_plain(
     return o, m[..., 0], l[..., 0]
 
 
-def flash_decode_plain(q, k, v, kv_len, k_scale=None, v_scale=None):
-    """Plain PyTorch version of ``flash_decode``."""
+def flash_decode_plain(q, k, v, kv_len, k_scale=None, v_scale=None,
+                       scale: float | None = None):
+    """Plain PyTorch version of ``flash_decode`` (``scale`` as in
+    ``flash_attention_call_plain``)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     _, block_k = pick_blocks(tq, tk, d)
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     dev = q.device
     lens = torch.as_tensor(kv_len, device=dev).to(torch.int64).reshape(b)
     valid = torch.clamp(lens, max=tk)
@@ -245,20 +250,21 @@ def _bwd_probs(s, lse, q_pos, k_pos, causal: bool):
     return p
 
 
-def _bwd_inputs(q, k, v, lse, dsum, g, q_offset):
+def _bwd_inputs(q, k, v, lse, dsum, g, q_offset, scale):
     dev = q.device
     q_pos = q_offset + torch.arange(q.shape[2], device=dev)[:, None]
     return (q.float(), k.float(), v.float(), g.float(),
             lse.float()[..., None], dsum.float()[..., None], q_pos,
-            q.shape[-1] ** -0.5)
+            q.shape[-1] ** -0.5 if scale is None else scale)
 
 
 def flash_bwd_dq_plain(q, k, v, lse, dsum, g, q_offset: int = 0,
-                       k_offset: int = 0, causal: bool = False):
+                       k_offset: int = 0, causal: bool = False,
+                       scale: float | None = None):
     """Plain PyTorch version of ``flash_bwd_dq``: dq over the forward's
-    k-tiles, in q's type."""
+    k-tiles, in q's type (``scale`` as in ``flash_attention_call_plain``)."""
     qf, kf, vf, gf, lse_c, dsum_c, q_pos, scale = _bwd_inputs(
-        q, k, v, lse, dsum, g, q_offset)
+        q, k, v, lse, dsum, g, q_offset, scale)
     tk = k.shape[2]
     dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
     k_end = tk
@@ -276,11 +282,13 @@ def flash_bwd_dq_plain(q, k, v, lse, dsum, g, q_offset: int = 0,
 
 
 def flash_bwd_dkv_plain(q, k, v, lse, dsum, g, q_offset: int = 0,
-                        k_offset: int = 0, causal: bool = False):
+                        k_offset: int = 0, causal: bool = False,
+                        scale: float | None = None):
     """Plain PyTorch version of ``flash_bwd_dkv``: (dk, dv) over q-tiles of
-    ``BLOCK_K`` queries, in k's and v's types."""
+    ``BLOCK_K`` queries, in k's and v's types (``scale`` as in
+    ``flash_attention_call_plain``)."""
     qf, kf, vf, gf, lse_c, dsum_c, q_pos, scale = _bwd_inputs(
-        q, k, v, lse, dsum, g, q_offset)
+        q, k, v, lse, dsum, g, q_offset, scale)
     t = q.shape[2]
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
@@ -300,11 +308,13 @@ def flash_bwd_dkv_plain(q, k, v, lse, dsum, g, q_offset: int = 0,
 
 
 def flash_backward_blocks_plain(q, k, v, lse, dsum, g, q_offset: int = 0,
-                                k_offset: int = 0, causal: bool = False):
+                                k_offset: int = 0, causal: bool = False,
+                                scale: float | None = None):
     """Plain PyTorch version of ``flash_backward_blocks``."""
-    dq = flash_bwd_dq_plain(q, k, v, lse, dsum, g, q_offset, k_offset, causal)
+    dq = flash_bwd_dq_plain(q, k, v, lse, dsum, g, q_offset, k_offset, causal,
+                            scale)
     dk, dv = flash_bwd_dkv_plain(q, k, v, lse, dsum, g, q_offset, k_offset,
-                                 causal)
+                                 causal, scale)
     return dq, dk, dv
 
 
@@ -323,15 +333,34 @@ def _on_cpu(*tensors) -> bool:
     return dev.type == "cpu"
 
 
-def _check_head_dim(d: int, family: str, what: str = "") -> None:
-    """Refuse a head dim that ``family`` (a key of ``KERNEL_HEAD_DIMS``)
-    has no kernel for."""
-    dims = KERNEL_HEAD_DIMS[family]
-    if d not in dims:
-        raise ValueError(
-            f"{what or family}: head_dim {d} has no CUDA kernel (built for "
-            f"{dims})"
-        )
+def kernel_head_dim(d: int, what: str) -> int:
+    """The built width a head dim ``d`` runs at (``KERNEL_HEAD_DIMS``): ``d``
+    itself where a kernel is built for it, else the next built width up, to
+    which the wrapper zero-pads. Raises for a head dim past the widest,
+    naming the kernel ``what``."""
+    for width in KERNEL_HEAD_DIMS:
+        if 1 <= d <= width:
+            return width
+    raise ValueError(
+        f"{what}: head_dim {d} has no CUDA kernel (built for "
+        f"{KERNEL_HEAD_DIMS})"
+    )
+
+
+def pad_head(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` [..., D] with zero columns appended up to ``width``: ``x``
+    itself where D is ``width``. A zero column adds an exact 0 to each
+    q.k dot product and a zero output column, which the wrappers cut
+    off."""
+    d = x.shape[-1]
+    if d == width:
+        return x
+    return torch.nn.functional.pad(x, (0, width - d))
+
+
+def _cut_head(x: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of a padded output, contiguous."""
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _refuse_grad(what: str, *tensors) -> None:
@@ -386,16 +415,15 @@ def flash_attention_call(
     b, h, t, d = q.shape
     tk = k.shape[2]
     name = "flash_fwd" if onepass else "flash_fwd_twoterm"
-    _check_head_dim(d, "flash_fwd_f32" if q.dtype == torch.float32
-                    else "flash_fwd_bf16", name)
+    width = kernel_head_dim(d, name)
     if onepass and q.dtype == torch.float32:
         name = "flash_fwd_f32"  # the CUDA-core body, a kernel of its own
     lib = _build.load()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (pad_head(x, width).contiguous() for x in (q, k, v))
     if q.dtype == torch.float32:  # the CUDA-core body copies 16 bytes a move
         q, k, v = _aligned16(q), _aligned16(k), _aligned16(v)
     o = torch.empty(
-        (b, h, t, d), dtype=q.dtype if normalize else torch.float32,
+        (b, h, t, width), dtype=q.dtype if normalize else torch.float32,
         device=q.device,
     )
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -404,16 +432,16 @@ def flash_attention_call(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.rtt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), b * h, t, tk, d, _DTYPE_CODES[q.dtype],
-            q_offset, k_offset, int(causal), int(normalize),
-            int(not normalize), int(onepass), d**-0.5, stream,
+            m.data_ptr(), l.data_ptr(), b * h, t, tk, width,
+            _DTYPE_CODES[q.dtype], q_offset, k_offset, int(causal),
+            int(normalize), int(not normalize), int(onepass), d**-0.5, stream,
         )
     _build.check(code, name)
     LAUNCHES[name] += 1
     if _flops.armed():
         _flops.note_flops(_flops.attention_fwd_flops(
             b * h, t, tk, d, q_offset, k_offset, causal))
-    return o, m, l
+    return _cut_head(o, d), m, l
 
 
 def _check_bwd(q, k, v, lse, dsum, g) -> None:
@@ -427,22 +455,25 @@ def _check_bwd(q, k, v, lse, dsum, g) -> None:
 
 
 def _bwd_launch(entry, name, q, k, v, lse, dsum, g, q_offset, k_offset,
-                causal, outs):
-    """Launch one backward kernel writing ``outs`` (fresh tensors)."""
+                causal, n_out):
+    """Launch one backward kernel; returns its ``n_out`` outputs (dq, or dk
+    and dv) in the inputs' types, at the true head dim."""
     b, h, t, d = q.shape
-    _check_head_dim(d, "flash_bwd", name)
+    width = kernel_head_dim(d, name)
     lib = _build.load()
-    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    q, k, v, g = (pad_head(x, width).contiguous() for x in (q, k, v, g))
     if q.dtype == torch.float32:  # the CUDA-core bodies copy 16 bytes a move
         q, k, v, g = (_aligned16(x) for x in (q, k, v, g))
     lse = lse.float().contiguous()
     dsum = dsum.float().contiguous()
+    outs = [torch.empty((q if n_out == 1 else k).shape, dtype=q.dtype,
+                        device=q.device) for _ in range(n_out)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), *(o.data_ptr() for o in outs),
-            b * h, t, k.shape[2], d, _DTYPE_CODES[q.dtype], int(q_offset),
+            b * h, t, k.shape[2], width, _DTYPE_CODES[q.dtype], int(q_offset),
             int(k_offset), int(causal), d**-0.5, stream,
         )
     _build.check(code, name)
@@ -451,6 +482,7 @@ def _bwd_launch(entry, name, q, k, v, lse, dsum, g, q_offset, k_offset,
         _flops.note_flops(_flops.attention_bwd_flops(
             name, b * h, t, k.shape[2], d, int(q_offset), int(k_offset),
             causal))
+    return [_cut_head(o, d) for o in outs]
 
 
 def flash_bwd_dq(q, k, v, lse, dsum, g, q_offset: int = 0, k_offset: int = 0,
@@ -460,9 +492,8 @@ def flash_bwd_dq(q, k, v, lse, dsum, g, q_offset: int = 0, k_offset: int = 0,
     if _on_cpu(q, k, v, lse, dsum, g):
         return flash_bwd_dq_plain(q, k, v, lse, dsum, g, int(q_offset),
                                   int(k_offset), causal)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("rtt_flash_bwd_dq", "flash_bwd_dq", q, k, v, lse, dsum, g,
-                q_offset, k_offset, causal, (dq,))
+    (dq,) = _bwd_launch("rtt_flash_bwd_dq", "flash_bwd_dq", q, k, v, lse,
+                        dsum, g, q_offset, k_offset, causal, 1)
     return dq
 
 
@@ -474,10 +505,8 @@ def flash_bwd_dkv(q, k, v, lse, dsum, g, q_offset: int = 0, k_offset: int = 0,
     if _on_cpu(q, k, v, lse, dsum, g):
         return flash_bwd_dkv_plain(q, k, v, lse, dsum, g, int(q_offset),
                                    int(k_offset), causal)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _bwd_launch("rtt_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, lse, dsum, g,
-                q_offset, k_offset, causal, (dk, dv))
+    dk, dv = _bwd_launch("rtt_flash_bwd_dkv", "flash_bwd_dkv", q, k, v, lse,
+                         dsum, g, q_offset, k_offset, causal, 2)
     return dk, dv
 
 
@@ -587,21 +616,18 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
         raise ValueError(f"kv_len must be [B] = [{b}], got {tuple(kv_len.shape)}")
     if _on_cpu(q, k, v, kv_len, *scales):
         return flash_decode_plain(q, k, v, kv_len, k_scale, v_scale)
-    if int8_kv:
-        family = "flash_decode_int8"
-    elif q.dtype == torch.float32 and k.dtype == torch.float32:
-        family = "flash_decode_f32"
-    else:
-        family = "flash_decode"
-    _check_head_dim(d, family)
+    width = kernel_head_dim(d, "flash_decode_int8" if int8_kv else "flash_decode")
     lib = _build.load()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # a head dim between the built widths: the gathered cache is copied,
+    # padded, on every call
+    q, k, v = (pad_head(x, width).contiguous() for x in (q, k, v))
     lens = kv_len.to(torch.int32).contiguous()
     o = torch.empty_like(q)
     if int8_kv:
-        return _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o)
+        return _cut_head(
+            _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o, d), d)
     k, v = _aligned16(k), _aligned16(v)
-    work = torch.empty(lib.rtt_flash_decode_work(b, h, tq, tk, d),
+    work = torch.empty(lib.rtt_flash_decode_work(b, h, tq, tk, width),
                        dtype=torch.float32, device=q.device)
     tickets = _build.tickets(q.device, b * h)
     with torch.cuda.device(q.device):
@@ -609,14 +635,14 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
         code = lib.rtt_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
             o.data_ptr(), work.data_ptr(), tickets.data_ptr(), work.numel(),
-            b, h, tq, tk, d, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+            b, h, tq, tk, width, _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
             d**-0.5, stream,
         )
     _build.check(code, "flash_decode")
     LAUNCHES["flash_decode"] += 1
     if _flops.armed():
         _flops.note_flops(_flops.decode_flops(h, tq, d, lens.tolist()))
-    return o
+    return _cut_head(o, d)
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -625,15 +651,16 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o):
-    """One launch of the split int8-cache decode kernel (K4b) into o."""
-    b, h, tq, d = q.shape
+def _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o, d):
+    """One launch of the split int8-cache decode kernel (K4b) into o, at
+    q's (built) head dim with the score scale of the true one, ``d``."""
+    b, h, tq, width = q.shape
     tk = k.shape[2]
     k, v = _aligned16(k), _aligned16(v)
     k_scale = k_scale.to(torch.float32).contiguous()
     v_scale = v_scale.to(torch.float32).contiguous()
     chunks = -(-tk // DECODE_CHUNK)
-    part = torch.empty((b * h, chunks, tq, 2 + d), dtype=torch.float32,
+    part = torch.empty((b * h, chunks, tq, 2 + width), dtype=torch.float32,
                        device=q.device)
     tickets = _build.tickets(q.device, b * h)
     with torch.cuda.device(q.device):
@@ -641,7 +668,7 @@ def _decode_int8(lib, q, k, v, lens, k_scale, v_scale, o):
         code = lib.rtt_flash_decode_int8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), lens.data_ptr(), o.data_ptr(), part.data_ptr(),
-            tickets.data_ptr(), b, h, tq, tk, d, _DTYPE_CODES[q.dtype],
+            tickets.data_ptr(), b, h, tq, tk, width, _DTYPE_CODES[q.dtype],
             DECODE_CHUNK, d**-0.5, stream,
         )
     _build.check(code, "flash_decode_int8")

@@ -348,18 +348,18 @@ def test_decode_pattern_names_every_instantiation():
         "flash_decode_pv_kernel D128 q bf16 cache f32",
         "flash_decode_scores_kernel D64 q bf16 cache bf16",
         "flash_decode_pv_kernel D16 q f32 cache f32"]
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 20 decode kernels"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 40 decode kernels"):
         chip_smoke.decode_report(entries)
 
 
 def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
-    """The f32 prefill body's eight instantiations <D, two-term> get a key
+    """The f32 prefill body's ten instantiations <D, two-term> get a key
     each with their SASS counts and LDS per FFMA; the bf16 forward's name
     is not theirs; a spill, a missing instantiation or no LDGSTS fails."""
     names = {
         f"_ZN41_GLOBAL__N__1_flash_attention_cu16flash_fwd_kernelILi{d}ELb{two}"
         f"EEEvPKfS2_S2_PfS3_S3_iiiiiiif": (d, two)
-        for d in (16, 32, 64, 128) for two in (0, 1)}
+        for d in (8, 16, 32, 64, 128) for two in (0, 1)}
     sm90 = "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv"
     ops = ["FFMA"] * 8 + ["LDS.128"] * 2 + ["LDGSTS.E.BYPASS.128"] + ["BAR.SYNC"]
     monkeypatch.setattr(chip_smoke, "sass_functions",
@@ -369,7 +369,7 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
                for name in [*names, sm90]}
     out = chip_smoke.f32_fwd_report(entries)
     assert sorted(out) == sorted(
-        f"flash_fwd_kernel D{d}{two}" for d in (16, 32, 64, 128)
+        f"flash_fwd_kernel D{d}{two}" for d in (8, 16, 32, 64, 128)
         for two in ("", " two-term"))
     row = out["flash_fwd_kernel D64"]
     assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (8, 2, 1, 1)
@@ -377,7 +377,7 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
     first = next(iter(names))
     with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
         chip_smoke.f32_fwd_report(entries | {first: entries[first] | {"spill_bytes": 8}})
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 8"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 10"):
         chip_smoke.f32_fwd_report({k: v for k, v in entries.items() if k != first})
     monkeypatch.setattr(chip_smoke, "sass_functions",
                         lambda lib: {name: ops[:-2] for name in names})
@@ -386,13 +386,14 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
 
 
 def test_f32_bwd_report_counts_each_instantiation(monkeypatch):
-    """The f32 backward's four instantiations (dq and dk/dv, D 64 and 128)
-    get a key each with their SASS counts; the bf16 backward's names are not
-    theirs; a spill, a missing instantiation or no LDS fails."""
+    """The f32 backward's ten instantiations (dq and dk/dv, D 8, 16, 32, 64
+    and 128) get a key each with their SASS counts; the bf16 backward's
+    names are not theirs; a spill, a missing instantiation or no LDS
+    fails."""
     names = {
         f"_ZN40_GLOBAL__N__1_flash_backward_cu{len(k) + 11}flash_bwd_{k}_kernelILi{d}"
         "EEEvNS_7BwdArgsE": (k, d)
-        for k in ("dq", "dkv") for d in (64, 128)}
+        for k in ("dq", "dkv") for d in (8, 16, 32, 64, 128)}
     sm90 = ["_ZN45_GLOBAL__N__1_flash_backward_sm90_cu24flash_bwd_dq_sm90_kernelILi128EEEv",
             "_ZN45_GLOBAL__N__1_flash_backward_sm90_cu25flash_bwd_dkv_sm90_kernelILi64EEEv"]
     ops = ["FFMA"] * 16 + ["LDS.128"] * 4 + ["LDGSTS.E.BYPASS.128"] * 2 + ["BAR.SYNC"]
@@ -402,15 +403,15 @@ def test_f32_bwd_report_counts_each_instantiation(monkeypatch):
     entries = {name: {"registers": 227, "spill_bytes": 0, "static_smem_bytes": 0}
                for name in [*names, *sm90]}
     out = chip_smoke.f32_bwd_report(entries)
-    assert sorted(out) == ["flash_bwd_dkv_kernel D128", "flash_bwd_dkv_kernel D64",
-                           "flash_bwd_dq_kernel D128", "flash_bwd_dq_kernel D64"]
+    assert sorted(out) == sorted(f"flash_bwd_{k}_kernel D{d}" for k in ("dq", "dkv")
+                                 for d in (8, 16, 32, 64, 128))
     row = out["flash_bwd_dkv_kernel D64"]
     assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (16, 4, 2, 1)
     assert row["lds_per_ffma"] == 0.25 and row["sass_instructions"] == 23
     first = next(iter(names))
     with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
         chip_smoke.f32_bwd_report(entries | {first: entries[first] | {"spill_bytes": 4}})
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 4"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 10"):
         chip_smoke.f32_bwd_report({k: v for k, v in entries.items() if k != first})
     monkeypatch.setattr(chip_smoke, "sass_functions",
                         lambda lib: {name: ["FFMA", "LDGSTS"] for name in names})
@@ -1424,7 +1425,9 @@ def test_world2_verdict_fails_on_a_planted_fault(store_alarm_guard, etl_clean,
         chip_smoke.world2_verdict(w2)
 
 
-TINY_CHAOS = {"rows": 1536, "host_rows": {"executor_kill_with_service": 40_000}}
+# the model scenarios run on the CPU in tests/test_torch_chaos.py
+TINY_CHAOS = {"rows": 1536, "host_rows": {"executor_kill_with_service": 40_000},
+              "models": ()}
 
 
 def test_phase_chaos_on_the_cpu(store_alarm_guard, etl_clean, monkeypatch):
@@ -1459,7 +1462,31 @@ def test_phase_chaos_fails_a_kill_that_loses_nothing(store_alarm_guard,
                         lambda session, handle=None, index=0: handle)
     monkeypatch.setattr(chip_smoke, "chaos_segments", set)
     with pytest.raises(chip_smoke.SmokeFailure, match="the killed fit"):
-        chip_smoke.phase_chaos("cpu", rows=1536, host_rows={})
+        chip_smoke.phase_chaos("cpu", rows=1536, host_rows={}, models=())
+
+
+def test_phase_chaos_starts_its_cluster_with_a_torch_template(monkeypatch):
+    """The runner's first scenario starts the cluster and its fork
+    template: ``phase_chaos`` arms ``WARM_TORCH_ENV`` before it (a
+    replacement replica forks with torch imported) and restores the
+    environment after."""
+    from raydp_tpu_torch import chaos
+    from raydp_tpu_torch.cluster.zygote import WARM_TORCH_ENV
+
+    seen = {}
+
+    def run(scenarios, device=None):
+        seen["env"] = os.environ.get(WARM_TORCH_ENV)
+        seen["first"] = scenarios[0].__name__
+        return {"scenarios": []}
+
+    monkeypatch.delenv(WARM_TORCH_ENV, raising=False)
+    monkeypatch.setattr(chaos, "run", run)
+    monkeypatch.setattr(chip_smoke, "chaos_verdict", lambda *args: None)
+    monkeypatch.setattr(chip_smoke, "chaos_segments", set)
+    chip_smoke.phase_chaos("cpu", rows=64, host_rows={})
+    assert seen == {"env": "1", "first": "scenario_mid_fit"}
+    assert WARM_TORCH_ENV not in os.environ
 
 
 def _chaos_report(**entry):
@@ -1467,6 +1494,40 @@ def _chaos_report(**entry):
                 "byte_identical": True, "reexecuted_tasks": 2,
                 "sanitizer": {"threads": 0}} | entry
     return {"scenarios": [scenario], "sanitizer_findings": 0, "ok": True}
+
+
+LOAD_OK = {"name": "replica_kill_during_load", "ok": True,
+           "byte_identical": True, "dropped_requests": 0, "replacements": 1,
+           "pool_healed": True, "sanitizer": {"threads": 0}}
+DECODE_OK = {"name": "replica_kill_during_decode", "ok": True,
+             "token_identical": True, "streams_complete": True, "errors": [],
+             "failovers": 1, "pool_healed": True, "sanitizer": {"threads": 0}}
+
+
+@pytest.mark.parametrize("load,decode,message", [
+    ({}, {}, None),
+    ({"dropped_requests": 1}, {}, "killed under load"),
+    ({"byte_identical": False}, {}, "killed under load"),
+    ({"replacements": 0}, {}, "killed under load"),
+    ({"pool_healed": False}, {}, "killed under load"),
+    ({}, {"token_identical": False}, "killed mid-decode"),
+    ({}, {"streams_complete": False}, "killed mid-decode"),
+    ({}, {"failovers": 0}, "killed mid-decode"),
+    ({}, {"errors": ["TimeoutError()"]}, "killed mid-decode"),
+    ({}, {"pool_healed": False}, "killed mid-decode"),
+])
+def test_chaos_verdict_gates_the_model_scenarios(load, decode, message):
+    """``phase_chaos``'s model scenarios (replicas on the card): zero
+    dropped requests and bitwise responses, whole streams of the clean
+    run's tokens, at least one failover each, the pool healed."""
+    report = _chaos_report()
+    report["scenarios"] += [LOAD_OK | load, DECODE_OK | decode]
+    fits = [{"w": torch.zeros(1)}] * 2
+    if message is None:
+        chip_smoke.chaos_verdict(report, fits, "cpu", [])
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure, match=message):
+            chip_smoke.chaos_verdict(report, fits, "cpu", [])
 
 
 @pytest.mark.parametrize("report,fits,leftover,message", [
@@ -1510,3 +1571,47 @@ def test_phase_examples_on_the_cpu(store_alarm_guard, etl_clean, monkeypatch):
     assert rec["trace_smoke"]["trace_ok"]
     assert rec["launches"] == {"interaction_fwd": 0, "flash_fwd_f32": 0,
                                "flash_decode": 0}
+
+
+def test_phase_small_lm_on_the_cpu(store_alarm_guard, etl_clean):
+    """``phase_small_lm`` on the CPU: chaos.DECODE_LM (D 16) and its 4-head
+    variant (D 8) trained with flash in f32 and bf16 against
+    ``attn_impl="full"`` within the phase's limits, with no launch (the
+    plain versions launch nothing); each served from an int8 cache and as
+    a bf16 model through ``serve.deploy``, every stream to its budget, the
+    int8 tokens counted against the f32 engine's; the record's keys and
+    its summary line."""
+    rec = chip_smoke.phase_small_lm(torch.device("cpu"))
+    assert set(rec["lms"]) == {"D16", "D8"}
+    assert rec["launches_by_head_dim"] == {"16": {}, "8": {}}
+    for lm in rec["lms"].values():
+        for kind, (loss_limit, grad_limit) in (
+                ("float32", chip_smoke.SMALL_LM_LIMITS[torch.float32]),
+                ("bfloat16", chip_smoke.SMALL_LM_LIMITS[torch.bfloat16])):
+            assert lm[kind]["loss_rel"] <= loss_limit
+            assert lm[kind]["worst_grad_rel"] <= grad_limit
+            assert len(lm[kind]["losses"]) == chip_smoke.SMALL_LM["steps"]
+        serving = lm["serving"]
+        budget = chip_smoke.SMALL_LM["max_new"]
+        for leg in ("int8", "bf16"):
+            assert [len(t) for t in serving[leg]["tokens"]] == [budget] * len(
+                serving["prompts"])
+        assert 0 <= serving["int8"]["tokens_as_f32"] <= budget * len(
+            serving["prompts"])
+    line = chip_smoke.small_lm_summary(rec, "cpu")
+    assert set(line["small_lm"]) == {"D16", "D8", "seconds",
+                                     "launches_by_head_dim"}
+
+
+def test_phase_small_lm_fails_a_wrong_gradient(monkeypatch):
+    """A planted fault: dq off by 1% in the flash backward's plain version;
+    the f32 step no longer agrees with ``attn_impl="full"``, and the phase
+    fails before it serves."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    plain = fa.flash_bwd_dq_plain
+    monkeypatch.setattr(fa, "flash_bwd_dq_plain",
+                        lambda *a, **k: plain(*a, **k) * 1.01)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="float32 flash step disagrees with attn_impl"):
+        chip_smoke.phase_small_lm(torch.device("cpu"))

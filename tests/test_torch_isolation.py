@@ -331,17 +331,19 @@ def test_mesh_feeds_without_device_raise(no_cuda):
 
 
 def test_cuda_only_paths_refuse_cpu_kernels():
-    """On the CPU the wrappers take the plain versions; a head dim the CUDA
-    kernels were not built for is refused before any launch on the card,
-    and mixed devices are refused outright."""
+    """On the CPU the wrappers take the plain versions; a head dim past the
+    widest the CUDA kernels were built for is refused before any launch on
+    the card (any head dim up to it runs, padded to a built width), and
+    mixed devices are refused outright."""
     from raydp_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(ValueError, match="flash_fwd: head_dim 129"):
+        fa.kernel_head_dim(129, "flash_fwd")
     with pytest.raises(ValueError):
-        fa._check_head_dim(16, "flash_fwd_bf16")
-    with pytest.raises(ValueError):
-        fa._check_head_dim(16, "flash_bwd")
-    fa._check_head_dim(16, "flash_fwd_f32")  # the small LMs' heads
+        fa.kernel_head_dim(256, "flash_bwd_dq")
+    assert fa.kernel_head_dim(16, "flash_bwd_dq") == 16  # the small LMs' heads
+    assert fa.kernel_head_dim(24, "flash_decode_int8") == 32
     with pytest.raises(ValueError, match="different devices"):
         fa._on_cpu(q, torch.zeros(1, device="meta"))
     assert fa._on_cpu(q, q)

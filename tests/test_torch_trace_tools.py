@@ -10,10 +10,9 @@ and ``tools/trace_analyze.py``, and the kernels the small LMs need.
 - On that one exported trace, the port's ``records_from_trace`` and its
   report (``obs/analysis.py``'s ``attribute`` and ``format_report``) equal
   those of ``tools/trace_analyze.py`` over the JAX package's analysis.
-- The head dims that the f32 forward and the f32-cache decode advertise
-  (``ops.flash_attention.KERNEL_HEAD_DIMS``) include every head dim of the
+- Every attention family has a kernel built for every head dim of the
   flash LMs of the port's ``chaos.py`` and ``tools/trace_smoke.py``, read
-  from those modules.
+  from those modules (``ops.flash_attention.KERNEL_HEAD_DIMS``).
 """
 
 import json
@@ -95,9 +94,10 @@ def test_records_and_report_equal_the_jax_tools(smoke_trace, root):
 
 
 def test_small_lm_head_dims_have_kernels():
-    """The flash LMs of the chaos scenarios and of trace_smoke serve on the
-    card: their head dims are among those the f32 forward (prefill) and
-    the f32-cache decode are built for."""
+    """The flash LMs of the chaos scenarios and of trace_smoke train and
+    serve on the card in every family: their head dim is one that the
+    forward and backward (f32 and bf16) and both decodes are built for, so
+    it runs unpadded."""
     from raydp_tpu_torch import chaos
     from raydp_tpu_torch.ops import flash_attention as fa
     from raydp_tpu_torch.tools import trace_smoke
@@ -105,11 +105,8 @@ def test_small_lm_head_dims_have_kernels():
     dims = {lm["d_model"] // lm["num_heads"]
             for lm in (chaos.DECODE_LM, trace_smoke.LM)}
     assert dims == {16}
-    for family in ("flash_fwd_f32", "flash_decode_f32"):
-        assert dims <= set(fa.KERNEL_HEAD_DIMS[family]), family
+    assert dims <= set(fa.KERNEL_HEAD_DIMS)
+    for family in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                   "flash_decode", "flash_decode_int8"):
         for d in dims:
-            fa._check_head_dim(d, family)
-    # the families still refusing them are the open items of the roadmap
-    for family in ("flash_fwd_bf16", "flash_bwd", "flash_decode",
-                   "flash_decode_int8"):
-        assert not dims & set(fa.KERNEL_HEAD_DIMS[family]), family
+            assert fa.kernel_head_dim(d, family) == d, family
