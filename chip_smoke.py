@@ -14,22 +14,22 @@ Phases; any failure exits non-zero and prints no result line:
    build seconds; for the tensor-core kernels (the bf16 forward
    ``flash_fwd_sm90_kernel``, the bf16 backward
    ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel`` and the
-   int8 product ``int8_gemm_sm90_kernel``, thirteen instantiations) the
+   int8 product ``int8_gemm_sm90_kernel``, seventeen instantiations) the
    registers and spills ``ptxas`` reports and the wgmma (``HGMMA`` for
    bf16, ``IGMMA`` for s8) and ``UTMALDG`` (TMA load) instructions
    ``cuobjdump -sass`` finds in the built library (no spill, and both
    present, or it fails; the bf16 forward and backward take head dims 8,
    16 and 32 through their D 64 instantiations); for the split
    f32/bf16-cache decode (``flash_decode_scores_kernel`` and
-   ``flash_decode_pv_kernel``, forty instantiations: D 8, 16, 32, 64 and
-   128 for each pair of types) its registers, spills and static shared memory (no
+   ``flash_decode_pv_kernel``, forty-eight instantiations: D 8, 16, 32, 64,
+   128 and 256 for each pair of types) its registers, spills and static shared memory (no
    spill, or it fails); for K5 (``quantize_stochastic_rows_kernel``'s two
    register bodies and ``quantize_stochastic_kernel``) and K1
    (``interaction_fwd_kernel``, f32 and bf16) registers, spills, SASS
    instruction counts and K5's instructions per group of 4 elements (no
-   spill, or it fails); for the CUDA-core f32 bodies (the forward's ten
-   ``flash_fwd_kernel`` and the backward's ten ``flash_bwd_dq_kernel`` /
-   ``flash_bwd_dkv_kernel`` instantiations, D 8 to 128) registers, spills and the SASS
+   spill, or it fails); for the CUDA-core f32 bodies (the forward's twelve
+   ``flash_fwd_kernel`` and the backward's twelve ``flash_bwd_dq_kernel`` /
+   ``flash_bwd_dkv_kernel`` instantiations, D 8 to 256) registers, spills and the SASS
    ``FFMA``/``LDS``/``LDGSTS`` counts (no spill, or it fails).
 2. Kernels vs their plain PyTorch versions on the card, at the slices'
    shapes: ``flash_fwd`` and ``flash_fwd_twoterm`` (causal and not, offsets
@@ -67,7 +67,15 @@ Phases; any failure exits non-zero and prints no result line:
    [1,2,2048,D], against their plain versions at the limits above, two
    launches bitwise, the decodes' edges, decode == the f32 prefill row bit
    for bit, the bf16 decode row within ``bf16_limit`` of the bf16 prefill
-   row), and
+   row); every family again at head dims 256 (bench.py's LM at d_model
+   2048, 8 heads) and 192 (zero-padded to 256) (``check_wide_heads``: the
+   forward and backward in f32 and bf16 at [1,8,2048,D] and the hard
+   cases of ``wide_forward_cases`` / ``wide_backward_cases``, the bf16
+   forward and backward at the training shape [2,8,8192,256], K4a and K4b
+   at the serving shape, and at D 256 decode == the f32 prefill row bit
+   for bit at every tile boundary, the decodes' edges and the bf16 decode
+   row within ``bf16_limit`` of the bf16 prefill row; the limits above,
+   two launches bitwise), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
@@ -346,6 +354,19 @@ Phases; any failure exits non-zero and prints no result line:
    int8 tokens that are an f32 engine's counted). A ``{"small_lm":
    {...}}`` line gives the gaps, the serving seconds and the launches by
    head dim.
+   Then bench.py's LM at its 2048 width (``phase_wide_lm``, after
+   phase_small_lm; ``--wide-lm`` runs it alone): vocab 2048, d_model 2048,
+   8 heads of 256, 4 layers, seeded random weights. bf16 training with
+   ``attn_impl="flash"`` at batch 2, T 8192 (one warm and 3 timed Adam
+   steps), its loss and gradients against ``attn_impl="full"`` at T 2048
+   (grad_check's bounds); f32 training at batch 1, T 2048 (one warm and 2
+   timed steps) against ``"full"`` at phase_train_f32's bounds (loss rtol
+   1e-6, gradients 1e-4); the loss falling, the forward and both backward
+   kernels launching once a layer a step; then ``DecodeEngine`` at
+   ENGINE's shape for 4 streams of 64-1500 tokens from an f32 cache, as a
+   bf16 model and from an int8 cache, one stream's logits held to the
+   plain path; every head-dim-256 kernel launched; a ``{"wide_lm":
+   {...}}`` line.
    Then the chaos plane (``phase_chaos``, after the times, before the
    leftovers): under ``RAYDP_TPU_SANITIZE=donation,lockdep,leaks-strict``
    (the environment restored after), ``raydp_tpu_torch.chaos.run`` of
@@ -397,7 +418,10 @@ Before them a ``{"pipeline": {...}}`` line sums up ``phase_pipeline``, a
 ``phase_etl``, an ``{"estimators": {...}}`` line ``phase_estimators``,
 a ``{"small_heads": {...}}`` line every attention family at head dims
 8, 16, 24 and 32 (errors and times), a ``{"small_lm": {...}}`` line
-``phase_small_lm``, an ``{"examples": {...}}`` line
+``phase_small_lm``, a ``{"wide_heads": {...}}`` line every family at head
+dims 256 and 192 (errors, and at 256 the times by events and by the
+profiler beside the plain version's, SDPA's and the bound), a
+``{"wide_lm": {...}}`` line ``phase_wide_lm``, an ``{"examples": {...}}`` line
 ``phase_examples``, a ``{"deploy": {...}}`` line ``phase_deploy`` and a
 ``{"chaos": {...}}`` line ``phase_chaos``, each
 beside the card's name and power limit. The
@@ -407,9 +431,9 @@ and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
 "device": {...}}``. The full record also goes to
 ``chiprun_out/chip_smoke.json``.
 
-    python3 chip_smoke.py --planted-faults
+    python3 chip_smoke.py --planted-faults [NAME ...]
 
-plants each fault of ``PLANTED_FAULTS`` in its own copy of the source it
+plants each fault of ``PLANTED_FAULTS`` (or each one named) in its own copy of the source it
 names (the bf16 forward, the bf16 backward, the f32 forward, the f32
 backward, the two decode kernels, the int8 product, K5, K1; the
 estimator's resume, the wire's widen and the streamed fit's segments)
@@ -417,7 +441,8 @@ under ``build/planted/``, builds the copy and runs there ``chip_smoke.py
 --bf16-checks`` for a fault in a CUDA source (phase 2's bf16 forward,
 backward and decode checks, the f32 bodies' edges, the f32/bf16-cache
 decode's bitwise checks and the int8 product's, at the serving and
-training shapes alone, then the K1 and K5 checks) or ``chip_smoke.py
+training shapes alone, every family at head dims 256 and 192, then the K1
+and K5 checks) or ``chip_smoke.py
 --fit-checks`` for one in a Python module (``phase_fit``'s steps 1-3: the
 streamed fits and their per-step parity, the widen and the
 crash-and-retry fits); it exits 0 only if every copy fails them with a
@@ -430,6 +455,14 @@ times and the launch floor, and the host's time a call of each step of the
 K1 and K5 wrappers and of the other short wrappers (``launch_times``:
 ``time.perf_counter`` over 1000 calls); it writes
 ``chiprun_out/k1_k5.json``.
+
+    python3 chip_smoke.py --wide-heads
+    python3 chip_smoke.py --wide-lm
+
+run phase 1 and then every attention family at head dims 256 and 192
+(``check_wide_heads`` and ``wide_head_times``, a ``{"wide_heads":
+{...}}`` line), or phase 1 and ``phase_wide_lm`` (a ``{"wide_lm": {...}}``
+line), alone.
 """
 
 from __future__ import annotations
@@ -494,6 +527,14 @@ DECODE_BITS_ODD = (1000, [63, 64, 65, 999, 1000])
 SMALL_HEAD_DIMS = (8, 16, 24, 32)
 TRACE_LM = dict(heads=2, capacity=64, decode_lens=[1, 4, 11, 64])
 SMALL_HEADS_T = 2048
+# head dims past 128: 256, bench.py's LM at BENCH_LM_D=2048 (bench.py fixes
+# 8 heads; Gemma 7B's and Gemma 2 9B's heads), and 192, for which no kernel
+# is built: it runs zero-padded to 256. Held at the shapes of that LM's
+# paths (the prefill [1, 8, 2048, D], the training step [2, 8, 8192, D] in
+# bf16, the f32 step [1, 8, 2048, D], decode rows q [4, 8, 1, D] against a
+# cache of 2048 at DECODE_LENS) and at hard cases of 2 heads
+WIDE_HEAD_DIMS = (256, 192)
+WIDE_HEADS = 8
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -823,13 +864,13 @@ SM90_KERNELS = {
     "int8_gemm_sm90": (
         r"int8_gemm_sm90_kernelILb(\d)E(f|13__nv_bfloat16)Lb(\d)E", "IGMMA"),
 }
-SM90_INSTANTIATIONS = 13
+SM90_INSTANTIATIONS = 17
 
 
 def sm90_report(entries: dict) -> dict:
     """The tensor-core kernels' instantiations among ptxas's ``entries``
-    (the forward at D 64 and 128, one-pass and two-term; dq and dk/dv at D
-    64 and 128; the int8 product in its two modes, f32 and bf16 out, and
+    (the forward at D 64, 128 and 256, one-pass and two-term; dq and dk/dv
+    at D 64, 128 and 256; the int8 product in its two modes, f32 and bf16 out, and
     the large mode's bf16 epilogue through TMA stores):
     registers and spills, and the SASS counts that show each runs on tensor
     cores (HGMMA for bf16, IGMMA for s8) through TMA. Fails on a spill, a
@@ -857,7 +898,7 @@ def sm90_report(entries: dict) -> dict:
 # ptxas's mangled names (a repeated bf16 is a substitution, S..._)
 DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)EEv")
 DECODE_TYPES = re.compile(r"f|13__nv_bfloat16|S\d*_")
-DECODE_INSTANTIATIONS = 40  # D 8/16/32/64/128 x 4 type pairs x 2 kernels
+DECODE_INSTANTIATIONS = 48  # D 8/16/32/64/128/256 x 4 type pairs x 2 kernels
 
 
 def _decode_key(found: re.Match) -> str:
@@ -868,7 +909,8 @@ def _decode_key(found: re.Match) -> str:
 
 def decode_report(entries: dict) -> dict:
     """The split decode's instantiations among ptxas's ``entries`` (scores
-    and p.v kernels at D 8, 16, 32, 64 and 128, f32 and bf16 q and cache):
+    and p.v kernels at D 8, 16, 32, 64, 128 and 256, f32 and bf16 q and
+    cache):
     registers, spills and static shared memory. Fails on a spill or a
     missing one."""
     out = {_decode_key(found): row for name, row in entries.items()
@@ -887,7 +929,7 @@ def decode_report(entries: dict) -> dict:
 # (expf's exp2)
 F32_FWD_KERNEL = re.compile(r"flash_fwd_kernelILi(\d+)ELb(\d)E")
 F32_FWD_SASS_OPS = ("FFMA", "LDS", "LDGSTS", "BAR", "SHFL", "MUFU")
-F32_FWD_INSTANTIATIONS = 10  # D 8, 16, 32, 64, 128 x one-pass, two-term
+F32_FWD_INSTANTIATIONS = 12  # D 8, 16, 32, 64, 128, 256 x one-pass, two-term
 
 
 def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
@@ -918,8 +960,8 @@ def cuda_core_report(entries: dict, pattern: re.Pattern, key, expected: int,
 
 
 def f32_fwd_report(entries: dict) -> dict:
-    """The f32 prefill body's instantiations (D 8, 16, 32, 64 and 128,
-    one-pass and two-term) through ``cuda_core_report``."""
+    """The f32 prefill body's instantiations (D 8, 16, 32, 64, 128 and
+    256, one-pass and two-term) through ``cuda_core_report``."""
     return cuda_core_report(
         entries, F32_FWD_KERNEL,
         lambda found: (f"flash_fwd_kernel D{found.group(1)}"
@@ -928,15 +970,15 @@ def f32_fwd_report(entries: dict) -> dict:
 
 
 # the f32 backward's instantiations <D> in ptxas's mangled names (dq and
-# dk/dv, D 8, 16, 32, 64 and 128); the bf16 bodies are
+# dk/dv, D 8, 16, 32, 64, 128 and 256); the bf16 bodies are
 # flash_bwd_*_sm90_kernel
 F32_BWD_KERNEL = re.compile(r"flash_bwd_(dq|dkv)_kernelILi(\d+)EE")
-F32_BWD_INSTANTIATIONS = 10
+F32_BWD_INSTANTIATIONS = 12
 
 
 def f32_bwd_report(entries: dict) -> dict:
-    """The f32 backward's instantiations (dq and dk/dv, D 8, 16, 32, 64 and
-    128) through ``cuda_core_report``."""
+    """The f32 backward's instantiations (dq and dk/dv, D 8, 16, 32, 64,
+    128 and 256) through ``cuda_core_report``."""
     return cuda_core_report(
         entries, F32_BWD_KERNEL,
         lambda found: f"flash_bwd_{found.group(1)}_kernel D{found.group(2)}",
@@ -1035,6 +1077,7 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
     for cache in ("f32", "bf16", "int8"):
         out.update(check_decode_edges(gen, device, bh_heads, t, d, cache))
     out["small_heads"] = check_small_heads(gen, device)
+    out["wide_heads"] = check_wide_heads(gen, device)
     out.update(check_interaction(gen, device))
     out.update(check_stochastic(gen, device))
     out.update(check_quantize(gen, device))
@@ -1273,6 +1316,17 @@ def small_head_family(key: str) -> str:
     return "flash_fwd_f32" if f32 else "flash_fwd"
 
 
+def fold_head_dim(out: dict, worst: dict, d: int, checks: dict) -> None:
+    """Add a check's results at head dim ``d`` to ``out`` (keys prefixed
+    ``D<d>``) and fold them into ``worst``: per family and head dim, the
+    largest |kernel - plain| and (bf16) |kernel - plain| / limit."""
+    for key, value in checks.items():
+        out[f"D{d} {key}"] = value
+        row = worst.setdefault(f"{small_head_family(key)} D{d}", {})
+        kind = "limit_ratio" if key.endswith("limit_ratio") else "max_abs_err"
+        row[kind] = max(row.get(kind, 0.0), value)
+
+
 def small_head_backward_cases(heads, t, cap) -> tuple:
     """The backward's cases at the small heads, (q shape without D, Tk,
     q_off, k_off, causal): the trace LM's prefill (capacity 64) and [1, 2,
@@ -1314,13 +1368,7 @@ def check_small_heads(gen, device) -> dict:
     out, worst = {}, {}
     heads, cap = TRACE_LM["heads"], TRACE_LM["capacity"]
     t = SMALL_HEADS_T
-
-    def fold(d, checks):
-        for key, value in checks.items():
-            out[f"D{d} {key}"] = value
-            row = worst.setdefault(f"{small_head_family(key)} D{d}", {})
-            kind = "limit_ratio" if key.endswith("limit_ratio") else "max_abs_err"
-            row[kind] = max(row.get(kind, 0.0), value)
+    fold = functools.partial(fold_head_dim, out, worst)
 
     for d in SMALL_HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1374,6 +1422,81 @@ def decode_gap_bf16(q, k, v, lens) -> dict:
         "design)")
     require(ratio <= 1.0, "bf16 decode row is off the prefill row")
     return {"max_abs": worst, "limit_ratio": ratio}
+
+
+def wide_forward_cases(heads, t, d) -> tuple:
+    """The forward's cases at a head dim past 128, (q shape, Tk, q_off,
+    k_off, causal, normalize): the prefill [1, heads, t, D] causal and not,
+    and with offsets through the stats surface; at 2 heads T 200 against Tk
+    136, causal (ragged off every tile), q_off > 0 against more keys, and
+    q_off < k_off (rows with no live key)."""
+    return (((1, heads, t, d), t, 0, 0, True, True),
+            ((1, heads, t, d), t, 0, 0, False, True),
+            ((1, heads, t, d), t, t // 4, t // 8, True, False),
+            ((1, 2, 200, d), 136, 0, 0, True, True),
+            ((1, 2, 512, d), 812, 300, 0, True, False),
+            ((1, 2, 512, d), 512, 0, 300, True, True))
+
+
+def wide_backward_cases(heads, t, d) -> tuple:
+    """The backward's cases at a head dim past 128, (q shape, Tk, q_off,
+    k_off, causal): [1, heads, t, D] causal (the f32 step's shape), T 1500
+    causal (off the tiles), T 200 against Tk 136 not causal, and q_off <
+    k_off (rows with no live key), the last three at 2 heads."""
+    return (((1, heads, t, d), t, 0, 0, True),
+            ((1, 2, 1500, d), 1500, 0, 0, True),
+            ((1, 2, 200, d), 136, 0, 0, False),
+            ((1, 2, 512, d), 512, 0, 300, True))
+
+
+def check_wide_heads(gen, device) -> dict:
+    """Every attention family at the head dims of ``WIDE_HEAD_DIMS`` (256,
+    bench.py's LM at d_model 2048; 192, zero-padded to 256), each against
+    its plain version and bitwise over two launches, at the limits of
+    phase 2 (f32 forward and decode 1e-5, backward 1e-4; bf16 within
+    ``bf16_limit``, ``bf16_bwd_limit``, ``bf16_decode_limit``):
+
+    - the forward, f32 and bf16, both bodies (``wide_forward_cases``);
+    - the backward, f32 and bf16 (``wide_backward_cases``), rows with no
+      live key getting dq 0;
+    - at D 256 only, the bf16 training step's shape [2, 8, 8192, 256]
+      causal, the forward and the backward (``check_train_shape``);
+    - K4a (f32 and bf16 q, an f32 cache) and K4b (against K4a on the
+      dequantized cache and its plain version) at the serving shape,
+      ``check_decode``; at D 256 also decode == the f32 prefill row bit for
+      bit at every tile and block boundary, tq 1 and 3, with the bf16
+      identities (``check_decode_bits``), the edges from f32, bf16 and int8
+      caches (``check_decode_edges``, 2 heads) and the bf16 decode row
+      within ``bf16_limit`` of the bf16 prefill row.
+
+    ``worst`` holds, per family and head dim, the largest |kernel - plain|
+    and (bf16) the largest |kernel - plain| / limit."""
+    out, worst = {}, {}
+    t = SMALL_HEADS_T
+    fold = functools.partial(fold_head_dim, out, worst)
+
+    for d in WIDE_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            fold(d, forward_cases(gen, device, dtype,
+                                  wide_forward_cases(WIDE_HEADS, t, d)))
+            fold(d, check_backward_cases(gen, device, WIDE_HEADS, dtype,
+                                         wide_backward_cases(WIDE_HEADS, t, d)))
+        fold(d, check_decode(gen, device, WIDE_HEADS, t, d, DECODE_LENS))
+        if d != 256:
+            continue
+        fold(d, check_train_shape(gen, device, WIDE_HEADS, d))
+        fold(d, check_decode_bits(gen, device, WIDE_HEADS, t, DECODE_LENS,
+                                  dims=(d,)))
+        for cache in ("f32", "bf16", "int8"):
+            fold(d, check_decode_edges(gen, device, 2, t, d, cache))
+        qf, kf, vf = (_randn(gen, (1, WIDE_HEADS, t, d), torch.float32, device)
+                      for _ in range(3))
+        out[f"D{d} decode_vs_prefill_bf16"] = decode_gap_bf16(qf, kf, vf,
+                                                              DECODE_LENS)
+    out["worst"] = worst
+    log(f"wide head dims {WIDE_HEAD_DIMS}: worst |kernel - plain| (and bf16 "
+        f"|kernel - plain| / limit) {worst}")
+    return out
 
 
 def finish_within(fn, what: str, seconds: float = 60.0):
@@ -2009,7 +2132,8 @@ def check_model_logits(model, ref, prompt, capacity) -> dict:
             toks2[0, n] = first
             ref_row = ref(toks2)[0, n]
             out["decode_int8" if int8 else "decode"] = max_abs(step[0, 0], ref_row)
-    log(f"model logits vs plain attention path (bf16, prompt {n}): "
+    log(f"model logits vs plain attention path ({str(model.dtype)[6:]}, "
+        f"prompt {n}): "
         f"prefill {out['prefill']:.3e}, first decode step {out['decode']:.3e} "
         f"(atol 5e-2); int8 cache step {out['decode_int8']:.3e} (reported)")
     require(out["prefill"] <= 5e-2 and out["decode"] <= 5e-2,
@@ -2098,13 +2222,15 @@ def drain_streams(eng, sids, timeout_s: float, on_poll=None) -> dict:
     return tokens
 
 
-def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0) -> dict:
-    """Drive the engine over every prompt; counts are zeroed just before
-    and read just after."""
-    new_tokens = ENGINE["max_new_tokens"]
+def serve(model, prompts, int8: bool, device, timeout_s: float = 600.0,
+          engine: dict | None = None) -> dict:
+    """Drive the engine (``engine``'s settings, ENGINE's by default) over
+    every prompt; counts are zeroed just before and read just after."""
+    engine = ENGINE if engine is None else engine
+    new_tokens = engine["max_new_tokens"]
     fa.reset_launches()
     qz.reset_launches()
-    with DecodeEngine(model, int8_kv=int8, device=device, **ENGINE) as eng:
+    with DecodeEngine(model, int8_kv=int8, device=device, **engine) as eng:
         t0 = time.perf_counter()
         sids = [eng.submit(p, new_tokens) for p in prompts]
         tokens = drain_streams(eng, sids, timeout_s)
@@ -3325,6 +3451,204 @@ def small_lm_summary(rec: dict, nvidia_smi: str) -> dict:
         "seconds": rec["seconds"],
         "launches_by_head_dim": rec["launches_by_head_dim"]},
         "nvidia_smi": nvidia_smi}
+
+
+# ---------------------------------------------------------------------------
+# phase_wide_lm: bench.py's LM at its 2048 width, 8 heads of 256
+# ---------------------------------------------------------------------------
+
+# bench.py's LM at BENCH_LM_D=2048 (bench.py fixes 8 heads: head dim 256),
+# its other widths MODEL's. Its paths: bf16 training at TRAIN's shape
+# (batch 2, T 8192, Adam 3e-4; 1 warm + 3 timed steps, 8 in phase_train)
+# with flash against attn_impl="full" at grad_check's T 2048 and bounds;
+# f32 training at TRAIN_F32's shape (batch 1, T 2048; 1 warm + 2 timed
+# steps), against "full" at phase_train_f32's bounds; serving at ENGINE's
+# shape from an f32 cache (the f32 model), as a bf16 model (on the engine's
+# f32 cache) and from an int8 cache (the f32 model), 4 streams of
+# PROMPT_LENS (phase_serve's 8 cut to 4)
+WIDE_LM = dict(model=dict(MODEL, d_model=2048),
+               bf16=dict(batch=2, seq=8192, steps=3),
+               f32=dict(batch=1, seq=2048, steps=2), grad_t=GRAD_CHECK_T,
+               streams=4, prompt_lens=PROMPT_LENS, engine=ENGINE)
+WIDE_LM_LIMITS = {torch.float32: (1e-6, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+WIDE_LM_LIMIT_S = 300.0  # the whole phase
+# the kernels the phase must launch at head dim 256 (the f32 backward pair
+# by the kernels line's names)
+WIDE_LM_KERNELS = ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
+                   "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                   "flash_decode", "flash_decode_int8", "quantize_int8")
+
+
+def wide_lm_model(cfg: dict, impl: str, dtype, device, max_len: int):
+    return TransformerLM(**cfg["model"], max_len=max_len, attn_impl=impl,
+                         dtype=dtype, device=device, seed=SEED)
+
+
+def wide_lm_train(device, cfg: dict, dtype) -> dict:
+    """One step's loss and gradients with ``attn_impl="flash"`` against
+    ``attn_impl="full"`` from the same seeded weights (``WIDE_LM_LIMITS``:
+    f32 loss relative, bf16 |dloss| as grad_check, and the worst per-tensor
+    gradient relative) at the f32 shape, or at grad_check's T for bf16;
+    then a warm and ``steps`` timed Adam steps at the path's shape, the
+    counts zeroed just before and read just after: the forward and both
+    backward kernels launch once a layer a step on the card (none on the
+    CPU), and the loss is finite and falls."""
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    shape = cfg[kind]
+    b, t, steps = shape["batch"], shape["seq"], shape["steps"]
+    vocab, layers = cfg["model"]["vocab_size"], cfg["model"]["num_layers"]
+    check_t = t if dtype == torch.float32 else cfg["grad_t"]
+    max_len = max(t, check_t) + 1
+    tokens, targets = train_tokens(b, check_t, vocab, device)
+    full = wide_lm_model(cfg, "full", dtype, device, max_len)
+    ref_loss, ref_grads = loss_and_grads(full, tokens, targets)
+    del full
+    flash = wide_lm_model(cfg, "flash", dtype, device, max_len)
+    loss, grads = loss_and_grads(flash, tokens, targets)
+    gap = abs(float(loss) - float(ref_loss))
+    if dtype == torch.float32:
+        gap /= abs(float(ref_loss))
+    worst, _ = grad_gap(grads, ref_grads)
+    del grads, ref_grads
+    loss_limit, grad_limit = WIDE_LM_LIMITS[dtype]
+    flash.zero_grad(set_to_none=True)
+    if check_t != t:
+        tokens, targets = train_tokens(b, t, vocab, device)
+    opt = torch.optim.Adam(flash.parameters(), lr=TRAIN["lr"])
+    fa.reset_launches()
+    first, losses, dt = timed_steps(flash, opt, tokens, targets, steps)
+    launches = dict(fa.LAUNCHES)
+    del flash, opt
+    fwd = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd"
+    per_run = {n: launches[n] for n in (fwd, "flash_bwd_dq", "flash_bwd_dkv")}
+    want = layers * (steps + 1) if device.type == "cuda" else 0
+    log(f"wide LM D{cfg['model']['d_model'] // cfg['model']['num_heads']} "
+        f"{kind} (batch {b}, T {t}): flash vs full at T {check_t} "
+        f"{'loss rel' if dtype == torch.float32 else '|dloss|'} {gap:.3e} "
+        f"(limit {loss_limit}), worst grad rel {worst:.3e} (limit "
+        f"{grad_limit}); loss {first:.4f} (warm step) -> {losses[-1]:.4f}; "
+        f"step {1e3 * dt / steps:.2f} ms; launches {per_run}")
+    require(gap <= loss_limit and worst <= grad_limit,
+            f"the wide LM's {kind} flash step disagrees with attn_impl='full'")
+    require(all(math.isfinite(x) for x in [first, *losses]),
+            f"wide LM {kind} loss not finite")
+    require(losses[-1] < first, f"the wide LM's {kind} loss did not fall")
+    require(all(n == want for n in per_run.values()),
+            f"wide LM {kind} launches {per_run}, expected {want} each")
+    suffix = "_f32" if dtype == torch.float32 else ""
+    return {"shape": f"batch {b}, T {t}, {kind}", "check_t": check_t,
+            "loss_gap": gap, "worst_grad_rel": worst, "first_loss": first,
+            "losses": losses, "step_ms": 1e3 * dt / steps,
+            "tokens_s": steps * b * t / dt,
+            "launches": {n + (suffix if n.startswith("flash_bwd") else ""): k
+                         for n, k in launches.items() if k}}
+
+
+def wide_lm_serve(device, cfg: dict) -> dict:
+    """Decode serving through ``DecodeEngine`` at ``cfg["engine"]``'s shape
+    (``serve``): the f32 model from an f32 cache (the f32 prefill and K4a),
+    the bf16 model (the bf16 prefill and K4a with bf16 q) and the f32 model
+    from an int8 cache (K4b and the rows' quantize), each stream to its
+    token budget, each run's kernels launched on the card (none on the
+    CPU); one stream's prefill and first decode step of the f32 model held
+    to the plain attention path (``check_model_logits``); the int8 tokens
+    that are the f32 engine's counted (reported, not gated)."""
+    vocab = cfg["model"]["vocab_size"]
+    engine = cfg["engine"]
+    capacity = engine["capacity_tokens"]
+    prompts = make_prompts(cfg["streams"], *cfg["prompt_lens"], vocab)
+    on_card = device.type == "cuda"
+    out = {"prompt_lens": [len(p) for p in prompts]}
+    f32 = wide_lm_model(cfg, "flash", torch.float32, device, capacity).eval()
+    ref = wide_lm_model(cfg, "full", torch.float32, device, capacity).eval()
+    out["logits"] = check_model_logits(f32, ref, prompts[0], capacity)
+    del ref
+    out["f32"] = serve(f32, prompts, False, device, engine=engine)
+    out["int8"] = serve(f32, prompts, True, device, engine=engine)
+    del f32
+    bf16 = wide_lm_model(cfg, "flash", torch.bfloat16, device, capacity).eval()
+    out["bf16"] = serve(bf16, prompts, False, device, engine=engine)
+    del bf16
+    for leg, kernels in (("f32", ("flash_fwd_f32", "flash_decode")),
+                         ("bf16", ("flash_fwd", "flash_decode")),
+                         ("int8", ("flash_fwd_f32", "flash_decode_int8",
+                                   "quantize_int8"))):
+        launched = {n: out[leg]["launches"][n] for n in kernels}
+        require(all((n > 0) == on_card for n in launched.values()),
+                f"wide LM serving, {leg}: launches {launched}")
+    out["int8_tokens_as_f32"] = sum(
+        a == b for got, ref in zip(out["int8"]["tokens_by_stream"],
+                                   out["f32"]["tokens_by_stream"])
+        for a, b in zip(got, ref))
+    log(f"wide LM serving: {out['int8_tokens_as_f32']} of "
+        f"{out['int8']['tokens']} int8-cache tokens as the f32 cache's")
+    return out
+
+
+def phase_wide_lm(device, cfg: dict = WIDE_LM) -> dict:
+    """bench.py's LM at its 2048 width, 8 heads of 256 (``WIDE_LM``), on
+    its three paths: bf16 and f32 training (``wide_lm_train``) and serving
+    from f32, bf16 and int8 caches (``wide_lm_serve``). ``launches`` sums
+    the head-dim-256 launches of every run; on the card each kernel of
+    ``WIDE_LM_KERNELS`` must have launched. The whole phase takes at most
+    ``WIDE_LM_LIMIT_S``."""
+    t0 = time.perf_counter()
+    rec = {"config": cfg["model"],
+           "train": {str(dtype)[6:]: wide_lm_train(device, cfg, dtype)
+                     for dtype in (torch.bfloat16, torch.float32)},
+           "serve": wide_lm_serve(device, cfg)}
+    launches: dict = {}
+    for counts in [run["launches"] for run in rec["train"].values()] + [
+            rec["serve"][leg]["launches"] for leg in ("f32", "bf16", "int8")]:
+        _add_launches(launches, {n: k for n, k in counts.items() if k})
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    head_dim = cfg["model"]["d_model"] // cfg["model"]["num_heads"]
+    log(f"wide LM (D{head_dim}): {rec['seconds']:.1f} s; launches {launches}")
+    if device.type == "cuda":
+        missing = [n for n in WIDE_LM_KERNELS if not launches.get(n)]
+        require(not missing, f"wide LM: no launch of {missing}")
+    else:
+        require(not launches, f"wide LM on the CPU launched {launches}")
+    require(rec["seconds"] <= WIDE_LM_LIMIT_S,
+            f"phase_wide_lm took {rec['seconds']:.1f} s")
+    return rec
+
+
+def wide_lm_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The ``{"wide_lm": {...}}`` line: the model, each training path's
+    gaps to ``attn_impl="full"``, step ms and tokens/s, each serving run's
+    tok/s, TTFT and TPOT p50, the first stream's logit gaps, the int8
+    tokens that are the f32 cache's, the launches and the seconds, beside
+    the card's name and power limit."""
+    serving = rec["serve"]
+    return {"wide_lm": {
+        "config": rec["config"],
+        "train": {kind: {k: row[k] for k in (
+            "shape", "loss_gap", "worst_grad_rel", "first_loss", "step_ms",
+            "tokens_s")} | {"last_loss": row["losses"][-1]}
+            for kind, row in rec["train"].items()},
+        "serve": {leg: {k: serving[leg][k] for k in (
+            "decode_tok_s", "ttft_ms_p50", "tpot_ms_p50", "prefill_ms_p50")}
+            for leg in ("f32", "bf16", "int8")},
+        "logits": serving["logits"],
+        "int8_tokens_as_f32": serving["int8_tokens_as_f32"],
+        "launches": rec["launches"], "seconds": rec["seconds"]},
+        "nvidia_smi": nvidia_smi}
+
+
+def wide_heads_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
+    """The ``{"wide_heads": {...}}`` line: every attention family at the
+    head dims of ``WIDE_HEAD_DIMS``, each one's worst error against its
+    plain version over ``check_wide_heads`` (and, bf16, its worst error
+    over its limit), decode == the f32 prefill row, and at D 256 its times
+    (``wide_head_times``: events and device time, the plain version, SDPA,
+    the bound), beside the card's name and power limit."""
+    out = head_dim_rows(checks, times)
+    out["flash_fwd D256 train"] = {
+        k: times.get("flash_fwd D256 train", {}).get(k) for k in TIME_KEYS}
+    out["decode_vs_prefill_bf16 D256"] = checks.get("D256 decode_vs_prefill_bf16")
+    return {"wide_heads": out, "nvidia_smi": nvidia_smi}
 
 
 # ---------------------------------------------------------------------------
@@ -7938,6 +8262,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
         "bound_ms": bound, "bound_by": by,
     }
     out.update(small_head_times(device))
+    out.update(wide_head_times(device))
     out.update(train_times(device, heads, d))
     out.update(interaction_times(device))
     out.update(quant_times(device))
@@ -7956,6 +8281,130 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
             f"{row['bound_ratio']:.2f}x its bound, plain "
             f"{row['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}){dev}")
+    return out
+
+
+def time_row(shape, fn, plain, library, library_device, n_bytes, ops,
+             op_type) -> dict:
+    """One kernel's times: CUDA events (10 calls a sample, median of five),
+    the profiler's device time (20 calls), the plain version once after a
+    warm call, the library call by events (or None) and its device time as
+    given, and the bound (``ops`` at ``op_type``'s peak, or ``n_bytes``)."""
+    bound = _bound(n_bytes, ops, op_type)
+    return {"shape": shape, "ms": time_ms(fn, iters=10, reps=5),
+            "device_ms": device_ms(fn, calls=20),
+            "plain_ms": time_ms(plain, iters=1, reps=1, warm=1),
+            "library_ms": None if library is None else time_ms(
+                library, iters=10, reps=5),
+            "library_device_ms": library_device,
+            "bound_ms": bound[0], "bound_by": bound[1], "ops": ops}
+
+
+def attention_pair_rows(rows: dict, shape: str, args, kind: str, size: int,
+                        suffix: str, pairs: int) -> None:
+    """Rows ``flash_bwd_dq<suffix>`` and ``flash_bwd_dkv<suffix>`` of the
+    backward pair on ``args`` (q, k, v, lse, dsum, g, 0, 0, causal) into
+    ``rows``, beside SDPA's backward in the same type (forward+backward
+    less forward, by events and by device time, the same figure on both
+    rows); bounds at 6 and 8 * D operations a live pair."""
+    q, k, v, _, _, g = args[:6]
+    heads, t, d = q.shape[1:]
+    elems = q.numel()
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
+
+    pair_ms = (time_ms(sdpa_fwd_bwd, iters=10, reps=5)
+               - time_ms(sdpa_fwd, iters=10, reps=5))
+    both, fwd_only = (device_ms(sdpa_fwd_bwd, calls=20),
+                      device_ms(sdpa_fwd, calls=20))
+    for key, fn, plain, n_out, ops in (
+        ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
+        ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
+    ):
+        name = f"{key}{suffix}"
+        rows[name] = time_row(
+            shape, lambda fn=fn: fn(*args), lambda plain=plain: plain(*args),
+            None, None if None in (both, fwd_only) else both - fwd_only,
+            (4 + n_out) * elems * size + 2 * q.shape[0] * heads * t * 4,
+            ops * d * pairs, kind)
+        rows[name]["library_ms"] = pair_ms
+        rows[name]["library"] = "pair"
+
+
+def wide_head_times(device) -> dict:
+    """Every attention family at head dim 256, each row named ``<kernel>
+    D256`` (``time_row``): the bf16 forward on the prefill [1, 8, 2048,
+    256] and (``flash_fwd D256 train``) the training step's [2, 8, 8192,
+    256], causal, through ``flash_attention``, beside SDPA; the bf16
+    backward pair at the training shape and the f32 forward and pair at
+    [1, 8, 2048, 256], beside SDPA's backward (``attention_pair_rows``);
+    K4a (f32 q and cache) and K4b (f32 q) on q [4, 8, 1, 256] against a
+    cache [4, 8, 2048, 256] at DECODE_LENS, K4a beside SDPA with a length
+    mask. Bounds: 4, 6 and 8 * D operations a live pair at the type's
+    peak; the decodes by the cache bytes their lengths need."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    heads, t, d = WIDE_HEADS, SMALL_HEADS_T, 256
+    out = {}
+    for key, dtype, shape4 in (
+            ("flash_fwd D256", torch.bfloat16, (1, heads, t, d)),
+            ("flash_fwd D256 train", torch.bfloat16,
+             (TRAIN["batch"], heads, TRAIN["seq"], d)),
+            ("flash_fwd_f32 D256", torch.float32, (1, heads, t, d))):
+        b, _, tt, _ = shape4
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        size = 2 if dtype == torch.bfloat16 else 4
+        pairs = b * heads * tt * (tt + 1) // 2
+        args = bwd_inputs(gen, shape4, dtype, device)
+        q, k, v = args[:3]
+        shape = f"q/k/v [{','.join(map(str, shape4))}] {kind} causal"
+
+        def sdpa(q=q, k=k, v=v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        out[key] = time_row(
+            shape, lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: fa.flash_attention_call_plain(
+                q, k, v, 0, 0, True, True),
+            sdpa, device_ms(sdpa, calls=20),
+            4 * q.numel() * size + 2 * b * heads * tt * 4, 4 * d * pairs, kind)
+        if key != "flash_fwd D256":  # the pair at the paths' own shapes
+            attention_pair_rows(out, shape, (*args, 0, 0, True), kind, size,
+                                ("_f32" if kind == "f32" else "") + " D256",
+                                pairs)
+    b = len(DECODE_LENS)
+    kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    mask = (torch.arange(t, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows = sum(min(n, t) for n in DECODE_LENS) * heads
+    qd = _randn(gen, (b, heads, 1, d), torch.float32, device)
+    kc, vc = (_randn(gen, (b, heads, t, d), torch.float32, device)
+              for _ in range(2))
+    io_bytes = 2 * qd.numel() * 4 + b * 4
+
+    def decode_sdpa():
+        return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask)
+
+    out["flash_decode D256"] = time_row(
+        (f"q [{b},{heads},1,{d}] f32, f32 cache [{b},{heads},{t},{d}], "
+         f"kv_len {DECODE_LENS}"),
+        lambda: fa.flash_decode(qd, kc, vc, kv_len),
+        lambda: fa.flash_decode_plain(qd, kc, vc, kv_len),
+        decode_sdpa, device_ms(decode_sdpa, calls=20),
+        rows * d * 2 * 4 + io_bytes, 4 * d * rows, "f32")
+    k8, ks = quantize_int8(kc)
+    v8, vs = quantize_int8(vc)
+    ks, vs = ks[..., 0], vs[..., 0]
+    out["flash_decode_int8 D256"] = time_row(
+        (f"q [{b},{heads},1,{d}] f32, int8 cache + f32 row scales, "
+         f"kv_len {DECODE_LENS}"),
+        lambda: fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks, v_scale=vs),
+        lambda: fa.flash_decode_plain(qd, k8, v8, kv_len, ks, vs),
+        None, None, rows * (d + 4) * 2 + io_bytes, 4 * d * rows, "f32")
     return out
 
 
@@ -7984,17 +8433,6 @@ def small_head_times(device) -> dict:
             < kv_len[:, None])[:, None, None, :]
     rows = sum(min(n, t) for n in DECODE_LENS) * heads
     out = {}
-
-    def row(shape, fn, plain, library, library_device, n_bytes, ops, op_type):
-        bound = _bound(n_bytes, ops, op_type)
-        return {"shape": shape, "ms": time_ms(fn, iters=10, reps=5),
-                "device_ms": device_ms(fn, calls=20),
-                "plain_ms": time_ms(plain, iters=1, reps=1, warm=1),
-                "library_ms": None if library is None else time_ms(
-                    library, iters=10, reps=5),
-                "library_device_ms": library_device,
-                "bound_ms": bound[0], "bound_by": bound[1], "ops": ops}
-
     for d in SMALL_HEAD_DIMS:
         for dtype, fwd_name, bwd_suffix in ((torch.float32, "flash_fwd_f32", "_f32"),
                                             (torch.bfloat16, "flash_fwd", "")):
@@ -8008,38 +8446,14 @@ def small_head_times(device) -> dict:
             def sdpa(q=q, k=k, v=v):
                 return F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-            out[f"{fwd_name} D{d}"] = row(
+            out[f"{fwd_name} D{d}"] = time_row(
                 shape, lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True),
                 lambda q=q, k=k, v=v: fa.flash_attention_call_plain(
                     q, k, v, 0, 0, True, True),
                 sdpa, device_ms(sdpa, calls=20),
                 4 * elems * size + 2 * heads * t * 4, 4 * d * pairs, kind)
-            qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
-
-            def sdpa_fwd(qr=qr, kr=kr, vr=vr):
-                return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
-
-            def sdpa_fwd_bwd(qr=qr, kr=kr, vr=vr, g=g, sdpa_fwd=sdpa_fwd):
-                torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
-
-            pair_ms = (time_ms(sdpa_fwd_bwd, iters=10, reps=5)
-                       - time_ms(sdpa_fwd, iters=10, reps=5))
-            both, fwd_only = (device_ms(sdpa_fwd_bwd, calls=20),
-                              device_ms(sdpa_fwd, calls=20))
-            args = (q, k, v, lse, dsum, g, 0, 0, True)
-            for key, fn, plain, n_out, ops in (
-                ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_plain, 1, 6),
-                ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_plain, 2, 8),
-            ):
-                name = f"{key}{bwd_suffix} D{d}"
-                out[name] = row(
-                    shape, lambda fn=fn, args=args: fn(*args),
-                    lambda plain=plain, args=args: plain(*args), None,
-                    None if None in (both, fwd_only) else both - fwd_only,
-                    (4 + n_out) * elems * size + 2 * heads * t * 4,
-                    ops * d * pairs, kind)
-                out[name]["library_ms"] = pair_ms
-                out[name]["library"] = "pair"
+            attention_pair_rows(out, shape, (q, k, v, lse, dsum, g, 0, 0, True),
+                                kind, size, f"{bwd_suffix} D{d}", pairs)
         qd = _randn(gen, (b, heads, 1, d), torch.float32, device)
         kc, vc = (_randn(gen, (b, heads, t, d), torch.float32, device)
                   for _ in range(2))
@@ -8048,7 +8462,7 @@ def small_head_times(device) -> dict:
         def decode_sdpa(qd=qd, kc=kc, vc=vc):
             return F.scaled_dot_product_attention(qd, kc, vc, attn_mask=mask)
 
-        out[f"flash_decode D{d}"] = row(
+        out[f"flash_decode D{d}"] = time_row(
             (f"q [{b},{heads},1,{d}] f32, f32 cache [{b},{heads},{t},{d}], "
              f"kv_len {DECODE_LENS}"),
             lambda qd=qd, kc=kc, vc=vc: fa.flash_decode(qd, kc, vc, kv_len),
@@ -8058,7 +8472,7 @@ def small_head_times(device) -> dict:
         k8, ks = quantize_int8(kc)
         v8, vs = quantize_int8(vc)
         ks, vs = ks[..., 0], vs[..., 0]
-        out[f"flash_decode_int8 D{d}"] = row(
+        out[f"flash_decode_int8 D{d}"] = time_row(
             (f"q [{b},{heads},1,{d}] f32, int8 cache + f32 row scales, "
              f"kv_len {DECODE_LENS}"),
             lambda qd=qd, k8=k8, v8=v8, ks=ks, vs=vs: fa.flash_decode(
@@ -8502,7 +8916,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
                  etl: dict, seqpar: dict, sharded: dict,
                  pipelined: dict, estimators: dict, examples: dict,
-                 small_lm: dict) -> dict:
+                 small_lm: dict, wide_lm: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -8525,8 +8939,15 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     processes alive at each read), those of phase_examples' trace_smoke
     replica (flash_fwd_f32 and flash_decode at head dim 16) and those of
     phase_small_lm (its training steps and its replicas, at head dims 16
-    and 8), which each attention kernel's ``launches_by_head_dim`` splits
-    out from the rest (head dim 128). A count is of wrapper calls that launched
+    and 8) and those of phase_wide_lm (its training steps and engines, at
+    head dim 256; with its int8 cache's rows for quantize_int8), which each
+    attention kernel's ``launches_by_head_dim`` splits out from the rest
+    (head dim 128). Each attention kernel's ``head_dim_256`` holds its
+    times at D 256 (``wide_head_times``: the forward at the prefill
+    [1,8,2048,256], the bf16 pair at the training shape [2,8,8192,256],
+    the f32 pair at [1,8,2048,256], the decodes at the serving shape), its
+    worst error there (``check_wide_heads``) and its launches in
+    phase_wide_lm. A count is of wrapper calls that launched
     the kernel: each flash_decode call is two launches (its scores kernel,
     then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
     (flash_fwd: the larger of serving's and training's; flash_fwd_f32 at
@@ -8565,7 +8986,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
             launches[name] += n
     for name, n in examples["launches"].items():
         launches[name] += n
-    small = small_lm["launches_by_head_dim"]
+    small = dict(small_lm["launches_by_head_dim"], **{
+        "256": wide_lm["launches"]})
     for counts in small.values():
         for name, n in counts.items():
             if name in launches:
@@ -8604,6 +9026,14 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         "quantize_int8": checks[quantize_case(
             "train x fc1", *QUANT_ROWS_SHAPES["train x fc1"])],
     }
+    wide_worst = checks["wide_heads"]["worst"]
+    wide = {}
+    for name in by_head_dim:
+        family = name.replace("flash_fwd_twoterm", "flash_fwd")
+        row = times.get(f"{name} D256", {})
+        wide[name] = {k: row.get(k) for k in TIME_KEYS} | {
+            "max_abs_err": wide_worst.get(f"{family} D256", {}).get("max_abs_err"),
+            "launches": by_head_dim[name]["256"]}
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
@@ -8616,8 +9046,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
          # null where it was not measured or the profiler saw none
          **{f"{key}device_ms": times[name].get(f"{key}device_ms")
             for key in ("", "plain_", "library_")},
-         **({"launches_by_head_dim": by_head_dim[name]}
-            if name in by_head_dim else {})}
+         **({"launches_by_head_dim": by_head_dim[name],
+             "head_dim_256": wide[name]} if name in by_head_dim else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}
 
@@ -8628,12 +9058,20 @@ def small_heads_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
     plain version over ``check_small_heads`` (and, bf16, its worst error
     over its limit) and its times at [.., 2048, D] (``small_head_times``),
     beside the card's name and power limit."""
-    out = {}
-    for name, worst in checks["worst"].items():
-        out[name] = {k: times.get(name, {}).get(k) for k in (
-            "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-            "bound_ms", "bound_by")} | worst
-    return {"small_heads": out, "nvidia_smi": nvidia_smi}
+    return {"small_heads": head_dim_rows(checks, times),
+            "nvidia_smi": nvidia_smi}
+
+
+TIME_KEYS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+             "bound_ms", "bound_by")
+
+
+def head_dim_rows(checks: dict, times: dict) -> dict:
+    """Per family and head dim of ``checks["worst"]``: its times (``TIME_KEYS``
+    of the row of the same name in ``times``, None where not timed) and its
+    worst errors."""
+    return {name: {k: times.get(name, {}).get(k) for k in TIME_KEYS} | worst
+            for name, worst in checks["worst"].items()}
 
 
 def bf16_checks(device) -> None:
@@ -8646,8 +9084,10 @@ def bf16_checks(device) -> None:
     the serving shape (f32 and int8 caches) and the f32/bf16-cache decode's
     bitwise contracts (``check_decode_bits``, also at an odd capacity); the
     int8 product, bitwise, at the training step's first product and
-    decode's two; and K1's and K5's own checks (``check_interaction``,
-    ``check_stochastic``), the path's shapes and their layouts' edges."""
+    decode's two; every family at head dims 256 and 192
+    (``check_wide_heads``); and K1's and K5's own checks
+    (``check_interaction``, ``check_stochastic``), the path's shapes and
+    their layouts' edges."""
     _build.load()
     gen = torch.Generator(device=device).manual_seed(SEED)
     heads, d = MODEL["num_heads"], MODEL["d_model"] // MODEL["num_heads"]
@@ -8668,6 +9108,7 @@ def bf16_checks(device) -> None:
                  (torch.bfloat16,))
     check_int8_gemm(gen, device, grads=False, cases=[
         GEMM_SHAPES[key] for key in ("fc1", "decode", "decode fc2")])
+    check_wide_heads(gen, device)
     check_interaction(gen, device)
     check_stochastic(gen, device)
 
@@ -8768,8 +9209,8 @@ PLANTED_FAULTS = {
     "f32_group_neighbour_tile": (
         FWD_SOURCE,
         "const float* kr = ks + (tile * kBlockK + g) * L::kPitch;",
-        "const float* kr = ks + (((tile + (kt0 >= 1024)) % kGroup) * kBlockK "
-        "+ g) * L::kPitch;"),
+        "const float* kr = ks + (((tile + (kt0 >= 1024)) % L::kGroup) * "
+        "kBlockK + g) * L::kPitch;"),
     # the f32 dq, past key 1024: ds K reads the K of the other ring stage
     "f32_dq_neighbour_stage_k": (
         BWD_SOURCE,
@@ -8782,6 +9223,30 @@ PLANTED_FAULTS = {
         BWD_SOURCE,
         "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);",
         "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile + 1);"),
+    # head dim 256. The bf16 forward's S reads K's 64-column sub-tiles a
+    # Q sub-tile apart (the 128-row stride, not the 64-key tile's)
+    "d256_fwd_k_subtile": (
+        SM90_SOURCE,
+        "sw128_desc(s_k + s * L::kTile + (kk / 4) * L::kKVSub + along, 16,",
+        "sw128_desc(s_k + s * L::kTile + (kk / 4) * (kN == 64 ? L::kQSub : "
+        "L::kKVSub) + along, 16,"),
+    # the bf16 dk/dv split: warpgroup 1's dK += dS^T Q reads the dO tile
+    "d256_dkv_dk_reads_do": (
+        SM90_BWD_SOURCE,
+        "const uint32_t ring = wg == 0 ? ring_do : ring_q;",
+        "const uint32_t ring = ring_do;"),
+    # the f32 forward's 4 x 4 score tiles take rows 8 apart, as the 8 x 4
+    # tiles of D 128 do: a thread's rows overlap its neighbours'
+    "d256_f32_score_rows": (
+        FWD_SOURCE,
+        "qr + L::kRowGroups * r * L::kPitch + c);",
+        "qr + 8 * r * L::kPitch + c);"),
+    # the f32 dk/dv's one Q stage: the second live query tile keeps the
+    # first tile's Q
+    "d256_f32_dkv_stale_q": (
+        BWD_SOURCE,
+        "if (L::kStages == 1 && qi > first) {",
+        "if (L::kStages == 1 && qi > first + 1) {"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,
@@ -8807,14 +9272,19 @@ PLANTED_FAULTS = {
 }
 
 
-def planted_faults() -> int:
-    """Each fault of PLANTED_FAULTS in its own copy of the port under
-    build/planted/<fault>/, built there and held to ``--bf16-checks`` (a
-    fault in a CUDA source) or ``--fit-checks`` (in a Python module): 0 if
-    every copy fails them with a disagreement, else 1."""
+def planted_faults(names=None) -> int:
+    """Each fault of PLANTED_FAULTS (or those of ``names``) in its own copy
+    of the port under build/planted/<fault>/, built there and held to
+    ``--bf16-checks`` (a fault in a CUDA source) or ``--fit-checks`` (in a
+    Python module): 0 if every copy fails them with a disagreement, else
+    1."""
     root = Path(__file__).resolve().parent
+    unknown = sorted(set(names or ()) - set(PLANTED_FAULTS))
+    require(not unknown, f"no planted fault named {unknown}")
     caught = {}
     for name, (source, site, fault) in PLANTED_FAULTS.items():
+        if names and name not in names:
+            continue
         copy = root / "build" / "planted" / name
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(root / "raydp_tpu_torch", copy / "raydp_tpu_torch",
@@ -9249,8 +9719,8 @@ def main(argv: list) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
-    if argv == ["--planted-faults"]:
-        return planted_faults()
+    if argv[:1] == ["--planted-faults"]:
+        return planted_faults(argv[1:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -9312,6 +9782,18 @@ def main(argv: list) -> int:
         log(json.dumps(small_heads_summary(checks, small_head_times(device),
                                            dev["nvidia_smi"])))
         return 0
+    if argv == ["--wide-heads"]:
+        dev = phase_device()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        checks = check_wide_heads(gen, device)
+        log(json.dumps(wide_heads_summary(checks, wide_head_times(device),
+                                          dev["nvidia_smi"])))
+        return 0
+    if argv == ["--wide-lm"]:
+        dev = phase_device()
+        log(json.dumps(wide_lm_summary(phase_wide_lm(device),
+                                       dev["nvidia_smi"])))
+        return 0
     if argv == ["--small-lm"]:
         dev = phase_device()
         log(json.dumps(small_lm_summary(phase_small_lm(device),
@@ -9341,6 +9823,7 @@ def main(argv: list) -> int:
     record["train"] = phase_train(device)
     record["train_f32"] = phase_train_f32(device)
     record["small_lm"] = phase_small_lm(device)
+    record["wide_lm"] = phase_wide_lm(device)
     record["seqpar"] = phase_seqpar(device)
     record["pipeline"] = phase_pipeline(device)
     record["moe"] = phase_moe(device)
@@ -9368,7 +9851,8 @@ def main(argv: list) -> int:
                            record["train_f32"], record["etl"],
                            record["seqpar"], record["sharded"],
                            record["pipeline"], record["estimators"],
-                           record["examples"], record["small_lm"])
+                           record["examples"], record["small_lm"],
+                           record["wide_lm"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -9414,6 +9898,9 @@ def main(argv: list) -> int:
     log(json.dumps(small_heads_summary(record["checks"]["small_heads"],
                                        record["times"], dev["nvidia_smi"])))
     log(json.dumps(small_lm_summary(record["small_lm"], dev["nvidia_smi"])))
+    log(json.dumps(wide_heads_summary(record["checks"]["wide_heads"],
+                                      record["times"], dev["nvidia_smi"])))
+    log(json.dumps(wide_lm_summary(record["wide_lm"], dev["nvidia_smi"])))
     log(json.dumps({"examples": {k: record["examples"][k]
                                  for k in EXAMPLES_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))

@@ -52,14 +52,20 @@
 // and masks element by element only on tiles that some row of it does not
 // see whole.
 //
-// Head dims. D 64 and 128 are the widths above. D 8, 16 and 32 (the small
+// Head dims. D 64 and 128 are the widths above. D 256 (bench.py's LM at
+// d_model 2048, 8 heads) stages groups of kGroup = 2 tiles (64 keys): Q,
+// K and V of 64 rows at the padded pitch and the [64][68] scores are 212
+// KB, where four tiles would be 365 KB; a score tile of 32 keys then has
+// 128 threads, each 4 rows x 4 keys, and p.v holds 16 rows x 4 columns a
+// thread (64 accumulators), loading p 2 keys at a time. The rounding chain
+// is the same. D 8, 16 and 32 (the small
 // LMs' heads: d_model 32 over 4 or 2 heads, or 64 over 2) run the same
 // body: a score tile's 128 FMAs then load 8 q and 4 k float4s per 4 d as
 // before, p.v holds 1 (D 8, D 16) or 2 (D 32) rows x 4 columns a thread
 // (at D 8 only the first 128 threads: 64 rows of 2 column quads), and a K
 // tile is fewer 16-byte copies than the block has threads (copy_rows skips
 // the rest). A block's 47 KB (D 8), 57 KB (D 16) or 77 KB (D 32) let
-// several share an SM. Any other D up to 128 reaches this kernel
+// several share an SM. Any other D up to 256 reaches this kernel
 // zero-padded by the wrapper to the next of these widths (a zero column
 // adds an exact 0 to each score's chain). The rounding chain below does
 // not depend on D.
@@ -95,8 +101,6 @@ namespace {
 
 constexpr int kRows = 64;      // query rows per block
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kGroup = 4;      // k-tiles staged together
-constexpr int kGroupKeys = kGroup * kBlockK;
 // A row's entry in row_a for each tile of a group: alpha (>= 0) where the
 // row max moved, kAdd where it did not, kSkip where the tile lies wholly in
 // the row's future or the row is past T (no update).
@@ -108,6 +112,8 @@ constexpr float kSkip = -2.f;
 // of each row. Row pitches of Q, K and the scores are padded by 16 bytes.
 template <int D>
 struct Layout {
+  static constexpr int kGroup = D > 128 ? 2 : 4;  // k-tiles staged together
+  static constexpr int kGroupKeys = kGroup * kBlockK;
   static constexpr int kPitch = D + 4;            // Q and K rows
   static constexpr int kSPitch = kGroupKeys + 4;  // score / p rows
   static constexpr int kQ = 0;
@@ -124,6 +130,10 @@ struct Layout {
       kThreads / kColQuads < kRows ? kThreads / kColQuads : kRows;
   static constexpr int kPvRows = kRows / kPvGroups;
   static constexpr int kPvThreads = kPvGroups * kColQuads;
+  // scores: kTileThreads threads a tile, kScoreRows rows x 4 keys each
+  static constexpr int kTileThreads = kThreads / kGroup;
+  static constexpr int kRowGroups = kTileThreads / 8;
+  static constexpr int kScoreRows = kRows / kRowGroups;
 };
 
 // N rows of D floats from `src` into `dst` (row pitch `pitch` floats), 16
@@ -176,33 +186,37 @@ __device__ __forceinline__ bool tile_full(const FwdArgs& a, int row0, int kt0) {
          (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kBlockK - 1);
 }
 
-// Scores of the group's live tiles: threads 64t .. 64t + 63 take tile t,
-// thread (rg, g) rows rg + 8r (r < 8) x keys g + 8i (i < 4) of it. Each is
-// one __fmaf_rn chain over d ascending, then the scale, or kNegInf where
-// masked. Per 4 d a thread loads 8 q and 4 k float4s for 128 FMAs.
+// Scores of the group's live tiles: the kTileThreads threads from
+// kTileThreads t on take tile t, thread (rg, g) rows rg + kRowGroups r (r <
+// kScoreRows) x keys g + 8i (i < 4) of it (8 x 4 up to D 128, 4 x 4 at D
+// 256). Each is one __fmaf_rn chain over d ascending, then the scale, or
+// kNegInf where masked. Per 4 d a thread loads kScoreRows q and 4 k
+// float4s for 16 kScoreRows FMAs.
 template <int D>
 __device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
                                              const float* ks, float* ss,
                                              int row0, int kt0, int n_live) {
   using L = Layout<D>;
-  const int tile = threadIdx.x / 64;
+  constexpr int kR = L::kScoreRows;
+  const int tile = threadIdx.x / L::kTileThreads;
   if (tile >= n_live) return;
-  const int rg = (threadIdx.x / 8) % 8;
+  const int rg = (threadIdx.x / 8) % L::kRowGroups;
   const int g = threadIdx.x % 8;
   const float* qr = qs + rg * L::kPitch;
   const float* kr = ks + (tile * kBlockK + g) * L::kPitch;
-  float s[8][4];
+  float s[kR][4];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < kR; ++r) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
   }
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
-    float4 qa[8], kb[4];
+    float4 qa[kR], kb[4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      qa[r] = *reinterpret_cast<const float4*>(qr + 8 * r * L::kPitch + c);
+    for (int r = 0; r < kR; ++r) {
+      qa[r] = *reinterpret_cast<const float4*>(
+          qr + L::kRowGroups * r * L::kPitch + c);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -211,7 +225,7 @@ __device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < kR; ++r) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           s[r][i] = __fmaf_rn(part(qa[r], e), part(kb[i], e), s[r][i]);
@@ -222,8 +236,8 @@ __device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
   const int tk0 = kt0 + tile * kBlockK;
   const bool full = tile_full(a, row0, tk0);
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = rg + 8 * r;
+  for (int r = 0; r < kR; ++r) {
+    const int row = rg + L::kRowGroups * r;
     const int q_pos = a.q_off + row0 + row;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -290,7 +304,8 @@ __device__ __forceinline__ void group_softmax(const FwdArgs& a, float* ss,
 // o: thread (rg, cq) holds rows rg + kPvGroups * r (r < kPvRows) x columns
 // 4cq .. 4cq + 3. Each element is one __fmaf_rn chain over a tile's keys
 // ascending, then merge_term. Per 4 keys a thread loads kPvRows p and 4 V
-// float4s for 16 * kPvRows FMAs.
+// float4s for 16 * kPvRows FMAs (at D 256, per 2 keys kPvRows p float2s
+// and 2 V float4s, which keeps p in 32 registers).
 template <int D>
 __device__ __forceinline__ void group_pv(const float* ps, const float* vs,
                                          const float* row_a, int n_live,
@@ -303,6 +318,7 @@ __device__ __forceinline__ void group_pv(const float* ps, const float* vs,
   for (int tile = 0; tile < n_live; ++tile) {
     const float* pt = ps + rg * L::kSPitch + tile * kBlockK;
     const float* vt = vs + tile * kBlockK * D + 4 * cq;
+    constexpr int kJ = kR > 8 ? 2 : 4;  // keys of p loaded at once
     float pv[kR][4];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
@@ -310,19 +326,25 @@ __device__ __forceinline__ void group_pv(const float* ps, const float* vs,
       for (int e = 0; e < 4; ++e) pv[r][e] = 0.f;
     }
 #pragma unroll
-    for (int jb = 0; jb < kBlockK; jb += 4) {
-      float4 p4[kR];
+    for (int jb = 0; jb < kBlockK; jb += kJ) {
+      float pj[kR][kJ];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
-        p4[r] = *reinterpret_cast<const float4*>(
-            pt + L::kPvGroups * r * L::kSPitch + jb);
+        const float* src = pt + L::kPvGroups * r * L::kSPitch + jb;
+        if constexpr (kJ == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(src);
+          pj[r][0] = x.x, pj[r][1] = x.y, pj[r][2] = x.z, pj[r][3] = x.w;
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(src);
+          pj[r][0] = x.x, pj[r][1] = x.y;
+        }
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kJ; ++jj) {
         const float4 vv = *reinterpret_cast<const float4*>(vt + (jb + jj) * D);
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
-          const float p = part(p4[r], jj);
+          const float p = pj[r][jj];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             pv[r][e] = __fmaf_rn(p, part(vv, e), pv[r][e]);
@@ -355,6 +377,8 @@ __device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
   const size_t kbase = bh * a.tk;
   int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
   if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
+  constexpr int kGroup = L::kGroup;
+  constexpr int kGroupKeys = L::kGroupKeys;
   const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
   const int n_groups = (n_tiles + kGroup - 1) / kGroup;
 
@@ -448,7 +472,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* m,
                cudaStream_t stream) {
   using L = Layout<D>;
   // one block an SM from D 64: more than half of an H100 SM's 228 KB (at D
-  // 8, 16 and 32, 47, 57 and 77 KB, several blocks share an SM)
+  // 8, 16 and 32, 47, 57 and 77 KB, several blocks share an SM; at D 256,
+  // 212 KB)
   static_assert(D < 64 || L::kBytes > 116 * 1024,
                 "a second block would fit an SM");
   auto kernel =
@@ -485,7 +510,8 @@ const char* rtt_error_string(int code) {
 // Returns cudaGetLastError() after the launch (0 on success); an unsupported
 // head dim or dtype returns cudaErrorInvalidValue without launching. The
 // head dims built (each entry's `case`s, which
-// ops/flash_attention.py KERNEL_HEAD_DIMS lists): 8, 16, 32, 64 and 128.
+// ops/flash_attention.py KERNEL_HEAD_DIMS lists): 8, 16, 32, 64, 128 and
+// 256.
 // onepass = 0 launches the two-term body (flash_fwd_twoterm). bf16 goes to
 // the tensor-core forward, f32 to flash_fwd_kernel (o is f32 either way, so
 // out_f32 changes nothing there). q, k and v must be 16-byte aligned.
@@ -508,6 +534,7 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 32: RTT_FWD(32);
     case 64: RTT_FWD(64);
     case 128: RTT_FWD(128);
+    case 256: RTT_FWD(256);
   }
 #undef RTT_FWD
   return static_cast<int>(cudaErrorInvalidValue);

@@ -61,13 +61,22 @@
 // Each output element is owned by one thread and summed in a fixed order,
 // with no atomics, so two launches give the same bits.
 //
-// Head dims. D 64 and 128 are the widths above. D 8, 16 and 32 (the small
+// Head dims. D 64 and 128 are the widths above. At D 256 (bench.py's LM at
+// d_model 2048, 8 heads) a block owns 32 rows (kRows) and stages the
+// walked tiles once (kStages 1): dq's Q and dO (32 rows), one K and one V
+// tile (64 rows) and the [32][64] ds tile are 204 KB, dk/dv's K and V (32
+// rows), one Q and one dO tile and two [32][64] tiles 212 KB, where 64
+// own rows and two stages would be 400 and 333 KB. A thread holds 4 own
+// rows (s and dp tiles of 4 x 4, products of 4 rows x 16 columns: 64
+// accumulators, as at D 128). With one stage the next tile's copies start
+// when this one is done with them (dq: V after s and dp, K after ds K),
+// so a tile waits for its own loads. D 8, 16 and 32 (the small
 // LMs' heads) run the same bodies, as the f32 forward does at those widths:
 // s and dp as before (8 x 4 register tiles over d, 2 to 8 steps of 4), and
 // in the products a thread's 4 columns are 4 lo mod D, so the 16 threads of
 // a row group hold D / 4 distinct column quads and the rest repeat a lower
 // thread's, storing nothing (owns_cols). A block's 36 KB (dq, D 8) to 81 KB
-// (dk/dv, D 32) let several share an SM. Any other D up to 128 arrives
+// (dk/dv, D 32) let several share an SM. Any other D up to 256 arrives
 // zero-padded by the wrapper to the next of these widths.
 //
 // What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
@@ -86,33 +95,38 @@
 
 namespace {
 
-constexpr int kRows = 64;       // rows a block owns: queries (dq), keys (dk/dv)
 constexpr int kTile = 64;       // keys (dq) or queries (dk/dv) a staged tile
 constexpr int kThreads = 256;   // two groups
 constexpr int kGroupThreads = 128;
 
 // Shared memory of a block, in floats. Rows of Q, dO, K and V at a pitch
-// padded by 16 bytes; the [64][64] tiles likewise.
+// padded by 16 bytes; the [kRows][64] tiles likewise.
 template <int D>
 struct BwdLayout {
+  // rows a block owns (queries for dq, keys for dk/dv), own rows a thread
+  // holds, and the stages of the walked tiles (dq: K and V; dk/dv: Q)
+  static constexpr int kRows = D > 128 ? 32 : 64;
+  static constexpr int kRowsPerThread = kRows / 8;
+  static constexpr int kStages = D > 128 ? 1 : 2;
   static constexpr int kPitch = D + 4;
   static constexpr int kTPitch = kTile + 4;
-  static constexpr int kArray = kRows * kPitch;    // 64 rows of Q, dO, K or V
-  static constexpr int kSquare = kRows * kTPitch;  // a [64][64] tile
-  // dq: Q, dO, two stages of K and of V, ds, the rows' lse and dsum
+  static constexpr int kOwnArray = kRows * kPitch;  // own rows of Q, dO, K or V
+  static constexpr int kArray = kTile * kPitch;     // a walked tile's rows
+  static constexpr int kSquare = kRows * kTPitch;   // a [kRows][64] tile
+  // dq: Q, dO, the stages of K and of V, ds, the rows' lse and dsum
   static constexpr int kDqQ = 0;
-  static constexpr int kDqDO = kDqQ + kArray;
-  static constexpr int kDqK = kDqDO + kArray;
-  static constexpr int kDqV = kDqK + 2 * kArray;
-  static constexpr int kDqS = kDqV + 2 * kArray;
+  static constexpr int kDqDO = kDqQ + kOwnArray;
+  static constexpr int kDqK = kDqDO + kOwnArray;
+  static constexpr int kDqV = kDqK + kStages * kArray;
+  static constexpr int kDqS = kDqV + kStages * kArray;
   static constexpr int kDqLse = kDqS + kSquare;
   static constexpr int kDqDsum = kDqLse + kRows;
   static constexpr size_t kDqBytes = sizeof(float) * (kDqDsum + kRows);
-  // dk/dv: K, V, two stages of Q, dO, p^T, ds^T, the tile's lse and dsum
+  // dk/dv: K, V, the stages of Q, dO, p^T, ds^T, the tile's lse and dsum
   static constexpr int kKvK = 0;
-  static constexpr int kKvV = kKvK + kArray;
-  static constexpr int kKvQ = kKvV + kArray;
-  static constexpr int kKvDO = kKvQ + 2 * kArray;
+  static constexpr int kKvV = kKvK + kOwnArray;
+  static constexpr int kKvQ = kKvV + kOwnArray;
+  static constexpr int kKvDO = kKvQ + kStages * kArray;
   static constexpr int kKvP = kKvDO + kArray;
   static constexpr int kKvDS = kKvP + kSquare;
   static constexpr int kKvLse = kKvDS + kSquare;
@@ -145,13 +159,13 @@ __device__ __forceinline__ void wait_copies() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// 64 rows of D floats from `src` into `dst` at the padded pitch, 16 bytes a
+// N rows of D floats from `src` into `dst` at the padded pitch, 16 bytes a
 // copy spread over the block; rows at or past `valid` are zeros.
-template <int D>
+template <int D, int N>
 __device__ __forceinline__ void copy_rows(const float* src, int valid,
                                           float* dst) {
   constexpr int kPieces = D / 4;
-  constexpr int kCopies = kRows * kPieces;  // fewer than the threads at D 8
+  constexpr int kCopies = N * kPieces;  // fewer than the threads at D 8
 #pragma unroll
   for (int u = 0; u < (kCopies + kThreads - 1) / kThreads; ++u) {
     const int i = threadIdx.x + u * kThreads;
@@ -165,23 +179,23 @@ __device__ __forceinline__ void copy_rows(const float* src, int valid,
 }
 
 // acc[r][i] = a[8r] . b[16i], rows of D floats at the padded pitch (a and
-// b point at the thread's first rows): 8 x 4 dot products a thread, each
-// one __fmaf_rn chain over d ascending. Per 4 d it loads 8 a and 4 b
-// float4s for 128 FMAs.
-template <int D>
+// b point at the thread's first rows): R x 4 dot products a thread (R =
+// kRowsPerThread: 8, or 4 at D 256), each one __fmaf_rn chain over d
+// ascending. Per 4 d it loads R a and 4 b float4s for 16 R FMAs.
+template <int D, int R>
 __device__ __forceinline__ void dots_8x4(const float* a, const float* b,
-                                         float (&acc)[8][4]) {
+                                         float (&acc)[R][4]) {
   constexpr int P = BwdLayout<D>::kPitch;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
   }
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
-    float4 x[8], y[4];
+    float4 x[R], y[4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < R; ++r) {
       x[r] = *reinterpret_cast<const float4*>(a + 8 * r * P + c);
     }
 #pragma unroll
@@ -191,7 +205,7 @@ __device__ __forceinline__ void dots_8x4(const float* a, const float* b,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           acc[r][i] = __fmaf_rn(part(x[r], e), part(y[i], e), acc[r][i]);
@@ -218,21 +232,21 @@ __device__ __forceinline__ bool owns_cols(int lo) {
 }
 
 // acc[r][4c + e] += sum over j < N ascending of w[8r][j] * m[j][64c + e]:
-// w a [64][64] tile (pointing at the thread's first row), m rows of D
+// w a [kRows][64] tile (pointing at the thread's first row), m rows of D
 // floats at the padded pitch (pointing at the thread's first column).
-// 8 rows x 4 col_chunks columns a thread; per 4 j it loads 8 w and 4
-// col_chunks m float4s for 32 col_chunks FMAs.
-template <int D, int N>
+// R rows x 4 col_chunks columns a thread; per 4 j it loads R w and 4
+// col_chunks m float4s for 4 R col_chunks FMAs.
+template <int D, int N, int R>
 __device__ __forceinline__ void accumulate(const float* w, const float* m,
-                                           float (&acc)[8][4 * col_chunks<D>()]) {
+                                           float (&acc)[R][4 * col_chunks<D>()]) {
   constexpr int P = BwdLayout<D>::kPitch;
   constexpr int TP = BwdLayout<D>::kTPitch;
   constexpr int kChunks = col_chunks<D>();
 #pragma unroll
   for (int jb = 0; jb < N; jb += 4) {
-    float4 x[8];
+    float4 x[R];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < R; ++r) {
       x[r] = *reinterpret_cast<const float4*>(w + 8 * r * TP + jb);
     }
 #pragma unroll
@@ -243,7 +257,7 @@ __device__ __forceinline__ void accumulate(const float* w, const float* m,
         y[c] = *reinterpret_cast<const float4*>(m + (jb + jj) * P + 64 * c);
       }
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
@@ -265,18 +279,20 @@ __device__ __forceinline__ void pair_grads(float s, float dp, float lse,
   ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dsum)), scale);
 }
 
-// dq of rows [row0, row0 + 64) of one bh: Q and dO staged once, then every
-// 64-key tile live for some row of the block, the next one in flight.
-// Threads: group 0 computes s and then the first 32 keys of each tile's
-// ds K, group 1 dp and then the last 32; thread (hi, lo) of a group holds
-// rows hi + 8r and keys lo + 16i of s or dp, then rows hi + 8r and columns
-// 4 lo + 64c of dq.
+// dq of rows [row0, row0 + kRows) of one bh: Q and dO staged once, then
+// every 64-key tile live for some row of the block, the next one in flight
+// (two stages) or loaded as this one frees its stage (one). Threads: group
+// 0 computes s and then the first 32 keys of each tile's ds K, group 1 dp
+// and then the last 32; thread (hi, lo) of a group holds rows hi + 8r and
+// keys lo + 16i of s or dp, then rows hi + 8r and columns 4 lo + 64c of dq.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const BwdArgs a) {
   using L = BwdLayout<D>;
   constexpr int P = L::kPitch;
   constexpr int TP = L::kTPitch;
+  constexpr int kRows = L::kRows;
+  constexpr int R = L::kRowsPerThread;
   extern __shared__ __align__(16) float smem[];
   const int n_row_blocks = (a.t + kRows - 1) / kRows;
   const size_t bh = blockIdx.x % a.n_bh;
@@ -305,30 +321,31 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   }
 
   constexpr int kAcc = 4 * col_chunks<D>();
-  float acc[8][kAcc];
+  float acc[R][kAcc];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
   }
   if (n_tiles > 0) {
-    copy_rows<D>(a.q + (qbase + row0) * D, rows, qs);
-    copy_rows<D>(a.dout + (qbase + row0) * D, rows, dos);
-    copy_rows<D>(a.k + kbase * D, a.tk, smem + L::kDqK);
-    copy_rows<D>(a.v + kbase * D, a.tk, smem + L::kDqV);
+    copy_rows<D, kRows>(a.q + (qbase + row0) * D, rows, qs);
+    copy_rows<D, kRows>(a.dout + (qbase + row0) * D, rows, dos);
+    copy_rows<D, kTile>(a.k + kbase * D, a.tk, smem + L::kDqK);
+    copy_rows<D, kTile>(a.v + kbase * D, a.tk, smem + L::kDqV);
     commit_copies();
   }
   for (int ti = 0; ti < n_tiles; ++ti) {
     const int kt0 = ti * kTile;
-    const int stage = ti & 1;
+    const int next = kt0 + kTile;
+    const bool more = ti + 1 < n_tiles;
+    const int stage = L::kStages == 2 ? ti & 1 : 0;
     const float* kt = smem + L::kDqK + stage * L::kArray;
     const float* vt = smem + L::kDqV + stage * L::kArray;
-    if (ti + 1 < n_tiles) {  // into the stage the last tile freed
-      const int next = kt0 + kTile;
-      copy_rows<D>(a.k + (kbase + next) * D, a.tk - next,
-                   smem + L::kDqK + (stage ^ 1) * L::kArray);
-      copy_rows<D>(a.v + (kbase + next) * D, a.tk - next,
-                   smem + L::kDqV + (stage ^ 1) * L::kArray);
+    if (L::kStages == 2 && more) {  // into the stage the last tile freed
+      copy_rows<D, kTile>(a.k + (kbase + next) * D, a.tk - next,
+                          smem + L::kDqK + (stage ^ 1) * L::kArray);
+      copy_rows<D, kTile>(a.v + (kbase + next) * D, a.tk - next,
+                          smem + L::kDqV + (stage ^ 1) * L::kArray);
       commit_copies();
       wait_copies<1>();
     } else {
@@ -336,12 +353,13 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     }
     __syncthreads();  // this tile's K and V are in (and Q, dO, lse, dsum)
 
-    float sd[8][4];  // s (group 0) or dp (group 1)
-    dots_8x4<D>((group ? dos : qs) + hi * P, (group ? vt : kt) + lo * P, sd);
+    float sd[R][4];  // s (group 0) or dp (group 1)
+    dots_8x4<D, R>((group ? dos : qs) + hi * P, (group ? vt : kt) + lo * P,
+                   sd);
     // p and ds: group 0 takes the thread's columns i < 2, group 1 those of
     // i >= 2; each first hands the other its half through the ds tile
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int i = j + 2 * (1 - group);
@@ -349,19 +367,24 @@ flash_bwd_dq_kernel(const BwdArgs a) {
       }
     }
     __syncthreads();  // the halves are in
+    if (L::kStages == 1 && more) {  // V is free: the next tile's
+      copy_rows<D, kTile>(a.v + (kbase + next) * D, a.tk - next,
+                          smem + L::kDqV);
+      commit_copies();
+    }
     {
       const bool full = rows == kRows && kt0 + kTile <= a.tk &&
           (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kTile - 1);
-      float other[8][2];  // dp (group 0) or s (group 1), loaded before any store
+      float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           other[r][j] = ds[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
         }
       }
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < R; ++r) {
         const int row = hi + 8 * r;
         const int q_pos = a.q_off + row0 + row;
         const float lse = lse_s[row];
@@ -381,10 +404,15 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     }
     __syncthreads();  // ds is in
     constexpr int kHalfTile = kTile / 2;
-    accumulate<D, kHalfTile>(ds + hi * TP + group * kHalfTile,
-                             kt + group * kHalfTile * P + first_col<D>(lo),
-                             acc);
+    accumulate<D, kHalfTile, R>(ds + hi * TP + group * kHalfTile,
+                                kt + group * kHalfTile * P + first_col<D>(lo),
+                                acc);
     __syncthreads();  // this tile's K, V and ds are free
+    if (L::kStages == 1 && more) {
+      copy_rows<D, kTile>(a.k + (kbase + next) * D, a.tk - next,
+                          smem + L::kDqK);
+      commit_copies();
+    }
   }
 
   // dq = group 0's sum over the first 32 keys of each tile + group 1's
@@ -393,7 +421,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   const bool owns = owns_cols<D>(lo);
   if (group == 1 && owns) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int c = 0; c < col_chunks<D>(); ++c) {
         *reinterpret_cast<float4*>(other + (hi + 8 * r) * D + 4 * lo + 64 * c) =
@@ -405,7 +433,7 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   __syncthreads();
   if (group == 1 || !owns) return;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int row = hi + 8 * r;
     if (row >= rows) continue;
 #pragma unroll
@@ -421,9 +449,10 @@ flash_bwd_dq_kernel(const BwdArgs a) {
   }
 }
 
-// dk and dv of key rows [key0, key0 + 64) of one bh: K and V staged once,
-// then every 64-query tile live for some key of the block, the next tile's
-// Q in flight. Threads: group 0 computes s^T, p^T and ds^T and then dk +=
+// dk and dv of key rows [key0, key0 + kRows) of one bh: K and V staged
+// once, then every 64-query tile live for some key of the block, the next
+// tile's Q in flight (two stages; with one, each tile's Q and dO load
+// together). Threads: group 0 computes s^T, p^T and ds^T and then dk +=
 // ds^T Q, group 1 dp^T and then dv += p^T dO; thread (hi, lo) of a group
 // holds keys hi + 8r and queries lo + 16i of s^T or dp^T, then keys hi + 8r
 // and columns 4 lo + 64c of dk or dv.
@@ -433,6 +462,8 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   using L = BwdLayout<D>;
   constexpr int P = L::kPitch;
   constexpr int TP = L::kTPitch;
+  constexpr int kRows = L::kRows;
+  constexpr int R = L::kRowsPerThread;
   extern __shared__ __align__(16) float smem[];
   const size_t bh = blockIdx.x % a.n_bh;
   const int key0 = static_cast<int>(blockIdx.x / a.n_bh) * kRows;
@@ -470,48 +501,54 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   };
 
   constexpr int kAcc = 4 * col_chunks<D>();
-  float acc[8][kAcc];  // dk (group 0) or dv (group 1)
+  float acc[R][kAcc];  // dk (group 0) or dv (group 1)
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int c = 0; c < kAcc; ++c) acc[r][c] = 0.f;
   }
   if (first < n_qtiles) {
     const int qt0 = first * kTile;
-    copy_rows<D>(a.k + (kbase + key0) * D, keys, smem + L::kKvK);
-    copy_rows<D>(a.v + (kbase + key0) * D, keys, smem + L::kKvV);
-    copy_rows<D>(a.q + (qbase + qt0) * D, a.t - qt0, smem + L::kKvQ);
+    copy_rows<D, kRows>(a.k + (kbase + key0) * D, keys, smem + L::kKvK);
+    copy_rows<D, kRows>(a.v + (kbase + key0) * D, keys, smem + L::kKvV);
+    copy_rows<D, kTile>(a.q + (qbase + qt0) * D, a.t - qt0, smem + L::kKvQ);
     commit_copies();
     load_stats(qt0);
   }
   for (int qi = first; qi < n_qtiles; ++qi) {
     const int qt0 = qi * kTile;
-    const int stage = (qi - first) & 1;
+    const int next = qt0 + kTile;
+    const bool more = qi + 1 < n_qtiles;
+    const int stage = L::kStages == 2 ? (qi - first) & 1 : 0;
     const float* qt = smem + L::kKvQ + stage * L::kArray;
-    copy_rows<D>(a.dout + (qbase + qt0) * D, a.t - qt0, dos);
+    if (L::kStages == 1 && qi > first) {  // into the stage the last tile freed
+      copy_rows<D, kTile>(a.q + (qbase + qt0) * D, a.t - qt0, smem + L::kKvQ);
+    }
+    copy_rows<D, kTile>(a.dout + (qbase + qt0) * D, a.t - qt0, dos);
     commit_copies();
     if (threadIdx.x < kTile) {
       lse_s[threadIdx.x] = lse_r;
       dsum_s[threadIdx.x] = dsum_r;
     }
-    if (qi + 1 < n_qtiles) {  // into the stage the last tile freed
-      const int next = qt0 + kTile;
-      copy_rows<D>(a.q + (qbase + next) * D, a.t - next,
-                   smem + L::kKvQ + (stage ^ 1) * L::kArray);
+    if (L::kStages == 2 && more) {  // into the stage the last tile freed
+      copy_rows<D, kTile>(a.q + (qbase + next) * D, a.t - next,
+                          smem + L::kKvQ + (stage ^ 1) * L::kArray);
       commit_copies();
       load_stats(next);
       wait_copies<1>();
     } else {
+      if (more) load_stats(next);
       wait_copies<0>();
     }
     __syncthreads();  // this tile's Q, dO, lse and dsum are in (and K, V)
 
-    float sd[8][4];  // s^T (group 0) or dp^T (group 1)
-    dots_8x4<D>((group ? vs : ks) + hi * P, (group ? dos : qt) + lo * P, sd);
+    float sd[R][4];  // s^T (group 0) or dp^T (group 1)
+    dots_8x4<D, R>((group ? vs : ks) + hi * P, (group ? dos : qt) + lo * P,
+                   sd);
     // p and ds: group 0 takes the thread's queries i < 2, group 1 those of
     // i >= 2; each first hands the other its half through the ds^T tile
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int i = j + 2 * (1 - group);
@@ -522,9 +559,9 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     {
       const bool full = keys == kRows && qt0 + kTile <= a.t &&
           (!a.causal || a.q_off + qt0 >= a.k_off + key0 + kRows - 1);
-      float other[8][2];  // dp (group 0) or s (group 1), loaded before any store
+      float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
 #pragma unroll
-      for (int r = 0; r < 8; ++r) {
+      for (int r = 0; r < R; ++r) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           other[r][j] = dst[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
@@ -537,7 +574,7 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
         const float lse = lse_s[qq];
         const float dsum = dsum_s[qq];
 #pragma unroll
-        for (int r = 0; r < 8; ++r) {
+        for (int r = 0; r < R; ++r) {
           const int key = hi + 8 * r;
           const bool live = full || (qt0 + qq < a.t && key < keys &&
                                      (!a.causal || q_pos >= a.k_off + key0 + key));
@@ -549,15 +586,15 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
       }
     }
     __syncthreads();  // p^T and ds^T are in
-    accumulate<D, kTile>((group ? pt : dst) + hi * TP,
-                         (group ? dos : qt) + first_col<D>(lo), acc);
+    accumulate<D, kTile, R>((group ? pt : dst) + hi * TP,
+                            (group ? dos : qt) + first_col<D>(lo), acc);
     __syncthreads();  // this tile's Q, dO, p^T and ds^T are free
   }
 
   float* out = group ? a.dv : a.dk;
   if (!owns_cols<D>(lo)) return;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < R; ++r) {
     const int key = hi + 8 * r;
     if (key >= keys) continue;
 #pragma unroll
@@ -570,10 +607,11 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   }
 }
 
-// One launch of either kernel: a block per (bh, 64 rows), an SM each.
+// One launch of either kernel: a block per (bh, kRows rows), an SM each.
 template <int D>
 int launch_bwd(bool dkv, const BwdArgs& args, cudaStream_t stream) {
   using L = BwdLayout<D>;
+  constexpr int kRows = L::kRows;
   // one block an SM from D 64: more than half of an H100 SM's 228 KB
   static_assert(D < 64 || (L::kDqBytes > 116 * 1024 && L::kKvBytes > 116 * 1024),
                 "a second block would fit an SM");
@@ -609,7 +647,7 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch (0 on success); an
 // unsupported head dim or dtype returns cudaErrorInvalidValue without
 // launching. The head dims built (the `case`s below,
-// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64 and 128. bf16
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256. bf16
 // goes to the tensor-core kernels, f32 to the kernels here, which copy q,
 // k, v and do 16 bytes at a time: their bases must be 16-byte aligned.
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -634,6 +672,7 @@ int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 32: return launch_bwd<32>(false, args, s);
     case 64: return launch_bwd<64>(false, args, s);
     case 128: return launch_bwd<128>(false, args, s);
+    case 256: return launch_bwd<256>(false, args, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -660,6 +699,7 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 32: return launch_bwd<32>(true, args, s);
     case 64: return launch_bwd<64>(true, args, s);
     case 128: return launch_bwd<128>(true, args, s);
+    case 256: return launch_bwd<256>(true, args, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

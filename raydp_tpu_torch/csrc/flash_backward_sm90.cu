@@ -47,10 +47,20 @@
 // - Rounding p and ds to bf16 before their products is this port's
 //   declared difference from the reference, which feeds them in f32
 //   (chip_smoke.bf16_bwd_limit is the bound it is held to).
+// - Head dim 256 keeps both designs with smaller tiles, each block within
+//   227 KB of shared memory and each consumer thread within its 240
+//   registers. dq: 128 own queries and key tiles of 32 (wgmma m64n32k16
+//   for S and dP): Q and dO 128 KB, the ring 2 x (16 + 16) KB, 192 KB; dQ
+//   a m64n256 accumulator, 128 registers a thread. dk/dv: 64 own keys, the
+//   ring 2 x (32 + 32) KB of Q and dO tiles of 64, 192 KB; dK and dV
+//   together would be 256 registers a thread, so the warpgroups split
+//   them: warpgroup 0 computes S^T, P^T and dV += P^T dO, warpgroup 1 S^T,
+//   dP^T, dS^T and dK += dS^T Q, each over the block's 64 keys (S^T is
+//   computed twice: 10 D operations a live pair in place of 8 D).
 // - Head dims below 64 (8, 16 and 32) run the D 64 bodies, as the forward
 //   does (flash_forward_sm90.cu): tensor maps over the true d columns, the
 //   TMA's zero fill past them, so s and dp are exact, and dq, dk and dv
-//   store only their first d columns, at pitch d. Any other D up to 128
+//   store only their first d columns, at pitch d. Any other D up to 256
 //   arrives zero-padded by the wrapper to the next width built.
 //
 // What it leaves for later: a single kernel with a fixed-order dq
@@ -62,16 +72,30 @@
 
 namespace {
 
-constexpr int kOwnRows = 128;  // own tile: keys (dk/dv), queries (dq)
-constexpr int kStep = 64;      // a ring tile: queries (dk/dv), keys (dq)
 constexpr int kStages = 2;     // ring depth
-constexpr int kConsumers = 2;  // warpgroups of 64 own rows
+constexpr int kConsumers = 2;  // warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;
+
+// Each kernel's tiles at head dim D: its own rows (dk/dv: keys, dq:
+// queries) and a ring tile's rows (dk/dv: queries, dq: keys). kSplit: the
+// dk/dv warpgroups share the block's 64 keys, one computing dV, the other
+// dK; otherwise each owns 64 of the rows and computes both.
+template <int D>
+struct DkvTiles {
+  static constexpr bool kSplit = D > 128;
+  static constexpr int kOwnRows = kSplit ? 64 : 128;
+  static constexpr int kStep = 64;
+};
+template <int D>
+struct DqTiles {
+  static constexpr int kOwnRows = 128;
+  static constexpr int kStep = D > 128 ? 32 : 64;
+};
 
 // Shared-memory layout in bytes from a 1024-aligned base: two own tiles
 // (K, V or Q, dO), two ring tiles per stage (Q, dO or K, V), the ring's
 // lse and dsum (dk/dv only), then the barriers (own, full[], empty[]).
-template <int D>
+template <int D, int kOwnRows, int kStep>
 struct BwdLayout {
   static constexpr int kSub = D / 64;
   static constexpr int kOwnSub = kOwnRows * 128;  // 64 bf16 columns
@@ -105,12 +129,11 @@ __device__ __forceinline__ Bars init_bars(uint32_t at) {
   return bars;
 }
 
-// The own tiles a and b (kOwnRows rows at row0) onto bars.own.
-template <int D>
+// The own tiles a and b (the layout's own rows at row0) onto bars.own.
+template <class L>
 __device__ __forceinline__ void load_own(uint32_t s_a, const CUtensorMap* a,
                                          uint32_t s_b, const CUtensorMap* b,
                                          const Bars& bars, int row0, int bh) {
-  using L = BwdLayout<D>;
   mbar_expect_tx(bars.own, 2 * L::kOwn);
 #pragma unroll
   for (int j = 0; j < L::kSub; ++j) {
@@ -119,25 +142,25 @@ __device__ __forceinline__ void load_own(uint32_t s_a, const CUtensorMap* a,
   }
 }
 
-// S = A B^T into acc (m64n64), A 64 rows of an own tile from byte `a_row`
-// on, B a ring tile: both K-major, D / 16 steps of k16.
-template <int D>
-__device__ __forceinline__ void product_ss(float (&acc)[32], uint32_t s_a,
+// S = A B^T into acc (m64nN, N the ring tile's rows), A 64 rows of an own
+// tile from byte `a_row` on, B a ring tile: both K-major, D / 16 steps of
+// k16.
+template <int D, class L, int N>
+__device__ __forceinline__ void product_ss(float (&acc)[N / 2], uint32_t s_a,
                                            uint32_t a_row, uint32_t s_b) {
-  using L = BwdLayout<D>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t along = (kk % 4) * 32;
     const uint32_t a = s_a + (kk / 4) * L::kOwnSub + along + a_row;
     const uint32_t b = s_b + (kk / 4) * L::kStepSub + along;
-    wgmma_ss_n64(acc, sw128_desc(a, 16, 1024), sw128_desc(b, 16, 1024),
-                 kk > 0);
+    wgmma_ss<N>(acc, sw128_desc(a, 16, 1024), sw128_desc(b, 16, 1024),
+                kk > 0);
   }
 }
 
 // q/do [BH, T, D], k/v [BH, Tk, D] bf16 (through the tensor maps), lse and
 // dsum [BH * T] f32 (1-D maps) -> dk, dv [BH, Tk, D] bf16.
-// grid (BH, ceil(Tk / kOwnRows)), kThreads threads.
+// grid (BH, ceil(Tk / DkvTiles<D>::kOwnRows)), kThreads threads.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -150,7 +173,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           __nv_bfloat16* __restrict__ dv, int t, int tk,
                           int d, int q_off, int k_off, int causal,
                           float scale) {
-  using L = BwdLayout<D>;
+  using T = DkvTiles<D>;
+  constexpr bool kSplit = T::kSplit;
+  constexpr int kOwnRows = T::kOwnRows;
+  constexpr int kStep = T::kStep;
+  using L = BwdLayout<D, kOwnRows, kStep>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -176,7 +203,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
-      load_own<D>(s_k, &tm_k, s_v, &tm_v, bars, key0, bh);
+      load_own<L>(s_k, &tm_k, s_v, &tm_v, bars, key0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const int q0 = (first + it) * kStep;
@@ -200,20 +227,24 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int wkey0 = key0 + 64 * wg;       // first key of the warpgroup
+  // the warpgroup's 64 keys, from byte own_row of the own tiles on; split:
+  // both warpgroups take the block's 64, wg 0 for dV and wg 1 for dK
+  const uint32_t own_row = kSplit ? 0 : 64 * 128 * wg;
+  const int wkey0 = key0 + (kSplit ? 0 : 64 * wg);
   const int r_in = 16 * warp + lane / 4;  // + 8 * half: key in the warpgroup
+  const bool with_dk = !kSplit || wg == 1;  // dP^T and dS^T needed
 
+  // dK (split: wg 0's dV), and dV where one warpgroup computes both
   float dk_acc[D / 2];
-  float dv_acc[D / 2];
+  float dv_acc[kSplit ? 1 : D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) {
-    dk_acc[i] = 0.f;
-    dv_acc[i] = 0.f;
-  }
-  float st[32];   // S^T, then P^T
-  float dpt[32];  // dP^T, then dS^T
-  uint32_t pa[16];
-  uint32_t da[16];
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (kSplit ? 1 : D / 2); ++i) dv_acc[i] = 0.f;
+  float st[kStep / 2];   // S^T, then P^T
+  float dpt[kStep / 2];  // dP^T, then dS^T
+  uint32_t pa[kStep / 4];
+  uint32_t da[kSplit ? 1 : kStep / 4];
 
   if (n_tiles > 0) mbar_wait(bars.own, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -227,8 +258,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         wkey0 >= tk || (causal && q_off + q0 + kStep - 1 < k_off + wkey0);
     if (!dead) {
       wgmma_fence();
-      product_ss<D>(st, s_k, 64 * 128 * wg, ring_q);
-      product_ss<D>(dpt, s_v, 64 * 128 * wg, ring_do);
+      product_ss<D, L, kStep>(st, s_k, own_row, ring_q);
+      if (with_dk) product_ss<D, L, kStep>(dpt, s_v, own_row, ring_do);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
@@ -239,7 +270,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const bool edge = q0 + kStep > t || wkey0 + 64 > tk ||
                         (causal && q_off + q0 < k_off + wkey0 + 63);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kStep / 2; ++i) {
         const int col = col_of(i, lane);
         bool live = true;
         if (edge) {
@@ -249,28 +280,48 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         const float p =
             live ? __expf(__fsub_rn(__fmul_rn(st[i], scale), lse[col])) : 0.f;
-        dpt[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[i], dsum[col])), scale);
+        if (with_dk) {
+          dpt[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[i], dsum[col])), scale);
+        }
         st[i] = p;
       }
-      to_a_fragments(st, pa);
-      to_a_fragments(dpt, da);
+      if constexpr (kSplit) {  // pa: wg 0's P^T, wg 1's dS^T
+        if (wg == 0) {
+          to_a_fragments(st, pa);
+        } else {
+          to_a_fragments(dpt, pa);
+        }
+      } else {
+        to_a_fragments(st, pa);
+        to_a_fragments(dpt, da);
+      }
 
       // dV += P^T dO and dK += dS^T Q over the tile's queries in steps of
-      // 16 (16 rows of 128 bytes), dO and Q MN-major
+      // 16 (16 rows of 128 bytes), dO and Q MN-major; split: wg 0's dV
+      // accumulates in dk_acc
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       fence_regs(pa);
       fence_regs(da);
       wgmma_fence();
+      if constexpr (kSplit) {
+        const uint32_t ring = wg == 0 ? ring_do : ring_q;
 #pragma unroll
-      for (int kk = 0; kk < kStep / 16; ++kk) {
-        wgmma_pv<D>(dv_acc, pa + 4 * kk,
-                    sw128_desc(ring_do + kk * 16 * 128, L::kStepSub, 1024));
-      }
+        for (int kk = 0; kk < kStep / 16; ++kk) {
+          wgmma_pv<D>(dk_acc, pa + 4 * kk,
+                      sw128_desc(ring + kk * 16 * 128, L::kStepSub, 1024));
+        }
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < kStep / 16; ++kk) {
-        wgmma_pv<D>(dk_acc, da + 4 * kk,
-                    sw128_desc(ring_q + kk * 16 * 128, L::kStepSub, 1024));
+        for (int kk = 0; kk < kStep / 16; ++kk) {
+          wgmma_pv<D>(dv_acc, pa + 4 * kk,
+                      sw128_desc(ring_do + kk * 16 * 128, L::kStepSub, 1024));
+        }
+#pragma unroll
+        for (int kk = 0; kk < kStep / 16; ++kk) {
+          wgmma_pv<D>(dk_acc, da + 4 * kk,
+                      sw128_desc(ring_q + kk * 16 * 128, L::kStepSub, 1024));
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -292,16 +343,21 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (8 * nb >= d) break;  // the zero-filled columns past d
       const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
       const int i = 4 * nb + 2 * h;
-      *reinterpret_cast<__nv_bfloat162*>(dk + idx) =
-          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + idx) =
-          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      if constexpr (kSplit) {  // wg 0 holds dV, wg 1 dK
+        *reinterpret_cast<__nv_bfloat162*>((wg == 0 ? dv : dk) + idx) =
+            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(dk + idx) =
+            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + idx) =
+            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+      }
     }
   }
 }
 
 // The same inputs (lse and dsum as plain pointers) -> dq [BH, T, D] bf16.
-// grid (BH, ceil(T / kOwnRows)), kThreads threads.
+// grid (BH, ceil(T / DqTiles<D>::kOwnRows)), kThreads threads.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -313,7 +369,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          __nv_bfloat16* __restrict__ dq, int t, int tk,
                          int d, int q_off, int k_off, int causal,
                          float scale) {
-  using L = BwdLayout<D>;
+  constexpr int kOwnRows = DqTiles<D>::kOwnRows;
+  constexpr int kStep = DqTiles<D>::kStep;
+  using L = BwdLayout<D, kOwnRows, kStep>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base + L::kA;
@@ -333,7 +391,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
-      load_own<D>(s_q, &tm_q, s_do, &tm_do, bars, row0, bh);
+      load_own<L>(s_q, &tm_q, s_do, &tm_do, bars, row0, bh);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const uint32_t full = bars.full + 8 * s;
@@ -369,9 +427,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   float dq_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
-  float sc[32];  // S
-  float dp[32];  // dP, then dS
-  uint32_t da[16];
+  float sc[kStep / 2];  // S
+  float dp[kStep / 2];  // dP, then dS
+  uint32_t da[kStep / 4];
 
   if (n_tiles > 0) mbar_wait(bars.own, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -384,8 +442,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         wrow0 >= t || (causal && q_off + wrow0 + 63 < k_off + kt0);
     if (!dead) {
       wgmma_fence();
-      product_ss<D>(sc, s_q, 64 * 128 * wg, ring_k);
-      product_ss<D>(dp, s_do, 64 * 128 * wg, s_v + s * L::kRing);
+      product_ss<D, L, kStep>(sc, s_q, 64 * 128 * wg, ring_k);
+      product_ss<D, L, kStep>(dp, s_do, 64 * 128 * wg, s_v + s * L::kRing);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
@@ -394,7 +452,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const bool edge = kt0 + kStep > tk ||
                         (causal && q_off + wrow0 < k_off + kt0 + kStep - 1);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kStep / 2; ++i) {
         const int h = half_of(i);
         bool live = true;
         if (edge) {
@@ -450,18 +508,19 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaMemsetAsync(
         dq, 0, sizeof(__nv_bfloat16) * bh * t * d, stream));
   }
+  using T = DqTiles<D>;
   CUtensorMap map_q, map_k, map_v, map_do;
-  if (!make_map(&map_q, q, bh, t, d, kOwnRows) ||
-      !make_map(&map_do, dout, bh, t, d, kOwnRows) ||
-      !make_map(&map_k, k, bh, tk, d, kStep) ||
-      !make_map(&map_v, v, bh, tk, d, kStep)) {
+  if (!make_map(&map_q, q, bh, t, d, T::kOwnRows) ||
+      !make_map(&map_do, dout, bh, t, d, T::kOwnRows) ||
+      !make_map(&map_k, k, bh, tk, d, T::kStep) ||
+      !make_map(&map_v, v, bh, tk, d, T::kStep)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_bwd_dq_sm90_kernel<D>;
-  const size_t smem = BwdLayout<D>::kBytes;
+  const size_t smem = BwdLayout<D, T::kOwnRows, T::kStep>::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (t + kOwnRows - 1) / kOwnRows);
+  const dim3 grid(bh, (t + T::kOwnRows - 1) / T::kOwnRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, map_do, lse, dsum, static_cast<__nv_bfloat16*>(dq),
       t, tk, d, q_off, k_off, causal, scale);
@@ -479,20 +538,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, stream);
     return static_cast<int>(err);
   }
+  using T = DkvTiles<D>;
   CUtensorMap map_q, map_k, map_v, map_do, map_lse, map_dsum;
-  if (!make_map(&map_q, q, bh, t, d, kStep) ||
-      !make_map(&map_do, dout, bh, t, d, kStep) ||
-      !make_map(&map_k, k, bh, tk, d, kOwnRows) ||
-      !make_map(&map_v, v, bh, tk, d, kOwnRows) ||
-      !make_rows_map(&map_lse, lse, bh * t, kStep) ||
-      !make_rows_map(&map_dsum, dsum, bh * t, kStep)) {
+  if (!make_map(&map_q, q, bh, t, d, T::kStep) ||
+      !make_map(&map_do, dout, bh, t, d, T::kStep) ||
+      !make_map(&map_k, k, bh, tk, d, T::kOwnRows) ||
+      !make_map(&map_v, v, bh, tk, d, T::kOwnRows) ||
+      !make_rows_map(&map_lse, lse, bh * t, T::kStep) ||
+      !make_rows_map(&map_dsum, dsum, bh * t, T::kStep)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_bwd_dkv_sm90_kernel<D>;
-  const size_t smem = BwdLayout<D>::kBytes;
+  const size_t smem = BwdLayout<D, T::kOwnRows, T::kStep>::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (tk + kOwnRows - 1) / kOwnRows);
+  const dim3 grid(bh, (tk + T::kOwnRows - 1) / T::kOwnRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       map_q, map_k, map_v, map_do, map_lse, map_dsum,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, tk,
@@ -505,8 +565,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // Called by rtt_flash_bwd_dq / rtt_flash_bwd_dkv for bf16 q/k/v; each
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // a head dim it does not take (the `case`s below: 8, 16 and 32 through the
-// D 64 bodies, 64, 128) or tensors TMA cannot address (a base not 16-byte
-// aligned).
+// D 64 bodies, 64, 128 and 256) or tensors TMA cannot address (a base not
+// 16-byte aligned).
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dsum,
                       void* dq, int bh, int t, int tk, int d, int q_off,
@@ -521,6 +581,7 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
     case 32:
     case 64: RTT_DQ(64);
     case 128: RTT_DQ(128);
+    case 256: RTT_DQ(256);
   }
 #undef RTT_DQ
   return static_cast<int>(cudaErrorInvalidValue);
@@ -541,6 +602,7 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
     case 32:
     case 64: RTT_DKV(64);
     case 128: RTT_DKV(128);
+    case 256: RTT_DKV(256);
   }
 #undef RTT_DKV
   return static_cast<int>(cudaErrorInvalidValue);

@@ -12,11 +12,13 @@
 // [B*H, tq, D] in q's type. Query row r sits at position kv_len - tq + r
 // and attends the keys at positions <= its own and < min(kv_len, tk); a row
 // with no such key gets 0. Cache rows at or past kv_len are read as zeros,
-// so stale values (NaN, inf) never reach the sums. D is 8, 16, 32, 64 or
-// 128 for every pair of types (any other D up to 128 arrives zero-padded
-// by the wrapper to the next of these); below D 32 the lanes past D repeat
-// a lower lane's p.v element and store nothing, so each element keeps its
-// one chain.
+// so stale values (NaN, inf) never reach the sums. D is 8, 16, 32, 64, 128
+// or 256 for every pair of types (any other D up to 256 arrives
+// zero-padded by the wrapper to the next of these); below D 32 the lanes
+// past D repeat a lower lane's p.v element and store nothing, so each
+// element keeps its one chain. At D 256 a block stages 4 x 32 K rows of
+// 1040 bytes (f32 cache, 137 KB of dynamic shared memory) or V rows of
+// 1024 bytes (131 KB): one block an SM, 8 p.v elements a lane.
 //
 // What bounds it on an H100: bytes. Every valid K/V row is read once and
 // each element costs two operations: at the serving shape (4 sequences of
@@ -392,8 +394,8 @@ long long rtt_flash_decode_work(int b, int h, int tq, int tk, int d) {
 // holds at least `work_floats` f32 (rtt_flash_decode_work), `tickets` b * h
 // zeroed int32; k and v start on 16-byte boundaries. Two launches; returns
 // cudaGetLastError() after them (0 on success). The head dims built (the
-// `case`s below, ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64
-// and 128, each for every pair of types. An unsupported head dim or dtype,
+// `case`s below, ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64,
+// 128 and 256, each for every pair of types. An unsupported head dim or dtype,
 // or a workspace too small, returns cudaErrorInvalidValue without
 // launching.
 int rtt_flash_decode(const void* q, const void* k, const void* v,
@@ -418,6 +420,7 @@ int rtt_flash_decode(const void* q, const void* k, const void* v,
     case 32: RTT_DECODE(32);
     case 64: RTT_DECODE(64);
     case 128: RTT_DECODE(128);
+    case 256: RTT_DECODE(256);
   }
 #undef RTT_DECODE
   return static_cast<int>(cudaErrorInvalidValue);

@@ -27,10 +27,13 @@
 //   16-byte loads (8 threads a 128-byte row; 8-byte loads at D 8, whose row
 //   is 8 bytes; K rows padded to kKPitch bytes so that each thread's reads
 //   of its own key row are free of bank conflicts) and their scales as f32.
-// - D is 8, 16, 32, 64 or 128 (any other D up to 128 arrives zero-padded
-//   by the wrapper: a zero int8 value adds an exact 0 to the score's chain;
-//   the scales are per row and unchanged). Below D 128 the threads past D
-//   sit out the p.v stage and the merge, which keep their order.
+// - D is 8, 16, 32, 64, 128 or 256 (any other D up to 256 arrives
+//   zero-padded by the wrapper: a zero int8 value adds an exact 0 to the
+//   score's chain; the scales are per row and unchanged). Below D 128 the
+//   threads past D sit out the p.v stage and the merge, which keep their
+//   order; at D 256 each thread takes elements t and t + 128.
+// - The staging lives in dynamic shared memory (DecodeSmem, 70 KB at D
+//   256, past the 48 KB a kernel may hold statically).
 // - Per query row: thread j scores key j, dequantizing in registers as
 //   __fmul_rn(float(k), scale) exactly as the plain version's f32 cache
 //   does; the chunk's max and sum by warp shuffles and one pass over the
@@ -110,7 +113,8 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
                          float* __restrict__ part, int* __restrict__ tickets,
                          int heads, int tq, int tk, float scale) {
   using S = DecodeSmem<D>;
-  __shared__ __align__(16) S sm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  S& sm = *reinterpret_cast<S*>(smem_raw);
   const int bh = blockIdx.x;
   const int chunk = blockIdx.y;
   const int n_chunks = gridDim.y;
@@ -228,8 +232,12 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* kv_len, void* o, float* part,
            int* tickets, int b, int h, int tq, int tk, float scale,
            cudaStream_t stream) {
+  auto kernel = flash_decode_int8_kernel<D, TQ>;
+  const size_t smem = sizeof(DecodeSmem<D>);
+  const cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(b * h, (tk + kChunk - 1) / kChunk);
-  flash_decode_int8_kernel<D, TQ><<<grid, kThreads, 0, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), k_scale, v_scale, kv_len,
       static_cast<TQ*>(o), part, tickets, h, tq, tk, scale);
@@ -261,7 +269,7 @@ extern "C" {
 // int32 from it. Returns cudaGetLastError() after the launch (0 on success);
 // an unsupported head dim, dtype or chunk returns cudaErrorInvalidValue
 // without launching. The head dims built (the `case`s below,
-// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64 and 128.
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256.
 int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
                           const float* k_scale, const float* v_scale,
                           const int* kv_len, void* o, void* part, void* tickets,
@@ -283,6 +291,7 @@ int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
     case 32: RTT_INT8(32);
     case 64: RTT_INT8(64);
     case 128: RTT_INT8(128);
+    case 256: RTT_INT8(256);
   }
 #undef RTT_INT8
   return static_cast<int>(cudaErrorInvalidValue);

@@ -18,13 +18,15 @@
 //   first thread issues every load. setmaxnreg moves registers from the
 //   producer (24) to the consumers (240). blockIdx.y runs over the query
 //   tiles from the last one, so that the longest causal rows start first.
-// - TMA loads Q once, then K and V in tiles of 128 keys into a two-stage
-//   ring in shared memory (full/empty mbarriers per stage). A tile is 128
-//   rows x D bf16, stored as D / 64 sub-tiles of 128-byte rows with the
-//   128-byte swizzle; at D 128: Q 32 KB + 2 x (32 + 32) KB = 160 KB. The
-//   tensor maps are 3-D [BH, T, D], so a ragged last tile reads zeros, not
-//   the next head's rows; they are built on the host per launch.
-// - S = Q K^T: wgmma m64n128k16, Q and K from shared memory, both K-major.
+// - TMA loads Q once, then K and V in tiles of kN keys into a two-stage
+//   ring in shared memory (full/empty mbarriers per stage). A tile is kN
+//   (Q: 128) rows x D bf16, stored as D / 64 sub-tiles of 128-byte rows
+//   with the 128-byte swizzle; at D 128 (kN 128): Q 32 KB + 2 x (32 + 32)
+//   KB = 160 KB. The tensor maps are 3-D [BH, T, D], so a ragged last tile
+//   reads zeros, not the next head's rows; they are built on the host per
+//   launch.
+// - S = Q K^T: wgmma m64nNk16 (N = kN), Q and K from shared memory, both
+//   K-major.
 //   The scale is applied after the product (s * scale, as _online_update
 //   does), and only tiles that touch the causal diagonal, the offsets or
 //   the ragged edge are masked (NEG_INF; p = 0 where s <= NEG_INF / 2).
@@ -42,6 +44,12 @@
 // - Epilogue: o = acc / max(l, 1e-30) (IEEE division) in bf16, or the
 //   unnormalised acc in f32; m and l per row; rows past T are not stored.
 //   No atomics: the same bits on every launch.
+// - Head dim 256 (bench.py's LM at d_model 2048, 8 heads; Gemma's heads)
+//   keeps this design with key tiles of kN 64: Q 64 KB + 2 x (32 + 32) KB =
+//   192 KB of shared memory, S a m64n64 accumulator (32 registers a
+//   thread), O a m64n256 one (128 registers a thread), P.V one m64n256k16
+//   wgmma a k16 step. With 128-key tiles the ring alone would be 256 KB,
+//   more than the 227 KB a block has, and S would take 64 more registers.
 // - Head dims below 64 (8, 16 and 32: the small LMs' heads) run the D 64
 //   body. Its tensor maps are [BH, T, d] over the true d columns, so the
 //   TMA fills each 64-column box past d with zeros: a zero column adds an
@@ -50,7 +58,7 @@
 //   writes a row's first d columns at pitch d). Such a launch costs what D
 //   64 does (81 KB of shared memory, 64-column products). The TMA needs a
 //   row pitch that is a multiple of 16 bytes: d * 2 is one for every d the
-//   entry takes. Any other D up to 128 arrives zero-padded by the wrapper
+//   entry takes. Any other D up to 256 arrives zero-padded by the wrapper
 //   to the next width built.
 //
 // What this design leaves out, for a later PR: overlapping one warpgroup's
@@ -69,21 +77,24 @@
 namespace {
 
 constexpr int kM = 128;        // query rows per block
-constexpr int kN = 128;        // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kConsumers = 2;  // warpgroups of 64 query rows
 constexpr int kThreads = (kConsumers + 1) * 128;
-constexpr int kSubBytes = 128 * 128;  // 128 rows x 64 bf16 columns
 
 // Shared-memory layout in bytes from a 1024-aligned base (the 128-byte
 // swizzle repeats every 1024 bytes, and wgmma's descriptors assume that
-// each sub-tile starts on such a boundary).
+// each sub-tile starts on such a boundary). A sub-tile is a tile's rows x
+// 64 bf16 columns.
 template <int D>
 struct Layout {
+  static constexpr int kN = D > 128 ? 64 : 128;  // keys per K/V tile
   static constexpr int kSub = D / 64;
-  static constexpr int kTile = kSub * kSubBytes;
+  static constexpr int kQSub = kM * 128;
+  static constexpr int kKVSub = kN * 128;
+  static constexpr int kQTile = kSub * kQSub;
+  static constexpr int kTile = kSub * kKVSub;  // a K or V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kTile;
+  static constexpr int kK = kQ + kQTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;  // q, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
@@ -102,6 +113,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int q_off, int k_off, int causal, int normalize,
                       int out_f32, float scale) {
   using L = Layout<D>;
+  constexpr int kN = L::kN;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base + L::kQ;
@@ -133,10 +145,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
-      mbar_expect_tx(bar_q, L::kTile);
+      mbar_expect_tx(bar_q, L::kQTile);
 #pragma unroll
       for (int j = 0; j < L::kSub; ++j) {
-        tma_load(s_q + j * kSubBytes, &tm_q, bar_q, 64 * j, row0, bh);
+        tma_load(s_q + j * L::kQSub, &tm_q, bar_q, 64 * j, row0, bh);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
@@ -144,10 +156,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(bar_full + 8 * s, 2 * L::kTile);
 #pragma unroll
         for (int j = 0; j < L::kSub; ++j) {
-          tma_load(s_k + s * L::kTile + j * kSubBytes, &tm_k, bar_full + 8 * s,
-                   64 * j, it * kN, bh);
-          tma_load(s_v + s * L::kTile + j * kSubBytes, &tm_v, bar_full + 8 * s,
-                   64 * j, it * kN, bh);
+          tma_load(s_k + s * L::kTile + j * L::kKVSub, &tm_k,
+                   bar_full + 8 * s, 64 * j, it * kN, bh);
+          tma_load(s_v + s * L::kTile + j * L::kKVSub, &tm_v,
+                   bar_full + 8 * s, 64 * j, it * kN, bh);
         }
       }
     }
@@ -164,8 +176,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-    float sc[64];
-    uint32_t pa[32];
+    float sc[kN / 2];
+    uint32_t pa[kN / 4];
 
     if (n_tiles > 0) mbar_wait(bar_q, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -178,9 +190,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kSubBytes + (kk % 4) * 32;
-        wgmma_ss_n128(sc, sw128_desc(s_q + off + 64 * 128 * wg, 16, 1024),
-                      sw128_desc(s_k + s * L::kTile + off, 16, 1024), kk > 0);
+        const uint32_t along = (kk % 4) * 32;
+        wgmma_ss<kN>(
+            sc,
+            sw128_desc(s_q + (kk / 4) * L::kQSub + along + 64 * 128 * wg, 16,
+                       1024),
+            sw128_desc(s_k + s * L::kTile + (kk / 4) * L::kKVSub + along, 16,
+                       1024),
+            kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -190,7 +207,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         (causal && k_off + kt0 + kN - 1 > q_off + wrow0);
       if (edge) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
+        for (int i = 0; i < kN / 2; ++i) {
           const int key = kt0 + col_of(i, lane);
           const int q_pos = q_off + wrow0 + r_in + 8 * half_of(i);
           const bool live = key < tk && (!causal || q_pos >= k_off + key);
@@ -198,12 +215,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] = __fmul_rn(sc[i], scale);
+        for (int i = 0; i < kN / 2; ++i) sc[i] = __fmul_rn(sc[i], scale);
       }
 
       float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) mx[half_of(i)] = fmaxf(mx[half_of(i)], sc[i]);
+      for (int i = 0; i < kN / 2; ++i) {
+        mx[half_of(i)] = fmaxf(mx[half_of(i)], sc[i]);
+      }
       float m_new[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -213,7 +232,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       float ps[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kN / 2; ++i) {
         float p = __expf(__fsub_rn(sc[i], m_new[half_of(i)]));
         if (edge) p = sc[i] > kNegInf * 0.5f ? p : 0.f;
         ps[half_of(i)] = __fadd_rn(ps[half_of(i)], p);
@@ -248,7 +267,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int kk = 0; kk < kN / 16; ++kk) {
         wgmma_pv<D>(acc, pa + 4 * kk,
-                    sw128_desc(s_v + s * L::kTile + kk * 16 * 128, kSubBytes,
+                    sw128_desc(s_v + s * L::kTile + kk * 16 * 128, L::kKVSub,
                                1024));
       }
       wgmma_commit();
@@ -298,8 +317,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
            cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
   if (!make_map(&map_q, q, bh, t, d, kM) ||
-      !make_map(&map_k, k, bh, tk, d, kN) ||
-      !make_map(&map_v, v, bh, tk, d, kN)) {
+      !make_map(&map_k, k, bh, tk, d, Layout<D>::kN) ||
+      !make_map(&map_v, v, bh, tk, d, Layout<D>::kN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_fwd_sm90_kernel<D, kTwoTerm>;
@@ -317,8 +336,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
 
 // Called by rtt_flash_fwd for bf16 q/k/v; returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a head dim it does not take (the
-// `case`s below: 8, 16 and 32 through the D 64 body, 64, 128) or tensors
-// TMA cannot address (a base not 16-byte aligned).
+// `case`s below: 8, 16 and 32 through the D 64 body, 64, 128 and 256) or
+// tensors TMA cannot address (a base not 16-byte aligned).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    float* m, float* l, int bh, int t, int tk, int d, int q_off,
                    int k_off, int causal, int normalize, int out_f32,
@@ -337,6 +356,7 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
     case 32:
     case 64: RTT_SM90(64);
     case 128: RTT_SM90(128);
+    case 256: RTT_SM90(256);
   }
 #undef RTT_SM90
   return static_cast<int>(cudaErrorInvalidValue);

@@ -202,6 +202,59 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// The same with N = 32: d[16].
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : RTT_F16(0)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[N / 2] (+)= A[64 x 16] * B[16 x N], both from shared memory, K-major:
+// N 128, 64 or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  if constexpr (N == 128) {
+    wgmma_ss_n128(d, a, b, scale_d);
+  } else if constexpr (N == 64) {
+    wgmma_ss_n64(d, a, b, scale_d);
+  } else {
+    static_assert(N == 32, "wgmma_ss: N 128, 64 or 32");
+    wgmma_ss_n32(d, a, b, scale_d);
+  }
+}
+
+// d[128] += A[64 x 16] (registers) * B[16 x 256] (shared memory, MN-major:
+// the transpose bit is set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : RTT_F16(0), RTT_F16(16), RTT_F16(32), RTT_F16(48), RTT_F16(64),
+        RTT_F16(80), RTT_F16(96), RTT_F16(112)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d[64] += A[64 x 16] (registers) * B[16 x 128] (shared memory, MN-major:
 // the transpose bit is set).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -281,11 +334,13 @@ __device__ __forceinline__ void wgmma_s8_n16(uint32_t (&d)[8], uint64_t a,
 
 // acc[D / 2] += A[64 x 16] (registers) * B[16 x D] (shared memory,
 // MN-major): the product of a rounded probability-like tile with a [rows,
-// D] operand tile, D 64 or 128.
+// D] operand tile, D 64, 128 or 256.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
                                          uint64_t b) {
-  if constexpr (D == 128) {
+  if constexpr (D == 256) {
+    wgmma_rs_n256(o, a, b);
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(o, a, b);
   } else {
     wgmma_rs_n64(o, a, b);

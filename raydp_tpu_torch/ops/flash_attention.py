@@ -42,12 +42,15 @@ dv's product and ds before dk's and dq's (the reference feeds both in
 f32). So bf16 agrees with the plain versions to bf16 rounding, not bit for
 bit.
 
-Head dims: every family takes D from 1 to 128 on the card. Kernels are
-built for 8, 16, 32, 64 and 128 (``KERNEL_HEAD_DIMS``); any other D runs
-at the next built width (``kernel_head_dim``), q, k, v (and the cotangent)
-zero-padded to it (``pad_head``), the scale that of the true D, the output
-cut back to D. A zero column adds an exact 0 to each score's sum and an
-output column of zeros, which is cut off. D past 128 is refused.
+Head dims: every family takes D from 1 to 256 on the card. Kernels are
+built for 8, 16, 32, 64, 128 and 256 (``KERNEL_HEAD_DIMS``); any other D
+runs at the next built width (``kernel_head_dim``), q, k, v (and the
+cotangent) zero-padded to it (``pad_head``), the scale that of the true D,
+the output cut back to D. A zero column adds an exact 0 to each score's
+sum and an output column of zeros, which is cut off. D past 256 is
+refused. At D 256 (bench.py's LM at d_model 2048 over 8 heads) each family
+keeps its design with tiles cut to fit a block's shared memory and
+registers: see each source's notes.
 
 Decode == prefill: for f32 q/k/v the decode kernel and the forward run the
 same steps of the per-row update over the same 32-key tiles, merged in
@@ -87,18 +90,19 @@ NEG_INF = -1e30
 # keys per k-tile, the width of a warp; 64 query rows per f32 prefill
 # block. The f32 decode == prefill bit contract rests on both kernels
 # sharing the k-tile. The bf16
-# forward's tile (128 queries x 128 keys) lives in
+# forward's tile (128 queries x 128 keys, 64 keys at D 256) lives in
 # csrc/flash_forward_sm90.cu (kM, kN).
 BLOCK_K = 32
 BLOCK_Q = 64
 # The head dims every attention kernel family is built for (the `case`s of
-# each C entry in csrc/): 8, 16 and 32 (the small LMs' heads), 64 and 128.
-# The bf16 forward and backward run 8, 16 and 32 through their D 64 bodies,
-# their tensor maps reading the true columns and zero-filling the rest. Any
-# other head dim up to 128 runs at the next built width (``kernel_head_dim``),
-# q, k and v zero-padded to it by the wrapper (``pad_head``) and the output
-# cut back; a head dim past 128 is refused.
-KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
+# each C entry in csrc/): 8, 16 and 32 (the small LMs' heads), 64, 128 and
+# 256 (bench.py's LM at d_model 2048, 8 heads; Gemma's heads). The bf16
+# forward and backward run 8, 16 and 32 through their D 64 bodies, their
+# tensor maps reading the true columns and zero-filling the rest. Any other
+# head dim up to 256 runs at the next built width (``kernel_head_dim``), q,
+# k and v zero-padded to it by the wrapper (``pad_head``) and the output cut
+# back; a head dim past 256 is refused.
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
 # partial (m, l, o) per chunk
@@ -141,7 +145,8 @@ def pick_blocks(t_q: int, t_k: int, head_dim: int | None = None) -> tuple:
     the warp: the k-tile is 32 keys, whatever the lengths (a ragged last
     tile is masked), and an f32 prefill block holds 64 query rows, register
     tiles of 256 threads. ``head_dim`` does not change them on this card.
-    The bf16 forward on tensor cores tiles 128 x 128 in its CUDA source."""
+    The bf16 forward on tensor cores tiles 128 x 128 (128 x 64 at D 256)
+    in its CUDA source."""
     del t_k, head_dim
     return min(BLOCK_Q, t_q), BLOCK_K
 

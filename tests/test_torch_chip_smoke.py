@@ -348,18 +348,18 @@ def test_decode_pattern_names_every_instantiation():
         "flash_decode_pv_kernel D128 q bf16 cache f32",
         "flash_decode_scores_kernel D64 q bf16 cache bf16",
         "flash_decode_pv_kernel D16 q f32 cache f32"]
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 40 decode kernels"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 48 decode kernels"):
         chip_smoke.decode_report(entries)
 
 
 def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
-    """The f32 prefill body's ten instantiations <D, two-term> get a key
+    """The f32 prefill body's twelve instantiations <D, two-term> get a key
     each with their SASS counts and LDS per FFMA; the bf16 forward's name
     is not theirs; a spill, a missing instantiation or no LDGSTS fails."""
     names = {
         f"_ZN41_GLOBAL__N__1_flash_attention_cu16flash_fwd_kernelILi{d}ELb{two}"
         f"EEEvPKfS2_S2_PfS3_S3_iiiiiiif": (d, two)
-        for d in (8, 16, 32, 64, 128) for two in (0, 1)}
+        for d in (8, 16, 32, 64, 128, 256) for two in (0, 1)}
     sm90 = "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv"
     ops = ["FFMA"] * 8 + ["LDS.128"] * 2 + ["LDGSTS.E.BYPASS.128"] + ["BAR.SYNC"]
     monkeypatch.setattr(chip_smoke, "sass_functions",
@@ -369,7 +369,7 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
                for name in [*names, sm90]}
     out = chip_smoke.f32_fwd_report(entries)
     assert sorted(out) == sorted(
-        f"flash_fwd_kernel D{d}{two}" for d in (8, 16, 32, 64, 128)
+        f"flash_fwd_kernel D{d}{two}" for d in (8, 16, 32, 64, 128, 256)
         for two in ("", " two-term"))
     row = out["flash_fwd_kernel D64"]
     assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (8, 2, 1, 1)
@@ -377,7 +377,7 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
     first = next(iter(names))
     with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
         chip_smoke.f32_fwd_report(entries | {first: entries[first] | {"spill_bytes": 8}})
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 10"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 12"):
         chip_smoke.f32_fwd_report({k: v for k, v in entries.items() if k != first})
     monkeypatch.setattr(chip_smoke, "sass_functions",
                         lambda lib: {name: ops[:-2] for name in names})
@@ -386,14 +386,14 @@ def test_f32_fwd_report_counts_each_instantiation(monkeypatch):
 
 
 def test_f32_bwd_report_counts_each_instantiation(monkeypatch):
-    """The f32 backward's ten instantiations (dq and dk/dv, D 8, 16, 32, 64
-    and 128) get a key each with their SASS counts; the bf16 backward's
+    """The f32 backward's twelve instantiations (dq and dk/dv, D 8, 16, 32,
+    64, 128 and 256) get a key each with their SASS counts; the bf16 backward's
     names are not theirs; a spill, a missing instantiation or no LDS
     fails."""
     names = {
         f"_ZN40_GLOBAL__N__1_flash_backward_cu{len(k) + 11}flash_bwd_{k}_kernelILi{d}"
         "EEEvNS_7BwdArgsE": (k, d)
-        for k in ("dq", "dkv") for d in (8, 16, 32, 64, 128)}
+        for k in ("dq", "dkv") for d in (8, 16, 32, 64, 128, 256)}
     sm90 = ["_ZN45_GLOBAL__N__1_flash_backward_sm90_cu24flash_bwd_dq_sm90_kernelILi128EEEv",
             "_ZN45_GLOBAL__N__1_flash_backward_sm90_cu25flash_bwd_dkv_sm90_kernelILi64EEEv"]
     ops = ["FFMA"] * 16 + ["LDS.128"] * 4 + ["LDGSTS.E.BYPASS.128"] * 2 + ["BAR.SYNC"]
@@ -404,14 +404,14 @@ def test_f32_bwd_report_counts_each_instantiation(monkeypatch):
                for name in [*names, *sm90]}
     out = chip_smoke.f32_bwd_report(entries)
     assert sorted(out) == sorted(f"flash_bwd_{k}_kernel D{d}" for k in ("dq", "dkv")
-                                 for d in (8, 16, 32, 64, 128))
+                                 for d in (8, 16, 32, 64, 128, 256))
     row = out["flash_bwd_dkv_kernel D64"]
     assert (row["FFMA"], row["LDS"], row["LDGSTS"], row["BAR"]) == (16, 4, 2, 1)
     assert row["lds_per_ffma"] == 0.25 and row["sass_instructions"] == 23
     first = next(iter(names))
     with pytest.raises(chip_smoke.SmokeFailure, match="spills"):
         chip_smoke.f32_bwd_report(entries | {first: entries[first] | {"spill_bytes": 4}})
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 10"):
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 12"):
         chip_smoke.f32_bwd_report({k: v for k, v in entries.items() if k != first})
     monkeypatch.setattr(chip_smoke, "sass_functions",
                         lambda lib: {name: ["FFMA", "LDGSTS"] for name in names})
@@ -1615,3 +1615,62 @@ def test_phase_small_lm_fails_a_wrong_gradient(monkeypatch):
     with pytest.raises(chip_smoke.SmokeFailure,
                        match="float32 flash step disagrees with attn_impl"):
         chip_smoke.phase_small_lm(torch.device("cpu"))
+
+
+# phase_wide_lm on the CPU: bench.py's wide LM's head dim (256) at a small
+# width and depth, with short paths and a small engine
+WIDE_LM_CPU = dict(model=dict(vocab_size=64, d_model=512, num_heads=2,
+                              num_layers=2),
+                   bf16=dict(batch=2, seq=48, steps=2),
+                   f32=dict(batch=1, seq=40, steps=2), grad_t=32, streams=2,
+                   prompt_lens=(3, 20),
+                   engine=dict(capacity_tokens=64, page_tokens=16, max_seqs=2,
+                               max_new_tokens=4))
+
+
+def test_phase_wide_lm_on_the_cpu():
+    """``phase_wide_lm`` on the CPU at head dim 256: flash trained in bf16
+    and f32 against ``attn_impl="full"`` within the phase's limits, the
+    loss falling, no launch (the plain versions launch nothing); served
+    from f32 and int8 caches and as a bf16 model, every stream to its
+    budget, the int8 tokens counted against the f32 cache's; the record's
+    keys and its summary line."""
+    rec = chip_smoke.phase_wide_lm(torch.device("cpu"), WIDE_LM_CPU)
+    assert rec["launches"] == {}
+    for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        loss_limit, grad_limit = chip_smoke.WIDE_LM_LIMITS[dtype]
+        row = rec["train"][kind]
+        assert row["loss_gap"] <= loss_limit and row["worst_grad_rel"] <= grad_limit
+        assert row["losses"][-1] < row["first_loss"]
+    serving = rec["serve"]
+    budget = WIDE_LM_CPU["engine"]["max_new_tokens"]
+    for leg in ("f32", "bf16", "int8"):
+        assert [len(t) for t in serving[leg]["tokens_by_stream"]] == [budget] * 2
+    assert 0 <= serving["int8_tokens_as_f32"] <= 2 * budget
+    line = chip_smoke.wide_lm_summary(rec, "cpu")
+    assert set(line["wide_lm"]["train"]) == {"bfloat16", "float32"}
+    assert set(line["wide_lm"]["serve"]) == {"f32", "bf16", "int8"}
+
+
+def test_phase_wide_lm_fails_a_wrong_gradient(monkeypatch):
+    """A planted fault: dk/dv off by 1% in the flash backward's plain
+    version; the bf16 step still agrees with ``attn_impl="full"`` at its
+    bf16 bounds, the f32 step does not, and the phase fails before it
+    serves."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    plain = fa.flash_bwd_dkv_plain
+    monkeypatch.setattr(fa, "flash_bwd_dkv_plain",
+                        lambda *a, **k: tuple(x * 1.01 for x in plain(*a, **k)))
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="f32 flash step disagrees with attn_impl"):
+        chip_smoke.phase_wide_lm(torch.device("cpu"), WIDE_LM_CPU)
+
+
+def test_planted_faults_refuse_an_unknown_name():
+    """``--planted-faults NAME ...`` plants only the faults named, and a
+    name that is not one of them is refused before any copy is made."""
+    assert {"d256_fwd_k_subtile", "d256_dkv_dk_reads_do", "d256_f32_score_rows",
+            "d256_f32_dkv_stale_q"} <= set(chip_smoke.PLANTED_FAULTS)
+    with pytest.raises(chip_smoke.SmokeFailure, match="no planted fault named"):
+        chip_smoke.planted_faults(["no_such_fault"])

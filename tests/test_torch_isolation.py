@@ -338,10 +338,12 @@ def test_cuda_only_paths_refuse_cpu_kernels():
     from raydp_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(1, 1, 4, 16)
-    with pytest.raises(ValueError, match="flash_fwd: head_dim 129"):
-        fa.kernel_head_dim(129, "flash_fwd")
+    with pytest.raises(ValueError, match="flash_fwd: head_dim 257"):
+        fa.kernel_head_dim(257, "flash_fwd")
     with pytest.raises(ValueError):
-        fa.kernel_head_dim(256, "flash_bwd_dq")
+        fa.kernel_head_dim(512, "flash_bwd_dq")
+    assert fa.kernel_head_dim(256, "flash_bwd_dq") == 256  # bench.py's wide LM
+    assert fa.kernel_head_dim(129, "flash_fwd") == 256
     assert fa.kernel_head_dim(16, "flash_bwd_dq") == 16  # the small LMs' heads
     assert fa.kernel_head_dim(24, "flash_decode_int8") == 32
     with pytest.raises(ValueError, match="different devices"):
