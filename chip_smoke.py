@@ -75,7 +75,14 @@ Phases; any failure exits non-zero and prints no result line:
    at the serving shape, and at D 256 decode == the f32 prefill row bit
    for bit at every tile boundary, the decodes' edges and the bf16 decode
    row within ``bf16_limit`` of the bf16 prefill row; the limits above,
-   two launches bitwise), and
+   two launches bitwise); the serving families (the forward in f32 and
+   bf16, both bodies, K4a and K4b) at head dims 512 (bench.py's LM at
+   d_model 4096, 8 heads), 320 (zero-padded to 512), 1024 and 1536, which
+   they take in 256-column chunks (``check_heads_past_256``: the forward
+   at ``wide_forward_cases``, the decodes at the serving shape, and at 512
+   and 1024 decode == the f32 prefill row bit for bit at every tile
+   boundary and the decodes' edges; the backward families refusing D 512
+   before any launch), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
@@ -366,7 +373,13 @@ Phases; any failure exits non-zero and prints no result line:
    ENGINE's shape for 4 streams of 64-1500 tokens from an f32 cache, as a
    bf16 model and from an int8 cache, one stream's logits held to the
    plain path; every head-dim-256 kernel launched; a ``{"wide_lm":
-   {...}}`` line.
+   {...}}`` line. Then bench.py's LM at its 4096 width (``phase_lm_4096``;
+   ``--lm-4096`` runs it alone): d_model 4096, 8 heads of 512, its other
+   widths the 2048 LM's, served by ``DecodeEngine`` at ENGINE's shape from
+   an f32 cache, as a bf16 model and from an int8 cache (4 streams), one
+   stream's prefill and first decode step held to the plain path, every
+   serving kernel launched at head dim 512; a ``{"lm_4096": {...}}``
+   line.
    Then the chaos plane (``phase_chaos``, after the times, before the
    leftovers): under ``RAYDP_TPU_SANITIZE=donation,lockdep,leaks-strict``
    (the environment restored after), ``raydp_tpu_torch.chaos.run`` of
@@ -421,7 +434,11 @@ a ``{"small_heads": {...}}`` line every attention family at head dims
 ``phase_small_lm``, a ``{"wide_heads": {...}}`` line every family at head
 dims 256 and 192 (errors, and at 256 the times by events and by the
 profiler beside the plain version's, SDPA's and the bound), a
-``{"wide_lm": {...}}`` line ``phase_wide_lm``, an ``{"examples": {...}}`` line
+``{"wide_lm": {...}}`` line ``phase_wide_lm``, a ``{"heads_past_256":
+{...}}`` line the serving families at head dims past 256 (errors, and at
+512 the times beside the plain version's, SDPA's with its backend and the
+bound), an ``{"lm_4096": {...}}`` line ``phase_lm_4096``, an
+``{"examples": {...}}`` line
 ``phase_examples``, a ``{"deploy": {...}}`` line ``phase_deploy`` and a
 ``{"chaos": {...}}`` line ``phase_chaos``, each
 beside the card's name and power limit. The
@@ -441,8 +458,8 @@ under ``build/planted/``, builds the copy and runs there ``chip_smoke.py
 --bf16-checks`` for a fault in a CUDA source (phase 2's bf16 forward,
 backward and decode checks, the f32 bodies' edges, the f32/bf16-cache
 decode's bitwise checks and the int8 product's, at the serving and
-training shapes alone, every family at head dims 256 and 192, then the K1
-and K5 checks) or ``chip_smoke.py
+training shapes alone, every family at head dims 256 and 192, the serving
+families past 256, then the K1 and K5 checks) or ``chip_smoke.py
 --fit-checks`` for one in a Python module (``phase_fit``'s steps 1-3: the
 streamed fits and their per-step parity, the widen and the
 crash-and-retry fits); it exits 0 only if every copy fails them with a
@@ -463,6 +480,14 @@ run phase 1 and then every attention family at head dims 256 and 192
 (``check_wide_heads`` and ``wide_head_times``, a ``{"wide_heads":
 {...}}`` line), or phase 1 and ``phase_wide_lm`` (a ``{"wide_lm": {...}}``
 line), alone.
+
+    python3 chip_smoke.py --heads-past-256
+    python3 chip_smoke.py --lm-4096
+
+run phase 1 and then the serving families at head dims past 256
+(``check_heads_past_256`` and ``heads_past_256_times``, a
+``{"heads_past_256": {...}}`` line), or phase 1 and ``phase_lm_4096`` (an
+``{"lm_4096": {...}}`` line), alone.
 """
 
 from __future__ import annotations
@@ -535,6 +560,13 @@ SMALL_HEADS_T = 2048
 # cache of 2048 at DECODE_LENS) and at hard cases of 2 heads
 WIDE_HEAD_DIMS = (256, 192)
 WIDE_HEADS = 8
+# head dims past 256, which the serving kernels (the forward, K4a, K4b) take
+# in 256-column chunks (ops.flash_attention.HEAD_CHUNK): 512, bench.py's LM
+# at BENCH_LM_D=4096 (8 heads), 320, zero-padded to 512, and 1024 and 1536,
+# two and three more chunks. Held at WIDE_HEAD_DIMS' shapes; decode == the
+# f32 prefill row bit for bit and the decodes' edges at PAST_256_BITS_DIMS
+PAST_256_HEAD_DIMS = (512, 320, 1024, 1536)
+PAST_256_BITS_DIMS = (512, 1024)
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -786,7 +818,8 @@ def phase_device() -> dict:
     sm90 = sm90_report(entries)
     decode = decode_report(entries)
     return lines | {"build_s": build_s, "ptxas": ptxas, "sm90": sm90,
-                    "decode": decode, "f32_fwd": f32_fwd_report(entries),
+                    "decode": decode, "chunked": chunked_report(entries),
+                    "f32_fwd": f32_fwd_report(entries),
                     "f32_bwd": f32_bwd_report(entries),
                     "k1_k5": k1_k5_report(entries)}
 
@@ -896,7 +929,7 @@ def sm90_report(entries: dict) -> dict:
 
 # the split f32/bf16-cache decode's two kernels <D, q type, cache type> in
 # ptxas's mangled names (a repeated bf16 is a substitution, S..._)
-DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)EEv")
+DECODE_KERNEL = re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi(\d+)E(\w+?)Lb0E")
 DECODE_TYPES = re.compile(r"f|13__nv_bfloat16|S\d*_")
 DECODE_INSTANTIATIONS = 48  # D 8/16/32/64/128/256 x 4 type pairs x 2 kernels
 
@@ -905,6 +938,53 @@ def _decode_key(found: re.Match) -> str:
     types = ["f32" if tok == "f" else "bf16"
              for tok in DECODE_TYPES.findall(found.group(3))]
     return f"{found.group(1)} D{found.group(2)} q {types[0]} cache {types[1]}"
+
+
+# the chunked bodies of head dims past 256 in ptxas's mangled names: the
+# f32 and bf16 forward <two-term>, K4a's two kernels <256, q type, cache
+# type, true> and K4b <256, q type, true>
+CHUNKED_KERNELS = (
+    re.compile(r"(flash_fwd_chunked_kernel)ILb(\d)E"),
+    re.compile(r"(flash_fwd_sm90_chunked_kernel)ILb(\d)E"),
+    re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi256E(\w+?)Lb1E"),
+    re.compile(r"(flash_decode_int8_kernel)ILi256E(\w+?)Lb1E"),
+)
+CHUNKED_INSTANTIATIONS = 14  # 2 + 2 + 2 x 4 type pairs + 2
+
+
+def _chunked_key(found: re.Match) -> str:
+    if "fwd" in found.group(1):
+        two = " two-term" if found.group(2) == "1" else ""
+        return f"{found.group(1)}{two}"
+    types = ["f32" if tok == "f" else "bf16"
+             for tok in DECODE_TYPES.findall(found.group(2))]
+    cache = f" cache {types[1]}" if len(types) > 1 else ""
+    return f"{found.group(1)} chunked q {types[0]}{cache}"
+
+
+def chunked_report(entries: dict) -> dict:
+    """The chunked bodies of head dims past 256 among ptxas's ``entries``
+    (``CHUNKED_KERNELS``): registers, spills and static shared memory, and
+    for the tensor-core forward its HGMMA and UTMALDG counts. Fails on a
+    spill, a missing instantiation or a tensor-core forward without
+    them."""
+    sass = sass_counts(_build.library_path())
+    out = {}
+    for name, row in entries.items():
+        for pattern in CHUNKED_KERNELS:
+            if found := pattern.search(name):
+                extra = sass.get(name, {}) if "sm90" in found.group(1) else {}
+                out[_chunked_key(found)] = row | extra
+    log(f"chunked kernels, head dims past 256 (ptxas): {out}")
+    require(len(out) == CHUNKED_INSTANTIATIONS,
+            f"expected {CHUNKED_INSTANTIATIONS} chunked kernels, found "
+            f"{sorted(out)}")
+    for key, row in out.items():
+        require(row["spill_bytes"] == 0, f"{key} spills")
+        if "sm90" in key:
+            require(row.get("HGMMA", 0) > 0 and row.get("UTMALDG", 0) > 0,
+                    f"{key}: no HGMMA or UTMALDG in its SASS")
+    return out
 
 
 def decode_report(entries: dict) -> dict:
@@ -1078,6 +1158,7 @@ def phase_kernels(device, bh_heads=8, t=2048, d=128, lens=None) -> dict:
         out.update(check_decode_edges(gen, device, bh_heads, t, d, cache))
     out["small_heads"] = check_small_heads(gen, device)
     out["wide_heads"] = check_wide_heads(gen, device)
+    out["heads_past_256"] = check_heads_past_256(gen, device)
     out.update(check_interaction(gen, device))
     out.update(check_stochastic(gen, device))
     out.update(check_quantize(gen, device))
@@ -1496,6 +1577,86 @@ def check_wide_heads(gen, device) -> dict:
     out["worst"] = worst
     log(f"wide head dims {WIDE_HEAD_DIMS}: worst |kernel - plain| (and bf16 "
         f"|kernel - plain| / limit) {worst}")
+    return out
+
+
+def check_heads_past_256(gen, device) -> dict:
+    """The serving families at the head dims of ``PAST_256_HEAD_DIMS``
+    (512, bench.py's LM at d_model 4096; 320, zero-padded to 512; 1024 and
+    1536), which they take in 256-column chunks, each against its plain
+    version and bitwise over two launches, at the limits of phase 2 (f32
+    forward and decode 1e-5; bf16 within ``bf16_limit``,
+    ``bf16_decode_limit``):
+
+    - the forward, f32 and bf16, both bodies (``wide_forward_cases``);
+    - K4a (f32 and bf16 q, an f32 cache) and K4b (against K4a on the
+      dequantized cache and its plain version) at the serving shape,
+      ``check_decode``; at ``PAST_256_BITS_DIMS`` also decode == the f32
+      prefill row bit for bit at every tile and block boundary, tq 1 and
+      3, with the bf16 identities (``check_decode_bits``), and the edges
+      from f32, bf16 and int8 caches (``check_decode_edges``, 2 heads);
+    - the backward families refuse D 512 before any launch
+      (``check_backward_refused``).
+
+    ``worst`` holds, per family and head dim, the largest |kernel - plain|
+    and (bf16) the largest |kernel - plain| / limit."""
+    out, worst = {}, {}
+    t = SMALL_HEADS_T
+    fold = functools.partial(fold_head_dim, out, worst)
+
+    for d in PAST_256_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            fold(d, forward_cases(gen, device, dtype,
+                                  wide_forward_cases(WIDE_HEADS, t, d)))
+        fold(d, check_decode(gen, device, WIDE_HEADS, t, d, DECODE_LENS))
+        if d not in PAST_256_BITS_DIMS:
+            continue
+        fold(d, check_decode_bits(gen, device, WIDE_HEADS, t, DECODE_LENS,
+                                  dims=(d,)))
+        for cache in ("f32", "bf16", "int8"):
+            fold(d, check_decode_edges(gen, device, 2, t, d, cache))
+    out["backward_refused"] = check_backward_refused(device, 512)
+    out["worst"] = worst
+    log(f"head dims past 256 {PAST_256_HEAD_DIMS}: worst |kernel - plain| "
+        f"(and bf16 |kernel - plain| / limit) {worst}")
+    return out
+
+
+def check_backward_refused(device, d: int) -> dict:
+    """The backward at head dim ``d`` (past 256, not built) on ``device``:
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` in f32 and bf16, and the
+    backward of ``flash_attention`` through autograd, each raise the width
+    rule's refusal, and no backward kernel launches. Returns each call's
+    message."""
+    out = {}
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv")
+    before = {n: fa.LAUNCHES[n] for n in bwd}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, g = (torch.zeros((1, 2, 64, d), dtype=dtype, device=device)
+                      for _ in range(4))
+        lse = torch.zeros((1, 2, 64), device=device)
+        calls = {n: functools.partial(getattr(fa, n), q, k, v, lse, lse, g)
+                 for n in bwd}
+
+        def through_autograd(q=q, k=k, v=v):
+            qr = q.clone().requires_grad_()
+            fa.flash_attention(qr, k, v, causal=True).float().sum().backward()
+
+        calls["flash_attention backward"] = through_autograd
+        for name, call in calls.items():
+            key = f"{name} {str(dtype)[6:]} D{d}"
+            try:
+                call()
+                out[key] = None
+            except ValueError as err:
+                out[key] = str(err)
+            require(out[key] is not None and "not built yet" in out[key],
+                    f"{key} was not refused: {out[key]}")
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in bwd}
+    log(f"the backward at D {d} refused before any launch: {out}; "
+        f"launches {launched}")
+    require(not any(launched.values()),
+            f"the backward at D {d} launched {launched}")
     return out
 
 
@@ -3613,6 +3774,82 @@ def phase_wide_lm(device, cfg: dict = WIDE_LM) -> dict:
     require(rec["seconds"] <= WIDE_LM_LIMIT_S,
             f"phase_wide_lm took {rec['seconds']:.1f} s")
     return rec
+
+
+# phase_lm_4096: bench.py's LM at BENCH_LM_D=4096 (bench.py fixes 8 heads:
+# head dim 512, past 256, which the serving kernels take in 256-column
+# chunks; the backward is not built there, so the phase serves only), its
+# other widths the 2048 LM's: about 0.82 B parameters, seeded random
+# weights. Served at ENGINE's shape from an f32 cache (the f32 model), as a
+# bf16 model and from an int8 cache, 4 streams of PROMPT_LENS, as
+# phase_wide_lm serves
+LM_4096 = dict(model=dict(MODEL, d_model=4096), streams=4,
+               prompt_lens=PROMPT_LENS, engine=ENGINE)
+LM_4096_LIMIT_S = 240.0  # the whole phase
+# the kernels the phase must launch at head dim 512
+LM_4096_KERNELS = ("flash_fwd", "flash_fwd_f32", "flash_decode",
+                   "flash_decode_int8", "quantize_int8")
+
+
+def phase_lm_4096(device, cfg: dict = LM_4096) -> dict:
+    """bench.py's LM at its 4096 width, 8 heads of 512 (``LM_4096``),
+    served from f32, bf16 and int8 caches (``wide_lm_serve``: one stream's
+    prefill and first decode step held to ``attn_impl="full"``, each leg's
+    kernels launched on the card, none on the CPU). ``launches`` sums the
+    legs' launches; on the card each kernel of ``LM_4096_KERNELS`` must
+    have launched. The whole phase takes at most ``LM_4096_LIMIT_S``."""
+    t0 = time.perf_counter()
+    rec = {"config": cfg["model"], "serve": wide_lm_serve(device, cfg)}
+    launches: dict = {}
+    for leg in ("f32", "bf16", "int8"):
+        _add_launches(launches, {n: k for n, k in
+                                 rec["serve"][leg]["launches"].items() if k})
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    head_dim = cfg["model"]["d_model"] // cfg["model"]["num_heads"]
+    log(f"LM at d_model {cfg['model']['d_model']} (D{head_dim}): "
+        f"{rec['seconds']:.1f} s; launches {launches}")
+    if device.type == "cuda":
+        missing = [n for n in LM_4096_KERNELS if not launches.get(n)]
+        require(not missing, f"LM 4096: no launch of {missing}")
+    else:
+        require(not launches, f"LM 4096 on the CPU launched {launches}")
+    require(rec["seconds"] <= LM_4096_LIMIT_S,
+            f"phase_lm_4096 took {rec['seconds']:.1f} s")
+    return rec
+
+
+def lm_4096_summary(rec: dict, nvidia_smi: str) -> dict:
+    """The ``{"lm_4096": {...}}`` line: the model, each serving run's tok/s,
+    TTFT and TPOT p50, the first stream's logit gaps, the int8 tokens that
+    are the f32 cache's, the launches and the seconds, beside the card's
+    name and power limit."""
+    serving = rec["serve"]
+    return {"lm_4096": {
+        "config": rec["config"],
+        "serve": {leg: {k: serving[leg][k] for k in (
+            "decode_tok_s", "ttft_ms_p50", "tpot_ms_p50", "prefill_ms_p50")}
+            for leg in ("f32", "bf16", "int8")},
+        "logits": serving["logits"],
+        "int8_tokens_as_f32": serving["int8_tokens_as_f32"],
+        "launches": rec["launches"], "seconds": rec["seconds"]},
+        "nvidia_smi": nvidia_smi}
+
+
+def heads_past_256_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
+    """The ``{"heads_past_256": {...}}`` line: each serving family at the
+    head dims of ``PAST_256_HEAD_DIMS``, its worst error against its plain
+    version over ``check_heads_past_256`` (and, bf16, its worst error over
+    its limit), and at D 512 its times (``heads_past_256_times``: events
+    and device time, the plain version, SDPA with the backend that took
+    the shape, the bound, the operations' factor over one pass); the
+    backward's refusals; beside the card's name and power limit."""
+    out = head_dim_rows(checks, times)
+    for name, row in out.items():
+        timed = times.get(name, {})
+        row.update({k: timed.get(k) for k in ("library", "recompute")})
+    out["backward_refused"] = sorted(checks["backward_refused"])
+    return {"heads_past_256": out, "nvidia_smi": nvidia_smi}
 
 
 def wide_lm_summary(rec: dict, nvidia_smi: str) -> dict:
@@ -8263,6 +8500,7 @@ def phase_times(device, heads=8, t=2048, d=128, lens=None) -> dict:
     }
     out.update(small_head_times(device))
     out.update(wide_head_times(device))
+    out.update(heads_past_256_times(device))
     out.update(train_times(device, heads, d))
     out.update(interaction_times(device))
     out.update(quant_times(device))
@@ -8405,6 +8643,94 @@ def wide_head_times(device) -> dict:
         lambda: fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks, v_scale=vs),
         lambda: fa.flash_decode_plain(qd, k8, v8, kv_len, ks, vs),
         None, None, rows * (d + 4) * 2 + io_bytes, 4 * d * rows, "f32")
+    return out
+
+
+def sdpa_with_backend(q, k, v, **kwargs):
+    """SDPA on these inputs under the first of PyTorch's backends (flash,
+    memory-efficient, cuDNN, math) that takes them: (backend name, a
+    function that calls it), or ("none", None). The flash backend refuses
+    head dims past 256."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, **kwargs)
+
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend.name, call
+    return "none", None
+
+
+def heads_past_256_times(device, d: int = 512) -> dict:
+    """The serving families at head dim ``d`` (512: bench.py's LM at
+    d_model 4096), each row named ``<kernel> D<d>`` (``time_row``): the
+    forward in bf16 (``flash_fwd``) and f32 (``flash_fwd_f32``) on the
+    prefill [1, 8, 2048, D] causal through ``flash_attention``, beside SDPA
+    under the backend that takes the shape (``library`` names it); K4a (f32
+    q and cache) and K4b (f32 q) on q [4, 8, 1, D] against a cache [4, 8,
+    2048, D] at DECODE_LENS, K4a beside SDPA with a length mask. Bounds: 4
+    * D operations a live pair at the type's peak; the decodes by the
+    cache bytes their lengths need. ``recompute``: the chunked bodies'
+    operations over one pass, (D / 256 + 1) / 2 for the forward (every
+    column chunk's block computes all of S) and for K4b (each column
+    chunk's block its scores), about 1 for K4a (its scores once; each
+    column chunk's block repeats p only); not counted in the bound."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    heads, t = WIDE_HEADS, SMALL_HEADS_T
+    factor = (d / fa.HEAD_CHUNK + 1) / 2
+    out = {}
+    pairs = heads * t * (t + 1) // 2
+    for key, dtype in ((f"flash_fwd D{d}", torch.bfloat16),
+                       (f"flash_fwd_f32 D{d}", torch.float32)):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        size = 2 if dtype == torch.bfloat16 else 4
+        q, k, v = (_randn(gen, (1, heads, t, d), dtype, device)
+                   for _ in range(3))
+        backend, sdpa = sdpa_with_backend(q, k, v, is_causal=True)
+        out[key] = time_row(
+            f"q/k/v [1,{heads},{t},{d}] {kind} causal",
+            lambda q=q, k=k, v=v: fa.flash_attention(q, k, v, causal=True),
+            lambda q=q, k=k, v=v: fa.flash_attention_call_plain(
+                q, k, v, 0, 0, True, True),
+            sdpa, None if sdpa is None else device_ms(sdpa, calls=20),
+            4 * q.numel() * size + 2 * heads * t * 4, 4 * d * pairs, kind)
+        out[key] |= {"library": backend, "recompute": factor}
+    b = len(DECODE_LENS)
+    kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
+    mask = (torch.arange(t, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows = sum(min(n, t) for n in DECODE_LENS) * heads
+    qd = _randn(gen, (b, heads, 1, d), torch.float32, device)
+    kc, vc = (_randn(gen, (b, heads, t, d), torch.float32, device)
+              for _ in range(2))
+    io_bytes = 2 * qd.numel() * 4 + b * 4
+    backend, decode_sdpa = sdpa_with_backend(qd, kc, vc, attn_mask=mask)
+    out[f"flash_decode D{d}"] = time_row(
+        (f"q [{b},{heads},1,{d}] f32, f32 cache [{b},{heads},{t},{d}], "
+         f"kv_len {DECODE_LENS}"),
+        lambda: fa.flash_decode(qd, kc, vc, kv_len),
+        lambda: fa.flash_decode_plain(qd, kc, vc, kv_len),
+        decode_sdpa, None if decode_sdpa is None else device_ms(decode_sdpa,
+                                                                calls=20),
+        rows * d * 2 * 4 + io_bytes, 4 * d * rows, "f32") | {
+            "library": backend, "recompute": 1.0}
+    k8, ks = quantize_int8(kc)
+    v8, vs = quantize_int8(vc)
+    ks, vs = ks[..., 0], vs[..., 0]
+    out[f"flash_decode_int8 D{d}"] = time_row(
+        (f"q [{b},{heads},1,{d}] f32, int8 cache + f32 row scales, "
+         f"kv_len {DECODE_LENS}"),
+        lambda: fa.flash_decode(qd, k8, v8, kv_len, k_scale=ks, v_scale=vs),
+        lambda: fa.flash_decode_plain(qd, k8, v8, kv_len, ks, vs),
+        None, None, rows * (d + 4) * 2 + io_bytes, 4 * d * rows, "f32") | {
+            "library": "none", "recompute": factor}
     return out
 
 
@@ -8916,7 +9242,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
                  fit: dict, deployed: dict, trained_f32: dict,
                  etl: dict, seqpar: dict, sharded: dict,
                  pipelined: dict, estimators: dict, examples: dict,
-                 small_lm: dict, wide_lm: dict) -> dict:
+                 small_lm: dict, wide_lm: dict, lm_4096: dict) -> dict:
     """One entry per kernel. Launches: each kernel's count from the run of
     the path it serves (serving for flash_fwd and the decode kernels, plus
     training for flash_fwd; training for the backward pair; the f32
@@ -8947,7 +9273,10 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     [1,8,2048,256], the bf16 pair at the training shape [2,8,8192,256],
     the f32 pair at [1,8,2048,256], the decodes at the serving shape), its
     worst error there (``check_wide_heads``) and its launches in
-    phase_wide_lm. A count is of wrapper calls that launched
+    phase_wide_lm; ``head_dim_512`` the same at D 512 for the serving
+    kernels (``heads_past_256_times`` at the prefill and serving shapes,
+    ``check_heads_past_256``, and phase_lm_4096's launches, which
+    ``launches_by_head_dim["512"]`` also holds). A count is of wrapper calls that launched
     the kernel: each flash_decode call is two launches (its scores kernel,
     then its p.v kernel with the merge). Errors: at the shapes of the kernel's path
     (flash_fwd: the larger of serving's and training's; flash_fwd_f32 at
@@ -8987,7 +9316,7 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
     for name, n in examples["launches"].items():
         launches[name] += n
     small = dict(small_lm["launches_by_head_dim"], **{
-        "256": wide_lm["launches"]})
+        "256": wide_lm["launches"], "512": lm_4096["launches"]})
     for counts in small.values():
         for name, n in counts.items():
             if name in launches:
@@ -9026,14 +9355,16 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
         "quantize_int8": checks[quantize_case(
             "train x fc1", *QUANT_ROWS_SHAPES["train x fc1"])],
     }
-    wide_worst = checks["wide_heads"]["worst"]
     wide = {}
-    for name in by_head_dim:
-        family = name.replace("flash_fwd_twoterm", "flash_fwd")
-        row = times.get(f"{name} D256", {})
-        wide[name] = {k: row.get(k) for k in TIME_KEYS} | {
-            "max_abs_err": wide_worst.get(f"{family} D256", {}).get("max_abs_err"),
-            "launches": by_head_dim[name]["256"]}
+    for d, key in ((256, "wide_heads"), (512, "heads_past_256")):
+        worst = checks[key]["worst"]
+        for name in by_head_dim:
+            family = name.replace("flash_fwd_twoterm", "flash_fwd")
+            row = times.get(f"{name} D{d}", {})
+            wide.setdefault(name, {})[f"head_dim_{d}"] = {
+                k: row.get(k) for k in TIME_KEYS} | {
+                "max_abs_err": worst.get(f"{family} D{d}", {}).get("max_abs_err"),
+                "launches": by_head_dim[name][str(d)]}
     return {"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
@@ -9046,8 +9377,8 @@ def kernels_line(checks: dict, served: dict, trained: dict, times: dict,
          # null where it was not measured or the profiler saw none
          **{f"{key}device_ms": times[name].get(f"{key}device_ms")
             for key in ("", "plain_", "library_")},
-         **({"launches_by_head_dim": by_head_dim[name],
-             "head_dim_256": wide[name]} if name in by_head_dim else {})}
+         **({"launches_by_head_dim": by_head_dim[name], **wide[name]}
+            if name in by_head_dim else {})}
         for name, (source, replaces) in KERNELS.items()
     ]}
 
@@ -9085,7 +9416,8 @@ def bf16_checks(device) -> None:
     bitwise contracts (``check_decode_bits``, also at an odd capacity); the
     int8 product, bitwise, at the training step's first product and
     decode's two; every family at head dims 256 and 192
-    (``check_wide_heads``); and K1's and K5's own checks
+    (``check_wide_heads``); the serving families past 256
+    (``check_heads_past_256``); and K1's and K5's own checks
     (``check_interaction``, ``check_stochastic``), the path's shapes and
     their layouts' edges."""
     _build.load()
@@ -9109,6 +9441,7 @@ def bf16_checks(device) -> None:
     check_int8_gemm(gen, device, grads=False, cases=[
         GEMM_SHAPES[key] for key in ("fc1", "decode", "decode fc2")])
     check_wide_heads(gen, device)
+    check_heads_past_256(gen, device)
     check_interaction(gen, device)
     check_stochastic(gen, device)
 
@@ -9166,8 +9499,9 @@ PLANTED_FAULTS = {
     # decode, past key 1024: a tile keeps the previous tile's V
     "decode_long_row_v": (
         DECODE_SOURCE,
-        "stage_tile<D>(v + (bh * tk + kt0) * D,",
-        "stage_tile<D>(v + (bh * tk + kt0 - (kt0 >= 1024 ? kBlockK : 0)) * D,"),
+        "stage_tile<D>(v + (bh * tk + kt0) * dt + col0,",
+        "stage_tile<D>(v + (bh * tk + kt0 - (kt0 >= 1024 ? kBlockK : 0)) * dt "
+        "+ col0,"),
     # decode: a tile's p and merge against the max of its own block's
     # tiles, not of every earlier tile of the row
     "decode_block_max": (
@@ -9178,10 +9512,10 @@ PLANTED_FAULTS = {
     # (their partials swap places in the workspace)
     "decode_last_block_first": (
         DECODE_SOURCE,
-        "float* pt = part + (row * n_tiles + tile) * (2 + D);",
+        "float* pt = part + (row * n_tiles + tile) * (2 + dt);",
         "float* pt = part + (row * n_tiles + (chunk == 0 ? tile + "
         "(live_chunks - 1) * kWarps : chunk == live_chunks - 1 ? warp : tile))"
-        " * (2 + D);"),
+        " * (2 + dt);"),
     # the s8 GEMM's consumers read their A tile from the next ring stage
     "gemm_other_stage": (QUANT_SOURCE,
                          "sw128_desc(s_a + s * C::kAStage",
@@ -9247,6 +9581,24 @@ PLANTED_FAULTS = {
         BWD_SOURCE,
         "if (L::kStages == 1 && qi > first) {",
         "if (L::kStages == 1 && qi > first + 1) {"),
+    # head dims past 256. The f32 forward's chunked body leaves the last
+    # 256-column chunk of q and k out of every score
+    "past256_f32_drop_last_chunk": (
+        FWD_SOURCE,
+        "score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);",
+        "if (dc + 1 < n_dc) score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);"),
+    # the bf16 forward's chunked body leaves the last 64-column sub-tile of
+    # q and k out of S (its stage still waited on and released)
+    "past256_bf16_drop_last_subtile": (
+        SM90_SOURCE,
+        "for (int kk = 0; kk < 4; ++kk) {",
+        "for (int kk = 0; kk < (j + 1 < n_sub ? 4 : 0); ++kk) {"),
+    # K4a's chunked scores restart each chunk's chain at 0 and add the
+    # chains: within 1e-5, off the f32 prefill row's bits
+    "past256_decode_chain_restart": (
+        DECODE_SOURCE,
+        "qs, krow, dc == 0 ? 0.f : *s_at);",
+        "qs, krow, 0.f) + (dc == 0 ? 0.f : *s_at);"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,
@@ -9794,6 +10146,18 @@ def main(argv: list) -> int:
         log(json.dumps(wide_lm_summary(phase_wide_lm(device),
                                        dev["nvidia_smi"])))
         return 0
+    if argv == ["--heads-past-256"]:
+        dev = phase_device()
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        checks = check_heads_past_256(gen, device)
+        log(json.dumps(heads_past_256_summary(
+            checks, heads_past_256_times(device), dev["nvidia_smi"])))
+        return 0
+    if argv == ["--lm-4096"]:
+        dev = phase_device()
+        log(json.dumps(lm_4096_summary(phase_lm_4096(device),
+                                       dev["nvidia_smi"])))
+        return 0
     if argv == ["--small-lm"]:
         dev = phase_device()
         log(json.dumps(small_lm_summary(phase_small_lm(device),
@@ -9824,6 +10188,7 @@ def main(argv: list) -> int:
     record["train_f32"] = phase_train_f32(device)
     record["small_lm"] = phase_small_lm(device)
     record["wide_lm"] = phase_wide_lm(device)
+    record["lm_4096"] = phase_lm_4096(device)
     record["seqpar"] = phase_seqpar(device)
     record["pipeline"] = phase_pipeline(device)
     record["moe"] = phase_moe(device)
@@ -9852,7 +10217,7 @@ def main(argv: list) -> int:
                            record["seqpar"], record["sharded"],
                            record["pipeline"], record["estimators"],
                            record["examples"], record["small_lm"],
-                           record["wide_lm"])
+                           record["wide_lm"], record["lm_4096"])
     record["kernels"] = kernels["kernels"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -9901,6 +10266,9 @@ def main(argv: list) -> int:
     log(json.dumps(wide_heads_summary(record["checks"]["wide_heads"],
                                       record["times"], dev["nvidia_smi"])))
     log(json.dumps(wide_lm_summary(record["wide_lm"], dev["nvidia_smi"])))
+    log(json.dumps(heads_past_256_summary(record["checks"]["heads_past_256"],
+                                          record["times"], dev["nvidia_smi"])))
+    log(json.dumps(lm_4096_summary(record["lm_4096"], dev["nvidia_smi"])))
     log(json.dumps({"examples": {k: record["examples"][k]
                                  for k in EXAMPLES_KEYS}
                     | {"nvidia_smi": dev["nvidia_smi"]}}))

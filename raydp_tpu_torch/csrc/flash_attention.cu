@@ -70,6 +70,26 @@
 // adds an exact 0 to each score's chain). The rounding chain below does
 // not depend on D.
 //
+// Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512) arrive
+// zero-padded by the wrapper to a multiple of kHeadChunk (256) and run
+// flash_fwd_chunked_kernel, the D 256 body with the same Layout (212 KB) and
+// the same phases, plus a grid axis over the output's 256-column chunks:
+// - scores: for each group, the block stages Q's and K's columns one
+//   256-column chunk at a time (cp.async, waited before each chunk's
+//   products), and each thread carries its 4 x 4 score chains from chunk to
+//   chunk through its own slots of the score tile (no registers held while
+//   the next chunk is staged), so every score is the one chain over d
+//   ascending that D 256's body (and the decode) runs;
+// - softmax: as at D 256; every column chunk's block computes the same m
+//   and l, and the chunk-0 block writes them;
+// - p.v: the group's V rows of the block's own 256 columns, as at D 256.
+// The chunks' copies stay loops (copy_rows' kUnroll false): unrolled with a
+// source pitch known only at run time, their row offsets held registers
+// and ptxas spilled at 255; as loops the body takes 237, no spill.
+// Each block recomputes the scores over all of D, so the blocks of a row
+// block do D / 256 times the score work: (D / 256 + 1) / 2 times the
+// operations of one pass (1.5 at D 512).
+//
 // Why the bits are kept. The split decode (flash_decode.cu) runs the steps
 // of flash_common.cuh over the same 32-key tiles, merged in tile order, and
 // an f32 decode row must equal the prefill row at its position bit for bit
@@ -136,34 +156,46 @@ struct Layout {
   static constexpr int kScoreRows = kRows / kRowGroups;
 };
 
-// N rows of D floats from `src` into `dst` (row pitch `pitch` floats), 16
-// bytes a copy spread over the block; rows at or past `valid` are zeros.
-template <int D, int N>
-__device__ __forceinline__ void copy_rows(const float* src, int valid,
-                                          float* dst, int pitch) {
+// N rows of D floats from `src` (row pitch `src_pitch` floats: D, or the
+// padded head dim of the chunked body) into `dst` (row pitch `pitch`
+// floats), 16 bytes a copy spread over the block; rows at or past `valid`
+// are zeros. kUnroll false (the chunked body, whose source pitch is known
+// only at run time) keeps the copies a loop.
+template <int D, int N, bool kUnroll = true>
+__device__ __forceinline__ void copy_rows(const float* src, int src_pitch,
+                                          int valid, float* dst, int pitch) {
   constexpr int kPieces = D / 4;
   constexpr int kCopies = N * kPieces;  // fewer than the threads at D 16
-#pragma unroll
-  for (int u = 0; u < (kCopies + kThreads - 1) / kThreads; ++u) {
+  constexpr int kRounds = (kCopies + kThreads - 1) / kThreads;
+  const auto copy = [&](int u) {
     const int i = threadIdx.x + u * kThreads;
-    if (kCopies % kThreads != 0 && i >= kCopies) break;
+    if (kCopies % kThreads != 0 && i >= kCopies) return;
     const int r = i / kPieces;
     const int c = (i % kPieces) * 4;
     const bool ok = r < valid;
-    cp_async16(dst + r * pitch + c, src + (ok ? r : 0) * D + c, ok);
+    cp_async16(dst + r * pitch + c,
+               src + static_cast<size_t>(ok ? r : 0) * src_pitch + c, ok);
+  };
+  if constexpr (kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kRounds; ++u) copy(u);
+  } else {
+#pragma unroll 1
+    for (int u = 0; u < kRounds; ++u) copy(u);
   }
 }
 
-// Starts copying `n` tiles of rows from key kt0 of `src` (K or V) into a
-// group buffer at `dst` (row pitch `pitch`), as one cp.async group.
-template <int D>
-__device__ __forceinline__ void load_group(const float* src, size_t kbase,
-                                           int kt0, int n, int tk, float* dst,
-                                           int pitch) {
+// Starts copying `n` tiles of rows from key kt0 of `src` (K or V, rows of
+// `src_pitch` floats) into a group buffer at `dst` (row pitch `pitch`), as
+// one cp.async group.
+template <int D, bool kUnroll = true>
+__device__ __forceinline__ void load_group(const float* src, int src_pitch,
+                                           size_t kbase, int kt0, int n, int tk,
+                                           float* dst, int pitch) {
   for (int t = 0; t < n; ++t) {
     const int key = kt0 + t * kBlockK;
-    copy_rows<D, kBlockK>(src + (kbase + key) * D, tk - key,
-                          dst + t * kBlockK * pitch, pitch);
+    copy_rows<D, kBlockK, kUnroll>(src + (kbase + key) * src_pitch, src_pitch,
+                                   tk - key, dst + t * kBlockK * pitch, pitch);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -178,6 +210,7 @@ struct FwdArgs {
   float* l;
   int n_bh, t, tk, q_off, k_off, causal, normalize;
   float scale;
+  int d_total;     // the chunked body's head dim (rows of q, k, v and o)
 };
 
 // Whether every key of the tile at kt0 is live for every row of the block.
@@ -191,25 +224,20 @@ __device__ __forceinline__ bool tile_full(const FwdArgs& a, int row0, int kt0) {
 // kScoreRows) x keys g + 8i (i < 4) of it (8 x 4 up to D 128, 4 x 4 at D
 // 256). Each is one __fmaf_rn chain over d ascending, then the scale, or
 // kNegInf where masked. Per 4 d a thread loads kScoreRows q and 4 k
-// float4s for 16 kScoreRows FMAs.
+// float4s for 16 kScoreRows FMAs. score_chains carries the chains `s` over
+// the D staged columns of the group starting at key kt0; store_scores
+// finishes them.
 template <int D>
-__device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
-                                             const float* ks, float* ss,
-                                             int row0, int kt0, int n_live) {
+__device__ __forceinline__ void score_chains(
+    const float* qs, const float* ks, int kt0,
+    float (&s)[Layout<D>::kScoreRows][4]) {
   using L = Layout<D>;
   constexpr int kR = L::kScoreRows;
   const int tile = threadIdx.x / L::kTileThreads;
-  if (tile >= n_live) return;
   const int rg = (threadIdx.x / 8) % L::kRowGroups;
   const int g = threadIdx.x % 8;
   const float* qr = qs + rg * L::kPitch;
   const float* kr = ks + (tile * kBlockK + g) * L::kPitch;
-  float s[kR][4];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
-  }
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
     float4 qa[kR], kb[4];
@@ -233,6 +261,19 @@ __device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
       }
     }
   }
+}
+
+// The finished chains of score_chains: scaled, or kNegInf where masked,
+// into the group's score tile.
+template <int D>
+__device__ __forceinline__ void store_scores(
+    const FwdArgs& a, const float (&s)[Layout<D>::kScoreRows][4], float* ss,
+    int row0, int kt0) {
+  using L = Layout<D>;
+  constexpr int kR = L::kScoreRows;
+  const int tile = threadIdx.x / L::kTileThreads;
+  const int rg = (threadIdx.x / 8) % L::kRowGroups;
+  const int g = threadIdx.x % 8;
   const int tk0 = kt0 + tile * kBlockK;
   const bool full = tile_full(a, row0, tk0);
 #pragma unroll
@@ -248,6 +289,49 @@ __device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
           live ? __fmul_rn(s[r][i], a.scale) : kNegInf;
     }
   }
+}
+
+// A thread's running score chains (score_chains' `s`) kept between the
+// chunked body's column chunks in its own slots of the score tile, where
+// store_scores puts them at the end (an f32 store and load change no bit):
+// they hold no registers while the next chunk's Q and K are staged.
+template <int D>
+__device__ __forceinline__ void keep_chains(float* ss,
+                                            float (&s)[Layout<D>::kScoreRows][4],
+                                            bool load) {
+  using L = Layout<D>;
+  const int tile = threadIdx.x / L::kTileThreads;
+  const int rg = (threadIdx.x / 8) % L::kRowGroups;
+  const int g = threadIdx.x % 8;
+#pragma unroll
+  for (int r = 0; r < L::kScoreRows; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* at = ss + (rg + L::kRowGroups * r) * L::kSPitch + tile * kBlockK +
+                  g + 8 * i;
+      if (load) {
+        s[r][i] = *at;
+      } else {
+        *at = s[r][i];
+      }
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void group_scores(const FwdArgs& a, const float* qs,
+                                             const float* ks, float* ss,
+                                             int row0, int kt0, int n_live) {
+  using L = Layout<D>;
+  if (threadIdx.x / L::kTileThreads >= n_live) return;
+  float s[L::kScoreRows][4];
+#pragma unroll
+  for (int r = 0; r < L::kScoreRows; ++r) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+  }
+  score_chains<D>(qs, ks, kt0, s);
+  store_scores<D>(a, s, ss, row0, kt0);
 }
 
 // The softmax of the group's live tiles, in order, for row threadIdx.x / 4,
@@ -364,6 +448,41 @@ __device__ __forceinline__ void group_pv(const float* ps, const float* vs,
   }
 }
 
+// The block's rows out: m and l (where `write_ml`) and o, normalized or
+// not, into columns [col0, col0 + D) of rows `pitch` floats apart.
+template <int D>
+__device__ __forceinline__ void write_rows(const FwdArgs& a, float* smem,
+                                           size_t qbase, int row0, int rows,
+                                           float m, float l,
+                                           const float (&acc)[Layout<D>::kPvRows][4],
+                                           int pitch, int col0, bool write_ml) {
+  using L = Layout<D>;
+  if (threadIdx.x % 4 == 0) {
+    const int r = threadIdx.x / 4;
+    smem[L::kL + r] = l;
+    if (r < rows && write_ml) {
+      a.m[qbase + row0 + r] = m;
+      a.l[qbase + row0 + r] = l;
+    }
+  }
+  __syncthreads();
+  const int rg = threadIdx.x / L::kColQuads;
+  const int cq = threadIdx.x % L::kColQuads;
+#pragma unroll
+  for (int r = 0; r < L::kPvRows; ++r) {
+    const int row = rg + L::kPvGroups * r;
+    if (row >= rows) continue;
+    const float denom = fmaxf(smem[L::kL + row], 1e-30f);
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = a.normalize ? __fdiv_rn(acc[r][e], denom) : acc[r][e];
+    }
+    *reinterpret_cast<float4*>(a.o + (qbase + row0 + row) * pitch + col0 +
+                               4 * cq) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
 // Rows [row0, row0 + 64) of bh: Q staged once, then the K/V tiles that any
 // of its rows sees, kGroup at a time: scores, softmax tile after tile, p.v
 // tile after tile; then m, l and o. K of the next group loads while this
@@ -392,9 +511,9 @@ __device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
   }
 
   if (n_tiles > 0) {  // Q joins group 0's K
-    copy_rows<D, kRows>(a.q + (qbase + row0) * D, rows, smem + L::kQ,
+    copy_rows<D, kRows>(a.q + (qbase + row0) * D, D, rows, smem + L::kQ,
                         L::kPitch);
-    load_group<D>(a.k, kbase, 0, min(kGroup, n_tiles), a.tk, smem + L::kK,
+    load_group<D>(a.k, D, kbase, 0, min(kGroup, n_tiles), a.tk, smem + L::kK,
                   L::kPitch);
   }
   for (int gi = 0; gi < n_groups; ++gi) {
@@ -402,13 +521,13 @@ __device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
     const int n_live = min(kGroup, n_tiles - gi * kGroup);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();  // this group's K is in; the last group's p.v is done
-    load_group<D>(a.v, kbase, kt0, n_live, a.tk, smem + L::kV, D);
+    load_group<D>(a.v, D, kbase, kt0, n_live, a.tk, smem + L::kV, D);
     group_scores<D>(a, smem + L::kQ, smem + L::kK, smem + L::kS, row0, kt0,
                     n_live);
     __syncthreads();  // the scores are in; K is free
     const bool more = gi + 1 < n_groups;
     if (more) {
-      load_group<D>(a.k, kbase, kt0 + kGroupKeys,
+      load_group<D>(a.k, D, kbase, kt0 + kGroupKeys,
                     min(kGroup, n_tiles - (gi + 1) * kGroup), a.tk,
                     smem + L::kK, L::kPitch);
     }
@@ -423,30 +542,82 @@ __device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
     group_pv<D>(smem + L::kS, smem + L::kV, smem + L::kA, n_live, acc);
   }
 
-  if (threadIdx.x % 4 == 0) {
-    const int r = threadIdx.x / 4;
-    smem[L::kL + r] = l;
-    if (r < rows) {
-      a.m[qbase + row0 + r] = m;
-      a.l[qbase + row0 + r] = l;
-    }
-  }
-  __syncthreads();
-  const int rg = threadIdx.x / L::kColQuads;
-  const int cq = threadIdx.x % L::kColQuads;
+  write_rows<D>(a, smem, qbase, row0, rows, m, l, acc, D, 0, true);
+}
+
+// The chunked body (head dims past 256, d_total = n * kHeadChunk): rows
+// [row0, row0 + 64) of bh and output columns [col0, col0 + 256), in D
+// 256's Layout. For each group of 2 k-tiles: the group's V columns start
+// loading; then, one 256-column chunk at a time, Q's and K's columns are
+// staged and every live score thread carries its chains through them; then
+// the scores are stored, the softmax and p.v run as at D 256.
+template <bool kTwoTerm>
+__device__ __forceinline__ void row_block_chunked(const FwdArgs& a, size_t bh,
+                                                  int row0, int col0,
+                                                  float* smem) {
+  constexpr int D = kHeadChunk;
+  using L = Layout<D>;
+  const int dt = a.d_total;
+  const int n_dc = dt / D;
+  const int rows = min(kRows, a.t - row0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
+  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
+  constexpr int kGroup = L::kGroup;
+  constexpr int kGroupKeys = L::kGroupKeys;
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int n_groups = (n_tiles + kGroup - 1) / kGroup;
+
+  float m = kNegInf;  // the softmax threads' row
+  float l = 0.f;
+  float acc[L::kPvRows][4];  // the p.v threads' rows and columns
 #pragma unroll
   for (int r = 0; r < L::kPvRows; ++r) {
-    const int row = rg + L::kPvGroups * r;
-    if (row >= rows) continue;
-    const float denom = fmaxf(smem[L::kL + row], 1e-30f);
-    float x[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      x[e] = a.normalize ? __fdiv_rn(acc[r][e], denom) : acc[r][e];
-    }
-    *reinterpret_cast<float4*>(a.o + (qbase + row0 + row) * D + 4 * cq) =
-        make_float4(x[0], x[1], x[2], x[3]);
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
   }
+
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int kt0 = gi * kGroupKeys;
+    const int n_live = min(kGroup, n_tiles - gi * kGroup);
+    const bool live_tile = threadIdx.x / L::kTileThreads < n_live;
+    __syncthreads();  // the last group's p.v and scores are done
+    load_group<D, false>(a.v + col0, dt, kbase, kt0, n_live, a.tk,
+                         smem + L::kV, D);
+    for (int dc = 0; dc < n_dc; ++dc) {
+      if (dc > 0) __syncthreads();  // the last chunk's Q and K are read
+      copy_rows<D, kRows, false>(a.q + (qbase + row0) * dt + dc * D, dt, rows,
+                                 smem + L::kQ, L::kPitch);
+      load_group<D, false>(a.k + dc * D, dt, kbase, kt0, n_live, a.tk,
+                           smem + L::kK, L::kPitch);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();  // this chunk's Q and K (and the group's V) are in
+      if (!live_tile) continue;
+      float s[L::kScoreRows][4];
+      if (dc == 0) {
+#pragma unroll
+        for (int r = 0; r < L::kScoreRows; ++r) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+        }
+      } else {
+        keep_chains<D>(smem + L::kS, s, true);
+      }
+      score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);
+      if (dc + 1 < n_dc) {
+        keep_chains<D>(smem + L::kS, s, false);
+      } else {
+        store_scores<D>(a, s, smem + L::kS, row0, kt0);
+      }
+    }
+    __syncthreads();  // the scores are in
+    group_softmax<D, kTwoTerm>(a, smem + L::kS, smem + L::kA, row0, rows, kt0,
+                               n_live, m, l);
+    __syncthreads();  // p and row_a are in
+    group_pv<D>(smem + L::kS, smem + L::kV, smem + L::kA, n_live, acc);
+  }
+  write_rows<D>(a, smem, qbase, row0, rows, m, l, acc, dt, col0, col0 == 0);
 }
 
 // Prefill: one block per (bh, 64 query rows), the longest row blocks first:
@@ -463,6 +634,45 @@ flash_fwd_kernel(const FwdArgs a) {
       n_row_blocks - 1 - static_cast<int>(blockIdx.x / a.n_bh);
   row_block<D, kTwoTerm>(a, blockIdx.x % a.n_bh, row_block_index * kRows,
                          smem);
+}
+
+// The chunked body: one block per (bh, 64 query rows, 256 output columns),
+// the longest row blocks first, as flash_fwd_kernel orders them.
+template <bool kTwoTerm>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_chunked_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_row_blocks = (a.t + kRows - 1) / kRows;
+  const int per_row_block = a.n_bh * (a.d_total / kHeadChunk);
+  const int row_block_index =
+      n_row_blocks - 1 - static_cast<int>(blockIdx.x / per_row_block);
+  const int rest = static_cast<int>(blockIdx.x % per_row_block);
+  row_block_chunked<kTwoTerm>(a, rest % a.n_bh, row_block_index * kRows,
+                              (rest / a.n_bh) * kHeadChunk, smem);
+}
+
+// d: a multiple of kHeadChunk past it.
+int launch_fwd_chunked(const void* q, const void* k, const void* v, void* o,
+                       float* m, float* l, int bh, int t, int tk, int d,
+                       int q_off, int k_off, int causal, int normalize,
+                       int onepass, float scale, cudaStream_t stream) {
+  using L = Layout<kHeadChunk>;
+  auto kernel = onepass ? flash_fwd_chunked_kernel<false>
+                        : flash_fwd_chunked_kernel<true>;
+  cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>((t + kRows - 1) / kRows) *
+                           bh * (d / kHeadChunk);
+  if (blocks <= 0 || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FwdArgs args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(o),
+                     m, l, bh, t, tk, q_off, k_off, causal, normalize, scale,
+                     d};
+  kernel<<<static_cast<unsigned>(blocks), kThreads, L::kBytes, stream>>>(
+      args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -511,7 +721,7 @@ const char* rtt_error_string(int code) {
 // head dim or dtype returns cudaErrorInvalidValue without launching. The
 // head dims built (each entry's `case`s, which
 // ops/flash_attention.py KERNEL_HEAD_DIMS lists): 8, 16, 32, 64, 128 and
-// 256.
+// 256; a multiple of kHeadChunk past 256 runs the chunked body.
 // onepass = 0 launches the two-term body (flash_fwd_twoterm). bf16 goes to
 // the tensor-core forward, f32 to flash_fwd_kernel (o is f32 either way, so
 // out_f32 changes nothing there). q, k and v must be 16-byte aligned.
@@ -537,6 +747,10 @@ int rtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
     case 256: RTT_FWD(256);
   }
 #undef RTT_FWD
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_fwd_chunked(q, k, v, o, m, l, bh, t, tk, d, q_off, k_off,
+                              causal, normalize, onepass, scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -19,6 +19,11 @@
 namespace {
 
 constexpr int kBlockK = 32;        // keys (or queries) per tile: one per lane
+// Head dims past 256 run in column chunks of kHeadChunk (the wrapper
+// zero-pads D to a multiple of it: ops/flash_attention.py HEAD_CHUNK): the
+// serving kernels' chunked bodies sum each score over every chunk of D in
+// one chain and give each block one chunk of the output's columns.
+constexpr int kHeadChunk = 256;
 constexpr float kNegInf = -1e30f;  // masked score; -inf would make 0*inf NaNs
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -67,13 +72,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 // compiler may not contract them), so a step gives the same bits in either
 // kernel.
 
-// The lane's score: one __fmaf_rn chain over d ascending, then the scale,
-// or kNegInf where the key is masked. krow(c, k) fills k[0, G) with
-// elements c .. c + G - 1 of the lane's key as f32.
+// The lane's score chain over D columns carried on from `s`: one
+// __fmaf_rn per column, d ascending. krow(c, k) fills k[0, G) with elements
+// c .. c + G - 1 of the lane's key as f32. A head dim past 256 carries the
+// one chain from chunk to chunk (a chunk's sum is never started at 0 and
+// added), so every D gives the chain tile_score gives.
 template <int D, int G, class KRow>
-__device__ __forceinline__ float tile_score(const float* qrow, const KRow& krow,
-                                            bool live, float scale) {
-  float s = 0.f;
+__device__ __forceinline__ float score_chain(const float* qrow,
+                                             const KRow& krow, float s) {
 #pragma unroll 8
   for (int c = 0; c < D; c += G) {
     float k[G];
@@ -81,6 +87,15 @@ __device__ __forceinline__ float tile_score(const float* qrow, const KRow& krow,
 #pragma unroll
     for (int e = 0; e < G; ++e) s = __fmaf_rn(qrow[c + e], k[e], s);
   }
+  return s;
+}
+
+// The lane's score: one __fmaf_rn chain over d ascending, then the scale,
+// or kNegInf where the key is masked.
+template <int D, int G, class KRow>
+__device__ __forceinline__ float tile_score(const float* qrow, const KRow& krow,
+                                            bool live, float scale) {
+  const float s = score_chain<D, G>(qrow, krow, 0.f);
   return live ? __fmul_rn(s, scale) : kNegInf;
 }
 

@@ -20,6 +20,22 @@
 // 1040 bytes (f32 cache, 137 KB of dynamic shared memory) or V rows of
 // 1024 bytes (131 KB): one block an SM, 8 p.v elements a lane.
 //
+// Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512) arrive
+// zero-padded by the wrapper to a multiple of kHeadChunk (256) and run the
+// D 256 instantiation's chunked body (kChunked), whose shared memory is
+// the D 256 body's whatever the width:
+// - the scores kernel stages its tile's K rows one 256-column chunk at a
+//   time; each (row, key) score is one chain over d ascending across the
+//   chunks, its running value kept in the workspace's score slot between
+//   chunks (an f32 store and load change no bit), scaled and masked after
+//   the last;
+// - the p.v kernel has a grid axis over the output's 256-column chunks:
+//   each block stages its chunk of the V rows, computes the tile's p (the
+//   same in every chunk's block) and p.v of its columns; the chunk-0 block
+//   writes the tile's alpha and sum of p. The last of the live_chunks x
+//   n_out blocks of a b * h merges every column, as at D 256.
+// So the decode row keeps the prefill row's bits at every D.
+//
 // What bounds it on an H100: bytes. Every valid K/V row is read once and
 // each element costs two operations: at the serving shape (4 sequences of
 // 17-2048 rows, 8 heads of 128, an f32 cache) 31.7 MB, 9.45 us at 3.35 TB/s.
@@ -91,20 +107,22 @@ __device__ __forceinline__ void staged() {
   __syncwarp();
 }
 
-// One warp starts copying 32 rows of D elements from `src` (row pitch D)
-// into shared memory at `dst` (row pitch `pitch` bytes), 16 bytes a copy;
-// rows at or past `rows` are zeros. staged() waits for them.
+// One warp starts copying 32 rows of D elements from `src` (row pitch
+// `src_pitch` elements: D, or the padded head dim of a chunked body) into
+// shared memory at `dst` (row pitch `pitch` bytes), 16 bytes a copy; rows
+// at or past `rows` are zeros. staged() waits for them.
 template <int D, typename T>
-__device__ __forceinline__ void stage_tile(const T* src, int rows,
-                                           unsigned char* dst, int pitch,
-                                           int lane) {
+__device__ __forceinline__ void stage_tile(const T* src, int src_pitch,
+                                           int rows, unsigned char* dst,
+                                           int pitch, int lane) {
   constexpr int kPieces = D * sizeof(T) / 16;  // 16-byte pieces per row
   const unsigned char* g = reinterpret_cast<const unsigned char*>(src);
   for (int i = lane; i < kBlockK * kPieces; i += 32) {
     const int j = i / kPieces;
     const int c = (i % kPieces) * 16;
     const bool ok = j < rows;
-    cp_async16(dst + j * pitch + c, g + (ok ? j : 0) * D * sizeof(T) + c,
+    cp_async16(dst + j * pitch + c,
+               g + static_cast<size_t>(ok ? j : 0) * src_pitch * sizeof(T) + c,
                ok ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -147,14 +165,15 @@ struct ScoresSmem {
 
 // Step 1. grid (B*H, ceil(tk / kChunk)), kThreads threads. s_out [B*H, tq,
 // n_tiles * kBlockK], tmax_out [B*H, tq, n_tiles], n_tiles = ceil(tk /
-// kBlockK).
-template <int D, typename TQ, typename TK>
+// kBlockK). kChunked: q and k have rows of d_total = n * D elements, staged
+// D columns at a time.
+template <int D, typename TQ, typename TK, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_scores_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
                            const int* __restrict__ kv_len,
                            float* __restrict__ s_out,
                            float* __restrict__ tmax_out, int heads, int tq,
-                           int tk, int n_tiles, float scale) {
+                           int tk, int n_tiles, int d_total, float scale) {
   using S = ScoresSmem<D, TK>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x / 32;
@@ -165,26 +184,39 @@ flash_decode_scores_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const int tile = blockIdx.y * kWarps + warp;
   const int kt0 = tile * kBlockK;
   if (kt0 >= valid) return;  // no block-wide barrier follows
+  const int dt = kChunked ? d_total : D;  // a row's elements
+  const int n_dc = kChunked ? d_total / D : 1;
 
   unsigned char* ks = smem + warp * S::kTile;
-  stage_tile<D>(k + (bh * tk + kt0) * D, valid - kt0, ks, S::kPitch, lane);
-  staged();
   float* qs = reinterpret_cast<float*>(smem + kWarps * S::kTile) + warp * D;
   const StagedKey<TK> krow{reinterpret_cast<const TK*>(ks + lane * S::kPitch)};
   const int key = kt0 + lane;
-  for (int r = 0; r < tq; ++r) {
-    const int q_pos = len - tq + r;
-    if (q_pos < kt0) continue;  // the tile lies in the row's future
-    const TQ* qg = q + (bh * tq + r) * D;
-    for (int d = lane; d < D; d += 32) qs[d] = to_f32(qg[d]);
-    __syncwarp();
-    const bool live = key < valid && q_pos >= key;
-    const float s = tile_score<D, StagedKey<TK>::kGroup>(qs, krow, live, scale);
-    const float tile_max = warp_max(s);
-    const size_t row = bh * tq + r;
-    s_out[row * n_tiles * kBlockK + key] = s;
-    if (lane == 0) tmax_out[row * n_tiles + tile] = tile_max;
-    __syncwarp();  // qs is read before the next row overwrites it
+  for (int dc = 0; dc < n_dc; ++dc) {
+    if (dc > 0) __syncwarp();  // the last chunk's K rows are read
+    stage_tile<D>(k + (bh * tk + kt0) * dt + dc * D, dt, valid - kt0, ks,
+                  S::kPitch, lane);
+    staged();
+    const bool last = dc == n_dc - 1;
+    for (int r = 0; r < tq; ++r) {
+      const int q_pos = len - tq + r;
+      if (q_pos < kt0) continue;  // the tile lies in the row's future
+      const TQ* qg = q + (bh * tq + r) * dt + dc * D;
+      for (int d = lane; d < D; d += 32) qs[d] = to_f32(qg[d]);
+      __syncwarp();
+      const size_t row = bh * tq + r;
+      float* s_at = s_out + row * n_tiles * kBlockK + key;
+      // the chain so far: 0, or the running sum the last chunk left
+      float s = score_chain<D, StagedKey<TK>::kGroup>(
+          qs, krow, dc == 0 ? 0.f : *s_at);
+      if (last) {
+        const bool live = key < valid && q_pos >= key;
+        s = live ? __fmul_rn(s, scale) : kNegInf;
+        const float tile_max = warp_max(s);
+        if (lane == 0) tmax_out[row * n_tiles + tile] = tile_max;
+      }
+      *s_at = s;
+      __syncwarp();  // qs is read before the next row overwrites it
+    }
   }
 }
 
@@ -195,16 +227,17 @@ struct PvSmem {
   static constexpr size_t kBytes = kWarps * kTile;
 };
 
-// Steps 2-4. The same grid. part [B*H, tq, n_tiles, 2 + D]; tickets [B*H]
-// zeroed int32.
-template <int D, typename TQ, typename TK>
+// Steps 2-4. The same grid (kChunked: a third axis over the output's D-wide
+// column chunks, n_out = d_total / D). part [B*H, tq, n_tiles, 2 + d_total];
+// tickets [B*H] zeroed int32.
+template <int D, typename TQ, typename TK, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
                        const float* __restrict__ s_in,
                        const float* __restrict__ tmax_in,
                        float* __restrict__ part, int* __restrict__ tickets,
                        TQ* __restrict__ o, int heads, int tq, int tk,
-                       int n_tiles) {
+                       int n_tiles, int d_total) {
   using S = PvSmem<D, TK>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int ticket;
@@ -212,14 +245,17 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
   const int lane = threadIdx.x % 32;
   const size_t bh = blockIdx.x;
   const int chunk = blockIdx.y;
+  const int dt = kChunked ? d_total : D;  // a row's elements
+  const int n_out = kChunked ? static_cast<int>(gridDim.z) : 1;
+  const int col0 = kChunked ? static_cast<int>(blockIdx.z) * D : 0;
   const int len = kv_len[bh / heads];
   const int valid = max(0, min(len, tk));
   const int live_chunks = (valid + kChunk - 1) / kChunk;
-  TQ* ob = o + bh * tq * D;
+  TQ* ob = o + bh * tq * dt;
 
   if (live_chunks == 0) {  // no live key: every row is 0
-    if (chunk == 0) {
-      for (int i = threadIdx.x; i < tq * D; i += kThreads) ob[i] = from_f32<TQ>(0.f);
+    if (chunk == 0 && col0 == 0) {
+      for (int i = threadIdx.x; i < tq * dt; i += kThreads) ob[i] = from_f32<TQ>(0.f);
     }
     return;
   }
@@ -229,7 +265,7 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
   const int kt0 = tile * kBlockK;
   if (kt0 < valid) {
     const TK* vs = reinterpret_cast<const TK*>(smem + warp * S::kTile);
-    stage_tile<D>(v + (bh * tk + kt0) * D, valid - kt0,
+    stage_tile<D>(v + (bh * tk + kt0) * dt + col0, dt, valid - kt0,
                   smem + warp * S::kTile, S::kPitch, lane);
     for (int r = 0; r < tq; ++r) {
       const int q_pos = len - tq + r;
@@ -248,42 +284,47 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
       float pv[lane_elems<D>()];
       tile_pv<D>(p, [&](int j, int e) { return to_f32(vs[j * D + e]); }, lane, pv);
       const bool moved = tile_max > m_prev;
-      float* pt = part + (row * n_tiles + tile) * (2 + D);
-      if (lane == 0) {
+      float* pt = part + (row * n_tiles + tile) * (2 + dt);
+      if (lane == 0 && col0 == 0) {
         pt[0] = moved ? tile_alpha(m_prev, m_new) : -1.f;
         pt[1] = p_sum;
       }
       if (lane_owns<D>(lane)) {
 #pragma unroll
-        for (int i = 0; i < lane_elems<D>(); ++i) pt[2 + lane + 32 * i] = pv[i];
+        for (int i = 0; i < lane_elems<D>(); ++i) {
+          pt[2 + col0 + lane + 32 * i] = pv[i];
+        }
       }
     }
   }
 
-  // the last block of this b * h to finish merges the tiles
+  // the last block of this b * h to finish (of every column chunk) merges
+  // the tiles
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) ticket = atomicAdd(tickets + bh, 1);
   __syncthreads();
-  if (ticket != live_chunks - 1) return;
+  if (ticket != live_chunks * n_out - 1) return;
   __threadfence();
   const int row_tiles = (valid + kBlockK - 1) / kBlockK;
-  constexpr int kParts = lane_elems<D>();  // 32-element parts of a row
-  for (int item = warp; item < tq * kParts; item += kWarps) {
-    const int r = item / kParts;
-    const int e = lane_elem<D>(lane, item % kParts);
+  // 32-element parts of a row
+  const int parts = kChunked ? dt / 32 : lane_elems<D>();
+  for (int item = warp; item < tq * parts; item += kWarps) {
+    const int r = item / parts;
+    const int e = kChunked ? lane + 32 * (item % parts)
+                           : lane_elem<D>(lane, item % parts);
     const int q_pos = len - tq + r;
     // the row's tiles: those starting at or before its position
     const int n = q_pos < 0 ? 0 : min(row_tiles, q_pos / kBlockK + 1);
-    const float* pr = part + (bh * tq + r) * n_tiles * (2 + D);
+    const float* pr = part + (bh * tq + r) * n_tiles * (2 + dt);
     float l = 0.f, acc = 0.f;
     for (int t0 = 0; t0 < n; t0 += 32) {
       const int count = min(32, n - t0);
-      const float* pb = pr + static_cast<size_t>(t0) * (2 + D);
+      const float* pb = pr + static_cast<size_t>(t0) * (2 + dt);
       // lane u holds tile t0 + u's alpha and sum of p; every lane its
       // element of each tile's p.v
-      const float alpha_u = lane < count ? __ldcg(pb + lane * (2 + D)) : 0.f;
-      const float p_sum_u = lane < count ? __ldcg(pb + lane * (2 + D) + 1) : 0.f;
+      const float alpha_u = lane < count ? __ldcg(pb + lane * (2 + dt)) : 0.f;
+      const float p_sum_u = lane < count ? __ldcg(pb + lane * (2 + dt) + 1) : 0.f;
       // from D 64 the 32 tiles' elements are loaded ahead of the merges;
       // below it (a row of one part) each is loaded at its merge, which
       // keeps ptxas from spilling the D 32 body
@@ -292,7 +333,7 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
       if constexpr (D >= 64) {
 #pragma unroll
         for (int u = 0; u < 32; ++u) {
-          pv[u] = u < count ? __ldcg(pb + u * (2 + D) + 2 + e) : 0.f;
+          pv[u] = u < count ? __ldcg(pb + u * (2 + dt) + 2 + e) : 0.f;
         }
       }
 #pragma unroll
@@ -306,24 +347,25 @@ flash_decode_pv_kernel(const TK* __restrict__ v, const int* __restrict__ kv_len,
             acc = merge_term(moved, alpha, acc, pv[u]);
           } else {
             acc = merge_term(moved, alpha, acc,
-                             __ldcg(pb + u * (2 + D) + 2 + e));
+                             __ldcg(pb + u * (2 + dt) + 2 + e));
           }
         }
       }
     }
     if (lane_owns<D>(lane)) {
-      ob[r * D + e] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+      ob[r * dt + e] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
     }
   }
   if (threadIdx.x == 0) tickets[bh] = 0;  // ready for the next launch
 }
 
-template <int D, typename TQ, typename TK>
+// kChunked: the head dim is d_total, a multiple of D (the chunk width).
+template <int D, bool kChunked, typename TQ, typename TK>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            void* o, float* work, int* tickets, int b, int h, int tq, int tk,
-           float scale, cudaStream_t stream) {
-  auto scores = flash_decode_scores_kernel<D, TQ, TK>;
-  auto pv = flash_decode_pv_kernel<D, TQ, TK>;
+           int d_total, float scale, cudaStream_t stream) {
+  auto scores = flash_decode_scores_kernel<D, TQ, TK, kChunked>;
+  auto pv = flash_decode_pv_kernel<D, TQ, TK, kChunked>;
   const size_t scores_smem = ScoresSmem<D, TK>::kBytes;
   const size_t pv_smem = PvSmem<D, TK>::kBytes;
   cudaError_t err = prepare(scores, scores_smem);
@@ -334,47 +376,51 @@ int launch(const void* q, const void* k, const void* v, const int* kv_len,
   float* s = work;
   float* tmax = s + rows * n_tiles * kBlockK;
   float* part = tmax + rows * n_tiles;
-  const dim3 grid(b * h, (tk + kChunk - 1) / kChunk);
+  const int n_blocks = (tk + kChunk - 1) / kChunk;
+  const dim3 grid(b * h, n_blocks);
   scores<<<grid, kThreads, scores_smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k), kv_len, s, tmax, h,
-      tq, tk, n_tiles, scale);
+      tq, tk, n_tiles, d_total, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pv<<<grid, kThreads, pv_smem, stream>>>(
+  const dim3 pv_grid(b * h, n_blocks, d_total / D);
+  pv<<<pv_grid, kThreads, pv_smem, stream>>>(
       static_cast<const TK*>(v), kv_len, s, tmax, part, tickets,
-      static_cast<TQ*>(o), h, tq, tk, n_tiles);
+      static_cast<TQ*>(o), h, tq, tk, n_tiles, d_total);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename TQ>
+template <int D, bool kChunked, typename TQ>
 int launch_by_cache(const void* q, const void* k, const void* v,
                     const int* kv_len, void* o, float* work, int* tickets,
-                    int b, int h, int tq, int tk, int kv_dtype, float scale,
-                    cudaStream_t stream) {
+                    int b, int h, int tq, int tk, int d_total, int kv_dtype,
+                    float scale, cudaStream_t stream) {
   if (kv_dtype == kF32) {
-    return launch<D, TQ, float>(q, k, v, kv_len, o, work, tickets, b, h, tq,
-                                tk, scale, stream);
+    return launch<D, kChunked, TQ, float>(q, k, v, kv_len, o, work, tickets,
+                                          b, h, tq, tk, d_total, scale, stream);
   }
   if (kv_dtype == kBF16) {
-    return launch<D, TQ, __nv_bfloat16>(q, k, v, kv_len, o, work, tickets, b,
-                                        h, tq, tk, scale, stream);
+    return launch<D, kChunked, TQ, __nv_bfloat16>(
+        q, k, v, kv_len, o, work, tickets, b, h, tq, tk, d_total, scale,
+        stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int D>
+template <int D, bool kChunked = false>
 int launch_by_q(const void* q, const void* k, const void* v, const int* kv_len,
                 void* o, float* work, int* tickets, int b, int h, int tq,
-                int tk, int q_dtype, int kv_dtype, float scale,
+                int tk, int d_total, int q_dtype, int kv_dtype, float scale,
                 cudaStream_t stream) {
   if (q_dtype == kF32) {
-    return launch_by_cache<D, float>(q, k, v, kv_len, o, work, tickets, b, h,
-                                     tq, tk, kv_dtype, scale, stream);
+    return launch_by_cache<D, kChunked, float>(q, k, v, kv_len, o, work,
+                                               tickets, b, h, tq, tk, d_total,
+                                               kv_dtype, scale, stream);
   }
   if (q_dtype == kBF16) {
-    return launch_by_cache<D, __nv_bfloat16>(q, k, v, kv_len, o, work, tickets,
-                                             b, h, tq, tk, kv_dtype, scale,
-                                             stream);
+    return launch_by_cache<D, kChunked, __nv_bfloat16>(
+        q, k, v, kv_len, o, work, tickets, b, h, tq, tk, d_total, kv_dtype,
+        scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -395,9 +441,9 @@ long long rtt_flash_decode_work(int b, int h, int tq, int tk, int d) {
 // zeroed int32; k and v start on 16-byte boundaries. Two launches; returns
 // cudaGetLastError() after them (0 on success). The head dims built (the
 // `case`s below, ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64,
-// 128 and 256, each for every pair of types. An unsupported head dim or dtype,
-// or a workspace too small, returns cudaErrorInvalidValue without
-// launching.
+// 128 and 256, each for every pair of types; a multiple of kHeadChunk past
+// 256 runs the chunked body. An unsupported head dim or dtype, or a
+// workspace too small, returns cudaErrorInvalidValue without launching.
 int rtt_flash_decode(const void* q, const void* k, const void* v,
                      const int* kv_len, void* o, void* work, void* tickets,
                      long long work_floats, int b, int h, int tq, int tk,
@@ -411,8 +457,8 @@ int rtt_flash_decode(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wf = static_cast<float*>(work);
   int* ti = static_cast<int*>(tickets);
-#define RTT_DECODE(D)                                                     \
-  return launch_by_q<D>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, q_dtype, \
+#define RTT_DECODE(D)                                                      \
+  return launch_by_q<D>(q, k, v, kv_len, o, wf, ti, b, h, tq, tk, D, q_dtype, \
                         kv_dtype, scale, s)
   switch (d) {
     case 8: RTT_DECODE(8);
@@ -423,6 +469,10 @@ int rtt_flash_decode(const void* q, const void* k, const void* v,
     case 256: RTT_DECODE(256);
   }
 #undef RTT_DECODE
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_by_q<kHeadChunk, true>(q, k, v, kv_len, o, wf, ti, b, h, tq,
+                                         tk, d, q_dtype, kv_dtype, scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

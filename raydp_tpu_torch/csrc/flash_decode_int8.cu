@@ -34,6 +34,16 @@
 //   order; at D 256 each thread takes elements t and t + 128.
 // - The staging lives in dynamic shared memory (DecodeSmem, 70 KB at D
 //   256, past the 48 KB a kernel may hold statically).
+// - Head dims past 256 arrive zero-padded by the wrapper to a multiple of
+//   kHeadChunk (256) and run the D 256 instantiation's chunked body
+//   (kChunked), in the D 256 body's shared memory: a grid axis over the
+//   output's 256-column chunks; each block stages its chunk of the V rows
+//   once, and for each query row stages the K rows and q one 256-column
+//   chunk at a time, thread j carrying key j's score chain from chunk to
+//   chunk (the row scale inside each product, as at D 256), then p and p.v
+//   of its columns. Every column chunk's block computes the same (m, l);
+//   the chunk-0 block writes them. The last of the live chunks x column
+//   chunks blocks of a b * h merges every column.
 // - Per query row: thread j scores key j, dequantizing in registers as
 //   __fmul_rn(float(k), scale) exactly as the plain version's f32 cache
 //   does; the chunk's max and sum by warp shuffles and one pass over the
@@ -102,8 +112,21 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   return out;
 }
 
-// grid (B*H, ceil(tk / kChunk)), kThreads threads.
-template <int D, typename TQ>
+// One piece (Piece<D>) of an int8 row from `src` to `dst`, zeros where
+// !ok.
+template <int D>
+__device__ __forceinline__ void stage_piece(const int8_t* src, int8_t* dst,
+                                            bool ok) {
+  using P = typename Piece<D>::T;
+  P x = {};
+  if (ok) x = *reinterpret_cast<const P*>(src);
+  *reinterpret_cast<P*>(dst) = x;
+}
+
+// grid (B*H, ceil(tk / kChunk)), kThreads threads; kChunked: a third axis
+// over the output's D-wide column chunks, and rows of d_total = n * D
+// elements.
+template <int D, typename TQ, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
                          const int8_t* __restrict__ v,
@@ -111,22 +134,26 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
                          const float* __restrict__ v_scale,
                          const int* __restrict__ kv_len, TQ* __restrict__ o,
                          float* __restrict__ part, int* __restrict__ tickets,
-                         int heads, int tq, int tk, float scale) {
+                         int heads, int tq, int tk, int d_total, float scale) {
   using S = DecodeSmem<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   S& sm = *reinterpret_cast<S*>(smem_raw);
   const int bh = blockIdx.x;
   const int chunk = blockIdx.y;
   const int n_chunks = gridDim.y;
+  const int dt = kChunked ? d_total : D;  // a row's elements
+  const int n_dc = kChunked ? d_total / D : 1;
+  const int n_out = kChunked ? static_cast<int>(gridDim.z) : 1;
+  const int col0 = kChunked ? static_cast<int>(blockIdx.z) * D : 0;
   const int len = kv_len[bh / heads];
   const int valid = max(0, min(len, tk));
   const int live_chunks = (valid + kChunk - 1) / kChunk;
   const int t = threadIdx.x;
-  TQ* ob = o + static_cast<size_t>(bh) * tq * D;
+  TQ* ob = o + static_cast<size_t>(bh) * tq * dt;
 
   if (live_chunks == 0) {  // no live key: every row is 0
-    if (chunk == 0) {
-      for (int i = t; i < tq * D; i += kThreads) ob[i] = from_f32<TQ>(0.f);
+    if (chunk == 0 && col0 == 0) {
+      for (int i = t; i < tq * dt; i += kThreads) ob[i] = from_f32<TQ>(0.f);
     }
     return;
   }
@@ -136,45 +163,55 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
   const int n_keys = min(kChunk, valid - key0);
   const size_t row0 = static_cast<size_t>(bh) * tk + key0;
 
-  // stage the chunk: pieces of kPiece bytes, D / kPiece to a row; rows past
-  // the valid ones are zeros
+  // stage the chunk (kChunked: the V rows' columns of this block, the K
+  // rows one column chunk at a time below): pieces of kPiece bytes, D /
+  // kPiece to a row; rows past the valid ones are zeros
   using P = typename Piece<D>::T;
   constexpr int kPiece = Piece<D>::kBytes;
   constexpr int kPieces = D / kPiece;
   for (int i = t; i < kChunk * kPieces; i += kThreads) {
     const int j = i / kPieces;
     const int c = (i % kPieces) * kPiece;
-    P kv = {}, vv = {};
-    if (j < n_keys) {
-      kv = *reinterpret_cast<const P*>(k + (row0 + j) * D + c);
-      vv = *reinterpret_cast<const P*>(v + (row0 + j) * D + c);
+    if (!kChunked) {
+      stage_piece<D>(k + (row0 + j) * D + c, sm.k + j * S::kKPitch + c,
+                     j < n_keys);
     }
-    *reinterpret_cast<P*>(sm.k + j * S::kKPitch + c) = kv;
-    *reinterpret_cast<P*>(sm.v + j * D + c) = vv;
+    stage_piece<D>(v + (row0 + j) * dt + col0 + c, sm.v + j * D + c,
+                   j < n_keys);
   }
   sm.k_scale[t] = t < n_keys ? k_scale[row0 + t] : 0.f;
   sm.v_scale[t] = t < n_keys ? v_scale[row0 + t] : 0.f;
 
-  float* pb = part + (static_cast<size_t>(bh) * n_chunks + chunk) * tq * (D + 2);
+  float* pb = part + (static_cast<size_t>(bh) * n_chunks + chunk) * tq * (dt + 2);
   for (int r = 0; r < tq; ++r) {
-    __syncthreads();  // the chunk is staged; the previous row is done
-    for (int d = t; d < D; d += kThreads) {
-      sm.q[d] = to_f32(q[(static_cast<size_t>(bh) * tq + r) * D + d]);
-    }
-    __syncthreads();
     const int q_pos = len - tq + r;
     const bool live = t < n_keys && key0 + t <= q_pos;
-
-    float s = 0.f;
     const float ks = sm.k_scale[t];
     const int8_t* kr = sm.k + t * S::kKPitch;
+    float s = 0.f;  // one chain over every column chunk
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // the chunk is staged; the previous row (or column
+                        // chunk) is done
+      if (kChunked) {
+        for (int i = t; i < kChunk * kPieces; i += kThreads) {
+          const int j = i / kPieces;
+          const int c = (i % kPieces) * kPiece;
+          stage_piece<D>(k + (row0 + j) * dt + dc * D + c,
+                         sm.k + j * S::kKPitch + c, j < n_keys);
+        }
+      }
+      for (int d = t; d < D; d += kThreads) {
+        sm.q[d] = to_f32(q[(static_cast<size_t>(bh) * tq + r) * dt + dc * D + d]);
+      }
+      __syncthreads();
 #pragma unroll 2
-    for (int c = 0; c < D; c += kPiece) {
-      const P raw = *reinterpret_cast<const P*>(kr + c);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+      for (int c = 0; c < D; c += kPiece) {
+        const P raw = *reinterpret_cast<const P*>(kr + c);
+        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int e = 0; e < kPiece; ++e) {
-        s = __fmaf_rn(sm.q[c + e], __fmul_rn(static_cast<float>(b[e]), ks), s);
+        for (int e = 0; e < kPiece; ++e) {
+          s = __fmaf_rn(sm.q[c + e], __fmul_rn(static_cast<float>(b[e]), ks), s);
+        }
       }
     }
     s = live ? __fmul_rn(s, scale) : kNegInf;
@@ -192,70 +229,75 @@ flash_decode_int8_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
                         __fmul_rn(static_cast<float>(sm.v[j * D + d]), sm.v_scale[j]),
                         acc);
       }
-      pb[r * (D + 2) + 2 + d] = acc;
+      pb[r * (dt + 2) + 2 + col0 + d] = acc;
     }
-    if (t == 0) {
-      pb[r * (D + 2)] = m_c;
-      pb[r * (D + 2) + 1] = l_c;
+    if (t == 0 && col0 == 0) {
+      pb[r * (dt + 2)] = m_c;
+      pb[r * (dt + 2) + 1] = l_c;
     }
   }
 
-  // the last block of this b * h to finish merges the chunks
+  // the last block of this b * h to finish (of every column chunk) merges
+  // the chunks
   __threadfence();
   __syncthreads();
   if (t == 0) sm.ticket = atomicAdd(tickets + bh, 1);
   __syncthreads();
-  if (sm.ticket != live_chunks - 1) return;
+  if (sm.ticket != live_chunks * n_out - 1) return;
   __threadfence();
-  const float* all = part + static_cast<size_t>(bh) * n_chunks * tq * (D + 2);
+  const float* all = part + static_cast<size_t>(bh) * n_chunks * tq * (dt + 2);
   for (int r = 0; r < tq; ++r) {
     float m = kNegInf;
     for (int j = 0; j < live_chunks; ++j) {
-      m = fmaxf(m, __ldcg(all + (static_cast<size_t>(j) * tq + r) * (D + 2)));
+      m = fmaxf(m, __ldcg(all + (static_cast<size_t>(j) * tq + r) * (dt + 2)));
     }
-    for (int d = t; d < D; d += kThreads) {
+    for (int d = t; d < dt; d += kThreads) {
       float l = 0.f, acc = 0.f;
       for (int c = 0; c < live_chunks; ++c) {
-        const float* pc = all + (static_cast<size_t>(c) * tq + r) * (D + 2);
+        const float* pc = all + (static_cast<size_t>(c) * tq + r) * (dt + 2);
         const float w = expf(__fsub_rn(__ldcg(pc), m));
         l = __fmaf_rn(w, __ldcg(pc + 1), l);
         acc = __fmaf_rn(w, __ldcg(pc + 2 + d), acc);
       }
-      ob[r * D + d] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
+      ob[r * dt + d] = from_f32<TQ>(__fdiv_rn(acc, fmaxf(l, 1e-30f)));
     }
   }
   if (t == 0) tickets[bh] = 0;  // ready for the next launch
 }
 
-template <int D, typename TQ>
+// kChunked: the head dim is d_total, a multiple of D (the chunk width).
+template <int D, bool kChunked, typename TQ>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* kv_len, void* o, float* part,
-           int* tickets, int b, int h, int tq, int tk, float scale,
-           cudaStream_t stream) {
-  auto kernel = flash_decode_int8_kernel<D, TQ>;
+           int* tickets, int b, int h, int tq, int tk, int d_total,
+           float scale, cudaStream_t stream) {
+  auto kernel = flash_decode_int8_kernel<D, TQ, kChunked>;
   const size_t smem = sizeof(DecodeSmem<D>);
   const cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(b * h, (tk + kChunk - 1) / kChunk);
+  const dim3 grid(b * h, (tk + kChunk - 1) / kChunk, d_total / D);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const int8_t*>(k),
       static_cast<const int8_t*>(v), k_scale, v_scale, kv_len,
-      static_cast<TQ*>(o), part, tickets, h, tq, tk, scale);
+      static_cast<TQ*>(o), part, tickets, h, tq, tk, d_total, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kChunked = false>
 int launch_by_q(const void* q, const void* k, const void* v,
                 const float* k_scale, const float* v_scale, const int* kv_len,
                 void* o, float* part, int* tickets, int b, int h, int tq,
-                int tk, int q_dtype, float scale, cudaStream_t stream) {
+                int tk, int d_total, int q_dtype, float scale,
+                cudaStream_t stream) {
   if (q_dtype == kF32) {
-    return launch<D, float>(q, k, v, k_scale, v_scale, kv_len, o, part,
-                            tickets, b, h, tq, tk, scale, stream);
+    return launch<D, kChunked, float>(q, k, v, k_scale, v_scale, kv_len, o,
+                                      part, tickets, b, h, tq, tk, d_total,
+                                      scale, stream);
   }
   if (q_dtype == kBF16) {
-    return launch<D, __nv_bfloat16>(q, k, v, k_scale, v_scale, kv_len, o, part,
-                                    tickets, b, h, tq, tk, scale, stream);
+    return launch<D, kChunked, __nv_bfloat16>(q, k, v, k_scale, v_scale,
+                                              kv_len, o, part, tickets, b, h,
+                                              tq, tk, d_total, scale, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -269,7 +311,8 @@ extern "C" {
 // int32 from it. Returns cudaGetLastError() after the launch (0 on success);
 // an unsupported head dim, dtype or chunk returns cudaErrorInvalidValue
 // without launching. The head dims built (the `case`s below,
-// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256.
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256; a
+// multiple of kHeadChunk past 256 runs the chunked body.
 int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
                           const float* k_scale, const float* v_scale,
                           const int* kv_len, void* o, void* part, void* tickets,
@@ -284,7 +327,7 @@ int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
   int* ti = static_cast<int*>(tickets);
 #define RTT_INT8(D)                                                          \
   return launch_by_q<D>(q, k, v, k_scale, v_scale, kv_len, o, pf, ti, b, h, \
-                        tq, tk, q_dtype, scale, s)
+                        tq, tk, D, q_dtype, scale, s)
   switch (d) {
     case 8: RTT_INT8(8);
     case 16: RTT_INT8(16);
@@ -294,6 +337,11 @@ int rtt_flash_decode_int8(const void* q, const void* k, const void* v,
     case 256: RTT_INT8(256);
   }
 #undef RTT_INT8
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_by_q<kHeadChunk, true>(q, k, v, k_scale, v_scale, kv_len, o,
+                                         pf, ti, b, h, tq, tk, d, q_dtype,
+                                         scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -61,6 +61,27 @@
 //   entry takes. Any other D up to 256 arrives zero-padded by the wrapper
 //   to the next width built.
 //
+// - Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512)
+//   arrive zero-padded by the wrapper to a multiple of kHeadChunk (256) and
+//   run flash_fwd_sm90_chunked_kernel. There O alone over all of D would
+//   take 256 registers a consumer thread, and Q and a K tile over all of D
+//   more shared memory than a block has, so the design is cut by columns:
+//   a grid axis over the output's 256-column chunks (O a m64n256
+//   accumulator, as at D 256), and S = Q K^T a K-loop over D in 64-column
+//   sub-tiles that the producer streams through a four-stage ring of (Q
+//   sub-tile, K sub-tile) pairs, 24 KB each, while the tile's V rows of the
+//   block's columns (32 KB) come through a two-stage ring: 161 KB in all.
+//   The tensor cores sum S over a 256-column chunk (4 sub-tiles), as at D
+//   256, and the chunks' partial sums are added in f32 on the CUDA cores:
+//   one tensor-core sum over all of D lost bits (l 1e-5 off the plain
+//   version's at D 1536). A stage is released as soon as the next
+//   sub-tile's wgmmas are issued and its own have finished
+//   (wgmma.wait_group 1), or at its chunk's end. Q is read again for every
+//   key tile (from L2), and every column chunk's block computes the same S,
+//   so the operations rise by (D / 256 + 1) / 2 over one pass: 1.5 at D
+//   512. Every chunk's block computes the same m and l; the chunk-0 block
+//   writes them. The softmax and the epilogue are the helpers above.
+//
 // What this design leaves out, for a later PR: overlapping one warpgroup's
 // softmax with the next Q K^T inside the warpgroup (each tile waits for its
 // own products), persistent blocks, a TMA store of o, and clusters that
@@ -99,6 +120,122 @@ struct Layout {
   static constexpr int kBar = kV + kStages * kTile;  // q, full[], empty[]
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
+
+// The tile's raw scores `sc` (the m64nN accumulator of S = Q K^T) scaled
+// and masked where the tile touches the causal diagonal, the offsets or the
+// ragged edge (NEG_INF; p = 0 where s <= NEG_INF / 2), then the online
+// softmax: p in place of sc, the rows' m and this thread's share of l
+// updated, and the O accumulator rescaled by alpha = exp(m - m_new) where a
+// row of the warp moved its max (always in the two-term body). r_in: the
+// thread's first row in the warpgroup, wrow0 the warpgroup's first row.
+template <int kN, bool kTwoTerm, int kAcc>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kN / 2],
+                                             float (&acc)[kAcc], float (&m)[2],
+                                             float (&l)[2], int kt0, int tk,
+                                             int causal, int q_off, int k_off,
+                                             int wrow0, int r_in, int lane,
+                                             float scale) {
+  const bool edge = kt0 + kN > tk ||
+                    (causal && k_off + kt0 + kN - 1 > q_off + wrow0);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int key = kt0 + col_of(i, lane);
+      const int q_pos = q_off + wrow0 + r_in + 8 * half_of(i);
+      const bool live = key < tk && (!causal || q_pos >= k_off + key);
+      sc[i] = live ? __fmul_rn(sc[i], scale) : kNegInf;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = __fmul_rn(sc[i], scale);
+  }
+
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    mx[half_of(i)] = fmaxf(mx[half_of(i)], sc[i]);
+  }
+  float m_new[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = quad_max(mx[h]);
+    m_new[h] = fmaxf(m[h], mx[h]);
+  }
+
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    float p = __expf(__fsub_rn(sc[i], m_new[half_of(i)]));
+    if (edge) p = sc[i] > kNegInf * 0.5f ? p : 0.f;
+    ps[half_of(i)] = __fadd_rn(ps[half_of(i)], p);
+    sc[i] = p;
+  }
+
+  const bool moved = __any_sync(kFull, mx[0] > m[0] || mx[1] > m[1]);
+  if (kTwoTerm || moved) {
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      alpha[h] = m[h] == m_new[h] ? 1.f : __expf(__fsub_rn(m[h], m_new[h]));
+      l[h] = __fmaf_rn(alpha[h], l[h], ps[h]);
+    }
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) {
+      acc[i] = __fmul_rn(acc[i], alpha[half_of(i)]);
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = __fadd_rn(l[h], ps[h]);
+  }
+  m[0] = m_new[0];
+  m[1] = m_new[1];
+}
+
+// Epilogue: o = acc / max(l, 1e-30) (IEEE division) in bf16, or the
+// unnormalised acc in f32, into columns [col0, col0 + 2 kAcc) of rows `d`
+// apart (the columns past d, zero-filled by the TMA, are not stored);
+// m and l per row where `write_ml`; rows past T are not stored. row_in:
+// the thread's first row of the block's warpgroup (wrow0 + r_in).
+template <int kAcc>
+__device__ __forceinline__ void write_out(const float (&acc)[kAcc],
+                                          const float (&m)[2], float (&l)[2],
+                                          void* __restrict__ o,
+                                          float* __restrict__ m_out,
+                                          float* __restrict__ l_out, int bh,
+                                          int t, int d, int col0, bool write_ml,
+                                          int row_in, int lane, int normalize,
+                                          int out_f32) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    const int row = row_in + 8 * h;
+    if (row >= t) continue;
+    const size_t grow = static_cast<size_t>(bh) * t + row;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int nb = 0; nb < kAcc / 4; ++nb) {
+      if (col0 + 8 * nb >= d) break;  // the zero-filled columns past d
+      float x0 = acc[4 * nb + 2 * h];
+      float x1 = acc[4 * nb + 2 * h + 1];
+      if (normalize) {
+        x0 = __fdiv_rn(x0, denom);
+        x1 = __fdiv_rn(x1, denom);
+      }
+      const size_t idx = grow * d + col0 + 8 * nb + 2 * (lane & 3);
+      if (out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) =
+            make_float2(x0, x1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(o) +
+                                           idx) = __floats2bfloat162_rn(x0, x1);
+      }
+    }
+    if (write_ml && (lane & 3) == 0) {
+      m_out[grow] = m[h];
+      l_out[grow] = l[h];
+    }
+  }
+}
 
 // q [BH, T, d], k/v [BH, Tk, d] bf16 (through the tensor maps; d <= D, the
 // body's width) -> o [BH, T, d] (bf16, or f32 when out_f32), m/l [BH, T]
@@ -203,60 +340,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_wait_all();
       fence_regs(sc);
 
-      const bool edge = kt0 + kN > tk ||
-                        (causal && k_off + kt0 + kN - 1 > q_off + wrow0);
-      if (edge) {
-#pragma unroll
-        for (int i = 0; i < kN / 2; ++i) {
-          const int key = kt0 + col_of(i, lane);
-          const int q_pos = q_off + wrow0 + r_in + 8 * half_of(i);
-          const bool live = key < tk && (!causal || q_pos >= k_off + key);
-          sc[i] = live ? __fmul_rn(sc[i], scale) : kNegInf;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < kN / 2; ++i) sc[i] = __fmul_rn(sc[i], scale);
-      }
-
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) {
-        mx[half_of(i)] = fmaxf(mx[half_of(i)], sc[i]);
-      }
-      float m_new[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = quad_max(mx[h]);
-        m_new[h] = fmaxf(m[h], mx[h]);
-      }
-
-      float ps[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) {
-        float p = __expf(__fsub_rn(sc[i], m_new[half_of(i)]));
-        if (edge) p = sc[i] > kNegInf * 0.5f ? p : 0.f;
-        ps[half_of(i)] = __fadd_rn(ps[half_of(i)], p);
-        sc[i] = p;
-      }
-
-      const bool moved = __any_sync(kFull, mx[0] > m[0] || mx[1] > m[1]);
-      if (kTwoTerm || moved) {
-        float alpha[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          alpha[h] = m[h] == m_new[h] ? 1.f : __expf(__fsub_rn(m[h], m_new[h]));
-          l[h] = __fmaf_rn(alpha[h], l[h], ps[h]);
-        }
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) {
-          acc[i] = __fmul_rn(acc[i], alpha[half_of(i)]);
-        }
-      } else {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) l[h] = __fadd_rn(l[h], ps[h]);
-      }
-      m[0] = m_new[0];
-      m[1] = m_new[1];
+      softmax_tile<kN, kTwoTerm>(sc, acc, m, l, kt0, tk, causal, q_off,
+                                 k_off, wrow0, r_in, lane, scale);
 
       to_a_fragments(sc, pa);  // P to bf16 A fragments
 
@@ -277,36 +362,186 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(bar_empty + 8 * s);  // this thread is done with the stage
     }
 
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l[h] = quad_sum(l[h]);
-      const int row = wrow0 + r_in + 8 * h;
-      if (row >= t) continue;
-      const size_t grow = static_cast<size_t>(bh) * t + row;
-      const float denom = fmaxf(l[h], 1e-30f);
-#pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
-        if (8 * nb >= d) break;  // the zero-filled columns past d
-        float x0 = acc[4 * nb + 2 * h];
-        float x1 = acc[4 * nb + 2 * h + 1];
-        if (normalize) {
-          x0 = __fdiv_rn(x0, denom);
-          x1 = __fdiv_rn(x1, denom);
+    write_out(acc, m, l, o, m_out, l_out, bh, t, d, 0, true, wrow0 + r_in,
+              lane, normalize, out_f32);
+  }
+}
+
+// The chunked body's shared memory (head dims past 256), in bytes from a
+// 1024-aligned base: a ring of kSStages (Q, K) sub-tile pairs (kM and kN
+// rows of 64 bf16 columns) and a ring of kVStages V tiles (kN rows of the
+// block's kHeadChunk columns, kHeadChunk / 64 sub-tiles).
+struct ChunkedLayout {
+  static constexpr int kN = 64;  // keys per K/V tile
+  static constexpr int kSStages = 4;
+  static constexpr int kVStages = 2;
+  static constexpr int kQSub = kM * 128;
+  static constexpr int kKSub = kN * 128;
+  static constexpr int kSStage = kQSub + kKSub;
+  static constexpr int kVTile = (kHeadChunk / 64) * kKSub;
+  static constexpr int kS = 0;
+  static constexpr int kV = kS + kSStages * kSStage;
+  // full and empty barriers of each S stage, then of each V stage
+  static constexpr int kBar = kV + kVStages * kVTile;
+  static constexpr int kBytes = kBar + 16 * (kSStages + kVStages) + 1024;
+};
+
+// q [BH, T, d], k/v [BH, Tk, d] bf16 through the tensor maps, d a multiple
+// of kHeadChunk past it -> o [BH, T, d] (bf16, or f32 when out_f32), m/l
+// [BH, T] f32. grid (BH * d / kHeadChunk, ceil(T / kM)): block x takes
+// head x / n_out and output columns [(x % n_out) * 256, + 256).
+template <bool kTwoTerm>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              void* __restrict__ o, float* __restrict__ m_out,
+                              float* __restrict__ l_out, int t, int tk, int d,
+                              int q_off, int k_off, int causal, int normalize,
+                              int out_f32, float scale) {
+  using L = ChunkedLayout;
+  constexpr int kN = L::kN;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_s = base + L::kS;
+  const uint32_t s_v = base + L::kV;
+  const uint32_t full_s = base + L::kBar;            // + 8 * stage
+  const uint32_t empty_s = full_s + 8 * L::kSStages;
+  const uint32_t full_v = empty_s + 8 * L::kSStages;
+  const uint32_t empty_v = full_v + 8 * L::kVStages;
+
+  const int n_out = d / kHeadChunk;
+  const int bh = blockIdx.x / n_out;
+  const int col0 = (blockIdx.x % n_out) * kHeadChunk;
+  const int n_sub = d / 64;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * kM;
+  const int rows = min(kM, t - row0);
+  int k_end = tk;  // keys [0, k_end) can be live for some row of the block
+  if (causal) k_end = max(0, min(tk, q_off + row0 + rows - k_off));
+  const int n_tiles = (k_end + kN - 1) / kN;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kSStages; ++s) {
+      mbar_init(full_s + 8 * s, 1);
+      mbar_init(empty_s + 8 * s, kConsumers * 128);
+    }
+    for (int s = 0; s < L::kVStages; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread issues every TMA load, in the consumers' order:
+    // a key tile's (Q, K) sub-tiles over D, then its V tile
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0;  // (Q, K) sub-tiles issued
+      for (int it = 0; it < n_tiles; ++it) {
+        for (int j = 0; j < n_sub; ++j, ++g) {
+          const int s = g % L::kSStages;
+          mbar_wait(empty_s + 8 * s, ((g / L::kSStages) & 1) ^ 1);
+          mbar_expect_tx(full_s + 8 * s, L::kSStage);
+          const uint32_t stage = s_s + s * L::kSStage;
+          tma_load(stage, &tm_q, full_s + 8 * s, 64 * j, row0, bh);
+          tma_load(stage + L::kQSub, &tm_k, full_s + 8 * s, 64 * j, it * kN,
+                   bh);
         }
-        const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
-        if (out_f32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(o) + idx) =
-              make_float2(x0, x1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(o) +
-                                             idx) = __floats2bfloat162_rn(x0, x1);
+        const int sv = it % L::kVStages;
+        mbar_wait(empty_v + 8 * sv, ((it / L::kVStages) & 1) ^ 1);
+        mbar_expect_tx(full_v + 8 * sv, L::kVTile);
+#pragma unroll
+        for (int j = 0; j < kHeadChunk / 64; ++j) {
+          tma_load(s_v + sv * L::kVTile + j * L::kKSub, &tm_v, full_v + 8 * sv,
+                   col0 + 64 * j, it * kN, bh);
         }
-      }
-      if ((lane & 3) == 0) {
-        m_out[grow] = m[h];
-        l_out[grow] = l[h];
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int wrow0 = row0 + 64 * wg;     // first query row of the warpgroup
+    const int r_in = 16 * warp + lane / 4;  // + 8 * half: row in the warpgroup
+
+    float acc[kHeadChunk / 2];
+#pragma unroll
+    for (int i = 0; i < kHeadChunk / 2; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float sc[kN / 2];
+    float sp[kN / 2];  // one 256-column chunk's share of S
+    uint32_t pa[kN / 4];
+
+    int g = 0;  // (Q, K) sub-tiles consumed
+    for (int it = 0; it < n_tiles; ++it) {
+      const int kt0 = it * kN;
+      // S = Q K^T over D: each sub-tile's four k16 steps, 32 bytes along
+      // its (swizzled) rows, summed by the tensor cores over a 256-column
+      // chunk (4 sub-tiles), as at D 256; the chunks' partial sums are then
+      // added in f32 on the CUDA cores. (One tensor-core sum over all of D
+      // 1536 put l 1e-5 off the plain version's.) A stage goes back to the
+      // producer once the next sub-tile's products are issued and its own
+      // have finished, or at the chunk's end.
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
+      for (int j = 0; j < n_sub; ++j, ++g) {
+        const int s = g % L::kSStages;
+        mbar_wait(full_s + 8 * s, (g / L::kSStages) & 1);
+        const uint32_t stage = s_s + s * L::kSStage;
+        const int in_chunk = j % (kHeadChunk / 64);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_ss<kN>(sp,
+                       sw128_desc(stage + kk * 32 + 64 * 128 * wg, 16, 1024),
+                       sw128_desc(stage + L::kQSub + kk * 32, 16, 1024),
+                       in_chunk > 0 || kk > 0);
+        }
+        wgmma_commit();
+        if (in_chunk == kHeadChunk / 64 - 1) {  // the chunk's sum is done
+          wgmma_wait_all();
+          fence_regs(sp);
+          mbar_arrive(empty_s + 8 * ((g - 1) % L::kSStages));
+          mbar_arrive(empty_s + 8 * s);
+#pragma unroll
+          for (int i = 0; i < kN / 2; ++i) sc[i] = __fadd_rn(sc[i], sp[i]);
+          wgmma_fence();  // the next chunk's products overwrite sp
+        } else if (in_chunk > 0) {
+          wgmma_wait_one();
+          mbar_arrive(empty_s + 8 * ((g - 1) % L::kSStages));
+        }
+      }
+
+      softmax_tile<kN, kTwoTerm>(sc, acc, m, l, kt0, tk, causal, q_off,
+                                 k_off, wrow0, r_in, lane, scale);
+      to_a_fragments(sc, pa);  // P to bf16 A fragments
+
+      // O += P V over the tile's keys in steps of 16 (16 rows of 128 bytes)
+      const int sv = it % L::kVStages;
+      mbar_wait(full_v + 8 * sv, (it / L::kVStages) & 1);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        wgmma_pv<kHeadChunk>(acc, pa + 4 * kk,
+                             sw128_desc(s_v + sv * L::kVTile + kk * 16 * 128,
+                                        L::kKSub, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(empty_v + 8 * sv);  // this thread is done with the stage
+    }
+
+    write_out(acc, m, l, o, m_out, l_out, bh, t, d, col0, col0 == 0,
+              wrow0 + r_in, lane, normalize, out_f32);
   }
 }
 
@@ -332,12 +567,36 @@ int launch(const void* q, const void* k, const void* v, void* o, float* m,
   return static_cast<int>(cudaGetLastError());
 }
 
+// d: a multiple of kHeadChunk past it.
+template <bool kTwoTerm>
+int launch_chunked(const void* q, const void* k, const void* v, void* o,
+                   float* m, float* l, int bh, int t, int tk, int d, int q_off,
+                   int k_off, int causal, int normalize, int out_f32,
+                   float scale, cudaStream_t stream) {
+  using L = ChunkedLayout;
+  CUtensorMap map_q, map_k, map_v;
+  if (!make_map(&map_q, q, bh, t, d, kM) ||
+      !make_map(&map_k, k, bh, tk, d, L::kN) ||
+      !make_map(&map_v, v, bh, tk, d, L::kN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_fwd_sm90_chunked_kernel<kTwoTerm>;
+  cudaError_t err = prepare(kernel, L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh * (d / kHeadChunk), (t + kM - 1) / kM);
+  kernel<<<grid, kThreads, L::kBytes, stream>>>(map_q, map_k, map_v, o, m, l,
+                                                t, tk, d, q_off, k_off, causal,
+                                                normalize, out_f32, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Called by rtt_flash_fwd for bf16 q/k/v; returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a head dim it does not take (the
-// `case`s below: 8, 16 and 32 through the D 64 body, 64, 128 and 256) or
-// tensors TMA cannot address (a base not 16-byte aligned).
+// `case`s below: 8, 16 and 32 through the D 64 body, 64, 128 and 256; a
+// multiple of kHeadChunk past 256 through the chunked body) or tensors TMA
+// cannot address (a base not 16-byte aligned).
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    float* m, float* l, int bh, int t, int tk, int d, int q_off,
                    int k_off, int causal, int normalize, int out_f32,
@@ -359,5 +618,13 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
     case 256: RTT_SM90(256);
   }
 #undef RTT_SM90
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return onepass ? launch_chunked<false>(q, k, v, o, m, l, bh, t, tk, d,
+                                           q_off, k_off, causal, normalize,
+                                           out_f32, scale, stream)
+                   : launch_chunked<true>(q, k, v, o, m, l, bh, t, tk, d,
+                                          q_off, k_off, causal, normalize,
+                                          out_f32, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,10 +47,16 @@ built for 8, 16, 32, 64, 128 and 256 (``KERNEL_HEAD_DIMS``); any other D
 runs at the next built width (``kernel_head_dim``), q, k, v (and the
 cotangent) zero-padded to it (``pad_head``), the scale that of the true D,
 the output cut back to D. A zero column adds an exact 0 to each score's
-sum and an output column of zeros, which is cut off. D past 256 is
-refused. At D 256 (bench.py's LM at d_model 2048 over 8 heads) each family
-keeps its design with tiles cut to fit a block's shared memory and
-registers: see each source's notes.
+sum and an output column of zeros, which is cut off. At D 256 (bench.py's
+LM at d_model 2048 over 8 heads) each family keeps its design with tiles
+cut to fit a block's shared memory and registers: see each source's notes.
+Past 256 (bench.py's LM at d_model 4096: 8 heads of 512) the serving
+kernels -- the f32 and bf16 forward and both decodes -- run D zero-padded
+to a multiple of ``HEAD_CHUNK`` through chunked bodies: a grid axis over
+the output's 256-column chunks, each block summing its scores over all of
+D (one chain per score, so f32 decode == prefill holds) and computing its
+own columns of o. The backward past 256 is not built: its wrappers raise
+before any launch.
 
 Decode == prefill: for f32 q/k/v the decode kernel and the forward run the
 same steps of the per-row update over the same 32-key tiles, merged in
@@ -103,6 +109,12 @@ BLOCK_Q = 64
 # k and v zero-padded to it by the wrapper (``pad_head``) and the output cut
 # back; a head dim past 256 is refused.
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+# Past the widest built width the forward and decode kernels take D in
+# column chunks of this width (csrc/flash_common.cuh kHeadChunk), D
+# zero-padded to a multiple of it: the chunked bodies are the D 256
+# bodies' layouts, and a chunk of 256 recomputes the scores D / 256 times
+# where one of 128 would D / 128 times.
+HEAD_CHUNK = 256
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
 # partial (m, l, o) per chunk
@@ -339,13 +351,24 @@ def _on_cpu(*tensors) -> bool:
 
 
 def kernel_head_dim(d: int, what: str) -> int:
-    """The built width a head dim ``d`` runs at (``KERNEL_HEAD_DIMS``): ``d``
-    itself where a kernel is built for it, else the next built width up, to
-    which the wrapper zero-pads. Raises for a head dim past the widest,
-    naming the kernel ``what``."""
+    """The width a head dim ``d`` runs at on the card, to which the wrapper
+    zero-pads: ``d`` itself where a kernel is built for it
+    (``KERNEL_HEAD_DIMS``), else the next built width up; past the widest,
+    for the forward and decode families, the next multiple of
+    ``HEAD_CHUNK`` (their chunked bodies). Raises, naming the kernel
+    ``what``, for a head dim below 1 and for the backward families
+    (``what`` starting ``flash_bwd``) past the widest."""
     for width in KERNEL_HEAD_DIMS:
         if 1 <= d <= width:
             return width
+    if d > KERNEL_HEAD_DIMS[-1]:
+        if what.startswith("flash_bwd"):
+            raise ValueError(
+                f"{what}: head_dim {d}: the backward at head dims past "
+                f"{KERNEL_HEAD_DIMS[-1]} is not built yet (the forward and "
+                "the decodes take them)"
+            )
+        return -(-d // HEAD_CHUNK) * HEAD_CHUNK
     raise ValueError(
         f"{what}: head_dim {d} has no CUDA kernel (built for "
         f"{KERNEL_HEAD_DIMS})"
@@ -623,8 +646,8 @@ def flash_decode(q, k, v, kv_len, k_scale=None, v_scale=None):
         return flash_decode_plain(q, k, v, kv_len, k_scale, v_scale)
     width = kernel_head_dim(d, "flash_decode_int8" if int8_kv else "flash_decode")
     lib = _build.load()
-    # a head dim between the built widths: the gathered cache is copied,
-    # padded, on every call
+    # a head dim between the built widths (or past 256, not a multiple of
+    # HEAD_CHUNK): the gathered cache is copied, padded, on every call
     q, k, v = (pad_head(x, width).contiguous() for x in (q, k, v))
     lens = kv_len.to(torch.int32).contiguous()
     o = torch.empty_like(q)

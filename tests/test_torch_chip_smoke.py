@@ -7,6 +7,7 @@ time counts those kernels twice (on the H100 it doubled the device time of
 a DLRM epoch's optimizer step). The window here is made of stand-in events.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -160,7 +161,8 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
         "flash_bwd_dkv_sm90_kernel", "interaction_fwd_kernel",
         "quantize_stochastic_kernel",
         "quantize_stochastic_rows_kernel", "quantize_rows_kernel",
-        "int8_gemm_sm90_kernel", "flash_decode_int8_kernel"}
+        "int8_gemm_sm90_kernel", "flash_decode_int8_kernel",
+        "flash_fwd_chunked_kernel", "flash_fwd_sm90_chunked_kernel"}
 
 
 def _forward_p_in_bf16(q, k, v, causal):
@@ -328,14 +330,15 @@ def test_sm90_patterns_name_every_tensor_core_instantiation():
 
 def test_decode_pattern_names_every_instantiation():
     """ptxas's mangled names of the split decode's two kernels <D, q type,
-    cache type> each get a key of their own; a repeated bf16 is a
-    substitution (S..._) in the mangling."""
+    cache type, chunked> each get a key of their own; a repeated bf16 is a
+    substitution (S..._) in the mangling. The chunked bodies (chunked
+    true) are ``chunked_report``'s."""
     names = [
-        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi128EffEEvPKT0_PKT1_PKiPfSA_iiiif",
-        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi64Ef13__nv_bfloat16EEvPKT1_PKiPKfSB_PfPiPT0_iiii",
-        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi128E13__nv_bfloat16fEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
-        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi64E13__nv_bfloat16S1_EEvPKT0_PKT1_PKiPfSA_iiiif",
-        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi16EffEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi128EffLb0EEEvPKT0_PKT1_PKiPfSA_iiiif",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi64Ef13__nv_bfloat16Lb0EEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi128E13__nv_bfloat16fLb0EEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu26flash_decode_scores_kernelILi64E13__nv_bfloat16S1_Lb0EEEvPKT0_PKT1_PKiPfSA_iiiif",
+        "_ZN41_GLOBAL__N__1_flash_decode_cu22flash_decode_pv_kernelILi16EffLb0EEEvPKT1_PKiPKfSB_PfPiPT0_iiii",
         "_ZN40_GLOBAL__N__1_flash_forward_sm90_cu21flash_fwd_sm90_kernelILi128ELb1EEEv",
     ]
     entries = {name: {"registers": 40, "spill_bytes": 0, "static_smem_bytes": 0}
@@ -1674,3 +1677,195 @@ def test_planted_faults_refuse_an_unknown_name():
             "d256_f32_dkv_stale_q"} <= set(chip_smoke.PLANTED_FAULTS)
     with pytest.raises(chip_smoke.SmokeFailure, match="no planted fault named"):
         chip_smoke.planted_faults(["no_such_fault"])
+
+
+def test_chunked_patterns_name_every_instantiation(monkeypatch):
+    """ptxas's mangled names of the chunked bodies of head dims past 256
+    (the f32 and bf16 forward <two-term>, K4a's two kernels <256, q type,
+    cache type, true>, K4b <256, q type, true>) each get a key of their
+    own, and none is the decode report's; ``chunked_report`` fails on a
+    spill, a missing instantiation or a tensor-core forward without HGMMA
+    or UTMALDG."""
+    pre = "_ZN41_GLOBAL__N__1_flash_decode_cu"
+    names = [
+        "_ZN51_GLOBAL__N__1_flash_attention_cu24flash_fwd_chunked_kernelILb1EEEvNS_7FwdArgsE",
+        "_ZN51_GLOBAL__N__1_flash_attention_cu24flash_fwd_chunked_kernelILb0EEEvNS_7FwdArgsE",
+        "_ZN54_GLOBAL__N__1_flash_forward_sm90_cu29flash_fwd_sm90_chunked_kernelILb1EEEv14CUtensorMap_st",
+        "_ZN54_GLOBAL__N__1_flash_forward_sm90_cu29flash_fwd_sm90_chunked_kernelILb0EEEv14CUtensorMap_st",
+        *(f"{pre}26flash_decode_scores_kernelILi256E{t}Lb1EEEvPKT0_PKT1_PKiPfSA_iiiiif"
+          for t in ("ff", "f13__nv_bfloat16", "13__nv_bfloat16f",
+                    "13__nv_bfloat16S1_")),
+        *(f"{pre}22flash_decode_pv_kernelILi256E{t}Lb1EEEvPKT1_PKiPKfSB_PfPiPT0_iiiii"
+          for t in ("ff", "f13__nv_bfloat16", "13__nv_bfloat16f",
+                    "13__nv_bfloat16S1_")),
+        "_ZN41_GLOBAL__N__1_flash_decode_int8_cu24flash_decode_int8_kernelILi256EfLb1EEEvPKT0_",
+        "_ZN41_GLOBAL__N__1_flash_decode_int8_cu24flash_decode_int8_kernelILi256E13__nv_bfloat16Lb1EEEvPKT0_",
+    ]
+    unchunked = f"{pre}26flash_decode_scores_kernelILi256EffLb0EEEvPKT0_"
+    assert not any(chip_smoke.DECODE_KERNEL.search(n) for n in names)
+    assert chip_smoke.DECODE_KERNEL.search(unchunked)
+    row = {"registers": 237, "spill_bytes": 0, "static_smem_bytes": 0}
+    entries = {name: dict(row) for name in names + [unchunked]}
+    sass = {name: {"HGMMA": 8, "IGMMA": 0, "UTMALDG": 6} for name in names
+            if "sm90" in name}
+    monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib: sass)
+    monkeypatch.setattr(chip_smoke._build, "library_path", lambda: Path("x"))
+    out = chip_smoke.chunked_report(entries)
+    assert len(out) == chip_smoke.CHUNKED_INSTANTIATIONS == 14
+    assert {"flash_fwd_chunked_kernel", "flash_fwd_chunked_kernel two-term",
+            "flash_fwd_sm90_chunked_kernel two-term",
+            "flash_decode_scores_kernel chunked q bf16 cache f32",
+            "flash_decode_pv_kernel chunked q f32 cache bf16",
+            "flash_decode_int8_kernel chunked q bf16"} <= set(out)
+    assert out["flash_fwd_sm90_chunked_kernel"]["HGMMA"] == 8
+    spilled = dict(entries, **{names[0]: dict(row, spill_bytes=8)})
+    with pytest.raises(chip_smoke.SmokeFailure, match="two-term spills"):
+        chip_smoke.chunked_report(spilled)
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 14 chunked"):
+        chip_smoke.chunked_report({n: r for n, r in entries.items()
+                                   if n != names[-1]})
+    sass[names[2]] = {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 6}
+    with pytest.raises(chip_smoke.SmokeFailure, match="no HGMMA or UTMALDG"):
+        chip_smoke.chunked_report(entries)
+
+
+def test_past_256_dims_run_chunked_and_their_faults_are_planted():
+    """The check's head dims all run past 256 at a multiple of the chunk
+    width (320 padded to 512), the bitwise dims among them; the three
+    planted faults of the chunked bodies are in the CUDA sources, each in
+    code that only a head dim past 256 runs."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    widths = {d: fa.kernel_head_dim(d, "flash_fwd")
+              for d in chip_smoke.PAST_256_HEAD_DIMS}
+    assert widths == {512: 512, 320: 512, 1024: 1024, 1536: 1536}
+    assert set(chip_smoke.PAST_256_BITS_DIMS) <= set(widths)
+    root = Path(chip_smoke.__file__).resolve().parent
+    faults = {"past256_f32_drop_last_chunk", "past256_bf16_drop_last_subtile",
+              "past256_decode_chain_restart"}
+    assert faults <= set(chip_smoke.PLANTED_FAULTS)
+    for name in faults:
+        source, site, _ = chip_smoke.PLANTED_FAULTS[name]
+        text = (root / source).read_text()
+        body = text[text.index(site) - 4000:text.index(site)]
+        assert "chunk" in body or "n_dc" in body, name
+
+
+def _force_cuda_route(monkeypatch):
+    """The wrappers' CUDA route on CPU tensors: the device test forced, the
+    forward through its plain version, the library never loaded."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    def no_build():
+        raise AssertionError("the kernel library was loaded")
+
+    monkeypatch.setattr(chip_smoke._build, "load", no_build)
+    monkeypatch.setattr(fa, "_on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fa, "flash_attention_call",
+                        lambda q, k, v, *a, **kw:
+                        fa.flash_attention_call_plain(q, k, v, *a, **kw))
+
+
+def test_check_backward_refused_on_the_cpu(monkeypatch):
+    """``check_backward_refused`` at D 512 on the wrappers' CUDA route: dq,
+    dk/dv and the autograd backward of ``flash_attention``, f32 and bf16,
+    each refused by the width rule, and no backward launch counted."""
+    _force_cuda_route(monkeypatch)
+    out = chip_smoke.check_backward_refused(torch.device("cpu"), 512)
+    assert len(out) == 6
+    assert all("not built yet" in msg for msg in out.values())
+
+
+def test_check_backward_refused_fails_a_backward_that_runs(monkeypatch):
+    """A planted fault: the dq wrapper takes its plain version past 256, as
+    a quiet fallback would; the check fails."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    _force_cuda_route(monkeypatch)
+    monkeypatch.setattr(fa, "flash_bwd_dq", fa.flash_bwd_dq_plain)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="flash_bwd_dq float32 D512 was not refused"):
+        chip_smoke.check_backward_refused(torch.device("cpu"), 512)
+
+
+# phase_lm_4096 on the CPU: bench.py's 4096-wide LM's head dim (512) at a
+# small width and depth, with a small engine
+LM_4096_CPU = dict(model=dict(vocab_size=64, d_model=1024, num_heads=2,
+                              num_layers=2),
+                   streams=2, prompt_lens=(3, 20),
+                   engine=dict(capacity_tokens=64, page_tokens=16, max_seqs=2,
+                               max_new_tokens=4))
+
+
+def test_phase_lm_4096_on_the_cpu():
+    """``phase_lm_4096`` on the CPU at head dim 512: served from f32 and
+    int8 caches and as a bf16 model, every stream to its budget, one
+    stream's logits held to the plain path, no launch (the plain versions
+    launch nothing); the record's keys and its summary line."""
+    rec = chip_smoke.phase_lm_4096(torch.device("cpu"), LM_4096_CPU)
+    assert rec["launches"] == {}
+    serving = rec["serve"]
+    budget = LM_4096_CPU["engine"]["max_new_tokens"]
+    for leg in ("f32", "bf16", "int8"):
+        assert [len(t) for t in serving[leg]["tokens_by_stream"]] == [budget] * 2
+    assert serving["logits"]["prefill"] <= 5e-2
+    assert 0 <= serving["int8_tokens_as_f32"] <= 2 * budget
+    line = chip_smoke.lm_4096_summary(rec, "cpu")
+    assert set(line["lm_4096"]["serve"]) == {"f32", "bf16", "int8"}
+    assert line["lm_4096"]["config"]["d_model"] == 1024
+    assert chip_smoke.LM_4096["model"]["d_model"] == 4096
+    assert chip_smoke.LM_4096["model"]["num_heads"] == 8
+
+
+def test_phase_lm_4096_fails_a_wrong_decode(monkeypatch):
+    """A planted fault: the decode's plain version off by a factor of 2; the
+    first decode step's logits no longer hold to the plain path, and the
+    phase fails."""
+    from raydp_tpu_torch.ops import flash_attention as fa
+
+    plain = fa.flash_decode_plain
+    monkeypatch.setattr(fa, "flash_decode_plain",
+                        lambda *a, **k: plain(*a, **k) * 2)
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="model logits disagree with the plain path"):
+        chip_smoke.phase_lm_4096(torch.device("cpu"), LM_4096_CPU)
+
+
+@pytest.mark.parametrize("flag", ["--heads-past-256", "--lm-4096"])
+def test_past_256_flags_run_phase_1_and_their_part(monkeypatch, capsys, flag):
+    """``--heads-past-256`` runs phase 1, ``check_heads_past_256`` and
+    ``heads_past_256_times`` and prints their summary line;
+    ``--lm-4096`` runs phase 1 and ``phase_lm_4096`` and prints its own;
+    each exits 0 (the card's calls stood in for)."""
+    ran = []
+    monkeypatch.setattr(chip_smoke.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(chip_smoke.torch.cuda, "set_device", lambda dev: None)
+    make_gen = torch.Generator  # chip_smoke's torch is this torch
+    monkeypatch.setattr(chip_smoke.torch, "Generator",
+                        lambda device=None: make_gen())
+    monkeypatch.setattr(chip_smoke, "phase_device",
+                        lambda: ran.append("phase_device") or {"nvidia_smi": "card"})
+    checks = {"worst": {"flash_fwd D512": {"max_abs_err": 0.0}},
+              "backward_refused": {"flash_bwd_dq float32 D512": "refused"}}
+    monkeypatch.setattr(chip_smoke, "check_heads_past_256",
+                        lambda gen, device: ran.append("check") or checks)
+    monkeypatch.setattr(chip_smoke, "heads_past_256_times",
+                        lambda device: ran.append("times") or {
+                            "flash_fwd D512": {"ms": 1.0, "library": "MATH",
+                                               "recompute": 1.5}})
+    serve = {leg: {"decode_tok_s": 1.0, "ttft_ms_p50": 1.0, "tpot_ms_p50": 1.0,
+                   "prefill_ms_p50": 1.0} for leg in ("f32", "bf16", "int8")}
+    rec = {"config": {}, "serve": dict(serve, logits={}, int8_tokens_as_f32=0),
+           "launches": {}, "seconds": 1.0}
+    monkeypatch.setattr(chip_smoke, "phase_lm_4096",
+                        lambda device: ran.append("phase") or rec)
+    assert chip_smoke.main([flag]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    if flag == "--lm-4096":
+        assert ran == ["phase_device", "phase"] and "lm_4096" in line
+    else:
+        assert ran == ["phase_device", "check", "times"]
+        row = line["heads_past_256"]["flash_fwd D512"]
+        assert row["ms"] == 1.0 and row["library"] == "MATH"
+        assert line["heads_past_256"]["backward_refused"] == [
+            "flash_bwd_dq float32 D512"]

@@ -333,14 +333,17 @@ def test_mesh_feeds_without_device_raise(no_cuda):
 def test_cuda_only_paths_refuse_cpu_kernels():
     """On the CPU the wrappers take the plain versions; a head dim past the
     widest the CUDA kernels were built for is refused before any launch on
-    the card (any head dim up to it runs, padded to a built width), and
-    mixed devices are refused outright."""
+    the card by the backward (not built yet), while the forward and the
+    decodes run it padded to a multiple of the chunk width (any head dim up
+    to 256 runs, padded to a built width), and mixed devices are refused
+    outright."""
     from raydp_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(1, 1, 4, 16)
-    with pytest.raises(ValueError, match="flash_fwd: head_dim 257"):
-        fa.kernel_head_dim(257, "flash_fwd")
-    with pytest.raises(ValueError):
+    assert fa.kernel_head_dim(257, "flash_fwd") == 512
+    assert fa.kernel_head_dim(512, "flash_decode") == 512  # bench.py's 4096 LM
+    with pytest.raises(ValueError, match="flash_bwd_dq: head_dim 512: the "
+                       "backward at head dims past 256 is not built yet"):
         fa.kernel_head_dim(512, "flash_bwd_dq")
     assert fa.kernel_head_dim(256, "flash_bwd_dq") == 256  # bench.py's wide LM
     assert fa.kernel_head_dim(129, "flash_fwd") == 256
