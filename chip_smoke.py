@@ -75,14 +75,15 @@ Phases; any failure exits non-zero and prints no result line:
    at the serving shape, and at D 256 decode == the f32 prefill row bit
    for bit at every tile boundary, the decodes' edges and the bf16 decode
    row within ``bf16_limit`` of the bf16 prefill row; the limits above,
-   two launches bitwise); the serving families (the forward in f32 and
-   bf16, both bodies, K4a and K4b) at head dims 512 (bench.py's LM at
-   d_model 4096, 8 heads), 320 (zero-padded to 512), 1024 and 1536, which
-   they take in 256-column chunks (``check_heads_past_256``: the forward
-   at ``wide_forward_cases``, the decodes at the serving shape, and at 512
-   and 1024 decode == the f32 prefill row bit for bit at every tile
-   boundary and the decodes' edges; the backward families refusing D 512
-   before any launch), and
+   two launches bitwise); every family (the forward in f32 and bf16,
+   both bodies, the backward in f32 and bf16, K4a and K4b) at head dims
+   512 (bench.py's LM at d_model 4096, 8 heads), 320 (zero-padded to
+   512), 1024 and 1536, which they take in 256-column chunks
+   (``check_heads_past_256``: the forward at ``wide_forward_cases``, the
+   backward at ``past_256_backward_cases``, every call through the
+   kernels, the decodes at the serving shape, and at 512 and 1024 decode
+   == the f32 prefill row bit for bit at every tile boundary and the
+   decodes' edges), and
    ``interaction_fwd`` against ``dot_interaction_plain`` at
    the DLRM path's shape [2048,7,16] (f32 and bf16), at the Criteo Kaggle
    shape [2048,27,16] and at the edges of its layout (``INTERACTION_EDGES``:
@@ -375,11 +376,13 @@ Phases; any failure exits non-zero and prints no result line:
    plain path; every head-dim-256 kernel launched; a ``{"wide_lm":
    {...}}`` line. Then bench.py's LM at its 4096 width (``phase_lm_4096``;
    ``--lm-4096`` runs it alone): d_model 4096, 8 heads of 512, its other
-   widths the 2048 LM's, served by ``DecodeEngine`` at ENGINE's shape from
-   an f32 cache, as a bf16 model and from an int8 cache (4 streams), one
-   stream's prefill and first decode step held to the plain path, every
-   serving kernel launched at head dim 512; a ``{"lm_4096": {...}}``
-   line.
+   widths the 2048 LM's, on ``phase_wide_lm``'s paths: bf16 training at
+   batch 2, T 8192 and f32 at batch 1, T 2048, each against ``"full"``,
+   every attention kernel launched once a layer a step, the loss falling;
+   served by ``DecodeEngine`` at ENGINE's shape from an f32 cache, as a
+   bf16 model and from an int8 cache (4 streams), one stream's prefill and
+   first decode step held to the plain path; every kernel launched at
+   head dim 512; a ``{"lm_4096": {...}}`` line.
    Then the chaos plane (``phase_chaos``, after the times, before the
    leftovers): under ``RAYDP_TPU_SANITIZE=donation,lockdep,leaks-strict``
    (the environment restored after), ``raydp_tpu_torch.chaos.run`` of
@@ -435,7 +438,7 @@ a ``{"small_heads": {...}}`` line every attention family at head dims
 dims 256 and 192 (errors, and at 256 the times by events and by the
 profiler beside the plain version's, SDPA's and the bound), a
 ``{"wide_lm": {...}}`` line ``phase_wide_lm``, a ``{"heads_past_256":
-{...}}`` line the serving families at head dims past 256 (errors, and at
+{...}}`` line every family at head dims past 256 (errors, and at
 512 the times beside the plain version's, SDPA's with its backend and the
 bound), an ``{"lm_4096": {...}}`` line ``phase_lm_4096``, an
 ``{"examples": {...}}`` line
@@ -452,16 +455,17 @@ and the build), a ``{"kernels": [...]}`` object and ``{"ok": true,
 
 plants each fault of ``PLANTED_FAULTS`` (or each one named) in its own copy of the source it
 names (the bf16 forward, the bf16 backward, the f32 forward, the f32
-backward, the two decode kernels, the int8 product, K5, K1; the
-estimator's resume, the wire's widen and the streamed fit's segments)
-under ``build/planted/``, builds the copy and runs there ``chip_smoke.py
---bf16-checks`` for a fault in a CUDA source (phase 2's bf16 forward,
-backward and decode checks, the f32 bodies' edges, the f32/bf16-cache
-decode's bitwise checks and the int8 product's, at the serving and
-training shapes alone, every family at head dims 256 and 192, the serving
-families past 256, then the K1 and K5 checks) or ``chip_smoke.py
---fit-checks`` for one in a Python module (``phase_fit``'s steps 1-3: the
-streamed fits and their per-step parity, the widen and the
+backward, the two decode kernels, the int8 product, K5, K1, the backward's
+wrapper; the estimator's resume, the wire's widen and the streamed fit's
+segments) under ``build/planted/``, builds the copies (each compiles only
+the source its fault changed, all in parallel) and runs in each
+``chip_smoke.py --bf16-checks`` for a fault in the kernel layer (phase 2's
+bf16 forward, backward and decode checks, the f32 bodies' edges, the
+f32/bf16-cache decode's bitwise checks and the int8 product's, at the
+serving and training shapes alone, every family at head dims 256 and 192
+and past 256, then the K1 and K5 checks) or ``chip_smoke.py
+--fit-checks`` for one in a fit's Python modules (``phase_fit``'s steps
+1-3: the streamed fits and their per-step parity, the widen and the
 crash-and-retry fits); it exits 0 only if every copy fails them with a
 disagreement, and prints one JSON line with each fault's failing check.
 
@@ -484,15 +488,17 @@ line), alone.
     python3 chip_smoke.py --heads-past-256
     python3 chip_smoke.py --lm-4096
 
-run phase 1 and then the serving families at head dims past 256
-(``check_heads_past_256`` and ``heads_past_256_times``, a
-``{"heads_past_256": {...}}`` line), or phase 1 and ``phase_lm_4096`` (an
-``{"lm_4096": {...}}`` line), alone.
+run phase 1 and then every attention family at head dims past 256, the
+backward's dq and dk/dv too (``check_heads_past_256`` and
+``heads_past_256_times``, a ``{"heads_past_256": {...}}`` line), or phase 1
+and ``phase_lm_4096`` (the 4096-wide LM trained in bf16 and f32 and served,
+an ``{"lm_4096": {...}}`` line), alone.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import importlib
 import json
@@ -560,10 +566,11 @@ SMALL_HEADS_T = 2048
 # cache of 2048 at DECODE_LENS) and at hard cases of 2 heads
 WIDE_HEAD_DIMS = (256, 192)
 WIDE_HEADS = 8
-# head dims past 256, which the serving kernels (the forward, K4a, K4b) take
-# in 256-column chunks (ops.flash_attention.HEAD_CHUNK): 512, bench.py's LM
-# at BENCH_LM_D=4096 (8 heads), 320, zero-padded to 512, and 1024 and 1536,
-# two and three more chunks. Held at WIDE_HEAD_DIMS' shapes; decode == the
+# head dims past 256, which every attention family (the forward, the
+# backward, K4a, K4b) takes in 256-column chunks
+# (ops.flash_attention.HEAD_CHUNK): 512, bench.py's LM at BENCH_LM_D=4096
+# (8 heads), 320, zero-padded to 512, and 1024 and 1536, two and three more
+# chunks. Held at WIDE_HEAD_DIMS' shapes; decode == the
 # f32 prefill row bit for bit and the decodes' edges at PAST_256_BITS_DIMS
 PAST_256_HEAD_DIMS = (512, 320, 1024, 1536)
 PAST_256_BITS_DIMS = (512, 1024)
@@ -863,8 +870,10 @@ def sass_text(lib: Path) -> str:
                           text=True, check=True, timeout=120).stdout
 
 
+@functools.lru_cache(maxsize=None)
 def sass_functions(lib: Path) -> dict:
-    """The built library's SASS, by ``parse_sass``."""
+    """The built library's SASS, by ``parse_sass`` (parsed once: phase 1's
+    six reports read it; callers do not change it)."""
     return parse_sass(sass_text(lib))
 
 
@@ -942,17 +951,21 @@ def _decode_key(found: re.Match) -> str:
 
 # the chunked bodies of head dims past 256 in ptxas's mangled names: the
 # f32 and bf16 forward <two-term>, K4a's two kernels <256, q type, cache
-# type, true> and K4b <256, q type, true>
+# type, true> and K4b <256, q type, true>, and the f32 and bf16 backward's
+# dq and dk/dv (no template)
 CHUNKED_KERNELS = (
     re.compile(r"(flash_fwd_chunked_kernel)ILb(\d)E"),
     re.compile(r"(flash_fwd_sm90_chunked_kernel)ILb(\d)E"),
     re.compile(r"(flash_decode_(?:scores|pv)_kernel)ILi256E(\w+?)Lb1E"),
     re.compile(r"(flash_decode_int8_kernel)ILi256E(\w+?)Lb1E"),
+    re.compile(r"(flash_bwd_(?:dq|dkv)(?:_sm90)?_chunked_kernel)E"),
 )
-CHUNKED_INSTANTIATIONS = 14  # 2 + 2 + 2 x 4 type pairs + 2
+CHUNKED_INSTANTIATIONS = 18  # 2 + 2 + 2 x 4 type pairs + 2 + 4
 
 
 def _chunked_key(found: re.Match) -> str:
+    if "bwd" in found.group(1):
+        return found.group(1)
     if "fwd" in found.group(1):
         two = " two-term" if found.group(2) == "1" else ""
         return f"{found.group(1)}{two}"
@@ -965,9 +978,9 @@ def _chunked_key(found: re.Match) -> str:
 def chunked_report(entries: dict) -> dict:
     """The chunked bodies of head dims past 256 among ptxas's ``entries``
     (``CHUNKED_KERNELS``): registers, spills and static shared memory, and
-    for the tensor-core forward its HGMMA and UTMALDG counts. Fails on a
-    spill, a missing instantiation or a tensor-core forward without
-    them."""
+    for the tensor-core forward and backward their HGMMA and UTMALDG
+    counts. Fails on a spill, a missing instantiation or a tensor-core body
+    without them."""
     sass = sass_counts(_build.library_path())
     out = {}
     for name, row in entries.items():
@@ -1580,23 +1593,58 @@ def check_wide_heads(gen, device) -> dict:
     return out
 
 
+def past_256_backward_cases(heads, t, d) -> tuple:
+    """The backward's cases at a head dim past 256, (q shape, Tk, q_off,
+    k_off, causal): [1, heads, t, D] causal with zero offsets (the f32
+    step's shape); T 1500 causal (ragged off every tile); a ring's block
+    pair at global offsets (queries from 300 against 812 keys from 0),
+    causal; q_off < k_off (rows with no live key), causal; and T 200
+    against Tk 136, not causal, the last four at 2 heads."""
+    return (((1, heads, t, d), t, 0, 0, True),
+            ((1, 2, 1500, d), 1500, 0, 0, True),
+            ((1, 2, 512, d), 812, 300, 0, True),
+            ((1, 2, 512, d), 512, 0, 300, True),
+            ((1, 2, 200, d), 136, 0, 0, False))
+
+
+def check_backward_launched(gen, device, heads, dtype, cases) -> dict:
+    """``check_backward_cases`` on ``cases``, and every backward call there
+    went through dq's and dk/dv's kernels where the wrappers take the
+    kernel route on ``device`` (no plain fallback): at least two launches
+    of each a case (``check_bwd``'s two calls), none on the plain route."""
+    bwd = ("flash_bwd_dq", "flash_bwd_dkv")
+    before = {n: fa.LAUNCHES[n] for n in bwd}
+    out = check_backward_cases(gen, device, heads, dtype, cases)
+    launched = {n: fa.LAUNCHES[n] - before[n] for n in bwd}
+    kernel_route = not fa._on_cpu(torch.empty(0, device=device))
+    require(all(n >= 2 * len(cases) if kernel_route else n == 0
+                for n in launched.values()),
+            f"the backward {str(dtype)[6:]} at D{cases[0][0][-1]} disagrees "
+            f"with its launches: {launched} over {len(cases)} cases")
+    return out
+
+
 def check_heads_past_256(gen, device) -> dict:
-    """The serving families at the head dims of ``PAST_256_HEAD_DIMS``
+    """Every attention family at the head dims of ``PAST_256_HEAD_DIMS``
     (512, bench.py's LM at d_model 4096; 320, zero-padded to 512; 1024 and
     1536), which they take in 256-column chunks, each against its plain
     version and bitwise over two launches, at the limits of phase 2 (f32
-    forward and decode 1e-5; bf16 within ``bf16_limit``,
-    ``bf16_decode_limit``):
+    forward and decode 1e-5, backward 1e-4; bf16 within ``bf16_limit``,
+    ``bf16_bwd_limit``, ``bf16_decode_limit``):
 
     - the forward, f32 and bf16, both bodies (``wide_forward_cases``);
+    - the backward, f32 and bf16 (``past_256_backward_cases``: causal with
+      zero offsets, causal off every tile, at a ring's global offsets, with
+      rows that see no key, and not causal), rows with no live key getting
+      dq 0, every call through the kernels (``check_backward_launched``);
+    - at D 512 only, the bf16 training step's shape [2, 8, 8192, 512]
+      causal, the forward and the backward (``check_train_shape``);
     - K4a (f32 and bf16 q, an f32 cache) and K4b (against K4a on the
       dequantized cache and its plain version) at the serving shape,
       ``check_decode``; at ``PAST_256_BITS_DIMS`` also decode == the f32
       prefill row bit for bit at every tile and block boundary, tq 1 and
       3, with the bf16 identities (``check_decode_bits``), and the edges
-      from f32, bf16 and int8 caches (``check_decode_edges``, 2 heads);
-    - the backward families refuse D 512 before any launch
-      (``check_backward_refused``).
+      from f32, bf16 and int8 caches (``check_decode_edges``, 2 heads).
 
     ``worst`` holds, per family and head dim, the largest |kernel - plain|
     and (bf16) the largest |kernel - plain| / limit."""
@@ -1608,55 +1656,21 @@ def check_heads_past_256(gen, device) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             fold(d, forward_cases(gen, device, dtype,
                                   wide_forward_cases(WIDE_HEADS, t, d)))
+            fold(d, check_backward_launched(
+                gen, device, WIDE_HEADS, dtype,
+                past_256_backward_cases(WIDE_HEADS, t, d)))
         fold(d, check_decode(gen, device, WIDE_HEADS, t, d, DECODE_LENS))
+        if d == 512:
+            fold(d, check_train_shape(gen, device, WIDE_HEADS, d))
         if d not in PAST_256_BITS_DIMS:
             continue
         fold(d, check_decode_bits(gen, device, WIDE_HEADS, t, DECODE_LENS,
                                   dims=(d,)))
         for cache in ("f32", "bf16", "int8"):
             fold(d, check_decode_edges(gen, device, 2, t, d, cache))
-    out["backward_refused"] = check_backward_refused(device, 512)
     out["worst"] = worst
     log(f"head dims past 256 {PAST_256_HEAD_DIMS}: worst |kernel - plain| "
         f"(and bf16 |kernel - plain| / limit) {worst}")
-    return out
-
-
-def check_backward_refused(device, d: int) -> dict:
-    """The backward at head dim ``d`` (past 256, not built) on ``device``:
-    ``flash_bwd_dq`` and ``flash_bwd_dkv`` in f32 and bf16, and the
-    backward of ``flash_attention`` through autograd, each raise the width
-    rule's refusal, and no backward kernel launches. Returns each call's
-    message."""
-    out = {}
-    bwd = ("flash_bwd_dq", "flash_bwd_dkv")
-    before = {n: fa.LAUNCHES[n] for n in bwd}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, g = (torch.zeros((1, 2, 64, d), dtype=dtype, device=device)
-                      for _ in range(4))
-        lse = torch.zeros((1, 2, 64), device=device)
-        calls = {n: functools.partial(getattr(fa, n), q, k, v, lse, lse, g)
-                 for n in bwd}
-
-        def through_autograd(q=q, k=k, v=v):
-            qr = q.clone().requires_grad_()
-            fa.flash_attention(qr, k, v, causal=True).float().sum().backward()
-
-        calls["flash_attention backward"] = through_autograd
-        for name, call in calls.items():
-            key = f"{name} {str(dtype)[6:]} D{d}"
-            try:
-                call()
-                out[key] = None
-            except ValueError as err:
-                out[key] = str(err)
-            require(out[key] is not None and "not built yet" in out[key],
-                    f"{key} was not refused: {out[key]}")
-    launched = {n: fa.LAUNCHES[n] - before[n] for n in bwd}
-    log(f"the backward at D {d} refused before any launch: {out}; "
-        f"launches {launched}")
-    require(not any(launched.values()),
-            f"the backward at D {d} launched {launched}")
     return out
 
 
@@ -3645,7 +3659,22 @@ def wide_lm_model(cfg: dict, impl: str, dtype, device, max_len: int):
                          dtype=dtype, device=device, seed=SEED)
 
 
-def wide_lm_train(device, cfg: dict, dtype) -> dict:
+def wide_lm_twin(model, impl: str, dtype):
+    """A copy of ``model`` with its weights (a TransformerLM keeps them in
+    f32 whatever its type, as flax does) that attends by ``impl`` and
+    computes in ``dtype``: the model, its blocks and its layer norms read
+    ``attn_impl`` and ``dtype`` as attributes at every call. Drawing the
+    seeded weights again takes ~12 s at 0.82 B parameters."""
+    twin = copy.deepcopy(model)
+    for mod in twin.modules():
+        if "attn_impl" in vars(mod):
+            mod.attn_impl = impl
+        if isinstance(vars(mod).get("dtype"), torch.dtype):
+            mod.dtype = dtype
+    return twin
+
+
+def wide_lm_train(device, cfg: dict, dtype, models: dict) -> dict:
     """One step's loss and gradients with ``attn_impl="flash"`` against
     ``attn_impl="full"`` from the same seeded weights (``WIDE_LM_LIMITS``:
     f32 loss relative, bf16 |dloss| as grad_check, and the worst per-tensor
@@ -3653,18 +3682,20 @@ def wide_lm_train(device, cfg: dict, dtype) -> dict:
     then a warm and ``steps`` timed Adam steps at the path's shape, the
     counts zeroed just before and read just after: the forward and both
     backward kernels launch once a layer a step on the card (none on the
-    CPU), and the loss is finite and falls."""
+    CPU), and the loss is finite and falls. ``models`` holds the two
+    (``"flash"``, ``"full"``, ``wide_lm_model``'s at a length that covers
+    the path's T); the full one is taken out and freed once its gradients
+    are, and the flash one is left trained, its gradients freed."""
     kind = "f32" if dtype == torch.float32 else "bf16"
     shape = cfg[kind]
     b, t, steps = shape["batch"], shape["seq"], shape["steps"]
     vocab, layers = cfg["model"]["vocab_size"], cfg["model"]["num_layers"]
     check_t = t if dtype == torch.float32 else cfg["grad_t"]
-    max_len = max(t, check_t) + 1
     tokens, targets = train_tokens(b, check_t, vocab, device)
-    full = wide_lm_model(cfg, "full", dtype, device, max_len)
+    full = models.pop("full").train()
     ref_loss, ref_grads = loss_and_grads(full, tokens, targets)
     del full
-    flash = wide_lm_model(cfg, "flash", dtype, device, max_len)
+    flash = models["flash"].train()
     loss, grads = loss_and_grads(flash, tokens, targets)
     gap = abs(float(loss) - float(ref_loss))
     if dtype == torch.float32:
@@ -3679,7 +3710,8 @@ def wide_lm_train(device, cfg: dict, dtype) -> dict:
     fa.reset_launches()
     first, losses, dt = timed_steps(flash, opt, tokens, targets, steps)
     launches = dict(fa.LAUNCHES)
-    del flash, opt
+    del opt
+    flash.zero_grad(set_to_none=True)
     fwd = "flash_fwd_f32" if dtype == torch.float32 else "flash_fwd"
     per_run = {n: launches[n] for n in (fwd, "flash_bwd_dq", "flash_bwd_dkv")}
     want = layers * (steps + 1) if device.type == "cuda" else 0
@@ -3705,161 +3737,155 @@ def wide_lm_train(device, cfg: dict, dtype) -> dict:
                          for n, k in launches.items() if k}}
 
 
-def wide_lm_serve(device, cfg: dict) -> dict:
+def wide_lm_serve(device, cfg: dict, model, leg: str) -> dict:
     """Decode serving through ``DecodeEngine`` at ``cfg["engine"]``'s shape
-    (``serve``): the f32 model from an f32 cache (the f32 prefill and K4a),
-    the bf16 model (the bf16 prefill and K4a with bf16 q) and the f32 model
-    from an int8 cache (K4b and the rows' quantize), each stream to its
-    token budget, each run's kernels launched on the card (none on the
-    CPU); one stream's prefill and first decode step of the f32 model held
-    to the plain attention path (``check_model_logits``); the int8 tokens
-    that are the f32 engine's counted (reported, not gated)."""
-    vocab = cfg["model"]["vocab_size"]
-    engine = cfg["engine"]
-    capacity = engine["capacity_tokens"]
-    prompts = make_prompts(cfg["streams"], *cfg["prompt_lens"], vocab)
-    on_card = device.type == "cuda"
-    out = {"prompt_lens": [len(p) for p in prompts]}
-    f32 = wide_lm_model(cfg, "flash", torch.float32, device, capacity).eval()
-    ref = wide_lm_model(cfg, "full", torch.float32, device, capacity).eval()
-    out["logits"] = check_model_logits(f32, ref, prompts[0], capacity)
-    del ref
-    out["f32"] = serve(f32, prompts, False, device, engine=engine)
-    out["int8"] = serve(f32, prompts, True, device, engine=engine)
-    del f32
-    bf16 = wide_lm_model(cfg, "flash", torch.bfloat16, device, capacity).eval()
-    out["bf16"] = serve(bf16, prompts, False, device, engine=engine)
-    del bf16
-    for leg, kernels in (("f32", ("flash_fwd_f32", "flash_decode")),
-                         ("bf16", ("flash_fwd", "flash_decode")),
-                         ("int8", ("flash_fwd_f32", "flash_decode_int8",
-                                   "quantize_int8"))):
-        launched = {n: out[leg]["launches"][n] for n in kernels}
-        require(all((n > 0) == on_card for n in launched.values()),
-                f"wide LM serving, {leg}: launches {launched}")
-    out["int8_tokens_as_f32"] = sum(
-        a == b for got, ref in zip(out["int8"]["tokens_by_stream"],
-                                   out["f32"]["tokens_by_stream"])
-        for a, b in zip(got, ref))
-    log(f"wide LM serving: {out['int8_tokens_as_f32']} of "
-        f"{out['int8']['tokens']} int8-cache tokens as the f32 cache's")
+    (``serve``) of ``model``, one leg: ``"f32"`` (an f32 model from an f32
+    cache: the f32 prefill and K4a), ``"int8"`` (the f32 model from an
+    int8 cache: K4b and the rows' quantize) or ``"bf16"`` (a bf16 model:
+    the bf16 prefill and K4a with bf16 q), each stream to its token
+    budget, the leg's kernels launched on the card (none on the CPU)."""
+    prompts = make_prompts(cfg["streams"], *cfg["prompt_lens"],
+                           cfg["model"]["vocab_size"])
+    out = serve(model.eval(), prompts, leg == "int8", device,
+                engine=cfg["engine"])
+    kernels = {"f32": ("flash_fwd_f32", "flash_decode"),
+               "bf16": ("flash_fwd", "flash_decode"),
+               "int8": ("flash_fwd_f32", "flash_decode_int8",
+                        "quantize_int8")}[leg]
+    launched = {n: out["launches"][n] for n in kernels}
+    require(all((n > 0) == (device.type == "cuda")
+                for n in launched.values()),
+            f"wide LM serving, {leg}: launches {launched}")
     return out
 
 
-def phase_wide_lm(device, cfg: dict = WIDE_LM) -> dict:
+def phase_wide_lm(device, cfg: dict = WIDE_LM,
+                  kernels: tuple = WIDE_LM_KERNELS,
+                  limit_s: float = WIDE_LM_LIMIT_S,
+                  name: str = "phase_wide_lm") -> dict:
     """bench.py's LM at its 2048 width, 8 heads of 256 (``WIDE_LM``), on
-    its three paths: bf16 and f32 training (``wide_lm_train``) and serving
-    from f32, bf16 and int8 caches (``wide_lm_serve``). ``launches`` sums
-    the head-dim-256 launches of every run; on the card each kernel of
-    ``WIDE_LM_KERNELS`` must have launched. The whole phase takes at most
-    ``WIDE_LM_LIMIT_S``."""
+    its three paths, every model from one draw of the seeded weights
+    (``wide_lm_model`` at a length that covers every path's T and the
+    engine's capacity; the other models its ``wide_lm_twin``s). bf16:
+    training (``wide_lm_train``), then the trained model served
+    (``wide_lm_serve``); f32: training, then the trained model's prefill
+    and first decode step of one stream held to ``attn_impl="full"`` on
+    its own weights (``check_model_logits``), then its serving from an f32
+    and an int8 cache (the int8 tokens that are the f32 cache's counted,
+    not gated). ``launches`` sums the launches of every run; on the card
+    each kernel of ``kernels`` must have launched. The whole phase takes
+    at most ``limit_s``."""
     t0 = time.perf_counter()
-    rec = {"config": cfg["model"],
-           "train": {str(dtype)[6:]: wide_lm_train(device, cfg, dtype)
-                     for dtype in (torch.bfloat16, torch.float32)},
-           "serve": wide_lm_serve(device, cfg)}
+    capacity = cfg["engine"]["capacity_tokens"]
+    prompts = make_prompts(cfg["streams"], *cfg["prompt_lens"],
+                           cfg["model"]["vocab_size"])
+    rec = {"config": cfg["model"], "train": {},
+           "serve": {"prompt_lens": [len(p) for p in prompts]}}
+    max_len = max(cfg["bf16"]["seq"], cfg["f32"]["seq"], cfg["grad_t"],
+                  capacity) + 1
+    base = wide_lm_model(cfg, "flash", torch.float32, device, max_len)
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = "f32" if dtype == torch.float32 else "bf16"
+        if kind == "f32":  # the last leg takes the drawn model itself
+            flash, base = base, None
+        else:
+            flash = wide_lm_twin(base, "flash", dtype)
+        models = {"full": wide_lm_twin(flash, "full", dtype), "flash": flash}
+        del flash
+        rec["train"][str(dtype)[6:]] = wide_lm_train(device, cfg, dtype,
+                                                     models)
+        if kind == "f32":  # the trained weights that are served
+            rec["serve"]["logits"] = check_model_logits(
+                models["flash"].eval(),
+                wide_lm_twin(models["flash"], "full", dtype).eval(),
+                prompts[0], capacity)
+        for leg in ("f32", "int8") if kind == "f32" else ("bf16",):
+            rec["serve"][leg] = wide_lm_serve(device, cfg, models["flash"], leg)
+        del models
+    served = rec["serve"]
+    served["int8_tokens_as_f32"] = sum(
+        a == b for got, ref in zip(served["int8"]["tokens_by_stream"],
+                                   served["f32"]["tokens_by_stream"])
+        for a, b in zip(got, ref))
+    log(f"wide LM serving: {served['int8_tokens_as_f32']} of "
+        f"{served['int8']['tokens']} int8-cache tokens as the f32 cache's")
     launches: dict = {}
     for counts in [run["launches"] for run in rec["train"].values()] + [
-            rec["serve"][leg]["launches"] for leg in ("f32", "bf16", "int8")]:
+            served[leg]["launches"] for leg in ("f32", "bf16", "int8")]:
         _add_launches(launches, {n: k for n, k in counts.items() if k})
     rec["launches"] = launches
     rec["seconds"] = time.perf_counter() - t0
     head_dim = cfg["model"]["d_model"] // cfg["model"]["num_heads"]
     log(f"wide LM (D{head_dim}): {rec['seconds']:.1f} s; launches {launches}")
     if device.type == "cuda":
-        missing = [n for n in WIDE_LM_KERNELS if not launches.get(n)]
-        require(not missing, f"wide LM: no launch of {missing}")
+        missing = [n for n in kernels if not launches.get(n)]
+        require(not missing, f"{name}: no launch of {missing}")
     else:
-        require(not launches, f"wide LM on the CPU launched {launches}")
-    require(rec["seconds"] <= WIDE_LM_LIMIT_S,
-            f"phase_wide_lm took {rec['seconds']:.1f} s")
+        require(not launches, f"{name} on the CPU launched {launches}")
+    require(rec["seconds"] <= limit_s, f"{name} took {rec['seconds']:.1f} s")
     return rec
 
 
 # phase_lm_4096: bench.py's LM at BENCH_LM_D=4096 (bench.py fixes 8 heads:
-# head dim 512, past 256, which the serving kernels take in 256-column
-# chunks; the backward is not built there, so the phase serves only), its
-# other widths the 2048 LM's: about 0.82 B parameters, seeded random
-# weights. Served at ENGINE's shape from an f32 cache (the f32 model), as a
-# bf16 model and from an int8 cache, 4 streams of PROMPT_LENS, as
-# phase_wide_lm serves
-LM_4096 = dict(model=dict(MODEL, d_model=4096), streams=4,
-               prompt_lens=PROMPT_LENS, engine=ENGINE)
+# head dim 512, past 256, which every attention family takes in 256-column
+# chunks), its other widths the 2048 LM's: about 0.82 B parameters, seeded
+# random weights. Trained and served as phase_wide_lm does the 2048 LM:
+# bf16 at bench.py's shape (batch 2, T 8192; 1 warm + 3 timed steps) and
+# f32 at batch 1, T 2048 (1 + 2), each against attn_impl="full" at
+# WIDE_LM_LIMITS; served at ENGINE's shape from an f32 cache (the f32
+# model), as a bf16 model and from an int8 cache, 4 streams of PROMPT_LENS
+LM_4096 = dict(model=dict(MODEL, d_model=4096),
+               bf16=dict(batch=2, seq=8192, steps=3),
+               f32=dict(batch=1, seq=2048, steps=2), grad_t=GRAD_CHECK_T,
+               streams=4, prompt_lens=PROMPT_LENS, engine=ENGINE)
 LM_4096_LIMIT_S = 240.0  # the whole phase
-# the kernels the phase must launch at head dim 512
-LM_4096_KERNELS = ("flash_fwd", "flash_fwd_f32", "flash_decode",
-                   "flash_decode_int8", "quantize_int8")
+# the kernels the phase must launch at head dim 512 (the f32 backward pair
+# by the kernels line's names)
+LM_4096_KERNELS = ("flash_fwd", "flash_fwd_f32", "flash_bwd_dq",
+                   "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32",
+                   "flash_decode", "flash_decode_int8", "quantize_int8")
 
 
 def phase_lm_4096(device, cfg: dict = LM_4096) -> dict:
-    """bench.py's LM at its 4096 width, 8 heads of 512 (``LM_4096``),
-    served from f32, bf16 and int8 caches (``wide_lm_serve``: one stream's
-    prefill and first decode step held to ``attn_impl="full"``, each leg's
-    kernels launched on the card, none on the CPU). ``launches`` sums the
-    legs' launches; on the card each kernel of ``LM_4096_KERNELS`` must
-    have launched. The whole phase takes at most ``LM_4096_LIMIT_S``."""
-    t0 = time.perf_counter()
-    rec = {"config": cfg["model"], "serve": wide_lm_serve(device, cfg)}
-    launches: dict = {}
-    for leg in ("f32", "bf16", "int8"):
-        _add_launches(launches, {n: k for n, k in
-                                 rec["serve"][leg]["launches"].items() if k})
-    rec["launches"] = launches
-    rec["seconds"] = time.perf_counter() - t0
-    head_dim = cfg["model"]["d_model"] // cfg["model"]["num_heads"]
-    log(f"LM at d_model {cfg['model']['d_model']} (D{head_dim}): "
-        f"{rec['seconds']:.1f} s; launches {launches}")
-    if device.type == "cuda":
-        missing = [n for n in LM_4096_KERNELS if not launches.get(n)]
-        require(not missing, f"LM 4096: no launch of {missing}")
-    else:
-        require(not launches, f"LM 4096 on the CPU launched {launches}")
-    require(rec["seconds"] <= LM_4096_LIMIT_S,
-            f"phase_lm_4096 took {rec['seconds']:.1f} s")
-    return rec
+    """bench.py's LM at its 4096 width, 8 heads of 512 (``LM_4096``), on
+    ``phase_wide_lm``'s paths: bf16 and f32 training (each step's loss and
+    gradients held to ``attn_impl="full"``, each attention kernel launched
+    once a layer a step, the loss falling) and serving from f32, bf16 and
+    int8 caches. On the card each kernel of ``LM_4096_KERNELS`` must have
+    launched; the whole phase takes at most ``LM_4096_LIMIT_S``."""
+    return phase_wide_lm(device, cfg, LM_4096_KERNELS, LM_4096_LIMIT_S,
+                         "phase_lm_4096")
 
 
 def lm_4096_summary(rec: dict, nvidia_smi: str) -> dict:
-    """The ``{"lm_4096": {...}}`` line: the model, each serving run's tok/s,
-    TTFT and TPOT p50, the first stream's logit gaps, the int8 tokens that
-    are the f32 cache's, the launches and the seconds, beside the card's
-    name and power limit."""
-    serving = rec["serve"]
-    return {"lm_4096": {
-        "config": rec["config"],
-        "serve": {leg: {k: serving[leg][k] for k in (
-            "decode_tok_s", "ttft_ms_p50", "tpot_ms_p50", "prefill_ms_p50")}
-            for leg in ("f32", "bf16", "int8")},
-        "logits": serving["logits"],
-        "int8_tokens_as_f32": serving["int8_tokens_as_f32"],
-        "launches": rec["launches"], "seconds": rec["seconds"]},
-        "nvidia_smi": nvidia_smi}
+    """The ``{"lm_4096": {...}}`` line: ``wide_lm_summary``'s rows."""
+    return wide_lm_summary(rec, nvidia_smi, "lm_4096")
 
 
 def heads_past_256_summary(checks: dict, times: dict, nvidia_smi: str) -> dict:
-    """The ``{"heads_past_256": {...}}`` line: each serving family at the
+    """The ``{"heads_past_256": {...}}`` line: each attention family (the
+    forward, the f32 and bf16 backward's dq and dk/dv, the decodes) at the
     head dims of ``PAST_256_HEAD_DIMS``, its worst error against its plain
     version over ``check_heads_past_256`` (and, bf16, its worst error over
     its limit), and at D 512 its times (``heads_past_256_times``: events
     and device time, the plain version, SDPA with the backend that took
-    the shape, the bound, the operations' factor over one pass); the
-    backward's refusals; beside the card's name and power limit."""
+    the shape (the backward's: its backward), the bound, the operations'
+    factor over one pass); beside the card's name and power limit."""
     out = head_dim_rows(checks, times)
     for name, row in out.items():
         timed = times.get(name, {})
         row.update({k: timed.get(k) for k in ("library", "recompute")})
-    out["backward_refused"] = sorted(checks["backward_refused"])
     return {"heads_past_256": out, "nvidia_smi": nvidia_smi}
 
 
-def wide_lm_summary(rec: dict, nvidia_smi: str) -> dict:
-    """The ``{"wide_lm": {...}}`` line: the model, each training path's
-    gaps to ``attn_impl="full"``, step ms and tokens/s, each serving run's
-    tok/s, TTFT and TPOT p50, the first stream's logit gaps, the int8
-    tokens that are the f32 cache's, the launches and the seconds, beside
-    the card's name and power limit."""
+def wide_lm_summary(rec: dict, nvidia_smi: str, key: str = "wide_lm") -> dict:
+    """The ``{key: {...}}`` line: the model, each training path's gaps to
+    ``attn_impl="full"``, step ms and tokens/s, each serving run's tok/s,
+    TTFT and TPOT p50, the first stream's logit gaps, the int8 tokens that
+    are the f32 cache's, the launches and the seconds, beside the card's
+    name and power limit."""
     serving = rec["serve"]
-    return {"wide_lm": {
+    return {key: {
         "config": rec["config"],
         "train": {kind: {k: row[k] for k in (
             "shape", "loss_gap", "worst_grad_rel", "first_loss", "step_ms",
@@ -8539,19 +8565,27 @@ def time_row(shape, fn, plain, library, library_device, n_bytes, ops,
 
 
 def attention_pair_rows(rows: dict, shape: str, args, kind: str, size: int,
-                        suffix: str, pairs: int) -> None:
+                        suffix: str, pairs: int, pick: bool = False) -> None:
     """Rows ``flash_bwd_dq<suffix>`` and ``flash_bwd_dkv<suffix>`` of the
     backward pair on ``args`` (q, k, v, lse, dsum, g, 0, 0, causal) into
     ``rows``, beside SDPA's backward in the same type (forward+backward
     less forward, by events and by device time, the same figure on both
-    rows); bounds at 6 and 8 * D operations a live pair."""
+    rows; ``library`` names its backend: PyTorch's own choice, "pair", or
+    with ``pick`` the first that takes the backward, ``sdpa_with_backend``);
+    bounds at 6 and 8 * D operations a live pair."""
     q, k, v, _, _, g = args[:6]
     heads, t, d = q.shape[1:]
     elems = q.numel()
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    if pick:
+        backend, sdpa_fwd = sdpa_with_backend(qr, kr, vr, grad=g,
+                                              is_causal=True)
+        require(sdpa_fwd is not None, "no SDPA backend takes the backward")
+    else:
+        backend = "pair"
 
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), g)
@@ -8571,7 +8605,7 @@ def attention_pair_rows(rows: dict, shape: str, args, kind: str, size: int,
             (4 + n_out) * elems * size + 2 * q.shape[0] * heads * t * 4,
             ops * d * pairs, kind)
         rows[name]["library_ms"] = pair_ms
-        rows[name]["library"] = "pair"
+        rows[name]["library"] = backend
 
 
 def wide_head_times(device) -> dict:
@@ -8646,11 +8680,12 @@ def wide_head_times(device) -> dict:
     return out
 
 
-def sdpa_with_backend(q, k, v, **kwargs):
+def sdpa_with_backend(q, k, v, grad=None, **kwargs):
     """SDPA on these inputs under the first of PyTorch's backends (flash,
-    memory-efficient, cuDNN, math) that takes them: (backend name, a
-    function that calls it), or ("none", None). The flash backend refuses
-    head dims past 256."""
+    memory-efficient, cuDNN, math) that takes them, with ``grad`` (the
+    cotangent; q, k and v require grad) its backward too: (backend name, a
+    function that calls the forward), or ("none", None). The flash backend
+    refuses head dims past 256."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
@@ -8660,7 +8695,9 @@ def sdpa_with_backend(q, k, v, **kwargs):
                 return F.scaled_dot_product_attention(q, k, v, **kwargs)
 
         try:
-            call()
+            out = call()
+            if grad is not None:
+                torch.autograd.grad(out, (q, k, v), grad)
             torch.cuda.synchronize()
         except RuntimeError:
             continue
@@ -8669,18 +8706,25 @@ def sdpa_with_backend(q, k, v, **kwargs):
 
 
 def heads_past_256_times(device, d: int = 512) -> dict:
-    """The serving families at head dim ``d`` (512: bench.py's LM at
+    """Every attention family at head dim ``d`` (512: bench.py's LM at
     d_model 4096), each row named ``<kernel> D<d>`` (``time_row``): the
     forward in bf16 (``flash_fwd``) and f32 (``flash_fwd_f32``) on the
     prefill [1, 8, 2048, D] causal through ``flash_attention``, beside SDPA
-    under the backend that takes the shape (``library`` names it); K4a (f32
-    q and cache) and K4b (f32 q) on q [4, 8, 1, D] against a cache [4, 8,
-    2048, D] at DECODE_LENS, K4a beside SDPA with a length mask. Bounds: 4
-    * D operations a live pair at the type's peak; the decodes by the
-    cache bytes their lengths need. ``recompute``: the chunked bodies'
-    operations over one pass, (D / 256 + 1) / 2 for the forward (every
-    column chunk's block computes all of S) and for K4b (each column
-    chunk's block its scores), about 1 for K4a (its scores once; each
+    under the backend that takes the shape (``library`` names it); the
+    backward pair in bf16 and f32 at the 4096-wide LM's training shapes
+    (``LM_4096``: [2, 8, 8192, D] and [1, 8, 2048, D], causal), beside
+    SDPA's backward under the first backend that takes it
+    (``attention_pair_rows``); K4a (f32 q and cache) and K4b (f32 q) on q
+    [4, 8, 1, D] against a cache [4, 8, 2048, D] at DECODE_LENS, K4a
+    beside SDPA with a length mask. Bounds: 4, 6 and 8 * D operations a
+    live pair at the type's peak; the decodes by the cache bytes their
+    lengths need. ``recompute``: the chunked bodies' operations over one
+    pass, n = D / 256: (n + 1) / 2 for the forward (every column chunk's
+    block computes all of S) and for K4b (each column chunk's block its
+    scores), (4 n + 2) / 6 for dq (S and dP over all of D in every
+    chunk's block, dS K over its own columns), (n + 1) / 2 for dk/dv (S^T
+    and dP^T likewise, against dK's and dV's own columns; the bf16 body's
+    second S^T not counted), about 1 for K4a (its scores once; each
     column chunk's block repeats p only); not counted in the bound."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     heads, t = WIDE_HEADS, SMALL_HEADS_T
@@ -8702,6 +8746,22 @@ def heads_past_256_times(device, d: int = 512) -> dict:
             sdpa, None if sdpa is None else device_ms(sdpa, calls=20),
             4 * q.numel() * size + 2 * heads * t * 4, 4 * d * pairs, kind)
         out[key] |= {"library": backend, "recompute": factor}
+    n_dc = d / fa.HEAD_CHUNK
+    for dtype, shape4 in (
+            (torch.bfloat16, (LM_4096["bf16"]["batch"], heads,
+                              LM_4096["bf16"]["seq"], d)),
+            (torch.float32, (LM_4096["f32"]["batch"], heads,
+                             LM_4096["f32"]["seq"], d))):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        suffix = ("_f32" if kind == "f32" else "") + f" D{d}"
+        b, _, tt, _ = shape4
+        attention_pair_rows(
+            out, f"q/k/v [{','.join(map(str, shape4))}] {kind} causal",
+            (*bwd_inputs(gen, shape4, dtype, device), 0, 0, True), kind,
+            2 if kind == "bf16" else 4, suffix, b * heads * tt * (tt + 1) // 2,
+            pick=True)
+        out[f"flash_bwd_dq{suffix}"]["recompute"] = (4 * n_dc + 2) / 6
+        out[f"flash_bwd_dkv{suffix}"]["recompute"] = (n_dc + 1) / 2
     b = len(DECODE_LENS)
     kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
     mask = (torch.arange(t, device=device)[None, :]
@@ -9416,7 +9476,7 @@ def bf16_checks(device) -> None:
     bitwise contracts (``check_decode_bits``, also at an odd capacity); the
     int8 product, bitwise, at the training step's first product and
     decode's two; every family at head dims 256 and 192
-    (``check_wide_heads``); the serving families past 256
+    (``check_wide_heads``); every family past 256, the backward's too
     (``check_heads_past_256``); and K1's and K5's own checks
     (``check_interaction``, ``check_stochastic``), the path's shapes and
     their layouts' edges."""
@@ -9555,8 +9615,8 @@ PLANTED_FAULTS = {
     # late, past its first live one
     "f32_dkv_first_tile_late": (
         BWD_SOURCE,
-        "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);",
-        "first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile + 1);"),
+        "return q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);",
+        "return q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile + 1);"),
     # head dim 256. The bf16 forward's S reads K's 64-column sub-tiles a
     # Q sub-tile apart (the 128-row stride, not the 64-key tile's)
     "d256_fwd_k_subtile": (
@@ -9599,6 +9659,40 @@ PLANTED_FAULTS = {
         DECODE_SOURCE,
         "qs, krow, dc == 0 ? 0.f : *s_at);",
         "qs, krow, 0.f) + (dc == 0 ? 0.f : *s_at);"),
+    # the f32 dq's chunked body leaves the last 256-column chunk of q, k,
+    # do and v out of every s and dp
+    "past256_f32_dq_drop_last_chunk": (
+        BWD_SOURCE,
+        "dots_8x4<D, R, false>((group ? dos : qs) + hi * P,",
+        "if (dc + 1 < n_dc) dots_8x4<D, R, false>((group ? dos : qs) + hi * P,"),
+    # the f32 dk/dv's chunked body restarts each chunk's s^T and dp^T
+    # chains at 0: only the last chunk's columns count
+    "past256_f32_dkv_chain_restart": (
+        BWD_SOURCE,
+        "dots_8x4<D, R, false>((group ? vs : ks) + hi * P,",
+        "dots_8x4<D, R, true>((group ? vs : ks) + hi * P,"),
+    # the bf16 chunked backward keeps only the last 256-column chunk's
+    # share of S and dP (the chunks' f32 sum restarted at each)
+    "past256_bf16_bwd_chain_restart": (
+        SM90_BWD_SOURCE,
+        "total[i] = __fadd_rn(total[i], part[i]);",
+        "total[i] = part[i];"),
+    # the bf16 dk/dv's last column chunk writes dV 256 columns early, over
+    # the chunk before it
+    "past256_bf16_dkv_dv_chunk_offset": (
+        SM90_BWD_SOURCE,
+        "__nv_bfloat16* out = wg == 0 ? dv : dk;",
+        "__nv_bfloat16* out = wg == 0 ? dv - (col0 + kHeadChunk == d ? "
+        "kHeadChunk : 0) : dk;"),
+    # the dq wrapper past 256 takes its plain version on a CUDA tensor, as a
+    # quiet fallback would
+    "past256_dq_plain_fallback": (
+        "raydp_tpu_torch/ops/flash_attention.py",
+        "    (dq,) = _bwd_launch(\"rtt_flash_bwd_dq\", \"flash_bwd_dq\", q, k, v, lse,",
+        "    if q.shape[-1] > 256:\n"
+        "        return flash_bwd_dq_plain(q, k, v, lse, dsum, g, int(q_offset),\n"
+        "                                  int(k_offset), causal)\n"
+        "    (dq,) = _bwd_launch(\"rtt_flash_bwd_dq\", \"flash_bwd_dq\", q, k, v, lse,"),
     # K4b's combine drops the last chunk where the cache runs past key 1024
     "decode_int8_drop_last_chunk": (
         DECODE_INT8_SOURCE,
@@ -9624,16 +9718,32 @@ PLANTED_FAULTS = {
 }
 
 
+PLANTED_BUILD_GIB = 4  # the host memory one copy's build may take
+
+
+def planted_check_mode(source: str) -> str:
+    """The checks a planted fault in ``source`` must fail: the kernel
+    layer's (a CUDA source or a kernel wrapper under ``ops/``) under
+    ``--bf16-checks``, a fit's Python modules under ``--fit-checks``."""
+    kernel_layer = "/csrc/" in source or "/ops/" in source
+    return "--bf16-checks" if kernel_layer else "--fit-checks"
+
+
 def planted_faults(names=None) -> int:
     """Each fault of PLANTED_FAULTS (or those of ``names``) in its own copy
-    of the port under build/planted/<fault>/, built there and held to
-    ``--bf16-checks`` (a fault in a CUDA source) or ``--fit-checks`` (in a
-    Python module): 0 if every copy fails them with a disagreement, else
-    1."""
+    of the port under build/planted/<fault>/, held to ``planted_check_mode``
+    's checks: 0 if every copy fails them with a disagreement, else 1. The
+    port's library is built first; each copy starts from its objects
+    (``_build`` names them by their sources), so it compiles only the
+    source its fault changed, and the copies compile in parallel, one nvcc
+    each, before their checks run one copy at a time. A copy that does not
+    build is reported as such (its build's output logged), not run, and
+    fails the run as a fault not caught would."""
     root = Path(__file__).resolve().parent
     unknown = sorted(set(names or ()) - set(PLANTED_FAULTS))
     require(not unknown, f"no planted fault named {unknown}")
-    caught = {}
+    _build.build()
+    copies = {}
     for name, (source, site, fault) in PLANTED_FAULTS.items():
         if names and name not in names:
             continue
@@ -9641,15 +9751,50 @@ def planted_faults(names=None) -> int:
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(root / "raydp_tpu_torch", copy / "raydp_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copytree(_build.BUILD_DIR, copy / "build" / "raydp_tpu_torch",
+                        ignore=shutil.ignore_patterns("*.lock", "*.tmp*"))
         shutil.copy2(root / "chip_smoke.py", copy / "chip_smoke.py")
         src = copy / source
         text = src.read_text()
         require(text.count(site) == 1, f"{name}: its site is not in {source}")
         src.write_text(text.replace(site, fault))
-        mode = "--fit-checks" if source.endswith(".py") else "--bf16-checks"
+        copies[name] = (source, copy)
+    t0 = time.perf_counter()
+    # one build a core, and at most one for each PLANTED_BUILD_GIB of the
+    # host's free memory
+    free_gib = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 2**30
+    slots = max(1, min(len(os.sched_getaffinity(0)),
+                       int(free_gib // PLANTED_BUILD_GIB)))
+    builds, pending = {}, list(copies)
+    while pending or any(p.poll() is None for p, _ in builds.values()):
+        running = sum(p.poll() is None for p, _ in builds.values())
+        while pending and running < slots:
+            name = pending.pop(0)
+            out = open(copies[name][1] / "build.log", "w")
+            builds[name] = (subprocess.Popen(
+                [sys.executable, "-c",
+                 "from raydp_tpu_torch.ops import _build; _build.build()"],
+                cwd=copies[name][1], stdout=out, stderr=subprocess.STDOUT), out)
+            running += 1
+        time.sleep(0.5)
+    for _, out in builds.values():
+        out.close()
+    failed = sorted(n for n, (p, _) in builds.items() if p.returncode != 0)
+    log(f"planted copies built: {len(builds)} in "
+        f"{time.perf_counter() - t0:.1f} s, {slots} at a time; failed "
+        f"{failed}")
+    caught = {}
+    for name in failed:
+        source, copy = copies.pop(name)
+        caught[name] = {"source": source, "rc": builds[name][0].returncode,
+                        "caught": False, "build_failed": True,
+                        "last_check": None}
+        log(f"planted fault {name} ({source}): its copy did not build\n"
+            + (copy / "build.log").read_text()[-4000:])
+    for name, (source, copy) in copies.items():
         run = subprocess.run(
-            [sys.executable, "chip_smoke.py", mode], cwd=copy,
-            capture_output=True, text=True, timeout=600)
+            [sys.executable, "chip_smoke.py", planted_check_mode(source)],
+            cwd=copy, capture_output=True, text=True, timeout=600)
         found = run.returncode != 0 and "disagrees" in run.stderr
         lines = run.stdout.strip().splitlines()
         caught[name] = {"source": source, "rc": run.returncode,
@@ -10180,35 +10325,49 @@ def main(argv: list) -> int:
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
-    record = {"device": phase_device()}
-    record["checks"] = phase_kernels(device)
-    record["serve"] = phase_serve(device)
-    record["cluster"] = phase_cluster(device, record["serve"]["runs"][0])
-    record["train"] = phase_train(device)
-    record["train_f32"] = phase_train_f32(device)
-    record["small_lm"] = phase_small_lm(device)
-    record["wide_lm"] = phase_wide_lm(device)
-    record["lm_4096"] = phase_lm_4096(device)
-    record["seqpar"] = phase_seqpar(device)
-    record["pipeline"] = phase_pipeline(device)
-    record["moe"] = phase_moe(device)
-    record["train_int8"] = phase_train_int8(device, record["train"]["first_loss"])
-    record["stochastic"] = phase_stochastic(device)
-    record["dlrm"] = phase_dlrm(device)
+    wall = {}  # each phase's seconds on the host's clock
+
+    def timed(key, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        wall[key] = time.perf_counter() - t0
+        return out
+
+    record = {"device": timed("device", phase_device)}
+    record["checks"] = timed("checks", phase_kernels, device)
+    record["serve"] = timed("serve", phase_serve, device)
+    record["cluster"] = timed("cluster", phase_cluster, device,
+                              record["serve"]["runs"][0])
+    record["train"] = timed("train", phase_train, device)
+    record["train_f32"] = timed("train_f32", phase_train_f32, device)
+    record["small_lm"] = timed("small_lm", phase_small_lm, device)
+    record["wide_lm"] = timed("wide_lm", phase_wide_lm, device)
+    record["lm_4096"] = timed("lm_4096", phase_lm_4096, device)
+    record["seqpar"] = timed("seqpar", phase_seqpar, device)
+    record["pipeline"] = timed("pipeline", phase_pipeline, device)
+    record["moe"] = timed("moe", phase_moe, device)
+    record["train_int8"] = timed("train_int8", phase_train_int8, device,
+                                 record["train"]["first_loss"])
+    record["stochastic"] = timed("stochastic", phase_stochastic, device)
+    record["dlrm"] = timed("dlrm", phase_dlrm, device)
     dlrm_state = record["dlrm"].pop("final_state")  # tensors, kept out of the record
-    record["store"] = phase_store(device, dict(record["dlrm"], final_state=dlrm_state))
-    record["sharded"] = phase_sharded_dlrm(
-        device, dict(record["dlrm"], final_state=dlrm_state))
-    record["etl"] = phase_etl(device, record["dlrm"])
-    record["estimators"] = phase_estimators(device, record["dlrm"])
-    record["examples"] = phase_examples(device)
-    record["deploy"] = phase_deploy(device, dlrm_state)
+    record["store"] = timed("store", phase_store, device,
+                            dict(record["dlrm"], final_state=dlrm_state))
+    record["sharded"] = timed("sharded", phase_sharded_dlrm, device,
+                              dict(record["dlrm"], final_state=dlrm_state))
+    record["etl"] = timed("etl", phase_etl, device, record["dlrm"])
+    record["estimators"] = timed("estimators", phase_estimators, device,
+                                 record["dlrm"])
+    record["examples"] = timed("examples", phase_examples, device)
+    record["deploy"] = timed("deploy", phase_deploy, device, dlrm_state)
     del dlrm_state
-    record["fit"] = phase_fit(device, record["dlrm"])
-    record["obs"] = phase_obs(device, record["dlrm"])
-    record["times"] = phase_times(device)
-    record["chaos"] = phase_chaos(device)
+    record["fit"] = timed("fit", phase_fit, device, record["dlrm"])
+    record["obs"] = timed("obs", phase_obs, device, record["dlrm"])
+    record["times"] = timed("times", phase_times, device)
+    record["chaos"] = timed("chaos", phase_chaos, device)
     record["leftovers"] = phase_leftovers()
+    record["phase_wall_s"] = wall
+    log(json.dumps({"phase_wall_s": {k: round(v, 1) for k, v in wall.items()}}))
     kernels = kernels_line(record["checks"], record["serve"], record["train"],
                            record["times"], record["dlrm"],
                            record["train_int8"], record["stochastic"],

@@ -79,6 +79,22 @@
 // (dk/dv, D 32) let several share an SM. Any other D up to 256 arrives
 // zero-padded by the wrapper to the next of these widths.
 //
+// Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512) arrive
+// zero-padded by the wrapper to a multiple of kHeadChunk (256) and run
+// flash_bwd_dq_chunked_kernel / flash_bwd_dkv_chunked_kernel: D 256's layout
+// (BwdLayout<256>, 204 / 212 KB) and phases, plus a grid axis over the
+// gradient's 256-column chunks (dq's columns, or dk's and dv's). For each
+// walked tile a block stages, one 256-column chunk at a time, that chunk of
+// its own rows and of the tile (Q, dO, K, V; cp.async, waited before the
+// chunk's products) and each thread carries its s or dp chains on through
+// every chunk in registers, one __fmaf_rn chain over d ascending as at D
+// 256; then p and ds as at D 256, and the products against the block's own
+// chunk of the operand (dq: K; dk/dv: Q and dO), staged again unless the
+// last chunk was the block's own. The chunks' copies are loops (the
+// forward's, unrolled with a run-time pitch, spilled). Every chunk's block
+// recomputes s and dp over all of D: with n = D / 256 chunks, (4 n + 2) / 6
+// times dq's operations of one pass and (n + 1) / 2 times dk/dv's.
+//
 // What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
 // prefill_f32_turns.py). At [1,8,2048,128] f32 causal dq takes ~0.39 ms and
 // dk/dv ~0.49 (the first version 1.57 and 1.86), about 2x their bounds, the
@@ -147,6 +163,7 @@ struct BwdArgs {
   float* dv;
   int n_bh, t, tk, q_off, k_off, causal;
   float scale;
+  int d_total;  // the chunked bodies' padded head dim (rows' pitch)
 };
 
 __device__ __forceinline__ void commit_copies() {
@@ -178,18 +195,43 @@ __device__ __forceinline__ void copy_rows(const float* src, int valid,
   }
 }
 
+// The chunked bodies' copy: N rows of one kHeadChunk-column chunk from rows
+// `src_pitch` floats apart, as copy_rows stages them. It stays a loop: the
+// forward's chunk copies, unrolled with a pitch known only at run time,
+// held their row offsets in registers and spilled.
+template <int N>
+__device__ __forceinline__ void copy_chunk_rows(const float* src,
+                                                int src_pitch, int valid,
+                                                float* dst) {
+  constexpr int kPieces = kHeadChunk / 4;
+  constexpr int kCopies = N * kPieces;
+  static_assert(kCopies % kThreads == 0, "a whole number of rounds");
+#pragma unroll 1
+  for (int u = 0; u < kCopies / kThreads; ++u) {
+    const int i = threadIdx.x + u * kThreads;
+    const int r = i / kPieces;
+    const int c = (i % kPieces) * 4;
+    const bool ok = r < valid;
+    cp_async16(dst + r * BwdLayout<kHeadChunk>::kPitch + c,
+               src + static_cast<size_t>(ok ? r : 0) * src_pitch + c, ok);
+  }
+}
+
 // acc[r][i] = a[8r] . b[16i], rows of D floats at the padded pitch (a and
 // b point at the thread's first rows): R x 4 dot products a thread (R =
 // kRowsPerThread: 8, or 4 at D 256), each one __fmaf_rn chain over d
-// ascending. Per 4 d it loads R a and 4 b float4s for 16 R FMAs.
-template <int D, int R>
+// ascending. Per 4 d it loads R a and 4 b float4s for 16 R FMAs. kZero
+// false carries the chains on from acc (the chunked bodies' next chunk).
+template <int D, int R, bool kZero = true>
 __device__ __forceinline__ void dots_8x4(const float* a, const float* b,
                                          float (&acc)[R][4]) {
   constexpr int P = BwdLayout<D>::kPitch;
+  if constexpr (kZero) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
+    }
   }
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
@@ -279,6 +321,116 @@ __device__ __forceinline__ void pair_grads(float s, float dp, float lse,
   ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, dsum)), scale);
 }
 
+// Each group hands the other the half of its s (group 0) or dp (group 1)
+// tile that the other turns into p and ds, through `tile`: group 0 takes
+// the thread's columns i < 2, group 1 those of i >= 2.
+template <int R>
+__device__ __forceinline__ void hand_over(const float (&sd)[R][4], float* tile,
+                                          int group, int hi, int lo) {
+  constexpr int TP = kTile + 4;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int i = j + 2 * (1 - group);
+      tile[(hi + 8 * r) * TP + lo + 16 * i] = group ? sd[r][j] : sd[r][j + 2];
+    }
+  }
+}
+
+// dq: p and ds of the thread's half of the tile of keys [kt0, kt0 + 64)
+// against rows [row0, row0 + kRows), from its own s or dp and the other
+// group's half in the ds tile, where ds goes (all operands loaded before
+// the first store).
+template <int kRows, int R>
+__device__ __forceinline__ void dq_tile_grads(const BwdArgs& a,
+                                              const float (&sd)[R][4],
+                                              float* ds, const float* lse_s,
+                                              const float* dsum_s, int group,
+                                              int hi, int lo, int row0,
+                                              int rows, int kt0) {
+  constexpr int TP = kTile + 4;
+  const bool full = rows == kRows && kt0 + kTile <= a.tk &&
+      (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kTile - 1);
+  float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      other[r][j] = ds[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = hi + 8 * r;
+    const int q_pos = a.q_off + row0 + row;
+    const float lse = lse_s[row];
+    const float dsum = dsum_s[row];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int col = lo + 16 * (j + 2 * group);
+      const int key = kt0 + col;
+      const bool live = full || (row < rows && key < a.tk &&
+                                 (!a.causal || q_pos >= a.k_off + key));
+      const float mine = group ? sd[r][j + 2] : sd[r][j];
+      float p;
+      pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
+                 lse, dsum, live, a.scale, p, ds[row * TP + col]);
+    }
+  }
+}
+
+// dk/dv: the first q-tile of 64 with a query at or after key0 under a
+// causal mask (0 without one).
+__device__ __forceinline__ int first_live_qtile(const BwdArgs& a, int key0,
+                                                int n_qtiles) {
+  if (!a.causal) return 0;
+  const int q_start = a.k_off + key0 - a.q_off;
+  return q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);
+}
+
+// dk/dv: p^T and ds^T of the thread's half of the tile of queries [qt0,
+// qt0 + 64) against keys [key0, key0 + kRows), from its own s^T or dp^T
+// and the other group's half in the ds^T tile, into pt and dst (all
+// operands loaded before the first store).
+template <int kRows, int R>
+__device__ __forceinline__ void dkv_tile_grads(const BwdArgs& a,
+                                               const float (&sd)[R][4],
+                                               float* pt, float* dst,
+                                               const float* lse_s,
+                                               const float* dsum_s, int group,
+                                               int hi, int lo, int key0,
+                                               int keys, int qt0) {
+  constexpr int TP = kTile + 4;
+  const bool full = keys == kRows && qt0 + kTile <= a.t &&
+      (!a.causal || a.q_off + qt0 >= a.k_off + key0 + kRows - 1);
+  float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      other[r][j] = dst[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int qq = lo + 16 * (j + 2 * group);
+    const int q_pos = a.q_off + qt0 + qq;
+    const float lse = lse_s[qq];
+    const float dsum = dsum_s[qq];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int key = hi + 8 * r;
+      const bool live = full || (qt0 + qq < a.t && key < keys &&
+                                 (!a.causal || q_pos >= a.k_off + key0 + key));
+      const float mine = group ? sd[r][j + 2] : sd[r][j];
+      const int e = key * TP + qq;
+      pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
+                 lse, dsum, live, a.scale, pt[e], dst[e]);
+    }
+  }
+}
+
 // dq of rows [row0, row0 + kRows) of one bh: Q and dO staged once, then
 // every 64-key tile live for some row of the block, the next one in flight
 // (two stages) or loaded as this one frees its stage (one). Threads: group
@@ -356,52 +508,16 @@ flash_bwd_dq_kernel(const BwdArgs a) {
     float sd[R][4];  // s (group 0) or dp (group 1)
     dots_8x4<D, R>((group ? dos : qs) + hi * P, (group ? vt : kt) + lo * P,
                    sd);
-    // p and ds: group 0 takes the thread's columns i < 2, group 1 those of
-    // i >= 2; each first hands the other its half through the ds tile
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = j + 2 * (1 - group);
-        ds[(hi + 8 * r) * TP + lo + 16 * i] = group ? sd[r][j] : sd[r][j + 2];
-      }
-    }
+    // p and ds: each group first hands the other its half through the ds tile
+    hand_over(sd, ds, group, hi, lo);
     __syncthreads();  // the halves are in
     if (L::kStages == 1 && more) {  // V is free: the next tile's
       copy_rows<D, kTile>(a.v + (kbase + next) * D, a.tk - next,
                           smem + L::kDqV);
       commit_copies();
     }
-    {
-      const bool full = rows == kRows && kt0 + kTile <= a.tk &&
-          (!a.causal || a.q_off + row0 >= a.k_off + kt0 + kTile - 1);
-      float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          other[r][j] = ds[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = hi + 8 * r;
-        const int q_pos = a.q_off + row0 + row;
-        const float lse = lse_s[row];
-        const float dsum = dsum_s[row];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = lo + 16 * (j + 2 * group);
-          const int key = kt0 + col;
-          const bool live = full || (row < rows && key < a.tk &&
-                                     (!a.causal || q_pos >= a.k_off + key));
-          const float mine = group ? sd[r][j + 2] : sd[r][j];
-          float p;
-          pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
-                     lse, dsum, live, a.scale, p, ds[row * TP + col]);
-        }
-      }
-    }
+    dq_tile_grads<kRows>(a, sd, ds, lse_s, dsum_s, group, hi, lo, row0, rows,
+                         kt0);
     __syncthreads();  // ds is in
     constexpr int kHalfTile = kTile / 2;
     accumulate<D, kHalfTile, R>(ds + hi * TP + group * kHalfTile,
@@ -471,11 +587,7 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   const size_t qbase = bh * a.t;
   const size_t kbase = bh * a.tk;
   const int n_qtiles = (a.t + kTile - 1) / kTile;
-  int first = 0;  // causal: the first q-tile with a query at or after key0
-  if (a.causal) {
-    const int q_start = a.k_off + key0 - a.q_off;
-    first = q_start <= 0 ? 0 : min(n_qtiles, q_start / kTile);
-  }
+  const int first = first_live_qtile(a, key0, n_qtiles);
 
   const int group = threadIdx.x / kGroupThreads;
   const int lo = threadIdx.x % 16;
@@ -545,46 +657,12 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     float sd[R][4];  // s^T (group 0) or dp^T (group 1)
     dots_8x4<D, R>((group ? vs : ks) + hi * P, (group ? dos : qt) + lo * P,
                    sd);
-    // p and ds: group 0 takes the thread's queries i < 2, group 1 those of
-    // i >= 2; each first hands the other its half through the ds^T tile
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int i = j + 2 * (1 - group);
-        dst[(hi + 8 * r) * TP + lo + 16 * i] = group ? sd[r][j] : sd[r][j + 2];
-      }
-    }
+    // p and ds: each group first hands the other its half through the ds^T
+    // tile
+    hand_over(sd, dst, group, hi, lo);
     __syncthreads();  // the halves are in
-    {
-      const bool full = keys == kRows && qt0 + kTile <= a.t &&
-          (!a.causal || a.q_off + qt0 >= a.k_off + key0 + kRows - 1);
-      float other[R][2];  // dp (group 0) or s (group 1), loaded before any store
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          other[r][j] = dst[(hi + 8 * r) * TP + lo + 16 * (j + 2 * group)];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int qq = lo + 16 * (j + 2 * group);
-        const int q_pos = a.q_off + qt0 + qq;
-        const float lse = lse_s[qq];
-        const float dsum = dsum_s[qq];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int key = hi + 8 * r;
-          const bool live = full || (qt0 + qq < a.t && key < keys &&
-                                     (!a.causal || q_pos >= a.k_off + key0 + key));
-          const float mine = group ? sd[r][j + 2] : sd[r][j];
-          const int e = key * TP + qq;
-          pair_grads(group ? other[r][j] : mine, group ? mine : other[r][j],
-                     lse, dsum, live, a.scale, pt[e], dst[e]);
-        }
-      }
-    }
+    dkv_tile_grads<kRows>(a, sd, pt, dst, lse_s, dsum_s, group, hi, lo, key0,
+                          keys, qt0);
     __syncthreads();  // p^T and ds^T are in
     accumulate<D, kTile, R>((group ? pt : dst) + hi * TP,
                             (group ? dos : qt) + first_col<D>(lo), acc);
@@ -601,6 +679,245 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
     for (int c = 0; c < col_chunks<D>(); ++c) {
       *reinterpret_cast<float4*>(out + (kbase + key0 + key) * D + 4 * lo +
                                  64 * c) =
+          make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                      acc[r][4 * c + 3]);
+    }
+  }
+}
+
+// The chunked bodies (head dims past 256, d_total = n * kHeadChunk): D
+// 256's layout (BwdLayout<256>: 32 own rows, one stage) and phases, plus a
+// grid axis over the gradient's 256-column chunks. For each walked tile,
+// one chunk at a time, the block stages the chunk's columns of its own rows
+// and of the tile (Q, dO, K, V) and each thread carries its s or dp chains
+// on through them in registers (one __fmaf_rn chain over d ascending, as
+// at D 256); then p and ds as at D 256, and the products of the block's own
+// chunk of columns, their operand tile (dq: K; dk/dv: Q and dO) staged
+// again unless the last chunk was the block's own.
+
+// dq of rows [row0, row0 + 32) and columns [col0, col0 + 256) of one bh:
+// block x takes row block n_row_blocks - 1 - x / (n_bh n), then bh x % n_bh
+// and column chunk (x % (n_bh n)) / n_bh (the longest rows first).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_chunked_kernel(const BwdArgs a) {
+  constexpr int D = kHeadChunk;
+  using L = BwdLayout<D>;
+  constexpr int P = L::kPitch;
+  constexpr int TP = L::kTPitch;
+  constexpr int kRows = L::kRows;
+  constexpr int R = L::kRowsPerThread;
+  extern __shared__ __align__(16) float smem[];
+  const int dt = a.d_total;
+  const int n_dc = dt / D;
+  const int n_row_blocks = (a.t + kRows - 1) / kRows;
+  const int per_row_block = a.n_bh * n_dc;
+  const int rest = static_cast<int>(blockIdx.x % per_row_block);
+  const size_t bh = rest % a.n_bh;
+  const int own = rest / a.n_bh;  // the block's column chunk
+  const int row0 =
+      (n_row_blocks - 1 - static_cast<int>(blockIdx.x / per_row_block)) * kRows;
+  const int rows = min(kRows, a.t - row0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
+  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+
+  const int group = threadIdx.x / kGroupThreads;
+  const int lo = threadIdx.x % 16;
+  const int hi = (threadIdx.x % kGroupThreads) / 16;
+  float* qs = smem + L::kDqQ;
+  float* dos = smem + L::kDqDO;
+  float* ks = smem + L::kDqK;
+  float* vs = smem + L::kDqV;
+  float* ds = smem + L::kDqS;
+  const float* lse_s = smem + L::kDqLse;
+  const float* dsum_s = smem + L::kDqDsum;
+  if (threadIdx.x < kRows) {
+    const bool ok = static_cast<int>(threadIdx.x) < rows;
+    smem[L::kDqLse + threadIdx.x] = ok ? a.lse[qbase + row0 + threadIdx.x] : 0.f;
+    smem[L::kDqDsum + threadIdx.x] =
+        ok ? a.dsum[qbase + row0 + threadIdx.x] : 0.f;
+  }
+
+  float acc[R][4 * col_chunks<D>()];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4 * col_chunks<D>(); ++c) acc[r][c] = 0.f;
+  }
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int kt0 = ti * kTile;
+    float sd[R][4];  // s (group 0) or dp (group 1), carried over the chunks
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+    }
+#pragma unroll 1
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // the last chunk's (or tile's) Q, dO, K, V are read
+      copy_chunk_rows<kRows>(a.q + (qbase + row0) * dt + dc * D, dt, rows, qs);
+      copy_chunk_rows<kRows>(a.dout + (qbase + row0) * dt + dc * D, dt, rows,
+                             dos);
+      copy_chunk_rows<kTile>(a.k + (kbase + kt0) * dt + dc * D, dt,
+                             a.tk - kt0, ks);
+      copy_chunk_rows<kTile>(a.v + (kbase + kt0) * dt + dc * D, dt,
+                             a.tk - kt0, vs);
+      commit_copies();
+      wait_copies<0>();
+      __syncthreads();  // this chunk's columns are in (and lse, dsum)
+      dots_8x4<D, R, false>((group ? dos : qs) + hi * P,
+                            (group ? vs : ks) + lo * P, sd);
+    }
+    hand_over(sd, ds, group, hi, lo);
+    __syncthreads();  // the halves are in; Q, dO, K and V are read
+    if (own != n_dc - 1) {  // K's columns of the block's own chunk
+      copy_chunk_rows<kTile>(a.k + (kbase + kt0) * dt + own * D, dt,
+                             a.tk - kt0, ks);
+      commit_copies();
+    }
+    dq_tile_grads<kRows>(a, sd, ds, lse_s, dsum_s, group, hi, lo, row0, rows,
+                         kt0);
+    wait_copies<0>();
+    __syncthreads();  // ds and K's own columns are in
+    constexpr int kHalfTile = kTile / 2;
+    accumulate<D, kHalfTile, R>(ds + hi * TP + group * kHalfTile,
+                                ks + group * kHalfTile * P + first_col<D>(lo),
+                                acc);
+  }
+  __syncthreads();  // the last tile's K and ds are read
+
+  // dq = group 0's sum over the first 32 keys of each tile + group 1's
+  // over the last 32; group 1's sums pass through the free K stage.
+  if (group == 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int c = 0; c < col_chunks<D>(); ++c) {
+        *reinterpret_cast<float4*>(ks + (hi + 8 * r) * D + 4 * lo + 64 * c) =
+            make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                        acc[r][4 * c + 3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (group == 1) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = hi + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int c = 0; c < col_chunks<D>(); ++c) {
+      const int col = 4 * lo + 64 * c;
+      const float4 o = *reinterpret_cast<const float4*>(ks + row * D + col);
+      *reinterpret_cast<float4*>(a.dq + (qbase + row0 + row) * dt + own * D +
+                                 col) =
+          make_float4(__fadd_rn(acc[r][4 * c], o.x),
+                      __fadd_rn(acc[r][4 * c + 1], o.y),
+                      __fadd_rn(acc[r][4 * c + 2], o.z),
+                      __fadd_rn(acc[r][4 * c + 3], o.w));
+    }
+  }
+}
+
+// dk and dv of key rows [key0, key0 + 32) and columns [col0, col0 + 256) of
+// one bh: block x takes key block x / (n_bh n) (the first, most causal,
+// first), then bh x % n_bh and column chunk (x % (n_bh n)) / n_bh.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_chunked_kernel(const BwdArgs a) {
+  constexpr int D = kHeadChunk;
+  using L = BwdLayout<D>;
+  constexpr int P = L::kPitch;
+  constexpr int TP = L::kTPitch;
+  constexpr int kRows = L::kRows;
+  constexpr int R = L::kRowsPerThread;
+  extern __shared__ __align__(16) float smem[];
+  const int dt = a.d_total;
+  const int n_dc = dt / D;
+  const int per_key_block = a.n_bh * n_dc;
+  const int rest = static_cast<int>(blockIdx.x % per_key_block);
+  const size_t bh = rest % a.n_bh;
+  const int own = rest / a.n_bh;  // the block's column chunk
+  const int key0 = static_cast<int>(blockIdx.x / per_key_block) * kRows;
+  const int keys = min(kRows, a.tk - key0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  const int n_qtiles = (a.t + kTile - 1) / kTile;
+  const int first = first_live_qtile(a, key0, n_qtiles);
+
+  const int group = threadIdx.x / kGroupThreads;
+  const int lo = threadIdx.x % 16;
+  const int hi = (threadIdx.x % kGroupThreads) / 16;
+  float* ks = smem + L::kKvK;
+  float* vs = smem + L::kKvV;
+  float* qs = smem + L::kKvQ;
+  float* dos = smem + L::kKvDO;
+  float* pt = smem + L::kKvP;
+  float* dst = smem + L::kKvDS;
+  float* lse_s = smem + L::kKvLse;
+  float* dsum_s = smem + L::kKvDsum;
+
+  float acc[R][4 * col_chunks<D>()];  // dk (group 0) or dv (group 1)
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4 * col_chunks<D>(); ++c) acc[r][c] = 0.f;
+  }
+  for (int qi = first; qi < n_qtiles; ++qi) {
+    const int qt0 = qi * kTile;
+    if (threadIdx.x < kTile) {  // the last tile's p and ds are done
+      const int q = qt0 + static_cast<int>(threadIdx.x);
+      lse_s[threadIdx.x] = q < a.t ? a.lse[qbase + q] : 0.f;
+      dsum_s[threadIdx.x] = q < a.t ? a.dsum[qbase + q] : 0.f;
+    }
+    float sd[R][4];  // s^T (group 0) or dp^T (group 1), carried over chunks
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+    }
+#pragma unroll 1
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // the last chunk's (or tile's) K, V, Q, dO are read
+      copy_chunk_rows<kRows>(a.k + (kbase + key0) * dt + dc * D, dt, keys, ks);
+      copy_chunk_rows<kRows>(a.v + (kbase + key0) * dt + dc * D, dt, keys, vs);
+      copy_chunk_rows<kTile>(a.q + (qbase + qt0) * dt + dc * D, dt,
+                             a.t - qt0, qs);
+      copy_chunk_rows<kTile>(a.dout + (qbase + qt0) * dt + dc * D, dt,
+                             a.t - qt0, dos);
+      commit_copies();
+      wait_copies<0>();
+      __syncthreads();  // this chunk's columns are in (and lse, dsum)
+      dots_8x4<D, R, false>((group ? vs : ks) + hi * P,
+                            (group ? dos : qs) + lo * P, sd);
+    }
+    hand_over(sd, dst, group, hi, lo);
+    __syncthreads();  // the halves are in; K, V, Q and dO are read
+    if (own != n_dc - 1) {  // Q's and dO's columns of the block's own chunk
+      copy_chunk_rows<kTile>(a.q + (qbase + qt0) * dt + own * D, dt,
+                             a.t - qt0, qs);
+      copy_chunk_rows<kTile>(a.dout + (qbase + qt0) * dt + own * D, dt,
+                             a.t - qt0, dos);
+      commit_copies();
+    }
+    dkv_tile_grads<kRows>(a, sd, pt, dst, lse_s, dsum_s, group, hi, lo, key0,
+                          keys, qt0);
+    wait_copies<0>();
+    __syncthreads();  // p^T, ds^T and the own columns of Q and dO are in
+    accumulate<D, kTile, R>((group ? pt : dst) + hi * TP,
+                            (group ? dos : qs) + first_col<D>(lo), acc);
+  }
+
+  float* out = group ? a.dv : a.dk;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int key = hi + 8 * r;
+    if (key >= keys) continue;
+#pragma unroll
+    for (int c = 0; c < col_chunks<D>(); ++c) {
+      *reinterpret_cast<float4*>(out + (kbase + key0 + key) * dt + own * D +
+                                 4 * lo + 64 * c) =
           make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
                       acc[r][4 * c + 3]);
     }
@@ -629,6 +946,25 @@ int launch_bwd(bool dkv, const BwdArgs& args, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of either chunked body (args.d_total a multiple of kHeadChunk
+// past it): a block per (bh, 32 rows, 256 columns), an SM each.
+int launch_bwd_chunked(bool dkv, const BwdArgs& args, cudaStream_t stream) {
+  using L = BwdLayout<kHeadChunk>;
+  const size_t smem = dkv ? L::kKvBytes : L::kDqBytes;
+  auto kernel = dkv ? flash_bwd_dkv_chunked_kernel : flash_bwd_dq_chunked_kernel;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(((dkv ? args.tk : args.t) + L::kRows - 1) /
+                             L::kRows) *
+      args.n_bh * (args.d_total / kHeadChunk);
+  if (blocks <= 0 || blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The bf16 backward on tensor cores (flash_backward_sm90.cu).
@@ -647,7 +983,8 @@ extern "C" {
 // Each returns cudaGetLastError() after its launch (0 on success); an
 // unsupported head dim or dtype returns cudaErrorInvalidValue without
 // launching. The head dims built (the `case`s below,
-// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256. bf16
+// ops/flash_attention.py KERNEL_HEAD_DIMS): 8, 16, 32, 64, 128 and 256; a
+// multiple of kHeadChunk past 256 runs the chunked bodies. bf16
 // goes to the tensor-core kernels, f32 to the kernels here, which copy q,
 // k, v and do 16 bytes at a time: their bases must be 16-byte aligned.
 int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -664,7 +1001,7 @@ int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
                      static_cast<const float*>(v),
                      static_cast<const float*>(dout), lse, dsum,
                      static_cast<float*>(dq), nullptr, nullptr, bh, t, tk,
-                     q_off, k_off, causal, scale};
+                     q_off, k_off, causal, scale, d};
   if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 8: return launch_bwd<8>(false, args, s);
@@ -673,6 +1010,9 @@ int rtt_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 64: return launch_bwd<64>(false, args, s);
     case 128: return launch_bwd<128>(false, args, s);
     case 256: return launch_bwd<256>(false, args, s);
+  }
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_bwd_chunked(false, args, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -691,7 +1031,7 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      static_cast<const float*>(v),
                      static_cast<const float*>(dout), lse, dsum, nullptr,
                      static_cast<float*>(dk), static_cast<float*>(dv), bh, t,
-                     tk, q_off, k_off, causal, scale};
+                     tk, q_off, k_off, causal, scale, d};
   if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 8: return launch_bwd<8>(true, args, s);
@@ -700,6 +1040,9 @@ int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 64: return launch_bwd<64>(true, args, s);
     case 128: return launch_bwd<128>(true, args, s);
     case 256: return launch_bwd<256>(true, args, s);
+  }
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_bwd_chunked(true, args, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

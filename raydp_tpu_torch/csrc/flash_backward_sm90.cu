@@ -62,6 +62,27 @@
 //   TMA's zero fill past them, so s and dp are exact, and dq, dk and dv
 //   store only their first d columns, at pitch d. Any other D up to 256
 //   arrives zero-padded by the wrapper to the next width built.
+// - Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512)
+//   arrive zero-padded by the wrapper to a multiple of kHeadChunk (256) and
+//   run flash_bwd_dq_sm90_chunked_kernel / flash_bwd_dkv_sm90_chunked_kernel.
+//   Q and dO over all of D would not fit (256 KB at D 512), and the
+//   gradients over all of D would take 256 registers a thread, so the
+//   design is cut by the gradient's columns: a grid axis over 256-column
+//   chunks, the block's own chunk a m64n256 accumulator as at D 256 (dq
+//   128 queries; dk/dv 64 keys, dV and dK split over the warpgroups with
+//   S^T computed by both). S and dP are summed over all of D from a ring
+//   of (A, B) 64-column sub-tile pairs (dq: Q or dO of its queries with K
+//   or V of a 32-key tile; dk/dv: K or V of its keys with Q or dO of a
+//   32-query tile; 20 / 12 KB a stage, 8 / 12 stages), the tensor cores
+//   summing each 256-column chunk and the chunks added in f32 on the CUDA
+//   cores (as the chunked forward does: one tensor-core sum over D 1536 put
+//   its l 1e-5 off). The walked tile's own 256 columns of the product's
+//   operand (dq: K; dk/dv: Q and dO, with the tile's lse and dsum) come
+//   through a second ring of two stages: 194 KB (dq), 210 KB (dk/dv). Tiles
+//   of 32 keys or queries keep S, dP and a chunk's partial sum (16
+//   registers each) beside the m64n256 accumulator within 240 registers.
+//   Every chunk's block recomputes S and dP over all of D, and re-reads its
+//   own rows' operands (Q and dO, or K and V) for every 32-row tile.
 //
 // What it leaves for later: a single kernel with a fixed-order dq
 // reduction in place of recomputing s and dp twice, persistent blocks,
@@ -499,6 +520,448 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// The chunked bodies (head dims past 256, d a multiple of kHeadChunk): a
+// grid axis over the gradient's 256-column chunks, its accumulator a
+// m64n256 one as at D 256. S (S^T) and dP (dP^T) are summed over all of D
+// through a ring of kSStages (A, B) sub-tile pairs of 64 columns, which the
+// producer streams in the consumers' order (for each walked tile: S's
+// sub-tiles over D, then dP's), and the tile's operand of the gradient's
+// product, the block's own 256 columns (dq: K; dk/dv: Q and dO, with the
+// tile's lse and dsum), comes through a ring of kGStages. kARows: the A
+// sub-tiles' rows (dq: its 128 queries of Q or dO; dk/dv: its 64 keys of K
+// or V); kN the walked tile's rows (32, so that S, dP and a chunk's
+// partial sum fit beside the m64n256 accumulator in 240 registers);
+// kGTiles the operand tiles a G stage holds.
+template <int kARows, int kN, int kSStagesT, int kGTiles>
+struct ChunkedLayout {
+  static constexpr int kSStages = kSStagesT;
+  static constexpr int kGStages = 2;
+  static constexpr int kASub = kARows * 128;
+  static constexpr int kBSub = kN * 128;
+  static constexpr int kSStage = kASub + kBSub;
+  static constexpr int kGSub = kN * 128;  // a G tile's 64-column sub-tile
+  static constexpr int kGTile = (kHeadChunk / 64) * kGSub;
+  static constexpr int kS = 0;
+  static constexpr int kG = kS + kSStages * kSStage;  // + stage * kGTiles kGTile
+  static constexpr int kStats = kG + kGStages * kGTiles * kGTile;
+  // full and empty barriers of each S stage, then of each G stage
+  static constexpr int kBar = kStats + kGStages * 2 * kN * 4;
+  static constexpr int kBytes = kBar + 16 * (kSStages + kGStages) + 1024;
+};
+using DqChunked = ChunkedLayout<128, 32, 8, 1>;
+using DkvChunked = ChunkedLayout<64, 32, 12, 2>;
+
+// The chunked bodies' barriers: full and empty of each S stage, then of
+// each G stage (+ 8 * stage).
+struct ChunkedBars {
+  uint32_t full_s, empty_s, full_g, empty_g;
+};
+
+template <class L>
+__device__ __forceinline__ ChunkedBars init_chunked_bars(uint32_t at) {
+  const ChunkedBars bars{at, at + 8 * L::kSStages, at + 16 * L::kSStages,
+                         at + 16 * L::kSStages + 8 * L::kGStages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kSStages; ++s) {
+      mbar_init(bars.full_s + 8 * s, 1);
+      mbar_init(bars.empty_s + 8 * s, kConsumers * 128);
+    }
+    for (int s = 0; s < L::kGStages; ++s) {
+      mbar_init(bars.full_g + 8 * s, 1);
+      mbar_init(bars.empty_g + 8 * s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  return bars;
+}
+
+// The producer's next S stage (the g-th): A's sub-tile at (col, a_row) and
+// B's at (col, b_row) of head bh.
+template <class L>
+__device__ __forceinline__ void load_s_stage(uint32_t ring,
+                                             const ChunkedBars& bars, int g,
+                                             const CUtensorMap* a, int a_row,
+                                             const CUtensorMap* b, int b_row,
+                                             int col, int bh) {
+  const int s = g % L::kSStages;
+  const uint32_t full = bars.full_s + 8 * s;
+  mbar_wait(bars.empty_s + 8 * s, ((g / L::kSStages) & 1) ^ 1);
+  mbar_expect_tx(full, L::kSStage);
+  const uint32_t stage = ring + s * L::kSStage;
+  tma_load(stage, a, full, col, a_row, bh);
+  tma_load(stage + L::kASub, b, full, col, b_row, bh);
+}
+
+// total = the product over all of D of the ring's next n_sub (A, B)
+// sub-tile pairs from the g-th on (A's rows from byte a_row of its
+// sub-tile, both K-major): the tensor cores sum each 256-column chunk (4
+// sub-tiles) into `part`, and the chunks' sums are added into `total` in
+// f32 on the CUDA cores (one tensor-core sum over D 1536 put the forward's
+// l 1e-5 off). A stage goes back to the producer once the next sub-tile's
+// products are issued and its own have finished, or at its chunk's end.
+// `skip`: the warpgroup has no live pair here; it only passes the stages
+// on.
+template <int N, class L>
+__device__ __forceinline__ void chunked_product(float (&total)[N / 2],
+                                                float (&part)[N / 2],
+                                                uint32_t ring,
+                                                const ChunkedBars& bars,
+                                                uint32_t a_row, int n_sub,
+                                                int& g, bool skip) {
+  if (skip) {
+    for (int j = 0; j < n_sub; ++j, ++g) {
+      const int s = g % L::kSStages;
+      mbar_wait(bars.full_s + 8 * s, (g / L::kSStages) & 1);
+      mbar_arrive(bars.empty_s + 8 * s);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) total[i] = 0.f;
+  wgmma_fence();
+  for (int j = 0; j < n_sub; ++j, ++g) {
+    const int s = g % L::kSStages;
+    mbar_wait(bars.full_s + 8 * s, (g / L::kSStages) & 1);
+    const uint32_t stage = ring + s * L::kSStage;
+    const int in_chunk = j % (kHeadChunk / 64);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss<N>(part, sw128_desc(stage + kk * 32 + a_row, 16, 1024),
+                  sw128_desc(stage + L::kASub + kk * 32, 16, 1024),
+                  in_chunk > 0 || kk > 0);
+    }
+    wgmma_commit();
+    if (in_chunk == kHeadChunk / 64 - 1) {  // the chunk's sum is done
+      wgmma_wait_all();
+      fence_regs(part);
+      mbar_arrive(bars.empty_s + 8 * ((g - 1) % L::kSStages));
+      mbar_arrive(bars.empty_s + 8 * s);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) total[i] = __fadd_rn(total[i], part[i]);
+      wgmma_fence();  // the next chunk's products overwrite part
+    } else if (in_chunk > 0) {
+      wgmma_wait_one();
+      mbar_arrive(bars.empty_s + 8 * ((g - 1) % L::kSStages));
+    }
+  }
+}
+
+// q/do [BH, T, d], k/v [BH, Tk, d] bf16 (through the tensor maps), lse and
+// dsum [BH * T] f32 -> dq [BH, T, d] bf16, d a multiple of kHeadChunk past
+// it. grid (BH * d / kHeadChunk, ceil(T / 128)): block x takes head x /
+// n_out and columns [(x % n_out) * 256, + 256) of its 128 queries, the
+// longest causal rows first.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                 const __grid_constant__ CUtensorMap tm_k,
+                                 const __grid_constant__ CUtensorMap tm_v,
+                                 const __grid_constant__ CUtensorMap tm_do,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ dsum,
+                                 __nv_bfloat16* __restrict__ dq, int t, int tk,
+                                 int d, int q_off, int k_off, int causal,
+                                 float scale) {
+  using L = DqChunked;
+  constexpr int kN = 32;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_ring = base + L::kS;
+  const uint32_t s_g = base + L::kG;  // + stage * L::kGTile: K's own columns
+  const ChunkedBars bars = init_chunked_bars<L>(base + L::kBar);
+
+  const int n_out = d / kHeadChunk;
+  const int bh = blockIdx.x / n_out;
+  const int col0 = (blockIdx.x % n_out) * kHeadChunk;
+  const int n_sub = d / 64;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * 128;
+  const int rows = min(128, t - row0);
+  int k_end = tk;  // keys [0, k_end) can be live for some row of the block
+  if (causal) k_end = max(0, min(tk, q_off + row0 + rows - k_off));
+  const int n_tiles = (k_end + kN - 1) / kN;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread issues every TMA load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0;  // S stages issued
+      for (int it = 0; it < n_tiles; ++it) {
+        for (int j = 0; j < n_sub; ++j, ++g) {
+          load_s_stage<L>(s_ring, bars, g, &tm_q, row0, &tm_k, it * kN, 64 * j,
+                          bh);
+        }
+        for (int j = 0; j < n_sub; ++j, ++g) {
+          load_s_stage<L>(s_ring, bars, g, &tm_do, row0, &tm_v, it * kN,
+                          64 * j, bh);
+        }
+        const int sg = it % L::kGStages;
+        const uint32_t full = bars.full_g + 8 * sg;
+        mbar_wait(bars.empty_g + 8 * sg, ((it / L::kGStages) & 1) ^ 1);
+        mbar_expect_tx(full, L::kGTile);
+#pragma unroll
+        for (int j = 0; j < kHeadChunk / 64; ++j) {
+          tma_load(s_g + sg * L::kGTile + j * L::kGSub, &tm_k, full,
+                   col0 + 64 * j, it * kN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wrow0 = row0 + 64 * wg;       // first query row of the warpgroup
+  const int r_in = 16 * warp + lane / 4;  // + 8 * half: row in the warpgroup
+
+  float row_lse[2];
+  float row_dsum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow0 + r_in + 8 * h;
+    const size_t grow = static_cast<size_t>(bh) * t + row;
+    row_lse[h] = row < t ? lse[grow] : 0.f;
+    row_dsum[h] = row < t ? dsum[grow] : 0.f;
+  }
+  float dq_acc[kHeadChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kHeadChunk / 2; ++i) dq_acc[i] = 0.f;
+  float sc[kN / 2];    // S
+  float dp[kN / 2];    // dP, then dS
+  float part[kN / 2];  // one 256-column chunk's share of S or dP
+  uint32_t da[kN / 4];
+
+  int g = 0;  // S stages consumed
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kt0 = it * kN;
+    // no live pair for this warpgroup: its rows past T, or before every key
+    const bool dead =
+        wrow0 >= t || (causal && q_off + wrow0 + 63 < k_off + kt0);
+    chunked_product<kN, L>(sc, part, s_ring, bars, 64 * 128 * wg, n_sub, g,
+                           dead);
+    chunked_product<kN, L>(dp, part, s_ring, bars, 64 * 128 * wg, n_sub, g,
+                           dead);
+    const int sg = it % L::kGStages;
+    mbar_wait(bars.full_g + 8 * sg, (it / L::kGStages) & 1);
+    if (!dead) {
+      const bool edge = kt0 + kN > tk ||
+                        (causal && q_off + wrow0 < k_off + kt0 + kN - 1);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int h = half_of(i);
+        bool live = true;
+        if (edge) {
+          const int key = kt0 + col_of(i, lane);
+          const int row = wrow0 + r_in + 8 * h;
+          live = key < tk && (!causal || q_off + row >= k_off + key);
+        }
+        const float e = __fsub_rn(__fmul_rn(sc[i], scale), row_lse[h]);
+        const float p = live ? __expf(e) : 0.f;
+        dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i], row_dsum[h])), scale);
+      }
+      to_a_fragments(dp, da);
+
+      // dQ += dS K over the tile's keys in steps of 16, K's own columns
+      // MN-major
+      const uint32_t kc = s_g + sg * L::kGTile;
+      fence_regs(dq_acc);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        wgmma_pv<kHeadChunk>(dq_acc, da + 4 * kk,
+                             sw128_desc(kc + kk * 16 * 128, L::kGSub, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq_acc);
+      fence_regs(da);
+    }
+    mbar_arrive(bars.empty_g + 8 * sg);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow0 + r_in + 8 * h;
+    if (row >= t) continue;
+    const size_t grow = static_cast<size_t>(bh) * t + row;
+#pragma unroll
+    for (int nb = 0; nb < kHeadChunk / 8; ++nb) {
+      const size_t idx = grow * d + col0 + 8 * nb + 2 * (lane & 3);
+      const int i = 4 * nb + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(dq + idx) =
+          __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+    }
+  }
+}
+
+// The same inputs (lse and dsum through 1-D maps) -> dk, dv [BH, Tk, d]
+// bf16, d a multiple of kHeadChunk past it. grid (BH * d / kHeadChunk,
+// ceil(Tk / 64)): block x takes head x / n_out and columns [(x % n_out) *
+// 256, + 256) of its 64 keys, key tile 0 (the most causal work) first. As
+// at D 256 the warpgroups split the gradient: both compute S^T over the
+// block's 64 keys, warpgroup 0 then dV += P^T dO, warpgroup 1 dP^T, dS^T
+// and dK += dS^T Q (warpgroup 0 passes the dP^T stages on).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                  const __grid_constant__ CUtensorMap tm_k,
+                                  const __grid_constant__ CUtensorMap tm_v,
+                                  const __grid_constant__ CUtensorMap tm_do,
+                                  const __grid_constant__ CUtensorMap tm_lse,
+                                  const __grid_constant__ CUtensorMap tm_dsum,
+                                  __nv_bfloat16* __restrict__ dk,
+                                  __nv_bfloat16* __restrict__ dv, int t,
+                                  int tk, int d, int q_off, int k_off,
+                                  int causal, float scale) {
+  using L = DkvChunked;
+  constexpr int kStep = 32;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_ring = base + L::kS;
+  // a G stage: Q's own columns, then dO's (+ stage * 2 L::kGTile)
+  const uint32_t s_g = base + L::kG;
+  const uint32_t s_lse = base + L::kStats;              // + 4 kStep stage
+  const uint32_t s_dsum = s_lse + 4 * kStep * L::kGStages;
+  const float* stats =
+      reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kStats);
+  const ChunkedBars bars = init_chunked_bars<L>(base + L::kBar);
+
+  const int n_out = d / kHeadChunk;
+  const int bh = blockIdx.x / n_out;
+  const int col0 = (blockIdx.x % n_out) * kHeadChunk;
+  const int n_sub = d / 64;
+  const int key0 = blockIdx.y * 64;
+  const int q_tiles = (t + kStep - 1) / kStep;
+  int first = 0;  // causal: the first q-tile with a query at or after key0
+  if (causal) first = min(q_tiles, max(0, k_off + key0 - q_off) / kStep);
+  const int n_tiles = q_tiles - first;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread issues every TMA load, in the consumers' order
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      int g = 0;  // S stages issued
+      for (int it = 0; it < n_tiles; ++it) {
+        const int q0 = (first + it) * kStep;
+        for (int j = 0; j < n_sub; ++j, ++g) {
+          load_s_stage<L>(s_ring, bars, g, &tm_k, key0, &tm_q, q0, 64 * j, bh);
+        }
+        for (int j = 0; j < n_sub; ++j, ++g) {
+          load_s_stage<L>(s_ring, bars, g, &tm_v, key0, &tm_do, q0, 64 * j,
+                          bh);
+        }
+        const int sg = it % L::kGStages;
+        const uint32_t full = bars.full_g + 8 * sg;
+        mbar_wait(bars.empty_g + 8 * sg, ((it / L::kGStages) & 1) ^ 1);
+        mbar_expect_tx(full, 2 * L::kGTile + 2 * 4 * kStep);
+        const uint32_t stage = s_g + sg * 2 * L::kGTile;
+#pragma unroll
+        for (int j = 0; j < kHeadChunk / 64; ++j) {
+          tma_load(stage + j * L::kGSub, &tm_q, full, col0 + 64 * j, q0, bh);
+          tma_load(stage + L::kGTile + j * L::kGSub, &tm_do, full,
+                   col0 + 64 * j, q0, bh);
+        }
+        tma_load_1d(s_lse + 4 * kStep * sg, &tm_lse, full, bh * t + q0);
+        tma_load_1d(s_dsum + 4 * kStep * sg, &tm_dsum, full, bh * t + q0);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r_in = 16 * warp + lane / 4;  // + 8 * half: key in the block
+  const bool with_dk = wg == 1;           // dP^T and dS^T needed
+
+  float acc[kHeadChunk / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < kHeadChunk / 2; ++i) acc[i] = 0.f;
+  float st[kStep / 2];    // S^T, then P^T
+  float dpt[kStep / 2];   // dP^T, then dS^T
+  float part[kStep / 2];  // one 256-column chunk's share of S^T or dP^T
+  uint32_t pa[kStep / 4];
+
+  int g = 0;  // S stages consumed
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (first + it) * kStep;
+    // no live pair: the block's keys past Tk, or after every query
+    const bool dead =
+        key0 >= tk || (causal && q_off + q0 + kStep - 1 < k_off + key0);
+    chunked_product<kStep, L>(st, part, s_ring, bars, 0, n_sub, g, dead);
+    chunked_product<kStep, L>(dpt, part, s_ring, bars, 0, n_sub, g,
+                              dead || !with_dk);
+    const int sg = it % L::kGStages;
+    mbar_wait(bars.full_g + 8 * sg, (it / L::kGStages) & 1);
+    if (!dead) {
+      const float* lse_t = stats + kStep * sg;
+      const float* dsum_t = stats + kStep * (L::kGStages + sg);
+      const bool edge = q0 + kStep > t || key0 + 64 > tk ||
+                        (causal && q_off + q0 < k_off + key0 + 63);
+#pragma unroll
+      for (int i = 0; i < kStep / 2; ++i) {
+        const int col = col_of(i, lane);
+        bool live = true;
+        if (edge) {
+          const int key = key0 + r_in + 8 * half_of(i);
+          const int q = q0 + col;
+          live = q < t && key < tk && (!causal || q_off + q >= k_off + key);
+        }
+        const float p =
+            live ? __expf(__fsub_rn(__fmul_rn(st[i], scale), lse_t[col]))
+                 : 0.f;
+        if (with_dk) {
+          dpt[i] =
+              __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[i], dsum_t[col])), scale);
+        }
+        st[i] = p;
+      }
+      if (wg == 0) {  // pa: warpgroup 0's P^T, warpgroup 1's dS^T
+        to_a_fragments(st, pa);
+      } else {
+        to_a_fragments(dpt, pa);
+      }
+
+      // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1) over the
+      // tile's queries in steps of 16, the own columns MN-major
+      const uint32_t ring = s_g + sg * 2 * L::kGTile + (wg == 0 ? L::kGTile : 0);
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        wgmma_pv<kHeadChunk>(acc, pa + 4 * kk,
+                             sw128_desc(ring + kk * 16 * 128, L::kGSub, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+    mbar_arrive(bars.empty_g + 8 * sg);
+  }
+
+  __nv_bfloat16* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + r_in + 8 * h;
+    if (key >= tk) continue;
+    const size_t grow = static_cast<size_t>(bh) * tk + key;
+#pragma unroll
+    for (int nb = 0; nb < kHeadChunk / 8; ++nb) {
+      const size_t idx = grow * d + col0 + 8 * nb + 2 * (lane & 3);
+      const int i = 4 * nb + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(out + idx) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, void* dq, int bh, int t,
@@ -560,13 +1023,73 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// d: a multiple of kHeadChunk past it.
+int launch_dq_chunked(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* dsum,
+                      void* dq, int bh, int t, int tk, int d, int q_off,
+                      int k_off, int causal, float scale,
+                      cudaStream_t stream) {
+  if (tk == 0) {  // no key: dq is 0
+    return static_cast<int>(cudaMemsetAsync(
+        dq, 0, sizeof(__nv_bfloat16) * bh * t * d, stream));
+  }
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!make_map(&map_q, q, bh, t, d, 128) ||
+      !make_map(&map_do, dout, bh, t, d, 128) ||
+      !make_map(&map_k, k, bh, tk, d, 32) ||
+      !make_map(&map_v, v, bh, tk, d, 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dq_sm90_chunked_kernel;
+  cudaError_t err = prepare(kernel, DqChunked::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh * (d / kHeadChunk), (t + 127) / 128);
+  kernel<<<grid, kThreads, DqChunked::kBytes, stream>>>(
+      map_q, map_k, map_v, map_do, lse, dsum, static_cast<__nv_bfloat16*>(dq),
+      t, tk, d, q_off, k_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d: a multiple of kHeadChunk past it.
+int launch_dkv_chunked(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dsum,
+                       void* dk, void* dv, int bh, int t, int tk, int d,
+                       int q_off, int k_off, int causal, float scale,
+                       cudaStream_t stream) {
+  if (t == 0) {  // no query: dk and dv are 0
+    const size_t bytes = sizeof(__nv_bfloat16) * bh * tk * d;
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, stream);
+    return static_cast<int>(err);
+  }
+  CUtensorMap map_q, map_k, map_v, map_do, map_lse, map_dsum;
+  if (!make_map(&map_q, q, bh, t, d, 32) ||
+      !make_map(&map_do, dout, bh, t, d, 32) ||
+      !make_map(&map_k, k, bh, tk, d, 64) ||
+      !make_map(&map_v, v, bh, tk, d, 64) ||
+      !make_rows_map(&map_lse, lse, bh * t, 32) ||
+      !make_rows_map(&map_dsum, dsum, bh * t, 32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_bwd_dkv_sm90_chunked_kernel;
+  cudaError_t err = prepare(kernel, DkvChunked::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh * (d / kHeadChunk), (tk + 63) / 64);
+  kernel<<<grid, kThreads, DkvChunked::kBytes, stream>>>(
+      map_q, map_k, map_v, map_do, map_lse, map_dsum,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), t, tk,
+      d, q_off, k_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Called by rtt_flash_bwd_dq / rtt_flash_bwd_dkv for bf16 q/k/v; each
 // returns cudaGetLastError() after its launch, or cudaErrorInvalidValue for
 // a head dim it does not take (the `case`s below: 8, 16 and 32 through the
-// D 64 bodies, 64, 128 and 256) or tensors TMA cannot address (a base not
-// 16-byte aligned).
+// D 64 bodies, 64, 128 and 256; a multiple of kHeadChunk past 256 through
+// the chunked bodies) or tensors TMA cannot address (a base not 16-byte
+// aligned).
 int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* dsum,
                       void* dq, int bh, int t, int tk, int d, int q_off,
@@ -584,6 +1107,10 @@ int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
     case 256: RTT_DQ(256);
   }
 #undef RTT_DQ
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_dq_chunked(q, k, v, dout, lse, dsum, dq, bh, t, tk, d, q_off,
+                             k_off, causal, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -605,5 +1132,9 @@ int flash_bwd_dkv_sm90(const void* q, const void* k, const void* v,
     case 256: RTT_DKV(256);
   }
 #undef RTT_DKV
+  if (d > kHeadChunk && d % kHeadChunk == 0) {
+    return launch_dkv_chunked(q, k, v, dout, lse, dsum, dk, dv, bh, t, tk, d,
+                              q_off, k_off, causal, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

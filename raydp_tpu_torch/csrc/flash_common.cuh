@@ -21,8 +21,9 @@ namespace {
 constexpr int kBlockK = 32;        // keys (or queries) per tile: one per lane
 // Head dims past 256 run in column chunks of kHeadChunk (the wrapper
 // zero-pads D to a multiple of it: ops/flash_attention.py HEAD_CHUNK): the
-// serving kernels' chunked bodies sum each score over every chunk of D in
-// one chain and give each block one chunk of the output's columns.
+// chunked bodies of every family sum each score over every chunk of D in
+// one chain (the bf16 ones: a tensor-core sum per chunk, the chunks added
+// in f32) and give each block one chunk of the output's columns.
 constexpr int kHeadChunk = 256;
 constexpr float kNegInf = -1e30f;  // masked score; -inf would make 0*inf NaNs
 constexpr unsigned kFull = 0xffffffffu;

@@ -6,7 +6,11 @@ count in the hash) and links them into one shared library with a
 plain C interface, which ``ctypes`` loads. The library is built at first use
 into ``build/raydp_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, under a file lock so that concurrent processes build it
-once. Nothing is fetched: the CUDA toolkit's own headers are all it needs.
+once. Each object is named by a hash of the flags, the headers and its own
+source, so a build compiles only the sources that differ from an earlier
+build's in the same directory (a copy of the package with one source
+changed, as ``chip_smoke.py --planted-faults`` makes, compiles that one).
+Nothing is fetched: the CUDA toolkit's own headers are all it needs.
 
 Pointers and the CUDA stream pass as ``c_void_p``. Each C entry point
 returns ``cudaGetLastError()`` after its launch; ``check`` raises on
@@ -126,6 +130,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libraydp_tpu_torch_{_source_hash()}.so"
 
 
+def _object_stem(src: Path) -> str:
+    """The name of ``src``'s object and ptxas log: its stem and a hash of
+    the flags, every header and the source itself."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [*sorted(CSRC_DIR.glob("*.cuh")), src]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return f"{src.stem}_{h.hexdigest()[:16]}"
+
+
 def build() -> Path:
     """Compile and link the kernels unless a library of these sources is
     already built; returns its path. Raises with nvcc's output on failure."""
@@ -145,27 +159,34 @@ def build() -> Path:
 
 def _compile_and_link(target: Path) -> None:
     nvcc = _nvcc()
-    stem = target.stem
+    objects = []
     jobs = []
     for src in _sources():
-        obj = BUILD_DIR / f"{stem}_{src.stem}.o"
-        log = BUILD_DIR / f"{stem}_{src.stem}.log"
+        stem = _object_stem(src)
+        obj = BUILD_DIR / f"{stem}.o"
+        objects.append(obj)
+        if obj.exists():  # compiled by an earlier build of the same text
+            continue
+        tmp = BUILD_DIR / f"{stem}.tmp{os.getpid()}.o"
+        log = BUILD_DIR / f"{stem}.log"
         with open(log, "w") as fh:
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(tmp)],
                 stdout=fh, stderr=subprocess.STDOUT,
             )
-        jobs.append((src, obj, log, proc))
+        jobs.append((src, tmp, obj, log, proc))
     failed = []
-    for src, _, log, proc in jobs:
+    for src, tmp, obj, log, proc in jobs:
         if proc.wait() != 0:
             failed.append(f"{src.name}:\n{log.read_text()}")
+        else:
+            os.replace(tmp, obj)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = target.with_suffix(f".tmp{os.getpid()}")
     link = subprocess.run(
         [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-         *(str(obj) for _, obj, _, _ in jobs)],
+         *(str(obj) for obj in objects)],
         capture_output=True, text=True,
     )
     if link.returncode != 0:
@@ -175,10 +196,11 @@ def _compile_and_link(target: Path) -> None:
 
 def build_log() -> str:
     """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
-    the current build, one section per source."""
-    stem = library_path().stem
+    the current build, one section per source (from the build that
+    compiled it)."""
     return "\n".join(
-        log.read_text() for log in sorted(BUILD_DIR.glob(f"{stem}_*.log"))
+        (BUILD_DIR / f"{_object_stem(src)}.log").read_text()
+        for src in _sources()
     )
 
 

@@ -42,7 +42,7 @@ dv's product and ds before dk's and dq's (the reference feeds both in
 f32). So bf16 agrees with the plain versions to bf16 rounding, not bit for
 bit.
 
-Head dims: every family takes D from 1 to 256 on the card. Kernels are
+Head dims: every family takes any D from 1 up on the card. Kernels are
 built for 8, 16, 32, 64, 128 and 256 (``KERNEL_HEAD_DIMS``); any other D
 runs at the next built width (``kernel_head_dim``), q, k, v (and the
 cotangent) zero-padded to it (``pad_head``), the scale that of the true D,
@@ -50,13 +50,13 @@ the output cut back to D. A zero column adds an exact 0 to each score's
 sum and an output column of zeros, which is cut off. At D 256 (bench.py's
 LM at d_model 2048 over 8 heads) each family keeps its design with tiles
 cut to fit a block's shared memory and registers: see each source's notes.
-Past 256 (bench.py's LM at d_model 4096: 8 heads of 512) the serving
-kernels -- the f32 and bf16 forward and both decodes -- run D zero-padded
-to a multiple of ``HEAD_CHUNK`` through chunked bodies: a grid axis over
-the output's 256-column chunks, each block summing its scores over all of
-D (one chain per score, so f32 decode == prefill holds) and computing its
-own columns of o. The backward past 256 is not built: its wrappers raise
-before any launch.
+Past 256 (bench.py's LM at d_model 4096: 8 heads of 512) every family --
+the f32 and bf16 forward, the f32 and bf16 backward and both decodes --
+runs D zero-padded to a multiple of ``HEAD_CHUNK`` through chunked bodies:
+a grid axis over the output's (the gradient's) 256-column chunks, each
+block summing its scores (and the backward's dp) over all of D (one chain
+per score in f32, so f32 decode == prefill holds) and computing its own
+columns of o, dq, or dk and dv.
 
 Decode == prefill: for f32 q/k/v the decode kernel and the forward run the
 same steps of the per-row update over the same 32-key tiles, merged in
@@ -107,13 +107,13 @@ BLOCK_Q = 64
 # tensor maps reading the true columns and zero-filling the rest. Any other
 # head dim up to 256 runs at the next built width (``kernel_head_dim``), q,
 # k and v zero-padded to it by the wrapper (``pad_head``) and the output cut
-# back; a head dim past 256 is refused.
+# back; past 256, the next multiple of HEAD_CHUNK.
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-# Past the widest built width the forward and decode kernels take D in
-# column chunks of this width (csrc/flash_common.cuh kHeadChunk), D
-# zero-padded to a multiple of it: the chunked bodies are the D 256
-# bodies' layouts, and a chunk of 256 recomputes the scores D / 256 times
-# where one of 128 would D / 128 times.
+# Past the widest built width every family (forward, backward, decodes)
+# takes D in column chunks of this width (csrc/flash_common.cuh
+# kHeadChunk), D zero-padded to a multiple of it: the chunked bodies are the
+# D 256 bodies' layouts or tiles, and a chunk of 256 recomputes the scores
+# D / 256 times where one of 128 would D / 128 times.
 HEAD_CHUNK = 256
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one
@@ -354,20 +354,12 @@ def kernel_head_dim(d: int, what: str) -> int:
     """The width a head dim ``d`` runs at on the card, to which the wrapper
     zero-pads: ``d`` itself where a kernel is built for it
     (``KERNEL_HEAD_DIMS``), else the next built width up; past the widest,
-    for the forward and decode families, the next multiple of
-    ``HEAD_CHUNK`` (their chunked bodies). Raises, naming the kernel
-    ``what``, for a head dim below 1 and for the backward families
-    (``what`` starting ``flash_bwd``) past the widest."""
+    the next multiple of ``HEAD_CHUNK`` (every family's chunked bodies).
+    Raises, naming the kernel ``what``, for a head dim below 1."""
     for width in KERNEL_HEAD_DIMS:
         if 1 <= d <= width:
             return width
     if d > KERNEL_HEAD_DIMS[-1]:
-        if what.startswith("flash_bwd"):
-            raise ValueError(
-                f"{what}: head_dim {d}: the backward at head dims past "
-                f"{KERNEL_HEAD_DIMS[-1]} is not built yet (the forward and "
-                "the decodes take them)"
-            )
         return -(-d // HEAD_CHUNK) * HEAD_CHUNK
     raise ValueError(
         f"{what}: head_dim {d} has no CUDA kernel (built for "

@@ -9,6 +9,7 @@ a DLRM epoch's optimizer step). The window here is made of stand-in events.
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -162,7 +163,9 @@ def test_port_kernel_pattern_names_every_csrc_kernel():
         "quantize_stochastic_kernel",
         "quantize_stochastic_rows_kernel", "quantize_rows_kernel",
         "int8_gemm_sm90_kernel", "flash_decode_int8_kernel",
-        "flash_fwd_chunked_kernel", "flash_fwd_sm90_chunked_kernel"}
+        "flash_fwd_chunked_kernel", "flash_fwd_sm90_chunked_kernel",
+        "flash_bwd_dq_chunked_kernel", "flash_bwd_dkv_chunked_kernel",
+        "flash_bwd_dq_sm90_chunked_kernel", "flash_bwd_dkv_sm90_chunked_kernel"}
 
 
 def _forward_p_in_bf16(q, k, v, causal):
@@ -1631,14 +1634,37 @@ WIDE_LM_CPU = dict(model=dict(vocab_size=64, d_model=512, num_heads=2,
                                max_new_tokens=4))
 
 
-def test_phase_wide_lm_on_the_cpu():
+def test_phase_wide_lm_on_the_cpu(monkeypatch):
     """``phase_wide_lm`` on the CPU at head dim 256: flash trained in bf16
     and f32 against ``attn_impl="full"`` within the phase's limits, the
     loss falling, no launch (the plain versions launch nothing); served
     from f32 and int8 caches and as a bf16 model, every stream to its
-    budget, the int8 tokens counted against the f32 cache's; the record's
-    keys and its summary line."""
+    budget, the int8 tokens counted against the f32 cache's; the logits
+    held to ``attn_impl="full"`` are those of the trained f32 model that
+    serves, on its own weights; the record's keys and its summary line."""
+    calls = []
+    train, logits, serve = (chip_smoke.wide_lm_train,
+                            chip_smoke.check_model_logits, chip_smoke.serve)
+
+    def check_logits(model, ref, *args):
+        same = all(torch.equal(a, b) for a, b in
+                   zip(model.state_dict().values(), ref.state_dict().values()))
+        calls.append(("logits", model, ref.attn_impl, same))
+        return logits(model, ref, *args)
+
+    monkeypatch.setattr(chip_smoke, "wide_lm_train", lambda device, cfg, dtype,
+                        models: calls.append(("train", models["flash"]))
+                        or train(device, cfg, dtype, models))
+    monkeypatch.setattr(chip_smoke, "check_model_logits", check_logits)
+    monkeypatch.setattr(chip_smoke, "serve", lambda model, *a, **kw:
+                        calls.append(("serve", model)) or serve(model, *a, **kw))
     rec = chip_smoke.phase_wide_lm(torch.device("cpu"), WIDE_LM_CPU)
+    f32 = calls[-4][1]  # trained, checked, served from f32 and int8 caches
+    assert [c[0] for c in calls] == ["train", "serve", "train", "logits",
+                                     "serve", "serve"]
+    assert calls[-3][1:] == (f32, "full", True)
+    assert calls[-2][1] is f32 and calls[-1][1] is f32
+    assert f32.dtype == torch.float32
     assert rec["launches"] == {}
     for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         loss_limit, grad_limit = chip_smoke.WIDE_LM_LIMITS[dtype]
@@ -1655,11 +1681,33 @@ def test_phase_wide_lm_on_the_cpu():
     assert set(line["wide_lm"]["serve"]) == {"f32", "bf16", "int8"}
 
 
+@pytest.mark.parametrize("impl,dtype", [("full", torch.float32),
+                                        ("flash", torch.bfloat16),
+                                        ("full", torch.bfloat16)])
+def test_wide_lm_twin_is_the_model_built_so(impl, dtype):
+    """``wide_lm_twin`` of the f32 flash model is the model
+    ``wide_lm_model`` draws for that attention and type: the same weights,
+    and its logits and gradients bitwise those of the drawn one."""
+    cfg = dict(model=dict(vocab_size=64, d_model=64, num_heads=2,
+                          num_layers=2))
+    cpu = torch.device("cpu")
+    base = chip_smoke.wide_lm_model(cfg, "flash", torch.float32, cpu, 33)
+    twin = chip_smoke.wide_lm_twin(base, impl, dtype)
+    drawn = chip_smoke.wide_lm_model(cfg, impl, dtype, cpu, 33)
+    assert twin.attn_impl == impl and twin.dtype == dtype
+    assert base.attn_impl == "flash" and base.dtype == torch.float32
+    tokens, targets = chip_smoke.train_tokens(2, 32, 64, cpu)
+    got = chip_smoke.loss_and_grads(twin, tokens, targets)
+    ref = chip_smoke.loss_and_grads(drawn, tokens, targets)
+    assert torch.equal(got[0], ref[0])
+    assert all(torch.equal(got[1][n], g) for n, g in ref[1].items())
+
+
 def test_phase_wide_lm_fails_a_wrong_gradient(monkeypatch):
     """A planted fault: dk/dv off by 1% in the flash backward's plain
     version; the bf16 step still agrees with ``attn_impl="full"`` at its
-    bf16 bounds, the f32 step does not, and the phase fails before it
-    serves."""
+    bf16 bounds, the f32 step does not, and the phase fails before the f32
+    model serves."""
     from raydp_tpu_torch.ops import flash_attention as fa
 
     plain = fa.flash_bwd_dkv_plain
@@ -1670,6 +1718,51 @@ def test_phase_wide_lm_fails_a_wrong_gradient(monkeypatch):
         chip_smoke.phase_wide_lm(torch.device("cpu"), WIDE_LM_CPU)
 
 
+def test_build_compiles_only_the_sources_that_changed(tmp_path, monkeypatch):
+    """``_build`` names each object by a hash of its source, the headers
+    and the flags: a copy's build with one source changed compiles that
+    source alone (how ``--planted-faults`` builds its copies), a changed
+    header compiles every source, and ``build_log`` reads each source's
+    own log."""
+    from raydp_tpu_torch.ops import _build
+
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name, text in (("a.cu", "a"), ("b.cu", "b"), ("c.cuh", "h")):
+        (csrc / name).write_text(text)
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\nout=''; src=''\n"
+        "while [ $# -gt 0 ]; do case \"$1\" in -o) out=\"$2\"; shift;; "
+        "-c) src=\"$2\"; shift;; esac; shift; done\n"
+        f"if [ -n \"$src\" ]; then basename \"$src\" >> {calls}; "
+        "echo \"ptxas of $(basename $src)\"; fi\n"
+        "echo built > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+
+    def compiled():
+        names = calls.read_text().split() if calls.exists() else []
+        calls.write_text("")
+        return sorted(names)
+
+    first = _build.build()
+    assert compiled() == ["a.cu", "b.cu"]
+    assert "ptxas of a.cu" in _build.build_log()
+    assert _build.build() == first and compiled() == []
+    (csrc / "b.cu").write_text("b, with a planted fault")
+    second = _build.build()
+    assert second != first and compiled() == ["b.cu"]
+    assert {"ptxas of a.cu", "ptxas of b.cu"} <= set(
+        _build.build_log().splitlines())
+    (csrc / "c.cuh").write_text("h2")
+    _build.build()
+    assert compiled() == ["a.cu", "b.cu"]
+
+
 def test_planted_faults_refuse_an_unknown_name():
     """``--planted-faults NAME ...`` plants only the faults named, and a
     name that is not one of them is refused before any copy is made."""
@@ -1677,6 +1770,30 @@ def test_planted_faults_refuse_an_unknown_name():
             "d256_f32_dkv_stale_q"} <= set(chip_smoke.PLANTED_FAULTS)
     with pytest.raises(chip_smoke.SmokeFailure, match="no planted fault named"):
         chip_smoke.planted_faults(["no_such_fault"])
+
+
+def test_planted_faults_report_a_copy_that_does_not_build(monkeypatch, tmp_path,
+                                                         capsys):
+    """A copy whose build fails is reported as a build failure of its fault,
+    with its build's output, and is not run: the run fails, as it would for
+    a fault not caught."""
+    site = "def build() -> Path:"
+    monkeypatch.setattr(chip_smoke, "PLANTED_FAULTS", {
+        "build_fails": ("raydp_tpu_torch/ops/_build.py", site,
+                        site + "\n    raise RuntimeError('planted: no build')")})
+    monkeypatch.setattr(chip_smoke._build, "build", lambda: None)
+    monkeypatch.setattr(chip_smoke._build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(chip_smoke.subprocess, "run", None)  # no check runs
+    try:
+        assert chip_smoke.planted_faults() == 1
+    finally:
+        shutil.rmtree(Path(chip_smoke.__file__).parent / "build" / "planted"
+                      / "build_fails", ignore_errors=True)
+    out = capsys.readouterr().out
+    assert "build_fails (raydp_tpu_torch/ops/_build.py): its copy did not build" in out
+    assert "planted: no build" in out
+    row = json.loads(out.strip().splitlines()[-1])["planted_faults"]["build_fails"]
+    assert row["build_failed"] and not row["caught"] and row["rc"] != 0
 
 
 def test_chunked_patterns_name_every_instantiation(monkeypatch):
@@ -1700,6 +1817,10 @@ def test_chunked_patterns_name_every_instantiation(monkeypatch):
                     "13__nv_bfloat16S1_")),
         "_ZN41_GLOBAL__N__1_flash_decode_int8_cu24flash_decode_int8_kernelILi256EfLb1EEEvPKT0_",
         "_ZN41_GLOBAL__N__1_flash_decode_int8_cu24flash_decode_int8_kernelILi256E13__nv_bfloat16Lb1EEEvPKT0_",
+        "_ZN45_GLOBAL__N__1_flash_backward_cu27flash_bwd_dq_chunked_kernelENS_7BwdArgsE",
+        "_ZN45_GLOBAL__N__1_flash_backward_cu28flash_bwd_dkv_chunked_kernelENS_7BwdArgsE",
+        "_ZN50_GLOBAL__N__1_flash_backward_sm90_cu32flash_bwd_dq_sm90_chunked_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16iiiiiif",
+        "_ZN50_GLOBAL__N__1_flash_backward_sm90_cu33flash_bwd_dkv_sm90_chunked_kernelE14CUtensorMap_stS0_S0_S0_S0_S0_P13__nv_bfloat16S2_iiiiiif",
     ]
     unchunked = f"{pre}26flash_decode_scores_kernelILi256EffLb0EEEvPKT0_"
     assert not any(chip_smoke.DECODE_KERNEL.search(n) for n in names)
@@ -1711,17 +1832,26 @@ def test_chunked_patterns_name_every_instantiation(monkeypatch):
     monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib: sass)
     monkeypatch.setattr(chip_smoke._build, "library_path", lambda: Path("x"))
     out = chip_smoke.chunked_report(entries)
-    assert len(out) == chip_smoke.CHUNKED_INSTANTIATIONS == 14
+    assert len(out) == chip_smoke.CHUNKED_INSTANTIATIONS == 18
     assert {"flash_fwd_chunked_kernel", "flash_fwd_chunked_kernel two-term",
             "flash_fwd_sm90_chunked_kernel two-term",
             "flash_decode_scores_kernel chunked q bf16 cache f32",
             "flash_decode_pv_kernel chunked q f32 cache bf16",
-            "flash_decode_int8_kernel chunked q bf16"} <= set(out)
+            "flash_decode_int8_kernel chunked q bf16",
+            "flash_bwd_dq_chunked_kernel", "flash_bwd_dkv_chunked_kernel",
+            "flash_bwd_dq_sm90_chunked_kernel",
+            "flash_bwd_dkv_sm90_chunked_kernel"} <= set(out)
     assert out["flash_fwd_sm90_chunked_kernel"]["HGMMA"] == 8
+    assert out["flash_bwd_dkv_sm90_chunked_kernel"]["UTMALDG"] == 6
+    assert "HGMMA" not in out["flash_bwd_dq_chunked_kernel"]
     spilled = dict(entries, **{names[0]: dict(row, spill_bytes=8)})
     with pytest.raises(chip_smoke.SmokeFailure, match="two-term spills"):
         chip_smoke.chunked_report(spilled)
-    with pytest.raises(chip_smoke.SmokeFailure, match="expected 14 chunked"):
+    spilled = dict(entries, **{names[-4]: dict(row, spill_bytes=8)})
+    with pytest.raises(chip_smoke.SmokeFailure,
+                       match="flash_bwd_dq_chunked_kernel spills"):
+        chip_smoke.chunked_report(spilled)
+    with pytest.raises(chip_smoke.SmokeFailure, match="expected 18 chunked"):
         chip_smoke.chunked_report({n: r for n, r in entries.items()
                                    if n != names[-1]})
     sass[names[2]] = {"HGMMA": 0, "IGMMA": 0, "UTMALDG": 6}
@@ -1742,13 +1872,23 @@ def test_past_256_dims_run_chunked_and_their_faults_are_planted():
     assert set(chip_smoke.PAST_256_BITS_DIMS) <= set(widths)
     root = Path(chip_smoke.__file__).resolve().parent
     faults = {"past256_f32_drop_last_chunk", "past256_bf16_drop_last_subtile",
-              "past256_decode_chain_restart"}
+              "past256_decode_chain_restart", "past256_f32_dq_drop_last_chunk",
+              "past256_f32_dkv_chain_restart", "past256_bf16_bwd_chain_restart",
+              "past256_bf16_dkv_dv_chunk_offset"}
     assert faults <= set(chip_smoke.PLANTED_FAULTS)
     for name in faults:
         source, site, _ = chip_smoke.PLANTED_FAULTS[name]
+        assert chip_smoke.planted_check_mode(source) == "--bf16-checks"
         text = (root / source).read_text()
         body = text[text.index(site) - 4000:text.index(site)]
         assert "chunk" in body or "n_dc" in body, name
+    # the quiet fallback past 256, in the dq wrapper: held to the kernel
+    # layer's checks, whose backward rows count the launches
+    source, site, fault = chip_smoke.PLANTED_FAULTS["past256_dq_plain_fallback"]
+    assert source.endswith("ops/flash_attention.py") and "> 256" in fault
+    assert chip_smoke.planted_check_mode(source) == "--bf16-checks"
+    assert chip_smoke.planted_check_mode(
+        "raydp_tpu_torch/estimator/stream.py") == "--fit-checks"
 
 
 def _force_cuda_route(monkeypatch):
@@ -1767,43 +1907,76 @@ def _force_cuda_route(monkeypatch):
 
 
 def test_check_backward_refused_on_the_cpu(monkeypatch):
-    """``check_backward_refused`` at D 512 on the wrappers' CUDA route: dq,
-    dk/dv and the autograd backward of ``flash_attention``, f32 and bf16,
-    each refused by the width rule, and no backward launch counted."""
-    _force_cuda_route(monkeypatch)
-    out = chip_smoke.check_backward_refused(torch.device("cpu"), 512)
-    assert len(out) == 6
-    assert all("not built yet" in msg for msg in out.values())
+    """(Named for the refusal check it replaced.) ``check_backward_launched``
+    on ``past_256_backward_cases`` at D 512 and 320 (2 heads, T 64), f32 and
+    bf16, on the wrappers' CUDA route with the library stood in for (it
+    computes what the kernels do at the padded width): every case within
+    its limit, two launches a case of dq and of dk/dv at least."""
+    from torch_kernel_standins import BackwardStandIn, force_cuda_route
+
+    lib = BackwardStandIn()
+    force_cuda_route(monkeypatch, lib)
+    # no card to wait for: the first launch's watch is the call itself
+    monkeypatch.setattr(chip_smoke, "finish_within", lambda fn, what: fn())
+    gen = torch.Generator().manual_seed(0)
+    for d in (512, 320):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = chip_smoke.past_256_backward_cases(2, 64, d)
+            out = chip_smoke.check_backward_launched(
+                gen, torch.device("cpu"), 2, dtype, cases)
+            assert len([k for k in out if "limit_ratio" not in k]) == 10
+    assert {width for _, width, _ in lib.calls} == {512}
+    assert len(lib.calls) >= 2 * 2 * 2 * 5 * 2
 
 
-def test_check_backward_refused_fails_a_backward_that_runs(monkeypatch):
-    """A planted fault: the dq wrapper takes its plain version past 256, as
-    a quiet fallback would; the check fails."""
+@pytest.mark.parametrize("fault", ["plain_fallback", "drop_chunk"])
+def test_check_backward_refused_fails_a_backward_that_runs(monkeypatch, fault):
+    """(Named for the refusal check it replaced.) Planted faults on the
+    wrappers' CUDA route at D 512: the dq wrapper takes its plain version,
+    as a quiet fallback would (caught by the launches), or the kernels
+    leave the last 256-column chunk of every gradient out (caught by the
+    plain version); the check fails."""
     from raydp_tpu_torch.ops import flash_attention as fa
+    from torch_kernel_standins import BackwardStandIn, force_cuda_route
 
-    _force_cuda_route(monkeypatch)
-    monkeypatch.setattr(fa, "flash_bwd_dq", fa.flash_bwd_dq_plain)
-    with pytest.raises(chip_smoke.SmokeFailure,
-                       match="flash_bwd_dq float32 D512 was not refused"):
-        chip_smoke.check_backward_refused(torch.device("cpu"), 512)
+    force_cuda_route(monkeypatch, BackwardStandIn(fault == "drop_chunk"))
+    monkeypatch.setattr(chip_smoke, "finish_within", lambda fn, what: fn())
+    if fault == "plain_fallback":
+        monkeypatch.setattr(fa, "flash_bwd_dq", fa.flash_bwd_dq_plain)
+    match = ("the backward float32 at D512 disagrees with its launches"
+             if fault == "plain_fallback"
+             else "disagrees")
+    with pytest.raises(chip_smoke.SmokeFailure, match=match):
+        chip_smoke.check_backward_launched(
+            torch.Generator().manual_seed(0), torch.device("cpu"), 2,
+            torch.float32, chip_smoke.past_256_backward_cases(2, 64, 512))
 
 
 # phase_lm_4096 on the CPU: bench.py's 4096-wide LM's head dim (512) at a
-# small width and depth, with a small engine
+# small width and depth, with short paths and a small engine
 LM_4096_CPU = dict(model=dict(vocab_size=64, d_model=1024, num_heads=2,
                               num_layers=2),
+                   bf16=dict(batch=1, seq=40, steps=2),
+                   f32=dict(batch=1, seq=32, steps=2), grad_t=32,
                    streams=2, prompt_lens=(3, 20),
                    engine=dict(capacity_tokens=64, page_tokens=16, max_seqs=2,
                                max_new_tokens=4))
 
 
 def test_phase_lm_4096_on_the_cpu():
-    """``phase_lm_4096`` on the CPU at head dim 512: served from f32 and
-    int8 caches and as a bf16 model, every stream to its budget, one
-    stream's logits held to the plain path, no launch (the plain versions
-    launch nothing); the record's keys and its summary line."""
+    """``phase_lm_4096`` on the CPU at head dim 512: flash trained in bf16
+    and f32 against ``attn_impl="full"`` within the phase's limits, the
+    loss falling; served from f32 and int8 caches and as a bf16 model,
+    every stream to its budget, one stream's logits held to the plain
+    path; no launch (the plain versions launch nothing); the record's keys
+    and its summary line, training rows with it."""
     rec = chip_smoke.phase_lm_4096(torch.device("cpu"), LM_4096_CPU)
     assert rec["launches"] == {}
+    for kind, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        loss_limit, grad_limit = chip_smoke.WIDE_LM_LIMITS[dtype]
+        row = rec["train"][kind]
+        assert row["loss_gap"] <= loss_limit and row["worst_grad_rel"] <= grad_limit
+        assert row["losses"][-1] < row["first_loss"]
     serving = rec["serve"]
     budget = LM_4096_CPU["engine"]["max_new_tokens"]
     for leg in ("f32", "bf16", "int8"):
@@ -1812,6 +1985,9 @@ def test_phase_lm_4096_on_the_cpu():
     assert 0 <= serving["int8_tokens_as_f32"] <= 2 * budget
     line = chip_smoke.lm_4096_summary(rec, "cpu")
     assert set(line["lm_4096"]["serve"]) == {"f32", "bf16", "int8"}
+    assert set(line["lm_4096"]["train"]) == {"bfloat16", "float32"}
+    assert {"flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+            "flash_bwd_dkv_f32"} <= set(chip_smoke.LM_4096_KERNELS)
     assert line["lm_4096"]["config"]["d_model"] == 1024
     assert chip_smoke.LM_4096["model"]["d_model"] == 4096
     assert chip_smoke.LM_4096["model"]["num_heads"] == 8
@@ -1845,8 +2021,9 @@ def test_past_256_flags_run_phase_1_and_their_part(monkeypatch, capsys, flag):
                         lambda device=None: make_gen())
     monkeypatch.setattr(chip_smoke, "phase_device",
                         lambda: ran.append("phase_device") or {"nvidia_smi": "card"})
-    checks = {"worst": {"flash_fwd D512": {"max_abs_err": 0.0}},
-              "backward_refused": {"flash_bwd_dq float32 D512": "refused"}}
+    checks = {"worst": {"flash_fwd D512": {"max_abs_err": 0.0},
+                        "flash_bwd_dq D512": {"max_abs_err": 0.01,
+                                              "limit_ratio": 0.5}}}
     monkeypatch.setattr(chip_smoke, "check_heads_past_256",
                         lambda gen, device: ran.append("check") or checks)
     monkeypatch.setattr(chip_smoke, "heads_past_256_times",
@@ -1855,7 +2032,10 @@ def test_past_256_flags_run_phase_1_and_their_part(monkeypatch, capsys, flag):
                                                "recompute": 1.5}})
     serve = {leg: {"decode_tok_s": 1.0, "ttft_ms_p50": 1.0, "tpot_ms_p50": 1.0,
                    "prefill_ms_p50": 1.0} for leg in ("f32", "bf16", "int8")}
-    rec = {"config": {}, "serve": dict(serve, logits={}, int8_tokens_as_f32=0),
+    train = {"shape": "s", "loss_gap": 0.0, "worst_grad_rel": 0.0,
+             "first_loss": 2.0, "losses": [1.0], "step_ms": 1.0, "tokens_s": 1.0}
+    rec = {"config": {}, "train": {"bfloat16": train, "float32": train},
+           "serve": dict(serve, logits={}, int8_tokens_as_f32=0),
            "launches": {}, "seconds": 1.0}
     monkeypatch.setattr(chip_smoke, "phase_lm_4096",
                         lambda device: ran.append("phase") or rec)
@@ -1863,9 +2043,10 @@ def test_past_256_flags_run_phase_1_and_their_part(monkeypatch, capsys, flag):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     if flag == "--lm-4096":
         assert ran == ["phase_device", "phase"] and "lm_4096" in line
+        assert line["lm_4096"]["train"]["float32"]["last_loss"] == 1.0
     else:
         assert ran == ["phase_device", "check", "times"]
         row = line["heads_past_256"]["flash_fwd D512"]
         assert row["ms"] == 1.0 and row["library"] == "MATH"
-        assert line["heads_past_256"]["backward_refused"] == [
-            "flash_bwd_dq float32 D512"]
+        row = line["heads_past_256"]["flash_bwd_dq D512"]
+        assert row["limit_ratio"] == 0.5 and row["ms"] is None

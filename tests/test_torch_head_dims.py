@@ -194,11 +194,10 @@ def _entry_cases(source: str, entry: str) -> list:
 @pytest.mark.parametrize("family", sorted(ENTRIES))
 def test_width_helper_agrees_with_the_dispatch(family):
     """Every D from 1 to 256 runs at the least built width at or above it,
-    a width each C entry of the family dispatches. Past 256 the forward and
-    decode families run at the next multiple of the chunk width (their
-    chunked bodies), and the backward families refuse it, saying it is not
-    built yet; a head dim below 1 is refused, the message naming the built
-    widths."""
+    a width each C entry of the family dispatches. Past 256 every family,
+    the backward's too, runs at the next multiple of the chunk width (their
+    chunked bodies); a head dim below 1 is refused, the message naming the
+    built widths."""
     built = fa.KERNEL_HEAD_DIMS
     assert built == (8, 16, 32, 64, 128, 256)
     for source, entry in ENTRIES[family]:
@@ -206,13 +205,7 @@ def test_width_helper_agrees_with_the_dispatch(family):
     for d in range(1, 257):
         assert fa.kernel_head_dim(d, family) == min(w for w in built if w >= d), d
     for d in (257, 512):
-        if family.startswith("flash_bwd"):
-            with pytest.raises(ValueError, match=rf"{family}: head_dim {d}: the "
-                               r"backward at head dims past 256 is not built "
-                               r"yet"):
-                fa.kernel_head_dim(d, family)
-        else:
-            assert fa.kernel_head_dim(d, family) == 512, d
+        assert fa.kernel_head_dim(d, family) == 512, d
     with pytest.raises(ValueError, match=rf"{family}: head_dim 0 has no "
                        r"CUDA kernel \(built for \(8, 16, 32, 64, 128, "
                        r"256\)\)"):

@@ -3,10 +3,10 @@
 models/transformer.py vs raydp_tpu/...).
 
 Head dim 512 is bench.py's LM at its 4096 width (``BENCH_LM_D=4096``, 8
-heads). On the card the serving kernels (the f32 and bf16 forward, K4a,
-K4b) take such a D zero-padded to a multiple of ``HEAD_CHUNK`` (256)
-through their chunked bodies; the backward past 256 is not built, and its
-wrappers refuse it before any launch. Here, on the CPU, the wrappers run
+heads). On the card every family (the f32 and bf16 forward and backward,
+K4a, K4b) takes such a D zero-padded to a multiple of ``HEAD_CHUNK`` (256)
+through its chunked bodies (the backward's against the JAX package:
+tests/test_torch_backward_past_256.py). Here, on the CPU, the wrappers run
 their plain versions, the JAX side its Pallas kernels in interpret mode;
 inputs are made with numpy from a seed and handed to both.
 
@@ -43,17 +43,17 @@ from raydp_tpu.ops.flash_attention import flash_decode as jax_flash_decode
 from raydp_tpu.ops.quantization import quantize_int8 as jax_quantize_int8
 from raydp_tpu_torch.models.convert import params_from_flax
 from raydp_tpu_torch.models.transformer import TransformerLM
-from raydp_tpu_torch.ops import _build
 from raydp_tpu_torch.ops import flash_attention as fa
 from raydp_tpu_torch.ops.quantization import quantize_int8
+from torch_kernel_standins import BackwardStandIn, force_cuda_route
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
 # 512 itself, 1024 (four chunks), and 320, which runs padded to 512
 HEAD_DIMS = (512, 1024, 320)
 CSRC = Path(fa.__file__).resolve().parents[1] / "csrc"
-# the serving families' C entries, which take a multiple of the chunk width
-# past 256 through their chunked bodies, and the backward's, which do not
+# the serving families' C entries and the backward's, which take a multiple
+# of the chunk width past 256 through their chunked bodies
 SERVING_ENTRIES = {
     "flash_fwd_f32": ("flash_attention.cu", "rtt_flash_fwd"),
     "flash_fwd_bf16": ("flash_forward_sm90.cu", "flash_fwd_sm90"),
@@ -223,7 +223,7 @@ def test_padded_decode_equals_the_true_width(int8):
 
 
 # ---------------------------------------------------------------------------
-# the width rule, the dispatch in the sources, the backward's refusal
+# the width rule, the dispatch in the sources, the backward's padded route
 # ---------------------------------------------------------------------------
 
 
@@ -258,42 +258,54 @@ def test_serving_widths_past_256_agree_with_the_dispatch(family):
 
 @pytest.mark.parametrize("family", sorted(BACKWARD_ENTRIES))
 def test_backward_widths_past_256_are_refused(family):
-    """The backward's C entries take nothing past 256, and the width rule
-    refuses it, naming the kernel and saying it is not built yet."""
+    """(Named when the backward refused these widths.) The backward's C
+    entries send a multiple of the chunk width past 256 to their chunked
+    bodies, with no ``case`` of their own, and the width rule gives every
+    D past 256 the next multiple of the chunk width."""
     for source, entry in BACKWARD_ENTRIES[family]:
-        assert "kHeadChunk" not in _entry_body(source, entry), (source, entry)
-    for d in (257, 512, 1024):
-        with pytest.raises(ValueError, match=rf"{family}: head_dim {d}: the "
-                           r"backward at head dims past 256 is not built yet"):
-            fa.kernel_head_dim(d, family)
+        body = _entry_body(source, entry)
+        assert "d > kHeadChunk && d % kHeadChunk == 0" in body, (source, entry)
+        assert all(int(c) <= 256 for c in re.findall(r"case (\d+):", body))
+    for d in (257, 512, 1024, 1536):
+        width = fa.kernel_head_dim(d, family)
+        assert width % fa.HEAD_CHUNK == 0 and width - fa.HEAD_CHUNK < d <= width
 
 
 def test_backward_past_256_raises_before_any_launch(monkeypatch):
-    """The wrappers' CUDA route at D 512 (the device test forced): dq,
-    dk/dv and ``flash_attention``'s autograd backward raise the width
-    rule's refusal before the library is loaded or anything launches, with
-    no fallback; the forward (its plain version here) is untouched."""
-    def no_build():
-        raise AssertionError("the backward reached the kernel library")
-
-    monkeypatch.setattr(_build, "load", no_build)
-    monkeypatch.setattr(fa, "_on_cpu", lambda *tensors: False)
-    monkeypatch.setattr(fa, "flash_attention_call",
-                        lambda q, k, v, *a, **kw:
-                        fa.flash_attention_call_plain(q, k, v, *a, **kw))
-    q, k, v, g = _t(*_arrays((1, 1, 16, 512), 4, seed=700))
-    lse = torch.zeros((1, 1, 16))
-    before = dict(fa.LAUNCHES)
-    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_backward_blocks):
-        with pytest.raises(ValueError, match="not built yet"):
-            fn(q, k, v, lse, lse, g)
+    """(Named when the backward refused D past 256.) The wrappers' CUDA
+    route at D 320 and 512 (the device test forced): dq, dk/dv and
+    ``flash_attention``'s autograd backward reach the kernel library (a
+    stand-in computing what the kernels do) with the padded width, 512,
+    and the scale of the true D, one launch counted each, and cut the
+    outputs back to D, equal to the plain versions at D."""
+    lib = BackwardStandIn()
+    force_cuda_route(monkeypatch, lib)
+    for d in (320, 512):
+        q, k, v, g = _t(*_arrays((1, 2, 40, d), 4, seed=700 + d))
+        lse, dsum = _t(*_arrays((1, 2, 40), 2, seed=710 + d))
+        lse = lse.abs() + 4.0  # p = exp(s - lse) stays below 1
+        lib.calls.clear()
+        before = dict(fa.LAUNCHES)
+        args = (q, k, v, lse, dsum, g, 8, 0, True)
+        got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+        ref = fa.flash_backward_blocks_plain(*args)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            assert a.shape == (1, 2, 40, d), name
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=name)
+        assert lib.calls == [("rtt_flash_bwd_dq", 512, d**-0.5),
+                             ("rtt_flash_bwd_dkv", 512, d**-0.5)]
+        assert {n: fa.LAUNCHES[n] - before[n]
+                for n in ("flash_bwd_dq", "flash_bwd_dkv")} == {
+                    "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     qr = q.clone().requires_grad_()
-    out = fa.flash_attention(qr, k, v, causal=True)
-    with pytest.raises(ValueError, match="flash_bwd_dq: head_dim 512: the "
-                       "backward at head dims past 256 is not built yet"):
-        out.sum().backward()
-    assert qr.grad is None
-    assert fa.LAUNCHES == before
+    kr, vr = (x.clone().requires_grad_() for x in (k, v))
+    fa.flash_attention(qr, kr, vr, causal=True).sum().backward()
+    qp, kp, vp = (x.clone().requires_grad_() for x in (q, k, v))
+    fa.flash_attention_call_plain(qp, kp, vp, 0, 0, True)[0].sum().backward()
+    for a, b in ((qr, qp), (kr, kp), (vr, vp)):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-4)
+    assert lib.calls[-2:] == [("rtt_flash_bwd_dq", 512, 512**-0.5),
+                              ("rtt_flash_bwd_dkv", 512, 512**-0.5)]
 
 
 # ---------------------------------------------------------------------------

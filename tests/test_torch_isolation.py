@@ -332,19 +332,20 @@ def test_mesh_feeds_without_device_raise(no_cuda):
 
 def test_cuda_only_paths_refuse_cpu_kernels():
     """On the CPU the wrappers take the plain versions; a head dim past the
-    widest the CUDA kernels were built for is refused before any launch on
-    the card by the backward (not built yet), while the forward and the
-    decodes run it padded to a multiple of the chunk width (any head dim up
-    to 256 runs, padded to a built width), and mixed devices are refused
-    outright."""
+    widest the CUDA kernels were built for runs on the card padded to a
+    multiple of the chunk width, in every family (any head dim up to 256
+    runs, padded to a built width); a head dim below 1 is refused, and
+    mixed devices are refused outright."""
     from raydp_tpu_torch.ops import flash_attention as fa
 
     q = torch.zeros(1, 1, 4, 16)
     assert fa.kernel_head_dim(257, "flash_fwd") == 512
     assert fa.kernel_head_dim(512, "flash_decode") == 512  # bench.py's 4096 LM
-    with pytest.raises(ValueError, match="flash_bwd_dq: head_dim 512: the "
-                       "backward at head dims past 256 is not built yet"):
-        fa.kernel_head_dim(512, "flash_bwd_dq")
+    assert fa.kernel_head_dim(512, "flash_bwd_dq") == 512  # its training
+    assert fa.kernel_head_dim(320, "flash_bwd_dkv") == 512
+    with pytest.raises(ValueError, match="flash_bwd_dq: head_dim 0 has no "
+                       "CUDA kernel"):
+        fa.kernel_head_dim(0, "flash_bwd_dq")
     assert fa.kernel_head_dim(256, "flash_bwd_dq") == 256  # bench.py's wide LM
     assert fa.kernel_head_dim(129, "flash_fwd") == 256
     assert fa.kernel_head_dim(16, "flash_bwd_dq") == 16  # the small LMs' heads
