@@ -716,11 +716,13 @@ def port_kernel_pattern() -> re.Pattern:
     csrc/*.cu, which sit in an anonymous namespace (PyTorch, too, has
     kernels in anonymous namespaces, under ``at::native::``). The profiler
     names a template kernel with its return type ("void ...") and a plain
-    one without it."""
+    one without it; an explicit specialisation (``name<256>``) is the
+    template's kernel."""
     names = sorted({
         found for src in _build.CSRC_DIR.glob("*.cu")
         for found in re.findall(
-            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)"
+            r"\s*(?:<[^<>()]*>)?\s*\(",
             src.read_text())})
     return re.compile(
         rf"(?:void )?\(anonymous namespace\)::({'|'.join(names)})\b")
@@ -1535,11 +1537,14 @@ def wide_forward_cases(heads, t, d) -> tuple:
 def wide_backward_cases(heads, t, d) -> tuple:
     """The backward's cases at a head dim past 128, (q shape, Tk, q_off,
     k_off, causal): [1, heads, t, D] causal (the f32 step's shape), T 1500
-    causal (off the tiles), T 200 against Tk 136 not causal, and q_off <
-    k_off (rows with no live key), the last three at 2 heads."""
+    causal (off the tiles), T 200 against Tk 136 not causal, a ring's
+    block pair at global offsets (queries from 300 against 812 keys from
+    0), causal, and q_off < k_off (rows with no live key), the last four at
+    2 heads."""
     return (((1, heads, t, d), t, 0, 0, True),
             ((1, 2, 1500, d), 1500, 0, 0, True),
             ((1, 2, 200, d), 136, 0, 0, False),
+            ((1, 2, 512, d), 812, 300, 0, True),
             ((1, 2, 512, d), 512, 0, 300, True))
 
 
@@ -1551,8 +1556,10 @@ def check_wide_heads(gen, device) -> dict:
     ``bf16_limit``, ``bf16_bwd_limit``, ``bf16_decode_limit``):
 
     - the forward, f32 and bf16, both bodies (``wide_forward_cases``);
-    - the backward, f32 and bf16 (``wide_backward_cases``), rows with no
-      live key getting dq 0;
+    - the backward, f32 and bf16 (``wide_backward_cases``: causal, causal
+      off every tile, not causal, at a ring's global offsets and with rows
+      that see no key), rows with no live key getting dq 0, every call
+      through the kernels (``check_backward_launched``);
     - at D 256 only, the bf16 training step's shape [2, 8, 8192, 256]
       causal, the forward and the backward (``check_train_shape``);
     - K4a (f32 and bf16 q, an f32 cache) and K4b (against K4a on the
@@ -1573,8 +1580,9 @@ def check_wide_heads(gen, device) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             fold(d, forward_cases(gen, device, dtype,
                                   wide_forward_cases(WIDE_HEADS, t, d)))
-            fold(d, check_backward_cases(gen, device, WIDE_HEADS, dtype,
-                                         wide_backward_cases(WIDE_HEADS, t, d)))
+            fold(d, check_backward_launched(
+                gen, device, WIDE_HEADS, dtype,
+                wide_backward_cases(WIDE_HEADS, t, d)))
         fold(d, check_decode(gen, device, WIDE_HEADS, t, d, DECODE_LENS))
         if d != 256:
             continue
@@ -9627,8 +9635,14 @@ PLANTED_FAULTS = {
     # the bf16 dk/dv split: warpgroup 1's dK += dS^T Q reads the dO tile
     "d256_dkv_dk_reads_do": (
         SM90_BWD_SOURCE,
-        "const uint32_t ring = wg == 0 ? ring_do : ring_q;",
-        "const uint32_t ring = ring_do;"),
+        "const uint32_t grad_b = wg == 0 ? s_do : s_q;",
+        "const uint32_t grad_b = s_do;"),
+    # the bf16 dk/dv hand-off: warpgroup 1 reads the other buffer's P^T
+    # (the tile before's, or the next tile's as it is written)
+    "d256_dkv_other_pt_buffer": (
+        SM90_BWD_SOURCE,
+        "const float4 p4 = handoff[(kStep / 8 * buf + j) * 128];",
+        "const float4 p4 = handoff[(kStep / 8 * (buf ^ 1) + j) * 128];"),
     # the f32 forward's 4 x 4 score tiles take rows 8 apart, as the 8 x 4
     # tiles of D 128 do: a thread's rows overlap its neighbours'
     "d256_f32_score_rows": (

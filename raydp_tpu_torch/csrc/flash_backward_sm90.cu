@@ -21,42 +21,64 @@
 // The design: two kernels, as in the JAX package, each output owned by one
 // block, so no atomics and a fixed order of sums (the same bits on every
 // launch); both recompute s and dp, the work the bound above counts.
-// - flash_bwd_dkv_sm90_kernel: one block per (bh, 128-key tile), tile 0
-//   (the most causal work) first; two consumer warpgroups of 64 keys and a
-//   producer warpgroup whose first thread issues every load (setmaxnreg
-//   24/240). K and V come once; Q, dO and the tile's lse and dsum come in
-//   64-query tiles through a two-stage mbarrier ring (lse and dsum through
-//   a 1-D tensor map). Per q-tile: S^T = K Q^T and dP^T = V dO^T (wgmma
-//   m64n64k16, both operands K-major); P^T = exp(S^T scale - lse[col]) and
-//   dS^T = P^T (dP^T - dsum[col]) scale in f32, each rounded to bf16 A
-//   fragments in registers; dV += P^T dO and dK += dS^T Q, with dO and Q
-//   read MN-major (the transpose bit) from the same swizzled tiles the
-//   first products read K-major. dK and dV (2 x 64 f32 a thread at D 128)
-//   stay in registers until the end.
-// - flash_bwd_dq_sm90_kernel: one block per (bh, 128-query tile), the
-//   longest causal rows first, the same warpgroups (64 queries each). Q
-//   and dO come once, K and V in 64-key tiles through the ring; a row's
-//   lse and dsum stay in registers. Per key tile: S = Q K^T and dP = dO V^T;
-//   dS to bf16 fragments; dQ += dS K, K read MN-major.
+// - flash_bwd_dkv_sm90_kernel at D 64 and 128: one block per (bh, 128-key
+//   tile), tile 0 (the most causal work) first; two consumer warpgroups of 64
+//   keys and a producer warpgroup whose first thread issues every load
+//   (setmaxnreg 24/240). K and V come once; Q, dO and the tile's lse and dsum
+//   come in 64-query tiles through a two-stage mbarrier ring (lse and dsum
+//   through a 1-D tensor map). Per q-tile: S^T = K Q^T and dP^T = V dO^T (wgmma
+//   m64n64k16, both operands K-major); P^T = exp(S^T scale - lse[col]) and dS^T
+//   = P^T (dP^T - dsum[col]) scale in f32, each rounded to bf16 A fragments in
+//   registers; dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major (the
+//   transpose bit) from the same swizzled tiles the first products read
+//   K-major. dK and dV (2 x 64 f32 a thread at D 128) stay in registers until
+//   the end.
+// - flash_bwd_dq_sm90_kernel at D 64 and 128: one block per (bh, 128-query
+//   tile), the longest causal rows first, the same warpgroups (64 queries
+//   each). Q and dO come once, K and V in 64-key tiles through the ring; a
+//   row's lse and dsum stay in registers. Per key tile: S = Q K^T and dP =
+//   dO V^T; dS to bf16 fragments; dQ += dS K, K read MN-major.
 // - Causal: a block walks only the tiles that can see its rows or keys; a
-//   warpgroup skips a tile where none of its pairs is live, and only tiles
-//   that cross the diagonal, the offsets or a ragged edge are masked
-//   (live ? exp(...) : 0, never exp of NEG_INF, so rows with no live key,
-//   lse = NEG_INF, get exactly 0). The 3-D tensor maps [BH, T, D] read
-//   rows past T as zeros, not the next head's.
+//   warpgroup skips a tile where none of its pairs is live (D 256 dq masks
+//   it), and only tiles that cross the diagonal, the offsets or a ragged
+//   edge are masked (live ? exp(...) : 0; at D 256 exp of kNegInf, also
+//   exactly 0; never exp of NEG_INF, so rows with no live key, lse =
+//   NEG_INF, get exactly 0). The 3-D tensor maps [BH, T, D] read rows past
+//   T as zeros, not the next head's.
 // - Rounding p and ds to bf16 before their products is this port's
 //   declared difference from the reference, which feeds them in f32
 //   (chip_smoke.bf16_bwd_limit is the bound it is held to).
-// - Head dim 256 keeps both designs with smaller tiles, each block within
-//   227 KB of shared memory and each consumer thread within its 240
-//   registers. dq: 128 own queries and key tiles of 32 (wgmma m64n32k16
-//   for S and dP): Q and dO 128 KB, the ring 2 x (16 + 16) KB, 192 KB; dQ
-//   a m64n256 accumulator, 128 registers a thread. dk/dv: 64 own keys, the
-//   ring 2 x (32 + 32) KB of Q and dO tiles of 64, 192 KB; dK and dV
-//   together would be 256 registers a thread, so the warpgroups split
-//   them: warpgroup 0 computes S^T, P^T and dV += P^T dO, warpgroup 1 S^T,
-//   dP^T, dS^T and dK += dS^T Q, each over the block's 64 keys (S^T is
-//   computed twice: 10 D operations a live pair in place of 8 D).
+// - Head dim 256 has bodies of its own (explicit specialisations <256>),
+//   since neither design above fits a block's 227 KB of shared memory and
+//   a consumer thread's 240 registers there (a m64n256 accumulator is 128
+//   registers a thread).
+//   dk/dv: one block per (bh, 64 keys); K and V 64 KB, the ring 2 x (32 +
+//   32) KB of Q and dO tiles of 64 queries, two P^T buffers of 16 KB: 224
+//   KB. dK and dV together would be 256 registers a thread, so each
+//   warpgroup keeps one over the block's 64 keys and computes one of the
+//   products that feed both: warpgroup 0 S^T and P^T (exp, masking, lse),
+//   which it writes in f32 to a buffer, then dV += P^T dO; warpgroup 1
+//   dP^T, then, once that tile's P^T is written (named barriers, one pair
+//   a buffer), dS^T = P^T (dP^T - dsum) scale and dK += dS^T Q. S^T is
+//   computed once, 8 D operations a live pair, and each warpgroup issues
+//   two products a tile; with two buffers warpgroup 0 writes the next
+//   tile's P^T while warpgroup 1 reads this one's. p crosses in f32, so
+//   dS^T and dK see the bits that a warpgroup computing p itself would.
+//   dq: one block per (bh, 128 queries), 64 a warpgroup; Q and dO 128 KB,
+//   K and V in 32-key tiles (S, dP and dQ fit 240 registers only so)
+//   through a ring of three stages, 3 x (16 + 16) KB: 224 KB. A warpgroup
+//   issues key tile i's S and dP and then tile i - 1's dQ += dS K, forms
+//   tile i's dS while that product runs, and hands tile i - 1's stage back
+//   once it is done: the third stage holds tile i + 1 meanwhile. dq masks
+//   a tile where a warpgroup has no live pair rather than skip it.
+//   In both, each warpgroup issues the next tile's first product before it
+//   waits for this tile's last, so its products run back to back; every
+//   group is waited for within the loop's body, since ptxas serialises
+//   wgmma (C7515, C7520) whose registers are in flight across a branch or
+//   the back edge. A live key is a column up to each row's last (dq) or
+//   within each key's first and last query (dk/dv): two registers a row,
+//   not a flag an element, so the softmax of a tile fits beside the
+//   accumulator in flight.
 // - Head dims below 64 (8, 16 and 32) run the D 64 bodies, as the forward
 //   does (flash_forward_sm90.cu): tensor maps over the true d columns, the
 //   TMA's zero fill past them, so s and dp are exact, and dq, dk and dv
@@ -68,9 +90,10 @@
 //   Q and dO over all of D would not fit (256 KB at D 512), and the
 //   gradients over all of D would take 256 registers a thread, so the
 //   design is cut by the gradient's columns: a grid axis over 256-column
-//   chunks, the block's own chunk a m64n256 accumulator as at D 256 (dq
-//   128 queries; dk/dv 64 keys, dV and dK split over the warpgroups with
-//   S^T computed by both). S and dP are summed over all of D from a ring
+//   chunks, the block's own chunk a m64n256 accumulator (dq: 128 queries,
+//   64 a warpgroup; dk/dv: 64 keys, warpgroup 0 dV, warpgroup 1 dK, each
+//   computing S^T itself, warpgroup 1 also dP^T). S and dP are summed over
+//   all of D from a ring
 //   of (A, B) 64-column sub-tile pairs (dq: Q or dO of its queries with K
 //   or V of a 32-key tile; dk/dv: K or V of its keys with Q or dO of a
 //   32-query tile; 20 / 12 KB a stage, 8 / 12 stages), the tensor cores
@@ -86,38 +109,25 @@
 //
 // What it leaves for later: a single kernel with a fixed-order dq
 // reduction in place of recomputing s and dp twice, persistent blocks,
-// overlap of one tile's softmax with the next tile's products (each tile
-// waits for its own), and TMA stores of the outputs.
+// below D 256 and past it overlap of one tile's softmax with the next
+// tile's products (each tile waits for its own), and TMA stores of the
+// outputs.
 
 #include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kStages = 2;     // ring depth
+constexpr int kStages = 2;     // ring depth (D 256 dq: DqTiles<256>)
 constexpr int kConsumers = 2;  // warpgroups
 constexpr int kThreads = (kConsumers + 1) * 128;
 
-// Each kernel's tiles at head dim D: its own rows (dk/dv: keys, dq:
-// queries) and a ring tile's rows (dk/dv: queries, dq: keys). kSplit: the
-// dk/dv warpgroups share the block's 64 keys, one computing dV, the other
-// dK; otherwise each owns 64 of the rows and computes both.
-template <int D>
-struct DkvTiles {
-  static constexpr bool kSplit = D > 128;
-  static constexpr int kOwnRows = kSplit ? 64 : 128;
-  static constexpr int kStep = 64;
-};
-template <int D>
-struct DqTiles {
-  static constexpr int kOwnRows = 128;
-  static constexpr int kStep = D > 128 ? 32 : 64;
-};
-
 // Shared-memory layout in bytes from a 1024-aligned base: two own tiles
-// (K, V or Q, dO), two ring tiles per stage (Q, dO or K, V), the ring's
-// lse and dsum (dk/dv only), then the barriers (own, full[], empty[]).
-template <int D, int kOwnRows, int kStep>
+// (K, V or Q, dO), two ring tiles per stage of kS (Q, dO or K, V), the
+// ring's lse and dsum (dk/dv only), kHandoff bytes of buffers between the
+// warpgroups (D 256 dk/dv: P^T), then the barriers (own, full[], empty[]).
+template <int D, int kOwnRows, int kStep, int kS = kStages, int kHandoff = 0>
 struct BwdLayout {
+  static constexpr int kRingStages = kS;
   static constexpr int kSub = D / 64;
   static constexpr int kOwnSub = kOwnRows * 128;  // 64 bf16 columns
   static constexpr int kStepSub = kStep * 128;
@@ -126,21 +136,43 @@ struct BwdLayout {
   static constexpr int kA = 0;
   static constexpr int kB = kA + kOwn;
   static constexpr int kX = kB + kOwn;
-  static constexpr int kY = kX + kStages * kRing;
-  static constexpr int kStats = kY + kStages * kRing;  // lse[], dsum[]
-  static constexpr int kBar = kStats + 2 * kStages * kStep * 4;
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kY = kX + kS * kRing;
+  static constexpr int kStats = kY + kS * kRing;  // lse[], dsum[]
+  static constexpr int kHand = kStats + 2 * kS * kStep * 4;
+  static constexpr int kBar = kHand + kHandoff;
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kS) + 1024;
+};
+
+// Each kernel's tiles at head dim D: its own rows (dk/dv: keys, dq:
+// queries), a ring tile's rows (dk/dv: queries, dq: keys) and its layout.
+// At D 256 the dk/dv warpgroups share the block's 64 keys (one computing
+// dV, the other dK) with two 64 x 64 f32 P^T buffers between them, and dq
+// rings 32-key tiles through three stages; otherwise each warpgroup owns
+// 64 of the rows and computes every output.
+template <int D>
+struct DkvTiles {
+  static constexpr int kOwnRows = D > 128 ? 64 : 128;
+  static constexpr int kStep = 64;
+  using Layout = BwdLayout<D, kOwnRows, kStep, kStages,
+                           (D > 128 ? 2 * kStep * 64 * 4 : 0)>;
+};
+template <int D>
+struct DqTiles {
+  static constexpr int kOwnRows = 128;
+  static constexpr int kStep = D > 128 ? 32 : 64;
+  using Layout = BwdLayout<D, kOwnRows, kStep, (D > 128 ? 3 : kStages)>;
 };
 
 struct Bars {
   uint32_t own, full, empty;  // full / empty: + 8 * stage
 };
 
+template <int kS>
 __device__ __forceinline__ Bars init_bars(uint32_t at) {
-  const Bars bars{at, at + 8, at + 8 + 8 * kStages};
+  const Bars bars{at, at + 8, at + 8 + 8 * kS};
   if (threadIdx.x == 0) {
     mbar_init(bars.own, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kS; ++s) {
       mbar_init(bars.full + 8 * s, 1);
       mbar_init(bars.empty + 8 * s, kConsumers * 128);
     }
@@ -179,8 +211,61 @@ __device__ __forceinline__ void product_ss(float (&acc)[N / 2], uint32_t s_a,
   }
 }
 
+// The dk/dv producer (one thread): K and V of the block's keys from key0
+// once, then for each of n_tiles query tiles from `first` on its Q and dO
+// and their lse and dsum (q, do, lse, dsum: the maps).
+template <class L, int kStep>
+__device__ __forceinline__ void produce_dkv(
+    const Bars& bars, uint32_t s_k, uint32_t s_v, uint32_t s_q, uint32_t s_do,
+    uint32_t s_lse, uint32_t s_dsum, const CUtensorMap* k,
+    const CUtensorMap* v, const CUtensorMap* q, const CUtensorMap* dout,
+    const CUtensorMap* lse, const CUtensorMap* dsum, int key0, int first,
+    int n_tiles, int t, int bh) {
+  constexpr int kS = L::kRingStages;
+  load_own<L>(s_k, k, s_v, v, bars, key0, bh);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    const int q0 = (first + it) * kStep;
+    const uint32_t full = bars.full + 8 * s;
+    mbar_wait(bars.empty + 8 * s, ((it / kS) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * L::kRing + 2 * 4 * kStep);
+#pragma unroll
+    for (int j = 0; j < L::kSub; ++j) {
+      const uint32_t at = s * L::kRing + j * L::kStepSub;
+      tma_load(s_q + at, q, full, 64 * j, q0, bh);
+      tma_load(s_do + at, dout, full, 64 * j, q0, bh);
+    }
+    tma_load_1d(s_lse + 4 * kStep * s, lse, full, bh * t + q0);
+    tma_load_1d(s_dsum + 4 * kStep * s, dsum, full, bh * t + q0);
+  }
+}
+
+// The dq producer (one thread): Q and dO of the block's queries from row0
+// once, then K and V of each of n_tiles key tiles from key 0 on.
+template <class L, int kStep>
+__device__ __forceinline__ void produce_dq(
+    const Bars& bars, uint32_t s_q, uint32_t s_do, uint32_t s_k, uint32_t s_v,
+    const CUtensorMap* q, const CUtensorMap* dout, const CUtensorMap* k,
+    const CUtensorMap* v, int row0, int n_tiles, int bh) {
+  constexpr int kS = L::kRingStages;
+  load_own<L>(s_q, q, s_do, dout, bars, row0, bh);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    const uint32_t full = bars.full + 8 * s;
+    mbar_wait(bars.empty + 8 * s, ((it / kS) & 1) ^ 1);
+    mbar_expect_tx(full, 2 * L::kRing);
+#pragma unroll
+    for (int j = 0; j < L::kSub; ++j) {
+      const uint32_t at = s * L::kRing + j * L::kStepSub;
+      tma_load(s_k + at, k, full, 64 * j, it * kStep, bh);
+      tma_load(s_v + at, v, full, 64 * j, it * kStep, bh);
+    }
+  }
+}
+
 // q/do [BH, T, D], k/v [BH, Tk, D] bf16 (through the tensor maps), lse and
-// dsum [BH * T] f32 (1-D maps) -> dk, dv [BH, Tk, D] bf16.
+// dsum [BH * T] f32 (1-D maps) -> dk, dv [BH, Tk, D] bf16, D 64 or 128
+// (D 256: the specialisation below).
 // grid (BH, ceil(Tk / DkvTiles<D>::kOwnRows)), kThreads threads.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -194,11 +279,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           __nv_bfloat16* __restrict__ dv, int t, int tk,
                           int d, int q_off, int k_off, int causal,
                           float scale) {
+  static_assert(D <= 128, "D 256 has its own body");
   using T = DkvTiles<D>;
-  constexpr bool kSplit = T::kSplit;
   constexpr int kOwnRows = T::kOwnRows;
   constexpr int kStep = T::kStep;
-  using L = BwdLayout<D, kOwnRows, kStep>;
+  using L = typename T::Layout;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -210,7 +295,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t s_dsum = s_lse + 4 * kStep * kStages;  // + 4 kStep stage
   const float* stats =
       reinterpret_cast<const float*>(smem_raw + (base - raw) + L::kStats);
-  const Bars bars = init_bars(base + L::kBar);
+  const Bars bars = init_bars<kStages>(base + L::kBar);
 
   const int bh = blockIdx.x;
   const int key0 = blockIdx.y * kOwnRows;
@@ -224,22 +309,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     // producer: one thread issues every TMA load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
-      load_own<L>(s_k, &tm_k, s_v, &tm_v, bars, key0, bh);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const int q0 = (first + it) * kStep;
-        const uint32_t full = bars.full + 8 * s;
-        mbar_wait(bars.empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kRing + 2 * 4 * kStep);
-#pragma unroll
-        for (int j = 0; j < L::kSub; ++j) {
-          const uint32_t at = s * L::kRing + j * L::kStepSub;
-          tma_load(s_q + at, &tm_q, full, 64 * j, q0, bh);
-          tma_load(s_do + at, &tm_do, full, 64 * j, q0, bh);
-        }
-        tma_load_1d(s_lse + 4 * kStep * s, &tm_lse, full, bh * t + q0);
-        tma_load_1d(s_dsum + 4 * kStep * s, &tm_dsum, full, bh * t + q0);
-      }
+      produce_dkv<L, kStep>(bars, s_k, s_v, s_q, s_do, s_lse, s_dsum, &tm_k,
+                            &tm_v, &tm_q, &tm_do, &tm_lse, &tm_dsum, key0,
+                            first, n_tiles, t, bh);
     }
     return;
   }
@@ -248,24 +320,21 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  // the warpgroup's 64 keys, from byte own_row of the own tiles on; split:
-  // both warpgroups take the block's 64, wg 0 for dV and wg 1 for dK
-  const uint32_t own_row = kSplit ? 0 : 64 * 128 * wg;
-  const int wkey0 = key0 + (kSplit ? 0 : 64 * wg);
+  // the warpgroup's 64 keys, from byte own_row of the own tiles on
+  const uint32_t own_row = 64 * 128 * wg;
+  const int wkey0 = key0 + 64 * wg;
   const int r_in = 16 * warp + lane / 4;  // + 8 * half: key in the warpgroup
-  const bool with_dk = !kSplit || wg == 1;  // dP^T and dS^T needed
 
-  // dK (split: wg 0's dV), and dV where one warpgroup computes both
   float dk_acc[D / 2];
-  float dv_acc[kSplit ? 1 : D / 2];
+  float dv_acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) dk_acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (kSplit ? 1 : D / 2); ++i) dv_acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dv_acc[i] = 0.f;
   float st[kStep / 2];   // S^T, then P^T
   float dpt[kStep / 2];  // dP^T, then dS^T
   uint32_t pa[kStep / 4];
-  uint32_t da[kSplit ? 1 : kStep / 4];
+  uint32_t da[kStep / 4];
 
   if (n_tiles > 0) mbar_wait(bars.own, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -280,7 +349,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (!dead) {
       wgmma_fence();
       product_ss<D, L, kStep>(st, s_k, own_row, ring_q);
-      if (with_dk) product_ss<D, L, kStep>(dpt, s_v, own_row, ring_do);
+      product_ss<D, L, kStep>(dpt, s_v, own_row, ring_do);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(st);
@@ -301,48 +370,28 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         const float p =
             live ? __expf(__fsub_rn(__fmul_rn(st[i], scale), lse[col])) : 0.f;
-        if (with_dk) {
-          dpt[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[i], dsum[col])), scale);
-        }
+        dpt[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpt[i], dsum[col])), scale);
         st[i] = p;
       }
-      if constexpr (kSplit) {  // pa: wg 0's P^T, wg 1's dS^T
-        if (wg == 0) {
-          to_a_fragments(st, pa);
-        } else {
-          to_a_fragments(dpt, pa);
-        }
-      } else {
-        to_a_fragments(st, pa);
-        to_a_fragments(dpt, da);
-      }
+      to_a_fragments(st, pa);
+      to_a_fragments(dpt, da);
 
       // dV += P^T dO and dK += dS^T Q over the tile's queries in steps of
-      // 16 (16 rows of 128 bytes), dO and Q MN-major; split: wg 0's dV
-      // accumulates in dk_acc
+      // 16 (16 rows of 128 bytes), dO and Q MN-major
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       fence_regs(pa);
       fence_regs(da);
       wgmma_fence();
-      if constexpr (kSplit) {
-        const uint32_t ring = wg == 0 ? ring_do : ring_q;
 #pragma unroll
-        for (int kk = 0; kk < kStep / 16; ++kk) {
-          wgmma_pv<D>(dk_acc, pa + 4 * kk,
-                      sw128_desc(ring + kk * 16 * 128, L::kStepSub, 1024));
-        }
-      } else {
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        wgmma_pv<D>(dv_acc, pa + 4 * kk,
+                    sw128_desc(ring_do + kk * 16 * 128, L::kStepSub, 1024));
+      }
 #pragma unroll
-        for (int kk = 0; kk < kStep / 16; ++kk) {
-          wgmma_pv<D>(dv_acc, pa + 4 * kk,
-                      sw128_desc(ring_do + kk * 16 * 128, L::kStepSub, 1024));
-        }
-#pragma unroll
-        for (int kk = 0; kk < kStep / 16; ++kk) {
-          wgmma_pv<D>(dk_acc, da + 4 * kk,
-                      sw128_desc(ring_q + kk * 16 * 128, L::kStepSub, 1024));
-        }
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        wgmma_pv<D>(dk_acc, da + 4 * kk,
+                    sw128_desc(ring_q + kk * 16 * 128, L::kStepSub, 1024));
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -364,20 +413,16 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (8 * nb >= d) break;  // the zero-filled columns past d
       const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
       const int i = 4 * nb + 2 * h;
-      if constexpr (kSplit) {  // wg 0 holds dV, wg 1 dK
-        *reinterpret_cast<__nv_bfloat162*>((wg == 0 ? dv : dk) + idx) =
-            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(dk + idx) =
-            __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + idx) =
-            __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
-      }
+      *reinterpret_cast<__nv_bfloat162*>(dk + idx) =
+          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + idx) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
 
-// The same inputs (lse and dsum as plain pointers) -> dq [BH, T, D] bf16.
+// The same inputs (lse and dsum as plain pointers) -> dq [BH, T, D] bf16,
+// D 64 or 128 (D 256: the specialisation below).
 // grid (BH, ceil(T / DqTiles<D>::kOwnRows)), kThreads threads.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -390,16 +435,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          __nv_bfloat16* __restrict__ dq, int t, int tk,
                          int d, int q_off, int k_off, int causal,
                          float scale) {
+  static_assert(D <= 128, "D 256 has its own body");
   constexpr int kOwnRows = DqTiles<D>::kOwnRows;
   constexpr int kStep = DqTiles<D>::kStep;
-  using L = BwdLayout<D, kOwnRows, kStep>;
+  using L = typename DqTiles<D>::Layout;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base + L::kA;
   const uint32_t s_do = base + L::kB;
   const uint32_t s_k = base + L::kX;  // + stage * L::kRing
   const uint32_t s_v = base + L::kY;  // + stage * L::kRing
-  const Bars bars = init_bars(base + L::kBar);
+  const Bars bars = init_bars<kStages>(base + L::kBar);
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * kOwnRows;
@@ -412,19 +458,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
-      load_own<L>(s_q, &tm_q, s_do, &tm_do, bars, row0, bh);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const uint32_t full = bars.full + 8 * s;
-        mbar_wait(bars.empty + 8 * s, ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(full, 2 * L::kRing);
-#pragma unroll
-        for (int j = 0; j < L::kSub; ++j) {
-          const uint32_t at = s * L::kRing + j * L::kStepSub;
-          tma_load(s_k + at, &tm_k, full, 64 * j, it * kStep, bh);
-          tma_load(s_v + at, &tm_v, full, 64 * j, it * kStep, bh);
-        }
-      }
+      produce_dq<L, kStep>(bars, s_q, s_do, s_k, s_v, &tm_q, &tm_do, &tm_k,
+                           &tm_v, row0, n_tiles, bh);
     }
     return;
   }
@@ -520,18 +555,398 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// The chunked bodies (head dims past 256, d a multiple of kHeadChunk): a
-// grid axis over the gradient's 256-column chunks, its accumulator a
-// m64n256 one as at D 256. S (S^T) and dP (dP^T) are summed over all of D
-// through a ring of kSStages (A, B) sub-tile pairs of 64 columns, which the
-// producer streams in the consumers' order (for each walked tile: S's
-// sub-tiles over D, then dP's), and the tile's operand of the gradient's
-// product, the block's own 256 columns (dq: K; dk/dv: Q and dO, with the
-// tile's lse and dsum), comes through a ring of kGStages. kARows: the A
-// sub-tiles' rows (dq: its 128 queries of Q or dO; dk/dv: its 64 keys of K
-// or V); kN the walked tile's rows (32, so that S, dP and a chunk's
-// partial sum fit beside the m64n256 accumulator in 240 registers);
-// kGTiles the operand tiles a G stage holds.
+// Named barriers between the D 256 dk/dv warpgroups (0 is
+// __syncthreads'), each joining both consumer warpgroups: kPtFull + b,
+// warpgroup 0 has written P^T buffer b; kPtFree + b, warpgroup 1 has read
+// it.
+constexpr int kPtFull = 1;
+constexpr int kPtFree = 3;
+
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kConsumers * 128)
+               : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kConsumers * 128)
+               : "memory");
+}
+
+// A warpgroup's m64n256 f32 accumulator as bf16 into rows [row0, row0 +
+// 64) of out [BH, rows, d] (head bh): rows past `rows` and the zero-filled
+// columns past d left out.
+__device__ __forceinline__ void store_rows_256(__nv_bfloat16* out,
+                                               const float (&acc)[128],
+                                               int bh, int rows, int d,
+                                               int row0, int r_in, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + r_in + 8 * h;
+    if (row >= rows) continue;
+    const size_t grow = static_cast<size_t>(bh) * rows + row;
+#pragma unroll
+    for (int nb = 0; nb < 32; ++nb) {
+      if (8 * nb >= d) break;
+      const size_t idx = grow * d + 8 * nb + 2 * (lane & 3);
+      const int i = 4 * nb + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(out + idx) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// Column i of a thread's m64nN accumulator less the lane's share,
+// col_of(i, lane) - 2 (lane & 3): a constant once the loop is unrolled.
+__device__ __forceinline__ constexpr int col_in_quad(int i) {
+  return 8 * (i >> 2) + (i & 1);
+}
+
+// Wait until ring tile j (of kS stages) has arrived.
+template <int kS>
+__device__ __forceinline__ void wait_tile(const Bars& bars, int j) {
+  mbar_wait(bars.full + 8 * (j % kS), (j / kS) & 1);
+}
+
+// acc (m64n256) += A B over kStep rows: A bf16 fragments in registers (a
+// tile's 64 rows by kStep), B the kStep x 256 ring tile from `tile` on,
+// read MN-major, in k16 steps (one sub-tile row block of 16 a step).
+template <class L, int kStep>
+__device__ __forceinline__ void product_rs(float (&acc)[128],
+                                           const uint32_t (&a)[kStep / 4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk) {
+    wgmma_pv<256>(acc, a + 4 * kk,
+                  sw128_desc(tile + kk * 16 * 128, L::kStepSub, 1024));
+  }
+}
+
+// dk/dv at D 256 (d 129-256 arrives zero-padded to 256): one block per
+// (bh, 64 keys), key tile 0 first, K and V once, Q, dO, lse and dsum in
+// 64-query tiles through the two-stage ring. Both warpgroups take the
+// block's 64 keys, warpgroup 0 for dV and warpgroup 1 for dK, and share
+// the products that feed both: per tile warpgroup 0 computes S^T = K Q^T
+// and P^T = exp(S^T scale - lse) (0 where masked), writes P^T in f32 to
+// buffer tile % 2 and does dV += P^T dO; warpgroup 1 computes dP^T = V
+// dO^T, reads that tile's P^T, forms dS^T = P^T (dP^T - dsum) scale and
+// does dK += dS^T Q. The walk starts at the first query tile that sees a
+// key of the block, so every tile has a live pair for both warpgroups.
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_sm90_kernel<256>(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_lse,
+                               const __grid_constant__ CUtensorMap tm_dsum,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int t, int tk,
+                               int d, int q_off, int k_off, int causal,
+                               float scale) {
+  using T = DkvTiles<256>;
+  using L = T::Layout;
+  constexpr int kStep = T::kStep;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base + L::kA;
+  const uint32_t s_v = base + L::kB;
+  const uint32_t s_q = base + L::kX;   // + stage * L::kRing
+  const uint32_t s_do = base + L::kY;  // + stage * L::kRing
+  const uint32_t s_lse = base + L::kStats;              // + 4 kStep stage
+  const uint32_t s_dsum = s_lse + 4 * kStep * kStages;  // + 4 kStep stage
+  uint8_t* const at = smem_raw + (base - raw);
+  const float* stats = reinterpret_cast<const float*>(at + L::kStats);
+  const Bars bars = init_bars<kStages>(base + L::kBar);
+
+  const int bh = blockIdx.x;
+  const int key0 = blockIdx.y * T::kOwnRows;
+  const int q_tiles = (t + kStep - 1) / kStep;
+  int first = 0;  // causal: the first q-tile with a query at or after key0
+  if (causal) first = min(q_tiles, max(0, k_off + key0 - q_off) / kStep);
+  const int n_tiles = q_tiles - first;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
+      produce_dkv<L, kStep>(bars, s_k, s_v, s_q, s_do, s_lse, s_dsum, &tm_k,
+                            &tm_v, &tm_q, &tm_do, &tm_lse, &tm_dsum, key0,
+                            first, n_tiles, t, bh);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int r_in = 16 * warp + lane / 4;  // + 8 * half: key in the block
+  // warpgroup 0: S^T from K and the Q tile, dV from the dO tile;
+  // warpgroup 1: dP^T from V and the dO tile, dK from the Q tile
+  const uint32_t first_a = wg == 0 ? s_k : s_v;
+  const uint32_t first_b = wg == 0 ? s_q : s_do;
+  const uint32_t grad_b = wg == 0 ? s_do : s_q;
+  // P^T buffer b: 64 x 64 f32 in the accumulator's register order, float4
+  // j of thread tid at [(8 b + j) 128 + tid] (the same slot in both
+  // warpgroups, whose accumulators map registers to (key, query) alike)
+  float4* const handoff = reinterpret_cast<float4*>(at + L::kHand) + tid;
+
+  float acc[128];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float x[kStep / 2];  // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+  uint32_t xa[kStep / 4];
+
+  // Each tile: the softmax (wg 0) or dS^T (wg 1) of the first product,
+  // then the second product, then the next tile's first product before the
+  // second is waited for. Every group is waited for inside the body, so no
+  // product is in flight across a branch or the loop's back edge (ptxas
+  // serialises wgmma whose registers are live there).
+  if (n_tiles > 0) {  // tile 0's first product
+    mbar_wait(bars.own, 0);
+    wait_tile<kStages>(bars, 0);
+    wgmma_fence();
+    product_ss<256, L, kStep>(x, first_a, 0, first_b);
+    wgmma_commit();
+    wgmma_wait_all();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int q0 = (first + it) * kStep;
+    const int buf = it % 2;
+    fence_regs(x);
+    if (wg == 0) {
+      const float* lse = stats + kStep * s;
+      // a key's live queries, columns [first_q, last_q] less the lane's
+      // share: from the causal diagonal to t - 1, none past tk
+      const int last_q = t - 1 - q0 - 2 * (lane & 3);
+      int first_q[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key = key0 + r_in + 8 * h;
+        first_q[h] = key >= tk ? kStep
+                     : causal  ? k_off + key - q_off - q0 - 2 * (lane & 3)
+                               : -kStep;
+      }
+#pragma unroll
+      for (int i = 0; i < kStep / 2; ++i) {
+        const int c = col_in_quad(i);
+        const bool live = c >= first_q[half_of(i)] && c <= last_q;
+        // masked: exp of kNegInf, exactly 0
+        const float e =
+            __fsub_rn(__fmul_rn(x[i], scale), lse[col_of(i, lane)]);
+        x[i] = __expf(live ? e : kNegInf);
+      }
+      if (it >= 2) named_sync(kPtFree + buf);  // tile it - 2's P^T was read
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j) {
+        handoff[(kStep / 8 * buf + j) * 128] =
+            make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+      }
+      named_arrive(kPtFull + buf);
+    } else {
+      const float* dsum = stats + kStep * (kStages + s);
+      named_sync(kPtFull + buf);
+#pragma unroll
+      for (int j = 0; j < kStep / 8; ++j) {
+        const float4 p4 = handoff[(kStep / 8 * buf + j) * 128];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * j + c;
+          x[i] = __fmul_rn(
+              __fmul_rn(p[c], __fsub_rn(x[i], dsum[col_of(i, lane)])), scale);
+        }
+      }
+      if (it + 2 < n_tiles) named_arrive(kPtFree + buf);
+    }
+    to_a_fragments(x, xa);
+
+    // dV += P^T dO or dK += dS^T Q (the tile's dO or Q MN-major), then the
+    // next tile's first product
+    const uint32_t grad_tile = grad_b + s * L::kRing;
+    if (it + 1 < n_tiles) {
+      wgmma_fence();
+      product_rs<L, kStep>(acc, xa, grad_tile);
+      wgmma_commit();
+      wait_tile<kStages>(bars, it + 1);
+      wgmma_fence();
+      product_ss<256, L, kStep>(x, first_a, 0,
+                                first_b + ((it + 1) % kStages) * L::kRing);
+      wgmma_commit();
+      wgmma_wait_one();  // the second product
+      mbar_arrive(bars.empty + 8 * s);  // this thread is done with the stage
+      wgmma_wait_all();
+    } else {
+      wgmma_fence();
+      product_rs<L, kStep>(acc, xa, grad_tile);
+      wgmma_commit();
+      wgmma_wait_all();
+      mbar_arrive(bars.empty + 8 * s);
+    }
+  }
+  fence_regs(acc);
+
+  store_rows_256(wg == 0 ? dv : dk, acc, bh, tk, d, key0, r_in, lane);
+}
+
+// One D 256 dq tile's dS in place of its dP (m64nN accumulators of the
+// warpgroup's 64 rows from wrow0 against keys from kt0): p = exp(s scale -
+// lse), exactly 0 where masked (exp of kNegInf), dS = p (dP - dsum) scale.
+// A key is live up to its row's last: the causal diagonal, and tk - 1.
+template <int N>
+__device__ __forceinline__ void dq_tile_ds(const float (&sc)[N / 2],
+                                           float (&dp)[N / 2], int kt0,
+                                           int wrow0, int r_in, int lane,
+                                           int tk, int q_off, int k_off,
+                                           int causal, float scale,
+                                           const float (&row_lse)[2],
+                                           const float (&row_dsum)[2]) {
+  int last[2];  // each row's last live column, less the lane's share
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int key = tk - 1;
+    if (causal) key = min(key, q_off + wrow0 + r_in + 8 * h - k_off);
+    last[h] = key - kt0 - 2 * (lane & 3);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int h = half_of(i);
+    const float e = __fsub_rn(__fmul_rn(sc[i], scale), row_lse[h]);
+    const float p = __expf(col_in_quad(i) <= last[h] ? e : kNegInf);
+    dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i], row_dsum[h])), scale);
+  }
+}
+
+// dq at D 256 (d 129-256 arrives zero-padded to 256): one block per (bh,
+// 128 queries), the longest causal rows first, 64 a warpgroup; Q and dO
+// once, K and V in 32-key tiles through a three-stage ring (tile i - 1's K
+// is still read while tile i is in use and tile i + 1 loads). Per key tile
+// S = Q K^T and dP = dO V^T, dS to bf16 fragments, dQ += dS K.
+template <>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel<256>(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ dsum,
+                              __nv_bfloat16* __restrict__ dq, int t, int tk,
+                              int d, int q_off, int k_off, int causal,
+                              float scale) {
+  using T = DqTiles<256>;
+  using L = T::Layout;
+  constexpr int kStep = T::kStep;
+  constexpr int kS = L::kRingStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base + L::kA;
+  const uint32_t s_do = base + L::kB;
+  const uint32_t s_k = base + L::kX;  // + stage * L::kRing
+  const uint32_t s_v = base + L::kY;  // + stage * L::kRing
+  const Bars bars = init_bars<kS>(base + L::kBar);
+
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * T::kOwnRows;
+  const int rows = min(T::kOwnRows, t - row0);
+  int k_end = tk;  // keys [0, k_end) can be live for some row of the block
+  if (causal) k_end = max(0, min(tk, q_off + row0 + rows - k_off));
+  const int n_tiles = (k_end + kStep - 1) / kStep;
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers * 128 && n_tiles > 0) {
+      produce_dq<L, kStep>(bars, s_q, s_do, s_k, s_v, &tm_q, &tm_do, &tm_k,
+                           &tm_v, row0, n_tiles, bh);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wrow0 = row0 + 64 * wg;       // first query row of the warpgroup
+  const int r_in = 16 * warp + lane / 4;  // + 8 * half: row in the warpgroup
+  const uint32_t own_row = 64 * 128 * wg;
+
+  float row_lse[2];
+  float row_dsum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow0 + r_in + 8 * h;
+    const size_t grow = static_cast<size_t>(bh) * t + row;
+    row_lse[h] = row < t ? lse[grow] : 0.f;
+    row_dsum[h] = row < t ? dsum[grow] : 0.f;
+  }
+  float dq_acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) dq_acc[i] = 0.f;
+  float sc[kStep / 2];  // S
+  float dp[kStep / 2];  // dP, then dS
+  uint32_t da[kStep / 4];
+
+  // Tile i's S and dP are issued with tile i - 1's dQ += dS K behind them;
+  // tile i's dS is formed while that product runs, then it is waited for
+  // and tile i - 1's stage goes back. Every tile of the block is computed in
+  // both warpgroups (where one has no live pair, its rows past T or before
+  // every key, the mask makes p and dS exactly 0), so that no product sits
+  // in a branch, and every group is waited for inside the loop's body
+  // (ptxas serialises wgmma whose registers are live across either).
+  if (n_tiles > 0) {
+    mbar_wait(bars.own, 0);
+    wait_tile<kS>(bars, 0);
+    wgmma_fence();
+    product_ss<256, L, kStep>(sc, s_q, own_row, s_k);
+    product_ss<256, L, kStep>(dp, s_do, own_row, s_v);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    dq_tile_ds<kStep>(sc, dp, 0, wrow0, r_in, lane, tk, q_off, k_off, causal,
+                      scale, row_lse, row_dsum);
+    to_a_fragments(dp, da);
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % kS;
+      wait_tile<kS>(bars, it);
+      wgmma_fence();
+      product_ss<256, L, kStep>(sc, s_q, own_row, s_k + s * L::kRing);
+      product_ss<256, L, kStep>(dp, s_do, own_row, s_v + s * L::kRing);
+      wgmma_commit();
+      product_rs<L, kStep>(dq_acc, da, s_k + ((it - 1) % kS) * L::kRing);
+      wgmma_commit();
+      wgmma_wait_one();  // this tile's S and dP
+      fence_regs(sc);
+      fence_regs(dp);
+      dq_tile_ds<kStep>(sc, dp, it * kStep, wrow0, r_in, lane, tk, q_off,
+                        k_off, causal, scale, row_lse, row_dsum);
+      wgmma_wait_all();  // the last tile's dQ product
+      mbar_arrive(bars.empty + 8 * ((it - 1) % kS));
+      to_a_fragments(dp, da);
+    }
+    wgmma_fence();
+    product_rs<L, kStep>(dq_acc, da, s_k + ((n_tiles - 1) % kS) * L::kRing);
+    wgmma_commit();
+    wgmma_wait_all();
+    mbar_arrive(bars.empty + 8 * ((n_tiles - 1) % kS));
+  }
+  fence_regs(dq_acc);
+
+  store_rows_256(dq, dq_acc, bh, t, d, wrow0, r_in, lane);
+}
+
+// The chunked bodies (head dims past 256, d a multiple of kHeadChunk): a grid
+// axis over the gradient's 256-column chunks, a warpgroup's chunk of it in one
+// m64n256 accumulator. S (S^T) and dP (dP^T) are summed over all of D through a
+// ring of kSStages (A, B) sub-tile pairs of 64 columns, which the producer
+// streams in the consumers' order (for each walked tile: S's sub-tiles over D,
+// then dP's), and the tile's operand of the gradient's product, the block's own
+// 256 columns (dq: K; dk/dv: Q and dO, with the tile's lse and dsum), comes
+// through a ring of kGStages. kARows: the A sub-tiles' rows (dq: its 128
+// queries of Q or dO; dk/dv: its 64 keys of K or V); kN the walked tile's rows
+// (32, so that S, dP and a chunk's partial sum fit beside the m64n256
+// accumulator in 240 registers); kGTiles the operand tiles a G stage holds.
 template <int kARows, int kN, int kSStagesT, int kGTiles>
 struct ChunkedLayout {
   static constexpr int kSStages = kSStagesT;
@@ -800,10 +1215,10 @@ flash_bwd_dq_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tm_q,
 // The same inputs (lse and dsum through 1-D maps) -> dk, dv [BH, Tk, d]
 // bf16, d a multiple of kHeadChunk past it. grid (BH * d / kHeadChunk,
 // ceil(Tk / 64)): block x takes head x / n_out and columns [(x % n_out) *
-// 256, + 256) of its 64 keys, key tile 0 (the most causal work) first. As
-// at D 256 the warpgroups split the gradient: both compute S^T over the
-// block's 64 keys, warpgroup 0 then dV += P^T dO, warpgroup 1 dP^T, dS^T
-// and dK += dS^T Q (warpgroup 0 passes the dP^T stages on).
+// 256, + 256) of its 64 keys, key tile 0 (the most causal work) first. The
+// warpgroups split the gradient, each over the block's 64 keys, and each
+// computes S^T itself: warpgroup 0 then dV += P^T dO, warpgroup 1 dP^T,
+// dS^T and dK += dS^T Q (warpgroup 0 passes the dP^T stages on).
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_chunked_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   const __grid_constant__ CUtensorMap tm_k,
@@ -980,7 +1395,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_bwd_dq_sm90_kernel<D>;
-  const size_t smem = BwdLayout<D, T::kOwnRows, T::kStep>::kBytes;
+  const size_t smem = T::Layout::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (t + T::kOwnRows - 1) / T::kOwnRows);
@@ -1012,7 +1427,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = flash_bwd_dkv_sm90_kernel<D>;
-  const size_t smem = BwdLayout<D, T::kOwnRows, T::kStep>::kBytes;
+  const size_t smem = T::Layout::kBytes;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(bh, (tk + T::kOwnRows - 1) / T::kOwnRows);

@@ -1767,7 +1767,8 @@ def test_planted_faults_refuse_an_unknown_name():
     """``--planted-faults NAME ...`` plants only the faults named, and a
     name that is not one of them is refused before any copy is made."""
     assert {"d256_fwd_k_subtile", "d256_dkv_dk_reads_do", "d256_f32_score_rows",
-            "d256_f32_dkv_stale_q"} <= set(chip_smoke.PLANTED_FAULTS)
+            "d256_f32_dkv_stale_q", "d256_dkv_other_pt_buffer"} <= set(
+                chip_smoke.PLANTED_FAULTS)
     with pytest.raises(chip_smoke.SmokeFailure, match="no planted fault named"):
         chip_smoke.planted_faults(["no_such_fault"])
 

@@ -1,8 +1,8 @@
 """The port stands alone and never runs quietly on the CPU.
 
 - An AST scan of every module of ``raydp_tpu_torch``, of ``chip_smoke.py``,
-  ``serve_windows.py`` and ``dlrm_steps.py`` finds no import of ``jax``,
-  ``flax`` or ``raydp_tpu``.
+  ``serve_windows.py``, ``dlrm_steps.py`` and ``bwd256_turns.py`` finds no
+  import of ``jax``, ``flax`` or ``raydp_tpu``.
 - The kernel layer stands below obs: no module under
   ``raydp_tpu_torch/ops/`` imports ``raydp_tpu_torch.obs`` (obs reads the
   kernels' FLOP reports from ``ops._flops``, never the other way round).
@@ -38,7 +38,7 @@ FORBIDDEN = ("jax", "flax", "raydp_tpu")
 def _port_files():
     files = sorted((ROOT / "raydp_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "serve_windows.py",
-              ROOT / "dlrm_steps.py"]
+              ROOT / "dlrm_steps.py", ROOT / "bwd256_turns.py"]
     return files
 
 
