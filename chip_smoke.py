@@ -574,6 +574,9 @@ WIDE_HEADS = 8
 # f32 prefill row bit for bit and the decodes' edges at PAST_256_BITS_DIMS
 PAST_256_HEAD_DIMS = (512, 320, 1024, 1536)
 PAST_256_BITS_DIMS = (512, 1024)
+# an odd number of 256-column chunks: the f32 backward's last block of a
+# row or key block keeps one chunk alone
+PAST_256_ODD_DIM = 768
 SEED = 0
 # bench.py bench_transformer_lm on its chip: batch 2, T 8192, Adam 3e-4,
 # tokens from default_rng(17); 1 warm step, 8 timed
@@ -1645,6 +1648,7 @@ def check_heads_past_256(gen, device) -> dict:
       zero offsets, causal off every tile, at a ring's global offsets, with
       rows that see no key, and not causal), rows with no live key getting
       dq 0, every call through the kernels (``check_backward_launched``);
+      the f32 backward also at ``PAST_256_ODD_DIM`` (a chunk alone);
     - at D 512 only, the bf16 training step's shape [2, 8, 8192, 512]
       causal, the forward and the backward (``check_train_shape``);
     - K4a (f32 and bf16 q, an f32 cache) and K4b (against K4a on the
@@ -1676,6 +1680,9 @@ def check_heads_past_256(gen, device) -> dict:
                                   dims=(d,)))
         for cache in ("f32", "bf16", "int8"):
             fold(d, check_decode_edges(gen, device, 2, t, d, cache))
+    fold(PAST_256_ODD_DIM, check_backward_launched(
+        gen, device, WIDE_HEADS, torch.float32,
+        past_256_backward_cases(WIDE_HEADS, t, PAST_256_ODD_DIM)))
     out["worst"] = worst
     log(f"head dims past 256 {PAST_256_HEAD_DIMS}: worst |kernel - plain| "
         f"(and bf16 |kernel - plain| / limit) {worst}")
@@ -8729,11 +8736,13 @@ def heads_past_256_times(device, d: int = 512) -> dict:
     lengths need. ``recompute``: the chunked bodies' operations over one
     pass, n = D / 256: (n + 1) / 2 for the forward (every column chunk's
     block computes all of S) and for K4b (each column chunk's block its
-    scores), (4 n + 2) / 6 for dq (S and dP over all of D in every
-    chunk's block, dS K over its own columns), (n + 1) / 2 for dk/dv (S^T
-    and dP^T likewise, against dK's and dV's own columns; the bf16 body's
-    second S^T not counted), about 1 for K4a (its scores once; each
-    column chunk's block repeats p only); not counted in the bound."""
+    scores), (4 m + 2) / 6 for dq (S and dP over all of D in each of a
+    row block's m blocks, dS K over their own columns), (m + 1) / 2 for
+    dk/dv (S^T and dP^T likewise, against dK's and dV's own columns; the
+    bf16 body's second S^T not counted), m = n for the bf16 bodies (a
+    chunk a block) and ceil(n / 2) for the f32 ones (two chunks a block),
+    about 1 for K4a (its scores once; each column chunk's block repeats p
+    only); not counted in the bound."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     heads, t = WIDE_HEADS, SMALL_HEADS_T
     factor = (d / fa.HEAD_CHUNK + 1) / 2
@@ -8768,8 +8777,11 @@ def heads_past_256_times(device, d: int = 512) -> dict:
             (*bwd_inputs(gen, shape4, dtype, device), 0, 0, True), kind,
             2 if kind == "bf16" else 4, suffix, b * heads * tt * (tt + 1) // 2,
             pick=True)
-        out[f"flash_bwd_dq{suffix}"]["recompute"] = (4 * n_dc + 2) / 6
-        out[f"flash_bwd_dkv{suffix}"]["recompute"] = (n_dc + 1) / 2
+        # blocks a row block computing s and dp: the f32 bodies take two
+        # gradient chunks a block, the bf16 bodies one
+        m = -(-n_dc // 2) if kind == "f32" else n_dc
+        out[f"flash_bwd_dq{suffix}"]["recompute"] = (4 * m + 2) / 6
+        out[f"flash_bwd_dkv{suffix}"]["recompute"] = (m + 1) / 2
     b = len(DECODE_LENS)
     kv_len = torch.tensor(DECODE_LENS, dtype=torch.int32, device=device)
     mask = (torch.arange(t, device=device)[None, :]
@@ -9673,18 +9685,29 @@ PLANTED_FAULTS = {
         DECODE_SOURCE,
         "qs, krow, dc == 0 ? 0.f : *s_at);",
         "qs, krow, 0.f) + (dc == 0 ? 0.f : *s_at);"),
-    # the f32 dq's chunked body leaves the last 256-column chunk of q, k,
-    # do and v out of every s and dp
+    # the f32 dq's chunked body leaves the last 256-column chunk (its
+    # pieces) of q, k, do and v out of every s and dp
     "past256_f32_dq_drop_last_chunk": (
         BWD_SOURCE,
-        "dots_8x4<D, R, false>((group ? dos : qs) + hi * P,",
-        "if (dc + 1 < n_dc) dots_8x4<D, R, false>((group ? dos : qs) + hi * P,"),
-    # the f32 dk/dv's chunked body restarts each chunk's s^T and dp^T
-    # chains at 0: only the last chunk's columns count
+        "      piece_dots(st + ((group ? kRows : 0) + hi) * PP,\n"
+        "                 st + (2 * kRows + (group ? kTile : 0) + lo) * PP, sd);\n"
+        "      if (s == n_pieces - 1) {  // p and ds:",
+        "      if (s + kHeadChunk / kPiece < n_pieces)\n"
+        "      piece_dots(st + ((group ? kRows : 0) + hi) * PP,\n"
+        "                 st + (2 * kRows + (group ? kTile : 0) + lo) * PP, sd);\n"
+        "      if (s == n_pieces - 1) {  // p and ds:"),
+    # the f32 dk/dv's chunked body restarts its s^T and dp^T chains at 0 at
+    # every 256-column chunk: only the last chunk's columns count
     "past256_f32_dkv_chain_restart": (
         BWD_SOURCE,
-        "dots_8x4<D, R, false>((group ? vs : ks) + hi * P,",
-        "dots_8x4<D, R, true>((group ? vs : ks) + hi * P,"),
+        "if (s == 0) {  // a new tile's s^T or dp^T",
+        "if (s % (kHeadChunk / kPiece) == 0) {  // a new tile's s^T or dp^T"),
+    # the f32 dk/dv's chunked body takes the products of the block's second
+    # chunk against the first chunk's Q and dO
+    "past256_f32_dkv_second_chunk_first_operand": (
+        BWD_SOURCE,
+        "if (n_own > 1) chunk_accumulate<kKvStepQueries>(w, m + kSlab, acc[1]);",
+        "if (n_own > 1) chunk_accumulate<kKvStepQueries>(w, m, acc[1]);"),
     # the bf16 chunked backward keeps only the last 256-column chunk's
     # share of S and dP (the chunks' f32 sum restarted at each)
     "past256_bf16_bwd_chain_restart": (

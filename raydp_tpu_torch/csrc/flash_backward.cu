@@ -80,20 +80,55 @@
 // zero-padded by the wrapper to the next of these widths.
 //
 // Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512) arrive
-// zero-padded by the wrapper to a multiple of kHeadChunk (256) and run
-// flash_bwd_dq_chunked_kernel / flash_bwd_dkv_chunked_kernel: D 256's layout
-// (BwdLayout<256>, 204 / 212 KB) and phases, plus a grid axis over the
-// gradient's 256-column chunks (dq's columns, or dk's and dv's). For each
-// walked tile a block stages, one 256-column chunk at a time, that chunk of
-// its own rows and of the tile (Q, dO, K, V; cp.async, waited before the
-// chunk's products) and each thread carries its s or dp chains on through
-// every chunk in registers, one __fmaf_rn chain over d ascending as at D
-// 256; then p and ds as at D 256, and the products against the block's own
-// chunk of the operand (dq: K; dk/dv: Q and dO), staged again unless the
-// last chunk was the block's own. The chunks' copies are loops (the
-// forward's, unrolled with a run-time pitch, spilled). Every chunk's block
-// recomputes s and dp over all of D: with n = D / 256 chunks, (4 n + 2) / 6
-// times dq's operations of one pass and (n + 1) / 2 times dk/dv's.
+// zero-padded by the wrapper to a multiple of kHeadChunk (256), n = D / 256
+// chunks, and run flash_bwd_dq_chunked_kernel /
+// flash_bwd_dkv_chunked_kernel. A block of 256 threads owns 32 rows
+// (queries for dq, keys for dk/dv) and two 256-column chunks of their
+// gradient (m = ceil(n / 2) blocks a row block; an odd n leaves the last
+// block one chunk), so s and dp are computed once for 512 gradient
+// columns: at D 512 once in all, at D 1024 and 1536 (4 m + 2) / 6 (dq)
+// and (m + 1) / 2 (dk/dv) times one pass's operations. The budget that
+// shapes the layout:
+// - Shared memory, 227 KB a block. An f32 row at D 512 with its 16-byte pad
+//   is 2064 bytes: 32 own rows of Q and dO (or K and V) are 132 KB and a
+//   64-row walked tile at full width another 132 KB (264 for Q and dO). So
+//   nothing is held at full width: everything streams from L2 through a
+//   ring of two 99.5 KB stages, each step's copies (16-byte cp.async)
+//   issued a whole step before it, behind the step before's arithmetic,
+//   one barrier a step. A tile is n_pieces = D / 128 s-steps and then its
+//   product steps. An s-step stages a 128-column piece of the own rows and
+//   of the tile (32 + 32 + 64 + 64 rows at a 132-float pitch; the last also
+//   the tile's lse and dsum for dk/dv). A product step stages rows of the
+//   tile at the block's two chunks (dq: 32 keys of K, two steps a tile;
+//   dk/dv: 16 queries of Q and of dO, four), so that a thread's 16 columns
+//   of a chunk are all in one step. So the own rows are staged once a tile
+//   (they do not fit beside the ring), and the walked tile's gradient
+//   operand twice (dq: K; dk/dv: Q and dO), for s or dp and again for the
+//   products: bytes from L2 in place of recomputed operations. At D 512 a
+//   tile reads 512 KB (dq) and 640 KB (dk/dv), where one block a chunk
+//   read 832 and 896 KB over a row block's two blocks. dq: the ring, the
+//   [32][64] ds tile and the rows' lse and dsum, 208 KB; dk/dv: the ring
+//   and the p^T and ds^T tiles, 216 KB. A ring of four stages of 64-column
+//   pieces (more steps, each with its barrier) measured slower (PERF.md).
+// - Registers. The s-steps carry each thread's 4 x 4 s or dp chains
+//   through the pieces (the D 256 tiles: group 0 s, group 1 dp); a warp
+//   holds 4 rows x 8 columns of them, so that each operand load is one
+//   shared-memory wavefront. dq: 32 rows x 512 columns over 256 threads is
+//   64 accumulators a thread, as at D 256; the two groups split the
+//   columns (group g the block's chunk g), not the keys, so each dq element
+//   is one chain over the keys and needs no merge. dk/dv: 32 keys x 512
+//   columns of dk and of dv is 128 accumulators a thread, group 0 dk and
+//   group 1 dv at both chunks; with the s^T or dp^T tile and the operands
+//   ptxas fits them in 254 registers without a spill. 512 threads (four
+//   groups of dk or dv at one chunk, 64 accumulators a thread) spilled
+//   under the 128 registers a thread they leave and ran slower; 16 keys a
+//   block would read Q and dO twice as often; the sums in 128 KB of shared
+//   memory would leave no room for the ring (PERF.md).
+// The chains are the D 256 body's: s and dp one __fmaf_rn chain over d
+// ascending through the pieces, dk and dv one over the queries ascending,
+// dq one over the keys ascending (not two halves added at the end). The
+// copies are loops: the forward's chunk copies, unrolled with a pitch
+// known only at run time, held their row offsets in registers and spilled.
 //
 // What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
 // prefill_f32_turns.py). At [1,8,2048,128] f32 causal dq takes ~0.39 ms and
@@ -195,43 +230,18 @@ __device__ __forceinline__ void copy_rows(const float* src, int valid,
   }
 }
 
-// The chunked bodies' copy: N rows of one kHeadChunk-column chunk from rows
-// `src_pitch` floats apart, as copy_rows stages them. It stays a loop: the
-// forward's chunk copies, unrolled with a pitch known only at run time,
-// held their row offsets in registers and spilled.
-template <int N>
-__device__ __forceinline__ void copy_chunk_rows(const float* src,
-                                                int src_pitch, int valid,
-                                                float* dst) {
-  constexpr int kPieces = kHeadChunk / 4;
-  constexpr int kCopies = N * kPieces;
-  static_assert(kCopies % kThreads == 0, "a whole number of rounds");
-#pragma unroll 1
-  for (int u = 0; u < kCopies / kThreads; ++u) {
-    const int i = threadIdx.x + u * kThreads;
-    const int r = i / kPieces;
-    const int c = (i % kPieces) * 4;
-    const bool ok = r < valid;
-    cp_async16(dst + r * BwdLayout<kHeadChunk>::kPitch + c,
-               src + static_cast<size_t>(ok ? r : 0) * src_pitch + c, ok);
-  }
-}
-
 // acc[r][i] = a[8r] . b[16i], rows of D floats at the padded pitch (a and
 // b point at the thread's first rows): R x 4 dot products a thread (R =
 // kRowsPerThread: 8, or 4 at D 256), each one __fmaf_rn chain over d
-// ascending. Per 4 d it loads R a and 4 b float4s for 16 R FMAs. kZero
-// false carries the chains on from acc (the chunked bodies' next chunk).
-template <int D, int R, bool kZero = true>
+// ascending. Per 4 d it loads R a and 4 b float4s for 16 R FMAs.
+template <int D, int R>
 __device__ __forceinline__ void dots_8x4(const float* a, const float* b,
                                          float (&acc)[R][4]) {
   constexpr int P = BwdLayout<D>::kPitch;
-  if constexpr (kZero) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-    }
+    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
   }
 #pragma unroll
   for (int c = 0; c < D; c += 4) {
@@ -685,52 +695,186 @@ flash_bwd_dkv_kernel(const BwdArgs a) {
   }
 }
 
-// The chunked bodies (head dims past 256, d_total = n * kHeadChunk): D
-// 256's layout (BwdLayout<256>: 32 own rows, one stage) and phases, plus a
-// grid axis over the gradient's 256-column chunks. For each walked tile,
-// one chunk at a time, the block stages the chunk's columns of its own rows
-// and of the tile (Q, dO, K, V) and each thread carries its s or dp chains
-// on through them in registers (one __fmaf_rn chain over d ascending, as
-// at D 256); then p and ds as at D 256, and the products of the block's own
-// chunk of columns, their operand tile (dq: K; dk/dv: Q and dO) staged
-// again unless the last chunk was the block's own.
+// The chunked bodies (head dims past 256, d_total = n * kHeadChunk; the
+// header's "Head dims past 256"): a block of 256 threads owns 32 rows and
+// the gradient's chunks own0 and own0 + 1 (one, at the end of an odd n).
+// Each walked tile runs n_pieces s-steps and then its product steps
+// through a ring of two stages: step f is read from stage f & 1 while step
+// f + 1's copies fill the other.
+constexpr int kPiece = 128;              // columns an s-step stages
+constexpr int kPiecePitch = kPiece + 4;  // floats, padded by 16 bytes
+constexpr int kChunkPitch = kHeadChunk + 4;
+constexpr int kOwnRows = 32;             // rows a chunked block owns
+constexpr int kDqStepKeys = 32;          // keys of K a dq product step
+constexpr int kKvStepQueries = 16;       // queries of Q and dO a dk/dv one
+// A ring stage, in floats: an s-step's piece of 32 + 32 own rows and 64 +
+// 64 tile rows, then (dk/dv, the tile's last s-step) the tile's lse and
+// dsum; or a product step's rows at the block's two chunks.
+constexpr int kStageRows = (2 * kOwnRows + 2 * kTile) * kPiecePitch;
+constexpr int kStage = kStageRows + 2 * kTile;
+static_assert(2 * kDqStepKeys * kChunkPitch <= kStage &&
+                  4 * kKvStepQueries * kChunkPitch <= kStage,
+              "a product step fits a stage");
 
-// dq of rows [row0, row0 + 32) and columns [col0, col0 + 256) of one bh:
-// block x takes row block n_row_blocks - 1 - x / (n_bh n), then bh x % n_bh
-// and column chunk (x % (n_bh n)) / n_bh (the longest rows first).
+struct ChunkedLayout {
+  static constexpr int kSquare = kOwnRows * (kTile + 4);  // a [32][64] tile
+  // dq: the ring, ds, the rows' lse and dsum
+  static constexpr int kDqDS = 2 * kStage;
+  static constexpr int kDqLse = kDqDS + kSquare;
+  static constexpr int kDqDsum = kDqLse + kOwnRows;
+  static constexpr size_t kDqBytes = sizeof(float) * (kDqDsum + kOwnRows);
+  // dk/dv: the ring, p^T, ds^T
+  static constexpr int kKvP = 2 * kStage;
+  static constexpr int kKvDS = kKvP + kSquare;
+  static constexpr size_t kKvBytes = sizeof(float) * (kKvDS + kSquare);
+};
+static_assert(ChunkedLayout::kDqBytes <= 232448 &&
+                  ChunkedLayout::kKvBytes <= 232448,
+              "a block's shared memory");
+
+// N rows of kCols floats from `src`, rows `src_pitch` floats apart, into
+// `dst` at kDstPitch, 16 bytes a copy spread over the block; rows at or
+// past `valid` are zeros (src must still point at a row of the tensor).
+// It stays a loop: the forward's chunk copies, unrolled with a pitch known
+// only at run time, held their row offsets in registers and spilled.
+template <int N, int kCols, int kDstPitch>
+__device__ __forceinline__ void copy_slab(const float* src, int src_pitch,
+                                          int valid, float* dst) {
+  constexpr int kPieces = kCols / 4;         // 16-byte copies a row
+  constexpr int kRound = kThreads / kPieces;  // rows a round of copies covers
+  static_assert(kThreads % kPieces == 0 && N % kRound == 0, "whole rounds");
+  const int c = (threadIdx.x % kPieces) * 4;
+  dst += threadIdx.x / kPieces * kDstPitch + c;
+#pragma unroll 1
+  for (int r = threadIdx.x / kPieces; r < N; r += kRound) {
+    const bool ok = r < valid;
+    cp_async16(dst, src + static_cast<size_t>(ok ? r : 0) * src_pitch + c, ok);
+    dst += kRound * kDstPitch;
+  }
+}
+
+// One float from `src` into `dst` (a zero where !ok, reading nothing), in
+// the thread's current copy group.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// acc[r][i] += a[8 r] . b[16 i] over one piece (kPiece columns at the
+// piece pitch; a and b point at the thread's first rows): 4 x 4 chains a
+// thread, each carried on from the last piece with one __fmaf_rn a d
+// ascending, as dots_8x4 at D 256. Per 4 d a thread loads 4 + 4 float4s
+// for 64 FMAs, each b float4 used as it arrives.
+__device__ __forceinline__ void piece_dots(const float* a, const float* b,
+                                           float (&acc)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < kPiece; c += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(a + 8 * r * kPiecePitch + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(b + 16 * i * kPiecePitch + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          acc[r][i] = __fmaf_rn(part(x[r], e), part(y, e), acc[r][i]);
+        }
+      }
+    }
+  }
+}
+
+// acc[r][4c + e] += sum over j < N ascending of w[8r][j] * m[j][64c + e]:
+// accumulate's products at D 256 for a chunk's rows at the chunk pitch (w
+// a [32][64] tile at the thread's first row, m at its first column), each
+// m float4 used as it arrives.
+template <int N>
+__device__ __forceinline__ void chunk_accumulate(const float* w,
+                                                 const float* m,
+                                                 float (&acc)[4][16]) {
+  constexpr int TP = kTile + 4;
+#pragma unroll
+  for (int jb = 0; jb < N; jb += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(w + 8 * r * TP + jb);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            m + (jb + jj) * kChunkPitch + 64 * c);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[r][4 * c + e] =
+                __fmaf_rn(part(x[r], jj), part(y, e), acc[r][4 * c + e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// A thread's place in a group of 128 in the chunked bodies: rows (or keys)
+// hi + 8r and, in the s-steps, columns (keys or queries) lo + 16i, in the
+// products columns 4 lo + 64c of its chunk. A warp holds 4 his x 8 los, so
+// that each load of a row operand and of a column operand is one
+// shared-memory wavefront (16 los of 2 his took two for the column one).
+__device__ __forceinline__ void chunked_place(int& hi, int& lo) {
+  const int warp = threadIdx.x % kGroupThreads / 32;
+  hi = 4 * (warp % 2) + threadIdx.x % 32 / 8;
+  lo = 8 * (warp / 2) + threadIdx.x % 8;
+}
+
+// dq of rows [row0, row0 + 32) of one bh at the gradient's chunks own0 and
+// own0 + 1 (n_own of them): block x takes row block n_row_blocks - 1 - x /
+// (n_bh m), then bh x % n_bh and chunk pair (x % (n_bh m)) / n_bh (the
+// longest rows first). In the s-steps group 0 carries s, group 1 dp (rows
+// hi + 8r, keys lo + 16i); p and ds as at D 256; in the product steps group
+// g accumulates dq += ds K at chunk own0 + g.
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_chunked_kernel(const BwdArgs a) {
-  constexpr int D = kHeadChunk;
-  using L = BwdLayout<D>;
-  constexpr int P = L::kPitch;
-  constexpr int TP = L::kTPitch;
-  constexpr int kRows = L::kRows;
-  constexpr int R = L::kRowsPerThread;
+  using L = ChunkedLayout;
+  constexpr int TP = kTile + 4;
+  constexpr int PP = kPiecePitch;
+  constexpr int kRows = kOwnRows;
+  constexpr int kSteps = kTile / kDqStepKeys;  // product steps a tile
   extern __shared__ __align__(16) float smem[];
   const int dt = a.d_total;
-  const int n_dc = dt / D;
+  const int n_dc = dt / kHeadChunk;
+  const int n_pieces = dt / kPiece;
   const int n_row_blocks = (a.t + kRows - 1) / kRows;
-  const int per_row_block = a.n_bh * n_dc;
+  const int per_row_block = a.n_bh * ((n_dc + 1) / 2);
   const int rest = static_cast<int>(blockIdx.x % per_row_block);
-  const size_t bh = rest % a.n_bh;
-  const int own = rest / a.n_bh;  // the block's column chunk
+  const int bh = rest % a.n_bh;
+  const int own0 = 2 * (rest / a.n_bh);  // the block's first chunk
+  const int n_own = min(2, n_dc - own0);
   const int row0 =
       (n_row_blocks - 1 - static_cast<int>(blockIdx.x / per_row_block)) * kRows;
   const int rows = min(kRows, a.t - row0);
-  const size_t qbase = bh * a.t;
-  const size_t kbase = bh * a.tk;
+  const int qbase = bh * a.t;  // rows of q, do, lse and dsum before the bh's
+  const int kbase = bh * a.tk;
   int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
   if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
-  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int per_tile = n_pieces + kSteps;
+  const int n_steps = (k_end + kTile - 1) / kTile * per_tile;
 
   const int group = threadIdx.x / kGroupThreads;
-  const int lo = threadIdx.x % 16;
-  const int hi = (threadIdx.x % kGroupThreads) / 16;
-  float* qs = smem + L::kDqQ;
-  float* dos = smem + L::kDqDO;
-  float* ks = smem + L::kDqK;
-  float* vs = smem + L::kDqV;
-  float* ds = smem + L::kDqS;
+  int hi, lo;
+  chunked_place(hi, lo);
+  float* ds = smem + L::kDqDS;
   const float* lse_s = smem + L::kDqLse;
   const float* dsum_s = smem + L::kDqDsum;
   if (threadIdx.x < kRows) {
@@ -740,186 +884,234 @@ flash_bwd_dq_chunked_kernel(const BwdArgs a) {
         ok ? a.dsum[qbase + row0 + threadIdx.x] : 0.f;
   }
 
-  float acc[R][4 * col_chunks<D>()];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4 * col_chunks<D>(); ++c) acc[r][c] = 0.f;
-  }
-  for (int ti = 0; ti < n_tiles; ++ti) {
-    const int kt0 = ti * kTile;
-    float sd[R][4];  // s (group 0) or dp (group 1), carried over the chunks
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
-    }
+  // step f's copies into its stage: an s-step's piece of Q and dO (the
+  // block's rows) and of K and V (the tile's keys), or a product step's
+  // keys of K at the block's chunks
+  auto issue = [&](int f) {
+    float* st = smem + (f & 1) * kStage;
+    const int kt0 = f / per_tile * kTile;
+    const int s = f % per_tile;
+    if (s < n_pieces) {
+      const int c0 = s * kPiece;
+      const size_t qrow = static_cast<size_t>(qbase + row0) * dt + c0;
+      const size_t krow = static_cast<size_t>(kbase + kt0) * dt + c0;
+      copy_slab<kRows, kPiece, PP>(a.q + qrow, dt, rows, st);
+      copy_slab<kRows, kPiece, PP>(a.dout + qrow, dt, rows, st + kRows * PP);
+      copy_slab<kTile, kPiece, PP>(a.k + krow, dt, a.tk - kt0,
+                                   st + 2 * kRows * PP);
+      copy_slab<kTile, kPiece, PP>(a.v + krow, dt, a.tk - kt0,
+                                   st + (2 * kRows + kTile) * PP);
+    } else {
+      const int k0 = kt0 + (s - n_pieces) * kDqStepKeys;
+      const float* src =
+          a.k + static_cast<size_t>(kbase + (k0 < a.tk ? k0 : kt0)) * dt +
+          own0 * kHeadChunk;
 #pragma unroll 1
-    for (int dc = 0; dc < n_dc; ++dc) {
-      __syncthreads();  // the last chunk's (or tile's) Q, dO, K, V are read
-      copy_chunk_rows<kRows>(a.q + (qbase + row0) * dt + dc * D, dt, rows, qs);
-      copy_chunk_rows<kRows>(a.dout + (qbase + row0) * dt + dc * D, dt, rows,
-                             dos);
-      copy_chunk_rows<kTile>(a.k + (kbase + kt0) * dt + dc * D, dt,
-                             a.tk - kt0, ks);
-      copy_chunk_rows<kTile>(a.v + (kbase + kt0) * dt + dc * D, dt,
-                             a.tk - kt0, vs);
-      commit_copies();
-      wait_copies<0>();
-      __syncthreads();  // this chunk's columns are in (and lse, dsum)
-      dots_8x4<D, R, false>((group ? dos : qs) + hi * P,
-                            (group ? vs : ks) + lo * P, sd);
-    }
-    hand_over(sd, ds, group, hi, lo);
-    __syncthreads();  // the halves are in; Q, dO, K and V are read
-    if (own != n_dc - 1) {  // K's columns of the block's own chunk
-      copy_chunk_rows<kTile>(a.k + (kbase + kt0) * dt + own * D, dt,
-                             a.tk - kt0, ks);
-      commit_copies();
-    }
-    dq_tile_grads<kRows>(a, sd, ds, lse_s, dsum_s, group, hi, lo, row0, rows,
-                         kt0);
-    wait_copies<0>();
-    __syncthreads();  // ds and K's own columns are in
-    constexpr int kHalfTile = kTile / 2;
-    accumulate<D, kHalfTile, R>(ds + hi * TP + group * kHalfTile,
-                                ks + group * kHalfTile * P + first_col<D>(lo),
-                                acc);
-  }
-  __syncthreads();  // the last tile's K and ds are read
-
-  // dq = group 0's sum over the first 32 keys of each tile + group 1's
-  // over the last 32; group 1's sums pass through the free K stage.
-  if (group == 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int c = 0; c < col_chunks<D>(); ++c) {
-        *reinterpret_cast<float4*>(ks + (hi + 8 * r) * D + 4 * lo + 64 * c) =
-            make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
-                        acc[r][4 * c + 3]);
+      for (int h = 0; h < n_own; ++h) {
+        copy_slab<kDqStepKeys, kHeadChunk, kChunkPitch>(
+            src + h * kHeadChunk, dt, a.tk - k0,
+            st + h * kDqStepKeys * kChunkPitch);
       }
     }
-  }
-  __syncthreads();
-  if (group == 1) return;
+  };
+
+  float acc[4][16];
+  float sd[4][4];  // s (group 0) or dp (group 1), one chain over the pieces
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[r][c] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+  }
+  if (n_steps > 0) issue(0);
+  commit_copies();
+  for (int f = 0; f < n_steps; ++f) {
+    wait_copies<0>();
+    __syncthreads();  // step f's stage is in (and lse, dsum); f - 1's is read
+    if (f + 1 < n_steps) issue(f + 1);
+    commit_copies();
+    const float* st = smem + (f & 1) * kStage;
+    const int s = f % per_tile;
+    if (s < n_pieces) {
+      if (s == 0) {  // a new tile's s or dp
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+        }
+      }
+      piece_dots(st + ((group ? kRows : 0) + hi) * PP,
+                 st + (2 * kRows + (group ? kTile : 0) + lo) * PP, sd);
+      if (s == n_pieces - 1) {  // p and ds: each group hands the other half
+        hand_over(sd, ds, group, hi, lo);
+        __syncthreads();  // the halves are in
+        dq_tile_grads<kRows>(a, sd, ds, lse_s, dsum_s, group, hi, lo, row0,
+                             rows, f / per_tile * kTile);
+      }
+    } else if (group < n_own) {  // dq += ds K over the step's keys
+      chunk_accumulate<kDqStepKeys>(
+          ds + hi * TP + (s - n_pieces) * kDqStepKeys,
+          st + group * kDqStepKeys * kChunkPitch + 4 * lo, acc);
+    }
+  }
+
+  if (group >= n_own) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
     const int row = hi + 8 * r;
     if (row >= rows) continue;
+    float* out = a.dq + static_cast<size_t>(qbase + row0 + row) * dt +
+                 (own0 + group) * kHeadChunk + 4 * lo;
 #pragma unroll
-    for (int c = 0; c < col_chunks<D>(); ++c) {
-      const int col = 4 * lo + 64 * c;
-      const float4 o = *reinterpret_cast<const float4*>(ks + row * D + col);
-      *reinterpret_cast<float4*>(a.dq + (qbase + row0 + row) * dt + own * D +
-                                 col) =
-          make_float4(__fadd_rn(acc[r][4 * c], o.x),
-                      __fadd_rn(acc[r][4 * c + 1], o.y),
-                      __fadd_rn(acc[r][4 * c + 2], o.z),
-                      __fadd_rn(acc[r][4 * c + 3], o.w));
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float4*>(out + 64 * c) =
+          make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
+                      acc[r][4 * c + 3]);
     }
   }
 }
 
-// dk and dv of key rows [key0, key0 + 32) and columns [col0, col0 + 256) of
-// one bh: block x takes key block x / (n_bh n) (the first, most causal,
-// first), then bh x % n_bh and column chunk (x % (n_bh n)) / n_bh.
+// dk and dv of key rows [key0, key0 + 32) of one bh at the gradient's
+// chunks own0 and own0 + 1 (n_own of them): block x takes key block x /
+// (n_bh m) (the first, most causal, first), then bh x % n_bh and chunk pair
+// (x % (n_bh m)) / n_bh. In the s-steps group 0 carries s^T, group 1 dp^T
+// (keys hi + 8r, queries lo + 16i); p^T and ds^T as at D 256; in the
+// product steps group 0 accumulates dk += ds^T Q, group 1 dv += p^T dO, at
+// both chunks: 128 accumulators a thread.
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_chunked_kernel(const BwdArgs a) {
-  constexpr int D = kHeadChunk;
-  using L = BwdLayout<D>;
-  constexpr int P = L::kPitch;
-  constexpr int TP = L::kTPitch;
-  constexpr int kRows = L::kRows;
-  constexpr int R = L::kRowsPerThread;
+  using L = ChunkedLayout;
+  constexpr int TP = kTile + 4;
+  constexpr int PP = kPiecePitch;
+  constexpr int kRows = kOwnRows;
+  constexpr int kSteps = kTile / kKvStepQueries;  // product steps a tile
+  constexpr int kSlab = kKvStepQueries * kChunkPitch;
   extern __shared__ __align__(16) float smem[];
   const int dt = a.d_total;
-  const int n_dc = dt / D;
-  const int per_key_block = a.n_bh * n_dc;
+  const int n_dc = dt / kHeadChunk;
+  const int n_pieces = dt / kPiece;
+  const int per_key_block = a.n_bh * ((n_dc + 1) / 2);
   const int rest = static_cast<int>(blockIdx.x % per_key_block);
-  const size_t bh = rest % a.n_bh;
-  const int own = rest / a.n_bh;  // the block's column chunk
+  const int bh = rest % a.n_bh;
+  const int own0 = 2 * (rest / a.n_bh);  // the block's first chunk
+  const int n_own = min(2, n_dc - own0);
   const int key0 = static_cast<int>(blockIdx.x / per_key_block) * kRows;
   const int keys = min(kRows, a.tk - key0);
-  const size_t qbase = bh * a.t;
-  const size_t kbase = bh * a.tk;
+  const int qbase = bh * a.t;  // rows of q, do, lse and dsum before the bh's
+  const int kbase = bh * a.tk;
   const int n_qtiles = (a.t + kTile - 1) / kTile;
   const int first = first_live_qtile(a, key0, n_qtiles);
+  const int per_tile = n_pieces + kSteps;
+  const int n_steps = (n_qtiles - first) * per_tile;
 
   const int group = threadIdx.x / kGroupThreads;
-  const int lo = threadIdx.x % 16;
-  const int hi = (threadIdx.x % kGroupThreads) / 16;
-  float* ks = smem + L::kKvK;
-  float* vs = smem + L::kKvV;
-  float* qs = smem + L::kKvQ;
-  float* dos = smem + L::kKvDO;
+  int hi, lo;
+  chunked_place(hi, lo);
   float* pt = smem + L::kKvP;
   float* dst = smem + L::kKvDS;
-  float* lse_s = smem + L::kKvLse;
-  float* dsum_s = smem + L::kKvDsum;
 
-  float acc[R][4 * col_chunks<D>()];  // dk (group 0) or dv (group 1)
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4 * col_chunks<D>(); ++c) acc[r][c] = 0.f;
-  }
-  for (int qi = first; qi < n_qtiles; ++qi) {
-    const int qt0 = qi * kTile;
-    if (threadIdx.x < kTile) {  // the last tile's p and ds are done
-      const int q = qt0 + static_cast<int>(threadIdx.x);
-      lse_s[threadIdx.x] = q < a.t ? a.lse[qbase + q] : 0.f;
-      dsum_s[threadIdx.x] = q < a.t ? a.dsum[qbase + q] : 0.f;
-    }
-    float sd[R][4];  // s^T (group 0) or dp^T (group 1), carried over chunks
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
-    }
+  // step f's copies into its stage: an s-step's piece of K and V (the
+  // block's keys) and of Q and dO (the tile's queries), with the tile's lse
+  // and dsum at its last, or a product step's queries of Q and of dO at the
+  // block's chunks (Q's chunks, then dO's)
+  auto issue = [&](int f) {
+    float* st = smem + (f & 1) * kStage;
+    const int qt0 = (first + f / per_tile) * kTile;
+    const int s = f % per_tile;
+    if (s < n_pieces) {
+      const int c0 = s * kPiece;
+      const size_t krow = static_cast<size_t>(kbase + key0) * dt + c0;
+      const size_t qrow = static_cast<size_t>(qbase + qt0) * dt + c0;
+      copy_slab<kRows, kPiece, PP>(a.k + krow, dt, keys, st);
+      copy_slab<kRows, kPiece, PP>(a.v + krow, dt, keys, st + kRows * PP);
+      copy_slab<kTile, kPiece, PP>(a.q + qrow, dt, a.t - qt0,
+                                   st + 2 * kRows * PP);
+      copy_slab<kTile, kPiece, PP>(a.dout + qrow, dt, a.t - qt0,
+                                   st + (2 * kRows + kTile) * PP);
+      if (s == n_pieces - 1 && threadIdx.x < 2 * kTile) {
+        const int qi = qt0 + static_cast<int>(threadIdx.x) % kTile;
+        const bool ok = qi < a.t;
+        cp_async4(st + kStageRows + threadIdx.x,
+                  (threadIdx.x < kTile ? a.lse : a.dsum) + qbase +
+                      (ok ? qi : qt0),
+                  ok);
+      }
+    } else {
+      const int q0 = qt0 + (s - n_pieces) * kKvStepQueries;
+      const size_t row = static_cast<size_t>(qbase + (q0 < a.t ? q0 : qt0)) *
+                         dt;
 #pragma unroll 1
-    for (int dc = 0; dc < n_dc; ++dc) {
-      __syncthreads();  // the last chunk's (or tile's) K, V, Q, dO are read
-      copy_chunk_rows<kRows>(a.k + (kbase + key0) * dt + dc * D, dt, keys, ks);
-      copy_chunk_rows<kRows>(a.v + (kbase + key0) * dt + dc * D, dt, keys, vs);
-      copy_chunk_rows<kTile>(a.q + (qbase + qt0) * dt + dc * D, dt,
-                             a.t - qt0, qs);
-      copy_chunk_rows<kTile>(a.dout + (qbase + qt0) * dt + dc * D, dt,
-                             a.t - qt0, dos);
-      commit_copies();
-      wait_copies<0>();
-      __syncthreads();  // this chunk's columns are in (and lse, dsum)
-      dots_8x4<D, R, false>((group ? vs : ks) + hi * P,
-                            (group ? dos : qs) + lo * P, sd);
+      for (int h = 0; h < n_own; ++h) {
+        const size_t col = row + static_cast<size_t>(own0 + h) * kHeadChunk;
+        copy_slab<kKvStepQueries, kHeadChunk, kChunkPitch>(
+            a.q + col, dt, a.t - q0, st + h * kSlab);
+        copy_slab<kKvStepQueries, kHeadChunk, kChunkPitch>(
+            a.dout + col, dt, a.t - q0, st + (2 + h) * kSlab);
+      }
     }
-    hand_over(sd, dst, group, hi, lo);
-    __syncthreads();  // the halves are in; K, V, Q and dO are read
-    if (own != n_dc - 1) {  // Q's and dO's columns of the block's own chunk
-      copy_chunk_rows<kTile>(a.q + (qbase + qt0) * dt + own * D, dt,
-                             a.t - qt0, qs);
-      copy_chunk_rows<kTile>(a.dout + (qbase + qt0) * dt + own * D, dt,
-                             a.t - qt0, dos);
-      commit_copies();
-    }
-    dkv_tile_grads<kRows>(a, sd, pt, dst, lse_s, dsum_s, group, hi, lo, key0,
-                          keys, qt0);
+  };
+
+  float acc[2][4][16];  // dk (group 0) or dv (group 1) at the two chunks
+  float sd[4][4];  // s^T (group 0) or dp^T (group 1), one chain over pieces
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) acc[0][r][c] = acc[1][r][c] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+  }
+  if (n_steps > 0) issue(0);
+  commit_copies();
+  for (int f = 0; f < n_steps; ++f) {
     wait_copies<0>();
-    __syncthreads();  // p^T, ds^T and the own columns of Q and dO are in
-    accumulate<D, kTile, R>((group ? pt : dst) + hi * TP,
-                            (group ? dos : qs) + first_col<D>(lo), acc);
+    __syncthreads();  // step f's stage is in; step f - 1's is read
+    if (f + 1 < n_steps) issue(f + 1);
+    commit_copies();
+    const float* st = smem + (f & 1) * kStage;
+    const int s = f % per_tile;
+    if (s < n_pieces) {
+      if (s == 0) {  // a new tile's s^T or dp^T
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sd[r][i] = 0.f;
+        }
+      }
+      piece_dots(st + ((group ? kRows : 0) + hi) * PP,
+                 st + (2 * kRows + (group ? kTile : 0) + lo) * PP, sd);
+      if (s == n_pieces - 1) {  // p^T and ds^T: each group hands the other half
+        hand_over(sd, dst, group, hi, lo);
+        __syncthreads();  // the halves are in
+        dkv_tile_grads<kRows>(a, sd, pt, dst, st + kStageRows,
+                              st + kStageRows + kTile, group, hi, lo, key0,
+                              keys, (first + f / per_tile) * kTile);
+      }
+    } else {  // dk or dv over the step's queries, chunk by chunk
+      const float* w =
+          (group ? pt : dst) + hi * TP + (s - n_pieces) * kKvStepQueries;
+      const float* m = st + 2 * group * kSlab + 4 * lo;
+      chunk_accumulate<kKvStepQueries>(w, m, acc[0]);
+      if (n_own > 1) chunk_accumulate<kKvStepQueries>(w, m + kSlab, acc[1]);
+    }
   }
 
   float* out = group ? a.dv : a.dk;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
+  for (int r = 0; r < 4; ++r) {
     const int key = hi + 8 * r;
     if (key >= keys) continue;
 #pragma unroll
-    for (int c = 0; c < col_chunks<D>(); ++c) {
-      *reinterpret_cast<float4*>(out + (kbase + key0 + key) * dt + own * D +
-                                 4 * lo + 64 * c) =
-          make_float4(acc[r][4 * c], acc[r][4 * c + 1], acc[r][4 * c + 2],
-                      acc[r][4 * c + 3]);
+    for (int h = 0; h < 2; ++h) {
+      if (h >= n_own) break;
+      float* o = out + static_cast<size_t>(kbase + key0 + key) * dt +
+                 (own0 + h) * kHeadChunk + 4 * lo;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        *reinterpret_cast<float4*>(o + 64 * c) =
+            make_float4(acc[h][r][4 * c], acc[h][r][4 * c + 1],
+                        acc[h][r][4 * c + 2], acc[h][r][4 * c + 3]);
+      }
     }
   }
 }
@@ -947,17 +1139,17 @@ int launch_bwd(bool dkv, const BwdArgs& args, cudaStream_t stream) {
 }
 
 // One launch of either chunked body (args.d_total a multiple of kHeadChunk
-// past it): a block per (bh, 32 rows, 256 columns), an SM each.
+// past it): a block per (bh, 32 rows, two 256-column chunks), an SM each.
 int launch_bwd_chunked(bool dkv, const BwdArgs& args, cudaStream_t stream) {
-  using L = BwdLayout<kHeadChunk>;
+  using L = ChunkedLayout;
   const size_t smem = dkv ? L::kKvBytes : L::kDqBytes;
   auto kernel = dkv ? flash_bwd_dkv_chunked_kernel : flash_bwd_dq_chunked_kernel;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks =
-      static_cast<long long>(((dkv ? args.tk : args.t) + L::kRows - 1) /
-                             L::kRows) *
-      args.n_bh * (args.d_total / kHeadChunk);
+      static_cast<long long>(((dkv ? args.tk : args.t) + kOwnRows - 1) /
+                             kOwnRows) *
+      args.n_bh * ((args.d_total / kHeadChunk + 1) / 2);
   if (blocks <= 0 || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1875,7 +1875,8 @@ def test_past_256_dims_run_chunked_and_their_faults_are_planted():
     faults = {"past256_f32_drop_last_chunk", "past256_bf16_drop_last_subtile",
               "past256_decode_chain_restart", "past256_f32_dq_drop_last_chunk",
               "past256_f32_dkv_chain_restart", "past256_bf16_bwd_chain_restart",
-              "past256_bf16_dkv_dv_chunk_offset"}
+              "past256_bf16_dkv_dv_chunk_offset",
+              "past256_f32_dkv_second_chunk_first_operand"}
     assert faults <= set(chip_smoke.PLANTED_FAULTS)
     for name in faults:
         source, site, _ = chip_smoke.PLANTED_FAULTS[name]
