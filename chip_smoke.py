@@ -8734,9 +8734,10 @@ def heads_past_256_times(device, d: int = 512) -> dict:
     beside SDPA with a length mask. Bounds: 4, 6 and 8 * D operations a
     live pair at the type's peak; the decodes by the cache bytes their
     lengths need. ``recompute``: the chunked bodies' operations over one
-    pass, n = D / 256: (n + 1) / 2 for the forward (every column chunk's
-    block computes all of S) and for K4b (each column chunk's block its
-    scores), (4 m + 2) / 6 for dq (S and dP over all of D in each of a
+    pass, n = D / 256: (m + 1) / 2 for the forward (every block computes
+    all of S for its m = n (bf16, a chunk a block) or ceil(n / 2) (f32, two
+    chunks a block) column chunks), (n + 1) / 2 for K4b (each column
+    chunk's block its scores), (4 m + 2) / 6 for dq (S and dP over all of D in each of a
     row block's m blocks, dS K over their own columns), (m + 1) / 2 for
     dk/dv (S^T and dP^T likewise, against dK's and dV's own columns; the
     bf16 body's second S^T not counted), m = n for the bf16 bodies (a
@@ -8745,7 +8746,8 @@ def heads_past_256_times(device, d: int = 512) -> dict:
     only); not counted in the bound."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     heads, t = WIDE_HEADS, SMALL_HEADS_T
-    factor = (d / fa.HEAD_CHUNK + 1) / 2
+    n_dc = d // fa.HEAD_CHUNK
+    factor = (n_dc + 1) / 2
     out = {}
     pairs = heads * t * (t + 1) // 2
     for key, dtype in ((f"flash_fwd D{d}", torch.bfloat16),
@@ -8762,8 +8764,10 @@ def heads_past_256_times(device, d: int = 512) -> dict:
                 q, k, v, 0, 0, True, True),
             sdpa, None if sdpa is None else device_ms(sdpa, calls=20),
             4 * q.numel() * size + 2 * heads * t * 4, 4 * d * pairs, kind)
-        out[key] |= {"library": backend, "recompute": factor}
-    n_dc = d / fa.HEAD_CHUNK
+        # blocks a row block computing S: the f32 body takes two output
+        # chunks a block, the bf16 body one
+        m = -(-n_dc // 2) if kind == "f32" else n_dc
+        out[key] |= {"library": backend, "recompute": (m + 1) / 2}
     for dtype, shape4 in (
             (torch.bfloat16, (LM_4096["bf16"]["batch"], heads,
                               LM_4096["bf16"]["seq"], d)),
@@ -9668,11 +9672,19 @@ PLANTED_FAULTS = {
         "if (L::kStages == 1 && qi > first) {",
         "if (L::kStages == 1 && qi > first + 1) {"),
     # head dims past 256. The f32 forward's chunked body leaves the last
-    # 256-column chunk of q and k out of every score
+    # 256-column chunk (its pieces) of q and k out of every score
     "past256_f32_drop_last_chunk": (
         FWD_SOURCE,
-        "score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);",
-        "if (dc + 1 < n_dc) score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);"),
+        "piece_scores(qp, q_once ? C::kQPitch : kPiecePitch,",
+        "if (piece + kHeadChunk / kPiece < n_pieces)\n"
+        "        piece_scores(qp, q_once ? C::kQPitch : kPiecePitch,"),
+    # the f32 forward's chunked body, past key 1024: a p.v step reads its V
+    # piece from the other ring stage, which the next step's copies fill
+    "past256_f32_pv_other_stage": (
+        FWD_SOURCE,
+        "piece_pv(smem + C::kS, ring + (f & 1) * C::kStage, smem + C::kA,",
+        "piece_pv(smem + C::kS, ring + ((f + (kt0 >= 1024)) & 1) * C::kStage,\n"
+        "               smem + C::kA,"),
     # the bf16 forward's chunked body leaves the last 64-column sub-tile of
     # q and k out of S (its stage still waited on and released)
     "past256_bf16_drop_last_subtile": (

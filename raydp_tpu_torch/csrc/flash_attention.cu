@@ -71,24 +71,52 @@
 // not depend on D.
 //
 // Head dims past 256 (bench.py's LM at d_model 4096: 8 heads of 512) arrive
-// zero-padded by the wrapper to a multiple of kHeadChunk (256) and run
-// flash_fwd_chunked_kernel, the D 256 body with the same Layout (212 KB) and
-// the same phases, plus a grid axis over the output's 256-column chunks:
-// - scores: for each group, the block stages Q's and K's columns one
-//   256-column chunk at a time (cp.async, waited before each chunk's
-//   products), and each thread carries its 4 x 4 score chains from chunk to
-//   chunk through its own slots of the score tile (no registers held while
-//   the next chunk is staged), so every score is the one chain over d
-//   ascending that D 256's body (and the decode) runs;
-// - softmax: as at D 256; every column chunk's block computes the same m
-//   and l, and the chunk-0 block writes them;
-// - p.v: the group's V rows of the block's own 256 columns, as at D 256.
-// The chunks' copies stay loops (copy_rows' kUnroll false): unrolled with a
-// source pitch known only at run time, their row offsets held registers
-// and ptxas spilled at 255; as loops the body takes 237, no spill.
-// Each block recomputes the scores over all of D, so the blocks of a row
-// block do D / 256 times the score work: (D / 256 + 1) / 2 times the
-// operations of one pass (1.5 at D 512).
+// zero-padded by the wrapper to a multiple of kHeadChunk (256), n = D / 256
+// chunks, and run flash_fwd_chunked_kernel. A block of 256 threads owns 64
+// query rows and two 256-column chunks of their o (m = ceil(n / 2) blocks a
+// row block; an odd n leaves the last block one chunk), so it computes the
+// scores once for 512 output columns: at D 512 once in all, at D 1024 and
+// 1536 (m + 1) / 2 = 1.5 and 2 times one pass's operations. It walks the
+// keys in groups of 64 (2 k-tiles, D 256's softmax and score tile), each
+// group as n_pieces = D / 128 score steps and then one p.v step for each
+// 128-column piece of its own columns (2 or 4), one step after another
+// through a ring of two shared-memory stages: step f reads stage f & 1
+// while step f + 1's copies (16-byte cp.async from every thread) fill the
+// other, one barrier a step, so no step waits for its own loads once the
+// ring runs. The budget that shapes it:
+// - Shared memory, 227 KB a block. At D 512, Q at the padded pitch is 64 x
+//   516 x 4 = 132,096 bytes and is staged once a block; a stage holds one
+//   128-column piece of the group's 64 keys, K at [64][132] (33,792 bytes)
+//   or V at [64][128]; the [64][68] scores 17,408, row_a and l 768: 217,856
+//   bytes. Past 512, Q does not fit: each score step stages Q's piece too,
+//   into Q's place (two stages of [64][132]), and K's into the ring.
+// - Registers. o of 64 rows x 512 columns over 256 threads is 128
+//   accumulators a thread: in a p.v step thread (pr, cq) holds rows pr + 8r
+//   (r < 8) x columns 4cq .. 4cq + 3 of the piece (D 128's p.v tile), its
+//   tile's chains beside them (32), loading p 4 keys at a time; the score
+//   steps carry D 256's 4 x 4 chains a thread through the pieces in
+//   registers. 512 threads (64 accumulators each under a 128-register cap)
+//   spilled in the f32 backward's dk/dv and ran slower; 32 rows a block
+//   would double the blocks and their K and V reads from L2.
+// - Shared-memory loads. Scores: per 4 d a thread loads 4 q and 4 k float4s
+//   for 64 FMAs, 2 FMAs a float; p.v: per 4 keys 8 p and 4 V float4s for 128
+//   FMAs, 2.7 a float (the FP32 pipes want 4). A warp's q loads are 4 rows
+//   and its k loads 8 keys at a pitch of 4 mod 32 words, its p loads one
+//   row (a broadcast) and its V loads 512 contiguous bytes.
+// The copies stay loops (copy_rows' kUnroll false): unrolled with a source
+// pitch known only at run time, their row offsets held registers and
+// ptxas spilled. The body takes 248 registers, no spill.
+// What the H100 showed (80GB HBM3, 700 W; PERF.md, timed by
+// prefill_f32_turns.py --case past256): at [1,8,2048,512] f32 causal
+// ~1.18 ms of device time, 2.3x its bound, where one block a chunk took
+// ~1.88; at D 1024 ~3.7 against ~6.2. A variant with D 128's groups of 128
+// keys and 8 x 4 score tiles (2.7 FMAs a float, K's 64-column pieces
+// unpadded with their quads swizzled by key to fit 227 KB) spilled at 255
+// registers and was no faster at D 512 (~1.19), 6% faster at D 1024.
+// Throwaway builds: without the copies past the first two steps ~1.05 (the
+// ring's copies and waits ~11%); p loaded 2 keys at a time (float2, 8 more
+// loads per 4 keys) ~1.52, so the p.v steps are bound by shared-memory
+// load instructions, not by the FP32 pipes.
 //
 // Why the bits are kept. The split decode (flash_decode.cu) runs the steps
 // of flash_common.cuh over the same 32-key tiles, merged in tile order, and
@@ -188,14 +216,14 @@ __device__ __forceinline__ void copy_rows(const float* src, int src_pitch,
 // Starts copying `n` tiles of rows from key kt0 of `src` (K or V, rows of
 // `src_pitch` floats) into a group buffer at `dst` (row pitch `pitch`), as
 // one cp.async group.
-template <int D, bool kUnroll = true>
+template <int D>
 __device__ __forceinline__ void load_group(const float* src, int src_pitch,
                                            size_t kbase, int kt0, int n, int tk,
                                            float* dst, int pitch) {
   for (int t = 0; t < n; ++t) {
     const int key = kt0 + t * kBlockK;
-    copy_rows<D, kBlockK, kUnroll>(src + (kbase + key) * src_pitch, src_pitch,
-                                   tk - key, dst + t * kBlockK * pitch, pitch);
+    copy_rows<D, kBlockK>(src + (kbase + key) * src_pitch, src_pitch,
+                          tk - key, dst + t * kBlockK * pitch, pitch);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -287,33 +315,6 @@ __device__ __forceinline__ void store_scores(
                                  (!a.causal || q_pos >= a.k_off + tk0 + j));
       ss[row * L::kSPitch + tile * kBlockK + j] =
           live ? __fmul_rn(s[r][i], a.scale) : kNegInf;
-    }
-  }
-}
-
-// A thread's running score chains (score_chains' `s`) kept between the
-// chunked body's column chunks in its own slots of the score tile, where
-// store_scores puts them at the end (an f32 store and load change no bit):
-// they hold no registers while the next chunk's Q and K are staged.
-template <int D>
-__device__ __forceinline__ void keep_chains(float* ss,
-                                            float (&s)[Layout<D>::kScoreRows][4],
-                                            bool load) {
-  using L = Layout<D>;
-  const int tile = threadIdx.x / L::kTileThreads;
-  const int rg = (threadIdx.x / 8) % L::kRowGroups;
-  const int g = threadIdx.x % 8;
-#pragma unroll
-  for (int r = 0; r < L::kScoreRows; ++r) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* at = ss + (rg + L::kRowGroups * r) * L::kSPitch + tile * kBlockK +
-                  g + 8 * i;
-      if (load) {
-        s[r][i] = *at;
-      } else {
-        *at = s[r][i];
-      }
     }
   }
 }
@@ -545,81 +546,6 @@ __device__ __forceinline__ void row_block(const FwdArgs& a, size_t bh,
   write_rows<D>(a, smem, qbase, row0, rows, m, l, acc, D, 0, true);
 }
 
-// The chunked body (head dims past 256, d_total = n * kHeadChunk): rows
-// [row0, row0 + 64) of bh and output columns [col0, col0 + 256), in D
-// 256's Layout. For each group of 2 k-tiles: the group's V columns start
-// loading; then, one 256-column chunk at a time, Q's and K's columns are
-// staged and every live score thread carries its chains through them; then
-// the scores are stored, the softmax and p.v run as at D 256.
-template <bool kTwoTerm>
-__device__ __forceinline__ void row_block_chunked(const FwdArgs& a, size_t bh,
-                                                  int row0, int col0,
-                                                  float* smem) {
-  constexpr int D = kHeadChunk;
-  using L = Layout<D>;
-  const int dt = a.d_total;
-  const int n_dc = dt / D;
-  const int rows = min(kRows, a.t - row0);
-  const size_t qbase = bh * a.t;
-  const size_t kbase = bh * a.tk;
-  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
-  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
-  constexpr int kGroup = L::kGroup;
-  constexpr int kGroupKeys = L::kGroupKeys;
-  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
-  const int n_groups = (n_tiles + kGroup - 1) / kGroup;
-
-  float m = kNegInf;  // the softmax threads' row
-  float l = 0.f;
-  float acc[L::kPvRows][4];  // the p.v threads' rows and columns
-#pragma unroll
-  for (int r = 0; r < L::kPvRows; ++r) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
-  }
-
-  for (int gi = 0; gi < n_groups; ++gi) {
-    const int kt0 = gi * kGroupKeys;
-    const int n_live = min(kGroup, n_tiles - gi * kGroup);
-    const bool live_tile = threadIdx.x / L::kTileThreads < n_live;
-    __syncthreads();  // the last group's p.v and scores are done
-    load_group<D, false>(a.v + col0, dt, kbase, kt0, n_live, a.tk,
-                         smem + L::kV, D);
-    for (int dc = 0; dc < n_dc; ++dc) {
-      if (dc > 0) __syncthreads();  // the last chunk's Q and K are read
-      copy_rows<D, kRows, false>(a.q + (qbase + row0) * dt + dc * D, dt, rows,
-                                 smem + L::kQ, L::kPitch);
-      load_group<D, false>(a.k + dc * D, dt, kbase, kt0, n_live, a.tk,
-                           smem + L::kK, L::kPitch);
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-      __syncthreads();  // this chunk's Q and K (and the group's V) are in
-      if (!live_tile) continue;
-      float s[L::kScoreRows][4];
-      if (dc == 0) {
-#pragma unroll
-        for (int r = 0; r < L::kScoreRows; ++r) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
-        }
-      } else {
-        keep_chains<D>(smem + L::kS, s, true);
-      }
-      score_chains<D>(smem + L::kQ, smem + L::kK, kt0, s);
-      if (dc + 1 < n_dc) {
-        keep_chains<D>(smem + L::kS, s, false);
-      } else {
-        store_scores<D>(a, s, smem + L::kS, row0, kt0);
-      }
-    }
-    __syncthreads();  // the scores are in
-    group_softmax<D, kTwoTerm>(a, smem + L::kS, smem + L::kA, row0, rows, kt0,
-                               n_live, m, l);
-    __syncthreads();  // p and row_a are in
-    group_pv<D>(smem + L::kS, smem + L::kV, smem + L::kA, n_live, acc);
-  }
-  write_rows<D>(a, smem, qbase, row0, rows, m, l, acc, dt, col0, col0 == 0);
-}
-
 // Prefill: one block per (bh, 64 query rows), the longest row blocks first:
 // block b takes row block n_row_blocks - 1 - b / n_bh of bh b % n_bh. One
 // block holds an SM, so the card starts each next block on the SM that
@@ -636,19 +562,276 @@ flash_fwd_kernel(const FwdArgs a) {
                          smem);
 }
 
-// The chunked body: one block per (bh, 64 query rows, 256 output columns),
-// the longest row blocks first, as flash_fwd_kernel orders them.
+// The chunked body (head dims past 256, d_total = n * kHeadChunk; the
+// header's "Head dims past 256"). A ring step stages one kPiece-column
+// piece: a score step K's (and past D 512 Q's) at kPiecePitch, a p.v step
+// V's at kPiece.
+constexpr int kPiece = 128;              // columns a ring step stages
+constexpr int kPiecePitch = kPiece + 4;  // K and Q pieces, padded by 16 bytes
+
+// Shared memory of a chunked block, in floats: Q (whole at D 512, at
+// kQPitch; past 512 the two stages of its pieces), the ring's two stages,
+// the group's scores (then p) at D 256's pitch, row_a of its two tiles and
+// the final l of each row.
+struct ChunkedLayout {
+  using L = Layout<kHeadChunk>;
+  static constexpr int kQPitch = 2 * kHeadChunk + 4;
+  static constexpr int kStage = kRows * kPiecePitch;
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kQ + kRows * kQPitch;
+  static constexpr int kS = kRing + 2 * kStage;
+  static constexpr int kA = kS + kRows * L::kSPitch;
+  static constexpr int kL = kA + L::kGroup * kRows;
+  static constexpr size_t kBytes = sizeof(float) * (kL + kRows);
+};
+static_assert(2 * ChunkedLayout::kStage <= kRows * ChunkedLayout::kQPitch,
+              "Q's pieces fit Q's place");
+static_assert(ChunkedLayout::kBytes <= 232448, "a block's shared memory");
+
+// s[r][i] carried on over one piece of the group's scores: q at the block's
+// row 0 (rows q_pitch floats apart), k at the piece's key 0. Thread (tile,
+// rg, g) sits where store_scores<256> expects it: rows rg + 16r x keys g +
+// 8i of its tile, one __fmaf_rn a d ascending; per 4 d it loads 4 q and 4 k
+// float4s for 64 FMAs, each k float4 used as it arrives.
+__device__ __forceinline__ void piece_scores(
+    const float* q, int q_pitch, const float* k,
+    float (&s)[Layout<kHeadChunk>::kScoreRows][4]) {
+  using L = Layout<kHeadChunk>;
+  const int tile = threadIdx.x / L::kTileThreads;
+  const int rg = (threadIdx.x / 8) % L::kRowGroups;
+  const int key = tile * kBlockK + threadIdx.x % 8;
+  const float* qr = q + rg * q_pitch;
+  const float* kr = k + key * kPiecePitch;
+#pragma unroll
+  for (int c = 0; c < kPiece; c += 4) {
+    float4 x[L::kScoreRows];
+#pragma unroll
+    for (int r = 0; r < L::kScoreRows; ++r) {
+      x[r] = *reinterpret_cast<const float4*>(
+          qr + r * L::kRowGroups * q_pitch + c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 y =
+          *reinterpret_cast<const float4*>(kr + 8 * i * kPiecePitch + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int r = 0; r < L::kScoreRows; ++r) {
+          s[r][i] = __fmaf_rn(part(x[r], e), part(y, e), s[r][i]);
+        }
+      }
+    }
+  }
+}
+
+// p.v of the group's live tiles over one piece of V (vs: [64 keys][kPiece]),
+// merged into the thread's o there: thread (pr, cq) holds rows pr + 8r (r <
+// 8) x columns 4cq .. 4cq + 3 of the piece. Each element is one __fmaf_rn
+// chain over a tile's keys ascending, then merge_term, tile after tile, as
+// group_pv; per 4 keys a thread loads 8 p and 4 V float4s for 128 FMAs.
+__device__ __forceinline__ void piece_pv(const float* ps, const float* vs,
+                                         const float* row_a, int n_live,
+                                         float (&acc)[8][4]) {
+  constexpr int kSPitch = Layout<kHeadChunk>::kSPitch;
+  const int pr = threadIdx.x / 32;
+  const int cq = threadIdx.x % 32;
+  for (int tile = 0; tile < n_live; ++tile) {
+    const float* pt = ps + pr * kSPitch + tile * kBlockK;
+    const float* vt = vs + tile * kBlockK * kPiece + 4 * cq;
+    float pv[8][4];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[r][e] = 0.f;
+    }
+#pragma unroll
+    for (int jb = 0; jb < kBlockK; jb += 4) {
+      float4 pj[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        pj[r] = *reinterpret_cast<const float4*>(pt + 8 * r * kSPitch + jb);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(vt + (jb + jj) * kPiece);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pv[r][e] = __fmaf_rn(part(pj[r], jj), part(vv, e), pv[r][e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const float alpha = row_a[tile * kRows + pr + 8 * r];
+      if (alpha == kSkip) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[r][e] = merge_term(alpha >= 0.f, alpha, acc[r][e], pv[r][e]);
+      }
+    }
+  }
+}
+
+// Rows [row0, row0 + 64) of one bh at o's chunks own0 and own0 + 1 (one, at
+// the end of an odd n): block x takes row block n_row_blocks - 1 - x / (n_bh
+// m) (the longest rows first, as flash_fwd_kernel orders them), then bh x %
+// n_bh and chunk pair (x % (n_bh m)) / n_bh. For each group of 2 k-tiles:
+// the score steps carry every live score thread's chains through the
+// pieces of Q and K, the scores and the softmax run as at D 256, and a p.v
+// step for each piece of the block's columns of V merges into o. The block
+// of chunk 0 writes m and l.
 template <bool kTwoTerm>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_chunked_kernel(const FwdArgs a) {
+  using L = Layout<kHeadChunk>;
+  using C = ChunkedLayout;
+  constexpr int kMaxPv = 2 * kHeadChunk / kPiece;  // p.v steps a group
   extern __shared__ __align__(16) float smem[];
+  const int dt = a.d_total;
+  const int n_dc = dt / kHeadChunk;
+  const int n_pieces = dt / kPiece;           // score steps a group
+  const bool q_once = dt <= 2 * kHeadChunk;  // Q fits: staged once a block
   const int n_row_blocks = (a.t + kRows - 1) / kRows;
-  const int per_row_block = a.n_bh * (a.d_total / kHeadChunk);
-  const int row_block_index =
-      n_row_blocks - 1 - static_cast<int>(blockIdx.x / per_row_block);
+  const int per_row_block = a.n_bh * ((n_dc + 1) / 2);
   const int rest = static_cast<int>(blockIdx.x % per_row_block);
-  row_block_chunked<kTwoTerm>(a, rest % a.n_bh, row_block_index * kRows,
-                              (rest / a.n_bh) * kHeadChunk, smem);
+  const size_t bh = rest % a.n_bh;
+  const int own0 = 2 * (rest / a.n_bh);  // the block's first chunk
+  const int n_pv = (n_dc - own0 < 2 ? 1 : 2) * kHeadChunk / kPiece;
+  const int row0 =
+      (n_row_blocks - 1 - static_cast<int>(blockIdx.x / per_row_block)) * kRows;
+  const int rows = min(kRows, a.t - row0);
+  const size_t qbase = bh * a.t;
+  const size_t kbase = bh * a.tk;
+  int k_end = a.tk;  // keys [0, k_end) can be live for some row of the block
+  if (a.causal) k_end = max(0, min(a.tk, a.q_off + row0 + rows - a.k_off));
+  const int n_tiles = (k_end + kBlockK - 1) / kBlockK;
+  const int n_groups = (n_tiles + L::kGroup - 1) / L::kGroup;
+  const int per_group = n_pieces + n_pv;
+  const int n_steps = n_groups * per_group;
+  const float* q_rows = a.q + (qbase + row0) * dt;
+  float* ring = smem + C::kRing;
+
+  // step f's copies into its stage, as one cp.async group: a score step's
+  // piece of K (past D 512 also Q's, into Q's place), or a p.v step's piece
+  // of V at the block's columns; keys past the group's live tiles or Tk
+  // are zeros
+  auto issue = [&](int f) {
+    const int gi = f / per_group;
+    const int s = f - gi * per_group;
+    const int kt0 = gi * L::kGroupKeys;
+    const int keys =
+        min(min(L::kGroup, n_tiles - gi * L::kGroup) * kBlockK, a.tk - kt0);
+    float* st = ring + (f & 1) * C::kStage;
+    if (s < n_pieces) {
+      if (!q_once) {
+        copy_rows<kPiece, kRows, false>(q_rows + s * kPiece, dt, rows,
+                                        smem + C::kQ + (f & 1) * C::kStage,
+                                        kPiecePitch);
+      }
+      copy_rows<kPiece, kRows, false>(a.k + (kbase + kt0) * dt + s * kPiece,
+                                      dt, keys, st, kPiecePitch);
+    } else {
+      copy_rows<kPiece, kRows, false>(
+          a.v + (kbase + kt0) * dt + own0 * kHeadChunk +
+              (s - n_pieces) * kPiece,
+          dt, keys, st, kPiece);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // step f begins: its stage is in, and step f - 1's is read, so step f +
+  // 1's copies may fill that one behind step f's arithmetic
+  auto begin_step = [&](int f) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    if (f + 1 < n_steps) issue(f + 1);
+  };
+
+  float m = kNegInf;  // the softmax threads' row
+  float l = 0.f;
+  float acc[kMaxPv][8][4];  // the p.v threads' o at the block's pieces
+#pragma unroll
+  for (int p = 0; p < kMaxPv; ++p) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[p][r][e] = 0.f;
+    }
+  }
+  if (n_steps > 0) {  // Q joins step 0's copies
+    if (q_once) {
+      copy_rows<2 * kHeadChunk, kRows, false>(q_rows, dt, rows, smem + C::kQ,
+                                              C::kQPitch);
+    }
+    issue(0);
+  }
+  int f = 0;
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int kt0 = gi * L::kGroupKeys;
+    const int n_live = min(L::kGroup, n_tiles - gi * L::kGroup);
+    const bool live_tile = threadIdx.x / L::kTileThreads < n_live;
+    float s[L::kScoreRows][4];
+#pragma unroll
+    for (int r = 0; r < L::kScoreRows; ++r) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[r][i] = 0.f;
+    }
+    for (int piece = 0; piece < n_pieces; ++piece, ++f) {
+      begin_step(f);
+      const float* qp = smem + C::kQ + (q_once ? piece * kPiece
+                                               : (f & 1) * C::kStage);
+      if (live_tile) {
+        piece_scores(qp, q_once ? C::kQPitch : kPiecePitch,
+                     ring + (f & 1) * C::kStage, s);
+      }
+    }
+    if (live_tile) store_scores<kHeadChunk>(a, s, smem + C::kS, row0, kt0);
+    __syncthreads();  // the scores are in
+    group_softmax<kHeadChunk, kTwoTerm>(a, smem + C::kS, smem + C::kA, row0,
+                                        rows, kt0, n_live, m, l);
+#pragma unroll
+    for (int p = 0; p < kMaxPv; ++p) {
+      if (p == n_pv) break;
+      begin_step(f);  // and p and row_a are in
+      piece_pv(smem + C::kS, ring + (f & 1) * C::kStage, smem + C::kA,
+               n_live, acc[p]);
+      ++f;
+    }
+  }
+
+  if (threadIdx.x % 4 == 0) {
+    const int r = threadIdx.x / 4;
+    smem[C::kL + r] = l;
+    if (r < rows && own0 == 0) {
+      a.m[qbase + row0 + r] = m;
+      a.l[qbase + row0 + r] = l;
+    }
+  }
+  __syncthreads();
+  const int pr = threadIdx.x / 32;
+  const int cq = threadIdx.x % 32;
+#pragma unroll
+  for (int p = 0; p < kMaxPv; ++p) {
+    if (p == n_pv) break;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = pr + 8 * r;
+      if (row >= rows) continue;
+      const float denom = fmaxf(smem[C::kL + row], 1e-30f);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        x[e] = a.normalize ? __fdiv_rn(acc[p][r][e], denom) : acc[p][r][e];
+      }
+      *reinterpret_cast<float4*>(a.o + (qbase + row0 + row) * dt +
+                                 own0 * kHeadChunk + p * kPiece + 4 * cq) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
 }
 
 // d: a multiple of kHeadChunk past it.
@@ -656,13 +839,13 @@ int launch_fwd_chunked(const void* q, const void* k, const void* v, void* o,
                        float* m, float* l, int bh, int t, int tk, int d,
                        int q_off, int k_off, int causal, int normalize,
                        int onepass, float scale, cudaStream_t stream) {
-  using L = Layout<kHeadChunk>;
+  using C = ChunkedLayout;
   auto kernel = onepass ? flash_fwd_chunked_kernel<false>
                         : flash_fwd_chunked_kernel<true>;
-  cudaError_t err = prepare(kernel, L::kBytes);
+  cudaError_t err = prepare(kernel, C::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((t + kRows - 1) / kRows) *
-                           bh * (d / kHeadChunk);
+                           bh * ((d / kHeadChunk + 1) / 2);
   if (blocks <= 0 || blocks > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -670,7 +853,7 @@ int launch_fwd_chunked(const void* q, const void* k, const void* v, void* o,
                      static_cast<const float*>(v), static_cast<float*>(o),
                      m, l, bh, t, tk, q_off, k_off, causal, normalize, scale,
                      d};
-  kernel<<<static_cast<unsigned>(blocks), kThreads, L::kBytes, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, C::kBytes, stream>>>(
       args);
   return static_cast<int>(cudaGetLastError());
 }

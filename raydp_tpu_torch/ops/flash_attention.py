@@ -53,8 +53,9 @@ cut to fit a block's shared memory and registers: see each source's notes.
 Past 256 (bench.py's LM at d_model 4096: 8 heads of 512) every family --
 the f32 and bf16 forward, the f32 and bf16 backward and both decodes --
 runs D zero-padded to a multiple of ``HEAD_CHUNK`` through chunked bodies:
-a grid axis over the output's (the gradient's) 256-column chunks, each
-block summing its scores (and the backward's dp) over all of D (one chain
+a grid axis over the output's (the gradient's) 256-column chunks, two a
+block in the f32 forward and backward and one in the others, each block
+summing its scores (and the backward's dp) over all of D (one chain
 per score in f32, so f32 decode == prefill holds) and computing its own
 columns of o, dq, or dk and dv.
 
@@ -112,8 +113,9 @@ KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 # Past the widest built width every family (forward, backward, decodes)
 # takes D in column chunks of this width (csrc/flash_common.cuh
 # kHeadChunk), D zero-padded to a multiple of it: the chunked bodies are the
-# D 256 bodies' layouts or tiles, and a chunk of 256 recomputes the scores
-# D / 256 times where one of 128 would D / 128 times.
+# D 256 bodies' layouts or tiles, and the blocks of a row block recompute
+# the scores D / 256 times (one 256-column chunk a block; the f32 forward
+# and backward take two, ceil(D / 512) times) where chunks of 128 would D / 128 times.
 HEAD_CHUNK = 256
 # keys per block of the int8-cache decode kernel (csrc/flash_decode_int8.cu
 # kChunk; the C entry refuses any other value): its workspace holds one

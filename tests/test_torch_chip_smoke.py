@@ -1862,8 +1862,8 @@ def test_chunked_patterns_name_every_instantiation(monkeypatch):
 
 def test_past_256_dims_run_chunked_and_their_faults_are_planted():
     """The check's head dims all run past 256 at a multiple of the chunk
-    width (320 padded to 512), the bitwise dims among them; the three
-    planted faults of the chunked bodies are in the CUDA sources, each in
+    width (320 padded to 512), the bitwise dims among them; the planted
+    faults of the chunked bodies are in the CUDA sources, each in
     code that only a head dim past 256 runs."""
     from raydp_tpu_torch.ops import flash_attention as fa
 
@@ -1876,7 +1876,8 @@ def test_past_256_dims_run_chunked_and_their_faults_are_planted():
               "past256_decode_chain_restart", "past256_f32_dq_drop_last_chunk",
               "past256_f32_dkv_chain_restart", "past256_bf16_bwd_chain_restart",
               "past256_bf16_dkv_dv_chunk_offset",
-              "past256_f32_dkv_second_chunk_first_operand"}
+              "past256_f32_dkv_second_chunk_first_operand",
+              "past256_f32_pv_other_stage"}
     assert faults <= set(chip_smoke.PLANTED_FAULTS)
     for name in faults:
         source, site, _ = chip_smoke.PLANTED_FAULTS[name]
